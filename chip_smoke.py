@@ -8,21 +8,35 @@ order, and any failed phase exits non-zero:
 
 1. require CUDA and the port's package beside this file;
 2. print the card's name and power limit (nvidia-smi);
-3. build K1 (``neuralstyletransferv1_torch/csrc/dis_iter.cu``) with nvcc;
+3. build K1 (``csrc/dis_iter.cu``) and K2–K5 (``csrc/int8_sites.cu``), one
+   nvcc each, started together, and print ptxas' registers and spills;
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
-5. check the CUDA slice against the port's CPU path (plain K1) on a small
-   input, in f32 with the exact warp;
-6. drive the slice — ``make_batched_core`` with the CLI's own parsed argv:
+5. hold K2–K5 against their plain versions at the int8 sites' 1080p B=8
+   shapes (res 270×480 128→128, d1 270×480 128→256, d2 540×960 64→128):
+   s8 codes and bf16 outputs bit-identical, sums within 1e-5; time each
+   beside its plain version and a cuDNN bf16 3×3 conv of the same shape;
+6. check the CUDA slice against the port's CPU path on a small input: f32
+   with the exact warp; then ``--quantize int8_static``, its int8 chains
+   bit for bit from one head output, the whole slice to a stated bound;
+7. drive the slice — ``make_batched_core`` with the CLI's own parsed argv:
    1920×1080 frames, batches of 8, flow EMA, bf16, the repo's full-width
    random-weight Johnson checkpoint — over 3 batches of synthesized moving
-   frames, and check that every K1 launch of the path happened;
-7. when OpenCV is installed, run the CLI ``main()`` end to end on a
+   frames, once plain and once for each of ``--quantize int8_static`` and
+   ``int8``; check every kernel's launch count of each run exactly, and that
+   each quantized stylize stays within the 1e-2 MAE gate of the bf16 one;
+8. when OpenCV is installed, run the CLI ``main()`` end to end on a
    synthesized 1080p mp4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
+``bf16_static``, ``int8_static``, ``int8``) with torch.profiler and prints where its device
+time goes, grouped by kind of kernel (PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -43,6 +57,27 @@ K1_OFFSET_TOL = 1e-3   # px, on at least K1_SHARE of the patches
 K1_SHARE = 0.99
 K1_RES_TOL = 1e-3      # grey levels (0..255), on those patches
 SLICE_MAE_TOL = 1e-3   # [0,1] frames, CUDA slice vs CPU slice, f32 + exact warp
+QUANT_MAE_TOL = 1e-2   # [0,1] frames: the repo's gate (quantized vs bf16, CUDA vs CPU)
+QUANT_BROKEN_TOL = 5e-2  # [0,1] raw-scale stylize: beyond this the path is broken
+SUM_TOL = 1e-5         # relative, the int8 sites' [Σ, Σ²] against the plain sums
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (the bound's memory rate)
+PEAK_INT8_OPS = 1979e12     # dense int8 tensor-core ops/s, same sheet
+PEAK_F32_OPS = 67e12        # f32 outside the tensor cores, same sheet
+
+# the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo)
+SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
+               "d1": (B, H // 4, W // 4, 128, 256, "edge"),
+               "d2": (B, H // 2, W // 2, 64, 128, "edge")}
+# K2-K5: the shapes each runs at on the main path, and the TPU kernel it replaces
+INT8_KERNELS = {
+    "res_site_s8o": (("res",), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:507"),
+    "site_s8": (("res",), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:670"),
+    "res_site": (("res", "d1", "d2"), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:139"),
+    "res_site_skip": (("res", "d1"), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:299"),
+}
+# launches of each int8 kernel per batch of each --quantize mode
+PER_BATCH = {"int8_static": {"res_site_s8o": 5, "site_s8": 5, "res_site": 2, "res_site_skip": 0},
+             "int8": {"res_site_s8o": 0, "site_s8": 0, "res_site": 7, "res_site_skip": 5}}
 
 
 def fail(msg: str) -> None:
@@ -88,6 +123,17 @@ def device_ms(fn, reps: int = 10) -> float | None:
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def dev_time(fn, reps: int = 10) -> float:
+    """Device ms per call: the profiler's device time, or CUDA events when
+    the profiler records none."""
+    d = device_ms(fn, reps)
+    return d if d is not None else cuda_ms(fn, reps)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def moving_frames(n: int, h: int, w: int, seed: int):
     """n uint8 RGB frames of a textured scene panning by (3, 1) px a frame."""
     import numpy as np
@@ -116,7 +162,7 @@ def k1_phase(dev):
     x = torch.from_numpy(np.stack(frames)).to(dev).float()
     gray = resize_bilinear(rgb_to_gray(x)[..., None], (H // 2, W // 2))[..., 0]
     prev, curr = gray[:-1], gray[1:]
-    worst, ms_total, plain_total = 0.0, 0.0, 0.0
+    worst, ms_total, plain_total, bound_total = 0.0, 0.0, 0.0, 0.0
     for lh, lw, k in tdis._level_sizes(H // 2, W // 2, 2):
         a = resize_bilinear(prev[..., None], (lh, lw))[..., 0]
         c = resize_bilinear(curr[..., None], (lh, lw))[..., 0]
@@ -145,6 +191,11 @@ def k1_phase(dev):
         d_k, d_plain = device_ms(kernel), device_ms(plain, reps=3)
         ms_total += d_k if d_k is not None else t_k
         plain_total += d_plain if d_plain is not None else t_plain
+        # bound: every input read once, u and res written once; ~16 f32
+        # operations per pixel of the patch in each of the iters + 1 samples
+        ops = n * (16 + 1) * 64 * 16
+        bound_total += max(nbytes(*flat.values(), u, res) / HBM_BYTES_PER_S,
+                           ops / PEAK_F32_OPS) * 1e3
         worst = max(worst, float(du.max()))
         log(f"K1 level {lh}x{lw}: {n} patches, offsets within {K1_OFFSET_TOL} px on "
             f"{share:.4%} (bound {K1_SHARE:.0%}), max offset err {float(du.max()):.3g} px, "
@@ -152,7 +203,136 @@ def k1_phase(dev):
             f"(plain {t_plain:.4f} ms); device time {d_k} ms (plain {d_plain} ms)")
         if share < K1_SHARE or res_err > K1_RES_TOL:
             fail(f"K1 disagrees with its plain version at level {lh}x{lw}")
-    return worst, ms_total, plain_total
+    return worst, ms_total, plain_total, bound_total
+
+
+def site_inputs(dev, b, h, w, c, co, seed):
+    """Random operands of an int8 site at realistic scales: codes span the
+    int8 range, f = acc·ws + bias is O(1)."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, lo=None):
+        t = torch.rand(shape, generator=g, device=dev) * scale + lo if lo is not None \
+            else torch.randn(shape, generator=g, device=dev) * scale
+        return t.contiguous()
+
+    wq = torch.randint(-127, 128, (3, 3, c, co), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    return {
+        "x": rnd(b, h, w, c, scale=2.0).to(torch.bfloat16),
+        "y": rnd(b, h, w, c).to(torch.bfloat16),
+        "a": rnd(b, c, scale=35.0, lo=5.0), "c": rnd(b, c, scale=8.0),
+        "a2": rnd(b, c, scale=1.0, lo=0.5), "c2": rnd(b, c, scale=0.3),
+        "wk": k8.pack_weights(wq), "ws": rnd(co, scale=1.5e-5, lo=0.5e-5),
+        "bias": rnd(co, scale=0.2), "qa": rnd(co, scale=50.0, lo=10.0), "qc": rnd(co, scale=10.0),
+        "codes": torch.randint(0, 128, (b, h, w, c), generator=g, device=dev,
+                               dtype=torch.int32).to(torch.int8),
+    }
+
+
+def site_calls(name, t, halo, yout):
+    """(kernel call, plain call, bytes moved) of one int8 site."""
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    if name == "res_site_s8o":
+        args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
+        ins, outs = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
+    elif name == "site_s8":
+        args = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"] / 40, t["qc"] / 40, t["y"])
+        ins, outs = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"], t["y"]), 2
+    elif name == "res_site":
+        args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
+        ins, outs = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"]), 2
+    else:
+        args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["wk"], t["ws"],
+                t["bias"])
+        ins, outs = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"],
+                     t["bias"]), 2
+    kw = {"halo": halo, **({"yout": yout} if name == "res_site_skip" else {})}
+    kernel = getattr(k8, name)
+    plain = getattr(k8, f"{name}_plain")
+    b, h, w, c = t["x"].shape
+    co = t["wk"].shape[2]
+    moved = nbytes(*ins) + b * h * w * co * outs
+    if name in ("res_site", "res_site_skip"):
+        moved += b * 2 * co * 4  # the sums
+    if name == "res_site_skip" and yout:
+        moved += b * h * w * c * 2  # v
+    return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw)), moved
+
+
+def check_site(name, out, ref, n):
+    """Max |kernel − plain| over every output; fails unless the codes and
+    bf16 values are identical and the sums agree within SUM_TOL."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    worst = 0.0
+    for o, r in zip(outs, refs):
+        if o is None and r is None:
+            continue
+        if o.dtype == torch.float32:  # [Σ, Σ²] [B,2,CO]
+            s2 = r[:, 1].double()
+            ok = ((o[:, 1].double() - s2).abs() <= SUM_TOL * s2).all() and \
+                ((o[:, 0].double() - r[:, 0].double()).abs() <= SUM_TOL * (n * s2).sqrt()).all()
+            if not bool(ok):
+                fail(f"{name}: the kernel's sums disagree with the plain sums")
+            continue
+        worst = max(worst, float((o.float() - r.float()).abs().max()))
+        if not torch.equal(o, r):
+            fail(f"{name}: the kernel's {o.dtype} output is not bit-identical to the plain "
+                 f"version's ({int((o != r).sum())} elements differ)")
+    return worst
+
+
+def int8_kernel_phase(dev):
+    """K2-K5 against their plain versions at the slice's shapes, timed in
+    turns (plain, kernel, kernel, plain) beside a cuDNN bf16 conv."""
+    import torch
+    import torch.nn.functional as F
+
+    results = {}
+    for name, (shapes, _replaces) in INT8_KERNELS.items():
+        rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0,
+               "max_abs_err": 0.0, "bound_by": "bytes"}
+        for shape in shapes:
+            b, h, w, c, co, halo = SITE_SHAPES[shape]
+            t = site_inputs(dev, b, h, w, c, co, seed=len(results) * 7 + len(shape))
+            kernel, plain, moved = site_calls(name, t, halo, yout=shape == "res")
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = check_site(name, out, ref, h * w)
+            del out, ref
+            t_plain = dev_time(plain, reps=2)
+            t_k = (dev_time(kernel) + dev_time(kernel)) / 2
+            t_plain = (t_plain + dev_time(plain, reps=2)) / 2
+            xc = t["x"].permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
+            wc = torch.randn((co, c, 3, 3), device=dev).to(torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            t_lib = dev_time(lambda: F.conv2d(xc, wc, padding=1))
+            ops = 2 * b * h * w * c * co * 9
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+            log(f"{name} @ {shape} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
+                f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 3x3 conv "
+                f"{t_lib:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+                f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)")
+            rec["ms"] += t_k
+            rec["plain_ms"] += t_plain
+            rec["cudnn_bf16_ms"] += t_lib
+            rec["bound_ms"] += max(t_bytes, t_ops)
+            if t_ops > t_bytes:
+                rec["bound_by"] = "operations"
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del t
+            torch.cuda.empty_cache()
+        rec["shapes"] = list(shapes)
+        results[name] = rec
+    return results
 
 
 def reference_phase(dev):
@@ -180,17 +360,99 @@ def reference_phase(dev):
     return mae
 
 
-def slice_phase(dev):
-    """The 1080p bf16 flow-EMA slice through make_batched_core."""
+def quant_reference_phase(dev):
+    """--quantize int8_static on the card against the port's CPU path.
+
+    First the int8 chains alone: from one head output and one calibration,
+    the s8-carry res chain and the decoder sites on the card (K2-K4) and on
+    the CPU (their plain versions) must agree bit for bit. Then the whole
+    slice at 128×256, 2 batches of 4, each device calibrating itself: the
+    bf16 head convs round differently in cuDNN and on the CPU, a flipped code
+    moves this random-weight net's output by about its int8 noise (~1e-2 on
+    the raw_01 scale), so the slice is held to QUANT_BROKEN_TOL and its MAE
+    recorded."""
+    import copy
+
     import numpy as np
     import torch
 
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.models import sites_i8
+    from neuralstyletransferv1_torch.models import transformer_net_quant as tq
+    from neuralstyletransferv1_torch.models.transformer_net import NormHooks
+
+    cpu = torch.device("cpu")
+    frames = moving_frames(8, 128, 256, SEED + 5)
+    model = st.load_model(CKPT, io_preset="raw_01")
+    x = torch.from_numpy(np.stack(frames[:4])).float() / 255.0
+    stats = tq.calibrate_in_stats(model.net, x[:1])
+    scales = tq.calibrate_act_scales(model.net, x[:1], sites=tq.QUANT_SITES_PALLAS,
+                                     static_stats=stats)
+    quant = tq.quantize_net(model.net, {k: v for k, v in scales.items() if k in tq.INT8_SITES})
+    nb = copy.deepcopy(model.net).to(torch.bfloat16)
+    with torch.no_grad():
+        y = nb.encode(x.to(torch.bfloat16), NormHooks(static_stats=stats)).contiguous()
+        chains = []
+        for d in (dev, cpu):
+            net_d = copy.deepcopy(nb).to(d)
+            sites = sites_i8.prepare_sites(net_d, quant, d)
+            st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+            yr = sites_i8.res_chain_s8_static(y.to(d), net_d, sites, st_d)
+            r2, _, _ = sites_i8.dec_chain(yr, net_d, sites, static_stats=st_d)
+            chains.append((yr.cpu(), r2.cpu()))
+    same = all(torch.equal(a, b) for a, b in zip(*chains))
+    log(f"int8_static chains from one head output at 128x256, card vs CPU: "
+        f"{'bit-identical' if same else 'DIFFERENT'} (res output and d2 raw)")
+    if not same:
+        fail("the int8_static chains differ between the card and the CPU")
+
+    argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+            "--io_preset", "raw_01", "--frame_batch", "4", "--flow_ema", "--exact_warp",
+            "--compute_dtype", "bfloat16", "--quantize", "int8_static"]
+    outs = {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        args = tpipe.build_parser().parse_args(argv + ["--device", d.type])
+        _, proc = tpipe.make_batched_core(args, d)
+        outs[name] = [proc(frames[b0:b0 + 4]).cpu().numpy() for b0 in (0, 4)]
+    mae = max(float(np.abs(a.astype(np.float64) - c).mean()) / 255.0
+              for a, c in zip(outs["cuda"], outs["cpu"]))
+    log(f"slice --quantize int8_static, CUDA vs CPU at 128x256: MAE {mae:.6f} "
+        f"(the repo's gate {QUANT_MAE_TOL}; bound {QUANT_BROKEN_TOL})")
+    if not mae <= QUANT_BROKEN_TOL:
+        fail("the CUDA int8_static slice disagrees with the CPU slice")
+    return mae
+
+
+def zero_counts():
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    k1.LAUNCHES = 0
+    for k in k8.LAUNCHES:
+        k8.LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES}
+
+
+def slice_phase(dev, quantize: str = "none"):
+    """The 1080p bf16 flow-EMA slice through make_batched_core, plain or
+    with a --quantize mode; returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
     from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
 
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
             "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16"]
+    if quantize != "none":
+        argv += ["--quantize", quantize]
     args = tpipe.build_parser().parse_args(argv)
     if args.device != "cuda":
         fail(f"the CLI's default device is {args.device}, expected cuda")
@@ -201,7 +463,7 @@ def slice_phase(dev):
     ds = tpipe.effective_flow_downscale(args.flow_downscale, H, W)
     levels = len(_level_sizes(H // ds, W // ds, 2))
 
-    k1.LAUNCHES = 0
+    zero_counts()
     torch.cuda.synchronize()
     t_batches = []
     outs = []
@@ -211,13 +473,15 @@ def slice_phase(dev):
         torch.cuda.synchronize()
         t_batches.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = k1.LAUNCHES
+    counts = read_counts()
 
-    expected = levels * N_BATCHES
-    log(f"slice 1080p B={B} bf16: batch seconds {', '.join(f'{t:.4f}' for t in t_batches)}; "
-        f"K1 launches {launches} (expected {levels} levels x {N_BATCHES} batches)")
-    if launches != expected:
-        fail(f"K1 launched {launches} times on the main path, expected {expected}")
+    expected = {"dis_iter": levels * N_BATCHES}
+    for k in PER_BATCH["int8"]:
+        expected[k] = PER_BATCH.get(quantize, {}).get(k, 0) * N_BATCHES
+    log(f"slice 1080p B={B} bf16 --quantize {quantize}: batch seconds "
+        f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {counts} (expected {expected})")
+    if counts != expected:
+        fail(f"the main path's launches {counts} are not the expected {expected}")
     last = outs[-1]
     if tuple(last.shape) != (B, H, W, 3) or last.dtype != torch.uint8 or last.device != dev:
         fail(f"slice output {tuple(last.shape)} {last.dtype} on {last.device}")
@@ -226,9 +490,38 @@ def slice_phase(dev):
         fail("the slice output is constant")
     steady = (N_BATCHES - 1) * B / sum(t_batches[1:])
     overall = N_BATCHES * B / sum(t_batches)
-    log(f"slice frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
+    log(f"slice --quantize {quantize} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
         f"{overall:.2f} including the first batch")
-    return launches
+    if quantize != "none":
+        quant_quality(dev, args, frames[:B], quantize)
+    return counts
+
+
+def quant_quality(dev, args, frames, quantize):
+    """The quantized stylize of the slice's first batch against the dynamic
+    bf16 stylize of the same frames: within the repo's 1e-2 gate with the
+    slot's IO preset (what the main path ran), and, as a check that the path
+    is not broken, within QUANT_BROKEN_TOL on the raw_01 scale, where this
+    random-weight net's outputs spread over [0, 1] (there int8 noise alone
+    is ~1e-2; PERF.md)."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.engine import stylizer as st
+
+    model = tpipe.load_slot_bank(args, dev)[0]
+    x = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
+    for preset, bound in ((model.io_preset, QUANT_MAE_TOL), ("raw_01", QUANT_BROKEN_TOL)):
+        m = st.StyleModel(model.arch, model.net, preset, model.name)
+        ref = st.jit_stylizer(m, dtype=torch.bfloat16)(x)
+        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize)(x)
+        mae = float((got - ref).abs().mean())
+        first = float((got[0] - ref[0]).abs().mean())
+        log(f"stylize --quantize {quantize} vs bf16, preset {preset}: MAE {mae:.6f} "
+            f"(calibration frame {first:.6f}; bound {bound})")
+        if not (torch.isfinite(got).all() and mae <= bound):
+            fail(f"the {quantize} stylize is not within {bound} of the bf16 stylize ({preset})")
 
 
 def cli_phase(dev, workdir: Path):
@@ -259,6 +552,61 @@ def cli_phase(dev, workdir: Path):
         fail("main() did not style the clip end to end")
 
 
+def kernel_group(name: str) -> str:
+    """A device kernel's kind, from its name."""
+    n = name.lower()
+    if "site_kernel" in n or "stats_reduce" in n:
+        return "int8 sites K2-K5"
+    if "dis_iter" in n:
+        return "K1 (DIS)"
+    if any(k in n for k in ("conv", "xmma", "cutlass", "sm90_", "implicit", "gemm", "cudnn")):
+        return "cuDNN conv"
+    if any(k in n for k in ("memcpy", "memset", "copy", "cat", "transpose", "pad",
+                            "index", "gather", "repeat")):
+        return "copies, pads, layout, gathers"
+    if any(k in n for k in ("reduce", "norm", "sum", "mean")):
+        return "reductions (norm statistics)"
+    return "elementwise"
+
+
+def profile_phase(dev):
+    """Device time of one steady 1080p B=8 batch of each slice, by kind of
+    kernel and by kernel (torch.profiler after two warm-up batches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    frames = moving_frames(3 * B, H, W, SEED + 6)
+    for mode in ("none", "bf16_static", "int8_static", "int8"):
+        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+                "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
+                "--quantize", mode]
+        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev)
+        proc(frames[:B])
+        proc(frames[B:2 * B])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            proc(frames[2 * B:])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in kernels)
+        groups: dict = {}
+        for name, ms, _ in kernels:
+            groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+        log(f"profile --quantize {mode}: batch wall {wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"  {g}: {ms:.2f} ms")
+        for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
+            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -284,19 +632,33 @@ def main() -> int:
     from neuralstyletransferv1_torch.device import resolve_device
     from neuralstyletransferv1_torch.kernels import _build
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     resolve_device("cuda")  # TF32 off for the f32 paths
     t0 = time.perf_counter()
+    _build.build([k1._SOURCE, k8._SOURCE])
     k1._lib()
-    log(f"built K1 with nvcc in {time.perf_counter() - t0:.2f} s")
+    k8._lib()
+    log(f"built K1 and K2-K5 with nvcc (in parallel) in {time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--profile"]:
+        profile_phase(dev)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         for line in txt.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas: {line.strip()}")
 
-    worst, k1_ms, k1_plain_ms = k1_phase(dev)
+    worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
+    int8 = int8_kernel_phase(dev)
     reference_phase(dev)
-    launches = slice_phase(dev)
+    quant_reference_phase(dev)
+    launches = {k: 0 for k in read_counts()}
+    for mode in ("none", "int8_static", "int8"):
+        for k, v in slice_phase(dev, mode).items():
+            launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
     try:
@@ -309,13 +671,25 @@ def main() -> int:
         if "jax" in sys.modules:
             fail("jax was imported")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "dis_iter", "route": "cuda",
         "source": "neuralstyletransferv1_torch/csrc/dis_iter.cu",
         "replaces": "neuralstyletransferv1_tpu/ops/dis_flow.py:113",
-        "launches": launches, "max_abs_err": worst,
-        "ms": k1_ms, "plain_ms": k1_plain_ms,
-    }]}), flush=True)
+        "launches": launches["dis_iter"], "max_abs_err": worst,
+        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
+        "library_ms": None,
+    }]
+    for name, (_shapes, replaces) in INT8_KERNELS.items():
+        rec = int8[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neuralstyletransferv1_torch/csrc/int8_sites.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "cudnn_bf16_ms": rec["cudnn_bf16_ms"], "shapes": rec["shapes"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

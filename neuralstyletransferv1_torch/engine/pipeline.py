@@ -2,7 +2,8 @@
 
 Counterpart of the batched streaming path of ``neuralstyletransferv1_tpu/
 engine/pipeline.py`` (``_make_batched_core`` + ``style_video_stream``), with
-the same CLI surface (``engine/config.build_arg_parser``). Frames cross to
+the same CLI surface (``engine/config.build_arg_parser``, a copy of the
+JAX engine's). Frames cross to
 the device as uint8 and convert there; the temporal state stays on the
 device between batches; the previous batch's frames are copied back and
 encoded while the device works on the next batch.
@@ -20,15 +21,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from neuralstyletransferv1_tpu.engine.config import build_arg_parser
-
 from ..device import resolve_device
+from .config import build_arg_parser
 
 _LETTERS = "abcdefgh"
 
 # ROADMAP.md "Queue 1 — port slices" items that port each unsupported mode.
 _PER_FRAME = "ROADMAP.md Queue 1, item 2 (per-frame path, image modes, --stream off)"
-_INT8 = "ROADMAP.md Queue 1, item 3 (--quantize modes, kernels K2-K5)"
+_QUANT_F32 = "ROADMAP.md Queue 1, item 10 (--quantize under float32)"
 _REGIONS = "ROADMAP.md Queue 1, item 4 (regions, masks, LAB multi-slot blend)"
 _BACKENDS = "ROADMAP.md Queue 1, item 6 (other stylizer backends, Farneback flow)"
 _MULTI = "ROADMAP.md Queue 1, item 8 (multi-GPU)"
@@ -69,7 +69,8 @@ def check_supported(args) -> None:
         (bool(args.region_mode or args.region_optimize), "--region_* modes", _REGIONS),
         (bool(args.mask or args.mask_dir), "--mask / --mask_dir", _REGIONS),
         (args.blend_models_lab, "--blend_models_lab", _REGIONS),
-        (args.quantize != "none", f"--quantize {args.quantize}", _INT8),
+        (args.quantize != "none" and args.compute_dtype != "bfloat16",
+         f"--quantize {args.quantize} with --compute_dtype {args.compute_dtype}", _QUANT_F32),
         (int(args.mesh_devices or 0) > 1, "--mesh_devices > 1", _MULTI),
         (args.flow_method != "dis", f"--flow_method {args.flow_method}", _BACKENDS),
         (bool(args.profile_dir), "--profile_dir", _BENCH),
@@ -120,7 +121,7 @@ def make_batched_core(args, device: torch.device):
     num_models = len(models)
     print(f"[bank] {num_models} slot(s): "
           + ", ".join(f"{m.name}({m.arch}/{m.io_preset})" for m in models))
-    stylize_fns = [st.jit_stylizer(m, dtype=dtype) for m in models]
+    stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize) for m in models]
     weights = parse_blend_weights(args.blend_models_weights, num_models) \
         if num_models > 1 else [1.0]
     w_slots = torch.tensor(weights, dtype=torch.float32, device=device)[:, None, None, None, None]
@@ -202,7 +203,7 @@ def style_video_stream(args, device: torch.device):
 
     Returns (written_frames, streamed_frames, src_fps).
     """
-    from neuralstyletransferv1_tpu.io import frames as fio
+    from ..io import frames as fio
 
     B, process_batch = make_batched_core(args, device)
     canvas_wh = None

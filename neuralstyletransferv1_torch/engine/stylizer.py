@@ -8,7 +8,11 @@ function directly: preprocess → TransformerNet → postprocess.
 
 dtype float32 is the parity path (TF32 off, see ``device.py``); bfloat16
 casts weights and activations to bf16, keeps instance-norm statistics in
-f32 and returns f32.
+f32 and returns f32. Under bfloat16, ``quantize`` selects the JAX engine's
+``--quantize`` modes: ``bf16_static`` freezes every instance norm to the
+first frame's statistics, ``int8_static`` adds the int8 residual and
+decoder sites on s8 carries, ``int8`` runs those sites with measured norms
+(``models/transformer_net_quant.py``).
 """
 
 from __future__ import annotations
@@ -20,11 +24,14 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from neuralstyletransferv1_tpu.io import checkpoints as ckpt
-
+from ..io import checkpoints as ckpt
 from ..models import io_presets as iop
+from ..models import sites_i8
+from ..models import transformer_net_quant as tq
 from ..models.transformer_net import TransformerNet, params_from_jax
 from ..ops.resize import resize_bilinear
+
+QUANTIZE_MODES = ("none", "bf16_static", "int8_static", "int8")
 
 
 @dataclass
@@ -39,8 +46,8 @@ class StyleModel:
 
 def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: str = "auto",
                name: str | None = None, device: torch.device | str = "cpu") -> StyleModel:
-    """Load a reference-format Johnson checkpoint, through the same importer
-    as the JAX engine (``io/checkpoints.import_transformer``)."""
+    """Load a reference-format Johnson checkpoint (``io/checkpoints``, the
+    port's copy of the JAX engine's importer)."""
     path = Path(path)
     if model_type != "transformer":
         raise NotImplementedError(
@@ -60,32 +67,78 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
     return StyleModel(arch, net, io_preset, name or path.stem)
 
 
-def stylize(net: TransformerNet, io_preset: str, x01: torch.Tensor) -> torch.Tensor:
+def stylize(forward, io_preset: str, x01: torch.Tensor) -> torch.Tensor:
     """[0,1] NHWC batch → stylized [0,1] NHWC batch, locked to the input size
-    (the Johnson net grows dims that are not multiples of 4)."""
-    out = iop.postprocess(io_preset, net(iop.preprocess(io_preset, x01)))
+    (the Johnson net grows dims that are not multiples of 4). ``forward``:
+    the net, or any function of its input with the same contract."""
+    out = iop.postprocess(io_preset, forward(iop.preprocess(io_preset, x01)))
     if out.shape[1:3] != x01.shape[1:3]:
         out = resize_bilinear(out, (x01.shape[1], x01.shape[2]))
     return out
 
 
-def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32):
+def _reflect_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Reflect-pad NHWC at the bottom/right."""
+    return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
+
+
+def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
+                        x01: torch.Tensor):
+    """Calibrate on the first frame of ``x01`` (f32, the f32 weights, padded
+    to a multiple of 4 only) and return the forward of ``quantize``."""
+    xc = x01[:1].float()
+    H, W = xc.shape[1], xc.shape[2]
+    xc = _reflect_pad(xc, (-H) % 4, (-W) % 4)
+    xin = iop.preprocess(model.io_preset, xc)
+    stats = None
+    if quantize in ("bf16_static", "int8_static"):
+        stats = tq.calibrate_in_stats(model.net, xin)
+    if quantize == "bf16_static":
+        print(f"[stylizer] static-norm bf16 path calibrated for {model.name} "
+              f"({len(stats)} frozen norms)")
+        return lambda t: net(t, static_stats=stats)
+    scales = tq.calibrate_act_scales(model.net, xin, sites=tq.QUANT_SITES_PALLAS,
+                                     static_stats=stats)
+    quant = tq.quantize_net(model.net, {k: v for k, v in scales.items()
+                                        if k in tq.INT8_SITES})
+    sites = sites_i8.prepare_sites(net, quant, x01.device)
+    print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(sites)} int8 sites"
+          + (f", {len(stats)} frozen norms)" if stats else ")"))
+    return lambda t: tq.forward_int8(net, t, sites, stats)
+
+
+def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
+                 quantize: str = "none"):
     """A stylize function for one slot: f(batch01 NHWC f32) → NHWC f32.
 
     Sizes that are not multiples of 4 reflect-pad to the next multiple and
-    crop back, as the JAX engine does for its fast forms."""
+    crop back, as the JAX engine does for its fast forms; the int8 modes pad
+    to multiples of 8 × 32 once H ≥ 32 and W ≥ 64, as the JAX engine does so
+    that its fused sites keep their geometry (the padding changes the
+    instance-norm statistics, so it is part of the function). A quantize
+    mode calibrates lazily on the first frame of the first batch."""
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_MODES}")
+    if quantize != "none" and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"--quantize {quantize} runs under bfloat16 only: ROADMAP.md Queue 1, item 10 "
+            "(--quantize under float32)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
+    state = {"forward": net if quantize == "none" else None}
+    int8 = quantize in ("int8_static", "int8")
 
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
+        if state["forward"] is None:
+            state["forward"] = _calibrated_forward(model, net, quantize, x01)
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
-        ph, pw = (-H) % 4, (-W) % 4
+        mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)
+        ph, pw = (-H) % mh, (-W) % mw
         if (ph or pw) and H >= 8 and W >= 8:
-            xp = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect")
-            out = stylize(net, model.io_preset, xp.permute(0, 2, 3, 1))[:, :H, :W]
+            out = stylize(state["forward"], model.io_preset, _reflect_pad(x, ph, pw))[:, :H, :W]
         else:
-            out = stylize(net, model.io_preset, x)
+            out = stylize(state["forward"], model.io_preset, x)
         return out.float()
 
     return fn

@@ -1,8 +1,10 @@
-"""Build a CUDA source of ``csrc/`` into a plain-C shared library and load it.
+"""Build the CUDA sources of ``csrc/`` into plain-C shared libraries and
+load them.
 
 nvcc compiles for ``sm_90a`` into ``neuralstyletransferv1_torch/_build/``
 (gitignored) at first use; the file name carries a hash of the source and
 flags, so an edited source rebuilds and an unchanged one is reused.
+``build`` compiles several sources at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -30,22 +32,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _target(source: str) -> tuple[Path, Path]:
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return src, BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build(sources) -> None:
+    """Compile every ``csrc/`` source of ``sources`` that is not built yet,
+    one nvcc process each, all started together."""
+    jobs = []
+    for source in sources:
+        src, out = _target(source)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+        jobs.append((src, out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src.name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once) and return the loaded library."""
     if source in _LIBS:
         return _LIBS[source]
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-        (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(out))
+    build([source])
+    lib = ctypes.CDLL(str(_target(source)[1]))
     _LIBS[source] = lib
     return lib

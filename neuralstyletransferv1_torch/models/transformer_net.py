@@ -9,6 +9,13 @@
 Parameter names are the reference checkpoints' (``conv1.conv2d.weight``,
 ``in1.weight`` …). ``forward`` takes and returns NHWC; the convolutions see
 it as a channels-last NCHW view.
+
+``forward``'s hooks are the JAX engine's (``transformer_net_s2d2.apply``):
+``tap(site, tensor)`` sees the activated tensor each conv consumes (sites
+``c1 c2 c3 r{i}a r{i}b d1 d2 d3``), ``stats_out`` records each instance
+norm's ``(mean, inv)`` and ``static_stats`` freezes them (norm sites
+``in1..in5`` and ``r{i}in{1,2}``). Either of the two runs every norm in the
+deferred form of ``models/s2d.py``; with neither, the plain instance norm.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from ..ops.conv import conv2d
 from ..ops.norm import instance_norm
 from ..ops.pad import reflect_pad_2d
 from ..ops.resize import upsample_nearest
+from .s2d import apply_in_relu, in_stats
 
 NUM_RES = 5
 _CONVS = ("conv1", "conv2", "conv3", "deconv1", "deconv2", "deconv3")
@@ -63,6 +71,35 @@ class ResidualBlock(nn.Module):
         return self.in2(self.conv2(y)) + x
 
 
+def _no_tap(site, t):
+    return None
+
+
+class NormHooks:
+    """How the forward runs each instance norm (site ``in1``, ``r3in2`` …):
+    frozen to ``static_stats[site]`` when it is there, else measured — in
+    the deferred form (recorded into ``stats_out`` when given) or, with
+    neither hook nor ``deferred``, as the plain ``instance_norm``."""
+
+    def __init__(self, stats_out: dict | None = None, static_stats: dict | None = None,
+                 deferred: bool = False):
+        self.stats_out, self.static_stats = stats_out, static_stats
+        self.deferred = deferred or stats_out is not None or static_stats is not None
+
+    def __call__(self, site: str, norm: "InstanceNorm", x: torch.Tensor, *,
+                 relu: bool = True) -> torch.Tensor:
+        if not self.deferred:
+            y = norm(x)
+            return torch.relu(y) if relu else y
+        if self.static_stats is not None and site in self.static_stats:
+            m, inv = (t.float() for t in self.static_stats[site])
+        else:
+            m, inv = in_stats(x)
+            if self.stats_out is not None:
+                self.stats_out[site] = (m, inv)
+        return apply_in_relu(x, m, inv, norm.weight, norm.bias, relu=relu)
+
+
 class TransformerNet(nn.Module):
     """The Johnson net; NHWC in (scaled per the IO preset), NHWC out."""
 
@@ -77,15 +114,33 @@ class TransformerNet(nn.Module):
         self.deconv2, self.in5 = ConvLayer(64, 32, 3), InstanceNorm(32)
         self.deconv3 = ConvLayer(32, 3, 9)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.in1(self.conv1(x)))
-        y = torch.relu(self.in2(self.conv2(y)))
-        y = torch.relu(self.in3(self.conv3(y)))
+    def forward(self, x: torch.Tensor, *, tap=None, stats_out: dict | None = None,
+                static_stats: dict | None = None) -> torch.Tensor:
+        tap = tap or _no_tap
+        nh = NormHooks(stats_out, static_stats)
+        y = self.encode(x, nh, tap)
         for i in range(1, NUM_RES + 1):
-            y = getattr(self, f"res{i}")(y)
-        y = torch.relu(self.in4(self.deconv1(upsample_nearest(y, 2))))
-        y = torch.relu(self.in5(self.deconv2(upsample_nearest(y, 2))))
+            blk = getattr(self, f"res{i}")
+            tap(f"r{i}a", y)
+            r = nh(f"r{i}in1", blk.in1, blk.conv1(y))
+            tap(f"r{i}b", r)
+            y = nh(f"r{i}in2", blk.in2, blk.conv2(r), relu=False) + y
+        tap("d1", y)
+        y = nh("in4", self.in4, self.deconv1(upsample_nearest(y, 2)))
+        tap("d2", y)
+        y = nh("in5", self.in5, self.deconv2(upsample_nearest(y, 2)))
+        tap("d3", y)
         return self.deconv3(y)
+
+    def encode(self, x: torch.Tensor, nh: NormHooks, tap=_no_tap) -> torch.Tensor:
+        """conv1 → conv2 → conv3, each with its norm and ReLU: the
+        activated input of the residual blocks."""
+        tap("c1", x)
+        y = nh("in1", self.in1, self.conv1(x))
+        tap("c2", y)
+        y = nh("in2", self.in2, self.conv2(y))
+        tap("c3", y)
+        return nh("in3", self.in3, self.conv3(y))
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -114,3 +169,22 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         conv(f"res{i}.conv2", r["conv2"])
         norm(f"res{i}.in2", r["in2"])
     return sd
+
+
+def quant_from_jax(quant: dict | None = None, static_stats: dict | None = None):
+    """The JAX engine's calibration → the port's: ``quant`` (per site int8
+    HWIO ``w`` — the phase weights for d1/d2 — f32 ``ws``, scalar ``qin``,
+    as ``transformer_net_s2d2.quantize_net`` returns it) and
+    ``static_stats`` (per norm site ``(mean, inv)``, as ``calibrate_in_stats``
+    returns it), with numpy-convertible leaves. Returns the pair in the form
+    ``transformer_net_quant.quantize_net`` / ``calibrate_in_stats`` give,
+    either None when not given."""
+    q = None if quant is None else {
+        site: {"w": torch.from_numpy(np.asarray(s["w"], np.int8).copy()),
+               "ws": torch.from_numpy(np.asarray(s["ws"], np.float32).copy()),
+               "qin": float(np.float32(s["qin"]))}
+        for site, s in quant.items()}
+    st = None if static_stats is None else {
+        site: tuple(torch.from_numpy(np.asarray(t, np.float32).copy()) for t in mi)
+        for site, mi in static_stats.items()}
+    return q, st

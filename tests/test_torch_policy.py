@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: no JAX at run time, no CPU fallback on the
-CUDA path, and K1's kernel against its plain version on the card.
+CUDA path, and the kernels (K1, K2–K5) against their plain versions on the
+card.
 
 The JAX-import rule is checked statically (an AST scan), since the test
 process itself imports jax.
@@ -13,10 +14,11 @@ import pytest
 import torch
 
 from neuralstyletransferv1_torch.kernels import dis_iter as k1
+from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "neuralstyletransferv1_torch"
-ALLOWED_TPU_MODULES = {"io.checkpoints", "engine.config", "io.frames"}
+ALLOWED_TPU_MODULES: set[str] = set()  # the port shares no module with the JAX package
 
 
 def _imports(path: Path):
@@ -67,7 +69,8 @@ def test_scan_catches_a_jax_import(tmp_path):
     bad.write_text("import jax.numpy as jnp\n"
                    "from neuralstyletransferv1_tpu.ops import warp\n"
                    "from neuralstyletransferv1_tpu.io import checkpoints\n")
-    assert [b[1] for b in _scan([bad])] == ["jax.numpy", "neuralstyletransferv1_tpu.ops"]
+    assert [b[1] for b in _scan([bad])] == ["jax.numpy", "neuralstyletransferv1_tpu.ops",
+                                            "neuralstyletransferv1_tpu.io"]
 
 
 def test_main_without_device_needs_cuda(monkeypatch):
@@ -145,3 +148,68 @@ def test_k1_wrapper_rejects_bad_inputs(cuda_device):
         k1.dis_iter(**{**ins, "t": ins["t"].double()})
     with pytest.raises(ValueError, match="expected cuda"):
         k1.dis_iter(**{**ins, "gx": ins["gx"].cpu()})
+
+
+def _int8_inputs(device, c, co, h=19, w=37, seed=0):
+    """Operands of an int8 site (B=2) at realistic scales."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    wq = torch.from_numpy(rng.integers(-127, 128, (3, 3, c, co)).astype(np.int8))
+    return {
+        "x": f32(rng.normal(0, 2, (2, h, w, c))).to(torch.bfloat16),
+        "y": f32(rng.normal(0, 1, (2, h, w, c))).to(torch.bfloat16),
+        "a": f32(rng.uniform(5, 40, (2, c))), "c": f32(rng.normal(0, 8, (2, c))),
+        "a2": f32(rng.uniform(0.5, 1.5, (2, c))), "c2": f32(rng.normal(0, 0.3, (2, c))),
+        "w": k8.pack_weights(wq).to(device),
+        "ws": f32(rng.uniform(0.5, 2, co) / (127 * 127 * 12)), "bias": f32(rng.normal(0, 0.2, co)),
+        "qa": f32(rng.uniform(10, 60, co)), "qc": f32(rng.normal(0, 10, co)),
+        "codes": torch.from_numpy(rng.integers(0, 128, (2, h, w, c)).astype(np.int8)).to(device),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,co,halo", [(128, 128, "reflect"), (128, 256, "edge"),
+                                       (64, 128, "edge")])
+def test_k2_to_k5_match_plain_on_card(cuda_device, c, co, halo):
+    """K2-K5 against their plain versions on the card: codes and bf16
+    outputs bit-identical, the sums within 1e-5."""
+    t = _int8_inputs(cuda_device, c, co)
+    before = dict(k8.LAUNCHES)
+    o, s = k8.res_site(t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"], halo=halo)
+    po, ps = k8.res_site_plain(t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"],
+                               halo=halo)
+    assert torch.equal(o, po) and torch.allclose(s, ps, rtol=1e-5, atol=1e-3)
+    o, s, v = k8.res_site_skip(t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["w"],
+                               t["ws"], t["bias"], halo=halo)
+    po, ps, pv = k8.res_site_skip_plain(t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0,
+                                        t["w"], t["ws"], t["bias"], halo=halo)
+    assert torch.equal(o, po) and torch.equal(v, pv)
+    assert torch.allclose(s, ps, rtol=1e-5, atol=1e-3)
+    expect = {"res_site": 1, "res_site_skip": 1}
+    if c == co:
+        q = k8.res_site_s8o(t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"],
+                            t["qa"], t["qc"], halo=halo)
+        assert torch.equal(q, k8.res_site_s8o_plain(t["x"], t["a"], t["c"], -127.0, t["w"],
+                                                    t["ws"], t["bias"], t["qa"], t["qc"],
+                                                    halo=halo))
+        aa, ac = t["qa"] / 40, t["qc"] / 40
+        o = k8.site_s8(t["codes"], t["w"], t["ws"], t["bias"], aa, ac, t["y"], halo=halo)
+        assert torch.equal(o, k8.site_s8_plain(t["codes"], t["w"], t["ws"], t["bias"], aa, ac,
+                                               t["y"], halo=halo))
+        expect.update(res_site_s8o=1, site_s8=1)
+    torch.cuda.synchronize()
+    assert {k: k8.LAUNCHES[k] - before[k] for k in expect} == expect
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_bad_inputs(cuda_device):
+    t = _int8_inputs(cuda_device, 128, 128)
+    args = (t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"])
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.res_site(t["x"].transpose(1, 2), *args)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k8.res_site(t["x"].float(), *args)
+    with pytest.raises(ValueError, match="expected cuda"):
+        k8.res_site(t["x"], t["a"].cpu(), *args[1:])
+    with pytest.raises(ValueError, match="C=96"):
+        k8.res_site(t["x"][..., :96].contiguous(), *args)

@@ -135,6 +135,7 @@ def test_cli_main_matches_jax(tmp_path):
 def test_unported_flags_raise():
     for extra in (["--frame_batch", "1"], ["--stream", "off"], ["--region_mode", "grid"],
                   ["--mask", "m.png"], ["--blend_models_lab"], ["--quantize", "int8"],
+                  ["--quantize", "bf16_static"],
                   ["--mesh_devices", "2"], ["--flow_method", "farneback"],
                   ["--inference_res", "64"], ["--model_b", "b.t7"],
                   ["--model_type", "reconet"]):
