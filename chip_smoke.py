@@ -8,24 +8,32 @@ order, and any failed phase exits non-zero:
 
 1. require CUDA and the port's package beside this file;
 2. print the card's name and power limit (nvidia-smi);
-3. build K1 (``csrc/dis_iter.cu``) and K2–K5 (``csrc/int8_sites.cu``), one
+3. build K1 (``csrc/dis_iter.cu``) and K2–K8b (``csrc/int8_sites.cu``), one
    nvcc each, started together, and print ptxas' registers and spills;
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
-5. hold K2–K5 against their plain versions at the int8 sites' 1080p B=8
-   shapes (res 270×480 128→128, d1 270×480 128→256, d2 540×960 64→128):
-   s8 codes and bf16 outputs bit-identical, sums within 1e-5; time each
-   beside its plain version and a cuDNN bf16 3×3 conv of the same shape;
+5. hold K2–K8b against their plain versions at the int8 sites' 1080p B=8
+   shapes (res 270×480 128→128; d1 270×480 128→256; d2 540×960 64→128;
+   K3 also with YAFF, with the s8 emit at floor −127 and as the s8 decoder's
+   d1/d2; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
+   rows 540×960 128→60 and its s8 form →12): s8 codes and bf16 outputs
+   bit-identical, sums within 1e-5; time each beside its plain version and
+   the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
+   c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
-   bit for bit from one head output, the whole slice to a stated bound;
+   bit for bit from one head output — under the adopted set and under the
+   all-s8 set A (head K8a/K8b, s8 res chain, s8 decoder, K6 tail) from one
+   conv1 output — and the whole slice to a stated bound;
 7. drive the slice — ``make_batched_core`` with the CLI's own parsed argv:
    1920×1080 frames, batches of 8, flow EMA, bf16, the repo's full-width
    random-weight Johnson checkpoint — over 3 batches of synthesized moving
-   frames, once plain and once for each of ``--quantize int8_static`` and
-   ``int8``; check every kernel's launch count of each run exactly, and that
-   each quantized stylize stays within the 1e-2 MAE gate of the bf16 one;
+   frames, once plain, once for each of ``--quantize int8_static`` and
+   ``int8`` with the adopted site sets, and once for each with the sets A
+   (int8_static) and B (int8: head K8a/K8b, K4/K5 chains, K7 deconv3); check
+   every kernel's launch count of each run exactly, and that each quantized
+   stylize stays within the 1e-2 MAE gate of the bf16 one;
 8. when OpenCV is installed, run the CLI ``main()`` end to end on a
    synthesized 1080p mp4.
 
@@ -35,8 +43,9 @@ The line before the last is the kernels' JSON record; the last line is
     python3 chip_smoke.py --profile
 
 instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
-``bf16_static``, ``int8_static``, ``int8``) with torch.profiler and prints where its device
-time goes, grouped by kind of kernel (PERF.md section 5).
+``bf16_static``, ``int8_static``, ``int8``, and the two under sets A and B) with
+torch.profiler and prints where its device time goes, grouped by kind of
+kernel (PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -64,20 +73,46 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (the bound's memory rate)
 PEAK_INT8_OPS = 1979e12     # dense int8 tensor-core ops/s, same sheet
 PEAK_F32_OPS = 67e12        # f32 outside the tensor cores, same sheet
 
-# the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo)
+# the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo); the c2/c3
+# sites are stride 2 (H, W are their input's), d3 is deconv3's rows conv
 SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
                "d1": (B, H // 4, W // 4, 128, 256, "edge"),
-               "d2": (B, H // 2, W // 2, 64, 128, "edge")}
-# K2-K5: the shapes each runs at on the main path, and the TPU kernel it replaces
+               "d2": (B, H // 2, W // 2, 64, 128, "edge"),
+               "c2": (B, H, W, 32, 64, "reflect"),
+               "c3": (B, H // 2, W // 2, 64, 128, "reflect"),
+               "d3": (B, H // 2, W // 2, 128, 64, None)}
+_SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
+# K2-K8b: the (shape, form) cases each runs on the main path, and the TPU
+# kernel it replaces. K3's forms: "aff_add" (frozen affine + residual),
+# "yaff" (+ the raw residual's frozen affine and ReLU), "emit" (+ the s8 emit
+# at floor -127: the bridge into d1), "s8out" (the s8 decoder's d1/d2)
 INT8_KERNELS = {
-    "res_site_s8o": (("res",), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:507"),
-    "site_s8": (("res",), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:670"),
-    "res_site": (("res", "d1", "d2"), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:139"),
-    "res_site_skip": (("res", "d1"), "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:299"),
+    "res_site_s8o": ((("res", ""),), f"{_SITES_I8}:507"),
+    "site_s8": ((("res", "aff_add"), ("res", "yaff"), ("res", "emit"), ("d1", "s8out"),
+                 ("d2", "s8out")), f"{_SITES_I8}:670"),
+    "res_site": ((("res", ""), ("d1", ""), ("d2", "")), f"{_SITES_I8}:139"),
+    "res_site_skip": ((("res", ""), ("d1", "")), f"{_SITES_I8}:299"),
+    "c2_site": ((("c2", ""),), f"{_SITES_I8}:1147"),
+    "c3_site": ((("c3", ""),), f"{_SITES_I8}:1271"),
+    "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
+    "d3_s8_site": ((("d3", ""),), f"{_SITES_I8}:939"),
 }
-# launches of each int8 kernel per batch of each --quantize mode
-PER_BATCH = {"int8_static": {"res_site_s8o": 5, "site_s8": 5, "res_site": 2, "res_site_skip": 0},
-             "int8": {"res_site_s8o": 0, "site_s8": 0, "res_site": 7, "res_site_skip": 5}}
+# the all-int8 head and tail sets (ROADMAP Queue 1, item 11)
+SET_A = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8")
+SET_B = ("head_i8", "res_i8", "dec_i8", "tail_s8", "d3_i8")
+# the quantized slices, (--quantize, fused set or None for the adopted one),
+# and the launches of each int8 kernel per batch
+SLICES = (("int8_static", None), ("int8", None), ("int8_static", SET_A), ("int8", SET_B))
+PER_BATCH = {("int8_static", None): {"res_site_s8o": 5, "site_s8": 5, "res_site": 2},
+             ("int8", None): {"res_site": 7, "res_site_skip": 5},
+             ("int8_static", SET_A): {"c2_site": 1, "c3_site": 1, "res_site_s8o": 5,
+                                      "site_s8": 7, "d3_s8_site": 1},
+             ("int8", SET_B): {"c2_site": 1, "c3_site": 1, "res_site": 7, "res_site_skip": 5,
+                               "d3_rows_site": 1}}
+
+
+def slice_name(quantize: str, fused) -> str:
+    return quantize if fused is None else f"{quantize}+set{'A' if fused == SET_A else 'B'}"
 
 
 def fail(msg: str) -> None:
@@ -208,7 +243,8 @@ def k1_phase(dev):
 
 def site_inputs(dev, b, h, w, c, co, seed):
     """Random operands of an int8 site at realistic scales: codes span the
-    int8 range, f = acc·ws + bias is O(1)."""
+    int8 range, f = acc·ws + bias is O(1). Also deconv3's tap-packed 1×5
+    weights (60 lanes padded to 64), dequant row and 12-lane bias."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
@@ -220,49 +256,77 @@ def site_inputs(dev, b, h, w, c, co, seed):
             else torch.randn(shape, generator=g, device=dev) * scale
         return t.contiguous()
 
-    wq = torch.randint(-127, 128, (3, 3, c, co), generator=g, device=dev,
-                       dtype=torch.int32).to(torch.int8)
+    def codes(*shape, lo=-127):
+        return torch.randint(lo, 128, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    ws5 = rnd(64, scale=1.0e-5, lo=0.3e-5)
+    ws5[k8.D3_LANES:] = 0.0
     return {
         "x": rnd(b, h, w, c, scale=2.0).to(torch.bfloat16),
         "y": rnd(b, h, w, c).to(torch.bfloat16),
         "a": rnd(b, c, scale=35.0, lo=5.0), "c": rnd(b, c, scale=8.0),
         "a2": rnd(b, c, scale=1.0, lo=0.5), "c2": rnd(b, c, scale=0.3),
-        "wk": k8.pack_weights(wq), "ws": rnd(co, scale=1.5e-5, lo=0.5e-5),
+        "wk": k8.pack_weights(codes(3, 3, c, co)), "ws": rnd(co, scale=1.5e-5, lo=0.5e-5),
         "bias": rnd(co, scale=0.2), "qa": rnd(co, scale=50.0, lo=10.0), "qc": rnd(co, scale=10.0),
-        "codes": torch.randint(0, 128, (b, h, w, c), generator=g, device=dev,
-                               dtype=torch.int32).to(torch.int8),
+        "codes": codes(b, h, w, c, lo=0),
+        "wk5": k8.pack_weights(codes(1, 5, c, k8.D3_LANES), co_pad=k8.CO_TILE), "ws5": ws5,
+        "bias12": rnd(k8.D3_OUT, scale=0.2),
     }
 
 
-def site_calls(name, t, halo, yout):
-    """(kernel call, plain call, bytes moved) of one int8 site."""
+def site_calls(name, t, shape, form):
+    """(kernel call, plain call, bytes moved, int8 ops) of one int8 site."""
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
+    b, h, w, c = t["x"].shape
+    co = t["wk"].shape[2]
+    kw, outs, pix = {}, 2, b * h * w
     if name == "res_site_s8o":
         args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
         ins, outs = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
     elif name == "site_s8":
-        args = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"] / 40, t["qc"] / 40, t["y"])
-        ins, outs = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"], t["y"]), 2
+        aff = (t["qa"] / 40, t["qc"] / 40)
+        if form == "s8out":
+            args, kw = (t["codes"], t["wk"], t["ws"], t["bias"]), dict(qa=t["qa"], qc=t["qc"])
+            ins, outs = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
+        else:
+            args = (t["codes"], t["wk"], t["ws"], t["bias"], *aff, t["y"])
+            ins = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"], t["y"])
+            if form == "yaff":
+                kw = dict(yaff=(t["a2"][0], t["c2"][0]))
+            elif form == "emit":
+                kw, outs = dict(qa=t["qa"] / 4, qc=t["qc"], qlo=-127.0), 1
     elif name == "res_site":
         args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
-        ins, outs = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"]), 2
-    else:
+        ins = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"])
+    elif name == "res_site_skip":
         args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["wk"], t["ws"],
                 t["bias"])
-        ins, outs = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"],
-                     t["bias"]), 2
-    kw = {"halo": halo, **({"yout": yout} if name == "res_site_skip" else {})}
+        ins = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"], t["bias"])
+        kw = dict(yout=shape == "res")
+    elif name in ("c2_site", "c3_site"):
+        args = (t["x"], t["a"], t["c"], 0.0, t["wk"], t["ws"], t["bias"])
+        ins, pix = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"]), b * (h // 2) * (w // 2)
+    elif name == "d3_rows_site":
+        args = (t["x"], t["a"], t["c"], t["wk5"], t["ws5"])
+        ins, co = (t["x"], t["a"], t["c"], t["wk5"], t["ws5"]), k8.D3_LANES
+    else:  # d3_s8_site
+        args = (t["codes"], t["wk5"], t["ws5"], t["bias12"])
+        ins, co = (t["codes"], t["wk5"], t["ws5"], t["bias12"]), k8.D3_OUT
+    if SITE_SHAPES[shape][5] is not None and name not in ("c2_site", "c3_site"):
+        kw["halo"] = SITE_SHAPES[shape][5]
     kernel = getattr(k8, name)
     plain = getattr(k8, f"{name}_plain")
-    b, h, w, c = t["x"].shape
-    co = t["wk"].shape[2]
-    moved = nbytes(*ins) + b * h * w * co * outs
-    if name in ("res_site", "res_site_skip"):
+    moved = nbytes(*ins) + pix * co * outs
+    if name in ("res_site", "res_site_skip", "c2_site", "c3_site"):
         moved += b * 2 * co * 4  # the sums
-    if name == "res_site_skip" and yout:
+    if name == "res_site_skip" and kw["yout"]:
         moved += b * h * w * c * 2  # v
-    return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw)), moved
+    taps = 5 if name.startswith("d3") else 9
+    lanes = k8.D3_LANES if name.startswith("d3") else co
+    ops = 2 * pix * c * lanes * taps
+    return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw)), moved, ops
 
 
 def check_site(name, out, ref, n):
@@ -290,47 +354,89 @@ def check_site(name, out, ref, n):
     return worst
 
 
-def int8_kernel_phase(dev):
-    """K2-K5 against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain) beside a cuDNN bf16 conv."""
+def kernel_names(fn, top: int = 3) -> list:
+    """The device kernels ``fn`` launches, longest first (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                reverse=True)
+    return [f"{k[:90]} ({us / 1e3:.3f} ms)" for us, k in ks[:top]]
+
+
+def library_conv(dev, t, name, shape):
+    """The cuDNN bf16 conv a site stands for, on tensors of its shape: a 3×3
+    conv (stride 2 for c2/c3) or, for deconv3's sites, the pixel 9×9 32→3
+    conv at the 1080p output size."""
     import torch
     import torch.nn.functional as F
 
+    if name.startswith("d3"):
+        b, h2, w2, _ = t["x"].shape
+        xc = torch.randn((b, 32, 2 * h2, 2 * w2), device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wc = torch.randn((3, 32, 9, 9), device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xc, wc, padding=4)
+    b, h, w, c, co, _ = SITE_SHAPES[shape]
+    xc = t["x"].permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
+    wc = torch.randn((co, c, 3, 3), device=dev).to(torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    stride = 2 if name in ("c2_site", "c3_site") else 1
+    return lambda: F.conv2d(xc, wc, stride=stride, padding=1)
+
+
+def int8_kernel_phase(dev):
+    """K2-K8b against their plain versions at the slice's shapes, timed in
+    turns (plain, kernel, kernel, plain) beside the cuDNN bf16 conv each
+    site stands for."""
+    import torch
+
     results = {}
-    for name, (shapes, _replaces) in INT8_KERNELS.items():
+    for name, (cases, _replaces) in INT8_KERNELS.items():
         rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0,
-               "max_abs_err": 0.0, "bound_by": "bytes"}
-        for shape in shapes:
+               "max_abs_err": 0.0, "bound_by": "bytes", "per_case": {}}
+        for shape, form in cases:
             b, h, w, c, co, halo = SITE_SHAPES[shape]
-            t = site_inputs(dev, b, h, w, c, co, seed=len(results) * 7 + len(shape))
-            kernel, plain, moved = site_calls(name, t, halo, yout=shape == "res")
+            t = site_inputs(dev, b, h, w, c, co, seed=len(results) * 7 + len(rec["per_case"]))
+            kernel, plain, moved, ops = site_calls(name, t, shape, form)
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
-            err = check_site(name, out, ref, h * w)
-            del out, ref
+            first = out[0] if isinstance(out, tuple) else out
+            err = check_site(name, out, ref, first.shape[1] * first.shape[2])
+            del out, ref, first
             t_plain = dev_time(plain, reps=2)
             t_k = (dev_time(kernel) + dev_time(kernel)) / 2
             t_plain = (t_plain + dev_time(plain, reps=2)) / 2
-            xc = t["x"].permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
-            wc = torch.randn((co, c, 3, 3), device=dev).to(torch.bfloat16).to(
-                memory_format=torch.channels_last)
-            t_lib = dev_time(lambda: F.conv2d(xc, wc, padding=1))
-            ops = 2 * b * h * w * c * co * 9
+            lib = library_conv(dev, t, name, shape)
+            t_lib = dev_time(lib)
+            if name.startswith("d3") and "d3_9x9" not in results:
+                results["d3_9x9"] = kernel_names(lib)
+                log(f"cuDNN bf16 9x9 32->3 conv at 1080p B={b}: kernels {results['d3_9x9']}")
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
-            log(f"{name} @ {shape} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
-                f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 3x3 conv "
+            case = f"{shape}{'/' + form if form else ''}"
+            log(f"{name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
+                f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 conv "
                 f"{t_lib:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)")
             rec["ms"] += t_k
             rec["plain_ms"] += t_plain
             rec["cudnn_bf16_ms"] += t_lib
             rec["bound_ms"] += max(t_bytes, t_ops)
+            rec["per_case"][case] = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib,
+                                     "bound_ms": max(t_bytes, t_ops)}
             if t_ops > t_bytes:
                 rec["bound_by"] = "operations"
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            del t
+            del t, lib
             torch.cuda.empty_cache()
-        rec["shapes"] = list(shapes)
         results[name] = rec
     return results
 
@@ -406,6 +512,7 @@ def quant_reference_phase(dev):
         f"{'bit-identical' if same else 'DIFFERENT'} (res output and d2 raw)")
     if not same:
         fail("the int8_static chains differ between the card and the CPU")
+    set_a_chain_phase(dev, model, x, stats)
 
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
             "--io_preset", "raw_01", "--frame_batch", "4", "--flow_ema", "--exact_warp",
@@ -424,6 +531,49 @@ def quant_reference_phase(dev):
     return mae
 
 
+def set_a_chain_phase(dev, model, x, stats):
+    """Set A's int8 chains on the card and on the CPU from one conv1 output
+    and one calibration (frozen norms; head, s8 res chain with the deferred
+    in3 and the d1 bridge, s8 decoder, the K6 tail): bit-identical."""
+    import copy
+
+    import torch
+
+    from neuralstyletransferv1_torch.models import sites_i8
+    from neuralstyletransferv1_torch.models import transformer_net_quant as tq
+    from neuralstyletransferv1_torch.models.s2d import d2s, in_affine
+
+    scales = tq.calibrate_act_scales(model.net, x[:1], sites=tq.QUANT_SITES_PALLAS,
+                                     static_stats=stats)
+    scales = tq.site_filter(scales, x.shape[1], x.shape[2], SET_A)
+    quant = tq.quantize_net(model.net, scales, io_preset=model.io_preset)
+    if not {"c2", "c3", "d3"} <= set(quant):
+        fail(f"set A did not quantize c2, c3 and d3 at {x.shape[1]}x{x.shape[2]}")
+    d3 = tq.baked_d3(model.net, model.io_preset)
+    nb = copy.deepcopy(model.net).to(torch.bfloat16)
+    with torch.no_grad():
+        y1 = nb.conv1(x.to(torch.bfloat16)).contiguous()
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            net_d = copy.deepcopy(nb).to(d)
+            sites = sites_i8.prepare_sites(net_d, quant, d, d3=d3)
+            st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+            y3, m3, inv3 = sites_i8.head_chain(y1.to(d), *st_d["in1"], net_d, sites, st_d)
+            in_aff = in_affine(m3, inv3, net_d.in3.weight.float(), net_d.in3.bias.float())
+            yq = sites_i8.res_chain_s8_static(y3, net_d, sites, st_d, in_aff=in_aff,
+                                              emit_qo=sites["d1"].qin)
+            y12 = sites_i8.dec_chain_s8_static(yq, net_d, sites, st_d, tail=True)
+            outs.append((y3.cpu(), yq.cpu(), d2s(y12, 2, 3).cpu()))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"set A chains (K8a, K8b, K2, K3, K6 and the strips) from one conv1 output at "
+        f"{x.shape[1]}x{x.shape[2]}, card vs CPU: {'bit-identical' if same else 'DIFFERENT'} "
+        f"(head output, d1 codes, deconv3 output)")
+    if not same:
+        fail("the set A chains differ between the card and the CPU")
+    if not bool(torch.isfinite(outs[0][2].float()).all()):
+        fail("the set A chain output is not finite")
+
+
 def zero_counts():
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
@@ -440,9 +590,10 @@ def read_counts() -> dict:
     return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES}
 
 
-def slice_phase(dev, quantize: str = "none"):
+def slice_phase(dev, quantize: str = "none", fused=None):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain or
-    with a --quantize mode; returns the run's launch counts."""
+    with a --quantize mode and fused-site set; returns the run's launch
+    counts."""
     import numpy as np
     import torch
 
@@ -457,7 +608,7 @@ def slice_phase(dev, quantize: str = "none"):
     if args.device != "cuda":
         fail(f"the CLI's default device is {args.device}, expected cuda")
     frames = moving_frames(B * N_BATCHES, H, W, SEED + 2)
-    batch_size, process_batch = tpipe.make_batched_core(args, dev)
+    batch_size, process_batch = tpipe.make_batched_core(args, dev, fused_sites=fused)
     if batch_size != B:
         fail(f"batch size {batch_size}, expected {B}")
     ds = tpipe.effective_flow_downscale(args.flow_downscale, H, W)
@@ -475,10 +626,12 @@ def slice_phase(dev, quantize: str = "none"):
         outs.append(out)
     counts = read_counts()
 
+    name = slice_name(quantize, fused)
     expected = {"dis_iter": levels * N_BATCHES}
-    for k in PER_BATCH["int8"]:
-        expected[k] = PER_BATCH.get(quantize, {}).get(k, 0) * N_BATCHES
-    log(f"slice 1080p B={B} bf16 --quantize {quantize}: batch seconds "
+    for k in counts:
+        if k != "dis_iter":
+            expected[k] = PER_BATCH.get((quantize, fused), {}).get(k, 0) * N_BATCHES
+    log(f"slice 1080p B={B} bf16 --quantize {name}: batch seconds "
         f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {counts} (expected {expected})")
     if counts != expected:
         fail(f"the main path's launches {counts} are not the expected {expected}")
@@ -490,14 +643,14 @@ def slice_phase(dev, quantize: str = "none"):
         fail("the slice output is constant")
     steady = (N_BATCHES - 1) * B / sum(t_batches[1:])
     overall = N_BATCHES * B / sum(t_batches)
-    log(f"slice --quantize {quantize} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
+    log(f"slice --quantize {name} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
         f"{overall:.2f} including the first batch")
     if quantize != "none":
-        quant_quality(dev, args, frames[:B], quantize)
+        quant_quality(dev, args, frames[:B], quantize, fused)
     return counts
 
 
-def quant_quality(dev, args, frames, quantize):
+def quant_quality(dev, args, frames, quantize, fused=None):
     """The quantized stylize of the slice's first batch against the dynamic
     bf16 stylize of the same frames: within the repo's 1e-2 gate with the
     slot's IO preset (what the main path ran), and, as a check that the path
@@ -515,13 +668,15 @@ def quant_quality(dev, args, frames, quantize):
     for preset, bound in ((model.io_preset, QUANT_MAE_TOL), ("raw_01", QUANT_BROKEN_TOL)):
         m = st.StyleModel(model.arch, model.net, preset, model.name)
         ref = st.jit_stylizer(m, dtype=torch.bfloat16)(x)
-        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize)(x)
+        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize, fused_sites=fused)(x)
         mae = float((got - ref).abs().mean())
         first = float((got[0] - ref[0]).abs().mean())
-        log(f"stylize --quantize {quantize} vs bf16, preset {preset}: MAE {mae:.6f} "
+        log(f"stylize --quantize {slice_name(quantize, fused)} vs bf16, preset {preset}: "
+            f"MAE {mae:.6f} "
             f"(calibration frame {first:.6f}; bound {bound})")
         if not (torch.isfinite(got).all() and mae <= bound):
-            fail(f"the {quantize} stylize is not within {bound} of the bf16 stylize ({preset})")
+            fail(f"the {slice_name(quantize, fused)} stylize is not within {bound} of the bf16 "
+                 f"stylize ({preset})")
 
 
 def cli_phase(dev, workdir: Path):
@@ -555,8 +710,8 @@ def cli_phase(dev, workdir: Path):
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
-    if "site_kernel" in n or "stats_reduce" in n:
-        return "int8 sites K2-K5"
+    if "site_kernel" in n or "stats_reduce" in n or "rows_kernel" in n:
+        return "int8 sites K2-K8b"
     if "dis_iter" in n:
         return "K1 (DIS)"
     if any(k in n for k in ("conv", "xmma", "cutlass", "sm90_", "implicit", "gemm", "cudnn")):
@@ -579,11 +734,12 @@ def profile_phase(dev):
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
-    for mode in ("none", "bf16_static", "int8_static", "int8"):
+    for mode, fused in (("none", None), ("bf16_static", None)) + SLICES:
         argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
                 "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
                 "--quantize", mode]
-        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev)
+        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
+                                          fused_sites=fused)
         proc(frames[:B])
         proc(frames[B:2 * B])
         torch.cuda.synchronize()
@@ -599,7 +755,8 @@ def profile_phase(dev):
         groups: dict = {}
         for name, ms, _ in kernels:
             groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
-        log(f"profile --quantize {mode}: batch wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        log(f"profile --quantize {slice_name(mode, fused)}: batch wall {wall:.2f} ms, "
+            f"device busy {busy:.2f} ms "
             f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             log(f"  {g}: {ms:.2f} ms")
@@ -639,7 +796,7 @@ def main() -> int:
     _build.build([k1._SOURCE, k8._SOURCE])
     k1._lib()
     k8._lib()
-    log(f"built K1 and K2-K5 with nvcc (in parallel) in {time.perf_counter() - t0:.2f} s")
+    log(f"built K1 and K2-K8b with nvcc (in parallel) in {time.perf_counter() - t0:.2f} s")
     if sys.argv[1:] == ["--profile"]:
         profile_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -656,8 +813,8 @@ def main() -> int:
     reference_phase(dev)
     quant_reference_phase(dev)
     launches = {k: 0 for k in read_counts()}
-    for mode in ("none", "int8_static", "int8"):
-        for k, v in slice_phase(dev, mode).items():
+    for mode, fused in (("none", None),) + SLICES:
+        for k, v in slice_phase(dev, mode, fused).items():
             launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -679,7 +836,7 @@ def main() -> int:
         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
         "library_ms": None,
     }]
-    for name, (_shapes, replaces) in INT8_KERNELS.items():
+    for name, (_cases, replaces) in INT8_KERNELS.items():
         rec = int8[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -687,8 +844,11 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "cudnn_bf16_ms": rec["cudnn_bf16_ms"], "shapes": rec["shapes"],
+            "cudnn_bf16_ms": rec["cudnn_bf16_ms"], "per_case": rec["per_case"],
         })
+    for name in INT8_KERNELS:
+        if launches[name] == 0:
+            fail(f"{name} was launched no time on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

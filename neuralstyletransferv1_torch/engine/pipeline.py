@@ -101,9 +101,10 @@ def load_slot_bank(args, device) -> list:
             for path, _type, io_preset, _style in _slot_args(args) if path]
 
 
-def make_batched_core(args, device: torch.device):
+def make_batched_core(args, device: torch.device, *, fused_sites=None):
     """The per-batch pipeline: slot-bank stylize → RGB slot blend → DIS flow
-    → temporal chain, uint8 in and out.
+    → temporal chain, uint8 in and out. ``fused_sites``: the int8 modes'
+    fused-site set (None: the adopted one, ``adopt_overrides.sites``).
 
     Returns (B, process_batch) where ``process_batch(imgs: list[np.uint8
     HWC]) -> device uint8 [B,H,W,3]``; the temporal state carries across
@@ -121,7 +122,8 @@ def make_batched_core(args, device: torch.device):
     num_models = len(models)
     print(f"[bank] {num_models} slot(s): "
           + ", ".join(f"{m.name}({m.arch}/{m.io_preset})" for m in models))
-    stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize) for m in models]
+    stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize, fused_sites=fused_sites)
+                   for m in models]
     weights = parse_blend_weights(args.blend_models_weights, num_models) \
         if num_models > 1 else [1.0]
     w_slots = torch.tensor(weights, dtype=torch.float32, device=device)[:, None, None, None, None]

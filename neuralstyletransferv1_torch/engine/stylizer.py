@@ -10,9 +10,12 @@ dtype float32 is the parity path (TF32 off, see ``device.py``); bfloat16
 casts weights and activations to bf16, keeps instance-norm statistics in
 f32 and returns f32. Under bfloat16, ``quantize`` selects the JAX engine's
 ``--quantize`` modes: ``bf16_static`` freezes every instance norm to the
-first frame's statistics, ``int8_static`` adds the int8 residual and
-decoder sites on s8 carries, ``int8`` runs those sites with measured norms
-(``models/transformer_net_quant.py``).
+first frame's statistics, ``int8_static`` and ``int8`` run the int8 sites
+with frozen or measured norms (``models/transformer_net_quant.py``), routed
+by a fused-site set: the adopted one (``adopt_overrides.py`` reading
+``i8_adopt.json``), or the tuple ``jit_stylizer(fused_sites=...)`` is given.
+When the set makes deconv3 an int8 site, its weights carry the IO post
+affine, as the JAX engine bakes it, and the output is only clamped.
 """
 
 from __future__ import annotations
@@ -67,14 +70,23 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
     return StyleModel(arch, net, io_preset, name or path.stem)
 
 
+def _input_size(out: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    if out.shape[1:3] != x01.shape[1:3]:
+        out = resize_bilinear(out, (x01.shape[1], x01.shape[2]))
+    return out
+
+
 def stylize(forward, io_preset: str, x01: torch.Tensor) -> torch.Tensor:
     """[0,1] NHWC batch → stylized [0,1] NHWC batch, locked to the input size
     (the Johnson net grows dims that are not multiples of 4). ``forward``:
     the net, or any function of its input with the same contract."""
-    out = iop.postprocess(io_preset, forward(iop.preprocess(io_preset, x01)))
-    if out.shape[1:3] != x01.shape[1:3]:
-        out = resize_bilinear(out, (x01.shape[1], x01.shape[2]))
-    return out
+    return _input_size(iop.postprocess(io_preset, forward(iop.preprocess(io_preset, x01))), x01)
+
+
+def stylize_baked(forward, io_preset: str, x01: torch.Tensor) -> torch.Tensor:
+    """``stylize`` for a forward whose output already carries the preset's
+    post affine (an int8 deconv3): the output is only clamped."""
+    return _input_size(forward(iop.preprocess(io_preset, x01)).clamp(0.0, 1.0), x01)
 
 
 def _reflect_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -83,9 +95,10 @@ def _reflect_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
-                        x01: torch.Tensor):
+                        x01: torch.Tensor, fused_sites=None):
     """Calibrate on the first frame of ``x01`` (f32, the f32 weights, padded
-    to a multiple of 4 only) and return the forward of ``quantize``."""
+    to a multiple of 4 only) and return the forward of ``quantize`` and
+    whether its output carries the post affine."""
     xc = x01[:1].float()
     H, W = xc.shape[1], xc.shape[2]
     xc = _reflect_pad(xc, (-H) % 4, (-W) % 4)
@@ -96,20 +109,25 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
     if quantize == "bf16_static":
         print(f"[stylizer] static-norm bf16 path calibrated for {model.name} "
               f"({len(stats)} frozen norms)")
-        return lambda t: net(t, static_stats=stats)
+        return (lambda t: net(t, static_stats=stats)), False
+    fused = tq.check_fused_sites(tq.default_sites(stats is not None) if fused_sites is None
+                                 else fused_sites)
     scales = tq.calibrate_act_scales(model.net, xin, sites=tq.QUANT_SITES_PALLAS,
                                      static_stats=stats)
-    quant = tq.quantize_net(model.net, {k: v for k, v in scales.items()
-                                        if k in tq.INT8_SITES})
-    sites = sites_i8.prepare_sites(net, quant, x01.device)
-    print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(sites)} int8 sites"
-          + (f", {len(stats)} frozen norms)" if stats else ")"))
-    return lambda t: tq.forward_int8(net, t, sites, stats)
+    scales = tq.site_filter(scales, xc.shape[1], xc.shape[2], fused)
+    quant = tq.quantize_net(model.net, scales, io_preset=model.io_preset)
+    d3 = tq.baked_d3(model.net, model.io_preset) if "d3" in quant else None
+    sites = sites_i8.prepare_sites(net, quant, x01.device, d3=d3)
+    print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(sites)} int8 sites, "
+          f"fused {fused}" + (f", {len(stats)} frozen norms)" if stats else ")"))
+    return (lambda t: tq.forward_int8(net, t, sites, stats, fused_sites=fused)), d3 is not None
 
 
 def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
-                 quantize: str = "none"):
+                 quantize: str = "none", fused_sites=None):
     """A stylize function for one slot: f(batch01 NHWC f32) → NHWC f32.
+    ``fused_sites``: the int8 modes' fused-site set, None for the adopted
+    one (``adopt_overrides.sites``).
 
     Sizes that are not multiples of 4 reflect-pad to the next multiple and
     crop back, as the JAX engine does for its fast forms; the int8 modes pad
@@ -124,21 +142,23 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
             f"--quantize {quantize} runs under bfloat16 only: ROADMAP.md Queue 1, item 10 "
             "(--quantize under float32)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
-    state = {"forward": net if quantize == "none" else None}
+    state = {"forward": net if quantize == "none" else None, "baked": False}
     int8 = quantize in ("int8_static", "int8")
 
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
-            state["forward"] = _calibrated_forward(model, net, quantize, x01)
+            state["forward"], state["baked"] = _calibrated_forward(model, net, quantize, x01,
+                                                                   fused_sites)
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)
         ph, pw = (-H) % mh, (-W) % mw
+        run = stylize_baked if state["baked"] else stylize
         if (ph or pw) and H >= 8 and W >= 8:
-            out = stylize(state["forward"], model.io_preset, _reflect_pad(x, ph, pw))[:, :H, :W]
+            out = run(state["forward"], model.io_preset, _reflect_pad(x, ph, pw))[:, :H, :W]
         else:
-            out = stylize(state["forward"], model.io_preset, x)
+            out = run(state["forward"], model.io_preset, x)
         return out.float()
 
     return fn

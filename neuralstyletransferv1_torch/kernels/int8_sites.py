@@ -1,21 +1,45 @@
-"""K2–K5: the int8 3×3 site convs of the quantized Johnson path
+"""K2–K8b: the int8 site convs of the quantized Johnson path
 (``csrc/int8_sites.cu``).
 
 Each replaces one Pallas kernel of ``neuralstyletransferv1_tpu/models/
-s2d2_sites_i8.py``. All four are one operation — a 3×3 conv of int8 codes
-with int32 accumulation, over a 1-pixel halo (``"reflect"`` for the residual
-sites, ``"edge"`` for the decoder sites) — between different prologues and
-epilogues:
+s2d2_sites_i8.py``. K2–K5 and K8 are one operation — a 3×3 conv of int8
+codes with int32 accumulation, over a 1-pixel halo (``"reflect"`` for the
+residual and head sites, ``"edge"`` for the decoder sites) — between
+different prologues and epilogues:
 
-  K2 ``res_site_s8o``  quantize bf16 x → conv → bf16 → emit s8 codes ≥ 0
-                       (``res_site_s8o`` / ``_site_kernel_s8o``)
-  K3 ``site_s8``       s8 codes → conv → bf16 → frozen affine → + y → bf16
-                       (``site_s8`` / ``_site_kernel_s8g``, AFF + YADD)
-  K4 ``res_site``      quantize bf16 x → conv → bf16 raw + [Σ, Σ²]
-                       (``res_site`` / ``_site_kernel``)
-  K5 ``res_site_skip`` v = bf16(bf16(r2·a2 + c2) + y), quantize v → conv →
-                       bf16 raw + [Σ, Σ²], and v itself
-                       (``res_site_skip`` / ``_site_kernel_skip``)
+  K2  ``res_site_s8o``  quantize bf16 x → conv → bf16 → emit s8 codes ≥ 0
+                        (``res_site_s8o`` / ``_site_kernel_s8o``)
+  K3  ``site_s8``       s8 codes → conv → bf16 → [frozen affine] → [+ y, y
+                        optionally activated first] → bf16 or s8 codes
+                        (``site_s8`` / ``_site_kernel_s8g``: AFF, YADD, YAFF,
+                        S8OUT)
+  K4  ``res_site``      quantize bf16 x → conv → bf16 raw + [Σ, Σ²]
+                        (``res_site`` / ``_site_kernel``)
+  K5  ``res_site_skip`` v = bf16(bf16(r2·a2 + c2) + y), quantize v → conv →
+                        bf16 raw + [Σ, Σ²], and v itself
+                        (``res_site_skip`` / ``_site_kernel_skip``)
+  K8a ``c2_site``       K4 at stride 2, C = 32 → 64: conv2 (``c2p_site`` /
+                        ``_c2p_kernel``)
+  K8b ``c3_site``       K4 at stride 2, C = 64 → 128: conv3 (``c3p_site`` /
+                        ``_c3p_kernel``)
+
+The TPU's K8a/K8b run on a column-pair packing with phase-permutation dots;
+that is layout only: the pair weights hold each pixel tap once, and the
+phase halo is the pixel reflect at the top and left (a stride-2 3×3 conv
+over an even size never reads the bottom or right pad). Here they are pixel
+convs.
+
+K6 and K7 are deconv3 in its tap-packed form: a 1×5 conv of the 128-channel
+space-to-depth tensor (4 phases × 32) to 60 lanes (5 kernel rows × 12),
+with zero column pads; the weights, ``ws`` and lanes are zero-padded to 64
+(exact: the padded lanes are never read):
+
+  K7  ``d3_rows_site``  quantize bf16 y (floor 0) → 1×5 conv → bf16(acc·ws)
+                        rows [B,H,W,60] (``d3_rows_site`` / ``_d3_kernel``)
+  K6  ``d3_s8_site``    s8 codes → the same rows, K[r] = bf16(acc·ws), then
+                        out[r] = bf16(Σ_dy K[r+dy−2][12·dy + o] + bias), f32
+                        in dy order, rows outside the image zero
+                        (``d3_s8_site`` / ``_d3s8_kernel``)
 
 Rounding contract, every step a separate IEEE f32 operation:
 quantize q = clamp(round_half_even(x·a + c), lo, 127); dequant
@@ -38,27 +62,35 @@ import torch.nn.functional as F
 from ..ops.conv import conv2d_i8
 
 _SOURCE = "int8_sites.cu"
-LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0}
+LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
+            "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
 HALOS = {"reflect": 0, "edge": 1}
-KERNEL_C = (64, 128)  # input channel counts the CUDA kernels are built for
+KERNEL_C = (64, 128)  # input channel counts of the stride-1 3×3 kernels
+HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block
+D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
+_S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """int8 site weights [3,3,C,CO] (HWIO) → int32 words [9, C/4, CO]; word
-    (t, k, o) packs channels 4k..4k+3 of tap t for output o, little-endian
-    (the operand layout of ``__dp4a``)."""
+def pack_weights(w: torch.Tensor, co_pad: int | None = None) -> torch.Tensor:
+    """int8 site weights [KH,KW,C,CO] (HWIO) → int32 words [KH·KW, C/4, CO];
+    word (t, k, o) packs channels 4k..4k+3 of tap t for output o,
+    little-endian (the operand layout of ``__dp4a``). ``co_pad`` zero-pads
+    the output channels to that count (deconv3's 60 lanes → 64)."""
     kh, kw, c, co = w.shape
-    assert w.dtype == torch.int8 and kh * kw == 9 and c % 4 == 0, (w.shape, w.dtype)
-    words = w.reshape(9, c // 4, 4, co).permute(0, 1, 3, 2).contiguous()
-    return words.view(torch.int32).reshape(9, c // 4, co)
+    assert w.dtype == torch.int8 and c % 4 == 0, (w.shape, w.dtype)
+    if co_pad is not None and co_pad > co:
+        w = F.pad(w, (0, co_pad - co))
+        co = co_pad
+    words = w.reshape(kh * kw, c // 4, 4, co).permute(0, 1, 3, 2).contiguous()
+    return words.view(torch.int32).reshape(kh * kw, c // 4, co)
 
 
-def unpack_weights(wk: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``pack_weights``: [9, C/4, CO] int32 → [3,3,C,CO] int8."""
-    _, cw, co = wk.shape
-    b = wk.contiguous().view(torch.int8).reshape(9, cw, co, 4).permute(0, 1, 3, 2)
-    return b.reshape(3, 3, 4 * cw, co)
+def unpack_weights(wk: torch.Tensor, kh: int = 3, kw: int = 3) -> torch.Tensor:
+    """Inverse of ``pack_weights``: [KH·KW, C/4, CO] int32 → [KH,KW,C,CO] int8."""
+    taps, cw, co = wk.shape
+    b = wk.contiguous().view(torch.int8).reshape(taps, cw, co, 4).permute(0, 1, 3, 2)
+    return b.reshape(kh, kw, 4 * cw, co)
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +108,11 @@ def _quantize(x32: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float) ->
     return torch.clamp(torch.round(x32 * _rows(a) + _rows(c)), lo, 127.0)
 
 
+def _emit(f: torch.Tensor, qa: torch.Tensor, qc: torch.Tensor, qlo: float) -> torch.Tensor:
+    """s8 codes clamp(round(f·qa + qc), qlo, 127) of bf16 values f."""
+    return torch.clamp(torch.round(f.float() * qa + qc), qlo, 127.0).to(torch.int8)
+
+
 def _halo(q: torch.Tensor, halo: str) -> torch.Tensor:
     """1-pixel halo around NHWC codes (float64, exact): pixel reflect or edge
     copy. Quantize is pointwise, so haloing the codes equals quantizing the
@@ -85,9 +122,9 @@ def _halo(q: torch.Tensor, halo: str) -> torch.Tensor:
 
 
 def _conv_dequant(q: torch.Tensor, wk: torch.Tensor, ws: torch.Tensor, bias: torch.Tensor,
-                  halo: str) -> torch.Tensor:
+                  halo: str, stride: int = 1) -> torch.Tensor:
     """bf16(acc·ws + bias) of the 3×3 int8 conv of codes q [B,H,W,C]."""
-    acc = conv2d_i8(_halo(q, halo), unpack_weights(wk).to(q.device))
+    acc = conv2d_i8(_halo(q, halo), unpack_weights(wk).to(q.device), stride=stride)
     return (acc.float() * ws + bias).to(torch.bfloat16)
 
 
@@ -100,14 +137,22 @@ def _sums(fv: torch.Tensor) -> torch.Tensor:
 def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
     """K2's plain version → s8 codes [B,H,W,CO]."""
     fv = _conv_dequant(_quantize(x.float(), a, c, lo), wk, ws, bias, halo)
-    return torch.clamp(torch.round(fv.float() * qa + qc), 0.0, 127.0).to(torch.int8)
+    return _emit(fv, qa, qc, 0.0)
 
 
-def site_s8_plain(xq, wk, ws, bias, aa, ac, y, *, halo="reflect"):
-    """K3's plain version → bf16 [B,H,W,CO]."""
+def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
+                  qlo=0.0, halo="reflect"):
+    """K3's plain version → bf16 [B,H,W,CO], or s8 codes when ``qa``/``qc``
+    are given."""
     fv = _conv_dequant(xq, wk, ws, bias, halo)
-    fv = (fv.float() * aa + ac).to(torch.bfloat16)
-    return (fv.float() + y.float()).to(torch.bfloat16)
+    if aa is not None:
+        fv = (fv.float() * aa + ac).to(torch.bfloat16)
+    if y is not None:
+        yv = y.float()
+        if yaff is not None:
+            yv = torch.clamp(yv * yaff[0] + yaff[1], min=0.0).to(torch.bfloat16).float()
+        fv = (fv.float() + yv).to(torch.bfloat16)
+    return fv if qa is None else _emit(fv, qa, qc, qlo)
 
 
 def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
@@ -129,6 +174,37 @@ def res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect
     return fv, _sums(fv), (v if yout else None)
 
 
+def site_s2_plain(x, a, c, lo, wk, ws, bias):
+    """K8a's and K8b's plain version: K4 at stride 2 with a pixel-reflect
+    halo → (bf16 raw [B,H/2,W/2,CO], f32 sums)."""
+    fv = _conv_dequant(_quantize(x.float(), a, c, lo), wk, ws, bias, "reflect", stride=2)
+    return fv, _sums(fv)
+
+
+c2_site_plain = c3_site_plain = site_s2_plain
+
+
+def _rows_conv(q: torch.Tensor, wk: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """deconv3's K rows: bf16(acc·ws) [B,H,W,64] of the 1×5 int8 conv of
+    codes q (zero column pads)."""
+    acc = conv2d_i8(q, unpack_weights(wk, 1, 5).to(q.device), padding=(0, 2))
+    return (acc.float() * ws).to(torch.bfloat16)
+
+
+def d3_rows_site_plain(y, a, c, wk, ws):
+    """K7's plain version → bf16 rows [B,H,W,60]."""
+    return _rows_conv(_quantize(y.float(), a, c, 0.0), wk, ws)[..., :D3_LANES].contiguous()
+
+
+def d3_s8_site_plain(xq, wk, ws, bias):
+    """K6's plain version → bf16 [B,H,W,12]: the zero-SAME deconv3 interior
+    (its 2-block border frame is the caller's strips)."""
+    H = xq.shape[1]
+    kp = F.pad(_rows_conv(xq, wk, ws), (0, 0, 0, 0, 2, 2))
+    y = sum(kp[:, dy:dy + H, :, dy * D3_OUT:(dy + 1) * D3_OUT].float() for dy in range(5))
+    return (y + bias).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -143,9 +219,12 @@ def _lib():
     dims = [I] * 5  # B, H, W, C, CO
     sigs = {
         "res_site_s8o_launch": [P] * 9 + dims + [Fl, I, P],
-        "site_s8_launch": [P] * 8 + dims + [I, P],
+        "site_s8_launch": [P] * 12 + dims + [I, Fl, I, P],
         "res_site_launch": [P] * 9 + dims + [Fl, I, P],
         "res_site_skip_launch": [P] * 13 + dims + [Fl, I, P],
+        "site_s2_launch": [P] * 9 + dims + [Fl, P],
+        "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
+        "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -165,14 +244,14 @@ def _check(kernel, name, t, dtype, shape, dev):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _check_site(kernel, x, wk, ws, bias, halo):
+def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C):
     """Validate the shared operands; returns (dev, B, H, W, C, CO)."""
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{kernel}: no kernel for device {dev}")
     B, H, W, C = x.shape
-    if C not in KERNEL_C:
-        raise ValueError(f"{kernel}: C={C}, the kernel is built for C in {KERNEL_C}")
+    if C not in kernel_c:
+        raise ValueError(f"{kernel}: C={C}, the kernel is built for C in {kernel_c}")
     if wk.dim() != 3 or wk.shape[0] != 9 or wk.shape[1] * 4 != C:
         raise ValueError(f"{kernel}: weights {tuple(wk.shape)} do not match C={C}")
     CO = wk.shape[2]
@@ -195,6 +274,14 @@ def _run(kernel, fn, *args):
     LAUNCHES[kernel] += 1
 
 
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
     """K2: quantize x (a, c, lo) → 3×3 int8 conv → bf16(acc·ws + bias) →
     s8 codes clamp(round(f·qa + qc), 0, 127) [B,H,W,CO]: the next site's
@@ -210,30 +297,55 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
         _check(k, name, t, torch.float32, (CO,), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         _run(k, _lib().res_site_s8o_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(),
-             out.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], stream)
+             out.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
     return out
 
 
-def site_s8(xq, wk, ws, bias, aa, ac, y, *, halo="reflect"):
-    """K3: 3×3 int8 conv of s8 codes → bf16(acc·ws + bias) → bf16(f·aa + ac)
-    → bf16(f + y) [B,H,W,CO] (CO == C)."""
+def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
+            qlo=0.0, halo="reflect"):
+    """K3: 3×3 int8 conv of s8 codes → f = bf16(acc·ws + bias); then
+    f = bf16(f·aa + ac) with the frozen affine (aa, ac); f = bf16(f + y) with
+    the residual y [B,H,W,CO] (CO == C), itself first replaced by
+    bf16(max(y·ya + yc, 0)) when ``yaff`` = (ya, yc); returns bf16 f, or the
+    s8 codes clamp(round(f·qa + qc), qlo, 127) when ``qa``/``qc`` are given.
+    Rows are [CO] f32."""
     if xq.device.type == "cpu":
-        return site_s8_plain(xq, wk, ws, bias, aa, ac, y, halo=halo)
+        return site_s8_plain(xq, wk, ws, bias, aa, ac, y, yaff=yaff, qa=qa, qc=qc, qlo=qlo,
+                             halo=halo)
     k = "site_s8"
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
-    for name, t in (("aa", aa), ("ac", ac)):
-        _check(k, name, t, torch.float32, (CO,), dev)
-    _check(k, "y", y, torch.bfloat16, (B, H, W, CO), dev)
-    out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
+    flags = 0
+    ya = yc = None
+    if aa is not None:
+        flags |= _S8_FLAGS["aff"]
+        for name, t in (("aa", aa), ("ac", ac)):
+            _check(k, name, t, torch.float32, (CO,), dev)
+    if y is not None:
+        flags |= _S8_FLAGS["yadd"]
+        if CO != C:
+            raise ValueError(f"{k}: the residual add needs CO == C, got {CO} != {C}")
+        _check(k, "y", y, torch.bfloat16, (B, H, W, CO), dev)
+        if yaff is not None:
+            flags |= _S8_FLAGS["yaff"]
+            ya, yc = yaff
+            for name, t in (("ya", ya), ("yc", yc)):
+                _check(k, name, t, torch.float32, (CO,), dev)
+    elif yaff is not None:
+        raise ValueError(f"{k}: yaff needs the residual y")
+    if qa is not None:
+        flags |= _S8_FLAGS["s8out"]
+        for name, t in (("qa", qa), ("qc", qc)):
+            _check(k, name, t, torch.float32, (CO,), dev)
+    dtype = torch.int8 if qa is not None else torch.bfloat16
+    out = torch.empty((B, H, W, CO), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         _run(k, _lib().site_s8_launch, xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
-             bias.data_ptr(), aa.data_ptr(), ac.data_ptr(), y.data_ptr(), out.data_ptr(),
-             B, H, W, C, CO, HALOS[halo], stream)
+             bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
+             _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo],
+             _stream(dev))
     return out
 
 
@@ -258,10 +370,9 @@ def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     part, sums = _stats_buffers(B, H, W, CO, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         _run(k, _lib().res_site_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], stream)
+             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
     return out, sums
 
 
@@ -281,10 +392,88 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
     v = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev) if yout else None
     part, sums = _stats_buffers(B, H, W, CO, dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         _run(k, _lib().res_site_skip_launch, r2.data_ptr(), yp.data_ptr(), a.data_ptr(),
              c.data_ptr(), a2.data_ptr(), c2.data_ptr(), wk.data_ptr(), ws.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), None if v is None else v.data_ptr(),
-             part.data_ptr(), sums.data_ptr(),
-             B, H, W, C, CO, float(lo), HALOS[halo], stream)
+             bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(), sums.data_ptr(),
+             B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
     return out, sums, v
+
+
+def _site_s2(k, x, a, c, lo, wk, ws, bias):
+    if x.device.type == "cpu":
+        return site_s2_plain(x, a, c, lo, wk, ws, bias)
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, "reflect", kernel_c=HEAD_C)
+    if H % 2 or W % 2:
+        raise ValueError(f"{k}: H={H}, W={W}: the stride-2 site needs an even size")
+    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    for name, t in (("a", a), ("c", c)):
+        _check(k, name, t, torch.float32, (B, C), dev)
+    out = torch.empty((B, H // 2, W // 2, CO), dtype=torch.bfloat16, device=dev)
+    part, sums = _stats_buffers(B, H // 2, W // 2, CO, dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().site_s2_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
+             wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
+             sums.data_ptr(), B, H, W, C, CO, float(lo), _stream(dev))
+    return out, sums
+
+
+def c2_site(x, a, c, lo, wk, ws, bias):
+    """K8a: conv2, quantize the conv1 raw x [B,H,W,32] with the folded in1
+    affine (a, c; floor ``lo``) → 3×3 stride-2 int8 conv over the pixel
+    reflect halo → bf16 raw [B,H/2,W/2,64] and its f32 [Σ, Σ²] [B,2,64]."""
+    return _site_s2("c2_site", x, a, c, lo, wk, ws, bias)
+
+
+def c3_site(x, a, c, lo, wk, ws, bias):
+    """K8b: conv3, as K8a from the conv2 raw [B,H,W,64] to [B,H/2,W/2,128]."""
+    return _site_s2("c3_site", x, a, c, lo, wk, ws, bias)
+
+
+def _check_rows(k, x, wk, ws):
+    dev = x.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
+    B, H, W, C = x.shape
+    if C != D3_C:
+        raise ValueError(f"{k}: C={C}, the kernel is built for C={D3_C}")
+    _check(k, "weights", wk, torch.int32, (5, D3_C // 4, CO_TILE), dev)
+    _check(k, "ws", ws, torch.float32, (CO_TILE,), dev)
+    return dev, B, H, W
+
+
+def d3_rows_site(y, a, c, wk, ws):
+    """K7: quantize the d2 raw y [B,H,W,128] (a, c [B,128]: the in5 affine
+    folded with d3's qin; floor 0 folds the ReLU) → 1×5 int8 conv with zero
+    column pads → bf16(acc·ws) rows [B,H,W,60]. ``wk``/``ws``: the
+    tap-packed deconv3 weights and dequant row, padded to 64 lanes."""
+    if y.device.type == "cpu":
+        return d3_rows_site_plain(y, a, c, wk, ws)
+    k = "d3_rows_site"
+    dev, B, H, W = _check_rows(k, y, wk, ws)
+    _check(k, "y", y, torch.bfloat16, (B, H, W, D3_C), dev)
+    for name, t in (("a", a), ("c", c)):
+        _check(k, name, t, torch.float32, (B, D3_C), dev)
+    out = torch.empty((B, H, W, D3_LANES), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().d3_rows_launch, y.data_ptr(), a.data_ptr(), c.data_ptr(),
+             wk.data_ptr(), ws.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+    return out
+
+
+def d3_s8_site(xq, wk, ws, bias):
+    """K6: deconv3 on the s8 codes xq [B,H,W,128] (the d2 site's emit, the
+    frozen in5 affine and ReLU folded in): K rows bf16(acc·ws) of the 1×5
+    conv, then out = bf16(Σ_dy K[r+dy−2] lanes 12·dy.. + bias) [B,H,W,12]
+    with zero rows and columns outside the image (the zero-SAME interior;
+    the caller strip-fixes the 2-block frame)."""
+    if xq.device.type == "cpu":
+        return d3_s8_site_plain(xq, wk, ws, bias)
+    k = "d3_s8_site"
+    dev, B, H, W = _check_rows(k, xq, wk, ws)
+    _check(k, "xq", xq, torch.int8, (B, H, W, D3_C), dev)
+    _check(k, "bias", bias, torch.float32, (D3_OUT,), dev)
+    out = torch.empty((B, H, W, D3_OUT), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().d3_s8_launch, xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+    return out

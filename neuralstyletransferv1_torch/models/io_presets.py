@@ -52,6 +52,35 @@ def preprocess(preset: str, x01: torch.Tensor) -> torch.Tensor:
     return x01 * 255.0
 
 
+def preset_affine(preset: str):
+    """The preset's pre/post transforms as per-channel affines + permutations:
+    (pre_perm, pre_a, pre_b, post_perm, post_s, post_t) with
+      preprocess(x01)  == x01[..., pre_perm] · pre_a + pre_b
+      postprocess(y)   == clip(y[..., post_perm] · post_s + post_t, 0, 1)
+    (index lists and numpy float32 arrays, the JAX engine's values). The
+    int8 deconv3 folds the post affine into its weights and bias, which its
+    int8 scales are taken over."""
+    import numpy as np
+
+    ident = [0, 1, 2]
+    one = np.ones(3, np.float32)
+    zero = np.zeros(3, np.float32)
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+    if preset == "tanh":
+        return ident, one * 2.0, one * -1.0, ident, one * 0.5, one * 0.5
+    if preset == "imagenet_01":
+        return ident, 1.0 / std, -mean / std, ident, std, mean
+    if preset == "imagenet_255":
+        return ident, 1.0 / std, -mean / std, ident, one / 255.0, zero
+    if preset == "caffe_bgr":
+        mbgr = np.asarray(CAFFE_MEAN_BGR, np.float32)
+        return [2, 1, 0], one * 255.0, -mbgr, [2, 1, 0], one / 255.0, zero
+    if preset == "raw_01":
+        return ident, one, zero, ident, one, zero
+    return ident, one * 255.0, zero, ident, one / 255.0, zero  # raw_255
+
+
 def postprocess(preset: str, y: torch.Tensor) -> torch.Tensor:
     """Model output → [0,1] NHWC RGB (clipped)."""
     if preset == "tanh":

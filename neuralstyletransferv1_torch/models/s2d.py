@@ -1,10 +1,13 @@
-"""Space-to-depth pieces of the int8 decoder sites, and the deferred
-instance-norm formulas the quantized path shares with the JAX engine.
+"""Space-to-depth pieces of the int8 sites, and the deferred instance-norm
+formulas the quantized path shares with the JAX engine.
 
 Port of ``neuralstyletransferv1_tpu/models/transformer_net_s2d.py``:
-``_scatter_upconv`` (the int8 deconv1/deconv2 weights), ``d2s``,
-``_pad_edge_blocks``, ``_in_stats`` and ``_apply_in_relu``. Channel index of
-a block tensor = (u·f + v)·C + c.
+``_scatter_upconv`` (the int8 deconv1/deconv2 weights), ``s2d``, ``d2s``,
+``_pad_edge_blocks``, ``_in_stats`` and ``_apply_in_relu``; the inverse of
+``_scatter_stride2_s2d2`` (conv2's block weights back to pixels); and of
+``transformer_net_s2d2.py``: ``_scatter_k9_f2``, deconv3's tap packing with
+the d3 half of ``bake_io_affine`` (``d3_tap_packed``) and
+``_pad_reflect_f2_4px``. Channel index of a block tensor = (u·f + v)·C + c.
 """
 
 from __future__ import annotations
@@ -18,6 +21,92 @@ def d2s(x: torch.Tensor, f: int, c: int) -> torch.Tensor:
     b, hb, wb, _ = x.shape
     x = x.reshape(b, hb, wb, f, f, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, hb * f, wb * f, c)
+
+
+def s2d(x: torch.Tensor, f: int) -> torch.Tensor:
+    """[B,H,W,c] pixels → [B,H/f,W/f,f·f·c] block tensor (inverse of d2s)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // f, f, w // f, f, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // f, w // f, f * f * c)
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def pad_reflect_f2_4px(x: torch.Tensor, c: int) -> torch.Tensor:
+    """Reflect-pad an f=2 block tensor by two halo blocks per side, which is
+    the 4-pixel reflect of its pixels (``_pad_reflect_f2_4px`` of
+    ``transformer_net_s2d2.py``: a phase-permuted block reflect). An index
+    gather, so it takes int8 codes as well as bf16."""
+    p = d2s(x, 2, c)
+    _, h, w, _ = p.shape
+    p = p.index_select(1, _reflect_index(h, 4, x.device))
+    p = p.index_select(2, _reflect_index(w, 4, x.device))
+    return s2d(p, 2)
+
+
+def stride2_pixel_weight(wb: np.ndarray) -> np.ndarray:
+    """The JAX engine's conv2 block weights (``_scatter_stride2_s2d2``: a
+    3×3 stride-2 pixel conv as a 2×2 block conv on the space-to-depth grid,
+    [2,2,4·ci,co]) → the pixel weights [3,3,ci,co]. Every pixel tap sits at
+    exactly one block position (κ, phase): a=0 → (0, 1), a=1 → (1, 0),
+    a=2 → (1, 1), so this is a gather and int8 codes stay codes."""
+    wb = np.asarray(wb)
+    ci = wb.shape[2] // 4
+    taps = [(0, 1), (1, 0), (1, 1)]  # (κ, phase) of pixel tap a
+    out = np.zeros((3, 3, ci, wb.shape[3]), wb.dtype)
+    for a, (ka, pa) in enumerate(taps):
+        for b, (kb, pb) in enumerate(taps):
+            out[a, b] = wb[ka, kb, (pa * 2 + pb) * ci:(pa * 2 + pb + 1) * ci]
+    return out
+
+
+def scatter_k9_f2(w: np.ndarray) -> np.ndarray:
+    """9×9 s1 pixel conv (pad 4) → 5×5 block conv at f=2 (``_scatter_k9_f2``).
+
+    w: HWIO [9,9,ci,co] → [5,5,4·ci,4·co], valid over a grid pre-padded by
+    two blocks per side; channel (u·2+v)·c + ch. Output pixel 2J+u reads
+    input pixel 2J+u+a−4 = block J−2+(u+a)//2, phase (u+a)%2."""
+    k, _, ci, co = w.shape
+    assert k == 9
+    out = np.zeros((5, 5, 4 * ci, 4 * co), np.float32)
+    for u in range(2):
+        for v in range(2):
+            for a in range(9):
+                for b in range(9):
+                    al, u2 = divmod(u + a, 2)
+                    be, v2 = divmod(v + b, 2)
+                    out[al, be, (u2 * 2 + v2) * ci:(u2 * 2 + v2 + 1) * ci,
+                        (u * 2 + v) * co:(u * 2 + v + 1) * co] += w[a, b]
+    return out
+
+
+def d3_tap_packed(w: np.ndarray, b: np.ndarray, post) -> tuple[np.ndarray, np.ndarray]:
+    """deconv3 (HWIO [9,9,32,3], bias [3]) in the JAX engine's tap-packed
+    f=2 form with the IO preset's post affine baked in: the 5 kernel rows
+    of the 5×5 block conv pack into 5·12 = 60 output lanes of a 1×5 conv,
+    and output lane dy·12 + phase·3 + c carries postprocess channel c
+    (``from_johnson_params`` and ``bake_io_affine`` of
+    ``transformer_net_s2d2.py``). ``post`` = (post_perm, post_s, post_t) of
+    ``io_presets.preset_affine``. Returns (w_row [1,5,128,60], b [12]) in
+    f32; the output is on the [0,1] scale before the final clamp."""
+    operm, os_, ot = post
+    w5 = scatter_k9_f2(np.asarray(w, np.float32))       # [5,5,128,12]
+    w_row = np.zeros((1, 5, w5.shape[2], 5 * w5.shape[3]), np.float32)
+    for dy in range(5):
+        w_row[0, :, :, dy * 12:(dy + 1) * 12] = w5[dy]
+    b12 = np.tile(np.asarray(b, np.float32), 4)
+    w3 = np.zeros_like(w_row)
+    b3 = np.zeros_like(b12)
+    for ph in range(4):
+        for c in range(3):
+            co, src = ph * 3 + c, ph * 3 + operm[c]
+            for dy in range(5):
+                w3[..., dy * 12 + co] = w_row[..., dy * 12 + src] * os_[c]
+            b3[co] = b12[src] * os_[c] + ot[c]
+    return w3, b3
 
 
 def scatter_upconv(w: np.ndarray) -> np.ndarray:

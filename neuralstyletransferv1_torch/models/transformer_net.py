@@ -173,14 +173,24 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 def quant_from_jax(quant: dict | None = None, static_stats: dict | None = None):
     """The JAX engine's calibration → the port's: ``quant`` (per site int8
-    HWIO ``w`` — the phase weights for d1/d2 — f32 ``ws``, scalar ``qin``,
+    HWIO ``w`` — the phase weights for d1/d2, the tap-packed baked weights
+    for d3, conv2's block weights gathered back to pixels — f32 ``ws``,
+    scalar ``qin``,
     as ``transformer_net_s2d2.quantize_net`` returns it) and
     ``static_stats`` (per norm site ``(mean, inv)``, as ``calibrate_in_stats``
     returns it), with numpy-convertible leaves. Returns the pair in the form
     ``transformer_net_quant.quantize_net`` / ``calibrate_in_stats`` give,
     either None when not given."""
+    from .s2d import stride2_pixel_weight
+
+    def weight(site, w):
+        w = np.asarray(w, np.int8)
+        if site == "c2" and w.shape[:2] == (2, 2):  # the block form → pixels
+            w = stride2_pixel_weight(w)
+        return torch.from_numpy(w.copy())
+
     q = None if quant is None else {
-        site: {"w": torch.from_numpy(np.asarray(s["w"], np.int8).copy()),
+        site: {"w": weight(site, s["w"]),
                "ws": torch.from_numpy(np.asarray(s["ws"], np.float32).copy()),
                "qin": float(np.float32(s["qin"]))}
         for site, s in quant.items()}

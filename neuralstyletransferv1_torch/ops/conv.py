@@ -26,7 +26,8 @@ def conv2d(
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d_i8(x_q: torch.Tensor, w_q: torch.Tensor, *, padding: int = 0) -> torch.Tensor:
+def conv2d_i8(x_q: torch.Tensor, w_q: torch.Tensor, *, padding: int | tuple[int, int] = 0,
+              stride: int = 1) -> torch.Tensor:
     """Exact int8 × int8 → int32 convolution (the plain version of the int8
     sites' kernels).
 
@@ -37,5 +38,5 @@ def conv2d_i8(x_q: torch.Tensor, w_q: torch.Tensor, *, padding: int = 0) -> torc
     whatever order the convolution sums in; the final round only guards
     transform-based algorithms."""
     y = F.conv2d(x_q.permute(0, 3, 1, 2).double(), w_q.permute(3, 2, 0, 1).double(),
-                 padding=padding)
+                 padding=padding, stride=stride)
     return y.round().to(torch.int32).permute(0, 2, 3, 1)

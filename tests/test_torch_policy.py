@@ -1,5 +1,5 @@
 """Rules of the PyTorch port: no JAX at run time, no CPU fallback on the
-CUDA path, and the kernels (K1, K2–K5) against their plain versions on the
+CUDA path, and the kernels (K1, K2–K8b) against their plain versions on the
 card.
 
 The JAX-import rule is checked statically (an AST scan), since the test
@@ -199,6 +199,68 @@ def test_k2_to_k5_match_plain_on_card(cuda_device, c, co, halo):
         expect.update(res_site_s8o=1, site_s8=1)
     torch.cuda.synchronize()
     assert {k: k8.LAUNCHES[k] - before[k] for k in expect} == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,co,halo", [(128, 256, "edge"), (64, 128, "edge"),
+                                       (128, 128, "reflect")])
+def test_k3_s8out_yaff_match_plain_on_card(cuda_device, c, co, halo):
+    """K3's S8OUT (per-channel rows, floor 0 or −127) and YAFF epilogues,
+    and the bare bf16 form, against the plain version: bit-identical."""
+    t = _int8_inputs(cuda_device, c, co)
+    before = k8.LAUNCHES["site_s8"]
+    cases = [dict(qa=t["qa"], qc=t["qc"], qlo=0.0), {}]
+    if c == co:
+        aa, ac = t["qa"] / 40, t["qc"] / 40
+        cases += [dict(aa=aa, ac=ac, y=t["y"], qa=t["qa"] / 4, qc=t["qc"], qlo=-127.0),
+                  dict(aa=aa, ac=ac, y=t["y"], yaff=(t["a2"][0], t["c2"][0]))]
+    for kw in cases:
+        o = k8.site_s8(t["codes"], t["w"], t["ws"], t["bias"], halo=halo, **kw)
+        assert torch.equal(o, k8.site_s8_plain(t["codes"], t["w"], t["ws"], t["bias"],
+                                               halo=halo, **kw)), sorted(kw)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["site_s8"] - before == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c,co", [("c2_site", 32, 64), ("c3_site", 64, 128)])
+def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co):
+    """K8a/K8b (stride-2 3×3, pixel reflect halo, floor 0): bf16 raw
+    bit-identical to the plain version, sums within 1e-5."""
+    t = _int8_inputs(cuda_device, c, co, h=38, w=74)
+    before = k8.LAUNCHES[name]
+    args = (t["x"], t["a"], t["c"], 0.0, t["w"], t["ws"], t["bias"])
+    o, s = getattr(k8, name)(*args)
+    po, ps = getattr(k8, f"{name}_plain")(*args)
+    torch.cuda.synchronize()
+    assert tuple(o.shape) == (2, 19, 37, co)
+    assert torch.equal(o, po) and torch.allclose(s, ps, rtol=1e-5, atol=1e-3)
+    assert k8.LAUNCHES[name] - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(12, 16), (19, 37)])
+def test_k6_k7_d3_sites_match_plain_on_card(cuda_device, h, w):
+    """K7 (quantize → 1×5 rows, 60 lanes) and K6 (s8 codes → rows → dy-sum
+    + bias) against their plain versions: bit-identical."""
+    rng = np.random.default_rng(h)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
+    w5 = torch.from_numpy(rng.integers(-127, 128, (1, 5, 128, 60)).astype(np.int8))
+    wk = k8.pack_weights(w5, co_pad=64).to(cuda_device)
+    ws = f32(np.concatenate([rng.uniform(0.5, 2, 60) / (127 * 127 * 20), np.zeros(4)]))
+    y = f32(rng.normal(0, 2, (2, h, w, 128))).to(torch.bfloat16)
+    a, c = f32(rng.uniform(5, 40, (2, 128))), f32(rng.normal(0, 8, (2, 128)))
+    codes = torch.from_numpy(rng.integers(0, 128, (2, h, w, 128)).astype(np.int8)).to(cuda_device)
+    bias = f32(rng.normal(0, 0.2, 12))
+    before = dict(k8.LAUNCHES)
+    rows = k8.d3_rows_site(y, a, c, wk, ws)
+    out = k8.d3_s8_site(codes, wk, ws, bias)
+    torch.cuda.synchronize()
+    assert tuple(rows.shape) == (2, h, w, 60) and tuple(out.shape) == (2, h, w, 12)
+    assert torch.equal(rows, k8.d3_rows_site_plain(y, a, c, wk, ws))
+    assert torch.equal(out, k8.d3_s8_site_plain(codes, wk, ws, bias))
+    assert k8.LAUNCHES["d3_rows_site"] - before["d3_rows_site"] == 1
+    assert k8.LAUNCHES["d3_s8_site"] - before["d3_s8_site"] == 1
 
 
 @pytest.mark.cuda
