@@ -8,8 +8,9 @@ order, and any failed phase exits non-zero:
 
 1. require CUDA and the port's package beside this file;
 2. print the card's name and power limit (nvidia-smi);
-3. build K1 (``csrc/dis_iter.cu``) and K2–K8b (``csrc/int8_sites.cu``), one
-   nvcc each, started together, and print ptxas' registers and spills;
+3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``) and
+   K9a–K9e (``csrc/bf16_sites.cu``), one nvcc each, started together, and
+   print ptxas' registers and spills;
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -21,6 +22,13 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
+   then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
+   64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
+   rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
+   two launches bit-identical, bf16 outputs within 1 bf16 ulp of the plain
+   version everywhere (an ulp taken at no less than 2^-8 of the tensor's
+   largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
+   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites;
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
    bit for bit from one head output — under the adopted set and under the
@@ -31,9 +39,11 @@ order, and any failed phase exits non-zero:
    random-weight Johnson checkpoint — over 3 batches of synthesized moving
    frames, once plain, once for each of ``--quantize int8_static`` and
    ``int8`` with the adopted site sets, and once for each with the sets A
-   (int8_static) and B (int8: head K8a/K8b, K4/K5 chains, K7 deconv3); check
-   every kernel's launch count of each run exactly, and that each quantized
-   stylize stays within the 1e-2 MAE gate of the bf16 one;
+   (int8_static) and B (int8: head K8a/K8b, K4/K5 chains, K7 deconv3), and
+   once for each of the bf16 fused-site sets ``("head", "tail")`` (K9c, K9d,
+   K9a, K9b) and ``("d3",)`` (K9e); check every kernel's launch count of each
+   run exactly, and that each quantized or fused stylize stays within the
+   1e-2 MAE gate of the plain bf16 one;
 8. when OpenCV is installed, run the CLI ``main()`` end to end on a
    synthesized 1080p mp4.
 
@@ -43,9 +53,9 @@ The line before the last is the kernels' JSON record; the last line is
     python3 chip_smoke.py --profile
 
 instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
-``bf16_static``, ``int8_static``, ``int8``, and the two under sets A and B) with
-torch.profiler and prints where its device time goes, grouped by kind of
-kernel (PERF.md section 5).
+``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, and the
+two bf16 fused-site sets) with torch.profiler and prints where its device
+time goes, grouped by kind of kernel (PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -71,6 +81,8 @@ QUANT_BROKEN_TOL = 5e-2  # [0,1] raw-scale stylize: beyond this the path is brok
 SUM_TOL = 1e-5         # relative, the int8 sites' [Σ, Σ²] against the plain sums
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (the bound's memory rate)
 PEAK_INT8_OPS = 1979e12     # dense int8 tensor-core ops/s, same sheet
+PEAK_BF16_OPS = 989e12      # dense bf16 tensor-core FLOP/s, same sheet
+BF16_EQUAL_SHARE = 0.99     # K9: share of bf16 outputs equal to the plain version's
 PEAK_F32_OPS = 67e12        # f32 outside the tensor cores, same sheet
 
 # the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo); the c2/c3
@@ -97,22 +109,39 @@ INT8_KERNELS = {
     "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
     "d3_s8_site": ((("d3", ""),), f"{_SITES_I8}:939"),
 }
+_SITES_BF16 = "neuralstyletransferv1_tpu/models/s2d2_sites.py"
+# K9a-K9e: the input shape (B, H, W, C) each runs at on the main path, and the
+# TPU kernel it replaces
+BF16_KERNELS = {
+    "d2_site": ((B, H // 2, W // 2, 64), f"{_SITES_BF16}:131"),
+    "d3_sum_site": ((B, H // 2, W // 2, 128), f"{_SITES_BF16}:283"),
+    "c2_site_bf16": ((B, H, W, 32), f"{_SITES_BF16}:462"),
+    "c3_site_bf16": ((B, H // 2, W // 2, 64), f"{_SITES_BF16}:594"),
+    "d3_rows": ((B, H // 2, W // 2, 128), f"{_SITES_BF16}:58"),
+}
 # the all-int8 head and tail sets (ROADMAP Queue 1, item 11)
 SET_A = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8")
 SET_B = ("head_i8", "res_i8", "dec_i8", "tail_s8", "d3_i8")
 # the quantized slices, (--quantize, fused set or None for the adopted one),
 # and the launches of each int8 kernel per batch
-SLICES = (("int8_static", None), ("int8", None), ("int8_static", SET_A), ("int8", SET_B))
+HEAD_TAIL = ("head", "tail")
+D3 = ("d3",)
+SLICES = (("int8_static", None), ("int8", None), ("int8_static", SET_A), ("int8", SET_B),
+          ("none", HEAD_TAIL), ("none", D3))
 PER_BATCH = {("int8_static", None): {"res_site_s8o": 5, "site_s8": 5, "res_site": 2},
              ("int8", None): {"res_site": 7, "res_site_skip": 5},
              ("int8_static", SET_A): {"c2_site": 1, "c3_site": 1, "res_site_s8o": 5,
                                       "site_s8": 7, "d3_s8_site": 1},
              ("int8", SET_B): {"c2_site": 1, "c3_site": 1, "res_site": 7, "res_site_skip": 5,
-                               "d3_rows_site": 1}}
+                               "d3_rows_site": 1},
+             ("none", HEAD_TAIL): {"c2_site_bf16": 1, "c3_site_bf16": 1, "d2_site": 1,
+                                   "d3_sum_site": 1},
+             ("none", D3): {"d3_rows": 1}}
+SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3"}
 
 
 def slice_name(quantize: str, fused) -> str:
-    return quantize if fused is None else f"{quantize}+set{'A' if fused == SET_A else 'B'}"
+    return quantize if fused is None else f"{quantize}+{SET_NAMES[fused]}"
 
 
 def fail(msg: str) -> None:
@@ -441,6 +470,134 @@ def int8_kernel_phase(dev):
     return results
 
 
+def bf16_site_inputs(dev, name, shape, seed):
+    """Random operands of a bf16 site at realistic scales: raw activations
+    O(1), an affine that leaves about half of them above the ReLU, weights
+    of a fan-in-scaled net."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w, c = shape
+    x = (torch.randn(shape, generator=g, device=dev) * 1.5).to(torch.bfloat16)
+    a = torch.rand((b, c), generator=g, device=dev) + 0.5
+    cc = torch.randn((b, c), generator=g, device=dev) * 0.3
+    if name.startswith("d3"):
+        wt = torch.randn((1, 5, c, k9.D3_LANES), generator=g, device=dev) * (5 * c) ** -0.5
+        args = [x, a, cc, k9.pack_rows_weights(wt)]
+        if name == "d3_sum_site":
+            args.append(torch.randn(k9.D3_OUT, generator=g, device=dev) * 0.2)
+    else:
+        co = k9.SITES[name][1]
+        wt = torch.randn((3, 3, c, co), generator=g, device=dev) * (9 * c) ** -0.5
+        args = [x, a, cc, k9.pack_site_weights(wt), torch.randn(co, generator=g, device=dev) * 0.2]
+    return args
+
+
+def check_bf16_site(name, out, again, ref, args):
+    """Kernel vs plain version: two launches bit-identical; every bf16 output
+    within 1 ulp and BF16_EQUAL_SHARE of them equal; the sums within SUM_TOL.
+    The two differ by the order of their f32 accumulation, an error that does
+    not shrink with the element, so an ulp is taken at no less than 2^-8 of
+    the tensor's largest magnitude. d3_sum_site adds five bf16 rows that may
+    each differ by an ulp of their own size: it is held to 2 ulp of the
+    largest of the element and its five terms."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    outs = out if isinstance(out, tuple) else (out,)
+    for o, o2 in zip(outs, again if isinstance(again, tuple) else (again,)):
+        if not torch.equal(o, o2):
+            fail(f"{name}: two launches on the same inputs differ")
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    o, r = outs[0], refs[0]
+    if o.shape != r.shape or o.dtype != torch.bfloat16:
+        fail(f"{name}: output {tuple(o.shape)} {o.dtype}, expected {tuple(r.shape)} bfloat16")
+    if not bool(torch.isfinite(o.float()).all()):
+        fail(f"{name}: non-finite output")
+    scale, limit = None, 1.0
+    if name == "d3_sum_site":
+        scale, limit = k9.d3_sum_scale_plain(*args[:4]), 2.0
+    worst, equal = k9.bf16_ulp_error(o, r, scale=scale)
+    if worst > limit or equal < BF16_EQUAL_SHARE:
+        fail(f"{name}: {worst:.3g} ulp from the plain version at worst (limit {limit}), equal on "
+             f"{equal:.4%}")
+    if len(outs) > 1:
+        n = o.shape[1] * o.shape[2]
+        s, sr = outs[1].double(), refs[1].double()
+        ok = ((s[:, 1] - sr[:, 1]).abs() <= SUM_TOL * sr[:, 1]).all() and \
+            ((s[:, 0] - sr[:, 0]).abs() <= SUM_TOL * (n * sr[:, 1]).sqrt()).all()
+        if not bool(ok):
+            fail(f"{name}: the kernel's sums disagree with the plain sums")
+    return float((o.float() - r.float()).abs().max()), worst, equal
+
+
+def bf16_library_conv(dev, name, shape):
+    """The cuDNN bf16 conv a bf16 site stands for (for scale): the 3×3 of its
+    shape, or for deconv3's sites the tap-packed 1×5 128→60 conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    b, h, w, c = shape
+    x = torch.randn(shape, device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+    if name.startswith("d3"):
+        wc = torch.randn((k9.D3_LANES, c, 1, 5), device=dev).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(x, wc, padding=(0, 2))
+    _, co, stride, _, _ = k9.SITES[name]
+    wc = torch.randn((co, c, 3, 3), device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: F.conv2d(x, wc, stride=stride, padding=1)
+
+
+def bf16_kernel_phase(dev):
+    """K9a-K9e against their plain versions at the slice's shapes, timed in
+    turns (plain, kernel, kernel, plain) beside the cuDNN bf16 conv of the
+    same shape."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    results = {}
+    for i, (name, (shape, _replaces)) in enumerate(BF16_KERNELS.items()):
+        args = bf16_site_inputs(dev, name, shape, seed=100 + i)
+        kernel, plain = getattr(k9, name), getattr(k9, f"{name}_plain")
+        out, again, ref = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, worst, equal = check_bf16_site(name, out, again, ref, args)
+        outs = out if isinstance(out, tuple) else (out,)
+        b, h, w, c = shape
+        pix = outs[0].shape[0] * outs[0].shape[1] * outs[0].shape[2]
+        if name == "d3_sum_site":  # the rows are computed for every output row
+            pix = b * h * w
+        lanes = k9.D3_LANES if name.startswith("d3") else outs[0].shape[3]
+        taps = 5 if name.startswith("d3") else 9
+        flops = 2 * pix * c * lanes * taps
+        moved = nbytes(*args, *outs)
+        del out, again, ref, outs
+        torch.cuda.empty_cache()
+        t_plain = dev_time(lambda: plain(*args), reps=2)
+        t_k = (dev_time(lambda: kernel(*args)) + dev_time(lambda: kernel(*args))) / 2
+        t_plain = (t_plain + dev_time(lambda: plain(*args), reps=2)) / 2
+        lib = bf16_library_conv(dev, name, shape)
+        t_lib = dev_time(lib)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_OPS * 1e3
+        log(f"{name} @ {b}x{h}x{w}x{c}: two launches bit-identical; vs plain max |err| "
+            f"{err:.4g}, worst {worst:.3g} ulp, equal on {equal:.4%}; kernel {t_k:.4f} ms, plain "
+            f"{t_plain:.4f} ms, cuDNN bf16 conv {t_lib:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+            f"({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP)")
+        results[name] = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib,
+                         "bound_ms": max(t_bytes, t_ops), "max_abs_err": err,
+                         "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+        del args, lib
+        torch.cuda.empty_cache()
+    return results
+
+
 def reference_phase(dev):
     """The CUDA slice vs the port's CPU path on a small input."""
     import numpy as np
@@ -575,25 +732,28 @@ def set_a_chain_phase(dev, model, x, stats):
 
 
 def zero_counts():
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     k1.LAUNCHES = 0
-    for k in k8.LAUNCHES:
-        k8.LAUNCHES[k] = 0
+    for counts in (k8.LAUNCHES, k9.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts() -> dict:
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES}
+    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k9.LAUNCHES}
 
 
 def slice_phase(dev, quantize: str = "none", fused=None):
-    """The 1080p bf16 flow-EMA slice through make_batched_core, plain or
-    with a --quantize mode and fused-site set; returns the run's launch
-    counts."""
+    """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
+    a --quantize mode and fused-site set, or with a set of bf16 fused sites;
+    returns the run's launch counts."""
     import numpy as np
     import torch
 
@@ -631,8 +791,10 @@ def slice_phase(dev, quantize: str = "none", fused=None):
     for k in counts:
         if k != "dis_iter":
             expected[k] = PER_BATCH.get((quantize, fused), {}).get(k, 0) * N_BATCHES
+    used = {k: v for k, v in counts.items() if v}
     log(f"slice 1080p B={B} bf16 --quantize {name}: batch seconds "
-        f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {counts} (expected {expected})")
+        f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {used} (every other kernel 0), "
+        f"{'as' if counts == expected else 'NOT as'} expected")
     if counts != expected:
         fail(f"the main path's launches {counts} are not the expected {expected}")
     last = outs[-1]
@@ -645,14 +807,14 @@ def slice_phase(dev, quantize: str = "none", fused=None):
     overall = N_BATCHES * B / sum(t_batches)
     log(f"slice --quantize {name} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
         f"{overall:.2f} including the first batch")
-    if quantize != "none":
+    if quantize != "none" or fused:
         quant_quality(dev, args, frames[:B], quantize, fused)
     return counts
 
 
 def quant_quality(dev, args, frames, quantize, fused=None):
-    """The quantized stylize of the slice's first batch against the dynamic
-    bf16 stylize of the same frames: within the repo's 1e-2 gate with the
+    """The quantized (or fused-site) stylize of the slice's first batch
+    against the plain dynamic bf16 stylize of the same frames: within the repo's 1e-2 gate with the
     slot's IO preset (what the main path ran), and, as a check that the path
     is not broken, within QUANT_BROKEN_TOL on the raw_01 scale, where this
     random-weight net's outputs spread over [0, 1] (there int8 noise alone
@@ -672,8 +834,7 @@ def quant_quality(dev, args, frames, quantize, fused=None):
         mae = float((got - ref).abs().mean())
         first = float((got[0] - ref[0]).abs().mean())
         log(f"stylize --quantize {slice_name(quantize, fused)} vs bf16, preset {preset}: "
-            f"MAE {mae:.6f} "
-            f"(calibration frame {first:.6f}; bound {bound})")
+            f"MAE {mae:.6f} (first frame {first:.6f}; bound {bound})")
         if not (torch.isfinite(got).all() and mae <= bound):
             fail(f"the {slice_name(quantize, fused)} stylize is not within {bound} of the bf16 "
                  f"stylize ({preset})")
@@ -710,6 +871,8 @@ def cli_phase(dev, workdir: Path):
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
+    if "kernel_bf16" in n or "stats_reduce_bf16" in n:
+        return "bf16 sites K9a-K9e"
     if "site_kernel" in n or "stats_reduce" in n or "rows_kernel" in n:
         return "int8 sites K2-K8b"
     if "dis_iter" in n:
@@ -788,15 +951,18 @@ def main() -> int:
 
     from neuralstyletransferv1_torch.device import resolve_device
     from neuralstyletransferv1_torch.kernels import _build
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     resolve_device("cuda")  # TF32 off for the f32 paths
     t0 = time.perf_counter()
-    _build.build([k1._SOURCE, k8._SOURCE])
+    _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE])
     k1._lib()
     k8._lib()
-    log(f"built K1 and K2-K8b with nvcc (in parallel) in {time.perf_counter() - t0:.2f} s")
+    k9._lib()
+    log(f"built K1, K2-K8b and K9a-K9e with nvcc (in parallel) in "
+        f"{time.perf_counter() - t0:.2f} s")
     if sys.argv[1:] == ["--profile"]:
         profile_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -810,6 +976,7 @@ def main() -> int:
 
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
+    bf16 = bf16_kernel_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     launches = {k: 0 for k in read_counts()}
@@ -846,7 +1013,13 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": None,
             "cudnn_bf16_ms": rec["cudnn_bf16_ms"], "per_case": rec["per_case"],
         })
-    for name in INT8_KERNELS:
+    for name, (_shape, replaces) in BF16_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
+            "launches": launches[name], "library_ms": None, **bf16[name],
+        })
+    for name in (*INT8_KERNELS, *BF16_KERNELS):
         if launches[name] == 0:
             fail(f"{name} was launched no time on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -103,8 +103,9 @@ def load_slot_bank(args, device) -> list:
 
 def make_batched_core(args, device: torch.device, *, fused_sites=None):
     """The per-batch pipeline: slot-bank stylize → RGB slot blend → DIS flow
-    → temporal chain, uint8 in and out. ``fused_sites``: the int8 modes'
-    fused-site set (None: the adopted one, ``adopt_overrides.sites``).
+    → temporal chain, uint8 in and out. ``fused_sites``: the fused-site set
+    (``jit_stylizer``): None is the adopted one in the int8 modes and no
+    fused site otherwise; ``head``, ``tail`` and ``d3`` name the bf16 sites.
 
     Returns (B, process_batch) where ``process_batch(imgs: list[np.uint8
     HWC]) -> device uint8 [B,H,W,3]``; the temporal state carries across

@@ -15,7 +15,12 @@ with frozen or measured norms (``models/transformer_net_quant.py``), routed
 by a fused-site set: the adopted one (``adopt_overrides.py`` reading
 ``i8_adopt.json``), or the tuple ``jit_stylizer(fused_sites=...)`` is given.
 When the set makes deconv3 an int8 site, its weights carry the IO post
-affine, as the JAX engine bakes it, and the output is only clamped.
+affine, as the JAX engine bakes it, and the output is only clamped. A set
+may also name the bf16 fused sites ``head``, ``tail`` and ``d3``
+(``models/sites_bf16.py``, K9a–K9e): with ``quantize="none"`` or
+``bf16_static`` they route the bf16 net itself
+(``TransformerNet.forward(fused_sites=)``), in the int8 modes ``tail`` and
+``d3`` route the decoder (``forward_int8``).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 
 from ..io import checkpoints as ckpt
 from ..models import io_presets as iop
-from ..models import sites_i8
+from ..models import sites_bf16, sites_i8
 from ..models import transformer_net_quant as tq
 from ..models.transformer_net import TransformerNet, params_from_jax
 from ..ops.resize import resize_bilinear
@@ -95,10 +100,11 @@ def _reflect_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
-                        x01: torch.Tensor, fused_sites=None):
+                        x01: torch.Tensor, fused_sites=None, sw=None):
     """Calibrate on the first frame of ``x01`` (f32, the f32 weights, padded
     to a multiple of 4 only) and return the forward of ``quantize`` and
-    whether its output carries the post affine."""
+    whether its output carries the post affine. ``sw``: the bf16 sites'
+    weights, where the set names one."""
     xc = x01[:1].float()
     H, W = xc.shape[1], xc.shape[2]
     xc = _reflect_pad(xc, (-H) % 4, (-W) % 4)
@@ -109,7 +115,8 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
     if quantize == "bf16_static":
         print(f"[stylizer] static-norm bf16 path calibrated for {model.name} "
               f"({len(stats)} frozen norms)")
-        return (lambda t: net(t, static_stats=stats)), False
+        return (lambda t: net(t, static_stats=stats, fused_sites=fused_sites or (),
+                              site_weights=sw)), False
     fused = tq.check_fused_sites(tq.default_sites(stats is not None) if fused_sites is None
                                  else fused_sites)
     scales = tq.calibrate_act_scales(model.net, xin, sites=tq.QUANT_SITES_PALLAS,
@@ -120,14 +127,18 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
     sites = sites_i8.prepare_sites(net, quant, x01.device, d3=d3)
     print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(sites)} int8 sites, "
           f"fused {fused}" + (f", {len(stats)} frozen norms)" if stats else ")"))
-    return (lambda t: tq.forward_int8(net, t, sites, stats, fused_sites=fused)), d3 is not None
+    return (lambda t: tq.forward_int8(net, t, sites, stats, fused_sites=fused,
+                                      site_weights=sw)), d3 is not None
 
 
 def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
                  quantize: str = "none", fused_sites=None):
     """A stylize function for one slot: f(batch01 NHWC f32) → NHWC f32.
-    ``fused_sites``: the int8 modes' fused-site set, None for the adopted
-    one (``adopt_overrides.sites``).
+    ``fused_sites``: the fused-site set; None is the adopted one in the int8
+    modes (``adopt_overrides.sites``) and no fused site otherwise. Under
+    bfloat16 without an int8 mode the set's ``head``, ``tail`` and ``d3``
+    run as the bf16 fused sites (the port's stand-in for calling the JAX
+    ``apply(fused_sites=)`` directly).
 
     Sizes that are not multiples of 4 reflect-pad to the next multiple and
     crop back, as the JAX engine does for its fast forms; the int8 modes pad
@@ -141,15 +152,31 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
         raise NotImplementedError(
             f"--quantize {quantize} runs under bfloat16 only: ROADMAP.md Queue 1, item 10 "
             "(--quantize under float32)")
+    if fused_sites is not None:
+        unknown = sorted(set(fused_sites) - set(tq.FUSED_SITE_NAMES))
+        if unknown:
+            raise ValueError(f"unknown fused sites {unknown}; known: {tq.FUSED_SITE_NAMES}")
+    bf16_sites = set(fused_sites or ()) & set(sites_bf16.BF16_SITE_NAMES)
+    if bf16_sites and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"fused sites {sorted(bf16_sites)} run under bfloat16 only: ROADMAP.md Queue 1, "
+            "item 10 (--quantize and fused sites under float32)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
-    state = {"forward": net if quantize == "none" else None, "baked": False}
+    sw = None
+    if bf16_sites:
+        sw = sites_bf16.prepare(model.net, next(model.net.parameters()).device)
+
+    def plain(t):
+        return net(t, fused_sites=fused_sites or (), site_weights=sw)
+
+    state = {"forward": plain if quantize == "none" else None, "baked": False}
     int8 = quantize in ("int8_static", "int8")
 
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
             state["forward"], state["baked"] = _calibrated_forward(model, net, quantize, x01,
-                                                                   fused_sites)
+                                                                   fused_sites, sw)
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)

@@ -1,0 +1,279 @@
+"""K9a–K9e: the bf16 fused sites of the Johnson net (``csrc/bf16_sites.cu``).
+
+Each replaces one Pallas kernel of ``neuralstyletransferv1_tpu/models/
+s2d2_sites.py``. All five share one prologue, the pending instance-norm
+affine and ReLU applied to the raw input in f32 and rounded to bf16,
+x' = bf16(max(f32(x)·a + c, 0)), and run a conv of bf16 operands with f32
+accumulation:
+
+  K9a ``d2_site``       3×3 stride 1, 64 → 128, edge halo: deconv2 in its
+                        phase form (``_d2_site`` / ``_d2_kernel``)
+  K9c ``c2_site_bf16``  3×3 stride 2, 32 → 64, pixel reflect halo: conv2
+                        (``_c2_site`` / ``_c2_kernel`` + ``_c2_fixup``)
+  K9d ``c3_site_bf16``  3×3 stride 2, 64 → 128, pixel reflect halo: conv3
+                        (``_c3_site`` / ``_c3_kernel``)
+  K9e ``d3_rows``       deconv3's tap-packed 1×5 conv 128 → 60 lanes over the
+                        4-pixel reflect halo (on the block grid: two halo
+                        blocks a side, phases permuted) → bf16 rows for the
+                        H+4 rows of the padded grid (``d3_rows`` /
+                        ``_d3_kernel``)
+  K9b ``d3_sum_site``   the same rows, then out[r] = bf16(Σ_dy rows[r+dy]
+                        [12·dy + o] + bias[o]), f32 in dy order
+                        (``_d3_sum_site`` / ``_d3s_kernel``)
+
+K9a/K9c/K9d return (bf16(f), [Σ f, Σ f²]) with f = acc + bias in f32: the
+sums are of the f32 values before the bf16 round, as the TPU kernels take
+them (the int8 sites sum the rounded values). The TPU's K9c/K9d run 2×2
+block convs on space-to-depth tensors; each pixel tap sits exactly once in
+those block weights, so here they are pixel convs. Products of two bf16
+values are exact in f32: implementations differ only in the order of the f32
+accumulation, i.e. by isolated bf16 ulps after the round.
+
+Shapes: x [B,H,W,C] bf16, a/c [B,C] f32, site weights ``pack_site_weights``
+[9,CO,C] bf16, rows weights ``pack_rows_weights`` [5,64,128] bf16 (lanes
+60..63 zero), bias [CO] / [12] f32. Each wrapper dispatches on the tensors'
+device: CPU → the ``*_plain`` version, CUDA → the kernel or an error; no
+fallback between the two. ``LAUNCHES[name]`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from math import ceil
+
+import torch
+import torch.nn.functional as F
+
+from ..models.s2d import pad_reflect_f2_4px
+from .int8_sites import _check, _stream
+
+_SOURCE = "bf16_sites.cu"
+LAUNCHES = {"d2_site": 0, "d3_sum_site": 0, "c2_site_bf16": 0, "c3_site_bf16": 0, "d3_rows": 0}
+D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
+#: per site: (C, CO, stride, halo, output tile of a block)
+SITES = {"d2_site": (64, 128, 1, "edge", (8, 32)),
+         "c2_site_bf16": (32, 64, 2, "reflect", (8, 16)),
+         "c3_site_bf16": (64, 128, 2, "reflect", (8, 16))}
+
+
+def pack_site_weights(w: torch.Tensor) -> torch.Tensor:
+    """3×3 site weights [3,3,C,CO] (HWIO, any float dtype) → bf16 [9,CO,C]:
+    tap-major, the input channels innermost (the MMA's B operand)."""
+    kh, kw, c, co = w.shape
+    assert (kh, kw) == (3, 3), w.shape
+    return w.to(torch.bfloat16).reshape(9, c, co).permute(0, 2, 1).contiguous()
+
+
+def pack_rows_weights(w_row: torch.Tensor) -> torch.Tensor:
+    """deconv3's tap-packed weights [1,5,128,60] (any float dtype) → bf16
+    [5,64,128], the 60 lanes zero-padded to 64."""
+    assert tuple(w_row.shape) == (1, 5, D3_C, D3_LANES), w_row.shape
+    w = F.pad(w_row[0].to(torch.bfloat16), (0, D3_PAD - D3_LANES))
+    return w.permute(0, 2, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions (PyTorch ops; the CPU path and the card's yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _activate(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """bf16(max(f32(x)·a + c, 0)) with per-(image, channel) rows a, c [B,C]."""
+    return torch.relu(x.float() * a[:, None, None, :] + c[:, None, None, :]).to(torch.bfloat16)
+
+
+def _conv_f32(xa: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The f32 conv (VALID) of bf16 activations NHWC with bf16 weights."""
+    return F.conv2d(xa.float().permute(0, 3, 1, 2), w_oihw.float(), stride=stride).permute(
+        0, 2, 3, 1)
+
+
+def site_bf16_plain(x, a, c, w, bias, *, stride: int, halo: str):
+    """K9a/K9c/K9d's plain version → (bf16 raw [B,H/s,W/s,CO], f32 [B,2,CO]
+    sums of the f32 conv results)."""
+    mode = {"reflect": "reflect", "edge": "replicate"}[halo]
+    xa = F.pad(_activate(x, a, c).permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
+    co, cin = w.shape[1], w.shape[2]
+    f = _conv_f32(xa, w.reshape(3, 3, co, cin).permute(2, 3, 0, 1), stride) + bias
+    if stride == 2:  # an even size never reads the bottom/right pad
+        f = f[:, :x.shape[1] // 2, :x.shape[2] // 2]
+    fd = f.double()
+    sums = torch.stack([fd.sum(dim=(1, 2)), fd.square().sum(dim=(1, 2))], dim=1).float()
+    return f.to(torch.bfloat16), sums
+
+
+def d2_site_plain(x, a, c, w, bias):
+    return site_bf16_plain(x, a, c, w, bias, stride=1, halo="edge")
+
+
+def c2_site_bf16_plain(x, a, c, w, bias):
+    return site_bf16_plain(x, a, c, w, bias, stride=2, halo="reflect")
+
+
+c3_site_bf16_plain = c2_site_bf16_plain
+
+
+def d3_rows_plain(x, a, c, w):
+    """K9e's plain version → bf16 rows [B,H+4,W,60]."""
+    xa = _activate(pad_reflect_f2_4px(x, 32), a, c)
+    rows = _conv_f32(xa, w.permute(1, 2, 0)[:, :, None, :])  # OIHW [64,128,1,5]
+    return rows[..., :D3_LANES].to(torch.bfloat16).contiguous()
+
+
+def _d3_terms(rows: torch.Tensor) -> list:
+    """The five f32 terms [B,H,W,12] that K9b adds, from rows [B,H+4,W,60]."""
+    H = rows.shape[1] - 4
+    return [rows[:, dy:dy + H, :, dy * D3_OUT:(dy + 1) * D3_OUT].float() for dy in range(5)]
+
+
+def d3_sum_site_plain(x, a, c, w, bias):
+    """K9b's plain version → bf16 [B,H,W,12]."""
+    return (sum(_d3_terms(d3_rows_plain(x, a, c, w))) + bias).to(torch.bfloat16)
+
+
+def d3_sum_scale_plain(x, a, c, w):
+    """Per output of K9b, the largest magnitude among its five row terms
+    [B,H,W,12] f32: the scale at which two versions of K9b can differ."""
+    return torch.stack(_d3_terms(d3_rows_plain(x, a, c, w))).abs().amax(0)
+
+
+def bf16_ulp_error(out: torch.Tensor, ref: torch.Tensor, *, floor: float = 2.0 ** -8,
+                   scale: torch.Tensor | None = None) -> tuple[float, float]:
+    """How far two versions of a site are apart: (the largest |out − ref| in
+    bf16 ulps, the share of equal elements). Versions differ by the order of
+    their f32 accumulation, an error that does not shrink with the element,
+    so an element's ulp is taken at no less than ``floor`` times the largest
+    magnitude of ``ref`` (and no less than ``scale``, where given)."""
+    o, r = out.float(), ref.float()
+    big = r.abs().clamp_min(float(r.abs().max()) * floor)
+    if scale is not None:
+        big = torch.maximum(big, scale)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(((o - r).abs() / ulp).max()), float((o == r).float().mean())
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _lib():
+    from ._build import load_library
+
+    lib = load_library(_SOURCE)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    site = [P] * 8 + [I] * 3 + [P]
+    sigs = {"d2_site_launch": site, "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
+            "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
+            "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P]}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _run(kernel, fn, *args):
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[kernel] += 1
+
+
+def _site(k, x, a, c, w, bias):
+    cin, co, stride, halo, (th, tw) = SITES[k]
+    if x.device.type == "cpu":
+        return site_bf16_plain(x, a, c, w, bias, stride=stride, halo=halo)
+    dev = x.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
+    B, H, W, C = x.shape
+    if C != cin:
+        raise ValueError(f"{k}: C={C}, the kernel is built for C={cin}")
+    if H < 2 or W < 2 or (stride == 2 and (H % 2 or W % 2)):
+        raise ValueError(f"{k}: H={H}, W={W}: needs at least 2 pixels"
+                         + (" and an even size" if stride == 2 else ""))
+    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    for name, t in (("a", a), ("c", c)):
+        _check(k, name, t, torch.float32, (B, C), dev)
+    _check(k, "weights", w, torch.bfloat16, (9, co, C), dev)
+    _check(k, "bias", bias, torch.float32, (co,), dev)
+    ho, wo = H // stride, W // stride
+    out = torch.empty((B, ho, wo, co), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((B, ceil(ho / th) * ceil(wo / tw), 2, co), dtype=torch.float32, device=dev)
+    sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, getattr(_lib(), f"{k}_launch"), x.data_ptr(), a.data_ptr(), c.data_ptr(),
+             w.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(), sums.data_ptr(),
+             B, H, W, _stream(dev))
+    return out, sums
+
+
+def d2_site(x, a, c, w, bias):
+    """K9a: deconv2 in its phase form. x: deconv1's raw output on the 2×
+    grid [B,H,W,64]; a, c: the in4 affine; w: ``pack_site_weights`` of the
+    phase weights [3,3,64,128]; bias [128] (the conv bias tiled over the 4
+    phases). Returns (bf16 raw [B,H,W,128], f32 [B,2,128] sums of the f32
+    results over H, W; the caller folds the 4 phases)."""
+    return _site("d2_site", x, a, c, w, bias)
+
+
+def c2_site_bf16(x, a, c, w, bias):
+    """K9c: conv2 on conv1's raw output x [B,H,W,32] (H, W even) with the in1
+    affine → (bf16 raw [B,H/2,W/2,64], f32 [B,2,64] sums)."""
+    return _site("c2_site_bf16", x, a, c, w, bias)
+
+
+def c3_site_bf16(x, a, c, w, bias):
+    """K9d: conv3 on conv2's raw output x [B,H,W,64] with the in2 affine →
+    (bf16 raw [B,H/2,W/2,128], f32 [B,2,128] sums)."""
+    return _site("c3_site_bf16", x, a, c, w, bias)
+
+
+def _check_rows(k, x, a, c, w):
+    dev = x.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
+    B, H, W, C = x.shape
+    if C != D3_C:
+        raise ValueError(f"{k}: C={C}, the kernel is built for C={D3_C}")
+    if H < 3 or W < 3:
+        raise ValueError(f"{k}: H={H}, W={W}: the 4-pixel reflect halo needs at least 3 blocks")
+    _check(k, "x", x, torch.bfloat16, (B, H, W, D3_C), dev)
+    for name, t in (("a", a), ("c", c)):
+        _check(k, name, t, torch.float32, (B, D3_C), dev)
+    _check(k, "weights", w, torch.bfloat16, (5, D3_PAD, D3_C), dev)
+    return dev, B, H, W
+
+
+def d3_rows(x, a, c, w):
+    """K9e: the d2 raw x [B,H,W,128] (4 phases × 32) with the in5 affine
+    (a, c [B,128], tiled over the phases) → the tap-packed 1×5 conv's bf16
+    rows [B,H+4,W,60] on the reflect-padded grid (no bias; row R+2 is block
+    row R of the unpadded grid)."""
+    if x.device.type == "cpu":
+        return d3_rows_plain(x, a, c, w)
+    k = "d3_rows"
+    dev, B, H, W = _check_rows(k, x, a, c, w)
+    out = torch.empty((B, H + 4, W, D3_LANES), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().d3_rows_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
+             out.data_ptr(), B, H, W, _stream(dev))
+    return out
+
+
+def d3_sum_site(x, a, c, w, bias):
+    """K9b: as K9e, then the 5-row dy-sum in f32 and the bias [12] → deconv3's
+    block output bf16 [B,H,W,12]."""
+    if x.device.type == "cpu":
+        return d3_sum_site_plain(x, a, c, w, bias)
+    k = "d3_sum_site"
+    dev, B, H, W = _check_rows(k, x, a, c, w)
+    _check(k, "bias", bias, torch.float32, (D3_OUT,), dev)
+    out = torch.empty((B, H, W, D3_OUT), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().d3_sum_site_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
+             w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+    return out

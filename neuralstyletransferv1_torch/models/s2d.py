@@ -1,8 +1,8 @@
-"""Space-to-depth pieces of the int8 sites, and the deferred instance-norm
-formulas the quantized path shares with the JAX engine.
+"""Space-to-depth pieces of the int8 and bf16 fused sites, and the deferred
+instance-norm formulas they share with the JAX engine.
 
 Port of ``neuralstyletransferv1_tpu/models/transformer_net_s2d.py``:
-``_scatter_upconv`` (the int8 deconv1/deconv2 weights), ``s2d``, ``d2s``,
+``_scatter_upconv`` (the deconv1/deconv2 phase weights), ``s2d``, ``d2s``,
 ``_pad_edge_blocks``, ``_in_stats`` and ``_apply_in_relu``; the inverse of
 ``_scatter_stride2_s2d2`` (conv2's block weights back to pixels); and of
 ``transformer_net_s2d2.py``: ``_scatter_k9_f2``, deconv3's tap packing with
@@ -83,21 +83,25 @@ def scatter_k9_f2(w: np.ndarray) -> np.ndarray:
     return out
 
 
-def d3_tap_packed(w: np.ndarray, b: np.ndarray, post) -> tuple[np.ndarray, np.ndarray]:
+def d3_tap_packed(w: np.ndarray, b: np.ndarray, post=None) -> tuple[np.ndarray, np.ndarray]:
     """deconv3 (HWIO [9,9,32,3], bias [3]) in the JAX engine's tap-packed
     f=2 form with the IO preset's post affine baked in: the 5 kernel rows
     of the 5×5 block conv pack into 5·12 = 60 output lanes of a 1×5 conv,
     and output lane dy·12 + phase·3 + c carries postprocess channel c
     (``from_johnson_params`` and ``bake_io_affine`` of
     ``transformer_net_s2d2.py``). ``post`` = (post_perm, post_s, post_t) of
-    ``io_presets.preset_affine``. Returns (w_row [1,5,128,60], b [12]) in
-    f32; the output is on the [0,1] scale before the final clamp."""
-    operm, os_, ot = post
+    ``io_presets.preset_affine``; the output is then on the [0,1] scale
+    before the final clamp. ``post`` None: nothing baked (the bf16 sites of
+    a net whose output goes through ``postprocess``). Returns (w_row
+    [1,5,128,60], b [12]) in f32."""
     w5 = scatter_k9_f2(np.asarray(w, np.float32))       # [5,5,128,12]
     w_row = np.zeros((1, 5, w5.shape[2], 5 * w5.shape[3]), np.float32)
     for dy in range(5):
         w_row[0, :, :, dy * 12:(dy + 1) * 12] = w5[dy]
     b12 = np.tile(np.asarray(b, np.float32), 4)
+    if post is None:
+        return w_row, b12
+    operm, os_, ot = post
     w3 = np.zeros_like(w_row)
     b3 = np.zeros_like(b12)
     for ph in range(4):

@@ -12,7 +12,10 @@ deconv3 forms of ``transformer_net_s2d2.apply``: the ``d3_i8`` rows site
 (K7) with its bf16 strips and dy-sum, and the bf16 tap-packed deconv3 the
 JAX engine falls back to below the geometry gates. Also the gates
 (``head_supported``, ``res_supported``, ``dec_supported``, ``d3_supported``,
-``d3s8_supported``) and the helpers ``_stats`` and ``_stats_phased``.
+``d3s8_supported``) and the helpers ``_stats`` and ``_stats_phased``. Below
+``res_supported`` / ``dec_supported`` the JAX engine runs the same int8 sites
+through XLA (``_qc`` of ``transformer_net_s2d2.apply``); ``res_chain_qc``,
+``dec_d1_qc`` and ``dec_d2_qc`` are that form in PyTorch ops.
 
 The TPU carries hold pre-injected halo columns; here every carry is the
 dense [B,H,W,C] tensor and each kernel computes its own halo (reflect, edge
@@ -36,9 +39,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import bf16_sites as k9
 from ..kernels import int8_sites as k8
 from ..ops.conv import conv2d, conv2d_i8
-from .s2d import apply_in_relu, d2s, in_affine, pad_reflect_f2_4px, quant_affine
+from ..ops.norm import instance_norm
+from .s2d import apply_in_relu, d2s, in_affine, in_stats, pad_reflect_f2_4px, quant_affine
 
 NUM_RES = 5
 
@@ -91,6 +96,7 @@ class Site:
     qin: float          # input quantizer 127 / act scale (an f32 value)
     w8: torch.Tensor | None = None  # d3: int8 [1,5,128,60] (the border strips)
     wb: torch.Tensor | None = None  # d3: bf16 OIHW [60,128,1,5] baked weights
+    wr: torch.Tensor | None = None  # d3: the same packed for K9b/K9e, bf16 [5,64,128]
 
 
 def prepare_sites(net, quant: dict, device, *, d3=None) -> dict[str, Site]:
@@ -110,7 +116,9 @@ def prepare_sites(net, quant: dict, device, *, d3=None) -> dict[str, Site]:
                 .to(device),
                 qin=float(q["qin"]), w8=q["w"].to(device),
                 wb=torch.from_numpy(np.asarray(w_row, np.float32)).permute(3, 2, 0, 1)
-                .contiguous().to(device, torch.bfloat16))
+                .contiguous().to(device, torch.bfloat16),
+                wr=k9.pack_rows_weights(torch.from_numpy(np.asarray(w_row, np.float32)))
+                .to(device))
             continue
         if name.startswith("r"):
             blk = getattr(net, f"res{name[1]}")
@@ -272,19 +280,15 @@ def res_chain_s8_static(y: torch.Tensor, net, sites: dict, static_stats: dict, *
     return y
 
 
-def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
-              static_stats: dict | None = None):
-    """deconv1 + deconv2 on K4/K5 in the space-to-depth phase form
-    (``dec_i8``).
-
-    d1 is a 3×3 conv at the res grid with 4·64 phase outputs (edge halo;
-    with ``carry`` = (r2, a2, c2) from ``res_chain`` block 5's
-    residual add folds into its prologue, K5); ``d2s`` moves the phases to
-    the 2× grid, where d2 runs with the in4 affine and ReLU folded into its
-    quantize (K4), 4·32 phase outputs. Returns (d2 raw [B,2H,2W,128] bf16,
-    mean5, inv5 [B,32]) — frozen in5 statistics under ``static_stats``."""
+def dec_d1(y: torch.Tensor, net, sites: dict, *, carry=None,
+           static_stats: dict | None = None):
+    """deconv1 on K4/K5 in the space-to-depth phase form: a 3×3 conv at the
+    res grid with 4·64 phase outputs (edge halo; with ``carry`` = (r2, a2,
+    c2) from ``res_chain`` block 5's residual add folds into its prologue,
+    K5). Returns (d1 raw [B,H,W,256] bf16, mean4, inv4 [B,64]) — frozen in4
+    statistics under ``static_stats``."""
     B, H, W, C = y.shape
-    s1, s2 = sites["d1"], sites["d2"]
+    s1 = sites["d1"]
     aq, cq = _plain_quant(B, C, s1.qin, y.device)
     if carry is not None:
         r2p, a2p, c2p = carry
@@ -292,19 +296,95 @@ def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
                                       s1.bias, halo="edge", yout=False)
     else:
         r, sums = k8.res_site(y, aq, cq, -127.0, s1.wk, s1.ws, s1.bias, halo="edge")
-    co = r.shape[-1] // 4  # 64
     if static_stats is not None:
-        m, inv = _frozen(static_stats, "in4", B)
-    else:
-        m, inv = _stats_phased(sums, float(H * W), 4)
-    a_eff, c_eff = quant_affine(m, inv, *_norm_params(net.in4), s2.qin)
-    yd = d2s(r, 2, co).contiguous()  # [B,2H,2W,64] raw
+        return r, *_frozen(static_stats, "in4", B)
+    return r, *_stats_phased(sums, float(H * W), 4)
+
+
+def dec_d2(r: torch.Tensor, m4, inv4, net, sites: dict, *, static_stats: dict | None = None):
+    """deconv2 on K4: ``d2s`` moves d1's phases to the 2× grid, where d2 runs
+    with the in4 affine and ReLU folded into its quantize, 4·32 phase
+    outputs. Returns (d2 raw [B,2H,2W,128] bf16, mean5, inv5 [B,32])."""
+    B, s2 = r.shape[0], sites["d2"]
+    a_eff, c_eff = quant_affine(m4, inv4, *_norm_params(net.in4), s2.qin)
+    yd = d2s(r, 2, r.shape[-1] // 4).contiguous()  # [B,2H,2W,64] raw
     r2, sums2 = k8.res_site(yd, a_eff, c_eff, 0.0, s2.wk, s2.ws, s2.bias, halo="edge")
     if static_stats is not None:
-        m5, inv5 = _frozen(static_stats, "in5", B)
-    else:
-        m5, inv5 = _stats_phased(sums2, float(yd.shape[1] * yd.shape[2]), 4)
-    return r2, m5, inv5
+        return r2, *_frozen(static_stats, "in5", B)
+    return r2, *_stats_phased(sums2, float(yd.shape[1] * yd.shape[2]), 4)
+
+
+def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
+              static_stats: dict | None = None):
+    """deconv1 + deconv2 on K4/K5 (``dec_i8``): ``dec_d1`` then ``dec_d2``.
+    Returns (d2 raw [B,2H,2W,128] bf16, mean5, inv5 [B,32])."""
+    r, m4, inv4 = dec_d1(y, net, sites, carry=carry, static_stats=static_stats)
+    return dec_d2(r, m4, inv4, net, sites, static_stats=static_stats)
+
+
+# ---------------------------------------------------------------------------
+# the XLA form of the same sites (below the geometry gates)
+# ---------------------------------------------------------------------------
+
+
+def _qc(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float, site: Site,
+        halo: str) -> torch.Tensor:
+    """One int8 site as the JAX engine's ``_qc`` runs it through XLA:
+    q = clamp(round(x·a + c), lo, 127) over a 1-pixel halo → exact int8 conv
+    → bf16(acc·ws + bias). a, c: [B,C] quantize rows."""
+    q = torch.clamp(torch.round(x.float() * a[:, None, None, :] + c[:, None, None, :]), lo, 127.0)
+    mode = {"reflect": "reflect", "edge": "replicate"}[halo]
+    q = F.pad(q.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
+    acc = conv2d_i8(q, k8.unpack_weights(site.wk))
+    return (acc.float() * site.ws + site.bias).to(torch.bfloat16)
+
+
+def _st(static_stats: dict | None, site: str, t: torch.Tensor, B: int):
+    """A norm's (mean, inv) [B,C]: frozen, else measured on the pixels of t."""
+    if static_stats is not None and site in static_stats:
+        return _frozen(static_stats, site, B)
+    return in_stats(t)
+
+
+def res_chain_qc(y: torch.Tensor, net, sites: dict, *,
+                 static_stats: dict | None = None) -> torch.Tensor:
+    """The five residual blocks as the JAX engine runs them where no Pallas
+    res chain does (below ``res_supported``, or without ``res_i8`` in the
+    set): each conv a ``_qc`` site, the block's in1 affine + ReLU folded into
+    the b-site's quantize; with measured norms the residual norm is the plain
+    ``instance_norm``, with frozen ones the deferred affine."""
+    B, _, _, C = y.shape
+    for i in range(1, NUM_RES + 1):
+        blk = getattr(net, f"res{i}")
+        sa, sb = sites[f"r{i}a"], sites[f"r{i}b"]
+        r = _qc(y, *_plain_quant(B, C, sa.qin, y.device), -127.0, sa, "reflect")
+        m, inv = _st(static_stats, f"r{i}in1", r, B)
+        a_eff, c_eff = quant_affine(m, inv, *_norm_params(blk.in1), sb.qin)
+        r = _qc(r, _batch(a_eff, B), _batch(c_eff, B), 0.0, sb, "reflect")
+        if static_stats is None:
+            y = instance_norm(r, blk.in2.weight, blk.in2.bias) + y
+        else:
+            m2, inv2 = _st(static_stats, f"r{i}in2", r, B)
+            y = apply_in_relu(r, m2, inv2, blk.in2.weight, blk.in2.bias, relu=False) + y
+    return y
+
+
+def dec_d1_qc(y: torch.Tensor, net, sites: dict, *, static_stats: dict | None = None):
+    """``dec_d1`` in the XLA form (below ``dec_supported``): the same d1 site
+    on the edge-haloed grid, in4 measured over the 4 phases."""
+    B, _, _, C = y.shape
+    s1 = sites["d1"]
+    r = _qc(y, *_plain_quant(B, C, s1.qin, y.device), -127.0, s1, "edge")
+    return r, *_st(static_stats, "in4", d2s(r, 2, r.shape[-1] // 4), B)
+
+
+def dec_d2_qc(r: torch.Tensor, m4, inv4, net, sites: dict, *,
+              static_stats: dict | None = None):
+    """``dec_d2`` in the XLA form: the in4 affine folded into d2's quantize."""
+    B, s2 = r.shape[0], sites["d2"]
+    a_eff, c_eff = quant_affine(m4, inv4, *_norm_params(net.in4), s2.qin)
+    r2 = _qc(d2s(r, 2, r.shape[-1] // 4), _batch(a_eff, B), _batch(c_eff, B), 0.0, s2, "edge")
+    return r2, *_st(static_stats, "in5", d2s(r2, 2, r2.shape[-1] // 4), B)
 
 
 def dec_chain_s8_static(y: torch.Tensor, net, sites: dict, static_stats: dict, *,

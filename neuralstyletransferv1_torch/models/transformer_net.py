@@ -16,6 +16,8 @@ it as a channels-last NCHW view.
 norm's ``(mean, inv)`` and ``static_stats`` freezes them (norm sites
 ``in1..in5`` and ``r{i}in{1,2}``). Either of the two runs every norm in the
 deferred form of ``models/s2d.py``; with neither, the plain instance norm.
+``fused_sites`` names the bf16 fused sites (``models/sites_bf16.py``):
+``head``, ``tail`` and ``d3`` replace a norm pass + conv pair by one kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from ..ops.conv import conv2d
 from ..ops.norm import instance_norm
 from ..ops.pad import reflect_pad_2d
 from ..ops.resize import upsample_nearest
-from .s2d import apply_in_relu, in_stats
+from . import sites_bf16
+from .s2d import apply_in_relu, d2s, in_stats, s2d
 
 NUM_RES = 5
 _CONVS = ("conv1", "conv2", "conv3", "deconv1", "deconv2", "deconv3")
@@ -91,13 +94,17 @@ class NormHooks:
         if not self.deferred:
             y = norm(x)
             return torch.relu(y) if relu else y
-        if self.static_stats is not None and site in self.static_stats:
-            m, inv = (t.float() for t in self.static_stats[site])
-        else:
-            m, inv = in_stats(x)
-            if self.stats_out is not None:
-                self.stats_out[site] = (m, inv)
+        m, inv = self.stats(site, x)
         return apply_in_relu(x, m, inv, norm.weight, norm.bias, relu=relu)
+
+    def stats(self, site: str, x: torch.Tensor):
+        """The norm's ``(mean, inv)``: frozen, or measured (and recorded)."""
+        if self.static_stats is not None and site in self.static_stats:
+            return tuple(t.float() for t in self.static_stats[site])
+        m, inv = in_stats(x)
+        if self.stats_out is not None:
+            self.stats_out[site] = (m, inv)
+        return m, inv
 
 
 class TransformerNet(nn.Module):
@@ -115,10 +122,33 @@ class TransformerNet(nn.Module):
         self.deconv3 = ConvLayer(32, 3, 9)
 
     def forward(self, x: torch.Tensor, *, tap=None, stats_out: dict | None = None,
-                static_stats: dict | None = None) -> torch.Tensor:
+                static_stats: dict | None = None, fused_sites=(),
+                site_weights: "sites_bf16.SiteWeights | None" = None) -> torch.Tensor:
+        """``fused_sites``: of ``head``, ``tail``, ``d3`` (other names of a
+        set are the int8 forward's and do nothing here), routed as
+        ``transformer_net_s2d2.apply`` routes them without ``quant``: a name
+        whose geometry gate fails runs unfused; under ``static_stats``
+        ``head`` and ``tail`` are dropped (they measure their norms) and
+        ``d3`` stays. They need ``site_weights`` (``sites_bf16.prepare`` of
+        the f32 net), a bf16 net and H, W divisible by 4; a fused site's
+        ``tap`` sees the raw tensor."""
         tap = tap or _no_tap
         nh = NormHooks(stats_out, static_stats)
-        y = self.encode(x, nh, tap)
+        fused = set(fused_sites) & set(sites_bf16.BF16_SITE_NAMES)
+        if static_stats is not None:
+            fused -= {"head", "tail"}
+        h, w = x.shape[1], x.shape[2]
+        if fused and (site_weights is None or x.dtype != torch.bfloat16 or h % 4 or w % 4):
+            raise ValueError("the bf16 fused sites need site_weights, a bfloat16 input and "
+                             f"H, W divisible by 4 (got {x.dtype}, {h}x{w})")
+        if "head" in fused and sites_bf16.head_supported(h // 2, w // 2):
+            tap("c1", x)
+            y1 = self.conv1(x).contiguous()
+            raw3, m3, inv3 = sites_bf16.head(y1, *nh.stats("in1", y1), self, site_weights,
+                                             tap=tap)
+            y = apply_in_relu(raw3, m3, inv3, self.in3.weight, self.in3.bias)
+        else:
+            y = self.encode(x, nh, tap)
         for i in range(1, NUM_RES + 1):
             blk = getattr(self, f"res{i}")
             tap(f"r{i}a", y)
@@ -126,9 +156,17 @@ class TransformerNet(nn.Module):
             tap(f"r{i}b", r)
             y = nh(f"r{i}in2", blk.in2, blk.conv2(r), relu=False) + y
         tap("d1", y)
-        y = nh("in4", self.in4, self.deconv1(upsample_nearest(y, 2)))
+        y = self.deconv1(upsample_nearest(y, 2))
+        if "tail" in fused and sites_bf16.tail_supported(h // 2, w // 2):
+            y12 = sites_bf16.tail(y, *nh.stats("in4", y), self, site_weights, tap=tap)
+            return d2s(y12, 2, 3)
+        y = nh("in4", self.in4, y)
         tap("d2", y)
-        y = nh("in5", self.in5, self.deconv2(upsample_nearest(y, 2)))
+        y = self.deconv2(upsample_nearest(y, 2))
+        if "d3" in fused and sites_bf16.d3_supported(h // 2, w // 2):
+            return sites_bf16.d3_branch(s2d(y, 2), *nh.stats("in5", y), self, site_weights,
+                                        tap=tap)
+        y = nh("in5", self.in5, y)
         tap("d3", y)
         return self.deconv3(y)
 

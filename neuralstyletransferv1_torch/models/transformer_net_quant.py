@@ -10,6 +10,9 @@ the engine's site filter (``engine/stylizer.py::_s2d2_site_filter``) is
 ``site_filter``. Calibration runs the f32 net with the forward hooks of
 ``TransformerNet``; the int8 forward runs on the bf16 net.
 
+The bf16 fused sites of a set (``tail``, ``d3``; ``models/sites_bf16.py``)
+are routed here too, as ``apply`` routes them with ``quant``.
+
 Which sites are int8 follows the fused-site set in effect (the port's
 ``adopt_overrides.sites``, or an explicit tuple): the residual blocks and
 deconv1/deconv2 always; conv2/conv3 with ``head_i8``, deconv3 with
@@ -34,8 +37,9 @@ import numpy as np
 import torch
 
 from . import io_presets as iop
-from . import sites_i8
+from . import sites_bf16, sites_i8
 from .s2d import apply_in_relu, d2s, d3_tap_packed, in_affine, in_stats, scatter_upconv
+from .sites_bf16 import _hwio
 from .transformer_net import NUM_RES, NormHooks, TransformerNet
 
 QUANT_SITES = ("c2", "c3", "r1a", "r1b", "r2a", "r2b", "r3a", "r3b",
@@ -43,21 +47,17 @@ QUANT_SITES = ("c2", "c3", "r1a", "r1b", "r2a", "r2b", "r3a", "r3b",
 QUANT_SITES_PALLAS = QUANT_SITES + ("d3",)
 #: the int8 sites under the adopted sets (no ``head_i8``, no ``tail_s8``)
 INT8_SITES = tuple(f"r{i}{ab}" for i in range(1, NUM_RES + 1) for ab in "ab") + ("d1", "d2")
-#: the names a fused-site set may hold in the port
-FUSED_SITE_NAMES = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8", "d3_i8")
+#: the names a fused-site set may hold: the int8 sites' and the bf16 sites'
+FUSED_SITE_NAMES = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8",
+                    "d3_i8") + sites_bf16.BF16_SITE_NAMES
 _SITES_ITEM = "ROADMAP.md Queue 1, item 11 (fused-site sets)"
 
 
 def check_fused_sites(fused) -> tuple:
-    """The set as a tuple; raises for names the port does not run: the bf16
-    sites ``head``/``tail``/``d3`` (their kernels K9a–e are not ported) and
-    the empty set (the XLA-int8 form, which no Pallas kernel serves)."""
+    """An int8 mode's set as a tuple; raises for unknown names and for the
+    empty set (every site in the XLA-int8 form, which no Pallas kernel
+    serves)."""
     fused = tuple(fused)
-    bf16 = sorted(set(fused) & {"head", "tail", "d3"})
-    if bf16:
-        raise NotImplementedError(
-            f"fused sites {bf16}: the bf16 Pallas sites (K9a-e) are not ported "
-            f"({_SITES_ITEM}; ROADMAP.md Queue 2)")
     if not fused:
         raise NotImplementedError(
             f"an empty fused-site set (every site through XLA int8) is not ported ({_SITES_ITEM})")
@@ -79,10 +79,6 @@ def site_filter(scales: dict, h: int, w: int, fused) -> dict:
     if "tail_s8" in fused and sites_i8.d3s8_supported(h // 2, w // 2):
         keep |= {"d3"}
     return {k: v for k, v in scales.items() if k.startswith("r") or k in keep}
-
-
-def _hwio(conv) -> np.ndarray:
-    return conv.conv2d.weight.detach().float().permute(2, 3, 1, 0).cpu().numpy()
 
 
 def baked_d3(net: TransformerNet, io_preset: str) -> tuple[np.ndarray, np.ndarray]:
@@ -165,7 +161,8 @@ def default_sites(static: bool) -> tuple:
 
 
 def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
-                 static_stats: dict | None = None, *, fused_sites=None) -> torch.Tensor:
+                 static_stats: dict | None = None, *, fused_sites=None,
+                 site_weights: "sites_bf16.SiteWeights | None" = None) -> torch.Tensor:
     """The int8 forward of the (bf16) net: NHWC in, NHWC out.
 
     ``sites``: ``sites_i8.prepare_sites`` of the ``quantize_net`` dict.
@@ -177,22 +174,33 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
 
     - ``head_i8`` (with c2/c3 quantized, head gate): conv2/conv3 on K8a/K8b;
       under frozen norms the in3 apply waits for the s8 res chain;
-    - ``res_s8`` (frozen norms): the s8-carry res chain (K2/K3), else
-      ``res_chain`` (K4/K5);
+    - ``res_s8`` (frozen norms, res gate): the s8-carry res chain (K2/K3);
+      else ``res_i8`` (res gate): ``res_chain`` (K4/K5); else the same int8
+      sites in the XLA form (``sites_i8.res_chain_qc``), as the JAX engine
+      runs them below ``res_supported``;
     - ``dec_s8`` (frozen norms, decoder gate): d1/d2 on s8 carries, bridged
-      from the s8 res chain; ``dec_i8``: d1 folds the res chain's last add;
-      otherwise the same K4 decoder sites unfolded;
+      from the s8 res chain; ``dec_i8`` (decoder gate): d1 folds the res
+      chain's last add; otherwise d1 then d2 as K4 sites unfolded, or below
+      ``dec_supported`` in the XLA form;
+    - ``tail`` (measured norms, neither ``dec_*`` took the decoder, tail
+      gate): after d1, deconv2 + deconv3 as the bf16 sites K9a/K9b;
     - ``tail_s8`` (with ``dec_s8`` and d3 quantized, tail gate): d2 emits
       deconv3's codes and K6 runs deconv3;
-    - ``d3_i8`` (d3 quantized, rows gate): deconv3's rows conv on K7.
+    - ``d3`` (rows gate of the bf16 site): deconv3's rows conv on K9e; it
+      wins over ``d3_i8`` (d3 quantized, rows gate), the rows conv on K7;
+    - ``head`` does nothing here: the JAX forward takes it only from params
+      that carry conv3's block weights (``c3_wb``), which the engine's
+      never do (``_BUILD_HEAD_SITE`` is off), so its int8 sets run the bf16
+      head unfused.
 
-    The res and decoder chains run their kernels at every size where the JAX engine runs
-    the same int8 sites through XLA below ``res_supported``/
-    ``dec_supported`` (the same function; ROADMAP.md Queue 3). When d3 is
-    quantized the output carries the IO post affine (clamp only); else it is
-    the model's output for ``postprocess``."""
+    ``site_weights`` (``sites_bf16.prepare`` of the f32 net) is needed by
+    ``tail`` and ``d3``. When d3 is quantized the output carries the IO post
+    affine (clamp only), also through K9b/K9e, which then take the baked
+    weights; else it is the model's output for ``postprocess``."""
     static = static_stats is not None
     fused = set(check_fused_sites(default_sites(static) if fused_sites is None else fused_sites))
+    if fused & {"tail", "d3"} and site_weights is None:
+        raise ValueError("the fused sites 'tail' and 'd3' need site_weights")
     h, w = x.shape[1], x.shape[2]
 
     use_head_i8 = ("head_i8" in fused and "c2" in sites and "c3" in sites
@@ -215,11 +223,14 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     y = y.contiguous()  # the kernels take dense NHWC
     h4, w4 = y.shape[1], y.shape[2]
 
-    use_res_s8 = ("res_s8" in fused and static
-                  and all(f"r{i}{ab}" in sites for i in range(1, NUM_RES + 1) for ab in "ab")
+    res_ok = (sites_i8.res_supported(h4, w4)
+              and all(f"r{i}{ab}" in sites for i in range(1, NUM_RES + 1) for ab in "ab"))
+    use_res_s8 = ("res_s8" in fused and static and res_ok
                   and all(f"r{i}in{j}" in static_stats
                           for i in range(1, NUM_RES + 1) for j in (1, 2)))
-    have_d = "d1" in sites and "d2" in sites and sites_i8.dec_supported(h4, w4)
+    use_res_i8 = "res_i8" in fused and not use_res_s8 and res_ok
+    dec_ok = sites_i8.dec_supported(h4, w4)
+    have_d = "d1" in sites and "d2" in sites and dec_ok
     use_dec_s8 = ("dec_s8" in fused and static and have_d
                   and "in4" in static_stats and "in5" in static_stats)
     use_dec_i8 = "dec_i8" in fused and not use_dec_s8 and have_d
@@ -236,20 +247,34 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     if use_res_s8:
         y = sites_i8.res_chain_s8_static(y, net, sites, static_stats, in_aff=in_aff,
                                          emit_qo=sites["d1"].qin if use_dec_s8 else None)
-    elif use_dec_i8:
+    elif use_res_i8 and use_dec_i8:
         y, carry = sites_i8.res_chain(y, net, sites, static_stats=static_stats)
-    else:
+    elif use_res_i8:
         y = sites_i8.res_chain(y, net, sites, static_stats=static_stats, ret_carry=False)
+    else:
+        y = sites_i8.res_chain_qc(y, net, sites, static_stats=static_stats)
 
+    s3 = sites.get("d3")
+    d3 = None if s3 is None else (s3.wr, s3.bias)  # the baked deconv3 for K9b/K9e
     if use_dec_s8:
         if use_tail_s8:
             y12 = sites_i8.dec_chain_s8_static(y, net, sites, static_stats, tail=True)
             return d2s(y12, 2, 3)
         r2, m5, inv5 = sites_i8.dec_chain_s8_static(y, net, sites, static_stats)
-    else:
+    elif use_dec_i8:
         r2, m5, inv5 = sites_i8.dec_chain(y, net, sites, carry=carry, static_stats=static_stats)
-    if "d3" in sites:
+    else:
+        d1, d2 = ((sites_i8.dec_d1, sites_i8.dec_d2) if dec_ok
+                  else (sites_i8.dec_d1_qc, sites_i8.dec_d2_qc))
+        r, m4, inv4 = d1(y, net, sites, static_stats=static_stats)
+        if "tail" in fused and not static and sites_bf16.tail_supported(h // 2, w // 2):
+            y12 = sites_bf16.tail(d2s(r, 2, r.shape[-1] // 4), m4, inv4, net, site_weights, d3=d3)
+            return d2s(y12, 2, 3)
+        r2, m5, inv5 = d2(r, m4, inv4, net, sites, static_stats=static_stats)
+    if "d3" in fused and sites_bf16.d3_supported(r2.shape[1], r2.shape[2]):
+        return sites_bf16.d3_branch(r2, m5, inv5, net, site_weights, d3=d3)
+    if s3 is not None:
         use_d3_i8 = "d3_i8" in fused and sites_i8.d3_supported(r2.shape[1], r2.shape[2])
-        return sites_i8.d3_forward(r2, m5, inv5, net, sites["d3"], use_d3_i8=use_d3_i8)
+        return sites_i8.d3_forward(r2, m5, inv5, net, s3, use_d3_i8=use_d3_i8)
     y = apply_in_relu(d2s(r2, 2, r2.shape[-1] // 4), m5, inv5, net.in5.weight, net.in5.bias)
     return net.deconv3(y)

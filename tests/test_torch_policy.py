@@ -1,6 +1,6 @@
 """Rules of the PyTorch port: no JAX at run time, no CPU fallback on the
-CUDA path, and the kernels (K1, K2–K8b) against their plain versions on the
-card.
+CUDA path, and the kernels (K1, K2–K8b, K9a–K9e) against their plain
+versions on the card.
 
 The JAX-import rule is checked statically (an AST scan), since the test
 process itself imports jax.
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from neuralstyletransferv1_torch.kernels import bf16_sites as k9
 from neuralstyletransferv1_torch.kernels import dis_iter as k1
 from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
@@ -275,3 +276,141 @@ def test_int8_wrappers_reject_bad_inputs(cuda_device):
         k8.res_site(t["x"], t["a"].cpu(), *args[1:])
     with pytest.raises(ValueError, match="C=96"):
         k8.res_site(t["x"][..., :96].contiguous(), *args)
+
+
+def _bf16_site_args(device, name, shape, seed=0):
+    """Operands of a bf16 site at realistic scales."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    b, _, _, c = shape
+    args = [f32(rng.normal(0, 1.5, shape)).to(torch.bfloat16),
+            f32(rng.uniform(0.5, 1.5, (b, c))), f32(rng.normal(0, 0.3, (b, c)))]
+    if name.startswith("d3"):
+        args.append(k9.pack_rows_weights(f32(rng.normal(0, 640 ** -0.5, (1, 5, 128, 60)))))
+        if name == "d3_sum_site":
+            args.append(f32(rng.normal(0, 0.2, 12)))
+    else:
+        co = k9.SITES[name][1]
+        args += [k9.pack_site_weights(f32(rng.normal(0, (9 * c) ** -0.5, (3, 3, c, co)))),
+                 f32(rng.normal(0, 0.2, co))]
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("d2_site", (2, 19, 37, 64)), ("d2_site", (1, 28, 32, 64)),
+                                        ("c2_site_bf16", (2, 38, 74, 32)),
+                                        ("c3_site_bf16", (2, 38, 74, 64)),
+                                        ("d3_rows", (2, 19, 37, 128)),
+                                        ("d3_sum_site", (2, 19, 37, 128)),
+                                        ("d3_sum_site", (1, 28, 32, 128))])
+def test_k9_bf16_sites_match_plain_on_card(cuda_device, name, shape):
+    """K9a-K9e against their plain versions on the card, at sizes that leave
+    partial tiles: two launches bit-identical; bf16 outputs within 1 ulp (an
+    ulp taken at no less than 2^-8 of the largest magnitude: the two differ
+    by the order of their f32 accumulation; K9b within 2 ulp of its largest
+    row term) and 99% equal; sums within 1e-5."""
+    args = _bf16_site_args(cuda_device, name, shape)
+    before = k9.LAUNCHES[name]
+    out, again = getattr(k9, name)(*args), getattr(k9, name)(*args)
+    ref = getattr(k9, f"{name}_plain")(*args)
+    torch.cuda.synchronize()
+    assert k9.LAUNCHES[name] - before == 2
+    outs, agains, refs = (t if isinstance(t, tuple) else (t,) for t in (out, again, ref))
+    assert all(torch.equal(a, b) for a, b in zip(outs, agains))
+    o, r = outs[0], refs[0]
+    assert o.dtype == torch.bfloat16 and o.shape == r.shape
+    scale, limit = None, 1.0
+    if name == "d3_sum_site":
+        scale, limit = k9.d3_sum_scale_plain(*args[:4]), 2.0
+    worst, equal = k9.bf16_ulp_error(o, r, scale=scale)
+    assert worst <= limit and equal >= 0.99, (worst, equal)
+    if len(outs) > 1:
+        n = o.shape[1] * o.shape[2]
+        s, sr = outs[1].double(), refs[1].double()
+        assert bool(((s[:, 1] - sr[:, 1]).abs() <= 1e-5 * sr[:, 1]).all())
+        assert bool(((s[:, 0] - sr[:, 0]).abs() <= 1e-5 * (n * sr[:, 1]).sqrt()).all())
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_reject_bad_inputs(cuda_device):
+    x, a, c, w, bias = _bf16_site_args(cuda_device, "d2_site", (2, 19, 37, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.d2_site(x.transpose(1, 2), a, c, w, bias)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k9.d2_site(x.float(), a, c, w, bias)
+    with pytest.raises(ValueError, match="expected cuda"):
+        k9.d2_site(x, a.cpu(), c, w, bias)
+    with pytest.raises(ValueError, match="C=64"):
+        k9.c2_site_bf16(x, a, c, w, bias)
+    with pytest.raises(ValueError, match="even size"):
+        k9.c3_site_bf16(x, a, c, w, bias)
+
+
+def test_k9_cpu_tensors_take_the_plain_version():
+    args = _bf16_site_args("cpu", "d3_sum_site", (1, 6, 8, 128))
+    before = dict(k9.LAUNCHES)
+    out = k9.d3_sum_site(*args)
+    assert k9.LAUNCHES == before
+    assert torch.equal(out, k9.d3_sum_site_plain(*args)) and tuple(out.shape) == (1, 6, 8, 12)
+
+
+def _random_johnson(seed=0):
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.models.transformer_net import TransformerNet
+
+    torch.manual_seed(seed)
+    net = TransformerNet().eval().requires_grad_(False)
+    return tst.StyleModel("johnson", net, "raw_01", "init")
+
+
+def _on(model, device):
+    import copy
+
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    return tst.StyleModel(model.arch, copy.deepcopy(model.net).to(device), model.io_preset,
+                          model.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize,fused,expect", [
+    ("none", ("head", "tail"), {"c2_site_bf16": 1, "c3_site_bf16": 1, "d2_site": 1,
+                                "d3_sum_site": 1}),
+    ("none", ("d3",), {"d3_rows": 1}),
+    ("int8", ("res_i8", "tail"), {"d2_site": 1, "d3_sum_site": 1}),
+])
+def test_fused_sites_stylize_card_vs_cpu(cuda_device, quantize, fused, expect):
+    """The bf16 fused sites through ``jit_stylizer`` at 56×64 (partial tiles
+    in every kernel) on the card against the CPU path on the plain versions:
+    within the 1e-2 gate, each kernel launched once."""
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    model = _random_johnson()
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 56, 64, 3), np.float32))
+    ref = tst.jit_stylizer(model, dtype=torch.bfloat16, quantize=quantize, fused_sites=fused)(x)
+    before = dict(k9.LAUNCHES)
+    got = tst.jit_stylizer(_on(model, cuda_device), dtype=torch.bfloat16, quantize=quantize,
+                           fused_sites=fused)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in k9.LAUNCHES.items() if v != before[k]} == expect
+    assert float((got.cpu() - ref).abs().mean()) <= 1e-2
+    assert float(got.std()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["int8", "int8_static"])
+def test_below_gate_int8_sites_run_on_card(cuda_device, quantize):
+    """24×48 is below the res and decoder gates: the int8 sites run in
+    PyTorch ops on the card too (no kernel launch), within 5e-2 of the CPU
+    run (a flipped code moves this random-weight net; the gate is 1e-2)."""
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    model = _random_johnson(1)
+    x = torch.from_numpy(np.random.default_rng(4).random((1, 24, 48, 3), np.float32))
+    ref = tst.jit_stylizer(model, dtype=torch.bfloat16, quantize=quantize)(x)
+    before = dict(k8.LAUNCHES)
+    got = tst.jit_stylizer(_on(model, cuda_device), dtype=torch.bfloat16, quantize=quantize)(
+        x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before
+    assert float((got.cpu() - ref).abs().mean()) <= 5e-2
