@@ -10,7 +10,8 @@ order, and any failed phase exits non-zero:
 2. print the card's name and power limit (nvidia-smi);
 3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``) and
    K9a–K9e (``csrc/bf16_sites.cu``), one nvcc each, started together, and
-   print ptxas' registers and spills;
+   print ptxas' registers and spills of every kernel, and the dynamic
+   shared memory of K3's and K4's tensor-core core (``mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -22,6 +23,9 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
+   K3 and K4 also beside their previous ``__dp4a`` design (``*_prev``, held
+   to the same outputs), in turns: plain, kernel, previous, kernel,
+   previous, plain;
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -56,6 +60,12 @@ instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
 ``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, and the
 two bf16 fused-site sets) with torch.profiler and prints where its device
 time goes, grouped by kind of kernel (PERF.md section 5).
+
+    python3 chip_smoke.py --phases
+
+instead builds K3's and K4's tensor-core core with ``-DMMA_PHASE_CLOCKS``
+and prints, for each of their 1080p B=8 cases, the share of each phase of
+the tile loop in the clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -138,6 +148,9 @@ PER_BATCH = {("int8_static", None): {"res_site_s8o": 5, "site_s8": 5, "res_site"
                                    "d3_sum_site": 1},
              ("none", D3): {"d3_rows": 1}}
 SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3"}
+# K3 and K4 run on the int8 tensor cores (mma_kernel); their previous __dp4a
+# design (site_kernel) stays callable for the comparison
+REDESIGNED = ("site_s8", "res_site")
 
 
 def slice_name(quantize: str, fused) -> str:
@@ -304,8 +317,9 @@ def site_inputs(dev, b, h, w, c, co, seed):
     }
 
 
-def site_calls(name, t, shape, form):
-    """(kernel call, plain call, bytes moved, int8 ops) of one int8 site."""
+def site_calls(name, t, shape, form, prev=False):
+    """(kernel call, plain call, bytes moved, int8 ops) of one int8 site;
+    with ``prev`` the kernel call is K3's or K4's previous ``__dp4a`` core."""
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     b, h, w, c = t["x"].shape
@@ -345,7 +359,7 @@ def site_calls(name, t, shape, form):
         ins, co = (t["codes"], t["wk5"], t["ws5"], t["bias12"]), k8.D3_OUT
     if SITE_SHAPES[shape][5] is not None and name not in ("c2_site", "c3_site"):
         kw["halo"] = SITE_SHAPES[shape][5]
-    kernel = getattr(k8, name)
+    kernel = getattr(k8, f"{name}_prev" if prev else name)
     plain = getattr(k8, f"{name}_plain")
     moved = nbytes(*ins) + pix * co * outs
     if name in ("res_site", "res_site_skip", "c2_site", "c3_site"):
@@ -424,14 +438,18 @@ def library_conv(dev, t, name, shape):
 
 def int8_kernel_phase(dev):
     """K2-K8b against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain) beside the cuDNN bf16 conv each
-    site stands for."""
+    turns (plain, kernel, kernel, plain; K3 and K4: plain, kernel, previous
+    core, kernel, previous core, plain) beside the cuDNN bf16 conv each site
+    stands for."""
     import torch
 
     results = {}
     for name, (cases, _replaces) in INT8_KERNELS.items():
         rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "cudnn_bf16_ms": 0.0,
                "max_abs_err": 0.0, "bound_by": "bytes", "per_case": {}}
+        redesigned = name in REDESIGNED
+        if redesigned:
+            rec["prev_ms"] = 0.0
         for shape, form in cases:
             b, h, w, c, co, halo = SITE_SHAPES[shape]
             t = site_inputs(dev, b, h, w, c, co, seed=len(results) * 7 + len(rec["per_case"]))
@@ -439,10 +457,19 @@ def int8_kernel_phase(dev):
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             first = out[0] if isinstance(out, tuple) else out
-            err = check_site(name, out, ref, first.shape[1] * first.shape[2])
-            del out, ref, first
+            n = first.shape[1] * first.shape[2]
+            err = check_site(name, out, ref, n)
+            del out, first
+            if redesigned:
+                prev = site_calls(name, t, shape, form, prev=True)[0]
+                check_site(f"{name} (previous core)", prev(), ref, n)
+            del ref
             t_plain = dev_time(plain, reps=2)
-            t_k = (dev_time(kernel) + dev_time(kernel)) / 2
+            if redesigned:
+                t_k, t_prev = dev_time(kernel), dev_time(prev, reps=3)
+                t_k, t_prev = (t_k + dev_time(kernel)) / 2, (t_prev + dev_time(prev, reps=3)) / 2
+            else:
+                t_k = (dev_time(kernel) + dev_time(kernel)) / 2
             t_plain = (t_plain + dev_time(plain, reps=2)) / 2
             lib = library_conv(dev, t, name, shape)
             t_lib = dev_time(lib)
@@ -450,22 +477,32 @@ def int8_kernel_phase(dev):
                 results["d3_9x9"] = kernel_names(lib)
                 log(f"cuDNN bf16 9x9 32->3 conv at 1080p B={b}: kernels {results['d3_9x9']}")
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+            bound = max(t_bytes, t_ops)
             case = f"{shape}{'/' + form if form else ''}"
+            per = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib, "bound_ms": bound}
+            if redesigned:
+                per.update(prev_ms=t_prev, bound_share=bound / t_k)
+                rec["prev_ms"] += t_prev
             log(f"{name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 conv "
-                f"{t_lib:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
-                f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)")
+                f"{t_lib:.4f} ms; bound {bound:.4f} ms "
+                f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)" +
+                (f"; previous __dp4a core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel), "
+                 f"kernel at {bound / t_k:.1%} of the bound" if redesigned else ""))
             rec["ms"] += t_k
             rec["plain_ms"] += t_plain
             rec["cudnn_bf16_ms"] += t_lib
-            rec["bound_ms"] += max(t_bytes, t_ops)
-            rec["per_case"][case] = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib,
-                                     "bound_ms": max(t_bytes, t_ops)}
+            rec["bound_ms"] += bound
+            rec["per_case"][case] = per
             if t_ops > t_bytes:
                 rec["bound_by"] = "operations"
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            del t, lib
+            del t, lib, kernel, plain
+            if redesigned:
+                del prev
             torch.cuda.empty_cache()
+        if redesigned:
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         results[name] = rec
     return results
 
@@ -868,12 +905,92 @@ def cli_phase(dev, workdir: Path):
         fail("main() did not style the clip end to end")
 
 
+def ptxas_report(text: str, k8) -> None:
+    """ptxas' registers and spills of every kernel entry of one build log,
+    and the dynamic shared memory of the tensor-core core's instantiations
+    (mma_kernel<C, prologue, epilogue>: <C, 0, 0> is K4, <C, 2, 2> K3)."""
+    import re
+
+    name, spill = None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif name and "registers" in line:
+            # the kernel's own name among the mangled name's length-prefixed
+            # identifiers, and its int template arguments
+            base = next((m.group(2) for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?)(?=[IE]))", name)
+                         if len(m.group(2)) == int(m.group(1))), name)
+            targs = re.findall(r"Li(-?\d+)E", name)
+            short = f"{base}<{', '.join(targs)}>" if targs else base
+            extra = ""
+            if base == "mma_kernel":
+                c = int(targs[0])
+                short += " (K4)" if targs[1] == "0" else " (K3)"
+                extra = f", {k8._lib().mma_kernel_smem_bytes(c)} bytes dynamic shared memory"
+            log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
+            name = None
+
+
+PHASES = ("next tile's loads issued", "MMAs issued", "fragment epilogue (MMA drain incl.)",
+          "stores and sums", "next tile's quantize / copy")
+
+
+def phases_phase(dev):
+    """--phases: K3's and K4's mma_kernel built with MMA_PHASE_CLOCKS, each
+    of their 1080p B=8 cases run once; the share of each phase of the tile
+    loop in the clock of every block's thread 0, averaged over blocks."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import _build
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    src = _build.CSRC / k8._SOURCE
+    so = _build.BUILD_DIR / "libint8_sites_phases.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DMMA_PHASE_CLOCKS", "-o", str(so), str(src)]
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        fail(f"nvcc -DMMA_PHASE_CLOCKS failed:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(so))
+    base = k8._lib
+    for name in ("res_site_launch", "site_s8_launch"):
+        getattr(lib, name).argtypes = getattr(base(), name).argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]
+    clocks = np.zeros((1024, len(PHASES)), dtype=np.uint64)  # every launch rewrites its blocks'
+    k8._lib = lambda: lib  # the wrappers launch the instrumented build
+    try:
+        for name in REDESIGNED:
+            for shape, form in INT8_KERNELS[name][0]:
+                t = site_inputs(dev, *SITE_SHAPES[shape][:5], seed=11)
+                kernel = site_calls(name, t, shape, form)[0]
+                kernel()
+                torch.cuda.synchronize()
+                if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
+                    fail("reading mma_phase_clocks failed")
+                used = clocks[clocks.sum(axis=1) > 0].astype(np.float64)
+                share = used.mean(axis=0) / used.sum(axis=1).mean()
+                log(f"phases {name} @ {shape}{'/' + form if form else ''}: {len(used)} blocks, "
+                    f"{used.sum(axis=1).mean():.0f} cycles a block; " +
+                    ", ".join(f"{ph} {sh:.1%}" for ph, sh in zip(PHASES, share)))
+                del t, kernel
+                torch.cuda.empty_cache()
+    finally:
+        k8._lib = base
+
+
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
     if "kernel_bf16" in n or "stats_reduce_bf16" in n:
         return "bf16 sites K9a-K9e"
-    if "site_kernel" in n or "stats_reduce" in n or "rows_kernel" in n:
+    if any(k in n for k in ("site_kernel", "mma_kernel", "stats_reduce", "rows_kernel")):
         return "int8 sites K2-K8b"
     if "dis_iter" in n:
         return "K1 (DIS)"
@@ -963,16 +1080,14 @@ def main() -> int:
     k9._lib()
     log(f"built K1, K2-K8b and K9a-K9e with nvcc (in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
-    if sys.argv[1:] == ["--profile"]:
-        profile_phase(dev)
+    if sys.argv[1:] in (["--profile"], ["--phases"]):
+        (profile_phase if sys.argv[1] == "--profile" else phases_phase)(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
-        for line in txt.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+        ptxas_report(txt.read_text(), k8)
 
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
@@ -1011,7 +1126,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
-            "cudnn_bf16_ms": rec["cudnn_bf16_ms"], "per_case": rec["per_case"],
+            "cudnn_bf16_ms": rec["cudnn_bf16_ms"],
+            **{k: rec[k] for k in ("prev_ms", "bound_share") if k in rec},
+            "per_case": rec["per_case"],
         })
     for name, (_shape, replaces) in BF16_KERNELS.items():
         kernels.append({

@@ -9,10 +9,13 @@
 //   K8b c3_site        (_c3p_kernel)       the same at C = 64
 //   K7  d3_rows_site   (_d3_kernel)        quantize bf16 → 1x5 conv → 60 bf16 row lanes
 //   K6  d3_s8_site     (_d3s8_kernel)      s8 codes → 1x5 conv → 5-row dy-sum + bias → bf16
-// K2–K5 and K8 are one templated core (site_kernel): a 3x3 conv of int8
+// K2, K5 and K8 are one templated core (site_kernel): a 3x3 conv of int8
 // codes at stride 1 or 2 over a 1-pixel halo (pixel reflect or edge copy),
 // accumulated in int32 with __dp4a, with a prologue (how the int8 tile is
-// made) and an epilogue (what is written) chosen at compile time. K8a/K8b are
+// made) and an epilogue (what is written) chosen at compile time. K3 and K4
+// run the same conv at stride 1 on the tensor cores (mma_kernel, below);
+// their site_kernel forms stay buildable as res_site_prev_launch /
+// site_s8_prev_launch, for timing the two designs side by side. K8a/K8b are
 // the TPU's pair-packed head sites; their pair packing and phase-permutation
 // dots are layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
 // a second core (rows_kernel): deconv3 in its tap-packed form, a 1x5 conv of
@@ -53,11 +56,45 @@
 // What bounds them on an H100: a res site of the 1080p B=8 slice is 3.06e11
 // int8 operations (0.155 ms at the 1979 TOP/s int8 tensor-core peak) and
 // moves 0.4-1.6 GB (0.12-0.48 ms at 3.35 TB/s); the head sites (K8a/K8b,
-// 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes. This
-// code runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x below
-// the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site, 20x the
-// bound). A simple correct core comes first; IMMA/wgmma tensor-core MMAs fed
-// by TMA are later work.
+// 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes.
+// site_kernel runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x
+// below the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site,
+// 20x the bound). K2, K5, K8a/K8b stay on it.
+//
+// mma_kernel (K3, K4): the same 3x3 conv as an implicit GEMM on the int8
+// tensor cores, mma.sync.m16n8k32.s8.s8.s32 fed by ldmatrix: M = the 16
+// output pixels of a tile row, N = output channels, K = 9 taps x C, the A
+// rows of tap (dy, dx) the haloed tile's pixels shifted by (dy, dx) (each
+// lane gives ldmatrix its own row address, so a shift costs nothing). A
+// persistent grid (one 256-thread block per SM, 132 on an H100) stages the
+// weights of its 128 output channels once, rearranged from [tap][C/4][CO]
+// words to [tap][CO][C] bytes with a 16-byte pad per row, and walks output
+// tiles of 8x16 pixels in a fixed order; the haloed 10x18-pixel input tile
+// is quantized (K4) or copied (K3) once per tile for all 128 channels into
+// shared memory (pixel stride C + 16 bytes: the eight rows an ldmatrix
+// reads sit in 32 distinct banks), and the next tile's input is loaded
+// into registers while the current tile's MMAs run. Warp w owns tile rows
+// 2(w%4), 2(w%4)+1 and channels 64(w/4)..+63: 2 x 8 MMAs per k32 step from
+// 2 + 4 ldmatrix.x4. The epilogue turns the accumulator fragments into
+// f = bf16(acc*ws + bias) (K3: and its frozen affine), stages f as bf16 in
+// shared memory over the input tile, which the MMAs no longer read, and
+// writes it out 8 channels (16 bytes) a thread, coalesced; K3's residual
+// add, its activation and the s8 emit run on that pass, with y loaded 16
+// coalesced bytes at a time. int32 accumulation is exact in any order, so
+// every output equals site_kernel's bit for bit; the sums are per tile (4
+// pixels a lane, the 8 lanes of a channel by shuffle, the 4 row warps) in a
+// fixed order, reduced over tiles by stats_reduce_mma (8 warps a block, in
+// double, in a fixed order). The Prologue/Epilogue enums are shared with
+// site_kernel; mma_kernel instantiates kQuant/kRawStats (K4) and
+// kCodes/kSiteS8 (K3).
+//
+// Where mma_kernel's time goes (H100, chip_smoke.py --phases): the MMAs
+// are issued in about a third of each tile's time; the rest is the
+// fragment epilogue, the stores and K4's quantize, which this one-block
+// design does not overlap with the MMAs. Interleaving that work into the
+// MMA loop of the same warps, and two 64-channel blocks per SM, were both
+// slower (PERF.md); warp-specialized producers and consumers are the next
+// step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -425,6 +462,438 @@ Args make_args(int B, int H, int W, int CO, float lo, int halo) {
 }
 
 // ---------------------------------------------------------------------------
+// mma_kernel: K3 and K4 on the int8 tensor cores (stride 1)
+// ---------------------------------------------------------------------------
+
+constexpr int kMRows = 8, kMCols = 16;              // output tile, pixels
+constexpr int kMHC = kMCols + 2;                     // haloed tile columns
+constexpr int kMPix = (kMRows + 2) * kMHC;           // haloed tile pixels
+constexpr int kMCO = 128;                            // output channels per block
+constexpr int kMThreads = 256;                       // 4 row warps x 2 channel warps
+constexpr int kMRowWarps = 4;
+constexpr int kMOutStride = 2 * kMCO + 16;           // bytes per staged bf16 output pixel
+constexpr int kMEpRows = 2 + kEpRows;                // ws, bias, then K3's rows
+
+template <int C>
+struct MmaSmem {
+  static constexpr int PX = C + 16;  // bytes per haloed pixel and per weight row
+  static constexpr int W = 9 * kMCO * PX;
+  static constexpr int X = kMPix * PX > kMRows * kMCols * kMOutStride
+                               ? kMPix * PX : kMRows * kMCols * kMOutStride;
+  static constexpr size_t bytes = W + X + sizeof(float) * (kMEpRows + 2 * kMRowWarps) * kMCO;
+};
+
+// the haloed tile's input, one 16-byte global chunk per thread and pass
+template <int C, int PRO>
+struct MmaIn {
+  static constexpr int VB = PRO == kCodes ? 16 : 8;   // channels per chunk
+  static constexpr int CH = C / VB;                   // chunks per pixel
+  static constexpr int PPI = kMThreads / CH;          // pixels per pass
+  static constexpr int NI = (kMPix + PPI - 1) / PPI;  // passes
+};
+
+// bf16 → f32 is exact: the bf16 bits are the f32's high half
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// two bf16-rounded f32 values → their bf16 pair
+__device__ __forceinline__ uint32_t bf16_pack(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Built with -DMMA_PHASE_CLOCKS (chip_smoke.py --phases), thread 0 of each
+// block adds the clock cycles of the phases of its tile loop into
+// mma_phase_clocks[block]: 0 the next tile's loads issued, 1 the MMAs issued,
+// 2 the fragment epilogue (the MMAs' drain included), 3 the stores and sums,
+// 4 the next tile's quantize or copy.
+#ifdef MMA_PHASE_CLOCKS
+constexpr int kPhases = 5, kPhaseBlocks = 1024;
+__device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
+#define MMA_PHASE_START unsigned long long clk_[kPhases] = {}; long long clk_t_ = clock64();
+#define MMA_PHASE(k) { const long long c_ = clock64(); clk_[k] += c_ - clk_t_; clk_t_ = c_; }
+#define MMA_PHASE_END \
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) \
+    for (int k = 0; k < kPhases; ++k) mma_phase_clocks[blockIdx.x][k] = clk_[k];
+#else
+#define MMA_PHASE_START
+#define MMA_PHASE(k)
+#define MMA_PHASE_END
+#endif
+
+// Block k of `per_half` blocks serves output channels co0 = 128·(k / per_half)
+// and walks tiles k % per_half, + per_half, ... of the B·tiles 8x16 output
+// tiles (image-major, then row-major within the image).
+template <int C, int PRO, int EPI>
+__global__ void __launch_bounds__(kMThreads, 1)
+    mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
+  static_assert((PRO == kQuant && EPI == kRawStats) || (PRO == kCodes && EPI == kSiteS8),
+                "mma_kernel serves K4 (kQuant, kRawStats) and K3 (kCodes, kSiteS8)");
+  using S = MmaSmem<C>;
+  using In = MmaIn<C, PRO>;
+  constexpr int PX = S::PX;
+  constexpr int CW = C / 4;   // int32 words per pixel
+  constexpr int KC = C / 32;  // k32 steps per tap
+  constexpr int KS = 9 * KC;  // k32 steps
+  extern __shared__ __align__(16) uint8_t smem8[];
+  uint8_t* s_w = smem8;                                   // [9][kMCO][PX] weights
+  uint8_t* s_x = smem8 + S::W;                            // [kMPix][PX] codes, then outputs
+  float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // [kMEpRows][kMCO]
+  float* s_sum = s_rows + kMEpRows * kMCO;                // [kMRowWarps][2][kMCO]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int co0 = (blockIdx.x / per_half) * kMCO;
+  const int nvalid = min(kMCO, p.CO - co0);
+  const int total = p.B * tiles;
+  int tile = blockIdx.x % per_half;
+  if (tile >= total) return;
+
+  // the block's weights, once: word (tap, k, co0 + n) → bytes 4k.. of row (tap, n)
+  static_assert(9 * CW * kMCO % kMThreads == 0, "weight words split evenly");
+#pragma unroll 8
+  for (int j = 0; j < 9 * CW * kMCO / kMThreads; ++j) {
+    const int i = tid + j * kMThreads;
+    const int n = i % kMCO, k = (i / kMCO) % CW, t = i / (kMCO * CW);
+    *reinterpret_cast<int32_t*>(s_w + (t * kMCO + n) * PX + 4 * k) =
+        n < nvalid ? p.wk[((size_t)t * CW + k) * p.CO + co0 + n] : 0;
+  }
+  for (int i = tid; i < kMEpRows * kMCO; i += kMThreads) {
+    const int r = i / kMCO, n = i % kMCO;
+    const float* row = r == 0 ? p.ws : r == 1 ? p.bias : EPI == kSiteS8 ? p.ep[r - 2] : nullptr;
+    s_rows[i] = row != nullptr && n < nvalid ? row[co0 + n] : 0.0f;
+  }
+
+  // prologue: the haloed tile into registers (fetch), then as codes into s_x (stage)
+  uint4 raw[In::NI];
+  const int chunk = tid % In::CH, p0 = tid / In::CH;
+  auto fetch = [&](int id) {
+    const int b = id / tiles, t = id % tiles;
+    const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
+#pragma unroll
+    for (int k = 0; k < In::NI; ++k) {
+      const int px = p0 + k * In::PPI;
+      if (px < kMPix) {
+        const int sy = src_index(y0 + px / kMHC - 1, p.Hi, p.halo);
+        const int sx = src_index(x0 + px % kMHC - 1, p.Wi, p.halo);
+        const size_t off = (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + chunk * In::VB;
+        const uint4* src = PRO == kCodes
+            ? reinterpret_cast<const uint4*>(static_cast<const int8_t*>(p.x) + off)
+            : reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
+        raw[k] = __ldg(src);
+      }
+    }
+  };
+  auto stage = [&](int id) {
+    const int b = id / tiles;
+    float qa[8], qc[8];
+    if (PRO == kQuant) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        qa[j] = __ldg(p.a + b * C + chunk * 8 + j);
+        qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < In::NI; ++k) {
+      const int px = p0 + k * In::PPI;
+      if (px >= kMPix) continue;
+      uint8_t* dst = s_x + px * PX + chunk * In::VB;
+      if (PRO == kCodes) {
+        *reinterpret_cast<uint4*>(dst) = raw[k];
+      } else {
+        const uint32_t w4[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+        uint32_t q[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t q0 = quantize(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], p.lo) & 0xff;
+          const uint32_t q1 = quantize(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], p.lo) & 0xff;
+          q[j >> 1] |= (q0 | (q1 << 8)) << (16 * (j & 1));
+        }
+        *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
+      }
+    }
+  };
+
+  const int mg = warp % kMRowWarps, ng = warp / kMRowWarps;  // tile rows 2mg.., channels 64ng..
+  const bool active = ng * 64 < nvalid;
+  const int g = lane >> 2, tg = lane & 3;
+  // ldmatrix row addresses: A rows are the 16 pixels of a tile row (lanes
+  // 0-15: bytes 0-15 of the k32 slice, 16-31: bytes 16-31); B rows are the
+  // output channels (lanes 0-7 / 16-23: bytes 0-15 of 8-channel groups 2q /
+  // 2q+1, lanes 8-15 / 24-31: bytes 16-31)
+  const uint32_t a_lane = smem_addr(s_x) + ((2 * mg) * kMHC + (lane & 15)) * PX + (lane >> 4) * 16;
+  const uint32_t b_lane = smem_addr(s_w) + (ng * 64 + (lane >> 4) * 8 + (lane & 7)) * PX +
+                          ((lane >> 3) & 1) * 16;
+
+  fetch(tile);
+  stage(tile);
+  __syncthreads();
+  MMA_PHASE_START
+  for (;;) {
+    const int next = tile + per_half;
+    if (next < total) fetch(next);  // in flight while the MMAs run
+    MMA_PHASE(0)
+
+    int acc[2][8][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
+    if (active) {
+      uint32_t af[2][2][4], bfr[2][8][2];
+      auto load = [&](int s, uint32_t (&a)[2][4], uint32_t (&bq)[8][2]) {
+        const int tap = s / KC, kc = s % KC, dy = tap / 3, dx = tap % 3;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm_x4(a[mi], a_lane + ((mi + dy) * kMHC + dx) * PX + kc * 32);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t r[4];
+          ldsm_x4(r, b_lane + (tap * kMCO + 16 * q) * PX + kc * 32);
+          bq[2 * q][0] = r[0];
+          bq[2 * q][1] = r[1];
+          bq[2 * q + 1][0] = r[2];
+          bq[2 * q + 1][1] = r[3];
+        }
+      };
+      auto mmas = [&](const uint32_t (&a)[2][4], const uint32_t (&bq)[8][2]) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) mma_s8(acc[mi][nj], a[mi], bq[nj][0], bq[nj][1]);
+      };
+      // fragments double-buffered: step s+1's ldmatrix before step s's MMAs
+      load(0, af[0], bfr[0]);
+#pragma unroll
+      for (int s = 0; s < KS; s += 2) {
+        load(s + 1, af[1], bfr[1]);
+        mmas(af[0], bfr[0]);
+        if (s + 2 < KS) load(s + 2, af[0], bfr[0]);
+        mmas(af[1], bfr[1]);
+      }
+    }
+    MMA_PHASE(1)
+    __syncthreads();  // s_x is free: the epilogue stages its outputs there
+
+    // epilogue on the fragments: lane (g, tg) holds, for tile row 2mg+mi and
+    // channel group nj, pixels g and g+8 (e = 0,1 and 2,3) of channels
+    // 64ng + 8nj + 2tg, +1. f = bf16(acc·ws + bias), K3's frozen affine,
+    // K4's sums; f is staged as bf16 (exact: every f is bf16-rounded)
+    const int b = tile / tiles, t = tile % tiles;
+    const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
+    if (active) {
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+        const int n = ng * 64 + nj * 8 + 2 * tg;
+        const float2 ws = *reinterpret_cast<const float2*>(s_rows + n);
+        const float2 bi = *reinterpret_cast<const float2*>(s_rows + kMCO + n);
+        float2 aa = make_float2(0.0f, 0.0f), ac = aa;
+        if (EPI == kSiteS8 && (p.flags & kFAff)) {
+          aa = *reinterpret_cast<const float2*>(s_rows + 2 * kMCO + n);
+          ac = *reinterpret_cast<const float2*>(s_rows + 3 * kMCO + n);
+        }
+        float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 2 * mg + mi, col = g + 8 * h;
+            float f[2] = {
+                bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h]), ws.x), bi.x)),
+                bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h + 1]), ws.y),
+                                     bi.y))};
+            if (EPI == kRawStats) {
+              if (y0 + r < p.H && x0 + col < p.W) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  s1[e] = __fadd_rn(s1[e], f[e]);
+                  s2[e] = __fadd_rn(s2[e], __fmul_rn(f[e], f[e]));
+                }
+              }
+            } else if (p.flags & kFAff) {
+              f[0] = bf16_round(__fadd_rn(__fmul_rn(f[0], aa.x), ac.x));
+              f[1] = bf16_round(__fadd_rn(__fmul_rn(f[1], aa.y), ac.y));
+            }
+            *reinterpret_cast<uint32_t*>(s_x + (r * kMCols + col) * kMOutStride + 2 * n) =
+                bf16_pack(f[0], f[1]);
+          }
+        }
+        if (EPI == kRawStats) {
+          // the 8 lanes g = 0..7 share the channels: fold them, then per row warp
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int m = 4; m < 32; m <<= 1) {
+              s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], m));
+              s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], m));
+            }
+            if (g == 0) {
+              s_sum[(mg * 2 + 0) * kMCO + n + e] = s1[e];
+              s_sum[(mg * 2 + 1) * kMCO + n + e] = s2[e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    MMA_PHASE(2)
+
+    // the staged outputs, 8 channels (16 bytes) a thread and pass, coalesced;
+    // K3 adds its residual y (loaded here, 16 coalesced bytes) and emits s8
+    constexpr int CPP = kMCO / 8;           // 8-channel chunks a staged pixel
+    constexpr int NS = kMRows * kMCols * CPP / kMThreads;
+    const int vchunks = nvalid / 8;
+    const bool yadd = EPI == kSiteS8 && (p.flags & kFYadd);
+    uint4 yv[NS];
+    if (yadd) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
+        const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
+        if (c8 < vchunks && oy < p.H && ox < p.W)
+          yv[j] = __ldg(reinterpret_cast<const uint4*>(
+              p.yadd + (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
+      const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
+      if (c8 >= vchunks || oy >= p.H || ox >= p.W) continue;
+      const size_t o = (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8;
+      uint4 v = *reinterpret_cast<const uint4*>(s_x + px * kMOutStride + 16 * c8);
+      if (EPI == kSiteS8 && (p.flags & (kFYadd | kFS8Out))) {
+        // K3: [+ y, y first activated by a frozen affine + ReLU] → bf16 out,
+        // or the next site's s8 codes
+        const float* ep = s_rows + 2 * kMCO + 8 * c8;  // aa, ac, qa, qc, ya, yc rows
+        uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        float f[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          f[2 * k] = bf16_lo(w[k]);
+          f[2 * k + 1] = bf16_hi(w[k]);
+        }
+        if (yadd) {
+          const uint32_t yw[4] = {yv[j].x, yv[j].y, yv[j].z, yv[j].w};
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            float y = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
+            if (p.flags & kFYaff)
+              y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * kMCO + k]), ep[5 * kMCO + k]),
+                                   0.0f));
+            f[k] = bf16_round(__fadd_rn(f[k], y));
+          }
+        }
+        if (p.flags & kFS8Out) {
+          uint32_t q[2] = {0u, 0u};
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * kMCO + k], ep[3 * kMCO + k], p.qlo) &
+                                   0xff) << (8 * (k % 4));
+          *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(q[0], q[1]);
+          continue;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = bf16_pack(f[2 * k], f[2 * k + 1]);
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) = v;
+    }
+    if (EPI == kRawStats && tid < 2 * kMCO) {
+      const int s = tid / kMCO, n = tid % kMCO;
+      if (n < nvalid) {
+        float v = 0.0f;
+        for (int w = 0; w < kMRowWarps; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * kMCO + n]);
+        p.part[(((size_t)b * tiles + t) * 2 + s) * p.CO + co0 + n] = v;
+      }
+    }
+    MMA_PHASE(3)
+    if (next >= total) break;
+    __syncthreads();  // every staged output is read
+    stage(next);
+    __syncthreads();
+    MMA_PHASE(4)
+    tile = next;
+  }
+  MMA_PHASE_END
+}
+
+// sums[b, s, co] = Σ over tiles in double, in a fixed order: the 8 warps of
+// a block take tiles k ≡ warp (mod 8) in order for 32 channels, then warp 0
+// adds the 8 warp sums in order.
+__global__ void stats_reduce_mma(const float* __restrict__ part, float* __restrict__ sums,
+                                 int B, int tiles, int CO) {
+  __shared__ double s_part[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;  // over B·2·CO; CO % 32 == 0
+  const int co = i % CO, s = (i / CO) % 2, b = i / (2 * CO);
+  double t = 0.0;
+#pragma unroll 4
+  for (int k = warp; k < tiles; k += 8) t += (double)part[(((size_t)b * tiles + k) * 2 + s) * CO + co];
+  s_part[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0) {
+    double v = 0.0;
+    for (int w = 0; w < 8; ++w) v += s_part[w][lane];
+    sums[i] = (float)v;
+  }
+}
+
+template <int C, int PRO, int EPI>
+int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
+  const size_t smem = MmaSmem<C>::bytes;
+  auto kern = mma_kernel<C, PRO, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int tiles_x = (p.W + kMCols - 1) / kMCols;
+  const int tiles = ((p.H + kMRows - 1) / kMRows) * tiles_x;
+  const int halves = (p.CO + kMCO - 1) / kMCO;
+  int per_half = sms / halves < p.B * tiles ? sms / halves : p.B * tiles;
+  per_half = per_half > 1 ? per_half : 1;
+  kern<<<per_half * halves, kMThreads, smem, stream>>>(p, tiles_x, tiles, per_half);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (EPI == kRawStats)
+    stats_reduce_mma<<<p.B * 2 * p.CO / 32, 256, 0, stream>>>(p.part, sums, p.B, tiles, p.CO);
+  return (int)cudaGetLastError();
+}
+
+// the tensor-core core, C in {64, 128}
+template <int PRO, int EPI>
+int launch_mma(const Args& p, int C, float* sums, void* stream) {
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 128) return launch_mma_c<128, PRO, EPI>(p, sums, s);
+  if (C == 64) return launch_mma_c<64, PRO, EPI>(p, sums, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // rows_kernel: deconv3's tap-packed 1x5 conv (K6, K7)
 // ---------------------------------------------------------------------------
 
@@ -609,6 +1078,22 @@ extern "C" int res_site_s8o_launch(const void* x, const float* a, const float* c
   return launch<kQuant, kEmitS8>(p, C, nullptr, stream);
 }
 
+namespace {
+int site_s8_args(bool prev, const int8_t* xq, const int32_t* wk, const float* ws,
+                 const float* bias, const float* aa, const float* ac, const __nv_bfloat16* y,
+                 const float* ya, const float* yc, const float* qa, const float* qc, void* out,
+                 int B, int H, int W, int C, int CO, int flags, float qlo, int halo,
+                 void* stream) {
+  Args p = make_args(B, H, W, CO, 0.0f, halo);
+  p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.yadd = y; p.out = out;
+  p.ep[0] = aa; p.ep[1] = ac; p.ep[2] = qa; p.ep[3] = qc; p.ep[4] = ya; p.ep[5] = yc;
+  p.flags = flags;
+  p.qlo = qlo;
+  return prev ? launch<kCodes, kSiteS8>(p, C, nullptr, stream)
+              : launch_mma<kCodes, kSiteS8>(p, C, nullptr, stream);
+}
+}  // namespace
+
 // K3: f = bf16(acc*ws + bias) from s8 codes xq; then, per `flags`,
 // f = bf16(f*aa + ac) (kFAff); f = bf16(f + y) with y first replaced by
 // bf16(max(y*ya + yc, 0)) (kFYadd, kFYaff); out = bf16 f, or s8 codes
@@ -619,12 +1104,31 @@ extern "C" int site_s8_launch(const int8_t* xq, const int32_t* wk, const float* 
                               const float* qa, const float* qc, void* out, int B, int H,
                               int W, int C, int CO, int flags, float qlo, int halo,
                               void* stream) {
-  Args p = make_args(B, H, W, CO, 0.0f, halo);
-  p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.yadd = y; p.out = out;
-  p.ep[0] = aa; p.ep[1] = ac; p.ep[2] = qa; p.ep[3] = qc; p.ep[4] = ya; p.ep[5] = yc;
-  p.flags = flags;
-  p.qlo = qlo;
-  return launch<kCodes, kSiteS8>(p, C, nullptr, stream);
+  return site_s8_args(false, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
+                      flags, qlo, halo, stream);
+}
+
+// K3 on the previous __dp4a core (site_kernel), for timing only.
+extern "C" int site_s8_prev_launch(const int8_t* xq, const int32_t* wk, const float* ws,
+                                   const float* bias, const float* aa, const float* ac,
+                                   const __nv_bfloat16* y, const float* ya, const float* yc,
+                                   const float* qa, const float* qc, void* out, int B, int H,
+                                   int W, int C, int CO, int flags, float qlo, int halo,
+                                   void* stream) {
+  return site_s8_args(true, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
+                      flags, qlo, halo, stream);
+}
+
+#ifdef MMA_PHASE_CLOCKS
+// mma_phase_clocks → host [kPhaseBlocks][kPhases] (unsigned 64-bit).
+extern "C" int mma_phase_clocks_read(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, mma_phase_clocks, sizeof(mma_phase_clocks));
+}
+#endif
+
+// Dynamic shared memory of mma_kernel at C input channels (0 for other C).
+extern "C" int mma_kernel_smem_bytes(int C) {
+  return C == 128 ? (int)MmaSmem<128>::bytes : C == 64 ? (int)MmaSmem<64>::bytes : 0;
 }
 
 // K4: bf16 raw out and sums[b, 0|1, o] = [Σ, Σ²] of it; part is scratch.
@@ -632,6 +1136,17 @@ extern "C" int res_site_launch(const void* x, const float* a, const float* c,
                                const int32_t* wk, const float* ws, const float* bias,
                                __nv_bfloat16* out, float* part, float* sums, int B, int H,
                                int W, int C, int CO, float lo, int halo, void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.out = out; p.part = part;
+  return launch_mma<kQuant, kRawStats>(p, C, sums, stream);
+}
+
+// K4 on the previous __dp4a core (site_kernel), for timing only.
+extern "C" int res_site_prev_launch(const void* x, const float* a, const float* c,
+                                    const int32_t* wk, const float* ws, const float* bias,
+                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                                    int W, int C, int CO, float lo, int halo, void* stream) {
   Args p = make_args(B, H, W, CO, lo, halo);
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;

@@ -23,6 +23,12 @@ different prologues and epilogues:
   K8b ``c3_site``       K4 at stride 2, C = 64 → 128: conv3 (``c3p_site`` /
                         ``_c3p_kernel``)
 
+On the card K3 and K4 run on the int8 tensor cores (``mma_kernel``: 8×16
+output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``); K2, K5, K8a and
+K8b on the ``__dp4a`` core (``site_kernel``, ``TILE_DP4A``). ``res_site_prev``
+and ``site_s8_prev`` launch K4 and K3 on the ``__dp4a`` core, for timing the
+two designs side by side; nothing on the main path calls them.
+
 The TPU's K8a/K8b run on a column-pair packing with phase-permutation dots;
 that is layout only: the pair weights hold each pixel tap once, and the
 phase halo is the pixel reflect at the top and left (a stride-2 3×3 conv
@@ -67,7 +73,10 @@ LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
 HALOS = {"reflect": 0, "edge": 1}
 KERNEL_C = (64, 128)  # input channel counts of the stride-1 3×3 kernels
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
-CO_TILE = 64          # output channels per thread block
+CO_TILE = 64          # output channels per thread block of the __dp4a core
+#: output tile (rows, columns) of each core: the [Σ, Σ²] partials are per tile
+TILE_DP4A = (8, 16)   # site_kernel: K2, K5, K8a, K8b
+TILE_MMA = (8, 16)    # mma_kernel (int8 tensor cores): K3, K4
 D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
 _S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
@@ -220,11 +229,14 @@ def _lib():
     sigs = {
         "res_site_s8o_launch": [P] * 9 + dims + [Fl, I, P],
         "site_s8_launch": [P] * 12 + dims + [I, Fl, I, P],
+        "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, P],
         "res_site_launch": [P] * 9 + dims + [Fl, I, P],
+        "res_site_prev_launch": [P] * 9 + dims + [Fl, I, P],
         "res_site_skip_launch": [P] * 13 + dims + [Fl, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
         "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
+        "mma_kernel_smem_bytes": [I],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -267,11 +279,18 @@ def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C):
     return dev, B, H, W, C, CO
 
 
-def _run(kernel, fn, *args):
+def _check_aligned(kernel, name, t):
+    """The tensor-core core reads and writes 16 bytes a thread."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
+
+
+def _run(kernel, fn, *args, count=True):
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    if count:
+        LAUNCHES[kernel] += 1
 
 
 def _stream(dev):
@@ -310,13 +329,27 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
     the residual y [B,H,W,CO] (CO == C), itself first replaced by
     bf16(max(y·ya + yc, 0)) when ``yaff`` = (ya, yc); returns bf16 f, or the
     s8 codes clamp(round(f·qa + qc), qlo, 127) when ``qa``/``qc`` are given.
-    Rows are [CO] f32."""
+    Rows are [CO] f32. On the card: the int8 tensor-core core."""
     if xq.device.type == "cpu":
         return site_s8_plain(xq, wk, ws, bias, aa, ac, y, yaff=yaff, qa=qa, qc=qc, qlo=qlo,
                              halo=halo)
+    return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo)
+
+
+def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
+                 qlo=0.0, halo="reflect"):
+    """K3 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
+    times it beside ``site_s8``. Nothing on the main path calls it, and it
+    counts no launch."""
+    return _site_s8("site_s8_prev_launch", False, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
+                    qlo, halo)
+
+
+def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo):
     k = "site_s8"
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
+    _check_aligned(k, "xq", xq)
     flags = 0
     ya = yc = None
     if aa is not None:
@@ -328,6 +361,7 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
         if CO != C:
             raise ValueError(f"{k}: the residual add needs CO == C, got {CO} != {C}")
         _check(k, "y", y, torch.bfloat16, (B, H, W, CO), dev)
+        _check_aligned(k, "y", y)
         if yaff is not None:
             flags |= _S8_FLAGS["yaff"]
             ya, yc = yaff
@@ -342,37 +376,53 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
     dtype = torch.int8 if qa is not None else torch.bfloat16
     out = torch.empty((B, H, W, CO), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        _run(k, _lib().site_s8_launch, xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
+        _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
              _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo],
-             _stream(dev))
+             _stream(dev), count=count)
     return out
 
 
-def _stats_buffers(B, H, W, CO, dev):
+def _stats_buffers(B, H, W, CO, dev, tile):
+    """The [B, tiles, 2, CO] partials of a core whose output tile is
+    ``tile`` = (rows, columns), and the [B, 2, CO] sums."""
     from math import ceil
 
-    tiles = ceil(H / 8) * ceil(W / 16)  # the kernel's 8×16-pixel output tiles
+    tiles = ceil(H / tile[0]) * ceil(W / tile[1])
     part = torch.empty((B, tiles, 2, CO), dtype=torch.float32, device=dev)
     return part, torch.empty((B, 2, CO), dtype=torch.float32, device=dev)
 
 
 def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
     """K4: quantize x → 3×3 int8 conv → bf16 raw [B,H,W,CO] and the f32
-    [Σ, Σ²] [B,2,CO] of the bf16-rounded raw."""
+    [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. On the card: the int8
+    tensor-core core."""
     if x.device.type == "cpu":
         return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo)
+    return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo)
+
+
+def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
+    """K4 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
+    times it beside ``res_site``. Nothing on the main path calls it, and it
+    counts no launch."""
+    return _res_site("res_site_prev_launch", TILE_DP4A, False, x, a, c, lo, wk, ws, bias, halo)
+
+
+def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo):
     k = "res_site"
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo)
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
-    part, sums = _stats_buffers(B, H, W, CO, dev)
+    part, sums = _stats_buffers(B, H, W, CO, dev, tile)
     with torch.cuda.device(dev):
-        _run(k, _lib().res_site_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
+        _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
+             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev),
+             count=count)
     return out, sums
 
 
@@ -390,7 +440,7 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     v = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev) if yout else None
-    part, sums = _stats_buffers(B, H, W, CO, dev)
+    part, sums = _stats_buffers(B, H, W, CO, dev, TILE_DP4A)
     with torch.cuda.device(dev):
         _run(k, _lib().res_site_skip_launch, r2.data_ptr(), yp.data_ptr(), a.data_ptr(),
              c.data_ptr(), a2.data_ptr(), c2.data_ptr(), wk.data_ptr(), ws.data_ptr(),
@@ -409,7 +459,7 @@ def _site_s2(k, x, a, c, lo, wk, ws, bias):
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H // 2, W // 2, CO), dtype=torch.bfloat16, device=dev)
-    part, sums = _stats_buffers(B, H // 2, W // 2, CO, dev)
+    part, sums = _stats_buffers(B, H // 2, W // 2, CO, dev, TILE_DP4A)
     with torch.cuda.device(dev):
         _run(k, _lib().site_s2_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),

@@ -370,8 +370,9 @@ def res_chain_qc(y: torch.Tensor, net, sites: dict, *,
 
 
 def dec_d1_qc(y: torch.Tensor, net, sites: dict, *, static_stats: dict | None = None):
-    """``dec_d1`` in the XLA form (below ``dec_supported``): the same d1 site
-    on the edge-haloed grid, in4 measured over the 4 phases."""
+    """``dec_d1`` in the XLA form (below ``dec_supported``, or where the set
+    names neither ``dec_i8`` nor ``dec_s8``): the same d1 site on the
+    edge-haloed grid, in4 measured over the 4 phases."""
     B, _, _, C = y.shape
     s1 = sites["d1"]
     r = _qc(y, *_plain_quant(B, C, s1.qin, y.device), -127.0, s1, "edge")

@@ -180,8 +180,9 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
       runs them below ``res_supported``;
     - ``dec_s8`` (frozen norms, decoder gate): d1/d2 on s8 carries, bridged
       from the s8 res chain; ``dec_i8`` (decoder gate): d1 folds the res
-      chain's last add; otherwise d1 then d2 as K4 sites unfolded, or below
-      ``dec_supported`` in the XLA form;
+      chain's last add; otherwise d1 and d2 run in the XLA form
+      (``dec_d1_qc``, ``dec_d2_qc``) at any size, as the JAX engine's
+      ``_qc`` sites do;
     - ``tail`` (measured norms, neither ``dec_*`` took the decoder, tail
       gate): after d1, deconv2 + deconv3 as the bf16 sites K9a/K9b;
     - ``tail_s8`` (with ``dec_s8`` and d3 quantized, tail gate): d2 emits
@@ -229,8 +230,7 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
                   and all(f"r{i}in{j}" in static_stats
                           for i in range(1, NUM_RES + 1) for j in (1, 2)))
     use_res_i8 = "res_i8" in fused and not use_res_s8 and res_ok
-    dec_ok = sites_i8.dec_supported(h4, w4)
-    have_d = "d1" in sites and "d2" in sites and dec_ok
+    have_d = "d1" in sites and "d2" in sites and sites_i8.dec_supported(h4, w4)
     use_dec_s8 = ("dec_s8" in fused and static and have_d
                   and "in4" in static_stats and "in5" in static_stats)
     use_dec_i8 = "dec_i8" in fused and not use_dec_s8 and have_d
@@ -264,13 +264,11 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     elif use_dec_i8:
         r2, m5, inv5 = sites_i8.dec_chain(y, net, sites, carry=carry, static_stats=static_stats)
     else:
-        d1, d2 = ((sites_i8.dec_d1, sites_i8.dec_d2) if dec_ok
-                  else (sites_i8.dec_d1_qc, sites_i8.dec_d2_qc))
-        r, m4, inv4 = d1(y, net, sites, static_stats=static_stats)
+        r, m4, inv4 = sites_i8.dec_d1_qc(y, net, sites, static_stats=static_stats)
         if "tail" in fused and not static and sites_bf16.tail_supported(h // 2, w // 2):
             y12 = sites_bf16.tail(d2s(r, 2, r.shape[-1] // 4), m4, inv4, net, site_weights, d3=d3)
             return d2s(y12, 2, 3)
-        r2, m5, inv5 = d2(r, m4, inv4, net, sites, static_stats=static_stats)
+        r2, m5, inv5 = sites_i8.dec_d2_qc(r, m4, inv4, net, sites, static_stats=static_stats)
     if "d3" in fused and sites_bf16.d3_supported(r2.shape[1], r2.shape[2]):
         return sites_bf16.d3_branch(r2, m5, inv5, net, site_weights, d3=d3)
     if s3 is not None:

@@ -504,6 +504,80 @@ def test_below_the_head_and_tail_gates(johnson, monkeypatch):  # noqa: F811
     assert {k: v for k, v in calls.items() if v} == {}
 
 
+@pytest.mark.parametrize("static", [True, False])
+def test_decoder_without_a_dec_site_runs_the_xla_form(johnson, monkeypatch,  # noqa: F811
+                                                      static):
+    """A set that names neither ``dec_i8`` nor ``dec_s8`` (``("res_i8",)``)
+    at 32×64, where ``dec_supported`` passes (res grid 8×16): the JAX
+    ``apply`` runs d1 and d2 as XLA ``_qc`` sites, with in4/in5 from the
+    tensors' statistics, and so does the port — ``dec_d1_qc`` and
+    ``dec_d2_qc`` once each, and d1/d2 never reach K4 (the launch spy sees
+    the res chain only: K4 6, K5 4). Both start from the JAX head's output
+    (the port's ``encode`` returns it), the JAX side run op by op with the
+    Pallas res chain in interpret mode. With frozen norms deconv3's
+    activated input is bit-identical (on this input: interpret-mode Pallas
+    may contract a quantize into an FMA and flip an isolated code on
+    others). With measured norms the res chain's and the decoder's
+    statistics are summed in each framework's own order, which flips
+    codes (this input: 96.5% of deconv3's input equal), so it is held to
+    the mean |Δ| of the below-gate chain test in ``test_torch_bf16_sites.py``
+    (2e-3; measured 1.7e-4). The whole forward (the bf16 deconv3s differ in
+    summation order) meets the file's 1e-2 gate."""
+    from neuralstyletransferv1_torch.models.s2d import apply_in_relu
+
+    bp32, _, nb = johnson
+    fused = ("res_i8",)
+    x = _video(2, 32, 64, seed=24)
+    assert sites_i8.dec_supported(8, 16)
+    stats, quant = _calibrate_jax(bp32, x, fused, static)
+    assert {"d1", "d2"} <= set(quant) and "c2" not in quant and "d3" not in quant
+    bp = _bf16_params(bp32)
+    seen = {}
+    res_chain = si8.res_chain
+
+    def spy_res_chain(y, *a, **kw):
+        seen["res_in"] = y
+        return res_chain(y, *a, **kw)
+
+    monkeypatch.setattr(si8, "res_chain", spy_res_chain)
+
+    def run():
+        return s2d2.apply(bp, jnp.asarray(x, jnp.bfloat16), quant=quant, static_stats=stats,
+                          fused_sites=fused,
+                          tap=lambda s, t: seen.__setitem__(s, t) if s == "d3" else None)
+
+    ref = _interpret(run).astype(np.float32)
+    ref_d3 = np.asarray(seen["d3"].astype(jnp.float32))
+
+    q, st = quant_from_jax(quant, stats)
+    sites = sites_i8.prepare_sites(nb, q, "cpu")
+    calls = _spy_launches(monkeypatch)
+    dec = {}
+    for name in ("dec_d1_qc", "dec_d2_qc"):
+        def spy(*a, _fn=getattr(sites_i8, name), _name=name, **kw):
+            dec[_name] = _fn(*a, **kw)
+            return dec[_name]
+
+        monkeypatch.setattr(sites_i8, name, spy)
+    y0 = torch.from_numpy(np.array(seen["res_in"].astype(jnp.float32))).to(torch.bfloat16)
+    monkeypatch.setattr(nb, "encode", lambda *a, **kw: y0)
+    with torch.no_grad():
+        out = tq.forward_int8(nb, torch.from_numpy(x).to(torch.bfloat16), sites, st,
+                              fused_sites=fused).float().numpy()
+        r2, m5, inv5 = dec["dec_d2_qc"]
+        ours_d3 = apply_in_relu(r2, m5, inv5, nb.in5.weight, nb.in5.bias, 4).float().numpy()
+    assert set(dec) == {"dec_d1_qc", "dec_d2_qc"}
+    assert {k: v for k, v in calls.items() if v} == {"res_site": 6, "res_site_skip": 4}
+    assert ours_d3.shape == ref_d3.shape == (2, 16, 32, 128)
+    if static:
+        np.testing.assert_array_equal(ours_d3, ref_d3)
+    else:
+        assert np.abs(ours_d3 - ref_d3).mean() <= 2e-3
+    assert out.shape == ref.shape == x.shape
+    mae = float(np.abs(np.clip(out, 0, 1) - np.clip(ref, 0, 1)).mean())
+    assert mae <= 1e-2, mae
+
+
 # ---------------------------------------------------------------------------
 # the site sets and the gates
 # ---------------------------------------------------------------------------

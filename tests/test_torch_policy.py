@@ -223,6 +223,80 @@ def test_k3_s8out_yaff_match_plain_on_card(cuda_device, c, co, halo):
     assert k8.LAUNCHES["site_s8"] - before == len(cases)
 
 
+def _sums_close(s, ref, n, tol=1e-5):
+    """[Σ, Σ²] [B,2,CO] within ``tol`` relative: Σ² of itself, Σ of the
+    magnitude sum it could cancel from (at most sqrt(n·Σ²))."""
+    s, ref = s.double(), ref.double()
+    s2 = ref[:, 1]
+    return bool(((s[:, 1] - s2).abs() <= tol * s2).all()
+                and ((s[:, 0] - ref[:, 0]).abs() <= tol * (n * s2).sqrt()).all())
+
+
+# ragged shapes for the tensor-core core (8×16 output tiles, 128 output
+# channels a block, one block per SM): H, W off the tile, B ∈ {1, 3}, a
+# 128-channel half of 64 (CO = 192), and B·tiles = 189 or 3·117 = 351, not
+# multiples of the 132 (CO = 128) or 66 (CO = 256) blocks of an H100's grid
+_MMA_SHAPES = [(1, 13, 21, 128, 128, "reflect"), (3, 9, 35, 64, 256, "edge"),
+               (3, 70, 100, 128, 256, "reflect"), (3, 70, 200, 64, 128, "edge"),
+               (1, 11, 30, 128, 192, "edge"), (1, 8, 16, 64, 64, "reflect")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,halo", _MMA_SHAPES)
+def test_k4_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
+    """K4 on the int8 tensor cores against its plain version at ragged
+    shapes, both quantize floors: bf16 raw bit-identical, sums within 1e-5;
+    two launches bit-identical, sums included; the previous ``__dp4a`` core
+    gives the same raw."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + co)
+    x, a, cc = t["x"][:1].repeat(b, 1, 1, 1), t["a"][:1].repeat(b, 1), t["c"][:1].repeat(b, 1)
+    x[-1] = -x[-1]  # the images differ
+    for lo in (-127.0, 0.0):
+        args = (x, a, cc, lo, t["w"], t["ws"], t["bias"])
+        before = k8.LAUNCHES["res_site"]
+        o, s = k8.res_site(*args, halo=halo)
+        o2, s2 = k8.res_site(*args, halo=halo)
+        prev, _ = k8.res_site_prev(*args, halo=halo)
+        po, ps = k8.res_site_plain(*args, halo=halo)
+        torch.cuda.synchronize()
+        assert k8.LAUNCHES["res_site"] - before == 2
+        assert torch.equal(o, po) and torch.equal(prev, po), lo
+        assert _sums_close(s, ps, h * w), lo
+        assert torch.equal(o, o2) and torch.equal(s, s2), lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,halo", _MMA_SHAPES)
+def test_k3_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
+    """K3 on the int8 tensor cores against its plain version at ragged
+    shapes in every epilogue combination: [frozen affine] × [no residual,
+    + y, + activated y (CO == C)] × [bf16 out, s8 emit at floor 0 and −127]:
+    bit-identical; two launches bit-identical; the previous ``__dp4a`` core
+    agrees."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + co + 1)
+    codes = t["codes"][:1].repeat(b, 1, 1, 1)
+    codes[-1] = 127 - codes[-1]
+    y = torch.randn((b, h, w, co), device=cuda_device).to(torch.bfloat16)
+    aa, ac = t["qa"] / 40, t["qc"] / 40
+    ya, yc = t["qa"] / 30, t["qc"] / 20
+    residuals = [{}] + ([dict(y=y), dict(y=y, yaff=(ya, yc))] if c == co else [])
+    outs = [{}, dict(qa=t["qa"] / 4, qc=t["qc"], qlo=0.0), dict(qa=t["qa"] / 4, qc=t["qc"], qlo=-127.0)]
+    before = k8.LAUNCHES["site_s8"]
+    n = 0
+    for aff in ({}, dict(aa=aa, ac=ac)):
+        for res in residuals:
+            for out in outs:
+                kw = dict(halo=halo, **aff, **res, **out)
+                args = (codes, t["w"], t["ws"], t["bias"])
+                o, o2 = k8.site_s8(*args, **kw), k8.site_s8(*args, **kw)
+                ref = k8.site_s8_plain(*args, **kw)
+                assert torch.equal(o, ref), sorted(kw)
+                assert torch.equal(o, o2) and torch.equal(k8.site_s8_prev(*args, **kw), ref)
+                n += 2
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["site_s8"] - before == n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,c,co", [("c2_site", 32, 64), ("c3_site", 64, 128)])
 def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co):
@@ -276,6 +350,9 @@ def test_int8_wrappers_reject_bad_inputs(cuda_device):
         k8.res_site(t["x"], t["a"].cpu(), *args[1:])
     with pytest.raises(ValueError, match="C=96"):
         k8.res_site(t["x"][..., :96].contiguous(), *args)
+    shifted = torch.empty(t["x"].numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        k8.res_site(shifted[1:].view(t["x"].shape), *args)
 
 
 def _bf16_site_args(device, name, shape, seed=0):
