@@ -19,7 +19,9 @@ order, and any failed phase exits non-zero:
    shapes (res 270×480 128→128; d1 270×480 128→256; d2 540×960 64→128;
    K3 also with YAFF, with the s8 emit at floor −127 and as the s8 decoder's
    d1/d2; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
-   rows 540×960 128→60 and its s8 form →12): s8 codes and bf16 outputs
+   rows 540×960 128→60 and its s8 form →12; K2 and K3 also in the NST_Train
+   chain's zero-halo form at its res grid 290×504 with the content width
+   sw = 500, K3 with the frozen affine and residual): s8 codes and bf16 outputs
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
@@ -32,7 +34,10 @@ order, and any failed phase exits non-zero:
    two launches bit-identical, bf16 outputs within 1 bf16 ulp of the plain
    version everywhere (an ulp taken at no less than 2^-8 of the tensor's
    largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
-   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites;
+   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites; then K2
+   and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
+   to their plain versions, two launches bit-identical, the masked columns'
+   codes 0;
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
    bit for bit from one head output — under the adopted set and under the
@@ -48,8 +53,24 @@ order, and any failed phase exits non-zero:
    K9a, K9b) and ``("d3",)`` (K9e); check every kernel's launch count of each
    run exactly, and that each quantized or fused stylize stays within the
    1e-2 MAE gate of the plain bf16 one;
-8. when OpenCV is installed, run the CLI ``main()`` end to end on a
-   synthesized 1080p mp4.
+8. the NST_Train slot: a full-width net (3→32→64→128, 5 res blocks,
+   128→64→32→3) from a seed, saved in the reference key layout to a
+   temporary ``.pth``; its ``int8_static`` res chain on one 1080p frame,
+   card vs CPU, bit-identical; then the same 1080p B=8 flow-EMA slice over
+   3 batches under bf16, ``bf16_static``, ``int8`` and ``int8_static`` (the
+   adopted ``nst_static`` set: 5 × K2 + 5 × K3 a batch, no site kernel in
+   the others), with exact launch counts; each quantized stylize within the
+   1e-2 MAE gate of bf16 (int8_static: of bf16_static) on seeded
+   uniform-noise frames, as the JAX tests hold it, and within 5e-2 on the
+   slice's frames;
+9. the CLI ``main()`` end to end on synthesized 1080p mp4s (OpenCV
+   required): the streamed batched path (``--frame_batch 8``); the default
+   invocation (no ``--device``, no ``--frame_batch``: the per-frame f32
+   loop), without and with ``--flow_ema``, checking the encoded frame count
+   and K1's launches, and timing the per-frame loop; the same with
+   ``--flow_ema`` on a 256×448 crop against ``--device cpu`` (MAE ≤ 1e-3);
+   the single-image mode; and ``--stream off --frame_batch 8`` (extract →
+   batches over frame files → assemble).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,9 +78,10 @@ The line before the last is the kernels' JSON record; the last line is
     python3 chip_smoke.py --profile
 
 instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
-``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, and the
-two bf16 fused-site sets) with torch.profiler and prints where its device
-time goes, grouped by kind of kernel (PERF.md section 5).
+``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, the
+two bf16 fused-site sets, and the four NST_Train slices) with
+torch.profiler and prints where its device time goes, grouped by kind of
+kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
@@ -102,16 +124,20 @@ SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
                "d2": (B, H // 2, W // 2, 64, 128, "edge"),
                "c2": (B, H, W, 32, 64, "reflect"),
                "c3": (B, H // 2, W // 2, 64, 128, "reflect"),
-               "d3": (B, H // 2, W // 2, 128, 64, None)}
+               "d3": (B, H // 2, W // 2, 128, 64, None),
+               # the NST_Train res grid: the frame reflect-padded by 40, /4
+               # (290 × 500), its width zero-padded to %8 with sw = 500
+               "nst": (B, (H + 80) // 4, ((W + 80) // 4 + 7) // 8 * 8, 128, 128, "zero")}
+SITE_SW = {"nst": (W + 80) // 4}
 _SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
 # K2-K8b: the (shape, form) cases each runs on the main path, and the TPU
 # kernel it replaces. K3's forms: "aff_add" (frozen affine + residual),
 # "yaff" (+ the raw residual's frozen affine and ReLU), "emit" (+ the s8 emit
 # at floor -127: the bridge into d1), "s8out" (the s8 decoder's d1/d2)
 INT8_KERNELS = {
-    "res_site_s8o": ((("res", ""),), f"{_SITES_I8}:507"),
+    "res_site_s8o": ((("res", ""), ("nst", "")), f"{_SITES_I8}:507"),
     "site_s8": ((("res", "aff_add"), ("res", "yaff"), ("res", "emit"), ("d1", "s8out"),
-                 ("d2", "s8out")), f"{_SITES_I8}:670"),
+                 ("d2", "s8out"), ("nst", "aff_add")), f"{_SITES_I8}:670"),
     "res_site": ((("res", ""), ("d1", ""), ("d2", "")), f"{_SITES_I8}:139"),
     "res_site_skip": ((("res", ""), ("d1", "")), f"{_SITES_I8}:299"),
     "c2_site": ((("c2", ""),), f"{_SITES_I8}:1147"),
@@ -148,6 +174,15 @@ PER_BATCH = {("int8_static", None): {"res_site_s8o": 5, "site_s8": 5, "res_site"
                                    "d3_sum_site": 1},
              ("none", D3): {"d3_rows": 1}}
 SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3"}
+# the NST_Train slices (adopted sets: nst = [] runs the XLA-form int8 chain,
+# nst_static = res_i8, res_s8 the s8 chain) and their site launches a batch
+NST_SLICES = ("none", "bf16_static", "int8", "int8_static")
+NST_PER_BATCH = {"int8_static": {"res_site_s8o": 5, "site_s8": 5}}
+# the stylize each NST slice's quality is held against (as the JAX tests do)
+NST_BASE = {"int8": "none", "int8_static": "bf16_static", "bf16_static": "none"}
+PF_FRAMES = 6                 # frames of the per-frame CLI clip
+PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
+PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
 # K3 and K4 run on the int8 tensor cores (mma_kernel); their previous __dp4a
 # design (site_kernel) stays callable for the comparison
 REDESIGNED = ("site_s8", "res_site")
@@ -359,6 +394,12 @@ def site_calls(name, t, shape, form, prev=False):
         ins, co = (t["codes"], t["wk5"], t["ws5"], t["bias12"]), k8.D3_OUT
     if SITE_SHAPES[shape][5] is not None and name not in ("c2_site", "c3_site"):
         kw["halo"] = SITE_SHAPES[shape][5]
+    # the zero-halo form: no output column >= sw is needed (K2 writes zero
+    # codes there, and the chain crops K3's), so the operations count sw
+    pix_ops = pix
+    if shape in SITE_SW:
+        kw["sw"] = SITE_SW[shape]
+        pix_ops = pix // w * kw["sw"]
     kernel = getattr(k8, f"{name}_prev" if prev else name)
     plain = getattr(k8, f"{name}_plain")
     moved = nbytes(*ins) + pix * co * outs
@@ -368,7 +409,7 @@ def site_calls(name, t, shape, form, prev=False):
         moved += b * h * w * c * 2  # v
     taps = 5 if name.startswith("d3") else 9
     lanes = k8.D3_LANES if name.startswith("d3") else co
-    ops = 2 * pix * c * lanes * taps
+    ops = 2 * pix_ops * c * lanes * taps
     return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw)), moved, ops
 
 
@@ -459,6 +500,8 @@ def int8_kernel_phase(dev):
             first = out[0] if isinstance(out, tuple) else out
             n = first.shape[1] * first.shape[2]
             err = check_site(name, out, ref, n)
+            if shape in SITE_SW and not torch.equal(kernel(), out):  # K2 / K3: one tensor
+                fail(f"{name} @ {shape}: two launches on the same inputs differ")
             del out, first
             if redesigned:
                 prev = site_calls(name, t, shape, form, prev=True)[0]
@@ -483,6 +526,8 @@ def int8_kernel_phase(dev):
             if redesigned:
                 per.update(prev_ms=t_prev, bound_share=bound / t_k)
                 rec["prev_ms"] += t_prev
+            if shape in SITE_SW:
+                halo = f"{halo}, sw {SITE_SW[shape]}"
             log(f"{name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 conv "
                 f"{t_lib:.4f} ms; bound {bound:.4f} ms "
@@ -633,6 +678,45 @@ def bf16_kernel_phase(dev):
         del args, lib
         torch.cuda.empty_cache()
     return results
+
+
+# K2/K3's zero-halo form at ragged content widths: (B, H, W, C, CO, sw)
+RAGGED_SW = ((2, 13, 32, 128, 128, 29), (3, 19, 40, 64, 64, 36))
+
+
+def ragged_sw_phase(dev):
+    """K2 and K3 (frozen affine + residual, and the s8 emit) in the zero-halo
+    form at ragged content widths, K3 on K2's codes as the NST chain runs
+    them: bit-identical to their plain versions, two launches bit-identical,
+    the codes of the columns >= sw zero."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    for i, (b, h, w, c, co, sw) in enumerate(RAGGED_SW):
+        t = site_inputs(dev, b, h, w, c, co, seed=200 + i)
+        kargs = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
+        q = k8.res_site_s8o(*kargs, halo="zero", sw=sw)
+        same = torch.equal(q, k8.res_site_s8o(*kargs, halo="zero", sw=sw))
+        ref = k8.res_site_s8o_plain(*kargs, halo="zero", sw=sw)
+        if not (same and torch.equal(q, ref)) or bool(q[:, :, sw:].any()):
+            fail(f"res_site_s8o at {b}x{h}x{w}x{c}, sw {sw}: not bit-identical to its plain "
+                 "version, to itself, or not zero beyond sw")
+        aff = dict(aa=t["qa"] / 40, ac=t["qc"] / 40, y=t["y"])
+        for form, kw in (("aff_add", aff), ("emit", dict(aff, qa=t["qa"] / 4, qc=t["qc"],
+                                                         qlo=-127.0))):
+            args = (q, t["wk"], t["ws"], t["bias"])
+            o = k8.site_s8(*args, halo="zero", sw=sw, **kw)
+            same = torch.equal(o, k8.site_s8(*args, halo="zero", sw=sw, **kw))
+            if not (same and torch.equal(o, k8.site_s8_plain(*args, halo="zero", sw=sw, **kw))):
+                fail(f"site_s8/{form} at {b}x{h}x{w}x{c}, sw {sw}: not bit-identical to its "
+                     "plain version or to itself")
+            if form == "emit" and bool(o[:, :, sw:].any()):
+                fail(f"site_s8/emit at sw {sw}: codes beyond sw are not zero")
+        torch.cuda.synchronize()
+        log(f"K2 and K3 (aff_add, emit), zero halo, {b}x{h}x{w}x{c}->{co} sw {sw}: "
+            f"bit-identical to their plain versions and across two launches, zero beyond sw")
+        del t, q, ref
 
 
 def reference_phase(dev):
@@ -787,9 +871,10 @@ def read_counts() -> dict:
     return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k9.LAUNCHES}
 
 
-def slice_phase(dev, quantize: str = "none", fused=None):
+def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
     a --quantize mode and fused-site set, or with a set of bf16 fused sites;
+    with ``nst_ckpt``, of that NST_Train checkpoint under the adopted sets;
     returns the run's launch counts."""
     import numpy as np
     import torch
@@ -797,7 +882,8 @@ def slice_phase(dev, quantize: str = "none", fused=None):
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
     from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
 
-    argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+    argv = ["--input_video", "in.mp4", "--output_video", "out.mp4",
+            "--model", str(nst_ckpt or CKPT),
             "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16"]
     if quantize != "none":
         argv += ["--quantize", quantize]
@@ -824,10 +910,13 @@ def slice_phase(dev, quantize: str = "none", fused=None):
     counts = read_counts()
 
     name = slice_name(quantize, fused)
+    per_batch = PER_BATCH.get((quantize, fused), {})
+    if nst_ckpt is not None:
+        name, per_batch = f"nst {name}", NST_PER_BATCH.get(quantize, {})
     expected = {"dis_iter": levels * N_BATCHES}
     for k in counts:
         if k != "dis_iter":
-            expected[k] = PER_BATCH.get((quantize, fused), {}).get(k, 0) * N_BATCHES
+            expected[k] = per_batch.get(k, 0) * N_BATCHES
     used = {k: v for k, v in counts.items() if v}
     log(f"slice 1080p B={B} bf16 --quantize {name}: batch seconds "
         f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {used} (every other kernel 0), "
@@ -845,17 +934,23 @@ def slice_phase(dev, quantize: str = "none", fused=None):
     log(f"slice --quantize {name} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
         f"{overall:.2f} including the first batch")
     if quantize != "none" or fused:
-        quant_quality(dev, args, frames[:B], quantize, fused)
+        quant_quality(dev, args, frames[:B], quantize, fused, name)
     return counts
 
 
-def quant_quality(dev, args, frames, quantize, fused=None):
+def quant_quality(dev, args, frames, quantize, fused, name):
     """The quantized (or fused-site) stylize of the slice's first batch
-    against the plain dynamic bf16 stylize of the same frames: within the repo's 1e-2 gate with the
-    slot's IO preset (what the main path ran), and, as a check that the path
-    is not broken, within QUANT_BROKEN_TOL on the raw_01 scale, where this
-    random-weight net's outputs spread over [0, 1] (there int8 noise alone
-    is ~1e-2; PERF.md)."""
+    against the plain dynamic bf16 stylize of the same frames: within the
+    repo's 1e-2 gate with the slot's IO preset (what the main path ran),
+    and, as a check that the path is not broken, within QUANT_BROKEN_TOL on
+    the raw_01 scale, where this random-weight net's outputs spread over
+    [0, 1] (there int8 noise alone is ~1e-2; PERF.md). An NST_Train slot
+    (preset raw_01) is held as the JAX package's tests hold it
+    (tests/test_static_norm.py): on seeded uniform-noise frames, int8
+    against bf16, int8_static against bf16_static (the same frozen norms)
+    and bf16_static against bf16, each within the 1e-2 gate; on the slice's
+    smooth frames, where this random net amplifies the int8 noise to ~2e-2
+    (PERF.md), within QUANT_BROKEN_TOL."""
     import numpy as np
     import torch
 
@@ -864,45 +959,231 @@ def quant_quality(dev, args, frames, quantize, fused=None):
 
     model = tpipe.load_slot_bank(args, dev)[0]
     x = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
-    for preset, bound in ((model.io_preset, QUANT_MAE_TOL), ("raw_01", QUANT_BROKEN_TOL)):
+    base = "none"
+    checks = [(model.io_preset, x, "the slice's frames", QUANT_MAE_TOL)]
+    if model.arch == "nst":
+        base = NST_BASE[quantize]
+        noise = np.random.default_rng(SEED + 9).random(tuple(x.shape), np.float32)
+        checks = [("raw_01", torch.from_numpy(noise).to(dev), "uniform-noise frames",
+                   QUANT_MAE_TOL), ("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL)]
+    elif model.io_preset != "raw_01":
+        checks.append(("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL))
+    for preset, xin, what, bound in checks:
         m = st.StyleModel(model.arch, model.net, preset, model.name)
-        ref = st.jit_stylizer(m, dtype=torch.bfloat16)(x)
-        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize, fused_sites=fused)(x)
+        ref = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=base)(xin)
+        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize, fused_sites=fused)(xin)
         mae = float((got - ref).abs().mean())
         first = float((got[0] - ref[0]).abs().mean())
-        log(f"stylize --quantize {slice_name(quantize, fused)} vs bf16, preset {preset}: "
-            f"MAE {mae:.6f} (first frame {first:.6f}; bound {bound})")
+        log(f"stylize --quantize {name} vs {'bf16' if base == 'none' else base}, preset "
+            f"{preset}, {what}: MAE {mae:.6f} (first frame {first:.6f}; bound {bound})")
         if not (torch.isfinite(got).all() and mae <= bound):
-            fail(f"the {slice_name(quantize, fused)} stylize is not within {bound} of the bf16 "
-                 f"stylize ({preset})")
+            fail(f"the {name} stylize is not within {bound} of the {base} stylize ({preset}, "
+                 f"{what})")
+        del ref, got
+
+
+def write_clip(path: Path, frames, fps: int = 24) -> None:
+    """RGB uint8 frames → an mp4v file (OpenCV)."""
+    import cv2
+    import numpy as np
+
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for fr in frames:
+        vw.write(np.ascontiguousarray(fr[..., ::-1]))
+    vw.release()
+
+
+def clip_frame_count(path: Path) -> int:
+    """Frames decoded from a video file."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
 
 
 def cli_phase(dev, workdir: Path):
-    """main() end to end on a synthesized 1080p mp4."""
-    import cv2
-
+    """main() end to end on a synthesized 1080p mp4 (the streamed batched
+    path)."""
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
 
     src, dst = workdir / "in.mp4", workdir / "out.mp4"
-    vw = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"mp4v"), 24, (W, H))
     n = 12
-    for fr in moving_frames(n, H, W, SEED + 3):
-        vw.write(fr[..., ::-1])
-    vw.release()
+    write_clip(src, moving_frames(n, H, W, SEED + 3))
     before = k1.LAUNCHES
     t0 = time.perf_counter()
     rc = tpipe.main(["--input_video", str(src), "--output_video", str(dst),
                      "--model", str(CKPT), "--frame_batch", str(B), "--flow_ema",
                      "--compute_dtype", "bfloat16", "--work_dir", str(workdir / "_work")])
     secs = time.perf_counter() - t0
-    cap = cv2.VideoCapture(str(dst))
-    got = int(cap.get(cv2.CAP_PROP_FRAME_COUNT) or 0)
-    cap.release()
+    got = clip_frame_count(dst)
     log(f"main() on a {n}-frame 1080p mp4: rc {rc}, {got} frames written, {secs:.2f} s, "
         f"K1 launches {k1.LAUNCHES - before}")
     if rc != 0 or got != n or k1.LAUNCHES == before:
         fail("main() did not style the clip end to end")
+
+
+def styled_pngs(work_dir: Path) -> list:
+    """The styled frame files a per-frame or --stream off job left, [0,1]."""
+    import numpy as np
+    from PIL import Image
+
+    files = sorted((work_dir / "frames").glob("styled_frame_*.png"))
+    return [np.asarray(Image.open(f).convert("RGB"), np.float64) / 255.0 for f in files]
+
+
+def per_frame_phase(dev, workdir: Path):
+    """The CLI's default invocation — no --device, no --frame_batch: the
+    per-frame f32 loop with extraction to and assembly from frame files —
+    on a synthesized 1080p clip, without and with --flow_ema (K1 at every
+    frame after the first); the per-frame loop timed again on the extracted
+    frames in the warm process; the same with --flow_ema on a 256×448 crop
+    against --device cpu; the single-image mode; --stream off with
+    --frame_batch 8. The crop and the single image run with --io_preset
+    raw_01: under the default preset this random-weight net's output sits
+    near 0, where an MAE bound and a spread check say nothing."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+
+    n = PF_FRAMES
+    frames = moving_frames(n, H, W, SEED + 7)
+    src = workdir / "pf_in.mp4"
+    write_clip(src, frames)
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    levels = len(_level_sizes(H // ds, W // ds, 2))
+
+    launches: dict = {}
+
+    def run(argv, want_k1, label):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = tpipe.main([str(a) for a in argv])
+        secs = time.perf_counter() - t0
+        used = {k: v for k, v in read_counts().items() if v}
+        for k, v in used.items():
+            launches[k] = launches.get(k, 0) + v
+        want = {"dis_iter": want_k1} if want_k1 else {}
+        log(f"main() {label}: rc {rc}, {secs:.2f} s, launches {used}, "
+            f"{'as' if used == want else 'NOT as'} expected ({want})")
+        if rc != 0 or used != want:
+            fail(f"main() {label} did not run as expected")
+
+    fps = {}
+    for label, extra in (("default", []), ("--flow_ema", ["--flow_ema"])):
+        out, wd = workdir / f"pf{len(fps)}.mp4", workdir / f"_pf{len(fps)}"
+        argv = ["--input_video", src, "--output_video", out, "--model", CKPT, *extra,
+                "--work_dir", wd]
+        run(argv, (n - 1) * levels if extra else 0, f"per-frame {label} on a {n}-frame 1080p mp4")
+        if clip_frame_count(out) != n:
+            fail(f"the per-frame {label} video holds {clip_frame_count(out)} frames, not {n}")
+        args = tpipe.build_parser().parse_args([str(a) for a in argv])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written, _ = tpipe.style_frames(args, wd / "frames", False, {}, dev)
+        torch.cuda.synchronize()
+        fps[label] = written / (time.perf_counter() - t0)
+        log(f"per-frame loop {label}, f32, 1080p: {fps[label]:.3f} frames/s ({written} frames, "
+            "frame files read and written, warm process)")
+
+    ch, cw = PF_CROP
+    crop = workdir / "pf_crop.mp4"
+    write_clip(crop, [np.ascontiguousarray(f[:ch, :cw]) for f in frames])
+    outs = {}
+    for d in ("cuda", "cpu"):
+        wd = workdir / f"_pfc_{d}"
+        argv = ["--input_video", crop, "--output_video", workdir / f"pfc_{d}.mp4",
+                "--model", CKPT, "--io_preset", "raw_01", "--flow_ema", "--work_dir", wd]
+        if d == "cpu":
+            argv += ["--device", "cpu"]
+        ds_c = tpipe.effective_flow_downscale(0, ch, cw)
+        run(argv, (n - 1) * len(_level_sizes(ch // ds_c, cw // ds_c, 2)) if d == "cuda" else 0,
+            f"per-frame --flow_ema on the {ch}x{cw} crop, --device {d}")
+        outs[d] = styled_pngs(wd)
+    if not len(outs["cuda"]) == len(outs["cpu"]) == n:
+        fail("the crop runs did not write every styled frame")
+    mae = max(float(np.abs(a - b).mean()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    log(f"per-frame --flow_ema, card vs CPU on the {ch}x{cw} crop: MAE {mae:.3g} "
+        f"(bound {PF_MAE_TOL})")
+    if not mae <= PF_MAE_TOL or outs["cuda"][-1].std() < 1e-2:
+        fail("the per-frame path on the card disagrees with the CPU path")
+
+    img, img_out = workdir / "pf_in.png", workdir / "pf_out.png"
+    Image.fromarray(frames[0]).save(img)
+    run(["--input_image", img, "--output_image", img_out, "--model", CKPT, "--io_preset",
+         "raw_01", "--work_dir", workdir / "_pfi", "--clean_work_dir"], 0,
+        "single-image mode at 1080p")
+    styled = np.asarray(Image.open(img_out).convert("RGB"))
+    if styled.shape != (H, W, 3) or styled.std() < 1.0:
+        fail(f"the single-image output is {styled.shape}, std {styled.std():.3g}")
+
+    out, wd = workdir / "pf_off.mp4", workdir / "_pfo"
+    run(["--input_video", src, "--output_video", out, "--model", CKPT, "--stream", "off",
+         "--frame_batch", B, "--flow_ema", "--work_dir", wd], levels * -(-n // B),
+        f"--stream off --frame_batch {B} --flow_ema on a {n}-frame 1080p mp4")
+    if clip_frame_count(out) != n or len(styled_pngs(wd)) != n:
+        fail("--stream off did not write and assemble every frame")
+    return launches
+
+
+def nst_checkpoint(path: Path) -> Path:
+    """A full-width NST_Train net from the seed, saved in the reference key
+    layout (``down1.conv.weight`` …)."""
+    import torch
+
+    from neuralstyletransferv1_torch.models import transformer_net_nst as tn
+
+    torch.save(tn.init(SEED), path)
+    return path
+
+
+def nst_chain_phase(dev, ckpt: Path):
+    """The NST int8_static res chain (5 × K2 + 5 × K3, zero halo, sw = 500)
+    on the card and on the CPU (their plain versions) from one 1080p frame's
+    res-chain input and one calibration: bit-identical."""
+    import copy
+
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.models import transformer_net_nst_fast as nstf
+
+    model = st.load_model(ckpt, device=dev)
+    x = torch.from_numpy(moving_frames(1, H, W, SEED + 8)[0][None]).to(dev).float() / 255.0
+    stats = nstf.calibrate_in_stats(model.net, x)
+    quant = nstf.quantize_net(model.net, nstf.calibrate_act_scales(model.net, x,
+                                                                    static_stats=stats))
+    nb = copy.deepcopy(model.net).to(torch.bfloat16)
+    grab = {}
+
+    def tap(site, t):
+        if site == "r1a":
+            grab["y"] = t.contiguous()
+
+    with torch.no_grad():
+        nstf.apply(nb, x.to(torch.bfloat16), tap=tap, static_stats=stats)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            net_d = copy.deepcopy(nb).to(d)
+            st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+            sites = nstf.prepare_sites(net_d, quant, d)
+            outs.append(nstf.res_chain_s8_static(grab["y"].to(d), net_d, sites, st_d).cpu())
+    y = grab["y"]
+    same = torch.equal(*outs)
+    log(f"NST int8_static res chain on one 1080p frame (grid {y.shape[1]}x{y.shape[2]}, "
+        f"padded to %8 with sw), card vs CPU: {'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the NST int8_static chain differs between the card and the CPU")
+    if not bool(torch.isfinite(outs[0].float()).all()) or outs[0].shape != y.shape:
+        fail(f"the NST chain output is {tuple(outs[0].shape)} or not finite")
 
 
 def ptxas_report(text: str, k8) -> None:
@@ -1004,7 +1285,7 @@ def kernel_group(name: str) -> str:
     return "elementwise"
 
 
-def profile_phase(dev):
+def profile_phase(dev, nst_ckpt: Path):
     """Device time of one steady 1080p B=8 batch of each slice, by kind of
     kernel and by kernel (torch.profiler after two warm-up batches)."""
     import torch
@@ -1014,8 +1295,10 @@ def profile_phase(dev):
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
-    for mode, fused in (("none", None), ("bf16_static", None)) + SLICES:
-        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+    runs = [(mode, fused, CKPT) for mode, fused in (("none", None), ("bf16_static", None))
+            + SLICES] + [(mode, None, nst_ckpt) for mode in NST_SLICES]
+    for mode, fused, ckpt in runs:
+        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
                 "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
                 "--quantize", mode]
         _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
@@ -1035,7 +1318,8 @@ def profile_phase(dev):
         groups: dict = {}
         for name, ms, _ in kernels:
             groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
-        log(f"profile --quantize {slice_name(mode, fused)}: batch wall {wall:.2f} ms, "
+        name = slice_name(mode, fused) if ckpt == CKPT else f"nst {mode}"
+        log(f"profile --quantize {name}: batch wall {wall:.2f} ms, "
             f"device busy {busy:.2f} ms "
             f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -1080,35 +1364,49 @@ def main() -> int:
     k9._lib()
     log(f"built K1, K2-K8b and K9a-K9e with nvcc (in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_phases(dev, Path(tmp), k8)
+
+
+def run_phases(dev, tmp: Path, k8) -> int:
+    import torch
+
+    nst_ckpt = nst_checkpoint(tmp / "nst_random.pth")
     if sys.argv[1:] in (["--profile"], ["--phases"]):
-        (profile_phase if sys.argv[1] == "--profile" else phases_phase)(dev)
+        if sys.argv[1] == "--profile":
+            profile_phase(dev, nst_ckpt)
+        else:
+            phases_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        fail("OpenCV is not installed: the CLI phases need it to synthesize their videos")
+    from neuralstyletransferv1_torch.kernels import _build
+
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
         ptxas_report(txt.read_text(), k8)
 
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
+    ragged_sw_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
+    nst_chain_phase(dev, nst_ckpt)
     launches = {k: 0 for k in read_counts()}
-    for mode, fused in (("none", None),) + SLICES:
-        for k, v in slice_phase(dev, mode, fused).items():
+    for mode, fused, ckpt in ([(mode, fused, None) for mode, fused in (("none", None),) + SLICES]
+                              + [(mode, None, nst_ckpt) for mode in NST_SLICES]):
+        for k, v in slice_phase(dev, mode, fused, nst_ckpt=ckpt).items():
             launches[k] += v
+    cli_phase(dev, tmp)
+    for k, v in per_frame_phase(dev, tmp).items():
+        launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
-    try:
-        import cv2  # noqa: F401
-    except ImportError:
-        log("OpenCV is not installed: the main() video phase does not run")
-    else:
-        with tempfile.TemporaryDirectory() as tmp:
-            cli_phase(dev, Path(tmp))
-        if "jax" in sys.modules:
-            fail("jax was imported")
 
     kernels = [{
         "name": "dis_iter", "route": "cuda",

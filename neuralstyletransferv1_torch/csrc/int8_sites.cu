@@ -10,8 +10,11 @@
 //   K7  d3_rows_site   (_d3_kernel)        quantize bf16 → 1x5 conv → 60 bf16 row lanes
 //   K6  d3_s8_site     (_d3s8_kernel)      s8 codes → 1x5 conv → 5-row dy-sum + bias → bf16
 // K2, K5 and K8 are one templated core (site_kernel): a 3x3 conv of int8
-// codes at stride 1 or 2 over a 1-pixel halo (pixel reflect or edge copy),
-// accumulated in int32 with __dp4a, with a prologue (how the int8 tile is
+// codes at stride 1 or 2 over a 1-pixel halo (pixel reflect or edge copy;
+// K2 and K3 also zero codes, the NST net's zero padding, where K2 zeroes the
+// codes of the columns >= sw that pad a grid up to an aligned width, in its
+// input and output, and K3 those of its s8 output), accumulated in int32
+// with __dp4a, with a prologue (how the int8 tile is
 // made) and an epilogue (what is written) chosen at compile time. K3 and K4
 // run the same conv at stride 1 on the tensor cores (mma_kernel, below);
 // their site_kernel forms stay buildable as res_site_prev_launch /
@@ -132,17 +135,29 @@ struct Args {
   float lo;                      // quantize floor of the prologue
   float qlo;                     // kSiteS8: floor of the s8 emit
   int flags;                     // kSiteS8: SiteFlags
-  int halo;                      // 0 pixel reflect, 1 edge copy
+  int halo;                      // 0 pixel reflect, 1 edge copy, 2 zero codes
+  int sw;                        // content width: K2 zeroes its codes in columns >= sw
 };
 
 // Source index of halo position i in [-1, n] (and, for the padding rows of
 // a partial tile, beyond): pixel reflect or edge, clamped into the image.
+// The zero halo (kHaloZero) reads no source outside the image: see
+// zero_code.
+constexpr int kHaloZero = 2;
 __device__ __forceinline__ int src_index(int i, int n, int halo) {
   if (halo == 0) {
     i = i < 0 ? -i : i;
     i = i >= n ? 2 * n - 2 - i : i;
   }
   return min(max(i, 0), n - 1);
+}
+
+// Under the zero halo, input position (y, x) is a zero code when it lies
+// outside the image or, for a quantizing prologue, in a column >= sw (the
+// content width of a grid padded up to an aligned width, as _quant_zero
+// masks it).
+__device__ __forceinline__ bool zero_code(int y, int x, int hi, int wz, int halo) {
+  return halo == kHaloZero && (y < 0 || y >= hi || x < 0 || x >= wz);
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -242,7 +257,9 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
     const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
     const size_t off = (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + 4 * wd;
     int32_t word;
-    if (PRO == kCodes) {
+    if (zero_code(gy, gx, p.Hi, PRO == kCodes ? p.Wi : p.sw, p.halo)) {
+      word = 0;
+    } else if (PRO == kCodes) {
       word = *reinterpret_cast<const int32_t*>(static_cast<const int8_t*>(p.x) + off);
     } else {
       float v[4];
@@ -338,6 +355,7 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
         lo |= (uint32_t)(quantize(f[j], ra[j], rc[j], 0.0f) & 0xff) << (8 * j);
         hi |= (uint32_t)(quantize(f[j + 4], ra[j + 4], rc[j + 4], 0.0f) & 0xff) << (8 * j);
       }
+      if (ox >= p.sw) lo = hi = 0;  // padding columns stay zero codes
       *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(lo, hi);
     } else {
       // K3: [frozen affine] → [+ y, y first activated by a frozen affine + ReLU]
@@ -369,6 +387,7 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
           hi |= (uint32_t)(quantize(f[j + 4], e[2 * kCOT + j + 4], e[3 * kCOT + j + 4],
                                     p.qlo) & 0xff) << (8 * j);
         }
+        if (ox >= p.sw) lo = hi = 0;
         *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(lo, hi);
       } else {
         __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + o;
@@ -458,6 +477,7 @@ Args make_args(int B, int H, int W, int CO, float lo, int halo) {
   p.CO = CO;
   p.lo = lo;
   p.halo = halo;
+  p.sw = W;
   return p;
 }
 
@@ -591,13 +611,15 @@ __global__ void __launch_bounds__(kMThreads, 1)
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
       if (px < kMPix) {
-        const int sy = src_index(y0 + px / kMHC - 1, p.Hi, p.halo);
-        const int sx = src_index(x0 + px % kMHC - 1, p.Wi, p.halo);
+        const int gy = y0 + px / kMHC - 1, gx = x0 + px % kMHC - 1;
+        const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
         const size_t off = (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + chunk * In::VB;
         const uint4* src = PRO == kCodes
             ? reinterpret_cast<const uint4*>(static_cast<const int8_t*>(p.x) + off)
             : reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
-        raw[k] = __ldg(src);
+        // the zero halo is a zero code, which only K3's copied codes can carry
+        raw[k] = PRO == kCodes && zero_code(gy, gx, p.Hi, p.Wi, p.halo) ? make_uint4(0, 0, 0, 0)
+                                                                        : __ldg(src);
       }
     }
   };
@@ -810,6 +832,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
           for (int k = 0; k < 8; ++k)
             q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * kMCO + k], ep[3 * kMCO + k], p.qlo) &
                                    0xff) << (8 * (k % 4));
+          if (ox >= p.sw) q[0] = q[1] = 0;  // padding columns stay zero codes
           *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(q[0], q[1]);
           continue;
         }
@@ -1067,12 +1090,15 @@ int launch_rows(const RowsArgs& p, void* stream) {
 // success).
 
 // K2: s8 codes out[b,y,x,o] = clamp(rint(bf16(acc*ws + bias)*qa + qc), 0, 127).
+// Under the zero halo (halo 2) the codes of x and of out in columns >= sw
+// are zero (sw = W: no such column).
 extern "C" int res_site_s8o_launch(const void* x, const float* a, const float* c,
                                    const int32_t* wk, const float* ws, const float* bias,
                                    const float* qa, const float* qc, int8_t* out, int B,
-                                   int H, int W, int C, int CO, float lo, int halo,
+                                   int H, int W, int C, int CO, float lo, int halo, int sw,
                                    void* stream) {
   Args p = make_args(B, H, W, CO, lo, halo);
+  p.sw = sw;
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
   p.ra = qa; p.rc = qc; p.out = out;
   return launch<kQuant, kEmitS8>(p, C, nullptr, stream);
@@ -1082,9 +1108,10 @@ namespace {
 int site_s8_args(bool prev, const int8_t* xq, const int32_t* wk, const float* ws,
                  const float* bias, const float* aa, const float* ac, const __nv_bfloat16* y,
                  const float* ya, const float* yc, const float* qa, const float* qc, void* out,
-                 int B, int H, int W, int C, int CO, int flags, float qlo, int halo,
+                 int B, int H, int W, int C, int CO, int flags, float qlo, int halo, int sw,
                  void* stream) {
   Args p = make_args(B, H, W, CO, 0.0f, halo);
+  p.sw = sw;
   p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.yadd = y; p.out = out;
   p.ep[0] = aa; p.ep[1] = ac; p.ep[2] = qa; p.ep[3] = qc; p.ep[4] = ya; p.ep[5] = yc;
   p.flags = flags;
@@ -1097,15 +1124,16 @@ int site_s8_args(bool prev, const int8_t* xq, const int32_t* wk, const float* ws
 // K3: f = bf16(acc*ws + bias) from s8 codes xq; then, per `flags`,
 // f = bf16(f*aa + ac) (kFAff); f = bf16(f + y) with y first replaced by
 // bf16(max(y*ya + yc, 0)) (kFYadd, kFYaff); out = bf16 f, or s8 codes
-// clamp(rint(f*qa + qc), qlo, 127) (kFS8Out). Unused rows may be null.
+// clamp(rint(f*qa + qc), qlo, 127) (kFS8Out), zero in columns >= sw (sw = W:
+// no such column). Unused rows may be null.
 extern "C" int site_s8_launch(const int8_t* xq, const int32_t* wk, const float* ws,
                               const float* bias, const float* aa, const float* ac,
                               const __nv_bfloat16* y, const float* ya, const float* yc,
                               const float* qa, const float* qc, void* out, int B, int H,
-                              int W, int C, int CO, int flags, float qlo, int halo,
+                              int W, int C, int CO, int flags, float qlo, int halo, int sw,
                               void* stream) {
   return site_s8_args(false, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
-                      flags, qlo, halo, stream);
+                      flags, qlo, halo, sw, stream);
 }
 
 // K3 on the previous __dp4a core (site_kernel), for timing only.
@@ -1114,9 +1142,9 @@ extern "C" int site_s8_prev_launch(const int8_t* xq, const int32_t* wk, const fl
                                    const __nv_bfloat16* y, const float* ya, const float* yc,
                                    const float* qa, const float* qc, void* out, int B, int H,
                                    int W, int C, int CO, int flags, float qlo, int halo,
-                                   void* stream) {
+                                   int sw, void* stream) {
   return site_s8_args(true, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
-                      flags, qlo, halo, stream);
+                      flags, qlo, halo, sw, stream);
 }
 
 #ifdef MMA_PHASE_CLOCKS

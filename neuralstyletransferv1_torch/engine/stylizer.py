@@ -1,8 +1,8 @@
-"""The stylizer bank: Johnson slots resident on the device, one call per
-frame batch.
+"""The stylizer bank: Johnson and NST_Train slots resident on the device,
+one call per frame batch.
 
-Counterpart of the Johnson subset of ``neuralstyletransferv1_tpu/engine/
-stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
+Counterpart of the Johnson and NST parts of ``neuralstyletransferv1_tpu/
+engine/stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
 affine baked into the first and last convs; this port computes the same
 function directly: preprocess → TransformerNet → postprocess.
 
@@ -21,6 +21,11 @@ may also name the bf16 fused sites ``head``, ``tail`` and ``d3``
 ``bf16_static`` they route the bf16 net itself
 (``TransformerNet.forward(fused_sites=)``), in the int8 modes ``tail`` and
 ``d3`` route the decoder (``forward_int8``).
+
+NST_Train slots (``down1.``-keyed checkpoints, arch ``nst``, IO preset
+forced to ``raw_01``) run ``models/transformer_net_nst_fast.apply`` with
+the same pad-and-crop and lazy first-frame calibration; their int8 modes
+route by the adopted ``nst`` / ``nst_static`` sets.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from ..io import checkpoints as ckpt
 from ..models import io_presets as iop
 from ..models import sites_bf16, sites_i8
 from ..models import transformer_net_quant as tq
+from ..models import transformer_net_nst as tnn
+from ..models import transformer_net_nst_fast as nstf
 from ..models.transformer_net import TransformerNet, params_from_jax
 from ..ops.resize import resize_bilinear
 
@@ -46,33 +53,51 @@ QUANTIZE_MODES = ("none", "bf16_static", "int8_static", "int8")
 class StyleModel:
     """One loaded slot of the model bank."""
 
-    arch: str  # johnson
-    net: TransformerNet
+    arch: str  # johnson | nst
+    net: TransformerNet | tnn.TransformerNetNST
     io_preset: str
     name: str = ""
 
 
 def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: str = "auto",
                name: str | None = None, device: torch.device | str = "cpu") -> StyleModel:
-    """Load a reference-format Johnson checkpoint (``io/checkpoints``, the
-    port's copy of the JAX engine's importer)."""
+    """Load a reference-format Johnson or NST_Train checkpoint
+    (``io/checkpoints``, the port's copy of the JAX engine's importer; the
+    arch by key prefix). NST checkpoints force ``raw_01`` over ``raw_255``
+    and ``imagenet_255``, as the reference does."""
     path = Path(path)
     if model_type != "transformer":
         raise NotImplementedError(
-            f"model type {model_type!r}: only Johnson 'transformer' slots are ported "
-            "(ROADMAP.md Queue 1, item 6: other stylizer backends)")
+            f"model type {model_type!r}: only 'transformer' slots (Johnson, NST_Train) are "
+            "ported (ROADMAP.md Queue 1, item 6: other stylizer backends)")
     sd = ckpt.load_state_dict(str(path))
     arch = ckpt.detect_transformer_arch(sd)
-    if arch != "johnson":
-        raise NotImplementedError(
-            f"{path.name}: {arch} checkpoints are not ported "
-            "(ROADMAP.md Queue 1, item 6: other stylizer backends)")
-    net = TransformerNet()
-    net.load_state_dict(params_from_jax(ckpt.import_transformer(sd)))
+    if arch == "nst":
+        net = tnn.TransformerNetNST()
+        net.load_state_dict(tnn.params_from_jax(ckpt.import_transformer_nst(sd)))
+    else:
+        net = TransformerNet()
+        net.load_state_dict(params_from_jax(ckpt.import_transformer(sd)))
     net = net.to(device).eval().requires_grad_(False)
     if io_preset == "auto":
         io_preset = iop.resolve_auto_preset(model_type, arch=arch)
+    elif arch == "nst" and io_preset in ("raw_255", "imagenet_255"):
+        io_preset = "raw_01"
     return StyleModel(arch, net, io_preset, name or path.stem)
+
+
+def make_random_model(arch: str = "nst", *, seed: int = 0, io_preset: str | None = None,
+                      device: torch.device | str = "cpu") -> StyleModel:
+    """A random-weight slot from a seed (tests and the chip smoke, where no
+    trained checkpoint is in the repo): ``nst`` only, with ``raw_01``."""
+    if arch != "nst":
+        raise NotImplementedError(
+            f"make_random_model({arch!r}): only 'nst' is ported (a Johnson slot loads "
+            "_testdata/test_johnson.pth)")
+    net = tnn.TransformerNetNST()
+    net.load_state_dict(tnn.init(seed))
+    net = net.to(device).eval().requires_grad_(False)
+    return StyleModel("nst", net, io_preset or "raw_01", "random_nst")
 
 
 def _input_size(out: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
@@ -99,16 +124,30 @@ def _reflect_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
 
 
+def _pad_call(run, forward, io_preset: str, x: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
+    """``run(forward, io_preset, x)`` with x reflect-padded at the bottom and
+    right to multiples of (mh, mw), cropped back."""
+    H, W = x.shape[1], x.shape[2]
+    ph, pw = (-H) % mh, (-W) % mw
+    if ph or pw:
+        return run(forward, io_preset, _reflect_pad(x, ph, pw))[:, :H, :W]
+    return run(forward, io_preset, x)
+
+
+def _calibration_input(model: StyleModel, x01: torch.Tensor) -> torch.Tensor:
+    """The first frame, f32, reflect-padded to multiples of 4, preprocessed."""
+    xc = x01[:1].float()
+    xc = _reflect_pad(xc, (-xc.shape[1]) % 4, (-xc.shape[2]) % 4)
+    return iop.preprocess(model.io_preset, xc)
+
+
 def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
                         x01: torch.Tensor, fused_sites=None, sw=None):
     """Calibrate on the first frame of ``x01`` (f32, the f32 weights, padded
     to a multiple of 4 only) and return the forward of ``quantize`` and
     whether its output carries the post affine. ``sw``: the bf16 sites'
     weights, where the set names one."""
-    xc = x01[:1].float()
-    H, W = xc.shape[1], xc.shape[2]
-    xc = _reflect_pad(xc, (-H) % 4, (-W) % 4)
-    xin = iop.preprocess(model.io_preset, xc)
+    xin = _calibration_input(model, x01)
     stats = None
     if quantize in ("bf16_static", "int8_static"):
         stats = tq.calibrate_in_stats(model.net, xin)
@@ -121,7 +160,7 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
                                  else fused_sites)
     scales = tq.calibrate_act_scales(model.net, xin, sites=tq.QUANT_SITES_PALLAS,
                                      static_stats=stats)
-    scales = tq.site_filter(scales, xc.shape[1], xc.shape[2], fused)
+    scales = tq.site_filter(scales, xin.shape[1], xin.shape[2], fused)
     quant = tq.quantize_net(model.net, scales, io_preset=model.io_preset)
     d3 = tq.baked_d3(model.net, model.io_preset) if "d3" in quant else None
     sites = sites_i8.prepare_sites(net, quant, x01.device, d3=d3)
@@ -152,6 +191,8 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
         raise NotImplementedError(
             f"--quantize {quantize} runs under bfloat16 only: ROADMAP.md Queue 1, item 10 "
             "(--quantize under float32)")
+    if model.arch == "nst":
+        return _nst_stylizer(model, dtype, quantize, fused_sites)
     if fused_sites is not None:
         unknown = sorted(set(fused_sites) - set(tq.FUSED_SITE_NAMES))
         if unknown:
@@ -179,13 +220,55 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
                                                                    fused_sites, sw)
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
-        mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)
-        ph, pw = (-H) % mh, (-W) % mw
         run = stylize_baked if state["baked"] else stylize
-        if (ph or pw) and H >= 8 and W >= 8:
-            out = run(state["forward"], model.io_preset, _reflect_pad(x, ph, pw))[:, :H, :W]
-        else:
-            out = run(state["forward"], model.io_preset, x)
-        return out.float()
+        if H < 8 or W < 8:
+            return run(state["forward"], model.io_preset, x).float()
+        mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)
+        return _pad_call(run, state["forward"], model.io_preset, x, mh, mw).float()
+
+    return fn
+
+
+def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+    """``jit_stylizer`` for an NST slot (JAX ``jit_stylizer`` with
+    ``nst_fast_params``): the fast form at sizes padded to multiples of 4
+    (8 × 32 under int8 once H ≥ 32 and W ≥ 64), the exact net below 8
+    pixels. A quantize mode calibrates on the first frame (f32 net, padded
+    to multiples of 4): frozen norms (``calibrate_in_stats``) for the static
+    modes, activation scales and int8 res weights for the int8 ones, routed
+    by the adopted ``nst_static`` / ``nst`` set or ``fused_sites``."""
+    net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
+    fused = None if fused_sites is None else tuple(fused_sites)
+    state = {"forward": (lambda t: nstf.apply(net, t)) if quantize == "none" else None}
+
+    def calibrate(x01):
+        from .. import adopt_overrides
+
+        xin = _calibration_input(model, x01)
+        stats = None
+        if quantize in ("bf16_static", "int8_static"):
+            stats = nstf.calibrate_in_stats(model.net, xin)
+        if quantize == "bf16_static":
+            print(f"[stylizer] static-norm bf16 nst path calibrated for {model.name} "
+                  f"({len(stats)} frozen norms)")
+            return lambda t: nstf.apply(net, t, static_stats=stats)
+        scales = nstf.calibrate_act_scales(model.net, xin, static_stats=stats)
+        sites = nstf.prepare_sites(net, nstf.quantize_net(model.net, scales), x01.device)
+        sset = adopt_overrides.sites("nst_static" if stats else "nst") if fused is None else fused
+        print(f"[stylizer] {quantize} nst path calibrated for {model.name} ({len(sites)} int8 "
+              f"sites, fused {sset})")
+        return lambda t: nstf.apply(net, t, sites=sites, fused_sites=sset, static_stats=stats)
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        if state["forward"] is None:
+            state["forward"] = calibrate(x01)
+        x = x01.to(dtype)
+        H, W = x.shape[1], x.shape[2]
+        if H < 8 or W < 8:
+            return stylize(net, model.io_preset, x).float()
+        big = quantize in ("int8_static", "int8") and H >= 32 and W >= 64
+        return _pad_call(stylize, state["forward"], model.io_preset, x,
+                         *((8, 32) if big else (4, 4))).float()
 
     return fn

@@ -1,14 +1,16 @@
-"""Checkpoint import: reference-format torch state dicts → the Johnson param
-tree (numpy leaves).
+"""Checkpoint import: reference-format torch state dicts → the Johnson and
+NST_Train param trees (numpy leaves).
 
-The port's copy of the Johnson part of the JAX engine's
+The port's copy of the Johnson and NST_Train parts of the JAX engine's
 ``io/checkpoints.py`` (the port imports nothing of the JAX package):
 
 - robust load: ``weights_only`` retry, ``state_dict`` unwrap, legacy
   InstanceNorm running-stat dropping;
 - arch detection by key prefix: ``down1.`` ⇒ the NST_Train variant;
-- conv weights OIHW → HWIO, norms ``weight``/``bias`` → ``scale``/``bias``,
-  the tree ``models.transformer_net.params_from_jax`` takes.
+- conv weights OIHW → HWIO, transposed-conv weights IOHW → (k, k, Cout,
+  Cin), norms ``weight``/``bias`` → ``scale``/``bias``: the trees
+  ``models.transformer_net.params_from_jax`` and
+  ``models.transformer_net_nst.params_from_jax`` take.
 """
 
 from __future__ import annotations
@@ -61,6 +63,16 @@ def _conv(sd, prefix) -> dict:
     return p
 
 
+def _conv_t(sd, prefix) -> dict:
+    w = sd[f"{prefix}.weight"]  # IOHW (torch ConvTranspose2d)
+    p = {"w": np.transpose(w, (2, 3, 1, 0))}  # → HW, Cout, Cin
+    if f"{prefix}.bias" in sd:
+        p["b"] = sd[f"{prefix}.bias"]
+    else:
+        p["b"] = np.zeros(w.shape[1], np.float32)
+    return p
+
+
 def _norm(sd, prefix) -> dict:
     return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
 
@@ -80,4 +92,23 @@ def import_transformer(sd: dict[str, np.ndarray]) -> dict:
             "conv2": _conv(sd, f"res{i}.conv2.conv2d"),
             "in2": _norm(sd, f"res{i}.in2"),
         }
+    return p
+
+
+def import_transformer_nst(sd: dict[str, np.ndarray]) -> dict:
+    """NST_Train TransformerNet state dict → param tree
+    (keys ``down1.conv.weight`` / ``res1.conv1.weight`` / ``up1.conv.weight``)."""
+    p: dict = {}
+    for name in ("down1", "down2", "down3"):
+        p[name] = {"conv": _conv(sd, f"{name}.conv"), "norm": _norm(sd, f"{name}.norm")}
+    for i in range(1, 6):
+        p[f"res{i}"] = {
+            "conv1": _conv(sd, f"res{i}.conv1"),
+            "norm1": _norm(sd, f"res{i}.norm1"),
+            "conv2": _conv(sd, f"res{i}.conv2"),
+            "norm2": _norm(sd, f"res{i}.norm2"),
+        }
+    for name in ("up1", "up2"):
+        p[name] = {"conv": _conv_t(sd, f"{name}.conv"), "norm": _norm(sd, f"{name}.norm")}
+    p["final"] = _conv(sd, "final")
     return p

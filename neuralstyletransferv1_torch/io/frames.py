@@ -1,18 +1,50 @@
-"""Streaming video IO: decode and encode on background threads, so host
-video IO overlaps device compute and no frame files are written.
+"""Host-side frame and video IO: image loading, extract → frame files →
+assemble, and the streaming decode/encode threads.
 
-The port's copy of the streaming part of the JAX engine's ``io/frames.py``
-(the port imports nothing of the JAX package): the same fps selection by
-timestamp, long-side Lanczos scale, canvas fit+pad with black bars, and
-output-clock resampling by forward duplicate/drop. OpenCV is imported
-lazily, only by a video job.
+The port's copy of the JAX engine's ``io/frames.py`` (the port imports
+nothing of the JAX package). Extraction and assembly run ffmpeg's filter
+graphs (Lanczos scale, canvas fit+pad, fps select, libx264 yuv420p) when
+the ``ffmpeg`` binary is on PATH, else OpenCV with the same semantics. The
+streaming path decodes and encodes on background threads, so host video IO
+overlaps device compute and no frame files are written: the same fps
+selection by timestamp, long-side Lanczos scale, canvas fit+pad with black
+bars, and output-clock resampling by forward duplicate/drop. OpenCV and PIL
+are imported lazily, by the functions that use them.
 """
 
 from __future__ import annotations
 
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
+
+
+def have_ffmpeg() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def load_image_exif_rgb(path: str):
+    """PIL load with the reference's manual EXIF rotation (only orientations
+    3, 6 and 8), as RGB."""
+    from PIL import ExifTags, Image
+
+    img = Image.open(path)
+    exif = getattr(img, "_getexif", lambda: None)()
+    orientation = None
+    if exif:
+        for tag, value in exif.items():
+            if ExifTags.TAGS.get(tag) == "Orientation":
+                orientation = value
+                break
+    if orientation == 3:
+        img = img.rotate(180, expand=True)
+    elif orientation == 6:
+        img = img.rotate(270, expand=True)
+    elif orientation == 8:
+        img = img.rotate(90, expand=True)
+    return img.convert("RGB")
 
 
 def _fit_scale_pad(frame_bgr: np.ndarray, scale: int | None,
@@ -41,6 +73,173 @@ def _fit_scale_pad(frame_bgr: np.ndarray, scale: int | None,
             nw = int(round(w * scale / h / 2)) * 2
         return cv2.resize(frame_bgr, (nw, nh), interpolation=cv2.INTER_LANCZOS4)
     return frame_bgr
+
+
+def _src_fps(input_video: Path) -> float:
+    import cv2
+
+    cap = cv2.VideoCapture(str(input_video))
+    fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    cap.release()
+    return float(fps)
+
+
+def _verify_frames(frames_dir: Path, ext: str) -> int:
+    """PIL-verify every extracted frame; returns their count."""
+    from PIL import Image
+
+    n = 0
+    for frame_path in sorted(frames_dir.glob(f"frame_*.{ext}")):
+        with Image.open(frame_path) as img:
+            img.verify()
+        n += 1
+    return n
+
+
+def _extract_frames_ffmpeg(input_video: Path, frames_dir: Path, fps: int | None,
+                           scale: int | None, img_ext: str, jpeg_quality: int,
+                           canvas_wh: tuple[int, int] | None, max_frames: int | None) -> float:
+    """The reference's ffmpeg extraction graph."""
+    vf_parts: list[str] = []
+    if canvas_wh:
+        cw, ch = canvas_wh
+        vf_parts.append(f"scale={cw}:{ch}:flags=lanczos:force_original_aspect_ratio=decrease")
+        vf_parts.append(f"pad={cw}:{ch}:(ow-iw)/2:(oh-ih)/2:color=black")
+    elif scale:
+        vf_parts.append(f"scale='if(gte(iw,ih),{scale},-2)':'if(gte(ih,iw),{scale},-2)'"
+                        ":flags=lanczos")
+    if fps:
+        vf_parts.append(f"fps={fps}")
+    ext = "png" if img_ext.lower() == "png" else "jpg"
+    cmd = ["ffmpeg", "-y", "-i", str(input_video)]
+    if vf_parts:
+        cmd += ["-vf", ",".join(vf_parts)]
+    if max_frames:
+        cmd += ["-frames:v", str(max_frames)]
+    if ext == "jpg":
+        # mjpeg qscale is 2 (best) .. 31, mapped from the 0-100 quality knob
+        q = max(2, min(31, round(2 + (100 - int(jpeg_quality)) * 29 / 98)))
+        cmd += ["-c:v", "mjpeg", "-q:v", str(q), "-pix_fmt", "yuvj420p"]
+    cmd += [str(frames_dir / f"frame_%04d.{ext}")]
+    subprocess.run(cmd, check=True, capture_output=True)
+    if _verify_frames(frames_dir, ext) == 0:
+        raise RuntimeError(f"no frames extracted from {input_video}")
+    return _src_fps(input_video)
+
+
+def extract_frames(input_video: Path, frames_dir: Path, fps: int | None, scale: int | None,
+                   img_ext: str, jpeg_quality: int, canvas_wh: tuple[int, int] | None = None,
+                   max_frames: int | None = None) -> float:
+    """Decode a video into ``frame_%04d.{ext}`` files; returns the source fps.
+    With ``fps`` set, frames are picked by timestamp to hit the target rate
+    (ffmpeg's fps-filter semantics). ffmpeg when available, else OpenCV."""
+    import cv2
+
+    frames_dir.mkdir(parents=True, exist_ok=True)
+    if have_ffmpeg():
+        try:
+            return _extract_frames_ffmpeg(input_video, frames_dir, fps, scale, img_ext,
+                                          jpeg_quality, canvas_wh, max_frames)
+        except (subprocess.CalledProcessError, OSError) as e:
+            print(f"[frames][WARN] ffmpeg extraction failed ({e}); falling back to OpenCV")
+
+    cap = cv2.VideoCapture(str(input_video))
+    if not cap.isOpened():
+        raise RuntimeError(f"cannot open video: {input_video}")
+    src_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+    ext = "png" if img_ext.lower() == "png" else "jpg"
+    out_idx = in_idx = 0
+    next_t = 0.0
+    step = (1.0 / fps) if fps else None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        t = in_idx / src_fps
+        in_idx += 1
+        if step is not None:
+            if t + 1e-9 < next_t:
+                continue
+            next_t += step
+        out_idx += 1
+        frame = _fit_scale_pad(frame, scale, canvas_wh)
+        path = frames_dir / f"frame_{out_idx:04d}.{ext}"
+        if ext == "jpg":
+            cv2.imwrite(str(path), frame, [cv2.IMWRITE_JPEG_QUALITY, int(jpeg_quality)])
+        else:
+            cv2.imwrite(str(path), frame)
+        if max_frames and out_idx >= max_frames:
+            break
+    cap.release()
+    _verify_frames(frames_dir, ext)
+    if out_idx == 0:
+        raise RuntimeError(f"no frames extracted from {input_video}")
+    return float(src_fps)
+
+
+def _assemble_video_ffmpeg(frames_dir: Path, output_video: Path, framerate_in: float,
+                           fps_out: float | None, pattern_prefix: str) -> int:
+    """The reference's ffmpeg assembly command."""
+    jpgs = sorted(frames_dir.glob(f"{pattern_prefix}_*.jpg"))
+    pngs = sorted(frames_dir.glob(f"{pattern_prefix}_*.png"))
+    if jpgs:
+        pattern, n_in = frames_dir / f"{pattern_prefix}_%04d.jpg", len(jpgs)
+    elif pngs:
+        pattern, n_in = frames_dir / f"{pattern_prefix}_%04d.png", len(pngs)
+    else:
+        raise RuntimeError(f"no {pattern_prefix}_* frames in {frames_dir}")
+    cmd = ["ffmpeg", "-y", "-framerate", str(framerate_in), "-i", str(pattern)]
+    if fps_out:
+        cmd += ["-r", str(fps_out)]
+    cmd += ["-c:v", "libx264", "-pix_fmt", "yuv420p", str(output_video)]
+    subprocess.run(cmd, check=True, capture_output=True)
+    if fps_out and abs(float(fps_out) - float(framerate_in)) > 1e-6:
+        return max(1, int(round(n_in / framerate_in * fps_out)))
+    return n_in
+
+
+def assemble_video(frames_dir: Path, output_video: Path, framerate_in: float,
+                   fps_out: float | None, pattern_prefix: str = "styled_frame") -> int:
+    """A frame sequence → H.264 mp4. ``framerate_in`` paces the frames;
+    ``fps_out`` resamples the output timeline (ffmpeg ``-framerate in -r
+    out``; OpenCV duplicates or drops frames onto the output clock).
+    Returns the frames written."""
+    import cv2
+
+    output_video.parent.mkdir(parents=True, exist_ok=True)
+    if have_ffmpeg():
+        try:
+            return _assemble_video_ffmpeg(frames_dir, output_video, framerate_in, fps_out,
+                                          pattern_prefix)
+        except (subprocess.CalledProcessError, OSError) as e:
+            print(f"[frames][WARN] ffmpeg assembly failed ({e}); falling back to OpenCV")
+
+    files = sorted(list(frames_dir.glob(f"{pattern_prefix}_*.jpg"))
+                   + list(frames_dir.glob(f"{pattern_prefix}_*.png")))
+    if not files:
+        raise RuntimeError(f"no {pattern_prefix}_* frames in {frames_dir}")
+    h, w = cv2.imread(str(files[0])).shape[:2]
+    out_fps = float(fps_out or framerate_in)
+    for fourcc_name in ("avc1", "mp4v"):
+        writer = cv2.VideoWriter(str(output_video), cv2.VideoWriter_fourcc(*fourcc_name),
+                                 out_fps, (w, h))
+        if writer.isOpened():
+            break
+    if not writer.isOpened():
+        raise RuntimeError("no usable mp4 encoder in OpenCV build")
+    n_out = 0
+    if fps_out and abs(out_fps - framerate_in) > 1e-6:
+        total_out = max(1, int(round(len(files) / framerate_in * out_fps)))
+        for k in range(total_out):
+            src = min(len(files) - 1, int(k / out_fps * framerate_in))
+            writer.write(cv2.imread(str(files[src])))
+            n_out += 1
+    else:
+        for f in files:
+            writer.write(cv2.imread(str(f)))
+            n_out += 1
+    writer.release()
+    return n_out
 
 
 class VideoFrameStream:

@@ -5,7 +5,11 @@ Each replaces one Pallas kernel of ``neuralstyletransferv1_tpu/models/
 s2d2_sites_i8.py``. K2–K5 and K8 are one operation — a 3×3 conv of int8
 codes with int32 accumulation, over a 1-pixel halo (``"reflect"`` for the
 residual and head sites, ``"edge"`` for the decoder sites) — between
-different prologues and epilogues:
+different prologues and epilogues. K2 and K3 also take the zero halo of
+the NST net's zero-padded convs (``halo="zero"``), with ``sw``: the content
+width of a grid padded up to an aligned width, beyond which K2 zeroes its
+input codes and its output codes and K3 its output codes (``_quant_zero``
+and the S8OUT mask of the TPU kernels), so no padding column enters a dot:
 
   K2  ``res_site_s8o``  quantize bf16 x → conv → bf16 → emit s8 codes ≥ 0
                         (``res_site_s8o`` / ``_site_kernel_s8o``)
@@ -70,7 +74,9 @@ from ..ops.conv import conv2d_i8
 _SOURCE = "int8_sites.cu"
 LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
             "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
-HALOS = {"reflect": 0, "edge": 1}
+HALOS = {"reflect": 0, "edge": 1, "zero": 2}
+#: the halos of K4, K5 and K8 (their zero forms are not ported)
+HALOS_RE = ("reflect", "edge")
 KERNEL_C = (64, 128)  # input channel counts of the stride-1 3×3 kernels
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block of the __dp4a core
@@ -123,10 +129,10 @@ def _emit(f: torch.Tensor, qa: torch.Tensor, qc: torch.Tensor, qlo: float) -> to
 
 
 def _halo(q: torch.Tensor, halo: str) -> torch.Tensor:
-    """1-pixel halo around NHWC codes (float64, exact): pixel reflect or edge
-    copy. Quantize is pointwise, so haloing the codes equals quantizing the
-    haloed input."""
-    mode = {"reflect": "reflect", "edge": "replicate"}[halo]
+    """1-pixel halo around NHWC codes (float64, exact): pixel reflect, edge
+    copy or zero codes. Quantize is pointwise, so haloing the codes equals
+    quantizing the haloed input."""
+    mode = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}[halo]
     return F.pad(q.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
 
 
@@ -143,16 +149,32 @@ def _sums(fv: torch.Tensor) -> torch.Tensor:
     return torch.stack([f.sum(dim=(1, 2)), f.square().sum(dim=(1, 2))], dim=1).float()
 
 
-def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
+def _check_sw(kernel, halo, sw, w):
+    if sw is not None and (halo != "zero" or not 0 < sw <= w):
+        raise ValueError(f"{kernel}: sw={sw} needs the zero halo and 0 < sw <= W={w}")
+
+
+def _mask_sw(q: torch.Tensor, sw: int | None) -> torch.Tensor:
+    """Zero the codes of the columns >= sw (none when sw is None)."""
+    if sw is None or sw >= q.shape[2]:
+        return q
+    q = q.clone()
+    q[:, :, sw:] = 0
+    return q
+
+
+def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect", sw=None):
     """K2's plain version → s8 codes [B,H,W,CO]."""
-    fv = _conv_dequant(_quantize(x.float(), a, c, lo), wk, ws, bias, halo)
-    return _emit(fv, qa, qc, 0.0)
+    _check_sw("res_site_s8o", halo, sw, x.shape[2])
+    fv = _conv_dequant(_mask_sw(_quantize(x.float(), a, c, lo), sw), wk, ws, bias, halo)
+    return _mask_sw(_emit(fv, qa, qc, 0.0), sw)
 
 
 def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
-                  qlo=0.0, halo="reflect"):
+                  qlo=0.0, halo="reflect", sw=None):
     """K3's plain version → bf16 [B,H,W,CO], or s8 codes when ``qa``/``qc``
-    are given."""
+    are given (zero in the columns >= ``sw``)."""
+    _check_sw("site_s8", halo, sw, xq.shape[2])
     fv = _conv_dequant(xq, wk, ws, bias, halo)
     if aa is not None:
         fv = (fv.float() * aa + ac).to(torch.bfloat16)
@@ -161,7 +183,7 @@ def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=N
         if yaff is not None:
             yv = torch.clamp(yv * yaff[0] + yaff[1], min=0.0).to(torch.bfloat16).float()
         fv = (fv.float() + yv).to(torch.bfloat16)
-    return fv if qa is None else _emit(fv, qa, qc, qlo)
+    return fv if qa is None else _mask_sw(_emit(fv, qa, qc, qlo), sw)
 
 
 def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
@@ -227,9 +249,9 @@ def _lib():
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [I] * 5  # B, H, W, C, CO
     sigs = {
-        "res_site_s8o_launch": [P] * 9 + dims + [Fl, I, P],
-        "site_s8_launch": [P] * 12 + dims + [I, Fl, I, P],
-        "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, P],
+        "res_site_s8o_launch": [P] * 9 + dims + [Fl, I, I, P],
+        "site_s8_launch": [P] * 12 + dims + [I, Fl, I, I, P],
+        "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, I, P],
         "res_site_launch": [P] * 9 + dims + [Fl, I, P],
         "res_site_prev_launch": [P] * 9 + dims + [Fl, I, P],
         "res_site_skip_launch": [P] * 13 + dims + [Fl, I, P],
@@ -256,7 +278,7 @@ def _check(kernel, name, t, dtype, shape, dev):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C):
+def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C, halos=HALOS_RE):
     """Validate the shared operands; returns (dev, B, H, W, C, CO)."""
     dev = x.device
     if dev.type != "cuda":
@@ -271,8 +293,8 @@ def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C):
         raise ValueError(f"{kernel}: CO={CO} is not a multiple of {CO_TILE}")
     if H < 2 or W < 2:
         raise ValueError(f"{kernel}: H={H}, W={W}: the halo needs at least 2 pixels")
-    if halo not in HALOS:
-        raise ValueError(f"{kernel}: halo {halo!r} not in {tuple(HALOS)}")
+    if halo not in halos:
+        raise ValueError(f"{kernel}: halo {halo!r} not in {tuple(halos)}")
     _check(kernel, "weights", wk, torch.int32, (9, C // 4, CO), dev)
     _check(kernel, "ws", ws, torch.float32, (CO,), dev)
     _check(kernel, "bias", bias, torch.float32, (CO,), dev)
@@ -301,14 +323,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
+def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect", sw=None):
     """K2: quantize x (a, c, lo) → 3×3 int8 conv → bf16(acc·ws + bias) →
     s8 codes clamp(round(f·qa + qc), 0, 127) [B,H,W,CO]: the next site's
-    input, its norm and ReLU folded into qa, qc and the floor."""
+    input, its norm and ReLU folded into qa, qc and the floor. ``sw`` (zero
+    halo only): the codes of x and of the output in columns >= sw are 0."""
     if x.device.type == "cpu":
-        return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, halo=halo)
+        return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, halo=halo, sw=sw)
     k = "res_site_s8o"
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo)
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, halos=tuple(HALOS))
+    _check_sw(k, halo, sw, W)
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
@@ -318,36 +342,39 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect"):
     with torch.cuda.device(dev):
         _run(k, _lib().res_site_s8o_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(),
-             out.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
+             out.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], sw or W, _stream(dev))
     return out
 
 
 def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
-            qlo=0.0, halo="reflect"):
+            qlo=0.0, halo="reflect", sw=None):
     """K3: 3×3 int8 conv of s8 codes → f = bf16(acc·ws + bias); then
     f = bf16(f·aa + ac) with the frozen affine (aa, ac); f = bf16(f + y) with
     the residual y [B,H,W,CO] (CO == C), itself first replaced by
     bf16(max(y·ya + yc, 0)) when ``yaff`` = (ya, yc); returns bf16 f, or the
-    s8 codes clamp(round(f·qa + qc), qlo, 127) when ``qa``/``qc`` are given.
-    Rows are [CO] f32. On the card: the int8 tensor-core core."""
+    s8 codes clamp(round(f·qa + qc), qlo, 127) when ``qa``/``qc`` are given,
+    zero in the columns >= ``sw`` (zero halo only). Rows are [CO] f32. On
+    the card: the int8 tensor-core core."""
     if xq.device.type == "cpu":
         return site_s8_plain(xq, wk, ws, bias, aa, ac, y, yaff=yaff, qa=qa, qc=qc, qlo=qlo,
-                             halo=halo)
-    return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo)
+                             halo=halo, sw=sw)
+    return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo,
+                    sw)
 
 
 def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
-                 qlo=0.0, halo="reflect"):
+                 qlo=0.0, halo="reflect", sw=None):
     """K3 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
     times it beside ``site_s8``. Nothing on the main path calls it, and it
     counts no launch."""
     return _site_s8("site_s8_prev_launch", False, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
-                    qlo, halo)
+                    qlo, halo, sw)
 
 
-def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo):
+def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw):
     k = "site_s8"
-    dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo)
+    dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS))
+    _check_sw(k, halo, sw, W)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
     _check_aligned(k, "xq", xq)
     flags = 0
@@ -378,7 +405,7 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo):
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
-             _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo],
+             _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo], sw or W,
              _stream(dev), count=count)
     return out
 

@@ -330,10 +330,11 @@ def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
 def _qc(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float, site: Site,
         halo: str) -> torch.Tensor:
     """One int8 site as the JAX engine's ``_qc`` runs it through XLA:
-    q = clamp(round(x·a + c), lo, 127) over a 1-pixel halo → exact int8 conv
-    → bf16(acc·ws + bias). a, c: [B,C] quantize rows."""
+    q = clamp(round(x·a + c), lo, 127) over a 1-pixel halo (reflect, edge or
+    zero codes) → exact int8 conv → bf16(acc·ws + bias). a, c: [B,C]
+    quantize rows."""
     q = torch.clamp(torch.round(x.float() * a[:, None, None, :] + c[:, None, None, :]), lo, 127.0)
-    mode = {"reflect": "reflect", "edge": "replicate"}[halo]
+    mode = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}[halo]
     q = F.pad(q.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
     acc = conv2d_i8(q, k8.unpack_weights(site.wk))
     return (acc.float() * site.ws + site.bias).to(torch.bfloat16)

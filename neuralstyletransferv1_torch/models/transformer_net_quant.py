@@ -139,18 +139,22 @@ def quantize_net(net: TransformerNet, act_scales: dict, io_preset: str | None = 
     weights ``w`` (HWIO), the dequant row ``ws`` = w_scale·A/127 and the
     input quantizer ``qin`` = 127/A, in the JAX code's numpy arithmetic.
     ``io_preset``: the slot's preset, baked into d3's weights."""
-    q = {}
-    for site in act_scales:
-        w = _site_weight(net, site, io_preset)
-        ws = np.maximum(np.max(np.abs(w), axis=(0, 1, 2)) / 127.0, 1e-12)
-        wq = np.clip(np.round(w / ws), -127, 127).astype(np.int8)
-        a = max(float(act_scales[site]), 1e-6)
-        q[site] = {
-            "w": torch.from_numpy(wq),
-            "ws": torch.from_numpy(np.asarray(ws * (a / 127.0), np.float32)),
-            "qin": float(np.float32(127.0 / a)),
-        }
-    return q
+    return {site: quantize_site(_site_weight(net, site, io_preset), act_scales[site])
+            for site in act_scales}
+
+
+def quantize_site(w: np.ndarray, act_scale: float) -> dict:
+    """One site's ``quant`` entry (``s2d2_sites_i8.quantize_site``): HWIO f32
+    weights ``w`` → symmetric per-output-channel int8 ``w``, ``ws`` and
+    ``qin`` for the activation scale ``act_scale``."""
+    ws = np.maximum(np.max(np.abs(w), axis=(0, 1, 2)) / 127.0, 1e-12)
+    wq = np.clip(np.round(w / ws), -127, 127).astype(np.int8)
+    a = max(float(act_scale), 1e-6)
+    return {
+        "w": torch.from_numpy(wq),
+        "ws": torch.from_numpy(np.asarray(ws * (a / 127.0), np.float32)),
+        "qin": float(np.float32(127.0 / a)),
+    }
 
 
 def default_sites(static: bool) -> tuple:

@@ -491,3 +491,119 @@ def test_below_gate_int8_sites_run_on_card(cuda_device, quantize):
     torch.cuda.synchronize()
     assert k8.LAUNCHES == before
     assert float((got.cpu() - ref).abs().mean()) <= 5e-2
+
+
+# the NST chain's zero-halo, sw-masked forms at ragged shapes: (B, H, W, C,
+# CO, sw) — the content width sw under the %8-padded W, a ragged sw (29 of
+# 32), partial 8×16 tiles, and the aligned control without a mask
+_ZERO_SW_SHAPES = [(1, 13, 32, 128, 128, 29), (3, 9, 40, 128, 128, 36),
+                   (2, 19, 24, 64, 64, 21), (1, 16, 48, 128, 128, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,sw", _ZERO_SW_SHAPES)
+def test_k2_k3_zero_halo_sw_match_plain_on_card(cuda_device, b, h, w, c, co, sw):
+    """K2 and K3 with the zero halo and the content-width mask sw against
+    their plain versions: codes and bf16 bit-identical (K3 as the NST chain
+    runs it — frozen affine + residual — and with the s8 emit); two launches
+    bit-identical; the previous ``__dp4a`` core of K3 agrees; the masked
+    columns' codes are 0."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + w)
+    x = t["x"].repeat(2, 1, 1, 1)[:b].contiguous()
+    a, cc = t["a"].repeat(2, 1)[:b].contiguous(), t["c"].repeat(2, 1)[:b].contiguous()
+    kargs = (x, a, cc, -127.0, t["w"], t["ws"], t["bias"], t["qa"], t["qc"])
+    before = dict(k8.LAUNCHES)
+    q = k8.res_site_s8o(*kargs, halo="zero", sw=sw)
+    assert torch.equal(q, k8.res_site_s8o(*kargs, halo="zero", sw=sw))
+    assert torch.equal(q, k8.res_site_s8o_plain(*kargs, halo="zero", sw=sw))
+    if sw is not None:
+        assert not q[:, :, sw:].any()
+    y = torch.randn((b, h, w, co), device=cuda_device).to(torch.bfloat16)
+    aa, ac = t["qa"] / 40, t["qc"] / 40
+    forms = [dict(aa=aa, ac=ac, y=y), dict(aa=aa, ac=ac, y=y, qa=t["qa"] / 4, qc=t["qc"],
+                                           qlo=-127.0), dict(qa=t["qa"] / 4, qc=t["qc"])]
+    for kw in forms:
+        args = (q, t["w"], t["ws"], t["bias"])
+        o = k8.site_s8(*args, halo="zero", sw=sw, **kw)
+        ref = k8.site_s8_plain(*args, halo="zero", sw=sw, **kw)
+        assert torch.equal(o, ref), sorted(kw)
+        assert torch.equal(o, k8.site_s8(*args, halo="zero", sw=sw, **kw))
+        assert torch.equal(k8.site_s8_prev(*args, halo="zero", sw=sw, **kw), ref)
+        if "qa" in kw and sw is not None:
+            assert not o[:, :, sw:].any()
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["res_site_s8o"] - before["res_site_s8o"] == 2
+    assert k8.LAUNCHES["site_s8"] - before["site_s8"] == 2 * len(forms)
+
+
+@pytest.mark.cuda
+def test_zero_halo_reaches_only_k2_k3(cuda_device):
+    """K4, K5 and K8 keep their reflect/edge forms: a zero halo raises."""
+    t = _int8_inputs(cuda_device, 128, 128)
+    with pytest.raises(ValueError, match="halo"):
+        k8.res_site(t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"], halo="zero")
+    with pytest.raises(ValueError, match="sw="):
+        k8.site_s8(t["codes"], t["w"], t["ws"], t["bias"], halo="reflect", sw=8)
+
+
+# the stylize each NST mode is gated against, with the same norms (as
+# tests/test_static_norm.py gates the JAX NST int8_static)
+_NST_BASE = {"int8_static": "bf16_static", "int8": "none"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize,launches", [("int8_static", 5), ("int8", 0), ("none", 0)])
+def test_nst_stylize_card_vs_cpu(cuda_device, quantize, launches):
+    """An NST slot through ``jit_stylizer`` (bf16) at 48×64 (res grid 32 ×
+    36, sw = 36) on the card: int8_static launches K2 and K3 five times
+    each; a quantized stylize is within the 1e-2 gate of the card's bf16
+    stylize with the same norms; against the CPU path within 1e-2 unquantized
+    and 5e-2 quantized — cuDNN's and the CPU's bf16 convs differ by ulps,
+    which flip int8 codes that this random net amplifies (the chain itself
+    is bit-identical, ``test_nst_s8_chain_card_vs_cpu``)."""
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    model = tst.make_random_model("nst", seed=2)
+    x = torch.from_numpy(np.random.default_rng(5).random((2, 48, 64, 3), np.float32))
+    ref = tst.jit_stylizer(model, dtype=torch.bfloat16, quantize=quantize)(x)
+    card = _on(model, cuda_device)
+    before = dict(k8.LAUNCHES)
+    got = tst.jit_stylizer(card, dtype=torch.bfloat16, quantize=quantize)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in k8.LAUNCHES.items() if v != before[k]} == (
+        {"res_site_s8o": launches, "site_s8": launches} if launches else {})
+    assert float((got.cpu() - ref).abs().mean()) <= (1e-2 if quantize == "none" else 5e-2)
+    assert float(got.std()) > 0.05
+    if quantize in _NST_BASE:
+        base = tst.jit_stylizer(card, dtype=torch.bfloat16, quantize=_NST_BASE[quantize])(
+            x.to(cuda_device))
+        assert float((got - base).abs().mean()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_nst_s8_chain_card_vs_cpu(cuda_device):
+    """The NST int8_static res chain (5 × K2 + 5 × K3, zero halo, the res
+    width 36 padded to 40 with sw = 36) on the card and on the CPU from one
+    res-chain input and one calibration: bit-identical."""
+    import copy
+
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.models import transformer_net_nst_fast as nstf
+
+    net = tst.make_random_model("nst", seed=3).net
+    x = torch.from_numpy(np.random.default_rng(6).random((2, 48, 64, 3), np.float32))
+    stats = nstf.calibrate_in_stats(net, x[:1])
+    quant = nstf.quantize_net(net, nstf.calibrate_act_scales(net, x[:1], static_stats=stats))
+    nb = copy.deepcopy(net).to(torch.bfloat16)
+    grab = {}
+    with torch.no_grad():
+        nstf.apply(nb, x.to(torch.bfloat16), static_stats=stats,
+                   tap=lambda site, t: grab.setdefault(site, t.contiguous()))
+        outs = []
+        for d in (cuda_device, torch.device("cpu")):
+            net_d = copy.deepcopy(nb).to(d)
+            st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+            outs.append(nstf.res_chain_s8_static(grab["r1a"].to(d), net_d,
+                                                 nstf.prepare_sites(net_d, quant, d), st_d).cpu())
+    assert grab["r1a"].shape == (2, 32, 36, 128)
+    assert torch.equal(*outs)

@@ -133,15 +133,17 @@ def test_cli_main_matches_jax(tmp_path):
 
 
 def test_unported_flags_raise():
-    for extra in (["--frame_batch", "1"], ["--stream", "off"], ["--region_mode", "grid"],
+    for extra in (["--region_mode", "grid"],
                   ["--mask", "m.png"], ["--blend_models_lab"], ["--quantize", "int8"],
                   ["--quantize", "bf16_static"],
                   ["--mesh_devices", "2"], ["--flow_method", "farneback"],
-                  ["--inference_res", "64"], ["--model_b", "b.t7"],
+                  ["--profile_dir", "p"], ["--model_b", "b.t7"],
                   ["--model_type", "reconet"]):
         args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
             tpipe.check_supported(args)
-    with pytest.raises(NotImplementedError, match="image modes"):
+    # the image modes run (tests/test_torch_per_frame.py); their unported
+    # flags raise before any work
+    with pytest.raises(NotImplementedError, match="item 4"):
         tpipe.main(["--input_image", "a.png", "--output_image", "b.png", "--model", str(CKPT),
-                    "--device", "cpu"])
+                    "--mask", "m.png", "--device", "cpu"])
