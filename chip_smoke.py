@@ -127,19 +127,32 @@ SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
                "d3": (B, H // 2, W // 2, 128, 64, None),
                # the NST_Train res grid: the frame reflect-padded by 40, /4
                # (290 × 500), its width zero-padded to %8 with sw = 500
-               "nst": (B, (H + 80) // 4, ((W + 80) // 4 + 7) // 8 * 8, 128, 128, "zero")}
+               "nst": (B, (H + 80) // 4, ((W + 80) // 4 + 7) // 8 * 8, 128, 128, "zero"),
+               # ReCoNet: its res grid at 192 channels, d1 192 -> 4·96 at the
+               # same grid, d2 96 -> 4·48 at twice it (1080 % 8 = 0, 1920 % 32
+               # = 0: the int8 modes do not pad the frame)
+               "reco_res": (B, H // 4, W // 4, 192, 192, "reflect"),
+               "reco_d1": (B, H // 4, W // 4, 192, 384, "edge"),
+               "reco_d2": (B, H // 2, W // 2, 96, 192, "edge")}
 SITE_SW = {"nst": (W + 80) // 4}
 _SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
 # K2-K8b: the (shape, form) cases each runs on the main path, and the TPU
 # kernel it replaces. K3's forms: "aff_add" (frozen affine + residual),
 # "yaff" (+ the raw residual's frozen affine and ReLU), "emit" (+ the s8 emit
-# at floor -127: the bridge into d1), "s8out" (the s8 decoder's d1/d2)
+# at floor -127: the bridge into d1), "s8out" (the s8 decoder's d1/d2).
+# ReCoNet's forms: K2 "in" (emit floor 0) and "frn" (the tau floor, qlo -127);
+# K4 "tau" (the TLU floor, floor -127); K5 "relu" / "tau" (the post-add
+# activation)
 INT8_KERNELS = {
-    "res_site_s8o": ((("res", ""), ("nst", "")), f"{_SITES_I8}:507"),
+    "res_site_s8o": ((("res", ""), ("nst", ""), ("reco_res", "in"), ("reco_res", "frn")),
+                     f"{_SITES_I8}:507"),
     "site_s8": ((("res", "aff_add"), ("res", "yaff"), ("res", "emit"), ("d1", "s8out"),
-                 ("d2", "s8out"), ("nst", "aff_add")), f"{_SITES_I8}:670"),
-    "res_site": ((("res", ""), ("d1", ""), ("d2", "")), f"{_SITES_I8}:139"),
-    "res_site_skip": ((("res", ""), ("d1", "")), f"{_SITES_I8}:299"),
+                 ("d2", "s8out"), ("nst", "aff_add"), ("reco_res", "aff_add")),
+                f"{_SITES_I8}:670"),
+    "res_site": ((("res", ""), ("d1", ""), ("d2", ""), ("reco_res", ""), ("reco_res", "tau"),
+                  ("reco_d1", ""), ("reco_d2", "tau")), f"{_SITES_I8}:139"),
+    "res_site_skip": ((("res", ""), ("d1", ""), ("reco_res", "relu"), ("reco_res", "tau")),
+                      f"{_SITES_I8}:299"),
     "c2_site": ((("c2", ""),), f"{_SITES_I8}:1147"),
     "c3_site": ((("c3", ""),), f"{_SITES_I8}:1271"),
     "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
@@ -178,8 +191,17 @@ SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3"}
 # nst_static = res_i8, res_s8 the s8 chain) and their site launches a batch
 NST_SLICES = ("none", "bf16_static", "int8", "int8_static")
 NST_PER_BATCH = {"int8_static": {"res_site_s8o": 5, "site_s8": 5}}
-# the stylize each NST slice's quality is held against (as the JAX tests do)
+# the stylize each NST or ReCoNet slice's quality is held against (as the JAX
+# tests do)
 NST_BASE = {"int8": "none", "int8_static": "bf16_static", "bf16_static": "none"}
+# the ReCoNet slices, (--quantize, FRN net), and their site launches a batch
+# (adopted sets: reco = res_i8, dec_i8 with reco_skip: 7 × K4 + 3 × K5;
+# reco_static = res_i8, res_s8, dec_i8: 4 × K2 + 4 × K3 + 2 × K4)
+RECO_SLICES = (("none", False), ("bf16_static", False), ("int8", False), ("int8_static", False),
+               ("int8", True), ("int8_static", True))
+RECO_PER_BATCH = {"int8": {"res_site": 7, "res_site_skip": 3},
+                  "int8_static": {"res_site_s8o": 4, "site_s8": 4, "res_site": 2}}
+RECO_CROP = (256, 480)        # the int8_static chains card vs CPU: a 64 × 120 res grid
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
@@ -320,8 +342,11 @@ def k1_phase(dev):
 
 def site_inputs(dev, b, h, w, c, co, seed):
     """Random operands of an int8 site at realistic scales: codes span the
-    int8 range, f = acc·ws + bias is O(1). Also deconv3's tap-packed 1×5
-    weights (60 lanes padded to 64), dequant row and 12-lane bias."""
+    int8 range, f = acc·ws + bias is O(1); the TLU floors of ReCoNet's forms
+    on their operands' scales (``tau`` on x·a + c, ``tau_act`` on v,
+    ``tauo`` on f·qa + qc), biting on a share of them. Also deconv3's
+    tap-packed 1×5 weights (60 lanes padded to 64), dequant row and 12-lane
+    bias."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
@@ -344,9 +369,12 @@ def site_inputs(dev, b, h, w, c, co, seed):
         "y": rnd(b, h, w, c).to(torch.bfloat16),
         "a": rnd(b, c, scale=35.0, lo=5.0), "c": rnd(b, c, scale=8.0),
         "a2": rnd(b, c, scale=1.0, lo=0.5), "c2": rnd(b, c, scale=0.3),
-        "wk": k8.pack_weights(codes(3, 3, c, co)), "ws": rnd(co, scale=1.5e-5, lo=0.5e-5),
+        "wk": k8.pack_weights(codes(3, 3, c, co)),
+        "ws": rnd(co, scale=1.5e-5, lo=0.5e-5) * (1.0 if c <= 128 else (128 / c) ** 0.5),
         "bias": rnd(co, scale=0.2), "qa": rnd(co, scale=50.0, lo=10.0), "qc": rnd(co, scale=10.0),
         "codes": codes(b, h, w, c, lo=0),
+        "tau": rnd(b, c, scale=20.0) - 10.0, "tau_act": rnd(b, c, scale=0.5) - 0.3,
+        "tauo": rnd(co, scale=20.0) - 20.0,
         "wk5": k8.pack_weights(codes(1, 5, c, k8.D3_LANES), co_pad=k8.CO_TILE), "ws5": ws5,
         "bias12": rnd(k8.D3_OUT, scale=0.2),
     }
@@ -363,6 +391,9 @@ def site_calls(name, t, shape, form, prev=False):
     if name == "res_site_s8o":
         args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
         ins, outs = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
+        if form == "frn":
+            kw = dict(qlo=-127.0, tau=t["tauo"])
+            ins += (t["tauo"],)
     elif name == "site_s8":
         aff = (t["qa"] / 40, t["qc"] / 40)
         if form == "s8out":
@@ -378,11 +409,17 @@ def site_calls(name, t, shape, form, prev=False):
     elif name == "res_site":
         args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
         ins = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"])
+        if form == "tau":
+            kw = dict(tau=t["tau"])
+            ins += (t["tau"],)
     elif name == "res_site_skip":
         args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["wk"], t["ws"],
                 t["bias"])
         ins = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"], t["bias"])
-        kw = dict(yout=shape == "res")
+        kw = dict(yout=shape in ("res", "reco_res"))
+        if form:
+            kw.update(act=form, tau_act=t["tau_act"] if form == "tau" else None)
+            ins += (t["tau_act"],) if form == "tau" else ()
     elif name in ("c2_site", "c3_site"):
         args = (t["x"], t["a"], t["c"], 0.0, t["wk"], t["ws"], t["bias"])
         ins, pix = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"]), b * (h // 2) * (w // 2)
@@ -436,6 +473,16 @@ def check_site(name, out, ref, n):
             fail(f"{name}: the kernel's {o.dtype} output is not bit-identical to the plain "
                  f"version's ({int((o != r).sum())} elements differ)")
     return worst
+
+
+def _same(a, b) -> bool:
+    """Two kernel results (a tensor or a tuple, None for an absent output)
+    bit-identical; [Σ, Σ²] included."""
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
 
 
 def kernel_names(fn, top: int = 3) -> list:
@@ -500,15 +547,17 @@ def int8_kernel_phase(dev):
             first = out[0] if isinstance(out, tuple) else out
             n = first.shape[1] * first.shape[2]
             err = check_site(name, out, ref, n)
-            if shape in SITE_SW and not torch.equal(kernel(), out):  # K2 / K3: one tensor
-                fail(f"{name} @ {shape}: two launches on the same inputs differ")
+            if (shape in SITE_SW or shape.startswith("reco")) and not _same(kernel(), out):
+                fail(f"{name} @ {shape}/{form}: two launches on the same inputs differ")
             del out, first
-            if redesigned:
+            # the previous __dp4a core takes the Johnson / NST widths only
+            prev_case = redesigned and not shape.startswith("reco")
+            if prev_case:
                 prev = site_calls(name, t, shape, form, prev=True)[0]
                 check_site(f"{name} (previous core)", prev(), ref, n)
             del ref
             t_plain = dev_time(plain, reps=2)
-            if redesigned:
+            if prev_case:
                 t_k, t_prev = dev_time(kernel), dev_time(prev, reps=3)
                 t_k, t_prev = (t_k + dev_time(kernel)) / 2, (t_prev + dev_time(prev, reps=3)) / 2
             else:
@@ -522,9 +571,10 @@ def int8_kernel_phase(dev):
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
             bound = max(t_bytes, t_ops)
             case = f"{shape}{'/' + form if form else ''}"
-            per = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib, "bound_ms": bound}
-            if redesigned:
-                per.update(prev_ms=t_prev, bound_share=bound / t_k)
+            per = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib, "bound_ms": bound,
+                   "bound_share": bound / t_k}
+            if prev_case:
+                per["prev_ms"] = t_prev
                 rec["prev_ms"] += t_prev
             if shape in SITE_SW:
                 halo = f"{halo}, sw {SITE_SW[shape]}"
@@ -532,8 +582,8 @@ def int8_kernel_phase(dev):
                 f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 conv "
                 f"{t_lib:.4f} ms; bound {bound:.4f} ms "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)" +
-                (f"; previous __dp4a core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel), "
-                 f"kernel at {bound / t_k:.1%} of the bound" if redesigned else ""))
+                (f"; previous __dp4a core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel)"
+                 if prev_case else "") + f"; kernel at {bound / t_k:.1%} of the bound")
             rec["ms"] += t_k
             rec["plain_ms"] += t_plain
             rec["cudnn_bf16_ms"] += t_lib
@@ -543,7 +593,7 @@ def int8_kernel_phase(dev):
                 rec["bound_by"] = "operations"
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             del t, lib, kernel, plain
-            if redesigned:
+            if prev_case:
                 del prev
             torch.cuda.empty_cache()
         if redesigned:
@@ -719,6 +769,60 @@ def ragged_sw_phase(dev):
         del t, q, ref
 
 
+# ReCoNet's forms at ragged shapes (8×16 output tiles, 64-channel blocks at
+# C = 192): (B, H, W, C); at 192 the res forms and d1's 192 -> 384, at 96
+# d2's 96 -> 192
+RAGGED_RECO = ((3, 13, 21, 192), (1, 11, 30, 96))
+
+
+def ragged_reco_phase(dev):
+    """ReCoNet's kernel forms at ragged shapes: K4 (with and without the TLU
+    floor; 192 -> 192 reflect and -> 384 edge, 96 -> 192 edge), K5 (relu,
+    tau), K2 (the IN and FRN emit) and K3 on K2's codes: outputs
+    bit-identical to the plain versions (sums within 1e-5) and two launches
+    bit-identical, sums included."""
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    for i, (b, h, w, c) in enumerate(RAGGED_RECO):
+        co = 192
+        cases = []
+        t = site_inputs(dev, b, h, w, c, co, seed=300 + i)
+        x3 = (t["x"], t["a"], t["c"])
+        for tau in (None, t["tau"]):
+            halo = "reflect" if c == 192 else "edge"
+            cases.append((f"res_site {c}->{co} {halo}{' tau' if tau is not None else ''}",
+                          "res_site", x3 + (-127.0 if tau is not None else 0.0, t["wk"], t["ws"],
+                                            t["bias"]), dict(halo=halo, tau=tau)))
+        if c == 192:
+            t4 = site_inputs(dev, b, h, w, c, 2 * co, seed=310)
+            cases.append(("res_site 192->384 edge", "res_site",
+                          (t4["x"], t4["a"], t4["c"], -127.0, t4["wk"], t4["ws"], t4["bias"]),
+                          dict(halo="edge")))
+            skip = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], -127.0, t["wk"], t["ws"],
+                    t["bias"])
+            cases += [("res_site_skip relu", "res_site_skip", skip, dict(act="relu")),
+                      ("res_site_skip tau", "res_site_skip", skip,
+                       dict(act="tau", tau_act=t["tau_act"]))]
+            s8o = x3 + (-127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
+            cases += [("res_site_s8o in", "res_site_s8o", s8o, {}),
+                      ("res_site_s8o frn", "res_site_s8o", s8o, dict(qlo=-127.0, tau=t["tauo"]))]
+        for label, name, args, kw in cases:
+            out, again = getattr(k8, name)(*args, **kw), getattr(k8, name)(*args, **kw)
+            ref = getattr(k8, f"{name}_plain")(*args, **kw)
+            check_site(f"{name} ragged {b}x{h}x{w}", out, ref, h * w)
+            if not _same(out, again):
+                fail(f"{label} at {b}x{h}x{w}: two launches on the same inputs differ")
+            if name == "res_site_s8o":
+                aff = (t["qa"] / 40, t["qc"] / 40, t["y"])
+                o = k8.site_s8(out, t["wk"], t["ws"], t["bias"], *aff)
+                if not (_same(o, k8.site_s8(out, t["wk"], t["ws"], t["bias"], *aff)) and
+                        _same(o, k8.site_s8_plain(out, t["wk"], t["ws"], t["bias"], *aff))):
+                    fail(f"site_s8 192 on the {label} codes at {b}x{h}x{w}: not bit-identical")
+        log(f"ReCoNet forms at {b}x{h}x{w}x{c}: {', '.join(c_[0] for c_ in cases)}"
+            f"{' (+ site_s8 on each emit)' if c == 192 else ''}: bit-identical to their plain "
+            "versions and across two launches")
+
+
 def reference_phase(dev):
     """The CUDA slice vs the port's CPU path on a small input."""
     import numpy as np
@@ -871,11 +975,14 @@ def read_counts() -> dict:
     return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k9.LAUNCHES}
 
 
-def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None):
+def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
+                reco: tuple | None = None):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
     a --quantize mode and fused-site set, or with a set of bf16 fused sites;
     with ``nst_ckpt``, of that NST_Train checkpoint under the adopted sets;
-    returns the run's launch counts."""
+    with ``reco`` = (checkpoint, frn), of that ReCoNet slot
+    (``--model_type reconet``) under the adopted sets; returns the run's
+    launch counts."""
     import numpy as np
     import torch
 
@@ -883,8 +990,10 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
 
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4",
-            "--model", str(nst_ckpt or CKPT),
+            "--model", str(nst_ckpt or (reco[0] if reco else CKPT)),
             "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16"]
+    if reco is not None:
+        argv += ["--model_type", "reconet"]
     if quantize != "none":
         argv += ["--quantize", quantize]
     args = tpipe.build_parser().parse_args(argv)
@@ -913,6 +1022,9 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     per_batch = PER_BATCH.get((quantize, fused), {})
     if nst_ckpt is not None:
         name, per_batch = f"nst {name}", NST_PER_BATCH.get(quantize, {})
+    if reco is not None:
+        name = f"reco {'frn' if reco[1] else 'in'} {name}"
+        per_batch = RECO_PER_BATCH.get(quantize, {})
     expected = {"dis_iter": levels * N_BATCHES}
     for k in counts:
         if k != "dis_iter":
@@ -950,7 +1062,8 @@ def quant_quality(dev, args, frames, quantize, fused, name):
     against bf16, int8_static against bf16_static (the same frozen norms)
     and bf16_static against bf16, each within the 1e-2 gate; on the slice's
     smooth frames, where this random net amplifies the int8 noise to ~2e-2
-    (PERF.md), within QUANT_BROKEN_TOL."""
+    (PERF.md), within QUANT_BROKEN_TOL. A ReCoNet slot (preset imagenet_01)
+    is held the same way."""
     import numpy as np
     import torch
 
@@ -961,11 +1074,11 @@ def quant_quality(dev, args, frames, quantize, fused, name):
     x = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
     base = "none"
     checks = [(model.io_preset, x, "the slice's frames", QUANT_MAE_TOL)]
-    if model.arch == "nst":
+    if model.arch in ("nst", "reconet"):
         base = NST_BASE[quantize]
         noise = np.random.default_rng(SEED + 9).random(tuple(x.shape), np.float32)
-        checks = [("raw_01", torch.from_numpy(noise).to(dev), "uniform-noise frames",
-                   QUANT_MAE_TOL), ("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL)]
+        checks = [(model.io_preset, torch.from_numpy(noise).to(dev), "uniform-noise frames",
+                   QUANT_MAE_TOL), (model.io_preset, x, "the slice's frames", QUANT_BROKEN_TOL)]
     elif model.io_preset != "raw_01":
         checks.append(("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL))
     for preset, xin, what, bound in checks:
@@ -1186,10 +1299,127 @@ def nst_chain_phase(dev, ckpt: Path):
         fail(f"the NST chain output is {tuple(outs[0].shape)} or not finite")
 
 
+def reco_checkpoint(path: Path, frn: bool) -> Path:
+    """A full-width ReCoNet net (3→48→96→192, 4 res blocks at 192,
+    192→96→48→3; IN or FRN/TLU) from the seed, saved in the reference key
+    layout (``encoder.layers.0.layers.0.layers.1.weight`` …)."""
+    import torch
+
+    from neuralstyletransferv1_torch.models import reconet as rn
+
+    torch.save(rn.init(SEED, frn), path)
+    return path
+
+
+def reco_chain_phase(dev, ckpts: dict):
+    """For the IN and the FRN net: the int8_static chains (the s8 res chain,
+    4 × K2 + 4 × K3, then dec_i8's 2 × K4, frozen norms) on the card and on
+    the CPU (their plain versions) from one res-chain input of a 256×480
+    crop of a 1080p frame (a 64 × 120 res grid) and one calibration:
+    bit-identical; then ``--quantize int8`` on one 1080p batch through
+    ``jit_stylizer`` with ``RECO_SKIP`` 1 and 0: 7 × K4 + 3 × K5 and 10 × K4,
+    the two stylizes bit-identical (the skip fold is exact)."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.models import io_presets as iop
+    from neuralstyletransferv1_torch.models import reconet_fast as rf
+
+    ch, cw = RECO_CROP
+    frame = moving_frames(1, H, W, SEED + 10)[0]
+    batch = torch.from_numpy(np.stack(moving_frames(B, H, W, SEED + 11))).to(dev).float() / 255.0
+    for frn, ckpt in ckpts.items():
+        label = "FRN" if frn else "IN"
+        model = st.load_model(ckpt, model_type="reconet", device=dev)
+        x = iop.preprocess(model.io_preset, torch.from_numpy(frame[None, :ch, :cw]).to(dev)
+                           .float() / 255.0)
+        fp32 = rf.FastReCoNet(model.net)
+        stats = rf.calibrate_in_stats(fp32, x)
+        quant = rf.quantize_net(fp32, rf.calibrate_act_scales(fp32, x, static_stats=stats))
+        fpb = copy.deepcopy(fp32).to(torch.bfloat16)
+        grab = {}
+
+        def tap(site, t):
+            if site == "r0a":
+                grab["y"] = t.contiguous()
+
+        with torch.no_grad():
+            rf.apply(fpb, x.to(torch.bfloat16), tap=tap, static_stats=stats)
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                fpd = copy.deepcopy(fpb).to(d)
+                st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+                sites = rf.prepare_sites(fpd, quant, d)
+                yr = rf.res_chain_s8_static(grab["y"].to(d), fpd, sites, st_d)
+                outs.append((yr.cpu(), rf.dec_i8(yr, fpd, sites, st_d).cpu()))
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        y = grab["y"]
+        log(f"ReCoNet {label} int8_static chains (s8 res chain + dec_i8) on a {ch}x{cw} crop "
+            f"(res grid {y.shape[1]}x{y.shape[2]}), card vs CPU: "
+            f"{'bit-identical' if same else 'DIFFERENT'} (res output and d2 output)")
+        if not same:
+            fail(f"the ReCoNet {label} int8_static chains differ between the card and the CPU")
+        if not all(bool(torch.isfinite(t.float()).all()) for t in outs[0]):
+            fail(f"the ReCoNet {label} chain output is not finite")
+
+        got = {}
+        fn = st.jit_stylizer(model, dtype=torch.bfloat16, quantize="int8")
+        fn(batch[:1])  # calibrates once: both runs take the same int8 sites
+        for skip in ("1", "0"):
+            os.environ["RECO_SKIP"] = skip  # read at every forward
+            try:
+                zero_counts()
+                got[skip] = fn(batch)
+                torch.cuda.synchronize()
+                used = {k: v for k, v in read_counts().items() if v}
+            finally:
+                del os.environ["RECO_SKIP"]
+            want = RECO_PER_BATCH["int8"] if skip == "1" else {"res_site": 10}
+            log(f"ReCoNet {label} --quantize int8, RECO_SKIP={skip}, one 1080p batch: launches "
+                f"{used}, {'as' if used == want else 'NOT as'} expected ({want})")
+            if used != want:
+                fail(f"ReCoNet int8 with RECO_SKIP={skip} launched {used}, not {want}")
+        if not torch.equal(got["1"], got["0"]):
+            fail(f"ReCoNet {label} int8 stylizes with and without RECO_SKIP differ")
+        log(f"ReCoNet {label} int8 stylize with and without RECO_SKIP: bit-identical")
+
+
+def reco_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
+    """main() with a ReCoNet slot (``--model_type reconet``, the FRN net,
+    ``--quantize int8``) on the synthesized 1080p mp4 of ``cli_phase``:
+    every frame written, 7 × K4 + 3 × K5 a batch. Returns the launches."""
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    src, dst = workdir / "in.mp4", workdir / "reco_out.mp4"
+    n = clip_frame_count(src)
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = tpipe.main(["--input_video", str(src), "--output_video", str(dst), "--model", str(ckpt),
+                     "--model_type", "reconet", "--frame_batch", str(B), "--flow_ema",
+                     "--compute_dtype", "bfloat16", "--quantize", "int8",
+                     "--work_dir", str(workdir / "_reco")])
+    secs = time.perf_counter() - t0
+    used = {k: v for k, v in read_counts().items() if v}
+    batches = -(-n // B)
+    want = {k: v * batches for k, v in RECO_PER_BATCH["int8"].items()}
+    got = clip_frame_count(dst)
+    log(f"main() --model_type reconet (FRN) --quantize int8 on a {n}-frame 1080p mp4: rc {rc}, "
+        f"{got} frames written, {secs:.2f} s, launches {used}")
+    if rc != 0 or got != n or {k: used.get(k, 0) for k in want} != want or \
+            not used.get("dis_iter"):
+        fail(f"main() did not style the clip with the ReCoNet slot as expected ({want})")
+    return used
+
+
 def ptxas_report(text: str, k8) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core core's instantiations
-    (mma_kernel<C, prologue, epilogue>: <C, 0, 0> is K4, <C, 2, 2> K3)."""
+    (mma_kernel<C, prologue, epilogue, tau>: <C, 0, 0> is K4, <C, 2, 2> K3;
+    tau 1: K4 with the TLU floor)."""
     import re
 
     name, spill = None, ""
@@ -1204,7 +1434,7 @@ def ptxas_report(text: str, k8) -> None:
             # identifiers, and its int template arguments
             base = next((m.group(2) for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?)(?=[IE]))", name)
                          if len(m.group(2)) == int(m.group(1))), name)
-            targs = re.findall(r"Li(-?\d+)E", name)
+            targs = re.findall(r"L[ib](-?\d+)E", name)
             short = f"{base}<{', '.join(targs)}>" if targs else base
             extra = ""
             if base == "mma_kernel":
@@ -1285,9 +1515,10 @@ def kernel_group(name: str) -> str:
     return "elementwise"
 
 
-def profile_phase(dev, nst_ckpt: Path):
-    """Device time of one steady 1080p B=8 batch of each slice, by kind of
-    kernel and by kernel (torch.profiler after two warm-up batches)."""
+def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict):
+    """Device time of one steady 1080p B=8 batch of each slice (Johnson,
+    NST_Train, ReCoNet), by kind of kernel and by kernel (torch.profiler
+    after two warm-up batches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1295,12 +1526,16 @@ def profile_phase(dev, nst_ckpt: Path):
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
-    runs = [(mode, fused, CKPT) for mode, fused in (("none", None), ("bf16_static", None))
-            + SLICES] + [(mode, None, nst_ckpt) for mode in NST_SLICES]
-    for mode, fused, ckpt in runs:
+    runs = ([(mode, fused, CKPT, "") for mode, fused in (("none", None), ("bf16_static", None))
+             + SLICES] + [(mode, None, nst_ckpt, "nst") for mode in NST_SLICES]
+            + [(mode, None, reco_ckpts[frn], f"reco {'frn' if frn else 'in'}")
+               for mode, frn in RECO_SLICES])
+    for mode, fused, ckpt, label in runs:
         argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
                 "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
                 "--quantize", mode]
+        if label.startswith("reco"):
+            argv += ["--model_type", "reconet"]
         _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
                                           fused_sites=fused)
         proc(frames[:B])
@@ -1318,7 +1553,7 @@ def profile_phase(dev, nst_ckpt: Path):
         groups: dict = {}
         for name, ms, _ in kernels:
             groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
-        name = slice_name(mode, fused) if ckpt == CKPT else f"nst {mode}"
+        name = f"{label} {mode}" if label else slice_name(mode, fused)
         log(f"profile --quantize {name}: batch wall {wall:.2f} ms, "
             f"device busy {busy:.2f} ms "
             f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
@@ -1372,9 +1607,11 @@ def run_phases(dev, tmp: Path, k8) -> int:
     import torch
 
     nst_ckpt = nst_checkpoint(tmp / "nst_random.pth")
+    reco_ckpts = {frn: reco_checkpoint(tmp / f"reco_{'frn' if frn else 'in'}.pth", frn)
+                  for frn in (False, True)}
     if sys.argv[1:] in (["--profile"], ["--phases"]):
         if sys.argv[1] == "--profile":
-            profile_phase(dev, nst_ckpt)
+            profile_phase(dev, nst_ckpt, reco_ckpts)
         else:
             phases_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1394,15 +1631,21 @@ def run_phases(dev, tmp: Path, k8) -> int:
     int8 = int8_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
     ragged_sw_phase(dev)
+    ragged_reco_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)
+    reco_chain_phase(dev, reco_ckpts)
     launches = {k: 0 for k in read_counts()}
-    for mode, fused, ckpt in ([(mode, fused, None) for mode, fused in (("none", None),) + SLICES]
-                              + [(mode, None, nst_ckpt) for mode in NST_SLICES]):
-        for k, v in slice_phase(dev, mode, fused, nst_ckpt=ckpt).items():
+    runs = ([dict(quantize=mode, fused=fused) for mode, fused in (("none", None),) + SLICES]
+            + [dict(quantize=mode, nst_ckpt=nst_ckpt) for mode in NST_SLICES]
+            + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES])
+    for run in runs:
+        for k, v in slice_phase(dev, **run).items():
             launches[k] += v
     cli_phase(dev, tmp)
+    for k, v in reco_cli_phase(dev, tmp, reco_ckpts[True]).items():
+        launches[k] += v
     for k, v in per_frame_phase(dev, tmp).items():
         launches[k] += v
     if "jax" in sys.modules:

@@ -1,4 +1,5 @@
-// K2–K8b — the int8 site convs of the quantized Johnson path.
+// K2–K8b — the int8 site convs of the quantized Johnson, NST_Train and ReCoNet
+// paths.
 //
 // Replaces the TPU kernels of neuralstyletransferv1_tpu/models/s2d2_sites_i8.py:
 //   K2  res_site_s8o   (_site_kernel_s8o)  quantize bf16 → 3x3 conv → s8 codes
@@ -17,7 +18,11 @@
 // with __dp4a, with a prologue (how the int8 tile is
 // made) and an epilogue (what is written) chosen at compile time. K3 and K4
 // run the same conv at stride 1 on the tensor cores (mma_kernel, below);
-// their site_kernel forms stay buildable as res_site_prev_launch /
+// ReCoNet's forms (C = 192 res grid, 96 at its d2): K4 at C in {96, 192} with
+// an optional pre-round floor (FRN's TLU folded into the quantize, the Pallas
+// res_site's tau); K5 at C = 192 with the post-add ReLU or TLU on v (act /
+// tau_act); K2 at C = 192, also with a floored emit (qlo, tau); K3 at C = 192.
+// Their site_kernel forms stay buildable as res_site_prev_launch /
 // site_s8_prev_launch, for timing the two designs side by side. K8a/K8b are
 // the TPU's pair-packed head sites; their pair packing and phase-permutation
 // dots are layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
@@ -70,17 +75,22 @@
 // rows of tap (dy, dx) the haloed tile's pixels shifted by (dy, dx) (each
 // lane gives ldmatrix its own row address, so a shift costs nothing). A
 // persistent grid (one 256-thread block per SM, 132 on an H100) stages the
-// weights of its 128 output channels once, rearranged from [tap][C/4][CO]
-// words to [tap][CO][C] bytes with a 16-byte pad per row, and walks output
+// weights of its 128 output channels once (64 at C = 192, where 128 would
+// not fit in shared memory), rearranged from [tap][C/4][CO] words to
+// [tap][CO][C] bytes with a 16-byte pad per row, and walks output
 // tiles of 8x16 pixels in a fixed order; the haloed 10x18-pixel input tile
 // is quantized (K4) or copied (K3) once per tile for all 128 channels into
 // shared memory (pixel stride C + 16 bytes: the eight rows an ldmatrix
 // reads sit in 32 distinct banks), and the next tile's input is loaded
 // into registers while the current tile's MMAs run. Warp w owns tile rows
 // 2(w%4), 2(w%4)+1 and channels 64(w/4)..+63: 2 x 8 MMAs per k32 step from
-// 2 + 4 ldmatrix.x4. The epilogue turns the accumulator fragments into
-// f = bf16(acc*ws + bias) (K3: and its frozen affine), stages f as bf16 in
-// shared memory over the input tile, which the MMAs no longer read, and
+// 2 + 4 ldmatrix.x4 (at C = 192 warp w owns tile row w: 1 x 8 MMAs from 1 + 4).
+// What bounds ReCoNet's sites: at the 1080p B=8 res grid (270 x 480 x 192)
+// a site is 6.88e11 int8 operations (0.348 ms); d1 (192 -> 384) 1.38e12
+// (0.695 ms); d2 (540 x 960, 96 -> 192) moves 2.39 GB (0.713 ms).
+// The epilogue turns the accumulator fragments into f = bf16(acc*ws + bias)
+// (K3: and its frozen affine), stages f as bf16 in shared memory over the
+// input tile, which the MMAs no longer read, and
 // writes it out 8 channels (16 bytes) a thread, coalesced; K3's residual
 // add, its activation and the s8 emit run on that pass, with y loaded 16
 // coalesced bytes at a time. int32 accumulation is exact in any order, so
@@ -110,8 +120,12 @@ constexpr int kCOT = 64;                  // output channels per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Prologue { kQuant = 0, kSkip = 1, kCodes = 2 };
-enum Epilogue { kRawStats = 0, kEmitS8 = 1, kSiteS8 = 2 };
+// kSkipAct: kSkip with ReCoNet's post-add activation, v = max(v, floor[b, ch])
+// (floor 0 for a ReLU, bf16(tau) for a TLU) before v is written and quantized.
+// kEmitS8F: kEmitS8 with a per-channel pre-round floor (FRN's TLU folded into
+// the emit) and the clamp floor qlo.
+enum Prologue { kQuant = 0, kSkip = 1, kCodes = 2, kSkipAct = 3 };
+enum Epilogue { kRawStats = 0, kEmitS8 = 1, kSiteS8 = 2, kEmitS8F = 3 };
 // kSiteS8 epilogue steps, chosen per launch (the K3 forms of _site_kernel_s8g)
 enum SiteFlags { kFAff = 1, kFYadd = 2, kFYaff = 4, kFS8Out = 8 };
 // kSiteS8 per-channel rows staged in shared memory: aa, ac, qa, qc, ya, yc
@@ -126,6 +140,9 @@ struct Args {
   const int32_t* wk;             // [9, C/4, CO] packed int8 weights
   const float *ws, *bias;        // [CO] dequant row and conv bias
   const float *ra, *rc;          // [CO] kEmitS8: output quantize
+  const float* tau;              // floor rows, or null: [B,C] K4's pre-round floor
+                                 // (mma_kernel TAU), [B,C] K5's post-add floor
+                                 // (kSkipAct), [CO] K2's emit floor (kEmitS8F)
   const float* ep[kEpRows];      // [CO] kSiteS8: aa, ac, qa, qc, ya, yc (null if unused)
   void* out;                     // bf16 or int8 [B,H,W,CO]
   __nv_bfloat16* vout;           // kSkip: v [B,H,W,C], or null
@@ -133,7 +150,7 @@ struct Args {
   int B, Hi, Wi;                 // input grid
   int H, W, CO;                  // output grid
   float lo;                      // quantize floor of the prologue
-  float qlo;                     // kSiteS8: floor of the s8 emit
+  float qlo;                     // kSiteS8, kEmitS8F: floor of the s8 emit
   int flags;                     // kSiteS8: SiteFlags
   int halo;                      // 0 pixel reflect, 1 edge copy, 2 zero codes
   int sw;                        // content width: K2 zeroes its codes in columns >= sw
@@ -166,6 +183,13 @@ __device__ __forceinline__ float bf16_round(float v) {
 
 __device__ __forceinline__ int quantize(float v, float a, float c, float lo) {
   const float q = rintf(__fadd_rn(__fmul_rn(v, a), c));
+  return (int)fminf(fmaxf(q, lo), 127.0f);
+}
+
+// quantize with a pre-round floor t: clamp(rint(max(v*a + c, t)), lo, 127)
+// (a TLU max(y, tau) folded into the quantize affine, as _quant_halo's t)
+__device__ __forceinline__ int quantize_floor(float v, float a, float c, float t, float lo) {
+  const float q = rintf(fmaxf(__fadd_rn(__fmul_rn(v, a), c), t));
   return (int)fminf(fmaxf(q, lo), 127.0f);
 }
 
@@ -204,10 +228,15 @@ struct Tile {
   static constexpr int HC = (kTW - 1) * S + 3;  // and columns
 };
 
-template <int C, int S>
+// per-channel [C] rows the prologue stages: a, c, then kSkip's a2, c2 and
+// kSkipAct's floor
+template <int PRO>
+__host__ __device__ constexpr int aff_rows() { return PRO == kSkipAct ? 5 : 4; }
+
+template <int C, int S, int PRO>
 constexpr size_t smem_bytes() {
   return sizeof(int32_t) * (9 * (C / 4) * kCOT + Tile<S>::HR * Tile<S>::HC * (C / 4 + 1)) +
-         sizeof(float) * (4 * C + kWarps * 2 * kCOT + kEpRows * kCOT);
+         sizeof(float) * (aff_rows<PRO>() * C + kWarps * 2 * kCOT + kEpRows * kCOT);
 }
 
 template <int C, int S, int PRO, int EPI>
@@ -218,8 +247,8 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
   extern __shared__ __align__(16) int32_t smem[];
   int32_t* s_w = smem;                                   // [9][CW][kCOT]
   int32_t* s_x = s_w + 9 * CW * kCOT;                    // [HR][HC][PS]
-  float* s_aff = reinterpret_cast<float*>(s_x + HR * HC * PS);  // a, c, a2, c2 [C]
-  float* s_sum = s_aff + 4 * C;                          // [kWarps][2][kCOT]
+  float* s_aff = reinterpret_cast<float*>(s_x + HR * HC * PS);  // a, c, a2, c2[, floor] [C]
+  float* s_sum = s_aff + aff_rows<PRO>() * C;            // [kWarps][2][kCOT]
   float* s_ep = s_sum + kWarps * 2 * kCOT;               // [kEpRows][kCOT]
 
   const int tid = threadIdx.x;
@@ -241,10 +270,11 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
     for (int i = tid; i < C; i += kThreads) {
       s_aff[i] = p.a[b * C + i];
       s_aff[C + i] = p.c[b * C + i];
-      if (PRO == kSkip) {
+      if (PRO == kSkip || PRO == kSkipAct) {
         s_aff[2 * C + i] = p.a2[b * C + i];
         s_aff[3 * C + i] = p.c2[b * C + i];
       }
+      if (PRO == kSkipAct) s_aff[4 * C + i] = p.tau[b * C + i];
     }
     __syncthreads();
   }
@@ -264,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
     } else {
       float v[4];
       load4_bf16(static_cast<const __nv_bfloat16*>(p.x) + off, v);
-      if (PRO == kSkip) {
+      if (PRO == kSkip || PRO == kSkipAct) {
         float y[4];
         load4_bf16(p.yp + off, y);
 #pragma unroll
@@ -273,6 +303,8 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
           const float t = bf16_round(__fadd_rn(__fmul_rn(v[k], s_aff[2 * C + ch]),
                                                s_aff[3 * C + ch]));
           v[k] = bf16_round(__fadd_rn(t, y[k]));
+          // the post-add ReLU / TLU: max with a bf16 floor is exact in bf16
+          if (PRO == kSkipAct) v[k] = fmaxf(v[k], s_aff[4 * C + ch]);
         }
         const bool interior = hr >= 1 && hr <= kTH && hc >= 1 && hc <= kTW &&
                               gy < p.H && gx < p.W;
@@ -315,15 +347,17 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
   // epilogue
   const int oy = ty0 + warp;
   const int cb = co0 + cg * 8;
-  float ws[8], bi[8], ra[8], rc[8];
+  float ws[8], bi[8], ra[8], rc[8], rt[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     ws[j] = p.ws[cb + j];
     bi[j] = p.bias[cb + j];
-    if (EPI == kEmitS8) {
+    if (EPI == kEmitS8 || EPI == kEmitS8F) {
       ra[j] = p.ra[cb + j];
       rc[j] = p.rc[cb + j];
     }
+    if (EPI == kEmitS8F)  // no floor row: -inf
+      rt[j] = p.tau != nullptr ? p.tau[cb + j] : __int_as_float(0xff800000);
   }
   float s1[8], s2[8];
 #pragma unroll
@@ -356,6 +390,16 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel(Args p) {
         hi |= (uint32_t)(quantize(f[j + 4], ra[j + 4], rc[j + 4], 0.0f) & 0xff) << (8 * j);
       }
       if (ox >= p.sw) lo = hi = 0;  // padding columns stay zero codes
+      *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(lo, hi);
+    } else if (EPI == kEmitS8F) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo |= (uint32_t)(quantize_floor(f[j], ra[j], rc[j], rt[j], p.qlo) & 0xff) << (8 * j);
+        hi |= (uint32_t)(quantize_floor(f[j + 4], ra[j + 4], rc[j + 4], rt[j + 4], p.qlo) & 0xff)
+              << (8 * j);
+      }
+      if (ox >= p.sw) lo = hi = 0;
       *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(lo, hi);
     } else {
       // K3: [frozen affine] → [+ y, y first activated by a frozen affine + ReLU]
@@ -437,7 +481,7 @@ __global__ void stats_reduce(const float* __restrict__ part, float* __restrict__
 
 template <int C, int S, int PRO, int EPI>
 int launch_c(const Args& p, float* sums, cudaStream_t stream) {
-  const size_t smem = smem_bytes<C, S>();
+  const size_t smem = smem_bytes<C, S, PRO>();
   auto kern = site_kernel<C, S, PRO, EPI>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -459,13 +503,22 @@ bool valid(const Args& p) {
          p.CO % kCOT == 0;
 }
 
-// stride 1: the res and decoder sites, C in {64, 128}
+// stride 1: the Johnson and NST res and decoder sites, C in {64, 128}; the
+// ReCoNet forms (K2's plain and floored emit, K5 with the post-add
+// activation) at its res width C = 192
 template <int PRO, int EPI>
 int launch(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 128) return launch_c<128, 1, PRO, EPI>(p, sums, s);
-  if (C == 64) return launch_c<64, 1, PRO, EPI>(p, sums, s);
+  constexpr bool kReco = PRO == kSkipAct || EPI == kEmitS8F;   // ReCoNet-only forms
+  constexpr bool kWide = kReco || (PRO == kQuant && EPI == kEmitS8);
+  if constexpr (!kReco) {
+    if (C == 128) return launch_c<128, 1, PRO, EPI>(p, sums, s);
+    if (C == 64) return launch_c<64, 1, PRO, EPI>(p, sums, s);
+  }
+  if constexpr (kWide) {
+    if (C == 192) return launch_c<192, 1, PRO, EPI>(p, sums, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -488,28 +541,36 @@ Args make_args(int B, int H, int W, int CO, float lo, int halo) {
 constexpr int kMRows = 8, kMCols = 16;              // output tile, pixels
 constexpr int kMHC = kMCols + 2;                     // haloed tile columns
 constexpr int kMPix = (kMRows + 2) * kMHC;           // haloed tile pixels
-constexpr int kMCO = 128;                            // output channels per block
-constexpr int kMThreads = 256;                       // 4 row warps x 2 channel warps
-constexpr int kMRowWarps = 4;
-constexpr int kMOutStride = 2 * kMCO + 16;           // bytes per staged bf16 output pixel
+constexpr int kMThreads = 256;                       // 8 warps: row warps x 64-channel warps
 constexpr int kMEpRows = 2 + kEpRows;                // ws, bias, then K3's rows
 
+// The block's geometry at C input channels. C <= 128: 128 output channels a
+// block, 4 row warps of 2 tile rows x 2 channel warps of 64. C = 192: the
+// weights of 128 output channels (9 x 128 x 208 bytes) would not fit beside
+// the input tile in the 227 KB a block may take, so a block stages 64 output
+// channels and its 8 warps are row warps of one tile row each.
 template <int C>
 struct MmaSmem {
+  static constexpr int CO = C > 128 ? 64 : 128;     // output channels per block
+  static constexpr int RW = kMThreads / 32 / (CO / 64);  // row warps
+  static constexpr int MI = kMRows / RW;            // tile rows a warp
+  static constexpr int OUT = 2 * CO + 16;           // bytes per staged bf16 output pixel
   static constexpr int PX = C + 16;  // bytes per haloed pixel and per weight row
-  static constexpr int W = 9 * kMCO * PX;
-  static constexpr int X = kMPix * PX > kMRows * kMCols * kMOutStride
-                               ? kMPix * PX : kMRows * kMCols * kMOutStride;
-  static constexpr size_t bytes = W + X + sizeof(float) * (kMEpRows + 2 * kMRowWarps) * kMCO;
+  static constexpr int W = 9 * CO * PX;
+  static constexpr int X = kMPix * PX > kMRows * kMCols * OUT ? kMPix * PX : kMRows * kMCols * OUT;
+  static constexpr size_t bytes = W + X + sizeof(float) * (kMEpRows + 2 * RW) * CO;
 };
 
-// the haloed tile's input, one 16-byte global chunk per thread and pass
+// the haloed tile's input, one 16-byte global chunk per thread and pass;
+// where the chunks of a pixel do not divide the block (C = 96, 192), the
+// threads past PPI pixels idle
 template <int C, int PRO>
 struct MmaIn {
   static constexpr int VB = PRO == kCodes ? 16 : 8;   // channels per chunk
   static constexpr int CH = C / VB;                   // chunks per pixel
   static constexpr int PPI = kMThreads / CH;          // pixels per pass
   static constexpr int NI = (kMPix + PPI - 1) / PPI;  // passes
+  static constexpr bool FULL = kMThreads % CH == 0;
 };
 
 // bf16 → f32 is exact: the bf16 bits are the f32's high half
@@ -559,44 +620,47 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 #define MMA_PHASE_END
 #endif
 
-// Block k of `per_half` blocks serves output channels co0 = 128·(k / per_half)
+// Block k of `per_half` blocks serves output channels co0 = MCO·(k / per_half)
 // and walks tiles k % per_half, + per_half, ... of the B·tiles 8x16 output
-// tiles (image-major, then row-major within the image).
-template <int C, int PRO, int EPI>
+// tiles (image-major, then row-major within the image). TAU (K4 at C = 96,
+// 192): the quantize takes a per-(image, channel) pre-round floor (FRN's TLU).
+template <int C, int PRO, int EPI, bool TAU>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
   static_assert((PRO == kQuant && EPI == kRawStats) || (PRO == kCodes && EPI == kSiteS8),
                 "mma_kernel serves K4 (kQuant, kRawStats) and K3 (kCodes, kSiteS8)");
+  static_assert(!TAU || PRO == kQuant, "the floor is a quantize's");
   using S = MmaSmem<C>;
   using In = MmaIn<C, PRO>;
   constexpr int PX = S::PX;
+  constexpr int MCO = S::CO, RW = S::RW, MI = S::MI, OUT = S::OUT;
   constexpr int CW = C / 4;   // int32 words per pixel
   constexpr int KC = C / 32;  // k32 steps per tap
   constexpr int KS = 9 * KC;  // k32 steps
   extern __shared__ __align__(16) uint8_t smem8[];
-  uint8_t* s_w = smem8;                                   // [9][kMCO][PX] weights
+  uint8_t* s_w = smem8;                                   // [9][MCO][PX] weights
   uint8_t* s_x = smem8 + S::W;                            // [kMPix][PX] codes, then outputs
-  float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // [kMEpRows][kMCO]
-  float* s_sum = s_rows + kMEpRows * kMCO;                // [kMRowWarps][2][kMCO]
+  float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // [kMEpRows][MCO]
+  float* s_sum = s_rows + kMEpRows * MCO;                 // [RW][2][MCO]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int co0 = (blockIdx.x / per_half) * kMCO;
-  const int nvalid = min(kMCO, p.CO - co0);
+  const int co0 = (blockIdx.x / per_half) * MCO;
+  const int nvalid = min(MCO, p.CO - co0);
   const int total = p.B * tiles;
   int tile = blockIdx.x % per_half;
   if (tile >= total) return;
 
   // the block's weights, once: word (tap, k, co0 + n) → bytes 4k.. of row (tap, n)
-  static_assert(9 * CW * kMCO % kMThreads == 0, "weight words split evenly");
+  static_assert(9 * CW * MCO % kMThreads == 0, "weight words split evenly");
 #pragma unroll 8
-  for (int j = 0; j < 9 * CW * kMCO / kMThreads; ++j) {
+  for (int j = 0; j < 9 * CW * MCO / kMThreads; ++j) {
     const int i = tid + j * kMThreads;
-    const int n = i % kMCO, k = (i / kMCO) % CW, t = i / (kMCO * CW);
-    *reinterpret_cast<int32_t*>(s_w + (t * kMCO + n) * PX + 4 * k) =
+    const int n = i % MCO, k = (i / MCO) % CW, t = i / (MCO * CW);
+    *reinterpret_cast<int32_t*>(s_w + (t * MCO + n) * PX + 4 * k) =
         n < nvalid ? p.wk[((size_t)t * CW + k) * p.CO + co0 + n] : 0;
   }
-  for (int i = tid; i < kMEpRows * kMCO; i += kMThreads) {
-    const int r = i / kMCO, n = i % kMCO;
+  for (int i = tid; i < kMEpRows * MCO; i += kMThreads) {
+    const int r = i / MCO, n = i % MCO;
     const float* row = r == 0 ? p.ws : r == 1 ? p.bias : EPI == kSiteS8 ? p.ep[r - 2] : nullptr;
     s_rows[i] = row != nullptr && n < nvalid ? row[co0 + n] : 0.0f;
   }
@@ -604,13 +668,14 @@ __global__ void __launch_bounds__(kMThreads, 1)
   // prologue: the haloed tile into registers (fetch), then as codes into s_x (stage)
   uint4 raw[In::NI];
   const int chunk = tid % In::CH, p0 = tid / In::CH;
+  const bool loader = In::FULL || p0 < In::PPI;
   auto fetch = [&](int id) {
     const int b = id / tiles, t = id % tiles;
     const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
 #pragma unroll
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
-      if (px < kMPix) {
+      if (loader && px < kMPix) {
         const int gy = y0 + px / kMHC - 1, gx = x0 + px % kMHC - 1;
         const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
         const size_t off = (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + chunk * In::VB;
@@ -625,18 +690,19 @@ __global__ void __launch_bounds__(kMThreads, 1)
   };
   auto stage = [&](int id) {
     const int b = id / tiles;
-    float qa[8], qc[8];
+    float qa[8], qc[8], qt[8];
     if (PRO == kQuant) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         qa[j] = __ldg(p.a + b * C + chunk * 8 + j);
         qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
+        if (TAU) qt[j] = __ldg(p.tau + b * C + chunk * 8 + j);
       }
     }
 #pragma unroll
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
-      if (px >= kMPix) continue;
+      if (!loader || px >= kMPix) continue;
       uint8_t* dst = s_x + px * PX + chunk * In::VB;
       if (PRO == kCodes) {
         *reinterpret_cast<uint4*>(dst) = raw[k];
@@ -645,8 +711,15 @@ __global__ void __launch_bounds__(kMThreads, 1)
         uint32_t q[2] = {0u, 0u};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const uint32_t q0 = quantize(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], p.lo) & 0xff;
-          const uint32_t q1 = quantize(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], p.lo) & 0xff;
+          uint32_t q0, q1;
+          if (TAU) {
+            q0 = quantize_floor(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], qt[2 * j], p.lo) & 0xff;
+            q1 = quantize_floor(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], qt[2 * j + 1],
+                                p.lo) & 0xff;
+          } else {
+            q0 = quantize(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], p.lo) & 0xff;
+            q1 = quantize(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], p.lo) & 0xff;
+          }
           q[j >> 1] |= (q0 | (q1 << 8)) << (16 * (j & 1));
         }
         *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
@@ -654,14 +727,14 @@ __global__ void __launch_bounds__(kMThreads, 1)
     }
   };
 
-  const int mg = warp % kMRowWarps, ng = warp / kMRowWarps;  // tile rows 2mg.., channels 64ng..
+  const int mg = warp % RW, ng = warp / RW;  // tile rows MI·mg.., channels 64ng..
   const bool active = ng * 64 < nvalid;
   const int g = lane >> 2, tg = lane & 3;
   // ldmatrix row addresses: A rows are the 16 pixels of a tile row (lanes
   // 0-15: bytes 0-15 of the k32 slice, 16-31: bytes 16-31); B rows are the
   // output channels (lanes 0-7 / 16-23: bytes 0-15 of 8-channel groups 2q /
   // 2q+1, lanes 8-15 / 24-31: bytes 16-31)
-  const uint32_t a_lane = smem_addr(s_x) + ((2 * mg) * kMHC + (lane & 15)) * PX + (lane >> 4) * 16;
+  const uint32_t a_lane = smem_addr(s_x) + ((MI * mg) * kMHC + (lane & 15)) * PX + (lane >> 4) * 16;
   const uint32_t b_lane = smem_addr(s_w) + (ng * 64 + (lane >> 4) * 8 + (lane & 7)) * PX +
                           ((lane >> 3) & 1) * 16;
 
@@ -674,50 +747,51 @@ __global__ void __launch_bounds__(kMThreads, 1)
     if (next < total) fetch(next);  // in flight while the MMAs run
     MMA_PHASE(0)
 
-    int acc[2][8][4];
+    int acc[MI][8][4];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
       for (int nj = 0; nj < 8; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
     if (active) {
-      uint32_t af[2][2][4], bfr[2][8][2];
-      auto load = [&](int s, uint32_t (&a)[2][4], uint32_t (&bq)[8][2]) {
+      uint32_t af[2][MI][4], bfr[2][8][2];
+      auto load = [&](int s, uint32_t (&a)[MI][4], uint32_t (&bq)[8][2]) {
         const int tap = s / KC, kc = s % KC, dy = tap / 3, dx = tap % 3;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < MI; ++mi)
           ldsm_x4(a[mi], a_lane + ((mi + dy) * kMHC + dx) * PX + kc * 32);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           uint32_t r[4];
-          ldsm_x4(r, b_lane + (tap * kMCO + 16 * q) * PX + kc * 32);
+          ldsm_x4(r, b_lane + (tap * MCO + 16 * q) * PX + kc * 32);
           bq[2 * q][0] = r[0];
           bq[2 * q][1] = r[1];
           bq[2 * q + 1][0] = r[2];
           bq[2 * q + 1][1] = r[3];
         }
       };
-      auto mmas = [&](const uint32_t (&a)[2][4], const uint32_t (&bq)[8][2]) {
+      auto mmas = [&](const uint32_t (&a)[MI][4], const uint32_t (&bq)[8][2]) {
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
           for (int nj = 0; nj < 8; ++nj) mma_s8(acc[mi][nj], a[mi], bq[nj][0], bq[nj][1]);
       };
       // fragments double-buffered: step s+1's ldmatrix before step s's MMAs
+      // (KS is odd at C = 96: the last pair has one step)
       load(0, af[0], bfr[0]);
 #pragma unroll
       for (int s = 0; s < KS; s += 2) {
-        load(s + 1, af[1], bfr[1]);
+        if (s + 1 < KS) load(s + 1, af[1], bfr[1]);
         mmas(af[0], bfr[0]);
         if (s + 2 < KS) load(s + 2, af[0], bfr[0]);
-        mmas(af[1], bfr[1]);
+        if (s + 1 < KS) mmas(af[1], bfr[1]);
       }
     }
     MMA_PHASE(1)
     __syncthreads();  // s_x is free: the epilogue stages its outputs there
 
-    // epilogue on the fragments: lane (g, tg) holds, for tile row 2mg+mi and
+    // epilogue on the fragments: lane (g, tg) holds, for tile row MI·mg+mi and
     // channel group nj, pixels g and g+8 (e = 0,1 and 2,3) of channels
     // 64ng + 8nj + 2tg, +1. f = bf16(acc·ws + bias), K3's frozen affine,
     // K4's sums; f is staged as bf16 (exact: every f is bf16-rounded)
@@ -728,18 +802,18 @@ __global__ void __launch_bounds__(kMThreads, 1)
       for (int nj = 0; nj < 8; ++nj) {
         const int n = ng * 64 + nj * 8 + 2 * tg;
         const float2 ws = *reinterpret_cast<const float2*>(s_rows + n);
-        const float2 bi = *reinterpret_cast<const float2*>(s_rows + kMCO + n);
+        const float2 bi = *reinterpret_cast<const float2*>(s_rows + MCO + n);
         float2 aa = make_float2(0.0f, 0.0f), ac = aa;
         if (EPI == kSiteS8 && (p.flags & kFAff)) {
-          aa = *reinterpret_cast<const float2*>(s_rows + 2 * kMCO + n);
-          ac = *reinterpret_cast<const float2*>(s_rows + 3 * kMCO + n);
+          aa = *reinterpret_cast<const float2*>(s_rows + 2 * MCO + n);
+          ac = *reinterpret_cast<const float2*>(s_rows + 3 * MCO + n);
         }
         float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
+        for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int r = 2 * mg + mi, col = g + 8 * h;
+            const int r = MI * mg + mi, col = g + 8 * h;
             float f[2] = {
                 bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h]), ws.x), bi.x)),
                 bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h + 1]), ws.y),
@@ -756,7 +830,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
               f[0] = bf16_round(__fadd_rn(__fmul_rn(f[0], aa.x), ac.x));
               f[1] = bf16_round(__fadd_rn(__fmul_rn(f[1], aa.y), ac.y));
             }
-            *reinterpret_cast<uint32_t*>(s_x + (r * kMCols + col) * kMOutStride + 2 * n) =
+            *reinterpret_cast<uint32_t*>(s_x + (r * kMCols + col) * OUT + 2 * n) =
                 bf16_pack(f[0], f[1]);
           }
         }
@@ -770,8 +844,8 @@ __global__ void __launch_bounds__(kMThreads, 1)
               s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], m));
             }
             if (g == 0) {
-              s_sum[(mg * 2 + 0) * kMCO + n + e] = s1[e];
-              s_sum[(mg * 2 + 1) * kMCO + n + e] = s2[e];
+              s_sum[(mg * 2 + 0) * MCO + n + e] = s1[e];
+              s_sum[(mg * 2 + 1) * MCO + n + e] = s2[e];
             }
           }
         }
@@ -782,7 +856,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
 
     // the staged outputs, 8 channels (16 bytes) a thread and pass, coalesced;
     // K3 adds its residual y (loaded here, 16 coalesced bytes) and emits s8
-    constexpr int CPP = kMCO / 8;           // 8-channel chunks a staged pixel
+    constexpr int CPP = MCO / 8;            // 8-channel chunks a staged pixel
     constexpr int NS = kMRows * kMCols * CPP / kMThreads;
     const int vchunks = nvalid / 8;
     const bool yadd = EPI == kSiteS8 && (p.flags & kFYadd);
@@ -803,11 +877,11 @@ __global__ void __launch_bounds__(kMThreads, 1)
       const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
       if (c8 >= vchunks || oy >= p.H || ox >= p.W) continue;
       const size_t o = (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8;
-      uint4 v = *reinterpret_cast<const uint4*>(s_x + px * kMOutStride + 16 * c8);
+      uint4 v = *reinterpret_cast<const uint4*>(s_x + px * OUT + 16 * c8);
       if (EPI == kSiteS8 && (p.flags & (kFYadd | kFS8Out))) {
         // K3: [+ y, y first activated by a frozen affine + ReLU] → bf16 out,
         // or the next site's s8 codes
-        const float* ep = s_rows + 2 * kMCO + 8 * c8;  // aa, ac, qa, qc, ya, yc rows
+        const float* ep = s_rows + 2 * MCO + 8 * c8;  // aa, ac, qa, qc, ya, yc rows
         uint32_t w[4] = {v.x, v.y, v.z, v.w};
         float f[8];
 #pragma unroll
@@ -821,7 +895,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
           for (int k = 0; k < 8; ++k) {
             float y = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
             if (p.flags & kFYaff)
-              y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * kMCO + k]), ep[5 * kMCO + k]),
+              y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * MCO + k]), ep[5 * MCO + k]),
                                    0.0f));
             f[k] = bf16_round(__fadd_rn(f[k], y));
           }
@@ -830,7 +904,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
           uint32_t q[2] = {0u, 0u};
 #pragma unroll
           for (int k = 0; k < 8; ++k)
-            q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * kMCO + k], ep[3 * kMCO + k], p.qlo) &
+            q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * MCO + k], ep[3 * MCO + k], p.qlo) &
                                    0xff) << (8 * (k % 4));
           if (ox >= p.sw) q[0] = q[1] = 0;  // padding columns stay zero codes
           *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(q[0], q[1]);
@@ -842,11 +916,11 @@ __global__ void __launch_bounds__(kMThreads, 1)
       }
       *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) = v;
     }
-    if (EPI == kRawStats && tid < 2 * kMCO) {
-      const int s = tid / kMCO, n = tid % kMCO;
+    if (EPI == kRawStats && tid < 2 * MCO) {
+      const int s = tid / MCO, n = tid % MCO;
       if (n < nvalid) {
         float v = 0.0f;
-        for (int w = 0; w < kMRowWarps; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * kMCO + n]);
+        for (int w = 0; w < RW; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * MCO + n]);
         p.part[(((size_t)b * tiles + t) * 2 + s) * p.CO + co0 + n] = v;
       }
     }
@@ -882,10 +956,10 @@ __global__ void stats_reduce_mma(const float* __restrict__ part, float* __restri
   }
 }
 
-template <int C, int PRO, int EPI>
+template <int C, int PRO, int EPI, bool TAU>
 int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   const size_t smem = MmaSmem<C>::bytes;
-  auto kern = mma_kernel<C, PRO, EPI>;
+  auto kern = mma_kernel<C, PRO, EPI, TAU>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -895,7 +969,8 @@ int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
     return (int)err;
   const int tiles_x = (p.W + kMCols - 1) / kMCols;
   const int tiles = ((p.H + kMRows - 1) / kMRows) * tiles_x;
-  const int halves = (p.CO + kMCO - 1) / kMCO;
+  constexpr int MCO = MmaSmem<C>::CO;
+  const int halves = (p.CO + MCO - 1) / MCO;
   int per_half = sms / halves < p.B * tiles ? sms / halves : p.B * tiles;
   per_half = per_half > 1 ? per_half : 1;
   kern<<<per_half * halves, kMThreads, smem, stream>>>(p, tiles_x, tiles, per_half);
@@ -906,13 +981,23 @@ int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the tensor-core core, C in {64, 128}
+// the tensor-core core: C in {64, 128} (Johnson, NST); ReCoNet's K4 at
+// C in {96, 192}, with or without the TLU floor, and its K3 at C = 192
 template <int PRO, int EPI>
 int launch_mma(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 128) return launch_mma_c<128, PRO, EPI>(p, sums, s);
-  if (C == 64) return launch_mma_c<64, PRO, EPI>(p, sums, s);
+  const bool tau = p.tau != nullptr;
+  if (!tau && C == 128) return launch_mma_c<128, PRO, EPI, false>(p, sums, s);
+  if (!tau && C == 64) return launch_mma_c<64, PRO, EPI, false>(p, sums, s);
+  if constexpr (PRO == kQuant) {
+    if (C == 192) return tau ? launch_mma_c<192, PRO, EPI, true>(p, sums, s)
+                             : launch_mma_c<192, PRO, EPI, false>(p, sums, s);
+    if (C == 96) return tau ? launch_mma_c<96, PRO, EPI, true>(p, sums, s)
+                            : launch_mma_c<96, PRO, EPI, false>(p, sums, s);
+  } else {
+    if (!tau && C == 192) return launch_mma_c<192, PRO, EPI, false>(p, sums, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1089,19 +1174,21 @@ int launch_rows(const RowsArgs& p, void* stream) {
 // describe; each launches on `stream` and returns a CUDA error code (0 on
 // success).
 
-// K2: s8 codes out[b,y,x,o] = clamp(rint(bf16(acc*ws + bias)*qa + qc), 0, 127).
-// Under the zero halo (halo 2) the codes of x and of out in columns >= sw
-// are zero (sw = W: no such column).
+// K2: s8 codes out[b,y,x,o] = clamp(rint(bf16(acc*ws + bias)*qa + qc), 0, 127);
+// with a floor row tau [CO] (or qlo != 0) clamp(rint(max(f*qa + qc, tau[o])),
+// qlo, 127) (ReCoNet's FRN emit; C = 192). Under the zero halo (halo 2) the
+// codes of x and of out in columns >= sw are zero (sw = W: no such column).
 extern "C" int res_site_s8o_launch(const void* x, const float* a, const float* c,
                                    const int32_t* wk, const float* ws, const float* bias,
-                                   const float* qa, const float* qc, int8_t* out, int B,
-                                   int H, int W, int C, int CO, float lo, int halo, int sw,
-                                   void* stream) {
+                                   const float* qa, const float* qc, const float* tau,
+                                   int8_t* out, int B, int H, int W, int C, int CO, float lo,
+                                   float qlo, int halo, int sw, void* stream) {
   Args p = make_args(B, H, W, CO, lo, halo);
   p.sw = sw;
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
-  p.ra = qa; p.rc = qc; p.out = out;
-  return launch<kQuant, kEmitS8>(p, C, nullptr, stream);
+  p.ra = qa; p.rc = qc; p.tau = tau; p.qlo = qlo; p.out = out;
+  if (tau == nullptr && qlo == 0.0f) return launch<kQuant, kEmitS8>(p, C, nullptr, stream);
+  return launch<kQuant, kEmitS8F>(p, C, nullptr, stream);
 }
 
 namespace {
@@ -1156,42 +1243,56 @@ extern "C" int mma_phase_clocks_read(unsigned long long* host) {
 
 // Dynamic shared memory of mma_kernel at C input channels (0 for other C).
 extern "C" int mma_kernel_smem_bytes(int C) {
-  return C == 128 ? (int)MmaSmem<128>::bytes : C == 64 ? (int)MmaSmem<64>::bytes : 0;
+  switch (C) {
+    case 64: return (int)MmaSmem<64>::bytes;
+    case 96: return (int)MmaSmem<96>::bytes;
+    case 128: return (int)MmaSmem<128>::bytes;
+    case 192: return (int)MmaSmem<192>::bytes;
+    default: return 0;
+  }
 }
 
 // K4: bf16 raw out and sums[b, 0|1, o] = [Σ, Σ²] of it; part is scratch.
+// tau (C in {96, 192}; null: none): [B,C] floor of x*a + c before the round.
 extern "C" int res_site_launch(const void* x, const float* a, const float* c,
-                               const int32_t* wk, const float* ws, const float* bias,
-                               __nv_bfloat16* out, float* part, float* sums, int B, int H,
-                               int W, int C, int CO, float lo, int halo, void* stream) {
+                               const float* tau, const int32_t* wk, const float* ws,
+                               const float* bias, __nv_bfloat16* out, float* part, float* sums,
+                               int B, int H, int W, int C, int CO, float lo, int halo,
+                               void* stream) {
   Args p = make_args(B, H, W, CO, lo, halo);
-  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.x = x; p.a = a; p.c = c; p.tau = tau; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;
   return launch_mma<kQuant, kRawStats>(p, C, sums, stream);
 }
 
 // K4 on the previous __dp4a core (site_kernel), for timing only.
+// It has no floor: tau must be null.
 extern "C" int res_site_prev_launch(const void* x, const float* a, const float* c,
-                                    const int32_t* wk, const float* ws, const float* bias,
-                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
-                                    int W, int C, int CO, float lo, int halo, void* stream) {
+                                    const float* tau, const int32_t* wk, const float* ws,
+                                    const float* bias, __nv_bfloat16* out, float* part,
+                                    float* sums, int B, int H, int W, int C, int CO, float lo,
+                                    int halo, void* stream) {
+  if (tau != nullptr) return (int)cudaErrorInvalidValue;
   Args p = make_args(B, H, W, CO, lo, halo);
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;
   return launch<kQuant, kRawStats>(p, C, sums, stream);
 }
 
-// K5: K4 on v = bf16(bf16(r2*a2 + c2) + yp); v is written to vout unless null.
+// K5: K4 on v = bf16(bf16(r2*a2 + c2) + yp), then, with a floor row [B,C]
+// (C = 192), v = max(v, floor) (ReCoNet's post-add ReLU or TLU); v is
+// written to vout unless null.
 extern "C" int res_site_skip_launch(const void* r2, const __nv_bfloat16* yp,
                                     const float* a, const float* c, const float* a2,
-                                    const float* c2, const int32_t* wk, const float* ws,
-                                    const float* bias, __nv_bfloat16* out,
+                                    const float* c2, const float* floor, const int32_t* wk,
+                                    const float* ws, const float* bias, __nv_bfloat16* out,
                                     __nv_bfloat16* vout, float* part, float* sums, int B,
                                     int H, int W, int C, int CO, float lo, int halo,
                                     void* stream) {
   Args p = make_args(B, H, W, CO, lo, halo);
-  p.x = r2; p.yp = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.wk = wk; p.ws = ws;
-  p.bias = bias; p.out = out; p.vout = vout; p.part = part;
+  p.x = r2; p.yp = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
+  p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
+  if (floor != nullptr) return launch<kSkipAct, kRawStats>(p, C, sums, stream);
   return launch<kSkip, kRawStats>(p, C, sums, stream);
 }
 

@@ -102,7 +102,8 @@ def check_supported(args) -> None:
         (bool(args.profile_dir), "--profile_dir", _BENCH),
     ]
     for path, model_type, _preset, magenta_style in _slot_args(args):
-        other = path and (model_type != "transformer" or Path(path).suffix.lower() == ".t7")
+        other = path and (model_type not in ("transformer", "reconet")
+                          or Path(path).suffix.lower() == ".t7")
         unsupported.append((bool(other or (model_type == "magenta" and magenta_style)),
                             f"{model_type} slot {path or magenta_style}", _BACKENDS))
     for bad, what, item in unsupported:
@@ -119,11 +120,12 @@ def _slot_args(args):
 
 
 def load_slot_bank(args, device) -> list:
-    """The Johnson and NST_Train checkpoints of slots A..H, on ``device``."""
+    """The Johnson, NST_Train and ReCoNet checkpoints of slots A..H, on
+    ``device``."""
     from . import stylizer as st
 
-    return [st.load_model(path, io_preset=io_preset, device=device)
-            for path, _type, io_preset, _style in _slot_args(args) if path]
+    return [st.load_model(path, model_type=model_type, io_preset=io_preset, device=device)
+            for path, model_type, io_preset, _style in _slot_args(args) if path]
 
 
 def list_frame_files(args, frames_dir: Path) -> list[Path]:

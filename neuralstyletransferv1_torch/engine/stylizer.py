@@ -1,8 +1,8 @@
-"""The stylizer bank: Johnson and NST_Train slots resident on the device,
-one call per frame batch.
+"""The stylizer bank: Johnson, NST_Train and ReCoNet slots resident on the
+device, one call per frame batch.
 
-Counterpart of the Johnson and NST parts of ``neuralstyletransferv1_tpu/
-engine/stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
+Counterpart of the Johnson, NST and ReCoNet parts of
+``neuralstyletransferv1_tpu/engine/stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
 affine baked into the first and last convs; this port computes the same
 function directly: preprocess → TransformerNet → postprocess.
 
@@ -25,7 +25,11 @@ may also name the bf16 fused sites ``head``, ``tail`` and ``d3``
 NST_Train slots (``down1.``-keyed checkpoints, arch ``nst``, IO preset
 forced to ``raw_01``) run ``models/transformer_net_nst_fast.apply`` with
 the same pad-and-crop and lazy first-frame calibration; their int8 modes
-route by the adopted ``nst`` / ``nst_static`` sets.
+route by the adopted ``nst`` / ``nst_static`` sets. ReCoNet slots
+(``model_type="reconet"``, IN or FRN nets, preset ``imagenet_01`` by
+default) run ``models/reconet_fast.apply`` the same way, routed by the
+adopted ``reco`` / ``reco_static`` sets (``RECO_SKIP`` / ``reco_skip``
+choose the K5 form of the ``res_i8`` chain).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import torch.nn.functional as F
 
 from ..io import checkpoints as ckpt
 from ..models import io_presets as iop
+from ..models import reconet as rn
+from ..models import reconet_fast as rf
 from ..models import sites_bf16, sites_i8
 from ..models import transformer_net_quant as tq
 from ..models import transformer_net_nst as tnn
@@ -53,26 +59,31 @@ QUANTIZE_MODES = ("none", "bf16_static", "int8_static", "int8")
 class StyleModel:
     """One loaded slot of the model bank."""
 
-    arch: str  # johnson | nst
-    net: TransformerNet | tnn.TransformerNetNST
+    arch: str  # johnson | nst | reconet
+    net: TransformerNet | tnn.TransformerNetNST | rn.ReCoNet
     io_preset: str
     name: str = ""
 
 
 def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: str = "auto",
                name: str | None = None, device: torch.device | str = "cpu") -> StyleModel:
-    """Load a reference-format Johnson or NST_Train checkpoint
-    (``io/checkpoints``, the port's copy of the JAX engine's importer; the
-    arch by key prefix). NST checkpoints force ``raw_01`` over ``raw_255``
-    and ``imagenet_255``, as the reference does."""
+    """Load a reference-format Johnson, NST_Train or ReCoNet checkpoint
+    (``io/checkpoints``, the port's copy of the JAX engine's importer; a
+    ``transformer``'s arch by key prefix, a ``reconet``'s norm family by its
+    ``.tau`` keys). NST checkpoints force ``raw_01`` over ``raw_255`` and
+    ``imagenet_255``, as the reference does."""
     path = Path(path)
-    if model_type != "transformer":
+    if model_type not in ("transformer", "reconet"):
         raise NotImplementedError(
-            f"model type {model_type!r}: only 'transformer' slots (Johnson, NST_Train) are "
-            "ported (ROADMAP.md Queue 1, item 6: other stylizer backends)")
+            f"model type {model_type!r}: only 'transformer' (Johnson, NST_Train) and "
+            "'reconet' slots are ported (ROADMAP.md Queue 1, item 6: other stylizer backends)")
     sd = ckpt.load_state_dict(str(path))
-    arch = ckpt.detect_transformer_arch(sd)
-    if arch == "nst":
+    arch = "reconet" if model_type == "reconet" else ckpt.detect_transformer_arch(sd)
+    if arch == "reconet":
+        tree = ckpt.import_reconet(sd)
+        net = rn.ReCoNet(frn=tree["frn"])
+        net.load_state_dict(rn.params_from_jax(tree))
+    elif arch == "nst":
         net = tnn.TransformerNetNST()
         net.load_state_dict(tnn.params_from_jax(ckpt.import_transformer_nst(sd)))
     else:
@@ -89,15 +100,22 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
 def make_random_model(arch: str = "nst", *, seed: int = 0, io_preset: str | None = None,
                       device: torch.device | str = "cpu") -> StyleModel:
     """A random-weight slot from a seed (tests and the chip smoke, where no
-    trained checkpoint is in the repo): ``nst`` only, with ``raw_01``."""
-    if arch != "nst":
+    trained checkpoint is in the repo): ``nst`` (preset ``raw_01``) or an IN
+    ``reconet`` (``imagenet_01``; an FRN net: ``models/reconet.init(seed,
+    frn=True)`` saved and loaded)."""
+    if arch == "nst":
+        net, preset = tnn.TransformerNetNST(), "raw_01"
+        net.load_state_dict(tnn.init(seed))
+    elif arch == "reconet":
+        net, preset = rn.ReCoNet(), "imagenet_01"
+        net.load_state_dict(rn.params_from_jax(ckpt.import_reconet(
+            {k: v.numpy() for k, v in rn.init(seed).items()})))
+    else:
         raise NotImplementedError(
-            f"make_random_model({arch!r}): only 'nst' is ported (a Johnson slot loads "
-            "_testdata/test_johnson.pth)")
-    net = tnn.TransformerNetNST()
-    net.load_state_dict(tnn.init(seed))
+            f"make_random_model({arch!r}): only 'nst' and 'reconet' are ported (a Johnson slot "
+            "loads _testdata/test_johnson.pth)")
     net = net.to(device).eval().requires_grad_(False)
-    return StyleModel("nst", net, io_preset or "raw_01", "random_nst")
+    return StyleModel(arch, net, io_preset or preset, f"random_{arch}")
 
 
 def _input_size(out: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
@@ -193,6 +211,8 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
             "(--quantize under float32)")
     if model.arch == "nst":
         return _nst_stylizer(model, dtype, quantize, fused_sites)
+    if model.arch == "reconet":
+        return _reco_stylizer(model, dtype, quantize, fused_sites)
     if fused_sites is not None:
         unknown = sorted(set(fused_sites) - set(tq.FUSED_SITE_NAMES))
         if unknown:
@@ -267,6 +287,54 @@ def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_si
         H, W = x.shape[1], x.shape[2]
         if H < 8 or W < 8:
             return stylize(net, model.io_preset, x).float()
+        big = quantize in ("int8_static", "int8") and H >= 32 and W >= 64
+        return _pad_call(stylize, state["forward"], model.io_preset, x,
+                         *((8, 32) if big else (4, 4))).float()
+
+    return fn
+
+
+def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+    """``jit_stylizer`` for a ReCoNet slot (JAX ``jit_stylizer`` with
+    ``reco_fast_params``): the fast form (``reconet_fast.FastReCoNet`` of the
+    f32 net, cast to ``dtype`` after the f32 phase sums) at sizes padded to
+    multiples of 4 (8 × 32 under int8 once H ≥ 32 and W ≥ 64), the pixel net
+    below 8 pixels. A quantize mode calibrates on the first frame (the f32
+    fast form, padded to multiples of 4): frozen norms
+    (``calibrate_in_stats``) for the static modes, activation scales and int8
+    res and decoder weights for the int8 ones, routed by the adopted
+    ``reco_static`` / ``reco`` set or ``fused_sites``."""
+    fp32 = rf.FastReCoNet(model.net)
+    fp = fp32 if dtype == torch.float32 else copy.deepcopy(fp32).to(dtype)
+    fused = None if fused_sites is None else tuple(fused_sites)
+    state = {"forward": (lambda t: rf.apply(fp, t)) if quantize == "none" else None}
+
+    def calibrate(x01):
+        from .. import adopt_overrides
+
+        xin = _calibration_input(model, x01)
+        stats = None
+        if quantize in ("bf16_static", "int8_static"):
+            stats = rf.calibrate_in_stats(fp32, xin)
+        if quantize == "bf16_static":
+            print(f"[stylizer] static-norm bf16 reconet path calibrated for {model.name} "
+                  f"({len(stats)} frozen norms)")
+            return lambda t: rf.apply(fp, t, static_stats=stats)
+        scales = rf.calibrate_act_scales(fp32, xin, static_stats=stats)
+        sites = rf.prepare_sites(fp, rf.quantize_net(fp32, scales), x01.device)
+        sset = adopt_overrides.sites("reco_static" if stats else "reco") if fused is None else fused
+        print(f"[stylizer] {quantize} reconet path calibrated for {model.name} ({len(sites)} "
+              f"int8 sites, fused {sset})")
+        return lambda t: rf.apply(fp, t, sites=sites, fused_sites=sset, static_stats=stats)
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        if state["forward"] is None:
+            state["forward"] = calibrate(x01)
+        x = x01.to(dtype)
+        H, W = x.shape[1], x.shape[2]
+        if H < 8 or W < 8:
+            return stylize(fp.net, model.io_preset, x).float()
         big = quantize in ("int8_static", "int8") and H >= 32 and W >= 64
         return _pad_call(stylize, state["forward"], model.io_preset, x,
                          *((8, 32) if big else (4, 4))).float()

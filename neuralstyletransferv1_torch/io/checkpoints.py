@@ -1,8 +1,8 @@
-"""Checkpoint import: reference-format torch state dicts → the Johnson and
-NST_Train param trees (numpy leaves).
+"""Checkpoint import: reference-format torch state dicts → the Johnson,
+NST_Train and ReCoNet param trees (numpy leaves).
 
-The port's copy of the Johnson and NST_Train parts of the JAX engine's
-``io/checkpoints.py`` (the port imports nothing of the JAX package):
+The port's copy of the Johnson, NST_Train and ReCoNet parts of the JAX
+engine's ``io/checkpoints.py`` (the port imports nothing of the JAX package):
 
 - robust load: ``weights_only`` retry, ``state_dict`` unwrap, legacy
   InstanceNorm running-stat dropping;
@@ -10,7 +10,10 @@ The port's copy of the Johnson and NST_Train parts of the JAX engine's
 - conv weights OIHW → HWIO, transposed-conv weights IOHW → (k, k, Cout,
   Cin), norms ``weight``/``bias`` → ``scale``/``bias``: the trees
   ``models.transformer_net.params_from_jax`` and
-  ``models.transformer_net_nst.params_from_jax`` take.
+  ``models.transformer_net_nst.params_from_jax`` take;
+- ReCoNet's nested-Sequential key layout (``import_reconet``, FRN nets
+  detected by their ``.tau`` keys, the FRN parameters' (1, C, 1, 1) shapes
+  flattened to (C,)): the tree ``models.reconet.params_from_jax`` takes.
 """
 
 from __future__ import annotations
@@ -112,3 +115,51 @@ def import_transformer_nst(sd: dict[str, np.ndarray]) -> dict:
         p[name] = {"conv": _conv_t(sd, f"{name}.conv"), "norm": _norm(sd, f"{name}.norm")}
     p["final"] = _conv(sd, "final")
     return p
+
+
+def _reconet_cnl(sd, prefix, use_frn) -> dict:
+    """A ConvNormLayer: Sequential(ConvLayer, Norm[, Act]), the ConvLayer
+    itself Sequential(ReflectionPad2d, Conv2d): the conv at
+    ``{prefix}.layers.0.layers.1``, the norm at ``{prefix}.layers.1``, an FRN
+    net's TLU at ``{prefix}.layers.2``."""
+    out = {
+        "conv": _conv(sd, f"{prefix}.layers.0.layers.1"),
+        "norm": _norm(sd, f"{prefix}.layers.1"),
+    }
+    if use_frn and f"{prefix}.layers.2.tau" in sd:
+        out["norm"]["tau"] = sd[f"{prefix}.layers.2.tau"].reshape(-1)
+    return out
+
+
+def _flatten_frn(t):
+    """(1, C, 1, 1) FRN parameters → (C,); conv weights (HWIO, never of that
+    shape) and everything else as they are."""
+    if isinstance(t, dict):
+        return {k: _flatten_frn(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_flatten_frn(v) for v in t]
+    if isinstance(t, np.ndarray) and t.ndim == 4 and t.shape[0] == 1 and t.shape[2] == 1:
+        return t.reshape(-1)
+    return t
+
+
+def import_reconet(sd: dict[str, np.ndarray]) -> dict:
+    """ReCoNet state dict → param tree ``{"frn", "encoder", "decoder"}``: the
+    three encoder ConvNormLayers (``encoder.layers.{0,1,2}``), the four
+    ResLayers (``encoder.layers.{3..6}.branch.{0,1}``, an FRN net's post-add
+    TLU at ``.activation.tau``), the two decoder ConvNormLayers
+    (``decoder.layers.{1,3}``, after the upsamples) and the final conv
+    (``decoder.layers.4.layers.0.layers.1``)."""
+    use_frn = any(".tau" in k for k in sd)
+    enc: list = [_reconet_cnl(sd, f"encoder.layers.{i}", use_frn) for i in range(3)]
+    for i in range(3, 7):
+        c1 = _reconet_cnl(sd, f"encoder.layers.{i}.branch.0", use_frn)
+        c2 = _reconet_cnl(sd, f"encoder.layers.{i}.branch.1", use_frn)
+        enc.append({"conv1": c1["conv"], "norm1": c1["norm"], "conv2": c2["conv"],
+                    "norm2": c2["norm"],
+                    "act": ({"tau": sd[f"encoder.layers.{i}.activation.tau"].reshape(-1)}
+                            if use_frn else None)})
+    dec = [_reconet_cnl(sd, "decoder.layers.1", use_frn),
+           _reconet_cnl(sd, "decoder.layers.3", use_frn),
+           {"conv": _conv(sd, "decoder.layers.4.layers.0.layers.1")}]
+    return _flatten_frn({"frn": use_frn, "encoder": enc, "decoder": dec})

@@ -1,5 +1,5 @@
-"""K2–K8b: the int8 site convs of the quantized Johnson path
-(``csrc/int8_sites.cu``).
+"""K2–K8b: the int8 site convs of the quantized Johnson, NST_Train and ReCoNet
+paths (``csrc/int8_sites.cu``).
 
 Each replaces one Pallas kernel of ``neuralstyletransferv1_tpu/models/
 s2d2_sites_i8.py``. K2–K5 and K8 are one operation — a 3×3 conv of int8
@@ -26,6 +26,15 @@ and the S8OUT mask of the TPU kernels), so no padding column enters a dot:
                         ``_c2p_kernel``)
   K8b ``c3_site``       K4 at stride 2, C = 64 → 128: conv3 (``c3p_site`` /
                         ``_c3p_kernel``)
+
+ReCoNet's forms, at its res width C = 192 (and 96 at its deconv2): K4 at
+C = 192 → 192 (reflect) and → 384 (edge), and 96 → 192 (edge), with an
+optional ``tau`` floor, a (B, C) row applied to x·a + c before the round
+(FRN's TLU folded into the quantize); K5 at C = 192 with ``act`` = "relu" or
+"tau", the post-add activation max(v, 0) or max(v, bf16(tau_act)) applied to
+v before it is written and quantized; K2 at C = 192, also with the emit
+floor ``qlo`` and a (CO,) pre-round ``tau`` floor on bf16(f)·qa + qc; K3 at
+C = 192. A channel count or form a kernel is not built for raises.
 
 On the card K3 and K4 run on the int8 tensor cores (``mma_kernel``: 8×16
 output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``); K2, K5, K8a and
@@ -77,7 +86,13 @@ LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
 #: the halos of K4, K5 and K8 (their zero forms are not ported)
 HALOS_RE = ("reflect", "edge")
-KERNEL_C = (64, 128)  # input channel counts of the stride-1 3×3 kernels
+KERNEL_C = (64, 128)  # input channel counts of the Johnson / NST 3×3 kernels
+RECO_C = 192          # ReCoNet's res width: K2's floored emit, K5's activation
+#: the input channel counts K4, K3 and K2 are built for (K4's tau floor only
+#: at 96 and 192; K5 at KERNEL_C, with ``act`` at RECO_C)
+SITE_C = {"res_site": (64, 96, 128, 192), "site_s8": (64, 128, 192),
+          "res_site_s8o": (64, 128, 192)}
+TAU_C = (96, 192)
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block of the __dp4a core
 #: output tile (rows, columns) of each core: the [Σ, Σ²] partials are per tile
@@ -118,14 +133,24 @@ def _rows(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None, :]
 
 
-def _quantize(x32: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float) -> torch.Tensor:
-    """q = clamp(round(x·a + c), lo, 127), half to even, as f32 codes."""
-    return torch.clamp(torch.round(x32 * _rows(a) + _rows(c)), lo, 127.0)
+def _quantize(x32: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float,
+              tau: torch.Tensor | None = None) -> torch.Tensor:
+    """q = clamp(round(x·a + c), lo, 127), half to even, as f32 codes; with
+    the (B, C) floor ``tau``, clamp(round(max(x·a + c, tau)), lo, 127)."""
+    v = x32 * _rows(a) + _rows(c)
+    if tau is not None:
+        v = torch.maximum(v, _rows(tau))
+    return torch.clamp(torch.round(v), lo, 127.0)
 
 
-def _emit(f: torch.Tensor, qa: torch.Tensor, qc: torch.Tensor, qlo: float) -> torch.Tensor:
-    """s8 codes clamp(round(f·qa + qc), qlo, 127) of bf16 values f."""
-    return torch.clamp(torch.round(f.float() * qa + qc), qlo, 127.0).to(torch.int8)
+def _emit(f: torch.Tensor, qa: torch.Tensor, qc: torch.Tensor, qlo: float,
+          tau: torch.Tensor | None = None) -> torch.Tensor:
+    """s8 codes clamp(round(f·qa + qc), qlo, 127) of bf16 values f; with the
+    (CO,) floor ``tau``, clamp(round(max(f·qa + qc, tau)), qlo, 127)."""
+    v = f.float() * qa + qc
+    if tau is not None:
+        v = torch.maximum(v, tau)
+    return torch.clamp(torch.round(v), qlo, 127.0).to(torch.int8)
 
 
 def _halo(q: torch.Tensor, halo: str) -> torch.Tensor:
@@ -163,11 +188,12 @@ def _mask_sw(q: torch.Tensor, sw: int | None) -> torch.Tensor:
     return q
 
 
-def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect", sw=None):
+def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None,
+                       halo="reflect", sw=None):
     """K2's plain version → s8 codes [B,H,W,CO]."""
     _check_sw("res_site_s8o", halo, sw, x.shape[2])
     fv = _conv_dequant(_mask_sw(_quantize(x.float(), a, c, lo), sw), wk, ws, bias, halo)
-    return _mask_sw(_emit(fv, qa, qc, 0.0), sw)
+    return _mask_sw(_emit(fv, qa, qc, qlo, tau), sw)
 
 
 def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
@@ -186,9 +212,9 @@ def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=N
     return fv if qa is None else _mask_sw(_emit(fv, qa, qc, qlo), sw)
 
 
-def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
+def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
     """K4's plain version → (bf16 raw [B,H,W,CO], f32 [B,2,CO] sums)."""
-    fv = _conv_dequant(_quantize(x.float(), a, c, lo), wk, ws, bias, halo)
+    fv = _conv_dequant(_quantize(x.float(), a, c, lo, tau), wk, ws, bias, halo)
     return fv, _sums(fv)
 
 
@@ -197,10 +223,28 @@ def _combine(r2, yp, a2, c2):
     return (t.float() + yp.float()).to(torch.bfloat16)
 
 
+ACTS = ("relu", "tau")  # K5's post-add activations (ReCoNet)
+
+
+def act_floor(act, tau_act, like: torch.Tensor) -> torch.Tensor:
+    """K5's post-add floor row [B,C] f32: 0 for a ReLU, bf16(tau_act) for a
+    TLU (the Pallas kernel maxes bf16 v with the floor cast to bf16)."""
+    if act not in ACTS:
+        raise ValueError(f"act {act!r} not in {ACTS}")
+    if act == "relu":
+        return torch.zeros((like.shape[0], like.shape[-1]), dtype=torch.float32,
+                           device=like.device)
+    if tau_act is None:
+        raise ValueError("act='tau' needs tau_act")
+    return tau_act.to(torch.bfloat16).float().contiguous()
+
+
 def res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect",
-                        yout=True):
+                        yout=True, act=None, tau_act=None):
     """K5's plain version → (bf16 raw, f32 sums, v or None)."""
     v = _combine(r2, yp, a2, c2)
+    if act is not None:
+        v = torch.maximum(v.float(), _rows(act_floor(act, tau_act, r2))).to(torch.bfloat16)
     fv = _conv_dequant(_quantize(v.float(), a, c, lo), wk, ws, bias, halo)
     return fv, _sums(fv), (v if yout else None)
 
@@ -249,12 +293,12 @@ def _lib():
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [I] * 5  # B, H, W, C, CO
     sigs = {
-        "res_site_s8o_launch": [P] * 9 + dims + [Fl, I, I, P],
+        "res_site_s8o_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
         "site_s8_launch": [P] * 12 + dims + [I, Fl, I, I, P],
         "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, I, P],
-        "res_site_launch": [P] * 9 + dims + [Fl, I, P],
-        "res_site_prev_launch": [P] * 9 + dims + [Fl, I, P],
-        "res_site_skip_launch": [P] * 13 + dims + [Fl, I, P],
+        "res_site_launch": [P] * 10 + dims + [Fl, I, P],
+        "res_site_prev_launch": [P] * 10 + dims + [Fl, I, P],
+        "res_site_skip_launch": [P] * 14 + dims + [Fl, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
         "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
@@ -278,12 +322,15 @@ def _check(kernel, name, t, dtype, shape, dev):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=KERNEL_C, halos=HALOS_RE):
-    """Validate the shared operands; returns (dev, B, H, W, C, CO)."""
+def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=None, halos=HALOS_RE):
+    """Validate the shared operands; returns (dev, B, H, W, C, CO).
+    ``kernel_c``: the input channel counts the kernel's form is built for
+    (default: ``SITE_C[kernel]``)."""
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{kernel}: no kernel for device {dev}")
     B, H, W, C = x.shape
+    kernel_c = SITE_C[kernel] if kernel_c is None else kernel_c
     if C not in kernel_c:
         raise ValueError(f"{kernel}: C={C}, the kernel is built for C in {kernel_c}")
     if wk.dim() != 3 or wk.shape[0] != 9 or wk.shape[1] * 4 != C:
@@ -323,26 +370,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, halo="reflect", sw=None):
+def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="reflect",
+                 sw=None):
     """K2: quantize x (a, c, lo) → 3×3 int8 conv → bf16(acc·ws + bias) →
-    s8 codes clamp(round(f·qa + qc), 0, 127) [B,H,W,CO]: the next site's
-    input, its norm and ReLU folded into qa, qc and the floor. ``sw`` (zero
-    halo only): the codes of x and of the output in columns >= sw are 0."""
+    s8 codes clamp(round(f·qa + qc), qlo, 127) [B,H,W,CO]: the next site's
+    input, its norm and ReLU folded into qa, qc and the floor 0. ``tau``
+    (CO,): a floor on f·qa + qc before the round (FRN's TLU, with qlo −127;
+    the floored emit is built for C = 192). ``sw`` (zero halo only): the
+    codes of x and of the output in columns >= sw are 0."""
     if x.device.type == "cpu":
-        return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, halo=halo, sw=sw)
+        return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, qlo=qlo, tau=tau,
+                                  halo=halo, sw=sw)
     k = "res_site_s8o"
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, halos=tuple(HALOS))
+    floored = tau is not None or qlo != 0.0
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, halos=tuple(HALOS),
+                                      kernel_c=(RECO_C,) if floored else None)
     _check_sw(k, halo, sw, W)
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
-    for name, t in (("qa", qa), ("qc", qc)):
-        _check(k, name, t, torch.float32, (CO,), dev)
+    for name, t in (("qa", qa), ("qc", qc), ("tau", tau)):
+        if t is not None:
+            _check(k, name, t, torch.float32, (CO,), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         _run(k, _lib().res_site_s8o_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(),
-             out.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], sw or W, _stream(dev))
+             _ptr(tau), out.data_ptr(), B, H, W, C, CO, float(lo), float(qlo), HALOS[halo],
+             sw or W, _stream(dev))
     return out
 
 
@@ -373,7 +428,8 @@ def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=No
 
 def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw):
     k = "site_s8"
-    dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS))
+    dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS),
+                                      kernel_c=SITE_C[k] if count else KERNEL_C)
     _check_sw(k, halo, sw, W)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
     _check_aligned(k, "xq", xq)
@@ -420,49 +476,62 @@ def _stats_buffers(B, H, W, CO, dev, tile):
     return part, torch.empty((B, 2, CO), dtype=torch.float32, device=dev)
 
 
-def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
+def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
     """K4: quantize x → 3×3 int8 conv → bf16 raw [B,H,W,CO] and the f32
-    [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. On the card: the int8
-    tensor-core core."""
+    [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. ``tau`` (B, C): a floor on
+    x·a + c before the round (FRN's TLU; C = 96 or 192). On the card: the
+    int8 tensor-core core."""
     if x.device.type == "cpu":
-        return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo)
-    return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo)
+        return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo, tau=tau)
+    return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau)
 
 
 def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
-    """K4 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
-    times it beside ``res_site``. Nothing on the main path calls it, and it
-    counts no launch."""
-    return _res_site("res_site_prev_launch", TILE_DP4A, False, x, a, c, lo, wk, ws, bias, halo)
+    """K4 on the previous ``__dp4a`` core (C = 64, 128; no floor), CUDA
+    tensors only: ``chip_smoke.py`` times it beside ``res_site``. Nothing on
+    the main path calls it, and it counts no launch."""
+    return _res_site("res_site_prev_launch", TILE_DP4A, False, x, a, c, lo, wk, ws, bias, halo,
+                     None, kernel_c=KERNEL_C)
 
 
-def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo):
+def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None):
     k = "res_site"
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo)
+    if tau is not None:
+        kernel_c = TAU_C
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, kernel_c=kernel_c)
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
-    for name, t in (("a", a), ("c", c)):
-        _check(k, name, t, torch.float32, (B, C), dev)
+    for name, t in (("a", a), ("c", c), ("tau", tau)):
+        if t is not None:
+            _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
     with torch.cuda.device(dev):
-        _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(),
+        _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), _ptr(tau),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
              sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev),
              count=count)
     return out, sums
 
 
-def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", yout=True):
+def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", yout=True,
+                  act=None, tau_act=None):
     """K5: v = bf16(bf16(r2·a2 + c2) + yp) in the prologue, then K4 on v.
-    Returns (bf16 raw, f32 sums, v) — v is None when ``yout`` is False."""
+    ``act`` (ReCoNet, C = 192): the post-add activation on v before it is
+    written and quantized, "relu" (max(v, 0)) or "tau" (max(v,
+    bf16(tau_act)), tau_act (B, C) f32). Returns (bf16 raw, f32 sums, v) — v
+    is None when ``yout`` is False."""
     if r2.device.type == "cpu":
         return res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo=halo,
-                                   yout=yout)
+                                   yout=yout, act=act, tau_act=tau_act)
     k = "res_site_skip"
-    dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo)
+    dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
+                                      kernel_c=KERNEL_C if act is None else (RECO_C,))
     for name, t in (("r2", r2), ("yp", yp)):
         _check(k, name, t, torch.bfloat16, (B, H, W, C), dev)
+    if act is not None and tau_act is not None:
+        _check(k, "tau_act", tau_act, torch.float32, (B, C), dev)
+    floor = None if act is None else act_floor(act, tau_act, r2)
     for name, t in (("a", a), ("c", c), ("a2", a2), ("c2", c2)):
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
@@ -470,9 +539,9 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
     part, sums = _stats_buffers(B, H, W, CO, dev, TILE_DP4A)
     with torch.cuda.device(dev):
         _run(k, _lib().res_site_skip_launch, r2.data_ptr(), yp.data_ptr(), a.data_ptr(),
-             c.data_ptr(), a2.data_ptr(), c2.data_ptr(), wk.data_ptr(), ws.data_ptr(),
-             bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(), sums.data_ptr(),
-             B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
+             c.data_ptr(), a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(),
+             ws.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(),
+             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
     return out, sums, v
 
 

@@ -328,12 +328,16 @@ def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
 
 
 def _qc(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float, site: Site,
-        halo: str) -> torch.Tensor:
+        halo: str, tau: torch.Tensor | None = None) -> torch.Tensor:
     """One int8 site as the JAX engine's ``_qc`` runs it through XLA:
     q = clamp(round(x·a + c), lo, 127) over a 1-pixel halo (reflect, edge or
     zero codes) → exact int8 conv → bf16(acc·ws + bias). a, c: [B,C]
-    quantize rows."""
-    q = torch.clamp(torch.round(x.float() * a[:, None, None, :] + c[:, None, None, :]), lo, 127.0)
+    quantize rows; ``tau`` [C]: a floor on x·a + c before the round (a TLU
+    folded into the quantize, ReCoNet's ``_res_quant_xla``)."""
+    v = x.float() * a[:, None, None, :] + c[:, None, None, :]
+    if tau is not None:
+        v = torch.maximum(v, tau)
+    q = torch.clamp(torch.round(v), lo, 127.0)
     mode = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}[halo]
     q = F.pad(q.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
     acc = conv2d_i8(q, k8.unpack_weights(site.wk))

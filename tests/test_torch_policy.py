@@ -297,6 +297,77 @@ def test_k3_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
     assert k8.LAUNCHES["site_s8"] - before == n
 
 
+# ReCoNet's forms at ragged shapes: (B, H, W, C, CO, halo); at C = 192 the
+# tensor-core core stages 64 output channels a block, at 96 its k32 steps are
+# odd (27), and the prologue's 16-byte chunks do not divide its 256 threads
+_RECO_SHAPES = [(3, 13, 21, 192, 192, "reflect"), (1, 9, 35, 192, 384, "edge"),
+                (2, 11, 30, 96, 192, "edge"), (1, 16, 32, 96, 192, "edge")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,halo", _RECO_SHAPES)
+def test_reconet_k4_forms_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
+    """K4 at ReCoNet's widths, with and without the TLU floor ``tau``:
+    bf16 raw bit-identical to the plain version, sums within 1e-5, two
+    launches bit-identical."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + c)
+    x, a, cc = t["x"][:1].repeat(b, 1, 1, 1), t["a"][:1].repeat(b, 1), t["c"][:1].repeat(b, 1)
+    x[-1] = -x[-1]
+    tau = torch.randn((b, c), device=cuda_device) * 20 - 10
+    for lo, kw in ((0.0, {}), (-127.0, dict(tau=tau))):
+        args = (x, a, cc, lo, t["w"], t["ws"], t["bias"])
+        before = k8.LAUNCHES["res_site"]
+        o, s = k8.res_site(*args, halo=halo, **kw)
+        o2, s2 = k8.res_site(*args, halo=halo, **kw)
+        po, ps = k8.res_site_plain(*args, halo=halo, **kw)
+        torch.cuda.synchronize()
+        assert k8.LAUNCHES["res_site"] - before == 2
+        assert torch.equal(o, po), sorted(kw)
+        assert _sums_close(s, ps, h * w), sorted(kw)
+        assert torch.equal(o, o2) and torch.equal(s, s2), sorted(kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(3, 13, 21), (1, 8, 16)])
+def test_reconet_k2_k3_k5_forms_match_plain_on_card(cuda_device, b, h, w):
+    """At C = 192: K5 with the post-add ``relu`` and ``tau``, K2's IN and
+    FRN (``qlo`` −127 + ``tau``) emits, and K3 on each emit's codes (frozen
+    affine + residual): bit-identical to the plain versions and across two
+    launches; the forms a width is not built for raise."""
+    t = _int8_inputs(cuda_device, 192, 192, h=h, w=w, seed=b + h)
+    take = lambda v: v[:1].repeat(b, *([1] * (v.dim() - 1))).contiguous()  # noqa: E731
+    x, y, a, c, a2, c2 = (take(t[k]) for k in ("x", "y", "a", "c", "a2", "c2"))
+    tau_act = torch.randn((b, 192), device=cuda_device) * 0.5 - 0.3
+    skip = (x, y, a, c, a2, c2, -127.0, t["w"], t["ws"], t["bias"])
+    for kw in (dict(act="relu"), dict(act="tau", tau_act=tau_act)):
+        out, again = k8.res_site_skip(*skip, **kw), k8.res_site_skip(*skip, **kw)
+        ref = k8.res_site_skip_plain(*skip, **kw)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2]), kw["act"]
+        assert _sums_close(out[1], ref[1], h * w), kw["act"]
+        assert all(torch.equal(p, q) for p, q in zip(out, again)), kw["act"]
+    tauo = torch.randn(192, device=cuda_device) * 20 - 20
+    s8o = (x, a, c, -127.0, t["w"], t["ws"], t["bias"], t["qa"], t["qc"])
+    aff = (t["qa"] / 40, t["qc"] / 40, y)
+    for kw in ({}, dict(qlo=-127.0, tau=tauo)):
+        q, q2 = k8.res_site_s8o(*s8o, **kw), k8.res_site_s8o(*s8o, **kw)
+        assert torch.equal(q, k8.res_site_s8o_plain(*s8o, **kw)) and torch.equal(q, q2)
+        assert bool((q < 0).any()) == bool(kw)
+        o = k8.site_s8(q, t["w"], t["ws"], t["bias"], *aff)
+        assert torch.equal(o, k8.site_s8_plain(q, t["w"], t["ws"], t["bias"], *aff))
+        assert torch.equal(o, k8.site_s8(q, t["w"], t["ws"], t["bias"], *aff))
+    torch.cuda.synchronize()
+    t64 = _int8_inputs(cuda_device, 128, 128)
+    with pytest.raises(ValueError, match="C=128"):  # the floored emit is built at 192 only
+        k8.res_site_s8o(t64["x"], t64["a"], t64["c"], -127.0, t64["w"], t64["ws"], t64["bias"],
+                        t64["qa"], t64["qc"], qlo=-127.0, tau=t64["qc"])
+    with pytest.raises(ValueError, match="C=128"):  # the post-add activation too
+        k8.res_site_skip(t64["x"], t64["y"], t64["a"], t64["c"], t64["a2"], t64["c2"], 0.0,
+                         t64["w"], t64["ws"], t64["bias"], act="relu")
+    with pytest.raises(ValueError, match="C=128"):  # and K4's floor
+        k8.res_site(t64["x"], t64["a"], t64["c"], -127.0, t64["w"], t64["ws"], t64["bias"],
+                    tau=t64["a"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,c,co", [("c2_site", 32, 64), ("c3_site", 64, 128)])
 def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co):

@@ -1,0 +1,563 @@
+"""ReCoNet in the PyTorch port vs the JAX package, on the CPU, for both norm
+families (IN + ReLU, FRN + TLU).
+
+Weight import from the reference key layout; the pixel form
+(``reconet.apply``) and the fast form the JAX engine runs
+(``reconet_fast.apply``: f32, bf16); calibration; the ReCoNet forms of
+K2–K5 (plain versions vs the interpret-mode Pallas kernels at the real
+widths C = 192 and 96 on small grids: K4's ``tau`` floor and its 192 → 384
+and 96 → 192 decoder sites, K5's post-add ``relu`` / ``tau``, K2's ``qlo``
+and ``tau`` emit, K3 at C = 192); the ``res_i8`` chain with and without
+``RECO_SKIP``, the ``res_s8`` static chain (bit-exact against the op-by-op
+XLA reference) and ``dec_i8`` against the JAX chains; launch routing by
+spying on the ``k8`` wrappers; the stylize modes against the JAX engine;
+and a ReCoNet slot through the CLI. The kernels themselves run only on the
+card (``tests/test_torch_policy.py``).
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from neuralstyletransferv1_tpu.engine import pipeline as jpipe
+from neuralstyletransferv1_tpu.engine import stylizer as jst
+from neuralstyletransferv1_tpu.io import checkpoints as jckpt
+from neuralstyletransferv1_tpu.models import reconet as jr
+from neuralstyletransferv1_tpu.models import reconet_fast as jf
+from neuralstyletransferv1_tpu.models import s2d2_sites_i8 as si8
+from neuralstyletransferv1_torch import adopt_overrides
+from neuralstyletransferv1_torch.engine import pipeline as tpipe
+from neuralstyletransferv1_torch.engine import stylizer as tst
+from neuralstyletransferv1_torch.io import checkpoints as tckpt
+from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+from neuralstyletransferv1_torch.kernels import int8_sites as k8
+from neuralstyletransferv1_torch.models import reconet as tr
+from neuralstyletransferv1_torch.models import reconet_fast as tf
+from neuralstyletransferv1_torch.models.s2d import d2s
+from tests.test_torch_int8 import assert_codes_close, assert_sums_close
+
+CPU = torch.device("cpu")
+FRNS = [False, True]
+
+
+def _bf16(tree):
+    return jax.tree.map(lambda a: a.astype(jnp.bfloat16)
+                        if hasattr(a, "astype") and a.dtype == jnp.float32 else a, tree)
+
+
+def _tree(frn: bool, seed: int = 3) -> dict:
+    """The JAX package's random ReCoNet weights (``reconet.init``), with the
+    norms' affines and the TLU thresholds drawn too (the init sets them to
+    identity and 0), so that every one of them matters."""
+    tree = jax.tree.map(np.asarray, jr.init(jax.random.key(seed), frn=frn))
+    rng = np.random.default_rng(seed)
+
+    def draw(n):
+        c = n["scale"].shape[0]
+        n["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        n["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+        if frn:
+            n["tau"] = rng.uniform(-0.5, 0.0, c).astype(np.float32)
+
+    for p in tree["encoder"][:3] + tree["decoder"][:2]:
+        draw(p["norm"])
+    for r in tree["encoder"][3:]:
+        draw(r["norm1"])
+        draw(r["norm2"])
+        if frn:
+            r["act"]["tau"] = rng.uniform(-0.5, 0.0, 192).astype(np.float32)
+    return tree
+
+
+@pytest.fixture(scope="module", params=FRNS, ids=["in", "frn"])
+def reco(request):
+    """One net per norm family: the JAX tree and fast params (f32, bf16),
+    the port's pixel net and fast forms (f32, bf16)."""
+    frn = request.param
+    tree = _tree(frn)
+    net = tr.ReCoNet(frn)
+    net.load_state_dict(tr.params_from_jax(tree))
+    net = net.eval().requires_grad_(False)
+    fp32 = tf.FastReCoNet(net)
+    fp = jf.from_reconet_params(tree)
+    return {"frn": frn, "tree": tree, "net": net, "fp32": fp32,
+            "fpb": copy.deepcopy(fp32).to(torch.bfloat16), "jfp": fp, "jpb": _bf16(fp)}
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).random(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# weights and the two net forms
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("frn", FRNS, ids=["in", "frn"])
+def test_import_matches_jax_and_loads(tmp_path, frn):
+    """The reference layout ``init`` writes: the port's importer gives the
+    JAX importer's tree (FRN detected by ``.tau``, (1,C,1,1) flattened), the
+    net loads it, and ``load_model`` resolves ReCoNet's preset."""
+    sd = tr.init(1, frn)
+    np_sd = {k: v.numpy() for k, v in sd.items()}
+    assert any(".tau" in k for k in sd) == frn
+    ours, ref = tckpt.import_reconet(np_sd), jckpt.import_reconet(np_sd)
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]  # noqa: E731
+    assert [p for p, _ in flat(ours)] == [p for p, _ in flat(ref)]
+    for (_, a), (_, b) in zip(flat(ours), flat(ref)):
+        assert np.shape(a) == np.shape(b) and np.array_equal(a, b)
+    net = tr.ReCoNet(frn)
+    net.load_state_dict(tr.params_from_jax(ours))
+    assert net.enc1.conv.weight.shape == (48, 3, 9, 9) and net.final.weight.shape == (3, 48, 9, 9)
+    path = tmp_path / "reco.pth"
+    torch.save(sd, path)
+    for preset, want in (("auto", "imagenet_01"), ("tanh", "tanh")):
+        m = tst.load_model(path, model_type="reconet", io_preset=preset)
+        assert (m.arch, m.io_preset, m.net.frn) == ("reconet", want, frn)
+        assert jst.load_model(path, model_type="reconet", io_preset=preset).io_preset == want
+    assert torch.equal(m.net.res(2).conv1.weight,
+                       sd["encoder.layers.5.branch.0.layers.0.layers.1.weight"])
+    r = tst.make_random_model("reconet", seed=4)
+    assert (r.arch, r.io_preset, r.net.frn) == ("reconet", "imagenet_01", False)
+
+
+def test_pixel_form_matches_jax(reco):
+    x = _x((1, 48, 64, 3), 0) * 2 - 1
+    p = {**jax.tree.map(jnp.asarray, reco["tree"]), "frn": reco["frn"]}
+    ref = np.asarray(jax.jit(lambda t: jr.apply(p, t))(x))
+    ours = reco["net"](torch.from_numpy(x)).numpy()
+    assert ours.shape == ref.shape == (1, 48, 64, 3)
+    assert np.abs(ours - ref).mean() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_fast_form_matches_jax(reco, dtype, bound):
+    """f32: measured 1.4e-6 (IN) and 1.9e-6 (FRN). bf16 on the tanh output:
+    the same function in other rounding orders (the JAX deconv3's row sums
+    round in bf16, the port's pixel conv once)."""
+    x = _x((1, 48, 64, 3), 1) * 2 - 1
+    if dtype == "float32":
+        ref = np.asarray(jax.jit(lambda t: jf.apply(reco["jfp"], t))(x))
+        ours = tf.apply(reco["fp32"], torch.from_numpy(x)).numpy()
+    else:
+        ref = np.asarray(jax.jit(lambda t: jf.apply(reco["jpb"], t))(
+            jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+        ours = tf.apply(reco["fpb"], torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    assert ours.shape == ref.shape
+    assert np.abs(ours - ref).mean() <= bound
+
+
+def test_calibration_matches_jax(reco):
+    x = _x((1, 32, 64, 3), 2) * 2 - 1
+    js = jf.calibrate_in_stats(reco["jfp"], jnp.asarray(x))
+    ts = tf.calibrate_in_stats(reco["fp32"], torch.from_numpy(x))
+    assert sorted(js) == sorted(ts) and len(ts) == 13
+    for k in js:
+        for a, b in zip(ts[k], js[k]):
+            b = np.asarray(b)
+            assert a.shape == b.shape
+            assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max(), k
+    for stats in (None, ts):
+        jsc = jf.calibrate_act_scales(
+            reco["jfp"], jnp.asarray(x),
+            static_stats=None if stats is None else {k: tuple(jnp.asarray(t.numpy()) for t in v)
+                                                     for k, v in stats.items()})
+        tsc = tf.calibrate_act_scales(reco["fp32"], torch.from_numpy(x), static_stats=stats)
+        assert sorted(jsc) == sorted(tsc) == sorted(tf.RES_SITES + ("d1", "d2"))
+        assert all(abs(tsc[k] - jsc[k]) <= 1e-5 * jsc[k] for k in jsc)
+    q = tf.quantize_net(reco["fp32"], tsc)
+    jq = jf.quantize_net(reco["jfp"], tsc)
+    assert sorted(q) == sorted(jq)
+    for k in q:
+        assert np.array_equal(q[k]["w"].numpy(), np.asarray(jq[k]["w"])), k
+        assert np.array_equal(q[k]["ws"].numpy(), np.asarray(jq[k]["ws"])), k
+        assert q[k]["qin"] == float(jq[k]["qin"]), k
+    assert tuple(q["d1"]["w"].shape) == (3, 3, 192, 384)
+    assert tuple(q["d2"]["w"].shape) == (3, 3, 96, 192)
+
+
+# ---------------------------------------------------------------------------
+# the ReCoNet forms of K2-K5: plain versions vs interpret-mode Pallas
+# ---------------------------------------------------------------------------
+
+# (H, W) of each width's grid: the res grid at 192, d2's at 96
+GRID = {192: (8, 16), 96: (16, 32)}
+
+
+def _inputs(seed, c, co):
+    """Site operands at realistic scales (bf16-representable where the site
+    reads bf16), with the floors of the TLU forms: ``tau`` on x·a + c (K4),
+    ``tau_act`` on v (K5), ``tauo`` on f·qa + qc (K2)."""
+    h, w = GRID[c]
+    rng = np.random.default_rng(seed)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return {
+        "x": bf(rng.normal(0, 2, (1, h, w, c))), "y": bf(rng.normal(0, 1, (1, h, w, c))),
+        "a": f32(rng.uniform(5, 40, (1, c))), "c": f32(rng.normal(0, 8, (1, c))),
+        "a2": f32(rng.uniform(0.5, 1.5, (1, c))), "c2": f32(rng.normal(0, 0.3, (1, c))),
+        "w": rng.integers(-127, 128, (3, 3, c, co)).astype(np.int8),
+        "ws": f32(rng.uniform(0.5, 2, co) / (127 * 127 * 24)), "bias": f32(rng.normal(0, 0.2, co)),
+        "qa": f32(rng.uniform(10, 60, co)), "qc": f32(rng.normal(0, 10, co)),
+        "tau": f32(rng.normal(-10, 20, (1, c))), "tau_act": f32(rng.normal(-0.3, 0.5, (1, c))),
+        "tauo": f32(rng.normal(-20, 20, co)),
+        "codes": rng.integers(0, 128, (1, h, w, c)).astype(np.int8),
+    }
+
+
+def _j(d, k):
+    return jnp.asarray(d[k], jnp.bfloat16) if k in ("x", "y") else jnp.asarray(d[k])
+
+
+def _t(d, k):
+    v = torch.from_numpy(d[k].copy())
+    if k in ("x", "y"):
+        return v.to(torch.bfloat16)
+    return k8.pack_weights(v) if k == "w" else v
+
+
+def assert_bf16_close(ours: torch.Tensor, ref):
+    """Within 1 bf16 ulp everywhere, an ulp taken at no less than 2^-8 of the
+    largest magnitude (PERF.md §2: the interpret-mode Pallas contracts
+    acc·ws + bias to an FMA, which moves an output near 0 by many of its own
+    ulps), and at least 99% equal."""
+    worst, equal = k9.bf16_ulp_error(ours, torch.from_numpy(np.array(ref, np.float32)))
+    assert worst <= 1.0 and equal >= 0.99, (worst, equal)
+
+
+def _interpret(fn, *args, **kw):
+    si8._INTERPRET = True
+    try:
+        return jax.tree.map(np.asarray, fn(*args, **kw))
+    finally:
+        si8._INTERPRET = False
+
+
+# (C, CO, halo, tau): res 192 → 192 reflect (IN: floor 0; FRN: tau, −127),
+# d1 192 → 384 edge, d2 96 → 192 edge (IN and FRN)
+K4_FORMS = [(192, 192, "reflect", False), (192, 192, "reflect", True), (192, 384, "edge", False),
+            (96, 192, "edge", True),
+            pytest.param(96, 192, "edge", False, marks=pytest.mark.slow)]
+
+
+@pytest.mark.parametrize("c,co,halo,tau", K4_FORMS)
+def test_k4_reconet_forms_match_pallas(c, co, halo, tau):
+    d = _inputs(20 + c + co, c, co)
+    lo = -127.0 if tau or co != c else 0.0
+    kw = {"halo": halo}
+    ref, sout = _interpret(si8.res_site, _j(d, "x"), _j(d, "a"), _j(d, "c"),
+                           _j(d, "w").reshape(9, c, co), _j(d, "ws"), _j(d, "bias"), lo,
+                           tau=_j(d, "tau") if tau else None, **kw)
+    before = dict(k8.LAUNCHES)
+    ours, sums = k8.res_site(*(_t(d, k) for k in ("x", "a", "c")), lo,
+                             *(_t(d, k) for k in ("w", "ws", "bias")),
+                             tau=_t(d, "tau") if tau else None, **kw)
+    assert k8.LAUNCHES == before  # CPU tensors take the plain version
+    assert ours.dtype == torch.bfloat16 and tuple(ours.shape) == (1, *GRID[c], co)
+    assert_bf16_close(ours, ref)
+    assert_sums_close(sums, ours, sout, ref, GRID[c][0] * GRID[c][1])
+    if tau:  # the floor matters: without it the codes differ
+        plain, _ = k8.res_site_plain(*(_t(d, k) for k in ("x", "a", "c")), lo,
+                                     *(_t(d, k) for k in ("w", "ws", "bias")), **kw)
+        assert not torch.equal(plain, ours)
+
+
+@pytest.mark.parametrize("act", ["relu", "tau"])
+def test_k5_post_add_activation_matches_pallas(act):
+    d = _inputs(30, 192, 192)
+    tau_act = _j(d, "tau_act") if act == "tau" else None
+    ref, sout, vref = _interpret(
+        si8.res_site_skip, _j(d, "x"), _j(d, "y"), *(_j(d, k) for k in ("a", "c", "a2", "c2")),
+        _j(d, "w").reshape(9, 192, 192), _j(d, "ws"), _j(d, "bias"), -127.0, act=act,
+        tau_act=tau_act)
+    ours, sums, v = k8.res_site_skip(*(_t(d, k) for k in ("x", "y", "a", "c", "a2", "c2")),
+                                     -127.0, *(_t(d, k) for k in ("w", "ws", "bias")), act=act,
+                                     tau_act=_t(d, "tau_act") if act == "tau" else None)
+    assert np.array_equal(v.float().numpy(), np.asarray(vref, np.float32))  # max is exact
+    floor = 0.0 if act == "relu" else float(torch.from_numpy(d["tau_act"]).to(torch.bfloat16)
+                                            .float().min())
+    assert float(v.float().min()) >= floor
+    assert_bf16_close(ours, ref)
+    assert_sums_close(sums, ours, sout, ref, 8 * 16)
+
+
+@pytest.mark.parametrize("frn", FRNS, ids=["in", "frn"])
+def test_k2_reconet_emit_matches_pallas(frn):
+    """K2 at C = 192, reflect: the IN emit (floor 0) and the FRN emit (the
+    (CO,) ``tau`` floor before the round, ``qlo`` −127)."""
+    d = _inputs(40, 192, 192)
+    kw = dict(qlo=-127.0, tau=_j(d, "tauo")) if frn else dict(qlo=0.0)
+    ref = _interpret(si8.res_site_s8o, _j(d, "x"), _j(d, "a"), _j(d, "c"),
+                     _j(d, "w").reshape(9, 192, 192), _j(d, "ws"), _j(d, "bias"),
+                     qa=_j(d, "qa"), qc=_j(d, "qc"), lo=-127.0, halo="reflect", **kw)
+    tkw = dict(qlo=-127.0, tau=_t(d, "tauo")) if frn else {}
+    ours = k8.res_site_s8o(*(_t(d, k) for k in ("x", "a", "c")), -127.0,
+                           *(_t(d, k) for k in ("w", "ws", "bias", "qa", "qc")), **tkw)
+    assert ours.dtype == torch.int8
+    assert_codes_close(ours, ref[:, :, 1:17])  # the Pallas carry's content columns
+    assert bool((ours < 0).any()) == frn
+
+
+def test_k3_at_192_matches_pallas():
+    """K3 as the ReCoNet s8 chain runs it (frozen affine + residual, reflect)."""
+    d = _inputs(50, 192, 192)
+    carry = si8._s8_col_halo(jnp.asarray(d["codes"][0]), 16, si8._wps(16), "reflect")[None]
+    aff = (_j(d, "qa") / 40, _j(d, "qc") / 40)
+    ref = _interpret(si8.site_s8, carry, _j(d, "w").reshape(9, 192, 192), _j(d, "ws"),
+                     _j(d, "bias"), w0=16, y=_j(d, "y"), aff=aff, halo="reflect")
+    ours = k8.site_s8(torch.from_numpy(d["codes"]), _t(d, "w"), _t(d, "ws"), _t(d, "bias"),
+                      *(torch.from_numpy(np.array(a)) for a in aff), _t(d, "y"))
+    assert_bf16_close(ours, ref)
+
+
+# ---------------------------------------------------------------------------
+# the int8 chains
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def calib(reco):
+    """Frozen stats and the dynamic and static int8 calibrations of the JAX
+    fast form at (1, 32, 64): the res grid is 8 × 16, d2's 16 × 32."""
+    x = jnp.asarray(_x((1, 32, 64, 3), 6) * 2 - 1)
+    stats = jf.calibrate_in_stats(reco["jfp"], x)
+
+    def quant(static):
+        q = jf.quantize_net(reco["jfp"], jf.calibrate_act_scales(
+            reco["jfp"], x, static_stats=stats if static else None))
+        tq = {k: {"w": torch.from_numpy(np.asarray(v["w"]).copy()),
+                  "ws": torch.from_numpy(np.asarray(v["ws"]).copy()),
+                  "qin": float(v["qin"])} for k, v in q.items()}
+        return q, tf.prepare_sites(reco["fpb"], tq, CPU)
+
+    (q_dyn, s_dyn), (q_st, s_st) = quant(False), quant(True)
+    tstats = {k: tuple(torch.from_numpy(np.asarray(t).copy()) for t in v)
+              for k, v in stats.items()}
+    return {"stats": stats, "tstats": tstats, "q_dyn": q_dyn, "s_dyn": s_dyn, "q_st": q_st,
+            "s_st": s_st}
+
+
+def _res_input(frn, seed=7, shape=(1, 8, 16, 192)):
+    """An activated res-chain input (ReLU'd, or TLU'd at −0.3), O(1), bf16."""
+    y = np.random.default_rng(seed).normal(0.2, 1.0, shape)
+    y = np.maximum(y, -0.3 if frn else 0.0)
+    return np.asarray(jnp.asarray(y, jnp.bfloat16).astype(jnp.float32))
+
+
+def _mae_rel(ours, ref):
+    d = np.abs(np.asarray(ours, np.float32) - np.asarray(ref, np.float32))
+    return d.mean() / (np.abs(np.asarray(ref, np.float32)).mean() + 1e-6)
+
+
+def test_s8_chain_matches_op_by_op_xla(reco, calib):
+    """The int8_static chain (K2/K3 plain versions, the TLU floors on FRN
+    nets) bit for bit against ``_res_quant_xla`` with frozen norms run op by
+    op (eager: no FMA contraction between the ops); the port's XLA-form
+    chain too."""
+    y = _res_input(reco["frn"])
+    with jax.disable_jit():
+        ref = np.asarray(jf._res_quant_xla(jnp.asarray(y, jnp.bfloat16), reco["jpb"],
+                                           calib["q_st"], reco["frn"], calib["stats"])
+                         .astype(jnp.float32))
+    yt = torch.from_numpy(y).to(torch.bfloat16)
+    ours = tf.res_chain_s8_static(yt, reco["fpb"], calib["s_st"], calib["tstats"])
+    assert tuple(ours.shape) == (1, 8, 16, 192)
+    assert np.array_equal(ours.float().numpy(), ref)
+    assert torch.equal(tf.res_quant_xla(yt, reco["fpb"], calib["s_st"], calib["tstats"]), ours)
+
+
+@pytest.mark.slow
+def test_s8_chain_vs_pallas_chain(reco, calib):
+    """Against the JAX Pallas chain (``_res_chain_s8_static`` in interpret
+    mode, which contracts FMAs) within the bound tests/test_static_norm.py
+    holds that chain to against XLA. Slow (13 s): the chain's unmarked test
+    is the bit-exact one above."""
+    y = _res_input(reco["frn"], seed=8)
+    si8._INTERPRET = True
+    try:
+        ref = np.asarray(jf._res_chain_s8_static(jnp.asarray(y, jnp.bfloat16), reco["jpb"],
+                                                 calib["q_st"], reco["frn"], calib["stats"])
+                         .astype(jnp.float32))
+    finally:
+        si8._INTERPRET = False
+    ours = tf.res_chain_s8_static(torch.from_numpy(y).to(torch.bfloat16), reco["fpb"],
+                                  calib["s_st"], calib["tstats"]).float().numpy()
+    assert _mae_rel(ours, ref) < 2e-4 and np.abs(ours - ref).max() < 0.1
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["xla_combine", "reco_skip"])
+def test_res_i8_chain_vs_pallas_chain(reco, calib, monkeypatch, skip):
+    """The ``res_i8`` chain (K4, and K5 with the post-add activation under
+    ``RECO_SKIP``) against the JAX Pallas chain in interpret mode with the
+    same flag: measured statistics are f32 sums in another order, so a code
+    may flip (ROADMAP Queue 3); held to the 1e-2 gate, relative to the
+    activations' size."""
+    monkeypatch.setenv("RECO_SKIP", "1" if skip else "0")
+    y = _res_input(reco["frn"], seed=9)
+    si8._INTERPRET = True
+    try:
+        ref = np.asarray(jf._res_chain_i8(jnp.asarray(y, jnp.bfloat16), reco["jpb"],
+                                          calib["q_dyn"], reco["frn"]).astype(jnp.float32))
+    finally:
+        si8._INTERPRET = False
+    ours = tf.res_chain_i8(torch.from_numpy(y).to(torch.bfloat16), reco["fpb"], calib["s_dyn"])
+    assert _mae_rel(ours.float().numpy(), ref) <= 1e-2
+    other = tf.res_chain_i8(torch.from_numpy(y).to(torch.bfloat16), reco["fpb"], calib["s_dyn"],
+                            skip=not skip)
+    assert torch.equal(other, ours)  # the skip fold is exact (max is exact in bf16)
+
+
+def test_dec_i8_matches_xla_and_pallas(reco, calib):
+    """``dec_i8`` (K4 at d1 192 → 384 and d2 96 → 192, edge halos, the TLU
+    floor row on FRN nets): with frozen norms bit for bit against the op-by-op
+    ``_dec_quant_xla`` (the port's ``dec_quant_xla`` too); with measured
+    norms against the interpret-mode Pallas ``_dec_i8`` within the gate."""
+    y = _res_input(reco["frn"], seed=10)
+    yj, yt = jnp.asarray(y, jnp.bfloat16), torch.from_numpy(y).to(torch.bfloat16)
+    with jax.disable_jit():
+        ref = np.asarray(jf._dec_quant_xla(yj, reco["jpb"], calib["q_st"], reco["frn"],
+                                           calib["stats"]).astype(jnp.float32))
+    ours = tf.dec_i8(yt, reco["fpb"], calib["s_st"], calib["tstats"])
+    assert tuple(ours.shape) == (1, 32, 64, 48)
+    ref = d2s(torch.from_numpy(ref), 2, 48).numpy()  # JAX: the f=2 block form [1,16,32,4·48]
+    assert np.array_equal(ours.float().numpy(), ref)
+    assert torch.equal(tf.dec_quant_xla(yt, reco["fpb"], calib["s_st"], calib["tstats"]), ours)
+    si8._INTERPRET = True
+    try:
+        pal = np.asarray(jf._dec_i8(yj, reco["jpb"], calib["q_dyn"], reco["frn"])
+                         .astype(jnp.float32))
+    finally:
+        si8._INTERPRET = False
+    dyn = tf.dec_i8(yt, reco["fpb"], calib["s_dyn"]).float().numpy()
+    assert _mae_rel(dyn, d2s(torch.from_numpy(pal), 2, 48).numpy()) <= 1e-2
+
+
+def _spy(monkeypatch):
+    calls = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0}
+    for name in calls:
+        fn = getattr(k8, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(k8, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("quantize,skip,launches", [
+    ("int8", "1", {"res_site": 7, "res_site_skip": 3}),
+    ("int8", "0", {"res_site": 10}),
+    ("int8_static", None, {"res_site_s8o": 4, "site_s8": 4, "res_site": 2})])
+def test_launch_routing(reco, tmp_path, monkeypatch, quantize, skip, launches):
+    """The adopted sets through ``jit_stylizer``: ``reco`` (res_i8, dec_i8)
+    runs 7 × K4 + 3 × K5 a forward with ``RECO_SKIP`` (the JSON's adopted
+    ``reco_skip``), 10 × K4 without; ``reco_static`` (res_i8, res_s8, dec_i8)
+    4 × K2 + 4 × K3 + 2 × K4."""
+    if skip is None:
+        monkeypatch.delenv("RECO_SKIP", raising=False)
+    else:
+        monkeypatch.setenv("RECO_SKIP", skip)
+    path = tmp_path / "reco.pth"
+    torch.save(tr.init(2, reco["frn"]), path)
+    calls = _spy(monkeypatch)
+    fn = tst.jit_stylizer(tst.load_model(path, model_type="reconet"), dtype=torch.bfloat16,
+                          quantize=quantize)
+    out = fn(torch.from_numpy(_x((1, 32, 64, 3), 11)))
+    assert out.shape == (1, 32, 64, 3) and bool(torch.isfinite(out).all())
+    assert calls == {**dict.fromkeys(calls, 0), **launches}
+
+
+def test_adopted_sets_and_flag(monkeypatch, tmp_path):
+    assert adopt_overrides.sites("reco") == ("res_i8", "dec_i8")
+    assert adopt_overrides.sites("reco_static") == ("res_i8", "res_s8", "dec_i8")
+    monkeypatch.delenv("RECO_SKIP", raising=False)
+    assert adopt_overrides.flag("reco_skip", env="RECO_SKIP") is True   # the JSON
+    empty = tmp_path / "empty.json"
+    empty.write_text("{}")
+    assert adopt_overrides.sites("reco", path=empty) == ("res_i8",)     # the defaults
+    assert adopt_overrides.flag("reco_skip", path=empty) is False
+    monkeypatch.setenv("RECO_SKIP", "0")
+    assert adopt_overrides.flag("reco_skip", env="RECO_SKIP") is False  # the env wins
+    monkeypatch.setenv("RECO_SKIP", "1")
+    assert adopt_overrides.flag("reco_skip", env="RECO_SKIP", path=empty) is True
+
+
+def test_unported_and_unknown_sites_raise(reco, calib):
+    x = torch.from_numpy(_x((1, 32, 64, 3), 3)).to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tf.apply(reco["fpb"], x, sites=calib["s_st"], fused_sites=("res_s8", "dec_s8"),
+                 static_stats=calib["tstats"])
+    with pytest.raises(ValueError, match="unknown"):
+        tf.apply(reco["fpb"], x, fused_sites=("head_i8",))
+
+
+# ---------------------------------------------------------------------------
+# the stylize modes and the CLI
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,quantize", [
+    ("float32", "none"), ("bfloat16", "none"), ("bfloat16", "bf16_static"),
+    ("bfloat16", "int8"), ("bfloat16", "int8_static")])
+def test_stylize_modes_match_jax(reco, tmp_path, dtype, quantize):
+    """Each mode through ``jit_stylizer`` against the JAX engine's on the CPU:
+    f32 within 1e-5; the rest within the 1e-2 gate — under int8 and
+    int8_static the port runs the adopted chains (K2–K5's plain versions)
+    where the JAX CPU engine runs its XLA-int8 res chain and a bf16 decoder.
+    Measured: bf16 1.0–1.6e-3, int8 3.9–5.7e-3, int8_static 3.2–4.9e-3."""
+    path = tmp_path / "reco.pth"
+    torch.save(tr.init(1, reco["frn"]), path)
+    x = _x((2, 32, 64, 3), 9)
+    tdt = getattr(torch, dtype)
+    ours = tst.jit_stylizer(tst.load_model(path, model_type="reconet"), dtype=tdt,
+                            quantize=quantize)(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jst.jit_stylizer(jst.load_model(path, model_type="reconet"),
+                                      dtype=getattr(jnp, dtype), quantize=quantize)(
+        jnp.asarray(x)))
+    assert ours.shape == ref.shape == (2, 32, 64, 3)
+    assert np.abs(ours - ref).mean() <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("quantize,base", [("int8", "none"), ("int8_static", "bf16_static")])
+def test_quantized_stylize_quality_vs_bf16(reco, tmp_path, quantize, base):
+    """Each int8 mode within the 1e-2 gate of the bf16 stylize with the same
+    norms (measured or frozen), on seeded uniform-noise frames as the JAX
+    tests hold it."""
+    path = tmp_path / "reco.pth"
+    torch.save(tr.init(3, reco["frn"]), path)
+    model = tst.load_model(path, model_type="reconet")
+    x = torch.from_numpy(_x((2, 32, 64, 3), 10))
+    ref = tst.jit_stylizer(model, dtype=torch.bfloat16, quantize=base)(x)
+    out = tst.jit_stylizer(model, dtype=torch.bfloat16, quantize=quantize)(x)
+    assert (out - ref).abs().mean() <= 1e-2 and float(out.std()) > 0.02
+
+
+@pytest.mark.parametrize("frn", FRNS, ids=["in", "frn"])
+def test_reconet_slot_through_the_cli(tmp_path, frn):
+    """A ReCoNet checkpoint (reference keys) through both engines' main() in
+    the single-image mode, f32, ``--model_type reconet``: within 1 level at
+    >= 99% of the values; without ``--device cpu`` the port needs CUDA."""
+    path = tmp_path / "reco.pth"
+    torch.save(tr.init(5, frn), path)
+    src = tmp_path / "in.png"
+    Image.fromarray((_x((64, 96, 3), 4) * 255).astype(np.uint8)).save(src)
+    a, b = tmp_path / "torch.png", tmp_path / "jax.png"
+    argv = ["--input_image", str(src), "--model", str(path), "--model_type", "reconet"]
+    assert tpipe.main(argv + ["--output_image", str(a), "--device", "cpu",
+                              "--work_dir", str(tmp_path / "_wt")]) == 0
+    assert jpipe.main(argv + ["--output_image", str(b), "--work_dir", str(tmp_path / "_wj")]) == 0
+    ua = np.asarray(Image.open(a), np.int32)
+    ub = np.asarray(Image.open(b), np.int32)
+    d = np.abs(ua - ub)
+    assert ua.shape == (64, 96, 3) and (d <= 1).mean() >= 0.99 and ua.std() > 1.0
+    args = tpipe.build_parser().parse_args(argv + ["--output_image", str(a)])
+    tpipe.check_supported(args)  # admitted; t7/torch7/magenta still raise
+    for other in (["--model_type", "torch7"], ["--model_type", "magenta"]):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            tpipe.check_supported(tpipe.build_parser().parse_args(argv[:4] + other))

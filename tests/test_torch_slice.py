@@ -138,7 +138,7 @@ def test_unported_flags_raise():
                   ["--quantize", "bf16_static"],
                   ["--mesh_devices", "2"], ["--flow_method", "farneback"],
                   ["--profile_dir", "p"], ["--model_b", "b.t7"],
-                  ["--model_type", "reconet"]):
+                  ["--model_type", "torch7"]):
         args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
             tpipe.check_supported(args)
