@@ -21,7 +21,10 @@ order, and any failed phase exits non-zero:
    d1/d2; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 and its s8 form →12; K2 and K3 also in the NST_Train
    chain's zero-halo form at its res grid 290×504 with the content width
-   sw = 500, K3 with the frozen affine and residual): s8 codes and bf16 outputs
+   sw = 500, K3 with the frozen affine and residual; K4 (floors −127 and 0)
+   and K5 (floor −127) in the Torch7 chain's zero-halo form at its res grid
+   270×480 128→128, then timed in turns against their reflect forms on the
+   same inputs): s8 codes and bf16 outputs
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
@@ -62,9 +65,19 @@ order, and any failed phase exits non-zero:
    the others), with exact launch counts; each quantized stylize within the
    1e-2 MAE gate of bf16 (int8_static: of bf16_static) on seeded
    uniform-noise frames, as the JAX tests hold it, and within 5e-2 on the
-   slice's frames;
+   slice's frames; then the ReCoNet slots (IN and FRN) the same way; then
+   the Torch7 slots: full-width eccv16 nets (3→32→64→128, 5 res blocks,
+   transposed convs 128→64→32, 9×9 →3, tanh·150), BN-folded and
+   instance-norm, from the seed, written to temporary ``.t7`` files by this
+   script's own writer (``write_t7``); the BN graph's res chain forced onto
+   ``res_i8`` (6 × K4 + 4 × K5, zero halo) card vs CPU bit for bit on one
+   1080p frame; the slice under IN bf16, ``bf16_static``, ``int8`` (the
+   adopted ``t7``: 6 × K4 + 4 × K5 a batch) and ``int8_static`` (the
+   folded graph on ``t7_bn`` = []: no site kernel), BN bf16 and ``int8``
+   (no site kernel), held as NST's;
 9. the CLI ``main()`` end to end on synthesized 1080p mp4s (OpenCV
-   required): the streamed batched path (``--frame_batch 8``); the default
+   required): the streamed batched path (``--frame_batch 8``; then a
+   ReCoNet FRN slot and a ``.t7`` slot at ``--quantize int8``); the default
    invocation (no ``--device``, no ``--frame_batch``: the per-frame f32
    loop), without and with ``--flow_ema``, checking the encoded frame count
    and K1's launches, and timing the per-frame loop; the same with
@@ -79,7 +92,8 @@ The line before the last is the kernels' JSON record; the last line is
 
 instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
 ``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, the
-two bf16 fused-site sets, and the four NST_Train slices) with
+two bf16 fused-site sets, the four NST_Train, six ReCoNet and six Torch7
+slices) with
 torch.profiler and prints where its device time goes, grouped by kind of
 kernel (PERF.md section 5).
 
@@ -133,7 +147,10 @@ SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
                # = 0: the int8 modes do not pad the frame)
                "reco_res": (B, H // 4, W // 4, 192, 192, "reflect"),
                "reco_d1": (B, H // 4, W // 4, 192, 384, "edge"),
-               "reco_d2": (B, H // 2, W // 2, 96, 192, "edge")}
+               "reco_d2": (B, H // 2, W // 2, 96, 192, "edge"),
+               # the Torch7 res grid (zero padding; 1080 % 8 = 0, 1920 % 32 = 0:
+               # the int8 modes do not pad the frame)
+               "t7": (B, H // 4, W // 4, 128, 128, "zero")}
 SITE_SW = {"nst": (W + 80) // 4}
 _SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
 # K2-K8b: the (shape, form) cases each runs on the main path, and the TPU
@@ -142,7 +159,8 @@ _SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
 # at floor -127: the bridge into d1), "s8out" (the s8 decoder's d1/d2).
 # ReCoNet's forms: K2 "in" (emit floor 0) and "frn" (the tau floor, qlo -127);
 # K4 "tau" (the TLU floor, floor -127); K5 "relu" / "tau" (the post-add
-# activation)
+# activation). Torch7's zero-halo forms: K4 "a" (floor -127) and "b" (floor 0,
+# the IN affine), K5 "a" (floor -127)
 INT8_KERNELS = {
     "res_site_s8o": ((("res", ""), ("nst", ""), ("reco_res", "in"), ("reco_res", "frn")),
                      f"{_SITES_I8}:507"),
@@ -150,9 +168,10 @@ INT8_KERNELS = {
                  ("d2", "s8out"), ("nst", "aff_add"), ("reco_res", "aff_add")),
                 f"{_SITES_I8}:670"),
     "res_site": ((("res", ""), ("d1", ""), ("d2", ""), ("reco_res", ""), ("reco_res", "tau"),
-                  ("reco_d1", ""), ("reco_d2", "tau")), f"{_SITES_I8}:139"),
-    "res_site_skip": ((("res", ""), ("d1", ""), ("reco_res", "relu"), ("reco_res", "tau")),
-                      f"{_SITES_I8}:299"),
+                  ("reco_d1", ""), ("reco_d2", "tau"), ("t7", "a"), ("t7", "b")),
+                 f"{_SITES_I8}:139"),
+    "res_site_skip": ((("res", ""), ("d1", ""), ("reco_res", "relu"), ("reco_res", "tau"),
+                       ("t7", "a")), f"{_SITES_I8}:299"),
     "c2_site": ((("c2", ""),), f"{_SITES_I8}:1147"),
     "c3_site": ((("c3", ""),), f"{_SITES_I8}:1271"),
     "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
@@ -202,6 +221,12 @@ RECO_SLICES = (("none", False), ("bf16_static", False), ("int8", False), ("int8_
 RECO_PER_BATCH = {"int8": {"res_site": 7, "res_site_skip": 3},
                   "int8_static": {"res_site_s8o": 4, "site_s8": 4, "res_site": 2}}
 RECO_CROP = (256, 480)        # the int8_static chains card vs CPU: a 64 × 120 res grid
+# the Torch7 slices, (graph, --quantize), and their site launches a batch
+# (adopted sets: t7 = res_i8 on instance-norm graphs: 6 × K4 + 4 × K5; t7_bn
+# = [] on BN-folded graphs and on the static modes' folded graphs: none)
+T7_SLICES = (("in", "none"), ("in", "bf16_static"), ("in", "int8"), ("in", "int8_static"),
+             ("bn", "none"), ("bn", "int8"))
+T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
@@ -380,9 +405,10 @@ def site_inputs(dev, b, h, w, c, co, seed):
     }
 
 
-def site_calls(name, t, shape, form, prev=False):
+def site_calls(name, t, shape, form, prev=False, halo=None):
     """(kernel call, plain call, bytes moved, int8 ops) of one int8 site;
-    with ``prev`` the kernel call is K3's or K4's previous ``__dp4a`` core."""
+    with ``prev`` the kernel call is K3's or K4's previous ``__dp4a`` core;
+    ``halo`` replaces the shape's halo."""
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     b, h, w, c = t["x"].shape
@@ -407,17 +433,18 @@ def site_calls(name, t, shape, form, prev=False):
             elif form == "emit":
                 kw, outs = dict(qa=t["qa"] / 4, qc=t["qc"], qlo=-127.0), 1
     elif name == "res_site":
-        args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
+        args = (t["x"], t["a"], t["c"], 0.0 if form == "b" else -127.0, t["wk"], t["ws"],
+                t["bias"])
         ins = (t["x"], t["a"], t["c"], t["wk"], t["ws"], t["bias"])
         if form == "tau":
             kw = dict(tau=t["tau"])
             ins += (t["tau"],)
     elif name == "res_site_skip":
-        args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["wk"], t["ws"],
-                t["bias"])
+        args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], -127.0 if form == "a" else 0.0,
+                t["wk"], t["ws"], t["bias"])
         ins = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"], t["bias"])
-        kw = dict(yout=shape in ("res", "reco_res"))
-        if form:
+        kw = dict(yout=shape in ("res", "reco_res", "t7"))
+        if form in ("relu", "tau"):
             kw.update(act=form, tau_act=t["tau_act"] if form == "tau" else None)
             ins += (t["tau_act"],) if form == "tau" else ()
     elif name in ("c2_site", "c3_site"):
@@ -430,7 +457,7 @@ def site_calls(name, t, shape, form, prev=False):
         args = (t["codes"], t["wk5"], t["ws5"], t["bias12"])
         ins, co = (t["codes"], t["wk5"], t["ws5"], t["bias12"]), k8.D3_OUT
     if SITE_SHAPES[shape][5] is not None and name not in ("c2_site", "c3_site"):
-        kw["halo"] = SITE_SHAPES[shape][5]
+        kw["halo"] = halo or SITE_SHAPES[shape][5]
     # the zero-halo form: no output column >= sw is needed (K2 writes zero
     # codes there, and the chain crops K3's), so the operations count sw
     pix_ops = pix
@@ -547,7 +574,8 @@ def int8_kernel_phase(dev):
             first = out[0] if isinstance(out, tuple) else out
             n = first.shape[1] * first.shape[2]
             err = check_site(name, out, ref, n)
-            if (shape in SITE_SW or shape.startswith("reco")) and not _same(kernel(), out):
+            if (shape in SITE_SW or shape.startswith("reco") or shape == "t7") and \
+                    not _same(kernel(), out):
                 fail(f"{name} @ {shape}/{form}: two launches on the same inputs differ")
             del out, first
             # the previous __dp4a core takes the Johnson / NST widths only
@@ -976,13 +1004,14 @@ def read_counts() -> dict:
 
 
 def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
-                reco: tuple | None = None):
+                reco: tuple | None = None, t7: tuple | None = None):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
     a --quantize mode and fused-site set, or with a set of bf16 fused sites;
     with ``nst_ckpt``, of that NST_Train checkpoint under the adopted sets;
     with ``reco`` = (checkpoint, frn), of that ReCoNet slot
-    (``--model_type reconet``) under the adopted sets; returns the run's
-    launch counts."""
+    (``--model_type reconet``) under the adopted sets; with ``t7`` = (.t7
+    file, "in" or "bn"), of that Torch7 slot under the adopted sets;
+    returns the run's launch counts."""
     import numpy as np
     import torch
 
@@ -990,7 +1019,7 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
 
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4",
-            "--model", str(nst_ckpt or (reco[0] if reco else CKPT)),
+            "--model", str(nst_ckpt or (reco[0] if reco else (t7[0] if t7 else CKPT))),
             "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16"]
     if reco is not None:
         argv += ["--model_type", "reconet"]
@@ -1025,6 +1054,8 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     if reco is not None:
         name = f"reco {'frn' if reco[1] else 'in'} {name}"
         per_batch = RECO_PER_BATCH.get(quantize, {})
+    if t7 is not None:
+        name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize), {})
     expected = {"dis_iter": levels * N_BATCHES}
     for k in counts:
         if k != "dis_iter":
@@ -1063,7 +1094,7 @@ def quant_quality(dev, args, frames, quantize, fused, name):
     and bf16_static against bf16, each within the 1e-2 gate; on the slice's
     smooth frames, where this random net amplifies the int8 noise to ~2e-2
     (PERF.md), within QUANT_BROKEN_TOL. A ReCoNet slot (preset imagenet_01)
-    is held the same way."""
+    and a Torch7 slot (caffe_bgr) are held the same way."""
     import numpy as np
     import torch
 
@@ -1074,7 +1105,7 @@ def quant_quality(dev, args, frames, quantize, fused, name):
     x = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
     base = "none"
     checks = [(model.io_preset, x, "the slice's frames", QUANT_MAE_TOL)]
-    if model.arch in ("nst", "reconet"):
+    if model.arch in ("nst", "reconet", "t7"):
         base = NST_BASE[quantize]
         noise = np.random.default_rng(SEED + 9).random(tuple(x.shape), np.float32)
         checks = [(model.io_preset, torch.from_numpy(noise).to(dev), "uniform-noise frames",
@@ -1415,11 +1446,282 @@ def reco_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
     return used
 
 
+def t7_checkpoint(path: Path, norm: str) -> Path:
+    """A full-width eccv16 Torch7 net (``t7_net_layers``, seed SEED) written
+    to a ``.t7`` file."""
+    return write_t7(path, t7_net_layers(SEED, norm))
+
+
+def t7_kernel_phase(dev, int8: dict):
+    """K4 (a- and b-site forms) and K5 with the zero halo against their
+    reflect forms at the Torch7 res grid (1080p B=8, 270 × 480 × 128), on
+    the same inputs, in turns: reflect, zero, zero, reflect. Both forms'
+    outputs are checked against their plain versions in phase 5; here the
+    zero form's border must differ from the reflect form's. The times join
+    the kernels line's "t7/…" cases."""
+    import torch
+
+    for i, (name, form) in enumerate((("res_site", "a"), ("res_site", "b"),
+                                      ("res_site_skip", "a"))):
+        b, h, w, c, co, _ = SITE_SHAPES["t7"]
+        t = site_inputs(dev, b, h, w, c, co, seed=400 + i)
+        zero = site_calls(name, t, "t7", form)[0]
+        refl = site_calls(name, t, "t7", form, halo="reflect")[0]
+        oz, orf = zero()[0], refl()[0]
+        torch.cuda.synchronize()
+        if torch.equal(oz[:, 0], orf[:, 0]) or not torch.equal(oz[:, 1:-1, 1:-1],
+                                                               orf[:, 1:-1, 1:-1]):
+            fail(f"{name}/{form}: the zero and reflect halos do not differ only on the border")
+        del oz, orf
+        t_r = dev_time(refl)
+        t_z = (dev_time(zero) + dev_time(zero)) / 2
+        t_r = (t_r + dev_time(refl)) / 2
+        per = int8[name]["per_case"][f"t7/{form}"]
+        per.update(zero_turns_ms=t_z, reflect_turns_ms=t_r)
+        log(f"{name}/{form} 1080p B={b} {h}x{w}x{c}: zero halo {t_z:.4f} ms, reflect halo "
+            f"{t_r:.4f} ms in turns ({t_z / t_r - 1:+.2%}); the borders differ, the interiors "
+            "agree")
+        del t, zero, refl
+        torch.cuda.empty_cache()
+
+
+def t7_chain_phase(dev, ckpt: Path):
+    """The BN-folded Torch7 graph's res chain forced onto ``res_i8`` (6 × K4
+    + 4 × K5, zero halo; every quantize affine a constant) on the card and
+    on the CPU (the plain versions) from one 1080p frame's res-chain input
+    and one calibration: bit-identical."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.io import t7_fast as tf
+    from neuralstyletransferv1_torch.models import io_presets as iop
+
+    model = st.load_model(ckpt, device=dev)
+    p32 = tf.params_to(tf.try_fast_johnson(model.net), dev)
+    x = torch.from_numpy(moving_frames(1, H, W, SEED + 12)[0][None]).to(dev).float() / 255.0
+    xin = iop.preprocess(model.io_preset, x)
+    quant = tf.quantize_t7(p32, tf.calibrate_t7_scales(p32, xin))
+    pb = tf.params_to(p32, dev, torch.bfloat16)
+    grab = {}
+    with torch.no_grad():
+        tf.t7_fast_apply(pb, xin.to(torch.bfloat16),
+                         tap=lambda site, t: grab.setdefault(site, t.contiguous()))
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            p_d = tf.params_to(pb, d, torch.bfloat16)
+            zero_counts()
+            outs.append(tf._t7_res_chain_i8(grab["r0a"].to(d), p_d["res"],
+                                            tf.prepare_sites(p_d, quant, d)).cpu())
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                used = {k: v for k, v in read_counts().items() if v}
+                if used != {"res_site": 6, "res_site_skip": 4}:
+                    fail(f"the t7 BN res_i8 chain launched {used}")
+    y = grab["r0a"]
+    same = torch.equal(*outs)
+    log(f"t7 BN res_i8 chain (6 x K4 + 4 x K5, zero halo) on one 1080p frame (grid "
+        f"{y.shape[1]}x{y.shape[2]}x{y.shape[3]}), card vs CPU: "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the t7 BN res_i8 chain differs between the card and the CPU")
+    if not bool(torch.isfinite(outs[0].float()).all()) or outs[0].shape != y.shape:
+        fail(f"the t7 chain output is {tuple(outs[0].shape)} or not finite")
+
+
+def t7_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
+    """main() with a ``.t7`` slot (the instance-norm net, by its suffix;
+    ``--quantize int8``) on the synthesized 1080p mp4 of ``cli_phase``:
+    every frame written, 6 × K4 + 4 × K5 a batch. Returns the launches."""
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    src, dst = workdir / "in.mp4", workdir / "t7_out.mp4"
+    n = clip_frame_count(src)
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = tpipe.main(["--input_video", str(src), "--output_video", str(dst), "--model", str(ckpt),
+                     "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
+                     "--quantize", "int8", "--work_dir", str(workdir / "_t7")])
+    secs = time.perf_counter() - t0
+    used = {k: v for k, v in read_counts().items() if v}
+    batches = -(-n // B)
+    want = {k: v * batches for k, v in T7_PER_BATCH[("in", "int8")].items()}
+    got = clip_frame_count(dst)
+    log(f"main() on a .t7 slot (IN) --quantize int8 on a {n}-frame 1080p mp4: rc {rc}, {got} "
+        f"frames written, {secs:.2f} s, launches {used}")
+    if rc != 0 or got != n or {k: used.get(k, 0) for k in want} != want or \
+            not used.get("dis_iter"):
+        fail(f"main() did not style the clip with the .t7 slot as expected ({want})")
+    return used
+
+
+def t7_net_layers(seed: int, norm: str, c0: int = 32, nres: int = 5) -> list:
+    """The eccv16 Johnson topology as a layer list (the dicts of
+    ``io/t7.build_t7_layers``): conv 9×9 3→c0, 3×3 s2 c0→2c0, 3×3 s2
+    2c0→4c0, ``nres`` residual blocks at 4c0 (zero pad 1), transposed convs
+    k3 s2 pad 1 adj 1 4c0→2c0→c0, conv 9×9 c0→3, Tanh, MulConstant(150);
+    every conv followed by ``norm`` ("bn": SpatialBatchNormalization with
+    running statistics, "in": InstanceNormalization). Random weights from
+    the numpy ``seed``, scaled so that the activations stay O(1) and the
+    output spreads over the tanh."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def conv(ci, co, k, s, p, gain=1.4):
+        return {"op": "conv", "w": rng.normal(0, gain / np.sqrt(k * k * ci), (k, k, ci, co))
+                .astype(np.float32), "b": rng.normal(0, 0.05, co).astype(np.float32),
+                "stride": (s, s), "pad": (p, p)}
+
+    def convT(ci, co):
+        return {"op": "conv_transpose", "w": rng.normal(0, 2.0 / np.sqrt(9 * ci), (3, 3, co, ci))
+                .astype(np.float32), "b": rng.normal(0, 0.05, co).astype(np.float32),
+                "stride": 2, "pad": 1, "adj": 1}
+
+    def nrm(c):
+        d = {"op": "batchnorm" if norm == "bn" else "instancenorm",
+             "weight": rng.uniform(0.5, 1.5, c).astype(np.float32),
+             "bias": rng.normal(0, 0.1, c).astype(np.float32),
+             "running_mean": None, "running_var": None, "eps": 1e-5}
+        if norm == "bn":
+            d["running_mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+            d["running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        return d
+
+    relu = {"op": "relu"}
+    first = conv(3, c0, 9, 1, 4)
+    first["w"] /= 60.0  # the caffe_bgr input spans about ±128
+    ls = [first, nrm(c0), relu, conv(c0, 2 * c0, 3, 2, 1), nrm(2 * c0), relu,
+          conv(2 * c0, 4 * c0, 3, 2, 1), nrm(4 * c0), relu]
+    for _ in range(nres):
+        body = [conv(4 * c0, 4 * c0, 3, 1, 1), nrm(4 * c0), dict(relu),
+                conv(4 * c0, 4 * c0, 3, 1, 1, gain=0.5), nrm(4 * c0)]
+        ls += [{"op": "concat_table", "branches": [body, []]}, {"op": "add_table"}]
+    ls += [convT(4 * c0, 2 * c0), nrm(2 * c0), dict(relu), convT(2 * c0, c0), nrm(c0),
+           dict(relu), conv(c0, 3, 9, 1, 4, gain=1.0), {"op": "tanh"},
+           {"op": "mul", "c": 150.0}]
+    return ls
+
+
+def t7_modules(layers: list) -> tuple:
+    """A layer list as the Torch7 module tree it flattens from: an
+    ``nn.Sequential`` of ("module", class name, state table) entries, tensors
+    numpy (conv weights OIHW, transposed-conv weights [Cin, Cout, kH, kW])."""
+    import numpy as np
+
+    def seq(ls):
+        return ("module", "nn.Sequential",
+                {"modules": {float(i + 1): module(l) for i, l in enumerate(ls)}})
+
+    def module(l):
+        op = l["op"]
+        if op in ("conv", "conv_transpose"):
+            w = np.transpose(l["w"], (3, 2, 0, 1))  # HWIO → OIHW; [k,k,Co,Ci] → [Ci,Co,k,k]
+            st, pd = l["stride"], l["pad"]
+            st = st if isinstance(st, tuple) else (st, st)
+            pd = pd if isinstance(pd, tuple) else (pd, pd)
+            state = {"weight": w, "bias": l["b"], "dH": st[0], "dW": st[1], "padH": pd[0],
+                     "padW": pd[1], "kH": w.shape[2], "kW": w.shape[3]}
+            if op == "conv":
+                return ("module", "nn.SpatialConvolution", state)
+            state.update(adjH=l["adj"], adjW=l["adj"])
+            return ("module", "nn.SpatialFullConvolution", state)
+        if op in ("batchnorm", "instancenorm"):
+            state = {k: l[k] for k in ("weight", "bias", "running_mean", "running_var")
+                     if l.get(k) is not None}
+            state["eps"] = l["eps"]
+            return ("module", "nn.SpatialBatchNormalization" if op == "batchnorm"
+                    else "nn.InstanceNormalization", state)
+        if op == "concat_table":
+            return ("module", "nn.ConcatTable",
+                    {"modules": {float(i + 1): seq(b) if b else ("module", "nn.Identity", {})
+                                 for i, b in enumerate(l["branches"])}})
+        if op == "mul":
+            return ("module", "nn.MulConstant", {"constant_scalar": l["c"]})
+        if op in ("zero_pad", "reflect_pad"):
+            return ("module", "nn.SpatialZeroPadding" if op == "zero_pad"
+                    else "nn.SpatialReflectionPadding",
+                    {f"pad_{s}": l["pad"] for s in "lrtb"})
+        names = {"relu": "nn.ReLU", "tanh": "nn.Tanh", "add_table": "nn.CAddTable"}
+        return ("module", names[op], {})
+
+    return seq(layers)
+
+
+def write_t7(path: Path, layers: list) -> Path:
+    """Serialize a layer list (``t7_modules``) in the Torch7 binary format
+    of ``torch/File.c``: little-endian, every table and object with a heap
+    index, classes as "V 1" + name, float tensors on float storages."""
+    import struct
+
+    import numpy as np
+
+    out = bytearray()
+    heap = [0]
+
+    def i32(v):
+        out.extend(struct.pack("<i", v))
+
+    def i64(v):
+        out.extend(struct.pack("<q", v))
+
+    def text(v):
+        b = v.encode()
+        i32(len(b))
+        out.extend(b)
+
+    def index():
+        heap[0] += 1
+        i32(heap[0])
+
+    def value(v):
+        if isinstance(v, str):
+            i32(2)
+            text(v)
+        elif isinstance(v, (int, float)):
+            i32(1)
+            out.extend(struct.pack("<d", float(v)))
+        elif isinstance(v, np.ndarray):
+            a = np.ascontiguousarray(v, np.float32)
+            i32(4)
+            index()
+            text("V 1")
+            text("torch.FloatTensor")
+            i32(a.ndim)
+            for n in a.shape:
+                i64(n)
+            for st in a.strides:
+                i64(st // 4)
+            i64(1)  # storage offset, 1-based
+            i32(4)
+            index()
+            text("V 1")
+            text("torch.FloatStorage")
+            i64(a.size)
+            out.extend(a.tobytes())
+        elif isinstance(v, dict):
+            i32(3)
+            index()
+            i32(len(v))
+            for k, e in v.items():
+                value(k)
+                value(e)
+        else:  # ("module", typename, state)
+            i32(4)
+            index()
+            text("V 1")
+            text(v[1])
+            value(v[2])
+
+    value(t7_modules(layers))
+    path.write_bytes(bytes(out))
+    return path
+
+
 def ptxas_report(text: str, k8) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core core's instantiations
-    (mma_kernel<C, prologue, epilogue, tau>: <C, 0, 0> is K4, <C, 2, 2> K3;
-    tau 1: K4 with the TLU floor)."""
+    (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3;
+    tau 1: K4 with the TLU floor; zero 1: K4 under the zero halo)."""
     import re
 
     name, spill = None, ""
@@ -1515,10 +1817,10 @@ def kernel_group(name: str) -> str:
     return "elementwise"
 
 
-def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict):
+def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
-    NST_Train, ReCoNet), by kind of kernel and by kernel (torch.profiler
-    after two warm-up batches)."""
+    NST_Train, ReCoNet, Torch7), by kind of kernel and by kernel
+    (torch.profiler after two warm-up batches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1529,7 +1831,8 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict):
     runs = ([(mode, fused, CKPT, "") for mode, fused in (("none", None), ("bf16_static", None))
              + SLICES] + [(mode, None, nst_ckpt, "nst") for mode in NST_SLICES]
             + [(mode, None, reco_ckpts[frn], f"reco {'frn' if frn else 'in'}")
-               for mode, frn in RECO_SLICES])
+               for mode, frn in RECO_SLICES]
+            + [(mode, None, t7_ckpts[norm], f"t7 {norm}") for norm, mode in T7_SLICES])
     for mode, fused, ckpt, label in runs:
         argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
                 "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
@@ -1609,9 +1912,10 @@ def run_phases(dev, tmp: Path, k8) -> int:
     nst_ckpt = nst_checkpoint(tmp / "nst_random.pth")
     reco_ckpts = {frn: reco_checkpoint(tmp / f"reco_{'frn' if frn else 'in'}.pth", frn)
                   for frn in (False, True)}
+    t7_ckpts = {norm: t7_checkpoint(tmp / f"eccv16_{norm}.t7", norm) for norm in ("in", "bn")}
     if sys.argv[1:] in (["--profile"], ["--phases"]):
         if sys.argv[1] == "--profile":
-            profile_phase(dev, nst_ckpt, reco_ckpts)
+            profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts)
         else:
             phases_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1636,15 +1940,20 @@ def run_phases(dev, tmp: Path, k8) -> int:
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)
     reco_chain_phase(dev, reco_ckpts)
+    t7_kernel_phase(dev, int8)
+    t7_chain_phase(dev, t7_ckpts["bn"])
     launches = {k: 0 for k in read_counts()}
     runs = ([dict(quantize=mode, fused=fused) for mode, fused in (("none", None),) + SLICES]
             + [dict(quantize=mode, nst_ckpt=nst_ckpt) for mode in NST_SLICES]
-            + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES])
+            + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES]
+            + [dict(quantize=mode, t7=(t7_ckpts[norm], norm)) for norm, mode in T7_SLICES])
     for run in runs:
         for k, v in slice_phase(dev, **run).items():
             launches[k] += v
     cli_phase(dev, tmp)
     for k, v in reco_cli_phase(dev, tmp, reco_ckpts[True]).items():
+        launches[k] += v
+    for k, v in t7_cli_phase(dev, tmp, t7_ckpts["in"]).items():
         launches[k] += v
     for k, v in per_frame_phase(dev, tmp).items():
         launches[k] += v

@@ -12,9 +12,9 @@
 //   K6  d3_s8_site     (_d3s8_kernel)      s8 codes → 1x5 conv → 5-row dy-sum + bias → bf16
 // K2, K5 and K8 are one templated core (site_kernel): a 3x3 conv of int8
 // codes at stride 1 or 2 over a 1-pixel halo (pixel reflect or edge copy;
-// K2 and K3 also zero codes, the NST net's zero padding, where K2 zeroes the
-// codes of the columns >= sw that pad a grid up to an aligned width, in its
-// input and output, and K3 those of its s8 output), accumulated in int32
+// K2-K5 also zero codes, the zero padding of the NST and Torch7 nets, where
+// K2 zeroes the codes of the columns >= sw that pad a grid up to an aligned
+// width, in its input and output, and K3 those of its s8 output), accumulated in int32
 // with __dp4a, with a prologue (how the int8 tile is
 // made) and an epilogue (what is written) chosen at compile time. K3 and K4
 // run the same conv at stride 1 on the tensor cores (mma_kernel, below);
@@ -624,12 +624,15 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 // and walks tiles k % per_half, + per_half, ... of the B·tiles 8x16 output
 // tiles (image-major, then row-major within the image). TAU (K4 at C = 96,
 // 192): the quantize takes a per-(image, channel) pre-round floor (FRN's TLU).
-template <int C, int PRO, int EPI, bool TAU>
+// ZERO (K4 under the zero halo, C = 64, 128): positions outside the image
+// are code 0; the other K4 instances compile without that test.
+template <int C, int PRO, int EPI, bool TAU, bool ZERO>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
   static_assert((PRO == kQuant && EPI == kRawStats) || (PRO == kCodes && EPI == kSiteS8),
                 "mma_kernel serves K4 (kQuant, kRawStats) and K3 (kCodes, kSiteS8)");
   static_assert(!TAU || PRO == kQuant, "the floor is a quantize's");
+  static_assert(!ZERO || (PRO == kQuant && !TAU), "K3 carries the zero halo in its codes");
   using S = MmaSmem<C>;
   using In = MmaIn<C, PRO>;
   constexpr int PX = S::PX;
@@ -665,13 +668,20 @@ __global__ void __launch_bounds__(kMThreads, 1)
     s_rows[i] = row != nullptr && n < nvalid ? row[co0 + n] : 0.0f;
   }
 
-  // prologue: the haloed tile into registers (fetch), then as codes into s_x (stage)
+  // prologue: the haloed tile into registers (fetch), then as codes into s_x (stage).
+  // Under the zero halo a position outside the image is a zero code: K3's
+  // copied codes carry it as loaded zeros; K4's quantize would turn a zero
+  // into round(c), so its ZERO instance's fetch flags those positions in zf
+  // (bit k: pass k) and stage writes code 0 there.
   uint4 raw[In::NI];
+  uint32_t zf = 0;
+  static_assert(!ZERO || In::NI <= 32, "one flag bit a pass");
   const int chunk = tid % In::CH, p0 = tid / In::CH;
   const bool loader = In::FULL || p0 < In::PPI;
   auto fetch = [&](int id) {
     const int b = id / tiles, t = id % tiles;
     const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
+    if (ZERO) zf = 0;
 #pragma unroll
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
@@ -682,9 +692,14 @@ __global__ void __launch_bounds__(kMThreads, 1)
         const uint4* src = PRO == kCodes
             ? reinterpret_cast<const uint4*>(static_cast<const int8_t*>(p.x) + off)
             : reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
-        // the zero halo is a zero code, which only K3's copied codes can carry
-        raw[k] = PRO == kCodes && zero_code(gy, gx, p.Hi, p.Wi, p.halo) ? make_uint4(0, 0, 0, 0)
-                                                                        : __ldg(src);
+        if (ZERO) {
+          const bool z = zero_code(gy, gx, p.Hi, p.Wi, p.halo);
+          zf |= (uint32_t)z << k;
+          raw[k] = z ? make_uint4(0, 0, 0, 0) : __ldg(src);
+        } else {
+          raw[k] = PRO == kCodes && zero_code(gy, gx, p.Hi, p.Wi, p.halo)
+              ? make_uint4(0, 0, 0, 0) : __ldg(src);
+        }
       }
     }
   };
@@ -706,6 +721,8 @@ __global__ void __launch_bounds__(kMThreads, 1)
       uint8_t* dst = s_x + px * PX + chunk * In::VB;
       if (PRO == kCodes) {
         *reinterpret_cast<uint4*>(dst) = raw[k];
+      } else if (ZERO && ((zf >> k) & 1u)) {
+        *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
       } else {
         const uint32_t w4[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
         uint32_t q[2] = {0u, 0u};
@@ -956,10 +973,10 @@ __global__ void stats_reduce_mma(const float* __restrict__ part, float* __restri
   }
 }
 
-template <int C, int PRO, int EPI, bool TAU>
+template <int C, int PRO, int EPI, bool TAU, bool ZERO = false>
 int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   const size_t smem = MmaSmem<C>::bytes;
-  auto kern = mma_kernel<C, PRO, EPI, TAU>;
+  auto kern = mma_kernel<C, PRO, EPI, TAU, ZERO>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -981,13 +998,22 @@ int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the tensor-core core: C in {64, 128} (Johnson, NST); ReCoNet's K4 at
-// C in {96, 192}, with or without the TLU floor, and its K3 at C = 192
+// the tensor-core core: C in {64, 128} (Johnson, NST; K4 also under the
+// zero halo, Torch7); ReCoNet's K4 at C in {96, 192}, with or without the
+// TLU floor, and its K3 at C = 192
 template <int PRO, int EPI>
 int launch_mma(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tau = p.tau != nullptr;
+  if constexpr (PRO == kQuant) {
+    if (p.halo == kHaloZero) {
+      if (tau) return (int)cudaErrorInvalidValue;
+      if (C == 128) return launch_mma_c<128, PRO, EPI, false, true>(p, sums, s);
+      if (C == 64) return launch_mma_c<64, PRO, EPI, false, true>(p, sums, s);
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   if (!tau && C == 128) return launch_mma_c<128, PRO, EPI, false>(p, sums, s);
   if (!tau && C == 64) return launch_mma_c<64, PRO, EPI, false>(p, sums, s);
   if constexpr (PRO == kQuant) {
@@ -1254,6 +1280,8 @@ extern "C" int mma_kernel_smem_bytes(int C) {
 
 // K4: bf16 raw out and sums[b, 0|1, o] = [Σ, Σ²] of it; part is scratch.
 // tau (C in {96, 192}; null: none): [B,C] floor of x*a + c before the round.
+// Under the zero halo (halo 2; C in {64, 128}) every position outside the
+// image is code 0, not the quantized zero.
 extern "C" int res_site_launch(const void* x, const float* a, const float* c,
                                const float* tau, const int32_t* wk, const float* ws,
                                const float* bias, __nv_bfloat16* out, float* part, float* sums,
@@ -1281,7 +1309,8 @@ extern "C" int res_site_prev_launch(const void* x, const float* a, const float* 
 
 // K5: K4 on v = bf16(bf16(r2*a2 + c2) + yp), then, with a floor row [B,C]
 // (C = 192), v = max(v, floor) (ReCoNet's post-add ReLU or TLU); v is
-// written to vout unless null.
+// written to vout unless null. Under the zero halo (C in {64, 128}) every
+// position outside the image is code 0.
 extern "C" int res_site_skip_launch(const void* r2, const __nv_bfloat16* yp,
                                     const float* a, const float* c, const float* a2,
                                     const float* c2, const float* floor, const int32_t* wk,

@@ -102,8 +102,8 @@ def check_supported(args) -> None:
         (bool(args.profile_dir), "--profile_dir", _BENCH),
     ]
     for path, model_type, _preset, magenta_style in _slot_args(args):
-        other = path and (model_type not in ("transformer", "reconet")
-                          or Path(path).suffix.lower() == ".t7")
+        t7 = path and model_type != "magenta" and Path(path).suffix.lower() == ".t7"
+        other = path and model_type not in ("transformer", "reconet", "torch7") and not t7
         unsupported.append((bool(other or (model_type == "magenta" and magenta_style)),
                             f"{model_type} slot {path or magenta_style}", _BACKENDS))
     for bad, what, item in unsupported:
@@ -120,8 +120,9 @@ def _slot_args(args):
 
 
 def load_slot_bank(args, device) -> list:
-    """The Johnson, NST_Train and ReCoNet checkpoints of slots A..H, on
-    ``device``."""
+    """The Johnson, NST_Train, ReCoNet and Torch7 checkpoints of slots A..H,
+    on ``device`` (a ``.t7`` file loads as a Torch7 slot whatever its
+    ``--model*_type``, as the JAX engine's ``_load_slot`` does)."""
     from . import stylizer as st
 
     return [st.load_model(path, model_type=model_type, io_preset=io_preset, device=device)

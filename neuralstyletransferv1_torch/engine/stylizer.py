@@ -1,7 +1,7 @@
-"""The stylizer bank: Johnson, NST_Train and ReCoNet slots resident on the
-device, one call per frame batch.
+"""The stylizer bank: Johnson, NST_Train, ReCoNet and Torch7 slots resident
+on the device, one call per frame batch.
 
-Counterpart of the Johnson, NST and ReCoNet parts of
+Counterpart of the Johnson, NST, ReCoNet and ``.t7`` parts of
 ``neuralstyletransferv1_tpu/engine/stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
 affine baked into the first and last convs; this port computes the same
 function directly: preprocess → TransformerNet → postprocess.
@@ -29,7 +29,12 @@ route by the adopted ``nst`` / ``nst_static`` sets. ReCoNet slots
 (``model_type="reconet"``, IN or FRN nets, preset ``imagenet_01`` by
 default) run ``models/reconet_fast.apply`` the same way, routed by the
 adopted ``reco`` / ``reco_static`` sets (``RECO_SKIP`` / ``reco_skip``
-choose the K5 form of the ``res_i8`` chain).
+choose the K5 form of the ``res_i8`` chain). Torch7 slots (``.t7`` files, or
+``model_type="torch7"``; preset ``caffe_bgr`` by default) run
+``io/t7_fast.t7_fast_apply`` where the graph matches the Johnson topology
+and the exact executor ``io/t7.t7_apply`` where it does not; their int8
+modes route by the adopted ``t7`` set (instance-norm graphs) or ``t7_bn``
+(BN-folded graphs, and instance-norm graphs folded by the static modes).
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ QUANTIZE_MODES = ("none", "bf16_static", "int8_static", "int8")
 class StyleModel:
     """One loaded slot of the model bank."""
 
-    arch: str  # johnson | nst | reconet
-    net: TransformerNet | tnn.TransformerNetNST | rn.ReCoNet
+    arch: str  # johnson | nst | reconet | t7
+    net: TransformerNet | tnn.TransformerNetNST | rn.ReCoNet | list  # t7: the layer list
     io_preset: str
     name: str = ""
 
@@ -70,13 +75,21 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
     """Load a reference-format Johnson, NST_Train or ReCoNet checkpoint
     (``io/checkpoints``, the port's copy of the JAX engine's importer; a
     ``transformer``'s arch by key prefix, a ``reconet``'s norm family by its
-    ``.tau`` keys). NST checkpoints force ``raw_01`` over ``raw_255`` and
+    ``.tau`` keys), or a Torch7 ``.t7`` net (by its suffix, or
+    ``model_type="torch7"``: ``io/t7.load_torch7_model``, its layers on
+    ``device``). NST checkpoints force ``raw_01`` over ``raw_255`` and
     ``imagenet_255``, as the reference does."""
     path = Path(path)
+    if model_type == "torch7" or path.suffix.lower() == ".t7":
+        from ..io.t7 import load_torch7_model
+
+        m = load_torch7_model(str(path), io_preset, device=device)
+        return StyleModel(m.arch, m.net, m.io_preset, name or m.name)
     if model_type not in ("transformer", "reconet"):
         raise NotImplementedError(
-            f"model type {model_type!r}: only 'transformer' (Johnson, NST_Train) and "
-            "'reconet' slots are ported (ROADMAP.md Queue 1, item 6: other stylizer backends)")
+            f"model type {model_type!r}: only 'transformer' (Johnson, NST_Train), 'reconet' "
+            "and 'torch7' slots are ported (ROADMAP.md Queue 1, item 6: other stylizer "
+            "backends)")
     sd = ckpt.load_state_dict(str(path))
     arch = "reconet" if model_type == "reconet" else ckpt.detect_transformer_arch(sd)
     if arch == "reconet":
@@ -119,8 +132,10 @@ def make_random_model(arch: str = "nst", *, seed: int = 0, io_preset: str | None
 
 
 def _input_size(out: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """``out`` resized to ``x01``'s size, where it differs (the resize in
+    f32, rounded back to out's dtype: the CPU has no bf16 antialias)."""
     if out.shape[1:3] != x01.shape[1:3]:
-        out = resize_bilinear(out, (x01.shape[1], x01.shape[2]))
+        out = resize_bilinear(out.float(), (x01.shape[1], x01.shape[2])).to(out.dtype)
     return out
 
 
@@ -213,6 +228,8 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
         return _nst_stylizer(model, dtype, quantize, fused_sites)
     if model.arch == "reconet":
         return _reco_stylizer(model, dtype, quantize, fused_sites)
+    if model.arch == "t7":
+        return _t7_stylizer(model, dtype, quantize, fused_sites)
     if fused_sites is not None:
         unknown = sorted(set(fused_sites) - set(tq.FUSED_SITE_NAMES))
         if unknown:
@@ -338,5 +355,92 @@ def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_s
         big = quantize in ("int8_static", "int8") and H >= 32 and W >= 64
         return _pad_call(stylize, state["forward"], model.io_preset, x,
                          *((8, 32) if big else (4, 4))).float()
+
+    return fn
+
+
+def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+    """``jit_stylizer`` for a Torch7 slot (JAX ``jit_stylizer`` with
+    ``t7_fast_params``): the fast form (``t7_fast.try_fast_johnson`` of the
+    f32 layers, cast to ``dtype``) at sizes padded to multiples of 4 (8 × 32
+    under int8 once H ≥ 32 and W ≥ 64), the exact executor below 8 pixels or
+    for a graph that does not match. A quantize mode calibrates on the first
+    frame (the f32 fast form, padded to multiples of 4). The static modes on
+    an instance-norm graph freeze its norms (``calibrate_t7_in_stats``) and
+    fold them into the weights (``fold_static_in``); int8_static then
+    quantizes the folded graph, which takes the ``t7_bn`` set. A BN-folded
+    graph has no norm to freeze: int8_static runs as int8 and bf16_static as
+    no quantize, with the JAX engine's warning. int8 quantizes the graph
+    (``calibrate_t7_scales``, ``quantize_t7``), routed by the adopted ``t7``
+    (instance norms) or ``t7_bn`` (BN-folded) set, or ``fused_sites``."""
+    from .. import adopt_overrides
+    from ..io import t7_fast as t7f
+    from ..io.t7 import layers_device, layers_to, t7_apply
+
+    dev = layers_device(model.net)
+    layers = model.net if dtype == torch.float32 else layers_to(model.net, dev, dtype)
+    p32 = t7f.try_fast_johnson(model.net)
+    p = None
+    if p32 is not None:
+        p32 = t7f.params_to(p32, dev)
+        p = p32 if dtype == torch.float32 else t7f.params_to(p32, dev, dtype)
+        print(f"[stylizer] t7 fast path active for {model.name}")
+    deferred = p32 is not None and t7f.has_deferred_norms(p32)
+    if quantize in ("bf16_static", "int8_static") and not deferred:
+        # the JAX engine's fallback: nothing to freeze (BN-folded, or no fast form)
+        print(f"[stylizer][WARN] --quantize {quantize}: {model.name} (t7) has no freezable "
+              f"runtime norms; falls back to "
+              f"{'int8' if quantize == 'int8_static' else 'the exact path'}.")
+        quantize = "int8" if quantize == "int8_static" else "none"
+    if quantize == "int8" and p32 is None:
+        print(f"[stylizer][WARN] --quantize int8 needs a supported fast path (Johnson s2d2 / "
+              f".t7 / NST / ReCoNet); {model.name} (t7) stays "
+              f"{'bf16' if dtype != torch.float32 else 'f32'}.")
+        quantize = "none"
+    fused = None if fused_sites is None else tuple(fused_sites)
+
+    def exact(t):
+        return t7_apply(layers, t)
+
+    def fast(params, sites=None, sset=()):
+        return lambda t: t7f.t7_fast_apply(params, t, sites=sites, fused_sites=sset)
+
+    def calibrate(x01):
+        xin = _calibration_input(model, x01)
+        if quantize in ("bf16_static", "int8_static"):
+            stats = t7f.calibrate_t7_in_stats(p32, xin)
+            folded32 = t7f.fold_static_in(p32, stats)
+            folded = folded32 if dtype == torch.float32 else t7f.params_to(folded32, dev, dtype)
+            sites, sset = None, ()
+            if quantize == "int8_static":
+                quant = t7f.quantize_t7(folded32, t7f.calibrate_t7_scales(folded32, xin))
+                sites = t7f.prepare_sites(folded, quant, dev)
+                sset = adopt_overrides.sites("t7_bn") if fused is None else fused
+            print(f"[stylizer] static-norm {'int8' if sites else 'bf16'} .t7 path folded for "
+                  f"{model.name} ({len(stats)} frozen norms" + (f", fused {sset})" if sites
+                                                               else ")"))
+            return fast(folded, sites, sset)
+        quant = t7f.quantize_t7(p32, t7f.calibrate_t7_scales(p32, xin))
+        sites = t7f.prepare_sites(p, quant, dev)
+        sset = adopt_overrides.sites("t7" if deferred else "t7_bn") if fused is None else fused
+        print(f"[stylizer] int8 t7 path calibrated for {model.name} ({len(quant)} sites, "
+              f"fused {sset})")
+        return fast(p, sites, sset)
+
+    state = {"forward": None}
+    if quantize == "none":
+        state["forward"] = exact if p is None else fast(p)
+    big_pad = quantize in ("int8", "int8_static")
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        if state["forward"] is None:
+            state["forward"] = calibrate(x01)
+        x = x01.to(dtype)
+        H, W = x.shape[1], x.shape[2]
+        if p is None or H < 8 or W < 8:
+            return stylize(exact, model.io_preset, x).float()
+        mh, mw = (8, 32) if big_pad and H >= 32 and W >= 64 else (4, 4)
+        return _pad_call(stylize, state["forward"], model.io_preset, x, mh, mw).float()
 
     return fn

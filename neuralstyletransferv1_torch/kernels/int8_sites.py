@@ -5,11 +5,14 @@ Each replaces one Pallas kernel of ``neuralstyletransferv1_tpu/models/
 s2d2_sites_i8.py``. K2–K5 and K8 are one operation — a 3×3 conv of int8
 codes with int32 accumulation, over a 1-pixel halo (``"reflect"`` for the
 residual and head sites, ``"edge"`` for the decoder sites) — between
-different prologues and epilogues. K2 and K3 also take the zero halo of
-the NST net's zero-padded convs (``halo="zero"``), with ``sw``: the content
-width of a grid padded up to an aligned width, beyond which K2 zeroes its
-input codes and its output codes and K3 its output codes (``_quant_zero``
-and the S8OUT mask of the TPU kernels), so no padding column enters a dot:
+different prologues and epilogues. K2–K5 also take the zero halo of the
+NST and Torch7 nets' zero-padded convs (``halo="zero"``: code 0 at every
+position outside the image, whatever the quantize affine, as
+``_quant_zero`` writes it; K4 and K5 at C = 64 and 128, without a floor);
+K2 and K3 with ``sw``: the content width of a grid padded up to an aligned
+width, beyond which K2 zeroes its input codes and its output codes and K3
+its output codes (``_quant_zero`` and the S8OUT mask of the TPU kernels), so
+no padding column enters a dot:
 
   K2  ``res_site_s8o``  quantize bf16 x → conv → bf16 → emit s8 codes ≥ 0
                         (``res_site_s8o`` / ``_site_kernel_s8o``)
@@ -84,7 +87,7 @@ _SOURCE = "int8_sites.cu"
 LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
             "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
-#: the halos of K4, K5 and K8 (their zero forms are not ported)
+#: the halos of K8 and of K4's and K5's floored forms (``tau``, ``act``)
 HALOS_RE = ("reflect", "edge")
 KERNEL_C = (64, 128)  # input channel counts of the Johnson / NST 3×3 kernels
 RECO_C = 192          # ReCoNet's res width: K2's floored emit, K5's activation
@@ -479,7 +482,8 @@ def _stats_buffers(B, H, W, CO, dev, tile):
 def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
     """K4: quantize x → 3×3 int8 conv → bf16 raw [B,H,W,CO] and the f32
     [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. ``tau`` (B, C): a floor on
-    x·a + c before the round (FRN's TLU; C = 96 or 192). On the card: the
+    x·a + c before the round (FRN's TLU; C = 96 or 192). ``halo="zero"``
+    (C = 64, 128, no ``tau``): code 0 outside the image. On the card: the
     int8 tensor-core core."""
     if x.device.type == "cpu":
         return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo, tau=tau)
@@ -494,11 +498,18 @@ def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
                      None, kernel_c=KERNEL_C)
 
 
+def _zero_halos(C: int, floored: bool) -> tuple:
+    """The halos K4 and K5 take at C input channels: the zero halo too at
+    KERNEL_C without a floor."""
+    return tuple(HALOS) if C in KERNEL_C and not floored else HALOS_RE
+
+
 def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None):
     k = "res_site"
     if tau is not None:
         kernel_c = TAU_C
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, kernel_c=kernel_c)
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, kernel_c=kernel_c,
+                                      halos=_zero_halos(x.shape[-1], tau is not None))
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c), ("tau", tau)):
@@ -519,14 +530,16 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
     """K5: v = bf16(bf16(r2·a2 + c2) + yp) in the prologue, then K4 on v.
     ``act`` (ReCoNet, C = 192): the post-add activation on v before it is
     written and quantized, "relu" (max(v, 0)) or "tau" (max(v,
-    bf16(tau_act)), tau_act (B, C) f32). Returns (bf16 raw, f32 sums, v) — v
+    bf16(tau_act)), tau_act (B, C) f32). ``halo="zero"`` (C = 64, 128, no
+    ``act``): code 0 outside the image. Returns (bf16 raw, f32 sums, v) — v
     is None when ``yout`` is False."""
     if r2.device.type == "cpu":
         return res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo=halo,
                                    yout=yout, act=act, tau_act=tau_act)
     k = "res_site_skip"
     dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
-                                      kernel_c=KERNEL_C if act is None else (RECO_C,))
+                                      kernel_c=KERNEL_C if act is None else (RECO_C,),
+                                      halos=_zero_halos(r2.shape[-1], act is not None))
     for name, t in (("r2", r2), ("yp", yp)):
         _check(k, name, t, torch.bfloat16, (B, H, W, C), dev)
     if act is not None and tau_act is not None:

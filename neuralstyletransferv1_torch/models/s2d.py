@@ -3,8 +3,9 @@ instance-norm formulas they share with the JAX engine.
 
 Port of ``neuralstyletransferv1_tpu/models/transformer_net_s2d.py``:
 ``_scatter_upconv`` (the deconv1/deconv2 phase weights), ``s2d``, ``d2s``,
-``_pad_edge_blocks``, ``_in_stats`` and ``_apply_in_relu``; the inverse of
-``_scatter_stride2_s2d2`` (conv2's block weights back to pixels); and of
+``_pad_edge_blocks``, ``_in_stats`` and ``_apply_in_relu``;
+``_scatter_stride2_s2d2`` and its inverse (conv2's block weights back to
+pixels); and of
 ``transformer_net_s2d2.py``: ``_scatter_k9_f2``, deconv3's tap packing with
 the d3 half of ``bake_io_affine`` (``d3_tap_packed``) and
 ``_pad_reflect_f2_4px``. Channel index of a block tensor = (u·f + v)·C + c.
@@ -45,6 +46,22 @@ def pad_reflect_f2_4px(x: torch.Tensor, c: int) -> torch.Tensor:
     p = p.index_select(1, _reflect_index(h, 4, x.device))
     p = p.index_select(2, _reflect_index(w, 4, x.device))
     return s2d(p, 2)
+
+
+def scatter_stride2_f2(w: np.ndarray) -> np.ndarray:
+    """A 3×3 stride-2 pixel conv (pad 1) → the 2×2 block conv on its input's
+    space-to-depth grid (``_scatter_stride2_s2d2``; inverse of
+    ``stride2_pixel_weight``): HWIO [3,3,ci,co] → [2,2,4·ci,co], valid over
+    the grid padded by one block at the top and left. Output pixel j reads
+    pixels 2j+a−1: a=0 → block j−1 phase 1, a=1 → block j phase 0, a=2 →
+    block j phase 1."""
+    _, _, ci, co = w.shape
+    out = np.zeros((2, 2, 4 * ci, co), np.float32)
+    taps = [(0, 1), (1, 0), (1, 1)]  # (κ, phase) of pixel tap a
+    for a, (ka, pa) in enumerate(taps):
+        for b, (kb, pb) in enumerate(taps):
+            out[ka, kb, (pa * 2 + pb) * ci:(pa * 2 + pb + 1) * ci] += w[a, b]
+    return out
 
 
 def stride2_pixel_weight(wb: np.ndarray) -> np.ndarray:

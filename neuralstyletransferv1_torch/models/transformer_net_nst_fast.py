@@ -15,7 +15,7 @@ affine (and ReLU) applied in f32 and rounded back (``models/s2d.py``).
 
 The JAX forward's other int8 branches wait for kernel forms the port does
 not have yet (ROADMAP.md Queue 2): ``_res_chain_i8`` (``res_i8`` without
-frozen norms; K4/K5 with the zero halo and ``sw``), ``c2_i8`` (K4 2×2),
+frozen norms; K4/K5 with ``sw``), ``c2_i8`` (K4 2×2),
 ``dec_i8`` (K4 ``kh``/``kw``), ``dec_s8`` (K3 ``kh``/``kw``), ``tail_s8``
 (K3 ``halo_out="zero2"`` + K6) and their XLA references ``dec_xla_i8`` /
 ``tail_xla_i8``. None is in an adopted set; a set naming one raises.
@@ -97,7 +97,7 @@ def apply(net: TransformerNetNST, x: torch.Tensor, *, tap=None, sites: dict | No
         y = res_chain_s8_static(y, net, sites, static_stats)
     elif use_res_i8:
         raise NotImplementedError(
-            "the NST res_i8 chain (measured norms) needs K4/K5 with the zero halo and sw: "
+            "the NST res_i8 chain (measured norms) needs K4/K5 with sw: "
             + _QUEUE2)
     elif use_q and not {"res_i8", "res_s8"} & fused:
         y = res_quant_xla(y, net, sites, static_stats)

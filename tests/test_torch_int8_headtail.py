@@ -622,7 +622,7 @@ def test_adopted_sets_match_jax(tmp_path):
     from neuralstyletransferv1_tpu import adopt_overrides as jadopt
     from neuralstyletransferv1_torch import adopt_overrides as tadopt
 
-    for key in ("sites", "sites_static"):
+    for key in ("sites", "sites_static", "t7", "t7_bn"):
         assert tadopt.sites(key) == jadopt.sites(key), key
     assert tadopt.sites("sites_static") == ("res_i8", "res_s8", "dec_i8")
     f = tmp_path / "i8_adopt.json"
@@ -630,7 +630,7 @@ def test_adopted_sets_match_jax(tmp_path):
     assert tadopt.sites("sites", f) == ("head_i8", "res_i8")
     assert tadopt.sites("sites_static", f) == tadopt.DEFAULTS["sites_static"]
     with pytest.raises(KeyError):
-        tadopt.sites("t7")
+        tadopt.sites("magenta")
 
 
 @pytest.mark.parametrize("fused,err", [(("head", "res_i8"), None),

@@ -609,12 +609,104 @@ def test_k2_k3_zero_halo_sw_match_plain_on_card(cuda_device, b, h, w, c, co, sw)
 
 @pytest.mark.cuda
 def test_zero_halo_reaches_only_k2_k3(cuda_device):
-    """K4, K5 and K8 keep their reflect/edge forms: a zero halo raises."""
+    """The zero halo's boundary (the name predates K4/K5's zero forms): K2–K5
+    take it — K4 and K5 at C = 64/128 and without a floor (K4's ``tau``, K5's
+    ``act`` keep reflect/edge) — and the stride-2 head sites K8a/K8b have no
+    halo choice; ``sw`` needs the zero halo."""
     t = _int8_inputs(cuda_device, 128, 128)
+    k4 = (t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"])
+    k5 = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], -127.0, t["w"], t["ws"], t["bias"])
+    k8.res_site(*k4, halo="zero")
+    k8.res_site_skip(*k5, halo="zero")
+    k8.res_site_s8o(*k4, t["qa"], t["qc"], halo="zero")
+    k8.site_s8(t["codes"], t["w"], t["ws"], t["bias"], halo="zero")
+    r = _int8_inputs(cuda_device, 192, 192)
     with pytest.raises(ValueError, match="halo"):
-        k8.res_site(t["x"], t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"], halo="zero")
+        k8.res_site(r["x"], r["a"], r["c"], -127.0, r["w"], r["ws"], r["bias"], halo="zero",
+                    tau=r["a"])
+    with pytest.raises(ValueError, match="halo"):
+        k8.res_site_skip(r["x"], r["y"], r["a"], r["c"], r["a2"], r["c2"], -127.0, r["w"],
+                         r["ws"], r["bias"], halo="zero", act="relu")
+    h = _int8_inputs(cuda_device, 32, 64, h=20, w=36)
+    with pytest.raises(TypeError, match="halo"):
+        k8.c2_site(h["x"], h["a"], h["c"], 0.0, h["w"], h["ws"], h["bias"], halo="zero")
     with pytest.raises(ValueError, match="sw="):
         k8.site_s8(t["codes"], t["w"], t["ws"], t["bias"], halo="reflect", sw=8)
+
+
+# ragged shapes for K4's and K5's zero halo: H, W off the 8×16 tile, B = 3
+_ZERO_SHAPES = [(3, 13, 21, 128), (1, 11, 30, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", _ZERO_SHAPES)
+def test_k4_k5_zero_halo_match_plain_on_card(cuda_device, b, h, w, c):
+    """K4 (``mma_kernel``, and its previous ``__dp4a`` core) and K5
+    (``site_kernel``) with ``halo="zero"`` against their plain versions, both
+    floors, a nonzero ``c`` (so that the halo's code 0 differs from the
+    quantized zero): bf16 raw and K5's v bit-identical, sums within 1e-5;
+    two launches bit-identical, sums included."""
+    t = _int8_inputs(cuda_device, c, c, h=h, w=w, seed=h + c)
+    x, y = t["x"][:1].repeat(b, 1, 1, 1), t["y"][:1].repeat(b, 1, 1, 1)
+    a, cc = t["a"][:1].repeat(b, 1), t["c"][:1].repeat(b, 1)
+    x[-1] = -x[-1]  # the images differ
+    assert bool((torch.round(cc) != 0).any())
+    for lo in (-127.0, 0.0):
+        args = (x, a, cc, lo, t["w"], t["ws"], t["bias"])
+        before = dict(k8.LAUNCHES)
+        o, s = k8.res_site(*args, halo="zero")
+        o2, s2 = k8.res_site(*args, halo="zero")
+        prev, _ = k8.res_site_prev(*args, halo="zero")
+        po, ps = k8.res_site_plain(*args, halo="zero")
+        skip = (x, y, a, cc, t["a2"][:1].repeat(b, 1), t["c2"][:1].repeat(b, 1), lo, t["w"],
+                t["ws"], t["bias"])
+        ko, ks, kv = k8.res_site_skip(*skip, halo="zero")
+        ko2, ks2, kv2 = k8.res_site_skip(*skip, halo="zero")
+        pko, pks, pkv = k8.res_site_skip_plain(*skip, halo="zero")
+        torch.cuda.synchronize()
+        assert {k: k8.LAUNCHES[k] - before[k] for k in ("res_site", "res_site_skip")} == \
+            {"res_site": 2, "res_site_skip": 2}
+        assert torch.equal(o, po) and torch.equal(prev, po), lo
+        assert _sums_close(s, ps, h * w), lo
+        assert torch.equal(o, o2) and torch.equal(s, s2), lo
+        assert torch.equal(ko, pko) and torch.equal(kv, pkv), lo
+        assert _sums_close(ks, pks, h * w), lo
+        assert torch.equal(ko, ko2) and torch.equal(ks, ks2) and torch.equal(kv, kv2), lo
+        # the reflect halo gives another raw: the border codes are not copies
+        assert not torch.equal(k8.res_site(*args, halo="reflect")[0], o), lo
+
+
+@pytest.mark.cuda
+def test_t7_bn_res_i8_chain_card_vs_cpu(cuda_device):
+    """A BN-folded Torch7 graph's res chain forced onto ``res_i8`` (6 × K4 +
+    4 × K5, zero halo; its quantize affines are constants, so no sum order
+    enters the codes) on the card and on the CPU from one res-chain input:
+    bit-identical, and bit-identical to the PyTorch-int8 chain."""
+    import chip_smoke
+    from neuralstyletransferv1_torch.io import t7_fast as tf
+
+    p32 = tf.try_fast_johnson(chip_smoke.t7_net_layers(4, "bn", c0=16))
+    x = torch.from_numpy(np.random.default_rng(3).random((2, 64, 96, 3), np.float32))
+    xin = x.flip(-1) * 255.0 - torch.tensor([103.939, 116.779, 123.68])
+    quant = tf.quantize_t7(p32, tf.calibrate_t7_scales(p32, xin))
+    grab = {}
+    pb = tf.params_to(p32, "cpu", torch.bfloat16)
+    with torch.no_grad():
+        tf.t7_fast_apply(pb, xin.to(torch.bfloat16),
+                         tap=lambda site, t: grab.setdefault(site, t.contiguous()))
+        outs = []
+        for d in (cuda_device, torch.device("cpu")):
+            p_d = tf.params_to(pb, d, torch.bfloat16)
+            sites = tf.prepare_sites(p_d, quant, d)
+            before = dict(k8.LAUNCHES)
+            outs.append(tf._t7_res_chain_i8(grab["r0a"].to(d), p_d["res"], sites).cpu())
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                assert {k: k8.LAUNCHES[k] - before[k] for k in ("res_site", "res_site_skip")} \
+                    == {"res_site": 6, "res_site_skip": 4}
+        xla = tf._t7_res_quant_xla(grab["r0a"], pb["res"], tf.prepare_sites(pb, quant, "cpu"))
+    assert grab["r0a"].shape == (2, 16, 24, 64)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], xla)
 
 
 # the stylize each NST mode is gated against, with the same norms (as

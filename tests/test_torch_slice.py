@@ -137,8 +137,8 @@ def test_unported_flags_raise():
                   ["--mask", "m.png"], ["--blend_models_lab"], ["--quantize", "int8"],
                   ["--quantize", "bf16_static"],
                   ["--mesh_devices", "2"], ["--flow_method", "farneback"],
-                  ["--profile_dir", "p"], ["--model_b", "b.t7"],
-                  ["--model_type", "torch7"]):
+                  ["--profile_dir", "p"], ["--model_b", "b.pth", "--model_b_type", "magenta"],
+                  ["--model_type", "magenta"]):
         args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
             tpipe.check_supported(args)
