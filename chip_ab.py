@@ -4,6 +4,7 @@ card in turns.
 
     python3 chip_ab.py ROOT slices [--nst-chain]
     python3 chip_ab.py ROOT kernels
+    python3 chip_ab.py ROOT bf16
 
 ROOT is the root of a checkout (for example the parent commit unpacked with
 ``git archive`` into a gitignored directory); its own ``chip_smoke.py`` and
@@ -12,7 +13,8 @@ runs the 1080p B=8 Johnson slices (``chip_smoke.slice_phase``: plain bf16
 and every quantized or fused-site slice) and prints their frames/s; with
 ``--nst-chain`` it then runs the NST int8_static chain phase and the slices
 again. ``kernels`` runs phase 5, K2-K8b against their plain versions with
-their device times. Run parent, change, change, parent in one call:
+their device times; ``bf16`` the same for K9a-K9e. Run parent, change,
+change, parent in one call:
 
     for r in PARENT . . PARENT; do python3 chip_ab.py $r kernels; done
 """
@@ -25,7 +27,7 @@ from pathlib import Path
 
 
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels"):
+    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16"):
         print(__doc__)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -47,6 +49,9 @@ def main() -> int:
         mod._lib()
     if sys.argv[2] == "kernels":
         cs.int8_kernel_phase(dev)
+        return 0
+    if sys.argv[2] == "bf16":
+        cs.bf16_kernel_phase(dev)
         return 0
     for mode, fused in (("none", None),) + cs.SLICES:
         cs.slice_phase(dev, mode, fused)

@@ -6,10 +6,11 @@
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc. In
 order, and any failed phase exits non-zero:
 
-1. require CUDA and the port's package beside this file;
+1. require CUDA and the port's package beside this file (imported first:
+   elsewhere the script stops there);
 2. print the card's name and power limit (nvidia-smi);
 3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``) and
-   K9a–K9e (``csrc/bf16_sites.cu``), one nvcc each, started together, and
+   K9a–K11 (``csrc/bf16_sites.cu``), one nvcc each, started together, and
    print ptxas' registers and spills of every kernel, and the dynamic
    shared memory of K3's and K4's tensor-core core (``mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
@@ -40,7 +41,18 @@ order, and any failed phase exits non-zero:
    equal on ≥ 99%, sums within 1e-5; timed like the int8 sites; then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
-   codes 0;
+   codes 0; then each of the port's experiment entry points
+   (``neuralstyletransferv1_torch/experiments/``: mk1, mk2, mk3, mk5, mk7
+   on K9e, mk13) once at its script's full shape, counts zeroed before and
+   read after (K10 and K11 must have been launched): K10 (``fused_conv``,
+   the fused res-block site; mk5 runs its six forms, prologue f32 / none /
+   bf16 × statistics on / off) at 270×480 128→128 on mk1's padded
+   (B, H+2, W+8, C) buffer, and K11 (``c1_site``, conv1 as the f=2 block
+   conv) at [8, 544, 964, 12] → [8, 540, 960, 128] with the repository's
+   Johnson conv1, held against their plain versions like K9 and timed in
+   turns beside the cuDNN conv alone and, for K10, the three-pass path
+   (prologue, conv, statistics) eager and under ``torch.compile``, for K11
+   the pixel conv1 (NCHW and channels-last);
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
    bit for bit from one head output — under the adopted set and under the
@@ -113,6 +125,10 @@ import tempfile
 import time
 from pathlib import Path
 
+from neuralstyletransferv1_torch.experiments._bench import (
+    BF16_EQUAL_SHARE, HBM_BYTES_PER_S, PEAK_BF16_OPS, PEAK_F32_OPS, PEAK_INT8_OPS, SUM_TOL,
+    cuda_ms)
+
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "_testdata" / "test_johnson.pth"
 SEED = 0
@@ -124,12 +140,6 @@ K1_RES_TOL = 1e-3      # grey levels (0..255), on those patches
 SLICE_MAE_TOL = 1e-3   # [0,1] frames, CUDA slice vs CPU slice, f32 + exact warp
 QUANT_MAE_TOL = 1e-2   # [0,1] frames: the repo's gate (quantized vs bf16, CUDA vs CPU)
 QUANT_BROKEN_TOL = 5e-2  # [0,1] raw-scale stylize: beyond this the path is broken
-SUM_TOL = 1e-5         # relative, the int8 sites' [Σ, Σ²] against the plain sums
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet (the bound's memory rate)
-PEAK_INT8_OPS = 1979e12     # dense int8 tensor-core ops/s, same sheet
-PEAK_BF16_OPS = 989e12      # dense bf16 tensor-core FLOP/s, same sheet
-BF16_EQUAL_SHARE = 0.99     # K9: share of bf16 outputs equal to the plain version's
-PEAK_F32_OPS = 67e12        # f32 outside the tensor cores, same sheet
 
 # the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo); the c2/c3
 # sites are stride 2 (H, W are their input's), d3 is deconv3's rows conv
@@ -187,6 +197,12 @@ BF16_KERNELS = {
     "c3_site_bf16": ((B, H // 2, W // 2, 64), f"{_SITES_BF16}:594"),
     "d3_rows": ((B, H // 2, W // 2, 128), f"{_SITES_BF16}:58"),
 }
+# K10 and K11, the experiments' kernels, and the TPU kernel each replaces;
+# the entry points run once each (mk5's default covers K10's six forms)
+EXP_KERNELS = {"fused_conv": "experiments/mk1_fusedconv.py:32",
+               "c1_site": "experiments/mk13_c1.py:36"}
+EXP_ENTRY_POINTS = ("mk1_fusedconv", "mk2_variants", "mk3_variants", "mk5_ablate",
+                    "mk7_d3site", "mk13_c1")
 # the all-int8 head and tail sets (ROADMAP Queue 1, item 11)
 SET_A = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8")
 SET_B = ("head_i8", "res_i8", "dec_i8", "tail_s8", "d3_i8")
@@ -244,23 +260,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Per-call time on the device timeline (CUDA events), host gaps included."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """One line of the log, stamped with the seconds since the script began."""
+    print(f"[chip_smoke {time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def device_ms(fn, reps: int = 10) -> float | None:
@@ -756,6 +761,52 @@ def bf16_kernel_phase(dev):
         del args, lib
         torch.cuda.empty_cache()
     return results
+
+
+def experiments_phase(dev) -> tuple[dict, dict]:
+    """Each experiment entry point once at its script's full shape, as a
+    user runs it (``main([])``: kernel against plain version, then timed in
+    turns beside its yardsticks), with the launch counts zeroed before and
+    read after; its JSON line goes to the log. Returns the launches and
+    K10's and K11's kernels-line records: mk5's, whose default variants
+    take K10's six forms (the f32 form's numbers, the largest error, every
+    form under ``per_form``), and mk13's."""
+    import contextlib
+    import importlib
+    import io
+
+    zero_counts()
+    t0 = time.perf_counter()
+    recs = {}
+    for name in EXP_ENTRY_POINTS:
+        mod = importlib.import_module(f"neuralstyletransferv1_torch.experiments.{name}")
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                recs[name] = mod.main([])
+        except AssertionError as e:
+            fail(f"experiments.{name}: {e}")
+        log(f"entry {name}: {buf.getvalue().strip()}")
+    counts = read_counts()
+    log(f"experiment entry points in {time.perf_counter() - t0:.1f} s; launches "
+        f"fused_conv {counts['fused_conv']}, c1_site {counts['c1_site']}, "
+        f"d3_rows {counts['d3_rows']}")
+    for name in EXP_KERNELS:
+        if counts[name] == 0:
+            fail(f"{name} was launched no time by the experiment entry points")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
+    forms = {f"{v['prologue']}{'' if v['stats'] else '/ns'}": v
+             for v in recs["mk5_ablate"]["variants"]}
+    if len(forms) != 6:
+        fail(f"mk5_ablate ran K10 in {sorted(forms)}, not its six forms")
+    k10 = {**{k: forms["f32"][k] for k in keys},
+           "max_abs_err": max(v["max_abs_err"] for v in forms.values()),
+           "per_form": {f: {k: v[k] for k in (*keys, "eager_path_ms", "compiled_path_ms",
+                                               "path_bound_ms")}
+                        for f, v in forms.items()}}
+    k11 = {k: recs["mk13_c1"][k] for k in (*keys, "cudnn_pixel_nchw_ms",
+                                           "cudnn_pixel_channels_last_ms")}
+    return counts, {"fused_conv": k10, "c1_site": k11}
 
 
 # K2/K3's zero-halo form at ragged content widths: (B, H, W, C, CO, sw)
@@ -1867,10 +1918,8 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        fail("PyTorch is not installed")
+    import torch
+
     if not torch.cuda.is_available():
         fail("no CUDA GPU is visible")
     if not (ROOT / "neuralstyletransferv1_torch").is_dir() or not CKPT.exists():
@@ -1900,7 +1949,7 @@ def main() -> int:
     k1._lib()
     k8._lib()
     k9._lib()
-    log(f"built K1, K2-K8b and K9a-K9e with nvcc (in parallel) in "
+    log(f"built K1, K2-K8b and K9a-K11 with nvcc (in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
         return run_phases(dev, Path(tmp), k8)
@@ -1934,6 +1983,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
+    exp_launches, exp = experiments_phase(dev)
     ragged_sw_phase(dev)
     ragged_reco_phase(dev)
     reference_phase(dev)
@@ -1985,6 +2035,12 @@ def run_phases(dev, tmp: Path, k8) -> int:
             "name": name, "route": "cuda",
             "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
             "launches": launches[name], "library_ms": None, **bf16[name],
+        })
+    for name, replaces in EXP_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
+            "launches": exp_launches[name], **exp[name],
         })
     for name in (*INT8_KERNELS, *BF16_KERNELS):
         if launches[name] == 0:

@@ -51,6 +51,30 @@
 // code feeds the MMAs from shared memory with scalar loads (2.5-3 loads an
 // MMA), which bounds it near a quarter of the tensor-core peak; ldmatrix,
 // TMA-fed tiles and wgmma are later work.
+//
+// Two more kernels answer the TPU package's bf16 megakernel experiments:
+//   K10 fused_conv  (experiments/mk1_fusedconv.py fused_conv; mk2/mk3/mk5's
+//                   build tile the same function) the res-block site: a
+//                   prologue on every position read of a PRE-PADDED input
+//                   (f32 affine + ReLU, none, or the affine in bf16
+//                   arithmetic) → 3x3 conv 128→128 → + bias → bf16 and [Σ, Σ²]
+//                   (or no statistics). site_kernel_bf16<128, 1, true, ...>:
+//                   the halo is whatever the caller padded, so the tile is read
+//                   as given; the weights come as mk1's [9][C][CO] and are
+//                   transposed while they are staged, one tap at a time (a
+//                   kernel row of 128-channel weights, 52 KB, would leave one
+//                   block per SM: per tap the block takes 115 KB, two a SM).
+//                   3.06e11 FLOP over 0.54 GB at [8,270,480,128]: operations.
+//   K11 c1_site     (experiments/mk13_c1.py c1_site) Johnson's conv1 in its f=2
+//                   block form: the 5x5 conv 12→128 of the 4-px phase-reflect-
+//                   padded space-to-depth image, f32 accumulation + bias → bf16.
+//                   One tap's K is 12 channels; the five dx taps of a kernel row
+//                   pack into K = 64 (60 + 4 zero weights) with no copy at all:
+//                   a staged input row holds its pixels' 12 channels back to
+//                   back, so output pixel x's packed row is the 60 contiguous
+//                   values from pixel x on. 3.19e11 FLOP, but the 1.06 GB
+//                   output bounds it (bytes): the tile is staged in shared
+//                   memory and leaves in 16-byte coalesced stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,6 +127,35 @@ __device__ __forceinline__ uint2 activate4(const __nv_bfloat16* p, const float* 
   return out;
 }
 
+// K10's prologue forms: mk1's f32 affine + ReLU, none (the raw input), and
+// mk5's "bf16": x·bf16(a) → bf16, + bf16(c) → bf16, max 0. Each bf16 operation
+// is done in f32 and rounded: a product or sum of two bf16 values is exact in
+// f32 (or, for a sum, off by less than a bf16 half ulp), so this is the
+// correctly rounded bf16 arithmetic, with no fused multiply-add.
+enum { kProF32 = 0, kProNone = 1, kProBf16 = 2 };
+
+template <int PRO>
+__device__ __forceinline__ uint2 prologue4(const __nv_bfloat16* p, const float* s_a,
+                                           const float* s_c, int ch0) {
+  if (PRO == kProF32) return activate4(p, s_a, s_c, ch0);
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  if (PRO == kProNone) return raw;
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  float v[4] = {__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float a = __bfloat162float(__float2bfloat16_rn(s_a[ch0 + k]));
+    const float c = __bfloat162float(__float2bfloat16_rn(s_c[ch0 + k]));
+    const float m = __bfloat162float(__float2bfloat16_rn(__fmul_rn(v[k], a)));
+    v[k] = fmaxf(__bfloat162float(__float2bfloat16_rn(__fadd_rn(m, c))), 0.0f);
+  }
+  uint2 out;  // every v[k] is a bf16 value: the rounds below are exact
+  *reinterpret_cast<__nv_bfloat162*>(&out.x) = __floats2bfloat162_rn(v[0], v[1]);
+  *reinterpret_cast<__nv_bfloat162*>(&out.y) = __floats2bfloat162_rn(v[2], v[3]);
+  return out;
+}
+
 // One k-sweep of a tap for NM m-tiles of a warp: xr[j] points at the word of
 // m-tile j's pixel row g, channel 0; PR is the word stride between pixel rows
 // g and g+1 of the fragment (the pixel stride times the conv stride).
@@ -136,17 +189,20 @@ __device__ __forceinline__ void tap_mma(float (&acc)[NM][kNT][4],
 // ---------------------------------------------------------------------------
 
 struct SiteArgs {
-  const __nv_bfloat16* x;   // [B,Hi,Wi,C] raw
-  const float *a, *c;       // [B,C] prologue affine
-  const __nv_bfloat16* w;   // [9,CO,C]
+  const __nv_bfloat16* x;   // [B,Hi,Wi,C] raw (K10: pre-padded, read as given)
+  const float *a, *c;       // prologue affine, image b's at a + b*astride
+  const __nv_bfloat16* w;   // [9,CO,C] (K10: [9,C,CO])
   const float* bias;        // [CO]
   __nv_bfloat16* out;       // [B,H,W,CO]
   float* part;              // [B,tiles,2,CO]
   int B, Hi, Wi, H, W, CO;
-  int halo;                 // 0 pixel reflect, 1 edge copy
+  int astride;              // C, or 2C for K10's stat [B,2,C]
+  int halo;                 // 0 pixel reflect, 1 edge copy (K10: unused)
 };
 
-template <int C, int S>
+// PRE: K10's operands (a pre-padded input, [9][C][CO] weights). WR: taps of
+// weights staged at a time, a kernel row, or one tap at C = 128 (smem).
+template <int C, int S, bool STATS = true>
 struct SiteGeom {
   static constexpr int MT = S == 1 ? 2 : 1;          // m-tiles per warp
   static constexpr int TW = 16 * MT;                 // output columns per block
@@ -154,17 +210,19 @@ struct SiteGeom {
   static constexpr int HC = (TW - 1) * S + 3;        // and columns
   static constexpr int PSX = C / 2 + (S == 1 ? 4 : 2);  // words per pixel (bank spread)
   static constexpr int PSW = C / 2 + 4;              // words per weight row
-  static constexpr size_t smem = sizeof(uint32_t) * (3 * kCOT * PSW + HR * HC * PSX) +
-                                 sizeof(float) * (2 * C + kWarps * 2 * kCOT);
+  static constexpr int WR = C >= 128 ? 1 : 3;        // taps per weight stage
+  static constexpr size_t smem = sizeof(uint32_t) * (WR * kCOT * PSW + HR * HC * PSX) +
+                                 sizeof(float) * (2 * C + (STATS ? kWarps * 2 * kCOT : 0));
 };
 
-template <int C, int S>
+template <int C, int S, bool PRE = false, int PRO = kProF32, bool STATS = true>
 __global__ void __launch_bounds__(kThreads, 2) site_kernel_bf16(SiteArgs p) {
-  using G = SiteGeom<C, S>;
+  using G = SiteGeom<C, S, STATS>;
   constexpr int MT = G::MT, TW = G::TW, HR = G::HR, HC = G::HC, PSX = G::PSX, PSW = G::PSW;
+  constexpr int WR = G::WR;
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* s_w = smem;                               // [3][kCOT][PSW]: one kernel row
-  uint32_t* s_x = s_w + 3 * kCOT * PSW;               // [HR][HC][PSX]
+  uint32_t* s_w = smem;                               // [WR][kCOT][PSW]: WR taps
+  uint32_t* s_x = s_w + WR * kCOT * PSW;              // [HR][HC][PSX]
   float* s_aff = reinterpret_cast<float*>(s_x + HR * HC * PSX);  // a, c [C]
   float* s_sum = s_aff + 2 * C;                       // [kWarps][2][kCOT]
 
@@ -176,19 +234,20 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel_bf16(SiteArgs p) {
   const int b = blockIdx.z;
 
   for (int i = tid; i < C; i += kThreads) {
-    s_aff[i] = p.a[b * C + i];
-    s_aff[C + i] = p.c[b * C + i];
+    s_aff[i] = p.a[b * p.astride + i];
+    s_aff[C + i] = p.c[b * p.astride + i];
   }
   __syncthreads();
 
-  // prologue: the haloed tile, activated, as bf16
+  // prologue: the haloed tile, activated, as bf16. K10 reads the padded input
+  // as given (rows and columns past its end feed only outputs not stored).
   for (int i = tid; i < HR * HC * (C / 4); i += kThreads) {
     const int q = i % (C / 4), pix = i / (C / 4);
     const int hc = pix % HC, hr = pix / HC;
-    const int sy = src_index(ty0 * S + hr - 1, p.Hi, p.halo);
-    const int sx = src_index(tx0 * S + hc - 1, p.Wi, p.halo);
-    const uint2 v = activate4(p.x + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + 4 * q, s_aff,
-                              s_aff + C, 4 * q);
+    const int sy = PRE ? min(ty0 + hr, p.Hi - 1) : src_index(ty0 * S + hr - 1, p.Hi, p.halo);
+    const int sx = PRE ? min(tx0 + hc, p.Wi - 1) : src_index(tx0 * S + hc - 1, p.Wi, p.halo);
+    const uint2 v = prologue4<PRO>(p.x + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + 4 * q,
+                                   s_aff, s_aff + C, 4 * q);
     *reinterpret_cast<uint2*>(s_x + pix * PSX + 2 * q) = v;
   }
 
@@ -203,22 +262,37 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel_bf16(SiteArgs p) {
       for (int k = 0; k < 4; ++k) acc[j][n][k] = 0.0f;
 
 #pragma unroll 1
-  for (int dy = 0; dy < 3; ++dy) {
-    if (dy > 0) __syncthreads();  // every warp is done with the previous kernel row
-    for (int i = tid; i < 3 * kCOT * (C / 8); i += kThreads) {
-      const int ch = i % (C / 8), co = (i / (C / 8)) % kCOT, tl = i / ((C / 8) * kCOT);
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          p.w + ((size_t)(dy * 3 + tl) * p.CO + co0 + co) * C + 8 * ch);
-      *reinterpret_cast<uint4*>(s_w + (tl * kCOT + co) * PSW + 4 * ch) = v;
+  for (int st = 0; st < 9 / WR; ++st) {
+    if (st > 0) __syncthreads();  // every warp is done with the previous taps
+    if (PRE) {
+      // [tap][c][co] → [tl][co][c]: the lanes of a warp take 32 consecutive c
+      // of one 8-channel group of co, so the 16-bit stores hit 16 banks
+      __nv_bfloat16* s_wh = reinterpret_cast<__nv_bfloat16*>(s_w);
+      for (int i = tid; i < WR * C * (kCOT / 8); i += kThreads) {
+        const int ch = i % C, j = (i / C) % (kCOT / 8), tl = i / (C * (kCOT / 8));
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            p.w + ((size_t)(st * WR + tl) * C + ch) * p.CO + co0 + 8 * j);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s_wh[((tl * kCOT + 8 * j + k) * PSW) * 2 + ch] = e[k];
+      }
+    } else {
+      for (int i = tid; i < WR * kCOT * (C / 8); i += kThreads) {
+        const int ch = i % (C / 8), co = (i / (C / 8)) % kCOT, tl = i / ((C / 8) * kCOT);
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            p.w + ((size_t)(st * WR + tl) * p.CO + co0 + co) * C + 8 * ch);
+        *reinterpret_cast<uint4*>(s_w + (tl * kCOT + co) * PSW + 4 * ch) = v;
+      }
     }
     __syncthreads();
 #pragma unroll 1
-    for (int dx = 0; dx < 3; ++dx) {
+    for (int tl = 0; tl < WR; ++tl) {
+      const int dy = (st * WR + tl) / 3, dx = (st * WR + tl) % 3;
       const uint32_t* xr[MT];
 #pragma unroll
       for (int j = 0; j < MT; ++j)
         xr[j] = s_x + ((warp * S + dy) * HC + (16 * j + g) * S + dx) * PSX;
-      tap_mma<C, MT, S * PSX, PSW>(acc, xr, s_w + dx * kCOT * PSW, g, t);
+      tap_mma<C, MT, S * PSX, PSW>(acc, xr, s_w + tl * kCOT * PSW, g, t);
     }
   }
 
@@ -241,12 +315,15 @@ __global__ void __launch_bounds__(kThreads, 2) site_kernel_bf16(SiteArgs p) {
         const float f1 = __fadd_rn(acc[j][n][2 * h + 1], bi1);
         *reinterpret_cast<__nv_bfloat162*>(p.out + (((size_t)b * p.H + oy) * p.W + ox) * p.CO +
                                            co) = __floats2bfloat162_rn(f0, f1);
-        s1[n][0] = __fadd_rn(s1[n][0], f0);
-        s1[n][1] = __fadd_rn(s1[n][1], f1);
-        s2[n][0] = __fadd_rn(s2[n][0], __fmul_rn(f0, f0));
-        s2[n][1] = __fadd_rn(s2[n][1], __fmul_rn(f1, f1));
+        if (STATS) {
+          s1[n][0] = __fadd_rn(s1[n][0], f0);
+          s1[n][1] = __fadd_rn(s1[n][1], f1);
+          s2[n][0] = __fadd_rn(s2[n][0], __fmul_rn(f0, f0));
+          s2[n][1] = __fadd_rn(s2[n][1], __fmul_rn(f1, f1));
+        }
       }
   }
+  if (!STATS) return;
   // lanes that differ in g share channels: fold them (xor 4, 8, 16), then the warps
 #pragma unroll
   for (int n = 0; n < kNT; ++n)
@@ -286,25 +363,35 @@ __global__ void stats_reduce_bf16(const float* __restrict__ part, float* __restr
   sums[i] = (float)v;
 }
 
-template <int C, int S>
-int launch_site(SiteArgs p, float* sums, void* stream) {
-  using G = SiteGeom<C, S>;
-  if (p.B <= 0 || p.Hi < 2 || p.Wi < 2 || p.CO <= 0 || p.CO % kCOT) return (int)cudaErrorInvalidValue;
-  if (S == 2 && (p.Hi % 2 || p.Wi % 2)) return (int)cudaErrorInvalidValue;
-  p.H = p.Hi / S;
-  p.W = p.Wi / S;
-  auto kern = site_kernel_bf16<C, S>;
+// Launch site_kernel_bf16 on p (p.H, p.W set) and, with STATS, the reduce.
+template <int C, int S, bool PRE = false, int PRO = kProF32, bool STATS = true>
+int launch_site_kernel(const SiteArgs& p, float* sums, void* stream) {
+  using G = SiteGeom<C, S, STATS>;
+  auto kern = site_kernel_bf16<C, S, PRE, PRO, STATS>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)G::smem);
+  if (err == cudaSuccess && PRE)  // two K10 blocks need all 228 KB of the SM
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int tiles = ((p.H + kTH - 1) / kTH) * ((p.W + G::TW - 1) / G::TW);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   kern<<<dim3(tiles, p.CO / kCOT, p.B), kThreads, G::smem, s>>>(p);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || !STATS) return (int)err;
   const int n = p.B * 2 * p.CO;
   stats_reduce_bf16<<<(n + 255) / 256, 256, 0, s>>>(p.part, sums, p.B, tiles, p.CO);
   return (int)cudaGetLastError();
+}
+
+template <int C, int S>
+int launch_site(SiteArgs p, float* sums, void* stream) {
+  if (p.B <= 0 || p.Hi < 2 || p.Wi < 2 || p.CO <= 0 || p.CO % kCOT) return (int)cudaErrorInvalidValue;
+  if (S == 2 && (p.Hi % 2 || p.Wi % 2)) return (int)cudaErrorInvalidValue;
+  p.H = p.Hi / S;
+  p.W = p.Wi / S;
+  p.astride = C;
+  return launch_site_kernel<C, S>(p, sums, stream);
 }
 
 SiteArgs site_args(const __nv_bfloat16* x, const float* a, const float* c,
@@ -314,6 +401,141 @@ SiteArgs site_args(const __nv_bfloat16* x, const float* a, const float* c,
   p.x = x; p.a = a; p.c = c; p.w = w; p.bias = bias; p.out = out; p.part = part;
   p.B = B; p.Hi = Hi; p.Wi = Wi; p.CO = CO; p.halo = halo;
   return p;
+}
+
+// K10 at C = 128 in one of its six forms (prologue x statistics).
+template <int PRO>
+int launch_fused(const SiteArgs& p, int stats, float* sums, void* stream) {
+  return stats ? launch_site_kernel<128, 1, true, PRO, true>(p, sums, stream)
+               : launch_site_kernel<128, 1, true, PRO, false>(p, sums, stream);
+}
+
+// ---------------------------------------------------------------------------
+// c1_kernel: Johnson's conv1 as the f=2 block conv (K11)
+// ---------------------------------------------------------------------------
+
+constexpr int kC1In = 12;            // input channels: 4 phases x 3 colours
+constexpr int kC1Out = 128;          // output channels: 4 phases x 32
+constexpr int kC1COT = 64;           // output channels per block
+constexpr int kC1TW = 32;            // output columns per tile (two m-tiles a warp)
+constexpr int kC1TH = kWarps;        // output rows per tile, one per warp
+constexpr int kC1RG = 4;             // row tiles a block walks down its column strip
+constexpr int kC1XR = kC1TH + 4;     // input rows of a tile
+constexpr int kC1XW = 224;           // words of a staged input row: 37 pixels x 6, padded
+constexpr int kC1PSW = 32 + 4;       // words per co row of the packed weights (K = 64)
+constexpr int kC1PSO = kC1COT / 2 + 4;  // words per pixel of the staged output tile
+constexpr size_t kC1Smem = sizeof(uint32_t) * (5 * kC1COT * kC1PSW + kC1XR * kC1XW +
+                                               kC1TH * kC1TW * kC1PSO);
+
+struct C1Args {
+  const uint32_t* x;        // [B,H+4,W+4,12] bf16, as words (6 a pixel)
+  const __nv_bfloat16* w;   // [5,5,12,128] (HWIO)
+  const float* bias;        // [128]
+  __nv_bfloat16* out;       // [B,H,W,128]
+  int B, H, W;              // the output grid; the input is (H+4) x (W+4)
+};
+
+// A block: 8 warps on a 8 x 32 output tile and 64 output channels, walking
+// kC1RG tiles down its column strip with the weights staged once. Warp w owns
+// output row w. m-tile j of a warp holds pixels 16j..16j+15 with MMA row g at
+// pixel 16j+2g and row g+8 at 16j+2g+1: a fragment load then touches words
+// 12g + t (+const), 32 different banks. K of kernel row dy: k = 12·dx + ch,
+// which is word 6·x + k/2 of the staged row for output pixel x.
+__global__ void __launch_bounds__(kThreads, 2) c1_kernel(C1Args p) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* s_w = smem;                              // [5][kC1COT][kC1PSW]
+  uint32_t* s_x = s_w + 5 * kC1COT * kC1PSW;         // [kC1XR][kC1XW]
+  uint32_t* s_o = s_x + kC1XR * kC1XW;               // [kC1TH][kC1TW][kC1PSO] bf16 pairs
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tx0 = blockIdx.x * kC1TW;
+  const int b = blockIdx.z / (kC1Out / kC1COT), co0 = (blockIdx.z % (kC1Out / kC1COT)) * kC1COT;
+  const int Hp = p.H + 4, Wp6 = (p.W + 4) * (kC1In / 2);
+
+  // weights → [dy][co][k], the five dx taps of a row packed, k 60..63 zero
+  for (int i = tid; i < 5 * kC1COT * 32; i += kThreads) {
+    const int kw = i % 32, co = (i / 32) % kC1COT, dy = i / (32 * kC1COT);
+    __nv_bfloat16 h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = 2 * kw + e, dx = k / kC1In, ch = k % kC1In;
+      h[e] = k < 5 * kC1In ? p.w[((dy * 5 + dx) * kC1In + ch) * kC1Out + co0 + co]
+                           : __float2bfloat16_rn(0.0f);
+    }
+    s_w[(dy * kC1COT + co) * kC1PSW + kw] = *reinterpret_cast<const uint32_t*>(h);
+  }
+
+#pragma unroll 1
+  for (int rg = 0; rg < kC1RG; ++rg) {
+    const int ty0 = (blockIdx.y * kC1RG + rg) * kC1TH;
+    if (ty0 >= p.H) break;
+    __syncthreads();  // the previous tile's s_x and s_o are read (and the weights staged)
+    for (int i = tid; i < kC1XR * kC1XW; i += kThreads) {
+      const int r = i / kC1XW, wd = i % kC1XW;
+      const int gy = ty0 + r, gw = tx0 * (kC1In / 2) + wd;
+      s_x[i] = gy < Hp && gw < Wp6 ? p.x[((size_t)b * Hp + gy) * Wp6 + gw] : 0u;
+    }
+    __syncthreads();
+
+    float acc[2][kNT][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][n][k] = 0.0f;
+#pragma unroll 1
+    for (int dy = 0; dy < 5; ++dy) {
+      const uint32_t* xr = s_x + (warp + dy) * kC1XW + 12 * g + t;
+      const uint32_t* wr = s_w + (dy * kC1COT + g) * kC1PSW + t;
+#pragma unroll
+      for (int k0 = 0; k0 < 4; ++k0) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t* base = xr + 96 * j + 8 * k0;   // pixel 16j + 2g
+          a[j][0] = base[0];
+          a[j][1] = base[6];                             // pixel 16j + 2g + 1
+          a[j][2] = base[4];
+          a[j][3] = base[10];
+        }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const uint32_t* wb = wr + n * 8 * kC1PSW + 8 * k0;
+          const uint32_t b0 = wb[0], b1 = wb[4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma_bf16(acc[j][n], a[j], b0, b1);
+        }
+      }
+    }
+
+    // + bias in f32, one round to bf16, into the staged tile
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int co = n * 8 + 2 * t;
+      const float bi0 = p.bias[co0 + co], bi1 = p.bias[co0 + co + 1];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = 16 * j + 2 * g + h;
+          *reinterpret_cast<__nv_bfloat162*>(s_o + (warp * kC1TW + px) * kC1PSO + co / 2) =
+              __floats2bfloat162_rn(__fadd_rn(acc[j][n][2 * h], bi0),
+                                    __fadd_rn(acc[j][n][2 * h + 1], bi1));
+        }
+    }
+    __syncthreads();
+    // out: each pixel's 64 channels are 128 contiguous bytes, 8 lanes of 16 bytes
+    for (int i = tid; i < kC1TH * kC1TW * (kC1COT / 8); i += kThreads) {
+      const int c8 = i % (kC1COT / 8), px = (i / (kC1COT / 8)) % kC1TW;
+      const int r = i / ((kC1COT / 8) * kC1TW);
+      const int oy = ty0 + r, ox = tx0 + px;
+      if (oy >= p.H || ox >= p.W) continue;
+      *reinterpret_cast<uint4*>(p.out + (((size_t)b * p.H + oy) * p.W + ox) * kC1Out + co0 +
+                                8 * c8) =
+          *reinterpret_cast<const uint4*>(s_o + (r * kC1TW + px) * kC1PSO + 4 * c8);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -534,4 +756,62 @@ extern "C" int d3_sum_site_launch(const __nv_bfloat16* x, const float* a, const 
   p.x = x; p.a = a; p.c = c; p.w = w; p.bias = bias; p.out = out;
   p.B = B; p.H = H; p.W = W;
   return launch_rows<true>(p, stream);
+}
+
+// K10: x_pad [B,Hi,Wi,128] (Hi ≥ H+2, Wi ≥ W+2) read as given, stat [B,2,128]
+// (a, c), w [9,128,CO] (tap, c, co) → out [B,H,W,CO] and, with stats, sums
+// [B,2,CO] (part [B, ceil(H/8)·ceil(W/32), 2, CO]). prologue: 0 f32 affine +
+// ReLU, 1 none, 2 the affine in bf16 arithmetic.
+extern "C" int fused_conv_launch(const __nv_bfloat16* x, const float* stat,
+                                 const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out,
+                                 float* part, float* sums, int B, int Hi, int Wi, int H, int W,
+                                 int CO, int prologue, int stats, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Hi < H + 2 || Wi < W + 2 || CO <= 0 || CO % kCOT)
+    return (int)cudaErrorInvalidValue;
+  SiteArgs p = site_args(x, stat, stat + 128, w, bias, out, part, B, Hi, Wi, CO, 0);
+  p.H = H;
+  p.W = W;
+  p.astride = 2 * 128;
+  switch (prologue) {
+    case kProF32: return launch_fused<kProF32>(p, stats, sums, stream);
+    case kProNone: return launch_fused<kProNone>(p, stats, sums, stream);
+    case kProBf16: return launch_fused<kProBf16>(p, stats, sums, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K11: y12 [B,H+4,W+4,12] → out [B,H,W,128] = bf16(Σ y12·w + bias), w [5,5,12,128].
+extern "C" int c1_site_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                              __nv_bfloat16* out, int B, int H, int W, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  C1Args p = {reinterpret_cast<const uint32_t*>(x), w, bias, out, B, H, W};
+  cudaError_t err = cudaFuncSetAttribute(c1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kC1Smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + kC1TW - 1) / kC1TW, ((H + kC1TH - 1) / kC1TH + kC1RG - 1) / kC1RG,
+                  B * (kC1Out / kC1COT));
+  c1_kernel<<<grid, kThreads, kC1Smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM and dynamic shared memory of a block: which 0 is
+// K10 (f32 prologue, statistics), 1 is K11.
+extern "C" int bf16_occupancy(int which, int* blocks, int* smem) {
+  cudaError_t err;
+  if (which == 0) {
+    auto kern = site_kernel_bf16<128, 1, true, kProF32, true>;
+    *smem = (int)SiteGeom<128, 1, true>::smem;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kThreads, *smem);
+  } else {
+    *smem = (int)kC1Smem;
+    err = cudaFuncSetAttribute(c1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, c1_kernel, kThreads, *smem);
+  }
+  return (int)err;
 }

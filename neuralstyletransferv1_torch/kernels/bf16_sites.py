@@ -21,6 +21,20 @@ accumulation:
                         [12·dy + o] + bias[o]), f32 in dy order
                         (``_d3_sum_site`` / ``_d3s_kernel``)
 
+Two more answer the JAX package's bf16 megakernel experiments
+(``experiments/``); no product path calls them:
+
+  K10 ``fused_conv``    the res-block site on a pre-padded input x_pad [B,
+                        ≥H+2, ≥W+2, 128]: a prologue on every position read
+                        (``"f32"`` as above, ``"none"``, or ``"bf16"``: x·bf16(a)
+                        → bf16, + bf16(c) → bf16, max 0) → 3×3 conv 128 → CO +
+                        bias → bf16 and, unless ``stats=False``, [Σ f, Σ f²]
+                        (``mk1_fusedconv.fused_conv``; mk2/mk3/mk5 ``build``)
+  K11 ``c1_site``       Johnson's conv1 in its f=2 block form: the 5×5 conv
+                        12 → 128 of the 4-pixel phase-reflect-padded space-to-
+                        depth image y12 [B,H+4,W+4,12] → bf16(Σ + bias)
+                        [B,H,W,128] (``mk13_c1.c1_site``)
+
 K9a/K9c/K9d return (bf16(f), [Σ f, Σ f²]) with f = acc + bias in f32: the
 sums are of the f32 values before the bf16 round, as the TPU kernels take
 them (the int8 sites sum the rounded values). The TPU's K9c/K9d run 2×2
@@ -31,7 +45,9 @@ accumulation, i.e. by isolated bf16 ulps after the round.
 
 Shapes: x [B,H,W,C] bf16, a/c [B,C] f32, site weights ``pack_site_weights``
 [9,CO,C] bf16, rows weights ``pack_rows_weights`` [5,64,128] bf16 (lanes
-60..63 zero), bias [CO] / [12] f32. Each wrapper dispatches on the tensors'
+60..63 zero), bias [CO] / [12] f32; K10 takes the experiments' operands as
+they are: stat [B,2,C] f32 (a, c), w9 [9,C,CO] bf16; K11 w [5,5,12,128]
+bf16 (HWIO). Each wrapper dispatches on the tensors'
 device: CPU → the ``*_plain`` version, CUDA → the kernel or an error; no
 fallback between the two. ``LAUNCHES[name]`` counts kernel launches.
 """
@@ -46,11 +62,15 @@ import torch
 import torch.nn.functional as F
 
 from ..models.s2d import pad_reflect_f2_4px
-from .int8_sites import _check, _stream
+from .int8_sites import _check, _check_aligned, _ptr, _stream
 
 _SOURCE = "bf16_sites.cu"
-LAUNCHES = {"d2_site": 0, "d3_sum_site": 0, "c2_site_bf16": 0, "c3_site_bf16": 0, "d3_rows": 0}
+LAUNCHES = {"d2_site": 0, "d3_sum_site": 0, "c2_site_bf16": 0, "c3_site_bf16": 0, "d3_rows": 0,
+            "fused_conv": 0, "c1_site": 0}
 D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
+#: K10's prologue forms, as the kernel numbers them
+PROLOGUES = {"f32": 0, "none": 1, "bf16": 2}
+FUSED_C, C1_IN, C1_OUT = 128, 12, 128
 #: per site: (C, CO, stride, halo, output tile of a block)
 SITES = {"d2_site": (64, 128, 1, "edge", (8, 32)),
          "c2_site_bf16": (32, 64, 2, "reflect", (8, 16)),
@@ -138,6 +158,38 @@ def d3_sum_scale_plain(x, a, c, w):
     return torch.stack(_d3_terms(d3_rows_plain(x, a, c, w))).abs().amax(0)
 
 
+def _prologue(x, stat, prologue: str):
+    """K10's prologue on x [B,h,w,C] with stat [B,2,C] → bf16."""
+    if prologue == "none":
+        return x
+    a, c = stat[:, 0], stat[:, 1]
+    if prologue == "f32":
+        return _activate(x, a, c)
+    if prologue == "bf16":  # each bf16 op rounds (PyTorch's bf16 elementwise)
+        ab, cb = (v.to(torch.bfloat16)[:, None, None, :] for v in (a, c))
+        return torch.relu(x * ab + cb)
+    raise ValueError(f"fused_conv: prologue {prologue!r} not in {tuple(PROLOGUES)}")
+
+
+def fused_conv_plain(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = True):
+    """K10's plain version → (bf16 [B,H,W,CO], f32 [B,2,CO] sums of the f32
+    conv results, or None without ``stats``)."""
+    H, W = hw
+    xa = _prologue(x_pad[:, :H + 2, :W + 2], stat, prologue)
+    c, co = w9.shape[1], w9.shape[2]
+    f = _conv_f32(xa, w9.reshape(3, 3, c, co).permute(3, 2, 0, 1)) + cb
+    if not stats:
+        return f.to(torch.bfloat16), None
+    fd = f.double()
+    sums = torch.stack([fd.sum(dim=(1, 2)), fd.square().sum(dim=(1, 2))], dim=1).float()
+    return f.to(torch.bfloat16), sums
+
+
+def c1_site_plain(y12, w, cb):
+    """K11's plain version → bf16 [B,H,W,128] from y12 [B,H+4,W+4,12]."""
+    return (_conv_f32(y12, w.permute(3, 2, 0, 1)) + cb).to(torch.bfloat16)
+
+
 def bf16_ulp_error(out: torch.Tensor, ref: torch.Tensor, *, floor: float = 2.0 ** -8,
                    scale: torch.Tensor | None = None) -> tuple[float, float]:
     """How far two versions of a site are apart: (the largest |out − ref| in
@@ -167,7 +219,10 @@ def _lib():
     site = [P] * 8 + [I] * 3 + [P]
     sigs = {"d2_site_launch": site, "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
             "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
-            "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P]}
+            "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P],
+            "fused_conv_launch": [P] * 7 + [I] * 8 + [P],
+            "c1_site_launch": [P] * 4 + [I] * 3 + [P],
+            "bf16_occupancy": [I, P, P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -276,4 +331,84 @@ def d3_sum_site(x, a, c, w, bias):
     with torch.cuda.device(dev):
         _run(k, _lib().d3_sum_site_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
              w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+    return out
+
+
+def fused_conv(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = True):
+    """K10: the experiments' fused res-block site. x_pad [B,Hp,Wp,128] bf16
+    with Hp ≥ H+2, Wp ≥ W+2 for the output grid ``hw`` = (H, W), read as
+    given (its halo is whatever the caller padded; the prologue applies to
+    it too); stat [B,2,128] f32 (a, c); w9 [9,128,CO] bf16 (tap, c, co); cb
+    [CO] f32. Returns (bf16 [B,H,W,CO], f32 [B,2,CO] [Σ, Σ²] of the f32
+    results, or None with ``stats=False``)."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"fused_conv: prologue {prologue!r} not in {tuple(PROLOGUES)}")
+    if x_pad.device.type == "cpu":
+        return fused_conv_plain(x_pad, stat, w9, cb, hw, prologue=prologue, stats=stats)
+    k, dev = "fused_conv", x_pad.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
+    B, Hp, Wp, C = x_pad.shape
+    H, W = hw
+    if C != FUSED_C:
+        raise ValueError(f"{k}: C={C}, the kernel is built for C={FUSED_C}")
+    if not (0 < H <= Hp - 2 and 0 < W <= Wp - 2):
+        raise ValueError(f"{k}: output {H}x{W} needs x_pad of at least {H + 2}x{W + 2}, "
+                         f"got {Hp}x{Wp}")
+    co = w9.shape[-1]
+    if co % 64:
+        raise ValueError(f"{k}: CO={co} is not a multiple of 64")
+    _check(k, "x_pad", x_pad, torch.bfloat16, (B, Hp, Wp, C), dev)
+    _check(k, "stat", stat, torch.float32, (B, 2, C), dev)
+    _check(k, "weights", w9, torch.bfloat16, (9, C, co), dev)
+    _check(k, "bias", cb, torch.float32, (co,), dev)
+    for name, t in (("x_pad", x_pad), ("weights", w9)):
+        _check_aligned(k, name, t)
+    out = torch.empty((B, H, W, co), dtype=torch.bfloat16, device=dev)
+    part = sums = None
+    if stats:
+        part = torch.empty((B, ceil(H / 8) * ceil(W / 32), 2, co), dtype=torch.float32,
+                           device=dev)
+        sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().fused_conv_launch, x_pad.data_ptr(), stat.data_ptr(), w9.data_ptr(),
+             cb.data_ptr(), out.data_ptr(), _ptr(part), _ptr(sums), B, Hp, Wp, H, W, co,
+             PROLOGUES[prologue], int(stats), _stream(dev))
+    return out, sums
+
+
+def c1_site(y12, w, cb):
+    """K11: Johnson's conv1 as the f=2 block conv. y12 [B,H+4,W+4,12] bf16
+    (the space-to-depth image, phase-reflect-padded by two blocks a side);
+    w [5,5,12,128] bf16 (``scatter_k9_f2`` of the 9×9 3→32 weights); cb
+    [128] f32 → bf16(Σ y12·w in f32 + cb) [B,H,W,128]."""
+    if y12.device.type == "cpu":
+        return c1_site_plain(y12, w, cb)
+    k, dev = "c1_site", y12.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
+    B, Hp, Wp, C = y12.shape
+    if C != C1_IN or Hp < 5 or Wp < 5:
+        raise ValueError(f"{k}: y12 {tuple(y12.shape)}: needs 12 channels and at least 5x5")
+    _check(k, "y12", y12, torch.bfloat16, (B, Hp, Wp, C1_IN), dev)
+    _check(k, "weights", w, torch.bfloat16, (5, 5, C1_IN, C1_OUT), dev)
+    _check(k, "bias", cb, torch.float32, (C1_OUT,), dev)
+    _check_aligned(k, "y12", y12)
+    out = torch.empty((B, Hp - 4, Wp - 4, C1_OUT), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().c1_site_launch, y12.data_ptr(), w.data_ptr(), cb.data_ptr(),
+             out.data_ptr(), B, Hp - 4, Wp - 4, _stream(dev))
+    return out
+
+
+def occupancy() -> dict:
+    """{kernel: (resident blocks per SM, dynamic shared memory bytes)} of
+    K10 (f32 prologue, statistics) and K11 on the current card."""
+    out = {}
+    for which, name in enumerate(("fused_conv", "c1_site")):
+        blocks, smem = ctypes.c_int(), ctypes.c_int()
+        rc = _lib().bf16_occupancy(which, ctypes.byref(blocks), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} failed: CUDA error {rc}")
+        out[name] = (blocks.value, smem.value)
     return out

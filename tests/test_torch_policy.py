@@ -1,9 +1,10 @@
 """Rules of the PyTorch port: no JAX at run time, no CPU fallback on the
 CUDA path, and the kernels (K1, K2–K8b, K9a–K9e) against their plain
-versions on the card.
+versions on the card (K10 and K11: ``test_torch_experiments.py``).
 
 The JAX-import rule is checked statically (an AST scan), since the test
-process itself imports jax.
+process itself imports jax. It covers the JAX package's ``experiments/``
+scripts too: the port has its own counterparts of them.
 """
 
 import ast
@@ -43,7 +44,7 @@ def _scan(files):
     for f in files:
         for mod, names in _imports(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "flax"):
+            if top in ("jax", "jaxlib", "flax", "experiments"):
                 bad.append((f.name, mod))
             if top == "neuralstyletransferv1_tpu":
                 sub = mod.partition(".")[2]
@@ -62,16 +63,19 @@ def test_port_imports_no_jax():
 def test_chip_smoke_imports_nothing_of_jax():
     f = ROOT / "chip_smoke.py"
     mods = {m.split(".")[0] for m, _ in _imports(f)}
-    assert not mods & {"jax", "jaxlib", "neuralstyletransferv1_tpu"}
+    assert not mods & {"jax", "jaxlib", "neuralstyletransferv1_tpu", "experiments"}
 
 
 def test_scan_catches_a_jax_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import jax.numpy as jnp\n"
                    "from neuralstyletransferv1_tpu.ops import warp\n"
-                   "from neuralstyletransferv1_tpu.io import checkpoints\n")
+                   "from neuralstyletransferv1_tpu.io import checkpoints\n"
+                   "from experiments import mk1_fusedconv\n"
+                   "import experiments._bench\n")
     assert [b[1] for b in _scan([bad])] == ["jax.numpy", "neuralstyletransferv1_tpu.ops",
-                                            "neuralstyletransferv1_tpu.io"]
+                                            "neuralstyletransferv1_tpu.io", "experiments",
+                                            "experiments._bench"]
 
 
 def test_main_without_device_needs_cuda(monkeypatch):
