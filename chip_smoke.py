@@ -9,8 +9,9 @@ order, and any failed phase exits non-zero:
 1. require CUDA and the port's package beside this file (imported first:
    elsewhere the script stops there);
 2. print the card's name and power limit (nvidia-smi);
-3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``) and
-   K9a–K11 (``csrc/bf16_sites.cu``), one nvcc each, started together, and
+3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``),
+   K9a–K11 (``csrc/bf16_sites.cu``) and K12–K13 (``csrc/int8_probes.cu``),
+   one nvcc each, started together, and
    print ptxas' registers and spills of every kernel, and the dynamic
    shared memory of K3's and K4's tensor-core core (``mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
@@ -52,7 +53,23 @@ order, and any failed phase exits non-zero:
    Johnson conv1, held against their plain versions like K9 and timed in
    turns beside the cuDNN conv alone and, for K10, the three-pass path
    (prologue, conv, statistics) eager and under ``torch.compile``, for K11
-   the pixel conv1 (NCHW and channels-last);
+   the pixel conv1 (NCHW and channels-last); then the int8 probes' entry
+   points (mk20, mk21, mk27, mk28, mk31): K12 (``shift_dot``, the shifted
+   dot over flat rows) in every built form — mk20's s8 → s32 and bf16 → f32
+   dot [16384, 512] × [512, 256], the 8-row-strip 9-tap dot [8, 274, 488,
+   128] → [8, 272, 488, 128] int8 (quantize ·16) and bf16 (mk20's probe 3,
+   mk21's tap9, k384 on regrouped weights, noq on s8 input), mk27's six
+   shifted dots over G = 32 slices [32, 8256, 128] → [32, 8192, 128] (s8 at
+   offsets r and 32r, bf16, the saturating cast); K13 (``pad_inject``,
+   mk28's P1 pad and P2 quantize + inject on one [1, 8, 480, 128] strip);
+   K4's new forms at mk31's [16, 270, 480, 128] (``prologue="cast"``, v1;
+   ``stats=False``, v2 and mk28's P5), counts zeroed around them (K12, K13
+   and both K4 forms must launch): the integer-valued outputs bit-identical
+   to the plain versions, the bf16 strips within 1 ulp on ≥ 99%, mk20's f32
+   dot within 1e-5·Σ|ab|, mk28's own numpy asserts on the card's outputs;
+   timed in turns beside their plain versions, the library call where one
+   computes the same function (``torch._int_mm``, ``torch.mm``, ``F.pad``)
+   and the yardsticks (the cuDNN bf16 3×3 conv; mk27's im2col products);
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
    bit for bit from one head output — under the adopted set and under the
@@ -197,12 +214,33 @@ BF16_KERNELS = {
     "c3_site_bf16": ((B, H // 2, W // 2, 64), f"{_SITES_BF16}:594"),
     "d3_rows": ((B, H // 2, W // 2, 128), f"{_SITES_BF16}:58"),
 }
-# K10 and K11, the experiments' kernels, and the TPU kernel each replaces;
-# the entry points run once each (mk5's default covers K10's six forms)
-EXP_KERNELS = {"fused_conv": "experiments/mk1_fusedconv.py:32",
-               "c1_site": "experiments/mk13_c1.py:36"}
+# the experiments' kernels: (source, the TPU kernel each replaces); K10 and
+# K11 (bf16), K12 and K13 (the int8 probes) and K4's two forms of the int8
+# probes; the entry points run once each (mk5's default covers K10's six
+# forms, mk20 + mk21 + mk27 K12's six, mk28 K13's two, mk31 K4's two new)
+_BF16_SRC = "neuralstyletransferv1_torch/csrc/bf16_sites.cu"
+_PROBE_SRC = "neuralstyletransferv1_torch/csrc/int8_probes.cu"
+_INT8_SRC = "neuralstyletransferv1_torch/csrc/int8_sites.cu"
+EXP_KERNELS = {"fused_conv": (_BF16_SRC, "experiments/mk1_fusedconv.py:32"),
+               "c1_site": (_BF16_SRC, "experiments/mk13_c1.py:36"),
+               "shift_dot": (_PROBE_SRC, "experiments/mk21_int8_res_sweep.py:36"),
+               "pad_inject": (_PROBE_SRC, "experiments/mk28_probe.py:41"),
+               "res_site_cast": (_INT8_SRC, "experiments/mk31_i8_variants.py:57"),
+               "res_site_nostats": (_INT8_SRC, "experiments/mk31_i8_variants.py:99")}
 EXP_ENTRY_POINTS = ("mk1_fusedconv", "mk2_variants", "mk3_variants", "mk5_ablate",
-                    "mk7_d3site", "mk13_c1")
+                    "mk7_d3site", "mk13_c1", "mk20_int8_smoke", "mk21_int8_res_sweep",
+                    "mk27_pallas_s8_dot", "mk28_probe", "mk31_i8_variants")
+# the TPU kernel bodies each K12 / K13 / K4 form of the probes replaces
+PROBE_REPLACES = {"mk20 P2": "experiments/mk20_int8_smoke.py:75",
+                  "mk20 P3": "experiments/mk20_int8_smoke.py:137",
+                  "mk21": "experiments/mk21_int8_res_sweep.py:36",
+                  "mk27 bf16": "experiments/mk27_pallas_s8_dot.py:42",
+                  "mk27 s8_aligned": "experiments/mk27_pallas_s8_dot.py:52",
+                  "mk27 s8_unaligned": "experiments/mk27_pallas_s8_dot.py:63",
+                  "mk27 bf16cast": "experiments/mk27_pallas_s8_dot.py:74",
+                  "mk28 P1": "experiments/mk28_probe.py:41",
+                  "mk28 P2": "experiments/mk28_probe.py:61",
+                  "mk28 P5": "experiments/mk28_probe.py:93"}
 # the all-int8 head and tail sets (ROADMAP Queue 1, item 11)
 SET_A = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8")
 SET_B = ("head_i8", "res_i8", "dec_i8", "tail_s8", "d3_i8")
@@ -768,9 +806,11 @@ def experiments_phase(dev) -> tuple[dict, dict]:
     user runs it (``main([])``: kernel against plain version, then timed in
     turns beside its yardsticks), with the launch counts zeroed before and
     read after; its JSON line goes to the log. Returns the launches and
-    K10's and K11's kernels-line records: mk5's, whose default variants
-    take K10's six forms (the f32 form's numbers, the largest error, every
-    form under ``per_form``), and mk13's."""
+    the kernels-line records of K10 and K11 (mk5's, whose default variants
+    take K10's six forms: the f32 form's numbers, the largest error, every
+    form under ``per_form``; mk13's), of K12 (mk21's tap9-int8 strip, every
+    form of mk20, mk21 and mk27 under ``per_form``), K13 (mk28's P1, with P2)
+    and K4's cast and no-statistics forms (mk31's v1; v2, with mk28's P5)."""
     import contextlib
     import importlib
     import io
@@ -781,16 +821,16 @@ def experiments_phase(dev) -> tuple[dict, dict]:
     for name in EXP_ENTRY_POINTS:
         mod = importlib.import_module(f"neuralstyletransferv1_torch.experiments.{name}")
         buf = io.StringIO()
+        t1 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
                 recs[name] = mod.main([])
         except AssertionError as e:
             fail(f"experiments.{name}: {e}")
-        log(f"entry {name}: {buf.getvalue().strip()}")
+        log(f"entry {name} ({time.perf_counter() - t1:.1f} s): {buf.getvalue().strip()}")
     counts = read_counts()
     log(f"experiment entry points in {time.perf_counter() - t0:.1f} s; launches "
-        f"fused_conv {counts['fused_conv']}, c1_site {counts['c1_site']}, "
-        f"d3_rows {counts['d3_rows']}")
+        + ", ".join(f"{k} {counts[k]}" for k in (*EXP_KERNELS, "d3_rows")))
     for name in EXP_KERNELS:
         if counts[name] == 0:
             fail(f"{name} was launched no time by the experiment entry points")
@@ -806,7 +846,35 @@ def experiments_phase(dev) -> tuple[dict, dict]:
                         for f, v in forms.items()}}
     k11 = {k: recs["mk13_c1"][k] for k in (*keys, "cudnn_pixel_nchw_ms",
                                            "cudnn_pixel_channels_last_ms")}
-    return counts, {"fused_conv": k10, "c1_site": k11}
+    extra = ("cudnn_bf16_ms", "im2col_mm_ms", "tops")
+
+    def row(v: dict, replaces: str | None = None) -> dict:
+        r = {**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
+        return r if replaces is None else {**r, "replaces": replaces}
+
+    k12 = {f"mk20 P{v['probe']} {v['form']}": row(v, PROBE_REPLACES[f"mk20 P{v['probe']}"])
+           for v in recs["mk20_int8_smoke"]["probes"] if v["probe"] != 1}
+    k12.update({f"mk21 {v['variant']}": row(v, PROBE_REPLACES["mk21"])
+                for v in recs["mk21_int8_res_sweep"]["variants"]})
+    k12.update({f"mk27 {v['variant']}": row(v, PROBE_REPLACES[f"mk27 {v['variant']}"])
+                for v in recs["mk27_pallas_s8_dot"]["variants"]})
+    mk28 = {v["probe"].split()[0]: v for v in recs["mk28_probe"]["probes"]}
+    k13 = {f"mk28 {p}": row(mk28[p], PROBE_REPLACES[f"mk28 {p}"]) for p in ("P1", "P2")}
+    mk31 = {v["variant"]: v for v in recs["mk31_i8_variants"]["variants"]}
+    nostats = {"mk31 v2": row(mk31["v2"], "experiments/mk31_i8_variants.py:99"),
+               "mk28 P5": row(mk28["P5"], PROBE_REPLACES["mk28 P5"])}
+
+    def main_row(per_form: dict, main: str) -> dict:
+        return {**{k: per_form[main][k] for k in keys},
+                "max_abs_err": max(v["max_abs_err"] for v in per_form.values()),
+                "main_form": main, "per_form": per_form}
+
+    return counts, {"fused_conv": k10, "c1_site": k11,
+                    "shift_dot": main_row(k12, "mk21 tap9-int8"),
+                    "pad_inject": main_row(k13, "mk28 P1"),
+                    "res_site_cast": {**row(mk31["v1"]), "form": "mk31 v1",
+                                      "v0_ms": mk31["v0"]["ms"]},
+                    "res_site_nostats": main_row(nostats, "mk31 v2")}
 
 
 # K2/K3's zero-halo form at ragged content widths: (B, H, W, C, CO, sw)
@@ -1038,10 +1106,11 @@ def set_a_chain_phase(dev, model, x, stats):
 def zero_counts():
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     k1.LAUNCHES = 0
-    for counts in (k8.LAUNCHES, k9.LAUNCHES):
+    for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k9.LAUNCHES, k12.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1049,9 +1118,11 @@ def zero_counts():
 def read_counts() -> dict:
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k9.LAUNCHES}
+    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k8.PROBE_LAUNCHES, **k9.LAUNCHES,
+            **k12.LAUNCHES}
 
 
 def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
@@ -1771,8 +1842,9 @@ def write_t7(path: Path, layers: list) -> Path:
 def ptxas_report(text: str, k8) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core core's instantiations
-    (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3;
-    tau 1: K4 with the TLU floor; zero 1: K4 under the zero halo)."""
+    (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
+    <128, 4, 0> K4's cast form, <128, 0, 4> its no-statistics form; tau 1: K4
+    with the TLU floor; zero 1: K4 under the zero halo)."""
     import re
 
     name, spill = None, ""
@@ -1792,7 +1864,8 @@ def ptxas_report(text: str, k8) -> None:
             extra = ""
             if base == "mma_kernel":
                 c = int(targs[0])
-                short += " (K4)" if targs[1] == "0" else " (K3)"
+                short += {("0", "0"): " (K4)", ("2", "2"): " (K3)", ("4", "0"): " (K4 cast)",
+                          ("0", "4"): " (K4 no stats)"}[targs[1], targs[2]]
                 extra = f", {k8._lib().mma_kernel_smem_bytes(c)} bytes dynamic shared memory"
             log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
             name = None
@@ -1941,15 +2014,15 @@ def main() -> int:
     from neuralstyletransferv1_torch.kernels import _build
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     resolve_device("cuda")  # TF32 off for the f32 paths
     t0 = time.perf_counter()
-    _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE])
-    k1._lib()
-    k8._lib()
-    k9._lib()
-    log(f"built K1, K2-K8b and K9a-K11 with nvcc (in parallel) in "
+    _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE, k12._SOURCE])
+    for mod in (k1, k8, k9, k12):
+        mod._lib()
+    log(f"built K1, K2-K8b, K9a-K11 and K12-K13 with nvcc (in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
         return run_phases(dev, Path(tmp), k8)
@@ -2036,10 +2109,9 @@ def run_phases(dev, tmp: Path, k8) -> int:
             "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
             "launches": launches[name], "library_ms": None, **bf16[name],
         })
-    for name, replaces in EXP_KERNELS.items():
+    for name, (source, replaces) in EXP_KERNELS.items():
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": exp_launches[name], **exp[name],
         })
     for name in (*INT8_KERNELS, *BF16_KERNELS):

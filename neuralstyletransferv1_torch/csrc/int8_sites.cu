@@ -99,7 +99,10 @@
 // fixed order, reduced over tiles by stats_reduce_mma (8 warps a block, in
 // double, in a fixed order). The Prologue/Epilogue enums are shared with
 // site_kernel; mma_kernel instantiates kQuant/kRawStats (K4) and
-// kCodes/kSiteS8 (K3).
+// kCodes/kSiteS8 (K3), and K4's forms of the int8 probes at C = 128:
+// kCast/kRawStats (the bare saturating cast for the quantize, mk31's v1)
+// and kQuant/kRaw (no statistics: mk31's v2, mk28's mini site), each its
+// own instance so that the others keep their code.
 //
 // Where mma_kernel's time goes (H100, chip_smoke.py --phases): the MMAs
 // are issued in about a third of each tile's time; the rest is the
@@ -124,8 +127,12 @@ constexpr int kWarps = kThreads / 32;
 // (floor 0 for a ReLU, bf16(tau) for a TLU) before v is written and quantized.
 // kEmitS8F: kEmitS8 with a per-channel pre-round floor (FRN's TLU folded into
 // the emit) and the clamp floor qlo.
-enum Prologue { kQuant = 0, kSkip = 1, kCodes = 2, kSkipAct = 3 };
-enum Epilogue { kRawStats = 0, kEmitS8 = 1, kSiteS8 = 2, kEmitS8F = 3 };
+// kCast (mma_kernel only): the bare saturating cast of bf16 to s8, no affine
+// (NaN -> 0, clamp(trunc(x), -128, 127): XLA's convert), mk31's v1.
+// kRaw (mma_kernel only): the bf16 raw out and zero sums, no statistics
+// (mk31's v2, mk28's mini site).
+enum Prologue { kQuant = 0, kSkip = 1, kCodes = 2, kSkipAct = 3, kCast = 4 };
+enum Epilogue { kRawStats = 0, kEmitS8 = 1, kSiteS8 = 2, kEmitS8F = 3, kRaw = 4 };
 // kSiteS8 epilogue steps, chosen per launch (the K3 forms of _site_kernel_s8g)
 enum SiteFlags { kFAff = 1, kFYadd = 2, kFYaff = 4, kFS8Out = 8 };
 // kSiteS8 per-channel rows staged in shared memory: aa, ac, qa, qc, ya, yc
@@ -191,6 +198,12 @@ __device__ __forceinline__ int quantize(float v, float a, float c, float lo) {
 __device__ __forceinline__ int quantize_floor(float v, float a, float c, float t, float lo) {
   const float q = rintf(fmaxf(__fadd_rn(__fmul_rn(v, a), c), t));
   return (int)fminf(fmaxf(q, lo), 127.0f);
+}
+
+// XLA's saturating f32 -> s8 convert: NaN -> 0, truncate toward zero, clamp
+// (cvt.rzi.s32.f32 converts NaN to 0 and saturates to the s32 range)
+__device__ __forceinline__ int sat_cast(float v) {
+  return min(max(__float2int_rz(v), -128), 127);
 }
 
 __device__ __forceinline__ void load4_bf16(const __nv_bfloat16* p, float* v) {
@@ -629,8 +642,11 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 template <int C, int PRO, int EPI, bool TAU, bool ZERO>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
-  static_assert((PRO == kQuant && EPI == kRawStats) || (PRO == kCodes && EPI == kSiteS8),
-                "mma_kernel serves K4 (kQuant, kRawStats) and K3 (kCodes, kSiteS8)");
+  static_assert(((PRO == kQuant || PRO == kCast) && (EPI == kRawStats || EPI == kRaw) &&
+                 !(PRO == kCast && EPI == kRaw)) ||
+                    (PRO == kCodes && EPI == kSiteS8),
+                "mma_kernel serves K4 (kQuant, kRawStats; kCast, kRawStats; kQuant, kRaw) and "
+                "K3 (kCodes, kSiteS8)");
   static_assert(!TAU || PRO == kQuant, "the floor is a quantize's");
   static_assert(!ZERO || (PRO == kQuant && !TAU), "K3 carries the zero halo in its codes");
   using S = MmaSmem<C>;
@@ -652,6 +668,8 @@ __global__ void __launch_bounds__(kMThreads, 1)
   const int total = p.B * tiles;
   int tile = blockIdx.x % per_half;
   if (tile >= total) return;
+  if (EPI == kRaw && blockIdx.x == 0)  // no statistics: p.part is the [B, 2, CO] sums
+    for (int i = tid; i < p.B * 2 * p.CO; i += kMThreads) p.part[i] = 0.0f;
 
   // the block's weights, once: word (tap, k, co0 + n) → bytes 4k.. of row (tap, n)
   static_assert(9 * CW * MCO % kMThreads == 0, "weight words split evenly");
@@ -729,7 +747,10 @@ __global__ void __launch_bounds__(kMThreads, 1)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t q0, q1;
-          if (TAU) {
+          if (PRO == kCast) {
+            q0 = sat_cast(bf16_lo(w4[j])) & 0xff;
+            q1 = sat_cast(bf16_hi(w4[j])) & 0xff;
+          } else if (TAU) {
             q0 = quantize_floor(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], qt[2 * j], p.lo) & 0xff;
             q1 = quantize_floor(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], qt[2 * j + 1],
                                 p.lo) & 0xff;
@@ -843,7 +864,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
                   s2[e] = __fadd_rn(s2[e], __fmul_rn(f[e], f[e]));
                 }
               }
-            } else if (p.flags & kFAff) {
+            } else if (EPI == kSiteS8 && (p.flags & kFAff)) {
               f[0] = bf16_round(__fadd_rn(__fmul_rn(f[0], aa.x), ac.x));
               f[1] = bf16_round(__fadd_rn(__fmul_rn(f[1], aa.y), ac.y));
             }
@@ -1025,6 +1046,13 @@ int launch_mma(const Args& p, int C, float* sums, void* stream) {
     if (!tau && C == 192) return launch_mma_c<192, PRO, EPI, false>(p, sums, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K4's forms of the int8 probes (mk31, mk28): C = 128, reflect halo, no floor
+template <int PRO, int EPI>
+int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
+  if (!valid(p) || p.tau != nullptr || p.halo != 0 || C != 128) return (int)cudaErrorInvalidValue;
+  return launch_mma_c<128, PRO, EPI, false>(p, sums, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -1291,6 +1319,25 @@ extern "C" int res_site_launch(const void* x, const float* a, const float* c,
   p.x = x; p.a = a; p.c = c; p.tau = tau; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;
   return launch_mma<kQuant, kRawStats>(p, C, sums, stream);
+}
+
+// K4's forms of the int8 probes (C = 128, reflect halo, no floor): cast 1:
+// the codes are the saturating cast of x (a, c unused; kCast); stats 0: out
+// only, sums zero (kRaw; part unused). cast 0 with stats 1 is res_site_launch.
+extern "C" int res_site_form_launch(const void* x, const float* a, const float* c,
+                                    const int32_t* wk, const float* ws, const float* bias,
+                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                                    int W, int C, int CO, float lo, int cast, int stats,
+                                    void* stream) {
+  Args p = make_args(B, H, W, CO, lo, 0);
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.out = out; p.part = part;
+  if (cast && stats) return launch_mma_probe<kCast, kRawStats>(p, C, sums, stream);
+  if (!cast && !stats) {
+    p.part = sums;
+    return launch_mma_probe<kQuant, kRaw>(p, C, sums, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K4 on the previous __dp4a core (site_kernel), for timing only.

@@ -18,6 +18,7 @@ from statistics import median
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels import bf16_sites as k9
@@ -57,10 +58,11 @@ def in_turns(calls: dict, rounds: int = 5) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_OPS) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    bf16 operations over the tensor-core peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_OPS * 1e3
+    operations over the tensor-core peak of their type (``peak``: bf16 by
+    default, ``PEAK_INT8_OPS`` for the s8 forms), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops > t_bytes
             else "bytes", "gbytes": nbytes / 1e9, "flop": flops}
 
@@ -101,35 +103,107 @@ def normal(rng: np.random.Generator, shape, scale: float, dev, dtype=torch.bfloa
     return torch.from_numpy(a).to(dev).to(dtype)
 
 
-def check(name: str, out, again, ref, *, sums=None, sums_again=None, sums_ref=None) -> dict:
+def _sums_error(out, sums, sums_ref) -> float:
+    """[Σ, Σ²] against the plain sums: Σ² relative to itself, Σ relative to
+    sqrt(n·Σ²) (n the pixels an image)."""
+    n = out.shape[1] * out.shape[2]
+    s, sr = sums.double(), sums_ref.double()
+    e2 = ((s[:, 1] - sr[:, 1]).abs() / sr[:, 1].clamp_min(1e-30)).max()
+    e1 = ((s[:, 0] - sr[:, 0]).abs() / (n * sr[:, 1]).sqrt().clamp_min(1e-30)).max()
+    return float(max(e1, e2))
+
+
+def check(name: str, out, again, ref, *, exact: bool = False, sums=None, sums_again=None,
+          sums_ref=None, zero_sums: bool = False) -> dict:
     """Kernel (``out``, ``again``: two launches) against its plain version
-    ``ref``: the launches bit-identical; every bf16 output within 1 ulp, an
-    ulp taken at no less than 2^-8 of the largest magnitude (the two differ
-    by the order of their f32 accumulation), and ``BF16_EQUAL_SHARE`` of them
-    equal; the sums within ``SUM_TOL``. Raises on a failure."""
+    ``ref``: the launches bit-identical; with ``exact`` (both compute the same
+    exact function: integer sums, one rounding) the output bit-identical to
+    the plain one, of any dtype; else every bf16 output within 1 ulp, an ulp
+    taken at no less than 2^-8 of the largest magnitude (the two differ by
+    the order of their f32 accumulation), and ``BF16_EQUAL_SHARE`` of them
+    equal. The sums within ``SUM_TOL`` (they run in another order), or all
+    zero with ``zero_sums``. Raises on a failure."""
     if not torch.equal(out, again) or (sums is not None and not torch.equal(sums, sums_again)):
         raise AssertionError(f"{name}: two launches on the same inputs differ")
-    if out.shape != ref.shape or out.dtype != torch.bfloat16:
+    dtype = ref.dtype if exact else torch.bfloat16
+    if out.shape != ref.shape or out.dtype != dtype:
         raise AssertionError(f"{name}: output {tuple(out.shape)} {out.dtype}, expected "
-                             f"{tuple(ref.shape)} bfloat16")
-    if not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError(f"{name}: non-finite output")
-    worst, equal = k9.bf16_ulp_error(out, ref)
-    rec = {"max_abs_err": float((out.float() - ref.float()).abs().max()), "worst_ulp": worst,
-           "equal_share": equal}
-    if worst > 1.0 or equal < BF16_EQUAL_SHARE:
-        raise AssertionError(f"{name}: {worst:.3g} ulp from the plain version at worst (limit "
-                             f"1), equal on {equal:.4%}")
-    if sums is not None:
-        n = out.shape[1] * out.shape[2]
-        s, sr = sums.double(), sums_ref.double()
-        e2 = ((s[:, 1] - sr[:, 1]).abs() / sr[:, 1].clamp_min(1e-30)).max()
-        e1 = ((s[:, 0] - sr[:, 0]).abs() / (n * sr[:, 1]).sqrt().clamp_min(1e-30)).max()
-        rec["sums_rel_err"] = float(max(e1, e2))
+                             f"{tuple(ref.shape)} {dtype}")
+    if exact:
+        if not torch.equal(out, ref):
+            diff = (out.double() - ref.double()).abs()
+            raise AssertionError(f"{name}: differs from the plain version on "
+                                 f"{int((diff > 0).sum())} elements, by {float(diff.max()):.4g} "
+                                 "at most")
+        rec = {"max_abs_err": 0.0, "bit_identical": True}
+    else:
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        worst, equal = k9.bf16_ulp_error(out, ref)
+        rec = {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "worst_ulp": worst, "equal_share": equal}
+        if worst > 1.0 or equal < BF16_EQUAL_SHARE:
+            raise AssertionError(f"{name}: {worst:.3g} ulp from the plain version at worst "
+                                 f"(limit 1), equal on {equal:.4%}")
+    if zero_sums:
+        if not bool((sums == 0).all()):
+            raise AssertionError(f"{name}: the no-statistics form wrote nonzero sums")
+    elif sums is not None:
+        rec["sums_rel_err"] = _sums_error(out, sums, sums_ref)
         if rec["sums_rel_err"] > SUM_TOL:
             raise AssertionError(f"{name}: sums {rec['sums_rel_err']:.3g} from the plain sums "
                                  f"(limit {SUM_TOL})")
     return rec
+
+
+def _pair(x):
+    return (x, None) if isinstance(x, torch.Tensor) else x
+
+
+def measure(name: str, call, plain, dev, *, exact=True, check_fn=None, check_kw=None,
+            work=None, library=None, yardsticks=None, reps: int = 10,
+            plain_reps: int = 2) -> dict:
+    """One kernel form: ``call`` (the kernel's wrapper) launched twice and
+    ``plain`` (its plain version) once, held by ``check`` (``exact`` or not;
+    tensors, or (out, sums) pairs) or by ``check_fn`` where a form needs its
+    own (mk20's f32 out); on the card also its bound
+    (``work`` = (bytes, operations[, peak])) and, in turns, the times of the
+    kernel (``ms``), the plain version (``plain_ms``), ``library`` (one
+    PyTorch call that computes the same function, or None: ``library_ms``)
+    and the ``yardsticks`` ({key: call} of PyTorch calls that do not)."""
+    (out, s), (again, s2), (ref, sr) = _pair(call()), _pair(call()), _pair(plain())
+    kw = dict(check_kw or {})
+    if s is not None:
+        kw.update(sums=s, sums_again=s2, sums_ref=sr)
+    rec = (check_fn(name, out, again, ref, **kw) if check_fn is not None
+           else check(name, out, again, ref, exact=exact, **kw))
+    del out, again, ref, s, s2, sr
+    if dev.type != "cuda":
+        return rec
+    if work is not None:
+        rec.update(bound(*work))
+    calls = {"ms": (call, reps), "plain_ms": (plain, plain_reps)}
+    if library is not None:
+        calls["library_ms"] = (library, reps)
+    calls.update({k: (fn, reps) for k, fn in (yardsticks or {}).items()})
+    t = in_turns(calls)
+    rec.update({k: v["ms"] for k, v in t.items()})
+    rec["library_ms"] = rec.get("library_ms")
+    rec["spread"] = {k: v["spread"] for k, v in t.items()}
+    if work is not None:
+        rec["tops"] = work[1] / rec["ms"] / 1e9
+    torch.cuda.empty_cache()
+    return rec
+
+
+def conv3x3(x: torch.Tensor, co: int, padding: int, seed: int = 0):
+    """The cuDNN bf16 3×3 conv of x [B,H,W,C] bf16 (a channels-last view) to
+    ``co`` channels, seeded weights: the library call a conv site stands
+    for, a yardstick of speed (it does not compute the site's function)."""
+    w = normal(np.random.default_rng(seed), (co, x.shape[-1], 3, 3), 0.05, x.device)
+    w = w.contiguous(memory_format=torch.channels_last)
+    xc = x.permute(0, 3, 1, 2)
+    return lambda: F.conv2d(xc, w, padding=padding)
 
 
 def emit(record: dict) -> None:

@@ -21,7 +21,11 @@ no padding column enters a dot:
                         (``site_s8`` / ``_site_kernel_s8g``: AFF, YADD, YAFF,
                         S8OUT)
   K4  ``res_site``      quantize bf16 x → conv → bf16 raw + [Σ, Σ²]
-                        (``res_site`` / ``_site_kernel``)
+                        (``res_site`` / ``_site_kernel``); the int8 probes'
+                        forms (``experiments/mk31_i8_variants.py`` v1, v2,
+                        ``mk28_probe.py`` P5): ``prologue="cast"`` (XLA's
+                        saturating bf16 → s8 convert, no affine) and
+                        ``stats=False`` (raw out, zero sums)
   K5  ``res_site_skip`` v = bf16(bf16(r2·a2 + c2) + y), quantize v → conv →
                         bf16 raw + [Σ, Σ²], and v itself
                         (``res_site_skip`` / ``_site_kernel_skip``)
@@ -82,10 +86,17 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv import conv2d_i8
+from .int8_probes import saturate_s8
 
 _SOURCE = "int8_sites.cu"
 LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
             "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
+#: K4's forms of the int8 probes (``res_site(prologue=, stats=)``; C = 128,
+#: reflect halo, no floor): the saturating cast (mk31's v1) and no
+#: statistics (mk31's v2, mk28's mini site), each counted under its own name
+#: in ``PROBE_LAUNCHES`` (``LAUNCHES``' keys name the wrapper functions)
+K4_PROBE_FORMS = {("cast", True): "res_site_cast", ("quant", False): "res_site_nostats"}
+PROBE_LAUNCHES = dict.fromkeys(K4_PROBE_FORMS.values(), 0)
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
 #: the halos of K8 and of K4's and K5's floored forms (``tau``, ``act``)
 HALOS_RE = ("reflect", "edge")
@@ -215,9 +226,16 @@ def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=N
     return fv if qa is None else _mask_sw(_emit(fv, qa, qc, qlo), sw)
 
 
-def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
-    """K4's plain version → (bf16 raw [B,H,W,CO], f32 [B,2,CO] sums)."""
-    fv = _conv_dequant(_quantize(x.float(), a, c, lo, tau), wk, ws, bias, halo)
+def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="quant",
+                   stats=True):
+    """K4's plain version → (bf16 raw [B,H,W,CO], f32 [B,2,CO] sums; zero
+    without ``stats``). ``prologue="cast"``: the codes are the saturating
+    cast of x (a, c, lo unused)."""
+    q = saturate_s8(x) if prologue == "cast" else _quantize(x.float(), a, c, lo, tau)
+    fv = _conv_dequant(q, wk, ws, bias, halo)
+    if not stats:
+        return fv, torch.zeros((x.shape[0], 2, fv.shape[-1]), dtype=torch.float32,
+                               device=x.device)
     return fv, _sums(fv)
 
 
@@ -301,6 +319,7 @@ def _lib():
         "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, I, P],
         "res_site_launch": [P] * 10 + dims + [Fl, I, P],
         "res_site_prev_launch": [P] * 10 + dims + [Fl, I, P],
+        "res_site_form_launch": [P] * 9 + dims + [Fl, I, I, P],
         "res_site_skip_launch": [P] * 14 + dims + [Fl, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
@@ -357,12 +376,12 @@ def _check_aligned(kernel, name, t):
         raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
-def _run(kernel, fn, *args, count=True):
+def _run(kernel, fn, *args, count=True, counts=LAUNCHES):
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     if count:
-        LAUNCHES[kernel] += 1
+        counts[kernel] += 1
 
 
 def _stream(dev):
@@ -479,15 +498,51 @@ def _stats_buffers(B, H, W, CO, dev, tile):
     return part, torch.empty((B, 2, CO), dtype=torch.float32, device=dev)
 
 
-def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
+def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="quant",
+             stats=True):
     """K4: quantize x → 3×3 int8 conv → bf16 raw [B,H,W,CO] and the f32
     [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. ``tau`` (B, C): a floor on
     x·a + c before the round (FRN's TLU; C = 96 or 192). ``halo="zero"``
-    (C = 64, 128, no ``tau``): code 0 outside the image. On the card: the
-    int8 tensor-core core."""
+    (C = 64, 128, no ``tau``): code 0 outside the image. The int8 probes'
+    forms (``K4_PROBE_FORMS``; C = 128, reflect halo, no ``tau``):
+    ``prologue="cast"``, the codes are XLA's saturating cast of x (a, c, lo
+    unused); ``stats=False``, the sums are zero. On the card: the int8
+    tensor-core core."""
+    if prologue not in ("quant", "cast"):
+        raise ValueError(f"res_site: prologue {prologue!r} not in ('quant', 'cast')")
     if x.device.type == "cpu":
-        return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo, tau=tau)
+        return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo, tau=tau, prologue=prologue,
+                              stats=stats)
+    if (prologue, stats) != ("quant", True):
+        return _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats)
     return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau)
+
+
+def _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats):
+    k = K4_PROBE_FORMS.get((prologue, stats))
+    if k is None:
+        raise ValueError(f"res_site: no kernel form with prologue {prologue!r} and "
+                         f"stats={stats} (built: {sorted(K4_PROBE_FORMS)})")
+    if tau is not None:
+        raise ValueError(f"res_site: the {prologue!r}/stats={stats} form takes no tau")
+    dev, B, H, W, C, CO = _check_site("res_site", x, wk, ws, bias, halo, kernel_c=(128,),
+                                      halos=("reflect",))
+    _check("res_site", "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check_aligned("res_site", "x", x)
+    if prologue == "quant":
+        for name, t in (("a", a), ("c", c)):
+            _check("res_site", name, t, torch.float32, (B, C), dev)
+    out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
+    if stats:
+        part, sums = _stats_buffers(B, H, W, CO, dev, TILE_MMA)
+    else:  # the kernel zeroes the sums; no partials
+        part, sums = None, torch.empty((B, 2, CO), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run(k, _lib().res_site_form_launch, x.data_ptr(), _ptr(a), _ptr(c), wk.data_ptr(),
+             ws.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(part), sums.data_ptr(),
+             B, H, W, C, CO, float(lo), int(prologue == "cast"), int(stats), _stream(dev),
+             counts=PROBE_LAUNCHES)
+    return out, sums
 
 
 def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
