@@ -13,7 +13,7 @@ order, and any failed phase exits non-zero:
    K9a–K11 (``csrc/bf16_sites.cu``) and K12–K13 (``csrc/int8_probes.cu``),
    one nvcc each, started together, and
    print ptxas' registers and spills of every kernel, and the dynamic
-   shared memory of K3's and K4's tensor-core core (``mma_kernel``);
+   shared memory of K2–K5's tensor-core core (``mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -30,9 +30,10 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
-   K3 and K4 also beside their previous ``__dp4a`` design (``*_prev``, held
-   to the same outputs), in turns: plain, kernel, previous, kernel,
-   previous, plain;
+   K2–K5 also beside their previous ``__dp4a`` design (``*_prev``, held
+   to the same outputs; K3 and K4 at the Johnson and NST widths, K2 and K5
+   at every case), in turns: plain, kernel, previous, kernel, previous,
+   plain, and two launches of each bit-identical;
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -128,9 +129,9 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds K3's and K4's tensor-core core with ``-DMMA_PHASE_CLOCKS``
-and prints, for each of their 1080p B=8 cases, the share of each phase of
-the tile loop in the clock of every block's thread 0.
+instead builds K2–K5's tensor-core core with ``-DMMA_PHASE_CLOCKS`` and
+prints, for each of their 1080p B=8 cases, the share of each phase of the
+tile loop in the clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -284,9 +285,11 @@ T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
-# K3 and K4 run on the int8 tensor cores (mma_kernel); their previous __dp4a
-# design (site_kernel) stays callable for the comparison
-REDESIGNED = ("site_s8", "res_site")
+# K2-K5 run on the int8 tensor cores (mma_kernel); their previous __dp4a
+# design (site_kernel) stays callable for the comparison, K2's and K5's also
+# at ReCoNet's C = 192 (K3's and K4's previous design was built without it)
+REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip")
+PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
 def slice_name(quantize: str, fused) -> str:
@@ -596,7 +599,7 @@ def library_conv(dev, t, name, shape):
 
 def int8_kernel_phase(dev):
     """K2-K8b against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain; K3 and K4: plain, kernel, previous
+    turns (plain, kernel, kernel, plain; K2-K5: plain, kernel, previous
     core, kernel, previous core, plain) beside the cuDNN bf16 conv each site
     stands for."""
     import torch
@@ -617,12 +620,13 @@ def int8_kernel_phase(dev):
             first = out[0] if isinstance(out, tuple) else out
             n = first.shape[1] * first.shape[2]
             err = check_site(name, out, ref, n)
-            if (shape in SITE_SW or shape.startswith("reco") or shape == "t7") and \
-                    not _same(kernel(), out):
+            if (redesigned or shape in SITE_SW or shape.startswith("reco") or shape == "t7") \
+                    and not _same(kernel(), out):
                 fail(f"{name} @ {shape}/{form}: two launches on the same inputs differ")
             del out, first
-            # the previous __dp4a core takes the Johnson / NST widths only
-            prev_case = redesigned and not shape.startswith("reco")
+            # K3's and K4's previous __dp4a core takes the Johnson / NST widths
+            # only
+            prev_case = redesigned and (name in PREV_C192 or not shape.startswith("reco"))
             if prev_case:
                 prev = site_calls(name, t, shape, form, prev=True)[0]
                 check_site(f"{name} (previous core)", prev(), ref, n)
@@ -1843,8 +1847,10 @@ def ptxas_report(text: str, k8) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core core's instantiations
     (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
-    <128, 4, 0> K4's cast form, <128, 0, 4> its no-statistics form; tau 1: K4
-    with the TLU floor; zero 1: K4 under the zero halo)."""
+    <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5, <192, 3, 0> K5
+    with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
+    no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
+    under the zero halo)."""
     import re
 
     name, spill = None, ""
@@ -1864,7 +1870,9 @@ def ptxas_report(text: str, k8) -> None:
             extra = ""
             if base == "mma_kernel":
                 c = int(targs[0])
-                short += {("0", "0"): " (K4)", ("2", "2"): " (K3)", ("4", "0"): " (K4 cast)",
+                short += {("0", "0"): " (K4)", ("2", "2"): " (K3)", ("0", "1"): " (K2)",
+                          ("0", "3"): " (K2 floored emit)", ("1", "0"): " (K5)",
+                          ("3", "0"): " (K5 act)", ("4", "0"): " (K4 cast)",
                           ("0", "4"): " (K4 no stats)"}[targs[1], targs[2]]
                 extra = f", {k8._lib().mma_kernel_smem_bytes(c)} bytes dynamic shared memory"
             log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
@@ -1876,9 +1884,9 @@ PHASES = ("next tile's loads issued", "MMAs issued", "fragment epilogue (MMA dra
 
 
 def phases_phase(dev):
-    """--phases: K3's and K4's mma_kernel built with MMA_PHASE_CLOCKS, each
-    of their 1080p B=8 cases run once; the share of each phase of the tile
-    loop in the clock of every block's thread 0, averaged over blocks."""
+    """--phases: K2-K5's mma_kernel built with MMA_PHASE_CLOCKS, each of
+    their 1080p B=8 cases run once; the share of each phase of the tile loop
+    in the clock of every block's thread 0, averaged over blocks."""
     import ctypes
 
     import numpy as np
@@ -1896,7 +1904,8 @@ def phases_phase(dev):
         fail(f"nvcc -DMMA_PHASE_CLOCKS failed:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(str(so))
     base = k8._lib
-    for name in ("res_site_launch", "site_s8_launch"):
+    for name in ("res_site_s8o_launch", "site_s8_launch", "res_site_launch",
+                 "res_site_skip_launch"):
         getattr(lib, name).argtypes = getattr(base(), name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]

@@ -10,22 +10,23 @@
 //   K8b c3_site        (_c3p_kernel)       the same at C = 64
 //   K7  d3_rows_site   (_d3_kernel)        quantize bf16 → 1x5 conv → 60 bf16 row lanes
 //   K6  d3_s8_site     (_d3s8_kernel)      s8 codes → 1x5 conv → 5-row dy-sum + bias → bf16
-// K2, K5 and K8 are one templated core (site_kernel): a 3x3 conv of int8
-// codes at stride 1 or 2 over a 1-pixel halo (pixel reflect or edge copy;
-// K2-K5 also zero codes, the zero padding of the NST and Torch7 nets, where
-// K2 zeroes the codes of the columns >= sw that pad a grid up to an aligned
-// width, in its input and output, and K3 those of its s8 output), accumulated in int32
-// with __dp4a, with a prologue (how the int8 tile is
-// made) and an epilogue (what is written) chosen at compile time. K3 and K4
-// run the same conv at stride 1 on the tensor cores (mma_kernel, below);
-// ReCoNet's forms (C = 192 res grid, 96 at its d2): K4 at C in {96, 192} with
-// an optional pre-round floor (FRN's TLU folded into the quantize, the Pallas
-// res_site's tau); K5 at C = 192 with the post-add ReLU or TLU on v (act /
-// tau_act); K2 at C = 192, also with a floored emit (qlo, tau); K3 at C = 192.
-// Their site_kernel forms stay buildable as res_site_prev_launch /
-// site_s8_prev_launch, for timing the two designs side by side. K8a/K8b are
-// the TPU's pair-packed head sites; their pair packing and phase-permutation
-// dots are layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
+// site_kernel is a templated core: a 3x3 conv of int8 codes at stride 1 or
+// 2 over a 1-pixel halo (pixel reflect or edge copy; K2-K5 also zero codes,
+// the zero padding of the NST and Torch7 nets, where K2 zeroes the codes of
+// the columns >= sw that pad a grid up to an aligned width, in its input and
+// output, and K3 those of its s8 output), accumulated in int32 with __dp4a,
+// with a prologue (how the int8 tile is made) and an epilogue (what is
+// written) chosen at compile time. K8a/K8b run on it; K2-K5 run the same
+// conv at stride 1 on the tensor cores (mma_kernel, below), and their
+// site_kernel forms stay buildable as res_site_s8o_prev_launch,
+// site_s8_prev_launch, res_site_prev_launch and res_site_skip_prev_launch,
+// for timing the two designs side by side. ReCoNet's forms (C = 192 res
+// grid, 96 at its d2): K4 at C in {96, 192} with an optional pre-round floor
+// (FRN's TLU folded into the quantize, the Pallas res_site's tau); K5 at
+// C = 192 with the post-add ReLU or TLU on v (act / tau_act); K2 at C = 192,
+// also with a floored emit (qlo, tau); K3 at C = 192. K8a/K8b are the TPU's
+// pair-packed head sites; their pair packing and phase-permutation dots are
+// layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
 // a second core (rows_kernel): deconv3 in its tap-packed form, a 1x5 conv of
 // the 128-channel space-to-depth tensor to 60 lanes (5 kernel rows x 4
 // phases x 3 channels, padded to 64 with zero weights), zero column pads.
@@ -67,9 +68,9 @@
 // 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes.
 // site_kernel runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x
 // below the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site,
-// 20x the bound). K2, K5, K8a/K8b stay on it.
+// 20x the bound). K8a/K8b stay on it.
 //
-// mma_kernel (K3, K4): the same 3x3 conv as an implicit GEMM on the int8
+// mma_kernel (K2-K5): the same 3x3 conv as an implicit GEMM on the int8
 // tensor cores, mma.sync.m16n8k32.s8.s8.s32 fed by ldmatrix: M = the 16
 // output pixels of a tile row, N = output channels, K = 9 taps x C, the A
 // rows of tap (dy, dx) the haloed tile's pixels shifted by (dy, dx) (each
@@ -79,10 +80,10 @@
 // not fit in shared memory), rearranged from [tap][C/4][CO] words to
 // [tap][CO][C] bytes with a 16-byte pad per row, and walks output
 // tiles of 8x16 pixels in a fixed order; the haloed 10x18-pixel input tile
-// is quantized (K4) or copied (K3) once per tile for all 128 channels into
-// shared memory (pixel stride C + 16 bytes: the eight rows an ldmatrix
-// reads sit in 32 distinct banks), and the next tile's input is loaded
-// into registers while the current tile's MMAs run. Warp w owns tile rows
+// is quantized (K2, K4, K5) or copied (K3) once per tile for all 128
+// channels into shared memory (pixel stride C + 16 bytes: the eight rows an
+// ldmatrix reads sit in 32 distinct banks), and the next tile's input is
+// loaded into registers while the current tile's MMAs run. Warp w owns tile rows
 // 2(w%4), 2(w%4)+1 and channels 64(w/4)..+63: 2 x 8 MMAs per k32 step from
 // 2 + 4 ldmatrix.x4 (at C = 192 warp w owns tile row w: 1 x 8 MMAs from 1 + 4).
 // What bounds ReCoNet's sites: at the 1080p B=8 res grid (270 x 480 x 192)
@@ -92,17 +93,35 @@
 // (K3: and its frozen affine), stages f as bf16 in shared memory over the
 // input tile, which the MMAs no longer read, and
 // writes it out 8 channels (16 bytes) a thread, coalesced; K3's residual
-// add, its activation and the s8 emit run on that pass, with y loaded 16
-// coalesced bytes at a time. int32 accumulation is exact in any order, so
-// every output equals site_kernel's bit for bit; the sums are per tile (4
-// pixels a lane, the 8 lanes of a channel by shuffle, the 4 row warps) in a
-// fixed order, reduced over tiles by stats_reduce_mma (8 warps a block, in
-// double, in a fixed order). The Prologue/Epilogue enums are shared with
-// site_kernel; mma_kernel instantiates kQuant/kRawStats (K4) and
-// kCodes/kSiteS8 (K3), and K4's forms of the int8 probes at C = 128:
-// kCast/kRawStats (the bare saturating cast for the quantize, mk31's v1)
-// and kQuant/kRaw (no statistics: mk31's v2, mk28's mini site), each its
-// own instance so that the others keep their code.
+// add, its activation and the s8 emit, and K2's s8 emit, run on that pass,
+// with y loaded 16 coalesced bytes at a time. int32 accumulation is exact in
+// any order, so every output equals site_kernel's bit for bit; the sums are
+// per tile (4 pixels a lane, the 8 lanes of a channel by shuffle, the 4 row
+// warps) in a fixed order, reduced over tiles by stats_reduce_mma (8 warps a
+// block, in double, in a fixed order). The Prologue/Epilogue enums are
+// shared with site_kernel; mma_kernel instantiates kQuant/kRawStats (K4),
+// kCodes/kSiteS8 (K3), kQuant/kEmitS8 and kQuant/kEmitS8F (K2: K4's
+// quantizing prologue, then K3's s8 emit with K2's own rows qa, qc and, for
+// the floored emit, tau, in the rows K3 keeps for its qa, qc and ya),
+// kSkip/kRawStats and kSkipAct/kRawStats (K5), and K4's forms of the int8
+// probes at C = 128: kCast/kRawStats (the bare saturating cast for the
+// quantize, mk31's v1) and kQuant/kRaw (no statistics: mk31's v2, mk28's
+// mini site), each its own instance so that the others keep their code.
+// K5 reads two inputs, r2 and yp: holding both of the next tile in
+// registers through the MMAs would double the in-flight registers (72 more
+// at C = 192, where a block already holds 18 16-byte chunks of r2), and a
+// shared-memory tile of yp does not fit beside the weights (C = 128: 46 KB
+// over 204 KB; C = 192: 69 KB over 160 KB, 227 KB the limit). So the next
+// tile's r2 and yp are loaded together before the MMAs and combined at
+// once, v = bf16(bf16(r2*a2 + c2) + yp) [max(v, floor)], and the MMAs hold
+// v where K4 holds x (the loads' latency is not hidden: of the placements
+// tried, yp loaded after the MMAs, the combine after the fragment epilogue,
+// yp two tiles ahead, codes held instead of v, this was the fastest,
+// PERF.md). v is written once (blocks of output channels 0.., interior
+// pixels inside the image) and quantized in the staging, as K4's x. K5's
+// store loop stays rolled: unrolled, ptxas hoisted its per-pass offsets
+// out of the tile loop and spilled them (148 bytes at C = 128), and the
+// reloads cost a fifth of the kernel's time.
 //
 // Where mma_kernel's time goes (H100, chip_smoke.py --phases): the MMAs
 // are issued in about a third of each tile's time; the rest is the
@@ -586,6 +605,10 @@ struct MmaIn {
   static constexpr bool FULL = kMThreads % CH == 0;
 };
 
+// K2's emit epilogues and K5's skip prologues on mma_kernel
+__host__ __device__ constexpr bool is_emit(int epi) { return epi == kEmitS8 || epi == kEmitS8F; }
+__host__ __device__ constexpr bool is_skip(int pro) { return pro == kSkip || pro == kSkipAct; }
+
 // bf16 → f32 is exact: the bf16 bits are the f32's high half
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
@@ -637,18 +660,22 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 // and walks tiles k % per_half, + per_half, ... of the B·tiles 8x16 output
 // tiles (image-major, then row-major within the image). TAU (K4 at C = 96,
 // 192): the quantize takes a per-(image, channel) pre-round floor (FRN's TLU).
-// ZERO (K4 under the zero halo, C = 64, 128): positions outside the image
-// are code 0; the other K4 instances compile without that test.
+// ZERO (K2, K4, K5 under the zero halo, C = 64, 128): positions outside the
+// image (for K2 also the columns >= sw) are code 0; the other instances
+// compile without that test.
 template <int C, int PRO, int EPI, bool TAU, bool ZERO>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
   static_assert(((PRO == kQuant || PRO == kCast) && (EPI == kRawStats || EPI == kRaw) &&
                  !(PRO == kCast && EPI == kRaw)) ||
-                    (PRO == kCodes && EPI == kSiteS8),
-                "mma_kernel serves K4 (kQuant, kRawStats; kCast, kRawStats; kQuant, kRaw) and "
-                "K3 (kCodes, kSiteS8)");
-  static_assert(!TAU || PRO == kQuant, "the floor is a quantize's");
-  static_assert(!ZERO || (PRO == kQuant && !TAU), "K3 carries the zero halo in its codes");
+                    (PRO == kCodes && EPI == kSiteS8) || (PRO == kQuant && is_emit(EPI)) ||
+                    (is_skip(PRO) && EPI == kRawStats),
+                "mma_kernel serves K4 (kQuant, kRawStats; kCast, kRawStats; kQuant, kRaw), "
+                "K3 (kCodes, kSiteS8), K2 (kQuant, kEmitS8 | kEmitS8F) and "
+                "K5 (kSkip | kSkipAct, kRawStats)");
+  static_assert(!TAU || (PRO == kQuant && !is_emit(EPI)), "the floor is K4's quantize's");
+  static_assert(!ZERO || ((PRO == kQuant || PRO == kSkip) && !TAU),
+                "K3 carries the zero halo in its codes");
   using S = MmaSmem<C>;
   using In = MmaIn<C, PRO>;
   constexpr int PX = S::PX;
@@ -680,18 +707,28 @@ __global__ void __launch_bounds__(kMThreads, 1)
     *reinterpret_cast<int32_t*>(s_w + (t * MCO + n) * PX + 4 * k) =
         n < nvalid ? p.wk[((size_t)t * CW + k) * p.CO + co0 + n] : 0;
   }
+  // rows: ws, bias, then K3's aa, ac, qa, qc, ya, yc; K2 keeps its qa, qc
+  // where K3 keeps its own and its floored emit's tau in K3's ya row (-inf
+  // without a floor row)
   for (int i = tid; i < kMEpRows * MCO; i += kMThreads) {
     const int r = i / MCO, n = i % MCO;
-    const float* row = r == 0 ? p.ws : r == 1 ? p.bias : EPI == kSiteS8 ? p.ep[r - 2] : nullptr;
-    s_rows[i] = row != nullptr && n < nvalid ? row[co0 + n] : 0.0f;
+    const float* row = r == 0 ? p.ws : r == 1 ? p.bias : EPI == kSiteS8 ? p.ep[r - 2]
+        : is_emit(EPI) && r == 4 ? p.ra : is_emit(EPI) && r == 5 ? p.rc
+        : EPI == kEmitS8F && r == 6 ? p.tau : nullptr;
+    const float none = EPI == kEmitS8F && r == 6 ? __int_as_float(0xff800000) : 0.0f;
+    s_rows[i] = row != nullptr && n < nvalid ? row[co0 + n] : none;
   }
 
-  // prologue: the haloed tile into registers (fetch), then as codes into s_x (stage).
-  // Under the zero halo a position outside the image is a zero code: K3's
-  // copied codes carry it as loaded zeros; K4's quantize would turn a zero
-  // into round(c), so its ZERO instance's fetch flags those positions in zf
-  // (bit k: pass k) and stage writes code 0 there.
+  // prologue: the haloed tile into registers (fetch; K5 also its yp,
+  // fetch_y, then v = combine(r2, yp) in place of r2), then as codes into
+  // s_x (stage). Under the zero halo a position outside the image is a zero
+  // code: K3's copied codes carry it as loaded zeros; a
+  // quantize would turn a zero into round(c), so a ZERO instance's fetch
+  // flags those positions in zf (bit k: pass k) and stage writes code 0
+  // there. K2's zero test takes its content width sw (== W without a mask)
+  // for the image's.
   uint4 raw[In::NI];
+  uint4 yraw[is_skip(PRO) ? In::NI : 1];
   uint32_t zf = 0;
   static_assert(!ZERO || In::NI <= 32, "one flag bit a pass");
   const int chunk = tid % In::CH, p0 = tid / In::CH;
@@ -711,7 +748,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
             ? reinterpret_cast<const uint4*>(static_cast<const int8_t*>(p.x) + off)
             : reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
         if (ZERO) {
-          const bool z = zero_code(gy, gx, p.Hi, p.Wi, p.halo);
+          const bool z = zero_code(gy, gx, p.Hi, is_emit(EPI) ? p.sw : p.Wi, p.halo);
           zf |= (uint32_t)z << k;
           raw[k] = z ? make_uint4(0, 0, 0, 0) : __ldg(src);
         } else {
@@ -721,16 +758,71 @@ __global__ void __launch_bounds__(kMThreads, 1)
       }
     }
   };
+  auto fetch_y = [&](int id) {
+    const int b = id / tiles, t = id % tiles;
+    const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
+#pragma unroll
+    for (int k = 0; k < In::NI; ++k) {
+      const int px = p0 + k * In::PPI;
+      const int gy = y0 + px / kMHC - 1, gx = x0 + px % kMHC - 1;
+      if (loader && px < kMPix && !(ZERO && zero_code(gy, gx, p.Hi, p.Wi, p.halo))) {
+        const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
+        yraw[k] = __ldg(reinterpret_cast<const uint4*>(
+            p.yp + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + chunk * In::VB));
+      }
+    }
+  };
+  // v = bf16(bf16(r2*a2 + c2) + yp) [max(v, floor)] into raw, in registers
+  auto combine = [&](int id) {
+    const int b = id / tiles;
+    float sa[8], sc[8], fl[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sa[j] = __ldg(p.a2 + b * C + chunk * 8 + j);
+      sc[j] = __ldg(p.c2 + b * C + chunk * 8 + j);
+      if (PRO == kSkipAct) fl[j] = __ldg(p.tau + b * C + chunk * 8 + j);
+    }
+#pragma unroll
+    for (int k = 0; k < In::NI; ++k) {
+      const int px = p0 + k * In::PPI;
+      if (!loader || px >= kMPix || (ZERO && ((zf >> k) & 1u))) continue;
+      uint32_t r4[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+      const uint32_t y4[4] = {yraw[k].x, yraw[k].y, yraw[k].z, yraw[k].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float r = e ? bf16_hi(r4[j]) : bf16_lo(r4[j]);
+          const float y = e ? bf16_hi(y4[j]) : bf16_lo(y4[j]);
+          const float t = bf16_round(__fadd_rn(__fmul_rn(r, sa[2 * j + e]), sc[2 * j + e]));
+          v[e] = bf16_round(__fadd_rn(t, y));
+          if (PRO == kSkipAct) v[e] = fmaxf(v[e], fl[2 * j + e]);
+        }
+        r4[j] = bf16_pack(v[0], v[1]);
+      }
+      raw[k] = make_uint4(r4[0], r4[1], r4[2], r4[3]);
+    }
+  };
   auto stage = [&](int id) {
     const int b = id / tiles;
     float qa[8], qc[8], qt[8];
-    if (PRO == kQuant) {
+    if (PRO == kQuant || is_skip(PRO)) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         qa[j] = __ldg(p.a + b * C + chunk * 8 + j);
         qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
         if (TAU) qt[j] = __ldg(p.tau + b * C + chunk * 8 + j);
       }
+    }
+    // K5 writes v once: from the blocks of output channels 0.., at the
+    // tile's interior pixels inside the image
+    const bool vwrite = is_skip(PRO) && p.vout != nullptr && co0 == 0;
+    int vy0 = 0, vx0 = 0;
+    if (is_skip(PRO)) {
+      const int t = id % tiles;
+      vy0 = (t / tiles_x) * kMRows;
+      vx0 = (t % tiles_x) * kMCols;
     }
 #pragma unroll
     for (int k = 0; k < In::NI; ++k) {
@@ -761,6 +853,14 @@ __global__ void __launch_bounds__(kMThreads, 1)
           q[j >> 1] |= (q0 | (q1 << 8)) << (16 * (j & 1));
         }
         *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
+        if (is_skip(PRO)) {
+          const int hr = px / kMHC, hc = px % kMHC;
+          const int gy = vy0 + hr - 1, gx = vx0 + hc - 1;
+          if (vwrite && hr >= 1 && hr <= kMRows && hc >= 1 && hc <= kMCols && gy < p.H &&
+              gx < p.W)
+            *reinterpret_cast<uint4*>(p.vout + (((size_t)b * p.H + gy) * p.W + gx) * C +
+                                      chunk * In::VB) = raw[k];
+        }
       }
     }
   };
@@ -776,13 +876,24 @@ __global__ void __launch_bounds__(kMThreads, 1)
   const uint32_t b_lane = smem_addr(s_w) + (ng * 64 + (lane >> 4) * 8 + (lane & 7)) * PX +
                           ((lane >> 3) & 1) * 16;
 
+  // K5 holds v, not r2 and yp: both are loaded and combined at once
   fetch(tile);
+  if (is_skip(PRO)) {
+    fetch_y(tile);
+    combine(tile);
+  }
   stage(tile);
   __syncthreads();
   MMA_PHASE_START
   for (;;) {
     const int next = tile + per_half;
-    if (next < total) fetch(next);  // in flight while the MMAs run
+    if (next < total) {
+      fetch(next);  // in flight while the MMAs run (K5: combined first)
+      if (is_skip(PRO)) {
+        fetch_y(next);
+        combine(next);
+      }
+    }
     MMA_PHASE(0)
 
     int acc[MI][8][4];
@@ -909,50 +1020,82 @@ __global__ void __launch_bounds__(kMThreads, 1)
               p.yadd + (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8));
       }
     }
+    if (is_skip(PRO)) {
+      // K5's loop stays rolled: unrolled, its per-pass offsets are hoisted out
+      // of the tile loop and spilled (see the top of the file)
+#pragma unroll 1
+      for (int j = 0; j < NS; ++j) {
+        const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
+        const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
+        if (c8 < vchunks && oy < p.H && ox < p.W)
+          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) +
+                                    (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8) =
+              *reinterpret_cast<const uint4*>(s_x + px * OUT + 16 * c8);
+      }
+    } else {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
-      const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
-      if (c8 >= vchunks || oy >= p.H || ox >= p.W) continue;
-      const size_t o = (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8;
-      uint4 v = *reinterpret_cast<const uint4*>(s_x + px * OUT + 16 * c8);
-      if (EPI == kSiteS8 && (p.flags & (kFYadd | kFS8Out))) {
-        // K3: [+ y, y first activated by a frozen affine + ReLU] → bf16 out,
-        // or the next site's s8 codes
-        const float* ep = s_rows + 2 * MCO + 8 * c8;  // aa, ac, qa, qc, ya, yc rows
-        uint32_t w[4] = {v.x, v.y, v.z, v.w};
-        float f[8];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          f[2 * k] = bf16_lo(w[k]);
-          f[2 * k + 1] = bf16_hi(w[k]);
-        }
-        if (yadd) {
-          const uint32_t yw[4] = {yv[j].x, yv[j].y, yv[j].z, yv[j].w};
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            float y = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
-            if (p.flags & kFYaff)
-              y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * MCO + k]), ep[5 * MCO + k]),
-                                   0.0f));
-            f[k] = bf16_round(__fadd_rn(f[k], y));
-          }
-        }
-        if (p.flags & kFS8Out) {
+      for (int j = 0; j < NS; ++j) {
+        const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
+        const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
+        if (c8 >= vchunks || oy >= p.H || ox >= p.W) continue;
+        const size_t o = (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8;
+        uint4 v = *reinterpret_cast<const uint4*>(s_x + px * OUT + 16 * c8);
+        if (is_emit(EPI)) {
+          // K2: the s8 emit, clamp(rint(f*qa + qc), 0, 127), or with the floor
+          // row clamp(rint(max(f*qa + qc, tau)), qlo, 127)
+          const float* ep = s_rows + 4 * MCO + 8 * c8;  // qa, qc, tau rows
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
           uint32_t q[2] = {0u, 0u};
 #pragma unroll
-          for (int k = 0; k < 8; ++k)
-            q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * MCO + k], ep[3 * MCO + k], p.qlo) &
-                                   0xff) << (8 * (k % 4));
+          for (int k = 0; k < 8; ++k) {
+            const float f = k & 1 ? bf16_hi(w[k / 2]) : bf16_lo(w[k / 2]);
+            const int code = EPI == kEmitS8F
+                ? quantize_floor(f, ep[k], ep[MCO + k], ep[2 * MCO + k], p.qlo)
+                : quantize(f, ep[k], ep[MCO + k], 0.0f);
+            q[k / 4] |= (uint32_t)(code & 0xff) << (8 * (k % 4));
+          }
           if (ox >= p.sw) q[0] = q[1] = 0;  // padding columns stay zero codes
           *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(q[0], q[1]);
           continue;
         }
+        if (EPI == kSiteS8 && (p.flags & (kFYadd | kFS8Out))) {
+          // K3: [+ y, y first activated by a frozen affine + ReLU] → bf16 out,
+          // or the next site's s8 codes
+          const float* ep = s_rows + 2 * MCO + 8 * c8;  // aa, ac, qa, qc, ya, yc rows
+          uint32_t w[4] = {v.x, v.y, v.z, v.w};
+          float f[8];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = bf16_pack(f[2 * k], f[2 * k + 1]);
-        v = make_uint4(w[0], w[1], w[2], w[3]);
+          for (int k = 0; k < 4; ++k) {
+            f[2 * k] = bf16_lo(w[k]);
+            f[2 * k + 1] = bf16_hi(w[k]);
+          }
+          if (yadd) {
+            const uint32_t yw[4] = {yv[j].x, yv[j].y, yv[j].z, yv[j].w};
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              float y = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
+              if (p.flags & kFYaff)
+                y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * MCO + k]), ep[5 * MCO + k]),
+                                     0.0f));
+              f[k] = bf16_round(__fadd_rn(f[k], y));
+            }
+          }
+          if (p.flags & kFS8Out) {
+            uint32_t q[2] = {0u, 0u};
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              q[k / 4] |= (uint32_t)(quantize(f[k], ep[2 * MCO + k], ep[3 * MCO + k], p.qlo) &
+                                     0xff) << (8 * (k % 4));
+            if (ox >= p.sw) q[0] = q[1] = 0;  // padding columns stay zero codes
+            *reinterpret_cast<uint2*>(static_cast<int8_t*>(p.out) + o) = make_uint2(q[0], q[1]);
+            continue;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) w[k] = bf16_pack(f[2 * k], f[2 * k + 1]);
+          v = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) = v;
       }
-      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o) = v;
     }
     if (EPI == kRawStats && tid < 2 * MCO) {
       const int s = tid / MCO, n = tid % MCO;
@@ -1044,6 +1187,45 @@ int launch_mma(const Args& p, int C, float* sums, void* stream) {
                             : launch_mma_c<96, PRO, EPI, false>(p, sums, s);
   } else {
     if (!tau && C == 192) return launch_mma_c<192, PRO, EPI, false>(p, sums, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 on the tensor-core core: the floor-0 emit at C in {64, 128} (also
+// under the zero halo, with sw) and 192; the floored emit (kEmitS8F) at 192
+template <int EPI>
+int launch_mma_s8o(const Args& p, int C, void* stream) {
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (EPI == kEmitS8F) {
+    if (C == 192 && p.halo != kHaloZero)
+      return launch_mma_c<192, kQuant, EPI, false>(p, nullptr, s);
+  } else if (p.halo == kHaloZero) {
+    if (C == 128) return launch_mma_c<128, kQuant, EPI, false, true>(p, nullptr, s);
+    if (C == 64) return launch_mma_c<64, kQuant, EPI, false, true>(p, nullptr, s);
+  } else {
+    if (C == 128) return launch_mma_c<128, kQuant, EPI, false>(p, nullptr, s);
+    if (C == 64) return launch_mma_c<64, kQuant, EPI, false>(p, nullptr, s);
+    if (C == 192) return launch_mma_c<192, kQuant, EPI, false>(p, nullptr, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5 on the tensor-core core: kSkip at C in {64, 128} (also under the zero
+// halo), kSkipAct at 192
+template <int PRO>
+int launch_mma_skip(const Args& p, int C, float* sums, void* stream) {
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (PRO == kSkipAct) {
+    if (C == 192 && p.halo != kHaloZero)
+      return launch_mma_c<192, PRO, kRawStats, false>(p, sums, s);
+  } else if (p.halo == kHaloZero) {
+    if (C == 128) return launch_mma_c<128, PRO, kRawStats, false, true>(p, sums, s);
+    if (C == 64) return launch_mma_c<64, PRO, kRawStats, false, true>(p, sums, s);
+  } else {
+    if (C == 128) return launch_mma_c<128, PRO, kRawStats, false>(p, sums, s);
+    if (C == 64) return launch_mma_c<64, PRO, kRawStats, false>(p, sums, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1228,21 +1410,45 @@ int launch_rows(const RowsArgs& p, void* stream) {
 // describe; each launches on `stream` and returns a CUDA error code (0 on
 // success).
 
+namespace {
+int res_site_s8o_args(bool prev, const void* x, const float* a, const float* c,
+                      const int32_t* wk, const float* ws, const float* bias, const float* qa,
+                      const float* qc, const float* tau, int8_t* out, int B, int H, int W, int C,
+                      int CO, float lo, float qlo, int halo, int sw, void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.sw = sw;
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.ra = qa; p.rc = qc; p.tau = tau; p.qlo = qlo; p.out = out;
+  const bool floored = tau != nullptr || qlo != 0.0f;
+  if (prev)
+    return floored ? launch<kQuant, kEmitS8F>(p, C, nullptr, stream)
+                   : launch<kQuant, kEmitS8>(p, C, nullptr, stream);
+  return floored ? launch_mma_s8o<kEmitS8F>(p, C, stream) : launch_mma_s8o<kEmitS8>(p, C, stream);
+}
+}  // namespace
+
 // K2: s8 codes out[b,y,x,o] = clamp(rint(bf16(acc*ws + bias)*qa + qc), 0, 127);
 // with a floor row tau [CO] (or qlo != 0) clamp(rint(max(f*qa + qc, tau[o])),
-// qlo, 127) (ReCoNet's FRN emit; C = 192). Under the zero halo (halo 2) the
-// codes of x and of out in columns >= sw are zero (sw = W: no such column).
+// qlo, 127) (ReCoNet's FRN emit; C = 192). Under the zero halo (halo 2; C in
+// {64, 128}) the codes of x and of out in columns >= sw are zero (sw = W: no
+// such column).
 extern "C" int res_site_s8o_launch(const void* x, const float* a, const float* c,
                                    const int32_t* wk, const float* ws, const float* bias,
                                    const float* qa, const float* qc, const float* tau,
                                    int8_t* out, int B, int H, int W, int C, int CO, float lo,
                                    float qlo, int halo, int sw, void* stream) {
-  Args p = make_args(B, H, W, CO, lo, halo);
-  p.sw = sw;
-  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
-  p.ra = qa; p.rc = qc; p.tau = tau; p.qlo = qlo; p.out = out;
-  if (tau == nullptr && qlo == 0.0f) return launch<kQuant, kEmitS8>(p, C, nullptr, stream);
-  return launch<kQuant, kEmitS8F>(p, C, nullptr, stream);
+  return res_site_s8o_args(false, x, a, c, wk, ws, bias, qa, qc, tau, out, B, H, W, C, CO, lo,
+                           qlo, halo, sw, stream);
+}
+
+// K2 on the previous __dp4a core (site_kernel), for timing only.
+extern "C" int res_site_s8o_prev_launch(const void* x, const float* a, const float* c,
+                                        const int32_t* wk, const float* ws, const float* bias,
+                                        const float* qa, const float* qc, const float* tau,
+                                        int8_t* out, int B, int H, int W, int C, int CO,
+                                        float lo, float qlo, int halo, int sw, void* stream) {
+  return res_site_s8o_args(true, x, a, c, wk, ws, bias, qa, qc, tau, out, B, H, W, C, CO, lo,
+                           qlo, halo, sw, stream);
 }
 
 namespace {
@@ -1354,10 +1560,27 @@ extern "C" int res_site_prev_launch(const void* x, const float* a, const float* 
   return launch<kQuant, kRawStats>(p, C, sums, stream);
 }
 
+namespace {
+int res_site_skip_args(bool prev, const void* r2, const __nv_bfloat16* yp, const float* a,
+                       const float* c, const float* a2, const float* c2, const float* floor,
+                       const int32_t* wk, const float* ws, const float* bias,
+                       __nv_bfloat16* out, __nv_bfloat16* vout, float* part, float* sums, int B,
+                       int H, int W, int C, int CO, float lo, int halo, void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.x = r2; p.yp = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
+  p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
+  if (prev)
+    return floor != nullptr ? launch<kSkipAct, kRawStats>(p, C, sums, stream)
+                            : launch<kSkip, kRawStats>(p, C, sums, stream);
+  return floor != nullptr ? launch_mma_skip<kSkipAct>(p, C, sums, stream)
+                          : launch_mma_skip<kSkip>(p, C, sums, stream);
+}
+}  // namespace
+
 // K5: K4 on v = bf16(bf16(r2*a2 + c2) + yp), then, with a floor row [B,C]
 // (C = 192), v = max(v, floor) (ReCoNet's post-add ReLU or TLU); v is
 // written to vout unless null. Under the zero halo (C in {64, 128}) every
-// position outside the image is code 0.
+// position outside the image is code 0. part: [B, tiles, 2, CO] scratch.
 extern "C" int res_site_skip_launch(const void* r2, const __nv_bfloat16* yp,
                                     const float* a, const float* c, const float* a2,
                                     const float* c2, const float* floor, const int32_t* wk,
@@ -1365,11 +1588,20 @@ extern "C" int res_site_skip_launch(const void* r2, const __nv_bfloat16* yp,
                                     __nv_bfloat16* vout, float* part, float* sums, int B,
                                     int H, int W, int C, int CO, float lo, int halo,
                                     void* stream) {
-  Args p = make_args(B, H, W, CO, lo, halo);
-  p.x = r2; p.yp = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
-  p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
-  if (floor != nullptr) return launch<kSkipAct, kRawStats>(p, C, sums, stream);
-  return launch<kSkip, kRawStats>(p, C, sums, stream);
+  return res_site_skip_args(false, r2, yp, a, c, a2, c2, floor, wk, ws, bias, out, vout, part,
+                            sums, B, H, W, C, CO, lo, halo, stream);
+}
+
+// K5 on the previous __dp4a core (site_kernel), for timing only.
+extern "C" int res_site_skip_prev_launch(const void* r2, const __nv_bfloat16* yp,
+                                         const float* a, const float* c, const float* a2,
+                                         const float* c2, const float* floor, const int32_t* wk,
+                                         const float* ws, const float* bias, __nv_bfloat16* out,
+                                         __nv_bfloat16* vout, float* part, float* sums, int B,
+                                         int H, int W, int C, int CO, float lo, int halo,
+                                         void* stream) {
+  return res_site_skip_args(true, r2, yp, a, c, a2, c2, floor, wk, ws, bias, out, vout, part,
+                            sums, B, H, W, C, CO, lo, halo, stream);
 }
 
 // K8a (C = 32) / K8b (C = 64): K4 at stride 2 with a pixel-reflect halo:

@@ -8,7 +8,8 @@ residual and head sites, ``"edge"`` for the decoder sites) — between
 different prologues and epilogues. K2–K5 also take the zero halo of the
 NST and Torch7 nets' zero-padded convs (``halo="zero"``: code 0 at every
 position outside the image, whatever the quantize affine, as
-``_quant_zero`` writes it; K4 and K5 at C = 64 and 128, without a floor);
+``_quant_zero`` writes it; K2, K4 and K5 at C = 64 and 128, without a
+floor);
 K2 and K3 with ``sw``: the content width of a grid padded up to an aligned
 width, beyond which K2 zeroes its input codes and its output codes and K3
 its output codes (``_quant_zero`` and the S8OUT mask of the TPU kernels), so
@@ -43,11 +44,12 @@ v before it is written and quantized; K2 at C = 192, also with the emit
 floor ``qlo`` and a (CO,) pre-round ``tau`` floor on bf16(f)·qa + qc; K3 at
 C = 192. A channel count or form a kernel is not built for raises.
 
-On the card K3 and K4 run on the int8 tensor cores (``mma_kernel``: 8×16
-output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``); K2, K5, K8a and
-K8b on the ``__dp4a`` core (``site_kernel``, ``TILE_DP4A``). ``res_site_prev``
-and ``site_s8_prev`` launch K4 and K3 on the ``__dp4a`` core, for timing the
-two designs side by side; nothing on the main path calls them.
+On the card K2–K5 run on the int8 tensor cores (``mma_kernel``: 8×16
+output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``); K8a and K8b on
+the ``__dp4a`` core (``site_kernel``, ``TILE_DP4A``). ``res_site_s8o_prev``,
+``site_s8_prev``, ``res_site_prev`` and ``res_site_skip_prev`` launch K2–K5
+on the ``__dp4a`` core, for timing the two designs side by side; nothing on
+the main path calls them, and they count no launch.
 
 The TPU's K8a/K8b run on a column-pair packing with phase-permutation dots;
 that is layout only: the pair weights hold each pixel tap once, and the
@@ -110,8 +112,8 @@ TAU_C = (96, 192)
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block of the __dp4a core
 #: output tile (rows, columns) of each core: the [Σ, Σ²] partials are per tile
-TILE_DP4A = (8, 16)   # site_kernel: K2, K5, K8a, K8b
-TILE_MMA = (8, 16)    # mma_kernel (int8 tensor cores): K3, K4
+TILE_DP4A = (8, 16)   # site_kernel: K8a, K8b (and the _prev forms)
+TILE_MMA = (8, 16)    # mma_kernel (int8 tensor cores): K2-K5
 D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
 _S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
@@ -315,12 +317,14 @@ def _lib():
     dims = [I] * 5  # B, H, W, C, CO
     sigs = {
         "res_site_s8o_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
+        "res_site_s8o_prev_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
         "site_s8_launch": [P] * 12 + dims + [I, Fl, I, I, P],
         "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, I, P],
         "res_site_launch": [P] * 10 + dims + [Fl, I, P],
         "res_site_prev_launch": [P] * 10 + dims + [Fl, I, P],
         "res_site_form_launch": [P] * 9 + dims + [Fl, I, I, P],
         "res_site_skip_launch": [P] * 14 + dims + [Fl, I, P],
+        "res_site_skip_prev_launch": [P] * 14 + dims + [Fl, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
         "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
@@ -398,17 +402,34 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="
     s8 codes clamp(round(f·qa + qc), qlo, 127) [B,H,W,CO]: the next site's
     input, its norm and ReLU folded into qa, qc and the floor 0. ``tau``
     (CO,): a floor on f·qa + qc before the round (FRN's TLU, with qlo −127;
-    the floored emit is built for C = 192). ``sw`` (zero halo only): the
-    codes of x and of the output in columns >= sw are 0."""
+    the floored emit is built for C = 192). ``sw`` (zero halo, C = 64 or
+    128): the codes of x and of the output in columns >= sw are 0. On the
+    card: the int8 tensor-core core."""
     if x.device.type == "cpu":
         return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, qlo=qlo, tau=tau,
                                   halo=halo, sw=sw)
+    return _res_site_s8o("res_site_s8o_launch", True, x, a, c, lo, wk, ws, bias, qa, qc, qlo,
+                         tau, halo, sw)
+
+
+def res_site_s8o_prev(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="reflect",
+                      sw=None):
+    """K2 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
+    times it beside ``res_site_s8o``. Nothing on the main path calls it, and
+    it counts no launch."""
+    return _res_site_s8o("res_site_s8o_prev_launch", False, x, a, c, lo, wk, ws, bias, qa, qc,
+                         qlo, tau, halo, sw)
+
+
+def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, sw):
     k = "res_site_s8o"
     floored = tau is not None or qlo != 0.0
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, halos=tuple(HALOS),
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo,
+                                      halos=_zero_halos(x.shape[-1], floored),
                                       kernel_c=(RECO_C,) if floored else None)
     _check_sw(k, halo, sw, W)
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
     for name, t in (("qa", qa), ("qc", qc), ("tau", tau)):
@@ -416,10 +437,10 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="
             _check(k, name, t, torch.float32, (CO,), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
-        _run(k, _lib().res_site_s8o_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
-             wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(),
-             _ptr(tau), out.data_ptr(), B, H, W, C, CO, float(lo), float(qlo), HALOS[halo],
-             sw or W, _stream(dev))
+        _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
+             ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(), _ptr(tau),
+             out.data_ptr(), B, H, W, C, CO, float(lo), float(qlo), HALOS[halo], sw or W,
+             _stream(dev), count=count)
     return out
 
 
@@ -554,8 +575,8 @@ def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
 
 
 def _zero_halos(C: int, floored: bool) -> tuple:
-    """The halos K4 and K5 take at C input channels: the zero halo too at
-    KERNEL_C without a floor."""
+    """The halos K2, K4 and K5 take at C input channels: the zero halo too
+    at KERNEL_C without a floor."""
     return tuple(HALOS) if C in KERNEL_C and not floored else HALOS_RE
 
 
@@ -587,16 +608,32 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
     written and quantized, "relu" (max(v, 0)) or "tau" (max(v,
     bf16(tau_act)), tau_act (B, C) f32). ``halo="zero"`` (C = 64, 128, no
     ``act``): code 0 outside the image. Returns (bf16 raw, f32 sums, v) — v
-    is None when ``yout`` is False."""
+    is None when ``yout`` is False. On the card: the int8 tensor-core core."""
     if r2.device.type == "cpu":
         return res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo=halo,
                                    yout=yout, act=act, tau_act=tau_act)
+    return _res_site_skip("res_site_skip_launch", TILE_MMA, True, r2, yp, a, c, a2, c2, lo, wk,
+                          ws, bias, halo, yout, act, tau_act)
+
+
+def res_site_skip_prev(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", yout=True,
+                       act=None, tau_act=None):
+    """K5 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
+    times it beside ``res_site_skip``. Nothing on the main path calls it, and
+    it counts no launch."""
+    return _res_site_skip("res_site_skip_prev_launch", TILE_DP4A, False, r2, yp, a, c, a2, c2,
+                          lo, wk, ws, bias, halo, yout, act, tau_act)
+
+
+def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo, yout, act,
+                   tau_act):
     k = "res_site_skip"
     dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
                                       kernel_c=KERNEL_C if act is None else (RECO_C,),
                                       halos=_zero_halos(r2.shape[-1], act is not None))
     for name, t in (("r2", r2), ("yp", yp)):
         _check(k, name, t, torch.bfloat16, (B, H, W, C), dev)
+        _check_aligned(k, name, t)
     if act is not None and tau_act is not None:
         _check(k, "tau_act", tau_act, torch.float32, (B, C), dev)
     floor = None if act is None else act_floor(act, tau_act, r2)
@@ -604,12 +641,12 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     v = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev) if yout else None
-    part, sums = _stats_buffers(B, H, W, CO, dev, TILE_DP4A)
+    part, sums = _stats_buffers(B, H, W, CO, dev, tile)
     with torch.cuda.device(dev):
-        _run(k, _lib().res_site_skip_launch, r2.data_ptr(), yp.data_ptr(), a.data_ptr(),
-             c.data_ptr(), a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(),
-             ws.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(),
-             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev))
+        _run(k, getattr(_lib(), fn), r2.data_ptr(), yp.data_ptr(), a.data_ptr(), c.data_ptr(),
+             a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(), ws.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(), sums.data_ptr(), B, H,
+             W, C, CO, float(lo), HALOS[halo], _stream(dev), count=count)
     return out, sums, v
 
 

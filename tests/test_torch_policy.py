@@ -301,6 +301,138 @@ def test_k3_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
     assert k8.LAUNCHES["site_s8"] - before == n
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes off a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = buf[1:1 + t.numel()].view(t.shape)
+    off.copy_(t)
+    return off
+
+
+def _batch(t, b, flip=False):
+    """``t``'s first image repeated b times (the last negated with ``flip``:
+    the images differ)."""
+    v = t[:1].repeat(b, *([1] * (t.dim() - 1))).contiguous()
+    if flip:
+        v[-1] = -v[-1]
+    return v
+
+
+# K2 on the tensor-core core at ragged shapes (H off the 8-row tile, W off
+# the 16-column tile, B > 1): (B, H, W, C, CO, halo, sw) — every built
+# (C, halo): 64 and 128 under the reflect, edge and zero halos (the zero
+# halo also at a ragged content width sw), 192 under reflect and edge
+_K2_SHAPES = [(3, 13, 21, 128, 128, "reflect", None), (2, 37, 53, 64, 64, "reflect", None),
+              (1, 8, 16, 128, 128, "edge", None), (2, 37, 53, 64, 128, "edge", None),
+              (3, 13, 32, 128, 128, "zero", 29), (2, 19, 24, 64, 64, "zero", 21),
+              (2, 11, 30, 128, 256, "zero", None), (3, 13, 21, 192, 192, "reflect", None),
+              (2, 37, 53, 192, 192, "edge", None), (1, 8, 16, 192, 192, "reflect", None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,halo,sw", _K2_SHAPES)
+def test_k2_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo, sw):
+    """K2 on the int8 tensor cores against its plain version at ragged
+    shapes, both quantize floors; at C = 192 the IN (floor 0) and FRN
+    (``qlo`` −127 + ``tau``) emits: codes bit-identical, two launches
+    bit-identical, the previous ``__dp4a`` core agrees, the codes of the
+    columns >= sw are 0; a misaligned x raises."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + w + co)
+    x, a, cc = _batch(t["x"], b, flip=True), _batch(t["a"], b), _batch(t["c"], b)
+    emits = [{}]
+    if c == 192:
+        emits.append(dict(qlo=-127.0, tau=torch.randn(co, device=cuda_device) * 20 - 20))
+    before = k8.LAUNCHES["res_site_s8o"]
+    n = 0
+    for lo in (-127.0, 0.0):
+        for emit in emits:
+            args = (x, a, cc, lo, t["w"], t["ws"], t["bias"], t["qa"], t["qc"])
+            kw = dict(halo=halo, sw=sw, **emit)
+            q, q2 = k8.res_site_s8o(*args, **kw), k8.res_site_s8o(*args, **kw)
+            ref = k8.res_site_s8o_plain(*args, **kw)
+            n += 2
+            assert torch.equal(q, ref), (lo, sorted(emit))
+            assert torch.equal(q, q2) and torch.equal(k8.res_site_s8o_prev(*args, **kw), ref)
+            assert bool((q < 0).any()) == bool(emit)
+            if sw is not None:
+                assert not q[:, :, sw:].any()
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["res_site_s8o"] - before == n
+    with pytest.raises(ValueError, match="16-byte"):
+        k8.res_site_s8o(_misaligned(x), a, cc, 0.0, t["w"], t["ws"], t["bias"], t["qa"],
+                        t["qc"], halo=halo, sw=sw)
+
+
+# K5 on the tensor-core core at ragged shapes: (B, H, W, C, CO, halo) — 64
+# and 128 under the reflect, edge and zero halos, CO = C and CO = 2C (the
+# Johnson d1 is 128 -> 256, edge), and 192 (the post-add relu and tau)
+_K5_SHAPES = [(3, 13, 21, 128, 128, "reflect"), (2, 37, 53, 64, 64, "reflect"),
+              (1, 8, 16, 64, 64, "edge"), (2, 37, 53, 128, 256, "edge"),
+              (3, 9, 35, 64, 128, "reflect"), (3, 13, 21, 128, 128, "zero"),
+              (2, 11, 30, 64, 64, "zero"), (3, 13, 21, 192, 192, "reflect"),
+              (2, 37, 53, 192, 192, "edge"), (1, 8, 16, 192, 192, "reflect")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,co,halo", _K5_SHAPES)
+def test_k5_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
+    """K5 on the int8 tensor cores against its plain version at ragged
+    shapes, both quantize floors, ``yout`` on and off; at C = 192 the
+    post-add ``relu`` and ``tau``: bf16 raw and v bit-identical, sums within
+    1e-5; two launches bit-identical, sums included; the previous ``__dp4a``
+    core agrees; a misaligned r2 or yp raises."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + w + co + 1)
+    x, y = _batch(t["x"], b, flip=True), _batch(t["y"], b)
+    a, cc, a2, c2 = (_batch(t[k], b) for k in ("a", "c", "a2", "c2"))
+    acts = [{}] if c != 192 else [
+        dict(act="relu"), dict(act="tau", tau_act=torch.randn((b, c), device=cuda_device) * 0.5 - 0.3)]
+    before = k8.LAUNCHES["res_site_skip"]
+    n = 0
+    for lo in (-127.0, 0.0):
+        for act in acts:
+            for yout in (True, False):
+                args = (x, y, a, cc, a2, c2, lo, t["w"], t["ws"], t["bias"])
+                kw = dict(halo=halo, yout=yout, **act)
+                out, again = k8.res_site_skip(*args, **kw), k8.res_site_skip(*args, **kw)
+                prev = k8.res_site_skip_prev(*args, **kw)
+                ref = k8.res_site_skip_plain(*args, **kw)
+                n += 2
+                tag = (lo, sorted(act), yout)
+                assert torch.equal(out[0], ref[0]) and torch.equal(prev[0], ref[0]), tag
+                assert _sums_close(out[1], ref[1], h * w) and _sums_close(prev[1], ref[1], h * w)
+                assert all((p is None and q is None) or torch.equal(p, q)
+                           for p, q in zip(out, again)), tag
+                if yout:
+                    assert torch.equal(out[2], ref[2]) and torch.equal(prev[2], ref[2]), tag
+                else:
+                    assert out[2] is None and prev[2] is None
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["res_site_skip"] - before == n
+    args = (a, cc, a2, c2, 0.0, t["w"], t["ws"], t["bias"])
+    for r2, yp in ((_misaligned(x), y), (x, _misaligned(y))):
+        with pytest.raises(ValueError, match="16-byte"):
+            k8.res_site_skip(r2, yp, *args, halo=halo, **acts[0])
+
+
+@pytest.mark.cuda
+def test_k2_k5_prev_forms_count_no_launch(cuda_device):
+    """``res_site_s8o_prev`` and ``res_site_skip_prev`` count no launch; K2's
+    zero halo, like K4's and K5's, is built at C = 64 and 128 only."""
+    t = _int8_inputs(cuda_device, 128, 128)
+    before = dict(k8.LAUNCHES)
+    k8.res_site_s8o_prev(t["x"], t["a"], t["c"], 0.0, t["w"], t["ws"], t["bias"], t["qa"],
+                         t["qc"])
+    k8.res_site_skip_prev(t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], 0.0, t["w"],
+                          t["ws"], t["bias"])
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES == before
+    r = _int8_inputs(cuda_device, 192, 192)
+    with pytest.raises(ValueError, match="halo"):
+        k8.res_site_s8o(r["x"], r["a"], r["c"], 0.0, r["w"], r["ws"], r["bias"], r["qa"],
+                        r["qc"], halo="zero")
+
+
 # ReCoNet's forms at ragged shapes: (B, H, W, C, CO, halo); at C = 192 the
 # tensor-core core stages 64 output channels a block, at 96 its k32 steps are
 # odd (27), and the prologue's 16-byte chunks do not divide its 256 threads
@@ -646,7 +778,7 @@ _ZERO_SHAPES = [(3, 13, 21, 128), (1, 11, 30, 64)]
 @pytest.mark.parametrize("b,h,w,c", _ZERO_SHAPES)
 def test_k4_k5_zero_halo_match_plain_on_card(cuda_device, b, h, w, c):
     """K4 (``mma_kernel``, and its previous ``__dp4a`` core) and K5
-    (``site_kernel``) with ``halo="zero"`` against their plain versions, both
+    (``mma_kernel``) with ``halo="zero"`` against their plain versions, both
     floors, a nonzero ``c`` (so that the halo's code 0 differs from the
     quantized zero): bf16 raw and K5's v bit-identical, sums within 1e-5;
     two launches bit-identical, sums included."""
