@@ -13,7 +13,8 @@ order, and any failed phase exits non-zero:
    K9a–K11 (``csrc/bf16_sites.cu``) and K12–K13 (``csrc/int8_probes.cu``),
    one nvcc each, started together, and
    print ptxas' registers and spills of every kernel, and the dynamic
-   shared memory of K2–K5's tensor-core core (``mma_kernel``);
+   shared memory of the tensor-core cores (K2–K5's ``mma_kernel``, K8a's
+   ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -30,10 +31,10 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
-   K2–K5 also beside their previous ``__dp4a`` design (``*_prev``, held
-   to the same outputs; K3 and K4 at the Johnson and NST widths, K2 and K5
-   at every case), in turns: plain, kernel, previous, kernel, previous,
-   plain, and two launches of each bit-identical;
+   K2–K6 and K8a also beside their previous ``__dp4a`` design (``*_prev``,
+   held to the same outputs; K3 and K4 at the Johnson and NST widths, the
+   others at every case), in turns: plain, kernel, previous, kernel,
+   previous, plain, and two launches of each bit-identical;
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -129,9 +130,10 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds K2–K5's tensor-core core with ``-DMMA_PHASE_CLOCKS`` and
-prints, for each of their 1080p B=8 cases, the share of each phase of the
-tile loop in the clock of every block's thread 0.
+instead builds the tensor-core cores (K2–K6, K8a) with
+``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases, the
+share of each phase of the tile loop (K6: of the row loop) in the clock of
+every block's thread 0.
 """
 
 from __future__ import annotations
@@ -285,10 +287,12 @@ T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
-# K2-K5 run on the int8 tensor cores (mma_kernel); their previous __dp4a
-# design (site_kernel) stays callable for the comparison, K2's and K5's also
-# at ReCoNet's C = 192 (K3's and K4's previous design was built without it)
-REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip")
+# K2-K5 run on the int8 tensor cores (mma_kernel), K8a on its stride-2 form
+# (mma_s2_kernel) and K6 on d3s8_mma_kernel; their previous __dp4a design
+# (site_kernel, rows_kernel) stays callable for the comparison, K2's and
+# K5's also at ReCoNet's C = 192 (K3's and K4's previous design was built
+# without it)
+REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "d3_s8_site")
 PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
@@ -1843,14 +1847,19 @@ def write_t7(path: Path, layers: list) -> Path:
     return path
 
 
+MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "K2 floored emit",
+             ("1", "0"): "K5", ("3", "0"): "K5 act", ("4", "0"): "K4 cast",
+             ("0", "4"): "K4 no stats"}
+
+
 def ptxas_report(text: str, k8) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
-    and the dynamic shared memory of the tensor-core core's instantiations
+    and the dynamic shared memory of the tensor-core cores' instantiations
     (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
     <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5, <192, 3, 0> K5
     with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
     no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
-    under the zero halo)."""
+    under the zero halo; mma_s2_kernel<32> is K8a, d3s8_mma_kernel K6)."""
     import re
 
     name, spill = None, ""
@@ -1861,32 +1870,43 @@ def ptxas_report(text: str, k8) -> None:
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "registers" in line:
-            # the kernel's own name among the mangled name's length-prefixed
-            # identifiers, and its int template arguments
-            base = next((m.group(2) for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?)(?=[IE]))", name)
-                         if len(m.group(2)) == int(m.group(1))), name)
+            # the kernel's own name: the last of the mangled name's
+            # length-prefixed identifiers (the anonymous namespace's hashed
+            # name may hold a digit run that looks like one), and its int
+            # template arguments
+            base = ([m.group(2) for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?)(?=[IE]))", name)
+                     if len(m.group(2)) == int(m.group(1))] or [name])[-1]
             targs = re.findall(r"L[ib](-?\d+)E", name)
             short = f"{base}<{', '.join(targs)}>" if targs else base
-            extra = ""
+            smem = None
             if base == "mma_kernel":
-                c = int(targs[0])
-                short += {("0", "0"): " (K4)", ("2", "2"): " (K3)", ("0", "1"): " (K2)",
-                          ("0", "3"): " (K2 floored emit)", ("1", "0"): " (K5)",
-                          ("3", "0"): " (K5 act)", ("4", "0"): " (K4 cast)",
-                          ("0", "4"): " (K4 no stats)"}[targs[1], targs[2]]
-                extra = f", {k8._lib().mma_kernel_smem_bytes(c)} bytes dynamic shared memory"
+                short += f" ({MMA_FORMS[targs[1], targs[2]]})"
+                smem = k8._lib().mma_kernel_smem_bytes(int(targs[0]))
+            elif base == "mma_s2_kernel":
+                short += " (K8a)"
+                smem = k8._lib().mma_s2_smem_bytes(int(targs[0]))
+            elif base == "d3s8_mma_kernel":
+                short += " (K6)"
+                smem = k8._lib().d3s8_mma_smem_bytes()
+            extra = "" if smem is None else f", {smem} bytes dynamic shared memory"
             log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
             name = None
 
 
 PHASES = ("next tile's loads issued", "MMAs issued", "fragment epilogue (MMA drain incl.)",
           "stores and sums", "next tile's quantize / copy")
+# K8a's tile loop, and K6's row loop (warp 0 of each block)
+PHASES_S2 = ("quantize, loads ahead issued", "MMAs issued", "fragment epilogue (MMA drain incl.)",
+             "stores and sums", "wait for the tile's raw input")
+PHASES_D3 = ("next rows' loads issued", "wait for the row's codes", "MMAs issued",
+             "K lanes and dy-sum (MMA drain incl.)", "the row's stores")
 
 
 def phases_phase(dev):
-    """--phases: K2-K5's mma_kernel built with MMA_PHASE_CLOCKS, each of
-    their 1080p B=8 cases run once; the share of each phase of the tile loop
-    in the clock of every block's thread 0, averaged over blocks."""
+    """--phases: the tensor-core cores (K2-K6, K8a) built with
+    MMA_PHASE_CLOCKS, each of their 1080p B=8 cases run once; the share of
+    each phase of the tile loop (K6: of warp 0's row loop) in the clock of
+    every block's thread 0, averaged over blocks."""
     import ctypes
 
     import numpy as np
@@ -1905,26 +1925,29 @@ def phases_phase(dev):
     lib = ctypes.CDLL(str(so))
     base = k8._lib
     for name in ("res_site_s8o_launch", "site_s8_launch", "res_site_launch",
-                 "res_site_skip_launch"):
+                 "res_site_skip_launch", "site_s2_launch", "d3_s8_launch"):
         getattr(lib, name).argtypes = getattr(base(), name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]
-    clocks = np.zeros((1024, len(PHASES)), dtype=np.uint64)  # every launch rewrites its blocks'
+    clocks = np.zeros((1024, len(PHASES)), dtype=np.uint64)
     k8._lib = lambda: lib  # the wrappers launch the instrumented build
     try:
         for name in REDESIGNED:
             for shape, form in INT8_KERNELS[name][0]:
                 t = site_inputs(dev, *SITE_SHAPES[shape][:5], seed=11)
                 kernel = site_calls(name, t, shape, form)[0]
+                if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:  # reads and zeroes
+                    fail("reading mma_phase_clocks failed")
                 kernel()
                 torch.cuda.synchronize()
                 if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
                     fail("reading mma_phase_clocks failed")
                 used = clocks[clocks.sum(axis=1) > 0].astype(np.float64)
                 share = used.mean(axis=0) / used.sum(axis=1).mean()
+                labels = {"d3_s8_site": PHASES_D3, "c2_site": PHASES_S2}.get(name, PHASES)
                 log(f"phases {name} @ {shape}{'/' + form if form else ''}: {len(used)} blocks, "
                     f"{used.sum(axis=1).mean():.0f} cycles a block; " +
-                    ", ".join(f"{ph} {sh:.1%}" for ph, sh in zip(PHASES, share)))
+                    ", ".join(f"{ph} {sh:.1%}" for ph, sh in zip(labels, share)))
                 del t, kernel
                 torch.cuda.empty_cache()
     finally:
@@ -1936,7 +1959,8 @@ def kernel_group(name: str) -> str:
     n = name.lower()
     if "kernel_bf16" in n or "stats_reduce_bf16" in n:
         return "bf16 sites K9a-K9e"
-    if any(k in n for k in ("site_kernel", "mma_kernel", "stats_reduce", "rows_kernel")):
+    if any(k in n for k in ("site_kernel", "mma_kernel", "mma_s2_kernel", "stats_reduce",
+                            "rows_kernel")):
         return "int8 sites K2-K8b"
     if "dis_iter" in n:
         return "K1 (DIS)"

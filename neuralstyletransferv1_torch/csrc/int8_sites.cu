@@ -16,20 +16,23 @@
 // the columns >= sw that pad a grid up to an aligned width, in its input and
 // output, and K3 those of its s8 output), accumulated in int32 with __dp4a,
 // with a prologue (how the int8 tile is made) and an epilogue (what is
-// written) chosen at compile time. K8a/K8b run on it; K2-K5 run the same
-// conv at stride 1 on the tensor cores (mma_kernel, below), and their
-// site_kernel forms stay buildable as res_site_s8o_prev_launch,
-// site_s8_prev_launch, res_site_prev_launch and res_site_skip_prev_launch,
-// for timing the two designs side by side. ReCoNet's forms (C = 192 res
+// written) chosen at compile time. K8b runs on it; K2-K5 run the same conv
+// at stride 1 on the tensor cores (mma_kernel, below), K8a at stride 2
+// (mma_s2_kernel), and their site_kernel forms stay buildable as
+// res_site_s8o_prev_launch, site_s8_prev_launch, res_site_prev_launch,
+// res_site_skip_prev_launch and site_s2_prev_launch (K8a's), for timing the
+// two designs side by side. ReCoNet's forms (C = 192 res
 // grid, 96 at its d2): K4 at C in {96, 192} with an optional pre-round floor
 // (FRN's TLU folded into the quantize, the Pallas res_site's tau); K5 at
 // C = 192 with the post-add ReLU or TLU on v (act / tau_act); K2 at C = 192,
 // also with a floored emit (qlo, tau); K3 at C = 192. K8a/K8b are the TPU's
 // pair-packed head sites; their pair packing and phase-permutation dots are
 // layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
-// a second core (rows_kernel): deconv3 in its tap-packed form, a 1x5 conv of
-// the 128-channel space-to-depth tensor to 60 lanes (5 kernel rows x 4
-// phases x 3 channels, padded to 64 with zero weights), zero column pads.
+// deconv3 in its tap-packed form, a 1x5 conv of the 128-channel
+// space-to-depth tensor to 60 lanes (5 kernel rows x 4 phases x 3 channels,
+// padded to 64 with zero weights), zero column pads: K7 on a second core
+// (rows_kernel), K6 on the tensor cores (d3s8_mma_kernel, below), its
+// rows_kernel form buildable as d3_s8_prev_launch.
 //
 // site_kernel: block = 256 threads = one 8x16-pixel output tile x 64 output
 // channels of one image. The haloed input tile ((8-1)*S+3 rows x (16-1)*S+3
@@ -44,8 +47,9 @@
 // contiguous bytes).
 //
 // rows_kernel: block = 256 threads = 16 output columns x all 64 lanes of 8
-// (K7) or 16 (K6, two per warp) conv rows. K7 writes each row's 60 lanes as
-// bf16. K6 keeps its 16 rows of bf16 K lanes in shared memory and then sums,
+// (K7) or 16 (K6's previous form, two per warp) conv rows. K7 writes each
+// row's 60 lanes as bf16. K6 keeps its 16 rows of bf16 K lanes in shared
+// memory and then sums,
 // for each of its 12 output rows r and 12 output channels o, K[r+dy-2] lane
 // 12*dy+o over dy = 0..4 in f32 in that order, adds the bias and rounds to
 // bf16. Rows outside the image are zero codes (the TPU kernel's zero-SAME
@@ -68,7 +72,7 @@
 // 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes.
 // site_kernel runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x
 // below the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site,
-// 20x the bound). K8a/K8b stay on it.
+// 20x the bound). K8b stays on it, and K7 on rows_kernel.
 //
 // mma_kernel (K2-K5): the same 3x3 conv as an implicit GEMM on the int8
 // tensor cores, mma.sync.m16n8k32.s8.s8.s32 fed by ldmatrix: M = the 16
@@ -130,6 +134,34 @@
 // MMA loop of the same warps, and two 64-channel blocks per SM, were both
 // slower (PERF.md); warp-specialized producers and consumers are the next
 // step.
+//
+// mma_s2_kernel (K8a): mma_kernel's quantizing prologue and raw + sums
+// epilogue at stride 2, C = 32 -> 64 (M = the 16 output pixels of a tile
+// row, N = 64, K = 9 taps x 32: 9 k32 steps). Its haloed 17x33 input tile
+// is staged as four (row, column) parity planes, so that every tap is a
+// stride-1 shift inside one plane and the eight rows an ldmatrix reads are
+// eight consecutive plane pixels (at the pixel stride of 48 bytes they sit
+// in 32 distinct banks; in the plain tile they would sit 96 bytes apart, two
+// to a bank). K8a moves 1.59 GB at 1080p B=8 for 1.5e11 operations: the
+// bytes bound it, and its prologue (the quantize of 1.1 input pixels an
+// output pixel) is its largest phase. So the raw input of the next tile is
+// brought into shared memory by cp.async as soon as the current one is
+// quantized (no registers held for it), two blocks share an SM so that one
+// block's quantize runs beside the other's MMAs and epilogue, and the
+// quantize takes the round and the convert in one instruction and packs its
+// codes with byte permutes. Of the forms timed on an H100 (PERF.md):
+// the next tile in registers at one or two blocks an SM, rings of 2-4 tiles
+// at one block an SM, this one was the fastest.
+//
+// d3s8_mma_kernel (K6): the 1x5 rows conv as an implicit GEMM, M = 16
+// output columns, N = 64 lanes, K = 5 dx taps x 128 channels (20 k32
+// steps); each warp walks a contiguous share of the (image, 32-column
+// strip, row) space down its strips, computing every conv row once (the
+// previous form computed 16 rows to emit 12) and keeping the dy-sum's
+// partial sums in registers: the lanes' B rows are ordered so that the
+// thread that holds output channel o of a pixel holds all five of its dy
+// lanes (d3_slot_row). Its 3.2e11 operations and 0.63 GB are near balance
+// on an H100; the MMAs' issue takes most of its time (--phases).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -637,11 +669,29 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// cp.async of 16 bytes (zero-filled where `valid` is false), its groups
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // Built with -DMMA_PHASE_CLOCKS (chip_smoke.py --phases), thread 0 of each
 // block adds the clock cycles of the phases of its tile loop into
 // mma_phase_clocks[block]: 0 the next tile's loads issued, 1 the MMAs issued,
 // 2 the fragment epilogue (the MMAs' drain included), 3 the stores and sums,
-// 4 the next tile's quantize or copy.
+// 4 the next tile's quantize or copy (mma_kernel); K8a's (mma_s2_kernel) 0
+// the quantize and the loads of the tile kS2Stages ahead issued, 1-3 as
+// mma_kernel's, 4 the wait for the tile's raw input; K6's row loop
+// (d3s8_mma_kernel, warp 0): 0 the next rows' loads issued, 1 the wait for
+// the row's codes, 2 the MMAs issued, 3 the K lanes and the dy-sum (the
+// drain included), 4 the row's stores.
 #ifdef MMA_PHASE_CLOCKS
 constexpr int kPhases = 5, kPhaseBlocks = 1024;
 __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
@@ -1238,6 +1288,315 @@ int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
+// mma_s2_kernel: K8a on the int8 tensor cores (stride 2)
+// ---------------------------------------------------------------------------
+
+constexpr int kSHR = 2 * kMRows + 1, kSHC = 2 * kMCols + 1;  // haloed input tile, 17 x 33
+constexpr int kSPix = kSHR * kSHC;
+constexpr int kS2Stages = 1;  // raw input tiles in flight a block
+constexpr int kS2Blocks = 2;  // blocks an SM
+constexpr int kS2CO = 64;     // output channels a block
+
+// The haloed tile is staged as its four (row, column) parity planes, (0, 0),
+// (0, 1), (1, 0), (1, 1) in that order: at stride 2, tap (dy, dx) of output
+// pixel (r, c) reads tile pixel (2r + dy, 2c + dx), which is pixel
+// (r + dy/2, c + dx/2) of plane (dy%2, dx%2), so the 16 A rows of an
+// ldmatrix are 16 consecutive pixels of one plane row.
+__host__ __device__ constexpr int s2_plane_rows(int pr) { return (kSHR + 1 - pr) / 2; }
+__host__ __device__ constexpr int s2_plane_cols(int pc) { return (kSHC + 1 - pc) / 2; }
+__host__ __device__ constexpr int s2_plane_off(int pr, int pc) {
+  return (pr ? s2_plane_rows(0) * (s2_plane_cols(0) + s2_plane_cols(1)) : 0) +
+         (pc ? s2_plane_rows(pr) * s2_plane_cols(0) : 0);
+}
+// the staged pixel of haloed tile pixel (hr, hc)
+__host__ __device__ constexpr int s2_pixel(int hr, int hc) {
+  return s2_plane_off(hr & 1, hc & 1) + (hr >> 1) * s2_plane_cols(hc & 1) + (hc >> 1);
+}
+static_assert(s2_plane_off(1, 1) + s2_plane_rows(1) * s2_plane_cols(1) == kSPix,
+              "the planes tile the haloed tile");
+
+// Shared memory at C input channels: the weights; the planes of codes
+// (pixel stride C + 16 bytes: the eight pixels an ldmatrix reads,
+// consecutive in a plane, sit in 32 distinct banks), the staged bf16 outputs
+// over them after the MMAs; the ring of raw bf16 input tiles (kS2Stages).
+template <int C>
+struct MmaS2Smem {
+  static constexpr int PX = C + 16;
+  static constexpr int OUT = 2 * kS2CO + 16;
+  static constexpr int W = 9 * kS2CO * PX;
+  static constexpr int X = kSPix * PX > kMRows * kMCols * OUT ? kSPix * PX : kMRows * kMCols * OUT;
+  static constexpr int ROWS = sizeof(float) * (2 + 2 * kMRows) * kS2CO;
+  static constexpr int RAW = kSPix * 2 * C;
+  static constexpr size_t bytes = W + X + ROWS + kS2Stages * RAW;
+};
+
+// quantize for a finite v and an integer floor lo: equal to quantize (the
+// round to nearest even and the convert in one cvt.rni, the clamp on ints)
+__device__ __forceinline__ int quantize_i(float v, float a, float c, int lo) {
+  return min(max(__float2int_rn(__fadd_rn(__fmul_rn(v, a), c)), lo), 127);
+}
+
+// the low bytes of four ints, q0 first
+__device__ __forceinline__ uint32_t pack4_s8(int q0, int q1, int q2, int q3) {
+  return __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040), 0x5410);
+}
+
+// the haloed tile's bf16 input, one 16-byte chunk (8 channels) a thread and pass
+template <int C>
+struct MmaS2In {
+  static constexpr int CH = C / 8;                     // chunks per pixel
+  static constexpr int PPI = kMThreads / CH;           // pixels per pass
+  static constexpr int NI = (kSPix + PPI - 1) / PPI;   // passes
+};
+
+// K4 at stride 2 over the pixel reflect halo: the quantizing prologue and
+// the raw + sums epilogue of mma_kernel, with the haloed tile in parity
+// planes. Block k of `per_half` blocks serves output channels 64·(k /
+// per_half).. and walks tiles k % per_half, + per_half, ... of the B·tiles
+// 8x16 output tiles; warp w computes tile row w (16 pixels x 64 channels, 9
+// taps x C/32 k32 steps of 8 MMAs). The raw bf16 input of the next
+// kS2Stages tiles is brought into a ring in shared memory by cp.async,
+// issued as soon as a slot is quantized, so those loads run through the
+// MMAs, the epilogue and the stores of the tiles before them (see the top
+// of the file for the choice of one slot and two blocks an SM).
+template <int C>
+__global__ void __launch_bounds__(kMThreads, kS2Blocks)
+    mma_s2_kernel(Args p, int tiles_x, int tiles, int per_half) {
+  using S = MmaS2Smem<C>;
+  using In = MmaS2In<C>;
+  constexpr int PX = S::PX, OUT = S::OUT, MCO = kS2CO;
+  constexpr int CW = C / 4, KC = C / 32, KS = 9 * KC;
+  extern __shared__ __align__(16) uint8_t smem8[];
+  uint8_t* s_w = smem8;                                   // [9][MCO][PX] weights
+  uint8_t* s_x = smem8 + S::W;                            // parity planes of codes, then outputs
+  float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // ws, bias [MCO]
+  float* s_sum = s_rows + 2 * MCO;                        // [kMRows][2][MCO]
+  uint8_t* s_raw = reinterpret_cast<uint8_t*>(s_rows) + S::ROWS;  // [kS2Stages][kSPix][C] bf16
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int co0 = (blockIdx.x / per_half) * MCO;
+  const int total = p.B * tiles;
+  int tile = blockIdx.x % per_half;
+  if (tile >= total) return;
+
+  const int chunk = tid % In::CH, p0 = tid / In::CH;
+  // tile `id`'s raw input into ring slot `slot` (one commit group; none
+  // past the last tile, so that the wait count holds)
+  // (a tile clear of the image's edges takes no reflect; offsets within an
+  // image are 32-bit)
+  auto fetch = [&](int id, int slot) {
+    if (id < total) {
+      const int b = id / tiles, t = id % tiles;
+      const int iy0 = 2 * (t / tiles_x) * kMRows - 1, ix0 = 2 * (t % tiles_x) * kMCols - 1;
+      const __nv_bfloat16* img = static_cast<const __nv_bfloat16*>(p.x) +
+                                 (size_t)b * p.Hi * p.Wi * C + chunk * 8;
+      const uint32_t dst = smem_addr(s_raw + slot * S::RAW) + chunk * 16;
+      const bool inner = iy0 >= 0 && ix0 >= 0 && iy0 + kSHR <= p.Hi && ix0 + kSHC <= p.Wi;
+#pragma unroll
+      for (int k = 0; k < In::NI; ++k) {
+        const int px = p0 + k * In::PPI;
+        if (px < kSPix) {
+          int sy = iy0 + px / kSHC, sx = ix0 + px % kSHC;
+          if (!inner) {
+            sy = src_index(sy, p.Hi, 0);
+            sx = src_index(sx, p.Wi, 0);
+          }
+          cp_async16(dst + px * 2 * C, img + (sy * p.Wi + sx) * C, true);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // ring slot `slot` (tile `id`) quantized into the planes
+  auto stage = [&](int id, int slot) {
+    const int b = id / tiles;
+    float qa[8], qc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      qa[j] = __ldg(p.a + b * C + chunk * 8 + j);
+      qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
+    }
+    const int lo = (int)p.lo;
+    const uint8_t* src = s_raw + slot * S::RAW + chunk * 16;
+#pragma unroll
+    for (int k = 0; k < In::NI; ++k) {
+      const int px = p0 + k * In::PPI;
+      if (px >= kSPix) continue;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + px * 2 * C);
+      const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+      int q[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], lo);
+        q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], lo);
+      }
+      *reinterpret_cast<uint2*>(s_x + s2_pixel(px / kSHC, px % kSHC) * PX + chunk * 8) =
+          make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kS2Stages; ++k) fetch(tile + k * per_half, k);
+  static_assert(9 * CW * MCO % kMThreads == 0, "weight words split evenly");
+#pragma unroll 2
+  for (int j = 0; j < 9 * CW * MCO / kMThreads; ++j) {
+    const int i = tid + j * kMThreads;
+    const int n = i % MCO, k = (i / MCO) % CW, t = i / (MCO * CW);
+    *reinterpret_cast<int32_t*>(s_w + (t * MCO + n) * PX + 4 * k) =
+        p.wk[((size_t)t * CW + k) * p.CO + co0 + n];
+  }
+  for (int i = tid; i < 2 * MCO; i += kMThreads)
+    s_rows[i] = (i < MCO ? p.ws : p.bias)[co0 + i % MCO];
+
+  const int g = lane >> 2, tg = lane & 3;
+  // A rows: 16 consecutive pixels of a plane row (lanes 0-15: bytes 0-15 of
+  // the k32 slice, 16-31: bytes 16-31); B rows as mma_kernel's
+  const uint32_t a_lane = smem_addr(s_x) + (lane & 15) * PX + (lane >> 4) * 16;
+  const uint32_t b_lane = smem_addr(s_w) + ((lane >> 4) * 8 + (lane & 7)) * PX +
+                          ((lane >> 3) & 1) * 16;
+
+  MMA_PHASE_START
+#pragma unroll 1
+  for (int it = 0;; ++it) {
+    const int slot = it % kS2Stages;
+    cp_async_wait<kS2Stages - 1>();
+    __syncthreads();  // the slot's raw tile has landed; the planes are free
+    MMA_PHASE(4)
+    stage(tile, slot);
+    __syncthreads();  // the planes are written; the slot is free
+    fetch(tile + kS2Stages * per_half, slot);
+    MMA_PHASE(0)
+
+    int acc[8][4];
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nj][e] = 0;
+    {
+      uint32_t af[4], bfr[8][2];
+      auto load = [&](int s, uint32_t (&a)[4], uint32_t (&bq)[8][2]) {
+        const int tap = s / KC, kc = s % KC, dy = tap / 3, dx = tap % 3;
+        ldsm_x4(a, a_lane + (s2_plane_off(dy & 1, dx & 1) +
+                             (warp + (dy >> 1)) * s2_plane_cols(dx & 1) + (dx >> 1)) * PX +
+                       kc * 32);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t r[4];
+          ldsm_x4(r, b_lane + (tap * MCO + 16 * q) * PX + kc * 32);
+          bq[2 * q][0] = r[0];
+          bq[2 * q][1] = r[1];
+          bq[2 * q + 1][0] = r[2];
+          bq[2 * q + 1][1] = r[3];
+        }
+      };
+      auto mmas = [&](const uint32_t (&a)[4], const uint32_t (&bq)[8][2]) {
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) mma_s8(acc[nj], a, bq[nj][0], bq[nj][1]);
+      };
+      // fragments single-buffered: two blocks an SM hide the ldmatrix
+      // latency, and the second buffer would spill
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        load(s, af, bfr);
+        mmas(af, bfr);
+      }
+    }
+    MMA_PHASE(1)
+    __syncthreads();  // the planes are free: the epilogue stages its outputs there
+
+    // f = bf16(acc·ws + bias) of tile row `warp`, pixels g and g+8, channels
+    // 8nj + 2tg, +1; sums over the pixels inside the image, folded over the
+    // 8 lanes g of a channel, then per row warp
+    const int b = tile / tiles, t = tile % tiles;
+    const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+      const int n = nj * 8 + 2 * tg;
+      const float2 ws = *reinterpret_cast<const float2*>(s_rows + n);
+      const float2 bi = *reinterpret_cast<const float2*>(s_rows + MCO + n);
+      float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = g + 8 * h;
+        const float f[2] = {
+            bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[nj][2 * h]), ws.x), bi.x)),
+            bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[nj][2 * h + 1]), ws.y), bi.y))};
+        if (y0 + warp < p.H && x0 + col < p.W) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s1[e] = __fadd_rn(s1[e], f[e]);
+            s2[e] = __fadd_rn(s2[e], __fmul_rn(f[e], f[e]));
+          }
+        }
+        *reinterpret_cast<uint32_t*>(s_x + (warp * kMCols + col) * OUT + 2 * n) =
+            bf16_pack(f[0], f[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s1[e] = __fadd_rn(s1[e], __shfl_xor_sync(0xffffffffu, s1[e], m));
+          s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], m));
+        }
+        if (g == 0) {
+          s_sum[(warp * 2 + 0) * MCO + n + e] = s1[e];
+          s_sum[(warp * 2 + 1) * MCO + n + e] = s2[e];
+        }
+      }
+    }
+    __syncthreads();
+    MMA_PHASE(2)
+
+    // the staged outputs, 8 channels (16 bytes) a thread and pass, coalesced
+    constexpr int CPP = MCO / 8;
+#pragma unroll
+    for (int j = 0; j < kMRows * kMCols * CPP / kMThreads; ++j) {
+      const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
+      const int oy = y0 + px / kMCols, ox = x0 + px % kMCols;
+      if (oy < p.H && ox < p.W)
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) +
+                                  (((size_t)b * p.H + oy) * p.W + ox) * p.CO + co0 + 8 * c8) =
+            *reinterpret_cast<const uint4*>(s_x + px * OUT + 16 * c8);
+    }
+    if (tid < 2 * MCO) {
+      const int s = tid / MCO, n = tid % MCO;
+      float v = 0.0f;
+      for (int w = 0; w < kMRows; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * MCO + n]);
+      p.part[(((size_t)b * tiles + t) * 2 + s) * p.CO + co0 + n] = v;
+    }
+    MMA_PHASE(3)
+    tile += per_half;
+    if (tile >= total) break;
+  }
+  cp_async_wait<0>();
+  MMA_PHASE_END
+}
+
+template <int C>
+int launch_mma_s2(const Args& p, float* sums, cudaStream_t stream) {
+  const size_t smem = MmaS2Smem<C>::bytes;
+  auto kern = mma_s2_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int tiles_x = (p.W + kMCols - 1) / kMCols;
+  const int tiles = ((p.H + kMRows - 1) / kMRows) * tiles_x;
+  const int halves = p.CO / kS2CO;
+  int per_half = kS2Blocks * sms / halves;
+  per_half = per_half < p.B * tiles ? per_half : p.B * tiles;
+  per_half = per_half > 1 ? per_half : 1;
+  kern<<<per_half * halves, kMThreads, smem, stream>>>(p, tiles_x, tiles, per_half);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_reduce_mma<<<p.B * 2 * p.CO / 32, 256, 0, stream>>>(p.part, sums, p.B, tiles, p.CO);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // rows_kernel: deconv3's tap-packed 1x5 conv (K6, K7)
 // ---------------------------------------------------------------------------
 
@@ -1403,6 +1762,224 @@ int launch_rows(const RowsArgs& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d3s8_mma_kernel: K6 on the int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kDPX = kRC + 16;      // bytes per staged pixel and per weight row
+constexpr int kDStrip = 32;         // output columns a warp: two 16-pixel M tiles
+constexpr int kDHC = kDStrip + 4;   // staged columns of a conv row (2-pixel halo each side)
+constexpr int kDBuf = 3;            // staged conv rows a warp: the one computed, two in flight
+
+struct D3Smem {
+  static constexpr int W = 5 * kCOT * kDPX;                  // [dx][slot][kDPX] weights
+  static constexpr int ROW = kDHC * kDPX;                    // one staged conv row
+  static constexpr int OUT = kDStrip * kOut * 2;             // one output row of a warp, bf16
+  static constexpr int WARP = kDBuf * ROW + OUT;
+  static constexpr size_t bytes = W + kWarps * WARP;
+};
+
+// The B row (slot) that lane n = 12·dy + o of the tap-packed weights takes:
+// with o = 3·tg + i, slot s = 5·i + dy of the threads tg = 0..3 of a quad
+// (n8 tile s/2, column 2·tg + s%2 of the accumulator fragment), so that the
+// thread that holds output channel o of a pixel holds all five of its dy
+// lanes. Lanes 60-63 (zero weights) take slot 15.
+__device__ __forceinline__ int d3_slot_row(int n) {
+  const int tg = n < kLanes ? n % kOut / 3 : n - kLanes;
+  const int s = n < kLanes ? 5 * (n % kOut % 3) + n / kOut : 15;
+  return 8 * (s >> 1) + 2 * tg + (s & 1);
+}
+
+// Each warp walks a contiguous share of the B·strips·H (image, 32-column
+// strip, output row) space, row by row down a strip, and restarts 2 conv
+// rows above wherever its share starts a strip. Conv row y (its 36 staged
+// columns of codes, zero outside the image, brought in by cp.async two rows
+// ahead) is 20 k32 steps (5 dx taps x 128 channels) of 2 x 8 MMAs; then
+// each thread turns its fragments into the K lanes bf16(acc·ws) and adds
+// them to the f32 partial sums of the output rows y-2..y+1 that it holds in
+// registers (P[0..3]: row y-2 completes with its dy = 4 lane, then P
+// shifts and row y+2 starts from its dy = 0 lane), in dy order, exactly as
+// the reference adds. Row y-2 + bias is staged as bf16 and written 8 bytes
+// a lane, coalesced. The weights (slots as d3_slot_row places them) are
+// staged once a block; the grid is persistent (one block an SM).
+__global__ void __launch_bounds__(kThreads, 1)
+    d3s8_mma_kernel(RowsArgs p, int strips_x, long long rows_total) {
+  extern __shared__ __align__(16) uint8_t smem8[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint8_t* s_w = smem8;
+  uint8_t* s_ring = smem8 + D3Smem::W + warp * D3Smem::WARP;
+  __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(s_ring + kDBuf * D3Smem::ROW);
+  const int8_t* xq = static_cast<const int8_t*>(p.x);
+
+  // weights once: word (dx, k, n) → bytes 4k.. of row (dx, slot of n)
+  for (int i = tid; i < 5 * kRCW * kCOT; i += kThreads) {
+    const int n = i % kCOT, k = (i / kCOT) % kRCW, t = i / (kCOT * kRCW);
+    *reinterpret_cast<int32_t*>(s_w + (t * kCOT + d3_slot_row(n)) * kDPX + 4 * k) = p.wk[i];
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, tg = lane & 3;
+  float wsr[3][5], bi[3];  // the dequant rows of this thread's lanes, its channels' bias
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    bi[i] = p.bias[3 * tg + i];
+#pragma unroll
+    for (int dy = 0; dy < 5; ++dy) wsr[i][dy] = p.ws[kOut * dy + 3 * tg + i];
+  }
+  const uint32_t b_lane = smem_addr(s_w) + ((lane >> 4) * 8 + (lane & 7)) * kDPX +
+                          ((lane >> 3) & 1) * 16;
+  MMA_PHASE_START
+
+  const long long nw = (long long)gridDim.x * kWarps, gw = (long long)blockIdx.x * kWarps + warp;
+  long long pos = rows_total * gw / nw;
+  const long long end = rows_total * (gw + 1) / nw;
+  while (pos < end) {
+    const long long strip = pos / p.H;
+    const int r0 = (int)(pos % p.H);
+    const int r1 = (int)min((long long)p.H, r0 + (end - pos));
+    pos += r1 - r0;
+    const int b = (int)(strip / strips_x), x0 = (int)(strip % strips_x) * kDStrip;
+    const int y0 = r0 - 2, n = r1 - r0 + 4;  // conv rows y0 .. r1 + 1
+
+    // conv row y0 + i into ring slot i % kDBuf: 36 pixels x 8 chunks, 9 a lane
+    auto load_row = [&](int i) {
+      const int y = y0 + i;
+      const uint32_t dst = smem_addr(s_ring + (i % kDBuf) * D3Smem::ROW);
+#pragma unroll
+      for (int k = 0; k < kDHC * 8 / 32; ++k) {
+        const int c = lane + 32 * k, px = c >> 3, x = x0 - 2 + px;
+        const bool ok = y >= 0 && y < p.H && x >= 0 && x < p.W;
+        const int8_t* src = ok ? xq + (((size_t)b * p.H + y) * p.W + x) * kRC + (c & 7) * 16 : xq;
+        cp_async16(dst + px * kDPX + (c & 7) * 16, src, ok);
+      }
+      cp_async_commit();
+    };
+
+    float P[2][2][3][4];  // [M tile][pixel g, g + 8][channel 3tg + i][output row y-2 .. y+1]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) P[mt][h][i][k] = 0.0f;
+    load_row(0);
+    load_row(1);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      if (i + 2 < n) load_row(i + 2);
+      else cp_async_commit();  // an empty group keeps the wait count
+      MMA_PHASE(0)
+      cp_async_wait<2>();
+      __syncwarp();
+      MMA_PHASE(1)
+
+      const uint32_t a_lane = smem_addr(s_ring + (i % kDBuf) * D3Smem::ROW) +
+                              (lane & 15) * kDPX + (lane >> 4) * 16;
+      int acc[2][8][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nj][e] = 0;
+      uint32_t af[2][2][4], bfr[2][8][2];
+      auto load = [&](int s, uint32_t (&a)[2][4], uint32_t (&bq)[8][2]) {
+        const int dx = s >> 2, kc = s & 3;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) ldsm_x4(a[mt], a_lane + (mt * 16 + dx) * kDPX + kc * 32);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t r[4];
+          ldsm_x4(r, b_lane + (dx * kCOT + 16 * q) * kDPX + kc * 32);
+          bq[2 * q][0] = r[0];
+          bq[2 * q][1] = r[1];
+          bq[2 * q + 1][0] = r[2];
+          bq[2 * q + 1][1] = r[3];
+        }
+      };
+      auto mmas = [&](const uint32_t (&a)[2][4], const uint32_t (&bq)[8][2]) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) mma_s8(acc[mt][nj], a[mt], bq[nj][0], bq[nj][1]);
+      };
+      constexpr int KS = 5 * kRC / 32;  // 20 k32 steps
+      load(0, af[0], bfr[0]);
+#pragma unroll
+      for (int s = 0; s < KS; s += 2) {
+        load(s + 1, af[1], bfr[1]);
+        mmas(af[0], bfr[0]);
+        if (s + 2 < KS) load(s + 2, af[0], bfr[0]);
+        mmas(af[1], bfr[1]);
+      }
+      MMA_PHASE(2)
+
+      // K lanes and the dy-sum: lane (g, tg) holds pixels g and g+8 of each
+      // M tile, slots 5i + dy in acc[.][s / 2][2h + s % 2]
+      const bool emit = y0 + i - 2 >= r0;  // output row y - 2 is in the share
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i3 = 0; i3 < 3; ++i3) {
+            float K[5];
+#pragma unroll
+            for (int dy = 0; dy < 5; ++dy) {
+              const int s = 5 * i3 + dy;
+              K[dy] = bf16_round(__fmul_rn(__int2float_rn(acc[mt][s >> 1][2 * h + (s & 1)]),
+                                           wsr[i3][dy]));
+            }
+            float* pr = P[mt][h][i3];
+            const float v = __fadd_rn(__fadd_rn(pr[0], K[4]), bi[i3]);
+            pr[0] = __fadd_rn(pr[1], K[3]);
+            pr[1] = __fadd_rn(pr[2], K[2]);
+            pr[2] = __fadd_rn(pr[3], K[1]);
+            pr[3] = __fadd_rn(0.0f, K[0]);
+            if (emit) s_out[(mt * 16 + h * 8 + g) * kOut + 3 * tg + i3] = __float2bfloat16_rn(v);
+          }
+      MMA_PHASE(3)
+      __syncwarp();
+      if (emit) {  // the row's 32 x 12 bf16, 8 bytes a lane and pass
+        const int r = y0 + i - 2;
+        uint8_t* row = reinterpret_cast<uint8_t*>(p.out + (((size_t)b * p.H + r) * p.W + x0) * kOut);
+#pragma unroll
+        for (int k = 0; k < D3Smem::OUT / 8 / 32; ++k) {
+          const int c = lane + 32 * k;
+          if (x0 + c / 3 < p.W)
+            *reinterpret_cast<uint2*>(row + 8 * c) =
+                *reinterpret_cast<const uint2*>(reinterpret_cast<const uint8_t*>(s_out) + 8 * c);
+        }
+      }
+      __syncwarp();  // the ring slot and s_out are rewritten on the next row
+      MMA_PHASE(4)
+    }
+  }
+  MMA_PHASE_END
+}
+
+int launch_d3s8_mma(const RowsArgs& p, void* stream) {
+  if (p.B <= 0 || p.H <= 0 || p.W <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(d3s8_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)D3Smem::bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int strips_x = (p.W + kDStrip - 1) / kDStrip;
+  const long long rows_total = (long long)p.B * strips_x * p.H;
+  // at least 16 output rows a warp: below that the 4 rows of restart weigh
+  const long long want = (rows_total + 16 * kWarps - 1) / (16 * kWarps);
+  const int blocks = (int)(want < sms ? (want > 0 ? want : 1) : sms);
+  d3s8_mma_kernel<<<blocks, kThreads, D3Smem::bytes, static_cast<cudaStream_t>(stream)>>>(
+      p, strips_x, rows_total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every pointer is a device
@@ -1495,9 +2072,13 @@ extern "C" int site_s8_prev_launch(const int8_t* xq, const int32_t* wk, const fl
 }
 
 #ifdef MMA_PHASE_CLOCKS
-// mma_phase_clocks → host [kPhaseBlocks][kPhases] (unsigned 64-bit).
+// mma_phase_clocks → host [kPhaseBlocks][kPhases] (unsigned 64-bit), then
+// zeroed: a launch of fewer blocks leaves no rows of an earlier one.
 extern "C" int mma_phase_clocks_read(unsigned long long* host) {
-  return (int)cudaMemcpyFromSymbol(host, mma_phase_clocks, sizeof(mma_phase_clocks));
+  static const unsigned long long zero[kPhaseBlocks][kPhases] = {};
+  const cudaError_t err = cudaMemcpyFromSymbol(host, mma_phase_clocks, sizeof(mma_phase_clocks));
+  return err != cudaSuccess ? (int)err
+                            : (int)cudaMemcpyToSymbol(mma_phase_clocks, zero, sizeof(zero));
 }
 #endif
 
@@ -1604,12 +2185,10 @@ extern "C" int res_site_skip_prev_launch(const void* r2, const __nv_bfloat16* yp
                             sums, B, H, W, C, CO, lo, halo, stream);
 }
 
-// K8a (C = 32) / K8b (C = 64): K4 at stride 2 with a pixel-reflect halo:
-// x [B,H,W,C] bf16 (H, W even) → out [B,H/2,W/2,CO] bf16 and its sums.
-extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
-                              const int32_t* wk, const float* ws, const float* bias,
-                              __nv_bfloat16* out, float* part, float* sums, int B, int H,
-                              int W, int C, int CO, float lo, void* stream) {
+namespace {
+int site_s2_args(bool prev, const void* x, const float* a, const float* c, const int32_t* wk,
+                 const float* ws, const float* bias, __nv_bfloat16* out, float* part,
+                 float* sums, int B, int H, int W, int C, int CO, float lo, void* stream) {
   Args p = make_args(B, H / 2, W / 2, CO, lo, 0);
   p.Hi = H;
   p.Wi = W;
@@ -1617,9 +2196,29 @@ extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
   p.out = out; p.part = part;
   if (!valid(p) || H % 2 || W % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 32) return launch_c<32, 2, kQuant, kRawStats>(p, sums, s);
-  if (C == 64) return launch_c<64, 2, kQuant, kRawStats>(p, sums, s);
+  if (C == 32)
+    return prev ? launch_c<32, 2, kQuant, kRawStats>(p, sums, s) : launch_mma_s2<32>(p, sums, s);
+  if (C == 64 && !prev) return launch_c<64, 2, kQuant, kRawStats>(p, sums, s);
   return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
+// K8a (C = 32, the int8 tensor cores) / K8b (C = 64, __dp4a): K4 at stride 2
+// with a pixel-reflect halo: x [B,H,W,C] bf16 (H, W even) → out
+// [B,H/2,W/2,CO] bf16 and its sums; part: [B, tiles, 2, CO] scratch.
+extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
+                              const int32_t* wk, const float* ws, const float* bias,
+                              __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                              int W, int C, int CO, float lo, void* stream) {
+  return site_s2_args(false, x, a, c, wk, ws, bias, out, part, sums, B, H, W, C, CO, lo, stream);
+}
+
+// K8a on the previous __dp4a core (site_kernel<32, 2>), for timing only.
+extern "C" int site_s2_prev_launch(const void* x, const float* a, const float* c,
+                                   const int32_t* wk, const float* ws, const float* bias,
+                                   __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                                   int W, int C, int CO, float lo, void* stream) {
+  return site_s2_args(true, x, a, c, wk, ws, bias, out, part, sums, B, H, W, C, CO, lo, stream);
 }
 
 // K7: rows out[b,y,x,l] = bf16(acc_l * ws[l]), l < 60, of the 1x5 conv of
@@ -1633,13 +2232,29 @@ extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const floa
   return launch_rows<kQuant, 1>(p, stream);
 }
 
-// K6: out[b,y,x,o] = bf16(Σ_dy K[y+dy-2][12*dy+o] + bias[o]) over the codes xq,
-// K the 1x5 conv rows bf16(acc*ws), zero outside the image.
+// K6: out[b,y,x,o] = bf16(Σ_dy K[y+dy-2][12*dy+o] + bias[o]) over the codes xq
+// (16-byte aligned), K the 1x5 conv rows bf16(acc*ws), zero outside the
+// image; on the int8 tensor cores.
 extern "C" int d3_s8_launch(const int8_t* xq, const int32_t* wk, const float* ws,
                             const float* bias, __nv_bfloat16* out, int B, int H, int W,
                             void* stream) {
   RowsArgs p = {};
   p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.out = out;
   p.B = B; p.H = H; p.W = W;
+  return launch_d3s8_mma(p, stream);
+}
+
+// K6 on the previous __dp4a core (rows_kernel<kCodes, 2>), for timing only.
+extern "C" int d3_s8_prev_launch(const int8_t* xq, const int32_t* wk, const float* ws,
+                                 const float* bias, __nv_bfloat16* out, int B, int H, int W,
+                                 void* stream) {
+  RowsArgs p = {};
+  p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.out = out;
+  p.B = B; p.H = H; p.W = W;
   return launch_rows<kCodes, 2>(p, stream);
 }
+
+// Dynamic shared memory of the stride-2 tensor-core core at C input
+// channels (0 for other C), and of K6's.
+extern "C" int mma_s2_smem_bytes(int C) { return C == 32 ? (int)MmaS2Smem<32>::bytes : 0; }
+extern "C" int d3s8_mma_smem_bytes() { return (int)D3Smem::bytes; }

@@ -504,45 +504,84 @@ def test_reconet_k2_k3_k5_forms_match_plain_on_card(cuda_device, b, h, w):
                     tau=t64["a"])
 
 
+# K8a on the int8 tensor cores (8×16 output tiles) and K8b: (name, C, CO, B,
+# H, W); K8a also with a partial last tile row and column at B = 3, a
+# one-tile image, and B·tiles = 3·(7·7) = 147 over the grid of 264 blocks
+_K8_CASES = [("c2_site", 32, 64, 2, 38, 74), ("c3_site", 64, 128, 2, 38, 74),
+             ("c2_site", 32, 64, 3, 50, 98), ("c2_site", 32, 64, 1, 16, 32),
+             ("c2_site", 32, 64, 3, 112, 224)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,c,co", [("c2_site", 32, 64), ("c3_site", 64, 128)])
-def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co):
+@pytest.mark.parametrize("name,c,co,b,h,w", _K8_CASES)
+def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co, b, h, w):
     """K8a/K8b (stride-2 3×3, pixel reflect halo, floor 0): bf16 raw
-    bit-identical to the plain version, sums within 1e-5."""
-    t = _int8_inputs(cuda_device, c, co, h=38, w=74)
-    before = k8.LAUNCHES[name]
-    args = (t["x"], t["a"], t["c"], 0.0, t["w"], t["ws"], t["bias"])
-    o, s = getattr(k8, name)(*args)
-    po, ps = getattr(k8, f"{name}_plain")(*args)
+    bit-identical to the plain version, sums within 1e-5. K8a also at the
+    floor −127, bit-identical to its previous ``__dp4a`` design, two
+    launches bit-identical; the previous design counts no launch and a
+    misaligned x raises."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w)
+    x, a, cc = (t[k] if b == 2 else _batch(t[k], b, flip=k == "x") for k in ("x", "a", "c"))
+    before = dict(k8.LAUNCHES)
+    n = 0
+    for lo in (0.0, -127.0) if name == "c2_site" else (0.0,):
+        args = (x, a, cc, lo, t["w"], t["ws"], t["bias"])
+        o, s = getattr(k8, name)(*args)
+        po, ps = getattr(k8, f"{name}_plain")(*args)
+        n += 1
+        torch.cuda.synchronize()
+        assert tuple(o.shape) == (b, h // 2, w // 2, co)
+        assert torch.equal(o, po) and torch.allclose(s, ps, rtol=1e-5, atol=1e-3), lo
+        if name == "c2_site":
+            o2, s2 = k8.c2_site(*args)
+            prev, sprev = k8.c2_site_prev(*args)
+            n += 1
+            assert torch.equal(o, o2) and torch.equal(s, s2), lo
+            assert torch.equal(prev, o) and _sums_close(sprev, ps, (h // 2) * (w // 2)), lo
     torch.cuda.synchronize()
-    assert tuple(o.shape) == (2, 19, 37, co)
-    assert torch.equal(o, po) and torch.allclose(s, ps, rtol=1e-5, atol=1e-3)
-    assert k8.LAUNCHES[name] - before == 1
+    assert k8.LAUNCHES == {**before, name: before[name] + n}
+    if name == "c2_site":
+        with pytest.raises(ValueError, match="16-byte"):
+            k8.c2_site(_misaligned(x), a, cc, 0.0, t["w"], t["ws"], t["bias"])
+
+
+# K6 on the int8 tensor cores (warps walk 32-column strips down the image):
+# (B, H, W); partial last strips, a one-strip image shorter than the 5-row
+# dy-sum, B = 3, and 3·4·75 = 900 output rows over 64 warps, whose shares
+# start and end inside strips
+_D3_CASES = [(2, 12, 16), (2, 19, 37), (3, 19, 70), (1, 3, 13), (1, 7, 32), (3, 75, 100)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(12, 16), (19, 37)])
-def test_k6_k7_d3_sites_match_plain_on_card(cuda_device, h, w):
+@pytest.mark.parametrize("b,h,w", _D3_CASES)
+def test_k6_k7_d3_sites_match_plain_on_card(cuda_device, b, h, w):
     """K7 (quantize → 1×5 rows, 60 lanes) and K6 (s8 codes → rows → dy-sum
-    + bias) against their plain versions: bit-identical."""
-    rng = np.random.default_rng(h)
+    + bias) against their plain versions: bit-identical. K6 also
+    bit-identical to its previous ``__dp4a`` design, two launches
+    bit-identical; the previous design counts no launch and a misaligned
+    xq raises."""
+    rng = np.random.default_rng(h if b == 2 else [b, h, w])  # B = 2: the cases' old seeds
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)  # noqa: E731
     w5 = torch.from_numpy(rng.integers(-127, 128, (1, 5, 128, 60)).astype(np.int8))
     wk = k8.pack_weights(w5, co_pad=64).to(cuda_device)
     ws = f32(np.concatenate([rng.uniform(0.5, 2, 60) / (127 * 127 * 20), np.zeros(4)]))
-    y = f32(rng.normal(0, 2, (2, h, w, 128))).to(torch.bfloat16)
-    a, c = f32(rng.uniform(5, 40, (2, 128))), f32(rng.normal(0, 8, (2, 128)))
-    codes = torch.from_numpy(rng.integers(0, 128, (2, h, w, 128)).astype(np.int8)).to(cuda_device)
+    y = f32(rng.normal(0, 2, (b, h, w, 128))).to(torch.bfloat16)
+    a, c = f32(rng.uniform(5, 40, (b, 128))), f32(rng.normal(0, 8, (b, 128)))
+    codes = torch.from_numpy(rng.integers(0, 128, (b, h, w, 128)).astype(np.int8)).to(cuda_device)
     bias = f32(rng.normal(0, 0.2, 12))
     before = dict(k8.LAUNCHES)
     rows = k8.d3_rows_site(y, a, c, wk, ws)
-    out = k8.d3_s8_site(codes, wk, ws, bias)
+    out, again = k8.d3_s8_site(codes, wk, ws, bias), k8.d3_s8_site(codes, wk, ws, bias)
+    prev = k8.d3_s8_site_prev(codes, wk, ws, bias)
     torch.cuda.synchronize()
-    assert tuple(rows.shape) == (2, h, w, 60) and tuple(out.shape) == (2, h, w, 12)
+    assert tuple(rows.shape) == (b, h, w, 60) and tuple(out.shape) == (b, h, w, 12)
     assert torch.equal(rows, k8.d3_rows_site_plain(y, a, c, wk, ws))
     assert torch.equal(out, k8.d3_s8_site_plain(codes, wk, ws, bias))
-    assert k8.LAUNCHES["d3_rows_site"] - before["d3_rows_site"] == 1
-    assert k8.LAUNCHES["d3_s8_site"] - before["d3_s8_site"] == 1
+    assert torch.equal(out, again) and torch.equal(out, prev)
+    assert k8.LAUNCHES == {**before, "d3_rows_site": before["d3_rows_site"] + 1,
+                           "d3_s8_site": before["d3_s8_site"] + 2}
+    with pytest.raises(ValueError, match="16-byte"):
+        k8.d3_s8_site(_misaligned(codes), wk, ws, bias)
 
 
 @pytest.mark.cuda
