@@ -13,8 +13,9 @@ runs the 1080p B=8 Johnson slices (``chip_smoke.slice_phase``: plain bf16
 and every quantized or fused-site slice) and prints their frames/s; with
 ``--nst-chain`` it then runs the NST int8_static chain phase and the slices
 again. ``kernels`` runs phase 5, K2-K8b against their plain versions with
-their device times; ``bf16`` the same for K9a-K9e. Run parent, change,
-change, parent in one call:
+their device times (K2-K6, K8a and K8b in turns with their previous
+``__dp4a`` cores); ``bf16`` the same for K9a-K9e (K9b in turns with its
+previous core). Run parent, change, change, parent in one call:
 
     for r in PARENT . . PARENT; do python3 chip_ab.py $r kernels; done
 """

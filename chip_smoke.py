@@ -14,7 +14,8 @@ order, and any failed phase exits non-zero:
    one nvcc each, started together, and
    print ptxas' registers and spills of every kernel, and the dynamic
    shared memory of the tensor-core cores (K2–K5's ``mma_kernel``, K8a's
-   ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``);
+   and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K9b's
+   ``d3sum_mma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -31,7 +32,7 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
-   K2–K6 and K8a also beside their previous ``__dp4a`` design (``*_prev``,
+   K2–K6, K8a and K8b also beside their previous ``__dp4a`` design (``*_prev``,
    held to the same outputs; K3 and K4 at the Johnson and NST widths, the
    others at every case), in turns: plain, kernel, previous, kernel,
    previous, plain, and two launches of each bit-identical;
@@ -41,7 +42,9 @@ order, and any failed phase exits non-zero:
    two launches bit-identical, bf16 outputs within 1 bf16 ulp of the plain
    version everywhere (an ulp taken at no less than 2^-8 of the tensor's
    largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
-   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites; then K2
+   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9b also
+   beside its previous design, ``d3_sum_site_prev``, both held to the same
+   bounds against the plain version and against each other); then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
    codes 0; then each of the port's experiment entry points
@@ -130,10 +133,10 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K6, K8a) with
+instead builds the tensor-core cores (K2–K6, K8a, K8b; K9b) with
 ``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases, the
-share of each phase of the tile loop (K6: of the row loop) in the clock of
-every block's thread 0.
+share of each phase of the tile loop (K6, K9b: of the row loop) in the
+clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -287,12 +290,15 @@ T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
-# K2-K5 run on the int8 tensor cores (mma_kernel), K8a on its stride-2 form
-# (mma_s2_kernel) and K6 on d3s8_mma_kernel; their previous __dp4a design
-# (site_kernel, rows_kernel) stays callable for the comparison, K2's and
-# K5's also at ReCoNet's C = 192 (K3's and K4's previous design was built
-# without it)
-REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "d3_s8_site")
+# K2-K5 run on the int8 tensor cores (mma_kernel), K8a and K8b on its
+# stride-2 form (mma_s2_kernel) and K6 on d3s8_mma_kernel; their previous
+# __dp4a design (site_kernel, rows_kernel) stays callable for the
+# comparison, K2's and K5's also at ReCoNet's C = 192 (K3's and K4's
+# previous design was built without it); K9b runs on d3sum_mma_kernel, its
+# previous design (rows_kernel_bf16) likewise
+REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "c3_site",
+              "d3_s8_site")
+REDESIGNED_BF16 = ("d3_sum_site",)
 PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
@@ -729,7 +735,7 @@ def check_bf16_site(name, out, again, ref, args):
     if not bool(torch.isfinite(o.float()).all()):
         fail(f"{name}: non-finite output")
     scale, limit = None, 1.0
-    if name == "d3_sum_site":
+    if name.startswith("d3_sum_site"):
         scale, limit = k9.d3_sum_scale_plain(*args[:4]), 2.0
     worst, equal = k9.bf16_ulp_error(o, r, scale=scale)
     if worst > limit or equal < BF16_EQUAL_SHARE:
@@ -767,8 +773,9 @@ def bf16_library_conv(dev, name, shape):
 
 def bf16_kernel_phase(dev):
     """K9a-K9e against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain) beside the cuDNN bf16 conv of the
-    same shape."""
+    turns (plain, kernel, kernel, plain; K9b: plain, kernel, previous core,
+    kernel, previous core, plain, the previous core held to the same bounds)
+    beside the cuDNN bf16 conv of the same shape."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
@@ -780,6 +787,14 @@ def bf16_kernel_phase(dev):
         out, again, ref = kernel(*args), kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err, worst, equal = check_bf16_site(name, out, again, ref, args)
+        redesigned = name in REDESIGNED_BF16
+        if redesigned:
+            prev = getattr(k9, f"{name}_prev")
+            p1, p2 = prev(*args), prev(*args)
+            torch.cuda.synchronize()
+            check_bf16_site(f"{name} (previous core)", p1, p2, ref, args)
+            check_bf16_site(f"{name} against its previous core", out, again, p1, args)
+            del p1, p2
         outs = out if isinstance(out, tuple) else (out,)
         b, h, w, c = shape
         pix = outs[0].shape[0] * outs[0].shape[1] * outs[0].shape[2]
@@ -792,18 +807,29 @@ def bf16_kernel_phase(dev):
         del out, again, ref, outs
         torch.cuda.empty_cache()
         t_plain = dev_time(lambda: plain(*args), reps=2)
-        t_k = (dev_time(lambda: kernel(*args)) + dev_time(lambda: kernel(*args))) / 2
+        if redesigned:
+            t_k, t_prev = dev_time(lambda: kernel(*args)), dev_time(lambda: prev(*args), reps=3)
+            t_k = (t_k + dev_time(lambda: kernel(*args))) / 2
+            t_prev = (t_prev + dev_time(lambda: prev(*args), reps=3)) / 2
+        else:
+            t_k = (dev_time(lambda: kernel(*args)) + dev_time(lambda: kernel(*args))) / 2
         t_plain = (t_plain + dev_time(lambda: plain(*args), reps=2)) / 2
         lib = bf16_library_conv(dev, name, shape)
         t_lib = dev_time(lib)
         t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_OPS * 1e3
+        bound = max(t_bytes, t_ops)
         log(f"{name} @ {b}x{h}x{w}x{c}: two launches bit-identical; vs plain max |err| "
             f"{err:.4g}, worst {worst:.3g} ulp, equal on {equal:.4%}; kernel {t_k:.4f} ms, plain "
-            f"{t_plain:.4f} ms, cuDNN bf16 conv {t_lib:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
-            f"({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP)")
+            f"{t_plain:.4f} ms, cuDNN bf16 conv {t_lib:.4f} ms; bound {bound:.4f} ms "
+            f"({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP)" +
+            (f"; previous core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel)"
+             if redesigned else "") + f"; kernel at {bound / t_k:.1%} of the bound")
         results[name] = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib,
-                         "bound_ms": max(t_bytes, t_ops), "max_abs_err": err,
+                         "bound_ms": bound, "max_abs_err": err,
                          "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+        if redesigned:
+            results[name].update(prev_ms=t_prev, bound_share=bound / t_k)
+            del prev
         del args, lib
         torch.cuda.empty_cache()
     return results
@@ -1852,14 +1878,15 @@ MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "
              ("0", "4"): "K4 no stats"}
 
 
-def ptxas_report(text: str, k8) -> None:
+def ptxas_report(text: str, k8, k9) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core cores' instantiations
     (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
     <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5, <192, 3, 0> K5
     with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
     no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
-    under the zero halo; mma_s2_kernel<32> is K8a, d3s8_mma_kernel K6)."""
+    under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
+    d3s8_mma_kernel K6; d3sum_mma_kernel K9b)."""
     import re
 
     name, spill = None, ""
@@ -1883,11 +1910,14 @@ def ptxas_report(text: str, k8) -> None:
                 short += f" ({MMA_FORMS[targs[1], targs[2]]})"
                 smem = k8._lib().mma_kernel_smem_bytes(int(targs[0]))
             elif base == "mma_s2_kernel":
-                short += " (K8a)"
+                short += " (K8a)" if targs[0] == "32" else " (K8b)"
                 smem = k8._lib().mma_s2_smem_bytes(int(targs[0]))
             elif base == "d3s8_mma_kernel":
                 short += " (K6)"
                 smem = k8._lib().d3s8_mma_smem_bytes()
+            elif base == "d3sum_mma_kernel":
+                short += " (K9b)"
+                smem = k9._lib().d3sum_mma_smem_bytes()
             extra = "" if smem is None else f", {smem} bytes dynamic shared memory"
             log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
             name = None
@@ -1895,69 +1925,105 @@ def ptxas_report(text: str, k8) -> None:
 
 PHASES = ("next tile's loads issued", "MMAs issued", "fragment epilogue (MMA drain incl.)",
           "stores and sums", "next tile's quantize / copy")
-# K8a's tile loop, and K6's row loop (warp 0 of each block)
+# K8a's and K8b's tile loop, and K6's and K9b's row loop (warp 0 of each block)
 PHASES_S2 = ("quantize, loads ahead issued", "MMAs issued", "fragment epilogue (MMA drain incl.)",
              "stores and sums", "wait for the tile's raw input")
 PHASES_D3 = ("next rows' loads issued", "wait for the row's codes", "MMAs issued",
              "K lanes and dy-sum (MMA drain incl.)", "the row's stores")
+PHASES_D3_BF16 = ("next row's loads issued", "wait for the row's raw input", "activation",
+                  "MMAs issued", "K lanes, dy-sum and stores (MMA drain incl.)")
 
 
-def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K6, K8a) built with
-    MMA_PHASE_CLOCKS, each of their 1080p B=8 cases run once; the share of
-    each phase of the tile loop (K6: of warp 0's row loop) in the clock of
-    every block's thread 0, averaged over blocks."""
+def _phase_build(module):
+    """nvcc of ``module``'s source with MMA_PHASE_CLOCKS, started: (the
+    library's path, the process)."""
+    from neuralstyletransferv1_torch.kernels import _build
+
+    src = _build.CSRC / module._SOURCE
+    so = _build.BUILD_DIR / f"lib{src.stem}_phases.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DMMA_PHASE_CLOCKS", "-o", str(so), str(src)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _phase_lib(module, so, proc, names):
+    """The instrumented build, once nvcc is done, its launch functions
+    ``names`` given the argtypes of the module's own build."""
     import ctypes
 
+    out = proc.communicate(timeout=600)[0]
+    if proc.returncode != 0:
+        fail(f"nvcc -DMMA_PHASE_CLOCKS failed for {module._SOURCE}:\n{out}")
+    lib = ctypes.CDLL(str(so))
+    for name in names:
+        getattr(lib, name).argtypes = getattr(module._lib(), name).argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _phase_shares(lib, kernel, label, labels):
+    """Run ``kernel`` once between two reads (and zeroings) of the clocks;
+    log the share of each phase, averaged over the blocks that ran."""
     import numpy as np
     import torch
 
-    from neuralstyletransferv1_torch.kernels import _build
+    clocks = np.zeros((1024, len(labels)), dtype=np.uint64)
+    if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
+        fail("reading mma_phase_clocks failed")
+    kernel()
+    torch.cuda.synchronize()
+    if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
+        fail("reading mma_phase_clocks failed")
+    used = clocks[clocks.sum(axis=1) > 0].astype(np.float64)
+    share = used.mean(axis=0) / used.sum(axis=1).mean()
+    log(f"phases {label}: {len(used)} blocks, {used.sum(axis=1).mean():.0f} cycles a block; " +
+        ", ".join(f"{ph} {sh:.1%}" for ph, sh in zip(labels, share)))
+
+
+def phases_phase(dev):
+    """--phases: the tensor-core cores (K2-K6, K8a, K8b; K9b) built with
+    MMA_PHASE_CLOCKS, each of their 1080p B=8 cases run once; the share of
+    each phase of the tile loop (K6, K9b: of warp 0's row loop) in the clock
+    of every block's thread 0, averaged over blocks."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    src = _build.CSRC / k8._SOURCE
-    so = _build.BUILD_DIR / "libint8_sites_phases.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DMMA_PHASE_CLOCKS", "-o", str(so), str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if done.returncode != 0:
-        fail(f"nvcc -DMMA_PHASE_CLOCKS failed:\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(so))
-    base = k8._lib
-    for name in ("res_site_s8o_launch", "site_s8_launch", "res_site_launch",
-                 "res_site_skip_launch", "site_s2_launch", "d3_s8_launch"):
-        getattr(lib, name).argtypes = getattr(base(), name).argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]
-    clocks = np.zeros((1024, len(PHASES)), dtype=np.uint64)
-    k8._lib = lambda: lib  # the wrappers launch the instrumented build
+    builds = [_phase_build(k8), _phase_build(k9)]  # both nvcc at once
+    lib8 = _phase_lib(k8, *builds[0], ("res_site_s8o_launch", "site_s8_launch",
+                                       "res_site_launch", "res_site_skip_launch",
+                                       "site_s2_launch", "d3_s8_launch"))
+    lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch",))
+    base8, base9 = k8._lib, k9._lib
+    k8._lib, k9._lib = (lambda: lib8), (lambda: lib9)  # the wrappers launch the instrumented builds
     try:
         for name in REDESIGNED:
             for shape, form in INT8_KERNELS[name][0]:
                 t = site_inputs(dev, *SITE_SHAPES[shape][:5], seed=11)
                 kernel = site_calls(name, t, shape, form)[0]
-                if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:  # reads and zeroes
-                    fail("reading mma_phase_clocks failed")
-                kernel()
-                torch.cuda.synchronize()
-                if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
-                    fail("reading mma_phase_clocks failed")
-                used = clocks[clocks.sum(axis=1) > 0].astype(np.float64)
-                share = used.mean(axis=0) / used.sum(axis=1).mean()
-                labels = {"d3_s8_site": PHASES_D3, "c2_site": PHASES_S2}.get(name, PHASES)
-                log(f"phases {name} @ {shape}{'/' + form if form else ''}: {len(used)} blocks, "
-                    f"{used.sum(axis=1).mean():.0f} cycles a block; " +
-                    ", ".join(f"{ph} {sh:.1%}" for ph, sh in zip(labels, share)))
+                labels = {"d3_s8_site": PHASES_D3, "c2_site": PHASES_S2,
+                          "c3_site": PHASES_S2}.get(name, PHASES)
+                _phase_shares(lib8, kernel, f"{name} @ {shape}{'/' + form if form else ''}",
+                              labels)
                 del t, kernel
                 torch.cuda.empty_cache()
+        for name in REDESIGNED_BF16:
+            shape = BF16_KERNELS[name][0]
+            args = bf16_site_inputs(dev, name, shape, seed=11)
+            _phase_shares(lib9, lambda: getattr(k9, name)(*args), f"{name} @ {shape}",
+                          PHASES_D3_BF16)
+            del args
+            torch.cuda.empty_cache()
     finally:
-        k8._lib = base
+        k8._lib, k9._lib = base8, base9
 
 
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
-    if "kernel_bf16" in n or "stats_reduce_bf16" in n:
+    if "kernel_bf16" in n or "stats_reduce_bf16" in n or "d3sum_mma" in n:
         return "bf16 sites K9a-K9e"
     if any(k in n for k in ("site_kernel", "mma_kernel", "mma_s2_kernel", "stats_reduce",
                             "rows_kernel")):
@@ -2082,9 +2148,10 @@ def run_phases(dev, tmp: Path, k8) -> int:
     except ImportError:
         fail("OpenCV is not installed: the CLI phases need it to synthesize their videos")
     from neuralstyletransferv1_torch.kernels import _build
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
 
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
-        ptxas_report(txt.read_text(), k8)
+        ptxas_report(txt.read_text(), k8, k9)
 
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)

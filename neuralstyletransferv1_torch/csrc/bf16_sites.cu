@@ -9,7 +9,7 @@
 //                                    lanes over the 4-pixel reflect halo → bf16 rows
 //   K9b d3_sum_site   (_d3s_kernel)  the same rows, kept on chip, then the 5-row dy-sum in f32
 //                                    + bias → 12 bf16 lanes
-// Two templated cores. site_kernel_bf16 is K9a/K9c/K9d: a 3x3 conv at stride 1
+// Three cores. site_kernel_bf16 is K9a/K9c/K9d: a 3x3 conv at stride 1
 // (edge-copy halo) or 2 (pixel-reflect halo; an even size never reads the
 // bottom or right pad) of bf16 activations that the prologue makes from the
 // raw input, x' = bf16(max(f32(x)*a + c, 0)) with the product and the sum
@@ -18,28 +18,55 @@
 // kernels' strips, junk columns, halo buffer, garbage row/column with its
 // fixup and 2x2 block packing are layout and are not carried over: conv2 and
 // conv3 are pixel convs (each pixel tap sits once in the TPU's block weights).
-// rows_kernel_bf16 is K9b/K9e: the 1x5 conv of the 128-channel space-to-depth
-// tensor (4 phases x 32) to 60 lanes (5 kernel rows x 12, padded to 64 with
-// zero weights). Its halo is the 4-pixel reflect of the pixels, which on the
-// block grid permutes the phases: the prologue reads it through its index map
-// (block R phase u is pixel 2R+u; reflect the pixel; split again), so no
-// padded tensor exists. K9e writes each conv row's 60 lanes as bf16 for the
-// H+4 rows of the padded grid; K9b keeps 16 conv rows in shared memory and
-// writes, for its 12 output rows, bf16(Σ_dy rows[r+dy][12*dy+o] + bias[o]),
-// the sum in f32 in dy order.
+// rows_kernel_bf16 is K9e (and K9b's previous form): the 1x5 conv of the
+// 128-channel space-to-depth tensor (4 phases x 32) to 60 lanes (5 kernel
+// rows x 12, padded to 64 with zero weights). Its halo is the 4-pixel reflect
+// of the pixels, which on the block grid permutes the phases: the prologue
+// reads it through its index map (block R phase u is pixel 2R+u; reflect the
+// pixel; split again), so no padded tensor exists. K9e writes each conv row's
+// 60 lanes as bf16 for the H+4 rows of the padded grid; K9b's previous form
+// (d3_sum_site_prev_launch, for timing only) keeps 16 conv rows in shared
+// memory and writes, for its 12 output rows, bf16(Σ_dy rows[r+dy][12*dy+o] +
+// bias[o]), the sum in f32 in dy order. d3sum_mma_kernel is K9b (below).
 //
-// Both cores multiply on the tensor cores with mma.sync.m16n8k16 (bf16 in, f32
-// accumulate): M = 16 neighbouring output pixels of a row, N = 8 output
-// channels, K = 16 input channels of one tap. A block is 256 threads = 8
-// warps on 64 output channels; a warp owns one output row of the tile (two
-// conv rows in K9b) and all 8 channel tiles, i.e. 64 f32 accumulators a
-// thread. The activated input tile sits in shared memory as bf16 with the
-// channels innermost and a pixel stride padded so that the eight pixels a
-// fragment load touches fall in different banks; the weights, repacked on the
-// host to [tap][co][c], are staged one kernel row (site_kernel_bf16) or one tap
-// (rows_kernel_bf16) at a time. Fragments are plain 32-bit shared-memory loads.
-// Products of two bf16 values are exact in f32, so only the order of the f32
-// accumulation differs from any other implementation.
+// These two cores multiply on the tensor cores with mma.sync.m16n8k16 (bf16
+// in, f32 accumulate): M = 16 neighbouring output pixels of a row, N = 8
+// output channels, K = 16 input channels of one tap. A block is 256 threads
+// = 8 warps on 64 output channels; a warp owns one output row of the tile
+// (two conv rows in K9b's previous form) and all 8 channel tiles, i.e. 64 f32
+// accumulators a thread. The activated input tile sits in shared memory as
+// bf16 with the channels innermost and a pixel stride padded so that the
+// eight pixels a fragment load touches fall in different banks; the weights,
+// repacked on the host to [tap][co][c], are staged one kernel row
+// (site_kernel_bf16) or one tap (rows_kernel_bf16) at a time. Fragments are
+// plain 32-bit shared-memory loads. Products of two bf16 values are exact in
+// f32, so only the order of the f32 accumulation differs from any other
+// implementation.
+//
+// d3sum_mma_kernel (K9b) is deconv3's rows conv and dy-sum as K6's
+// d3s8_mma_kernel (int8_sites.cu) computes them, in bf16: mma.sync.m16n8k16
+// fed by ldmatrix, M = 16 output columns, N = 64 lanes, K = 5 dx taps x 128
+// channels (40 k16 steps). A persistent grid stages the weights once a block
+// (the B rows ordered by d3_slot_row, so that the thread holding output
+// channel o of a pixel holds its five dy lanes: the accumulator fragment has
+// the s8 one's layout), and each warp walks a contiguous share of the
+// (image, 16-column strip, row) space down its strips: every conv row is
+// computed once (the previous form computed 16 rows to emit 12), apart from
+// the 2-row restart where a share starts a strip, and four rows of f32
+// partial sums live in registers. A bf16 pixel is 256 bytes, twice K6's
+// codes, so K6's 32-column strips at 8 warps (322,048 bytes of rows and
+// weights) do not fit in a block's 232,448: 16-column strips at 8 warps
+// take 220,672. At 16 columns a step reads the weights' B fragments (4 of
+// its 5 ldmatrix) for 16 pixels; computing two conv rows a step shares them
+// between two rows, in the same three ring slots. Of the forms timed on an
+// H100 (PERF.md section 6 has the times), this one was the fastest: one row
+// a step and 32-column strips at 4 warps were slower. Each staged row is
+// brought in raw by cp.async, each 16-byte chunk from the pixel and phase
+// the reflect maps it to (a lane's source columns are fixed for a strip and
+// computed once), and activated in place once, not once a dx tap. Each conv row is rounded
+// to bf16, the five dy terms added in f32 in dy order with __fadd_rn, the
+// bias added and the sum rounded once: K9b's own numbers, as
+// d3_sum_site_plain takes them.
 //
 // The statistics are deterministic: per thread in a fixed order, lanes by
 // shuffle, warps in order, then a [B, tiles, 2, CO] buffer that a second
@@ -47,10 +74,17 @@
 //
 // What bounds them on an H100 (1080p, B = 8): K9a is 3.06e11 MAC = 0.62 ms at
 // the 989 TFLOP/s bf16 peak against 0.475 ms for its 1.59 GB: operations; the
-// other four move 0.8-1.6 GB for 0.76-1.6e11 MAC: bytes (0.24-0.48 ms). This
-// code feeds the MMAs from shared memory with scalar loads (2.5-3 loads an
-// MMA), which bounds it near a quarter of the tensor-core peak; ldmatrix,
-// TMA-fed tiles and wgmma are later work.
+// other four move 0.8-1.6 GB for 0.76-1.6e11 MAC: bytes (0.24-0.48 ms); K9b
+// is near balance (1.70e11 MAC at 64 of 60 lanes, 0.344 ms; 1.16 GB, 0.347
+// ms). site_kernel_bf16 and rows_kernel_bf16 feed the MMAs from shared
+// memory with scalar loads (2.5-3 loads an MMA), which bounds them near a
+// quarter of the tensor-core peak. K9b's ldmatrix reads 3,072 bytes of
+// shared memory for every 16 MMAs, 4 of its 6 loads the weights, read again
+// for every 32 output pixels: at 128 bytes a clock that is 1.5 clocks an
+// MMA, and the MMAs' issue takes the largest share of its row loop
+// (--phases; PERF.md section 6). A warp
+// tile of more pixels (wgmma's 64 rows) would read the weights fewer times;
+// wgmma and TMA-fed tiles are later work.
 //
 // Two more kernels answer the TPU package's bf16 megakernel experiments:
 //   K10 fused_conv  (experiments/mk1_fusedconv.py fused_conv; mk2/mk3/mk5's
@@ -100,6 +134,49 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory, lane l giving row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// cp.async of 16 bytes, its groups
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Built with -DMMA_PHASE_CLOCKS (chip_smoke.py --phases), thread 0 of each
+// block adds the clock cycles of the phases of K9b's row loop (warp 0) into
+// mma_phase_clocks[block]: 0 the next row's loads issued, 1 the wait for the
+// row's raw input, 2 its activation, 3 the MMAs issued, 4 the K lanes, the
+// dy-sum and the row's stores (the MMAs' drain included).
+#ifdef MMA_PHASE_CLOCKS
+constexpr int kPhases = 5, kPhaseBlocks = 1024;
+__device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
+#define MMA_PHASE_START unsigned long long clk_[kPhases] = {}; long long clk_t_ = clock64();
+#define MMA_PHASE(k) { const long long c_ = clock64(); clk_[k] += c_ - clk_t_; clk_t_ = c_; }
+#define MMA_PHASE_END \
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) \
+    for (int k = 0; k < kPhases; ++k) mma_phase_clocks[blockIdx.x][k] = clk_[k];
+#else
+#define MMA_PHASE_START
+#define MMA_PHASE(k)
+#define MMA_PHASE_END
+#endif
 
 // Source index of halo position i: pixel reflect (halo 0) or edge copy
 // (halo 1), clamped into the image (the padding rows of a partial tile).
@@ -702,6 +779,285 @@ int launch_rows(const RowsArgs& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d3sum_mma_kernel: K9b on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kBPX = 2 * kRC + 16;  // bytes per staged pixel and per weight row (bf16, 16-byte pad)
+constexpr int kBBuf = 3;            // staged conv rows a warp: the two computed, one in flight
+constexpr int kBRows = 2;           // conv rows a step
+
+// Shared memory: the weights [dx][slot][kBPX], 5 x 64 x 272 = 87,040 bytes
+// (staged once a block); a warp's ring of kBBuf conv rows of HC pixels
+// (STRIP + 4: a 2-pixel halo each side) and its output row: 8 warps x (3 x
+// 20 x 272 + 384) = 133,632, 220,672 in all (32-column strips at 8 warps
+// would take 322,048).
+struct D3SumSmem {
+  static constexpr int WARPS = kWarps;
+  static constexpr int STRIP = 16;              // output columns a warp
+  static constexpr int HC = STRIP + 4;          // staged columns of a conv row
+  static constexpr int W = 5 * kCOT * kBPX;
+  static constexpr int ROW = HC * kBPX;
+  static constexpr int OUT = STRIP * kOut * 2;  // one output row of a warp, bf16
+  static constexpr int WARP = kBBuf * ROW + OUT;
+  static constexpr size_t bytes = W + WARPS * WARP;
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+
+// The B row (slot) that lane n = 12·dy + o of the tap-packed weights takes:
+// with o = 3·tg + i, slot s = 5·i + dy of the threads tg = 0..3 of a quad
+// (n8 tile s/2, column 2·tg + s%2 of the accumulator fragment), so that the
+// thread that holds output channel o of a pixel holds all five of its dy
+// lanes. Lanes 60-63 (zero weights) take slot 15. (As K6's in int8_sites.cu.)
+__device__ __forceinline__ int d3_slot_row(int n) {
+  const int tg = n < kLanes ? n % kOut / 3 : n - kLanes;
+  const int s = n < kLanes ? 5 * (n % kOut % 3) + n / kOut : 15;
+  return 8 * (s >> 1) + 2 * tg + (s & 1);
+}
+
+// two bf16 (the low half first) → bf16(max(f32(x)·a + c, 0)) each, as activate4
+__device__ __forceinline__ uint32_t activate2(uint32_t w, float a0, float c0, float a1, float c1) {
+  const float lo = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w << 16), a0), c0), 0.0f);
+  const float hi = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w & 0xffff0000u), a1), c1), 0.0f);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Each warp walks a contiguous share of the B·strips·H (image, STRIP-column
+// strip, output row) space, two conv rows a step down a strip, and restarts
+// 2 conv rows above wherever its share starts a strip. Conv row y of the
+// reflect-padded block grid (its HC staged columns, brought in raw by
+// cp.async, each 16-byte chunk from the pixel and phase that the 4-pixel
+// reflect maps it to) is activated in place by the lanes that loaded it,
+// then is 40 k16 steps (5 dx taps x 128 channels) of 8 MMAs, the two rows
+// of a step sharing each step's B fragments. The three ring slots hold the
+// step's two rows and the next step's first, so its second row's load is
+// exposed and the other warps run meanwhile. Each thread rounds its
+// fragments to the K lanes bf16(acc) and adds them to the f32 partial sums
+// of the output rows y-2..y+1 that it holds in registers (P[0..3]: row y-2
+// completes with its dy = 4 lane, then P shifts and row y+2 starts from its
+// dy = 0 lane), in dy order, as the reference adds. Row y-2 + bias, rounded to bf16 once, is staged and written 8 bytes
+// a lane. The weights (slots as d3_slot_row places them) are staged once a
+// block; the grid is persistent (one block an SM).
+__global__ void __launch_bounds__(32 * D3SumSmem::WARPS, 1)
+    d3sum_mma_kernel(RowsArgs p, int strips_x, long long rows_total) {
+  using S = D3SumSmem;
+  constexpr int R = kBRows;
+  constexpr int NW = S::WARPS, STRIP = S::STRIP, HC = S::HC;
+  constexpr int CPL = HC * 16 / 32;  // 16-byte chunks a lane of a staged row
+  extern __shared__ __align__(16) uint8_t smem8[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint8_t* s_w = smem8;
+  uint8_t* s_ring = smem8 + S::W + warp * S::WARP;
+  __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(s_ring + kBBuf * S::ROW);
+
+  // weights once: row (dx, n) of [5][64][128] → row (dx, slot of n), 16 bytes a thread
+  for (int i = tid; i < 5 * kCOT * (kRC / 8); i += 32 * NW) {
+    const int ch = i % (kRC / 8), n = (i / (kRC / 8)) % kCOT, dx = i / ((kRC / 8) * kCOT);
+    *reinterpret_cast<uint4*>(s_w + (dx * kCOT + d3_slot_row(n)) * kBPX + 16 * ch) =
+        *reinterpret_cast<const uint4*>(p.w + ((size_t)dx * kCOT + n) * kRC + 8 * ch);
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, tg = lane & 3;
+  float bi[3];  // the bias of this thread's output channels 3tg..3tg+2
+#pragma unroll
+  for (int i = 0; i < 3; ++i) bi[i] = p.bias[3 * tg + i];
+  const uint32_t b_lane = smem_addr(s_w) + ((lane >> 4) * 8 + (lane & 7)) * kBPX +
+                          ((lane >> 3) & 1) * 16;
+  // lane l loads and activates the 16-byte chunk l % 16 (channels 8(l % 16)..
+  // +7, phase (l % 16) / 4) of the staged pixels l / 16, + 2, ...
+  const int ck = lane & 15, ph = ck >> 2;
+  MMA_PHASE_START
+
+  const long long nw = (long long)gridDim.x * NW, gw = (long long)blockIdx.x * NW + warp;
+  long long pos = rows_total * gw / nw;
+  const long long end = rows_total * (gw + 1) / nw;
+  int cur_b = -1;
+  float qa[8], qc[8];  // the activation affine of the lane's 8 channels
+  while (pos < end) {
+    const long long strip = pos / p.H;
+    const int r0 = (int)(pos % p.H);
+    const int r1 = (int)min((long long)p.H, r0 + (end - pos));
+    pos += r1 - r0;
+    const int b = (int)(strip / strips_x), x0 = (int)(strip % strips_x) * STRIP;
+    const int y0 = r0 - 2, n = r1 - r0 + 4;  // conv rows y0 .. r1 + 1
+    if (b != cur_b) {
+      cur_b = b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        qa[j] = p.a[b * kRC + 8 * ck + j];
+        qc[j] = p.c[b * kRC + 8 * ck + j];
+      }
+    }
+    const __nv_bfloat16* img = p.x + (size_t)b * p.H * p.W * kRC + 8 * (ck & 3);
+    // the lane's chunks' source columns and column phases, the same on every
+    // row of the strip: staged column j is block column x0 - 2 + j
+    int cols[CPL];
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      int v;
+      const int sx = reflect_phase(x0 - 2 + (lane >> 4) + 2 * k, ph & 1, p.W, &v);
+      cols[k] = sx * kRC + v * 32;
+    }
+
+    // conv row y0 + i of the padded grid, raw, into ring slot i % kBBuf
+    auto load_row = [&](int i) {
+      int u;
+      const int sy = reflect_phase(y0 + i, ph >> 1, p.H, &u);
+      const uint32_t dst = smem_addr(s_ring + (i % kBBuf) * S::ROW) + 16 * ck;
+      const __nv_bfloat16* src = img + (size_t)sy * p.W * kRC + u * 64;
+#pragma unroll
+      for (int k = 0; k < CPL; ++k) cp_async16(dst + ((lane >> 4) + 2 * k) * kBPX, src + cols[k]);
+      cp_async_commit();
+    };
+
+    float P[2][3][4];  // [pixel g, g + 8][channel 3tg + i][output row y-2 .. y+1]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) P[h][i][k] = 0.0f;
+    load_row(0);
+#pragma unroll 1
+    for (int i = 0; i < n; i += R) {  // conv rows i, i + 1 (those below n)
+      // rows i + 1 and i + 2 into the slots of rows i - 2 and i - 1: row
+      // i + 1's wait is exposed, and the other warps run meanwhile (an empty
+      // group past the last row keeps the wait count)
+      if (i + 1 < n) load_row(i + 1);
+      else cp_async_commit();
+      if (i + 2 < n) load_row(i + 2);
+      else cp_async_commit();
+      MMA_PHASE(0)
+      cp_async_wait<1>();  // this lane's chunks of rows i and i + 1 have landed
+      MMA_PHASE(1)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (i + r >= n) break;
+        uint8_t* row = s_ring + ((i + r) % kBBuf) * S::ROW;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          uint4* q = reinterpret_cast<uint4*>(row + ((lane >> 4) + 2 * k) * kBPX + 16 * ck);
+          uint4 v = *q;
+          v.x = activate2(v.x, qa[0], qc[0], qa[1], qc[1]);
+          v.y = activate2(v.y, qa[2], qc[2], qa[3], qc[3]);
+          v.z = activate2(v.z, qa[4], qc[4], qa[5], qc[5]);
+          v.w = activate2(v.w, qa[6], qc[6], qa[7], qc[7]);
+          *q = v;
+        }
+      }
+      __syncwarp();  // the activated rows are visible to the warp's ldmatrix
+      MMA_PHASE(2)
+
+      uint32_t a_lane[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        a_lane[r] = smem_addr(s_ring + ((i + r) % kBBuf) * S::ROW) + (lane & 15) * kBPX +
+                    (lane >> 4) * 16;
+      float acc[R][8][4];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][nj][e] = 0.0f;
+      uint32_t af[2][R][4], bfr[2][8][2];
+      auto load = [&](int s, uint32_t (&a)[R][4], uint32_t (&bq)[8][2]) {
+        const int dx = s >> 3, kc = s & 7;  // tap dx, channels 16kc..+15
+#pragma unroll
+        for (int r = 0; r < R; ++r) ldsm_x4(a[r], a_lane[r] + dx * kBPX + kc * 32);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t rr[4];
+          ldsm_x4(rr, b_lane + (dx * kCOT + 16 * q) * kBPX + kc * 32);
+          bq[2 * q][0] = rr[0];
+          bq[2 * q][1] = rr[1];
+          bq[2 * q + 1][0] = rr[2];
+          bq[2 * q + 1][1] = rr[3];
+        }
+      };
+      auto mmas = [&](const uint32_t (&a)[R][4], const uint32_t (&bq)[8][2]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) mma_bf16(acc[r][nj], a[r], bq[nj][0], bq[nj][1]);
+      };
+      constexpr int KS = 5 * kRC / 16;  // 40 k16 steps
+      load(0, af[0], bfr[0]);
+#pragma unroll
+      for (int s = 0; s < KS; s += 2) {
+        load(s + 1, af[1], bfr[1]);
+        mmas(af[0], bfr[0]);
+        if (s + 2 < KS) load(s + 2, af[0], bfr[0]);
+        mmas(af[1], bfr[1]);
+      }
+      MMA_PHASE(3)
+
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (i + r >= n) break;
+        // K lanes and the dy-sum of conv row y0 + i + r: lane (g, tg) holds
+        // pixels g and g+8, slots 5i + dy in acc[r][s / 2][2h + s % 2]
+        const bool emit = y0 + i + r - 2 >= r0;  // output row y - 2 is in the share
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i3 = 0; i3 < 3; ++i3) {
+            float K[5];
+#pragma unroll
+            for (int dy = 0; dy < 5; ++dy) {
+              const int s = 5 * i3 + dy;
+              K[dy] = __bfloat162float(__float2bfloat16_rn(acc[r][s >> 1][2 * h + (s & 1)]));
+            }
+            float* pr = P[h][i3];
+            const float v = __fadd_rn(__fadd_rn(pr[0], K[4]), bi[i3]);
+            pr[0] = __fadd_rn(pr[1], K[3]);
+            pr[1] = __fadd_rn(pr[2], K[2]);
+            pr[2] = __fadd_rn(pr[3], K[1]);
+            pr[3] = __fadd_rn(0.0f, K[0]);
+            if (emit) s_out[(h * 8 + g) * kOut + 3 * tg + i3] = __float2bfloat16_rn(v);
+          }
+        __syncwarp();
+        if (emit) {  // the row's STRIP x 12 bf16, 8 bytes (4 lanes of a pixel) a lane and pass
+          const int y = y0 + i + r - 2;
+          uint8_t* orow =
+              reinterpret_cast<uint8_t*>(p.out + (((size_t)b * p.H + y) * p.W + x0) * kOut);
+#pragma unroll
+          for (int c = lane; c < S::OUT / 8; c += 32)
+            if (x0 + c / 3 < p.W)
+              *reinterpret_cast<uint2*>(orow + 8 * c) = *reinterpret_cast<const uint2*>(
+                  reinterpret_cast<const uint8_t*>(s_out) + 8 * c);
+        }
+        __syncwarp();  // the ring slots and s_out are rewritten next
+      }
+      MMA_PHASE(4)
+    }
+  }
+  MMA_PHASE_END
+}
+
+int launch_d3sum_mma(const RowsArgs& p, void* stream) {
+  using S = D3SumSmem;
+  if (p.B <= 0 || p.H < 3 || p.W < 3) return (int)cudaErrorInvalidValue;
+  auto kern = d3sum_mma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int strips_x = (p.W + S::STRIP - 1) / S::STRIP;
+  const long long rows_total = (long long)p.B * strips_x * p.H;
+  // at least 16 output rows a warp: below that the 4 rows of restart weigh
+  const long long want = (rows_total + 16 * S::WARPS - 1) / (16 * S::WARPS);
+  const int blocks = (int)(want < sms ? (want > 0 ? want : 1) : sms);
+  kern<<<blocks, 32 * S::WARPS, S::bytes, static_cast<cudaStream_t>(stream)>>>(p, strips_x,
+                                                                              rows_total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every pointer is a device
@@ -748,15 +1104,40 @@ extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const floa
   return launch_rows<false>(p, stream);
 }
 
-// K9b: out[b,y,x,o] = bf16(Σ_dy rows[y+dy][12*dy+o] + bias[o]) over the same rows.
+// K9b: out[b,y,x,o] = bf16(Σ_dy rows[y+dy][12*dy+o] + bias[o]) over the same
+// rows (x 16-byte aligned); on the bf16 tensor cores (d3sum_mma_kernel).
 extern "C" int d3_sum_site_launch(const __nv_bfloat16* x, const float* a, const float* c,
                                   const __nv_bfloat16* w, const float* bias,
                                   __nv_bfloat16* out, int B, int H, int W, void* stream) {
   RowsArgs p = {};
   p.x = x; p.a = a; p.c = c; p.w = w; p.bias = bias; p.out = out;
   p.B = B; p.H = H; p.W = W;
+  return launch_d3sum_mma(p, stream);
+}
+
+// K9b on its previous core (rows_kernel_bf16<true>), for timing only.
+extern "C" int d3_sum_site_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                       const __nv_bfloat16* w, const float* bias,
+                                       __nv_bfloat16* out, int B, int H, int W, void* stream) {
+  RowsArgs p = {};
+  p.x = x; p.a = a; p.c = c; p.w = w; p.bias = bias; p.out = out;
+  p.B = B; p.H = H; p.W = W;
   return launch_rows<true>(p, stream);
 }
+
+// Dynamic shared memory of K9b's block.
+extern "C" int d3sum_mma_smem_bytes() { return (int)D3SumSmem::bytes; }
+
+#ifdef MMA_PHASE_CLOCKS
+// mma_phase_clocks → host [kPhaseBlocks][kPhases] (unsigned 64-bit), then
+// zeroed: a launch of fewer blocks leaves no rows of an earlier one.
+extern "C" int mma_phase_clocks_read(unsigned long long* host) {
+  static const unsigned long long zero[kPhaseBlocks][kPhases] = {};
+  const cudaError_t err = cudaMemcpyFromSymbol(host, mma_phase_clocks, sizeof(mma_phase_clocks));
+  return err != cudaSuccess ? (int)err
+                            : (int)cudaMemcpyToSymbol(mma_phase_clocks, zero, sizeof(zero));
+}
+#endif
 
 // K10: x_pad [B,Hi,Wi,128] (Hi ≥ H+2, Wi ≥ W+2) read as given, stat [B,2,128]
 // (a, c), w [9,128,CO] (tap, c, co) → out [B,H,W,CO] and, with stats, sums

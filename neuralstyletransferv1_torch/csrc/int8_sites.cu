@@ -16,12 +16,12 @@
 // the columns >= sw that pad a grid up to an aligned width, in its input and
 // output, and K3 those of its s8 output), accumulated in int32 with __dp4a,
 // with a prologue (how the int8 tile is made) and an epilogue (what is
-// written) chosen at compile time. K8b runs on it; K2-K5 run the same conv
-// at stride 1 on the tensor cores (mma_kernel, below), K8a at stride 2
+// written) chosen at compile time. K2-K5 run the same conv at stride 1 on
+// the tensor cores (mma_kernel, below), K8a and K8b at stride 2
 // (mma_s2_kernel), and their site_kernel forms stay buildable as
 // res_site_s8o_prev_launch, site_s8_prev_launch, res_site_prev_launch,
-// res_site_skip_prev_launch and site_s2_prev_launch (K8a's), for timing the
-// two designs side by side. ReCoNet's forms (C = 192 res
+// res_site_skip_prev_launch and site_s2_prev_launch (K8a's and K8b's), for
+// timing the two designs side by side. ReCoNet's forms (C = 192 res
 // grid, 96 at its d2): K4 at C in {96, 192} with an optional pre-round floor
 // (FRN's TLU folded into the quantize, the Pallas res_site's tau); K5 at
 // C = 192 with the post-add ReLU or TLU on v (act / tau_act); K2 at C = 192,
@@ -72,7 +72,8 @@
 // 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes.
 // site_kernel runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x
 // below the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site,
-// 20x the bound). K8b stays on it, and K7 on rows_kernel.
+// 20x the bound). Only the _prev forms run on it now; K7 runs on
+// rows_kernel.
 //
 // mma_kernel (K2-K5): the same 3x3 conv as an implicit GEMM on the int8
 // tensor cores, mma.sync.m16n8k32.s8.s8.s32 fed by ldmatrix: M = the 16
@@ -152,6 +153,21 @@
 // codes with byte permutes. Of the forms timed on an H100 (PERF.md):
 // the next tile in registers at one or two blocks an SM, rings of 2-4 tiles
 // at one block an SM, this one was the fastest.
+//
+// mma_s2_kernel (K8b): the same at C = 64 -> 128 (18 k32 steps), 0.80 GB
+// for 1.5e11 operations at 1080p B=8, bound by its bytes (0.24 ms). K8a's
+// constants do not carry over: at C = 64 its block (weights 46,080 + planes
+// 44,880 + rows 4,608 + one raw tile 71,808 = 167,376 bytes) no longer fits
+// twice in an SM. K8b's block takes all 128 output channels: 4 row warps of
+// two tile rows x 2 channel warps, as mma_kernel, with one raw tile in
+// flight (92,160 + 44,880 + 5,120 + 71,808 = 213,968 bytes, one block an
+// SM), so each tile is quantized once, for twice the MMAs a block. Of the
+// designs timed on an H100 it was the faster; the other, K8a's two
+// 64-channel halves at two blocks an SM with the quantize reading global
+// memory, quantizes each tile twice (PERF.md section 6 has both times). Its
+// quantize takes the round in an add (quantize_i), its epilogue sums a
+// warp's two rows in registers before the shuffle fold, and its fetch and
+// stage loops unroll by 6, which keeps it at 255 registers with no spill.
 //
 // d3s8_mma_kernel (K6): the 1x5 rows conv as an implicit GEMM, M = 16
 // output columns, N = 64 lanes, K = 5 dx taps x 128 channels (20 k32
@@ -686,12 +702,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // block adds the clock cycles of the phases of its tile loop into
 // mma_phase_clocks[block]: 0 the next tile's loads issued, 1 the MMAs issued,
 // 2 the fragment epilogue (the MMAs' drain included), 3 the stores and sums,
-// 4 the next tile's quantize or copy (mma_kernel); K8a's (mma_s2_kernel) 0
-// the quantize and the loads of the tile kS2Stages ahead issued, 1-3 as
-// mma_kernel's, 4 the wait for the tile's raw input; K6's row loop
-// (d3s8_mma_kernel, warp 0): 0 the next rows' loads issued, 1 the wait for
-// the row's codes, 2 the MMAs issued, 3 the K lanes and the dy-sum (the
-// drain included), 4 the row's stores.
+// 4 the next tile's quantize or copy (mma_kernel); K8a's and K8b's
+// (mma_s2_kernel) 0 the quantize and the loads of the next tile issued,
+// 1-3 as mma_kernel's, 4 the wait for the tile's raw input (and the barrier);
+// K6's row loop (d3s8_mma_kernel, warp 0): 0 the next rows' loads issued,
+// 1 the wait for the row's codes, 2 the MMAs issued, 3 the K lanes and the
+// dy-sum (the drain included), 4 the row's stores.
 #ifdef MMA_PHASE_CLOCKS
 constexpr int kPhases = 5, kPhaseBlocks = 1024;
 __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
@@ -1288,14 +1304,11 @@ int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// mma_s2_kernel: K8a on the int8 tensor cores (stride 2)
+// mma_s2_kernel: K8a and K8b on the int8 tensor cores (stride 2)
 // ---------------------------------------------------------------------------
 
 constexpr int kSHR = 2 * kMRows + 1, kSHC = 2 * kMCols + 1;  // haloed input tile, 17 x 33
 constexpr int kSPix = kSHR * kSHC;
-constexpr int kS2Stages = 1;  // raw input tiles in flight a block
-constexpr int kS2Blocks = 2;  // blocks an SM
-constexpr int kS2CO = 64;     // output channels a block
 
 // The haloed tile is staged as its four (row, column) parity planes, (0, 0),
 // (0, 1), (1, 0), (1, 1) in that order: at stride 2, tap (dy, dx) of output
@@ -1315,25 +1328,41 @@ __host__ __device__ constexpr int s2_pixel(int hr, int hc) {
 static_assert(s2_plane_off(1, 1) + s2_plane_rows(1) * s2_plane_cols(1) == kSPix,
               "the planes tile the haloed tile");
 
-// Shared memory at C input channels: the weights; the planes of codes
-// (pixel stride C + 16 bytes: the eight pixels an ldmatrix reads,
-// consecutive in a plane, sit in 32 distinct banks), the staged bf16 outputs
-// over them after the MMAs; the ring of raw bf16 input tiles (kS2Stages).
-template <int C>
+// The block at C input channels and MCO output channels a block, with one
+// raw input tile in flight. MCO = 64: 8 row warps of one tile row; MCO =
+// 128: 4 row warps of two tile rows x 2 channel warps of 64, as mma_kernel
+// at C <= 128. Shared memory: the weights; the planes of codes (pixel stride
+// C + 16 bytes: the eight pixels an ldmatrix reads, consecutive in a plane,
+// sit in 32 distinct banks), the staged bf16 outputs over them after the
+// MMAs; ws, bias and the sums of each row warp; the raw bf16 input tile. In
+// bytes (weights + planes + rows + raw tile):
+//   K8a <32, 64>:   27,648 + 26,928 + 4,608 + 35,904 =  95,088, two blocks an SM
+//   K8b <64, 128>:  92,160 + 44,880 + 5,120 + 71,808 = 213,968, one block an SM
+template <int C, int MCO>
 struct MmaS2Smem {
+  static constexpr int RW = kMThreads / 32 / (MCO / 64);  // row warps
+  static constexpr int MI = kMRows / RW;                  // tile rows a warp
   static constexpr int PX = C + 16;
-  static constexpr int OUT = 2 * kS2CO + 16;
-  static constexpr int W = 9 * kS2CO * PX;
+  static constexpr int OUT = 2 * MCO + 16;
+  static constexpr int W = 9 * MCO * PX;
   static constexpr int X = kSPix * PX > kMRows * kMCols * OUT ? kSPix * PX : kMRows * kMCols * OUT;
-  static constexpr int ROWS = sizeof(float) * (2 + 2 * kMRows) * kS2CO;
+  static constexpr int ROWS = sizeof(float) * (2 + 2 * RW) * MCO;
   static constexpr int RAW = kSPix * 2 * C;
-  static constexpr size_t bytes = W + X + ROWS + kS2Stages * RAW;
+  static constexpr size_t bytes = W + X + ROWS + RAW;
+  static constexpr int BLOCKS = MCO == 64 ? 2 : 1;  // blocks an SM
+  static_assert(bytes <= 232448 && BLOCKS * (bytes + 1024) <= 233472,
+                "the blocks fit in an SM's shared memory");
 };
 
-// quantize for a finite v and an integer floor lo: equal to quantize (the
-// round to nearest even and the convert in one cvt.rni, the clamp on ints)
-__device__ __forceinline__ int quantize_i(float v, float a, float c, int lo) {
-  return min(max(__float2int_rn(__fadd_rn(__fmul_rn(v, a), c)), lo), 127);
+// quantize for a finite v and an integer floor lo >= -127, as the code's
+// low byte: equal to quantize's. The clamp commutes with the round (lo and
+// 127 are integers), and adding 1.5 * 2^23 to a value in [-127, 127] rounds
+// it to the nearest integer, ties to even, into the float's low mantissa
+// bits: 0x4B400000 + q. Two min/max and an add in place of the convert,
+// which runs at a quarter of their rate.
+__device__ __forceinline__ int quantize_i(float v, float a, float c, float lo) {
+  return __float_as_int(
+      __fadd_rn(fminf(fmaxf(__fadd_rn(__fmul_rn(v, a), c), lo), 127.0f), 12582912.0f));
 }
 
 // the low bytes of four ints, q0 first
@@ -1351,48 +1380,53 @@ struct MmaS2In {
 
 // K4 at stride 2 over the pixel reflect halo: the quantizing prologue and
 // the raw + sums epilogue of mma_kernel, with the haloed tile in parity
-// planes. Block k of `per_half` blocks serves output channels 64·(k /
+// planes. Block k of `per_half` blocks serves output channels MCO·(k /
 // per_half).. and walks tiles k % per_half, + per_half, ... of the B·tiles
-// 8x16 output tiles; warp w computes tile row w (16 pixels x 64 channels, 9
-// taps x C/32 k32 steps of 8 MMAs). The raw bf16 input of the next
-// kS2Stages tiles is brought into a ring in shared memory by cp.async,
-// issued as soon as a slot is quantized, so those loads run through the
-// MMAs, the epilogue and the stores of the tiles before them (see the top
-// of the file for the choice of one slot and two blocks an SM).
-template <int C>
-__global__ void __launch_bounds__(kMThreads, kS2Blocks)
+// 8x16 output tiles; warp w computes tile rows MI·(w % RW).. (16 pixels
+// each) x output channels 64·(w / RW)..+63, 9 taps x C/32 k32 steps of 8
+// MMAs a row. The raw bf16 input of the next tile is brought into shared
+// memory by cp.async, issued as soon as the current one is quantized, so
+// those loads run through the MMAs, the epilogue and the stores of the tile
+// before it (see the top of the file for the choices).
+template <int C, int MCO>
+__global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
     mma_s2_kernel(Args p, int tiles_x, int tiles, int per_half) {
-  using S = MmaS2Smem<C>;
+  using S = MmaS2Smem<C, MCO>;
   using In = MmaS2In<C>;
-  constexpr int PX = S::PX, OUT = S::OUT, MCO = kS2CO;
+  constexpr int PX = S::PX, OUT = S::OUT, RW = S::RW, MI = S::MI;
   constexpr int CW = C / 4, KC = C / 32, KS = 9 * KC;
+  // the fetch and stage loops unrolled whole at C = 32; at C = 64 (18
+  // passes) by 6: unrolled whole, ptxas spilled 148 bytes of K8b and the
+  // kernel took about 1.5x as long (PERF.md)
+  constexpr int UN = C == 32 ? In::NI : 6;
   extern __shared__ __align__(16) uint8_t smem8[];
   uint8_t* s_w = smem8;                                   // [9][MCO][PX] weights
   uint8_t* s_x = smem8 + S::W;                            // parity planes of codes, then outputs
   float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // ws, bias [MCO]
-  float* s_sum = s_rows + 2 * MCO;                        // [kMRows][2][MCO]
-  uint8_t* s_raw = reinterpret_cast<uint8_t*>(s_rows) + S::ROWS;  // [kS2Stages][kSPix][C] bf16
+  float* s_sum = s_rows + 2 * MCO;                        // [RW][2][MCO]
+  uint8_t* s_raw = reinterpret_cast<uint8_t*>(s_rows) + S::ROWS;  // [kSPix][C] bf16
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rw = warp % RW, cw = warp / RW;  // row warp, 64-channel warp
   const int co0 = (blockIdx.x / per_half) * MCO;
   const int total = p.B * tiles;
   int tile = blockIdx.x % per_half;
   if (tile >= total) return;
 
   const int chunk = tid % In::CH, p0 = tid / In::CH;
-  // tile `id`'s raw input into ring slot `slot` (one commit group; none
-  // past the last tile, so that the wait count holds)
+  // tile `id`'s raw input into s_raw (one commit group; none past the last
+  // tile, so that the wait count holds)
   // (a tile clear of the image's edges takes no reflect; offsets within an
   // image are 32-bit)
-  auto fetch = [&](int id, int slot) {
+  auto fetch = [&](int id) {
     if (id < total) {
       const int b = id / tiles, t = id % tiles;
       const int iy0 = 2 * (t / tiles_x) * kMRows - 1, ix0 = 2 * (t % tiles_x) * kMCols - 1;
       const __nv_bfloat16* img = static_cast<const __nv_bfloat16*>(p.x) +
                                  (size_t)b * p.Hi * p.Wi * C + chunk * 8;
-      const uint32_t dst = smem_addr(s_raw + slot * S::RAW) + chunk * 16;
+      const uint32_t dst = smem_addr(s_raw) + chunk * 16;
       const bool inner = iy0 >= 0 && ix0 >= 0 && iy0 + kSHR <= p.Hi && ix0 + kSHC <= p.Wi;
-#pragma unroll
+#pragma unroll UN
       for (int k = 0; k < In::NI; ++k) {
         const int px = p0 + k * In::PPI;
         if (px < kSPix) {
@@ -1407,8 +1441,20 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
     }
     cp_async_commit();
   };
-  // ring slot `slot` (tile `id`) quantized into the planes
-  auto stage = [&](int id, int slot) {
+  // 8 bf16 channels (a 16-byte chunk) quantized into staged pixel px
+  auto put = [&](int px, uint4 raw, const float (&qa)[8], const float (&qc)[8], float lo) {
+    const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+    int q[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], lo);
+      q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], lo);
+    }
+    *reinterpret_cast<uint2*>(s_x + s2_pixel(px / kSHC, px % kSHC) * PX + chunk * 8) =
+        make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
+  };
+  // tile `id` quantized into the planes from s_raw
+  auto stage = [&](int id) {
     const int b = id / tiles;
     float qa[8], qc[8];
 #pragma unroll
@@ -1416,27 +1462,16 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
       qa[j] = __ldg(p.a + b * C + chunk * 8 + j);
       qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
     }
-    const int lo = (int)p.lo;
-    const uint8_t* src = s_raw + slot * S::RAW + chunk * 16;
-#pragma unroll
+    const float lo = p.lo;
+    const uint8_t* src = s_raw + chunk * 16;
+#pragma unroll UN
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
-      if (px >= kSPix) continue;
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + px * 2 * C);
-      const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
-      int q[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], lo);
-        q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], lo);
-      }
-      *reinterpret_cast<uint2*>(s_x + s2_pixel(px / kSHC, px % kSHC) * PX + chunk * 8) =
-          make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
+      if (px < kSPix) put(px, *reinterpret_cast<const uint4*>(src + px * 2 * C), qa, qc, lo);
     }
   };
 
-#pragma unroll
-  for (int k = 0; k < kS2Stages; ++k) fetch(tile + k * per_half, k);
+  fetch(tile);
   static_assert(9 * CW * MCO % kMThreads == 0, "weight words split evenly");
 #pragma unroll 2
   for (int j = 0; j < 9 * CW * MCO / kMThreads; ++j) {
@@ -1450,35 +1485,39 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
 
   const int g = lane >> 2, tg = lane & 3;
   // A rows: 16 consecutive pixels of a plane row (lanes 0-15: bytes 0-15 of
-  // the k32 slice, 16-31: bytes 16-31); B rows as mma_kernel's
+  // the k32 slice, 16-31: bytes 16-31); B rows as mma_kernel's, from the
+  // warp's 64 output channels
   const uint32_t a_lane = smem_addr(s_x) + (lane & 15) * PX + (lane >> 4) * 16;
-  const uint32_t b_lane = smem_addr(s_w) + ((lane >> 4) * 8 + (lane & 7)) * PX +
+  const uint32_t b_lane = smem_addr(s_w) + (cw * 64 + (lane >> 4) * 8 + (lane & 7)) * PX +
                           ((lane >> 3) & 1) * 16;
 
   MMA_PHASE_START
 #pragma unroll 1
-  for (int it = 0;; ++it) {
-    const int slot = it % kS2Stages;
-    cp_async_wait<kS2Stages - 1>();
-    __syncthreads();  // the slot's raw tile has landed; the planes are free
+  for (;;) {
+    cp_async_wait<0>();
+    __syncthreads();  // the raw tile has landed; the planes are free
     MMA_PHASE(4)
-    stage(tile, slot);
-    __syncthreads();  // the planes are written; the slot is free
-    fetch(tile + kS2Stages * per_half, slot);
+    stage(tile);
+    __syncthreads();  // the planes are written; s_raw is free
+    fetch(tile + per_half);
     MMA_PHASE(0)
 
-    int acc[8][4];
+    int acc[MI][8][4];
 #pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nj][e] = 0;
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
     {
-      uint32_t af[4], bfr[8][2];
-      auto load = [&](int s, uint32_t (&a)[4], uint32_t (&bq)[8][2]) {
+      auto load = [&](int s, uint32_t (&a)[MI][4], uint32_t (&bq)[8][2]) {
         const int tap = s / KC, kc = s % KC, dy = tap / 3, dx = tap % 3;
-        ldsm_x4(a, a_lane + (s2_plane_off(dy & 1, dx & 1) +
-                             (warp + (dy >> 1)) * s2_plane_cols(dx & 1) + (dx >> 1)) * PX +
-                       kc * 32);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldsm_x4(a[mi], a_lane + (s2_plane_off(dy & 1, dx & 1) +
+                                   (rw * MI + mi + (dy >> 1)) * s2_plane_cols(dx & 1) +
+                                   (dx >> 1)) * PX +
+                             kc * 32);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           uint32_t r[4];
@@ -1489,12 +1528,16 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
           bq[2 * q + 1][1] = r[3];
         }
       };
-      auto mmas = [&](const uint32_t (&a)[4], const uint32_t (&bq)[8][2]) {
+      auto mmas = [&](const uint32_t (&a)[MI][4], const uint32_t (&bq)[8][2]) {
 #pragma unroll
-        for (int nj = 0; nj < 8; ++nj) mma_s8(acc[nj], a, bq[nj][0], bq[nj][1]);
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 8; ++nj) mma_s8(acc[mi][nj], a[mi], bq[nj][0], bq[nj][1]);
       };
-      // fragments single-buffered: two blocks an SM hide the ldmatrix
-      // latency, and the second buffer would spill
+      // fragments single-buffered: the other block of the SM (K8a) or the
+      // other warps (K8b) hide the ldmatrix latency, and a second buffer
+      // spills
+      uint32_t af[MI][4], bfr[8][2];
 #pragma unroll
       for (int s = 0; s < KS; ++s) {
         load(s, af, bfr);
@@ -1504,32 +1547,38 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
     MMA_PHASE(1)
     __syncthreads();  // the planes are free: the epilogue stages its outputs there
 
-    // f = bf16(acc·ws + bias) of tile row `warp`, pixels g and g+8, channels
-    // 8nj + 2tg, +1; sums over the pixels inside the image, folded over the
-    // 8 lanes g of a channel, then per row warp
+    // f = bf16(acc·ws + bias) of tile rows `row`, pixels g and g+8, channels
+    // n = 8nj + 2tg, +1 of the warp's 64; sums over the pixels inside the
+    // image, over the warp's MI rows in registers, then folded over the 8
+    // lanes g of a channel (one shuffle fold for the MI rows: K8b's two
+    // rows folded apart cost 3.8% of its time), then per row warp
     const int b = tile / tiles, t = tile % tiles;
     const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj) {
-      const int n = nj * 8 + 2 * tg;
+      const int n = cw * 64 + nj * 8 + 2 * tg;
       const float2 ws = *reinterpret_cast<const float2*>(s_rows + n);
       const float2 bi = *reinterpret_cast<const float2*>(s_rows + MCO + n);
       float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = g + 8 * h;
-        const float f[2] = {
-            bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[nj][2 * h]), ws.x), bi.x)),
-            bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[nj][2 * h + 1]), ws.y), bi.y))};
-        if (y0 + warp < p.H && x0 + col < p.W) {
+      for (int mi = 0; mi < MI; ++mi) {
+        const int row = rw * MI + mi;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            s1[e] = __fadd_rn(s1[e], f[e]);
-            s2[e] = __fadd_rn(s2[e], __fmul_rn(f[e], f[e]));
+        for (int h = 0; h < 2; ++h) {
+          const int col = g + 8 * h;
+          const float f[2] = {
+              bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h]), ws.x), bi.x)),
+              bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h + 1]), ws.y), bi.y))};
+          if (y0 + row < p.H && x0 + col < p.W) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              s1[e] = __fadd_rn(s1[e], f[e]);
+              s2[e] = __fadd_rn(s2[e], __fmul_rn(f[e], f[e]));
+            }
           }
+          *reinterpret_cast<uint32_t*>(s_x + (row * kMCols + col) * OUT + 2 * n) =
+              bf16_pack(f[0], f[1]);
         }
-        *reinterpret_cast<uint32_t*>(s_x + (warp * kMCols + col) * OUT + 2 * n) =
-            bf16_pack(f[0], f[1]);
       }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -1539,8 +1588,8 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
           s2[e] = __fadd_rn(s2[e], __shfl_xor_sync(0xffffffffu, s2[e], m));
         }
         if (g == 0) {
-          s_sum[(warp * 2 + 0) * MCO + n + e] = s1[e];
-          s_sum[(warp * 2 + 1) * MCO + n + e] = s2[e];
+          s_sum[(rw * 2 + 0) * MCO + n + e] = s1[e];
+          s_sum[(rw * 2 + 1) * MCO + n + e] = s2[e];
         }
       }
     }
@@ -1561,7 +1610,7 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
     if (tid < 2 * MCO) {
       const int s = tid / MCO, n = tid % MCO;
       float v = 0.0f;
-      for (int w = 0; w < kMRows; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * MCO + n]);
+      for (int w = 0; w < RW; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * MCO + n]);
       p.part[(((size_t)b * tiles + t) * 2 + s) * p.CO + co0 + n] = v;
     }
     MMA_PHASE(3)
@@ -1572,12 +1621,13 @@ __global__ void __launch_bounds__(kMThreads, kS2Blocks)
   MMA_PHASE_END
 }
 
-template <int C>
+template <int C, int MCO>
 int launch_mma_s2(const Args& p, float* sums, cudaStream_t stream) {
-  const size_t smem = MmaS2Smem<C>::bytes;
-  auto kern = mma_s2_kernel<C>;
+  using S = MmaS2Smem<C, MCO>;
+  if (p.CO % MCO) return (int)cudaErrorInvalidValue;
+  auto kern = mma_s2_kernel<C, MCO>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)S::bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -1585,11 +1635,11 @@ int launch_mma_s2(const Args& p, float* sums, cudaStream_t stream) {
     return (int)err;
   const int tiles_x = (p.W + kMCols - 1) / kMCols;
   const int tiles = ((p.H + kMRows - 1) / kMRows) * tiles_x;
-  const int halves = p.CO / kS2CO;
-  int per_half = kS2Blocks * sms / halves;
+  const int halves = p.CO / MCO;
+  int per_half = S::BLOCKS * sms / halves;
   per_half = per_half < p.B * tiles ? per_half : p.B * tiles;
   per_half = per_half > 1 ? per_half : 1;
-  kern<<<per_half * halves, kMThreads, smem, stream>>>(p, tiles_x, tiles, per_half);
+  kern<<<per_half * halves, kMThreads, S::bytes, stream>>>(p, tiles_x, tiles, per_half);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_reduce_mma<<<p.B * 2 * p.CO / 32, 256, 0, stream>>>(p.part, sums, p.B, tiles, p.CO);
@@ -2197,15 +2247,19 @@ int site_s2_args(bool prev, const void* x, const float* a, const float* c, const
   if (!valid(p) || H % 2 || W % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 32)
-    return prev ? launch_c<32, 2, kQuant, kRawStats>(p, sums, s) : launch_mma_s2<32>(p, sums, s);
-  if (C == 64 && !prev) return launch_c<64, 2, kQuant, kRawStats>(p, sums, s);
+    return prev ? launch_c<32, 2, kQuant, kRawStats>(p, sums, s)
+                : launch_mma_s2<32, 64>(p, sums, s);
+  if (C == 64)
+    return prev ? launch_c<64, 2, kQuant, kRawStats>(p, sums, s)
+                : launch_mma_s2<64, 128>(p, sums, s);
   return (int)cudaErrorInvalidValue;
 }
 }  // namespace
 
-// K8a (C = 32, the int8 tensor cores) / K8b (C = 64, __dp4a): K4 at stride 2
-// with a pixel-reflect halo: x [B,H,W,C] bf16 (H, W even) → out
-// [B,H/2,W/2,CO] bf16 and its sums; part: [B, tiles, 2, CO] scratch.
+// K8a (C = 32; CO % 64 == 0) / K8b (C = 64; CO % 128 == 0), on the int8
+// tensor cores: K4 at stride 2 with a pixel-reflect halo: x [B,H,W,C] bf16 (H, W even;
+// 16-byte aligned) → out [B,H/2,W/2,CO] bf16 and its sums; part: [B, tiles,
+// 2, CO] scratch (8x16 output tiles).
 extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
                               const int32_t* wk, const float* ws, const float* bias,
                               __nv_bfloat16* out, float* part, float* sums, int B, int H,
@@ -2213,7 +2267,7 @@ extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
   return site_s2_args(false, x, a, c, wk, ws, bias, out, part, sums, B, H, W, C, CO, lo, stream);
 }
 
-// K8a on the previous __dp4a core (site_kernel<32, 2>), for timing only.
+// K8a / K8b on the previous __dp4a core (site_kernel<C, 2>), for timing only.
 extern "C" int site_s2_prev_launch(const void* x, const float* a, const float* c,
                                    const int32_t* wk, const float* ws, const float* bias,
                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
@@ -2255,6 +2309,12 @@ extern "C" int d3_s8_prev_launch(const int8_t* xq, const int32_t* wk, const floa
 }
 
 // Dynamic shared memory of the stride-2 tensor-core core at C input
-// channels (0 for other C), and of K6's.
-extern "C" int mma_s2_smem_bytes(int C) { return C == 32 ? (int)MmaS2Smem<32>::bytes : 0; }
+// channels (K8a's at 32, K8b's at 64; 0 for other C), and of K6's.
+extern "C" int mma_s2_smem_bytes(int C) {
+  switch (C) {
+    case 32: return (int)MmaS2Smem<32, 64>::bytes;
+    case 64: return (int)MmaS2Smem<64, 128>::bytes;
+    default: return 0;
+  }
+}
 extern "C" int d3s8_mma_smem_bytes() { return (int)D3Smem::bytes; }

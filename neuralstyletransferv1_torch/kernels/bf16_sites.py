@@ -35,6 +35,13 @@ Two more answer the JAX package's bf16 megakernel experiments
                         depth image y12 [B,H+4,W+4,12] → bf16(Σ + bias)
                         [B,H,W,128] (``mk13_c1.c1_site``)
 
+On the card K9b runs on its own tensor-core core (``d3sum_mma_kernel``:
+warps walk 16-column strips down the image, the dy-sum's partial sums in
+registers; x 16-byte aligned); ``d3_sum_site_prev`` launches it on its
+previous core (``rows_kernel_bf16``), CUDA tensors only, for timing the
+two designs side by side: nothing on the main path calls it, and it counts
+no launch.
+
 K9a/K9c/K9d return (bf16(f), [Σ f, Σ f²]) with f = acc + bias in f32: the
 sums are of the f32 values before the bf16 round, as the TPU kernels take
 them (the int8 sites sum the rounded values). The TPU's K9c/K9d run 2×2
@@ -220,6 +227,8 @@ def _lib():
     sigs = {"d2_site_launch": site, "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
             "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
             "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P],
+            "d3_sum_site_prev_launch": [P] * 6 + [I] * 3 + [P],
+            "d3sum_mma_smem_bytes": [],
             "fused_conv_launch": [P] * 7 + [I] * 8 + [P],
             "c1_site_launch": [P] * 4 + [I] * 3 + [P],
             "bf16_occupancy": [I, P, P]}
@@ -230,11 +239,12 @@ def _lib():
     return lib
 
 
-def _run(kernel, fn, *args):
+def _run(kernel, fn, *args, count=True):
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    if count:
+        LAUNCHES[kernel] += 1
 
 
 def _site(k, x, a, c, w, bias):
@@ -321,16 +331,30 @@ def d3_rows(x, a, c, w):
 
 def d3_sum_site(x, a, c, w, bias):
     """K9b: as K9e, then the 5-row dy-sum in f32 and the bias [12] → deconv3's
-    block output bf16 [B,H,W,12]."""
+    block output bf16 [B,H,W,12]. On the card: the bf16 tensor cores, warps
+    walking 16-column strips down the image (x 16-byte aligned)."""
     if x.device.type == "cpu":
         return d3_sum_site_plain(x, a, c, w, bias)
+    return _d3_sum_site("d3_sum_site_launch", True, x, a, c, w, bias)
+
+
+def d3_sum_site_prev(x, a, c, w, bias):
+    """K9b on its previous core (``rows_kernel_bf16``), CUDA tensors only:
+    ``chip_smoke.py`` times it beside ``d3_sum_site``. Nothing on the main
+    path calls it, and it counts no launch."""
+    return _d3_sum_site("d3_sum_site_prev_launch", False, x, a, c, w, bias)
+
+
+def _d3_sum_site(fn, count, x, a, c, w, bias):
     k = "d3_sum_site"
     dev, B, H, W = _check_rows(k, x, a, c, w)
     _check(k, "bias", bias, torch.float32, (D3_OUT,), dev)
+    if count:
+        _check_aligned(k, "x", x)
     out = torch.empty((B, H, W, D3_OUT), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        _run(k, _lib().d3_sum_site_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
-             w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+        _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
+             bias.data_ptr(), out.data_ptr(), B, H, W, _stream(dev), count=count)
     return out
 
 

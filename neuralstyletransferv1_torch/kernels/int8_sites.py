@@ -45,15 +45,16 @@ floor ``qlo`` and a (CO,) pre-round ``tau`` floor on bf16(f)·qa + qc; K3 at
 C = 192. A channel count or form a kernel is not built for raises.
 
 On the card K2–K5 run on the int8 tensor cores (``mma_kernel``: 8×16
-output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``), K8a on their
-stride-2 form (``mma_s2_kernel``, the same tiles) and K6 on its own
-(``d3s8_mma_kernel``: warps walk 32-column strips down the image); K8b on
-the ``__dp4a`` core (``site_kernel``, ``TILE_DP4A``) and K7 on
+output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``), K8a and K8b on
+their stride-2 form (``mma_s2_kernel``, the same tiles; K8b one block on all
+128 output channels) and K6 on its own (``d3s8_mma_kernel``: warps walk
+32-column strips down the image); K7 on the ``__dp4a`` core
 ``rows_kernel``. ``res_site_s8o_prev``, ``site_s8_prev``, ``res_site_prev``,
-``res_site_skip_prev``, ``c2_site_prev`` and ``d3_s8_site_prev`` launch K2–K5,
-K8a and K6 on their previous ``__dp4a`` cores, for timing the two designs
-side by side; nothing on the main path calls them, and they count no
-launch.
+``res_site_skip_prev``, ``c2_site_prev``, ``c3_site_prev`` and
+``d3_s8_site_prev`` launch K2–K6, K8a and K8b on their previous ``__dp4a``
+cores (``site_kernel``, ``TILE_DP4A``; ``rows_kernel``), for timing the two
+designs side by side; nothing on the main path calls them, they take CUDA
+tensors only, and they count no launch.
 
 The TPU's K8a/K8b run on a column-pair packing with phase-permutation dots;
 that is layout only: the pair weights hold each pixel tap once, and the
@@ -116,8 +117,8 @@ TAU_C = (96, 192)
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block of the __dp4a core
 #: output tile (rows, columns) of each core: the [Σ, Σ²] partials are per tile
-TILE_DP4A = (8, 16)   # site_kernel: K8b (and the _prev forms)
-TILE_MMA = (8, 16)    # mma_kernel, mma_s2_kernel (int8 tensor cores): K2-K5, K8a
+TILE_DP4A = (8, 16)   # site_kernel: the _prev forms
+TILE_MMA = (8, 16)    # mma_kernel, mma_s2_kernel (int8 tensor cores): K2-K5, K8a, K8b
 D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
 _S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
@@ -659,22 +660,21 @@ def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo
 
 
 def _site_s2(k, fn, count, x, a, c, lo, wk, ws, bias):
-    """K8a at C = 32 runs on the int8 tensor cores, K8b at 64 (and every
-    ``_prev`` launch, C = 32 only) on the ``__dp4a`` core."""
-    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, "reflect",
-                                      kernel_c=HEAD_C if count else HEAD_C[:1])
+    """K8a (C = 32) and K8b (C = 64) on the int8 tensor cores
+    (``site_s2_launch``; x 16-byte aligned), or with ``count`` False on
+    their previous ``__dp4a`` core (``site_s2_prev_launch``)."""
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, "reflect", kernel_c=HEAD_C)
     if H % 2 or W % 2:
         raise ValueError(f"{k}: H={H}, W={W}: the stride-2 site needs an even size")
     _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
-    mma = count and C == HEAD_C[0]
-    if mma:
+    if count:
         _check_aligned(k, "x", x)
         if H * W * C >= 2 ** 31:
             raise ValueError(f"{k}: an image of {H}x{W}x{C} is past the kernel's 32-bit offsets")
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H // 2, W // 2, CO), dtype=torch.bfloat16, device=dev)
-    part, sums = _stats_buffers(B, H // 2, W // 2, CO, dev, TILE_MMA if mma else TILE_DP4A)
+    part, sums = _stats_buffers(B, H // 2, W // 2, CO, dev, TILE_MMA if count else TILE_DP4A)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
@@ -700,11 +700,19 @@ def c2_site_prev(x, a, c, lo, wk, ws, bias):
 
 
 def c3_site(x, a, c, lo, wk, ws, bias):
-    """K8b: conv3, as K8a from the conv2 raw [B,H,W,64] to [B,H/2,W/2,128];
-    on the card the ``__dp4a`` core."""
+    """K8b: conv3, as K8a from the conv2 raw [B,H,W,64] to [B,H/2,W/2,128].
+    On the card: the int8 tensor cores (x 16-byte aligned), one block on
+    all 128 output channels."""
     if x.device.type == "cpu":
         return c3_site_plain(x, a, c, lo, wk, ws, bias)
     return _site_s2("c3_site", "site_s2_launch", True, x, a, c, lo, wk, ws, bias)
+
+
+def c3_site_prev(x, a, c, lo, wk, ws, bias):
+    """K8b on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
+    times it beside ``c3_site``. Nothing on the main path calls it, and it
+    counts no launch."""
+    return _site_s2("c3_site", "site_s2_prev_launch", False, x, a, c, lo, wk, ws, bias)
 
 
 def _check_rows(k, x, wk, ws):

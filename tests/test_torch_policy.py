@@ -504,45 +504,43 @@ def test_reconet_k2_k3_k5_forms_match_plain_on_card(cuda_device, b, h, w):
                     tau=t64["a"])
 
 
-# K8a on the int8 tensor cores (8×16 output tiles) and K8b: (name, C, CO, B,
-# H, W); K8a also with a partial last tile row and column at B = 3, a
-# one-tile image, and B·tiles = 3·(7·7) = 147 over the grid of 264 blocks
+# K8a and K8b on the int8 tensor cores (8×16 output tiles): (name, C, CO, B,
+# H, W); each also with a partial last tile row and column at B = 3 and a
+# one-tile image; B·tiles below the persistent grid: K8a 3·(7·7) = 147 over
+# its 264 blocks, K8b 3·(4·4) = 48 over its 132 (one block an SM)
 _K8_CASES = [("c2_site", 32, 64, 2, 38, 74), ("c3_site", 64, 128, 2, 38, 74),
              ("c2_site", 32, 64, 3, 50, 98), ("c2_site", 32, 64, 1, 16, 32),
-             ("c2_site", 32, 64, 3, 112, 224)]
+             ("c2_site", 32, 64, 3, 112, 224), ("c3_site", 64, 128, 3, 50, 98),
+             ("c3_site", 64, 128, 1, 16, 32), ("c3_site", 64, 128, 3, 64, 128)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,c,co,b,h,w", _K8_CASES)
 def test_k8_head_sites_match_plain_on_card(cuda_device, name, c, co, b, h, w):
-    """K8a/K8b (stride-2 3×3, pixel reflect halo, floor 0): bf16 raw
-    bit-identical to the plain version, sums within 1e-5. K8a also at the
-    floor −127, bit-identical to its previous ``__dp4a`` design, two
-    launches bit-identical; the previous design counts no launch and a
-    misaligned x raises."""
+    """K8a/K8b (stride-2 3×3, pixel reflect halo) at the floors 0 and −127:
+    bf16 raw bit-identical to the plain version and to the previous
+    ``__dp4a`` design, sums within 1e-5, two launches bit-identical; the
+    previous design counts no launch and a misaligned x raises."""
     t = _int8_inputs(cuda_device, c, co, h=h, w=w)
     x, a, cc = (t[k] if b == 2 else _batch(t[k], b, flip=k == "x") for k in ("x", "a", "c"))
     before = dict(k8.LAUNCHES)
     n = 0
-    for lo in (0.0, -127.0) if name == "c2_site" else (0.0,):
+    for lo in (0.0, -127.0):
         args = (x, a, cc, lo, t["w"], t["ws"], t["bias"])
         o, s = getattr(k8, name)(*args)
         po, ps = getattr(k8, f"{name}_plain")(*args)
-        n += 1
+        o2, s2 = getattr(k8, name)(*args)
+        prev, sprev = getattr(k8, f"{name}_prev")(*args)
+        n += 2
         torch.cuda.synchronize()
         assert tuple(o.shape) == (b, h // 2, w // 2, co)
         assert torch.equal(o, po) and torch.allclose(s, ps, rtol=1e-5, atol=1e-3), lo
-        if name == "c2_site":
-            o2, s2 = k8.c2_site(*args)
-            prev, sprev = k8.c2_site_prev(*args)
-            n += 1
-            assert torch.equal(o, o2) and torch.equal(s, s2), lo
-            assert torch.equal(prev, o) and _sums_close(sprev, ps, (h // 2) * (w // 2)), lo
+        assert torch.equal(o, o2) and torch.equal(s, s2), lo
+        assert torch.equal(prev, o) and _sums_close(sprev, ps, (h // 2) * (w // 2)), lo
     torch.cuda.synchronize()
     assert k8.LAUNCHES == {**before, name: before[name] + n}
-    if name == "c2_site":
-        with pytest.raises(ValueError, match="16-byte"):
-            k8.c2_site(_misaligned(x), a, cc, 0.0, t["w"], t["ws"], t["bias"])
+    with pytest.raises(ValueError, match="16-byte"):
+        getattr(k8, name)(_misaligned(x), a, cc, 0.0, t["w"], t["ws"], t["bias"])
 
 
 # K6 on the int8 tensor cores (warps walk 32-column strips down the image):
@@ -619,25 +617,34 @@ def _bf16_site_args(device, name, shape, seed=0):
     return args
 
 
+# K9b on the bf16 tensor cores walks 16-column strips down the image: partial
+# strips (37, 70 columns), a one-strip image shorter than the 5-row dy-sum
+# (3 × 13), B = 3, and 3·75·7 = 1575 strip rows over 13 blocks of 8 warps,
+# whose shares start and end inside strips
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape", [("d2_site", (2, 19, 37, 64)), ("d2_site", (1, 28, 32, 64)),
                                         ("c2_site_bf16", (2, 38, 74, 32)),
                                         ("c3_site_bf16", (2, 38, 74, 64)),
                                         ("d3_rows", (2, 19, 37, 128)),
                                         ("d3_sum_site", (2, 19, 37, 128)),
-                                        ("d3_sum_site", (1, 28, 32, 128))])
+                                        ("d3_sum_site", (1, 28, 32, 128)),
+                                        ("d3_sum_site", (1, 3, 13, 128)),
+                                        ("d3_sum_site", (3, 19, 70, 128)),
+                                        ("d3_sum_site", (3, 75, 100, 128))])
 def test_k9_bf16_sites_match_plain_on_card(cuda_device, name, shape):
     """K9a-K9e against their plain versions on the card, at sizes that leave
     partial tiles: two launches bit-identical; bf16 outputs within 1 ulp (an
     ulp taken at no less than 2^-8 of the largest magnitude: the two differ
     by the order of their f32 accumulation; K9b within 2 ulp of its largest
-    row term) and 99% equal; sums within 1e-5."""
+    row term) and 99% equal; sums within 1e-5. K9b also against its
+    previous core, which counts no launch, within the same bounds."""
     args = _bf16_site_args(cuda_device, name, shape)
-    before = k9.LAUNCHES[name]
+    before = dict(k9.LAUNCHES)
     out, again = getattr(k9, name)(*args), getattr(k9, name)(*args)
     ref = getattr(k9, f"{name}_plain")(*args)
+    prev = k9.d3_sum_site_prev(*args) if name == "d3_sum_site" else None
     torch.cuda.synchronize()
-    assert k9.LAUNCHES[name] - before == 2
+    assert k9.LAUNCHES == {**before, name: before[name] + 2}
     outs, agains, refs = (t if isinstance(t, tuple) else (t,) for t in (out, again, ref))
     assert all(torch.equal(a, b) for a, b in zip(outs, agains))
     o, r = outs[0], refs[0]
@@ -647,6 +654,11 @@ def test_k9_bf16_sites_match_plain_on_card(cuda_device, name, shape):
         scale, limit = k9.d3_sum_scale_plain(*args[:4]), 2.0
     worst, equal = k9.bf16_ulp_error(o, r, scale=scale)
     assert worst <= limit and equal >= 0.99, (worst, equal)
+    if prev is not None:
+        worst, equal = k9.bf16_ulp_error(o, prev, scale=scale)
+        assert worst <= limit and equal >= 0.99, ("prev", worst, equal)
+        with pytest.raises(ValueError, match="16-byte"):
+            k9.d3_sum_site(_misaligned(args[0]), *args[1:])
     if len(outs) > 1:
         n = o.shape[1] * o.shape[2]
         s, sr = outs[1].double(), refs[1].double()
