@@ -5,6 +5,7 @@ card in turns.
     python3 chip_ab.py ROOT slices [--nst-chain]
     python3 chip_ab.py ROOT kernels
     python3 chip_ab.py ROOT bf16
+    python3 chip_ab.py ROOT experiments
 
 ROOT is the root of a checkout (for example the parent commit unpacked with
 ``git archive`` into a gitignored directory); its own ``chip_smoke.py`` and
@@ -15,7 +16,9 @@ and every quantized or fused-site slice) and prints their frames/s; with
 again. ``kernels`` runs phase 5, K2-K8b against their plain versions with
 their device times (K2-K6, K8a and K8b in turns with their previous
 ``__dp4a`` cores); ``bf16`` the same for K9a-K9e (K9b in turns with its
-previous core). Run parent, change, change, parent in one call:
+previous core). ``experiments`` runs the entry points of mk5 (K10's six
+forms), mk20 and mk27 (K12's flat forms) at their full shapes, each
+printing its JSON line. Run parent, change, change, parent in one call:
 
     for r in PARENT . . PARENT; do python3 chip_ab.py $r kernels; done
 """
@@ -28,7 +31,7 @@ from pathlib import Path
 
 
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16"):
+    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "experiments"):
         print(__doc__)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -40,11 +43,19 @@ def main() -> int:
     from neuralstyletransferv1_torch.kernels import _build
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
     from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     print(f"tree {root}", flush=True)
     resolve_device("cuda")
     dev = torch.device("cuda", 0)
+    if sys.argv[2] == "experiments":
+        import importlib
+
+        _build.build([k9._SOURCE, k12._SOURCE])
+        for name in ("mk5_ablate", "mk20_int8_smoke", "mk27_pallas_s8_dot"):
+            importlib.import_module(f"neuralstyletransferv1_torch.experiments.{name}").main([])
+        return 0
     _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE])
     for mod in (k1, k8, k9):
         mod._lib()

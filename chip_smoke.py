@@ -12,10 +12,11 @@ order, and any failed phase exits non-zero:
 3. build K1 (``csrc/dis_iter.cu``), K2–K8b (``csrc/int8_sites.cu``),
    K9a–K11 (``csrc/bf16_sites.cu``) and K12–K13 (``csrc/int8_probes.cu``),
    one nvcc each, started together, and
-   print ptxas' registers and spills of every kernel, and the dynamic
-   shared memory of the tensor-core cores (K2–K5's ``mma_kernel``, K8a's
-   and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K9b's
-   ``d3sum_mma_kernel``);
+   print ptxas' registers, spills and warnings of every kernel, and the
+   dynamic shared memory of the tensor-core cores (K2–K5's ``mma_kernel``,
+   K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K9b's
+   ``d3sum_mma_kernel``, K10's ``fused_wgmma_kernel``, K12's
+   ``shift_wgmma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -56,9 +57,10 @@ order, and any failed phase exits non-zero:
    (B, H+2, W+8, C) buffer, and K11 (``c1_site``, conv1 as the f=2 block
    conv) at [8, 544, 964, 12] → [8, 540, 960, 128] with the repository's
    Johnson conv1, held against their plain versions like K9 and timed in
-   turns beside the cuDNN conv alone and, for K10, the three-pass path
-   (prologue, conv, statistics) eager and under ``torch.compile``, for K11
-   the pixel conv1 (NCHW and channels-last); then the int8 probes' entry
+   turns beside the cuDNN conv alone and, for K10, its previous core
+   (``prev_ms``) and the three-pass path (prologue, conv, statistics) eager
+   and under ``torch.compile``, for K11 the pixel conv1 (NCHW and
+   channels-last); then the int8 probes' entry
    points (mk20, mk21, mk27, mk28, mk31): K12 (``shift_dot``, the shifted
    dot over flat rows) in every built form — mk20's s8 → s32 and bf16 → f32
    dot [16384, 512] × [512, 256], the 8-row-strip 9-tap dot [8, 274, 488,
@@ -72,9 +74,11 @@ order, and any failed phase exits non-zero:
    and both K4 forms must launch): the integer-valued outputs bit-identical
    to the plain versions, the bf16 strips within 1 ulp on ≥ 99%, mk20's f32
    dot within 1e-5·Σ|ab|, mk28's own numpy asserts on the card's outputs;
-   timed in turns beside their plain versions, the library call where one
-   computes the same function (``torch._int_mm``, ``torch.mm``, ``F.pad``)
-   and the yardsticks (the cuDNN bf16 3×3 conv; mk27's im2col products);
+   timed in turns beside their plain versions, K12's previous core
+   (``prev_ms``; the flat forms by CUDA graph replay), the library call
+   where one computes the same function (``torch._int_mm``, ``torch.mm``,
+   ``F.pad``) and the yardsticks (the cuDNN bf16 3×3 conv; mk27's im2col
+   products);
 6. check the CUDA slice against the port's CPU path on a small input: f32
    with the exact warp; then ``--quantize int8_static``, its int8 chains
    bit for bit from one head output — under the adopted set and under the
@@ -133,10 +137,10 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K6, K8a, K8b; K9b) with
-``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases, the
-share of each phase of the tile loop (K6, K9b: of the row loop) in the
-clock of every block's thread 0.
+instead builds the tensor-core cores (K2–K6, K8a, K8b; K9b; K10, K12) with
+``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
+the probes' shapes), the share of each phase of the tile loop (K6, K9b: of
+the row loop) in the clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -842,8 +846,10 @@ def experiments_phase(dev) -> tuple[dict, dict]:
     read after; its JSON line goes to the log. Returns the launches and
     the kernels-line records of K10 and K11 (mk5's, whose default variants
     take K10's six forms: the f32 form's numbers, the largest error, every
-    form under ``per_form``; mk13's), of K12 (mk21's tap9-int8 strip, every
-    form of mk20, mk21 and mk27 under ``per_form``), K13 (mk28's P1, with P2)
+    form under ``per_form``, each with its previous core's time
+    ``prev_ms``; mk13's), of K12 (mk21's tap9-int8 strip, every form of
+    mk20, mk21 and mk27 under ``per_form``, each with ``prev_ms``; the flat
+    forms timed by CUDA graph replay), K13 (mk28's P1, with P2)
     and K4's cast and no-statistics forms (mk31's v1; v2, with mk28's P5)."""
     import contextlib
     import importlib
@@ -873,14 +879,14 @@ def experiments_phase(dev) -> tuple[dict, dict]:
              for v in recs["mk5_ablate"]["variants"]}
     if len(forms) != 6:
         fail(f"mk5_ablate ran K10 in {sorted(forms)}, not its six forms")
-    k10 = {**{k: forms["f32"][k] for k in keys},
+    k10 = {**{k: forms["f32"][k] for k in (*keys, "prev_ms")},
            "max_abs_err": max(v["max_abs_err"] for v in forms.values()),
-           "per_form": {f: {k: v[k] for k in (*keys, "eager_path_ms", "compiled_path_ms",
-                                               "path_bound_ms")}
+           "per_form": {f: {k: v[k] for k in (*keys, "prev_ms", "eager_path_ms",
+                                               "compiled_path_ms", "path_bound_ms")}
                         for f, v in forms.items()}}
     k11 = {k: recs["mk13_c1"][k] for k in (*keys, "cudnn_pixel_nchw_ms",
                                            "cudnn_pixel_channels_last_ms")}
-    extra = ("cudnn_bf16_ms", "im2col_mm_ms", "tops")
+    extra = ("cudnn_bf16_ms", "im2col_mm_ms", "tops", "prev_ms", "timing")
 
     def row(v: dict, replaces: str | None = None) -> dict:
         r = {**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
@@ -900,6 +906,7 @@ def experiments_phase(dev) -> tuple[dict, dict]:
 
     def main_row(per_form: dict, main: str) -> dict:
         return {**{k: per_form[main][k] for k in keys},
+                **({"prev_ms": per_form[main]["prev_ms"]} if "prev_ms" in per_form[main] else {}),
                 "max_abs_err": max(v["max_abs_err"] for v in per_form.values()),
                 "main_form": main, "per_form": per_form}
 
@@ -1878,7 +1885,7 @@ MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "
              ("0", "4"): "K4 no stats"}
 
 
-def ptxas_report(text: str, k8, k9) -> None:
+def ptxas_report(text: str, k8, k9, k12) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core cores' instantiations
     (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
@@ -1886,7 +1893,11 @@ def ptxas_report(text: str, k8, k9) -> None:
     with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
     no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
     under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
-    d3s8_mma_kernel K6; d3sum_mma_kernel K9b)."""
+    d3s8_mma_kernel K6; d3sum_mma_kernel K9b; shift_wgmma_kernel<A bf16,
+    prologue, epilogue, 128> K12 and shift_dot_kernel its previous core, at
+    probe 2's and the strip form's shared memory; fused_wgmma_kernel<prologue,
+    statistics, 128> K10 and site_kernel_bf16<128, 1, 1, ...> its previous
+    core), and ptxas' warnings (a serialized wgmma)."""
     import re
 
     name, spill = None, ""
@@ -1894,6 +1905,8 @@ def ptxas_report(text: str, k8, k9) -> None:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name, spill = m.group(1), ""
+        elif "C75" in line:  # e.g. wgmma serialized
+            log("ptxas warning:" + re.sub(r"_ZN\w*?_cu_[0-9a-f]+", "", line.split(":", 1)[-1]))
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "registers" in line:
@@ -1918,6 +1931,18 @@ def ptxas_report(text: str, k8, k9) -> None:
             elif base == "d3sum_mma_kernel":
                 short += " (K9b)"
                 smem = k9._lib().d3sum_mma_smem_bytes()
+            elif base == "shift_wgmma_kernel":
+                pro = "none" if targs[1] == "0" else "quant"
+                short += " (K12)"
+                smem = (f"{k12.smem_plan([0], pro)['bytes']} (probe 2) / "
+                        f"{k12.smem_plan(k12.strip_offsets(488), pro)['bytes']} (strip)")
+            elif base == "shift_dot_kernel":
+                short += " (K12, previous core)"
+            elif base == "fused_wgmma_kernel":
+                short += " (K10)"
+                smem = k9.occupancy()["fused_conv"][1]
+            elif base == "site_kernel_bf16" and targs[:3] == ["128", "1", "1"]:
+                short += " (K10, previous core)"
             extra = "" if smem is None else f", {smem} bytes dynamic shared memory"
             log(f"ptxas: {short}: {line.split(':', 1)[-1].strip()}; {spill}{extra}")
             name = None
@@ -1932,6 +1957,11 @@ PHASES_D3 = ("next rows' loads issued", "wait for the row's codes", "MMAs issued
              "K lanes and dy-sum (MMA drain incl.)", "the row's stores")
 PHASES_D3_BF16 = ("next row's loads issued", "wait for the row's raw input", "activation",
                   "MMAs issued", "K lanes, dy-sum and stores (MMA drain incl.)")
+# K12's (shift_wgmma_kernel) and K10's (fused_wgmma_kernel) tile loops
+PHASES_K12 = ("wait for a k-chunk's rows", "wait for a tap's weights", "prologue conversion",
+              "fragments and MMAs issued", "epilogue (MMA drain incl.)")
+PHASES_K10 = ("wait for the tile's input", "activation", "wait for a tap's weights",
+              "fragments and MMAs issued", "epilogue and statistics (MMA drain incl.)")
 
 
 def _phase_build(module):
@@ -1982,22 +2012,26 @@ def _phase_shares(lib, kernel, label, labels):
 
 
 def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K6, K8a, K8b; K9b) built with
-    MMA_PHASE_CLOCKS, each of their 1080p B=8 cases run once; the share of
-    each phase of the tile loop (K6, K9b: of warp 0's row loop) in the clock
-    of every block's thread 0, averaged over blocks."""
+    """--phases: the tensor-core cores (K2-K6, K8a, K8b; K9b; K12, K10) built
+    with MMA_PHASE_CLOCKS, each of their 1080p B=8 cases (K12: the probes'
+    shapes) run once; the share of each phase of the tile loop (K6, K9b: of
+    warp 0's row loop) in the clock of every block's thread 0, averaged over
+    blocks."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    builds = [_phase_build(k8), _phase_build(k9)]  # both nvcc at once
+    builds = [_phase_build(k8), _phase_build(k9), _phase_build(k12)]  # all nvcc at once
     lib8 = _phase_lib(k8, *builds[0], ("res_site_s8o_launch", "site_s8_launch",
                                        "res_site_launch", "res_site_skip_launch",
                                        "site_s2_launch", "d3_s8_launch"))
-    lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch",))
-    base8, base9 = k8._lib, k9._lib
-    k8._lib, k9._lib = (lambda: lib8), (lambda: lib9)  # the wrappers launch the instrumented builds
+    lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch"))
+    lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
+    base8, base9, base12 = k8._lib, k9._lib, k12._lib
+    # the wrappers launch the instrumented builds
+    k8._lib, k9._lib, k12._lib = (lambda: lib8), (lambda: lib9), (lambda: lib12)
     try:
         for name in REDESIGNED:
             for shape, form in INT8_KERNELS[name][0]:
@@ -2016,8 +2050,49 @@ def phases_phase(dev):
                           PHASES_D3_BF16)
             del args
             torch.cuda.empty_cache()
+        for label, call in k12_phase_cases(dev, k12):
+            _phase_shares(lib12, call, f"shift_dot {label}", PHASES_K12)
+        torch.cuda.empty_cache()
+        from neuralstyletransferv1_torch.experiments import mk1_fusedconv as mk1
+
+        ins = mk1.inputs(mk1.FULL, 11, dev)
+        for prologue, stats in (("f32", True), ("none", False)):
+            _phase_shares(lib9, lambda: k9.fused_conv(ins["x_pad"], ins["stat"], ins["w9"],
+                                                      ins["cb"], mk1.FULL[1:3],
+                                                      prologue=prologue, stats=stats),
+                          f"fused_conv {prologue}{'' if stats else '/ns'} @ {mk1.FULL}",
+                          PHASES_K10)
+        del ins
+        torch.cuda.empty_cache()
     finally:
-        k8._lib, k9._lib = base8, base9
+        k8._lib, k9._lib, k12._lib = base8, base9, base12
+
+
+def k12_phase_cases(dev, k12):
+    """(label, call) of K12 at the probes' shapes: mk20's probe 2 (s8 → s32,
+    bf16 → f32), mk27's s8 form at G = 32, mk21's tap9 strip (int8, bf16)."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.experiments import _bench
+
+    rng = np.random.default_rng(11)
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-100, 100, shape).astype(np.int8)).to(dev)
+
+    a8, w8 = ints(16384, 512), k12.pack_taps(ints(1, 512, 256))
+    ab, wb = _bench.normal(rng, (16384, 512), 1.0, dev), k12.pack_taps(
+        _bench.normal(rng, (1, 512, 256), 1.0, dev))
+    g8, gw = ints(32, 8256, 128), k12.pack_taps(ints(6, 128, 128))
+    x = _bench.normal(rng, (8, 274, 488, 128), 1.0, dev)
+    w9, w9b = k12.pack_taps(ints(9, 128, 128)), k12.pack_taps(
+        _bench.normal(rng, (9, 128, 128), 1.0, dev))
+    return [("mk20 P2 int8", lambda: k12.flat_dot(a8, w8, [0], out="s32")),
+            ("mk20 P2 bf16", lambda: k12.flat_dot(ab, wb, [0], out="f32")),
+            ("mk27 s8_unaligned", lambda: k12.flat_dot(g8, gw, list(range(6)), 8192)),
+            ("mk21 tap9-int8", lambda: k12.strip_dot(x, w9, pro="quant", oscale=2.0 ** -8)),
+            ("mk21 tap9-bf16", lambda: k12.strip_dot(x, w9b, oscale=2.0 ** -8))]
 
 
 def kernel_group(name: str) -> str:
@@ -2150,8 +2225,10 @@ def run_phases(dev, tmp: Path, k8) -> int:
     from neuralstyletransferv1_torch.kernels import _build
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
 
+    from neuralstyletransferv1_torch.kernels import int8_probes as k12
+
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
-        ptxas_report(txt.read_text(), k8, k9)
+        ptxas_report(txt.read_text(), k8, k9, k12)
 
     worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
     int8 = int8_kernel_phase(dev)

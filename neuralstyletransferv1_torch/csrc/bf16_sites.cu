@@ -92,13 +92,31 @@
 //                   prologue on every position read of a PRE-PADDED input
 //                   (f32 affine + ReLU, none, or the affine in bf16
 //                   arithmetic) → 3x3 conv 128→128 → + bias → bf16 and [Σ, Σ²]
-//                   (or no statistics). site_kernel_bf16<128, 1, true, ...>:
-//                   the halo is whatever the caller padded, so the tile is read
-//                   as given; the weights come as mk1's [9][C][CO] and are
-//                   transposed while they are staged, one tap at a time (a
-//                   kernel row of 128-channel weights, 52 KB, would leave one
-//                   block per SM: per tap the block takes 115 KB, two a SM).
-//                   3.06e11 FLOP over 0.54 GB at [8,270,480,128]: operations.
+//                   (or no statistics). 3.06e11 FLOP over 0.54 GB at
+//                   [8,270,480,128]: operations (PERF.md section 6 has the
+//                   times). fused_wgmma_kernel: what bounded its first core
+//                   (site_kernel_bf16<128, 1, true>, kept for timing) was
+//                   feeding mma.sync from shared memory by scalar loads,
+//                   a tile read and activated once for each 64-channel half
+//                   and the weights transposed tap by tap while staged, with
+//                   no overlap of staging and MMAs. Now one persistent block
+//                   an SM takes 4 x 32-pixel tiles on all 128 channels: a
+//                   producer warpgroup (its registers given to the consumers
+//                   by setmaxnreg) brings each tile's haloed 6 x 34 input by
+//                   TMA one tile ahead (two buffers) and streams the taps'
+//                   [C][CO] weight slabs, as mk1 lays them out, through three
+//                   32 KB slots; two consumer warpgroups of 64 pixels run
+//                   wgmma m64n128k16 with B through an MN-major descriptor
+//                   (the transpose bit) and A from registers, by ldmatrix at
+//                   each tap's (dy, dx) pixel shift (a one-pixel shift breaks
+//                   the 8-row core matrices of an A descriptor). The prologue
+//                   activates each input tile once, in place, during the MMAs
+//                   of the tile before; the epilogue stages bf16 in the tile's
+//                   own buffer for a TMA store and folds the statistics by a
+//                   reduce-scatter over the lanes that share a channel. Of
+//                   the two designs built (PERF.md section 6), this one beat
+//                   64-channel halves with the weights resident (147 KB) and
+//                   one input buffer, whose loads never overlapped its MMAs.
 //   K11 c1_site     (experiments/mk13_c1.py c1_site) Johnson's conv1 in its f=2
 //                   block form: the 5x5 conv 12→128 of the 4-px phase-reflect-
 //                   padded space-to-depth image, f32 accumulation + bias → bf16.
@@ -110,6 +128,7 @@
 //                   output bounds it (bytes): the tile is staged in shared
 //                   memory and leaves in 16-byte coalesced stores.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,6 +157,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+#include "hopper.cuh"
 
 // four 8x8 b16 matrices from shared memory, lane l giving row l % 8 of matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -485,6 +506,327 @@ template <int PRO>
 int launch_fused(const SiteArgs& p, int stats, float* sums, void* stream) {
   return stats ? launch_site_kernel<128, 1, true, PRO, true>(p, sums, stream)
                : launch_site_kernel<128, 1, true, PRO, false>(p, sums, stream);
+}
+
+// ---------------------------------------------------------------------------
+// fused_wgmma_kernel: K10 on Hopper's warpgroup MMAs, fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kFTH = 4, kFTW = 32;                 // output tile: rows x columns (128 pixels)
+constexpr int kFHR = kFTH + 2, kFHC = kFTW + 2;    // its haloed input tile
+constexpr int kFPix = kFHR * kFHC;                 // input pixels a tile
+constexpr int kFHalf = ((kFPix * kSpan + 1023) / 1024) * 1024;  // one 64-channel half, padded
+constexpr int kFIn = 2 * kFHalf;                   // the staged input tile
+constexpr int kFSlab = 2 * 128 * kSpan;           // one tap's weights [2 co halves][128 c][128 B]
+constexpr int kFCons = 256;                        // consumers: two warpgroups of 64 pixels
+constexpr int kFThreads = kFCons + 128;            // + one producer warpgroup
+constexpr int kFBars = 256;
+
+// 8 raw bf16 channels → K10's prologue, a, c the channels' affine
+template <int PRO>
+__device__ __forceinline__ uint4 prologue8(uint4 v, const float* a, const float* c) {
+  uint2 lo = make_uint2(v.x, v.y), hi = make_uint2(v.z, v.w);
+  lo = prologue4<PRO>(reinterpret_cast<const __nv_bfloat16*>(&lo), a, c, 0);
+  hi = prologue4<PRO>(reinterpret_cast<const __nv_bfloat16*>(&hi), a, c, 4);
+  return make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
+struct alignas(64) FusedArgs {
+  CUtensorMap map_x;    // x_pad [B][Hp][Wp][128]: boxes of 64 channels x kFHC x kFHR x 1
+  CUtensorMap map_w;    // w [9][128][CO]: boxes of 64 co x 128 c x 1
+  CUtensorMap map_out;  // out [B][H][W][CO]: boxes of 64 co x kFTW x kFTH x 1
+  const float* stat;    // [B][2][128]
+  const float* bias;    // [CO]
+  float* part;          // [B][tiles an image][2][CO]
+  int H, W, tx, tpi, tiles;  // column tiles, tiles an image, tiles in all
+};
+
+constexpr int kFNW = 3;      // weight slabs in flight
+constexpr int kFNIn = 2;     // input tiles in flight
+constexpr int kFActFrom = 9; // the MMA group from which the next tile is activated, two pieces a group
+constexpr size_t kFSmem = 1024 + (size_t)kFNIn * kFIn + (size_t)kFNW * kFSlab +
+                          sizeof(float) * (2 * 256 + 128 + 8 * 2 * 128) + kFBars;
+
+// One level of a reduce-scatter of v over the lanes `m` apart: the lane
+// whose bit m is set keeps the upper half, each kept value summed with the
+// partner's.
+template <int H, int M, int N>
+__device__ __forceinline__ void fold_half(float (&v)[N], int lane) {
+  const bool up = (lane & M) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H], keep = up ? v[i + H] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, M));
+  }
+}
+
+// With -DMMA_PHASE_CLOCKS thread 0 adds the clocks of its tile loop's
+// phases: 0 waiting for an input tile, 1 the first tile's activation (each
+// later tile is activated during the MMAs of the one before), 2 waiting for
+// a tap's weights, 3 the fragments loaded and the MMAs issued (the next
+// tile's activation between them), 4 the epilogue and the statistics (the
+// last MMAs' drain included).
+template <int PRO, bool STATS>
+__global__ void __launch_bounds__(kFThreads, 1) fused_wgmma_kernel(const __grid_constant__ FusedArgs p) {
+  constexpr bool ACT = PRO != kProNone;
+  constexpr int PIECES = 2 * kFPix * 8;  // 16-byte pieces of an input tile
+  static_assert((PIECES + kFCons - 1) / kFCons <= 2 * (18 - kFActFrom), "activation outruns the MMAs");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_in = base;                                       // [kFNIn][2 halves][kFPix][128]
+  uint8_t* s_w = s_in + kFNIn * kFIn;                         // [kFNW][2 co halves][128 c][128]
+  float* s_aff = reinterpret_cast<float*>(s_w + kFNW * kFSlab);  // [2][a, c]: by tile parity
+  float* s_bias = s_aff + 2 * 256;                            // [128]
+  float* s_sum = s_bias + 128;                                // [8 warps][2][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_sum + 8 * 2 * 128);
+  uint64_t* in_full = bars;
+  uint64_t* in_empty = bars + kFNIn;
+  uint64_t* w_full = bars + 2 * kFNIn;
+  uint64_t* w_empty = w_full + kFNW;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < kFNIn; ++i) {
+      mbar_init(&in_full[i], 1);
+      mbar_init(&in_empty[i], 1);
+    }
+    for (int i = 0; i < kFNW; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], kFCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 128) s_bias[tid] = p.bias[tid];
+  __syncthreads();
+
+  if (warp >= kFCons / 32) {
+    // the producer: one lane brings the input tiles, one tile ahead of the
+    // weights, and the taps' weights
+    setmaxnreg_dec<40>();  // its registers go to the consumers
+    if (warp == kFCons / 32 && lane == 0) {
+      Ring ri = {0, 0u}, rw = {0, 0u};
+      auto load_input = [&](int t) {
+        const int b = t / p.tpi, ty0 = (t % p.tpi) / p.tx * kFTH, tx0 = (t % p.tpi) % p.tx * kFTW;
+        mbar_wait(&in_empty[ri.i], ri.ph ^ 1u);
+        mbar_expect_tx(&in_full[ri.i], 2u * kFPix * kSpan);
+        uint8_t* dst = s_in + ri.i * kFIn;
+        tma_load_4d(dst, &p.map_x, &in_full[ri.i], 0, tx0, ty0, b);
+        tma_load_4d(dst + kFHalf, &p.map_x, &in_full[ri.i], 64, tx0, ty0, b);
+        ri.next(kFNIn);
+      };
+      if ((int)blockIdx.x < p.tiles) load_input(blockIdx.x);
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        for (int tap = 0; tap < 9; ++tap) {
+          // the next tile's input once this tile's first slabs are asked
+          // for: its buffer frees early in this tile
+          if (tap == kFNW && t + (int)gridDim.x < p.tiles) load_input(t + gridDim.x);
+          mbar_wait(&w_empty[rw.i], rw.ph ^ 1u);
+          mbar_expect_tx(&w_full[rw.i], (uint32_t)kFSlab);
+          uint8_t* slab = s_w + rw.i * kFSlab;
+          tma_load_3d(slab, &p.map_w, &w_full[rw.i], 0, 0, tap);
+          tma_load_3d(slab + kFSlab / 2, &p.map_w, &w_full[rw.i], 64, 0, tap);
+          rw.next(kFNW);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // the consumers: warp wq of warpgroup wg computes output row 2wg + wq / 2,
+  // columns 16·(wq % 2).. of the tile, on all 128 channels
+  const int wg = warp >> 2, wq = warp & 3, gq = lane >> 2, tg = lane & 3;
+  const int ly = 2 * wg + (wq >> 1), lx = 16 * (wq & 1);
+  const int khalf = lane >> 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  uint32_t afr[2][16];
+  Ring ri = {0, 0u}, rw = {0, 0u};
+
+  // the prologue in place on piece i of an input tile: channels 8·(its
+  // swizzled position) of a 64-channel half
+  auto activate = [&](uint8_t* tile, const float* aff, int i) {
+    const int hc = i / (kFPix * 8), pix = (i >> 3) % kFPix, q = i & 7;
+    const int ch = 64 * hc + 8 * (q ^ (pix & 7));
+    uint4* ptr = reinterpret_cast<uint4*>(tile + hc * kFHalf + pix * kSpan + 16 * q);
+    *ptr = prologue8<PRO>(*ptr, aff + ch, aff + 128 + ch);
+  };
+  MMA_PHASE_START
+  if (ACT && (int)blockIdx.x < p.tiles) {
+    s_aff[tid] = p.stat[blockIdx.x / p.tpi * 256 + tid];  // a (0..127), c (128..255)
+    mbar_wait(&in_full[0], 0u);
+    MMA_PHASE(0)
+    bar_sync(1, kFCons);  // the affine is staged
+    for (int i = tid; i < PIECES; i += kFCons) activate(s_in, s_aff, i);
+    bar_sync(1, kFCons);  // the first tile is activated
+    MMA_PHASE(1)
+  }
+
+  for (int t = blockIdx.x, n = 0; t < p.tiles; t += gridDim.x, ++n) {
+    const int b = t / p.tpi, ty0 = (t % p.tpi) / p.tx * kFTH, tx0 = (t % p.tpi) % p.tx * kFTW;
+    uint8_t* buf = s_in + ri.i * kFIn;
+    const uint32_t buf_s = smem_addr(buf);
+    // the next tile, activated during this one's MMAs
+    const int tn = t + gridDim.x;
+    const bool next = ACT && tn < p.tiles;
+    Ring rn = ri;
+    rn.next(kFNIn);
+    uint8_t* nbuf = s_in + rn.i * kFIn;
+    const float* naff = s_aff + ((n + 1) & 1) * 256;
+    if (next) s_aff[((n + 1) & 1) * 256 + tid] = p.stat[tn / p.tpi * 256 + tid];
+    mbar_wait(&in_full[ri.i], ri.ph);
+    MMA_PHASE(0)
+
+    // 9 taps x 8 k16 steps, in groups of one tap's 64-channel half (4 k16
+    // steps); A by ldmatrix at the tap's (dy, dx) pixel shift, into the
+    // register set the group before last used
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int pix = (ly + tap / 3) * kFHC + lx + (lane & 15) + tap % 3;
+      const uint32_t rb = buf_s + (uint32_t)pix * kSpan;
+      MMA_PHASE(3)
+      mbar_wait(&w_full[rw.i], rw.ph);
+      MMA_PHASE(2)
+      const uint64_t desc = desc_mnmajor(smem_addr(s_w + rw.i * kFSlab), kFSlab / 2);
+#pragma unroll
+      for (int hc = 0; hc < 2; ++hc) {
+        const int k = 2 * tap + hc;
+        uint32_t(&f)[16] = afr[hc];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          uint32_t(&fs)[4] = *reinterpret_cast<uint32_t(*)[4]>(&f[4 * s]);
+          ldsm_x4(fs, rb + hc * kFHalf + (uint32_t)(((2 * s + khalf) ^ (pix & 7)) << 4));
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_bf16<1>(acc, &f[4 * s], desc + (uint64_t)((4 * hc + s) * 128), tap | hc | s);
+        wgmma_commit();
+        if (k == 0 && n > 0 && tid == 0) {
+          bulk_wait_read<0>();  // the tile before's output has left its buffer
+          mbar_arrive(&in_empty[rn.i]);
+        }
+        if (next && k >= kFActFrom) {
+          if (k == kFActFrom) {
+            MMA_PHASE(3)
+            mbar_wait(&in_full[rn.i], rn.ph);
+            MMA_PHASE(0)
+            bar_sync(1, kFCons);  // its affine is staged
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = tid + kFCons * (2 * (k - kFActFrom) + h);
+            if (i < PIECES) activate(nbuf, naff, i);
+          }
+        }
+        wgmma_wait<1>();
+        // the previous tap's last group is done: its weights may go
+        if (hc == 0 && tap > 0 && lane == 0) mbar_arrive(&w_empty[(rw.i + kFNW - 1) % kFNW]);
+      }
+      rw.next(kFNW);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&w_empty[(rw.i + kFNW - 1) % kFNW]);
+    MMA_PHASE(3)
+
+    // epilogue: + bias in f32, bf16 into the input tile's buffer (every warp
+    // is done reading it), stored by TMA (rows and columns past H, W are not
+    // written); the sums of the f32 values of the pixels inside the grid,
+    // per thread over its two pixels, then over the 8 lanes that share a
+    // channel by a reduce-scatter (each lane keeps 4 of a pass's 32 sums)
+    bar_sync(1, kFCons);
+    const int oy = ty0 + ly;
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      float v[32];  // [Σ, Σ²][8 channel groups][2 channels]
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * pass + jj, co = 8 * j + 2 * tg;
+        const float bi0 = s_bias[co], bi1 = s_bias[co + 1];
+        float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = lx + gq + 8 * h;
+          const float f0 = __fadd_rn(acc[4 * j + 2 * h], bi0);
+          const float f1 = __fadd_rn(acc[4 * j + 2 * h + 1], bi1);
+          *reinterpret_cast<__nv_bfloat162*>(buf + pass * (kFTH * kFTW * kSpan) +
+                                             swz(ly * kFTW + px, jj) + 4 * tg) =
+              __floats2bfloat162_rn(f0, f1);
+          if (STATS && oy < p.H && tx0 + px < p.W) {
+            s1[0] = __fadd_rn(s1[0], f0);
+            s1[1] = __fadd_rn(s1[1], f1);
+            s2[0] = __fadd_rn(s2[0], __fmul_rn(f0, f0));
+            s2[1] = __fadd_rn(s2[1], __fmul_rn(f1, f1));
+          }
+        }
+        v[2 * jj] = s1[0];
+        v[2 * jj + 1] = s1[1];
+        v[16 + 2 * jj] = s2[0];
+        v[16 + 2 * jj + 1] = s2[1];
+      }
+      if (STATS) {
+        fold_half<16, 16>(v, lane);  // Σ or Σ² by gq bit 2
+        fold_half<8, 8>(v, lane);    // channel group bit 2 by gq bit 1
+        fold_half<4, 4>(v, lane);    // channel group bit 1 by gq bit 0
+        const int s = (lane >> 4) & 1, jj0 = ((lane >> 3) & 1) * 4 + ((lane >> 2) & 1) * 2;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s_sum[(warp * 2 + s) * 128 + 8 * (8 * pass + jj0 + (i >> 1)) + 2 * tg + (i & 1)] = v[i];
+      }
+    }
+    fence_async_smem();
+    bar_sync(1, kFCons);
+    if (tid == 0) {  // the buffer is released once the store has read it (next tile)
+      for (int hc = 0; hc < 2; ++hc)
+        tma_store_4d(&p.map_out, buf + hc * (kFTH * kFTW * kSpan), 64 * hc, tx0, ty0, b);
+      bulk_commit();
+    }
+    ri.next(kFNIn);
+    if (STATS) {  // warps in order, for the tile's partial sums
+      const int s = tid >> 7, co = tid & 127;
+      float v = 0.0f;
+      for (int w = 0; w < kFCons / 32; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * 128 + co]);
+      p.part[(((size_t)b * p.tpi + t % p.tpi) * 2 + s) * 128 + co] = v;
+    }
+    MMA_PHASE(4)
+  }
+  if (tid == 0) bulk_wait_read<0>();
+  MMA_PHASE_END
+}
+
+// K10 on fused_wgmma_kernel (CO = 128) and, with STATS, the reduce.
+template <int PRO, bool STATS>
+int launch_fused_wgmma(const __nv_bfloat16* x, const float* stat, const __nv_bfloat16* w,
+                       const float* bias, __nv_bfloat16* out, float* part, float* sums, int B,
+                       int Hi, int Wi, int H, int W, void* stream) {
+  FusedArgs p = {};
+  const int dx[4] = {128, Wi, Hi, B}, bx[4] = {64, kFHC, kFHR, 1};
+  const int dw[3] = {128, 128, 9}, bw[3] = {64, 128, 1};
+  const int dout[4] = {128, W, H, B}, bout[4] = {64, kFTW, kFTH, 1};
+  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&p.map_x, b16, 2, x, 4, dx, bx) || !make_map(&p.map_w, b16, 2, w, 3, dw, bw) ||
+      !make_map(&p.map_out, b16, 2, out, 4, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  p.stat = stat; p.bias = bias; p.part = part;
+  p.H = H; p.W = W;
+  p.tx = (W + kFTW - 1) / kFTW;
+  p.tpi = p.tx * ((H + kFTH - 1) / kFTH);
+  p.tiles = B * p.tpi;
+  auto kern = fused_wgmma_kernel<PRO, STATS>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kFSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kern<<<p.tiles < sms ? p.tiles : sms, kFThreads, kFSmem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !STATS) return (int)err;
+  const int n = B * 2 * 128;
+  stats_reduce_bf16<<<(n + 255) / 256, 256, 0, s>>>(part, sums, B, p.tpi, 128);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1140,13 +1482,36 @@ extern "C" int mma_phase_clocks_read(unsigned long long* host) {
 #endif
 
 // K10: x_pad [B,Hi,Wi,128] (Hi ≥ H+2, Wi ≥ W+2) read as given, stat [B,2,128]
-// (a, c), w [9,128,CO] (tap, c, co) → out [B,H,W,CO] and, with stats, sums
-// [B,2,CO] (part [B, ceil(H/8)·ceil(W/32), 2, CO]). prologue: 0 f32 affine +
-// ReLU, 1 none, 2 the affine in bf16 arithmetic.
+// (a, c), w [9,128,128] (tap, c, co) → out [B,H,W,128] and, with stats, sums
+// [B,2,128] (part [B, ceil(H/4)·ceil(W/32), 2, 128]), on fused_wgmma_kernel.
+// prologue: 0 f32 affine + ReLU, 1 none, 2 the affine in bf16 arithmetic.
+// x_pad, w and out 16-byte aligned.
 extern "C" int fused_conv_launch(const __nv_bfloat16* x, const float* stat,
                                  const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out,
                                  float* part, float* sums, int B, int Hi, int Wi, int H, int W,
                                  int CO, int prologue, int stats, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Hi < H + 2 || Wi < W + 2 || CO != 128)
+    return (int)cudaErrorInvalidValue;
+#define K10_FORM(PRO)                                                                        \
+  if (prologue == PRO)                                                                       \
+    return stats ? launch_fused_wgmma<PRO, true>(x, stat, w, bias, out, part, sums, B, Hi, Wi, H, \
+                                                 W, stream)                                   \
+                 : launch_fused_wgmma<PRO, false>(x, stat, w, bias, out, part, sums, B, Hi, Wi,  \
+                                                  H, W, stream);
+  K10_FORM(kProF32)
+  K10_FORM(kProNone)
+  K10_FORM(kProBf16)
+#undef K10_FORM
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10 on its previous core (site_kernel_bf16<128, 1, PRE = true>: 8 x 32
+// tiles on 64 channels, part [B, ceil(H/8)·ceil(W/32), 2, CO]), for timing.
+extern "C" int fused_conv_prev_launch(const __nv_bfloat16* x, const float* stat,
+                                      const __nv_bfloat16* w, const float* bias,
+                                      __nv_bfloat16* out, float* part, float* sums, int B, int Hi,
+                                      int Wi, int H, int W, int CO, int prologue, int stats,
+                                      void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Hi < H + 2 || Wi < W + 2 || CO <= 0 || CO % kCOT)
     return (int)cudaErrorInvalidValue;
   SiteArgs p = site_args(x, stat, stat + 128, w, bias, out, part, B, Hi, Wi, CO, 0);
@@ -1176,10 +1541,17 @@ extern "C" int c1_site_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, co
 }
 
 // Resident blocks per SM and dynamic shared memory of a block: which 0 is
-// K10 (f32 prologue, statistics), 1 is K11.
+// K10 (f32 prologue, statistics: fused_wgmma_kernel), 1 K11, 2 K10's
+// previous core (site_kernel_bf16<128, 1, true>).
 extern "C" int bf16_occupancy(int which, int* blocks, int* smem) {
   cudaError_t err;
   if (which == 0) {
+    auto kern = fused_wgmma_kernel<kProF32, true>;
+    *smem = (int)kFSmem;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kFThreads, *smem);
+  } else if (which == 2) {
     auto kern = site_kernel_bf16<128, 1, true, kProF32, true>;
     *smem = (int)SiteGeom<128, 1, true>::smem;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);

@@ -23,27 +23,44 @@
 // saturating: NaN -> 0, else clamp(trunc(x), -128, 127), XLA's convert).
 // Epilogues: s32, f32, or bf16(f32(acc)·oscale).
 //
-// Design. Block = 256 threads = one 128-row x 128-channel output tile of one
-// slice g; 8 warps as 4 row warps of 32 rows x 2 channel warps of 64. The
-// rows the tile's taps read are staged once a block into shared memory,
-// through the prologue (quantized or cast once a block, not once a tap), as
-// a few segments: taps whose offsets lie within 128 rows of each other share
-// one segment (mk27: one; the strip form at W = 488: three, one a dy). The
-// weights stream through two shared buffers, one tap x 128 k a unit, loaded
-// with cp.async while the previous unit's MMAs run. The MMAs are
-// mma.sync.m16n8k32.s8.s8.s32 (s8 operands) or mma.sync.m16n8k16 bf16 with
-// f32 accumulation, fed by ldmatrix: both read 16 rows x 32 bytes of A and
-// 8 channels x 32 bytes of W a fragment, so one addressing serves both. A
-// tap's shift is the per-lane row address of ldmatrix; in the strip form a
-// lane whose source lies past its strip's rows points at a zero row instead.
-// The epilogue writes each lane's fragment pairs (8 bytes s32/f32, 4 bf16).
-//
 // What bounds it on an H100 (3.35 TB/s; 1979 TOP/s int8, 989 TFLOP/s bf16
-// dense): the strip form at [8, 274, 488, 128] -> [8, 272, 488, 128] is
-// 3.13e11 operations and moves 546 MB (int8 prologue: 0.163 ms, bytes; bf16:
-// 0.317 ms, operations); mk27 at G = 32 moves 101 MB (s8: 30 us, bytes);
-// mk20's probe-2 dot 25.3 MB (7.6 us). The first design is simple: no
-// overlap of the A staging with the MMAs, fragment stores to device memory.
+// dense): bytes, or near balance. mk20's probe-2 dot [16384, 512] x [512,
+// 256] moves 25.3 MB (s8 -> s32) or 33.8 MB (bf16 -> f32) for 4.3e9 MAC;
+// the strip form at [8, 274, 488, 128] -> [8, 272, 488, 128] is 3.13e11
+// operations over 546 MB (int8 prologue: bytes; bf16: operations); mk27 at
+// G = 32 moves 101-135 MB for 5.2e10. PERF.md section 6 has the times.
+//
+// Design (shift_wgmma_kernel). What bounded the first core (shift_dot_kernel,
+// kept for timing: one non-persistent 128 x 128 tile a block, the A rows
+// staged by synchronous loads before any MMA, mma.sync, fragment stores)
+// was that nothing overlapped: every tile loaded, multiplied and stored in
+// turn. Here one persistent block an SM walks the (slice, 128-row,
+// 128-channel) tiles; a producer warpgroup (one lane, its registers given to
+// the consumers by setmaxnreg) keeps two rings full by TMA under the
+// 128-byte swizzle: A slots, each one 128-byte k-chunk of the tile's staged
+// rows, and weight slots, each one tap's 128 channels x one k-chunk. The
+// staged rows keep the first core's plan: taps whose offsets lie within 128
+// rows of each other share one segment of 128 + span rows (mk27: one; the
+// strip form at W = 488: three), each segment in TMA boxes of at most 256
+// rows that start on 1024-byte swizzle atoms. The prologues convert each
+// landed bf16 chunk once into a code buffer (two raw chunks of 64 make one
+// of 128 codes) and free its slot before the MMAs, so the next tile's rows
+// load behind this tile's work. Two consumer warpgroups of 64 rows run
+// wgmma m64n128k32 (s8) or m64n128k16 (bf16, f32 sums), B from the weight
+// slot through a K-major descriptor. A tap's shift is one row, which breaks
+// the 8-row core matrices an A descriptor needs, so A comes from registers:
+// ldmatrix at each lane's shifted row (a warp's fragment is its 16 rows of
+// the warpgroup's 64), or at a zero row where a strip's source lies past its
+// rows. One tap of one k-chunk (4 k steps) is a commit group, its fragments
+// in one of two register sets, so the next group's loads overlap the MMAs in
+// flight. The epilogue goes through shared memory in 64-row x 128-byte
+// slices, two in flight a warpgroup, each stored by TMA (rows past M are
+// not written). Tiles are 128 x 128 (probe 2's 256 channels as two tiles:
+// 256-channel tiles did not lift the bf16 form past torch.mm, PERF.md).
+// The producer warpgroup drops to 40 registers so that each consumer
+// thread may hold 232: its 64 accumulators, two 16-register fragment sets
+// and the epilogue. shift_dot_smem_bytes (and int8_probes.smem_plan) give
+// the slots that fit: at least two of each ring, or the form is refused.
 //
 // K13: one thread per 8 channels of one output pixel of [B, R, WP, C]:
 // column c reads input column c - 1 for 1 <= c <= W0, else 0 (P1, bf16);
@@ -56,6 +73,7 @@
 // jnp.round), __float2bfloat16_rn. s8 sums are exact int32; bf16 products
 // are exact in f32 and their sums run in the MMA's order.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,6 +156,8 @@ size_t smem_bytes(const Plan& pl, int K, bool mma_bf16) {
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+#include "hopper.cuh"
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -352,6 +372,378 @@ int launch_shift(const Args& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// shift_wgmma_kernel: K12 on Hopper's warpgroup MMAs, fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kCons = 256;              // consumer threads: two warpgroups of 64 output rows
+constexpr int kWThreads = kCons + 128;  // + one producer warpgroup
+constexpr int kEpiRows = 64;            // rows of an epilogue slice (a warpgroup's)
+constexpr int kEpiBytes = 2 * 2 * kEpiRows * kSpan;  // two slices in flight a warpgroup
+constexpr int kBarBytes = 256;          // the ring's mbarriers
+constexpr int kZeroBytes = 128;         // the zero row of the strip form
+constexpr int kMaxSlots = 6;            // weight slots at most (A slots: 4)
+
+// The staged rows of one k-chunk: make_plan's segments, each brought in by
+// TMA boxes of `box` rows (a multiple of 8, at most 256), so that every
+// segment starts on a 1024-byte swizzle atom.
+struct WPlan {
+  int nseg;
+  int seg_base[kMaxTaps];  // first source row (relative to the tile's m0)
+  int seg_nbox[kMaxTaps];  // its boxes
+  int seg_first[kMaxTaps]; // its first staged row
+  int tap_row[kMaxTaps];   // a tap's first staged row
+  int box;                 // rows of a box
+  int rows;                // staged rows of a k-chunk
+};
+
+WPlan make_wplan(const int* off, int R) {
+  const Plan pl = make_plan(off, R);
+  WPlan w = {};
+  w.nseg = pl.nseg;
+  int most = 0;
+  for (int s = 0; s < pl.nseg; ++s) most = pl.seg_rows[s] > most ? pl.seg_rows[s] : most;
+  const int nb = (most + 255) / 256;
+  w.box = 8 * ((most + 8 * nb - 1) / (8 * nb));
+  for (int s = 0; s < pl.nseg; ++s) {
+    w.seg_base[s] = pl.seg_base[s];
+    w.seg_nbox[s] = (pl.seg_rows[s] + w.box - 1) / w.box;
+    w.seg_first[s] = w.rows;
+    w.rows += w.seg_nbox[s] * w.box;
+  }
+  for (int r = 0; r < R; ++r) {
+    int s = 0;  // the segment holding tap r: the last whose base is at or below its offset
+    for (int t = 0; t < pl.nseg; ++t)
+      if (pl.seg_base[t] <= off[r]) s = t;
+    w.tap_row[r] = w.seg_first[s] + off[r] - w.seg_base[s];
+  }
+  return w;
+}
+
+// Ring slots and dynamic shared memory: na A slots (one k-chunk of the
+// staged rows each), for the prologues one code buffer, nw weight slots (one
+// tap's kBN rows of a k-chunk), the epilogue slices, the barriers and the
+// zero row, after up to 1024 bytes of alignment. As many slots as fit, at
+// least two of each (else bytes > kSmemMax: the form is not launched).
+struct WBudget {
+  int na, nw;
+  size_t bytes;
+};
+
+WBudget wbudget(const WPlan& pl, bool pro) {
+  const size_t a = (size_t)pl.rows * kSpan, w = (size_t)kBN * kSpan;
+  auto total = [&](int na, int nw) {
+    return 1024 + a * (na + (pro ? 1 : 0)) + w * nw + kEpiBytes + kBarBytes + kZeroBytes;
+  };
+  WBudget b = {2, 2, total(2, 2)};
+  for (bool grew = true; grew;) {
+    grew = false;
+    if (b.nw < kMaxSlots && total(b.na, b.nw + 1) <= (size_t)kSmemMax) { ++b.nw; grew = true; }
+    if (b.na < 4 && total(b.na + 1, b.nw) <= (size_t)kSmemMax) { ++b.na; grew = true; }
+  }
+  b.bytes = total(b.na, b.nw);
+  return b;
+}
+
+struct alignas(64) WArgs {
+  CUtensorMap map_a;    // A [G][MA][K]: boxes of 128 bytes x plan.box rows
+  CUtensorMap map_w;    // weights [R][N][K]: boxes of 128 bytes x kBN rows
+  CUtensorMap map_out;  // out [G][M][N]: boxes of 128 bytes x 64 rows
+  int R, kch;           // kch: k-chunks of 128 operand bytes
+  int mtiles, ntiles, tiles;
+  int off[kMaxTaps];
+  int strip, zlim;
+  float qscale, oscale;
+  int na, nw;
+  WPlan plan;
+};
+
+// Built with -DMMA_PHASE_CLOCKS (chip_smoke.py --phases), thread 0 of each
+// block adds the clock cycles of the phases of its tile loop into
+// mma_phase_clocks[block]: 0 waiting for a k-chunk's rows, 1 waiting for a
+// tap's weights, 2 the prologue's conversion, 3 the fragments loaded and
+// the MMAs issued (a group waits for the one before it), 4 the epilogue
+// (the last MMAs' drain included).
+#ifdef MMA_PHASE_CLOCKS
+constexpr int kPhases = 5, kPhaseBlocks = 1024;
+__device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
+#define MMA_PHASE_START unsigned long long clk_[kPhases] = {}; long long clk_t_ = clock64();
+#define MMA_PHASE(k) { const long long c_ = clock64(); clk_[k] += c_ - clk_t_; clk_t_ = c_; }
+#define MMA_PHASE_END \
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) \
+    for (int k = 0; k < kPhases; ++k) mma_phase_clocks[blockIdx.x][k] = clk_[k];
+#else
+#define MMA_PHASE_START
+#define MMA_PHASE(k)
+#define MMA_PHASE_END
+#endif
+
+// One tap of one k-chunk: the four k steps' A fragments of this lane's
+// shifted row into afr (rb: the row's staged address, or the zero row), then
+// four MMAs into acc, committed as one group; returns once the previous
+// group is done.
+template <bool MB, typename Acc, int NACC>
+__device__ __forceinline__ void tap_unit(Acc (&acc)[NACC], uint32_t (&afr)[16], uint32_t rb, int sw,
+                                         bool zero, uint32_t zero_s, int khalf, uint64_t desc,
+                                         bool first) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t adr = zero ? zero_s : rb + (uint32_t)(((2 * s + khalf) ^ sw) << 4);
+    uint32_t (&f)[4] = *reinterpret_cast<uint32_t(*)[4]>(&afr[4 * s]);
+    ldsm_x4(f, adr);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if constexpr (MB)
+      wgmma_bf16<0>(acc, &afr[4 * s], desc + 2 * s, !(first && s == 0));
+    else
+      wgmma_s8(acc, &afr[4 * s], desc + 2 * s, !(first && s == 0));
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+}
+
+template <bool A_BF16, int PRO, int EPI>
+__global__ void __launch_bounds__(kWThreads, 1) shift_wgmma_kernel(const __grid_constant__ WArgs p) {
+  constexpr bool MB = A_BF16 && PRO == kNone;  // bf16 MMA
+  static_assert(A_BF16 || PRO == kNone, "the prologues convert bf16");
+  static_assert(EPI != kS32 || !MB, "s32 out is the s8 MMA's");
+  static_assert(EPI != kF32 || MB, "f32 out is the bf16 MMA's");
+  using Acc = typename std::conditional<MB, float, int>::type;
+  constexpr int AE = A_BF16 ? 2 : 1;                // bytes of an A element in device memory
+  constexpr int WE = MB ? 2 : 1;                    // of a weight
+  constexpr int HALVES = PRO == kNone ? 1 : 2;      // staged A chunks a k-chunk of codes
+  constexpr int OES = EPI == kBf16 ? 2 : 4;         // bytes of an output element
+  constexpr int NACC = kBN / 2;                      // accumulators a thread
+  constexpr int SLICES = kBN * OES / kSpan;          // epilogue slices of a warpgroup's tile
+  constexpr int JS = kSpan / (8 * OES);             // 8-channel groups a slice
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int a_bytes = p.plan.rows * kSpan;
+  uint8_t* s_a = base;                                          // [na][rows][128]
+  uint8_t* s_code = s_a + (size_t)p.na * a_bytes;               // [rows][128] (prologues)
+  uint8_t* s_w = s_code + (PRO != kNone ? a_bytes : 0);         // [nw][kBN][128]
+  uint8_t* s_epi = s_w + (size_t)p.nw * kBN * kSpan;             // [2 warpgroups][2][64][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_epi + kEpiBytes);
+  uint64_t* a_full = bars;
+  uint64_t* a_empty = bars + p.na;
+  uint64_t* w_full = bars + 2 * p.na;
+  uint64_t* w_empty = w_full + p.nw;
+  uint8_t* s_zero = s_epi + kEpiBytes + kBarBytes;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < p.na; ++i) {
+      mbar_init(&a_full[i], 1);
+      mbar_init(&a_empty[i], kCons / 32);
+    }
+    for (int i = 0; i < p.nw; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], kCons / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < kZeroBytes / 16) reinterpret_cast<uint4*>(s_zero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  if (warp >= kCons / 32) {
+    // the producer: one lane keeps the rings full, tile after tile
+    setmaxnreg_dec<40>();  // its registers go to the consumers
+    if (warp == kCons / 32 && lane == 0) {
+      Ring ra = {0, 0u}, rw = {0, 0u};
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const int n0 = (t % p.ntiles) * kBN, m0 = (t / p.ntiles % p.mtiles) * 128;
+        const int g = t / (p.ntiles * p.mtiles);
+        for (int c = 0; c < p.kch; ++c) {
+          for (int h = 0; h < HALVES; ++h) {
+            mbar_wait(&a_empty[ra.i], ra.ph ^ 1u);
+            mbar_expect_tx(&a_full[ra.i], (uint32_t)a_bytes);
+            uint8_t* dst = s_a + (size_t)ra.i * a_bytes;
+            const int k0 = (c * HALVES + h) * (kSpan / AE);
+            for (int s = 0; s < p.plan.nseg; ++s)
+              for (int b = 0; b < p.plan.seg_nbox[s]; ++b)
+                tma_load_3d(dst + (size_t)(p.plan.seg_first[s] + b * p.plan.box) * kSpan, &p.map_a,
+                            &a_full[ra.i], k0, m0 + p.plan.seg_base[s] + b * p.plan.box, g);
+            ra.next(p.na);
+          }
+          for (int r = 0; r < p.R; ++r) {
+            mbar_wait(&w_empty[rw.i], rw.ph ^ 1u);
+            mbar_expect_tx(&w_full[rw.i], (uint32_t)(kBN * kSpan));
+            tma_load_3d(s_w + (size_t)rw.i * kBN * kSpan, &p.map_w, &w_full[rw.i],
+                        c * (kSpan / WE), n0, r);
+            rw.next(p.nw);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // the consumers: warpgroup wg computes rows 64wg.. of the tile, all kBN channels
+  const int wg = warp >> 2, wq = warp & 3, gq = lane >> 2, tg = lane & 3;
+  const int lrow = 64 * wg + 16 * wq + (lane & 15);  // the row this lane hands ldmatrix
+  const int khalf = lane >> 4;
+  const uint32_t zero_s = smem_addr(s_zero);
+  Acc acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  uint32_t afr[2][16];
+  Ring ra = {0, 0u}, rw = {0, 0u};
+  int epi_n = 0;  // epilogue slices this warpgroup has stored
+  MMA_PHASE_START
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int n0 = (t % p.ntiles) * kBN, m0 = (t / p.ntiles % p.mtiles) * 128;
+    const int g = t / (p.ntiles * p.mtiles);
+    int u = 0, w_prev = -1;
+    for (int c = 0; c < p.kch; ++c) {
+      uint32_t ob;  // the k-chunk's operand rows
+      if constexpr (PRO != kNone) {
+        MMA_PHASE(3)
+        bar_sync(1, kCons);  // every warp is done with the previous codes
+        for (int h = 0; h < 2; ++h) {
+          mbar_wait(&a_full[ra.i], ra.ph);
+          MMA_PHASE(0)
+          const uint8_t* raw = s_a + (size_t)ra.i * a_bytes;
+          for (int i = tid; i < p.plan.rows * 8; i += kCons) {
+            const int row = i >> 3, q = i & 7;
+            const uint4 v = *reinterpret_cast<const uint4*>(raw + swz(row, q));
+            const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+            uint32_t cc[2] = {0u, 0u};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float lo = bf16_lo(w4[j]), hi = bf16_hi(w4[j]);
+              const uint32_t c0 = PRO == kQuant ? quant_code(lo, p.qscale) : cast_code(lo);
+              const uint32_t c1 = PRO == kQuant ? quant_code(hi, p.qscale) : cast_code(hi);
+              cc[j >> 1] |= (c0 | (c1 << 8)) << (16 * (j & 1));
+            }
+            *reinterpret_cast<uint2*>(s_code + swz(row, 4 * h + (q >> 1)) + 8 * (q & 1)) =
+                make_uint2(cc[0], cc[1]);
+          }
+          if (lane == 0) mbar_arrive(&a_empty[ra.i]);
+          ra.next(p.na);
+          MMA_PHASE(2)
+        }
+        bar_sync(1, kCons);  // the codes are in place
+        ob = smem_addr(s_code);
+      } else {
+        MMA_PHASE(3)
+        mbar_wait(&a_full[ra.i], ra.ph);
+        MMA_PHASE(0)
+        ob = smem_addr(s_a + (size_t)ra.i * a_bytes);
+      }
+      for (int r = 0; r < p.R; ++r) {
+        MMA_PHASE(3)
+        mbar_wait(&w_full[rw.i], rw.ph);
+        MMA_PHASE(1)
+        const int row = p.plan.tap_row[r] + lrow;
+        const bool zero = p.strip > 0 && (m0 + lrow) % p.strip + p.off[r] >= p.zlim;
+        const uint32_t rb = ob + (uint32_t)row * kSpan;
+        const uint64_t desc = desc_kmajor(smem_addr(s_w + (size_t)rw.i * kBN * kSpan));
+        const bool first = c == 0 && r == 0;
+        if (u & 1)
+          tap_unit<MB>(acc, afr[1], rb, row & 7, zero, zero_s, khalf, desc, first);
+        else
+          tap_unit<MB>(acc, afr[0], rb, row & 7, zero, zero_s, khalf, desc, first);
+        if (w_prev >= 0 && lane == 0) mbar_arrive(&w_empty[w_prev]);  // its MMAs are done
+        w_prev = rw.i;
+        rw.next(p.nw);
+        ++u;
+      }
+      if constexpr (PRO == kNone) {
+        if (lane == 0) mbar_arrive(&a_empty[ra.i]);  // the fragments are in registers
+        ra.next(p.na);
+      }
+    }
+    MMA_PHASE(3)
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&w_empty[w_prev]);
+
+    // epilogue: slices of 64 rows x 128 bytes through shared memory (the
+    // 128-byte swizzle), each stored by TMA (rows past M are not written)
+    const int m0w = m0 + 64 * wg;
+#pragma unroll
+    for (int sl = 0; sl < SLICES; ++sl) {
+      uint8_t* buf = s_epi + (size_t)(2 * wg + (epi_n & 1)) * kEpiRows * kSpan;
+      if (tid % 128 == 0) bulk_wait_read<1>();  // the slice stored from buf before is read
+      bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        const int jj = sl * JS + j;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * wq + gq + 8 * h;
+          const Acc v0 = acc[4 * jj + 2 * h], v1 = acc[4 * jj + 2 * h + 1];
+          if constexpr (EPI == kS32) {
+            *reinterpret_cast<int2*>(buf + swz(row, 2 * j + (tg >> 1)) + 8 * (tg & 1)) =
+                make_int2((int)v0, (int)v1);
+          } else if constexpr (EPI == kF32) {
+            *reinterpret_cast<float2*>(buf + swz(row, 2 * j + (tg >> 1)) + 8 * (tg & 1)) =
+                make_float2((float)v0, (float)v1);
+          } else {
+            const float f0 = MB ? (float)v0 : __int2float_rn((int)v0);
+            const float f1 = MB ? (float)v1 : __int2float_rn((int)v1);
+            *reinterpret_cast<__nv_bfloat162*>(buf + swz(row, j) + 4 * tg) =
+                __floats2bfloat162_rn(__fmul_rn(f0, p.oscale), __fmul_rn(f1, p.oscale));
+          }
+        }
+      }
+      fence_async_smem();
+      bar_sync(2 + wg, 128);
+      if (tid % 128 == 0) {
+        tma_store_3d(&p.map_out, buf, n0 + sl * (kSpan / OES), m0w, g);
+        bulk_commit();
+      }
+      ++epi_n;
+    }
+    MMA_PHASE(4)
+  }
+  if (tid % 128 == 0) bulk_wait_read<0>();
+  MMA_PHASE_END
+}
+
+template <bool A_BF16, int PRO, int EPI>
+int launch_wgmma(const void* a, const void* wt, void* out, int G, int M, int MA, int K, int N, int R,
+                 const int* off, int strip, int zlim, float qscale, float oscale,
+                 cudaStream_t stream) {
+  constexpr bool MB = A_BF16 && PRO == kNone;
+  WArgs p = {};
+  p.plan = make_wplan(off, R);
+  const WBudget bud = wbudget(p.plan, PRO != kNone);
+  if (bud.bytes > (size_t)kSmemMax || p.plan.box > 256) return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8, b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType od = EPI == kS32 ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                                 : EPI == kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : b16;
+  constexpr int AE = A_BF16 ? 2 : 1, WE = MB ? 2 : 1, OE = EPI == kBf16 ? 2 : 4;
+  const int da[3] = {K, MA, G}, ba[3] = {kSpan / AE, p.plan.box, 1};
+  const int dw[3] = {K, N, R}, bw[3] = {kSpan / WE, kBN, 1};
+  const int dout[3] = {N, M, G}, bout[3] = {kSpan / OE, kEpiRows, 1};
+  if (!make_map(&p.map_a, A_BF16 ? b16 : u8, AE, a, 3, da, ba) ||
+      !make_map(&p.map_w, MB ? b16 : u8, WE, wt, 3, dw, bw) ||
+      !make_map(&p.map_out, od, OE, out, 3, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  p.R = R;
+  p.kch = K * (MB ? 2 : 1) / kSpan;
+  p.mtiles = (M + 127) / 128;
+  p.ntiles = N / kBN;
+  p.tiles = G * p.mtiles * p.ntiles;
+  for (int r = 0; r < R; ++r) p.off[r] = off[r];
+  p.strip = strip; p.zlim = zlim; p.qscale = qscale; p.oscale = oscale;
+  p.na = bud.na; p.nw = bud.nw;
+  auto kern = shift_wgmma_kernel<A_BF16, PRO, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bud.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  kern<<<p.tiles < sms ? p.tiles : sms, kWThreads, bud.bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 // K13
 template <bool INJECT>
 __global__ void pad_inject_kernel(const __nv_bfloat16* __restrict__ x, void* __restrict__ out,
@@ -385,38 +777,69 @@ __global__ void pad_inject_kernel(const __nv_bfloat16* __restrict__ x, void* __r
 
 }  // namespace
 
-// Dynamic shared memory K12 takes for these R offsets at K, with the bf16
-// MMA (mma_bf16 1) or the s8 MMA (0); more than a block may take: the form
-// is not launched.
-extern "C" int shift_dot_smem_bytes(const int* off, int R, int K, int mma_bf16) {
+// Dynamic shared memory K12 takes for these R offsets with a prologue (pro
+// 1: the code buffer) or without; more than a block may take (kSmemMax):
+// the form is not launched.
+extern "C" int shift_dot_smem_bytes(const int* off, int R, int pro) {
   if (R < 1 || R > kMaxTaps) return -1;
-  return (int)smem_bytes(make_plan(off, R), K, mma_bf16 != 0);
+  return (int)wbudget(make_wplan(off, R), pro != 0).bytes;
 }
+
+namespace {
+
+bool shift_args_ok(int G, int M, int MA, int K, int N, int R, const int* off, int strip) {
+  if (G < 1 || M < 1 || MA < 1 || K < kKC || K % kKC || N < kBN || N % kBN || R < 1 ||
+      R > kMaxTaps || strip < 0)
+    return false;
+  for (int r = 0; r < R; ++r)
+    if (off[r] < 0) return false;
+  return true;
+}
+
+}  // namespace
 
 // K12: out [G, M, N] = epi(sum_r pro(a)[g, m + off[r], :] . wt[r]^T) over
 // a [G, MA, K], wt [R, N, K]. a_bf16: a is bf16 (else int8); pro 0 none, 1
 // quantize (qscale), 2 saturating cast; epi 0 s32, 1 f32, 2 bf16(f32(acc)·
 // oscale). strip > 0: the strip form, a source at or past zlim rows of its
 // output row's strip (m / strip) reads 0. Needs K % 128 == 0, N % 128 == 0,
-// sources within MA rows or zero-read, 16-byte aligned tensors.
+// sources within MA rows or zero-read, 16-byte aligned tensors. On
+// shift_wgmma_kernel.
 extern "C" int shift_dot_launch(const void* a, const void* wt, void* out, int G, int M, int MA,
                                 int K, int N, int R, const int* off, int strip, int zlim,
                                 float qscale, float oscale, int a_bf16, int pro, int epi,
                                 void* stream) {
-  if (G < 1 || M < 1 || MA < 1 || K < kKC || K % kKC || N < kBN || N % kBN || R < 1 ||
-      R > kMaxTaps || strip < 0)
-    return (int)cudaErrorInvalidValue;
+  if (!shift_args_ok(G, M, MA, K, N, R, off, strip)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K12_FORM(AB, PRO, EPI)                                                             \
+  if (!!a_bf16 == AB && pro == PRO && epi == EPI)                                          \
+    return launch_wgmma<AB, PRO, EPI>(a, wt, out, G, M, MA, K, N, R, off, strip, zlim, qscale, \
+                                      oscale, s);
+  // the forms the probes run
+  K12_FORM(false, kNone, kS32)
+  K12_FORM(false, kNone, kBf16)
+  K12_FORM(true, kNone, kF32)
+  K12_FORM(true, kNone, kBf16)
+  K12_FORM(true, kQuant, kBf16)
+  K12_FORM(true, kCast, kBf16)
+#undef K12_FORM
+  return (int)cudaErrorInvalidValue;
+}
+
+// K12 on its previous core (shift_dot_kernel: 128 x 128 tiles, one a block,
+// mma.sync), the same arguments; for timing the two side by side only.
+extern "C" int shift_dot_prev_launch(const void* a, const void* wt, void* out, int G, int M,
+                                     int MA, int K, int N, int R, const int* off, int strip,
+                                     int zlim, float qscale, float oscale, int a_bf16, int pro,
+                                     int epi, void* stream) {
+  if (!shift_args_ok(G, M, MA, K, N, R, off, strip)) return (int)cudaErrorInvalidValue;
   Args p = {};
   p.a = a; p.wt = wt; p.out = out;
   p.G = G; p.M = M; p.MA = MA; p.K = K; p.N = N; p.R = R;
-  for (int r = 0; r < R; ++r) {
-    if (off[r] < 0) return (int)cudaErrorInvalidValue;
-    p.off[r] = off[r];
-  }
+  for (int r = 0; r < R; ++r) p.off[r] = off[r];
   p.strip = strip; p.zlim = zlim; p.qscale = qscale; p.oscale = oscale;
   p.plan = make_plan(off, R);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the forms the probes run
   if (!a_bf16 && pro == kNone && epi == kS32) return launch_shift<false, kNone, kS32>(p, s);
   if (!a_bf16 && pro == kNone && epi == kBf16) return launch_shift<false, kNone, kBf16>(p, s);
   if (a_bf16 && pro == kNone && epi == kF32) return launch_shift<true, kNone, kF32>(p, s);
@@ -425,6 +848,17 @@ extern "C" int shift_dot_launch(const void* a, const void* wt, void* out, int G,
   if (a_bf16 && pro == kCast && epi == kBf16) return launch_shift<true, kCast, kBf16>(p, s);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef MMA_PHASE_CLOCKS
+// mma_phase_clocks → host [kPhaseBlocks][kPhases] (unsigned 64-bit), then
+// zeroed: a launch of fewer blocks leaves no rows of an earlier one.
+extern "C" int mma_phase_clocks_read(unsigned long long* host) {
+  static const unsigned long long zero[kPhaseBlocks][kPhases] = {};
+  const cudaError_t err = cudaMemcpyFromSymbol(host, mma_phase_clocks, sizeof(mma_phase_clocks));
+  return err != cudaSuccess ? (int)err
+                            : (int)cudaMemcpyToSymbol(mma_phase_clocks, zero, sizeof(zero));
+}
+#endif
 
 // K13: x [B, R, W0, C] bf16 -> out [B, R, WP, C]: inject 0 (P1) bf16, column
 // c = x column c - 1 for 1 <= c <= W0, else 0; inject 1 (P2) int8 codes

@@ -6,7 +6,11 @@ The TPU scripts' ``_bench.py`` chains K calls and subtracts one (its relay
 memoized calls). On the card a call is timed with CUDA events around
 ``reps`` warm launches (``cuda_ms``); ``in_turns`` times several calls that
 way in rounds, one of each a round, and keeps each one's median over the
-rounds and its spread, (max − min) / median.
+rounds and its spread, (max − min) / median. A call shorter than its
+wrapper's host time (K12's flat forms: tens of microseconds of Python and
+ctypes a launch) would time the host that way: with ``graph`` every call
+is captured ``reps`` times into one CUDA graph and the graph's replay is
+timed instead (``graph_ms``), the device time a call.
 """
 
 from __future__ import annotations
@@ -44,13 +48,45 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(calls: dict, rounds: int = 5) -> dict:
+def capture(fn, reps: int):
+    """``reps`` calls of ``fn`` captured in one CUDA graph (after a warm call
+    on a side stream, as capture wants)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return graph
+
+
+def graph_ms(graph, reps: int) -> float:
+    """Per-call time of a graph of ``reps`` captured calls: CUDA events
+    around one replay, after a warm one."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(calls: dict, rounds: int = 5, graph: bool = False) -> dict:
     """``{name: (fn, reps)}`` timed in ``rounds`` rounds, each call once a
-    round by ``cuda_ms``: ``{name: {"ms": median, "spread": ...}}``."""
+    round by ``cuda_ms`` (or, with ``graph``, its captured graph by
+    ``graph_ms``): ``{name: {"ms": median, "spread": ...}}``."""
     runs = {name: [] for name in calls}
+    graphs = {name: capture(fn, reps) for name, (fn, reps) in calls.items()} if graph else {}
     for _ in range(rounds):
         for name, (fn, reps) in calls.items():
-            runs[name].append(cuda_ms(fn, reps))
+            runs[name].append(graph_ms(graphs[name], reps) if graph else cuda_ms(fn, reps))
     out = {}
     for name, r in runs.items():
         mid = median(r)
@@ -161,33 +197,45 @@ def _pair(x):
 
 
 def measure(name: str, call, plain, dev, *, exact=True, check_fn=None, check_kw=None,
-            work=None, library=None, yardsticks=None, reps: int = 10,
+            work=None, library=None, yardsticks=None, prev=None, graph=False, reps: int = 10,
             plain_reps: int = 2) -> dict:
     """One kernel form: ``call`` (the kernel's wrapper) launched twice and
     ``plain`` (its plain version) once, held by ``check`` (``exact`` or not;
     tensors, or (out, sums) pairs) or by ``check_fn`` where a form needs its
     own (mk20's f32 out); on the card also its bound
-    (``work`` = (bytes, operations[, peak])) and, in turns, the times of the
-    kernel (``ms``), the plain version (``plain_ms``), ``library`` (one
-    PyTorch call that computes the same function, or None: ``library_ms``)
-    and the ``yardsticks`` ({key: call} of PyTorch calls that do not)."""
+    (``work`` = (bytes, operations[, peak])) and, in turns (``graph``: by
+    CUDA graph replay), the times of the kernel (``ms``), its previous core
+    (``prev``, the same function: ``prev_ms``, checked like the kernel), the
+    plain version (``plain_ms``), ``library`` (one PyTorch call that computes
+    the same function, or None: ``library_ms``) and the ``yardsticks``
+    ({key: call} of PyTorch calls that do not)."""
     (out, s), (again, s2), (ref, sr) = _pair(call()), _pair(call()), _pair(plain())
     kw = dict(check_kw or {})
     if s is not None:
         kw.update(sums=s, sums_again=s2, sums_ref=sr)
     rec = (check_fn(name, out, again, ref, **kw) if check_fn is not None
            else check(name, out, again, ref, exact=exact, **kw))
+    if prev is not None and dev.type == "cuda":
+        (po, ps), (po2, ps2) = _pair(prev()), _pair(prev())
+        kw.update({} if ps is None else {"sums": ps, "sums_again": ps2})
+        (check_fn(name + " (previous core)", po, po2, ref, **kw) if check_fn is not None
+         else check(name + " (previous core)", po, po2, ref, exact=exact, **kw))
+        del po, po2, ps, ps2
     del out, again, ref, s, s2, sr
     if dev.type != "cuda":
         return rec
     if work is not None:
         rec.update(bound(*work))
     calls = {"ms": (call, reps), "plain_ms": (plain, plain_reps)}
+    if prev is not None:
+        calls["prev_ms"] = (prev, reps)
     if library is not None:
         calls["library_ms"] = (library, reps)
     calls.update({k: (fn, reps) for k, fn in (yardsticks or {}).items()})
-    t = in_turns(calls)
+    t = in_turns(calls, graph=graph)
     rec.update({k: v["ms"] for k, v in t.items()})
+    if graph:
+        rec["timing"] = "CUDA graph replay"
     rec["library_ms"] = rec.get("library_ms")
     rec["spread"] = {k: v["spread"] for k, v in t.items()}
     if work is not None:

@@ -113,8 +113,9 @@ def path_bytes(ins: dict, hw, prologue: str, stats: bool) -> float:
 
 def run_form(ins: dict, hw, prologue: str, stats: bool, dev) -> dict:
     """K10 in one functional form: checked against the plain version and,
-    on the card, timed in turns beside it, the cuDNN conv alone (the
-    library call), and the three-pass path eager and compiled."""
+    on the card, timed in turns beside it, K10's previous core
+    (``prev_ms``), the cuDNN conv alone (the library call), and the
+    three-pass path eager and compiled."""
     name = f"fused_conv[{prologue}{'' if stats else ',no stats'}]"
     call = (ins["x_pad"], ins["stat"], ins["w9"], ins["cb"], hw)
     kw = {"prologue": prologue, "stats": stats}
@@ -129,8 +130,13 @@ def run_form(ins: dict, hw, prologue: str, stats: bool, dev) -> dict:
     rec.update(_bench.bound(moved, flops))
     rec["path_bound_ms"] = _bench.bound(path_bytes(ins, hw, prologue, stats), flops)["bound_ms"]
     path = (ins, hw, prologue, stats)
+    (yp, sp), (yp2, sp2) = k9.fused_conv_prev(*call, **kw), k9.fused_conv_prev(*call, **kw)
+    yr, sr = k9.fused_conv_plain(*call, **kw)
+    _bench.check(name + " (previous core)", yp, yp2, yr, sums=sp, sums_again=sp2, sums_ref=sr)
+    del yp, yp2, sp, sp2, yr, sr
     t = _bench.in_turns({
         "ms": (lambda: k9.fused_conv(*call, **kw), 10),
+        "prev_ms": (lambda: k9.fused_conv_prev(*call, **kw), 10),
         "plain_ms": (lambda: k9.fused_conv_plain(*call, **kw), 2),
         "library_ms": (cudnn_conv(ins, hw), 10),
         "eager_path_ms": (lambda: eager_path(*path), 10),

@@ -22,9 +22,12 @@ Port of ``experiments/mk20_int8_smoke.py``. Three probes:
 
 The script's timing, a chain of 8 calls minus a chain of 1 on the host
 clock, becomes per-call CUDA events in turns (``_bench.cuda_ms``,
-``_bench.in_turns``). Probe 2's bf16 form sums f32 products in the MMA's
-order: it is held within 1e-5·Σ_k |a_k b_k| of the plain version; every
-other form is exact and held bit for bit.
+``_bench.in_turns``); probe 2, shorter than its wrapper's host time, is
+timed by CUDA graph replay (``_bench.graph_ms``), its library calls too.
+Probes 2 and 3 time K12's previous core in the same turns (``prev_ms``).
+Probe 2's bf16 form sums f32 products in the MMA's order: it is held
+within 1e-5·Σ_k |a_k b_k| of the plain version; every other form is exact
+and held bit for bit.
 """
 
 from __future__ import annotations
@@ -111,7 +114,8 @@ def probe2(shape, seed, dev) -> list:
         rec = _bench.measure(f"shift_dot[flat {form}]", lambda: k12.flat_dot(a, bt, [0], out=out),
                              lambda: k12.flat_dot_plain(a, bt, [0], out=out), dev, check_fn=check,
                              work=(nbytes, 2.0 * m * k * n, peak),
-                             library=library if dev.type == "cuda" else None)
+                             library=library if dev.type == "cuda" else None,
+                             prev=lambda: k12.flat_dot_prev(a, bt, [0], out=out), graph=True)
         recs.append({"probe": 2, "form": form, "kernel_name": "shift_dot", "shape": list(shape),
                      **rec})
         del a, b, bt
@@ -146,7 +150,8 @@ def probe3(shape, seed, dev) -> list:
             exact, peak = False, _bench.PEAK_BF16_OPS
         rec = _bench.measure(f"shift_dot[strip {form}]", lambda: k12.strip_dot(x, wt, **kw),
                              lambda: k12.strip_dot_plain(x, wt, **kw), dev, exact=exact,
-                             work=(*strip_work(x, wt), peak), yardsticks=conv, reps=5)
+                             work=(*strip_work(x, wt), peak), yardsticks=conv,
+                             prev=lambda: k12.strip_dot_prev(x, wt, **kw), reps=5)
         recs.append({"probe": 3, "form": form, "kernel_name": "shift_dot", "shape": list(shape),
                      **rec})
         del wt

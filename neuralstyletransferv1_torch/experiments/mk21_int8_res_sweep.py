@@ -22,7 +22,8 @@ call computes the strip function, ``library_ms`` is null).
     python -m neuralstyletransferv1_torch.experiments.mk21_int8_res_sweep --device cpu --small
 
 The script's timing, a chain of 8 minus a chain of 1 on the host clock,
-becomes per-call CUDA events in turns (``_bench.cuda_ms``).
+becomes per-call CUDA events in turns (``_bench.cuda_ms``), K12's previous
+core beside each variant (``prev_ms``).
 """
 
 from __future__ import annotations
@@ -91,7 +92,8 @@ def main(argv=None) -> dict:
             f"shift_dot[mk21 {v}]", lambda: k12.strip_dot(xin, wt, **kw),
             lambda: k12.strip_dot_plain(xin, wt, **kw), dev,
             exact=exact,
-            work=(*strip_work(xin, wt), peak), yardsticks=conv, reps=5)
+            work=(*strip_work(xin, wt), peak), yardsticks=conv,
+            prev=lambda: k12.strip_dot_prev(xin, wt, **kw), reps=5)
         recs.append({"variant": v, "tpu": tpu, "form": form, "kernel_name": "shift_dot", **rec})
         del wt
     record = {"experiment": "mk21_int8_res_sweep", **head, "shape": [b, h, w, c],

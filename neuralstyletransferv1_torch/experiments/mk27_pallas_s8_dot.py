@@ -33,7 +33,8 @@ timing.
     python -m neuralstyletransferv1_torch.experiments.mk27_pallas_s8_dot --device cpu --small
 
 The script's timing, a chain of 20 minus a chain of 1 on the host clock,
-becomes per-call CUDA events in turns (``_bench.cuda_ms``).
+becomes CUDA graph replay in turns (``_bench.graph_ms``: a call is near
+its wrapper's host time), K12's previous core beside it (``prev_ms``).
 """
 
 from __future__ import annotations
@@ -113,7 +114,9 @@ def main(argv=None) -> dict:
                              lambda: k12.flat_dot(a, wt, offsets, rows, pro=pro),
                              lambda: k12.flat_dot_plain(a, wt, offsets, rows, pro=pro), dev,
                              work=(nbytes, 2.0 * g * rows * C * CO * REPS, peak),
-                             library=library, yardsticks=yard)
+                             library=library, yardsticks=yard,
+                             prev=lambda: k12.flat_dot_prev(a, wt, offsets, rows, pro=pro),
+                             graph=True)
         if lib_err is not None:
             rec["library_max_abs_err"] = lib_err
         recs.append({"variant": v, "kernel_name": "shift_dot", "offsets": offsets,

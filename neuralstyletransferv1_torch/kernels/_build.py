@@ -2,8 +2,9 @@
 load them.
 
 nvcc compiles for ``sm_90a`` into ``neuralstyletransferv1_torch/_build/``
-(gitignored) at first use; the file name carries a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+(gitignored) at first use; the file name carries a hash of the source, the
+headers of ``csrc/`` and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.
 ``build`` compiles several sources at once, one nvcc process each.
 """
 
@@ -34,7 +35,9 @@ def _nvcc() -> str:
 
 def _target(source: str) -> tuple[Path, Path]:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

@@ -78,6 +78,7 @@ D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
 #: K10's prologue forms, as the kernel numbers them
 PROLOGUES = {"f32": 0, "none": 1, "bf16": 2}
 FUSED_C, C1_IN, C1_OUT = 128, 12, 128
+FUSED_TILE = (4, 32)   # K10's output tile on the card: rows x columns (128 pixels)
 #: per site: (C, CO, stride, halo, output tile of a block)
 SITES = {"d2_site": (64, 128, 1, "edge", (8, 32)),
          "c2_site_bf16": (32, 64, 2, "reflect", (8, 16)),
@@ -230,6 +231,7 @@ def _lib():
             "d3_sum_site_prev_launch": [P] * 6 + [I] * 3 + [P],
             "d3sum_mma_smem_bytes": [],
             "fused_conv_launch": [P] * 7 + [I] * 8 + [P],
+            "fused_conv_prev_launch": [P] * 7 + [I] * 8 + [P],
             "c1_site_launch": [P] * 4 + [I] * 3 + [P],
             "bf16_occupancy": [I, P, P]}
     for name, argtypes in sigs.items():
@@ -364,11 +366,26 @@ def fused_conv(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = 
     given (its halo is whatever the caller padded; the prologue applies to
     it too); stat [B,2,128] f32 (a, c); w9 [9,128,CO] bf16 (tap, c, co); cb
     [CO] f32. Returns (bf16 [B,H,W,CO], f32 [B,2,CO] [Σ, Σ²] of the f32
-    results, or None with ``stats=False``)."""
+    results, or None with ``stats=False``). On the card CO = 128
+    (``fused_wgmma_kernel``: tiles of ``FUSED_TILE`` output pixels on all
+    128 channels)."""
     if prologue not in PROLOGUES:
         raise ValueError(f"fused_conv: prologue {prologue!r} not in {tuple(PROLOGUES)}")
     if x_pad.device.type == "cpu":
         return fused_conv_plain(x_pad, stat, w9, cb, hw, prologue=prologue, stats=stats)
+    return _fused_conv(x_pad, stat, w9, cb, hw, prologue, stats, prev=False)
+
+
+def fused_conv_prev(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = True):
+    """``fused_conv`` on K10's previous core (``site_kernel_bf16<128, 1,
+    true>``, 8 × 32 tiles on 64 channels), CUDA tensors only, counting no
+    launch: for timing the two cores in turns."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"fused_conv: prologue {prologue!r} not in {tuple(PROLOGUES)}")
+    return _fused_conv(x_pad, stat, w9, cb, hw, prologue, stats, prev=True)
+
+
+def _fused_conv(x_pad, stat, w9, cb, hw, prologue, stats, prev):
     k, dev = "fused_conv", x_pad.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{k}: no kernel for device {dev}")
@@ -380,8 +397,10 @@ def fused_conv(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = 
         raise ValueError(f"{k}: output {H}x{W} needs x_pad of at least {H + 2}x{W + 2}, "
                          f"got {Hp}x{Wp}")
     co = w9.shape[-1]
-    if co % 64:
+    if prev and co % 64:
         raise ValueError(f"{k}: CO={co} is not a multiple of 64")
+    if not prev and co != FUSED_C:
+        raise ValueError(f"{k}: CO={co}, the kernel is built for CO={FUSED_C}")
     _check(k, "x_pad", x_pad, torch.bfloat16, (B, Hp, Wp, C), dev)
     _check(k, "stat", stat, torch.float32, (B, 2, C), dev)
     _check(k, "weights", w9, torch.bfloat16, (9, C, co), dev)
@@ -391,13 +410,15 @@ def fused_conv(x_pad, stat, w9, cb, hw, *, prologue: str = "f32", stats: bool = 
     out = torch.empty((B, H, W, co), dtype=torch.bfloat16, device=dev)
     part = sums = None
     if stats:
-        part = torch.empty((B, ceil(H / 8) * ceil(W / 32), 2, co), dtype=torch.float32,
+        th, tw = (8, 32) if prev else FUSED_TILE
+        part = torch.empty((B, ceil(H / th) * ceil(W / tw), 2, co), dtype=torch.float32,
                            device=dev)
         sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
+    fn = _lib().fused_conv_prev_launch if prev else _lib().fused_conv_launch
     with torch.cuda.device(dev):
-        _run(k, _lib().fused_conv_launch, x_pad.data_ptr(), stat.data_ptr(), w9.data_ptr(),
-             cb.data_ptr(), out.data_ptr(), _ptr(part), _ptr(sums), B, Hp, Wp, H, W, co,
-             PROLOGUES[prologue], int(stats), _stream(dev))
+        _run(k, fn, x_pad.data_ptr(), stat.data_ptr(), w9.data_ptr(), cb.data_ptr(),
+             out.data_ptr(), _ptr(part), _ptr(sums), B, Hp, Wp, H, W, co, PROLOGUES[prologue],
+             int(stats), _stream(dev), count=not prev)
     return out, sums
 
 
@@ -427,9 +448,10 @@ def c1_site(y12, w, cb):
 
 def occupancy() -> dict:
     """{kernel: (resident blocks per SM, dynamic shared memory bytes)} of
-    K10 (f32 prologue, statistics) and K11 on the current card."""
+    K10 (f32 prologue, statistics), K11 and K10's previous core on the
+    current card."""
     out = {}
-    for which, name in enumerate(("fused_conv", "c1_site")):
+    for which, name in enumerate(("fused_conv", "c1_site", "fused_conv_prev")):
         blocks, smem = ctypes.c_int(), ctypes.c_int()
         rc = _lib().bf16_occupancy(which, ctypes.byref(blocks), ctypes.byref(smem))
         if rc != 0:

@@ -36,6 +36,14 @@ Each wrapper dispatches on the tensors' device: CPU → the ``*_plain``
 version, CUDA → the kernel or an error, no fallback. ``LAUNCHES[name]``
 counts kernel launches. The plain versions compute s8 products as an f64
 matmul of the codes (exact) and bf16 products in f32.
+
+On the card K12 runs on ``shift_wgmma_kernel``: a persistent block an SM,
+tiles of 128 rows × 128 channels, the A rows and the weights brought by
+TMA through rings of shared memory (``smem_plan`` mirrors how many slots
+fit), warpgroup MMAs with A from registers at each tap's shifted row.
+``flat_dot_prev`` / ``strip_dot_prev`` launch the same function on the
+previous core (``shift_dot_kernel``), CUDA tensors only, for timing the
+two in turns: they count no launch.
 """
 
 from __future__ import annotations
@@ -58,6 +66,10 @@ K_CHUNK = N_TILE = 128   # K and N are multiples of these
 MAX_TAPS = 9
 SMEM_MAX = 232448        # dynamic shared memory a block may take on an H100
 STRIP_TS = 8             # mk20's and mk21's strip height
+TILE_M = 128             # output rows of a tile; taps within 128 rows share a staged segment
+SPAN = 128               # bytes of a staged k-chunk row (the 128-byte swizzle span)
+EPI_BYTES = 2 * 2 * 64 * SPAN   # two 64-row epilogue slices in flight per warpgroup
+BAR_BYTES, ZERO_BYTES, MAX_SLOTS = 256, 128, 6
 QSCALE_DOT = 16.0        # K12's "quant" prologue: x·16 (mk20's probe 3, mk21)
 QSCALE_PAD = 4.0         # K13's quantize with ``inject``: x·4 (mk28's P2)
 
@@ -78,6 +90,48 @@ def regroup_k384(w3: torch.Tensor) -> torch.Tensor:
 def strip_offsets(w: int) -> list:
     """The 9 taps' row offsets dy·W + dx of the strip form."""
     return [dy * w + dx for dy in range(3) for dx in range(3)]
+
+
+def _segments(offsets) -> list:
+    """The staged segments [base, rows] of a tile: taps whose offsets lie
+    within ``TILE_M`` of the previous one share a segment of TILE_M + span
+    rows (``make_plan`` in the source)."""
+    segs, end = [], None
+    for o in sorted(offsets):
+        if not segs or o - end > TILE_M:
+            segs.append([o, TILE_M])
+        end = o
+        segs[-1][1] = TILE_M + o - segs[-1][0]
+    return segs
+
+
+def smem_plan(offsets, pro: str = "none") -> dict:
+    """What ``shift_wgmma_kernel`` stages for these offsets
+    (``make_wplan``, ``wbudget``): each segment in TMA boxes of
+    ``box`` rows (a multiple of 8, at most 256), ``rows`` staged rows a
+    k-chunk of 128 bytes, and as many ring slots as fit the block's shared
+    memory, at least two A slots (``a_slots``) and two weight slots
+    (``w_slots``); ``bytes`` above ``SMEM_MAX`` means the form cannot run."""
+    segs = _segments(offsets)
+    most = max(r for _, r in segs)
+    nb = -(-most // 256)
+    box = 8 * -(-most // (8 * nb))
+    rows = sum(-(-r // box) * box for _, r in segs)
+    a, w = rows * SPAN, N_TILE * SPAN
+
+    def total(na, nw):
+        return (1024 + a * (na + (pro != "none")) + w * nw + EPI_BYTES + BAR_BYTES
+                + ZERO_BYTES)
+
+    na = nw = 2
+    grew = True
+    while grew:
+        grew = False
+        if nw < MAX_SLOTS and total(na, nw + 1) <= SMEM_MAX:
+            nw, grew = nw + 1, True
+        if na < 4 and total(na + 1, nw) <= SMEM_MAX:
+            na, grew = na + 1, True
+    return {"bytes": total(na, nw), "a_slots": na, "w_slots": nw, "rows": rows, "box": box}
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +246,9 @@ def _lib():
 
     lib = load_library(_SOURCE)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {"shift_dot_launch": [P] * 3 + [I] * 6 + [P, I, I, Fl, Fl, I, I, I, P],
-            "shift_dot_smem_bytes": [P, I, I, I],
+    dot = [P] * 3 + [I] * 6 + [P, I, I, Fl, Fl, I, I, I, P]
+    sigs = {"shift_dot_launch": dot, "shift_dot_prev_launch": dot,
+            "shift_dot_smem_bytes": [P, I, I],
             "pad_inject_launch": [P, P] + [I] * 6 + [Fl, P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -215,15 +270,17 @@ def _check(kernel, name, t, dtype, shape, dev):
         raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
-def _run(kernel, fn, *args):
+def _run(kernel, fn, *args, count=True):
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    if count:
+        LAUNCHES[kernel] += 1
 
 
-def _launch_dot(a3, wt, offsets, m, strip, zlim, pro, out, oscale):
-    """Check a3 [G, MA, K] and wt against a built form and launch K12."""
+def _launch_dot(a3, wt, offsets, m, strip, zlim, pro, out, oscale, prev=False):
+    """Check a3 [G, MA, K] and wt against a built form and launch K12 (on
+    its previous core with ``prev``, counting no launch)."""
     k = "shift_dot"
     dev = a3.device
     if dev.type != "cuda":
@@ -245,17 +302,18 @@ def _launch_dot(a3, wt, offsets, m, strip, zlim, pro, out, oscale):
         raise ValueError(f"{k}: {m} rows at offset {max(offsets)} read past A's {ma} rows")
     offs = (ctypes.c_int * r)(*offsets)
     lib = _lib()
-    smem = lib.shift_dot_smem_bytes(offs, r, kk, int(mma_bf16))
-    if not 0 < smem <= SMEM_MAX:
-        raise ValueError(f"{k}: offsets {offsets} at K={kk} need {smem} bytes of shared "
+    smem = lib.shift_dot_smem_bytes(offs, r, int(pro != "none"))
+    if not prev and not 0 < smem <= SMEM_MAX:
+        raise ValueError(f"{k}: offsets {offsets} need {smem} bytes of shared "
                          f"memory a block (at most {SMEM_MAX})")
     dt = {"s32": torch.int32, "f32": torch.float32, "bf16": torch.bfloat16}[out]
     res = torch.empty((g, m, n), dtype=dt, device=dev)
+    fn = lib.shift_dot_prev_launch if prev else lib.shift_dot_launch
     with torch.cuda.device(dev):
-        _run(k, lib.shift_dot_launch, a3.data_ptr(), wt.data_ptr(), res.data_ptr(), g, m, ma,
-             kk, n, r, offs, strip, zlim, QSCALE_DOT, float(oscale),
-             int(a3.dtype == torch.bfloat16), PROLOGUES[pro], EPILOGUES[out],
-             torch.cuda.current_stream(dev).cuda_stream)
+        _run(k, fn, a3.data_ptr(), wt.data_ptr(), res.data_ptr(), g, m, ma, kk, n, r, offs,
+             strip, zlim, QSCALE_DOT, float(oscale), int(a3.dtype == torch.bfloat16),
+             PROLOGUES[pro], EPILOGUES[out], torch.cuda.current_stream(dev).cuda_stream,
+             count=not prev)
     return res
 
 
@@ -266,10 +324,19 @@ def flat_dot(a, wt, offsets, rows=None, *, pro="none", out="bf16", oscale=1.0):
     no prologue."""
     if a.device.type == "cpu":
         return flat_dot_plain(a, wt, offsets, rows, pro=pro, out=out, oscale=oscale)
+    return _flat(a, wt, offsets, rows, pro, out, oscale, False)
+
+
+def flat_dot_prev(a, wt, offsets, rows=None, *, pro="none", out="bf16", oscale=1.0):
+    """``flat_dot`` on K12's previous core, CUDA tensors only (timing)."""
+    return _flat(a, wt, offsets, rows, pro, out, oscale, True)
+
+
+def _flat(a, wt, offsets, rows, pro, out, oscale, prev):
     flat = a.dim() == 2
     a3 = a[None] if flat else a
     m = a3.shape[1] - max(offsets) if rows is None else rows
-    res = _launch_dot(a3, wt, list(offsets), m, 0, 0, pro, out, oscale)
+    res = _launch_dot(a3, wt, list(offsets), m, 0, 0, pro, out, oscale, prev)
     return res[0] if flat else res
 
 
@@ -278,12 +345,21 @@ def strip_dot(x, wt, *, pro="none", out="bf16", oscale=1.0):
     ``STRIP_TS`` output rows (H % STRIP_TS == 0), wt [9, N, C]."""
     if x.device.type == "cpu":
         return strip_dot_plain(x, wt, pro=pro, out=out, oscale=oscale)
+    return _strip(x, wt, pro, out, oscale, False)
+
+
+def strip_dot_prev(x, wt, *, pro="none", out="bf16", oscale=1.0):
+    """``strip_dot`` on K12's previous core, CUDA tensors only (timing)."""
+    return _strip(x, wt, pro, out, oscale, True)
+
+
+def _strip(x, wt, pro, out, oscale, prev):
     b, h2, w, c = x.shape
     h, ts = h2 - 2, STRIP_TS
     if h < ts or h % ts:
         raise ValueError(f"shift_dot: H={h} is not a multiple of TS={ts}")
     res = _launch_dot(x.view(b, h2 * w, c), wt, strip_offsets(w), h * w, ts * w, (ts + 2) * w,
-                      pro, out, oscale)
+                      pro, out, oscale, prev)
     return res.view(b, h, w, -1)
 
 

@@ -694,10 +694,10 @@ def test_unbuilt_forms_raise(cuda_device):
     with pytest.raises(ValueError, match="read past"):
         k12.flat_dot(a, torch.zeros((2, 128, 128), dtype=torch.int8, device=cuda_device),
                      [0, 10], 250)
-    with pytest.raises(ValueError, match="shared memory"):
-        k12.flat_dot(torch.zeros((1, 2000, 512), dtype=torch.bfloat16, device=cuda_device),
-                     torch.zeros((2, 128, 512), dtype=torch.bfloat16, device=cuda_device),
-                     [0, 700], 1000)
+    with pytest.raises(ValueError, match="shared memory"):  # nine segments of 128 rows
+        k12.flat_dot(torch.zeros((1, 2000, 128), dtype=torch.bfloat16, device=cuda_device),
+                     torch.zeros((9, 128, 128), dtype=torch.bfloat16, device=cuda_device),
+                     [200 * r for r in range(9)], 300)
     x = torch.zeros((1, 8, 16, 128), dtype=torch.bfloat16, device=cuda_device)
     ops, _ = _mk31_operands(1)
     ops = tuple(o.to(cuda_device) if isinstance(o, torch.Tensor) else o for o in ops)
