@@ -6,6 +6,7 @@ card in turns.
     python3 chip_ab.py ROOT kernels
     python3 chip_ab.py ROOT bf16
     python3 chip_ab.py ROOT experiments
+    python3 chip_ab.py ROOT profile
 
 ROOT is the root of a checkout (for example the parent commit unpacked with
 ``git archive`` into a gitignored directory); its own ``chip_smoke.py`` and
@@ -14,11 +15,14 @@ runs the 1080p B=8 Johnson slices (``chip_smoke.slice_phase``: plain bf16
 and every quantized or fused-site slice) and prints their frames/s; with
 ``--nst-chain`` it then runs the NST int8_static chain phase and the slices
 again. ``kernels`` runs phase 5, K2-K8b against their plain versions with
-their device times (K2-K6, K8a and K8b in turns with their previous
-``__dp4a`` cores); ``bf16`` the same for K9a-K9e (K9b in turns with its
-previous core). ``experiments`` runs the entry points of mk5 (K10's six
+their device times (each in turns with its previous ``__dp4a`` core);
+``bf16`` the same for K9a-K9e (K9a and K9b in turns with their previous
+cores). ``experiments`` runs the entry points of mk5 (K10's six
 forms), mk20 and mk27 (K12's flat forms) at their full shapes, each
-printing its JSON line. Run parent, change, change, parent in one call:
+printing its JSON line. ``profile`` runs ``chip_smoke.py --profile``'s
+torch.profiler pass over the 1080p Johnson slices only (plain bf16,
+``bf16_static`` and the quantized or fused-site slices): device time by
+kind of kernel. Run parent, change, change, parent in one call:
 
     for r in PARENT . . PARENT; do python3 chip_ab.py $r kernels; done
 """
@@ -31,7 +35,8 @@ from pathlib import Path
 
 
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "experiments"):
+    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "experiments",
+                                                 "profile"):
         print(__doc__)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -64,6 +69,10 @@ def main() -> int:
         return 0
     if sys.argv[2] == "bf16":
         cs.bf16_kernel_phase(dev)
+        return 0
+    if sys.argv[2] == "profile":
+        cs.NST_SLICES, cs.RECO_SLICES, cs.T7_SLICES = (), (), ()
+        cs.profile_phase(dev, None, {}, {})
         return 0
     for mode, fused in (("none", None),) + cs.SLICES:
         cs.slice_phase(dev, mode, fused)

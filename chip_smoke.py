@@ -14,7 +14,8 @@ order, and any failed phase exits non-zero:
    one nvcc each, started together, and
    print ptxas' registers, spills and warnings of every kernel, and the
    dynamic shared memory of the tensor-core cores (K2–K5's ``mma_kernel``,
-   K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K9b's
+   K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K7's
+   ``d3rows_mma_kernel``, K9a's ``d2_wgmma_kernel``, K9b's
    ``d3sum_mma_kernel``, K10's ``fused_wgmma_kernel``, K12's
    ``shift_wgmma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
@@ -33,7 +34,7 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
-   K2–K6, K8a and K8b also beside their previous ``__dp4a`` design (``*_prev``,
+   K2–K8b also beside their previous ``__dp4a`` design (``*_prev``,
    held to the same outputs; K3 and K4 at the Johnson and NST widths, the
    others at every case), in turns: plain, kernel, previous, kernel,
    previous, plain, and two launches of each bit-identical;
@@ -44,8 +45,12 @@ order, and any failed phase exits non-zero:
    version everywhere (an ulp taken at no less than 2^-8 of the tensor's
    largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
    equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9b also
-   beside its previous design, ``d3_sum_site_prev``, both held to the same
-   bounds against the plain version and against each other); then K2
+   and K9a beside their previous designs, ``d3_sum_site_prev`` and
+   ``d2_site_prev``, both held to the same bounds against the plain version
+   and against each other); then K7 and K9a at ragged shapes (W off the
+   32-column strip and tile, H below the 8-row tile, B = 1 and 3) against
+   their plain versions and previous cores (K7 bit for bit, K9a within the
+   K9 bounds, two launches bit-identical); then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
    codes 0; then each of the port's experiment entry points
@@ -68,7 +73,8 @@ order, and any failed phase exits non-zero:
    mk21's tap9, k384 on regrouped weights, noq on s8 input), mk27's six
    shifted dots over G = 32 slices [32, 8256, 128] → [32, 8192, 128] (s8 at
    offsets r and 32r, bf16, the saturating cast); K13 (``pad_inject``,
-   mk28's P1 pad and P2 quantize + inject on one [1, 8, 480, 128] strip);
+   mk28's P1 pad and P2 quantize + inject on one [1, 8, 480, 128] strip,
+   timed with ``F.pad`` and mk28's P5 by CUDA graph replay);
    K4's new forms at mk31's [16, 270, 480, 128] (``prologue="cast"``, v1;
    ``stats=False``, v2 and mk28's P5), counts zeroed around them (K12, K13
    and both K4 forms must launch): the integer-valued outputs bit-identical
@@ -137,10 +143,10 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K6, K8a, K8b; K9b; K10, K12) with
+instead builds the tensor-core cores (K2–K8b; K9a, K9b; K10, K12) with
 ``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
-the probes' shapes), the share of each phase of the tile loop (K6, K9b: of
-the row loop) in the clock of every block's thread 0.
+the probes' shapes), the share of each phase of the tile loop (K6, K7,
+K9b: of the row loop) in the clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -295,14 +301,15 @@ PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
 # K2-K5 run on the int8 tensor cores (mma_kernel), K8a and K8b on its
-# stride-2 form (mma_s2_kernel) and K6 on d3s8_mma_kernel; their previous
-# __dp4a design (site_kernel, rows_kernel) stays callable for the
-# comparison, K2's and K5's also at ReCoNet's C = 192 (K3's and K4's
-# previous design was built without it); K9b runs on d3sum_mma_kernel, its
-# previous design (rows_kernel_bf16) likewise
+# stride-2 form (mma_s2_kernel), K6 on d3s8_mma_kernel and K7 on
+# d3rows_mma_kernel; their previous __dp4a design (site_kernel, rows_kernel)
+# stays callable for the comparison, K2's and K5's also at ReCoNet's C = 192
+# (K3's and K4's previous design was built without it); K9b runs on
+# d3sum_mma_kernel and K9a on d2_wgmma_kernel, their previous designs
+# (rows_kernel_bf16, site_kernel_bf16) likewise
 REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "c3_site",
-              "d3_s8_site")
-REDESIGNED_BF16 = ("d3_sum_site",)
+              "d3_s8_site", "d3_rows_site")
+REDESIGNED_BF16 = ("d3_sum_site", "d2_site")
 PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
@@ -1009,6 +1016,46 @@ def ragged_reco_phase(dev):
         log(f"ReCoNet forms at {b}x{h}x{w}x{c}: {', '.join(c_[0] for c_ in cases)}"
             f"{' (+ site_s8 on each emit)' if c == 192 else ''}: bit-identical to their plain "
             "versions and across two launches")
+
+
+# K7's and K9a's tensor-core cores at ragged shapes (B, H, W): widths off
+# the 32-column strip and tile, heights below the 8-row tile (K9a's 4-row
+# tile: a partial bottom tile), one image and three
+RAGGED_K7_K9A = ((1, 5, 45), (3, 7, 70), (1, 3, 33), (3, 13, 100), (1, 2, 2))
+
+
+def ragged_k7_k9a_phase(dev):
+    """K7 (``d3_rows_site``) and K9a (``d2_site``) at ragged shapes against
+    their plain versions and their previous cores: K7 bit-identical to both,
+    K9a within the K9 bounds of ``check_bf16_site`` (1 ulp, 99% equal, sums
+    within 1e-5) of both; two launches bit-identical."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    for i, (b, h, w) in enumerate(RAGGED_K7_K9A):
+        t = site_inputs(dev, b, h, w, k8.D3_C, k8.CO_TILE, seed=400 + i)
+        args = (t["x"], t["a"], t["c"], t["wk5"], t["ws5"])
+        rows, again = k8.d3_rows_site(*args), k8.d3_rows_site(*args)
+        prev, ref = k8.d3_rows_site_prev(*args), k8.d3_rows_site_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(rows, again) and torch.equal(rows, ref) and torch.equal(prev, ref)):
+            fail(f"d3_rows_site at {b}x{h}x{w}: not bit-identical to its plain version, its "
+                 "previous core or itself")
+        del t, args, rows, again, prev, ref
+        args = bf16_site_inputs(dev, "d2_site", (b, h, w, 64), seed=410 + i)
+        out, again, ref = k9.d2_site(*args), k9.d2_site(*args), k9.d2_site_plain(*args)
+        p1, p2 = k9.d2_site_prev(*args), k9.d2_site_prev(*args)
+        torch.cuda.synchronize()
+        _, worst, equal = check_bf16_site(f"d2_site ragged {b}x{h}x{w}", out, again, ref, args)
+        check_bf16_site(f"d2_site (previous core) ragged {b}x{h}x{w}", p1, p2, ref, args)
+        check_bf16_site(f"d2_site against its previous core ragged {b}x{h}x{w}", out, again, p1,
+                        args)
+        log(f"K7 and K9a at {b}x{h}x{w}: K7 bit-identical to its plain version and previous "
+            f"core; K9a {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 bounds "
+            "of its plain version and previous core; two launches bit-identical")
+        del args, out, again, ref, p1, p2
 
 
 def reference_phase(dev):
@@ -1893,7 +1940,9 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
     with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
     no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
     under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
-    d3s8_mma_kernel K6; d3sum_mma_kernel K9b; shift_wgmma_kernel<A bf16,
+    d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
+    their previous cores); d3sum_mma_kernel K9b; d2_wgmma_kernel K9a
+    (site_kernel_bf16<64, 1, ...> its previous core); shift_wgmma_kernel<A bf16,
     prologue, epilogue, 128> K12 and shift_dot_kernel its previous core, at
     probe 2's and the strip form's shared memory; fused_wgmma_kernel<prologue,
     statistics, 128> K10 and site_kernel_bf16<128, 1, 1, ...> its previous
@@ -1928,9 +1977,20 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
             elif base == "d3s8_mma_kernel":
                 short += " (K6)"
                 smem = k8._lib().d3s8_mma_smem_bytes()
+            elif base == "d3rows_mma_kernel":
+                short += " (K7)"
+                smem = k8._lib().d3rows_mma_smem_bytes()
+            elif base == "rows_kernel":
+                short += " (K7, previous core)" if targs == ["0", "1"] else \
+                    " (K6, previous core)"
             elif base == "d3sum_mma_kernel":
                 short += " (K9b)"
                 smem = k9._lib().d3sum_mma_smem_bytes()
+            elif base == "d2_wgmma_kernel":
+                short += " (K9a)"
+                smem = k9._lib().d2_wgmma_smem_bytes()
+            elif base == "site_kernel_bf16" and targs[:2] == ["64", "1"]:
+                short += " (K9a, previous core)"
             elif base == "shift_wgmma_kernel":
                 pro = "none" if targs[1] == "0" else "quant"
                 short += " (K12)"
@@ -1957,11 +2017,18 @@ PHASES_D3 = ("next rows' loads issued", "wait for the row's codes", "MMAs issued
              "K lanes and dy-sum (MMA drain incl.)", "the row's stores")
 PHASES_D3_BF16 = ("next row's loads issued", "wait for the row's raw input", "activation",
                   "MMAs issued", "K lanes, dy-sum and stores (MMA drain incl.)")
+# K7's item loop (warp 0 of each block)
+PHASES_D3_ROWS = ("wait for the next item's raw input", "its quantize, the loads after issued",
+                  "MMAs issued", "fragment epilogue (MMA drain incl.)", "the item's stores")
 # K12's (shift_wgmma_kernel) and K10's (fused_wgmma_kernel) tile loops
 PHASES_K12 = ("wait for a k-chunk's rows", "wait for a tap's weights", "prologue conversion",
               "fragments and MMAs issued", "epilogue (MMA drain incl.)")
 PHASES_K10 = ("wait for the tile's input", "activation", "wait for a tap's weights",
               "fragments and MMAs issued", "epilogue and statistics (MMA drain incl.)")
+PHASES_K9A = ("wait for the tile's input", "the first tile's halo patch and activation",
+              "wait for the weights (once)",
+              "fragments and MMAs issued (the next tile's patch and activation between)",
+              "epilogue and statistics (MMA drain incl.)")
 
 
 def _phase_build(module):
@@ -2012,11 +2079,11 @@ def _phase_shares(lib, kernel, label, labels):
 
 
 def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K6, K8a, K8b; K9b; K12, K10) built
+    """--phases: the tensor-core cores (K2-K8b; K9a, K9b; K12, K10) built
     with MMA_PHASE_CLOCKS, each of their 1080p B=8 cases (K12: the probes'
-    shapes) run once; the share of each phase of the tile loop (K6, K9b: of
-    warp 0's row loop) in the clock of every block's thread 0, averaged over
-    blocks."""
+    shapes) run once; the share of each phase of the tile loop (K6, K7, K9b:
+    of warp 0's row loop) in the clock of every block's thread 0, averaged
+    over blocks."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
@@ -2026,8 +2093,9 @@ def phases_phase(dev):
     builds = [_phase_build(k8), _phase_build(k9), _phase_build(k12)]  # all nvcc at once
     lib8 = _phase_lib(k8, *builds[0], ("res_site_s8o_launch", "site_s8_launch",
                                        "res_site_launch", "res_site_skip_launch",
-                                       "site_s2_launch", "d3_s8_launch"))
-    lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch"))
+                                       "site_s2_launch", "d3_s8_launch", "d3_rows_launch"))
+    lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch",
+                                       "d2_site_launch"))
     lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
     base8, base9, base12 = k8._lib, k9._lib, k12._lib
     # the wrappers launch the instrumented builds
@@ -2037,8 +2105,8 @@ def phases_phase(dev):
             for shape, form in INT8_KERNELS[name][0]:
                 t = site_inputs(dev, *SITE_SHAPES[shape][:5], seed=11)
                 kernel = site_calls(name, t, shape, form)[0]
-                labels = {"d3_s8_site": PHASES_D3, "c2_site": PHASES_S2,
-                          "c3_site": PHASES_S2}.get(name, PHASES)
+                labels = {"d3_s8_site": PHASES_D3, "d3_rows_site": PHASES_D3_ROWS,
+                          "c2_site": PHASES_S2, "c3_site": PHASES_S2}.get(name, PHASES)
                 _phase_shares(lib8, kernel, f"{name} @ {shape}{'/' + form if form else ''}",
                               labels)
                 del t, kernel
@@ -2047,7 +2115,7 @@ def phases_phase(dev):
             shape = BF16_KERNELS[name][0]
             args = bf16_site_inputs(dev, name, shape, seed=11)
             _phase_shares(lib9, lambda: getattr(k9, name)(*args), f"{name} @ {shape}",
-                          PHASES_D3_BF16)
+                          {"d2_site": PHASES_K9A}.get(name, PHASES_D3_BF16))
             del args
             torch.cuda.empty_cache()
         for label, call in k12_phase_cases(dev, k12):
@@ -2098,7 +2166,7 @@ def k12_phase_cases(dev, k12):
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
-    if "kernel_bf16" in n or "stats_reduce_bf16" in n or "d3sum_mma" in n:
+    if any(k in n for k in ("kernel_bf16", "stats_reduce_bf16", "d3sum_mma", "d2_wgmma")):
         return "bf16 sites K9a-K9e"
     if any(k in n for k in ("site_kernel", "mma_kernel", "mma_s2_kernel", "stats_reduce",
                             "rows_kernel")):
@@ -2236,6 +2304,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     exp_launches, exp = experiments_phase(dev)
     ragged_sw_phase(dev)
     ragged_reco_phase(dev)
+    ragged_k7_k9a_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)

@@ -9,7 +9,9 @@
 //                                    lanes over the 4-pixel reflect halo → bf16 rows
 //   K9b d3_sum_site   (_d3s_kernel)  the same rows, kept on chip, then the 5-row dy-sum in f32
 //                                    + bias → 12 bf16 lanes
-// Three cores. site_kernel_bf16 is K9a/K9c/K9d: a 3x3 conv at stride 1
+// Three cores. site_kernel_bf16 is K9c/K9d (and K9a's previous form,
+// d2_site_prev_launch, for timing only; K9a runs on d2_wgmma_kernel,
+// below): a 3x3 conv at stride 1
 // (edge-copy halo) or 2 (pixel-reflect halo; an even size never reads the
 // bottom or right pad) of bf16 activations that the prologue makes from the
 // raw input, x' = bf16(max(f32(x)*a + c, 0)) with the product and the sum
@@ -71,6 +73,15 @@
 // The statistics are deterministic: per thread in a fixed order, lanes by
 // shuffle, warps in order, then a [B, tiles, 2, CO] buffer that a second
 // kernel reduces over tiles in order in double. No float atomics.
+//
+// d2_wgmma_kernel (K9a) is K10's fused_wgmma_kernel at 64 input channels
+// with an edge halo: a tile's haloed 6 x 34 input is one 128-byte row a
+// pixel (26 KB), and all nine taps' weights (147 KB, K-major as
+// pack_site_weights lays them out) stay resident, loaded once a block, so
+// the producer streams only input tiles (two buffers of 32 KB, each the
+// tile's staged output afterwards). TMA fills the box's positions outside
+// the image with zeros; a border tile copies the edge pixels over them
+// (d2_patch) before the activation, which must never see the zero fill.
 //
 // What bounds them on an H100 (1080p, B = 8): K9a is 3.06e11 MAC = 0.62 ms at
 // the 989 TFLOP/s bf16 peak against 0.475 ms for its 1.59 GB: operations; the
@@ -830,6 +841,318 @@ int launch_fused_wgmma(const __nv_bfloat16* x, const float* stat, const __nv_bfl
 }
 
 // ---------------------------------------------------------------------------
+// d2_wgmma_kernel: K9a on Hopper's warpgroup MMAs, fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kDC = 64, kDCO = 128;             // deconv2's phase conv: 64 → 128 channels
+constexpr int kDPix = kFPix;                    // a 4 x 32 output tile's haloed 6 x 34 input
+constexpr int kDIn = kDPix * kSpan;             // its bytes (64 channels: one 128-byte row a pixel)
+constexpr int kDOut = kFTH * kFTW * kDCO * 2;   // the tile's bf16 output, two 64-channel halves
+constexpr int kDBuf = kDOut > kDIn ? kDOut : kDIn;  // a buffer: the input, then the staged output
+constexpr int kDSlab = kDCO * kSpan;            // one tap's weights [128 co][64 c]
+constexpr int kDNIn = 2;                        // input tiles in flight
+constexpr int kDActFrom = 6, kDActPer = 3;      // the next tile activated from tap 6, 3 pieces a tap
+constexpr size_t kDSmem = 1024 + (size_t)kDNIn * kDBuf + 9 * (size_t)kDSlab +
+                          sizeof(float) * (2 * 2 * kDC + kDCO + 8 * 2 * kDCO) + 64;
+static_assert(kDSmem <= 232448, "the block fits in an SM's shared memory");
+
+struct alignas(64) D2Args {
+  CUtensorMap map_x;    // x [B][H][W][64]: boxes of 64 channels x kFHC x kFHR x 1 (zero fill outside)
+  CUtensorMap map_w;    // w [9][128][64]: boxes of 64 c x 128 co x 1
+  CUtensorMap map_out;  // out [B][H][W][128]: boxes of 64 co x kFTW x kFTH x 1
+  const float *a, *c;   // [B][64] the in4 affine
+  const float* bias;    // [128]
+  float* part;          // [B][tiles an image][2][128]
+  int H, W, tx, tpi, tiles;  // column tiles, tiles an image, tiles in all
+};
+
+// The edge halo of a tile whose haloed input crosses the image's border:
+// TMA filled the positions outside the image with zeros; each position of
+// the image's one-pixel frame (row -1 or H, column -1 or W) takes the raw
+// pixel of the nearest row and column inside, which the tile holds. Farther
+// positions (a partial tile's rows past H + 1 or columns past W + 1) feed
+// only outputs that are not stored. Pieces are 16 bytes, in and out of the
+// 128-byte swizzle. Before the activation: x' of an edge copy is the copy of
+// x'.
+__device__ __forceinline__ void d2_patch(uint8_t* tile, int ty0, int tx0, int H, int W, int tid) {
+  if (ty0 > 0 && tx0 > 0 && ty0 + kFTH < H && tx0 + kFTW < W) return;
+  for (int i = tid; i < kDPix * 8; i += kFCons) {
+    const int pix = i >> 3, q = i & 7;
+    const int gy = ty0 - 1 + pix / kFHC, gx = tx0 - 1 + pix % kFHC;
+    if (gy < -1 || gy > H || gx < -1 || gx > W || (gy >= 0 && gy < H && gx >= 0 && gx < W))
+      continue;
+    const int sy = min(max(gy, 0), H - 1), sx = min(max(gx, 0), W - 1);
+    const int src = (sy - ty0 + 1) * kFHC + (sx - tx0 + 1);
+    *reinterpret_cast<uint4*>(tile + swz(pix, q)) =
+        *reinterpret_cast<const uint4*>(tile + swz(src, q));
+  }
+}
+
+// K9a: fused_wgmma_kernel's design at C = 64 with the weights resident. A
+// persistent block an SM walks 4 x 32-pixel tiles; its producer warpgroup
+// brings all nine taps' [128 co][64 c] weights by TMA once (147,456 bytes)
+// and then each tile's haloed 6 x 34 x 64 input one tile ahead (two
+// buffers); two consumer warpgroups of 64 pixels run wgmma m64n128k16, B
+// K-major through its descriptor, A from registers by ldmatrix at each
+// tap's (dy, dx) shift, 9 groups (taps) of 4 k16 steps a tile. The next
+// tile's halo patch (border tiles) and activation run during this tile's
+// last three groups; the epilogue stages bf16 in the tile's own buffer for
+// a TMA store and folds the statistics as K10's does. Of the variants timed
+// on an H100 (PERF.md section 6) this was the fastest: bf16 pairs stored
+// straight from the accumulators, which frees a buffer for a third input
+// tile in flight, was slower, and activating from tap 7 or 8 no faster. With
+// -DMMA_PHASE_CLOCKS thread 0 adds the clocks of: 0 waiting for an input
+// tile, 1 the first tile's patch and activation, 2 waiting for the weights
+// (once), 3 the fragments loaded and the MMAs issued (the next tile's patch
+// and activation between them), 4 the epilogue and the statistics (the last
+// MMAs' drain included).
+__global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_constant__ D2Args p) {
+  constexpr int PIECES = kDPix * 8;  // 16-byte pieces of an input tile
+  static_assert((PIECES + kFCons - 1) / kFCons <= kDActPer * (9 - kDActFrom),
+                "activation outruns the MMAs");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_in = base;                                         // [kDNIn][kDBuf]
+  uint8_t* s_w = s_in + kDNIn * kDBuf;                          // [9][128 co][128 B]
+  float* s_aff = reinterpret_cast<float*>(s_w + 9 * kDSlab);    // [2][a 64, c 64]: by tile parity
+  float* s_bias = s_aff + 2 * 2 * kDC;                          // [128]
+  float* s_sum = s_bias + kDCO;                                 // [8 warps][2][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_sum + 8 * 2 * kDCO);
+  uint64_t* in_full = bars;
+  uint64_t* in_empty = bars + kDNIn;
+  uint64_t* w_full = bars + 2 * kDNIn;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int i = 0; i < kDNIn; ++i) {
+      mbar_init(&in_full[i], 1);
+      mbar_init(&in_empty[i], 1);
+    }
+    mbar_init(w_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < kDCO) s_bias[tid] = p.bias[tid];
+  __syncthreads();
+
+  auto tile_of = [&](int t, int& b, int& ty0, int& tx0) {
+    b = t / p.tpi;
+    ty0 = (t % p.tpi) / p.tx * kFTH;
+    tx0 = (t % p.tpi) % p.tx * kFTW;
+  };
+  if (warp >= kFCons / 32) {
+    // the producer: one lane brings the weights, then the input tiles
+    setmaxnreg_dec<40>();  // its registers go to the consumers
+    if (warp == kFCons / 32 && lane == 0) {
+      mbar_expect_tx(w_full, 9u * kDSlab);
+      for (int tap = 0; tap < 9; ++tap) tma_load_3d(s_w + tap * kDSlab, &p.map_w, w_full, 0, 0, tap);
+      Ring ri = {0, 0u};
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        int b, ty0, tx0;
+        tile_of(t, b, ty0, tx0);
+        mbar_wait(&in_empty[ri.i], ri.ph ^ 1u);
+        mbar_expect_tx(&in_full[ri.i], (uint32_t)kDIn);
+        tma_load_4d(s_in + ri.i * kDBuf, &p.map_x, &in_full[ri.i], 0, tx0 - 1, ty0 - 1, b);
+        ri.next(kDNIn);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // the consumers: warp wq of warpgroup wg computes output row 2wg + wq / 2,
+  // columns 16·(wq % 2).. of the tile, on all 128 channels
+  const int wg = warp >> 2, wq = warp & 3, gq = lane >> 2, tg = lane & 3;
+  const int ly = 2 * wg + (wq >> 1), lx = 16 * (wq & 1);
+  const int khalf = lane >> 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  uint32_t afr[2][16];
+  Ring ri = {0, 0u};
+
+  // the affine of image b into parity slot `par` (threads 0..127)
+  auto stage_aff = [&](int par, int b) {
+    if (tid < 2 * kDC) s_aff[par * 2 * kDC + tid] = (tid < kDC ? p.a : p.c)[b * kDC + tid % kDC];
+  };
+  // the prologue in place on piece i of an input tile: channels 8·(its
+  // swizzled position)
+  auto activate = [&](uint8_t* tile, const float* aff, int i) {
+    const int pix = i >> 3, q = i & 7;
+    const int ch = 8 * (q ^ (pix & 7));
+    uint4* ptr = reinterpret_cast<uint4*>(tile + pix * kSpan + 16 * q);
+    *ptr = prologue8<kProF32>(*ptr, aff + ch, aff + kDC + ch);
+  };
+  MMA_PHASE_START
+  if ((int)blockIdx.x < p.tiles) {
+    int b, ty0, tx0;
+    tile_of(blockIdx.x, b, ty0, tx0);
+    stage_aff(0, b);
+    mbar_wait(&in_full[0], 0u);
+    MMA_PHASE(0)
+    d2_patch(s_in, ty0, tx0, p.H, p.W, tid);
+    bar_sync(1, kFCons);  // the affine is staged, the halo patched
+    for (int i = tid; i < PIECES; i += kFCons) activate(s_in, s_aff, i);
+    bar_sync(1, kFCons);  // the first tile is activated
+    MMA_PHASE(1)
+    mbar_wait(w_full, 0u);
+    MMA_PHASE(2)
+  }
+
+  for (int t = blockIdx.x, n = 0; t < p.tiles; t += gridDim.x, ++n) {
+    int b, ty0, tx0;
+    tile_of(t, b, ty0, tx0);
+    uint8_t* buf = s_in + ri.i * kDBuf;
+    const uint32_t buf_s = smem_addr(buf);
+    // the next tile, patched and activated during this one's MMAs
+    const int tn = t + gridDim.x;
+    const bool next = tn < p.tiles;
+    int nb = 0, nty0 = 0, ntx0 = 0;
+    if (next) tile_of(tn, nb, nty0, ntx0);
+    Ring rn = ri;
+    rn.next(kDNIn);
+    uint8_t* nbuf = s_in + rn.i * kDBuf;
+    const float* naff = s_aff + ((n + 1) & 1) * 2 * kDC;
+    if (next) stage_aff((n + 1) & 1, nb);
+    mbar_wait(&in_full[ri.i], ri.ph);
+    MMA_PHASE(0)
+
+    // 9 taps x 4 k16 steps, a group a tap; A by ldmatrix at the tap's (dy,
+    // dx) pixel shift, into the register set the group before last used
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int pix = (ly + tap / 3) * kFHC + lx + (lane & 15) + tap % 3;
+      const uint32_t rb = buf_s + (uint32_t)pix * kSpan;
+      const uint64_t desc = desc_kmajor(smem_addr(s_w + tap * kDSlab));
+      uint32_t(&f)[16] = afr[tap & 1];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t(&fs)[4] = *reinterpret_cast<uint32_t(*)[4]>(&f[4 * s]);
+        ldsm_x4(fs, rb + (uint32_t)(((2 * s + khalf) ^ (pix & 7)) << 4));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) wgmma_bf16<0>(acc, &f[4 * s], desc + 2 * s, tap | s);
+      wgmma_commit();
+      if (tap == 0 && n > 0 && tid == 0) {
+        bulk_wait_read<0>();  // the tile before's output has left its buffer
+        mbar_arrive(&in_empty[rn.i]);
+      }
+      if (next && tap >= kDActFrom) {
+        if (tap == kDActFrom) {
+          MMA_PHASE(3)
+          mbar_wait(&in_full[rn.i], rn.ph);
+          MMA_PHASE(0)
+          d2_patch(nbuf, nty0, ntx0, p.H, p.W, tid);
+          bar_sync(1, kFCons);  // its affine is staged, its halo patched
+        }
+#pragma unroll
+        for (int h = 0; h < kDActPer; ++h) {
+          const int i = tid + kFCons * (kDActPer * (tap - kDActFrom) + h);
+          if (i < PIECES) activate(nbuf, naff, i);
+        }
+      }
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    MMA_PHASE(3)
+
+    // epilogue: + bias in f32, bf16 into the input tile's buffer (every warp
+    // is done reading it), stored by TMA (rows and columns past H, W are not
+    // written); the sums of the f32 values of the pixels inside the grid,
+    // per thread over its two pixels, then over the 8 lanes that share a
+    // channel by a reduce-scatter (each lane keeps 4 of a pass's 32 sums)
+    bar_sync(1, kFCons);
+    const int oy = ty0 + ly;
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      float v[32];  // [Σ, Σ²][8 channel groups][2 channels]
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * pass + jj, co = 8 * j + 2 * tg;
+        const float bi0 = s_bias[co], bi1 = s_bias[co + 1];
+        float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = lx + gq + 8 * h;
+          const float f0 = __fadd_rn(acc[4 * j + 2 * h], bi0);
+          const float f1 = __fadd_rn(acc[4 * j + 2 * h + 1], bi1);
+          *reinterpret_cast<__nv_bfloat162*>(buf + pass * (kFTH * kFTW * kSpan) +
+                                             swz(ly * kFTW + px, jj) + 4 * tg) =
+              __floats2bfloat162_rn(f0, f1);
+          if (oy < p.H && tx0 + px < p.W) {
+            s1[0] = __fadd_rn(s1[0], f0);
+            s1[1] = __fadd_rn(s1[1], f1);
+            s2[0] = __fadd_rn(s2[0], __fmul_rn(f0, f0));
+            s2[1] = __fadd_rn(s2[1], __fmul_rn(f1, f1));
+          }
+        }
+        v[2 * jj] = s1[0];
+        v[2 * jj + 1] = s1[1];
+        v[16 + 2 * jj] = s2[0];
+        v[16 + 2 * jj + 1] = s2[1];
+      }
+      fold_half<16, 16>(v, lane);  // Σ or Σ² by gq bit 2
+      fold_half<8, 8>(v, lane);    // channel group bit 2 by gq bit 1
+      fold_half<4, 4>(v, lane);    // channel group bit 1 by gq bit 0
+      const int s = (lane >> 4) & 1, jj0 = ((lane >> 3) & 1) * 4 + ((lane >> 2) & 1) * 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s_sum[(warp * 2 + s) * kDCO + 8 * (8 * pass + jj0 + (i >> 1)) + 2 * tg + (i & 1)] = v[i];
+    }
+    fence_async_smem();
+    bar_sync(1, kFCons);
+    if (tid == 0) {  // the buffer is released once the store has read it (next tile)
+      for (int hc = 0; hc < 2; ++hc)
+        tma_store_4d(&p.map_out, buf + hc * (kFTH * kFTW * kSpan), 64 * hc, tx0, ty0, b);
+      bulk_commit();
+    }
+    ri.next(kDNIn);
+    {  // warps in order, for the tile's partial sums
+      const int s = tid >> 7, co = tid & 127;
+      float v = 0.0f;
+      for (int w = 0; w < kFCons / 32; ++w) v = __fadd_rn(v, s_sum[(w * 2 + s) * kDCO + co]);
+      p.part[(((size_t)b * p.tpi + t % p.tpi) * 2 + s) * kDCO + co] = v;
+    }
+    MMA_PHASE(4)
+  }
+  if (tid == 0) bulk_wait_read<0>();
+  MMA_PHASE_END
+}
+
+// K9a on d2_wgmma_kernel and the reduce.
+int launch_d2_wgmma(const __nv_bfloat16* x, const float* a, const float* c,
+                    const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out, float* part,
+                    float* sums, int B, int H, int W, void* stream) {
+  if (B <= 0 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  D2Args p = {};
+  const int dx[4] = {kDC, W, H, B}, bx[4] = {kDC, kFHC, kFHR, 1};
+  const int dw[3] = {kDC, kDCO, 9}, bw[3] = {kDC, kDCO, 1};
+  const int dout[4] = {kDCO, W, H, B}, bout[4] = {64, kFTW, kFTH, 1};
+  const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_map(&p.map_x, b16, 2, x, 4, dx, bx) || !make_map(&p.map_w, b16, 2, w, 3, dw, bw) ||
+      !make_map(&p.map_out, b16, 2, out, 4, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  p.a = a; p.c = c; p.bias = bias; p.part = part;
+  p.H = H; p.W = W;
+  p.tx = (W + kFTW - 1) / kFTW;
+  p.tpi = p.tx * ((H + kFTH - 1) / kFTH);
+  p.tiles = B * p.tpi;
+  cudaError_t err = cudaFuncSetAttribute(d2_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  d2_wgmma_kernel<<<p.tiles < sms ? p.tiles : sms, kFThreads, kDSmem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = B * 2 * kDCO;
+  stats_reduce_bf16<<<(n + 255) / 256, 256, 0, s>>>(part, sums, B, p.tpi, kDCO);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // c1_kernel: Johnson's conv1 as the f=2 block conv (K11)
 // ---------------------------------------------------------------------------
 
@@ -1409,13 +1732,27 @@ int launch_d3sum_mma(const RowsArgs& p, void* stream) {
 // ceil(W/32) of the output grid at stride 1 and ceil(H/8) * ceil(W/16) at
 // stride 2; sums is [B,2,CO].
 
-// K9a: deconv2 in its phase form, x [B,H,W,64] → out [B,H,W,128], edge halo.
+// K9a: deconv2 in its phase form, x [B,H,W,64] → out [B,H,W,128], edge halo;
+// on d2_wgmma_kernel (x, w and out 16-byte aligned; part [B, ceil(H/4)·
+// ceil(W/32), 2, 128]).
 extern "C" int d2_site_launch(const __nv_bfloat16* x, const float* a, const float* c,
                               const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out,
                               float* part, float* sums, int B, int H, int W, void* stream) {
+  return launch_d2_wgmma(x, a, c, w, bias, out, part, sums, B, H, W, stream);
+}
+
+// K9a on its previous core (site_kernel_bf16<64, 1>: 8 x 32 tiles on 64
+// channels), for timing only.
+extern "C" int d2_site_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                   const __nv_bfloat16* w, const float* bias,
+                                   __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                                   int W, void* stream) {
   return launch_site<64, 1>(site_args(x, a, c, w, bias, out, part, B, H, W, 128, 1), sums,
                             stream);
 }
+
+// Dynamic shared memory of K9a's block (d2_wgmma_kernel).
+extern "C" int d2_wgmma_smem_bytes() { return (int)kDSmem; }
 
 // K9c: conv2, x [B,H,W,32] (H, W even) → out [B,H/2,W/2,64], reflect halo.
 extern "C" int c2_site_bf16_launch(const __nv_bfloat16* x, const float* a, const float* c,

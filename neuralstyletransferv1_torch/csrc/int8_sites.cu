@@ -30,9 +30,9 @@
 // layout only, and as pixel convs they are K4 at stride 2. K6/K7 are
 // deconv3 in its tap-packed form, a 1x5 conv of the 128-channel
 // space-to-depth tensor to 60 lanes (5 kernel rows x 4 phases x 3 channels,
-// padded to 64 with zero weights), zero column pads: K7 on a second core
-// (rows_kernel), K6 on the tensor cores (d3s8_mma_kernel, below), its
-// rows_kernel form buildable as d3_s8_prev_launch.
+// padded to 64 with zero weights), zero column pads: K6 and K7 on the
+// tensor cores (d3s8_mma_kernel, d3rows_mma_kernel, below), their previous
+// rows_kernel forms buildable as d3_s8_prev_launch and d3_rows_prev_launch.
 //
 // site_kernel: block = 256 threads = one 8x16-pixel output tile x 64 output
 // channels of one image. The haloed input tile ((8-1)*S+3 rows x (16-1)*S+3
@@ -72,8 +72,7 @@
 // 1.5e11 ops each) and K6/K7 (3.2e11 ops each) are bound by their bytes.
 // site_kernel runs __dp4a on the CUDA cores, whose peak is ~62 TMAC/s, 16x
 // below the tensor cores: it is bound by the dp4a rate (~3.1 ms a res site,
-// 20x the bound). Only the _prev forms run on it now; K7 runs on
-// rows_kernel.
+// 20x the bound). Only the _prev forms run on it and on rows_kernel now.
 //
 // mma_kernel (K2-K5): the same 3x3 conv as an implicit GEMM on the int8
 // tensor cores, mma.sync.m16n8k32.s8.s8.s32 fed by ldmatrix: M = the 16
@@ -178,6 +177,20 @@
 // thread that holds output channel o of a pixel holds all five of its dy
 // lanes (d3_slot_row). Its 3.2e11 operations and 0.63 GB are near balance
 // on an H100; the MMAs' issue takes most of its time (--phases).
+//
+// d3rows_mma_kernel (K7): K6's rows conv on a bf16 input with a quantizing
+// prologue and the 60 conv lanes as its output: 1.06 GB in and 0.50 GB out
+// for 3.2e11 operations at 1080p B=8, bound by its bytes (0.47 ms). There
+// is no dy-sum, so each (image, 32-column strip, row) is an independent item:
+// each warp walks a contiguous share of them, lanes in their natural order,
+// one item ahead: the raw bf16 of the item after next comes by cp.async into
+// the warp's landing buffer while this item's MMAs run, and is quantized
+// (quantize_i, one 16-byte chunk of 8 channels a lane and pass) into the
+// other of two code slots. A code slot, once its MMAs are done, stages the
+// item's 32 x 60 bf16 outputs (3,840 contiguous bytes in the output) for
+// coalesced stores. Weights 46,080 bytes + 8 warps x (landing 9,216 + two
+// code slots 10,368) = 202,752 bytes: a third code slot, or a separate
+// output buffer beside a second landing row, would not fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -2030,6 +2043,238 @@ int launch_d3s8_mma(const RowsArgs& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d3rows_mma_kernel: K7 on the int8 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kRLand = kDHC * 2 * kRC;  // one conv row's raw bf16 input: 36 pixels x 256 bytes
+constexpr int kRPass = kDHC * 16 / 32;  // 16-byte chunks of it a lane: 18
+
+struct D3RowsSmem {
+  static constexpr int W = 5 * kCOT * kDPX;          // [dx][lane][kDPX] weights
+  static constexpr int ROW = kDHC * kDPX;            // one conv row of codes, then its outputs
+  static constexpr int OUT = kDStrip * kLanes * 2;   // one item's outputs: 32 x 60 bf16
+  static constexpr int WARP = kRLand + 2 * ROW;      // landing buffer, two code slots
+  static constexpr size_t bytes = W + kWarps * WARP;
+  static_assert(OUT <= ROW, "an item's outputs are staged in its code slot");
+  static_assert(bytes <= 232448, "the block fits in an SM's shared memory");
+};
+
+// Item r of the B·strips·H (image, 32-column strip, row) space, rows down a
+// strip: its image, row and first column.
+struct D3Item {
+  int b, y, x0;
+  __device__ __forceinline__ D3Item(long long r, int H, int strips_x) {
+    const long long strip = r / H;
+    y = (int)(r - strip * H);
+    b = (int)(strip / strips_x);
+    x0 = (int)(strip - (long long)b * strips_x) * kDStrip;
+  }
+};
+
+// With -DMMA_PHASE_CLOCKS (warp 0 of each block): 0 the wait for the next
+// item's raw input, 1 its quantize and the loads of the one after issued,
+// 2 this item's MMAs issued, 3 the fragment epilogue (the MMAs' drain
+// included), 4 the item's stores.
+__global__ void __launch_bounds__(kThreads, 1)
+    d3rows_mma_kernel(RowsArgs p, int strips_x, long long rows_total) {
+  using S = D3RowsSmem;
+  extern __shared__ __align__(16) uint8_t smem8[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  uint8_t* s_w = smem8;
+  uint8_t* s_land = smem8 + S::W + warp * S::WARP;  // [36][256] raw bf16
+  uint8_t* s_code = s_land + kRLand;                 // [2][36][kDPX] codes
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+
+  // weights once: word (dx, k, lane n) → bytes 4k.. of row (dx, n)
+  for (int i = tid; i < 5 * kRCW * kCOT; i += kThreads) {
+    const int n = i % kCOT, k = (i / kCOT) % kRCW, t = i / (kCOT * kRCW);
+    *reinterpret_cast<int32_t*>(s_w + (t * kCOT + n) * kDPX + 4 * k) = p.wk[i];
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, tg = lane & 3;
+  float wsr[8][2];  // the dequant row of this thread's lanes 8nj + 2tg, +1
+#pragma unroll
+  for (int nj = 0; nj < 8; ++nj) {
+    wsr[nj][0] = p.ws[8 * nj + 2 * tg];
+    wsr[nj][1] = p.ws[8 * nj + 2 * tg + 1];
+  }
+  const uint32_t b_lane = smem_addr(s_w) + ((lane >> 4) * 8 + (lane & 7)) * kDPX +
+                          ((lane >> 3) & 1) * 16;
+  const int ch = lane & 15;  // the quantize: this lane's channels 8ch..8ch+7
+  float qa[8], qc[8];
+  int qb = -1;
+  MMA_PHASE_START
+
+  const long long nw = (long long)gridDim.x * kWarps, gw = (long long)blockIdx.x * kWarps + warp;
+  const long long pos = rows_total * gw / nw, end = rows_total * (gw + 1) / nw;
+
+  // item r's raw input into the landing buffer, 36 pixels x 16 chunks, 18 a
+  // lane (the columns outside the image are not read; their codes are 0)
+  auto load = [&](long long r) {
+    const D3Item it(r, p.H, strips_x);
+    const __nv_bfloat16* row = x + ((size_t)it.b * p.H + it.y) * p.W * kRC;
+    const uint32_t dst = smem_addr(s_land);
+#pragma unroll
+    for (int k = 0; k < kRPass; ++k) {
+      const int c = lane + 32 * k, xx = it.x0 - 2 + (c >> 4);
+      const bool ok = xx >= 0 && xx < p.W;
+      cp_async16(dst + 16 * c, ok ? row + (size_t)xx * kRC + 8 * (c & 15) : x, ok);
+    }
+    cp_async_commit();
+  };
+  // item r's codes clamp(rint(x·a + c), 0, 127) from the landing buffer into
+  // `dst`, 8 channels (8 bytes) a lane and pass; 0 outside the image
+  auto quant = [&](long long r, uint8_t* dst) {
+    const D3Item it(r, p.H, strips_x);
+    if (it.b != qb) {
+      qb = it.b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        qa[j] = __ldg(p.a + it.b * kRC + 8 * ch + j);
+        qc[j] = __ldg(p.c + it.b * kRC + 8 * ch + j);
+      }
+    }
+#pragma unroll 6  // unrolled by 3 or whole (18) it is no faster (PERF.md section 6)
+    for (int k = 0; k < kRPass; ++k) {
+      const int px = (lane >> 4) + 2 * k, xx = it.x0 - 2 + px;
+      uint2 w = make_uint2(0u, 0u);
+      if (xx >= 0 && xx < p.W) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(s_land + px * 2 * kRC + 16 * ch);
+        const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+        int q[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], 0.0f);
+          q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], 0.0f);
+        }
+        w = make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
+      }
+      *reinterpret_cast<uint2*>(dst + px * kDPX + 8 * ch) = w;
+    }
+  };
+
+  if (pos < end) {
+    load(pos);
+    cp_async_wait<0>();
+    __syncwarp();
+    quant(pos, s_code);
+    __syncwarp();  // every lane is done with the landing buffer
+    if (pos + 1 < end) load(pos + 1);
+  }
+  int slot = 0;
+#pragma unroll 1
+  for (long long r = pos; r < end; ++r, slot ^= 1) {
+    uint8_t* cur = s_code + slot * S::ROW;
+    if (r + 1 < end) {  // the next item quantized, the one after asked for
+      cp_async_wait<0>();
+      __syncwarp();
+      MMA_PHASE(0)
+      quant(r + 1, s_code + (slot ^ 1) * S::ROW);
+      __syncwarp();
+      if (r + 2 < end) load(r + 2);
+      MMA_PHASE(1)
+    }
+
+    // 20 k32 steps (5 dx taps x 128 channels) of 2 x 8 MMAs
+    const uint32_t a_lane = smem_addr(cur) + (lane & 15) * kDPX + (lane >> 4) * 16;
+    int acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nj][e] = 0;
+    uint32_t af[2][2][4], bfr[2][8][2];
+    auto ld = [&](int s, uint32_t (&a)[2][4], uint32_t (&bq)[8][2]) {
+      const int dx = s >> 2, kc = s & 3;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldsm_x4(a[mt], a_lane + (mt * 16 + dx) * kDPX + kc * 32);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t rq[4];
+        ldsm_x4(rq, b_lane + (dx * kCOT + 16 * q) * kDPX + kc * 32);
+        bq[2 * q][0] = rq[0];
+        bq[2 * q][1] = rq[1];
+        bq[2 * q + 1][0] = rq[2];
+        bq[2 * q + 1][1] = rq[3];
+      }
+    };
+    auto mmas = [&](const uint32_t (&a)[2][4], const uint32_t (&bq)[8][2]) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) mma_s8(acc[mt][nj], a[mt], bq[nj][0], bq[nj][1]);
+    };
+    constexpr int KS = 5 * kRC / 32;
+    ld(0, af[0], bfr[0]);
+#pragma unroll
+    for (int s = 0; s < KS; s += 2) {
+      ld(s + 1, af[1], bfr[1]);
+      mmas(af[0], bfr[0]);
+      if (s + 2 < KS) ld(s + 2, af[0], bfr[0]);
+      mmas(af[1], bfr[1]);
+    }
+    MMA_PHASE(2)
+
+    // bf16(f32(acc)·ws) of pixels 16mt + g (+8), lanes 8nj + 2tg, +1 (< 60),
+    // staged in the item's code slot, which every lane has done reading
+    __syncwarp();
+    uint8_t* so = cur;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj) {
+          const int n = 8 * nj + 2 * tg;
+          if (n < kLanes)
+            *reinterpret_cast<uint32_t*>(so + ((16 * mt + 8 * h + g) * kLanes + n) * 2) =
+                bf16_pack(bf16_round(__fmul_rn(__int2float_rn(acc[mt][nj][2 * h]), wsr[nj][0])),
+                          bf16_round(__fmul_rn(__int2float_rn(acc[mt][nj][2 * h + 1]),
+                                               wsr[nj][1])));
+        }
+    __syncwarp();
+    MMA_PHASE(3)
+    {  // the item's pixels inside the image, 8 bytes a lane and pass, coalesced
+      const D3Item it(r, p.H, strips_x);
+      uint8_t* row = reinterpret_cast<uint8_t*>(
+          p.out + (((size_t)it.b * p.H + it.y) * p.W + it.x0) * kLanes);
+      const int nbytes = min(kDStrip, p.W - it.x0) * kLanes * 2;
+#pragma unroll
+      for (int k = 0; k < S::OUT / 8 / 32; ++k) {
+        const int c = lane + 32 * k;
+        if (8 * c < nbytes)
+          *reinterpret_cast<uint2*>(row + 8 * c) = *reinterpret_cast<const uint2*>(so + 8 * c);
+      }
+    }
+    __syncwarp();  // the slot is quantized into again two items on
+    MMA_PHASE(4)
+  }
+  MMA_PHASE_END
+}
+
+int launch_d3rows_mma(const RowsArgs& p, void* stream) {
+  if (p.B <= 0 || p.H <= 0 || p.W <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(d3rows_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)D3RowsSmem::bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const int strips_x = (p.W + kDStrip - 1) / kDStrip;
+  const long long rows_total = (long long)p.B * strips_x * p.H;
+  // one block an SM, or fewer where the items do not give each warp one
+  const long long want = (rows_total + kWarps - 1) / kWarps;
+  const int blocks = (int)(want < sms ? want : sms);
+  d3rows_mma_kernel<<<blocks, kThreads, D3RowsSmem::bytes, static_cast<cudaStream_t>(stream)>>>(
+      p, strips_x, rows_total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every pointer is a device
@@ -2276,10 +2521,21 @@ extern "C" int site_s2_prev_launch(const void* x, const float* a, const float* c
 }
 
 // K7: rows out[b,y,x,l] = bf16(acc_l * ws[l]), l < 60, of the 1x5 conv of
-// the codes clamp(rint(x*a + c), 0, 127) with zero column pads.
+// the codes clamp(rint(x*a + c), 0, 127) with zero column pads (x 16-byte
+// aligned); on the int8 tensor cores.
 extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const float* c,
                               const int32_t* wk, const float* ws, __nv_bfloat16* out, int B,
                               int H, int W, void* stream) {
+  RowsArgs p = {};
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.out = out;
+  p.B = B; p.H = H; p.W = W;
+  return launch_d3rows_mma(p, stream);
+}
+
+// K7 on the previous __dp4a core (rows_kernel<kQuant, 1>), for timing only.
+extern "C" int d3_rows_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                   const int32_t* wk, const float* ws, __nv_bfloat16* out, int B,
+                                   int H, int W, void* stream) {
   RowsArgs p = {};
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.out = out;
   p.B = B; p.H = H; p.W = W;
@@ -2309,7 +2565,7 @@ extern "C" int d3_s8_prev_launch(const int8_t* xq, const int32_t* wk, const floa
 }
 
 // Dynamic shared memory of the stride-2 tensor-core core at C input
-// channels (K8a's at 32, K8b's at 64; 0 for other C), and of K6's.
+// channels (K8a's at 32, K8b's at 64; 0 for other C), of K6's and of K7's.
 extern "C" int mma_s2_smem_bytes(int C) {
   switch (C) {
     case 32: return (int)MmaS2Smem<32, 64>::bytes;
@@ -2318,3 +2574,4 @@ extern "C" int mma_s2_smem_bytes(int C) {
   }
 }
 extern "C" int d3s8_mma_smem_bytes() { return (int)D3Smem::bytes; }
+extern "C" int d3rows_mma_smem_bytes() { return (int)D3RowsSmem::bytes; }

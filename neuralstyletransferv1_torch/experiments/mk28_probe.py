@@ -19,15 +19,20 @@ width (480 → 488 columns, 128 channels):
 Each is held bit for bit against its plain version and, on the card's
 outputs, the script's own numpy asserts (P1's column sums, P2's injected
 columns, P5's int64 conv oracle) are rerun. The probes are single strips
-of about 1 MB: their times are launch-bound (the bound is printed all the
-same). Beside them: ``F.pad`` (P1, the same function: ``library_ms``), the
+of about 1 MB, far from their bound on the device (the bound is printed
+all the same). Beside them: ``F.pad`` (P1, the same function: ``library_ms``), the
 cuDNN bf16 3×3 conv on the strip (P5, a yardstick: ``cudnn_bf16_ms``); P2
 has no one-call counterpart.
 
     python -m neuralstyletransferv1_torch.experiments.mk28_probe
     python -m neuralstyletransferv1_torch.experiments.mk28_probe --device cpu --small
 
-Times are per-call CUDA events in turns (``_bench.cuda_ms``).
+Times are CUDA graph replay in turns (``_bench.measure(graph=True)``): each
+call, its plain version and ``F.pad`` or the cuDNN yardstick captured
+``reps`` times into one graph and the replay timed, the device time a
+call. A per-call CUDA event around one of these strips would time the
+wrapper's host work (allocation, checks, ctypes: tens of microseconds), not
+the kernel.
 """
 
 from __future__ import annotations
@@ -103,7 +108,8 @@ def main(argv=None) -> dict:
     nb = 2.0 * (x1.numel() + r * wp * c)
     rec = _bench.measure("pad_inject[P1]", lambda: k13.pad_inject(x1, wp),
                          lambda: k13.pad_inject_plain(x1, wp), dev, work=(nb, 0.0),
-                         library=(lambda: F.pad(x1, (0, 0, 1, wp - w0 - 1))) if on_card else None)
+                         library=(lambda: F.pad(x1, (0, 0, 1, wp - w0 - 1))) if on_card else None,
+                         graph=True)
     p1_assert(k13.pad_inject(torch.ones_like(x1), wp), w0)
     recs.append({"probe": "P1 pad", "kernel_name": "pad_inject", **rec})
 
@@ -111,7 +117,8 @@ def main(argv=None) -> dict:
     x2 = _bench.normal(rng, (1, r, w0, c), 8.0, dev)
     nb = 2.0 * x2.numel() + r * wp * c
     rec = _bench.measure("pad_inject[P2]", lambda: k13.pad_inject(x2, wp, inject=True),
-                         lambda: k13.pad_inject_plain(x2, wp, inject=True), dev, work=(nb, 0.0))
+                         lambda: k13.pad_inject_plain(x2, wp, inject=True), dev, work=(nb, 0.0),
+                         graph=True)
     p2_assert(k13.pad_inject(x2, wp, inject=True), x2, w0)
     recs.append({"probe": "P2 inject", "kernel_name": "pad_inject", **rec})
 
@@ -131,14 +138,14 @@ def main(argv=None) -> dict:
                          check_kw={"zero_sums": True},
                          work=(nb, 2.0 * x5.numel() * 9 * c, _bench.PEAK_INT8_OPS),
                          yardsticks={"cudnn_bf16_ms": _bench.conv3x3(x5, c, 1)} if on_card
-                         else None)
+                         else None, graph=True)
     got = site()[0][0, 1:r + 1].float().cpu().numpy()
     if not np.array_equal(got, p5_oracle(x5, wn)):
         raise AssertionError("P5: rows 1..8 differ from the script's int64 oracle")
     recs.append({"probe": "P5 mini site", "kernel_name": "res_site_nostats", **rec})
 
     for rec in recs:
-        rec["note"] = "one strip of about 1 MB: launch-bound"
+        rec["note"] = "one strip of about 1 MB, timed by CUDA graph replay"
     record = {"experiment": "mk28_probe", **head, "shape": [r, w0, c], "wp": wp, "probes": recs}
     _bench.emit(record)
     return record

@@ -37,10 +37,15 @@ Two more answer the JAX package's bf16 megakernel experiments
 
 On the card K9b runs on its own tensor-core core (``d3sum_mma_kernel``:
 warps walk 16-column strips down the image, the dy-sum's partial sums in
-registers; x 16-byte aligned); ``d3_sum_site_prev`` launches it on its
-previous core (``rows_kernel_bf16``), CUDA tensors only, for timing the
-two designs side by side: nothing on the main path calls it, and it counts
-no launch.
+registers; x 16-byte aligned) and K9a on K10's Hopper design at C = 64
+(``d2_wgmma_kernel``: persistent, TMA, ``wgmma``, 4 × 32-pixel tiles, the
+nine taps' weights resident; TMA fills the halo outside the image with
+zeros, and border tiles copy the edge into it before the activation, as
+``d2_halo_tile`` mirrors; x and w 16-byte aligned); ``d3_sum_site_prev``
+and ``d2_site_prev`` launch them on their previous cores
+(``rows_kernel_bf16``, ``site_kernel_bf16``), CUDA tensors only, for
+timing the two designs side by side: nothing on the main path calls them,
+and they count no launch.
 
 K9a/K9c/K9d return (bf16(f), [Σ f, Σ f²]) with f = acc + bias in f32: the
 sums are of the f32 values before the bf16 round, as the TPU kernels take
@@ -79,10 +84,12 @@ D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
 PROLOGUES = {"f32": 0, "none": 1, "bf16": 2}
 FUSED_C, C1_IN, C1_OUT = 128, 12, 128
 FUSED_TILE = (4, 32)   # K10's output tile on the card: rows x columns (128 pixels)
-#: per site: (C, CO, stride, halo, output tile of a block)
-SITES = {"d2_site": (64, 128, 1, "edge", (8, 32)),
+#: per site: (C, CO, stride, halo, output tile of a block: the [Σ, Σ²]
+#: partials are per tile)
+SITES = {"d2_site": (64, 128, 1, "edge", FUSED_TILE),
          "c2_site_bf16": (32, 64, 2, "reflect", (8, 16)),
          "c3_site_bf16": (64, 128, 2, "reflect", (8, 16))}
+PREV_TILE = (8, 32)    # site_kernel_bf16 at stride 1: K9a's and K10's previous cores
 
 
 def pack_site_weights(w: torch.Tensor) -> torch.Tensor:
@@ -133,6 +140,41 @@ def site_bf16_plain(x, a, c, w, bias, *, stride: int, halo: str):
 
 def d2_site_plain(x, a, c, w, bias):
     return site_bf16_plain(x, a, c, w, bias, stride=1, halo="edge")
+
+
+def d2_site_smem_bytes() -> int:
+    """K9a's dynamic shared memory (``kDSmem``): 1,024 bytes of alignment
+    slack, two buffers of a tile's input (6 × 34 pixels × 128 bytes) or,
+    larger, its staged output (4 × 32 × 128 bf16), the nine taps' weights
+    [128][64] bf16, the affine by tile parity, the bias, the warps' sums and
+    the barriers."""
+    (th, tw), cin, co = FUSED_TILE, 64, 128
+    buf = max((th + 2) * (tw + 2) * cin * 2, th * tw * co * 2)
+    return 1024 + 2 * buf + 9 * co * cin * 2 + 4 * (2 * 2 * cin + co + 8 * 2 * co) + 64
+
+
+def d2_halo_tile(x: torch.Tensor, ty0: int, tx0: int) -> torch.Tensor:
+    """The haloed input of K9a's 4 × 32 output tile at (ty0, tx0) of one
+    image x [H,W,C], as the card builds it before the activation: the TMA
+    box of rows ty0−1..ty0+4 and columns tx0−1..tx0+32, zero outside the
+    image, then (``d2_patch``) each position of the image's one-pixel frame
+    (row −1 or H, column −1 or W) the pixel of the nearest row and column
+    inside → [6, 34, C]. Positions farther out stay zero: they feed only
+    outputs past the image."""
+    (th, tw), (H, W) = FUSED_TILE, x.shape[:2]
+    tile = x.new_zeros((th + 2, tw + 2, x.shape[2]))
+    for hr in range(th + 2):
+        for hc in range(tw + 2):
+            gy, gx = ty0 - 1 + hr, tx0 - 1 + hc
+            if 0 <= gy < H and 0 <= gx < W:
+                tile[hr, hc] = x[gy, gx]
+    for hr in range(th + 2):
+        for hc in range(tw + 2):
+            gy, gx = ty0 - 1 + hr, tx0 - 1 + hc
+            if -1 <= gy <= H and -1 <= gx <= W and not (0 <= gy < H and 0 <= gx < W):
+                sy, sx = min(max(gy, 0), H - 1), min(max(gx, 0), W - 1)
+                tile[hr, hc] = tile[sy - ty0 + 1, sx - tx0 + 1]
+    return tile
 
 
 def c2_site_bf16_plain(x, a, c, w, bias):
@@ -225,7 +267,8 @@ def _lib():
     lib = load_library(_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     site = [P] * 8 + [I] * 3 + [P]
-    sigs = {"d2_site_launch": site, "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
+    sigs = {"d2_site_launch": site, "d2_site_prev_launch": site, "d2_wgmma_smem_bytes": [],
+            "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
             "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
             "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P],
             "d3_sum_site_prev_launch": [P] * 6 + [I] * 3 + [P],
@@ -249,10 +292,12 @@ def _run(kernel, fn, *args, count=True):
         LAUNCHES[kernel] += 1
 
 
-def _site(k, x, a, c, w, bias):
+def _site(k, x, a, c, w, bias, prev=False):
     cin, co, stride, halo, (th, tw) = SITES[k]
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not prev:
         return site_bf16_plain(x, a, c, w, bias, stride=stride, halo=halo)
+    if prev:
+        th, tw = PREV_TILE
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{k}: no kernel for device {dev}")
@@ -267,14 +312,17 @@ def _site(k, x, a, c, w, bias):
         _check(k, name, t, torch.float32, (B, C), dev)
     _check(k, "weights", w, torch.bfloat16, (9, co, C), dev)
     _check(k, "bias", bias, torch.float32, (co,), dev)
+    if k == "d2_site" and not prev:  # read by TMA
+        for name, t in (("x", x), ("weights", w)):
+            _check_aligned(k, name, t)
     ho, wo = H // stride, W // stride
     out = torch.empty((B, ho, wo, co), dtype=torch.bfloat16, device=dev)
     part = torch.empty((B, ceil(ho / th) * ceil(wo / tw), 2, co), dtype=torch.float32, device=dev)
     sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _run(k, getattr(_lib(), f"{k}_launch"), x.data_ptr(), a.data_ptr(), c.data_ptr(),
-             w.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(), sums.data_ptr(),
-             B, H, W, _stream(dev))
+        _run(k, getattr(_lib(), f"{k}_prev_launch" if prev else f"{k}_launch"), x.data_ptr(),
+             a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             part.data_ptr(), sums.data_ptr(), B, H, W, _stream(dev), count=not prev)
     return out, sums
 
 
@@ -283,8 +331,16 @@ def d2_site(x, a, c, w, bias):
     grid [B,H,W,64]; a, c: the in4 affine; w: ``pack_site_weights`` of the
     phase weights [3,3,64,128]; bias [128] (the conv bias tiled over the 4
     phases). Returns (bf16 raw [B,H,W,128], f32 [B,2,128] sums of the f32
-    results over H, W; the caller folds the 4 phases)."""
+    results over H, W; the caller folds the 4 phases). On the card:
+    ``d2_wgmma_kernel`` (x and w 16-byte aligned)."""
     return _site("d2_site", x, a, c, w, bias)
+
+
+def d2_site_prev(x, a, c, w, bias):
+    """K9a on its previous core (``site_kernel_bf16<64, 1>``), CUDA tensors
+    only: ``chip_smoke.py`` times it beside ``d2_site``. Nothing on the main
+    path calls it, and it counts no launch."""
+    return _site("d2_site", x, a, c, w, bias, prev=True)
 
 
 def c2_site_bf16(x, a, c, w, bias):
@@ -410,7 +466,7 @@ def _fused_conv(x_pad, stat, w9, cb, hw, prologue, stats, prev):
     out = torch.empty((B, H, W, co), dtype=torch.bfloat16, device=dev)
     part = sums = None
     if stats:
-        th, tw = (8, 32) if prev else FUSED_TILE
+        th, tw = PREV_TILE if prev else FUSED_TILE
         part = torch.empty((B, ceil(H / th) * ceil(W / tw), 2, co), dtype=torch.float32,
                            device=dev)
         sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)

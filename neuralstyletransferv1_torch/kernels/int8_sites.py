@@ -47,12 +47,15 @@ C = 192. A channel count or form a kernel is not built for raises.
 On the card K2–K5 run on the int8 tensor cores (``mma_kernel``: 8×16
 output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``), K8a and K8b on
 their stride-2 form (``mma_s2_kernel``, the same tiles; K8b one block on all
-128 output channels) and K6 on its own (``d3s8_mma_kernel``: warps walk
-32-column strips down the image); K7 on the ``__dp4a`` core
-``rows_kernel``. ``res_site_s8o_prev``, ``site_s8_prev``, ``res_site_prev``,
-``res_site_skip_prev``, ``c2_site_prev``, ``c3_site_prev`` and
-``d3_s8_site_prev`` launch K2–K6, K8a and K8b on their previous ``__dp4a``
-cores (``site_kernel``, ``TILE_DP4A``; ``rows_kernel``), for timing the two
+128 output channels), K6 on its own (``d3s8_mma_kernel``: warps walk
+32-column strips down the image) and K7 on its sibling
+(``d3rows_mma_kernel``: warps walk the (image, 32-column strip, row) items,
+quantizing each one item ahead; ``d3_rows_schedule`` mirrors the walk,
+``d3_rows_smem_bytes`` its shared memory). ``res_site_s8o_prev``,
+``site_s8_prev``, ``res_site_prev``, ``res_site_skip_prev``,
+``c2_site_prev``, ``c3_site_prev``, ``d3_s8_site_prev`` and
+``d3_rows_site_prev`` launch K2–K8b on their previous ``__dp4a`` cores
+(``site_kernel``, ``TILE_DP4A``; ``rows_kernel``), for timing the two
 designs side by side; nothing on the main path calls them, they take CUDA
 tensors only, and they count no launch.
 
@@ -120,6 +123,7 @@ CO_TILE = 64          # output channels per thread block of the __dp4a core
 TILE_DP4A = (8, 16)   # site_kernel: the _prev forms
 TILE_MMA = (8, 16)    # mma_kernel, mma_s2_kernel (int8 tensor cores): K2-K5, K8a, K8b
 D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
+D3_STRIP, D3_WARPS = 32, 8            # K6's and K7's strips, warps a block
 _S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
 
@@ -299,6 +303,38 @@ def d3_rows_site_plain(y, a, c, wk, ws):
     return _rows_conv(_quantize(y.float(), a, c, 0.0), wk, ws)[..., :D3_LANES].contiguous()
 
 
+def quantize_i(v: torch.Tensor, a: float, c: float, lo: float = 0.0) -> torch.Tensor:
+    """K7's quantize as the card computes it (``quantize_i`` of
+    ``csrc/int8_sites.cu``), in f32 operations: clamp(v·a + c, lo, 127) +
+    1.5·2^23, whose low mantissa bits are the code (the add rounds half to
+    even) → int32 codes. Equal to ``_quantize``'s round for finite v."""
+    f = torch.float32
+    t = (v.to(f) * torch.tensor(a, dtype=f) + torch.tensor(c, dtype=f)).clamp(lo, 127.0)
+    return (t + torch.tensor(12582912.0, dtype=f)).view(torch.int32) - 0x4B400000
+
+
+def d3_rows_smem_bytes() -> int:
+    """K7's dynamic shared memory (``D3RowsSmem``): the weights [5][64] rows
+    of 144 bytes, then per warp a landing row of 36 raw bf16 pixels and two
+    code slots of 36 pixels × 144 bytes."""
+    px, cols = D3_C + 16, D3_STRIP + 4
+    return 5 * CO_TILE * px + D3_WARPS * (cols * 2 * D3_C + 2 * cols * px)
+
+
+def d3_rows_schedule(B: int, H: int, W: int, sms: int = 132) -> list:
+    """K7's walk, as ``launch_d3rows_mma`` and the kernel take it: per warp
+    of the grid, its list of (image, strip, row) items: a contiguous share
+    of the B·strips·H items, rows down a strip."""
+    strips = -(-W // D3_STRIP)
+    total = B * strips * H
+    nw = min(-(-total // D3_WARPS), sms) * D3_WARPS
+    out = []
+    for gw in range(nw):
+        items = range(total * gw // nw, total * (gw + 1) // nw)
+        out.append([(r // H // strips, r // H % strips, r % H) for r in items])
+    return out
+
+
 def d3_s8_site_plain(xq, wk, ws, bias):
     """K6's plain version → bf16 [B,H,W,12]: the zero-SAME deconv3 interior
     (its 2-block border frame is the caller's strips)."""
@@ -333,11 +369,13 @@ def _lib():
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "site_s2_prev_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
+        "d3_rows_prev_launch": [P] * 6 + [I] * 3 + [P],
         "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
         "d3_s8_prev_launch": [P] * 5 + [I] * 3 + [P],
         "mma_kernel_smem_bytes": [I],
         "mma_s2_smem_bytes": [I],
         "d3s8_mma_smem_bytes": [],
+        "d3rows_mma_smem_bytes": [],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -731,18 +769,32 @@ def d3_rows_site(y, a, c, wk, ws):
     """K7: quantize the d2 raw y [B,H,W,128] (a, c [B,128]: the in5 affine
     folded with d3's qin; floor 0 folds the ReLU) → 1×5 int8 conv with zero
     column pads → bf16(acc·ws) rows [B,H,W,60]. ``wk``/``ws``: the
-    tap-packed deconv3 weights and dequant row, padded to 64 lanes."""
+    tap-packed deconv3 weights and dequant row, padded to 64 lanes. On the
+    card: the int8 tensor cores (y 16-byte aligned)."""
     if y.device.type == "cpu":
         return d3_rows_site_plain(y, a, c, wk, ws)
+    return _d3_rows_site("d3_rows_launch", True, y, a, c, wk, ws)
+
+
+def d3_rows_site_prev(y, a, c, wk, ws):
+    """K7 on the previous ``__dp4a`` core (``rows_kernel``), CUDA tensors
+    only: ``chip_smoke.py`` times it beside ``d3_rows_site``. Nothing on the
+    main path calls it, and it counts no launch."""
+    return _d3_rows_site("d3_rows_prev_launch", False, y, a, c, wk, ws)
+
+
+def _d3_rows_site(fn, count, y, a, c, wk, ws):
     k = "d3_rows_site"
     dev, B, H, W = _check_rows(k, y, wk, ws)
     _check(k, "y", y, torch.bfloat16, (B, H, W, D3_C), dev)
+    if count:
+        _check_aligned(k, "y", y)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, D3_C), dev)
     out = torch.empty((B, H, W, D3_LANES), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        _run(k, _lib().d3_rows_launch, y.data_ptr(), a.data_ptr(), c.data_ptr(),
-             wk.data_ptr(), ws.data_ptr(), out.data_ptr(), B, H, W, _stream(dev))
+        _run(k, getattr(_lib(), fn), y.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
+             ws.data_ptr(), out.data_ptr(), B, H, W, _stream(dev), count=count)
     return out
 
 
