@@ -16,8 +16,8 @@ order, and any failed phase exits non-zero:
    dynamic shared memory of the tensor-core cores (K2–K5's ``mma_kernel``,
    K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K7's
    ``d3rows_mma_kernel``, K9a's ``d2_wgmma_kernel``, K9b's
-   ``d3sum_mma_kernel``, K10's ``fused_wgmma_kernel``, K12's
-   ``shift_wgmma_kernel``);
+   ``d3sum_mma_kernel``, K9c's and K9d's ``s2_mma_bf16_kernel``, K10's
+   ``fused_wgmma_kernel``, K12's ``shift_wgmma_kernel``);
 4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
    of the 1080p slice (8 frame pairs, flow at half resolution), and time
    both;
@@ -44,13 +44,15 @@ order, and any failed phase exits non-zero:
    two launches bit-identical, bf16 outputs within 1 bf16 ulp of the plain
    version everywhere (an ulp taken at no less than 2^-8 of the tensor's
    largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
-   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9b also
-   and K9a beside their previous designs, ``d3_sum_site_prev`` and
-   ``d2_site_prev``, both held to the same bounds against the plain version
-   and against each other); then K7 and K9a at ragged shapes (W off the
-   32-column strip and tile, H below the 8-row tile, B = 1 and 3) against
-   their plain versions and previous cores (K7 bit for bit, K9a within the
-   K9 bounds, two launches bit-identical); then K2
+   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9a–K9d
+   also beside their previous designs, ``d2_site_prev``,
+   ``d3_sum_site_prev``, ``c2_site_bf16_prev`` and ``c3_site_bf16_prev``,
+   each held to the same bounds against the plain version and against each
+   other); then K7 and K9a at ragged shapes (W off the 32-column strip and
+   tile, H below the 8-row tile, B = 1 and 3) against their plain versions
+   and previous cores (K7 bit for bit, K9a within the K9 bounds, two
+   launches bit-identical), and K9c and K9d likewise (outputs off the
+   16-column tile and the 8- and 4-row tiles, a 1 × 1 output); then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
    codes 0; then each of the port's experiment entry points
@@ -143,7 +145,7 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K8b; K9a, K9b; K10, K12) with
+instead builds the tensor-core cores (K2–K8b; K9a–K9d; K10, K12) with
 ``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
 the probes' shapes), the share of each phase of the tile loop (K6, K7,
 K9b: of the row loop) in the clock of every block's thread 0.
@@ -305,11 +307,12 @@ PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
 # d3rows_mma_kernel; their previous __dp4a design (site_kernel, rows_kernel)
 # stays callable for the comparison, K2's and K5's also at ReCoNet's C = 192
 # (K3's and K4's previous design was built without it); K9b runs on
-# d3sum_mma_kernel and K9a on d2_wgmma_kernel, their previous designs
-# (rows_kernel_bf16, site_kernel_bf16) likewise
+# d3sum_mma_kernel, K9a on d2_wgmma_kernel, K9c and K9d on
+# s2_mma_bf16_kernel, their previous designs (rows_kernel_bf16,
+# site_kernel_bf16) likewise
 REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "c3_site",
               "d3_s8_site", "d3_rows_site")
-REDESIGNED_BF16 = ("d3_sum_site", "d2_site")
+REDESIGNED_BF16 = ("d3_sum_site", "d2_site", "c2_site_bf16", "c3_site_bf16")
 PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
@@ -784,8 +787,9 @@ def bf16_library_conv(dev, name, shape):
 
 def bf16_kernel_phase(dev):
     """K9a-K9e against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain; K9b: plain, kernel, previous core,
-    kernel, previous core, plain, the previous core held to the same bounds)
+    turns (plain, kernel, kernel, plain; K9a-K9d: plain, kernel, previous
+    core, kernel, previous core, plain, the previous core held to the same
+    bounds)
     beside the cuDNN bf16 conv of the same shape."""
     import torch
 
@@ -1056,6 +1060,48 @@ def ragged_k7_k9a_phase(dev):
             f"core; K9a {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 bounds "
             "of its plain version and previous core; two launches bit-identical")
         del args, out, again, ref, p1, p2
+
+
+# K9c's and K9d's stride-2 core at ragged input shapes (B, H, W), even:
+# outputs off the 16-column tile, below and off K9c's 8-row and K9d's
+# 4-row tiles, a 1 × 1 output, one image and three
+RAGGED_K9C_K9D = ((1, 2, 2), (1, 6, 34), (3, 14, 70), (3, 26, 100), (1, 34, 66))
+
+
+def ragged_k9c_k9d_phase(dev):
+    """K9c (``c2_site_bf16``) and K9d (``c3_site_bf16``) at ragged shapes
+    against their plain versions and their previous cores, within the K9
+    bounds of ``check_bf16_site`` (1 ulp, 99% equal, sums within 1e-5);
+    two launches bit-identical. At a 1 × 1 output a channel's [Σ, Σ²] is
+    one f and its square, whose accumulation-order error no other pixel
+    dilutes (both cores differ from the plain version's there by more
+    than 1e-5, PERF.md, PR 16): the sums are held bit-identical to the
+    previous core's, which adds the same products in the same order."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    for i, (b, h, w) in enumerate(RAGGED_K9C_K9D):
+        worst = {}
+        for name in ("c2_site_bf16", "c3_site_bf16"):
+            args = bf16_site_inputs(dev, name, (b, h, w, k9.SITES[name][0]), seed=420 + i)
+            kernel, prev = getattr(k9, name), getattr(k9, f"{name}_prev")
+            out, again, ref = kernel(*args), kernel(*args), getattr(k9, f"{name}_plain")(*args)
+            p1, p2 = prev(*args), prev(*args)
+            torch.cuda.synchronize()
+            label = f"{name} ragged {b}x{h}x{w}"
+            if h == w == 2:
+                if not torch.equal(out[1], p1[1]):
+                    fail(f"{label}: the 1 x 1 output's sums differ from the previous core's")
+                out, again, ref, p1, p2 = out[0], again[0], ref[0], p1[0], p2[0]
+            _, worst[name], _ = check_bf16_site(label, out, again, ref, args)
+            check_bf16_site(f"{name} (previous core) ragged {b}x{h}x{w}", p1, p2, ref, args)
+            check_bf16_site(f"{name} against its previous core ragged {b}x{h}x{w}", out, again,
+                            p1, args)
+            del args, out, again, ref, p1, p2
+        log(f"K9c and K9d at {b}x{h}x{w}: {worst['c2_site_bf16']:.3g} and "
+            f"{worst['c3_site_bf16']:.3g} ulp at worst, within the K9 bounds of their plain "
+            "versions and previous cores; two launches bit-identical")
 
 
 def reference_phase(dev):
@@ -1942,7 +1988,9 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
     under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
     d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
     their previous cores); d3sum_mma_kernel K9b; d2_wgmma_kernel K9a
-    (site_kernel_bf16<64, 1, ...> its previous core); shift_wgmma_kernel<A bf16,
+    (site_kernel_bf16<64, 1, ...> its previous core); s2_mma_bf16_kernel<C,
+    CO, TH, buffers> K9c at C = 32, K9d at 64 (site_kernel_bf16<C, 2, ...>
+    their previous cores); shift_wgmma_kernel<A bf16,
     prologue, epilogue, 128> K12 and shift_dot_kernel its previous core, at
     probe 2's and the strip form's shared memory; fused_wgmma_kernel<prologue,
     statistics, 128> K10 and site_kernel_bf16<128, 1, 1, ...> its previous
@@ -1991,6 +2039,11 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
                 smem = k9._lib().d2_wgmma_smem_bytes()
             elif base == "site_kernel_bf16" and targs[:2] == ["64", "1"]:
                 short += " (K9a, previous core)"
+            elif base == "s2_mma_bf16_kernel":
+                short += " (K9c)" if targs[0] == "32" else " (K9d)"
+                smem = k9._lib().s2_bf16_smem_bytes(int(targs[0]))
+            elif base == "site_kernel_bf16" and targs[1:2] == ["2"]:
+                short += " (K9c, previous core)" if targs[0] == "32" else " (K9d, previous core)"
             elif base == "shift_wgmma_kernel":
                 pro = "none" if targs[1] == "0" else "quant"
                 short += " (K12)"
@@ -2025,6 +2078,11 @@ PHASES_K12 = ("wait for a k-chunk's rows", "wait for a tap's weights", "prologue
               "fragments and MMAs issued", "epilogue (MMA drain incl.)")
 PHASES_K10 = ("wait for the tile's input", "activation", "wait for a tap's weights",
               "fragments and MMAs issued", "epilogue and statistics (MMA drain incl.)")
+# K9c's and K9d's tile loop (s2_mma_bf16_kernel: its consumer warp 0)
+PHASES_S2_BF16 = ("wait for the tile's activated input (the producer warps)",
+                  "wgmma groups issued (the tile before's buffer released)",
+                  "fragment epilogue: staging and sums (MMA drain incl.)",
+                  "the TMA stores issued", "the last image's sums (once)")
 PHASES_K9A = ("wait for the tile's input", "the first tile's halo patch and activation",
               "wait for the weights (once)",
               "fragments and MMAs issued (the next tile's patch and activation between)",
@@ -2065,7 +2123,7 @@ def _phase_shares(lib, kernel, label, labels):
     import numpy as np
     import torch
 
-    clocks = np.zeros((1024, len(labels)), dtype=np.uint64)
+    clocks = np.zeros((1024, 5), dtype=np.uint64)  # the source's [kPhaseBlocks][kPhases]
     if lib.mma_phase_clocks_read(clocks.ctypes.data) != 0:
         fail("reading mma_phase_clocks failed")
     kernel()
@@ -2079,7 +2137,7 @@ def _phase_shares(lib, kernel, label, labels):
 
 
 def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K8b; K9a, K9b; K12, K10) built
+    """--phases: the tensor-core cores (K2-K8b; K9a-K9d; K12, K10) built
     with MMA_PHASE_CLOCKS, each of their 1080p B=8 cases (K12: the probes'
     shapes) run once; the share of each phase of the tile loop (K6, K7, K9b:
     of warp 0's row loop) in the clock of every block's thread 0, averaged
@@ -2095,7 +2153,8 @@ def phases_phase(dev):
                                        "res_site_launch", "res_site_skip_launch",
                                        "site_s2_launch", "d3_s8_launch", "d3_rows_launch"))
     lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch",
-                                       "d2_site_launch"))
+                                       "d2_site_launch", "c2_site_bf16_launch",
+                                       "c3_site_bf16_launch"))
     lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
     base8, base9, base12 = k8._lib, k9._lib, k12._lib
     # the wrappers launch the instrumented builds
@@ -2115,7 +2174,8 @@ def phases_phase(dev):
             shape = BF16_KERNELS[name][0]
             args = bf16_site_inputs(dev, name, shape, seed=11)
             _phase_shares(lib9, lambda: getattr(k9, name)(*args), f"{name} @ {shape}",
-                          {"d2_site": PHASES_K9A}.get(name, PHASES_D3_BF16))
+                          {"d2_site": PHASES_K9A, "c2_site_bf16": PHASES_S2_BF16,
+                           "c3_site_bf16": PHASES_S2_BF16}.get(name, PHASES_D3_BF16))
             del args
             torch.cuda.empty_cache()
         for label, call in k12_phase_cases(dev, k12):
@@ -2166,7 +2226,8 @@ def k12_phase_cases(dev, k12):
 def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
-    if any(k in n for k in ("kernel_bf16", "stats_reduce_bf16", "d3sum_mma", "d2_wgmma")):
+    if any(k in n for k in ("kernel_bf16", "stats_reduce_bf16", "d3sum_mma", "d2_wgmma",
+                            "s2_mma_bf16", "stats_reduce_s2")):
         return "bf16 sites K9a-K9e"
     if any(k in n for k in ("site_kernel", "mma_kernel", "mma_s2_kernel", "stats_reduce",
                             "rows_kernel")):
@@ -2305,6 +2366,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     ragged_sw_phase(dev)
     ragged_reco_phase(dev)
     ragged_k7_k9a_phase(dev)
+    ragged_k9c_k9d_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)

@@ -9,9 +9,10 @@
 //                                    lanes over the 4-pixel reflect halo → bf16 rows
 //   K9b d3_sum_site   (_d3s_kernel)  the same rows, kept on chip, then the 5-row dy-sum in f32
 //                                    + bias → 12 bf16 lanes
-// Three cores. site_kernel_bf16 is K9c/K9d (and K9a's previous form,
-// d2_site_prev_launch, for timing only; K9a runs on d2_wgmma_kernel,
-// below): a 3x3 conv at stride 1
+// site_kernel_bf16 is the first core of K9a, K9c and K9d, kept for
+// timing (d2_site_prev_launch, c2/c3_site_bf16_prev_launch; K9a runs on
+// d2_wgmma_kernel, K9c and K9d on s2_mma_bf16_kernel, below): a 3x3 conv at
+// stride 1
 // (edge-copy halo) or 2 (pixel-reflect halo; an even size never reads the
 // bottom or right pad) of bf16 activations that the prologue makes from the
 // raw input, x' = bf16(max(f32(x)*a + c, 0)) with the product and the sum
@@ -44,6 +45,30 @@
 // plain 32-bit shared-memory loads. Products of two bf16 values are exact in
 // f32, so only the order of the f32 accumulation differs from any other
 // implementation.
+//
+// s2_mma_bf16_kernel (K9c, K9d) is K8a's and K8b's stride-2 design
+// (int8_sites.cu's mma_s2_kernel) in bf16, on Hopper's warpgroup MMAs. K9c
+// moves 1.59 GB at 1080p B=8 and K9d 0.80 GB, each for 1.5e11 bf16 FLOP:
+// both are bound by their bytes (0.475 and 0.238 ms on an H100), K9d near
+// balance with its MMAs (0.155 ms at the tensor peak). Their first core
+// staged and activated a haloed tile once for each 64 output channels,
+// restaged the weights in every block, fed mma.sync by scalar loads and
+// overlapped nothing. Here a persistent block takes TH x 16 output tiles
+// (K9c 8, K9d 4 rows) on all output channels, with the nine taps' weights
+// resident; its haloed input sits in four (row, column) parity planes, so
+// each tap is a stride-1 shift and its A rows are consecutive plane pixels
+// that ldmatrix reads without bank conflicts under an XOR swizzle, which on
+// the weights is the wgmma operand's own (128-byte rows at C = 64, 64-byte
+// at C = 32). A producer warpgroup brings each tile's raw input in by
+// cp.async through the reflect map straight into its plane slots, up to
+// NB - 1 tiles ahead, and activates it in place once; a consumer
+// warpgroup runs a group of wgmma a tap (A by ldmatrix at the tap's shift,
+// B by descriptor), stages bf16(acc + bias) in the tile's buffer for a TMA
+// store and keeps the [Σ, Σ²] of an image's run of tiles in registers, so a
+// tile costs no shuffles or barriers for its sums. The producers' loads and
+// activation run beside the MMAs (chip_smoke.py --phases: the MMA groups
+// take about 71% of the consumers' tile loop, the epilogue 24%; PERF.md
+// section 6 has the times and the designs that lost).
 //
 // d3sum_mma_kernel (K9b) is deconv3's rows conv and dy-sum as K6's
 // d3s8_mma_kernel (int8_sites.cu) computes them, in bf16: mma.sync.m16n8k16
@@ -87,15 +112,14 @@
 // the 989 TFLOP/s bf16 peak against 0.475 ms for its 1.59 GB: operations; the
 // other four move 0.8-1.6 GB for 0.76-1.6e11 MAC: bytes (0.24-0.48 ms); K9b
 // is near balance (1.70e11 MAC at 64 of 60 lanes, 0.344 ms; 1.16 GB, 0.347
-// ms). site_kernel_bf16 and rows_kernel_bf16 feed the MMAs from shared
-// memory with scalar loads (2.5-3 loads an MMA), which bounds them near a
-// quarter of the tensor-core peak. K9b's ldmatrix reads 3,072 bytes of
-// shared memory for every 16 MMAs, 4 of its 6 loads the weights, read again
-// for every 32 output pixels: at 128 bytes a clock that is 1.5 clocks an
-// MMA, and the MMAs' issue takes the largest share of its row loop
-// (--phases; PERF.md section 6). A warp
-// tile of more pixels (wgmma's 64 rows) would read the weights fewer times;
-// wgmma and TMA-fed tiles are later work.
+// ms). rows_kernel_bf16 (K9e) feeds the MMAs from shared memory with scalar
+// loads (2.5-3 loads an MMA), which bounds it near a quarter of the
+// tensor-core peak. K9b's ldmatrix reads 3,072 bytes of shared memory for
+// every 16 MMAs, 4 of its 6 loads the weights, read again for every 32
+// output pixels: at 128 bytes a clock that is 1.5 clocks an MMA, and the
+// MMAs' issue takes the largest share of its row loop (--phases; PERF.md
+// section 6). A warp tile of more pixels (wgmma's 64 rows) would read the
+// weights fewer times; K9a, K9c and K9d run on wgmma.
 //
 // Two more kernels answer the TPU package's bf16 megakernel experiments:
 //   K10 fused_conv  (experiments/mk1_fusedconv.py fused_conv; mk2/mk3/mk5's
@@ -189,6 +213,43 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// v, as far as the compiler knows changed here: what is computed from it
+// stays where it is used (no hoisting out of a loop into registers)
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// a named barrier's arrival that does not wait (a producer's signal; the
+// consumers' bar_sync on the same barrier waits for it)
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma descriptor of a K-major operand of 64-byte rows under the 64-byte
+// swizzle (16-byte chunk k of row r at k ^ (r / 2 mod 4)): 8-row atoms 512
+// bytes apart
+__device__ __forceinline__ uint64_t desc_kmajor64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
+// D[64 x 64] (+)= A[64 x 16] (registers) x B[16 x 64] (K-major descriptor), bf16, f32 sums
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], const uint32_t* a, uint64_t desc,
+                                               int sd) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(sd));
 }
 
 // Built with -DMMA_PHASE_CLOCKS (chip_smoke.py --phases), thread 0 of each
@@ -1723,6 +1784,414 @@ int launch_d3sum_mma(const RowsArgs& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// s2_mma_bf16_kernel: K9c and K9d on the bf16 tensor cores (stride 2)
+// ---------------------------------------------------------------------------
+
+// The block at C input and CO output channels: output tiles of TH rows x 16
+// columns; one consumer warpgroup (warp w computes tile rows MI·w .. MI·w
+// + MI - 1, MI = TH / 4, as the MI m64 halves of the tile) and one producer
+// warpgroup, over a ring of NB plane buffers. The haloed (2TH + 1) x 33
+// input tile is staged as its four (row, column) parity planes
+// (int8_sites.cu's s2_pixel, at this tile's size): tap (dy, dx) of output
+// pixel (r, c) reads plane (dy%2, dx%2) at (r + dy/2, c + dx/2), so the 16
+// A rows of an ldmatrix are 16 consecutive plane pixels. A staged pixel and
+// a weight row are 2C bytes (no pad) under an XOR swizzle of their 16-byte
+// chunks (swz): any eight consecutive rows an ldmatrix reads fall in eight
+// distinct bank groups, and on the 1024-byte-aligned weights it is the
+// 128-byte (C = 64) or 64-byte (C = 32) swizzle of a K-major wgmma operand.
+// Shared memory: alignment slack, the nine taps' weights [9][CO][C]
+// (resident for the block's life), NB plane buffers of whole kilobytes
+// (each holds its tile's bf16 outputs after the MMAs, as the TMA store
+// reads them) and the bias; one block an SM:
+//   K9c <32, 64, 8, 4>:   1,024 + 36,864 + 4 x 36,864 + 256 = 185,600
+//   K9d <64, 128, 4, 2>:  1,024 + 147,456 + 2 x 38,912 + 512 = 226,816
+template <int C, int CO, int TH, int NB>
+struct S2Bf16 {
+  static constexpr int IC = C, OC = CO, TROWS = TH, NBUF = NB;  // the arguments
+  static constexpr int TW = 16;
+  static constexpr int HR = 2 * TH + 1, HC = 2 * TW + 1, PIX = HR * HC;
+  static constexpr int MI = TH / 4, NJ = CO / 8;  // a consumer warp's m16 tiles and n8 tiles
+  static constexpr int CTHREADS = 128, PTHREADS = 128, THREADS = CTHREADS + PTHREADS;
+  static constexpr int CH = C / 8;  // 16-byte chunks a pixel
+  static constexpr int RB = 2 * C;  // bytes a staged pixel or weight row
+  static constexpr int W = 9 * CO * RB;
+  static constexpr int X = (PIX * RB + 1023) / 1024 * 1024;
+  static constexpr int OUTH = TH * TW * 128;  // a tile's staged outputs, a 64-channel half
+  static constexpr size_t bytes = 1024 + W + NB * X + sizeof(float) * CO;
+  static_assert((C == 64 && CO == 128) || (C == 32 && CO == 64),
+                "128- or 64-byte rows, n = CO of a wgmma");
+  static_assert(TH % 4 == 0 && NB >= 2 && 1 + 2 * NB < 16, "a warpgroup; named barriers");
+  static_assert(CO / 64 * OUTH <= X && bytes <= 232448, "shared memory");
+
+  __host__ __device__ static constexpr int rows(int pr) { return (HR + 1 - pr) / 2; }
+  __host__ __device__ static constexpr int cols(int pc) { return (HC + 1 - pc) / 2; }
+  // planes (0, 0), (0, 1), (1, 0), (1, 1) in that order
+  __host__ __device__ static constexpr int off(int pr, int pc) {
+    return (pr ? rows(0) * (cols(0) + cols(1)) : 0) + (pc ? rows(pr) * cols(0) : 0);
+  }
+  // the staged pixel of haloed tile pixel (hr, hc)
+  __host__ __device__ static constexpr int pixel(int hr, int hc) {
+    return off(hr & 1, hc & 1) + (hr >> 1) * cols(hc & 1) + (hc >> 1);
+  }
+  // the swizzle of row p: 128 bytes hold 8 / CH rows, and chunk k of row p
+  // sits at chunk k ^ swf(p), so that 8 consecutive rows' chunk k take the 8
+  // 16-byte bank groups once each
+  __host__ __device__ static constexpr int swf(int p) { return (p >> (CH == 4 ? 1 : 0)) & (CH - 1); }
+  __host__ __device__ static constexpr uint32_t swz(int p, int k) {
+    return (uint32_t)p * RB + (uint32_t)((k ^ swf(p)) << 4);
+  }
+};
+
+struct alignas(64) S2Args {
+  CUtensorMap map_out;      // out [B][H][W][CO]: boxes of 64 co x 16 x TH x 1
+  const __nv_bfloat16* x;   // [B,Hi,Wi,C] raw, 16-byte aligned
+  const float *a, *c;       // [B,C] the prologue affine
+  const __nv_bfloat16* w;   // [9,CO,C], 16-byte aligned
+  const float* bias;        // [CO]
+  float* part;              // [B,slots,2,CO], slots = gridDim.x · 4
+  int B, Hi, Wi, H, W, tiles_x, tiles;
+};
+
+// sums[b, s, co] = Σ over the slots of part in double: 8 warps over the
+// slots in a fixed stride, then in warp order (as int8_sites.cu's
+// stats_reduce_mma).
+__global__ void stats_reduce_s2(const float* __restrict__ part, float* __restrict__ sums,
+                                int slots, int CO) {
+  __shared__ double s_part[8][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;  // over B·2·CO; CO % 32 == 0
+  const int co = i % CO, s = (i / CO) % 2, b = i / (2 * CO);
+  double t = 0.0;
+#pragma unroll 4
+  for (int k = warp; k < slots; k += 8) t += (double)part[(((size_t)b * slots + k) * 2 + s) * CO + co];
+  s_part[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0) {
+    double v = 0.0;
+    for (int w = 0; w < 8; ++w) v += s_part[w][lane];
+    sums[i] = (float)v;
+  }
+}
+
+constexpr int kS2Group = 4;  // passes of the activation loaded before their stores
+
+// A persistent block walks tiles blockIdx.x, + gridDim.x, ... of the B·tiles
+// output tiles. Its producer warpgroup brings a tile's raw bf16 input in by
+// cp.async, each 16-byte chunk from the pixel the reflect maps it to,
+// straight into its swizzled plane slot, and activates in place the chunks
+// each thread brought in, once (a tile is read and activated once for all
+// CO output channels); it keeps NB - 1 tiles' loads in flight, each fetched
+// as soon as the consumers release its buffer. The consumer warpgroup waits
+// for a full buffer and runs, a group a tap, MI x C/16 wgmma m64 n(CO) k16:
+// A by ldmatrix at the tap's plane shift, B the tap's weights through a
+// descriptor. Its epilogue adds the bias in f32 and stages bf16 in the
+// tile's buffer, from which one TMA store a 64-channel half writes the tile
+// (rows and columns past the image clipped); the buffer is released once
+// the store has read it, during the next tile's first group. Each consumer
+// thread sums the f32 values of its pixels inside the image over the
+// block's run of tiles of one image (a block's tiles go in image order),
+// folds them over the 8 lanes of a channel by shuffles when the run ends,
+// and writes them to its warp's slot of part (zeros for an image the block
+// has no tile of). The named barriers: buffer b full 1 + b, empty 1 + NB +
+// b; the consumers alone 1 + 2NB.
+template <int C, int CO, int TH, int NB>
+__global__ void __launch_bounds__(S2Bf16<C, CO, TH, NB>::THREADS, 1)
+    s2_mma_bf16_kernel(const __grid_constant__ S2Args p) {
+  using S = S2Bf16<C, CO, TH, NB>;
+  constexpr int FULL = 1, EMPTY = 1 + NB, CONS = 1 + 2 * NB;
+  constexpr int CH = S::CH, RB = S::RB, TW = S::TW, MI = S::MI, NJ = S::NJ, NT = S::THREADS;
+  constexpr int KC = C / 16;  // k16 steps a tap
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  // the weights are a wgmma operand under the 128- or 64-byte swizzle, and
+  // the staged outputs a TMA source under the 128-byte one: 1024-byte aligned
+  uint8_t* smem8 = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_w = smem8;                                              // [9][CO] rows
+  uint8_t* s_x0 = smem8 + S::W;                                      // NB plane buffers
+  float* s_bias = reinterpret_cast<float*>(smem8 + S::W + NB * S::X);  // [CO]
+
+  const int tid = threadIdx.x;
+  const int total = p.B * p.tiles, first = blockIdx.x;
+  const int n = (total - first + (int)gridDim.x - 1) / (int)gridDim.x;  // the block's tiles
+  if (n <= 0) return;
+
+  if (tid >= S::CTHREADS) {
+    // ---- producers ----
+    constexpr int PPI = S::PTHREADS / CH;         // pixels a pass
+    constexpr int NI = (S::PIX + PPI - 1) / PPI;  // passes
+    const int pt = tid - S::CTHREADS, chunk = pt % CH, p0 = pt / CH;
+    // pass k's staged offset | hr << 16 | hc << 22, the same for every tile;
+    // each use goes through opaque(), so that no field of them is hoisted
+    // out of the tile loop into registers of its own
+    static_assert(S::X <= 65536 && S::HR <= 64 && S::HC <= 64, "the fields fit");
+    uint32_t pk[NI];
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      const int px = min(p0 + k * PPI, S::PIX - 1), hr = px / S::HC, hc = px % S::HC;
+      pk[k] = S::swz(S::pixel(hr, hc), chunk) | (uint32_t)hr << 16 | (uint32_t)hc << 22;
+    }
+    // the block's tile j's raw input into its buffer, one commit group
+    // (empty past the block's last tile, so that the wait count holds)
+    auto fetch = [&](int j) {
+      if (j >= n) {
+        cp_async_commit();
+        return;
+      }
+      const int id = first + j * (int)gridDim.x;
+      uint8_t* dst = s_x0 + (j % NB) * S::X;
+      const int b = id / p.tiles, t = id % p.tiles;
+      const int iy0 = 2 * (t / p.tiles_x) * TH - 1, ix0 = 2 * (t % p.tiles_x) * TW - 1;
+      const __nv_bfloat16* img = p.x + (size_t)b * p.Hi * p.Wi * C + chunk * 8;
+      const uint32_t base = smem_addr(dst);
+      const bool inner = iy0 >= 0 && ix0 >= 0 && iy0 + S::HR <= p.Hi && ix0 + S::HC <= p.Wi;
+#pragma unroll
+      for (int k = 0; k < NI; ++k) {
+        if (p0 + k * PPI < S::PIX) {
+          const uint32_t f = opaque(pk[k]);
+          int sy = iy0 + (int)(f >> 16 & 63), sx = ix0 + (int)(f >> 22);
+          if (!inner) {
+            sy = src_index(sy, p.Hi, 0);
+            sx = src_index(sx, p.Wi, 0);
+          }
+          cp_async16(base + (f & 0xffffu), img + ((size_t)sy * p.Wi + sx) * C);
+        }
+      }
+      cp_async_commit();
+    };
+    // the weights, once: row (tap, co) of [9][CO][C], swizzled
+    for (int i = pt; i < 9 * CO * CH; i += S::PTHREADS)
+      cp_async16(smem_addr(s_w) + S::swz(i / CH, i % CH), p.w + (size_t)i * 8);
+    for (int i = pt; i < CO; i += S::PTHREADS) s_bias[i] = p.bias[i];
+    for (int j = 0; j < NB - 1; ++j) fetch(j);
+    int cur_b = -1;
+    float qa[8], qc[8];  // the affine of the thread's 8 channels
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      const int id = first + j * (int)gridDim.x;
+      uint8_t* buf = s_x0 + (j % NB) * S::X;
+      const int b = id / p.tiles;
+      if (b != cur_b) {
+        cur_b = b;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          qa[e] = __ldg(p.a + b * C + chunk * 8 + e);
+          qc[e] = __ldg(p.c + b * C + chunk * 8 + e);
+        }
+      }
+      cp_async_wait<NB - 2>();  // the thread's chunks of the tile have landed
+      if (j == 0) fence_async_smem();  // the weights, before wgmma reads them
+      // the thread's chunks activated in place, kS2Group loads ahead of
+      // their stores
+#pragma unroll
+      for (int k0 = 0; k0 < NI; k0 += kS2Group) {
+        uint4 v[kS2Group];
+#pragma unroll
+        for (int k = k0; k < k0 + kS2Group && k < NI; ++k)
+          if (p0 + k * PPI < S::PIX)
+            v[k - k0] = *reinterpret_cast<const uint4*>(buf + (opaque(pk[k]) & 0xffffu));
+#pragma unroll
+        for (int k = k0; k < k0 + kS2Group && k < NI; ++k)
+          if (p0 + k * PPI < S::PIX) {
+            uint4 u = v[k - k0];
+            u.x = activate2(u.x, qa[0], qc[0], qa[1], qc[1]);
+            u.y = activate2(u.y, qa[2], qc[2], qa[3], qc[3]);
+            u.z = activate2(u.z, qa[4], qc[4], qa[5], qc[5]);
+            u.w = activate2(u.w, qa[6], qc[6], qa[7], qc[7]);
+            *reinterpret_cast<uint4*>(buf + (opaque(pk[k]) & 0xffffu)) = u;
+          }
+      }
+      bar_arrive(FULL + j % NB, NT);
+      // tile j + NB - 1 into tile j - 1's buffer, once its outputs have left it
+      if (j >= 1 && j + NB - 1 < n) bar_sync(EMPTY + (j - 1) % NB, NT);
+      fetch(j + NB - 1);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers ----
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int arow = lane & 15, akb = lane >> 4;  // A rows: output columns, k half
+  // the running [Σ f, Σ f²] of the thread's channels c = 8nj + 2tg, +1 over
+  // its pixels of the block's tiles of image cur_b
+  float s1[NJ][2], s2[NJ][2];
+#pragma unroll
+  for (int nj = 0; nj < NJ; ++nj) s1[nj][0] = s1[nj][1] = s2[nj][0] = s2[nj][1] = 0.0f;
+  int cur_b = -1;
+  const int slot = blockIdx.x * 4 + warp, slots = (int)gridDim.x * 4;
+  // image cur_b's sums (folded over the 8 lanes g of a channel) into the
+  // warp's slot, zeros for images cur_b + 1 .. upto - 1, and the sums reset
+  auto flush = [&](int upto) {
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s1[nj][e] = __fadd_rn(s1[nj][e], __shfl_xor_sync(0xffffffffu, s1[nj][e], m));
+          s2[nj][e] = __fadd_rn(s2[nj][e], __shfl_xor_sync(0xffffffffu, s2[nj][e], m));
+        }
+    if (g == 0) {
+      for (int bb = max(cur_b, 0); bb < upto; ++bb) {
+        const bool run = bb == cur_b;
+        float* q = p.part + ((size_t)bb * slots + slot) * 2 * CO + 2 * tg;
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            q[nj * 8 + e] = run ? s1[nj][e] : 0.0f;
+            q[CO + nj * 8 + e] = run ? s2[nj][e] : 0.0f;
+          }
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) s1[nj][0] = s1[nj][1] = s2[nj][0] = s2[nj][1] = 0.0f;
+  };
+
+  MMA_PHASE_START
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    const int id = first + j * (int)gridDim.x;
+    uint8_t* xb = s_x0 + (j % NB) * S::X;
+    bar_sync(FULL + j % NB, NT);  // the tile is activated
+    MMA_PHASE(0)
+
+    // a group a tap: MI x KC wgmma m64 n(CO) k16, A (warp w's 16 rows of
+    // m64 half mi: tile row MI·w + mi) by ldmatrix into the register set
+    // the group before last used
+    float acc[MI][NJ][4];
+    {
+      const uint32_t a_base = smem_addr(xb);
+      // the lane's A row for each column parity, hidden from the compiler so
+      // that the taps' offsets are not hoisted out of the tile loop
+      const int lr[2] = {(int)opaque(warp * MI * S::cols(0) + arow),
+                         (int)opaque(warp * MI * S::cols(1) + arow)};
+      uint32_t afr[2][MI * KC * 4];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int dy = tap / 3, dx = tap % 3, pc = dx & 1;
+        const int pp = S::off(dy & 1, pc) + (dy >> 1) * S::cols(pc) + (dx >> 1) + lr[pc];
+        uint32_t(&f)[MI * KC * 4] = afr[tap & 1];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc)
+            ldsm_x4(*reinterpret_cast<uint32_t(*)[4]>(&f[4 * (mi * KC + kc)]),
+                    a_base + S::swz(pp + mi * S::cols(pc), 2 * kc + akb));
+        const uint32_t w_tap = smem_addr(s_w + tap * CO * RB);
+        const uint64_t desc = RB == 128 ? desc_kmajor(w_tap) : desc_kmajor64(w_tap);
+        wgmma_fence();
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            float(&d)[4 * NJ] = *reinterpret_cast<float(*)[4 * NJ]>(&acc[mi][0][0]);
+            if constexpr (NJ == 16)
+              wgmma_bf16<0>(d, &f[4 * (mi * KC + kc)], desc + 2 * kc, tap | kc);
+            else
+              wgmma_bf16_n64(d, &f[4 * (mi * KC + kc)], desc + 2 * kc, tap | kc);
+          }
+        wgmma_commit();
+        if (tap == 0 && j > 0) {  // the tile before's outputs have left its buffer
+          if (tid == 0) bulk_wait_read<0>();
+          __syncwarp();
+          if (j - 1 + NB < n) bar_arrive(EMPTY + (j - 1) % NB, NT);
+        }
+        wgmma_wait<1>();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) fence_acc(*reinterpret_cast<float(*)[4 * NJ]>(&acc[mi][0][0]));
+    }
+    MMA_PHASE(1)
+    bar_sync(CONS, S::CTHREADS);  // every warp is done with the planes: the outputs go there
+
+    // f = acc + bias in f32 for tile rows MI·warp + mi, pixels g and g+8,
+    // channels c = 8nj + 2tg, +1: staged as bf16 pairs in the TMA box's
+    // layout (a 64-channel half's 128-byte rows, swizzled), and added to the
+    // image's running sums
+    const int b = id / p.tiles, t = id % p.tiles;
+    const int y0 = (t / p.tiles_x) * TH, x0 = (t % p.tiles_x) * TW;
+    if (b != cur_b) {
+      flush(b);
+      cur_b = b;
+    }
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) {
+      const int c = nj * 8 + 2 * tg;
+      const float2 bi = *reinterpret_cast<const float2*>(s_bias + c);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int row = warp * MI + mi;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = g + 8 * h, px = row * TW + col;
+          const float f0 = __fadd_rn(acc[mi][nj][2 * h], bi.x);
+          const float f1 = __fadd_rn(acc[mi][nj][2 * h + 1], bi.y);
+          if (y0 + row < p.H && x0 + col < p.W) {
+            s1[nj][0] = __fadd_rn(s1[nj][0], f0);
+            s1[nj][1] = __fadd_rn(s1[nj][1], f1);
+            s2[nj][0] = __fadd_rn(s2[nj][0], __fmul_rn(f0, f0));
+            s2[nj][1] = __fadd_rn(s2[nj][1], __fmul_rn(f1, f1));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(xb + (nj >> 3) * S::OUTH + swz(px, nj & 7) + 4 * tg) =
+              __floats2bfloat162_rn(f0, f1);
+        }
+      }
+    }
+    fence_async_smem();
+    bar_sync(CONS, S::CTHREADS);
+    MMA_PHASE(2)
+    if (tid == 0) {
+#pragma unroll
+      for (int hf = 0; hf < CO / 64; ++hf)
+        tma_store_4d(&p.map_out, xb + hf * S::OUTH, 64 * hf, x0, y0, b);
+      bulk_commit();
+    }
+    MMA_PHASE(3)
+  }
+  if (tid == 0) bulk_wait_read<0>();
+  flush(p.B);
+  MMA_PHASE(4)
+  MMA_PHASE_END
+}
+
+// K9c's and K9d's instances
+using S2C2 = S2Bf16<32, 64, 8, 4>;
+using S2C3 = S2Bf16<64, 128, 4, 2>;
+static_assert(S2C2::off(1, 1) + S2C2::rows(1) * S2C2::cols(1) == S2C2::PIX &&
+                  S2C3::off(1, 1) + S2C3::rows(1) * S2C3::cols(1) == S2C3::PIX,
+              "the planes tile the haloed tile");
+
+template <class S>
+int launch_s2_bf16(const __nv_bfloat16* x, const float* a, const float* c,
+                   const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out, float* part,
+                   float* sums, int B, int Hi, int Wi, void* stream) {
+  if (B <= 0 || Hi < 2 || Wi < 2 || Hi % 2 || Wi % 2) return (int)cudaErrorInvalidValue;
+  S2Args p = {};
+  p.x = x; p.a = a; p.c = c; p.w = w; p.bias = bias; p.part = part;
+  p.B = B; p.Hi = Hi; p.Wi = Wi; p.H = Hi / 2; p.W = Wi / 2;
+  const int dout[4] = {S::OC, p.W, p.H, B}, bout[4] = {64, S::TW, S::TROWS, 1};
+  if (!make_map(&p.map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, 4, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  p.tiles_x = (p.W + S::TW - 1) / S::TW;
+  p.tiles = (p.H + S::TROWS - 1) / S::TROWS * p.tiles_x;
+  auto kern = s2_mma_bf16_kernel<S::IC, S::OC, S::TROWS, S::NBUF>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const long long total = (long long)B * p.tiles;
+  const int blocks = (int)(total < sms ? total : sms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kern<<<blocks, S::THREADS, S::bytes, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  stats_reduce_s2<<<B * 2 * S::OC / 32, 256, 0, s>>>(part, sums, blocks * 4, S::OC);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every pointer is a device
@@ -1730,7 +2199,8 @@ int launch_d3sum_mma(const RowsArgs& p, void* stream) {
 // describe; each launches on `stream` and returns a CUDA error code (0 on
 // success). part is scratch [B, tiles, 2, CO] with tiles = ceil(H/8) *
 // ceil(W/32) of the output grid at stride 1 and ceil(H/8) * ceil(W/16) at
-// stride 2; sums is [B,2,CO].
+// stride 2 (the site_kernel_bf16 forms; the others say theirs); sums is
+// [B,2,CO].
 
 // K9a: deconv2 in its phase form, x [B,H,W,64] → out [B,H,W,128], edge halo;
 // on d2_wgmma_kernel (x, w and out 16-byte aligned; part [B, ceil(H/4)·
@@ -1754,22 +2224,49 @@ extern "C" int d2_site_prev_launch(const __nv_bfloat16* x, const float* a, const
 // Dynamic shared memory of K9a's block (d2_wgmma_kernel).
 extern "C" int d2_wgmma_smem_bytes() { return (int)kDSmem; }
 
-// K9c: conv2, x [B,H,W,32] (H, W even) → out [B,H/2,W/2,64], reflect halo.
+// K9c: conv2, x [B,H,W,32] (H, W even) → out [B,H/2,W/2,64], reflect halo;
+// on s2_mma_bf16_kernel (x and w 16-byte aligned, 8 x 16 output tiles; part
+// [B, 4·min(SMs, B·ceil(H/16)·ceil(W/32)), 2, 64]: a block's consumer warps'
+// partials).
 extern "C" int c2_site_bf16_launch(const __nv_bfloat16* x, const float* a, const float* c,
                                    const __nv_bfloat16* w, const float* bias,
                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
                                    int W, void* stream) {
-  return launch_site<32, 2>(site_args(x, a, c, w, bias, out, part, B, H, W, 64, 0), sums,
-                            stream);
+  return launch_s2_bf16<S2C2>(x, a, c, w, bias, out, part, sums, B, H, W, stream);
 }
 
-// K9d: conv3, x [B,H,W,64] (H, W even) → out [B,H/2,W/2,128], reflect halo.
+// K9d: conv3, x [B,H,W,64] (H, W even) → out [B,H/2,W/2,128], reflect halo;
+// on s2_mma_bf16_kernel (x and w 16-byte aligned, 4 x 16 output tiles; part
+// [B, 4·min(SMs, B·ceil(H/8)·ceil(W/32)), 2, 128]).
 extern "C" int c3_site_bf16_launch(const __nv_bfloat16* x, const float* a, const float* c,
                                    const __nv_bfloat16* w, const float* bias,
                                    __nv_bfloat16* out, float* part, float* sums, int B, int H,
                                    int W, void* stream) {
+  return launch_s2_bf16<S2C3>(x, a, c, w, bias, out, part, sums, B, H, W, stream);
+}
+
+// K9c and K9d on their previous core (site_kernel_bf16<C, 2>: 8 x 16 tiles
+// on 64 output channels, part [B, ceil(H/16)·ceil(W/32), 2, CO]), for timing.
+extern "C" int c2_site_bf16_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                        const __nv_bfloat16* w, const float* bias,
+                                        __nv_bfloat16* out, float* part, float* sums, int B,
+                                        int H, int W, void* stream) {
+  return launch_site<32, 2>(site_args(x, a, c, w, bias, out, part, B, H, W, 64, 0), sums,
+                            stream);
+}
+
+extern "C" int c3_site_bf16_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                        const __nv_bfloat16* w, const float* bias,
+                                        __nv_bfloat16* out, float* part, float* sums, int B,
+                                        int H, int W, void* stream) {
   return launch_site<64, 2>(site_args(x, a, c, w, bias, out, part, B, H, W, 128, 0), sums,
                             stream);
+}
+
+// Dynamic shared memory of K9c's (C = 32) or K9d's (C = 64) block
+// (s2_mma_bf16_kernel); 0 for another C.
+extern "C" int s2_bf16_smem_bytes(int C) {
+  return C == 32 ? (int)S2C2::bytes : C == 64 ? (int)S2C3::bytes : 0;
 }
 
 // K9e: rows out[b, R+2, x, l] = bf16(1x5 conv of the activated, reflect-padded

@@ -37,15 +37,29 @@ Two more answer the JAX package's bf16 megakernel experiments
 
 On the card K9b runs on its own tensor-core core (``d3sum_mma_kernel``:
 warps walk 16-column strips down the image, the dy-sum's partial sums in
-registers; x 16-byte aligned) and K9a on K10's Hopper design at C = 64
+registers; x 16-byte aligned), K9a on K10's Hopper design at C = 64
 (``d2_wgmma_kernel``: persistent, TMA, ``wgmma``, 4 × 32-pixel tiles, the
 nine taps' weights resident; TMA fills the halo outside the image with
 zeros, and border tiles copy the edge into it before the activation, as
-``d2_halo_tile`` mirrors; x and w 16-byte aligned); ``d3_sum_site_prev``
-and ``d2_site_prev`` launch them on their previous cores
-(``rows_kernel_bf16``, ``site_kernel_bf16``), CUDA tensors only, for
-timing the two designs side by side: nothing on the main path calls them,
-and they count no launch.
+``d2_halo_tile`` mirrors; x and w 16-byte aligned), and K9c and K9d on one
+stride-2 core, K8a's and K8b's design in bf16 on ``wgmma``
+(``s2_mma_bf16_kernel``: persistent, one block an SM on all output
+channels with the nine taps' weights resident; the haloed input tile in
+four parity planes, so each tap is a stride-1 shift that ``ldmatrix``
+reads without bank conflicts; a producer warpgroup brings each tile's raw
+bf16 in by cp.async, each 16-byte chunk from the pixel the reflect maps
+it to, and activates it in place once, a few tiles ahead; a consumer
+warpgroup runs ``wgmma`` a tap, stages the outputs for a TMA store and
+keeps an image's [Σ, Σ²] in registers; x and w 16-byte aligned). They
+move 1.59 and 0.80 GB at 1080p B=8 for 1.5e11 bf16 FLOP each: bound by
+their bytes (0.475 and 0.238 ms), K9d near balance with its MMAs (0.155
+ms at the tensor peak). ``s2_site_smem_bytes``, ``s2_plane_pixel``,
+``s2_tap_pixel``, ``s2_swizzle``, ``s2_halo_tile``, ``s2_site_schedule``
+and ``s2_part_slots`` mirror the core's geometry. ``d3_sum_site_prev``,
+``d2_site_prev``, ``c2_site_bf16_prev`` and ``c3_site_bf16_prev`` launch
+them on their previous cores (``rows_kernel_bf16``, ``site_kernel_bf16``),
+CUDA tensors only, for timing the two designs side by side: nothing on
+the main path calls them, and they count no launch.
 
 K9a/K9c/K9d return (bf16(f), [Σ f, Σ f²]) with f = acc + bias in f32: the
 sums are of the f32 values before the bf16 round, as the TPU kernels take
@@ -88,8 +102,13 @@ FUSED_TILE = (4, 32)   # K10's output tile on the card: rows x columns (128 pixe
 #: partials are per tile)
 SITES = {"d2_site": (64, 128, 1, "edge", FUSED_TILE),
          "c2_site_bf16": (32, 64, 2, "reflect", (8, 16)),
-         "c3_site_bf16": (64, 128, 2, "reflect", (8, 16))}
-PREV_TILE = (8, 32)    # site_kernel_bf16 at stride 1: K9a's and K10's previous cores
+         "c3_site_bf16": (64, 128, 2, "reflect", (4, 16))}
+#: site_kernel_bf16's output tile by stride: the previous cores of K9a, K9c,
+#: K9d and K10
+PREV_TILE = {1: (8, 32), 2: (8, 16)}
+#: K9c's and K9d's plane buffers in the ring of a block on the card
+#: (``s2_mma_bf16_kernel``: one consumer and one producer warpgroup)
+S2_BUFFERS = {"c2_site_bf16": 4, "c3_site_bf16": 2}
 
 
 def pack_site_weights(w: torch.Tensor) -> torch.Tensor:
@@ -175,6 +194,111 @@ def d2_halo_tile(x: torch.Tensor, ty0: int, tx0: int) -> torch.Tensor:
                 sy, sx = min(max(gy, 0), H - 1), min(max(gx, 0), W - 1)
                 tile[hr, hc] = tile[sy - ty0 + 1, sx - tx0 + 1]
     return tile
+
+
+def _s2_geometry(name: str) -> tuple:
+    """(C, CO, TH, HR, HC) of K9c's or K9d's block: TH × 16 output tiles,
+    their (2TH + 1) × 33 haloed input."""
+    cin, co, _, _, (th, tw) = SITES[name]
+    return cin, co, th, 2 * th + 1, 2 * tw + 1
+
+
+def s2_site_smem_bytes(name: str) -> int:
+    """K9c's or K9d's dynamic shared memory (``S2Bf16::bytes``): 1,024 bytes
+    of slack that align what follows for ``wgmma`` and TMA, the nine taps'
+    weights [9][CO][C] bf16, the ring's plane buffers of the haloed tile (2C
+    bytes a pixel, in whole kilobytes; each holds its tile's staged outputs
+    after the MMAs) and the bias."""
+    cin, co, _, hr, hc = _s2_geometry(name)
+    return 1024 + 9 * co * 2 * cin + S2_BUFFERS[name] * (-(-hr * hc * 2 * cin // 1024) * 1024) + \
+        4 * co
+
+
+def _plane_dims(hr: int, hc: int, pr: int, pc: int) -> tuple:
+    return (hr + 1 - pr) // 2, (hc + 1 - pc) // 2
+
+
+def _plane_off(hr: int, hc: int, pr: int, pc: int) -> int:
+    """The first staged pixel of plane (pr, pc): planes (0, 0), (0, 1), (1, 0),
+    (1, 1) in that order."""
+    r0, c0 = _plane_dims(hr, hc, 0, 0)
+    _, c1 = _plane_dims(hr, hc, 0, 1)
+    rp, _ = _plane_dims(hr, hc, pr, 0)
+    return (r0 * (c0 + c1) if pr else 0) + (rp * c0 if pc else 0)
+
+
+def s2_plane_pixel(name: str, hr: int, hc: int) -> int:
+    """The staged pixel of haloed tile pixel (hr, hc) (``S2Bf16::pixel``):
+    pixel (hr/2, hc/2) of parity plane (hr%2, hc%2)."""
+    _, _, _, HR, HC = _s2_geometry(name)
+    return _plane_off(HR, HC, hr & 1, hc & 1) + (hr >> 1) * _plane_dims(HR, HC, 0, hc & 1)[1] + \
+        (hc >> 1)
+
+
+def s2_tap_pixel(name: str, r: int, c: int, dy: int, dx: int) -> int:
+    """The staged pixel that the A row of output pixel (r, c) of a tile reads
+    at tap (dy, dx), as the kernel addresses it: pixel (r + dy/2, c + dx/2)
+    of plane (dy%2, dx%2)."""
+    _, _, _, HR, HC = _s2_geometry(name)
+    return _plane_off(HR, HC, dy & 1, dx & 1) + (r + (dy >> 1)) * \
+        _plane_dims(HR, HC, 0, dx & 1)[1] + (dx >> 1) + c
+
+
+def s2_swizzle(name: str, p: int, k: int) -> int:
+    """The byte offset of 16-byte chunk k of staged row p (a pixel of the
+    planes or a weight row, 2C bytes) under the core's XOR swizzle
+    (``S2Bf16::swz``): chunk k ^ f(p), f(p) = (p / (8 / CH)) mod CH for CH
+    = C / 8 chunks a row."""
+    ch = SITES[name][0] // 8
+    return p * 16 * ch + 16 * (k ^ ((p >> (1 if ch == 4 else 0)) & (ch - 1)))
+
+
+def s2_halo_tile(name: str, x: torch.Tensor, ty0: int, tx0: int) -> torch.Tensor:
+    """The raw haloed input of K9c's or K9d's output tile at (ty0, tx0) of one
+    image x [H,W,C], as the card brings it in: input rows 2·ty0 − 1 ..
+    2·ty0 + 2TH − 1 and columns 2·tx0 − 1 .. 2·tx0 + 31, each position from
+    the pixel the reflect maps it to (row −1 is row 1), clamped into the
+    image (positions past the image feed only outputs that are not stored)
+    → [2TH + 1, 33, C]."""
+    _, _, _, HR, HC = _s2_geometry(name)
+    H, W = x.shape[:2]
+
+    def src(i, n):
+        i = -i if i < 0 else i
+        i = 2 * n - 2 - i if i >= n else i
+        return min(max(i, 0), n - 1)
+
+    rows = [src(2 * ty0 - 1 + hr, H) for hr in range(HR)]
+    cols = [src(2 * tx0 - 1 + hc, W) for hc in range(HC)]
+    return x[rows][:, cols]
+
+
+def s2_part_slots(name: str, B: int, H: int, W: int, sms: int) -> int:
+    """The [Σ, Σ²] partials a K9c or K9d launch writes per image on x
+    [B,H,W,C]: one per block and consumer warp (each block sums its tiles
+    of an image in its consumer threads and writes zeros for an image it
+    has no tile of)."""
+    ty, tx = _s2_tiles(name, H, W)
+    return 4 * min(sms, B * ty * tx)
+
+
+def _s2_tiles(name: str, H: int, W: int) -> tuple:
+    """(tile rows, tile columns) of K9c's or K9d's output grid on an H × W
+    input."""
+    _, _, (th, tw) = SITES[name][2:]
+    return -(-(H // 2) // th), -(-(W // 2) // tw)
+
+
+def s2_site_schedule(name: str, B: int, H: int, W: int, sms: int = 132) -> list:
+    """K9c's or K9d's persistent walk on x [B,H,W,C]: per block, the (image,
+    tile row, tile column) it takes, in order. Block k takes tiles k, k +
+    blocks, ... of the B·tiles output tiles; blocks = min(SMs, B·tiles),
+    one an SM."""
+    ty, tx = _s2_tiles(name, H, W)
+    total = B * ty * tx
+    blocks = min(sms, total)
+    return [[(t // (ty * tx), t % (ty * tx) // tx, t % tx) for t in range(k, total, blocks)]
+            for k in range(blocks)]
 
 
 def c2_site_bf16_plain(x, a, c, w, bias):
@@ -269,6 +393,8 @@ def _lib():
     site = [P] * 8 + [I] * 3 + [P]
     sigs = {"d2_site_launch": site, "d2_site_prev_launch": site, "d2_wgmma_smem_bytes": [],
             "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
+            "c2_site_bf16_prev_launch": site, "c3_site_bf16_prev_launch": site,
+            "s2_bf16_smem_bytes": [I],
             "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
             "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P],
             "d3_sum_site_prev_launch": [P] * 6 + [I] * 3 + [P],
@@ -297,7 +423,7 @@ def _site(k, x, a, c, w, bias, prev=False):
     if x.device.type == "cpu" and not prev:
         return site_bf16_plain(x, a, c, w, bias, stride=stride, halo=halo)
     if prev:
-        th, tw = PREV_TILE
+        th, tw = PREV_TILE[stride]
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{k}: no kernel for device {dev}")
@@ -312,12 +438,15 @@ def _site(k, x, a, c, w, bias, prev=False):
         _check(k, name, t, torch.float32, (B, C), dev)
     _check(k, "weights", w, torch.bfloat16, (9, co, C), dev)
     _check(k, "bias", bias, torch.float32, (co,), dev)
-    if k == "d2_site" and not prev:  # read by TMA
+    if not prev:  # read by TMA (K9a) or in 16-byte pieces by cp.async (K9c, K9d)
         for name, t in (("x", x), ("weights", w)):
             _check_aligned(k, name, t)
     ho, wo = H // stride, W // stride
     out = torch.empty((B, ho, wo, co), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((B, ceil(ho / th) * ceil(wo / tw), 2, co), dtype=torch.float32, device=dev)
+    slots = ceil(ho / th) * ceil(wo / tw)  # a partial a tile, or a block's and row warp's
+    if k in S2_BUFFERS and not prev:
+        slots = s2_part_slots(k, B, H, W, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((B, slots, 2, co), dtype=torch.float32, device=dev)
     sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), f"{k}_prev_launch" if prev else f"{k}_launch"), x.data_ptr(),
@@ -345,14 +474,29 @@ def d2_site_prev(x, a, c, w, bias):
 
 def c2_site_bf16(x, a, c, w, bias):
     """K9c: conv2 on conv1's raw output x [B,H,W,32] (H, W even) with the in1
-    affine → (bf16 raw [B,H/2,W/2,64], f32 [B,2,64] sums)."""
+    affine → (bf16 raw [B,H/2,W/2,64], f32 [B,2,64] sums). On the card:
+    ``s2_mma_bf16_kernel`` (x and w 16-byte aligned)."""
     return _site("c2_site_bf16", x, a, c, w, bias)
+
+
+def c2_site_bf16_prev(x, a, c, w, bias):
+    """K9c on its previous core (``site_kernel_bf16<32, 2>``), CUDA tensors
+    only: ``chip_smoke.py`` times it beside ``c2_site_bf16``. Nothing on the
+    main path calls it, and it counts no launch."""
+    return _site("c2_site_bf16", x, a, c, w, bias, prev=True)
 
 
 def c3_site_bf16(x, a, c, w, bias):
     """K9d: conv3 on conv2's raw output x [B,H,W,64] with the in2 affine →
-    (bf16 raw [B,H/2,W/2,128], f32 [B,2,128] sums)."""
+    (bf16 raw [B,H/2,W/2,128], f32 [B,2,128] sums). On the card:
+    ``s2_mma_bf16_kernel`` (x and w 16-byte aligned)."""
     return _site("c3_site_bf16", x, a, c, w, bias)
+
+
+def c3_site_bf16_prev(x, a, c, w, bias):
+    """K9d on its previous core (``site_kernel_bf16<64, 2>``), CUDA tensors
+    only, counting no launch: for timing the two cores in turns."""
+    return _site("c3_site_bf16", x, a, c, w, bias, prev=True)
 
 
 def _check_rows(k, x, a, c, w):
@@ -466,7 +610,7 @@ def _fused_conv(x_pad, stat, w9, cb, hw, prologue, stats, prev):
     out = torch.empty((B, H, W, co), dtype=torch.bfloat16, device=dev)
     part = sums = None
     if stats:
-        th, tw = PREV_TILE if prev else FUSED_TILE
+        th, tw = PREV_TILE[1] if prev else FUSED_TILE
         part = torch.empty((B, ceil(H / th) * ceil(W / tw), 2, co), dtype=torch.float32,
                            device=dev)
         sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
