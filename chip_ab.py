@@ -5,6 +5,7 @@ card in turns.
     python3 chip_ab.py ROOT slices [--nst-chain]
     python3 chip_ab.py ROOT kernels
     python3 chip_ab.py ROOT bf16
+    python3 chip_ab.py ROOT k1
     python3 chip_ab.py ROOT experiments
     python3 chip_ab.py ROOT profile
 
@@ -16,8 +17,10 @@ and every quantized or fused-site slice) and prints their frames/s; with
 ``--nst-chain`` it then runs the NST int8_static chain phase and the slices
 again. ``kernels`` runs phase 5, K2-K8b against their plain versions with
 their device times (each in turns with its previous ``__dp4a`` core);
-``bf16`` the same for K9a-K9e (K9a and K9b in turns with their previous
-cores). ``experiments`` runs the entry points of mk5 (K10's six
+``bf16`` the same for K9a-K9e (each in turns with its previous core);
+``k1`` runs phase 4, K1 at the slice's four pyramid levels against its
+plain version (the change's tree also against its previous core), level by
+level. ``experiments`` runs the entry points of mk5 (K10's six
 forms), mk20 and mk27 (K12's flat forms) at their full shapes, each
 printing its JSON line. ``profile`` runs ``chip_smoke.py --profile``'s
 torch.profiler pass over the 1080p Johnson slices only (plain bf16,
@@ -35,8 +38,8 @@ from pathlib import Path
 
 
 def main() -> int:
-    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "experiments",
-                                                 "profile"):
+    if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "k1",
+                                                 "experiments", "profile"):
         print(__doc__)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -69,6 +72,9 @@ def main() -> int:
         return 0
     if sys.argv[2] == "bf16":
         cs.bf16_kernel_phase(dev)
+        return 0
+    if sys.argv[2] == "k1":
+        cs.k1_phase(dev)
         return 0
     if sys.argv[2] == "profile":
         cs.NST_SLICES, cs.RECO_SLICES, cs.T7_SLICES = (), (), ()

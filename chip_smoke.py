@@ -16,11 +16,15 @@ order, and any failed phase exits non-zero:
    dynamic shared memory of the tensor-core cores (K2–K5's ``mma_kernel``,
    K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K7's
    ``d3rows_mma_kernel``, K9a's ``d2_wgmma_kernel``, K9b's
-   ``d3sum_mma_kernel``, K9c's and K9d's ``s2_mma_bf16_kernel``, K10's
-   ``fused_wgmma_kernel``, K12's ``shift_wgmma_kernel``);
-4. hold K1 against its plain PyTorch version at the four DIS pyramid levels
-   of the 1080p slice (8 frame pairs, flow at half resolution), and time
-   both;
+   ``d3sum_mma_kernel``, K9c's and K9d's ``s2_mma_bf16_kernel``, K9e's
+   ``d3rows_wgmma_kernel``, K10's ``fused_wgmma_kernel``, K12's
+   ``shift_wgmma_kernel``) and of K1's ``dis_iter_kernel``;
+4. hold K1 against its plain PyTorch version, and bit for bit against its
+   previous core (``dis_iter_prev``), at the four DIS pyramid levels of the
+   1080p slice (8 frame pairs, flow at half resolution), two launches
+   bit-identical,
+   and time the three level by level in turns, with the time of one
+   Gauss–Newton step (the kernel at 0 iterations beside 16);
 5. hold K2–K8b against their plain versions at the int8 sites' 1080p B=8
    shapes (res 270×480 128→128; d1 270×480 128→256; d2 540×960 64→128;
    K3 also with YAFF, with the s8 emit at floor −127 and as the s8 decoder's
@@ -44,15 +48,18 @@ order, and any failed phase exits non-zero:
    two launches bit-identical, bf16 outputs within 1 bf16 ulp of the plain
    version everywhere (an ulp taken at no less than 2^-8 of the tensor's
    largest magnitude; the 5-row sum: within 2 ulp of its largest term) and
-   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9a–K9d
+   equal on ≥ 99%, sums within 1e-5; timed like the int8 sites (K9a–K9e
    also beside their previous designs, ``d2_site_prev``,
-   ``d3_sum_site_prev``, ``c2_site_bf16_prev`` and ``c3_site_bf16_prev``,
+   ``d3_sum_site_prev``, ``c2_site_bf16_prev``, ``c3_site_bf16_prev`` and
+   ``d3_rows_prev``,
    each held to the same bounds against the plain version and against each
    other); then K7 and K9a at ragged shapes (W off the 32-column strip and
    tile, H below the 8-row tile, B = 1 and 3) against their plain versions
    and previous cores (K7 bit for bit, K9a within the K9 bounds, two
    launches bit-identical), and K9c and K9d likewise (outputs off the
-   16-column tile and the 8- and 4-row tiles, a 1 × 1 output); then K2
+   16-column tile and the 8- and 4-row tiles, a 1 × 1 output), and K9e
+   (an odd W, widths off the 64-column segment) and K1 (tails of 1–3
+   patches in the last warp, a partial block) likewise; then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
    codes 0; then each of the port's experiment entry points
@@ -145,7 +152,7 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K8b; K9a–K9d; K10, K12) with
+instead builds the tensor-core cores (K2–K8b; K9a–K9e; K10, K12) with
 ``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
 the probes' shapes), the share of each phase of the tile loop (K6, K7,
 K9b: of the row loop) in the clock of every block's thread 0.
@@ -154,6 +161,7 @@ K9b: of the row loop) in the clock of every block's thread 0.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -308,11 +316,10 @@ PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
 # stays callable for the comparison, K2's and K5's also at ReCoNet's C = 192
 # (K3's and K4's previous design was built without it); K9b runs on
 # d3sum_mma_kernel, K9a on d2_wgmma_kernel, K9c and K9d on
-# s2_mma_bf16_kernel, their previous designs (rows_kernel_bf16,
-# site_kernel_bf16) likewise
+# s2_mma_bf16_kernel, K9e on d3rows_wgmma_kernel, their previous designs
+# (rows_kernel_bf16, site_kernel_bf16) likewise
 REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "c3_site",
               "d3_s8_site", "d3_rows_site")
-REDESIGNED_BF16 = ("d3_sum_site", "d2_site", "c2_site_bf16", "c3_site_bf16")
 PREV_C192 = ("res_site_s8o", "res_site_skip")
 
 
@@ -377,12 +384,13 @@ def moving_frames(n: int, h: int, w: int, seed: int):
             for t in range(n)]
 
 
-def k1_phase(dev):
-    """K1 against its plain version at the slice's pyramid levels."""
+def k1_level_inputs(dev):
+    """K1's flat inputs at the slice's four pyramid levels (8 frame pairs,
+    flow at half resolution), coarse to fine: (level height, width, inputs,
+    patches)."""
     import numpy as np
     import torch
 
-    from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.ops import dis_flow as tdis
     from neuralstyletransferv1_torch.ops.color import rgb_to_gray
     from neuralstyletransferv1_torch.ops.resize import resize_bilinear
@@ -391,7 +399,7 @@ def k1_phase(dev):
     x = torch.from_numpy(np.stack(frames)).to(dev).float()
     gray = resize_bilinear(rgb_to_gray(x)[..., None], (H // 2, W // 2))[..., 0]
     prev, curr = gray[:-1], gray[1:]
-    worst, ms_total, plain_total, bound_total = 0.0, 0.0, 0.0, 0.0
+    levels = []
     for lh, lw, k in tdis._level_sizes(H // 2, W // 2, 2):
         a = resize_bilinear(prev[..., None], (lh, lw))[..., 0]
         c = resize_bilinear(curr[..., None], (lh, lw))[..., 0]
@@ -402,37 +410,86 @@ def k1_phase(dev):
         init[..., 1] += 0.5 / 2 ** k
         ins = tdis._level_inputs(a, c, init)
         n = B * ins["t"].shape[1] * ins["t"].shape[2]
-        flat = {key: v.reshape((n,) + v.shape[3:]).contiguous() for key, v in ins.items()}
+        levels.append((lh, lw, {key: v.reshape((n,) + v.shape[3:]).contiguous()
+                                for key, v in ins.items()}, n))
+    return levels
+
+
+def check_k1(label, u, res, ref_u, ref_res):
+    """K1's bound against another version: offsets within K1_OFFSET_TOL px
+    on K1_SHARE of the patches, residuals within K1_RES_TOL there. Returns
+    (share, max offset error, residual error)."""
+    import torch
+
+    if not (torch.isfinite(u).all() and torch.isfinite(res).all()):
+        fail(f"K1 produced non-finite values ({label})")
+    du = (u - ref_u).abs().max(dim=1).values
+    same = du <= K1_OFFSET_TOL
+    share = float(same.float().mean())
+    res_err = float((res - ref_res).abs()[same].max())
+    if share < K1_SHARE or res_err > K1_RES_TOL:
+        fail(f"K1 disagrees ({label}): offsets within {K1_OFFSET_TOL} px on {share:.4%}, "
+             f"residual err {res_err:.3g}")
+    return share, float(du.max()), res_err
+
+
+def k1_phase(dev):
+    """K1 against its plain version and bit for bit against its previous
+    core at the slice's pyramid levels, timed level by level in turns (plain; three rounds of
+    kernel, previous core and the kernel at 0 iterations, their medians;
+    plain: device time, the previous core's including its two PyTorch ops
+    for 1/det and u0 − lo); each level's time of one Gauss–Newton step, from
+    the kernel at 0 iterations and at its 16. Returns the kernels-line
+    record."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import dis_iter as k1
+
+    worst, per_level = 0.0, []
+    for lh, lw, flat, n in k1_level_inputs(dev):
         u, res = k1.dis_iter(**flat)
+        u2, res2 = k1.dis_iter(**flat)
         pu, pres = k1.dis_iter_plain(**flat)
+        qu, qres = k1.dis_iter_prev(**flat)
         torch.cuda.synchronize()
-        du = (u - pu).abs().max(dim=1).values
-        same = du <= K1_OFFSET_TOL
-        share = float(same.float().mean())
-        res_err = float((res - pres).abs()[same].max())
-        if not (torch.isfinite(u).all() and torch.isfinite(res).all()):
-            fail(f"K1 produced non-finite values at level {lh}x{lw}")
+        if not (torch.equal(u, u2) and torch.equal(res, res2)):
+            fail(f"K1: two launches on the same inputs differ at level {lh}x{lw}")
+        if not (torch.equal(u, qu) and torch.equal(res, qres)):
+            fail(f"K1: not bit-identical to its previous core at level {lh}x{lw}")
+        share, du, res_err = check_k1(f"level {lh}x{lw}, plain", u, res, pu, pres)
         kernel, plain = (lambda: k1.dis_iter(**flat)), (lambda: k1.dis_iter_plain(**flat))
-        # in turns: plain, kernel, kernel, plain
-        t_plain = cuda_ms(plain, reps=5)
-        t_k = (cuda_ms(kernel) + cuda_ms(kernel)) / 2
-        t_plain = (t_plain + cuda_ms(plain, reps=5)) / 2
-        d_k, d_plain = device_ms(kernel), device_ms(plain, reps=3)
-        ms_total += d_k if d_k is not None else t_k
-        plain_total += d_plain if d_plain is not None else t_plain
+        prev = lambda: k1.dis_iter_prev(**flat)  # noqa: E731
+        idle = lambda: k1.dis_iter(**flat, iters=0)  # noqa: E731
+        # plain, then three rounds of kernel, previous core, 0 iterations
+        # (medians: a level's first profile can catch host-side stalls),
+        # then plain
+        t_plain = dev_time(plain, reps=3)
+        rounds = [[dev_time(f, reps=20) for f in (kernel, prev, idle)] for _ in range(3)]
+        t_k, t_prev, t_idle = (statistics.median(r[i] for r in rounds) for i in range(3))
+        t_plain = (t_plain + dev_time(plain, reps=3)) / 2
+        step = (t_k - t_idle) / 16
         # bound: every input read once, u and res written once; ~16 f32
         # operations per pixel of the patch in each of the iters + 1 samples
         ops = n * (16 + 1) * 64 * 16
-        bound_total += max(nbytes(*flat.values(), u, res) / HBM_BYTES_PER_S,
-                           ops / PEAK_F32_OPS) * 1e3
-        worst = max(worst, float(du.max()))
-        log(f"K1 level {lh}x{lw}: {n} patches, offsets within {K1_OFFSET_TOL} px on "
-            f"{share:.4%} (bound {K1_SHARE:.0%}), max offset err {float(du.max()):.3g} px, "
-            f"residual err {res_err:.3g} (bound {K1_RES_TOL}); per call {t_k:.4f} ms "
-            f"(plain {t_plain:.4f} ms); device time {d_k} ms (plain {d_plain} ms)")
-        if share < K1_SHARE or res_err > K1_RES_TOL:
-            fail(f"K1 disagrees with its plain version at level {lh}x{lw}")
-    return worst, ms_total, plain_total, bound_total
+        bound = max(nbytes(*flat.values(), u, res) / HBM_BYTES_PER_S, ops / PEAK_F32_OPS) * 1e3
+        worst = max(worst, du)
+        per_level.append({"level": f"{lh}x{lw}", "patches": n, "ms": t_k, "prev_ms": t_prev,
+                          "plain_ms": t_plain, "bound_ms": bound, "step_ms": step,
+                          "latency_floor_ms": 17 * step})
+        log(f"K1 level {lh}x{lw}: {n} patches, two launches bit-identical; offsets within "
+            f"{K1_OFFSET_TOL} px of plain on {share:.4%} (bound {K1_SHARE:.0%}), max offset "
+            f"err {du:.3g} px, residual err {res_err:.3g} (bound {K1_RES_TOL}), bit-identical "
+            f"to the previous core; device ms: kernel {t_k:.4f}, previous core "
+            f"{t_prev:.4f} ({t_prev / t_k:.2f}x), plain {t_plain:.4f}, bound {bound:.4f} "
+            f"({bound / t_k:.1%}); 0 iterations {t_idle:.4f}: a step {step * 1e3:.3f} us, "
+            f"17 steps {17 * step:.4f} ms")
+    tot = {k: sum(v[k] for v in per_level) for k in ("ms", "prev_ms", "plain_ms", "bound_ms")}
+    log(f"K1, the four levels: kernel {tot['ms']:.4f} ms, previous core {tot['prev_ms']:.4f} ms "
+        f"({tot['prev_ms'] / tot['ms']:.2f}x), plain {tot['plain_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.1%}); the coarsest level's "
+        f"17 steps {per_level[0]['latency_floor_ms']:.4f} ms")
+    return {"max_abs_err": worst, **tot, "bound_share": tot["bound_ms"] / tot["ms"],
+            "per_level": per_level}
 
 
 def site_inputs(dev, b, h, w, c, co, seed):
@@ -786,11 +843,10 @@ def bf16_library_conv(dev, name, shape):
 
 
 def bf16_kernel_phase(dev):
-    """K9a-K9e against their plain versions at the slice's shapes, timed in
-    turns (plain, kernel, kernel, plain; K9a-K9d: plain, kernel, previous
-    core, kernel, previous core, plain, the previous core held to the same
-    bounds)
-    beside the cuDNN bf16 conv of the same shape."""
+    """K9a-K9e against their plain versions and their previous cores (held
+    to the same bounds) at the slice's shapes, timed in turns (plain,
+    kernel, previous core, kernel, previous core, plain) beside the cuDNN
+    bf16 conv of the same shape."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
@@ -802,14 +858,12 @@ def bf16_kernel_phase(dev):
         out, again, ref = kernel(*args), kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err, worst, equal = check_bf16_site(name, out, again, ref, args)
-        redesigned = name in REDESIGNED_BF16
-        if redesigned:
-            prev = getattr(k9, f"{name}_prev")
-            p1, p2 = prev(*args), prev(*args)
-            torch.cuda.synchronize()
-            check_bf16_site(f"{name} (previous core)", p1, p2, ref, args)
-            check_bf16_site(f"{name} against its previous core", out, again, p1, args)
-            del p1, p2
+        prev = getattr(k9, f"{name}_prev")
+        p1, p2 = prev(*args), prev(*args)
+        torch.cuda.synchronize()
+        check_bf16_site(f"{name} (previous core)", p1, p2, ref, args)
+        check_bf16_site(f"{name} against its previous core", out, again, p1, args)
+        del p1, p2
         outs = out if isinstance(out, tuple) else (out,)
         b, h, w, c = shape
         pix = outs[0].shape[0] * outs[0].shape[1] * outs[0].shape[2]
@@ -822,12 +876,9 @@ def bf16_kernel_phase(dev):
         del out, again, ref, outs
         torch.cuda.empty_cache()
         t_plain = dev_time(lambda: plain(*args), reps=2)
-        if redesigned:
-            t_k, t_prev = dev_time(lambda: kernel(*args)), dev_time(lambda: prev(*args), reps=3)
-            t_k = (t_k + dev_time(lambda: kernel(*args))) / 2
-            t_prev = (t_prev + dev_time(lambda: prev(*args), reps=3)) / 2
-        else:
-            t_k = (dev_time(lambda: kernel(*args)) + dev_time(lambda: kernel(*args))) / 2
+        t_k, t_prev = dev_time(lambda: kernel(*args)), dev_time(lambda: prev(*args), reps=3)
+        t_k = (t_k + dev_time(lambda: kernel(*args))) / 2
+        t_prev = (t_prev + dev_time(lambda: prev(*args), reps=3)) / 2
         t_plain = (t_plain + dev_time(lambda: plain(*args), reps=2)) / 2
         lib = bf16_library_conv(dev, name, shape)
         t_lib = dev_time(lib)
@@ -836,16 +887,13 @@ def bf16_kernel_phase(dev):
         log(f"{name} @ {b}x{h}x{w}x{c}: two launches bit-identical; vs plain max |err| "
             f"{err:.4g}, worst {worst:.3g} ulp, equal on {equal:.4%}; kernel {t_k:.4f} ms, plain "
             f"{t_plain:.4f} ms, cuDNN bf16 conv {t_lib:.4f} ms; bound {bound:.4f} ms "
-            f"({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP)" +
-            (f"; previous core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel)"
-             if redesigned else "") + f"; kernel at {bound / t_k:.1%} of the bound")
+            f"({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP); previous core {t_prev:.4f} ms "
+            f"({t_prev / t_k:.2f}x the kernel); kernel at {bound / t_k:.1%} of the bound")
         results[name] = {"ms": t_k, "plain_ms": t_plain, "cudnn_bf16_ms": t_lib,
                          "bound_ms": bound, "max_abs_err": err,
-                         "bound_by": "operations" if t_ops > t_bytes else "bytes"}
-        if redesigned:
-            results[name].update(prev_ms=t_prev, bound_share=bound / t_k)
-            del prev
-        del args, lib
+                         "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                         "prev_ms": t_prev, "bound_share": bound / t_k}
+        del args, lib, prev
         torch.cuda.empty_cache()
     return results
 
@@ -1102,6 +1150,64 @@ def ragged_k9c_k9d_phase(dev):
         log(f"K9c and K9d at {b}x{h}x{w}: {worst['c2_site_bf16']:.3g} and "
             f"{worst['c3_site_bf16']:.3g} ulp at worst, within the K9 bounds of their plain "
             "versions and previous cores; two launches bit-identical")
+
+
+# K9e's core at ragged shapes (B, H, W): the smallest image, an odd W
+# (plain stores), W off the 64-column segment, one segment, one past it
+RAGGED_K9E = ((1, 3, 3), (1, 5, 67), (3, 7, 130), (2, 9, 64), (1, 4, 65))
+# K1 at ragged patch counts: level images (B, h, w) of 1, 2, 3 and 5
+# patches (tails of 3, 2, 1 and 3 in the last warp) and 126 (a partial block)
+RAGGED_K1 = ((1, 8, 8), (1, 8, 12), (1, 8, 16), (1, 8, 24), (1, 40, 60))
+
+
+def ragged_k9e_k1_phase(dev):
+    """K9e (``d3_rows``) at ragged shapes against its plain version and its
+    previous core, within the K9 bounds of ``check_bf16_site`` (1 ulp, 99%
+    equal); K1 at ragged patch counts against its plain version (offsets
+    within 1e-3 px on 99% of patches, residuals within 1e-3) and bit for bit
+    against its previous core; two launches of each bit-identical."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+    from neuralstyletransferv1_torch.kernels import dis_iter as k1
+    from neuralstyletransferv1_torch.ops import dis_flow as tdis
+
+    for i, (b, h, w) in enumerate(RAGGED_K9E):
+        args = bf16_site_inputs(dev, "d3_rows", (b, h, w, k9.D3_C), seed=430 + i)
+        out, again, ref = k9.d3_rows(*args), k9.d3_rows(*args), k9.d3_rows_plain(*args)
+        p1, p2 = k9.d3_rows_prev(*args), k9.d3_rows_prev(*args)
+        torch.cuda.synchronize()
+        _, worst, equal = check_bf16_site(f"d3_rows ragged {b}x{h}x{w}", out, again, ref, args)
+        check_bf16_site(f"d3_rows (previous core) ragged {b}x{h}x{w}", p1, p2, ref, args)
+        check_bf16_site(f"d3_rows against its previous core ragged {b}x{h}x{w}", out, again, p1,
+                        args)
+        log(f"K9e at {b}x{h}x{w}: {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 "
+            "bounds of its plain version and previous core; two launches bit-identical")
+        del args, out, again, ref, p1, p2
+    for i, (b, h, w) in enumerate(RAGGED_K1):
+        rng = np.random.default_rng(440 + i)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        img = 128 + 50 * np.sin(0.23 * xx + 0.11 * yy) + 30 * np.cos(0.13 * xx - 0.29 * yy)
+        pair = [torch.from_numpy(np.stack([np.roll(img, s, 1) + rng.normal(0, 2, (h, w))
+                                           for _ in range(b)]).astype(np.float32)).to(dev)
+                for s in (0, 2)]
+        init = torch.from_numpy(rng.normal(0.5, 0.6, (b, h, w, 2)).astype(np.float32)).to(dev)
+        ins = tdis._level_inputs(*pair, init)
+        n = b * ins["t"].shape[1] * ins["t"].shape[2]
+        flat = {k: v.reshape((n,) + v.shape[3:]).contiguous() for k, v in ins.items()}
+        (u, res), (u2, res2) = k1.dis_iter(**flat), k1.dis_iter(**flat)
+        pu, pres = k1.dis_iter_plain(**flat)
+        qu, qres = k1.dis_iter_prev(**flat)
+        torch.cuda.synchronize()
+        if not (torch.equal(u, u2) and torch.equal(res, res2)):
+            fail(f"K1 at {n} patches: two launches on the same inputs differ")
+        if not (torch.equal(u, qu) and torch.equal(res, qres)):
+            fail(f"K1 at {n} patches: not bit-identical to its previous core")
+        share, du, _ = check_k1(f"{n} patches, plain", u, res, pu, pres)
+        log(f"K1 at {n} patches (a tail of {-n % 4} in the last warp): offsets within "
+            f"{K1_OFFSET_TOL} px of plain on {share:.4%}, max err {du:.3g} px; bit-identical to "
+            "its previous core; two launches bit-identical")
 
 
 def reference_phase(dev):
@@ -1978,7 +2084,7 @@ MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "
              ("0", "4"): "K4 no stats"}
 
 
-def ptxas_report(text: str, k8, k9, k12) -> None:
+def ptxas_report(text: str, k1, k8, k9, k12) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core cores' instantiations
     (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
@@ -1987,7 +2093,9 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
     no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
     under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
     d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
-    their previous cores); d3sum_mma_kernel K9b; d2_wgmma_kernel K9a
+    their previous cores); d3sum_mma_kernel K9b and d3rows_wgmma_kernel K9e
+    (rows_kernel_bf16<1>, <0> their previous cores); dis_iter_kernel K1 (at
+    R = 6; dis_iter_prev_kernel its previous core); d2_wgmma_kernel K9a
     (site_kernel_bf16<64, 1, ...> its previous core); s2_mma_bf16_kernel<C,
     CO, TH, buffers> K9c at C = 32, K9d at 64 (site_kernel_bf16<C, 2, ...>
     their previous cores); shift_wgmma_kernel<A bf16,
@@ -2031,6 +2139,16 @@ def ptxas_report(text: str, k8, k9, k12) -> None:
             elif base == "rows_kernel":
                 short += " (K7, previous core)" if targs == ["0", "1"] else \
                     " (K6, previous core)"
+            elif base == "rows_kernel_bf16":
+                short += " (K9b, previous core)" if targs == ["1"] else " (K9e, previous core)"
+            elif base == "d3rows_wgmma_kernel":
+                short += " (K9e)"
+                smem = k9._lib().d3_rows_smem_bytes()
+            elif base == "dis_iter_kernel":
+                short += " (K1)"
+                smem = k1._lib().dis_iter_smem_bytes(20)
+            elif base == "dis_iter_prev_kernel":
+                short += " (K1, previous core)"
             elif base == "d3sum_mma_kernel":
                 short += " (K9b)"
                 smem = k9._lib().d3sum_mma_smem_bytes()
@@ -2083,6 +2201,10 @@ PHASES_S2_BF16 = ("wait for the tile's activated input (the producer warps)",
                   "wgmma groups issued (the tile before's buffer released)",
                   "fragment epilogue: staging and sums (MMA drain incl.)",
                   "the TMA stores issued", "the last image's sums (once)")
+# K9e's item loop (d3rows_wgmma_kernel: its consumer warp 0)
+PHASES_K9E = ("wait for the item's activated input (the producer warps)",
+              "the wgmma group and the item before's store issued", "MMA drain",
+              "staging the bf16 lanes", "the last item's store (once)")
 PHASES_K9A = ("wait for the tile's input", "the first tile's halo patch and activation",
               "wait for the weights (once)",
               "fragments and MMAs issued (the next tile's patch and activation between)",
@@ -2137,7 +2259,7 @@ def _phase_shares(lib, kernel, label, labels):
 
 
 def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K8b; K9a-K9d; K12, K10) built
+    """--phases: the tensor-core cores (K2-K8b; K9a-K9e; K12, K10) built
     with MMA_PHASE_CLOCKS, each of their 1080p B=8 cases (K12: the probes'
     shapes) run once; the share of each phase of the tile loop (K6, K7, K9b:
     of warp 0's row loop) in the clock of every block's thread 0, averaged
@@ -2154,7 +2276,7 @@ def phases_phase(dev):
                                        "site_s2_launch", "d3_s8_launch", "d3_rows_launch"))
     lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch",
                                        "d2_site_launch", "c2_site_bf16_launch",
-                                       "c3_site_bf16_launch"))
+                                       "c3_site_bf16_launch", "d3_rows_launch"))
     lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
     base8, base9, base12 = k8._lib, k9._lib, k12._lib
     # the wrappers launch the instrumented builds
@@ -2170,12 +2292,13 @@ def phases_phase(dev):
                               labels)
                 del t, kernel
                 torch.cuda.empty_cache()
-        for name in REDESIGNED_BF16:
+        for name in BF16_KERNELS:
             shape = BF16_KERNELS[name][0]
             args = bf16_site_inputs(dev, name, shape, seed=11)
             _phase_shares(lib9, lambda: getattr(k9, name)(*args), f"{name} @ {shape}",
                           {"d2_site": PHASES_K9A, "c2_site_bf16": PHASES_S2_BF16,
-                           "c3_site_bf16": PHASES_S2_BF16}.get(name, PHASES_D3_BF16))
+                           "c3_site_bf16": PHASES_S2_BF16,
+                           "d3_rows": PHASES_K9E}.get(name, PHASES_D3_BF16))
             del args
             torch.cuda.empty_cache()
         for label, call in k12_phase_cases(dev, k12):
@@ -2227,7 +2350,7 @@ def kernel_group(name: str) -> str:
     """A device kernel's kind, from its name."""
     n = name.lower()
     if any(k in n for k in ("kernel_bf16", "stats_reduce_bf16", "d3sum_mma", "d2_wgmma",
-                            "s2_mma_bf16", "stats_reduce_s2")):
+                            "s2_mma_bf16", "stats_reduce_s2", "d3rows_wgmma")):
         return "bf16 sites K9a-K9e"
     if any(k in n for k in ("site_kernel", "mma_kernel", "mma_s2_kernel", "stats_reduce",
                             "rows_kernel")):
@@ -2353,13 +2476,13 @@ def run_phases(dev, tmp: Path, k8) -> int:
         fail("OpenCV is not installed: the CLI phases need it to synthesize their videos")
     from neuralstyletransferv1_torch.kernels import _build
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
-
+    from neuralstyletransferv1_torch.kernels import dis_iter as k1
     from neuralstyletransferv1_torch.kernels import int8_probes as k12
 
     for txt in sorted(_build.BUILD_DIR.glob("*.ptxas.txt")):
-        ptxas_report(txt.read_text(), k8, k9, k12)
+        ptxas_report(txt.read_text(), k1, k8, k9, k12)
 
-    worst, k1_ms, k1_plain_ms, k1_bound_ms = k1_phase(dev)
+    k1_rec = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
     exp_launches, exp = experiments_phase(dev)
@@ -2367,6 +2490,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     ragged_reco_phase(dev)
     ragged_k7_k9a_phase(dev)
     ragged_k9c_k9d_phase(dev)
+    ragged_k9e_k1_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)
@@ -2395,9 +2519,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
         "name": "dis_iter", "route": "cuda",
         "source": "neuralstyletransferv1_torch/csrc/dis_iter.cu",
         "replaces": "neuralstyletransferv1_tpu/ops/dis_flow.py:113",
-        "launches": launches["dis_iter"], "max_abs_err": worst,
-        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms, "bound_by": "bytes",
-        "library_ms": None,
+        "launches": launches["dis_iter"], "bound_by": "bytes", "library_ms": None, **k1_rec,
     }]
     for name, (_cases, replaces) in INT8_KERNELS.items():
         rec = int8[name]

@@ -21,16 +21,17 @@
 // kernels' strips, junk columns, halo buffer, garbage row/column with its
 // fixup and 2x2 block packing are layout and are not carried over: conv2 and
 // conv3 are pixel convs (each pixel tap sits once in the TPU's block weights).
-// rows_kernel_bf16 is K9e (and K9b's previous form): the 1x5 conv of the
+// rows_kernel_bf16 is the previous core of K9e and K9b, kept for timing
+// only (d3_rows_prev_launch, d3_sum_site_prev_launch): the 1x5 conv of the
 // 128-channel space-to-depth tensor (4 phases x 32) to 60 lanes (5 kernel
 // rows x 12, padded to 64 with zero weights). Its halo is the 4-pixel reflect
 // of the pixels, which on the block grid permutes the phases: the prologue
 // reads it through its index map (block R phase u is pixel 2R+u; reflect the
 // pixel; split again), so no padded tensor exists. K9e writes each conv row's
-// 60 lanes as bf16 for the H+4 rows of the padded grid; K9b's previous form
-// (d3_sum_site_prev_launch, for timing only) keeps 16 conv rows in shared
-// memory and writes, for its 12 output rows, bf16(Σ_dy rows[r+dy][12*dy+o] +
-// bias[o]), the sum in f32 in dy order. d3sum_mma_kernel is K9b (below).
+// 60 lanes as bf16 for the H+4 rows of the padded grid; K9b's form keeps 16
+// conv rows in shared memory and writes, for its 12 output rows,
+// bf16(Σ_dy rows[r+dy][12*dy+o] + bias[o]), the sum in f32 in dy order.
+// d3sum_mma_kernel is K9b and d3rows_wgmma_kernel K9e (below).
 //
 // These two cores multiply on the tensor cores with mma.sync.m16n8k16 (bf16
 // in, f32 accumulate): M = 16 neighbouring output pixels of a row, N = 8
@@ -112,14 +113,31 @@
 // the 989 TFLOP/s bf16 peak against 0.475 ms for its 1.59 GB: operations; the
 // other four move 0.8-1.6 GB for 0.76-1.6e11 MAC: bytes (0.24-0.48 ms); K9b
 // is near balance (1.70e11 MAC at 64 of 60 lanes, 0.344 ms; 1.16 GB, 0.347
-// ms). rows_kernel_bf16 (K9e) feeds the MMAs from shared memory with scalar
-// loads (2.5-3 loads an MMA), which bounds it near a quarter of the
-// tensor-core peak. K9b's ldmatrix reads 3,072 bytes of shared memory for
+// ms). rows_kernel_bf16 (K9e's and K9b's previous core) feeds the MMAs from
+// shared memory with scalar loads (2.5-3 loads an MMA), which bounds it near
+// a quarter of the tensor-core peak, restages the five taps' weights in each
+// of its 16,320 blocks at 1080p B=8 and overlaps nothing. K9b's ldmatrix reads 3,072 bytes of shared memory for
 // every 16 MMAs, 4 of its 6 loads the weights, read again for every 32
 // output pixels: at 128 bytes a clock that is 1.5 clocks an MMA, and the
 // MMAs' issue takes the largest share of its row loop (--phases; PERF.md
 // section 6). A warp tile of more pixels (wgmma's 64 rows) would read the
-// weights fewer times; K9a, K9c and K9d run on wgmma.
+// weights fewer times; K9a, K9c, K9d and K9e run on wgmma.
+//
+// d3rows_wgmma_kernel (K9e) is K9c's and K9d's producer/consumer design on
+// the stride-1 1x5 rows conv: 1.06 GB in and 0.50 GB out at 1080p B=8 for
+// 3.4e11 bf16 FLOP, bound by its bytes (0.467 ms; its MMAs alone 0.35 ms at
+// the tensor peak). A persistent block walks (image, conv row, 64-column
+// segment) items: a producer warpgroup lands each item's 68 raw pixels by
+// cp.async through the reflect map, a few items ahead, and activates them
+// in place once; a consumer warpgroup keeps the five taps' weights in its
+// registers as the wgmma's A and reads the pixels as B through a
+// descriptor (a no-swizzle layout, where each tap's one-pixel shift is 16
+// bytes of the start address), 5 taps x 8 wgmma m64n64k16 an item, and one
+// bulk copy stores the item's 64 x 60 bf16 lanes, which are 7,680
+// contiguous bytes of the output. Of the forms timed on an H100 (PERF.md
+// section 6) it beat the pixels as A by ldmatrix with the weights resident
+// in shared memory, both operands in shared memory at 128 and 192 pixels
+// an item, two accumulator sets (255 registers) and plain global stores.
 //
 // Two more kernels answer the TPU package's bf16 megakernel experiments:
 //   K10 fused_conv  (experiments/mk1_fusedconv.py fused_conv; mk2/mk3/mk5's
@@ -2192,6 +2210,255 @@ int launch_s2_bf16(const __nv_bfloat16* x, const float* a, const float* c,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// d3rows_wgmma_kernel: K9e on Hopper's warpgroup MMAs
+// ---------------------------------------------------------------------------
+
+// The block: one producer and one consumer warpgroup. An item is one conv
+// row of one image (row R + 2 of the H + 4 rows of the reflect-padded block
+// grid) over a segment of 64 output columns x0 .. x0 + 63; its raw input is
+// block row R's 68 pixels x0 - 2 .. x0 + 65 of the padded grid, 128 bf16
+// channels (4 phases x 32) a pixel. A tap is D[64 lanes][64 pixels] =
+// W[lanes][128 channels] x X[channels][pixels]: the weights are the wgmma's
+// A, held in the consumer's registers for the block's life (5 taps x 8 k16
+// steps x 4 words a thread); the pixels are its B, read through a
+// descriptor from the staged row in the no-swizzle K-major layout (16-byte
+// chunk k of staged pixel j at k·CK + 16j: a core matrix is 8 consecutive
+// pixels of one chunk, 128 contiguous bytes), so a tap's one-pixel shift is
+// 16 bytes of the descriptor's start address. Shared memory: alignment
+// slack, NB input buffers, two output buffers of an item's 64 x 60 bf16
+// lanes (the 7,680 contiguous bytes of the output it writes):
+//   128 + 4 x 17,408 + 2 x 7,680 = 85,120
+struct D3RowsW {
+  static constexpr int SEG = 64, PIX = SEG + 4, NB = 4, NOUT = 2;
+  static constexpr int CTHREADS = 128, PTHREADS = 128, THREADS = CTHREADS + PTHREADS;
+  static constexpr int CK = PIX * 16;          // one chunk column: 1,088 bytes
+  static constexpr int X = 16 * CK;            // an item's staged row: 17,408
+  static constexpr int OUT = SEG * kLanes * 2;
+  static constexpr size_t bytes = 128 + NB * X + NOUT * OUT;
+  static_assert(bytes <= 232448 && 1 + 2 * NB < 16, "shared memory; named barriers");
+};
+
+// wgmma descriptor of a K-major operand in the no-swizzle layout: core
+// matrices (8 rows x 16 bytes, contiguous) `lbo` bytes apart along K and
+// `sbo` bytes apart along M/N
+__device__ __forceinline__ uint64_t desc_noswz(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// A persistent block walks items blockIdx.x, + gridDim.x, ... of the
+// B·(H+4)·segs items (segments fastest, then conv rows, then images). Its
+// producer warpgroup brings an item's raw row in by cp.async, 32 bytes (one
+// phase's 16 channels) of a pixel a thread and pass, each from the block
+// row, column and phases that the 4-pixel reflect maps it to (the row's map
+// once an item, the columns' only in a segment that reaches the halo), up
+// to NB - 1 items ahead, and activates in place the chunks each thread
+// brought in, once, with the affine of the chunk's (padded-grid) channels.
+// The consumer warpgroup waits for a full buffer, issues the item's 40
+// wgmma m64n64k16 as one group and, while they run, the item before's
+// store; once they are done it releases the buffer, rounds the f32 sums to
+// bf16 and stages lanes 0..59 in an output buffer. On an even W one bulk
+// copy writes them (the item's outputs are contiguous and 16-byte aligned),
+// on an odd W the consumers copy them 8 bytes a lane. Named barriers:
+// buffer b full 1 + b, empty 1 + NB + b; the consumers alone 1 + 2NB.
+//
+// With -DMMA_PHASE_CLOCKS (consumer thread 0): 0 the wait for the item's
+// activated input, 1 the wgmma group and the item before's store issued, 2
+// the MMAs' drain, 3 the staging of the bf16 lanes, 4 the last item's store
+// (once).
+__global__ void __launch_bounds__(D3RowsW::THREADS, 1)
+    d3rows_wgmma_kernel(RowsArgs p, int segs, int items) {
+  using S = D3RowsW;
+  constexpr int NB = S::NB, FULL = 1, EMPTY = 1 + NB, CONS = 1 + 2 * NB, NT = S::THREADS;
+  constexpr int CK = S::CK;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem8 = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  uint8_t* s_x0 = smem8;
+  uint8_t* s_o0 = s_x0 + NB * S::X;
+  const int tid = threadIdx.x, first = blockIdx.x, rows = p.H + 4;
+  const int n = (items - first + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (n <= 0) return;
+
+  if (tid >= S::CTHREADS) {
+    // ---- producers: thread (kp, jl) takes chunks 2kp, 2kp + 1 (channels
+    // 16kp .. 16kp + 15, one phase) of staged pixels jl, jl + 16, ...
+    constexpr int NI = (S::PIX + 15) / 16;
+    const int pt = tid - S::CTHREADS, kp = pt >> 4, jl = pt & 15;
+    const int u = kp >> 2, v = (kp >> 1) & 1;
+    auto fetch = [&](int j) {
+      if (j >= n) {
+        cp_async_commit();
+        return;
+      }
+      const int id = first + j * (int)gridDim.x;
+      const int x0 = (id % segs) * S::SEG, rr = id / segs, b = rr / rows;
+      int uu;
+      const int sy = reflect_phase(rr % rows - 2, u, p.H, &uu);
+      const __nv_bfloat16* src =
+          p.x + ((size_t)b * p.H + sy) * p.W * kRC + uu * 64 + 16 * (kp & 1);
+      const uint32_t base = smem_addr(s_x0 + (j % NB) * S::X) + 2 * kp * CK;
+      const bool inner = x0 >= 2 && x0 + S::PIX - 2 <= p.W;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int px = jl + 16 * i;
+        if (px < S::PIX) {
+          int sx = x0 - 2 + px, vv = v;
+          if (!inner) sx = reflect_phase(sx, v, p.W, &vv);
+          const __nv_bfloat16* s0 = src + (size_t)sx * kRC + vv * 32;
+          cp_async16(base + px * 16, s0);
+          cp_async16(base + CK + px * 16, s0 + 8);
+        }
+      }
+      cp_async_commit();
+    };
+    for (int j = 0; j < NB - 1; ++j) fetch(j);
+    int cur_b = -1;
+    float qa[16], qc[16];
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      const int id = first + j * (int)gridDim.x;
+      uint8_t* buf = s_x0 + (j % NB) * S::X + 2 * kp * CK;
+      const int b = id / segs / rows;
+      if (b != cur_b) {
+        cur_b = b;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          qa[e] = __ldg(p.a + b * kRC + 16 * kp + e);
+          qc[e] = __ldg(p.c + b * kRC + 16 * kp + e);
+        }
+      }
+      cp_async_wait<NB - 2>();
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        const int px = jl + 16 * i;
+        if (px < S::PIX) {
+          uint4* q0 = reinterpret_cast<uint4*>(buf + px * 16);
+          uint4* q1 = reinterpret_cast<uint4*>(buf + CK + px * 16);
+          uint4 w0 = *q0, w1 = *q1;
+          w0.x = activate2(w0.x, qa[0], qc[0], qa[1], qc[1]);
+          w0.y = activate2(w0.y, qa[2], qc[2], qa[3], qc[3]);
+          w0.z = activate2(w0.z, qa[4], qc[4], qa[5], qc[5]);
+          w0.w = activate2(w0.w, qa[6], qc[6], qa[7], qc[7]);
+          w1.x = activate2(w1.x, qa[8], qc[8], qa[9], qc[9]);
+          w1.y = activate2(w1.y, qa[10], qc[10], qa[11], qc[11]);
+          w1.z = activate2(w1.z, qa[12], qc[12], qa[13], qc[13]);
+          w1.w = activate2(w1.w, qa[14], qc[14], qa[15], qc[15]);
+          *q0 = w0;
+          *q1 = w1;
+        }
+      }
+      fence_async_smem();  // the activated row, before wgmma reads it
+      bar_arrive(FULL + j % NB, NT);
+      if (j >= 1 && j + NB - 1 < n) bar_sync(EMPTY + (j - 1) % NB, NT);
+      fetch(j + NB - 1);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers ----
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  const bool bulk = (p.W & 1) == 0;
+  // A: the weights of warp rows 16·warp + g (+8), k 2tg (+8) of each tap's k16 steps
+  uint32_t wa[5][8][4];
+  {
+    const uint32_t* wg = reinterpret_cast<const uint32_t*>(p.w);
+    const int r0 = 16 * warp + g;
+#pragma unroll
+    for (int dx = 0; dx < 5; ++dx)
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        const uint32_t* w0 = wg + (dx * kCOT + r0) * (kRC / 2) + kc * 8 + tg;
+        wa[dx][kc][0] = __ldg(w0);
+        wa[dx][kc][1] = __ldg(w0 + 8 * (kRC / 2));
+        wa[dx][kc][2] = __ldg(w0 + 4);
+        wa[dx][kc][3] = __ldg(w0 + 8 * (kRC / 2) + 4);
+      }
+  }
+  const uint64_t desc0 = desc_noswz(smem_addr(s_x0), CK, 128);
+  // item j's outputs, staged in output buffer j % 2, into out: one bulk
+  // copy (thread 0; an even W) or 8 bytes a lane and pass (an odd W, where
+  // a row's start is 8-byte aligned)
+  auto store = [&](int j) {
+    const int id = first + j * (int)gridDim.x;
+    const int x0 = (id % segs) * S::SEG, nv = min(S::SEG, p.W - x0);
+    __nv_bfloat16* dst = p.out + ((size_t)(id / segs) * p.W + x0) * kLanes;
+    const uint8_t* so = s_o0 + (j % S::NOUT) * S::OUT;
+    if (bulk) {
+      if (tid == 0) {
+        bulk_store(dst, so, (uint32_t)(nv * kLanes * 2));
+        bulk_commit();
+        bulk_wait_read<S::NOUT - 1>();  // the store before has read its buffer
+      }
+    } else {
+      for (int c = tid; c < nv * kLanes / 4; c += S::CTHREADS)
+        reinterpret_cast<uint2*>(dst)[c] = reinterpret_cast<const uint2*>(so)[c];
+    }
+  };
+  MMA_PHASE_START
+  float acc[32];
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    bar_sync(FULL + j % NB, NT);
+    MMA_PHASE(0)
+    const uint64_t d = desc0 + (uint64_t)((j % NB) * (S::X >> 4));
+    wgmma_fence();
+#pragma unroll
+    for (int dx = 0; dx < 5; ++dx)
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc)
+        wgmma_bf16_n64(acc, wa[dx][kc], d + (2 * kc * CK + 16 * dx) / 16, dx | kc);
+    wgmma_commit();
+    // the item before's store, issued while the MMAs run
+    if (j > 0) store(j - 1);
+    MMA_PHASE(1)
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (j + NB < n) bar_arrive(EMPTY + j % NB, NT);  // wgmma has read the row
+    MMA_PHASE(2)
+    bar_sync(CONS, S::CTHREADS);  // output buffer j % 2's store two items back has read it
+    // bf16(acc) of lanes 16·warp + g (+8) below 60, pixels 8nj + 2tg (+1)
+    __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(s_o0 + (j % S::NOUT) * S::OUT);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 16 * warp + g + 8 * h;
+      if (l < kLanes) {
+#pragma unroll
+        for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sb[(8 * nj + 2 * tg + e) * kLanes + l] = __float2bfloat16_rn(acc[4 * nj + 2 * h + e]);
+      }
+    }
+    if (bulk) fence_async_smem();
+    bar_sync(CONS, S::CTHREADS);
+    MMA_PHASE(3)
+  }
+  store(n - 1);
+  if (tid == 0) bulk_wait_all();
+  MMA_PHASE(4)
+  MMA_PHASE_END
+}
+
+int launch_d3rows_wgmma(const RowsArgs& p, void* stream) {
+  using S = D3RowsW;
+  if (p.B <= 0 || p.H < 3 || p.W < 3) return (int)cudaErrorInvalidValue;
+  const int segs = (p.W + S::SEG - 1) / S::SEG;
+  const long long items = (long long)p.B * (p.H + 4) * segs;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kern = d3rows_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int blocks = (int)(items < sms ? items : sms);
+  kern<<<blocks, S::THREADS, S::bytes, static_cast<cudaStream_t>(stream)>>>(p, segs, (int)items);
+  return (int)cudaGetLastError();
+}
+
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Every pointer is a device
@@ -2270,15 +2537,29 @@ extern "C" int s2_bf16_smem_bytes(int C) {
 }
 
 // K9e: rows out[b, R+2, x, l] = bf16(1x5 conv of the activated, reflect-padded
-// x at block row R in [-2, H+2)), l < 60.
+// x at block row R in [-2, H+2)), l < 60; on d3rows_wgmma_kernel (x and w
+// 16-byte aligned).
 extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const float* c,
                               const __nv_bfloat16* w, __nv_bfloat16* out, int B, int H, int W,
                               void* stream) {
   RowsArgs p = {};
   p.x = x; p.a = a; p.c = c; p.w = w; p.out = out;
   p.B = B; p.H = H; p.W = W;
+  return launch_d3rows_wgmma(p, stream);
+}
+
+// K9e on its previous core (rows_kernel_bf16<false>), for timing only.
+extern "C" int d3_rows_prev_launch(const __nv_bfloat16* x, const float* a, const float* c,
+                                   const __nv_bfloat16* w, __nv_bfloat16* out, int B, int H,
+                                   int W, void* stream) {
+  RowsArgs p = {};
+  p.x = x; p.a = a; p.c = c; p.w = w; p.out = out;
+  p.B = B; p.H = H; p.W = W;
   return launch_rows<false>(p, stream);
 }
+
+// Dynamic shared memory of K9e's block (d3rows_wgmma_kernel).
+extern "C" int d3_rows_smem_bytes() { return (int)D3RowsW::bytes; }
 
 // K9b: out[b,y,x,o] = bf16(Σ_dy rows[y+dy][12*dy+o] + bias[o]) over the same
 // rows (x 16-byte aligned); on the bf16 tensor cores (d3sum_mma_kernel).

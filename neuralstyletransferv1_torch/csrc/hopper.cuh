@@ -1,8 +1,9 @@
 // The Hopper building blocks of the TMA-fed warpgroup-MMA cores
 // (int8_probes.cu: K12's shift_wgmma_kernel; bf16_sites.cu: K10's
-// fused_wgmma_kernel): mbarriers, TMA loads and stores, the 128-byte
-// swizzle, wgmma descriptors and the m64n128 register-A MMAs, register
-// rebalancing between warpgroups, and the host's tensor maps.
+// fused_wgmma_kernel and the K9 cores): mbarriers, TMA loads and stores,
+// plain bulk stores, the 128-byte swizzle, wgmma descriptors and the
+// m64n128 register-A MMAs, register rebalancing between warpgroups, and the
+// host's tensor maps.
 //
 // Included inside each source's anonymous namespace, after its smem_addr
 // (the shared-memory address of a pointer); needs <cuda.h>,
@@ -67,11 +68,20 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
                "r"(c2)
                : "memory");
 }
+// a plain bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from shared to global memory, in the current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
+// every bulk group's writes complete (not only their reads of shared memory)
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 // generic-proxy writes of shared memory before the async proxy (a TMA store) reads them
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

@@ -37,7 +37,17 @@ Two more answer the JAX package's bf16 megakernel experiments
 
 On the card K9b runs on its own tensor-core core (``d3sum_mma_kernel``:
 warps walk 16-column strips down the image, the dy-sum's partial sums in
-registers; x 16-byte aligned), K9a on K10's Hopper design at C = 64
+registers; x 16-byte aligned), K9e on K9c's and K9d's warpgroup design
+(``d3rows_wgmma_kernel``: persistent; a producer warpgroup lands each
+(image, conv row, 64-column segment) item's 68 raw pixels by cp.async
+through the reflect map and activates them in place; a consumer warpgroup
+holds the five taps' weights in registers as the ``wgmma`` A and reads
+the pixels as B through a descriptor, each tap's one-pixel shift 16
+bytes of its start in a no-swizzle layout; one bulk copy stores the
+item's contiguous outputs, plain stores on an odd W; x and w 16-byte
+aligned;
+``d3_rows_smem_bytes``, ``d3_rows_source``, ``d3_rows_offset``,
+``d3_rows_core_matrix`` and ``d3_rows_schedule`` mirror it), K9a on K10's Hopper design at C = 64
 (``d2_wgmma_kernel``: persistent, TMA, ``wgmma``, 4 × 32-pixel tiles, the
 nine taps' weights resident; TMA fills the halo outside the image with
 zeros, and border tiles copy the edge into it before the activation, as
@@ -56,8 +66,9 @@ their bytes (0.475 and 0.238 ms), K9d near balance with its MMAs (0.155
 ms at the tensor peak). ``s2_site_smem_bytes``, ``s2_plane_pixel``,
 ``s2_tap_pixel``, ``s2_swizzle``, ``s2_halo_tile``, ``s2_site_schedule``
 and ``s2_part_slots`` mirror the core's geometry. ``d3_sum_site_prev``,
-``d2_site_prev``, ``c2_site_bf16_prev`` and ``c3_site_bf16_prev`` launch
-them on their previous cores (``rows_kernel_bf16``, ``site_kernel_bf16``),
+``d2_site_prev``, ``c2_site_bf16_prev``, ``c3_site_bf16_prev`` and
+``d3_rows_prev`` launch them on their previous cores (``rows_kernel_bf16``,
+``site_kernel_bf16``),
 CUDA tensors only, for timing the two designs side by side: nothing on
 the main path calls them, and they count no launch.
 
@@ -109,6 +120,10 @@ PREV_TILE = {1: (8, 32), 2: (8, 16)}
 #: K9c's and K9d's plane buffers in the ring of a block on the card
 #: (``s2_mma_bf16_kernel``: one consumer and one producer warpgroup)
 S2_BUFFERS = {"c2_site_bf16": 4, "c3_site_bf16": 2}
+#: K9e's item on the card (``d3rows_wgmma_kernel``): one conv row over
+#: D3_SEG output columns, its raw input D3_SEG + 4 staged pixels; the ring's
+#: input buffers
+D3_SEG, D3_BUFFERS = 64, 4
 
 
 def pack_site_weights(w: torch.Tensor) -> torch.Tensor:
@@ -315,6 +330,69 @@ def d3_rows_plain(x, a, c, w):
     return rows[..., :D3_LANES].to(torch.bfloat16).contiguous()
 
 
+def d3_rows_smem_bytes() -> int:
+    """K9e's dynamic shared memory (``D3RowsW::bytes``): 128 bytes of
+    alignment slack, the ring's input buffers of an item's 68 raw pixels ×
+    256 bytes and two output buffers of its 64 × 60 bf16 lanes (the
+    weights live in the consumers' registers)."""
+    return 128 + D3_BUFFERS * (D3_SEG + 4) * 2 * D3_C + 2 * D3_SEG * D3_LANES * 2
+
+
+def _reflect_phase(R: int, u: int, n: int) -> tuple:
+    """Block R, phase u of a padded grid over n blocks → (source block,
+    source phase): pixel 2R + u mirrored around the first or last pixel,
+    clamped into the image (``reflect_phase``)."""
+    px = 2 * R + u
+    px = -px if px < 0 else px
+    px = 4 * n - 2 - px if px >= 2 * n else px
+    px = min(max(px, 0), 2 * n - 1)
+    return px >> 1, px & 1
+
+
+def d3_rows_source(H: int, W: int, r: int, x0: int, j: int, k: int) -> tuple:
+    """Where K9e's producer reads 16-byte chunk k (0..15: channels 8k..8k+7,
+    phase k // 4) of staged pixel j (0..67) of the item at conv row r (0..H+3)
+    and segment column x0: (source block row, block column, first channel) of
+    the raw x [H,W,128]. Block row r − 2 and column x0 − 2 + j of the
+    reflect-padded grid, each phase through the 4-pixel reflect; inside a
+    segment whose 68 columns lie in the image, the columns are taken as they
+    are (the kernel computes their map only at the halo)."""
+    u, v = k >> 3, (k >> 2) & 1
+    sy, uu = _reflect_phase(r - 2, u, H)
+    sx, vv = x0 - 2 + j, v
+    if not (x0 >= 2 and x0 + D3_SEG + 2 <= W):
+        sx, vv = _reflect_phase(sx, v, W)
+    return sy, sx, (2 * uu + vv) * 32 + 8 * (k & 3)
+
+
+def d3_rows_offset(j: int, k: int) -> int:
+    """The byte offset of 16-byte chunk k of K9e's staged pixel j in an
+    input buffer: the no-swizzle K-major layout [16 chunks][68 pixels][16
+    bytes], chunk k at k·CK + 16j with CK = 68·16."""
+    return k * (D3_SEG + 4) * 16 + 16 * j
+
+
+def d3_rows_core_matrix(dx: int, kc: int, m: int, h: int) -> int:
+    """Where the wgmma B descriptor of tap dx, k16 step kc reads core matrix
+    (pixel block m of 8, k half h): its start address plus h·LBO (CK) plus
+    m·SBO (128) — the 8 pixels dx + 8m .. + 7 of chunk 2kc + h, 128
+    contiguous bytes."""
+    ck = (D3_SEG + 4) * 16
+    return (2 * kc * ck + 16 * dx) + h * ck + m * 128
+
+
+def d3_rows_schedule(B: int, H: int, W: int, sms: int = 132) -> list:
+    """K9e's persistent walk on x [B,H,W,128]: per block, the (image, conv
+    row, segment) items it takes, in order. Items are numbered segments
+    fastest, then the H + 4 conv rows, then images; block k takes items k,
+    k + blocks, ...; blocks = min(SMs, items), one an SM."""
+    segs, rows = -(-W // D3_SEG), H + 4
+    total = B * rows * segs
+    blocks = min(sms, total)
+    return [[(i // segs // rows, i // segs % rows, i % segs) for i in range(k, total, blocks)]
+            for k in range(blocks)]
+
+
 def _d3_terms(rows: torch.Tensor) -> list:
     """The five f32 terms [B,H,W,12] that K9b adds, from rows [B,H+4,W,60]."""
     H = rows.shape[1] - 4
@@ -396,6 +474,7 @@ def _lib():
             "c2_site_bf16_prev_launch": site, "c3_site_bf16_prev_launch": site,
             "s2_bf16_smem_bytes": [I],
             "d3_rows_launch": [P] * 5 + [I] * 3 + [P],
+            "d3_rows_prev_launch": [P] * 5 + [I] * 3 + [P], "d3_rows_smem_bytes": [],
             "d3_sum_site_launch": [P] * 6 + [I] * 3 + [P],
             "d3_sum_site_prev_launch": [P] * 6 + [I] * 3 + [P],
             "d3sum_mma_smem_bytes": [],
@@ -519,15 +598,31 @@ def d3_rows(x, a, c, w):
     """K9e: the d2 raw x [B,H,W,128] (4 phases × 32) with the in5 affine
     (a, c [B,128], tiled over the phases) → the tap-packed 1×5 conv's bf16
     rows [B,H+4,W,60] on the reflect-padded grid (no bias; row R+2 is block
-    row R of the unpadded grid)."""
+    row R of the unpadded grid). On the card: ``d3rows_wgmma_kernel`` (x and
+    w 16-byte aligned)."""
     if x.device.type == "cpu":
         return d3_rows_plain(x, a, c, w)
+    return _d3_rows(x, a, c, w, prev=False)
+
+
+def d3_rows_prev(x, a, c, w):
+    """K9e on its previous core (``rows_kernel_bf16<false>``), CUDA tensors
+    only: ``chip_smoke.py`` times it beside ``d3_rows``. Nothing on the main
+    path calls it, and it counts no launch."""
+    return _d3_rows(x, a, c, w, prev=True)
+
+
+def _d3_rows(x, a, c, w, prev):
     k = "d3_rows"
     dev, B, H, W = _check_rows(k, x, a, c, w)
+    if not prev:  # read 16 bytes at a time by cp.async
+        for name, t in (("x", x), ("weights", w)):
+            _check_aligned(k, name, t)
     out = torch.empty((B, H + 4, W, D3_LANES), dtype=torch.bfloat16, device=dev)
+    fn = _lib().d3_rows_prev_launch if prev else _lib().d3_rows_launch
     with torch.cuda.device(dev):
-        _run(k, _lib().d3_rows_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
-             out.data_ptr(), B, H, W, _stream(dev))
+        _run(k, fn, x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), B,
+             H, W, _stream(dev), count=not prev)
     return out
 
 

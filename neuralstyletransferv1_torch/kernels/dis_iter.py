@@ -13,6 +13,19 @@ Each of ``iters`` steps samples the patch bilinearly at offset o = u − lo,
 solves du = H⁻¹J with J = (Σ gx·r, Σ gy·r), r = warped − t, clips du to ±4
 and clamps o to [0, 2R − 1e-3]. ``dis_iter`` dispatches on the tensors'
 device: CPU → ``dis_iter_plain``; CUDA → the kernel, or an error.
+
+On the card (``dis_iter_kernel``) 8 lanes take a patch, one patch column
+each, 4 patches a warp and 32 a 256-thread block (``lane_layout``): a lane
+samples its column's 8 pixels a step and each J sum adds them in the lane
+as the first core's lanes did, then 3 shuffle levels in the patch's group,
+so the results are the first core's bit for bit. The warp's 4
+neighbourhoods sit in shared memory interleaved word by word with an odd
+row stride (``nb_word``), so a sample's reads and the staging stores fall
+in 32 distinct banks. 1/det and u0 − lo are computed in the kernel: a
+level is one launch. nb is read 16 bytes at a time where 8 + 2R is a
+multiple of 4 (nb, t, gx and gy 16-byte aligned). ``dis_iter_prev`` runs
+the first core (one warp a patch) for timing: CUDA tensors only, no launch
+counted.
 """
 
 from __future__ import annotations
@@ -25,10 +38,45 @@ import torch
 PATCH = 8
 LAUNCHES = 0
 _SOURCE = "dis_iter.cu"
+#: the card's layout: lanes a patch (one a patch column), warps a block
+GROUP, WARPS = 8, 8
+PATCHES_PER_BLOCK = WARPS * 32 // GROUP
 
 
 def _hi(R: int) -> float:
     return 2 * R - 1e-3
+
+
+def nb_stride(nbw: int) -> int:
+    """The odd row stride of a staged neighbourhood (``nb_stride``)."""
+    return nbw | 1
+
+
+def nb_word(r: int, c: int, q: int, nbw: int) -> int:
+    """The shared-memory word of element (r, c) of patch slot q (0..3) of a
+    warp's interleaved neighbourhoods (``nb_word``): 4(r·S + c) + q."""
+    return 4 * (r * nb_stride(nbw) + c) + q
+
+
+def smem_bytes(nbw: int) -> int:
+    """A block's dynamic shared memory (``dis_iter_smem_bytes``): 8 warps ×
+    4 neighbourhoods of nbw rows at the stride, f32."""
+    return WARPS * 4 * nbw * nb_stride(nbw) * 4
+
+
+def lane_layout(n: int) -> list:
+    """The card's lane → work map for n patches: per (block, warp, lane)
+    the patch it computes on, its patch column, and whether it stores (its
+    group's lane 0 of a patch index below n). A tail slot computes on the
+    last patch and stores nothing."""
+    out = []
+    for blk in range(-(-n // PATCHES_PER_BLOCK)):
+        for warp in range(WARPS):
+            p0 = (blk * WARPS + warp) * (32 // GROUP)
+            for lane in range(32):
+                q, i = divmod(lane, GROUP)
+                out.append((blk, warp, lane, min(p0 + q, n - 1), i, i == 0 and p0 + q < n))
+    return out
 
 
 def _sample(nb: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor) -> torch.Tensor:
@@ -85,19 +133,34 @@ def _lib():
     from ._build import load_library
 
     lib = load_library(_SOURCE)
-    fn = lib.dis_iter_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    for name in ("dis_iter_launch", "dis_iter_prev_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.dis_iter_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dis_iter_smem_bytes.restype = ctypes.c_int
+    return lib
 
 
 def dis_iter(nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, *, iters: int = 16, R: int = 6):
     """K1 on the tensors' device: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (no fallback between the two)."""
-    global LAUNCHES
     if nb.device.type == "cpu":
         return dis_iter_plain(nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, iters=iters, R=R)
+    return _launch(False, nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, iters, R)
+
+
+def dis_iter_prev(nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, *, iters: int = 16, R: int = 6):
+    """K1 on its first core (one warp a patch; 1/det and u0 − lo as two
+    PyTorch ops first), CUDA tensors only: ``chip_smoke.py`` times it beside
+    ``dis_iter``. Nothing on the main path calls it, and it counts no
+    launch."""
+    return _launch(True, nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, iters, R)
+
+
+def _launch(prev, nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, iters, R):
+    global LAUNCHES
     if nb.device.type != "cuda":
         raise NotImplementedError(f"dis_iter: no kernel for device {nb.device}")
     n, nbw = nb.shape[0], PATCH + 2 * R
@@ -109,18 +172,24 @@ def dis_iter(nb, t, gx, gy, hxx, hxy, hyy, det, u0, lo, *, iters: int = 16, R: i
         _check(name, x, (n,), dev)
     for name, x in (("u0", u0), ("lo", lo)):
         _check(name, x, (n, 2), dev)
-    launch = _lib()
+    if not prev:  # read 16 bytes at a time
+        for name, x in (("nb", nb), ("t", t), ("gx", gx), ("gy", gy)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"dis_iter: {name} must start on a 16-byte boundary")
+    lib = _lib()
     with torch.cuda.device(dev):
-        inv_det = 1.0 / det
-        o0 = u0 - lo
+        if prev:
+            fn, d, o = lib.dis_iter_prev_launch, 1.0 / det, u0 - lo
+        else:
+            fn, d, o = lib.dis_iter_launch, det, u0
         u = torch.empty((n, 2), dtype=torch.float32, device=dev)
         res = torch.empty((n,), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(nb.data_ptr(), t.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                    hxx.data_ptr(), hxy.data_ptr(), hyy.data_ptr(), inv_det.data_ptr(),
-                    o0.data_ptr(), lo.data_ptr(), u.data_ptr(), res.data_ptr(),
-                    n, nbw, iters, _hi(R), stream)
+        rc = fn(nb.data_ptr(), t.data_ptr(), gx.data_ptr(), gy.data_ptr(), hxx.data_ptr(),
+                hxy.data_ptr(), hyy.data_ptr(), d.data_ptr(), o.data_ptr(), lo.data_ptr(),
+                u.data_ptr(), res.data_ptr(), n, nbw, iters, _hi(R), stream)
     if rc != 0:
         raise RuntimeError(f"dis_iter kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if not prev:
+        LAUNCHES += 1
     return u, res
