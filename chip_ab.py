@@ -21,9 +21,10 @@ their device times (each in turns with its previous ``__dp4a`` core);
 ``k1`` runs phase 4, K1 at the slice's four pyramid levels against its
 plain version (the change's tree also against its previous core), level by
 level. ``experiments`` runs the entry points of mk5 (K10's six
-forms), mk20 and mk27 (K12's flat forms) at their full shapes, each
-printing its JSON line. ``profile`` runs ``chip_smoke.py --profile``'s
-torch.profiler pass over the 1080p Johnson slices only (plain bf16,
+forms), mk20 and mk27 (K12's flat forms), mk13 (K11) and mk28 (K13, and
+K4's P5) at their full shapes, each printing its JSON line. ``profile``
+runs ``chip_smoke.py --profile``'s torch.profiler pass over the 1080p
+Johnson slices only (plain bf16,
 ``bf16_static`` and the quantized or fused-site slices): device time by
 kind of kernel. Run parent, change, change, parent in one call:
 
@@ -60,8 +61,9 @@ def main() -> int:
     if sys.argv[2] == "experiments":
         import importlib
 
-        _build.build([k9._SOURCE, k12._SOURCE])
-        for name in ("mk5_ablate", "mk20_int8_smoke", "mk27_pallas_s8_dot"):
+        _build.build([k8._SOURCE, k9._SOURCE, k12._SOURCE])
+        for name in ("mk5_ablate", "mk20_int8_smoke", "mk27_pallas_s8_dot", "mk13_c1",
+                     "mk28_probe"):
             importlib.import_module(f"neuralstyletransferv1_torch.experiments.{name}").main([])
         return 0
     _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE])

@@ -17,8 +17,9 @@ order, and any failed phase exits non-zero:
    K8a's and K8b's ``mma_s2_kernel``, K6's ``d3s8_mma_kernel``, K7's
    ``d3rows_mma_kernel``, K9a's ``d2_wgmma_kernel``, K9b's
    ``d3sum_mma_kernel``, K9c's and K9d's ``s2_mma_bf16_kernel``, K9e's
-   ``d3rows_wgmma_kernel``, K10's ``fused_wgmma_kernel``, K12's
-   ``shift_wgmma_kernel``) and of K1's ``dis_iter_kernel``;
+   ``d3rows_wgmma_kernel``, K10's ``fused_wgmma_kernel``, K11's
+   ``c1_wgmma_kernel``, K12's ``shift_wgmma_kernel``) and of K1's
+   ``dis_iter_kernel``;
 4. hold K1 against its plain PyTorch version, and bit for bit against its
    previous core (``dis_iter_prev``), at the four DIS pyramid levels of the
    1080p slice (8 frame pairs, flow at half resolution), two launches
@@ -59,7 +60,11 @@ order, and any failed phase exits non-zero:
    launches bit-identical), and K9c and K9d likewise (outputs off the
    16-column tile and the 8- and 4-row tiles, a 1 × 1 output), and K9e
    (an odd W, widths off the 64-column segment) and K1 (tails of 1–3
-   patches in the last warp, a partial block) likewise; then K2
+   patches in the last warp, a partial block) likewise, and K11 (widths off
+   the 64-pixel tile, an odd W + 4, H below a strip, B = 1 and 3, a 1 × 1
+   output; within the K9 bounds of its plain version and previous core)
+   and K13 (ragged widths, C = 8, 64 and 128, P1 and P2: bit-identical to
+   its plain version and previous core); then K2
    and K3 at a ragged sw (29 of 32, 36 of 40) at small shapes: bit-identical
    to their plain versions, two launches bit-identical, the masked columns'
    codes 0; then each of the port's experiment entry points
@@ -70,11 +75,12 @@ order, and any failed phase exits non-zero:
    bf16 × statistics on / off) at 270×480 128→128 on mk1's padded
    (B, H+2, W+8, C) buffer, and K11 (``c1_site``, conv1 as the f=2 block
    conv) at [8, 544, 964, 12] → [8, 540, 960, 128] with the repository's
-   Johnson conv1, held against their plain versions like K9 and timed in
-   turns beside the cuDNN conv alone and, for K10, its previous core
-   (``prev_ms``) and the three-pass path (prologue, conv, statistics) eager
-   and under ``torch.compile``, for K11 the pixel conv1 (NCHW and
-   channels-last); then the int8 probes' entry
+   Johnson conv1, held against their plain versions like K9 (K11 also
+   against its previous core ``c1_site_prev``) and timed in turns beside
+   the cuDNN conv alone and their previous cores (``prev_ms``), for K10 the
+   three-pass path (prologue, conv, statistics) eager and under
+   ``torch.compile``, for K11 the pixel conv1 (NCHW and channels-last);
+   then the int8 probes' entry
    points (mk20, mk21, mk27, mk28, mk31): K12 (``shift_dot``, the shifted
    dot over flat rows) in every built form — mk20's s8 → s32 and bf16 → f32
    dot [16384, 512] × [512, 256], the 8-row-strip 9-tap dot [8, 274, 488,
@@ -83,7 +89,10 @@ order, and any failed phase exits non-zero:
    shifted dots over G = 32 slices [32, 8256, 128] → [32, 8192, 128] (s8 at
    offsets r and 32r, bf16, the saturating cast); K13 (``pad_inject``,
    mk28's P1 pad and P2 quantize + inject on one [1, 8, 480, 128] strip,
-   timed with ``F.pad`` and mk28's P5 by CUDA graph replay);
+   timed with ``F.pad`` and mk28's P5 by CUDA graph replay, beside K13's
+   launch floor (B = R = 1, W0 = 3, C = 8) in the same turns, and at the
+   res site's input [8, 270, 480, 128] → 488 by CUDA events; each also on
+   its previous core ``pad_inject_prev``, bit for bit);
    K4's new forms at mk31's [16, 270, 480, 128] (``prologue="cast"``, v1;
    ``stats=False``, v2 and mk28's P5), counts zeroed around them (K12, K13
    and both K4 forms must launch): the integer-valued outputs bit-identical
@@ -152,10 +161,10 @@ kernel (PERF.md section 5).
 
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K8b; K9a–K9e; K10, K12) with
+instead builds the tensor-core cores (K2–K8b; K9a–K9e; K10, K11, K12) with
 ``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
-the probes' shapes), the share of each phase of the tile loop (K6, K7,
-K9b: of the row loop) in the clock of every block's thread 0.
+the probes' shapes; K11: mk13's), the share of each phase of the tile loop
+(K6, K7, K9b: of the row loop) in the clock of every block's thread 0.
 """
 
 from __future__ import annotations
@@ -266,6 +275,8 @@ PROBE_REPLACES = {"mk20 P2": "experiments/mk20_int8_smoke.py:75",
                   "mk27 bf16cast": "experiments/mk27_pallas_s8_dot.py:74",
                   "mk28 P1": "experiments/mk28_probe.py:41",
                   "mk28 P2": "experiments/mk28_probe.py:61",
+                  "mk28 P1 res": "experiments/mk28_probe.py:41",
+                  "mk28 P2 res": "experiments/mk28_probe.py:61",
                   "mk28 P5": "experiments/mk28_probe.py:93"}
 # the all-int8 head and tail sets (ROADMAP Queue 1, item 11)
 SET_A = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8")
@@ -908,7 +919,8 @@ def experiments_phase(dev) -> tuple[dict, dict]:
     form under ``per_form``, each with its previous core's time
     ``prev_ms``; mk13's), of K12 (mk21's tap9-int8 strip, every form of
     mk20, mk21 and mk27 under ``per_form``, each with ``prev_ms``; the flat
-    forms timed by CUDA graph replay), K13 (mk28's P1, with P2)
+    forms timed by CUDA graph replay), K13 (mk28's P1 at the res site's
+    shape, with P2 there and both on mk28's strip beside the launch floor)
     and K4's cast and no-statistics forms (mk31's v1; v2, with mk28's P5)."""
     import contextlib
     import importlib
@@ -943,9 +955,12 @@ def experiments_phase(dev) -> tuple[dict, dict]:
            "per_form": {f: {k: v[k] for k in (*keys, "prev_ms", "eager_path_ms",
                                                "compiled_path_ms", "path_bound_ms")}
                         for f, v in forms.items()}}
-    k11 = {k: recs["mk13_c1"][k] for k in (*keys, "cudnn_pixel_nchw_ms",
+    k11 = {k: recs["mk13_c1"][k] for k in (*keys, "prev_ms", "bound_share", "cudnn_pixel_nchw_ms",
                                            "cudnn_pixel_channels_last_ms")}
-    extra = ("cudnn_bf16_ms", "im2col_mm_ms", "tops", "prev_ms", "timing")
+    k11["worst_ulp"], k11["vs_prev_worst_ulp"] = (recs["mk13_c1"]["worst_ulp"],
+                                                  recs["mk13_c1"]["vs_prev"]["worst_ulp"])
+    extra = ("cudnn_bf16_ms", "im2col_mm_ms", "tops", "prev_ms", "timing", "floor_ms",
+             "floor_prev_ms")
 
     def row(v: dict, replaces: str | None = None) -> dict:
         r = {**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
@@ -957,8 +972,9 @@ def experiments_phase(dev) -> tuple[dict, dict]:
                 for v in recs["mk21_int8_res_sweep"]["variants"]})
     k12.update({f"mk27 {v['variant']}": row(v, PROBE_REPLACES[f"mk27 {v['variant']}"])
                 for v in recs["mk27_pallas_s8_dot"]["variants"]})
-    mk28 = {v["probe"].split()[0]: v for v in recs["mk28_probe"]["probes"]}
-    k13 = {f"mk28 {p}": row(mk28[p], PROBE_REPLACES[f"mk28 {p}"]) for p in ("P1", "P2")}
+    mk28 = {v["form"]: v for v in recs["mk28_probe"]["probes"]}
+    k13 = {f"mk28 {p}": row(mk28[p], PROBE_REPLACES[f"mk28 {p}"])
+           for p in ("P1", "P2", "P1 res", "P2 res")}
     mk31 = {v["variant"]: v for v in recs["mk31_i8_variants"]["variants"]}
     nostats = {"mk31 v2": row(mk31["v2"], "experiments/mk31_i8_variants.py:99"),
                "mk28 P5": row(mk28["P5"], PROBE_REPLACES["mk28 P5"])}
@@ -971,7 +987,7 @@ def experiments_phase(dev) -> tuple[dict, dict]:
 
     return counts, {"fused_conv": k10, "c1_site": k11,
                     "shift_dot": main_row(k12, "mk21 tap9-int8"),
-                    "pad_inject": main_row(k13, "mk28 P1"),
+                    "pad_inject": main_row(k13, "mk28 P1 res"),
                     "res_site_cast": {**row(mk31["v1"]), "form": "mk31 v1",
                                       "v0_ms": mk31["v0"]["ms"]},
                     "res_site_nostats": main_row(nostats, "mk31 v2")}
@@ -1208,6 +1224,64 @@ def ragged_k9e_k1_phase(dev):
         log(f"K1 at {n} patches (a tail of {-n % 4} in the last warp): offsets within "
             f"{K1_OFFSET_TOL} px of plain on {share:.4%}, max err {du:.3g} px; bit-identical to "
             "its previous core; two launches bit-identical")
+
+
+# K11's output grids (B, H, W): a 1 × 1 output, W off the 64-pixel tile
+# with B = 3, an odd W + 4 (8-byte input rows), one whole tile, strips of
+# 2-7 rows (a block's run crosses strips), a W two tiles and a bit
+RAGGED_K11 = ((1, 1, 1), (3, 2, 70), (1, 5, 131), (2, 7, 64), (3, 4, 129), (1, 6, 200))
+# K13's (B, R, W0, C, WP): the launch floor, W0 and WP off everything at C
+# = 8 (an odd count of pieces a row: P2 stores 8 bytes a unit), 64 and 128
+RAGGED_K13 = ((1, 1, 3, 8, 6), (2, 3, 17, 8, 21), (2, 3, 17, 64, 23), (1, 4, 33, 8, 37),
+              (3, 2, 7, 128, 11), (1, 5, 61, 8, 64))
+
+
+def ragged_k11_k13_phase(dev):
+    """K11 (``c1_site``) at ragged output grids against its plain version
+    and its previous core, within the K9 bounds of ``check_bf16_site`` (1
+    ulp, 99% equal); K13 (``pad_inject``, P1 and P2) at ragged widths and C
+    = 8, 64, 128, bit-identical to its plain version and its previous core;
+    two launches of each bit-identical."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+    from neuralstyletransferv1_torch.kernels import int8_probes as k13
+
+    for i, (b, h, w) in enumerate(RAGGED_K11):
+        g = torch.Generator(device=dev).manual_seed(450 + i)
+        y12 = torch.rand((b, h + 4, w + 4, k9.C1_IN), generator=g, device=dev).to(torch.bfloat16)
+        wt = (torch.randn((5, 5, k9.C1_IN, k9.C1_OUT), generator=g, device=dev) * 0.1).to(
+            torch.bfloat16)
+        cb = torch.randn(k9.C1_OUT, generator=g, device=dev) * 0.2
+        out, again, ref = k9.c1_site(y12, wt, cb), k9.c1_site(y12, wt, cb), \
+            k9.c1_site_plain(y12, wt, cb)
+        p1, p2 = k9.c1_site_prev(y12, wt, cb), k9.c1_site_prev(y12, wt, cb)
+        torch.cuda.synchronize()
+        _, worst, equal = check_bf16_site(f"c1_site ragged {b}x{h}x{w}", out, again, ref, None)
+        check_bf16_site(f"c1_site (previous core) ragged {b}x{h}x{w}", p1, p2, ref, None)
+        check_bf16_site(f"c1_site against its previous core ragged {b}x{h}x{w}", out, again, p1,
+                        None)
+        log(f"K11 at {b}x{h}x{w}: {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 "
+            "bounds of its plain version and previous core; two launches bit-identical")
+        del y12, out, again, ref, p1, p2
+    for i, (b, r, w0, c, wp) in enumerate(RAGGED_K13):
+        g = torch.Generator(device=dev).manual_seed(460 + i)
+        x = (torch.randn((b, r, w0, c), generator=g, device=dev) * 8).to(torch.bfloat16)
+        for inject in (False, True):
+            if wp < w0 + (3 if inject else 1):
+                continue
+            out, again = k13.pad_inject(x, wp, inject=inject), k13.pad_inject(x, wp, inject=inject)
+            ref = k13.pad_inject_plain(x, wp, inject=inject)
+            prev = k13.pad_inject_prev(x, wp, inject=inject)
+            torch.cuda.synchronize()
+            form = f"P{2 if inject else 1} at {b}x{r}x{w0}x{c} -> {wp}"
+            if not torch.equal(out, again):
+                fail(f"K13 {form}: two launches on the same inputs differ")
+            if not (torch.equal(out, ref) and torch.equal(prev, ref)):
+                fail(f"K13 {form}: the core or its previous core differs from the plain version")
+        log(f"K13 at {b}x{r}x{w0}x{c} -> {wp}: P1"
+            f"{' and P2' if wp >= w0 + 3 else ''} bit-identical to the plain version and the "
+            "previous core; two launches bit-identical")
 
 
 def reference_phase(dev):
@@ -2102,7 +2176,9 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
     prologue, epilogue, 128> K12 and shift_dot_kernel its previous core, at
     probe 2's and the strip form's shared memory; fused_wgmma_kernel<prologue,
     statistics, 128> K10 and site_kernel_bf16<128, 1, 1, ...> its previous
-    core), and ptxas' warnings (a serialized wgmma)."""
+    core; c1_wgmma_kernel K11 and c1_kernel its previous core;
+    pad_inject_v2_kernel<inject, pieces a unit> K13 and pad_inject_kernel
+    its previous core), and ptxas' warnings (a serialized wgmma)."""
     import re
 
     name, spill = None, ""
@@ -2172,6 +2248,15 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
             elif base == "fused_wgmma_kernel":
                 short += " (K10)"
                 smem = k9.occupancy()["fused_conv"][1]
+            elif base == "c1_wgmma_kernel":
+                short += " (K11)"
+                smem = k9._lib().c1_wgmma_smem_bytes()
+            elif base == "c1_kernel":
+                short += " (K11, previous core)"
+            elif base == "pad_inject_v2_kernel":
+                short += " (K13)"
+            elif base == "pad_inject_kernel":
+                short += " (K13, previous core)"
             elif base == "site_kernel_bf16" and targs[:3] == ["128", "1", "1"]:
                 short += " (K10, previous core)"
             extra = "" if smem is None else f", {smem} bytes dynamic shared memory"
@@ -2205,6 +2290,12 @@ PHASES_S2_BF16 = ("wait for the tile's activated input (the producer warps)",
 PHASES_K9E = ("wait for the item's activated input (the producer warps)",
               "the wgmma group and the item before's store issued", "MMA drain",
               "staging the bf16 lanes", "the last item's store (once)")
+# K11's tile loop (c1_wgmma_kernel: the first consumer warpgroup's warp 0)
+PHASES_K11 = ("wait for the tile's input rows (the producer warps)",
+              "A loads and wgmma groups (their drain and the tile before's store issue incl.)",
+              "wait for the output buffer (the store two tiles back)",
+              "staging bf16(acc + bias) by stmatrix",
+              "the other warpgroup's tile skipped, the next tile's place")
 PHASES_K9A = ("wait for the tile's input", "the first tile's halo patch and activation",
               "wait for the weights (once)",
               "fragments and MMAs issued (the next tile's patch and activation between)",
@@ -2259,7 +2350,7 @@ def _phase_shares(lib, kernel, label, labels):
 
 
 def phases_phase(dev):
-    """--phases: the tensor-core cores (K2-K8b; K9a-K9e; K12, K10) built
+    """--phases: the tensor-core cores (K2-K8b; K9a-K9e; K12, K10, K11) built
     with MMA_PHASE_CLOCKS, each of their 1080p B=8 cases (K12: the probes'
     shapes) run once; the share of each phase of the tile loop (K6, K7, K9b:
     of warp 0's row loop) in the clock of every block's thread 0, averaged
@@ -2276,7 +2367,8 @@ def phases_phase(dev):
                                        "site_s2_launch", "d3_s8_launch", "d3_rows_launch"))
     lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch",
                                        "d2_site_launch", "c2_site_bf16_launch",
-                                       "c3_site_bf16_launch", "d3_rows_launch"))
+                                       "c3_site_bf16_launch", "d3_rows_launch",
+                                       "c1_site_launch"))
     lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
     base8, base9, base12 = k8._lib, k9._lib, k12._lib
     # the wrappers launch the instrumented builds
@@ -2314,6 +2406,18 @@ def phases_phase(dev):
                           f"fused_conv {prologue}{'' if stats else '/ns'} @ {mk1.FULL}",
                           PHASES_K10)
         del ins
+        torch.cuda.empty_cache()
+        import numpy as np
+
+        from neuralstyletransferv1_torch.experiments import mk13_c1 as mk13
+
+        wb, cb = (t.to(dev) for t in mk13.block_conv1_weights(*mk13.conv1_params(mk13.CKPT)))
+        b, h, w = mk13.FULL
+        x01 = torch.from_numpy(np.random.default_rng(11).random((b, h, w, 3), dtype=np.float32))
+        y12 = mk13.block_input(x01.to(dev).to(torch.bfloat16))
+        _phase_shares(lib9, lambda: k9.c1_site(y12, wb, cb),
+                      f"c1_site @ {tuple(y12.shape)}", PHASES_K11)
+        del y12, x01
         torch.cuda.empty_cache()
     finally:
         k8._lib, k9._lib, k12._lib = base8, base9, base12
@@ -2491,6 +2595,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     ragged_k7_k9a_phase(dev)
     ragged_k9c_k9d_phase(dev)
     ragged_k9e_k1_phase(dev)
+    ragged_k11_k13_phase(dev)
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)

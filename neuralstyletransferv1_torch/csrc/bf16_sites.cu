@@ -178,8 +178,27 @@
 //                   a staged input row holds its pixels' 12 channels back to
 //                   back, so output pixel x's packed row is the 60 contiguous
 //                   values from pixel x on. 3.19e11 FLOP, but the 1.06 GB
-//                   output bounds it (bytes): the tile is staged in shared
-//                   memory and leaves in 16-byte coalesced stores.
+//                   output bounds it (bytes; its MMAs at K = 64 take as
+//                   long at the tensor peak). c1_kernel, its first core
+//                   (kept for timing, c1_site_prev_launch), took 8 x 32
+//                   tiles on 64 channels, restaged all five kernel rows'
+//                   weights in each of its 8,160 blocks by scalar loads,
+//                   fed mma.sync by 32-bit loads and overlapped nothing.
+//                   c1_wgmma_kernel (below) is persistent, one block an SM
+//                   on all 128 channels with the weights resident: a
+//                   producer warpgroup lands each 68-pixel input row once
+//                   for the five output rows that read it, walking column
+//                   strips down the image; two consumer warpgroups on
+//                   alternate tiles run 20 wgmma m64n128k16 a 64-pixel
+//                   tile, A from registers (a pixel's row starts 8-byte
+//                   aligned, which no ldmatrix or descriptor reads; the k
+//                   order is permuted so that each lane's fragment halves
+//                   are adjacent words), stage the outputs by stmatrix, and
+//                   two TMA stores a tile leave during the warpgroup's next
+//                   MMAs. Of the forms timed on an H100 (PERF.md section 6)
+//                   it beat one consumer warpgroup, plain 32-bit staging
+//                   stores, the stores issued after the staging, and a
+//                   deeper ring.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -2458,6 +2477,340 @@ int launch_d3rows_wgmma(const RowsArgs& p, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// c1_wgmma_kernel: K11 on Hopper's warpgroup MMAs
+// ---------------------------------------------------------------------------
+
+// A tile is 64 output pixels x0 .. x0 + 63 of one output row y of one image,
+// on all 128 output channels: D[64 px][128 co] = Σ_dy A_dy[64 px][64 k] ·
+// B_dy[64 k][128 co], 5 kernel rows x 4 wgmma m64n128k16. A_dy's row for
+// pixel x is the 60 contiguous bf16 values of input row y + dy from pixel
+// x on (the five dx taps x 12 channels; k 60..63 meet zero weights), and
+// pixel x's row starts at byte 24x of the staged row: 8-byte aligned only,
+// which no ldmatrix or descriptor core matrix reads. So A comes from
+// registers, each thread's fragment by 64-bit shared loads: the k order
+// inside a kernel row is permuted (logical k word L = 8kc + 4h + t of k16
+// step kc, fragment half h, lane t reads physical word P = 8t + 2kc + h of
+// the pixel's row), so that a lane's a0/a2 (and a1/a3) words are adjacent,
+// and the weights B are staged in that permuted k order. Warp w's lanes
+// (g, t) read pixel 16w + g (+8) at word 6p + 8t + 2kc: bank pair 3g + 4t +
+// kc mod 16, distinct over each half-warp. The weights (the five kernel
+// rows, [128 co][64 k] bf16 each, K-major under the 128-byte swizzle) stay
+// resident for the block's life. Two consumer warpgroups take alternate
+// tiles, each with its own accumulators, so that one's epilogue runs
+// beside the other's MMAs. NB tiles are in flight, and before them the
+// other warpgroup's unfinished tile: 5 input rows each. Shared memory (one
+// block an SM):
+//   1,024 slack + 5 x 16,384 weights + 4 x 16,384 staged outputs
+//   + 30 x 1,664 input rows + 512 bias = 198,912
+struct C1W {
+  static constexpr int SEG = 64, NB = 4, NC = 2;
+  static constexpr int ROWS = 5 * (NB + NC);
+  static constexpr int ROW = 1664;            // a staged input row: 68 pixels x 24 bytes + zeros
+  static constexpr int WDY = kC1Out * 128;    // a kernel row's weights [128 co][64 k] bf16
+  static constexpr int OUT = SEG * kC1Out * 2;
+  static constexpr int CTHREADS = 128 * NC, PTHREADS = 128, THREADS = CTHREADS + PTHREADS;
+  static constexpr size_t bytes = 1024 + 5 * WDY + 2 * NC * OUT + ROWS * ROW + 4 * kC1Out;
+  static_assert(bytes <= 232448 && 2 * NB + NC < 15 && NB % NC == 0,
+                "shared memory; named barriers; a tile slot's barriers serve one warpgroup");
+  static_assert(ROW >= 24 * (SEG - 1) + 4 * 32 && ROW % 16 == 0, "the last pixel's window fits");
+};
+
+struct alignas(64) C1WArgs {
+  CUtensorMap map_out;      // out [B][H][W][128]: boxes of 64 co x 64 px x 1 x 1
+  const __nv_bfloat16* x;   // y12 [B][H+4][W+4][12], 16-byte aligned
+  const __nv_bfloat16* w;   // [5][5][12][128] (HWIO)
+  const float* bias;        // [128]
+  int H, W, segs;           // the output grid; segs = ceil(W / 64)
+  int tiles;                // B · segs · H
+};
+
+// cp.async of `bytes` (0..16, or 0..8) of `src` into 16 (8) bytes at dst,
+// the rest zero-filled
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+// four 8x8 b16 matrices to shared memory, lane l giving the address of row
+// l % 8 of matrix l / 8 and, in register i, its fragment of matrix i (row
+// l / 4, columns 2(l % 4), +1: an MMA accumulator's layout)
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+// The physical element (dx · 12 + channel) of a kernel row's packed 64 k
+// that logical k (the wgmma's k) stands for, or -1 (a zero weight).
+__device__ __forceinline__ int c1_k_source(int k) {
+  const int L = k >> 1, kc = L >> 3, h = (L >> 2) & 1, t = L & 3;
+  const int q = 2 * (8 * t + 2 * kc + h) + (k & 1);
+  return q < 5 * kC1In ? q : -1;
+}
+
+// A tile's place, stepped through a block's run: output row y of the
+// 64-column segment seg of image b; `fresh` at the start of the run or of
+// a strip (all five input rows new), and ld the load index of its last row
+struct C1Tile {
+  int y, seg, b, ld;
+  bool fresh;
+  __device__ void start(int t, int H, int segs) {
+    const int s = t / H;
+    y = t - s * H;
+    b = s / segs;
+    seg = s - b * segs;
+    ld = 4;
+    fresh = true;
+  }
+  __device__ void next(int H, int segs) {
+    fresh = ++y == H;
+    if (fresh) {
+      y = 0;
+      if (++seg == segs) {
+        seg = 0;
+        ++b;
+      }
+    }
+    ld += fresh ? 5 : 1;
+  }
+};
+
+// A persistent block takes a contiguous run of the B·segs·H tiles, numbered
+// output rows fastest, then 64-column segments, then images: it walks
+// column strips down the image, so that each tile needs one new input row
+// (five at the start of a run or a strip). Its producer warpgroup lands the
+// rows by cp.async (16-byte pieces, 8-byte ones where W + 4 is odd and rows
+// are 8-byte aligned only; past the image's right edge zero-filled) into a
+// ring of ROWS row slots, a tile's rows one commit group, up to NB - 1
+// tiles ahead; tile j reads the 5 rows landed last, and a tile's slot is
+// refilled once the tile before it is done, when the other warpgroup's
+// tile before that may still run. Consumer warpgroup c takes the run's
+// tiles j ≡ c (mod 2): a group of 4 wgmma a kernel row, its A fragments
+// loaded while the row before's group runs (two register sets); during the
+// first group, the two TMA stores of the warpgroup's tile before (a
+// 64-channel half each, clipped at the image's right edge); then bf16(acc +
+// bias) staged by stmatrix under the 128-byte swizzle in one of its two
+// output buffers. Named barriers: tile slot s full 1 + s, empty 1 + NB + s
+// (the producers and one consumer warpgroup: NB is even, so a slot's tiles
+// are one warpgroup's); consumer warpgroup c alone 1 + 2NB + c; the
+// consumers together 15, once.
+//
+// With -DMMA_PHASE_CLOCKS (consumer thread 0): 0 the wait for the tile's
+// input rows, 1 the A loads and the wgmma groups (their drain and the tile
+// before's store issue included), 2 the wait for the output buffer (the
+// warpgroup's store two tiles back has read it), 3 the epilogue's staging,
+// 4 the other warpgroup's tile skipped and the next tile's place.
+__global__ void __launch_bounds__(C1W::THREADS, 1) c1_wgmma_kernel(const __grid_constant__ C1WArgs p) {
+  using S = C1W;
+  constexpr int NB = S::NB, NC = S::NC, FULL = 1, EMPTY = 1 + NB, CONS = 1 + 2 * NB, NT = 256;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem8 = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* s_w = smem8;                          // [5][128 co] rows of 128 bytes, swizzled
+  uint8_t* s_o = s_w + 5 * S::WDY;               // 2NC x [2 halves][64 px] rows of 128 bytes
+  uint8_t* s_x = s_o + 2 * NC * S::OUT;          // [ROWS] input rows
+  float* s_bias = reinterpret_cast<float*>(s_x + S::ROWS * S::ROW);
+  const int tid = threadIdx.x;
+  const int t0 = (int)((long long)blockIdx.x * p.tiles / gridDim.x);
+  const int n = (int)((long long)(blockIdx.x + 1) * p.tiles / gridDim.x) - t0;
+  if (n <= 0) return;
+
+  if (tid >= S::CTHREADS) {
+    // ---- producers ----
+    const int pt = tid - S::CTHREADS;
+    const int rowb = (p.W + 4) * kC1In * 2;      // bytes of an input row
+    const bool a16 = (rowb & 15) == 0;
+    const uint32_t rows0 = smem_addr(s_x);
+    C1Tile tl;
+    tl.start(t0, p.H, p.segs);
+    // the rows tile j needs (tl is at tile j), one commit group (empty past
+    // the block's last tile, so that the wait count holds)
+    auto fetch = [&](int j) {
+      if (j < n) {
+        if (j > 0) tl.next(p.H, p.segs);
+        const int x0 = tl.seg * S::SEG;
+        const int avail = min(S::SEG + 4, p.W + 4 - x0) * kC1In * 2;
+        for (int dy = tl.fresh ? 0 : 4; dy < 5; ++dy) {
+          const uint8_t* src = reinterpret_cast<const uint8_t*>(p.x) +
+                               ((size_t)tl.b * (p.H + 4) + tl.y + dy) * rowb +
+                               (size_t)x0 * kC1In * 2;
+          const uint32_t dst = rows0 + ((tl.ld - 4 + dy) % S::ROWS) * S::ROW;
+          if (a16) {
+            for (int i = pt; i < S::ROW / 16; i += S::PTHREADS) {
+              const int nb = min(max(avail - 16 * i, 0), 16);
+              cp_async16_zfill(dst + 16 * i, nb ? src + 16 * i : src, nb);
+            }
+          } else {
+            for (int i = pt; i < S::ROW / 8; i += S::PTHREADS) {
+              const int nb = min(max(avail - 8 * i, 0), 8);
+              cp_async8_zfill(dst + 8 * i, nb ? src + 8 * i : src, nb);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    for (int j = 0; j < NB - 1; ++j) fetch(j);
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      cp_async_wait<NB - 2>();  // the thread's pieces of tile j's rows have landed
+      bar_arrive(FULL + j % NB, NT);
+      if (j >= 1 && j + NB - 1 < n) bar_sync(EMPTY + (j - 1) % NB, NT);
+      fetch(j + NB - 1);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg takes the block's tiles j = wg, wg + NC, ...
+  const int wg = tid >> 7, ct = tid & 127;
+  const int warp = ct >> 5, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+  // the weights, once: chunk c (logical k 8c .. 8c + 7) of row co of kernel
+  // row dy, co fastest so that the global reads coalesce
+  for (int i = tid; i < 5 * 8 * kC1Out; i += S::CTHREADS) {
+    const int co = i % kC1Out, c = (i / kC1Out) % 8, dy = i / (8 * kC1Out);
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q0 = c1_k_source(8 * c + 2 * e), q1 = c1_k_source(8 * c + 2 * e + 1);
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+      const __nv_bfloat16 w0 =
+          q0 < 0 ? zero : p.w[((dy * 5 + q0 / kC1In) * kC1In + q0 % kC1In) * kC1Out + co];
+      const __nv_bfloat16 w1 =
+          q1 < 0 ? zero : p.w[((dy * 5 + q1 / kC1In) * kC1In + q1 % kC1In) * kC1Out + co];
+      v[e] = (uint32_t)__bfloat16_as_ushort(w0) | (uint32_t)__bfloat16_as_ushort(w1) << 16;
+    }
+    *reinterpret_cast<uint4*>(s_w + dy * S::WDY + swz(co, c)) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  for (int i = tid; i < kC1Out; i += S::CTHREADS) s_bias[i] = p.bias[i];
+  fence_async_smem();  // the weights, before wgmma reads them
+  bar_sync(15, S::CTHREADS);
+
+  const uint32_t rows0 = smem_addr(s_x);
+  const uint32_t lane_off = 24 * (16 * warp + g) + 32 * tg;  // pixel 16w + g, word 8tg
+  // A fragments of kernel row dy, k16 steps 0..3, from row slot `slot`:
+  // pixel p0 = 16w + g (a0, a2) and p0 + 8 (a1, a3)
+  auto load_a = [&](uint32_t (&f)[16], int slot) {
+    const uint32_t a = rows0 + slot * S::ROW + lane_off;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint2 v0 = lds64(a + 8 * kc), v1 = lds64(a + 24 * 8 + 8 * kc);
+      f[4 * kc + 0] = v0.x;
+      f[4 * kc + 1] = v1.x;
+      f[4 * kc + 2] = v0.y;
+      f[4 * kc + 3] = v1.y;
+    }
+  };
+  const uint64_t desc_w = desc_kmajor(smem_addr(s_w));
+  // the stmatrix lane's row: matrices (nj, pixels +0), (nj, +8), (nj + 1,
+  // +0), (nj + 1, +8); lane l addresses row l % 8 of matrix l / 8
+  const int smi = lane >> 3, spx = 16 * warp + 8 * (smi & 1) + (lane & 7);
+  // the warpgroup's tile before, stored during this tile's first group
+  int pend_x0 = -1, pend_y = 0, pend_b = 0;
+  uint8_t* pend_so = s_o;
+  auto store = [&]() {
+    if (ct == 0 && pend_x0 >= 0) {
+      tma_store_4d(&p.map_out, pend_so, 0, pend_x0, pend_y, pend_b);
+      tma_store_4d(&p.map_out, pend_so + S::OUT / 2, 64, pend_x0, pend_y, pend_b);
+      bulk_commit();
+    }
+  };
+  C1Tile tl;
+  tl.start(t0, p.H, p.segs);
+  float acc[64];
+  MMA_PHASE_START
+#pragma unroll 1
+  for (int j = wg; j < n; j += NC) {
+    if (j > 0) tl.next(p.H, p.segs);
+    if (j > wg) tl.next(p.H, p.segs);  // the other warpgroup's tile
+    MMA_PHASE(4)
+    bar_sync(FULL + j % NB, NT);
+    MMA_PHASE(0)
+    uint32_t f[2][16];
+    load_a(f[0], (tl.ld - 4) % S::ROWS);
+#pragma unroll
+    for (int dy = 0; dy < 5; ++dy) {
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_bf16<0>(acc, &f[dy & 1][4 * kc], desc_w + (uint64_t)((dy * S::WDY + 32 * kc) >> 4),
+                      dy | kc);
+      wgmma_commit();
+      if (dy == 0) store();
+      wgmma_wait<1>();  // the group before has read its register set
+      if (dy < 4) load_a(f[(dy + 1) & 1], (tl.ld - 3 + dy) % S::ROWS);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (j + NB < n) bar_arrive(EMPTY + j % NB, NT);  // the tile's rows are read
+    MMA_PHASE(1)
+    uint8_t* so = s_o + (2 * wg + (j / NC & 1)) * S::OUT;
+    if (ct == 0) bulk_wait_read<1>();  // the warpgroup's store two tiles back has read it
+    bar_sync(CONS + wg, 128);
+    MMA_PHASE(2)
+    // bf16(acc + bias) of pixels 16w + g (+8), channels 8nj + 2tg (+1):
+    // half nj / 8, 16-byte chunk nj % 8 of the pixel's 128-byte row
+    const uint32_t so_a = smem_addr(so);
+#pragma unroll
+    for (int nj = 0; nj < 16; nj += 2) {
+      const float2 b0 = *reinterpret_cast<const float2*>(s_bias + 8 * nj + 2 * tg);
+      const float2 b1 = *reinterpret_cast<const float2*>(s_bias + 8 * nj + 8 + 2 * tg);
+      const int ch = nj + (smi >> 1);
+      stsm_x4(so_a + (ch >> 3) * (S::OUT / 2) + swz(spx, ch & 7),
+              pack_bf16(__fadd_rn(acc[4 * nj], b0.x), __fadd_rn(acc[4 * nj + 1], b0.y)),
+              pack_bf16(__fadd_rn(acc[4 * nj + 2], b0.x), __fadd_rn(acc[4 * nj + 3], b0.y)),
+              pack_bf16(__fadd_rn(acc[4 * nj + 4], b1.x), __fadd_rn(acc[4 * nj + 5], b1.y)),
+              pack_bf16(__fadd_rn(acc[4 * nj + 6], b1.x), __fadd_rn(acc[4 * nj + 7], b1.y)));
+    }
+    fence_async_smem();
+    bar_sync(CONS + wg, 128);
+    MMA_PHASE(3)
+    pend_so = so;
+    pend_x0 = tl.seg * S::SEG;
+    pend_y = tl.y;
+    pend_b = tl.b;
+  }
+  store();
+  if (ct == 0) bulk_wait_all();
+  MMA_PHASE_END
+}
+
+int launch_c1_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                    __nv_bfloat16* out, int B, int H, int W, void* stream) {
+  using S = C1W;
+  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  C1WArgs p = {};
+  p.x = x; p.w = w; p.bias = bias;
+  p.H = H; p.W = W;
+  p.segs = (W + S::SEG - 1) / S::SEG;
+  const long long tiles = (long long)B * p.segs * H;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  const int dout[4] = {kC1Out, W, H, B}, bout[4] = {64, S::SEG, 1, 1};
+  if (!make_map(&p.map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, 4, dout, bout))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(c1_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int blocks = (int)(tiles < sms ? tiles : sms);
+  c1_wgmma_kernel<<<blocks, S::THREADS, S::bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -2641,9 +2994,18 @@ extern "C" int fused_conv_prev_launch(const __nv_bfloat16* x, const float* stat,
   }
 }
 
-// K11: y12 [B,H+4,W+4,12] → out [B,H,W,128] = bf16(Σ y12·w + bias), w [5,5,12,128].
+// K11: y12 [B,H+4,W+4,12] → out [B,H,W,128] = bf16(Σ y12·w + bias), w [5,5,12,128];
+// on c1_wgmma_kernel (y12 and out 16-byte aligned).
 extern "C" int c1_site_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
                               __nv_bfloat16* out, int B, int H, int W, void* stream) {
+  return launch_c1_wgmma(x, w, bias, out, B, H, W, stream);
+}
+
+// K11 on its previous core (c1_kernel: 8 x 32 tiles on 64 channels), for
+// timing only.
+extern "C" int c1_site_prev_launch(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                   const float* bias, __nv_bfloat16* out, int B, int H, int W,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   C1Args p = {reinterpret_cast<const uint32_t*>(x), w, bias, out, B, H, W};
   cudaError_t err = cudaFuncSetAttribute(c1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2655,9 +3017,13 @@ extern "C" int c1_site_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, co
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of K11's block (c1_wgmma_kernel).
+extern "C" int c1_wgmma_smem_bytes() { return (int)C1W::bytes; }
+
 // Resident blocks per SM and dynamic shared memory of a block: which 0 is
-// K10 (f32 prologue, statistics: fused_wgmma_kernel), 1 K11, 2 K10's
-// previous core (site_kernel_bf16<128, 1, true>).
+// K10 (f32 prologue, statistics: fused_wgmma_kernel), 1 K11
+// (c1_wgmma_kernel), 2 K10's previous core (site_kernel_bf16<128, 1,
+// true>), 3 K11's previous core (c1_kernel).
 extern "C" int bf16_occupancy(int which, int* blocks, int* smem) {
   cudaError_t err;
   if (which == 0) {
@@ -2666,6 +3032,13 @@ extern "C" int bf16_occupancy(int which, int* blocks, int* smem) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, kFThreads, *smem);
+  } else if (which == 1) {
+    *smem = (int)C1W::bytes;
+    err = cudaFuncSetAttribute(c1_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               *smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, c1_wgmma_kernel, C1W::THREADS,
+                                                          *smem);
   } else if (which == 2) {
     auto kern = site_kernel_bf16<128, 1, true, kProF32, true>;
     *smem = (int)SiteGeom<128, 1, true>::smem;

@@ -62,11 +62,18 @@
 // and the epilogue. shift_dot_smem_bytes (and int8_probes.smem_plan) give
 // the slots that fit: at least two of each ring, or the form is refused.
 //
-// K13: one thread per 8 channels of one output pixel of [B, R, WP, C]:
-// column c reads input column c - 1 for 1 <= c <= W0, else 0 (P1, bf16);
-// P2 quantizes clamp(rint(x·qscale), -127, 127) to s8 and injects input
-// column 1 at column 0 and input column W0 - 2 at column W0 + 2 (the
-// probe's own indices). It moves bytes only.
+// K13: column c of [B, R, WP, C] reads input column c - 1 for 1 <= c <= W0,
+// else 0 (P1, bf16); P2 quantizes clamp(rint(x·qscale), -127, 127) to s8
+// and injects input column 1 at column 0 and input column W0 - 2 at column
+// W0 + 2 (the probe's own indices). It moves bytes only: at the int8 res
+// site's input [8, 270, 480, 128] -> 488 columns, P1 moves 535 MB (0.160
+// ms at 3.35 TB/s), P2 400 MB (0.120 ms). Its first core
+// (pad_inject_kernel, kept for timing) was a grid-stride loop over 16-byte
+// pieces capped at 4,096 blocks, each piece placed by 64-bit % and / by
+// runtime divisors, one load in flight a thread. pad_inject_v2_kernel (a
+// 2-D grid of row and column chunk, 32-bit offsets with no division,
+// several loads in flight before the first store, P1 as a shifted row
+// copy, P2's codes 16 bytes a store) replaces it.
 //
 // Rounding follows the reference operation by operation (built with
 // --fmad=false): __int2float_rn, __fmul_rn, rintf (half to even, as
@@ -744,7 +751,7 @@ int launch_wgmma(const void* a, const void* wt, void* out, int G, int M, int MA,
   return (int)cudaGetLastError();
 }
 
-// K13
+// K13's first core (pad_inject_prev_launch, for timing)
 template <bool INJECT>
 __global__ void pad_inject_kernel(const __nv_bfloat16* __restrict__ x, void* __restrict__ out,
                                   int B, int R, int W0, int WP, int C, float qscale) {
@@ -773,6 +780,88 @@ __global__ void pad_inject_kernel(const __nv_bfloat16* __restrict__ x, void* __r
       reinterpret_cast<uint2*>(out)[i] = make_uint2(c[0], c[1]);
     }
   }
+}
+
+// K13 on its new core. A block takes a chunk of kPadThreads x U units of
+// one output row (blockIdx.x the chunk, blockIdx.y the row, and +
+// gridDim.y ...); a unit is one 16-byte piece of bf16 (P1) or PC pieces'
+// 8-byte codes (P2: PC = 2, one 16-byte store, where a row holds an even
+// number of pieces; else 1). U = kPadUnits where that still gives two
+// blocks an SM, else 1 (a strip of a few rows: more blocks, less work a
+// thread). Piece i of an output row (8 channels; cpp pieces a pixel)
+// reads piece src(i) of the input row: P1 i - cpp for
+// cpp <= i < (W0 + 1)·cpp, a row copy shifted by one pixel (2C bytes, a
+// multiple of 16), else zero; P2 also piece i + cpp for i < cpp (column 0
+// <- column 1) and i - 4·cpp for (W0 + 2)·cpp <= i < (W0 + 3)·cpp (column
+// W0 + 2 <- column W0 - 2). All index arithmetic is 32-bit, with no
+// division; each thread issues its U (x PC) loads before its first store.
+constexpr int kPadThreads = 256, kPadUnits = 4;
+
+__device__ __forceinline__ int pad_src(int i, int nin, int cpp, int w0, bool inject) {
+  if (inject && i < cpp) return i + cpp;
+  if ((unsigned)(i - cpp) < (unsigned)nin) return i - cpp;
+  if (inject && (unsigned)(i - (w0 + 2) * cpp) < (unsigned)cpp) return i - 4 * cpp;
+  return -1;
+}
+
+template <bool INJECT, int PC, int U>
+__global__ void __launch_bounds__(kPadThreads) pad_inject_v2_kernel(
+    const uint4* __restrict__ x, void* __restrict__ out, int rows, int w0, int cpp, int nout,
+    float qscale) {
+  const int nin = w0 * cpp, units = nout / PC;
+  const int u0 = blockIdx.x * (kPadThreads * U) + threadIdx.x;
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const uint4* xr = x + (size_t)row * nin;
+    uint4 v[U][PC];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < PC; ++k) {
+        const int src = pad_src((u0 + u * kPadThreads) * PC + k, nin, cpp, w0, INJECT);
+        v[u][k] = src >= 0 ? __ldg(xr + src) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int unit = u0 + u * kPadThreads;
+      if (unit >= units) break;
+      if (!INJECT) {
+        reinterpret_cast<uint4*>(out)[(size_t)row * units + unit] = v[u][0];
+      } else {
+        uint32_t c[2 * PC];
+#pragma unroll
+        for (int k = 0; k < PC; ++k) {
+          const uint32_t w4[4] = {v[u][k].x, v[u][k].y, v[u][k].z, v[u][k].w};
+          c[2 * k] = c[2 * k + 1] = 0u;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            c[2 * k + (j >> 1)] |=
+                (quant_code(bf16_lo(w4[j]), qscale) | (quant_code(bf16_hi(w4[j]), qscale) << 8))
+                << (16 * (j & 1));
+        }
+        if constexpr (PC == 2)
+          reinterpret_cast<uint4*>(out)[(size_t)row * units + unit] = make_uint4(c[0], c[1], c[2], c[3]);
+        else
+          reinterpret_cast<uint2*>(out)[(size_t)row * units + unit] = make_uint2(c[0], c[1]);
+      }
+    }
+  }
+}
+
+template <bool INJECT, int PC>
+int launch_pad_v2(const void* x, void* out, int rows, int w0, int cpp, int nout, float qscale,
+                  cudaStream_t s) {
+  const int units = nout / PC, gy = rows < 65535 ? rows : 65535;
+  const int per = kPadThreads * kPadUnits, sms = sm_count();
+  const uint4* xv = static_cast<const uint4*>(x);
+  if ((long long)(units + per - 1) / per * gy >= 2LL * sms) {
+    pad_inject_v2_kernel<INJECT, PC, kPadUnits><<<dim3((units + per - 1) / per, gy), kPadThreads,
+                                                  0, s>>>(xv, out, rows, w0, cpp, nout, qscale);
+  } else {
+    pad_inject_v2_kernel<INJECT, PC, 1><<<dim3((units + kPadThreads - 1) / kPadThreads, gy),
+                                          kPadThreads, 0, s>>>(xv, out, rows, w0, cpp, nout,
+                                                               qscale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -863,9 +952,26 @@ extern "C" int mma_phase_clocks_read(unsigned long long* host) {
 // K13: x [B, R, W0, C] bf16 -> out [B, R, WP, C]: inject 0 (P1) bf16, column
 // c = x column c - 1 for 1 <= c <= W0, else 0; inject 1 (P2) int8 codes
 // clamp(rint(x·qscale), -127, 127) in the same places, and column 0 = code
-// of x column 1, column W0 + 2 = code of x column W0 - 2. C % 8 == 0.
+// of x column 1, column W0 + 2 = code of x column W0 - 2. C % 8 == 0; x and
+// out 16-byte aligned. On pad_inject_v2_kernel.
 extern "C" int pad_inject_launch(const void* x, void* out, int B, int R, int W0, int WP, int C,
                                  int inject, float qscale, void* stream) {
+  if (B < 1 || R < 1 || W0 < 3 || WP < W0 + (inject ? 3 : 1) || C < 8 || C % 8)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * R, nout = (long long)WP * (C / 8);
+  if (rows > 0x7fffffffLL || nout * 2 > 0x7fffffffLL || (long long)W0 * (C / 8) * 4 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r = (int)rows, cpp = C / 8, n = (int)nout;
+  if (!inject) return launch_pad_v2<false, 1>(x, out, r, W0, cpp, n, qscale, s);
+  return n % 2 == 0 ? launch_pad_v2<true, 2>(x, out, r, W0, cpp, n, qscale, s)
+                    : launch_pad_v2<true, 1>(x, out, r, W0, cpp, n, qscale, s);
+}
+
+// K13 on its previous core (pad_inject_kernel: a grid-stride loop over
+// 16-byte pieces), the same arguments; for timing the two side by side only.
+extern "C" int pad_inject_prev_launch(const void* x, void* out, int B, int R, int W0, int WP,
+                                      int C, int inject, float qscale, void* stream) {
   if (B < 1 || R < 1 || W0 < 3 || WP < W0 + (inject ? 3 : 1) || C < 8 || C % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

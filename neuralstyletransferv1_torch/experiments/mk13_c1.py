@@ -6,10 +6,13 @@ and phase-reflect-padded by two blocks a side, y12 [8, 544, 964, 12], then a
 5×5 conv 12 → 128 (4 phases × 32) with f32 accumulation + bias → bf16
 [8, 540, 960, 128]. The script's three modes (roll64, roll128, edot) are TPU
 lane packings of this one function; K11 packs the five dx taps of a kernel
-row into K = 64 instead. Timed against the cuDNN conv of the same block
-tensor (bf16, channels-last: the library call that computes the function)
-and the pixel-form conv1 it stands for (NCHW, as the bf16 net runs it, and
-channels-last).
+row into K = 64 instead. Timed in turns (five rounds of plain, kernel,
+previous core, library call, yardsticks) against its plain version, its
+previous core (``c1_site_prev``: ``prev_ms``, held to the same bounds
+against the plain version and against the kernel), the cuDNN conv of the
+same block tensor (bf16, channels-last: the library call that computes the
+function) and the pixel-form conv1 it stands for (NCHW, as the bf16 net
+runs it, and channels-last).
 
     python -m neuralstyletransferv1_torch.experiments.mk13_c1 [--ckpt PATH]
     python -m neuralstyletransferv1_torch.experiments.mk13_c1 --device cpu --small
@@ -100,23 +103,31 @@ def main(argv=None) -> dict:
     x01 = torch.from_numpy(rng.random((b, h, w, 3), dtype=np.float32)).to(dev).to(torch.bfloat16)
     y12 = block_input(x01)
     out, again = k9.c1_site(y12, wb, cb), k9.c1_site(y12, wb, cb)
+    ref = k9.c1_site_plain(y12, wb, cb)
     rec = {"experiment": "mk13_c1", **head, "shape": [b, h // 2 + 4, w // 2 + 4, 12],
            "weights": args.ckpt.name, "kernel_name": "c1_site",
-           **_bench.check("c1_site", out, again, k9.c1_site_plain(y12, wb, cb))}
-    del out, again
+           **_bench.check("c1_site", out, again, ref)}
+    if dev.type == "cuda":
+        prev, prev2 = k9.c1_site_prev(y12, wb, cb), k9.c1_site_prev(y12, wb, cb)
+        _bench.check("c1_site (previous core)", prev, prev2, ref)
+        rec["vs_prev"] = _bench.check("c1_site against its previous core", out, again, prev)
+        del prev, prev2
+    del out, again, ref
     if dev.type == "cuda":
         moved, flops = work(y12, wb)
         rec.update(_bench.bound(moved, flops))
         lib = yardsticks(y12, wb, cb, x01, w_hwio, bias)
         t = _bench.in_turns({
-            "ms": (lambda: k9.c1_site(y12, wb, cb), 10),
             "plain_ms": (lambda: k9.c1_site_plain(y12, wb, cb), 2),
+            "ms": (lambda: k9.c1_site(y12, wb, cb), 10),
+            "prev_ms": (lambda: k9.c1_site_prev(y12, wb, cb), 10),
             "library_ms": (lib["cudnn_block"], 10),
             "cudnn_pixel_nchw_ms": (lib["cudnn_pixel_nchw"], 3),
             "cudnn_pixel_channels_last_ms": (lib["cudnn_pixel_channels_last"], 3)})
         rec.update({k: v["ms"] for k, v in t.items()})
         rec["spread"] = {k: v["spread"] for k, v in t.items()}
         rec["kernel_tflops"] = flops / rec["ms"] / 1e9
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["blocks_per_sm"], rec["smem_bytes"] = k9.occupancy()["c1_site"]
         del lib
         torch.cuda.empty_cache()

@@ -22,7 +22,14 @@ columns, P5's int64 conv oracle) are rerun. The probes are single strips
 of about 1 MB, far from their bound on the device (the bound is printed
 all the same). Beside them: ``F.pad`` (P1, the same function: ``library_ms``), the
 cuDNN bf16 3×3 conv on the strip (P5, a yardstick: ``cudnn_bf16_ms``); P2
-has no one-call counterpart.
+has no one-call counterpart. K13 also runs on its previous core
+(``pad_inject_prev``: ``prev_ms``, held bit for bit against the plain
+version), and beside the strip, in the same turns, at its launch floor
+(``floor_ms``, ``floor_prev_ms``: the smallest legal call, B = R = 1, W0 =
+3, WP = 4, or 6 with the inject, C = 8); and P1 and P2 again at the shape
+P5 stands for, the int8 res site's input at 1080p B=8, [8, 270, 480, 128]
+→ 488 columns (``P1 res``, ``P2 res``; timed by CUDA events, each call
+hundreds of microseconds).
 
     python -m neuralstyletransferv1_torch.experiments.mk28_probe
     python -m neuralstyletransferv1_torch.experiments.mk28_probe --device cpu --small
@@ -47,6 +54,9 @@ from . import _bench
 
 FULL = (8, 480, 128)   # R, W0, C
 SMALL = (8, 20, 128)
+RES_FULL = (8, 270, 480, 128)   # B, R, W0, C: the int8 res site's input at 1080p B=8
+RES_SMALL = (2, 6, 20, 128)
+FLOOR = (1, 1, 3, 8)   # K13's smallest legal call
 QSCALE = 4.0
 
 
@@ -96,6 +106,36 @@ def p5_operands(x: torch.Tensor, wn: np.ndarray) -> tuple:
             torch.ones(co, device=dev), torch.zeros(co, device=dev))
 
 
+def pad_calls(x: torch.Tensor, wp: int, inject: bool, dev) -> tuple:
+    """(K13, its plain version, and on the card its previous core) of one
+    form on x."""
+    prev = (lambda: k13.pad_inject_prev(x, wp, inject=inject)) if dev.type == "cuda" else None
+    return (lambda: k13.pad_inject(x, wp, inject=inject),
+            lambda: k13.pad_inject_plain(x, wp, inject=inject), prev)
+
+
+def pad_work(x: torch.Tensor, wp: int, inject: bool) -> tuple:
+    """(bytes, operations) of K13 on x: x read once, the bf16 (P1) or s8
+    (P2) output written once."""
+    b, r, _, c = x.shape
+    return 2.0 * x.numel() + (1 if inject else 2) * b * r * wp * c, 0.0
+
+
+def floor_calls(xf: torch.Tensor, inject: bool, dev) -> dict | None:
+    """K13 and its previous core at the launch floor (``FLOOR``), each held
+    bit for bit against the plain version first: timed beside the strip."""
+    if dev.type != "cuda":
+        return None
+    wp = xf.shape[2] + (3 if inject else 1)
+    ref = k13.pad_inject_plain(xf, wp, inject=inject)
+    for fn in (k13.pad_inject, k13.pad_inject_prev):
+        if not torch.equal(fn(xf, wp, inject=inject), ref):
+            raise AssertionError(f"pad_inject at the launch floor ({fn.__name__}) differs from "
+                                 "the plain version")
+    return {"floor_ms": lambda: k13.pad_inject(xf, wp, inject=inject),
+            "floor_prev_ms": lambda: k13.pad_inject_prev(xf, wp, inject=inject)}
+
+
 def main(argv=None) -> dict:
     args = _bench.parser(__doc__).parse_args(argv)
     dev, head = _bench.setup(args)
@@ -104,23 +144,38 @@ def main(argv=None) -> dict:
     on_card = dev.type == "cuda"
     recs = []
 
+    xf = _bench.normal(np.random.default_rng(args.seed + 3), FLOOR, 8.0, dev)
     x1 = _bench.normal(np.random.default_rng(args.seed + 2), (1, r, w0, c), 1.0, dev)
-    nb = 2.0 * (x1.numel() + r * wp * c)
-    rec = _bench.measure("pad_inject[P1]", lambda: k13.pad_inject(x1, wp),
-                         lambda: k13.pad_inject_plain(x1, wp), dev, work=(nb, 0.0),
+    call, plain, prev = pad_calls(x1, wp, False, dev)
+    rec = _bench.measure("pad_inject[P1]", call, plain, dev, prev=prev,
+                         work=pad_work(x1, wp, False),
                          library=(lambda: F.pad(x1, (0, 0, 1, wp - w0 - 1))) if on_card else None,
-                         graph=True)
+                         yardsticks=floor_calls(xf, False, dev), graph=True)
     p1_assert(k13.pad_inject(torch.ones_like(x1), wp), w0)
-    recs.append({"probe": "P1 pad", "kernel_name": "pad_inject", **rec})
+    recs.append({"probe": "P1 pad", "form": "P1", "kernel_name": "pad_inject", **rec})
 
     rng = np.random.default_rng(args.seed)
     x2 = _bench.normal(rng, (1, r, w0, c), 8.0, dev)
-    nb = 2.0 * x2.numel() + r * wp * c
-    rec = _bench.measure("pad_inject[P2]", lambda: k13.pad_inject(x2, wp, inject=True),
-                         lambda: k13.pad_inject_plain(x2, wp, inject=True), dev, work=(nb, 0.0),
+    call, plain, prev = pad_calls(x2, wp, True, dev)
+    rec = _bench.measure("pad_inject[P2]", call, plain, dev, prev=prev,
+                         work=pad_work(x2, wp, True), yardsticks=floor_calls(xf, True, dev),
                          graph=True)
     p2_assert(k13.pad_inject(x2, wp, inject=True), x2, w0)
-    recs.append({"probe": "P2 inject", "kernel_name": "pad_inject", **rec})
+    recs.append({"probe": "P2 inject", "form": "P2", "kernel_name": "pad_inject", **rec})
+
+    # P1 and P2 at the res site's input, the shape P5 stands for
+    rb, rr, rw0, rc = RES_SMALL if args.small else RES_FULL
+    rwp = wp_of(rw0)
+    for inject, probe in ((False, "P1"), (True, "P2")):
+        x = _bench.normal(np.random.default_rng(args.seed + 4 + inject), (rb, rr, rw0, rc),
+                          8.0 if inject else 1.0, dev)
+        lib = (lambda: F.pad(x, (0, 0, 1, rwp - rw0 - 1))) if on_card and not inject else None
+        call, plain, prev = pad_calls(x, rwp, inject, dev)
+        rec = _bench.measure(f"pad_inject[{probe} res]", call, plain, dev, prev=prev,
+                             work=pad_work(x, rwp, inject), library=lib)
+        recs.append({"probe": f"{probe} res-site shape", "form": f"{probe} res",
+                     "shape": [rb, rr, rw0, rc], "wp": rwp, "kernel_name": "pad_inject", **rec})
+        del x, lib, call, plain, prev
 
     rng = np.random.default_rng(args.seed + 1)
     x5 = _bench.normal(rng, (1, r + 2, w0, c), 8.0, dev)
@@ -142,10 +197,11 @@ def main(argv=None) -> dict:
     got = site()[0][0, 1:r + 1].float().cpu().numpy()
     if not np.array_equal(got, p5_oracle(x5, wn)):
         raise AssertionError("P5: rows 1..8 differ from the script's int64 oracle")
-    recs.append({"probe": "P5 mini site", "kernel_name": "res_site_nostats", **rec})
+    recs.append({"probe": "P5 mini site", "form": "P5", "kernel_name": "res_site_nostats", **rec})
 
     for rec in recs:
-        rec["note"] = "one strip of about 1 MB, timed by CUDA graph replay"
+        if "res" not in rec["form"]:
+            rec["note"] = "one strip of about 1 MB, timed by CUDA graph replay"
     record = {"experiment": "mk28_probe", **head, "shape": [r, w0, c], "wp": wp, "probes": recs}
     _bench.emit(record)
     return record

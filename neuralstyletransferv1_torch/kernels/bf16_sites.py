@@ -33,7 +33,20 @@ Two more answer the JAX package's bf16 megakernel experiments
   K11 ``c1_site``       Johnson's conv1 in its f=2 block form: the 5×5 conv
                         12 → 128 of the 4-pixel phase-reflect-padded space-to-
                         depth image y12 [B,H+4,W+4,12] → bf16(Σ + bias)
-                        [B,H,W,128] (``mk13_c1.c1_site``)
+                        [B,H,W,128] (``mk13_c1.c1_site``); on the card
+                        ``c1_wgmma_kernel``: persistent, one block an SM on
+                        all 128 channels with the five kernel rows' weights
+                        resident; 64-pixel tiles of one output row, walked
+                        down column strips so that a producer warpgroup
+                        lands each input row once for five output rows; two
+                        consumer warpgroups on alternate tiles, 20
+                        ``wgmma`` m64n128k16 a tile with A from registers in
+                        a permuted k order (``c1_k_source``,
+                        ``c1_fragment_word``), the outputs staged by
+                        ``stmatrix`` for two TMA stores a tile
+                        (``c1_site_smem_bytes``, ``c1_schedule`` and
+                        ``c1_row_slots`` mirror it); ``c1_site_prev`` runs
+                        its first core (``c1_kernel``)
 
 On the card K9b runs on its own tensor-core core (``d3sum_mma_kernel``:
 warps walk 16-column strips down the image, the dy-sum's partial sums in
@@ -108,6 +121,12 @@ D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
 #: K10's prologue forms, as the kernel numbers them
 PROLOGUES = {"f32": 0, "none": 1, "bf16": 2}
 FUSED_C, C1_IN, C1_OUT = 128, 12, 128
+#: K11's tile on the card (``c1_wgmma_kernel``): C1_SEG pixels of one output
+#: row; C1_BUFFERS tiles in flight; C1_CONSUMERS warpgroups on alternate
+#: tiles; the ring's input rows, 5 for each tile in flight and for each
+#: other warpgroup's unfinished tile before them
+C1_SEG, C1_BUFFERS, C1_CONSUMERS = 64, 4, 2
+C1_ROWS = 5 * (C1_BUFFERS + C1_CONSUMERS)
 FUSED_TILE = (4, 32)   # K10's output tile on the card: rows x columns (128 pixels)
 #: per site: (C, CO, stride, halo, output tile of a block: the [Σ, Σ²]
 #: partials are per tile)
@@ -442,6 +461,58 @@ def c1_site_plain(y12, w, cb):
     return (_conv_f32(y12, w.permute(3, 2, 0, 1)) + cb).to(torch.bfloat16)
 
 
+def c1_site_smem_bytes() -> int:
+    """K11's dynamic shared memory (``C1W::bytes``): 1,024 bytes of slack
+    that align what follows for ``wgmma`` and TMA, the five kernel rows'
+    weights [128][64] bf16, two output buffers a consumer warpgroup of a
+    tile's 64 × 128 bf16, the ring's C1_ROWS input rows (68 pixels × 24
+    bytes and zeros, 1,664 bytes each) and the bias."""
+    return 1024 + 5 * C1_OUT * 64 * 2 + 2 * C1_CONSUMERS * C1_SEG * C1_OUT * 2 + \
+        C1_ROWS * 1664 + 4 * C1_OUT
+
+
+def c1_k_source(k: int) -> int | None:
+    """The element (dx · 12 + channel) of a kernel row's five packed taps
+    that ``wgmma`` k index k (0..63) of that row stands for, or None (a zero
+    weight): logical word L = k // 2 = 8kc + 4h + t is read from physical
+    word 8t + 2kc + h (``c1_k_source`` in the source)."""
+    word = k >> 1
+    kc, h, t = word >> 3, (word >> 2) & 1, word & 3
+    q = 2 * (8 * t + 2 * kc + h) + (k & 1)
+    return q if q < 5 * C1_IN else None
+
+
+def c1_fragment_word(p: int, kc: int, t: int, h: int) -> int:
+    """The 32-bit word of a staged input row that A fragment half h (a0/a1:
+    0, a2/a3: 1) of lane t at k16 step kc reads for tile pixel p: word 6p +
+    8t + 2kc + h (pixel p's 60 values start at element 12p)."""
+    return 6 * p + 8 * t + 2 * kc + h
+
+
+def c1_schedule(B: int, H: int, W: int, sms: int = 132) -> list:
+    """K11's persistent walk: per block, its (image, segment, output row)
+    tiles in order. Tiles are numbered output rows fastest, then the
+    ceil(W/64) segments, then images; block k of G = min(SMs, tiles) takes
+    the contiguous run [k·T/G, (k+1)·T/G)."""
+    segs = -(-W // C1_SEG)
+    total = B * segs * H
+    blocks = min(sms, total)
+    runs = [range(k * total // blocks, (k + 1) * total // blocks) for k in range(blocks)]
+    return [[(t // H // segs, t // H % segs, t % H) for t in run] for run in runs]
+
+
+def c1_row_slots(walk: list) -> list:
+    """The ring slots (of C1_ROWS) that a block's tiles read for kernel rows
+    dy = 0..4, as producer and consumers both count (``C1Tile``): a tile at
+    the start of the walk or of a strip (output row 0) lands five rows, any
+    other one one, and a tile reads the five rows landed last."""
+    out, ld = [], -1
+    for j, (_, _, y) in enumerate(walk):
+        ld += 5 if j == 0 or y == 0 else 1
+        out.append([(ld - 4 + dy) % C1_ROWS for dy in range(5)])
+    return out
+
+
 def bf16_ulp_error(out: torch.Tensor, ref: torch.Tensor, *, floor: float = 2.0 ** -8,
                    scale: torch.Tensor | None = None) -> tuple[float, float]:
     """How far two versions of a site are apart: (the largest |out − ref| in
@@ -481,6 +552,7 @@ def _lib():
             "fused_conv_launch": [P] * 7 + [I] * 8 + [P],
             "fused_conv_prev_launch": [P] * 7 + [I] * 8 + [P],
             "c1_site_launch": [P] * 4 + [I] * 3 + [P],
+            "c1_site_prev_launch": [P] * 4 + [I] * 3 + [P], "c1_wgmma_smem_bytes": [],
             "bf16_occupancy": [I, P, P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -721,9 +793,21 @@ def c1_site(y12, w, cb):
     """K11: Johnson's conv1 as the f=2 block conv. y12 [B,H+4,W+4,12] bf16
     (the space-to-depth image, phase-reflect-padded by two blocks a side);
     w [5,5,12,128] bf16 (``scatter_k9_f2`` of the 9×9 3→32 weights); cb
-    [128] f32 → bf16(Σ y12·w in f32 + cb) [B,H,W,128]."""
+    [128] f32 → bf16(Σ y12·w in f32 + cb) [B,H,W,128]. On the card:
+    ``c1_wgmma_kernel`` (y12 16-byte aligned)."""
     if y12.device.type == "cpu":
         return c1_site_plain(y12, w, cb)
+    return _c1_site(y12, w, cb, prev=False)
+
+
+def c1_site_prev(y12, w, cb):
+    """K11 on its previous core (``c1_kernel``), CUDA tensors only:
+    ``chip_smoke.py`` times it beside ``c1_site``. Nothing on the main path
+    calls it, and it counts no launch."""
+    return _c1_site(y12, w, cb, prev=True)
+
+
+def _c1_site(y12, w, cb, prev):
     k, dev = "c1_site", y12.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{k}: no kernel for device {dev}")
@@ -735,18 +819,19 @@ def c1_site(y12, w, cb):
     _check(k, "bias", cb, torch.float32, (C1_OUT,), dev)
     _check_aligned(k, "y12", y12)
     out = torch.empty((B, Hp - 4, Wp - 4, C1_OUT), dtype=torch.bfloat16, device=dev)
+    fn = _lib().c1_site_prev_launch if prev else _lib().c1_site_launch
     with torch.cuda.device(dev):
-        _run(k, _lib().c1_site_launch, y12.data_ptr(), w.data_ptr(), cb.data_ptr(),
-             out.data_ptr(), B, Hp - 4, Wp - 4, _stream(dev))
+        _run(k, fn, y12.data_ptr(), w.data_ptr(), cb.data_ptr(), out.data_ptr(), B, Hp - 4,
+             Wp - 4, _stream(dev), count=not prev)
     return out
 
 
 def occupancy() -> dict:
     """{kernel: (resident blocks per SM, dynamic shared memory bytes)} of
-    K10 (f32 prologue, statistics), K11 and K10's previous core on the
+    K10 (f32 prologue, statistics), K11 and their previous cores on the
     current card."""
     out = {}
-    for which, name in enumerate(("fused_conv", "c1_site", "fused_conv_prev")):
+    for which, name in enumerate(("fused_conv", "c1_site", "fused_conv_prev", "c1_site_prev")):
         blocks, smem = ctypes.c_int(), ctypes.c_int()
         rc = _lib().bf16_occupancy(which, ctypes.byref(blocks), ctypes.byref(smem))
         if rc != 0:

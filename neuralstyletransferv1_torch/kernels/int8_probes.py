@@ -44,6 +44,15 @@ fit), warpgroup MMAs with A from registers at each tap's shifted row.
 ``flat_dot_prev`` / ``strip_dot_prev`` launch the same function on the
 previous core (``shift_dot_kernel``), CUDA tensors only, for timing the
 two in turns: they count no launch.
+
+K13 runs on ``pad_inject_v2_kernel``: a 2-D grid of (column chunk, output
+row), 32-bit offsets with no division, each thread's ``PAD_UNITS`` loads in
+flight before its first store (one, where that leaves fewer than two blocks
+an SM); P1 is a row copy shifted by one pixel, P2's codes leave 16 bytes a
+store where a row holds an even number of 8-channel pieces
+(``pad_source_piece`` and ``pad_grid`` mirror it).
+``pad_inject_prev`` launches its first core (``pad_inject_kernel``), CUDA
+tensors only, counting no launch.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ EPI_BYTES = 2 * 2 * 64 * SPAN   # two 64-row epilogue slices in flight per warpg
 BAR_BYTES, ZERO_BYTES, MAX_SLOTS = 256, 128, 6
 QSCALE_DOT = 16.0        # K12's "quant" prologue: x·16 (mk20's probe 3, mk21)
 QSCALE_PAD = 4.0         # K13's quantize with ``inject``: x·4 (mk28's P2)
+PAD_THREADS, PAD_UNITS = 256, 4   # K13's block and the most units a thread loads before it stores
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
@@ -235,6 +245,34 @@ def pad_inject_plain(x, wp, *, inject=False):
     return o
 
 
+def pad_source_piece(i: int, w0: int, cpp: int, inject: bool) -> int | None:
+    """The input piece (8 channels; cpp a pixel) that piece i of an output
+    row of K13 reads, as ``pad_src`` computes it, or None (zero): i − cpp
+    for cpp ≤ i < (W0 + 1)·cpp; with ``inject`` also i + cpp for i < cpp
+    (column 0 ← column 1) and i − 4·cpp for (W0 + 2)·cpp ≤ i < (W0 + 3)·cpp
+    (column W0 + 2 ← column W0 − 2)."""
+    if inject and i < cpp:
+        return i + cpp
+    if 0 <= i - cpp < w0 * cpp:
+        return i - cpp
+    if inject and 0 <= i - (w0 + 2) * cpp < cpp:
+        return i - 4 * cpp
+    return None
+
+
+def pad_grid(rows: int, wp: int, c: int, inject: bool, sms: int = 132) -> tuple:
+    """K13's launch on [rows, WP, C] out: (grid x, grid y, pieces a unit,
+    units a thread). A unit is one 16-byte piece of bf16 (P1), or the 8-byte
+    codes of 2 pieces (P2, where WP·C/8 is even; else 1); a block takes
+    PAD_THREADS × U units of one row, U = PAD_UNITS where that still gives
+    two blocks an SM, else 1."""
+    nout = wp * c // 8
+    pc = 2 if inject and nout % 2 == 0 else 1
+    gy = min(rows, 65535)
+    u = PAD_UNITS if -(-(nout // pc) // (PAD_THREADS * PAD_UNITS)) * gy >= 2 * sms else 1
+    return -(-(nout // pc) // (PAD_THREADS * u)), gy, pc, u
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -249,7 +287,8 @@ def _lib():
     dot = [P] * 3 + [I] * 6 + [P, I, I, Fl, Fl, I, I, I, P]
     sigs = {"shift_dot_launch": dot, "shift_dot_prev_launch": dot,
             "shift_dot_smem_bytes": [P, I, I],
-            "pad_inject_launch": [P, P] + [I] * 6 + [Fl, P]}
+            "pad_inject_launch": [P, P] + [I] * 6 + [Fl, P],
+            "pad_inject_prev_launch": [P, P] + [I] * 6 + [Fl, P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -365,18 +404,33 @@ def _strip(x, wt, pro, out, oscale, prev):
 
 def pad_inject(x, wp, *, inject=False):
     """K13: mk28's column pad of x [B, R, W0, C] bf16 to width ``wp`` (bf16),
-    or with ``inject`` its s8 codes with the two injected halo columns."""
+    or with ``inject`` its s8 codes with the two injected halo columns. On
+    the card: ``pad_inject_v2_kernel`` (x 16-byte aligned)."""
     if x.device.type == "cpu":
         return pad_inject_plain(x, wp, inject=inject)
+    return _pad_inject(x, wp, inject, prev=False)
+
+
+def pad_inject_prev(x, wp, *, inject=False):
+    """K13 on its previous core (``pad_inject_kernel``), CUDA tensors only:
+    mk28 times it beside ``pad_inject``. Nothing on the main path calls it,
+    and it counts no launch."""
+    return _pad_inject(x, wp, inject, prev=True)
+
+
+def _pad_inject(x, wp, inject, prev):
     k = "pad_inject"
     dev = x.device
+    if dev.type != "cuda":
+        raise NotImplementedError(f"{k}: no kernel for device {dev}")
     b, r, w0, c = x.shape
     if w0 < 3 or wp < w0 + (3 if inject else 1) or c % 8:
         raise ValueError(f"{k}: W0={w0}, WP={wp}, C={c}: needs W0 >= 3, WP > W0 "
                          f"(+2 to inject) and C % 8 == 0")
     _check(k, "x", x, torch.bfloat16, x.shape, dev)
     res = torch.empty((b, r, wp, c), dtype=torch.int8 if inject else torch.bfloat16, device=dev)
+    fn = _lib().pad_inject_prev_launch if prev else _lib().pad_inject_launch
     with torch.cuda.device(dev):
-        _run(k, _lib().pad_inject_launch, x.data_ptr(), res.data_ptr(), b, r, w0, wp, c,
-             int(inject), QSCALE_PAD, torch.cuda.current_stream(dev).cuda_stream)
+        _run(k, fn, x.data_ptr(), res.data_ptr(), b, r, w0, wp, c, int(inject), QSCALE_PAD,
+             torch.cuda.current_stream(dev).cuda_stream, count=not prev)
     return res
