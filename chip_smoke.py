@@ -43,6 +43,15 @@ order, and any failed phase exits non-zero:
    held to the same outputs; K3 and K4 at the Johnson and NST widths, the
    others at every case), in turns: plain, kernel, previous, kernel,
    previous, plain, and two launches of each bit-identical;
+   then the f32-operand forms of K2–K5 (the float32 chains' first sites:
+   K2 and K3 at Johnson's and NST_Train's res grids and ReCoNet's, K4 at
+   Johnson's, ReCoNet's res grid and d1 and the Torch7 grid, K5 at Johnson's,
+   ReCoNet's with both activations and the Torch7 grid) with an f32 operand
+   that is not bf16-representable: bit-identical to their plain versions,
+   two launches bit-identical, timed in turns beside the bf16 form on the
+   same shape and beside the plain version; then at ragged shapes (W off
+   the 16-column tile, H off the 8-row tile, B = 1 and 3, C = 64 under the
+   zero halo, a ragged sw), bit for bit;
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -115,9 +124,11 @@ order, and any failed phase exits non-zero:
    ``int8`` with the adopted site sets, and once for each with the sets A
    (int8_static) and B (int8: head K8a/K8b, K4/K5 chains, K7 deconv3), and
    once for each of the bf16 fused-site sets ``("head", "tail")`` (K9c, K9d,
-   K9a, K9b) and ``("d3",)`` (K9e); check every kernel's launch count of each
+   K9a, K9b) and ``("d3",)`` (K9e), and under ``--compute_dtype float32``
+   for each of ``int8`` and ``int8_static`` (the f32 forms take block 1's
+   sites); check every kernel's launch count of each
    run exactly, and that each quantized or fused stylize stays within the
-   1e-2 MAE gate of the plain bf16 one;
+   1e-2 MAE gate of the plain stylize in its dtype;
 8. the NST_Train slot: a full-width net (3→32→64→128, 5 res blocks,
    128→64→32→3) from a seed, saved in the reference key layout to a
    temporary ``.pth``; its ``int8_static`` res chain on one 1080p frame,
@@ -145,7 +156,12 @@ order, and any failed phase exits non-zero:
    and K1's launches, and timing the per-frame loop; the same with
    ``--flow_ema`` on a 256×448 crop against ``--device cpu`` (MAE ≤ 1e-3);
    the single-image mode; and ``--stream off --frame_batch 8`` (extract →
-   batches over frame files → assemble).
+   batches over frame files → assemble);
+10. regions, masks and the LAB blend at 1080p with two slots: the batched
+   core over 2 batches with rotating voronoi regions and ``--mask_dir``,
+   then with the LAB blend and ``--mask_dir``, the per-frame loop through
+   ``main()`` with the regions and masks, exact launch counts and times;
+   then both under float32 on a 128×224 cut-down, card vs CPU within 1e-3.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -239,6 +255,35 @@ INT8_KERNELS = {
     "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
     "d3_s8_site": ((("d3", ""),), f"{_SITES_I8}:939"),
 }
+# the f32-operand forms of K2-K5: (the wrapper, its (shape, form) cases where
+# the float32 chains run it: Johnson's res grid (block 1's a-site K4 or K2,
+# block 2's K5 or block 1's K3), NST_Train's (K2, K3 under the zero halo with
+# sw), ReCoNet's (K4 block 0 and d1, K5 with its post-add activation, K2 IN
+# and FRN, K3) and the Torch7 one (K4, K5 under the zero halo))
+F32_KERNELS = {
+    "res_site_s8o_f32": ("res_site_s8o", (("res", ""), ("nst", ""), ("reco_res", "in"),
+                                          ("reco_res", "frn"))),
+    "site_s8_f32": ("site_s8", (("res", "aff_add"), ("nst", "aff_add"),
+                                ("reco_res", "aff_add"))),
+    "res_site_f32": ("res_site", (("res", ""), ("reco_res", ""), ("reco_d1", ""), ("t7", "a"))),
+    "res_site_skip_f32": ("res_site_skip", (("res", ""), ("reco_res", "relu"),
+                                            ("reco_res", "tau"), ("t7", "a"))),
+}
+# their ragged cases: (B, H, W, C, CO, halo, form, sw)
+F32_RAGGED = {
+    "res_site_s8o": ((1, 9, 21, 128, 128, "reflect", "", None),
+                     (3, 17, 50, 192, 192, "reflect", "frn", None),
+                     (2, 11, 40, 128, 128, "zero", "", 36)),
+    "site_s8": ((1, 9, 21, 128, 128, "reflect", "", None),
+                (3, 13, 37, 192, 192, "reflect", "yaff", None),
+                (2, 11, 40, 128, 128, "zero", "", None)),
+    "res_site": ((1, 9, 21, 128, 128, "reflect", "", None),
+                 (3, 17, 50, 192, 384, "edge", "", None),
+                 (2, 11, 37, 64, 64, "zero", "", None)),
+    "res_site_skip": ((1, 9, 21, 128, 128, "reflect", "", None),
+                      (3, 13, 37, 192, 192, "reflect", "tau", None),
+                      (2, 11, 37, 64, 64, "zero", "", None)),
+}
 _SITES_BF16 = "neuralstyletransferv1_tpu/models/s2d2_sites.py"
 # K9a-K9e: the input shape (B, H, W, C) each runs at on the main path, and the
 # TPU kernel it replaces
@@ -318,9 +363,17 @@ RECO_CROP = (256, 480)        # the int8_static chains card vs CPU: a 64 × 120 
 T7_SLICES = (("in", "none"), ("in", "bf16_static"), ("in", "int8"), ("in", "int8_static"),
              ("bn", "none"), ("bn", "int8"))
 T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
+# the Johnson slices under --compute_dtype float32 (the adopted sets): the res
+# chain's first sites read the f32 res input, through the f32 forms
+F32_SLICES = ("int8", "int8_static")
+F32_PER_BATCH = {"int8": {"res_site": 6, "res_site_f32": 1, "res_site_skip": 4,
+                          "res_site_skip_f32": 1},
+                 "int8_static": {"res_site_s8o": 4, "res_site_s8o_f32": 1, "site_s8": 4,
+                                 "site_s8_f32": 1, "res_site": 2}}
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
+REGION_MAE_TOL = 1e-3         # [0,1] frames, f32 region / mask / LAB core card vs CPU
 # K2-K5 run on the int8 tensor cores (mma_kernel), K8a and K8b on its
 # stride-2 form (mma_s2_kernel), K6 on d3s8_mma_kernel and K7 on
 # d3rows_mma_kernel; their previous __dp4a design (site_kernel, rows_kernel)
@@ -767,6 +820,135 @@ def int8_kernel_phase(dev):
             rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         results[name] = rec
     return results
+
+
+def f32_operand(t: dict, name: str, seed: int) -> dict:
+    """``t`` with the operand the f32 form reads as f32 replaced by f32
+    values that are not bf16-representable: K2's and K4's x, K3's and K5's
+    residual y."""
+    import torch
+
+    key = "x" if name in ("res_site_s8o", "res_site") else "y"
+    g = torch.Generator(device=t[key].device).manual_seed(seed)
+    scale = 2.0 if key == "x" else 1.0
+    out = dict(t)
+    out[key] = (torch.randn(tuple(t[key].shape), generator=g, device=t[key].device)
+                * scale).contiguous()
+    return out
+
+
+def f32_kernel_phase(dev):
+    """The f32-operand forms of K2-K5 against their plain versions at the
+    slice's shapes where the float32 chains run them, bit for bit, two
+    launches bit-identical; timed in turns beside the bf16 form on the same
+    shape (bf16, f32, f32, bf16) and the plain version; then at ragged
+    shapes (widths off the 16-column tile, heights off the 8-row tile,
+    B = 1 and 3, C = 64 under the zero halo, a ragged sw)."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    results = {}
+    for form_name, (base, cases) in F32_KERNELS.items():
+        rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0,
+               "max_abs_err": 0.0, "bound_by": "bytes", "per_case": {}}
+        for i, (shape, form) in enumerate(cases):
+            b, h, w, c, co, halo = SITE_SHAPES[shape]
+            seed = 500 + 10 * len(results) + i
+            t16 = site_inputs(dev, b, h, w, c, co, seed=seed)
+            t = f32_operand(t16, base, seed)
+            kernel, plain, moved, ops = site_calls(base, t, shape, form)
+            bf16_form = site_calls(base, t16, shape, form)[0]
+            before = dict(k8.F32_LAUNCHES)
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            if k8.F32_LAUNCHES[form_name] != before[form_name] + 1:
+                fail(f"{form_name} @ {shape}/{form}: the f32 operand did not launch the f32 form")
+            first = out[0] if isinstance(out, tuple) else out
+            err = check_site(form_name, out, ref, first.shape[1] * first.shape[2])
+            if not _same(kernel(), out):
+                fail(f"{form_name} @ {shape}/{form}: two launches on the same inputs differ")
+            del out, ref, first
+            t_bf = dev_time(bf16_form)
+            t_k = dev_time(kernel)
+            t_k = (t_k + dev_time(kernel)) / 2
+            t_bf = (t_bf + dev_time(bf16_form)) / 2
+            t_plain = dev_time(plain, reps=2)
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
+            bound = max(t_bytes, t_ops)
+            case = f"{shape}{'/' + form if form else ''}"
+            if shape in SITE_SW:
+                halo = f"{halo}, sw {SITE_SW[shape]}"
+            rec["per_case"][case] = {"ms": t_k, "bf16_ms": t_bf, "plain_ms": t_plain,
+                                     "bound_ms": bound, "bound_share": bound / t_k}
+            log(f"{form_name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
+                f"f32 form {t_k:.4f} ms, bf16 form {t_bf:.4f} ms (same turns, "
+                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms; bound {bound:.4f} ms "
+                f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops), f32 form at "
+                f"{bound / t_k:.1%} of it")
+            rec["ms"] += t_k
+            rec["bf16_ms"] += t_bf
+            rec["plain_ms"] += t_plain
+            rec["bound_ms"] += bound
+            if t_ops > t_bytes:
+                rec["bound_by"] = "operations"
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del t, t16, kernel, plain, bf16_form
+            torch.cuda.empty_cache()
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        results[form_name] = rec
+    ragged_f32_phase(dev)
+    return results
+
+
+def ragged_f32_phase(dev):
+    """The f32 forms at ragged shapes, small: bit-identical to their plain
+    versions, two launches bit-identical, K2's masked columns' codes 0."""
+    import torch
+
+    from neuralstyletransferv1_torch.kernels import int8_sites as k8
+
+    n = 0
+    for form_name, (base, _cases) in F32_KERNELS.items():
+        for (b, h, w, c, co, halo, form, sw) in F32_RAGGED[base]:
+            t = f32_operand(site_inputs(dev, b, h, w, c, co, seed=700 + n), base, 700 + n)
+            kw = {"halo": halo}
+            if sw is not None:
+                kw["sw"] = sw
+            if base == "res_site":
+                args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
+            elif base == "res_site_s8o":
+                args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"],
+                        t["qc"])
+                if form == "frn":
+                    kw.update(qlo=-127.0, tau=t["tauo"])
+            elif base == "res_site_skip":
+                args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], -127.0, t["wk"],
+                        t["ws"], t["bias"])
+                if form in ("relu", "tau"):
+                    kw.update(act=form, tau_act=t["tau_act"] if form == "tau" else None)
+            else:
+                args = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"] / 40, t["qc"] / 40,
+                        t["y"])
+                if form == "yaff":
+                    kw["yaff"] = (t["a2"][0], t["c2"][0])
+            before = k8.F32_LAUNCHES[form_name]
+            out = getattr(k8, base)(*args, **kw)
+            again = getattr(k8, base)(*args, **kw)
+            ref = getattr(k8, f"{base}_plain")(*args, **kw)
+            torch.cuda.synchronize()
+            if k8.F32_LAUNCHES[form_name] != before + 2:
+                fail(f"{form_name} ragged {b}x{h}x{w}x{c}: the f32 form was not launched")
+            first = out[0] if isinstance(out, tuple) else out
+            check_site(f"{form_name} ragged", out, ref, first.shape[1] * first.shape[2])
+            if not _same(out, again):
+                fail(f"{form_name} ragged {b}x{h}x{w}x{c}: two launches differ")
+            if sw is not None and base == "res_site_s8o" and bool((out[:, :, sw:] != 0).any()):
+                fail(f"{form_name} ragged: a masked column's code is not 0")
+            n += 1
+    log(f"f32 forms at {n} ragged shapes (W off the 16-column tile, H off the 8-row tile, "
+        f"B = 1 and 3, C = 64 and 128 under the zero halo, ragged sw): bit-identical to "
+        f"their plain versions, two launches bit-identical")
 
 
 def bf16_site_inputs(dev, name, shape, seed):
@@ -1424,7 +1606,7 @@ def zero_counts():
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     k1.LAUNCHES = 0
-    for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k9.LAUNCHES, k12.LAUNCHES):
+    for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k8.F32_LAUNCHES, k9.LAUNCHES, k12.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1435,19 +1617,21 @@ def read_counts() -> dict:
     from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k8.PROBE_LAUNCHES, **k9.LAUNCHES,
-            **k12.LAUNCHES}
+    return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k8.PROBE_LAUNCHES, **k8.F32_LAUNCHES,
+            **k9.LAUNCHES, **k12.LAUNCHES}
 
 
 def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
-                reco: tuple | None = None, t7: tuple | None = None):
+                reco: tuple | None = None, t7: tuple | None = None, dtype: str = "bfloat16"):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
     a --quantize mode and fused-site set, or with a set of bf16 fused sites;
     with ``nst_ckpt``, of that NST_Train checkpoint under the adopted sets;
     with ``reco`` = (checkpoint, frn), of that ReCoNet slot
     (``--model_type reconet``) under the adopted sets; with ``t7`` = (.t7
-    file, "in" or "bn"), of that Torch7 slot under the adopted sets;
-    returns the run's launch counts."""
+    file, "in" or "bn"), of that Torch7 slot under the adopted sets; with
+    ``dtype`` "float32", the Johnson slice under --compute_dtype float32
+    (the f32 forms of K2-K5 take the res chain's first sites); returns the
+    run's launch counts."""
     import numpy as np
     import torch
 
@@ -1456,7 +1640,7 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
 
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4",
             "--model", str(nst_ckpt or (reco[0] if reco else (t7[0] if t7 else CKPT))),
-            "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16"]
+            "--frame_batch", str(B), "--flow_ema", "--compute_dtype", dtype]
     if reco is not None:
         argv += ["--model_type", "reconet"]
     if quantize != "none":
@@ -1492,12 +1676,15 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
         per_batch = RECO_PER_BATCH.get(quantize, {})
     if t7 is not None:
         name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize), {})
+    if dtype == "float32":
+        name, per_batch = f"f32 {name}", F32_PER_BATCH.get(quantize, {})
     expected = {"dis_iter": levels * N_BATCHES}
     for k in counts:
         if k != "dis_iter":
             expected[k] = per_batch.get(k, 0) * N_BATCHES
     used = {k: v for k, v in counts.items() if v}
-    log(f"slice 1080p B={B} bf16 --quantize {name}: batch seconds "
+    log(f"slice 1080p B={B} {'f32' if dtype == 'float32' else 'bf16'} --quantize {name}: "
+        f"batch seconds "
         f"{', '.join(f'{t:.4f}' for t in t_batches)}; launches {used} (every other kernel 0), "
         f"{'as' if counts == expected else 'NOT as'} expected")
     if counts != expected:
@@ -1513,13 +1700,15 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     log(f"slice --quantize {name} frames/s: {steady:.2f} steady (batches 2..{N_BATCHES}), "
         f"{overall:.2f} including the first batch")
     if quantize != "none" or fused:
-        quant_quality(dev, args, frames[:B], quantize, fused, name)
+        quant_quality(dev, args, frames[:B], quantize, fused, name,
+                      torch.float32 if dtype == "float32" else torch.bfloat16)
     return counts
 
 
-def quant_quality(dev, args, frames, quantize, fused, name):
+def quant_quality(dev, args, frames, quantize, fused, name, dtype=None):
     """The quantized (or fused-site) stylize of the slice's first batch
-    against the plain dynamic bf16 stylize of the same frames: within the
+    against the plain dynamic stylize of the same frames in ``dtype`` (bf16;
+    an f32 slice against the f32 one): within the
     repo's 1e-2 gate with the slot's IO preset (what the main path ran),
     and, as a check that the path is not broken, within QUANT_BROKEN_TOL on
     the raw_01 scale, where this random-weight net's outputs spread over
@@ -1537,6 +1726,7 @@ def quant_quality(dev, args, frames, quantize, fused, name):
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
     from neuralstyletransferv1_torch.engine import stylizer as st
 
+    dtype = dtype or torch.bfloat16
     model = tpipe.load_slot_bank(args, dev)[0]
     x = torch.from_numpy(np.stack(frames)).to(dev).float() / 255.0
     base = "none"
@@ -1550,11 +1740,12 @@ def quant_quality(dev, args, frames, quantize, fused, name):
         checks.append(("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL))
     for preset, xin, what, bound in checks:
         m = st.StyleModel(model.arch, model.net, preset, model.name)
-        ref = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=base)(xin)
-        got = st.jit_stylizer(m, dtype=torch.bfloat16, quantize=quantize, fused_sites=fused)(xin)
+        ref = st.jit_stylizer(m, dtype=dtype, quantize=base)(xin)
+        got = st.jit_stylizer(m, dtype=dtype, quantize=quantize, fused_sites=fused)(xin)
         mae = float((got - ref).abs().mean())
         first = float((got[0] - ref[0]).abs().mean())
-        log(f"stylize --quantize {name} vs {'bf16' if base == 'none' else base}, preset "
+        plain = "f32" if dtype == torch.float32 else "bf16"
+        log(f"stylize --quantize {name} vs {plain if base == 'none' else base}, preset "
             f"{preset}, {what}: MAE {mae:.6f} (first frame {first:.6f}; bound {bound})")
         if not (torch.isfinite(got).all() and mae <= bound):
             fail(f"the {name} stylize is not within {bound} of the {base} stylize ({preset}, "
@@ -1711,6 +1902,122 @@ def per_frame_phase(dev, workdir: Path):
         f"--stream off --frame_batch {B} --flow_ema on a {n}-frame 1080p mp4")
     if clip_frame_count(out) != n or len(styled_pngs(wd)) != n:
         fail("--stream off did not write and assemble every frame")
+    return launches
+
+
+def write_masks(mask_dir: Path, n: int, h: int, w: int, skip=(3,)) -> Path:
+    """Per-frame masks ``mask_<n>.png`` for frames 1..n but those in
+    ``skip`` (they pass through fully styled): a disc drifting right, with
+    a soft ramp at its edge."""
+    import numpy as np
+    from PIL import Image
+
+    mask_dir.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(1, n + 1):
+        if i in skip:
+            continue
+        r = np.hypot((yy - 0.5 * h) / h, (xx - (0.3 + 0.02 * i) * w) / w)
+        m = np.clip((0.3 - r) * 4 * 255, 0, 255).astype(np.uint8)
+        Image.fromarray(m).save(mask_dir / f"mask_{i:04d}.png")
+    return mask_dir
+
+
+REGION_FLAGS = ["--model_b", str(CKPT), "--io_preset_b", "raw_01", "--region_mode", "voronoi",
+                "--region_seed", "7", "--region_rotate", "3"]
+
+
+def region_phase(dev, workdir: Path):
+    """Regions, masks and the LAB multi-slot blend at 1080p, two slots (the
+    repository's Johnson checkpoint under its own preset and raw_01): the
+    batched core (B=8, bf16, flow EMA) over 2 batches with voronoi regions
+    rotating 3° a frame and ``--mask_dir`` (frame 3 without a mask), then
+    with the LAB blend and ``--mask_dir``; the per-frame loop through
+    ``main()`` on a 4-frame 1080p mp4 with the same regions and masks; each
+    with exact launch counts (K1 only: these paths add no kernel) and its
+    time; then the regions + masks and the LAB blend under float32 on a
+    cut-down frame (8 frames, 128×224), card vs ``--device cpu``, within
+    1e-3 on [0,1]."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+
+    n = 2 * B
+    frames = moving_frames(n, H, W, SEED + 11)
+    masks = write_masks(workdir / "rg_masks", n, H, W)
+    launches: dict = {}
+
+    def batched(extra, frames, device, dtype="bfloat16"):
+        h, w = frames[0].shape[:2]
+        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+                "--frame_batch", str(B), "--flow_ema", "--compute_dtype", dtype,
+                "--mask_dir", str(masks), *extra]
+        args = tpipe.build_parser().parse_args(argv)
+        _, process = tpipe.make_batched_core(args, device, frames_dir=workdir / "_rg" / "frames")
+        ds = tpipe.effective_flow_downscale(0, h, w)
+        levels = len(_level_sizes(h // ds, w // ds, 2))
+        zero_counts()
+        outs, secs = [], []
+        for b0 in range(0, len(frames), B):
+            chunk = frames[b0:b0 + B]
+            t0 = time.perf_counter()
+            out = process(chunk, [Path(f"frame_{b0 + i + 1:04d}.png") for i in range(len(chunk))],
+                          b0)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append(out[:len(chunk)].cpu().numpy())
+        used = {k: v for k, v in read_counts().items() if v}
+        want = {"dis_iter": levels * -(-len(frames) // B)} if device.type == "cuda" else {}
+        if used != want:
+            fail(f"the region/mask batched core ({extra}) launched {used}, not {want}")
+        for k, v in used.items():
+            launches[k] = launches.get(k, 0) + v
+        return np.concatenate(outs), secs
+
+    for label, extra in (("voronoi regions, rotating, --mask_dir", REGION_FLAGS),
+                         ("--blend_models_lab, --mask_dir",
+                          ["--model_b", str(CKPT), "--io_preset_b", "raw_01",
+                           "--blend_models_lab"])):
+        out, secs = batched(extra, frames, dev)
+        if out.shape != (n, H, W, 3) or out.std() < 1.0:
+            fail(f"the {label} batched output is {out.shape}, std {out.std():.3g}")
+        log(f"batched 1080p B={B} bf16 two slots, {label}: batch seconds "
+            f"{', '.join(f'{t:.4f}' for t in secs)} ({B / secs[-1]:.2f} frames/s the second)")
+
+    src = workdir / "rg_in.mp4"
+    write_clip(src, frames[:4])
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    levels = len(_level_sizes(H // ds, W // ds, 2))
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = tpipe.main(["--input_video", str(src), "--output_video", str(workdir / "rg_pf.mp4"),
+                     "--model", str(CKPT), "--flow_ema", "--mask_dir", str(masks),
+                     "--work_dir", str(workdir / "_rgpf"), *REGION_FLAGS])
+    secs = time.perf_counter() - t0
+    used = {k: v for k, v in read_counts().items() if v}
+    for k, v in used.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"main() per-frame f32, two slots, voronoi regions rotating, --mask_dir, 4 frames at "
+        f"1080p: rc {rc}, {secs:.2f} s, launches {used}")
+    if rc != 0 or used != {"dis_iter": 3 * levels} or clip_frame_count(
+            workdir / "rg_pf.mp4") != 4:
+        fail("the per-frame region/mask run did not run as expected")
+
+    ch, cw = 128, 224
+    crop = [np.ascontiguousarray(f[:ch, :cw]) for f in frames[:B]]
+    for label, extra in (("regions + --mask_dir", REGION_FLAGS),
+                         ("LAB blend + --mask_dir", ["--model_b", str(CKPT), "--io_preset_b",
+                                                     "raw_01", "--blend_models_lab"])):
+        card = batched(extra, crop, dev, "float32")[0]
+        cpu = batched(extra, crop, torch.device("cpu"), "float32")[0]
+        mae = float(np.abs(card.astype(np.float64) - cpu).mean() / 255.0)
+        log(f"f32 {label}, {B} frames {ch}x{cw}, card vs CPU: MAE {mae:.3g} on [0,1] "
+            f"(bound {REGION_MAE_TOL})")
+        if not mae <= REGION_MAE_TOL or card.std() < 1.0:
+            fail(f"the {label} path on the card disagrees with the CPU path")
     return launches
 
 
@@ -2161,11 +2468,12 @@ MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "
 def ptxas_report(text: str, k1, k8, k9, k12) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core cores' instantiations
-    (mma_kernel<C, prologue, epilogue, tau, zero>: <C, 0, 0> is K4, <C, 2, 2> K3,
-    <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5, <192, 3, 0> K5
-    with the post-add activation, <128, 4, 0> K4's cast form, <128, 0, 4> its
-    no-statistics form; tau 1: K4 with the TLU floor; zero 1: K2, K4 or K5
-    under the zero halo; mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
+    (mma_kernel<C, prologue, epilogue, tau, zero, f32>: <C, 0, 0> is K4,
+    <C, 2, 2> K3, <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5,
+    <192, 3, 0> K5 with the post-add activation, <128, 4, 0> K4's cast form,
+    <128, 0, 4> its no-statistics form; tau 1: K4 with the TLU floor; zero 1:
+    K2, K4 or K5 under the zero halo; f32 1: the f32-operand form of K2-K5;
+    mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
     d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
     their previous cores); d3sum_mma_kernel K9b and d3rows_wgmma_kernel K9e
     (rows_kernel_bf16<1>, <0> their previous cores); dis_iter_kernel K1 (at
@@ -2201,7 +2509,8 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
             short = f"{base}<{', '.join(targs)}>" if targs else base
             smem = None
             if base == "mma_kernel":
-                short += f" ({MMA_FORMS[targs[1], targs[2]]})"
+                short += f" ({MMA_FORMS[targs[1], targs[2]]}"
+                short += ", f32 operand)" if targs[5:6] == ["1"] else ")"
                 smem = k8._lib().mma_kernel_smem_bytes(int(targs[0]))
             elif base == "mma_s2_kernel":
                 short += " (K8a)" if targs[0] == "32" else " (K8b)"
@@ -2473,8 +2782,10 @@ def kernel_group(name: str) -> str:
 
 def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
-    NST_Train, ReCoNet, Torch7), by kind of kernel and by kernel
-    (torch.profiler after two warm-up batches)."""
+    NST_Train, ReCoNet, Torch7; the Johnson slices under float32; two slots
+    with rotating voronoi regions), by kind of kernel and by kernel
+    (torch.profiler after two warm-up batches; the regions' frames are
+    numbered from 1 each batch)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2486,13 +2797,17 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
              + SLICES] + [(mode, None, nst_ckpt, "nst") for mode in NST_SLICES]
             + [(mode, None, reco_ckpts[frn], f"reco {'frn' if frn else 'in'}")
                for mode, frn in RECO_SLICES]
-            + [(mode, None, t7_ckpts[norm], f"t7 {norm}") for norm, mode in T7_SLICES])
+            + [(mode, None, t7_ckpts[norm], f"t7 {norm}") for norm, mode in T7_SLICES]
+            + [(mode, None, CKPT, "f32") for mode in ("none",) + F32_SLICES]
+            + [("none", None, CKPT, "regions")])
     for mode, fused, ckpt, label in runs:
         argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
-                "--frame_batch", str(B), "--flow_ema", "--compute_dtype", "bfloat16",
-                "--quantize", mode]
+                "--frame_batch", str(B), "--flow_ema", "--compute_dtype",
+                "float32" if label == "f32" else "bfloat16", "--quantize", mode]
         if label.startswith("reco"):
             argv += ["--model_type", "reconet"]
+        if label == "regions":
+            argv += REGION_FLAGS
         _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
                                           fused_sites=fused)
         proc(frames[:B])
@@ -2588,6 +2903,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
 
     k1_rec = k1_phase(dev)
     int8 = int8_kernel_phase(dev)
+    f32 = f32_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
     exp_launches, exp = experiments_phase(dev)
     ragged_sw_phase(dev)
@@ -2606,7 +2922,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     runs = ([dict(quantize=mode, fused=fused) for mode, fused in (("none", None),) + SLICES]
             + [dict(quantize=mode, nst_ckpt=nst_ckpt) for mode in NST_SLICES]
             + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES]
-            + [dict(quantize=mode, t7=(t7_ckpts[norm], norm)) for norm, mode in T7_SLICES])
+            + [dict(quantize=mode, t7=(t7_ckpts[norm], norm)) for norm, mode in T7_SLICES]
+            + [dict(quantize=mode, dtype="float32") for mode in F32_SLICES])
     for run in runs:
         for k, v in slice_phase(dev, **run).items():
             launches[k] += v
@@ -2616,6 +2933,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for k, v in t7_cli_phase(dev, tmp, t7_ckpts["in"]).items():
         launches[k] += v
     for k, v in per_frame_phase(dev, tmp).items():
+        launches[k] += v
+    for k, v in region_phase(dev, tmp).items():
         launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2638,6 +2957,17 @@ def run_phases(dev, tmp: Path, k8) -> int:
             **{k: rec[k] for k in ("prev_ms", "bound_share") if k in rec},
             "per_case": rec["per_case"],
         })
+    for name, (base, _cases) in F32_KERNELS.items():
+        rec = f32[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neuralstyletransferv1_torch/csrc/int8_sites.cu",
+            "replaces": INT8_KERNELS[base][1],
+            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "bf16_form_ms": rec["bf16_ms"],
+            "bound_share": rec["bound_share"], "per_case": rec["per_case"],
+        })
     for name, (_shape, replaces) in BF16_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -2649,7 +2979,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": exp_launches[name], **exp[name],
         })
-    for name in (*INT8_KERNELS, *BF16_KERNELS):
+    for name in (*INT8_KERNELS, *F32_KERNELS, *BF16_KERNELS):
         if launches[name] == 0:
             fail(f"{name} was launched no time on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)

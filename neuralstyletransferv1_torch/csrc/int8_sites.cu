@@ -111,6 +111,11 @@
 // probes at C = 128: kCast/kRawStats (the bare saturating cast for the
 // quantize, mk31's v1) and kQuant/kRaw (no statistics: mk31's v2, mk28's
 // mini site), each its own instance so that the others keep their code.
+// The float32 chains hand the res chain's first sites an f32 tensor, which
+// the reference reads unrounded: K2's and K4's x, K5's residual yp, K3's
+// residual y. Those are the F32IN instances (res_site_f32_launch and its
+// three siblings), built only at the channel counts and halos the f32
+// chains reach (launch_mma_f32_k2..k5); the bf16 instances compile as before.
 // K5 reads two inputs, r2 and yp: holding both of the next tile in
 // registers through the MMAs would double the in-flight registers (72 more
 // at C = 192, where a block already holds 18 16-byte chunks of r2), and a
@@ -219,9 +224,12 @@ enum SiteFlags { kFAff = 1, kFYadd = 2, kFYaff = 4, kFS8Out = 8 };
 constexpr int kEpRows = 6;
 
 struct Args {
-  const void* x;                 // kQuant: bf16 x; kSkip: bf16 r2; kCodes: int8 [B,Hi,Wi,C]
+  const void* x;                 // kQuant: bf16 x (f32 under F32IN); kSkip: bf16 r2;
+                                 // kCodes: int8 [B,Hi,Wi,C]
   const __nv_bfloat16* yp;       // kSkip: bf16 residual [B,H,W,C]
   const __nv_bfloat16* yadd;     // kSiteS8: bf16 residual [B,H,W,CO]
+  const float* yp32;             // kSkip under F32IN: the f32 residual [B,H,W,C]
+  const float* yadd32;           // kSiteS8 under F32IN: the f32 residual [B,H,W,CO]
   const float *a, *c;            // [B,C] quantize affine
   const float *a2, *c2;          // [B,C] skip-combine affine
   const int32_t* wk;             // [9, C/4, CO] packed int8 weights
@@ -742,7 +750,14 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 // ZERO (K2, K4, K5 under the zero halo, C = 64, 128): positions outside the
 // image (for K2 also the columns >= sw) are code 0; the other instances
 // compile without that test.
-template <int C, int PRO, int EPI, bool TAU, bool ZERO>
+// F32IN (the float32 chains' first sites): the operand the reference reads
+// as f32 is f32 and enters the arithmetic unrounded: K2's and K4's x, read
+// by the quantize in stage straight from global memory (an f32 tile held in
+// registers through the MMAs would double the prefetch's registers, and it
+// does not fit in shared memory beside the weights), K5's residual yp, read
+// in combine, and K3's residual y, read in the store pass; each 8-channel
+// chunk is two 16-byte loads. The bf16 instances compile without them.
+template <int C, int PRO, int EPI, bool TAU, bool ZERO, bool F32IN>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
   static_assert(((PRO == kQuant || PRO == kCast) && (EPI == kRawStats || EPI == kRaw) &&
@@ -755,6 +770,10 @@ __global__ void __launch_bounds__(kMThreads, 1)
   static_assert(!TAU || (PRO == kQuant && !is_emit(EPI)), "the floor is K4's quantize's");
   static_assert(!ZERO || ((PRO == kQuant || PRO == kSkip) && !TAU),
                 "K3 carries the zero halo in its codes");
+  static_assert(!F32IN || (!TAU && (PRO == kQuant || PRO == kCodes || is_skip(PRO)) &&
+                           EPI != kRaw),
+                "the f32 operand is K2's or K4's x, K5's yp or K3's y");
+  constexpr bool F32Q = F32IN && PRO == kQuant;  // K2, K4: x is f32, quantized in stage
   using S = MmaSmem<C>;
   using In = MmaIn<C, PRO>;
   constexpr int PX = S::PX;
@@ -807,12 +826,13 @@ __global__ void __launch_bounds__(kMThreads, 1)
   // there. K2's zero test takes its content width sw (== W without a mask)
   // for the image's.
   uint4 raw[In::NI];
-  uint4 yraw[is_skip(PRO) ? In::NI : 1];
+  uint4 yraw[is_skip(PRO) && !F32IN ? In::NI : 1];
   uint32_t zf = 0;
   static_assert(!ZERO || In::NI <= 32, "one flag bit a pass");
   const int chunk = tid % In::CH, p0 = tid / In::CH;
   const bool loader = In::FULL || p0 < In::PPI;
   auto fetch = [&](int id) {
+    if (F32Q) return;  // stage reads the f32 x itself
     const int b = id / tiles, t = id % tiles;
     const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
     if (ZERO) zf = 0;
@@ -838,6 +858,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
     }
   };
   auto fetch_y = [&](int id) {
+    if (F32IN) return;  // combine reads the f32 yp itself
     const int b = id / tiles, t = id % tiles;
     const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
 #pragma unroll
@@ -853,7 +874,8 @@ __global__ void __launch_bounds__(kMThreads, 1)
   };
   // v = bf16(bf16(r2*a2 + c2) + yp) [max(v, floor)] into raw, in registers
   auto combine = [&](int id) {
-    const int b = id / tiles;
+    const int b = id / tiles, t = id % tiles;
+    const int y0 = (t / tiles_x) * kMRows, x0 = (t % tiles_x) * kMCols;
     float sa[8], sc[8], fl[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -866,14 +888,27 @@ __global__ void __launch_bounds__(kMThreads, 1)
       const int px = p0 + k * In::PPI;
       if (!loader || px >= kMPix || (ZERO && ((zf >> k) & 1u))) continue;
       uint32_t r4[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
-      const uint32_t y4[4] = {yraw[k].x, yraw[k].y, yraw[k].z, yraw[k].w};
+      float yv[8];
+      if (F32IN) {
+        const int gy = y0 + px / kMHC - 1, gx = x0 + px % kMHC - 1;
+        const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
+        const float4* src = reinterpret_cast<const float4*>(
+            p.yp32 + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C + chunk * In::VB);
+        const float4 u = __ldg(src), w = __ldg(src + 1);
+        yv[0] = u.x; yv[1] = u.y; yv[2] = u.z; yv[3] = u.w;
+        yv[4] = w.x; yv[5] = w.y; yv[6] = w.z; yv[7] = w.w;
+      } else {
+        const uint32_t y4[4] = {yraw[k].x, yraw[k].y, yraw[k].z, yraw[k].w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) yv[j] = j & 1 ? bf16_hi(y4[j / 2]) : bf16_lo(y4[j / 2]);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float r = e ? bf16_hi(r4[j]) : bf16_lo(r4[j]);
-          const float y = e ? bf16_hi(y4[j]) : bf16_lo(y4[j]);
+          const float y = yv[2 * j + e];
           const float t = bf16_round(__fadd_rn(__fmul_rn(r, sa[2 * j + e]), sc[2 * j + e]));
           v[e] = bf16_round(__fadd_rn(t, y));
           if (PRO == kSkipAct) v[e] = fmaxf(v[e], fl[2 * j + e]);
@@ -898,7 +933,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
     // tile's interior pixels inside the image
     const bool vwrite = is_skip(PRO) && p.vout != nullptr && co0 == 0;
     int vy0 = 0, vx0 = 0;
-    if (is_skip(PRO)) {
+    if (is_skip(PRO) || F32Q) {
       const int t = id % tiles;
       vy0 = (t / tiles_x) * kMRows;
       vx0 = (t % tiles_x) * kMCols;
@@ -910,6 +945,22 @@ __global__ void __launch_bounds__(kMThreads, 1)
       uint8_t* dst = s_x + px * PX + chunk * In::VB;
       if (PRO == kCodes) {
         *reinterpret_cast<uint4*>(dst) = raw[k];
+      } else if (F32Q) {
+        // the f32 x, 8 channels as two 16-byte loads, quantized unrounded
+        const int gy = vy0 + px / kMHC - 1, gx = vx0 + px % kMHC - 1;
+        uint32_t q[2] = {0u, 0u};
+        if (!(ZERO && zero_code(gy, gx, p.Hi, is_emit(EPI) ? p.sw : p.Wi, p.halo))) {
+          const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
+          const float4* src = reinterpret_cast<const float4*>(
+              static_cast<const float*>(p.x) + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C +
+              chunk * In::VB);
+          const float4 u = __ldg(src), w = __ldg(src + 1);
+          const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            q[j >> 2] |= (uint32_t)(quantize(v[j], qa[j], qc[j], p.lo) & 0xff) << (8 * (j & 3));
+        }
+        *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
       } else if (ZERO && ((zf >> k) & 1u)) {
         *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
       } else {
@@ -1089,7 +1140,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
     const int vchunks = nvalid / 8;
     const bool yadd = EPI == kSiteS8 && (p.flags & kFYadd);
     uint4 yv[NS];
-    if (yadd) {
+    if (yadd && !F32IN) {
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         const int i = tid + j * kMThreads, px = i / CPP, c8 = i % CPP;
@@ -1149,10 +1200,20 @@ __global__ void __launch_bounds__(kMThreads, 1)
             f[2 * k + 1] = bf16_hi(w[k]);
           }
           if (yadd) {
-            const uint32_t yw[4] = {yv[j].x, yv[j].y, yv[j].z, yv[j].w};
+            float y8[8];
+            if (F32IN) {  // the f32 residual, two 16-byte loads
+              const float4* src = reinterpret_cast<const float4*>(p.yadd32 + o);
+              const float4 u = __ldg(src), w = __ldg(src + 1);
+              y8[0] = u.x; y8[1] = u.y; y8[2] = u.z; y8[3] = u.w;
+              y8[4] = w.x; y8[5] = w.y; y8[6] = w.z; y8[7] = w.w;
+            } else {
+              const uint32_t yw[4] = {yv[j].x, yv[j].y, yv[j].z, yv[j].w};
+#pragma unroll
+              for (int k = 0; k < 8; ++k) y8[k] = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
+            }
 #pragma unroll
             for (int k = 0; k < 8; ++k) {
-              float y = k & 1 ? bf16_hi(yw[k / 2]) : bf16_lo(yw[k / 2]);
+              float y = y8[k];
               if (p.flags & kFYaff)
                 y = bf16_round(fmaxf(__fadd_rn(__fmul_rn(y, ep[4 * MCO + k]), ep[5 * MCO + k]),
                                      0.0f));
@@ -1216,10 +1277,10 @@ __global__ void stats_reduce_mma(const float* __restrict__ part, float* __restri
   }
 }
 
-template <int C, int PRO, int EPI, bool TAU, bool ZERO = false>
+template <int C, int PRO, int EPI, bool TAU, bool ZERO = false, bool F32IN = false>
 int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   const size_t smem = MmaSmem<C>::bytes;
-  auto kern = mma_kernel<C, PRO, EPI, TAU, ZERO>;
+  auto kern = mma_kernel<C, PRO, EPI, TAU, ZERO, F32IN>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1314,6 +1375,64 @@ template <int PRO, int EPI>
 int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p) || p.tau != nullptr || p.halo != 0 || C != 128) return (int)cudaErrorInvalidValue;
   return launch_mma_c<128, PRO, EPI, false>(p, sums, static_cast<cudaStream_t>(stream));
+}
+
+// The f32-operand forms (F32IN), built at the channel counts and halos the
+// float32 chains reach: K4 at C = 128 (Johnson's reflect halo) and 192
+// (ReCoNet's res grid, reflect, and its d1, edge), and under the zero halo
+// at 64 and 128 (Torch7); K5 at 128 (Johnson), kSkipAct at 192 (ReCoNet),
+// and under the zero halo at 64 and 128 (Torch7); K2 at 128 (Johnson; under
+// the zero halo with sw, NST_Train) and 192 (ReCoNet, with the floored emit
+// too); K3 at 128 and 192. No floor (tau) on K4's.
+int launch_mma_f32_k4(const Args& p, int C, float* sums, cudaStream_t s) {
+  if (!valid(p) || p.tau != nullptr) return (int)cudaErrorInvalidValue;
+  if (p.halo == kHaloZero) {
+    if (C == 128) return launch_mma_c<128, kQuant, kRawStats, false, true, true>(p, sums, s);
+    if (C == 64) return launch_mma_c<64, kQuant, kRawStats, false, true, true>(p, sums, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (C == 128) return launch_mma_c<128, kQuant, kRawStats, false, false, true>(p, sums, s);
+  if (C == 192) return launch_mma_c<192, kQuant, kRawStats, false, false, true>(p, sums, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_mma_f32_k5(const Args& p, int C, float* sums, cudaStream_t s) {
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  if (p.tau != nullptr) {
+    if (C == 192 && p.halo != kHaloZero)
+      return launch_mma_c<192, kSkipAct, kRawStats, false, false, true>(p, sums, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.halo == kHaloZero) {
+    if (C == 128) return launch_mma_c<128, kSkip, kRawStats, false, true, true>(p, sums, s);
+    if (C == 64) return launch_mma_c<64, kSkip, kRawStats, false, true, true>(p, sums, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (C == 128) return launch_mma_c<128, kSkip, kRawStats, false, false, true>(p, sums, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_mma_f32_k2(const Args& p, int C, bool floored, cudaStream_t s) {
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  if (floored) {
+    if (C == 192 && p.halo != kHaloZero)
+      return launch_mma_c<192, kQuant, kEmitS8F, false, false, true>(p, nullptr, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.halo == kHaloZero) {
+    if (C == 128) return launch_mma_c<128, kQuant, kEmitS8, false, true, true>(p, nullptr, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (C == 128) return launch_mma_c<128, kQuant, kEmitS8, false, false, true>(p, nullptr, s);
+  if (C == 192) return launch_mma_c<192, kQuant, kEmitS8, false, false, true>(p, nullptr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_mma_f32_k3(const Args& p, int C, cudaStream_t s) {
+  if (!valid(p) || !(p.flags & kFYadd)) return (int)cudaErrorInvalidValue;
+  if (C == 128) return launch_mma_c<128, kCodes, kSiteS8, false, false, true>(p, nullptr, s);
+  if (C == 192) return launch_mma_c<192, kCodes, kSiteS8, false, false, true>(p, nullptr, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -2376,6 +2495,61 @@ extern "C" int mma_phase_clocks_read(unsigned long long* host) {
                             : (int)cudaMemcpyToSymbol(mma_phase_clocks, zero, sizeof(zero));
 }
 #endif
+
+// The f32-operand forms: each takes the arguments of its bf16 form, with the
+// f32 operand in place of the bf16 one (K2's and K4's x, K5's yp, K3's y;
+// 16-byte aligned). K3 needs the residual (kFYadd).
+extern "C" int res_site_f32_launch(const float* x, const float* a, const float* c,
+                                   const float* tau, const int32_t* wk, const float* ws,
+                                   const float* bias, __nv_bfloat16* out, float* part,
+                                   float* sums, int B, int H, int W, int C, int CO, float lo,
+                                   int halo, void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.x = x; p.a = a; p.c = c; p.tau = tau; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.out = out; p.part = part;
+  return launch_mma_f32_k4(p, C, sums, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int res_site_skip_f32_launch(const void* r2, const float* yp, const float* a,
+                                        const float* c, const float* a2, const float* c2,
+                                        const float* floor, const int32_t* wk,
+                                        const float* ws, const float* bias, __nv_bfloat16* out,
+                                        __nv_bfloat16* vout, float* part, float* sums, int B,
+                                        int H, int W, int C, int CO, float lo, int halo,
+                                        void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.x = r2; p.yp32 = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
+  p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
+  return launch_mma_f32_k5(p, C, sums, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int res_site_s8o_f32_launch(const float* x, const float* a, const float* c,
+                                       const int32_t* wk, const float* ws, const float* bias,
+                                       const float* qa, const float* qc, const float* tau,
+                                       int8_t* out, int B, int H, int W, int C, int CO,
+                                       float lo, float qlo, int halo, int sw, void* stream) {
+  Args p = make_args(B, H, W, CO, lo, halo);
+  p.sw = sw;
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.ra = qa; p.rc = qc; p.tau = tau; p.qlo = qlo; p.out = out;
+  return launch_mma_f32_k2(p, C, tau != nullptr || qlo != 0.0f,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int site_s8_f32_launch(const int8_t* xq, const int32_t* wk, const float* ws,
+                                  const float* bias, const float* aa, const float* ac,
+                                  const float* y, const float* ya, const float* yc,
+                                  const float* qa, const float* qc, void* out, int B, int H,
+                                  int W, int C, int CO, int flags, float qlo, int halo, int sw,
+                                  void* stream) {
+  Args p = make_args(B, H, W, CO, 0.0f, halo);
+  p.sw = sw;
+  p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.yadd32 = y; p.out = out;
+  p.ep[0] = aa; p.ep[1] = ac; p.ep[2] = qa; p.ep[3] = qc; p.ep[4] = ya; p.ep[5] = yc;
+  p.flags = flags;
+  p.qlo = qlo;
+  return launch_mma_f32_k3(p, C, static_cast<cudaStream_t>(stream));
+}
 
 // Dynamic shared memory of mma_kernel at C input channels (0 for other C).
 extern "C" int mma_kernel_smem_bytes(int C) {

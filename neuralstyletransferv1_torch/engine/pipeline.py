@@ -40,8 +40,6 @@ from .config import build_arg_parser
 _LETTERS = "abcdefgh"
 
 # ROADMAP.md "Queue 1 — port slices" items that port each unsupported mode.
-_QUANT_F32 = "ROADMAP.md Queue 1, item 10 (--quantize under float32)"
-_REGIONS = "ROADMAP.md Queue 1, item 4 (regions, masks, LAB multi-slot blend)"
 _BACKENDS = "ROADMAP.md Queue 1, item 6 (other stylizer backends, Farneback flow)"
 _MULTI = "ROADMAP.md Queue 1, item 8 (multi-GPU)"
 _BENCH = "ROADMAP.md Queue 1, item 9 (bench and tracing)"
@@ -82,6 +80,330 @@ def parse_blend_weights(weights_str: str | None, num_models: int) -> list[float]
     return weights
 
 
+def parse_lab_weights(weights_str: str | None) -> tuple[float, float]:
+    """``--blend_models_lab_weights`` "wL,wab" (default 0.5, 0.5; must sum to 1)."""
+    if not weights_str:
+        return 0.5, 0.5
+    wL, wab = [float(w) for w in weights_str.split(",")]
+    if abs(wL + wab - 1.0) > 1e-6:
+        raise ValueError(f"LAB weights must sum to 1.0, got {wL + wab:.6f}")
+    return wL, wab
+
+
+def _lab_rest_weights(args, num_models: int) -> list[float]:
+    """The a/b weights of slots B.. in the LAB blend: ``--blend_models_weights``
+    over them, or equal when those do not parse."""
+    n = max(num_models - 1, 1)
+    try:
+        return parse_blend_weights(args.blend_models_weights, n)
+    except Exception:
+        return [1.0 / n] * n
+
+
+def _lab_blend(args, outs: torch.Tensor, num_models: int) -> torch.Tensor:
+    """``--blend_models_lab``: L from slot A, the a/b planes a weighted mix
+    of slots B.. blended with A's by (wL, wab), on the PIL-convention LAB
+    byte planes. ``outs``: the slots' outputs stacked, [M, ..., 3] (a frame
+    or a batch)."""
+    from ..ops.color import lab_u8_to_rgb, rgb_to_lab_u8
+
+    wL, wab = parse_lab_weights(args.blend_models_lab_weights)
+    lab_a = rgb_to_lab_u8(outs[0])
+    lab_rest = rgb_to_lab_u8(outs[1:])
+    wr = torch.tensor(_lab_rest_weights(args, num_models), dtype=torch.float32,
+                      device=outs.device).view(-1, *([1] * (outs.dim() - 2)))
+    a_mix = (wr * lab_rest[..., 1]).sum(dim=0)
+    b_mix = (wr * lab_rest[..., 2]).sum(dim=0)
+    lab_mix = torch.stack([lab_a[..., 0], (wL * lab_a[..., 1] + wab * a_mix).clamp(0, 255),
+                           (wL * lab_a[..., 2] + wab * b_mix).clamp(0, 255)], dim=-1)
+    return lab_u8_to_rgb(lab_mix)
+
+
+def load_mask_fit(mask_path: str, target_hw: tuple[int, int], invert: bool, feather_px: int,
+                  autofix: bool = True, force_transpose: bool = False) -> np.ndarray:
+    """A mask image as an f32 [H,W,1] alpha in [0,1] at ``target_hw``:
+    greyscale, transposed when its aspect ratio is closer (in log space) to
+    the target's transposed one (``autofix``) or ``force_transpose``, nearest
+    resize, optionally inverted, feathered by OpenCV's uint8 Gaussian blur
+    (sigma feather_px / 2) on the host."""
+    from PIL import Image
+
+    H_tgt, W_tgt = target_hw
+    m_img = Image.open(mask_path).convert("L")
+    if force_transpose:
+        m_img = m_img.transpose(Image.TRANSPOSE)
+    mw, mh = m_img.size
+    if autofix and not force_transpose and W_tgt != H_tgt:
+        transpose = (mw, mh) == (H_tgt, W_tgt)
+        if not transpose:
+            def _dist(a, b):
+                return abs(np.log(max(a, 1e-6)) - np.log(max(b, 1e-6)))
+
+            transpose = _dist(mw / mh, H_tgt / W_tgt) + 1e-6 < _dist(mw / mh, W_tgt / H_tgt)
+        if transpose:
+            print(f"[mask][autofix] {Path(mask_path).name}: applying transpose")
+            m_img = m_img.transpose(Image.TRANSPOSE)
+    m_img = m_img.resize((W_tgt, H_tgt), Image.Resampling.NEAREST)
+    m = np.array(m_img, dtype=np.uint8)
+    if invert:
+        m = 255 - m
+    if feather_px and feather_px > 0:
+        try:
+            import cv2
+
+            m = cv2.GaussianBlur(m, (0, 0), sigmaX=feather_px * 0.5, sigmaY=feather_px * 0.5)
+        except ImportError:
+            from ..ops.blur import gaussian_blur
+
+            m = gaussian_blur(torch.from_numpy(m.astype(np.float32)),
+                              feather_px * 0.5).numpy().astype(np.uint8)
+    return (m.astype(np.float32) / 255.0)[..., None]
+
+
+def _mask_file(args, frame_path: Path) -> str | None:
+    """The frame's mask: ``--mask``, else ``mask_<n>.png`` of ``--mask_dir``
+    for frame ``frame_<n>`` where it exists."""
+    if args.mask:
+        return args.mask
+    if args.mask_dir:
+        cand = Path(args.mask_dir) / f"mask_{frame_path.stem.split('_')[-1]}.png"
+        if cand.exists():
+            return str(cand)
+    return None
+
+
+def _mask_feather(args, ref_h: int) -> int:
+    feather_px = args.mask_feather
+    if args.mask_feather_pct > 0:
+        feather_px = max(feather_px, int(ref_h * args.mask_feather_pct / 100.0))
+    return feather_px
+
+
+def preflight_mask_dir(args, frame_files) -> None:
+    """Check ``--mask_dir`` before styling: no mask for any frame exits 2,
+    some missing warns."""
+    if not args.mask_dir or args.mask:
+        return
+    try:
+        md = Path(args.mask_dir)
+        missing = [p.name for p in frame_files
+                   if not (md / f"mask_{p.stem.split('_')[-1]}.png").exists()]
+        total = len(frame_files)
+        if total > 0 and len(missing) == total:
+            print(f"[mask][ERROR] --mask_dir set to {md} but no masks like mask_0001.png were "
+                  "found.")
+            print("               Refusing to run unmasked; generate masks or remove --mask_dir.")
+            sys.exit(2)
+        elif missing:
+            print(f"[mask][WARN] {len(missing)}/{total} mask(s) missing under {md}.")
+            print("            Missing-mask frames will be fully stylized unless a global --mask "
+                  "is provided.")
+    except SystemExit:
+        raise
+    except Exception as e:
+        print(f"[mask][WARN] could not validate --mask_dir: {e}")
+
+
+def _mask_debug_dump(args, frames_dir: Path, idx: int, alpha: np.ndarray,
+                     base_u8: np.ndarray) -> None:
+    """``--mask_debug_alpha`` / ``--mask_debug_overlay``: the fitted alpha as
+    a PNG and a red overlay JPEG under ``<work_dir>/debug``."""
+    from PIL import Image
+
+    debug_dir = frames_dir.parent / "debug"
+    debug_dir.mkdir(parents=True, exist_ok=True)
+    if args.mask_debug_alpha:
+        Image.fromarray((alpha[..., 0] * 255).astype(np.uint8)).save(
+            debug_dir / f"alpha_{idx:04d}.png")
+    if args.mask_debug_overlay:
+        tint = np.zeros_like(base_u8)
+        tint[..., 0] = 255
+        a3 = np.repeat(alpha, 3, axis=2)
+        overlay = (base_u8 * (1.0 - 0.35 * a3) + tint * (0.35 * a3)).clip(0, 255).astype(
+            np.uint8)
+        Image.fromarray(overlay).save(debug_dir / f"overlay_{idx:04d}.jpg", quality=92)
+
+
+def _parse_region_seed(args, morph_anim):
+    """``--region_seed``: an int, "fixed" (42) or "random" (None: an unseeded
+    ``random.Random()``); unset, 42 while the regions animate, else None."""
+    seed_str = args.region_seed
+    animating = args.region_rotate != 0 or (morph_anim and morph_anim.enabled)
+    if seed_str is None:
+        return 42 if animating else None
+    if seed_str.lower() == "random":
+        return None
+    if seed_str.lower() == "fixed":
+        return 42
+    try:
+        return int(seed_str)
+    except ValueError:
+        return None
+
+
+class _RegionSetup:
+    """The ``--region_*`` flags, parsed once a job: the morph animation, the
+    per-region blend and scale animations, the voronoi sizes and the seed."""
+
+    def __init__(self, args, num_models: int):
+        from ..region import (parse_morph_animation, parse_region_blend_animations,
+                              parse_region_scale_animations, parse_region_sizes)
+
+        count = args.region_count or num_models
+        self.morph = parse_morph_animation(args.region_morph) if args.region_morph else None
+        self.blend_anims = (parse_region_blend_animations(
+            args.blend_animate_regions or args.blend_animate, count)
+            if (args.blend_animate or args.blend_animate_regions) else None)
+        self.scale_anims = (parse_region_scale_animations(
+            args.scale_animate_regions or args.scale_animate, count)
+            if (args.scale_animate or args.scale_animate_regions) else None)
+        self.sizes = parse_region_sizes(args.region_sizes, count) if args.region_sizes else None
+        self.seed = _parse_region_seed(args, self.morph)
+
+
+#: the render scales an animated per-region scale snaps to
+_SCALE_LADDER = (0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+#: (masks, configs) per key for the crop path, cached for the job
+_crop_cache: dict = {}
+
+
+def _region_blend(args, outputs: list, x_orig: torch.Tensor, H0: int, W0: int, idx: int,
+                  num_models: int, rs: _RegionSetup) -> torch.Tensor:
+    """The full-frame region composite of frame ``idx`` (1-based) from every
+    slot's HWC output: ``blend_by_regions``, or ``blend_by_regions_advanced``
+    with a blend spec, render scales or scale animations (every ladder scale
+    an animation reaches is rendered)."""
+    from ..ops.resize import resize_bilinear
+    from ..region import blend_by_regions, blend_by_regions_advanced, get_required_scales
+
+    region_count = args.region_count or num_models
+    weights = None
+    if args.region_assignment == "weighted":
+        try:
+            weights = parse_blend_weights(args.blend_models_weights, num_models)
+        except Exception:
+            weights = None
+    has_scale_anim = bool(rs.scale_anims) and any(a.enabled for a in rs.scale_anims)
+    if args.region_blend_spec or args.region_scales or has_scale_anim:
+        required = get_required_scales(region_count, num_models, args.region_assignment,
+                                       args.region_blend_spec, args.region_scales, rs.seed,
+                                       args.region_original)
+        if has_scale_anim:
+            for anim in rs.scale_anims:
+                if anim.enabled:
+                    required.extend(s for s in _SCALE_LADDER
+                                    if anim.min_scale - 1e-6 <= s <= anim.max_scale + 1e-6)
+            required = sorted(set(required))
+        by_scale = {}
+        for scale in required:
+            if scale == 1.0:
+                by_scale[1.0] = outputs
+            else:
+                sh, sw = int(H0 * scale), int(W0 * scale)
+                by_scale[scale] = [resize_bilinear(o, (sh, sw)) for o in outputs]
+        use_orig = args.region_original > 0 or (args.region_blend_spec
+                                                and "O" in args.region_blend_spec.upper())
+        return blend_by_regions_advanced(
+            by_scale, H0, W0, mode=args.region_mode, region_count=region_count,
+            assignment=args.region_assignment, blend_spec=args.region_blend_spec,
+            scale_spec=args.region_scales, weights=weights, feather=args.region_feather,
+            seed=rs.seed, original=x_orig if use_orig else None,
+            original_chance=args.region_original, frame_idx=idx,
+            rotation_rate=args.region_rotate, morph=rs.morph, blend_animations=rs.blend_anims,
+            scale_animations=rs.scale_anims, region_sizes=rs.sizes)
+    return blend_by_regions(
+        outputs, H0, W0, mode=args.region_mode, region_count=region_count,
+        assignment=args.region_assignment, weights=weights, feather=args.region_feather,
+        seed=rs.seed, original=x_orig if args.region_original > 0 else None,
+        original_chance=args.region_original, frame_idx=idx, rotation_rate=args.region_rotate,
+        morph=rs.morph, region_sizes=rs.sizes)
+
+
+def _region_blend_optimized(args, stylize_fns: list, x_orig: np.ndarray, H0: int, W0: int,
+                            idx: int, num_models: int, rs: _RegionSetup,
+                            device: torch.device) -> np.ndarray:
+    """``--region_optimize``: style only each region's padded crop (crops
+    bucketed and batched per slot, ``region/crops.py``), per-region scales
+    and animated scales (snapped to ``_SCALE_LADDER``) applied to the crop,
+    then ``composite_from_crops``; returns the HWC f32 numpy frame."""
+    from ..ops.resize import resize_bilinear
+    from ..region import (compute_animated_scale, feather_mask, generate_region_masks,
+                          parse_region_configs, rotate_all_masks, warp_all_masks_organic)
+    from ..region.crops import (composite_from_crops, compute_crop_coverage,
+                                models_needed_for_regions, prepare_region_crops,
+                                style_crop_batched)
+
+    region_count = args.region_count or num_models
+    # the crop path defaults to a fixed seed, for stable regions
+    seed = 42 if rs.seed is None and args.region_seed is None else rs.seed
+    cache_key = (H0, W0, args.region_mode, region_count, seed, args.region_feather,
+                 tuple(rs.sizes) if rs.sizes else None, args.region_blend_spec,
+                 args.region_scales)
+    if cache_key in _crop_cache:
+        base_masks, configs = _crop_cache[cache_key]
+        base_masks = base_masks.to(device)
+    else:
+        base_masks = generate_region_masks(H0, W0, args.region_mode, region_count, seed,
+                                           args.region_feather, region_sizes=rs.sizes,
+                                           device=device)
+        configs = parse_region_configs(int(base_masks.shape[0]), num_models,
+                                       args.region_assignment, args.region_blend_spec,
+                                       args.region_scales, seed, args.region_original)
+        _crop_cache[cache_key] = (base_masks, configs)
+    masks = base_masks
+    if args.region_rotate != 0:
+        masks = rotate_all_masks(masks, idx * args.region_rotate)
+        masks = feather_mask(masks[..., None], args.region_feather // 2)[..., 0]
+    if rs.morph and rs.morph.enabled:
+        masks = warp_all_masks_organic(masks, rs.morph, idx)
+        masks = feather_mask(masks[..., None], max(5, args.region_feather // 4))[..., 0]
+    masks_np = masks.cpu().numpy()
+
+    crops = prepare_region_crops(masks_np, configs, H0, W0, args.region_padding)
+    needed = models_needed_for_regions(crops)
+    if idx <= 2:
+        print(f"[region-opt][{idx}] mode={args.region_mode} regions={len(crops)} "
+              f"models_needed={needed} coverage={compute_crop_coverage(crops, H0, W0):.1%} "
+              f"padding={args.region_padding}px")
+
+    def on_device(fn):
+        return lambda batch: fn(torch.from_numpy(batch).to(device)).cpu().numpy()
+
+    styled: dict = {}
+    for model_idx in needed:
+        if model_idx >= len(stylize_fns):
+            print(f"[region-opt][WARN] Model {model_idx} requested but not loaded, skipping")
+            continue
+        regions = [c for c in crops if model_idx in c.config.model_indices]
+        crop_px = []
+        for c in regions:
+            x1, y1, x2, y2 = c.padded_bbox
+            px = x_orig[y1:y2, x1:x2]
+            base_scale = c.config.scale
+            if rs.scale_anims:
+                s = compute_animated_scale(base_scale, idx,
+                                           rs.scale_anims[c.region_idx % len(rs.scale_anims)])
+                base_scale = min(_SCALE_LADDER, key=lambda v: abs(v - s))
+            if base_scale < 1.0:
+                sh = max(1, int(px.shape[0] * base_scale))
+                sw = max(1, int(px.shape[1] * base_scale))
+                px = resize_bilinear(torch.from_numpy(np.ascontiguousarray(px)), (sh, sw)).numpy()
+            crop_px.append(px)
+        outs = style_crop_batched(crop_px, on_device(stylize_fns[model_idx]))
+        styled[model_idx] = {}
+        for c, out in zip(regions, outs):
+            x1, y1, x2, y2 = c.padded_bbox
+            if out.shape[:2] != (y2 - y1, x2 - x1):
+                out = resize_bilinear(torch.from_numpy(np.ascontiguousarray(out)),
+                                      (y2 - y1, x2 - x1)).numpy()
+            styled[model_idx][c.region_idx] = out
+    use_orig = args.region_original > 0 or (args.region_blend_spec
+                                            and "O" in args.region_blend_spec.upper())
+    return composite_from_crops(styled, crops, x_orig if use_orig else None, H0, W0, masks_np,
+                                frame_idx=idx, blend_animations=rs.blend_anims)
+
+
 def build_parser():
     """The shared CLI surface, with ``--device`` defaulting to cuda."""
     ap = build_arg_parser()
@@ -92,11 +414,6 @@ def build_parser():
 def check_supported(args) -> None:
     """Raise NotImplementedError for every flag this port does not run yet."""
     unsupported = [
-        (bool(args.region_mode or args.region_optimize), "--region_* modes", _REGIONS),
-        (bool(args.mask or args.mask_dir), "--mask / --mask_dir", _REGIONS),
-        (args.blend_models_lab, "--blend_models_lab", _REGIONS),
-        (args.quantize != "none" and args.compute_dtype != "bfloat16",
-         f"--quantize {args.quantize} with --compute_dtype {args.compute_dtype}", _QUANT_F32),
         (int(args.mesh_devices or 0) > 1, "--mesh_devices > 1", _MULTI),
         (args.flow_method != "dis", f"--flow_method {args.flow_method}", _BACKENDS),
         (bool(args.profile_dir), "--profile_dir", _BENCH),
@@ -168,16 +485,25 @@ def _save(img_u8: np.ndarray, out_path: Path, jpg: bool, quality: int) -> None:
         img.save(out_path)
 
 
-def make_batched_core(args, device: torch.device, *, fused_sites=None):
-    """The per-batch pipeline: slot-bank stylize → RGB slot blend → DIS flow
-    → temporal chain, uint8 in and out. ``fused_sites``: the fused-site set
-    (``jit_stylizer``): None is the adopted one in the int8 modes and no
-    fused site otherwise; ``head``, ``tail`` and ``d3`` name the bf16 sites.
+def make_batched_core(args, device: torch.device, *, fused_sites=None,
+                      frames_dir: Path | None = None):
+    """The per-batch pipeline: slot-bank stylize → slot blend (RGB weights,
+    ``--blend_models_lab``, or the ``--region_*`` composite per frame) → DIS
+    flow → temporal chain (with the ``--mask`` / ``--mask_dir`` composite),
+    uint8 in and out. ``fused_sites``: the fused-site set (``jit_stylizer``):
+    None is the adopted one in the int8 modes and no fused site otherwise;
+    ``head``, ``tail`` and ``d3`` name the bf16 sites. ``frames_dir``: where
+    the mask debug dumps go (its parent's ``debug``).
 
     Returns (B, process_batch) where ``process_batch(imgs: list[np.uint8
-    HWC]) -> device uint8 [B,H,W,3]``; the temporal state carries across
-    calls. ``--inference_res`` stylizes at that long side (the size fixed by
-    the first batch) and resizes the outputs back to the frame size.
+    HWC], names: list[Path] | None, b0: int) -> device uint8 [B,H,W,3]``:
+    ``names`` are the frames' files (``frame_<n>``, for ``--mask_dir``) and
+    ``b0`` the index of the batch's first frame in the job (0-based; the
+    region masks animate by the frame number); the temporal state carries
+    across calls. ``--inference_res`` stylizes at that long side (the size
+    fixed by the first batch) and resizes the outputs back to the frame
+    size. Padded tail frames of the last batch reuse the last real frame's
+    region composite and draw nothing from the mask RNG.
     """
     from ..ops.color import rgb_to_gray
     from ..ops.resize import resize_bilinear
@@ -192,9 +518,28 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None):
           + ", ".join(f"{m.name}({m.arch}/{m.io_preset})" for m in models))
     stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize, fused_sites=fused_sites)
                    for m in models]
+    use_lab_blend = args.blend_models_lab and num_models > 1
     weights = parse_blend_weights(args.blend_models_weights, num_models) \
-        if num_models > 1 else [1.0]
+        if num_models > 1 and not use_lab_blend else [1.0]
     w_slots = torch.tensor(weights, dtype=torch.float32, device=device)[:, None, None, None, None]
+    rs = _RegionSetup(args, num_models) if args.region_mode else None
+    mask_active = bool(args.mask or args.mask_dir)
+    alpha_cache: dict = {}  # the constant --mask, loaded once per size
+
+    def frame_alpha(name: Path, H0: int, W0: int):
+        """(alpha [H,W,1] f32, has) of one frame."""
+        mask_file = _mask_file(args, name)
+        if not mask_file:
+            return np.zeros((H0, W0, 1), np.float32), False
+        key = (mask_file, H0, W0)
+        if key not in alpha_cache:
+            alpha = load_mask_fit(mask_file, (H0, W0), args.mask_invert,
+                                  _mask_feather(args, H0), autofix=args.mask_autofix,
+                                  force_transpose=args.mask_force_transpose)
+            if mask_file != args.mask:  # a --mask_dir mask is the frame's own
+                return alpha, True
+            alpha_cache[key] = alpha
+        return alpha_cache[key], True
 
     B = max(1, int(args.frame_batch))
     chain_kwargs = dict(
@@ -202,12 +547,13 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None):
         smooth_lightness=args.smooth_lightness, smooth_chroma=args.smooth_chroma,
         smooth_alpha=args.smooth_alpha, chroma_alpha=args.chroma_alpha,
         motion_blend=args.motion_blend, blend=args.blend,
-        fast_warp=not args.exact_warp,
+        fast_warp=not args.exact_warp, composite_keep=args.composite_mode == "keep",
     )
     carry = {"state": None, "prev_gray": None, "infer_hw": None}
 
     @torch.no_grad()
-    def process_batch(imgs: list) -> torch.Tensor:
+    def process_batch(imgs: list, names: list | None = None, b0: int = 0) -> torch.Tensor:
+        n_real = len(imgs)
         imgs = list(imgs)
         while len(imgs) < B:  # pad the final batch; its extra outputs are dropped
             imgs.append(imgs[-1])
@@ -227,7 +573,30 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None):
         # each slot's output, locked to the content size
         outs = [o if o.shape[1:3] == (H0, W0) else resize_bilinear(o, (H0, W0))
                 for o in (fn(src) for fn in stylize_fns)]
-        styled = (w_slots * torch.stack(outs, 0)).sum(dim=0).clamp(0.0, 1.0)
+        if rs is not None:
+            # per frame, on the host's mask stream: the padded tail frames
+            # reuse the last real frame's composite
+            frames = []
+            for i in range(B):
+                frames.append(frames[-1] if i >= n_real else _region_blend(
+                    args, [o[i] for o in outs], orig[i], H0, W0, b0 + i + 1, num_models, rs))
+            styled = torch.stack(frames, 0)
+        elif use_lab_blend:
+            styled = _lab_blend(args, torch.stack(outs, 0), num_models)
+        else:
+            styled = (w_slots * torch.stack(outs, 0)).sum(dim=0).clamp(0.0, 1.0)
+        masks = {}
+        if mask_active:
+            alphas = np.zeros((B, H0, W0, 1), np.float32)
+            has = np.zeros((B,), bool)
+            for i in range(n_real):
+                name = names[i] if names is not None else Path(f"frame_{b0 + i + 1:04d}.png")
+                alphas[i], has[i] = frame_alpha(name, H0, W0)
+                if has[i] and (args.mask_debug_alpha or args.mask_debug_overlay) \
+                        and frames_dir is not None:
+                    _mask_debug_dump(args, frames_dir, b0 + i + 1, alphas[i], imgs[i])
+            masks = dict(mask_alphas=torch.from_numpy(alphas).to(device),
+                         mask_has=torch.from_numpy(has).to(device))
 
         if carry["state"] is None:  # first batch: frame 0 is its own predecessor
             carry["prev_gray"] = grays[0]
@@ -236,7 +605,7 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None):
             prevs = torch.cat([carry["prev_gray"][None], grays[:-1]], 0)
             flows = flows_at_downscale(args, prevs, grays)
         out, carry["state"] = temporal_postprocess_split(
-            styled, orig, flows, init=carry["state"], **chain_kwargs)
+            styled, orig, flows, init=carry["state"], **chain_kwargs, **masks)
         carry["prev_gray"] = grays[-1]
         return (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
@@ -264,13 +633,14 @@ class _HostCopy:
         return self.host.numpy()
 
 
-def style_video_stream(args, device: torch.device):
+def style_video_stream(args, device: torch.device, frames_dir: Path | None = None):
     """Streaming video path: decode → device batches → encode, with no frame
     files. Decode and encode run on the shared io/frames background threads.
 
-    Returns (written_frames, streamed_frames, src_fps).
+    Returns (written_frames, streamed_frames, src_fps). ``frames_dir``: where
+    the mask debug dumps go (its parent's ``debug``).
     """
-    B, process_batch = make_batched_core(args, device)
+    B, process_batch = make_batched_core(args, device, frames_dir=frames_dir)
     canvas_wh = None
     if args.canvas:
         cw, ch = args.canvas.lower().split("x")
@@ -283,6 +653,11 @@ def style_video_stream(args, device: torch.device):
     fps_out = float(args.fps) if (args.pre_fps and args.fps) else None
     writer = fio.VideoStreamWriter(Path(args.output_video).resolve(), framerate_in, fps_out)
     est = stream.estimated_frames
+    if args.mask_dir and not args.mask:  # no frame files here: check by index
+        md = Path(args.mask_dir)
+        if est and not any((md / f"mask_{i:04d}.png").exists() for i in range(1, est + 1)):
+            print(f"[mask][WARN] no mask_NNNN.png files in {md} match frames 1..{est}; frames "
+                  "without masks pass through fully styled.")
 
     t_start = time.perf_counter()
     streamed = 0
@@ -307,7 +682,8 @@ def style_video_stream(args, device: torch.device):
                     continue
             if not batch_imgs:
                 break
-            out_dev = process_batch(batch_imgs)
+            names = [Path(f"frame_{streamed + i + 1:04d}.png") for i in range(len(batch_imgs))]
+            out_dev = process_batch(batch_imgs, names, streamed)
             streamed += len(batch_imgs)
             if pending is not None:
                 flush(pending)
@@ -327,13 +703,16 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
                  device: torch.device):
     """The per-frame loop over the ``frame_*`` files (JAX ``style_frames``):
     per frame, optional ``--inference_res`` downscale, every slot's stylize
-    locked back to the frame size, the RGB weighted slot blend, flow EMA
-    (DIS at the auto/explicit flow downscale, exact warp), LAB EMA, then the
-    motion or uniform blend. A change of frame size resets the temporal
-    caches; the first two frames of a video dump slot A's output and the
-    input under ``<work_dir>/debug``. A slot that runs out of device memory
-    retries at half size, then falls back to the original frame; any other
-    error propagates. Returns (written, planned)."""
+    locked back to the frame size, the slot blend (the ``--region_*``
+    composite, ``--blend_models_lab``, or RGB weights; ``--region_optimize``
+    styles only the regions' crops instead), flow EMA (DIS at the
+    auto/explicit flow downscale, exact warp), LAB EMA, the ``--mask`` /
+    ``--mask_dir`` composite, then the motion blend (not on a masked frame)
+    or the uniform one. A change of frame size resets the temporal caches;
+    the first two frames of a video dump slot A's output and the input under
+    ``<work_dir>/debug``. A slot that runs out of device memory retries at
+    half size, then falls back to the original frame; any other error
+    propagates. Returns (written, planned)."""
     from ..ops.color import rgb_to_gray
     from ..ops.resize import resize_bilinear
     from ..temporal.ema import flow_ema_fuse, lab_ema_step, motion_adaptive_blend, uniform_blend
@@ -348,8 +727,10 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
     print(f"[bank] {num_models} slot(s): "
           + ", ".join(f"{m.name}({m.arch}/{m.io_preset})" for m in models))
     stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize) for m in models]
-    weights = parse_blend_weights(args.blend_models_weights, num_models)
+    rs = _RegionSetup(args, num_models) if args.region_mode else None
+    crop_optimized = bool(args.region_mode and args.region_optimize)
     frame_files = list_frame_files(args, frames_dir)
+    preflight_mask_dir(args, frame_files)
     use_lab = args.smooth_lightness or args.smooth_chroma
 
     def stylize_slot(si, fn, x01):
@@ -386,10 +767,12 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
                 prev_gray = prev_styled01 = prev_lab = None
                 prev_frame_size = (H0, W0)
 
-            outputs = [stylize_slot(si, fn, x_src[None]) for si, fn in enumerate(stylize_fns)]
+            # the crop path styles the regions' crops, not the frame
+            outputs = [stylize_slot(si, fn, x_src[None])
+                       for si, fn in enumerate(stylize_fns if not crop_optimized else [])]
             outputs = [o if o.shape[:2] == (H0, W0) else resize_bilinear(o, (H0, W0))
                        for o in outputs]
-            if idx <= 2 and not image_mode:
+            if idx <= 2 and not image_mode and outputs:
                 debug_dir = frames_dir.parent / "debug"
                 debug_dir.mkdir(parents=True, exist_ok=True)
                 a_u8 = (np.clip(outputs[0].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
@@ -398,9 +781,18 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
                 _save(in_u8, debug_dir / f"IN_{idx:04d}.jpg", True, 92)
                 print(f"[debug] wrote {debug_dir}/A_out_{idx:04d}.jpg and IN_{idx:04d}.jpg")
 
-            if num_models == 1:
+            if crop_optimized:
+                out01 = torch.from_numpy(_region_blend_optimized(
+                    args, stylize_fns, u8.astype(np.float32) / 255.0, H0, W0, idx, num_models,
+                    rs, device)).to(device)
+            elif num_models == 1 and not args.region_mode:
                 out01 = outputs[0]
+            elif args.region_mode:
+                out01 = _region_blend(args, outputs, x_orig, H0, W0, idx, num_models, rs)
+            elif args.blend_models_lab:
+                out01 = _lab_blend(args, torch.stack(outputs, 0), num_models)
             else:
+                weights = parse_blend_weights(args.blend_models_weights, num_models)
                 acc = outputs[0] * weights[0]
                 for o, w in zip(outputs[1:], weights[1:]):
                     acc = acc + o * w
@@ -418,7 +810,22 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
                     out01, prev_lab, smooth_alpha=args.smooth_alpha,
                     chroma_alpha=args.chroma_alpha, smooth_lightness=args.smooth_lightness,
                     smooth_chroma=args.smooth_chroma)
-            if args.motion_blend and last_flow is not None:
+
+            mask_file = _mask_file(args, frame_path)
+            if mask_file:
+                # --fit_mask_to output fits the mask to the styled frame's size
+                ref_h, ref_w = (out01.shape[0], out01.shape[1]) if args.fit_mask_to == "output" \
+                    else (H0, W0)
+                alpha = load_mask_fit(mask_file, (ref_h, ref_w), args.mask_invert,
+                                      _mask_feather(args, ref_h), autofix=args.mask_autofix,
+                                      force_transpose=args.mask_force_transpose)
+                a = torch.from_numpy(alpha).to(device)
+                out01 = out01 * a + x_orig * (1.0 - a) if args.composite_mode == "keep" \
+                    else x_orig * a + out01 * (1.0 - a)
+                if args.mask_debug_alpha or args.mask_debug_overlay:
+                    base_u8 = (x_orig.cpu().numpy() * 255).clip(0, 255).astype(np.uint8)
+                    _mask_debug_dump(args, frames_dir, idx, alpha, base_u8)
+            if args.motion_blend and last_flow is not None and not mask_file:
                 out01 = motion_adaptive_blend(out01, x_orig, last_flow, args.blend)
             else:
                 out01 = uniform_blend(out01, x_orig, args.blend)
@@ -470,8 +877,9 @@ def style_frames_batched(args, frames_dir: Path, image_mode: bool, save_map: dic
     ``make_batched_core`` per batch, the files read ahead by ``_Prefetch``,
     and the previous batch's frames written while the device runs the next.
     Returns (written, planned)."""
-    B, process_batch = make_batched_core(args, device)
+    B, process_batch = make_batched_core(args, device, frames_dir=frames_dir)
     frame_files = list_frame_files(args, frames_dir)
+    preflight_mask_dir(args, frame_files)
     loader = _Prefetch(frame_files, threads=4, capacity=max(8, 2 * B))
     written = 0
     t_start = time.perf_counter()
@@ -492,7 +900,7 @@ def style_frames_batched(args, frames_dir: Path, image_mode: bool, save_map: dic
     try:
         for b0 in range(0, len(frame_files), B):
             chunk = frame_files[b0:b0 + B]
-            out_dev = process_batch([next(loader) for _ in chunk])
+            out_dev = process_batch([next(loader) for _ in chunk], chunk, b0)
             if pending is not None:
                 flush(*pending)
             pending = (_HostCopy(out_dev, len(chunk)), chunk, b0)
@@ -554,7 +962,12 @@ def main(argv=None) -> int:
             purge(["frame_*.png", "frame_*.jpg", "frame_*.jpeg"])
         purge(styled)
 
-    use_batched = args.frame_batch > 1
+    # the crop-based --region_optimize stays per-frame: it styles per-region
+    # crop batches, not full frames
+    use_batched = args.frame_batch > 1 and not (args.region_mode and args.region_optimize)
+    if args.frame_batch > 1 and not use_batched:
+        print("[note] --region_optimize styles per-region crop batches; the full-frame batched "
+              "path does not apply.")
     use_stream = video_mode and use_batched and args.stream != "off"
     save_map: dict[int, str] = {}
     src_fps = None
@@ -596,7 +1009,7 @@ def main(argv=None) -> int:
             save_map[i] = str((Path(args.output_dir) / f"{stem}{ext}").resolve())
 
     if use_stream:
-        written, planned, _ = style_video_stream(args, device)
+        written, planned, _ = style_video_stream(args, device, frames_dir)
     else:
         runner = style_frames_batched if use_batched else style_frames
         written, planned = runner(args, frames_dir, image_mode, save_map, device)

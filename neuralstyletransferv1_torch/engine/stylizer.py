@@ -8,8 +8,11 @@ function directly: preprocess → TransformerNet → postprocess.
 
 dtype float32 is the parity path (TF32 off, see ``device.py``); bfloat16
 casts weights and activations to bf16, keeps instance-norm statistics in
-f32 and returns f32. Under bfloat16, ``quantize`` selects the JAX engine's
-``--quantize`` modes: ``bf16_static`` freezes every instance norm to the
+f32 and returns f32. Under either dtype, ``quantize`` selects the JAX
+engine's ``--quantize`` modes (under float32 the head, the norms and the
+tail run in f32, and the sites that read an f32 tensor take the kernels'
+f32-operand forms, which read it unrounded as the JAX kernels do):
+``bf16_static`` freezes every instance norm to the
 first frame's statistics, ``int8_static`` and ``int8`` run the int8 sites
 with frozen or measured norms (``models/transformer_net_quant.py``), routed
 by a fused-site set: the adopted one (``adopt_overrides.py`` reading
@@ -220,10 +223,6 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
     mode calibrates lazily on the first frame of the first batch."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_MODES}")
-    if quantize != "none" and dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"--quantize {quantize} runs under bfloat16 only: ROADMAP.md Queue 1, item 10 "
-            "(--quantize under float32)")
     if model.arch == "nst":
         return _nst_stylizer(model, dtype, quantize, fused_sites)
     if model.arch == "reconet":

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from ..kernels import int8_sites as k8
 from ..models.s2d import (apply_in_relu, d2s, in_affine, quant_affine, s2d, scatter_k9_f2,
                           scatter_stride2_f2)
-from ..models.sites_i8 import Site, _plain_quant, _qc, _stats, res_supported
+from ..models.sites_i8 import Site, _plain_quant, _qc, _stats, combine_as, res_supported
 from ..models.transformer_net_quant import quantize_site
 from .t7 import tree_map
 
@@ -369,9 +369,12 @@ def _t7_res_chain_i8(y: torch.Tensor, res: list, sites: dict) -> torch.Tensor:
     previous block's rn2 affine and residual add into its prologue and
     writes the sum v; every b-site on K4 (floor 0, the ReLU) with the rn1
     affine from the a-site's sums (``sites_i8._stats``) folded into its
-    quantize. 6 × K4 + 4 × K5 for 5 blocks. y bf16 [B,H,W,C]."""
+    quantize. 6 × K4 + 4 × K5 for 5 blocks. y bf16 [B,H,W,C], or f32 (the
+    float32 chains: block 1's K4 and block 2's K5 take their f32 forms, and
+    the output is cast back to f32, as the JAX chain's ``.astype(dt)``)."""
     y = y.contiguous()  # the kernels read dense NHWC (a cuDNN output is an NCHW view)
     B, H, W0, C = y.shape
+    dt = y.dtype
     n = float(H * W0)
     ones, zeros = _plain_quant(B, C, 1.0, y.device)
     carry = None
@@ -397,7 +400,7 @@ def _t7_res_chain_i8(y: torch.Tensor, res: list, sites: dict) -> torch.Tensor:
             carry = (rb, *(t.contiguous() for t in in_affine(m2, inv2, rp["rn2"]["scale"],
                                                                rp["rn2"]["bias"])))
     rb, a2, c2 = carry
-    return k8._combine(rb, y, a2, c2)
+    return combine_as(rb, y, a2, c2).to(dt)
 
 
 def _no_tap(site, t):

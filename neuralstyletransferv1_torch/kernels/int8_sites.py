@@ -77,6 +77,14 @@ with zero column pads; the weights, ``ws`` and lanes are zero-padded to 64
                         in dy order, rows outside the image zero
                         (``d3_s8_site`` / ``_d3s8_kernel``)
 
+The float32 chains hand an f32 tensor to the first sites of the res chain
+(K2's and K4's x, K5's residual yp, K3's residual y); the Pallas bodies read
+it with ``astype(float32)``, so it enters the arithmetic unrounded. Each
+wrapper takes that operand as bf16 or f32 and, on the card, launches the
+matching form (``F32_FORMS``: the f32 forms are their own instances of the
+tensor-core core, counted in ``F32_LAUNCHES``); the plain versions compute
+both.
+
 Rounding contract, every step a separate IEEE f32 operation:
 quantize q = clamp(round_half_even(x·a + c), lo, 127); dequant
 f = acc·ws + bias, rounded to bf16; the statistics sum the bf16-rounded
@@ -107,6 +115,17 @@ LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
 #: in ``PROBE_LAUNCHES`` (``LAUNCHES``' keys name the wrapper functions)
 K4_PROBE_FORMS = {("cast", True): "res_site_cast", ("quant", False): "res_site_nostats"}
 PROBE_LAUNCHES = dict.fromkeys(K4_PROBE_FORMS.values(), 0)
+#: the f32-operand forms of K2-K5, which the float32 chains' first sites run
+#: (K2's and K4's x, K5's yp, K3's y f32; each wrapper takes them by the
+#: operand's dtype), each counted under its own name in ``F32_LAUNCHES``
+F32_FORMS = {"res_site_s8o": "res_site_s8o_f32", "site_s8": "site_s8_f32",
+             "res_site": "res_site_f32", "res_site_skip": "res_site_skip_f32"}
+F32_LAUNCHES = dict.fromkeys(F32_FORMS.values(), 0)
+#: the input channel counts each f32 form is built for: (reflect or edge
+#: halo, zero halo); K2's floored emit and K5's ``act`` at RECO_C only, K4's
+#: without ``tau``, K3's with the residual
+F32_C = {"res_site_s8o": ((128, 192), (128,)), "site_s8": ((128, 192), (128, 192)),
+         "res_site": ((128, 192), (64, 128)), "res_site_skip": ((128,), (64, 128))}
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
 #: the halos of K8 and of K4's and K5's floored forms (``tau``, ``act``)
 HALOS_RE = ("reflect", "edge")
@@ -366,6 +385,10 @@ def _lib():
         "res_site_form_launch": [P] * 9 + dims + [Fl, I, I, P],
         "res_site_skip_launch": [P] * 14 + dims + [Fl, I, P],
         "res_site_skip_prev_launch": [P] * 14 + dims + [Fl, I, P],
+        "res_site_s8o_f32_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
+        "site_s8_f32_launch": [P] * 12 + dims + [I, Fl, I, I, P],
+        "res_site_f32_launch": [P] * 10 + dims + [Fl, I, P],
+        "res_site_skip_f32_launch": [P] * 14 + dims + [Fl, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "site_s2_prev_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
@@ -427,12 +450,13 @@ def _check_aligned(kernel, name, t):
         raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
-def _run(kernel, fn, *args, count=True, counts=LAUNCHES):
+def _run(kernel, fn, *args, count=True, counts=LAUNCHES, name=None):
+    """Launch; count it in ``counts[name or kernel]``."""
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     if count:
-        counts[kernel] += 1
+        counts[name or kernel] += 1
 
 
 def _stream(dev):
@@ -441,6 +465,24 @@ def _stream(dev):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _f32_form(kernel, t, halo, floored=False):
+    """Whether operand ``t`` selects ``kernel``'s f32 form (float32) or its
+    bf16 form (bfloat16); the f32 forms' channel counts and halos are
+    checked here, as ``F32_C`` lists them."""
+    if t.dtype == torch.bfloat16:
+        return False
+    if t.dtype != torch.float32:
+        raise TypeError(f"{kernel}: the operand must be bf16 or f32, got {t.dtype}")
+    C = t.shape[-1]
+    built = F32_C[kernel][halo == "zero"]
+    if floored and kernel in ("res_site_s8o", "res_site_skip"):
+        built = (RECO_C,) if halo != "zero" else ()
+    if C not in built:
+        raise ValueError(f"{kernel}: no f32 form at C={C} with the {halo} halo"
+                         + (" and a floor" if floored else "") + f" (built: {built})")
+    return True
 
 
 def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="reflect",
@@ -455,6 +497,9 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="
     if x.device.type == "cpu":
         return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, qlo=qlo, tau=tau,
                                   halo=halo, sw=sw)
+    if _f32_form("res_site_s8o", x, halo, tau is not None or qlo != 0.0):
+        return _res_site_s8o("res_site_s8o_f32_launch", True, x, a, c, lo, wk, ws, bias, qa,
+                             qc, qlo, tau, halo, sw, f32=True)
     return _res_site_s8o("res_site_s8o_launch", True, x, a, c, lo, wk, ws, bias, qa, qc, qlo,
                          tau, halo, sw)
 
@@ -468,14 +513,15 @@ def res_site_s8o_prev(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, h
                          qlo, tau, halo, sw)
 
 
-def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, sw):
+def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, sw,
+                  f32=False):
     k = "res_site_s8o"
     floored = tau is not None or qlo != 0.0
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo,
                                       halos=_zero_halos(x.shape[-1], floored),
                                       kernel_c=(RECO_C,) if floored else None)
     _check_sw(k, halo, sw, W)
-    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
@@ -487,8 +533,13 @@ def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, 
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
              ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(), _ptr(tau),
              out.data_ptr(), B, H, W, C, CO, float(lo), float(qlo), HALOS[halo], sw or W,
-             _stream(dev), count=count)
+             _stream(dev), count=count, **_counter(k, f32))
     return out
+
+
+def _counter(kernel, f32):
+    """``_run``'s counter of ``kernel``'s f32 form, or of its bf16 form."""
+    return {"name": F32_FORMS[kernel], "counts": F32_LAUNCHES} if f32 else {}
 
 
 def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
@@ -503,6 +554,9 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
     if xq.device.type == "cpu":
         return site_s8_plain(xq, wk, ws, bias, aa, ac, y, yaff=yaff, qa=qa, qc=qc, qlo=qlo,
                              halo=halo, sw=sw)
+    if y is not None and _f32_form("site_s8", y, halo):
+        return _site_s8("site_s8_f32_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
+                        qlo, halo, sw, f32=True)
     return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo,
                     sw)
 
@@ -516,7 +570,7 @@ def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=No
                     qlo, halo, sw)
 
 
-def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw):
+def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=False):
     k = "site_s8"
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS),
                                       kernel_c=SITE_C[k] if count else KERNEL_C)
@@ -533,7 +587,7 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
         flags |= _S8_FLAGS["yadd"]
         if CO != C:
             raise ValueError(f"{k}: the residual add needs CO == C, got {CO} != {C}")
-        _check(k, "y", y, torch.bfloat16, (B, H, W, CO), dev)
+        _check(k, "y", y, torch.float32 if f32 else torch.bfloat16, (B, H, W, CO), dev)
         _check_aligned(k, "y", y)
         if yaff is not None:
             flags |= _S8_FLAGS["yaff"]
@@ -552,7 +606,7 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
         _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
              _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo], sw or W,
-             _stream(dev), count=count)
+             _stream(dev), count=count, **_counter(k, f32))
     return out
 
 
@@ -583,6 +637,11 @@ def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="q
                               stats=stats)
     if (prologue, stats) != ("quant", True):
         return _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats)
+    if _f32_form("res_site", x, halo):
+        if tau is not None:
+            raise ValueError("res_site: the f32 form takes no tau")
+        return _res_site("res_site_f32_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo,
+                         None, f32=True)
     return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau)
 
 
@@ -627,13 +686,14 @@ def _zero_halos(C: int, floored: bool) -> tuple:
     return tuple(HALOS) if C in KERNEL_C and not floored else HALOS_RE
 
 
-def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None):
+def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None,
+              f32=False):
     k = "res_site"
     if tau is not None:
         kernel_c = TAU_C
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, kernel_c=kernel_c,
                                       halos=_zero_halos(x.shape[-1], tau is not None))
-    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c), ("tau", tau)):
         if t is not None:
@@ -644,7 +704,7 @@ def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=No
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), _ptr(tau),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
              sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev),
-             count=count)
+             count=count, **_counter(k, f32))
     return out, sums
 
 
@@ -659,6 +719,9 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
     if r2.device.type == "cpu":
         return res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo=halo,
                                    yout=yout, act=act, tau_act=tau_act)
+    if _f32_form("res_site_skip", yp, halo, act is not None):
+        return _res_site_skip("res_site_skip_f32_launch", TILE_MMA, True, r2, yp, a, c, a2, c2,
+                              lo, wk, ws, bias, halo, yout, act, tau_act, f32=True)
     return _res_site_skip("res_site_skip_launch", TILE_MMA, True, r2, yp, a, c, a2, c2, lo, wk,
                           ws, bias, halo, yout, act, tau_act)
 
@@ -673,13 +736,14 @@ def res_site_skip_prev(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect"
 
 
 def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo, yout, act,
-                   tau_act):
+                   tau_act, f32=False):
     k = "res_site_skip"
     dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
                                       kernel_c=KERNEL_C if act is None else (RECO_C,),
                                       halos=_zero_halos(r2.shape[-1], act is not None))
-    for name, t in (("r2", r2), ("yp", yp)):
-        _check(k, name, t, torch.bfloat16, (B, H, W, C), dev)
+    for name, t, dtype in (("r2", r2, torch.bfloat16),
+                           ("yp", yp, torch.float32 if f32 else torch.bfloat16)):
+        _check(k, name, t, dtype, (B, H, W, C), dev)
         _check_aligned(k, name, t)
     if act is not None and tau_act is not None:
         _check(k, "tau_act", tau_act, torch.float32, (B, C), dev)
@@ -693,7 +757,7 @@ def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo
         _run(k, getattr(_lib(), fn), r2.data_ptr(), yp.data_ptr(), a.data_ptr(), c.data_ptr(),
              a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(), sums.data_ptr(), B, H,
-             W, C, CO, float(lo), HALOS[halo], _stream(dev), count=count)
+             W, C, CO, float(lo), HALOS[halo], _stream(dev), count=count, **_counter(k, f32))
     return out, sums, v
 
 

@@ -39,8 +39,8 @@ from ..kernels import int8_sites as k8
 from ..ops.conv import conv2d
 from .reconet import NUM_RES, ReCoNet, post_act
 from .s2d import d2s, in_affine, in_stats, pad_edge_blocks, quant_affine, scatter_upconv
-from .sites_i8 import (Site, _batch, _plain_quant, _qc, _stats, _stats_phased, dec_supported,
-                       res_supported)
+from .sites_i8 import (Site, _batch, _plain_quant, _qc, _stats, _stats_phased, combine_as,
+                       dec_supported, res_supported)
 from .transformer_net_quant import quantize_site
 
 EPS = 1e-5
@@ -264,13 +264,17 @@ def res_chain_i8(y: torch.Tensor, fp: FastReCoNet, sites: dict,
     .flag("reco_skip", env="RECO_SKIP")``, ``_res_chain_i8_skip``) each
     block's norm2 apply, skip add and post-add activation fold into the next
     a-site's prologue (K5 with ``act``); only the last block's run in
-    PyTorch ops. Without, they all do."""
+    PyTorch ops. Without, they all do. An f32 y (the float32 chains) goes
+    to block 0's K4 and block 1's K5 (without ``skip``: every block's K4) in
+    their f32 forms, and the output is in y's dtype, as the JAX chains'
+    ``.astype(dt)``."""
     from .. import adopt_overrides
 
     if skip is None:
         skip = adopt_overrides.flag("reco_skip", env="RECO_SKIP")
     y = y.contiguous()  # the kernels read dense NHWC (a cuDNN output may be an NCHW view)
     B, H, W, C = y.shape
+    dt = y.dtype
     net, frn = fp.net, fp.frn
     nh = _Norms(frn, None, static_stats)
     n = float(H * W)
@@ -298,7 +302,7 @@ def res_chain_i8(y: torch.Tensor, fp: FastReCoNet, sites: dict,
         if skip and i < NUM_RES - 1:
             carry = (rb, a2, c2, _batch(blk.act_tau.float()[None], B) if frn else None)
         else:
-            y = post_act(k8._combine(rb, y, a2, c2), blk, frn)
+            y = post_act(combine_as(rb, y, a2, c2).to(dt), blk, frn)
     return y
 
 
@@ -309,9 +313,12 @@ def res_chain_s8_static(y: torch.Tensor, fp: FastReCoNet, sites: dict,
     convolves and emits the b-site's codes with the frozen norm1 affine and
     activation folded in (ReLU: floor 0; TLU: the (C,) pre-round floor
     tau·qin and floor −127); K3 convolves them, applies the frozen norm2
-    affine and adds y; the post-add activation runs in PyTorch ops."""
+    affine and adds y; the post-add activation runs in PyTorch ops. Every
+    block's output is in y's dtype (the JAX chain's ``.astype(dt)``): an f32
+    y goes to each block's K2 and K3 in their f32 forms."""
     y = y.contiguous()
     B, _, _, C = y.shape
+    dt = y.dtype
     net, frn = fp.net, fp.frn
     for i in range(NUM_RES):
         blk = net.res(i)
@@ -326,7 +333,7 @@ def res_chain_s8_static(y: torch.Tensor, fp: FastReCoNet, sites: dict,
                                 qlo=-127.0 if frn else 0.0, tau=tau)
         aa, ac = (t[0].contiguous() for t in in_affine(m2, inv2, blk.norm2.weight.float(),
                                                         blk.norm2.bias.float()))
-        y = post_act(k8.site_s8(codes, sb.wk, sb.ws, sb.bias, aa, ac, y), blk, frn)
+        y = post_act(k8.site_s8(codes, sb.wk, sb.ws, sb.bias, aa, ac, y).to(dt), blk, frn)
     return y
 
 
@@ -337,9 +344,11 @@ def dec_i8(y: torch.Tensor, fp: FastReCoNet, sites: dict,
     statistics per logical channel over the phases (or frozen); ``d2s`` to
     the 2× grid, where d2 runs 96 → 4·48 with the in4 affine and activation
     folded into its quantize (TLU: the ``tau`` floor row); the in5 apply in
-    PyTorch ops. Returns the activated d2 output in pixels [B,4H,4W,48]."""
+    PyTorch ops. Returns the activated d2 output in pixels [B,4H,4W,48], in
+    y's dtype (an f32 y: d1 on K4's f32 form, the in5 apply unrounded)."""
     y = y.contiguous()
     B, H, W, C = y.shape
+    dt = y.dtype
     net, frn = fp.net, fp.frn
     nh = _Norms(frn, None, static_stats)
     s1, s2 = sites["d1"], sites["d2"]
@@ -352,7 +361,7 @@ def dec_i8(y: torch.Tensor, fp: FastReCoNet, sites: dict,
     r2, sums2 = k8.res_site(yd, a_eff, c_eff, -127.0 if frn else 0.0, s2.wk, s2.ws, s2.bias,
                             halo="edge", tau=_tau_row(nd1, s2.qin, B) if frn else None)
     m2, inv2 = _site_stats(nh, "in5", sums2, float(4 * H * W), B, phases=4)
-    return apply_norm(d2s(r2, 2, r2.shape[-1] // 4), m2, inv2, net.dec2.norm, frn)
+    return apply_norm(d2s(r2, 2, r2.shape[-1] // 4).to(dt), m2, inv2, net.dec2.norm, frn)
 
 
 def dec_quant_xla(y: torch.Tensor, fp: FastReCoNet, sites: dict,

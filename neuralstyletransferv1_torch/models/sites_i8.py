@@ -203,8 +203,11 @@ def res_chain(y: torch.Tensor, net, sites: dict, *, static_stats: dict | None = 
               ret_carry: bool = True):
     """The five residual blocks on K4/K5 (``res_i8``).
 
-    y: [B,H,W,128] bf16, the activated res input. Each block's in2 apply and
-    residual add fold into the next a-site's prologue (K5). With
+    y: [B,H,W,128] bf16, or f32 under the float32 chains: then block 1's K4
+    and block 2's K5 (its residual) take their f32 forms, as the JAX chain
+    hands them the f32 tensor, and every later carry is K5's bf16 v. Each
+    block's in2 apply and residual add fold into the next a-site's prologue
+    (K5). With
     ``ret_carry`` the last one stays pending: returns ``(y4, (r2, a2, c2))``
     for the d1 site to fold; else the output bf16(bf16(r2·a2 + c2) + y4).
     ``static_stats`` freezes every norm (the kernels' sums are ignored)."""
@@ -236,7 +239,17 @@ def res_chain(y: torch.Tensor, net, sites: dict, *, static_stats: dict | None = 
     if ret_carry:
         return y, carry
     r2, a2, c2 = carry
-    return k8._combine(r2, y, a2, c2)
+    return combine_as(r2, y, a2, c2)
+
+
+def combine_as(r2: torch.Tensor, y: torch.Tensor, a2: torch.Tensor,
+               c2: torch.Tensor) -> torch.Tensor:
+    """A chain's last residual add as the JAX chains write it,
+    ``(r2·a2 + c2).astype(y.dtype) + y``: the affine in f32, rounded to y's
+    dtype, added in it (bf16: ``k8._combine``; an f32 y stays unrounded)."""
+    if y.dtype == torch.bfloat16:
+        return k8._combine(r2, y, a2, c2)
+    return (r2.float() * a2[:, None, None, :] + c2[:, None, None, :]).to(y.dtype) + y
 
 
 def res_chain_s8_static(y: torch.Tensor, net, sites: dict, static_stats: dict, *,
@@ -251,7 +264,9 @@ def res_chain_s8_static(y: torch.Tensor, net, sites: dict, static_stats: dict, *
     ReLU fold into block 1's quantize (floor 0) and, as YAFF, into its
     residual operand.
     emit_qo: d1's qin — block 5 then emits d1's s8 input (floor −127)
-    instead of bf16, the bridge into ``dec_chain_s8_static``."""
+    instead of bf16, the bridge into ``dec_chain_s8_static``.
+    An f32 y (the float32 chains) goes to block 1's K2 and, as its residual,
+    to its K3 in their f32 forms; K3's output, bf16, carries on."""
     B, H, W, C = y.shape
     for i in range(1, NUM_RES + 1):
         blk = getattr(net, f"res{i}")
@@ -328,20 +343,21 @@ def dec_chain(y: torch.Tensor, net, sites: dict, *, carry=None,
 
 
 def _qc(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float, site: Site,
-        halo: str, tau: torch.Tensor | None = None) -> torch.Tensor:
+        halo: str, tau: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
     """One int8 site as the JAX engine's ``_qc`` runs it through XLA:
     q = clamp(round(x·a + c), lo, 127) over a 1-pixel halo (reflect, edge or
-    zero codes) → exact int8 conv → bf16(acc·ws + bias). a, c: [B,C]
-    quantize rows; ``tau`` [C]: a floor on x·a + c before the round (a TLU
-    folded into the quantize, ReCoNet's ``_res_quant_xla``)."""
+    zero codes) → exact int8 conv (``stride``) → acc·ws + bias in x's dtype
+    (bf16, or f32 on the float32 chains, as ``.astype(xin.dtype)``). a, c:
+    [B,C] quantize rows; ``tau`` [C]: a floor on x·a + c before the round (a
+    TLU folded into the quantize, ReCoNet's ``_res_quant_xla``)."""
     v = x.float() * a[:, None, None, :] + c[:, None, None, :]
     if tau is not None:
         v = torch.maximum(v, tau)
     q = torch.clamp(torch.round(v), lo, 127.0)
     mode = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}[halo]
     q = F.pad(q.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
-    acc = conv2d_i8(q, k8.unpack_weights(site.wk))
-    return (acc.float() * site.ws + site.bias).to(torch.bfloat16)
+    acc = conv2d_i8(q, k8.unpack_weights(site.wk), stride=stride)
+    return (acc.float() * site.ws + site.bias).to(x.dtype)
 
 
 def _st(static_stats: dict | None, site: str, t: torch.Tensor, B: int):
@@ -349,6 +365,23 @@ def _st(static_stats: dict | None, site: str, t: torch.Tensor, B: int):
     if static_stats is not None and site in static_stats:
         return _frozen(static_stats, site, B)
     return in_stats(t)
+
+
+def head_qc(x: torch.Tensor, net, sites: dict, *,
+            static_stats: dict | None = None) -> torch.Tensor:
+    """conv1, then conv2 and conv3 as int8 sites in the XLA form: the empty
+    fused-site set, where ``transformer_net_s2d2.apply`` quantizes c2 and c3
+    through ``_qc`` (stride 2, the pixel reflect halo; each site's pending
+    norm and ReLU folded into its quantize, floor 0). Returns the activated
+    res input (in3 applied)."""
+    B = x.shape[0]
+    y = net.conv1(x)
+    for name, norm in (("c2", net.in1), ("c3", net.in2)):
+        m, inv = _st(static_stats, "in1" if name == "c2" else "in2", y, B)
+        a, c = quant_affine(m, inv, *_norm_params(norm), sites[name].qin)
+        y = _qc(y, _batch(a, B), _batch(c, B), 0.0, sites[name], "reflect", stride=2)
+    m3, inv3 = _st(static_stats, "in3", y, B)
+    return apply_in_relu(y, m3, inv3, net.in3.weight, net.in3.bias)
 
 
 def res_chain_qc(y: torch.Tensor, net, sites: dict, *,

@@ -160,8 +160,11 @@ def res_chain_s8_static(y: torch.Tensor, net: TransformerNetNST, sites: dict,
     masks, and the crop drops. Per block, K2 quantizes y (qin, floor −127),
     convolves and emits the b-site's codes with the frozen norm1 affine and
     ReLU folded in; K3 convolves them, applies the frozen norm2 affine and
-    adds y."""
+    adds y. An f32 y (the float32 chains) goes to block 1's K2 and K3 in
+    their f32 forms; the chain's bf16 output is cast back to y's dtype, as
+    the JAX chain's ``y.astype(dt)``."""
     B, H, W0c, C = y.shape
+    dt = y.dtype
     sw = None
     if W0c % 8:
         y = F.pad(y, (0, 0, 0, (-W0c) % 8))
@@ -179,7 +182,7 @@ def res_chain_s8_static(y: torch.Tensor, net: TransformerNetNST, sites: dict,
                                 halo="zero", sw=sw)
         aa, ac = (t[0].contiguous() for t in in_affine(m2, inv2, *_norm_params(blk.norm2)))
         y = k8.site_s8(codes, sb.wk, sb.ws, sb.bias, aa, ac, y, halo="zero", sw=sw)
-    return y if sw is None else y[:, :, :sw].contiguous()
+    return (y if sw is None else y[:, :, :sw].contiguous()).to(dt)
 
 
 @torch.no_grad()

@@ -50,17 +50,19 @@ INT8_SITES = tuple(f"r{i}{ab}" for i in range(1, NUM_RES + 1) for ab in "ab") + 
 #: the names a fused-site set may hold: the int8 sites' and the bf16 sites'
 FUSED_SITE_NAMES = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8",
                     "d3_i8") + sites_bf16.BF16_SITE_NAMES
-_SITES_ITEM = "ROADMAP.md Queue 1, item 11 (fused-site sets)"
+#: the int8 sites of a set that have no float32 form: no adopted set holds
+#: them, so no CLI path reaches them
+F32_UNPORTED = {"head_i8": "K8a with an f32 input (the f32 conv1 output)",
+                "tail_s8": "deconv3's f32 border strips beside K6",
+                "d3_i8": "deconv3's f32 border strips beside K7"}
 
 
 def check_fused_sites(fused) -> tuple:
-    """An int8 mode's set as a tuple; raises for unknown names and for the
-    empty set (every site in the XLA-int8 form, which no Pallas kernel
-    serves)."""
+    """An int8 mode's set as a tuple; raises for unknown names. The empty
+    set is the JAX engine's "mk32 BN-form configuration": every site of
+    ``QUANT_SITES`` (c2 and c3 included) through the XLA int8 form, no site
+    kernel."""
     fused = tuple(fused)
-    if not fused:
-        raise NotImplementedError(
-            f"an empty fused-site set (every site through XLA int8) is not ported ({_SITES_ITEM})")
     unknown = sorted(set(fused) - set(FUSED_SITE_NAMES))
     if unknown:
         raise ValueError(f"unknown fused sites {unknown}; known: {FUSED_SITE_NAMES}")
@@ -71,8 +73,11 @@ def site_filter(scales: dict, h: int, w: int, fused) -> dict:
     """The JAX engine's ``_s2d2_site_filter``: of the calibrated sites keep
     the res sites, d1 and d2; c2/c3 only under ``head_i8`` and d3 only under
     ``tail_s8``, each where its gate passes at the calibration frame's size
-    h × w (padded to multiples of 4)."""
+    h × w (padded to multiples of 4). The empty set keeps every site of
+    ``QUANT_SITES``."""
     fused = check_fused_sites(fused)
+    if not fused:
+        return {k: v for k, v in scales.items() if k in QUANT_SITES}
     keep = {"d1", "d2"}
     if "head_i8" in fused and sites_i8.head_supported(h // 2, w // 2):
         keep |= {"c2", "c3"}
@@ -170,6 +175,10 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     """The int8 forward of the (bf16) net: NHWC in, NHWC out.
 
     ``sites``: ``sites_i8.prepare_sites`` of the ``quantize_net`` dict.
+    The net and x are bf16, or f32 (the float32 chains: the head, the norms
+    outside the sites and the tail run in f32, the sites that read the f32
+    tensor take their f32 forms, as ``transformer_net_s2d2.apply`` does with
+    f32 params).
     With ``static_stats`` (int8_static) every norm is frozen; without
     (int8) the norms are measured — the bf16 head's in the deferred form,
     the int8 sites' from the kernels' sums. ``fused_sites``: the set that
@@ -177,7 +186,9 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     adopted one when None:
 
     - ``head_i8`` (with c2/c3 quantized, head gate): conv2/conv3 on K8a/K8b;
-      under frozen norms the in3 apply waits for the s8 res chain;
+      under frozen norms the in3 apply waits for the s8 res chain; without
+      ``head_i8``, c2/c3 quantized (the empty set) run in the XLA form
+      (``sites_i8.head_qc``);
     - ``res_s8`` (frozen norms, res gate): the s8-carry res chain (K2/K3);
       else ``res_i8`` (res gate): ``res_chain`` (K4/K5); else the same int8
       sites in the XLA form (``sites_i8.res_chain_qc``), as the JAX engine
@@ -206,6 +217,11 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     fused = set(check_fused_sites(default_sites(static) if fused_sites is None else fused_sites))
     if fused & {"tail", "d3"} and site_weights is None:
         raise ValueError("the fused sites 'tail' and 'd3' need site_weights")
+    f32_unported = sorted(fused & set(F32_UNPORTED)) if x.dtype == torch.float32 else []
+    if f32_unported:
+        raise NotImplementedError(
+            f"the fused site {f32_unported[0]!r} under float32 needs "
+            f"{F32_UNPORTED[f32_unported[0]]}: ROADMAP.md Queue 2 (no CLI path reaches it)")
     h, w = x.shape[1], x.shape[2]
 
     use_head_i8 = ("head_i8" in fused and "c2" in sites and "c3" in sites
@@ -223,6 +239,8 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
             pend3 = (m3, inv3)
         else:
             y = apply_in_relu(y, m3, inv3, net.in3.weight, net.in3.bias)
+    elif "head_i8" not in fused and "c2" in sites and "c3" in sites:
+        y = sites_i8.head_qc(x, net, sites, static_stats=static_stats)
     else:
         y = net.encode(x, NormHooks(static_stats=static_stats, deferred=True))
     y = y.contiguous()  # the kernels take dense NHWC
@@ -278,5 +296,7 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     if s3 is not None:
         use_d3_i8 = "d3_i8" in fused and sites_i8.d3_supported(r2.shape[1], r2.shape[2])
         return sites_i8.d3_forward(r2, m5, inv5, net, s3, use_d3_i8=use_d3_i8)
-    y = apply_in_relu(d2s(r2, 2, r2.shape[-1] // 4), m5, inv5, net.in5.weight, net.in5.bias)
+    # under float32 the tail runs in f32 on the (bf16) d2 raw of the int8 sites
+    y = apply_in_relu(d2s(r2, 2, r2.shape[-1] // 4).to(x.dtype), m5, inv5, net.in5.weight,
+                      net.in5.bias)
     return net.deconv3(y)

@@ -1,7 +1,7 @@
 """Separable Gaussian blur (NHWC / HWC / HW), matching cv2.GaussianBlur.
 
-Used for flow-field smoothing at the finest DIS level and for the
-motion-map smoothing of the motion-adaptive blend. Reflect-101 borders
+Used for flow-field smoothing at the finest DIS level, for the motion-map
+smoothing of the motion-adaptive blend and for the region masks' feathering. Reflect-101 borders
 (cv2.BORDER_DEFAULT), then two 1-D depthwise f32 passes.
 """
 
@@ -26,11 +26,13 @@ def _ksize_for_sigma(sigma: float) -> int:
     return max(int(math.ceil(sigma * 3.0)) * 2 + 1, 3)
 
 
-def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Gaussian blur over the spatial dims of HW / HWC / NHWC input."""
+def gaussian_blur(x: torch.Tensor, sigma: float, *, ksize: int | None = None) -> torch.Tensor:
+    """Gaussian blur over the spatial dims of HW / HWC / NHWC input;
+    ``ksize`` (odd) overrides the 3-sigma kernel size (mask feathering)."""
     if sigma <= 0:
         return x
-    ksize = _ksize_for_sigma(sigma)
+    if ksize is None:
+        ksize = _ksize_for_sigma(sigma)
     k = gaussian_kernel_1d(ksize, sigma, device=x.device)
     orig_ndim, orig_dtype = x.ndim, x.dtype
     if x.ndim == 2:

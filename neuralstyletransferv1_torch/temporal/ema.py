@@ -5,8 +5,8 @@ Counterpart of ``neuralstyletransferv1_tpu/temporal/ema.py``'s split form
 recurrences run frame by frame — the flow-EMA warp-and-blend (frame t-1's
 output is its input) and the LAB EMA multiply-add — and everything
 elementwise in t runs batched over T. JAX's ``lax.scan``s become Python
-loops over T. The per-step monolithic scan form and the mask composite are
-not ported yet.
+loops over T, and the per-frame mask composite runs batched between the LAB
+EMA and the blends. The per-step monolithic scan form is not ported.
 
 Constants mirror the reference: MOTION_NORM=8px, MIN_ALPHA=0.40,
 GAUSS_SIGMA=3.0.
@@ -98,6 +98,9 @@ def temporal_postprocess_split(
     blend: float = 1.0,
     init: TemporalState | None = None,
     fast_warp: bool = True,
+    mask_alphas: torch.Tensor | None = None,
+    mask_has: torch.Tensor | None = None,
+    composite_keep: bool = True,
 ) -> tuple[torch.Tensor, TemporalState]:
     """The temporal chain over a THWC batch; returns (output THWC, state).
 
@@ -105,6 +108,13 @@ def temporal_postprocess_split(
     starts a video: frame 0 skips the flow fusion and seeds the LAB EMA from
     itself. ``fast_warp`` picks the u8-corner packed warp (default) over the
     exact one (``--exact_warp``).
+
+    ``mask_alphas`` [T,H,W,1] and ``mask_has`` [T] (bool) composite each
+    masked frame over the original between the LAB EMA and the final blend,
+    and a masked frame always takes the uniform blend, never the
+    motion-adaptive one (``temporal_postprocess_scan``'s order).
+    ``composite_keep``: keep stylizes the masked region, replace the
+    unmasked one.
     """
     T = styled01.shape[0]
     if flows is None:
@@ -151,15 +161,23 @@ def temporal_postprocess_split(
         out = fused
         last_lab = init.prev_lab
 
-    # Stage 3 — blends, batched over T.
+    # Stage 3 — mask composite and blends, batched over T.
+    use_mask = mask_alphas is not None
+    if use_mask:
+        comp = (out * mask_alphas + orig01 * (1.0 - mask_alphas)) if composite_keep \
+            else (orig01 * mask_alphas + out * (1.0 - mask_alphas))
+        out = torch.where(mask_has[:, None, None, None], comp, out)
     if motion_blend:
         mag = torch.sqrt(flows[..., 0] ** 2 + flows[..., 1] ** 2)
         m = gaussian_blur((mag / MOTION_NORM).clamp(0.0, 1.0)[..., None], GAUSS_SIGMA)
         m_alpha = blend - (blend - MIN_ALPHA) * m
         blended = (m_alpha * out + (1.0 - m_alpha) * orig01).clamp(0.0, 1.0)
+        skip = torch.zeros(T, dtype=torch.bool, device=out.device)
         if first_is_warmup:
-            blended[0] = uniform_blend(out[0], orig01[0], blend)
-        out = blended
+            skip[0] = True
+        if use_mask:
+            skip = skip | mask_has.to(out.device)
+        out = torch.where(skip[:, None, None, None], uniform_blend(out, orig01, blend), blended)
     else:
         out = uniform_blend(out, orig01, blend)
     return out, TemporalState(last_fused, last_lab)

@@ -636,11 +636,12 @@ def test_adopted_sets_match_jax(tmp_path):
 @pytest.mark.parametrize("fused,err", [(("head", "res_i8"), None),
                                        (("res_i8", "tail"), None),
                                        (("d3",), None),
-                                       ((), NotImplementedError),
+                                       ((), None),
                                        (("res_i9",), ValueError)])
 def test_unported_site_names_raise(fused, err):
-    """The empty set (every site in the XLA-int8 form) and unknown names
-    raise; the bf16 site names ``head``, ``tail`` and ``d3`` are accepted."""
+    """Unknown names raise; the empty set (every site in the XLA-int8 form,
+    tests/test_torch_quant_f32.py) and the bf16 site names ``head``,
+    ``tail`` and ``d3`` are accepted."""
     if err is None:
         assert tq.check_fused_sites(fused) == fused
     else:

@@ -415,6 +415,71 @@ def test_k5_tensor_cores_match_plain_on_card(cuda_device, b, h, w, c, co, halo):
             k8.res_site_skip(r2, yp, *args, halo=halo, **acts[0])
 
 
+# the f32-operand forms: (wrapper, B, H, W, C, CO, halo, form, sw)
+_F32_CASES = [("res_site", 3, 13, 21, 128, 128, "reflect", "", None),
+              ("res_site", 2, 11, 37, 192, 384, "edge", "", None),
+              ("res_site", 1, 9, 30, 64, 64, "zero", "", None),
+              ("res_site_skip", 3, 13, 21, 128, 128, "reflect", "", None),
+              ("res_site_skip", 2, 9, 35, 192, 192, "reflect", "tau", None),
+              ("res_site_skip", 2, 11, 30, 128, 128, "zero", "", None),
+              ("res_site_s8o", 3, 13, 21, 128, 128, "reflect", "", None),
+              ("res_site_s8o", 2, 9, 35, 192, 192, "reflect", "frn", None),
+              ("res_site_s8o", 2, 11, 40, 128, 128, "zero", "", 36),
+              ("site_s8", 3, 13, 21, 128, 128, "reflect", "yaff", None),
+              ("site_s8", 2, 9, 35, 192, 192, "reflect", "", None),
+              ("site_s8", 2, 11, 40, 128, 128, "zero", "", 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b,h,w,c,co,halo,form,sw", _F32_CASES)
+def test_f32_forms_match_plain_on_card(cuda_device, name, b, h, w, c, co, halo, form, sw):
+    """K2-K5's f32-operand forms (K2's and K4's x, K3's and K5's residual
+    f32, not bf16-representable) against their plain versions at ragged
+    shapes: codes, bf16 outputs and v bit-identical, sums within 1e-5, two
+    launches bit-identical, each counted under its f32 name; the bf16 form
+    of the same call counts as before."""
+    t = _int8_inputs(cuda_device, c, co, h=h, w=w, seed=h + w + c + 7)
+    g = torch.Generator(device=cuda_device).manual_seed(h * w)
+    f32 = torch.randn((b, h, w, c), generator=g, device=cuda_device)
+    rows = {k: _batch(t[k], b) for k in ("a", "c", "a2", "c2")}
+    kw = {"halo": halo} if sw is None else {"halo": halo, "sw": sw}
+    if name == "res_site":
+        args = (f32 * 2, rows["a"], rows["c"], -127.0, t["w"], t["ws"], t["bias"])
+    elif name == "res_site_s8o":
+        args = (f32 * 2, rows["a"], rows["c"], -127.0, t["w"], t["ws"], t["bias"], t["qa"],
+                t["qc"])
+        if form == "frn":
+            kw.update(qlo=-127.0, tau=torch.randn(co, generator=g, device=cuda_device) * 20 - 20)
+    elif name == "res_site_skip":
+        args = (_batch(t["x"], b, flip=True), f32, rows["a"], rows["c"], rows["a2"], rows["c2"],
+                -127.0, t["w"], t["ws"], t["bias"])
+        if form == "tau":
+            kw.update(act="tau", tau_act=torch.randn((b, c), generator=g, device=cuda_device))
+    else:
+        args = (_batch(t["codes"], b), t["w"], t["ws"], t["bias"], t["qa"] / 40, t["qc"] / 40, f32)
+        if form == "yaff":
+            kw["yaff"] = (t["a2"][0], t["c2"][0])
+    key = k8.F32_FORMS[name]
+    before, bf16_before = k8.F32_LAUNCHES[key], k8.LAUNCHES[name]
+    fn = getattr(k8, name)
+    out, again = fn(*args, **kw), fn(*args, **kw)
+    ref = getattr(k8, f"{name}_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    out, again, ref = ((o if isinstance(o, tuple) else (o,)) for o in (out, again, ref))
+    for o, a, r in zip(out, again, ref):
+        if r is None:
+            continue
+        assert torch.equal(o, a)
+        if o.dtype == torch.float32:
+            assert _sums_close(o, r, h * w)
+        else:
+            assert torch.equal(o, r), (name, o.dtype)
+    assert k8.F32_LAUNCHES[key] - before == 2 and k8.LAUNCHES[name] == bf16_before
+    with pytest.raises(ValueError, match="no f32 form"):
+        k8.res_site(torch.zeros((1, 4, 16, 96), device=cuda_device), rows["a"][:1, :96],
+                    rows["c"][:1, :96], -127.0, t["w"], t["ws"], t["bias"])
+
+
 @pytest.mark.cuda
 def test_k2_k5_prev_forms_count_no_launch(cuda_device):
     """``res_site_s8o_prev`` and ``res_site_skip_prev`` count no launch; K2's
@@ -588,8 +653,11 @@ def test_int8_wrappers_reject_bad_inputs(cuda_device):
     args = (t["a"], t["c"], -127.0, t["w"], t["ws"], t["bias"])
     with pytest.raises(ValueError, match="contiguous"):
         k8.res_site(t["x"].transpose(1, 2), *args)
-    with pytest.raises(TypeError, match="bfloat16"):
-        k8.res_site(t["x"].float(), *args)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        k8.res_site(t["x"].half(), *args)
+    with pytest.raises(ValueError, match="no f32 form at C=64"):  # f32 x: the f32 form's counts
+        k8.res_site(t["x"][..., :64].float().contiguous(), t["a"][:, :64], t["c"][:, :64],
+                    -127.0, t["w"][:, :16], t["ws"], t["bias"])
     with pytest.raises(ValueError, match="expected cuda"):
         k8.res_site(t["x"], t["a"].cpu(), *args[1:])
     with pytest.raises(ValueError, match="C=96"):
