@@ -879,11 +879,13 @@ def f32_kernel_phase(dev):
             case = f"{shape}{'/' + form if form else ''}"
             if shape in SITE_SW:
                 halo = f"{halo}, sw {SITE_SW[shape]}"
+            by = "operations" if t_ops > t_bytes else "bytes"
             rec["per_case"][case] = {"ms": t_k, "bf16_ms": t_bf, "plain_ms": t_plain,
-                                     "bound_ms": bound, "bound_share": bound / t_k}
+                                     "bound_ms": bound, "bound_by": by,
+                                     "bound_share": bound / t_k}
             log(f"{form_name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"f32 form {t_k:.4f} ms, bf16 form {t_bf:.4f} ms (same turns, "
-                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms; bound {bound:.4f} ms "
+                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms; bound {bound:.4f} ms by {by} "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops), f32 form at "
                 f"{bound / t_k:.1%} of it")
             rec["ms"] += t_k
@@ -1941,6 +1943,7 @@ def region_phase(dev, workdir: Path):
     import numpy as np
     import torch
 
+    from neuralstyletransferv1_torch import region
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
     from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
 
@@ -1951,6 +1954,10 @@ def region_phase(dev, workdir: Path):
 
     def batched(extra, frames, device, dtype="bfloat16"):
         h, w = frames[0].shape[:2]
+        # each run makes its own masks: the caches are keyed on the frame, not
+        # the device, so the CPU side would otherwise reuse the card's
+        region.clear_mask_cache()
+        tpipe._crop_cache.clear()
         argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
                 "--frame_batch", str(B), "--flow_ema", "--compute_dtype", dtype,
                 "--mask_dir", str(masks), *extra]

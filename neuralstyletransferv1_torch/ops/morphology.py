@@ -1,9 +1,9 @@
-"""Grey-scale morphology by windowed max/min (NHWC / HWC / HW), square
+"""Grey-scale dilation by a windowed max (NHWC / HWC / HW), square
 structuring elements.
 
 Counterpart of ``neuralstyletransferv1_tpu/ops/morphology.py``: the windowed
-max and min with the window clipped at the border (the JAX reduce_window's
--inf/+inf padding), as ``F.max_pool2d``'s implicit padding takes it. The
+max with the window clipped at the border (the JAX reduce_window's
+-inf padding), as ``F.max_pool2d``'s implicit padding takes it. The
 region compositor's gap fill dilates with it.
 """
 
@@ -32,20 +32,3 @@ def _window_max(x: torch.Tensor, ksize: int) -> torch.Tensor:
 def grey_dilate(x: torch.Tensor, ksize: int) -> torch.Tensor:
     """Square-structuring-element dilation (max filter)."""
     return _window_max(x, ksize)
-
-
-def grey_erode(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """Square-structuring-element erosion (min filter)."""
-    if not x.is_floating_point():
-        return -_window_max(-x.double(), ksize).to(x.dtype)
-    return -_window_max(-x, ksize)
-
-
-def max_pool_dilate(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """The region compositor's gap-fill dilation (max pool)."""
-    return grey_dilate(x, ksize)
-
-
-def morph_close(x: torch.Tensor, ksize: int) -> torch.Tensor:
-    """Dilate then erode (cv2.MORPH_CLOSE with a square kernel)."""
-    return grey_erode(grey_dilate(x, ksize), ksize)

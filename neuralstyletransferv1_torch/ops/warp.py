@@ -20,14 +20,10 @@ def _grid(h: int, w: int, device):
     return gx, gy
 
 
-def bilinear_sample(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor, *,
-                    border: str = "replicate") -> torch.Tensor:
-    """Sample HWC (or HW) ``img`` at float coords. ``border="replicate"``
-    clamps the coordinates (cv2.BORDER_REPLICATE), the border of the flow
-    warps and of the region masks' rotation and organic warp; the JAX
-    function's "constant" border has no caller in the port."""
-    if border != "replicate":
-        raise ValueError(f"border {border!r}: only 'replicate' is ported")
+def bilinear_sample(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """Sample HWC (or HW) ``img`` at float coords. The border is replicate:
+    the coordinates clamp (cv2.BORDER_REPLICATE), the border of the flow
+    warps and of the region masks' rotation and organic warp."""
     squeeze = img.ndim == 2
     if squeeze:
         img = img[..., None]

@@ -83,8 +83,7 @@ def rotate_all_masks(masks: torch.Tensor, angle_degrees: float) -> torch.Tensor:
     gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] - cy
     map_x = cos * gx - sin * gy + cx
     map_y = sin * gx + cos * gy + cy
-    rotated = torch.stack([bilinear_sample(m, map_x, map_y, border="replicate")
-                           for m in masks], dim=0)
+    rotated = torch.stack([bilinear_sample(m, map_x, map_y) for m in masks], dim=0)
     total = rotated.sum(dim=0, keepdim=True).clamp(min=1e-6)
     return rotated / total
 
@@ -165,7 +164,7 @@ def warp_mask_organic(mask: torch.Tensor, amplitude: float, frequency: float, fr
     gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
     map_x = _reflect_coords(gx + fx * max_disp, W)
     map_y = _reflect_coords(gy + fy * max_disp, H)
-    return bilinear_sample(mask, map_x, map_y, border="replicate")
+    return bilinear_sample(mask, map_x, map_y)
 
 
 def _gap_fill(masks: torch.Tensor) -> torch.Tensor:

@@ -172,12 +172,12 @@ def temporal_postprocess_split(
         m = gaussian_blur((mag / MOTION_NORM).clamp(0.0, 1.0)[..., None], GAUSS_SIGMA)
         m_alpha = blend - (blend - MIN_ALPHA) * m
         blended = (m_alpha * out + (1.0 - m_alpha) * orig01).clamp(0.0, 1.0)
-        skip = torch.zeros(T, dtype=torch.bool, device=out.device)
         if first_is_warmup:
-            skip[0] = True
-        if use_mask:
-            skip = skip | mask_has.to(out.device)
-        out = torch.where(skip[:, None, None, None], uniform_blend(out, orig01, blend), blended)
+            blended[0] = uniform_blend(out[0], orig01[0], blend)
+        if use_mask:  # a masked frame takes the uniform blend
+            blended = torch.where(mask_has[:, None, None, None],
+                                  uniform_blend(out, orig01, blend), blended)
+        out = blended
     else:
         out = uniform_blend(out, orig01, blend)
     return out, TemporalState(last_fused, last_lab)

@@ -39,12 +39,42 @@ from neuralstyletransferv1_torch.models.transformer_net import (
 B, H, W, C = 1, 8, 16, 32
 
 
+_JITTED: dict = {}
+
+
+def _static(v) -> bool:
+    return v is None or isinstance(v, (bool, int, float, str))
+
+
+def _jit_site(fn):
+    """``fn`` in interpret mode, jitted once per static signature (its Python
+    scalars, strings and None): the calls that share one signature, as the
+    five blocks of a chain do, share one interpret-mode lowering, the part
+    that costs."""
+
+    def call(*args, **kw):
+        spos = tuple((i, a) for i, a in enumerate(args) if _static(a))
+        skw = tuple(sorted((k, v) for k, v in kw.items() if _static(v)))
+        key = (fn, len(args), spos, skw)
+        if key not in _JITTED:
+            def inner(dyn, dyn_kw, _spos=dict(spos), _skw=dict(skw), _n=len(args)):
+                it = iter(dyn)
+                return fn(*(_spos[i] if i in _spos else next(it) for i in range(_n)),
+                          **dyn_kw, **_skw)
+
+            _JITTED[key] = jax.jit(inner)
+        si8._INTERPRET = True
+        try:
+            return _JITTED[key]([a for a in args if not _static(a)],
+                                {k: v for k, v in kw.items() if not _static(v)})
+        finally:
+            si8._INTERPRET = False
+
+    return call
+
+
 def _interpret(fn, *args, **kw):
-    si8._INTERPRET = True
-    try:
-        return jax.tree.map(np.asarray, fn(*args, **kw))
-    finally:
-        si8._INTERPRET = False
+    return jax.tree.map(np.asarray, _jit_site(fn)(*args, **kw))
 
 
 def _inputs(seed, pow2: bool, w=W):
@@ -195,7 +225,7 @@ def test_f32_forms_route_by_dtype_and_check_their_forms():
 def johnson():
     """Random Johnson weights (``transformer_net.init``) as the JAX f32 f2
     params and the port's f32 net; frames of a smooth textured scene."""
-    tree = jax.tree.map(np.asarray, jtn.init(jax.random.key(0)))
+    tree = jax.tree.map(np.asarray, jax.jit(jtn.init)(jax.random.key(0)))
     bp32 = jax.tree.map(jnp.asarray, s2d2.from_johnson_params(tree))
     net = TransformerNet()
     net.load_state_dict(params_from_jax(tree))
@@ -208,7 +238,19 @@ def johnson():
     return bp32, net, x
 
 
+_CALIBRATIONS: dict = {}
+
+
 def _calibrate(bp32, x, static: bool):
+    """The JAX calibration of the module's net on ``x`` (kept: several tests
+    start from the same one; callers copy before they change it)."""
+    key = (id(bp32), x.shape, static)
+    if key not in _CALIBRATIONS:
+        _CALIBRATIONS[key] = _calibrate_once(bp32, x, static)
+    return _CALIBRATIONS[key]
+
+
+def _calibrate_once(bp32, x, static: bool):
     xj = jnp.asarray(x[:1])
     stats = s2d2.calibrate_in_stats(bp32, xj) if static else None
     scales = s2d2.calibrate_act_scales(bp32, xj, sites=s2d2.QUANT_SITES_PALLAS,
@@ -276,11 +318,14 @@ def test_f32_chains_match_pallas_chains(johnson, monkeypatch, static):
     names = ("res_site_s8o", "site_s8") if static else ("res_site", "res_site_skip")
     jouts, touts = [], []
     with monkeypatch.context() as m:
+        for name in names:  # the blocks' sites share their lowerings
+            m.setattr(si8, name, _jit_site(getattr(si8, name)))
         _record(m, si8, names, jouts)
         if static:
-            ref = _interpret(si8.res_chain_s8_static, jnp.asarray(y), bp32, quant, stats)
+            ref = jax.tree.map(np.asarray, si8.res_chain_s8_static(jnp.asarray(y), bp32, quant,
+                                                                   stats))
         else:
-            ref = _interpret(si8.res_chain, jnp.asarray(y), bp32, quant)
+            ref = jax.tree.map(np.asarray, si8.res_chain(jnp.asarray(y), bp32, quant))
     seen = _spy_dtypes(monkeypatch)
     _record(monkeypatch, k8, names, touts)
     with torch.no_grad():
