@@ -161,7 +161,24 @@ order, and any failed phase exits non-zero:
    core over 2 batches with rotating voronoi regions and ``--mask_dir``,
    then with the LAB blend and ``--mask_dir``, the per-frame loop through
    ``main()`` with the regions and masks, exact launch counts and times;
-   then both under float32 on a 128×224 cut-down, card vs CPU within 1e-3.
+   then both under float32 on a 128×224 cut-down, card vs CPU within 1e-3;
+11. DeepLabV3+ and the sky-swap workflow: the full-width ResNet-101 DeepLab
+   (output stride 16, 21 classes, ``init_state_dict`` seed 0) written as a
+   ``.pth.tar`` (``state_dict`` wrapper, ``module.`` prefixes) and read
+   back through ``apps/sky_swap.load_deeplab``; card vs CPU under f32 at
+   129×129 (relative logits MAE ≤ 1e-4, argmax ≥ 99.9% equal); one bf16
+   forward at 513² with B = 4 (finite, timed by CUDA events); the
+   masked-stylize step at 1080×1920, B = 4, infer_res 513 with the Johnson
+   checkpoint: bf16 vs f32 on 2 frames within the 1e-2 gate, steady
+   batches timed (CUDA-event median and spread), card vs CPU on a
+   1×128×224 cut-down at infer_res 65 (composite ≤ 1e-2, pre-upsample
+   alpha ≥ 99% equal); the MobileNetV2, Xception and DRN backbones
+   likewise (card vs CPU, a bf16 forward); then ``run_sky_swap.main`` on a
+   synthesized 16-frame 1080p mp4 with the workflow's defaults and
+   ``PIPELINE_ARGS="--frame_batch 8 --flow_ema --quantize int8_static"``:
+   one mask per extracted frame, every frame encoded, K1, K2, K3 and K4
+   launched exactly as predicted, the wall time split into extract, masks
+   and the stylize pass.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,9 +188,11 @@ The line before the last is the kernels' JSON record; the last line is
 instead profiles one steady 1080p B=8 batch of each slice (plain bf16,
 ``bf16_static``, ``int8_static``, ``int8``, the two under sets A and B, the
 two bf16 fused-site sets, the four NST_Train, six ReCoNet and six Torch7
-slices) with
-torch.profiler and prints where its device time goes, grouped by kind of
-kernel (PERF.md section 5).
+slices, the f32 and region slices), one steady batch of the masked-stylize
+step (B = 4, 1080p, infer_res 513) and the ResNet-101 DeepLab's forward alone
+with torch.profiler and prints where its device time goes, grouped by kind of
+kernel (PERF.md section 5); then it times ASPP's atrous convs on
+channels-last and on NCHW input.
 
     python3 chip_smoke.py --phases
 
@@ -2028,6 +2047,239 @@ def region_phase(dev, workdir: Path):
     return launches
 
 
+# phase 11: DeepLabV3+ (the configuration bench.py's _deeplab_masked measures:
+# ResNet-101, output stride 16, 21 classes, the mask at infer_res 513, a
+# Johnson slot stylizing 1080p frames in bf16), the masked-stylize step and
+# the sky-swap workflow (its video pass with PIPELINE_ARGS below: K1, K2 → K3,
+# K4 on the card)
+DL_BACKBONES = ("resnet", "mobilenet", "xception", "drn")
+DL_CMP_HW = 129               # card vs CPU, f32
+DL_REL_TOL = 1e-4             # relative logits MAE, card vs CPU f32
+DL_AGREE = 0.999              # argmax agreement, card vs CPU f32
+DL_INFER, DL_B = 513, 4       # the masked step's mask resolution and batch
+DL_STEP_BATCHES = 6           # timed steady batches (rounds) of the masked step
+DL_ALPHA_AGREE = 0.99         # pre-upsample alpha, card vs CPU (bf16 both sides)
+SKY_FRAMES = 16
+SKY_PIPELINE_ARGS = "--frame_batch 8 --flow_ema --quantize int8_static"
+
+
+def deeplab_checkpoint(path: Path, backbone: str) -> Path:
+    """A full-width seeded DeepLab (``init_state_dict``, seed SEED, 21 classes)
+    written as the reference does: ``{"state_dict": ...}`` with ``module.``
+    prefixes."""
+    import torch
+
+    from neuralstyletransferv1_torch.models import deeplab as tdl
+
+    sd = tdl.init_state_dict(backbone, 21, seed=SEED)
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}}, path)
+    return path
+
+
+def _timed(label: str, fn, rounds: int) -> float:
+    """Median ms of ``fn`` over ``rounds`` rounds (``_bench.in_turns``: CUDA
+    events around one call a round), logged with its spread."""
+    from neuralstyletransferv1_torch.experiments._bench import in_turns
+
+    t = in_turns({label: (fn, 1)}, rounds)[label]
+    log(f"{label}: median {t['ms']:.3f} ms over {rounds} rounds, spread {t['spread']:.1%}")
+    return t["ms"]
+
+
+def deeplab_vs_cpu(dev, state, backbone: str) -> None:
+    """The f32 DeepLab on the card vs the port on the CPU at DL_CMP_HW²."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.models.deeplab import DeepLab
+
+    x = torch.from_numpy(np.random.default_rng(SEED + 21).standard_normal(
+        (1, DL_CMP_HW, DL_CMP_HW, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = DeepLab(state, backbone=backbone).eval()(x)
+        got = DeepLab(state, backbone=backbone).to(dev).eval()(x.to(dev)).cpu()
+    rel = ((got - want).abs().mean() / want.abs().mean()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"DeepLab {backbone} f32 {DL_CMP_HW}x{DL_CMP_HW}, card vs CPU: relative MAE {rel:.3g} "
+        f"(bound {DL_REL_TOL}), argmax agreement {agree:.5f} (bound {DL_AGREE}), |logits| max "
+        f"{want.abs().max().item():.4g}")
+    if not (rel <= DL_REL_TOL and agree >= DL_AGREE):
+        fail(f"DeepLab {backbone} on the card disagrees with the CPU")
+
+
+def deeplab_forward_bf16(dev, state, backbone: str) -> None:
+    """One full-width bf16 forward at DL_INFER² with B = DL_B, timed by CUDA
+    events: finite logits."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine.masked_stylize import cast_params
+    from neuralstyletransferv1_torch.models.deeplab import DeepLab
+
+    net = cast_params(DeepLab(state, backbone=backbone).to(dev).eval(), torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(SEED + 22).uniform(
+        -1, 1, (DL_B, DL_INFER, DL_INFER, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        y = net(x)
+        _timed(f"DeepLab {backbone} bf16 forward {DL_B}x{DL_INFER}x{DL_INFER}", lambda: net(x), 5)
+    log(f"DeepLab {backbone} bf16 logits {tuple(y.shape)}, |logits| max "
+        f"{y.float().abs().max().item():.4g}, finite {bool(torch.isfinite(y).all())}")
+    if tuple(y.shape) != (DL_B, DL_INFER, DL_INFER, 21) or not bool(torch.isfinite(y).all()):
+        fail(f"the bf16 DeepLab {backbone} forward is not finite or has the wrong shape")
+
+
+def masked_step_phase(dev, state) -> None:
+    """The masked-stylize step at bench.py's shape (1080×1920, B = DL_B,
+    infer_res DL_INFER, the Johnson checkpoint under its preset): bf16 vs
+    f32 on 2 frames (the 1e-2 gate), steady batches timed; then card vs CPU
+    on a 1×128×224 cut-down at infer_res 65."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.engine.masked_stylize import cast_params, make_masked_stylize_step
+    from neuralstyletransferv1_torch.models.deeplab import DeepLab
+    from neuralstyletransferv1_torch.ops.resize import resize_bilinear
+
+    net = DeepLab(state).to(dev).eval()
+    slot = tst.load_model(CKPT, device=dev)
+    frames = torch.from_numpy(np.stack(moving_frames(DL_B, H, W, SEED + 23))).to(dev).float() / 255
+    step16 = make_masked_stylize_step(net, slot, (H, W), infer_res=DL_INFER)
+    step32 = make_masked_stylize_step(net, slot, (H, W), infer_res=DL_INFER,
+                                      compute_dtype=torch.float32)
+    mae = (step16(frames[:2]) - step32(frames[:2])).abs().mean().item()
+    log(f"masked step 2x{H}x{W} infer_res {DL_INFER}, bf16 vs f32: composite MAE {mae:.3g} "
+        f"(bound {QUANT_MAE_TOL}, bench.py's gate)")
+    if not mae <= QUANT_MAE_TOL:
+        fail("the bf16 masked step is outside the 1e-2 gate of the f32 step")
+    out = step16(frames)
+    if tuple(out.shape) != (DL_B, H, W, 3) or not bool(torch.isfinite(out).all()):
+        fail(f"masked step output {tuple(out.shape)} is not finite")
+    med = _timed(f"masked step bf16 {DL_B}x{H}x{W} infer_res {DL_INFER}", lambda: step16(frames),
+                 DL_STEP_BATCHES)
+    log(f"masked step: {med / 1e3:.4f} s a steady batch, {DL_B * 1e3 / med:.2f} frames/s")
+
+    ch, cw, small = 128, 224, 65
+    x = frames[:1, :ch, :cw].contiguous()
+    outs, alphas = [], []
+    for d in (dev, torch.device("cpu")):
+        netd = DeepLab(state).to(d).eval()
+        step = make_masked_stylize_step(netd, tst.load_model(CKPT, device=d), (ch, cw),
+                                        infer_res=small)
+        xd = x.to(d)
+        outs.append(step(xd).cpu())
+        sm = resize_bilinear(xd.bfloat16().float(), (small, small)).bfloat16()
+        with torch.no_grad():
+            lg = cast_params(netd, torch.bfloat16)(sm * 2.0 - 1.0)
+        alphas.append((lg.argmax(-1) != 0).cpu())
+    mae = (outs[0] - outs[1]).abs().mean().item()
+    agree = (alphas[0] == alphas[1]).float().mean().item()
+    log(f"masked step bf16 1x{ch}x{cw} infer_res {small}, card vs CPU: composite MAE {mae:.3g} "
+        f"(bound {QUANT_MAE_TOL}), pre-upsample alpha agreement {agree:.4f} (bound "
+        f"{DL_ALPHA_AGREE}), alpha share {alphas[0].float().mean().item():.3f}")
+    if not (mae <= QUANT_MAE_TOL and agree >= DL_ALPHA_AGREE):
+        fail("the masked step on the card disagrees with the CPU")
+
+
+def sky_swap_phase(dev, workdir: Path, ckpt: Path) -> dict:
+    """``run_sky_swap.main`` end to end on a synthesized 16-frame 1920×1080
+    mp4 with the workflow's defaults (MASK_RES 512, INFER_RES 1280,
+    scan-sky, expand and feather 3%) and PIPELINE_ARGS: one mask per
+    extracted frame, every frame encoded, the exact launches of K1, K2, K3
+    and K4 (zeroed before, read after), the wall time split into extract,
+    masks and the stylize pass. Returns the launches."""
+    import os
+
+    from neuralstyletransferv1_torch.apps import run_sky_swap, sky_swap
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.io import frames as tframes
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+
+    src, dst = workdir / "sky_in.mp4", workdir / "sky_out.mp4"
+    write_clip(src, moving_frames(SKY_FRAMES, H, W, SEED + 24))
+    env = {"INPUT_VIDEO": str(src), "OUTPUT_VIDEO": str(dst), "STYLE_MODEL": str(CKPT),
+           "DEEPLAB_WEIGHTS": str(ckpt), "WORK_ROOT": str(workdir / "_sky"),
+           "OUT_DIR": str(workdir / "sky_out"), "PIPELINE_ARGS": SKY_PIPELINE_ARGS}
+    old_env = {k: os.environ.get(k) for k in env}
+    split = {"extract": 0.0, "masks": 0.0, "stylize pass": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+
+    patched = [(tframes, "extract_frames"), (sky_swap, "batch_masks_from_frames"),
+               (tpipe, "main")]
+    originals = [getattr(m, a) for m, a in patched]
+    for (m, a), key, fn in zip(patched, split, originals):
+        setattr(m, a, timed(key, fn))
+    os.environ.update(env)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = run_sky_swap.main()
+    finally:
+        secs = time.perf_counter() - t0
+        for (m, a), fn in zip(patched, originals):
+            setattr(m, a, fn)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    used = {k: v for k, v in read_counts().items() if v}
+    n_frames = len(list((workdir / "_sky" / "frames").glob("frame_*.png")))
+    n_masks = len(list((workdir / "_sky" / "masks").glob("mask_*.png")))
+    got = clip_frame_count(dst)
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    batches = -(-SKY_FRAMES // B)
+    # the pass sets no --compute_dtype: float32, so each res chain's first
+    # sites take K2's and K3's f32-operand forms
+    want = {"dis_iter": len(_level_sizes(H // ds, W // ds, 2)) * batches,
+            **{k: v * batches for k, v in F32_PER_BATCH["int8_static"].items()}}
+    log(f"run_sky_swap.main on a {SKY_FRAMES}-frame 1080p mp4 (PIPELINE_ARGS "
+        f"'{SKY_PIPELINE_ARGS}'): rc {rc}, {n_frames} frames extracted, {n_masks} masks, {got} "
+        f"frames encoded, {secs:.2f} s (extract {split['extract']:.2f}, masks "
+        f"{split['masks']:.2f}, stylize pass {split['stylize pass']:.2f}, rest "
+        f"{secs - sum(split.values()):.2f}); launches {used}, expected {want}")
+    if rc != 0 or n_frames != SKY_FRAMES or n_masks != n_frames or got != SKY_FRAMES:
+        fail("run_sky_swap did not write one mask per frame and every frame")
+    if used != want:
+        fail(f"run_sky_swap's launches {used} are not the expected {want}")
+    return used
+
+
+def deeplab_phase(dev, workdir: Path) -> dict:
+    """Phase 11: the ResNet-101 DeepLab loaded through ``load_deeplab`` (a
+    ``.pth.tar`` with the reference's wrapper and prefixes), card vs CPU and
+    its bf16 forward; the masked step; the other backbones; the sky-swap
+    workflow. Returns the workflow's launches."""
+    from neuralstyletransferv1_torch.apps.sky_swap import load_deeplab
+
+    t0 = time.perf_counter()
+    ckpt = deeplab_checkpoint(workdir / "deeplab-resnet.pth.tar", "resnet")
+    state, nc, bb = load_deeplab(str(ckpt))
+    if (nc, bb) != (21, "resnet"):
+        fail(f"load_deeplab read {nc} classes, backbone {bb}")
+    deeplab_vs_cpu(dev, state, "resnet")
+    deeplab_forward_bf16(dev, state, "resnet")
+    masked_step_phase(dev, state)
+    for backbone in DL_BACKBONES[1:]:
+        sd_path = deeplab_checkpoint(workdir / f"deeplab-{backbone}.pth.tar", backbone)
+        bstate, _, detected = load_deeplab(str(sd_path))
+        if detected != backbone:
+            fail(f"load_deeplab detected {detected}, expected {backbone}")
+        deeplab_vs_cpu(dev, bstate, backbone)
+        deeplab_forward_bf16(dev, bstate, backbone)
+    launches = sky_swap_phase(dev, workdir, ckpt)
+    log(f"phase 11 (DeepLab, masked step, sky-swap workflow) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def nst_checkpoint(path: Path) -> Path:
     """A full-width NST_Train net from the seed, saved in the reference key
     layout (``down1.conv.weight`` …)."""
@@ -2790,13 +3042,9 @@ def kernel_group(name: str) -> str:
 def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
     NST_Train, ReCoNet, Torch7; the Johnson slices under float32; two slots
-    with rotating voronoi regions), by kind of kernel and by kernel
-    (torch.profiler after two warm-up batches; the regions' frames are
-    numbered from 1 each batch)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    with rotating voronoi regions) and of the masked-stylize step, by kind
+    of kernel and by kernel (torch.profiler after two warm-up batches; the
+    regions' frames are numbered from 1 each batch)."""
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
@@ -2819,27 +3067,107 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
                                           fused_sites=fused)
         proc(frames[:B])
         proc(frames[B:2 * B])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            proc(frames[2 * B:])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(ms for _, ms, _ in kernels)
-        groups: dict = {}
-        for name, ms, _ in kernels:
-            groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
         name = f"{label} {mode}" if label else slice_name(mode, fused)
-        log(f"profile --quantize {name}: batch wall {wall:.2f} ms, "
-            f"device busy {busy:.2f} ms "
-            f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
-        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"  {g}: {ms:.2f} ms")
-        for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
-            log(f"    {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+        profile_report(f"--quantize {name}", lambda: proc(frames[2 * B:]))
+    profile_masked_step(dev, frames)
+    profile_deeplab(dev)
+
+
+def profile_report(label: str, fn, group=kernel_group) -> None:
+    """torch.profiler over one call of ``fn`` (warmed up by the caller): the
+    wall, the device busy time and its share, by kind of kernel and the top
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    groups: dict = {}
+    for name, ms, _ in kernels:
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    log(f"profile {label}: batch wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {ms:.2f} ms")
+    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
+        log(f"    {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def masked_group(name: str) -> str:
+    """``kernel_group`` with the resizes and gathers apart (the masked step's
+    bilinear resizes, antialiased and align-corners, and index gathers)."""
+    n = name.lower()
+    if any(k in n for k in ("upsample", "interpolate", "index", "gather")):
+        return "resize and gather"
+    return kernel_group(name)
+
+
+def profile_masked_step(dev, frames) -> None:
+    """One steady batch of the masked-stylize step (B = DL_B at 1080p,
+    infer_res DL_INFER, the full-width ResNet-101 DeepLab from seed SEED,
+    the Johnson checkpoint), by kind of kernel."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.engine.masked_stylize import make_masked_stylize_step
+    from neuralstyletransferv1_torch.models import deeplab as tdl
+
+    state = tdl.import_deeplab(tdl.init_state_dict("resnet", 21, seed=SEED))[0]
+    step = make_masked_stylize_step(tdl.DeepLab(state).to(dev).eval(),
+                                    tst.load_model(CKPT, device=dev), (H, W), infer_res=DL_INFER)
+    x = torch.from_numpy(np.stack(frames[:DL_B])).to(dev).float() / 255
+    step(x)
+    step(x)
+    profile_report(f"masked step bf16 {DL_B}x{H}x{W} infer_res {DL_INFER}", lambda: step(x),
+                   masked_group)
+
+
+def profile_deeplab(dev) -> None:
+    """The full-width ResNet-101 DeepLab's bf16 forward alone (B = DL_B at
+    DL_INFER²), by kind of kernel; then ASPP's three atrous convs (2048 →
+    256 at the OS16 feature) on channels-last and on NCHW input, timed in
+    turns: the reason ``models/deeplab.aspp`` gives its atrous branches an
+    NCHW copy."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from neuralstyletransferv1_torch.engine.masked_stylize import cast_params
+    from neuralstyletransferv1_torch.experiments._bench import in_turns
+    from neuralstyletransferv1_torch.models import deeplab as tdl
+
+    state = tdl.import_deeplab(tdl.init_state_dict("resnet", 21, seed=SEED))[0]
+    net = cast_params(tdl.DeepLab(state).to(dev).eval(), torch.bfloat16)
+    rng = np.random.default_rng(SEED + 22)
+    x = torch.from_numpy(rng.uniform(-1, 1, (DL_B, DL_INFER, DL_INFER, 3)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        net(x)
+        profile_report(f"DeepLab resnet bf16 forward {DL_B}x{DL_INFER}x{DL_INFER}", lambda: net(x),
+                       masked_group)
+        side = -(-DL_INFER // 16)
+        cout, cin = net.aspp["aspp2"]["conv"].w.shape[:2]
+        feat = torch.from_numpy(rng.standard_normal((DL_B, side, side, cin)).astype(np.float32)).to(
+            dev, torch.bfloat16).permute(0, 3, 1, 2)
+        calls = {}
+        for i, rate in ((2, 6), (3, 12), (4, 18)):
+            w = net.aspp[f"aspp{i}"]["conv"].w
+            for layout, xin in (("channels-last", feat), ("NCHW", feat.contiguous())):
+                calls[f"rate {rate} {layout}"] = (
+                    lambda xin=xin, w=w, rate=rate: F.conv2d(xin, w, None, 1, rate, rate), 3)
+        for name, t in in_turns(calls).items():
+            log(f"ASPP atrous conv {DL_B}x{cin}x{side}x{side} -> {cout}, {name}: {t['ms']:.3f} ms "
+                f"(spread {t['spread']:.1%})")
 
 
 def main() -> int:
@@ -2942,6 +3270,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for k, v in per_frame_phase(dev, tmp).items():
         launches[k] += v
     for k, v in region_phase(dev, tmp).items():
+        launches[k] += v
+    for k, v in deeplab_phase(dev, tmp).items():
         launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
