@@ -178,7 +178,21 @@ order, and any failed phase exits non-zero:
    ``PIPELINE_ARGS="--frame_batch 8 --flow_ema --quantize int8_static"``:
    one mask per extracted frame, every frame encoded, K1, K2, K3 and K4
    launched exactly as predicted, the wall time split into extract, masks
-   and the stylize pass.
+   and the stylize pass;
+12. the magenta slot, Farneback flow and the Caffe SSD detector, on a
+   synthesized 16-frame 1080p mp4: ``main()`` with ``--model_type magenta``
+   (the colour transfer: no SavedModel is in the repo; tile 256, overlap
+   32: 45 tiles a frame, 360 a batch), ``--frame_batch 8 --flow_ema``, every
+   frame encoded, K1's launches exact, the wall split into extract,
+   stylize, flow, temporal and encode, the slot's stylize card vs CPU; the
+   compact CIN net at full width (``cin_tree``, seeded) on a 1080p B=8
+   batch through ``stylize_tiled_batch``, timed, card vs CPU on 6 tiles;
+   ``main()`` with ``--flow_method farneback --quantize int8_static`` and
+   the Johnson checkpoint on the same clip, K1 0 and K2–K4's launches exact
+   (f32 forms included), Farneback's ms a pair at 540×960, card vs CPU on
+   one pair and the clip's pan recovered; the SSD detector on a graph and
+   seeded caffemodel this script writes (``SSD_PROTOTXT``, ``write_ssd``),
+   heads, detections and ``detect_faces`` card vs CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -192,7 +206,9 @@ slices, the f32 and region slices), one steady batch of the masked-stylize
 step (B = 4, 1080p, infer_res 513) and the ResNet-101 DeepLab's forward alone
 with torch.profiler and prints where its device time goes, grouped by kind of
 kernel (PERF.md section 5); then it times ASPP's atrous convs on
-channels-last and on NCHW input.
+channels-last and on NCHW input; then one batch each of the magenta slot,
+the Farneback int8_static slice and the compact CIN net, whose convs it also
+times on NCHW copies of their inputs.
 
     python3 chip_smoke.py --phases
 
@@ -416,6 +432,7 @@ def fail(msg: str) -> None:
 
 
 T_START = time.perf_counter()
+CARD = "card not read"  # nvidia-smi's name and power limit, set by main()
 
 
 def log(msg: str) -> None:
@@ -2280,6 +2297,502 @@ def deeplab_phase(dev, workdir: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the magenta slot, Farneback flow and the Caffe SSD detector
+# ---------------------------------------------------------------------------
+
+ITEM6_FRAMES = 16             # frames of the magenta and Farneback clips
+MAGENTA_TILE, MAGENTA_OVERLAP = 256, 32   # the CLI's defaults
+MAGENTA_MAE_TOL = 1e-4        # [0,1], the colour-transfer slot card vs CPU (LAB a/b round)
+CIN_CMP_HW = (256, 480)       # the compact net card vs CPU: one frame, 6 tiles of 256²
+CIN_MAE_TOL = 1e-5            # [0,1], f32 card vs CPU
+CIN_ROUNDS = 3                # timed rounds of the 1080p B=8 compact-net batch
+FB_MEAN_TOL = 1e-2            # px, mean |Δflow| card vs CPU (one pair)
+FB_SHARE = 0.999              # of the pixels within 0.5 px, card vs CPU
+FB_PAN_TOL = 0.3              # px, the interior's mean flow vs the clip's pan
+SSD_REL_TOL = 1e-4            # relative MAE of the SSD heads, card vs CPU
+SSD_ROW_TOL = 1e-4            # detections after NMS (score, box), card vs CPU
+# a res10-style SSD at narrow widths: BN + Scale on the input, a 7×7 stride-2
+# conv, ceil-mode pool, one residual block, a stride-2 conv; heads on two
+# maps (the first L2-normalized), PriorBox, the Reshape/Softmax/Flatten conf
+# chain and DetectionOutput, as models/face_detector/deploy.prototxt has them
+SSD_PROTOTXT = """
+name: "ssd_small"
+input: "data"
+input_shape { dim: 1 dim: 3 dim: 300 dim: 300 }
+layer { name: "data_bn" type: "BatchNorm" bottom: "data" top: "data_bn" }
+layer { name: "data_scale" type: "Scale" bottom: "data_bn" top: "data_bn"
+  scale_param { bias_term: true } }
+layer { name: "conv1_h" type: "Convolution" bottom: "data_bn" top: "conv1_h"
+  convolution_param { num_output: 16 pad: 3 kernel_size: 7 stride: 2 } }
+layer { name: "conv1_bn_h" type: "BatchNorm" bottom: "conv1_h" top: "conv1_h" }
+layer { name: "conv1_scale_h" type: "Scale" bottom: "conv1_h" top: "conv1_h"
+  scale_param { bias_term: true } }
+layer { name: "conv1_relu" type: "ReLU" bottom: "conv1_h" top: "conv1_h" }
+layer { name: "conv1_pool" type: "Pooling" bottom: "conv1_h" top: "conv1_pool"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "layer_64_1_conv1_h" type: "Convolution" bottom: "conv1_pool"
+  top: "layer_64_1_conv1_h"
+  convolution_param { num_output: 16 bias_term: false pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "layer_64_1_bn2_h" type: "BatchNorm" bottom: "layer_64_1_conv1_h"
+  top: "layer_64_1_conv1_h" }
+layer { name: "layer_64_1_scale2_h" type: "Scale" bottom: "layer_64_1_conv1_h"
+  top: "layer_64_1_conv1_h" scale_param { bias_term: true } }
+layer { name: "layer_64_1_relu2" type: "ReLU" bottom: "layer_64_1_conv1_h"
+  top: "layer_64_1_conv1_h" }
+layer { name: "layer_64_1_conv2_h" type: "Convolution" bottom: "layer_64_1_conv1_h"
+  top: "layer_64_1_conv2_h"
+  convolution_param { num_output: 16 bias_term: false pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "layer_64_1_sum" type: "Eltwise" bottom: "layer_64_1_conv2_h"
+  bottom: "conv1_pool" top: "layer_64_1_sum" }
+layer { name: "conv2_h" type: "Convolution" bottom: "layer_64_1_sum" top: "conv2_h"
+  convolution_param { num_output: 32 pad: 1 kernel_size: 3 stride: 2 } }
+layer { name: "conv2_relu" type: "ReLU" bottom: "conv2_h" top: "conv2_h" }
+layer { name: "f1_norm" type: "Normalize" bottom: "layer_64_1_sum" top: "f1_norm"
+  norm_param { across_spatial: false channel_shared: false } }
+layer { name: "f1_mbox_loc" type: "Convolution" bottom: "f1_norm" top: "f1_mbox_loc"
+  convolution_param { num_output: 16 pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "f1_mbox_loc_perm" type: "Permute" bottom: "f1_mbox_loc"
+  top: "f1_mbox_loc_perm" permute_param { order: 0 order: 2 order: 3 order: 1 } }
+layer { name: "f1_mbox_loc_flat" type: "Flatten" bottom: "f1_mbox_loc_perm"
+  top: "f1_mbox_loc_flat" flatten_param { axis: 1 } }
+layer { name: "f1_mbox_conf" type: "Convolution" bottom: "f1_norm" top: "f1_mbox_conf"
+  convolution_param { num_output: 8 pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "f1_mbox_conf_perm" type: "Permute" bottom: "f1_mbox_conf"
+  top: "f1_mbox_conf_perm" permute_param { order: 0 order: 2 order: 3 order: 1 } }
+layer { name: "f1_mbox_conf_flat" type: "Flatten" bottom: "f1_mbox_conf_perm"
+  top: "f1_mbox_conf_flat" flatten_param { axis: 1 } }
+layer { name: "f1_mbox_priorbox" type: "PriorBox" bottom: "f1_norm" bottom: "data"
+  top: "f1_mbox_priorbox"
+  prior_box_param { min_size: 30.0 max_size: 60.0 aspect_ratio: 2 flip: true clip: false
+    variance: 0.1 variance: 0.1 variance: 0.2 variance: 0.2 step: 4 offset: 0.5 } }
+layer { name: "f2_mbox_loc" type: "Convolution" bottom: "conv2_h" top: "f2_mbox_loc"
+  convolution_param { num_output: 16 pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "f2_mbox_loc_perm" type: "Permute" bottom: "f2_mbox_loc"
+  top: "f2_mbox_loc_perm" permute_param { order: 0 order: 2 order: 3 order: 1 } }
+layer { name: "f2_mbox_loc_flat" type: "Flatten" bottom: "f2_mbox_loc_perm"
+  top: "f2_mbox_loc_flat" flatten_param { axis: 1 } }
+layer { name: "f2_mbox_conf" type: "Convolution" bottom: "conv2_h" top: "f2_mbox_conf"
+  convolution_param { num_output: 8 pad: 1 kernel_size: 3 stride: 1 } }
+layer { name: "f2_mbox_conf_perm" type: "Permute" bottom: "f2_mbox_conf"
+  top: "f2_mbox_conf_perm" permute_param { order: 0 order: 2 order: 3 order: 1 } }
+layer { name: "f2_mbox_conf_flat" type: "Flatten" bottom: "f2_mbox_conf_perm"
+  top: "f2_mbox_conf_flat" flatten_param { axis: 1 } }
+layer { name: "f2_mbox_priorbox" type: "PriorBox" bottom: "conv2_h" bottom: "data"
+  top: "f2_mbox_priorbox"
+  prior_box_param { min_size: 60.0 max_size: 111.0 aspect_ratio: 2 flip: true clip: false
+    variance: 0.1 variance: 0.1 variance: 0.2 variance: 0.2 step: 8 offset: 0.5 } }
+layer { name: "mbox_loc" type: "Concat" bottom: "f1_mbox_loc_flat"
+  bottom: "f2_mbox_loc_flat" top: "mbox_loc" concat_param { axis: 1 } }
+layer { name: "mbox_conf" type: "Concat" bottom: "f1_mbox_conf_flat"
+  bottom: "f2_mbox_conf_flat" top: "mbox_conf" concat_param { axis: 1 } }
+layer { name: "mbox_priorbox" type: "Concat" bottom: "f1_mbox_priorbox"
+  bottom: "f2_mbox_priorbox" top: "mbox_priorbox" concat_param { axis: 2 } }
+layer { name: "mbox_conf_reshape" type: "Reshape" bottom: "mbox_conf"
+  top: "mbox_conf_reshape" reshape_param { shape { dim: 0 dim: -1 dim: 2 } } }
+layer { name: "mbox_conf_softmax" type: "Softmax" bottom: "mbox_conf_reshape"
+  top: "mbox_conf_softmax" softmax_param { axis: 2 } }
+layer { name: "mbox_conf_flatten" type: "Flatten" bottom: "mbox_conf_softmax"
+  top: "mbox_conf_flatten" flatten_param { axis: 1 } }
+layer { name: "detection_out" type: "DetectionOutput" bottom: "mbox_loc"
+  bottom: "mbox_conf_flatten" bottom: "mbox_priorbox" top: "detection_out"
+  include { phase: TEST }
+  detection_output_param { num_classes: 2 share_location: true background_label_id: 0
+    nms_param { nms_threshold: 0.45 top_k: 400 } code_type: CENTER_SIZE keep_top_k: 200
+    confidence_threshold: 0.01 } }
+"""
+
+
+def ssd_blob_shapes(net) -> dict:
+    """Each weighted layer's blob shapes, walked from the parsed prototxt:
+    Convolution [co, ci, k, k] (+ [co]), BatchNorm mean, var, scale factor,
+    Scale [c] (+ [c]), Normalize [c]."""
+    from neuralstyletransferv1_torch.models.caffe_ssd import _bool1, _int1
+
+    shapes = {}
+    channels = {net.one("input", "data"): int(net.one("input_shape").many("dim")[1])}
+    for l in net.many("layer"):
+        ltype, name, bots, tops = l.one("type"), l.one("name"), l.many("bottom"), l.many("top")
+        cin = channels.get(bots[0]) if bots else None
+        if ltype == "Convolution":
+            cp = l.one("convolution_param")
+            cout, k = _int1(cp, "num_output", 1), _int1(cp, "kernel_size", 1)
+            shapes[name] = [(cout, cin, k, k)] + ([(cout,)] if _bool1(cp, "bias_term", True)
+                                                  else [])
+            channels[tops[0]] = cout
+        elif ltype == "BatchNorm":
+            shapes[name] = [(cin,), (cin,), (1,)]
+        elif ltype == "Scale":
+            shapes[name] = [(cin,)] * (2 if _bool1(l.one("scale_param"), "bias_term", False)
+                                       else 1)
+        elif ltype == "Normalize":
+            shapes[name] = [(cin,)]
+        if ltype == "Concat":
+            channels[tops[0]] = sum(channels.get(b, 0) for b in bots)
+        elif tops and tops[0] not in channels:
+            channels[tops[0]] = cin
+    return shapes
+
+
+def write_ssd(d: Path, seed: int) -> tuple:
+    """SSD_PROTOTXT and a caffemodel of seeded weights (BatchNorm's running
+    sums over a scale factor of 2, so the load's division shows) written to
+    ``d``; returns (prototxt, caffemodel, blobs)."""
+    import numpy as np
+
+    from neuralstyletransferv1_torch.io import caffe as cio
+
+    d.mkdir(parents=True, exist_ok=True)
+    proto = d / "deploy.prototxt"
+    proto.write_text(SSD_PROTOTXT)
+    net = cio.parse_prototxt(SSD_PROTOTXT)
+    types = {l.one("name"): l.one("type") for l in net.many("layer")}
+    rng = np.random.default_rng(seed)
+    blobs = {}
+    for name, shapes in ssd_blob_shapes(net).items():
+        c = shapes[0][0]
+        if types[name] == "BatchNorm":
+            # the blob's mean-subtracted input spans about ±128
+            mean, var = ((rng.normal(0, 10, c), np.full(c, 60.0 ** 2)) if name == "data_bn"
+                         else (rng.normal(0, 0.2, c), rng.uniform(0.5, 1.5, c)))
+            arrs = [mean * 2.0, var * 2.0, np.full(1, 2.0)]
+        elif types[name] == "Normalize":
+            arrs = [rng.uniform(5.0, 15.0, c)]
+        elif types[name] == "Scale":
+            arrs = [rng.uniform(0.5, 1.5, c), rng.normal(0, 0.1, c)][:len(shapes)]
+        else:
+            arrs = [rng.normal(0, 1.4 / np.sqrt(np.prod(shapes[0][1:])), shapes[0]),
+                    rng.normal(0, 0.1, c)][:len(shapes)]
+        blobs[name] = [np.asarray(a, np.float32) for a in arrs]
+    model = d / "weights.caffemodel"
+    cio.write_caffemodel(model, blobs, types)
+    return proto, model, blobs
+
+
+def cin_tree(seed: int) -> dict:
+    """A compact CIN net's weights as ``magenta.init``'s tree (numpy, HWIO),
+    drawn from the numpy ``seed`` with init's distributions: convs uniform
+    within ±√3/√fan_in (bias ±1/√fan_in), the projection and the CIN maps
+    N(0, 0.05²), γ biases 1, β biases 0."""
+    import numpy as np
+
+    from neuralstyletransferv1_torch.models import magenta as tm
+
+    rng = np.random.default_rng(seed)
+
+    def conv(ci, co, k):
+        b = (1.0 / (ci * k * k)) ** 0.5
+        return {"w": rng.uniform(-b * 3 ** 0.5, b * 3 ** 0.5, (k, k, ci, co)).astype(np.float32),
+                "b": rng.uniform(-b, b, co).astype(np.float32)}
+
+    cins = (3,) + tm._PRED[:-1]
+    pred = {"convs": [conv(ci, co, 3) for ci, co in zip(cins, tm._PRED)],
+            "proj": {"w": (rng.normal(0, 1, (tm._PRED[-1], tm.BOTTLENECK)) * 0.05)
+                     .astype(np.float32), "b": np.zeros(tm.BOTTLENECK, np.float32)}}
+    net = {name: conv(ci, co, k) for name, ci, co, k, _s in tm._ENC}
+    net.update({f"res{i}_{j}": conv(128, 128, 3) for i in range(1, 6) for j in (1, 2)})
+    net.update({name: conv(ci, co, k) for name, ci, co, k in tm._DEC})
+    net["out"] = conv(tm._OUT[1], tm._OUT[2], tm._OUT[3])
+    cin = {name: {"gw": (rng.normal(0, 1, (tm.BOTTLENECK, w)) * 0.05).astype(np.float32),
+                  "gb": np.ones(w, np.float32),
+                  "bw": (rng.normal(0, 1, (tm.BOTTLENECK, w)) * 0.05).astype(np.float32),
+                  "bb": np.zeros(w, np.float32)} for name, w in tm._CIN_SITES}
+    return {"predictor": pred, "net": net, "cin": cin}
+
+
+def timed_main(argv) -> tuple:
+    """``pipeline.main(argv)`` with its wall split by part: extract (the
+    host blocked on the decode queue), stylize, flow and temporal (each
+    call between two synchronizes, so the device work is inside), encode
+    (the host in the encoder's write and close). Counts zeroed before.
+    Returns (rc, seconds, split)."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.io import frames as tframes
+    from neuralstyletransferv1_torch.temporal import ema as tema
+
+    split = dict.fromkeys(("extract", "stylize", "flow", "temporal", "encode"), 0.0)
+
+    def timed(key, fn, sync):
+        def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+
+    stream_iter = tframes.VideoFrameStream.__iter__
+    jit_stylizer = tst.jit_stylizer
+
+    def timed_iter(self):
+        it = stream_iter(self)
+        while True:
+            t0 = time.perf_counter()
+            f = next(it, None)
+            split["extract"] += time.perf_counter() - t0
+            if f is None:
+                return
+            yield f
+
+    patches = [
+        (tframes.VideoFrameStream, "__iter__", timed_iter),
+        (tst, "jit_stylizer",
+         lambda *a, **k: timed("stylize", jit_stylizer(*a, **k), True)),
+        (tpipe, "flows_at_downscale", timed("flow", tpipe.flows_at_downscale, True)),
+        (tema, "temporal_postprocess_split",
+         timed("temporal", tema.temporal_postprocess_split, True)),
+        (tframes.VideoStreamWriter, "write",
+         timed("encode", tframes.VideoStreamWriter.write, False)),
+        (tframes.VideoStreamWriter, "close",
+         timed("encode", tframes.VideoStreamWriter.close, False)),
+    ]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, fn in patches:
+        setattr(obj, attr, fn)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = tpipe.main([str(a) for a in argv])
+    finally:
+        secs = time.perf_counter() - t0
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return rc, secs, split
+
+
+def _split_text(secs: float, split: dict) -> str:
+    return (f"{secs:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + f", rest {secs - sum(split.values()):.2f})")
+
+
+def magenta_video_phase(dev, workdir: Path, src: Path) -> dict:
+    """``main()`` with a magenta slot (the colour transfer: no SavedModel is
+    in the repo) on the 16-frame 1080p clip, tile 256, overlap 32 (45 tiles
+    a frame, 360 a B=8 batch), ``--frame_batch 8 --flow_ema`` (DIS): every
+    frame encoded, K1's launches exact, the wall split; then the slot's
+    stylize card vs CPU on a 256×480 crop. Returns the launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+
+    style = workdir / "magenta_style.png"
+    Image.fromarray(moving_frames(1, 300, 400, SEED + 30)[0]).save(style)
+    dst = workdir / "magenta_out.mp4"
+    stride = MAGENTA_TILE - MAGENTA_OVERLAP
+    tiles = len(range(0, H, stride)) * len(range(0, W, stride))
+    argv = ["--input_video", src, "--output_video", dst, "--model_type", "magenta",
+            "--magenta_style", style, "--frame_batch", B, "--flow_ema",
+            "--magenta_model_root", workdir / "no_magenta_models", "--work_dir", workdir / "_mg"]
+    rc, secs, split = timed_main(argv)
+    used = {k: v for k, v in read_counts().items() if v}
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    batches = -(-ITEM6_FRAMES // B)
+    want = {"dis_iter": len(_level_sizes(H // ds, W // ds, 2)) * batches}
+    got = clip_frame_count(dst)
+    log(f"main() magenta slot (colour transfer, tile {MAGENTA_TILE}, overlap {MAGENTA_OVERLAP}: "
+        f"{tiles} tiles a frame, {tiles * B} a batch) on a {ITEM6_FRAMES}-frame 1080p mp4, "
+        f"--frame_batch {B} --flow_ema: rc {rc}, {got} frames encoded, {_split_text(secs, split)}; "
+        f"launches {used}, expected {want}")
+    if rc != 0 or got != ITEM6_FRAMES:
+        fail("main() with a magenta slot did not encode every frame")
+    if used != want:
+        fail(f"the magenta video path's launches {used} are not the expected {want}")
+
+    args = tpipe.build_parser().parse_args([str(a) for a in argv])
+    x = torch.from_numpy(np.stack(moving_frames(2, 256, 480, SEED + 31))).float() / 255.0
+    outs = [tst.jit_stylizer(tpipe.load_slot_bank(args, d)[0])(x.to(d)).cpu()
+            for d in (dev, torch.device("cpu"))]
+    mae = (outs[0] - outs[1]).abs().mean().item()
+    log(f"magenta slot stylize 2x256x480, card vs CPU: MAE {mae:.3g} (bound {MAGENTA_MAE_TOL}), "
+        f"max {(outs[0] - outs[1]).abs().max().item():.3g}, output std "
+        f"{outs[0].std().item():.3f}")
+    if not (mae <= MAGENTA_MAE_TOL and outs[0].std().item() > 1e-2):
+        fail("the magenta slot on the card disagrees with the CPU")
+    return used
+
+
+def compact_cin_phase(dev) -> None:
+    """The compact CIN net at full width (seeded ``cin_tree``) on a 1080p
+    B=8 batch through ``stylize_tiled_batch`` (360 tiles of 256², f32, TF32
+    off): finite, in [0, 1], device ms a batch (CUDA events), peak memory;
+    card vs CPU on one 256×480 frame (6 tiles)."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.models import magenta as tm
+
+    tree = cin_tree(SEED + 32)
+    net = tm.compact_from_jax(tree, dev)
+    x = torch.from_numpy(np.stack(moving_frames(B, H, W, SEED + 33))).to(dev).float() / 255.0
+    style = torch.from_numpy(moving_frames(1, MAGENTA_TILE, MAGENTA_TILE, SEED + 34)[0]) \
+        .to(dev).float() / 255.0
+    stride = MAGENTA_TILE - MAGENTA_OVERLAP
+    tiles = B * len(range(0, H, stride)) * len(range(0, W, stride))
+
+    def run():
+        return tm.stylize_tiled_batch(net, x, style, tile_size=MAGENTA_TILE,
+                                      overlap=MAGENTA_OVERLAP)
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if tuple(y.shape) != (B, H, W, 3) or not bool(torch.isfinite(y).all()) \
+                or y.min().item() < 0 or y.max().item() > 1 or y.std().item() < 1e-3:
+            fail(f"the compact net's 1080p batch {tuple(y.shape)} is not a finite [0, 1] image")
+        ms = _timed(f"compact CIN net f32 {B}x{H}x{W} ({tiles} tiles of {MAGENTA_TILE}²)", run,
+                    CIN_ROUNDS)
+    t = MAGENTA_TILE
+    flop_tile = 2 * sum(ho * ho * ci * co * k * k for ho, ci, co, k in (
+        (t, 3, 32, 9), (t // 2, 32, 64, 3), (t // 4, 64, 128, 3), *[(t // 4, 128, 128, 3)] * 10,
+        (t // 2, 128, 64, 3), (t, 64, 32, 3), (t, 32, 3, 9)))
+    flop = flop_tile * tiles
+    log(f"compact CIN net ({CARD}): {ms:.2f} ms a 1080p B={B} batch, "
+        f"{flop_tile / 1e9:.2f} GFLOP a tile, "
+        f"{flop / 1e12:.2f} TFLOP a batch, {flop / ms / 1e9:.1f} TFLOP/s (f32 peak "
+        f"{PEAK_F32_OPS / 1e12:.0f}: {flop / PEAK_F32_OPS * 1e3:.1f} ms), peak memory "
+        f"{peak:.2f} GiB")
+
+    ch, cw = CIN_CMP_HW
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        with torch.no_grad():
+            outs.append(tm.stylize_tiled_batch(
+                tm.compact_from_jax(tree, d), x[:1, :ch, :cw].to(d), style.to(d),
+                tile_size=MAGENTA_TILE, overlap=MAGENTA_OVERLAP).cpu())
+    d_ = (outs[0] - outs[1]).abs()
+    n_cmp = len(range(0, ch, stride)) * len(range(0, cw, stride))
+    log(f"compact CIN net 1x{ch}x{cw} ({n_cmp} tiles), card vs CPU: MAE {d_.mean().item():.3g} "
+        f"(bound {CIN_MAE_TOL}), max {d_.max().item():.3g}")
+    if not d_.mean().item() <= CIN_MAE_TOL:
+        fail("the compact CIN net on the card disagrees with the CPU")
+
+
+def farneback_phase(dev, workdir: Path, src: Path) -> dict:
+    """``main()`` with ``--flow_method farneback --quantize int8_static`` and
+    the Johnson checkpoint (float32: K2 and K3 take their f32 forms at the
+    res chain's first sites) on the 16-frame clip: K1 0 and K2–K4's
+    launches exact, the wall split; Farneback's ms a pair at 540×960 (the
+    auto downscale 2) over 8 pairs; card vs CPU on one pair (mean |Δflow|,
+    the share within 0.5 px) and the clip's pan recovered. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.color import rgb_to_gray
+    from neuralstyletransferv1_torch.ops.flow import farneback_flow
+    from neuralstyletransferv1_torch.ops.resize import resize_bilinear
+
+    dst = workdir / "fb_out.mp4"
+    rc, secs, split = timed_main(
+        ["--input_video", src, "--output_video", dst, "--model", CKPT, "--frame_batch", B,
+         "--flow_ema", "--flow_method", "farneback", "--quantize", "int8_static",
+         "--work_dir", workdir / "_fb"])
+    used = {k: v for k, v in read_counts().items() if v}
+    batches = -(-ITEM6_FRAMES // B)
+    want = {k: v * batches for k, v in F32_PER_BATCH["int8_static"].items()}
+    got = clip_frame_count(dst)
+    log(f"main() --flow_method farneback --quantize int8_static on a {ITEM6_FRAMES}-frame 1080p "
+        f"mp4, --frame_batch {B} --flow_ema: rc {rc}, {got} frames encoded, "
+        f"{_split_text(secs, split)}; launches {used}, expected {want}")
+    if rc != 0 or got != ITEM6_FRAMES:
+        fail("main() with --flow_method farneback did not encode every frame")
+    if used != want:
+        fail(f"the Farneback path's launches {used} are not the expected {want}")
+
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    u8 = torch.from_numpy(np.stack(moving_frames(B + 1, H, W, SEED + 35))).to(dev)
+    g = resize_bilinear(rgb_to_gray(u8.float())[..., None], (H // ds, W // ds))[..., 0]
+    prevs, currs = g[:-1].contiguous(), g[1:].contiguous()
+    with torch.no_grad():
+        ms = _timed(f"farneback_flow {B} pairs at {H // ds}x{W // ds}",
+                    lambda: farneback_flow(prevs, currs), 5)
+        card = farneback_flow(prevs[:1], currs[:1])[0].cpu()
+        cpu = farneback_flow(prevs[:1].cpu(), currs[:1].cpu())[0]
+    d = (card - cpu).abs()
+    share = (d.amax(-1) <= 0.5).float().mean().item()
+    m = min(H, W) // ds // 8
+    pan = card[m:-m, m:-m].mean((0, 1)).tolist()
+    log(f"farneback_flow at {H // ds}x{W // ds} ({CARD}): {ms / B:.3f} ms a pair ({ms:.2f} ms "
+        f"for {B}); "
+        f"card vs CPU on one pair: mean |dflow| {d.mean().item():.3g} px (bound {FB_MEAN_TOL}), "
+        f"{share:.5f} within 0.5 px (bound {FB_SHARE}), max {d.max().item():.3g}; interior mean "
+        f"flow ({pan[0]:.3f}, {pan[1]:.3f}) px, the pan ({3 / ds}, {1 / ds})")
+    if not (d.mean().item() <= FB_MEAN_TOL and share >= FB_SHARE):
+        fail("Farneback on the card disagrees with the CPU")
+    if not (abs(pan[0] - 3 / ds) <= FB_PAN_TOL and abs(pan[1] - 1 / ds) <= FB_PAN_TOL):
+        fail("Farneback does not recover the clip's pan")
+    return used
+
+
+def ssd_phase(dev, workdir: Path) -> None:
+    """The port's SSD detector on the card on SSD_PROTOTXT and a seeded
+    caffemodel that this phase writes: the heads (loc, conf) against the
+    CPU run, the detections after NMS the same, ``detect_faces`` the same
+    faces, the trunk timed."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.models import caffe_ssd as tssd
+
+    proto, model, _ = write_ssd(workdir / "ssd", SEED + 36)
+    img = moving_frames(1, 480, 640, SEED + 37)[0]
+    path = workdir / "faces.png"
+    Image.fromarray(img).save(path)
+    blob = tssd.blob_from_image_bgr(np.ascontiguousarray(img[..., ::-1]))
+    sides = {"card": dev, "cpu": torch.device("cpu")}
+    nets = {s: tssd.load_caffe_ssd(proto, model, d) for s, d in sides.items()}
+    heads = {s: {k: v.cpu() for k, v in n.trunk(blob).items()} for s, n in nets.items()}
+    rel = {k: ((heads["card"][k] - heads["cpu"][k]).abs().mean()
+               / heads["cpu"][k].abs().mean()).item() for k in ("__loc__", "__conf__")}
+    a, b = (nets[s].forward(blob)[0, 0] for s in sides)
+    same = a.shape == b.shape and a.shape[0] > 0 and bool(np.abs(a - b).max() <= SSD_ROW_TOL)
+    faces = {s: tssd.detect_faces(path, proto, model, 0.5, device=d) for s, d in sides.items()}
+    same_faces = [f["bbox"] for f in faces["card"]] == [f["bbox"] for f in faces["cpu"]]
+    x = torch.from_numpy(blob).to(dev)
+    ms = _timed("SSD trunk 1x3x300x300", lambda: nets["card"].trunk(x), 5)
+    log(f"SSD ({len(nets['cpu'].layers)} layers, priors on {len(nets['cpu'].priorbox_layers)} "
+        f"maps) card vs CPU: heads relative MAE loc {rel['__loc__']:.3g}, conf "
+        f"{rel['__conf__']:.3g} (bound {SSD_REL_TOL}); {a.shape[0]} detections after NMS, "
+        f"{'the same' if same else 'NOT the same'} (bound {SSD_ROW_TOL}); detect_faces "
+        f"{len(faces['card'])} faces at 0.5, {'the same' if same_faces else 'NOT the same'}; "
+        f"trunk {ms:.3f} ms")
+    if not (max(rel.values()) <= SSD_REL_TOL and same and same_faces):
+        fail("the SSD detector on the card disagrees with the CPU")
+
+
+def backends_phase(dev, workdir: Path) -> dict:
+    """Phase 12: the magenta video path, the compact CIN net at full width,
+    the Farneback video path and the SSD detector. Returns the two video
+    paths' launches."""
+    t0 = time.perf_counter()
+    src = workdir / "item6_in.mp4"
+    write_clip(src, moving_frames(ITEM6_FRAMES, H, W, SEED + 29))
+    launches = dict(magenta_video_phase(dev, workdir, src))
+    compact_cin_phase(dev)
+    for k, v in farneback_phase(dev, workdir, src).items():
+        launches[k] = launches.get(k, 0) + v
+    ssd_phase(dev, workdir)
+    log(f"phase 12 (magenta, compact CIN net, Farneback, SSD) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def nst_checkpoint(path: Path) -> Path:
     """A full-width NST_Train net from the seed, saved in the reference key
     layout (``down1.conv.weight`` …)."""
@@ -3029,7 +3542,8 @@ def kernel_group(name: str) -> str:
         return "int8 sites K2-K8b"
     if "dis_iter" in n:
         return "K1 (DIS)"
-    if any(k in n for k in ("conv", "xmma", "cutlass", "sm90_", "implicit", "gemm", "cudnn")):
+    if any(k in n for k in ("conv", "xmma", "cutlass", "sm90_", "implicit", "gemm", "cudnn",
+                            "fft", "pointwise_mult_and_sum")):  # cuDNN's FFT convolutions
         return "cuDNN conv"
     if any(k in n for k in ("memcpy", "memset", "copy", "cat", "transpose", "pad",
                             "index", "gather", "repeat")):
@@ -3039,7 +3553,7 @@ def kernel_group(name: str) -> str:
     return "elementwise"
 
 
-def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
+def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir: Path):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
     NST_Train, ReCoNet, Torch7; the Johnson slices under float32; two slots
     with rotating voronoi regions) and of the masked-stylize step, by kind
@@ -3071,6 +3585,64 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict):
         profile_report(f"--quantize {name}", lambda: proc(frames[2 * B:]))
     profile_masked_step(dev, frames)
     profile_deeplab(dev)
+    profile_backends(dev, workdir, frames)
+
+
+def profile_backends(dev, workdir: Path, frames) -> None:
+    """Phase 12's paths profiled like the slices: one steady 1080p B=8 batch
+    of the magenta slot (colour transfer) and of the Farneback int8_static
+    slice (float32) through ``make_batched_core``, flow EMA; one compact-CIN
+    batch (360 tiles)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.models import magenta as tm
+
+    style = workdir / "magenta_style.png"
+    Image.fromarray(moving_frames(1, 300, 400, SEED + 30)[0]).save(style)
+    base = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--frame_batch", str(B),
+            "--flow_ema"]
+    for label, extra in (
+            ("magenta (colour transfer)", ["--model_type", "magenta", "--magenta_style",
+                                           str(style), "--magenta_model_root",
+                                           str(workdir / "no_magenta_models")]),
+            ("farneback int8_static (f32)", ["--model", str(CKPT), "--flow_method", "farneback",
+                                             "--quantize", "int8_static"])):
+        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(base + extra), dev)
+        proc(frames[:B])
+        proc(frames[B:2 * B])
+        profile_report(label, lambda: proc(frames[2 * B:]))
+    net = tm.compact_from_jax(cin_tree(SEED + 32), dev)
+    x = torch.from_numpy(np.stack(frames[:B])).to(dev).float() / 255.0
+    st = x[0, :MAGENTA_TILE, :MAGENTA_TILE]
+
+    def run():
+        with torch.no_grad():
+            return tm.stylize_tiled_batch(net, x, st)
+
+    run()
+    profile_report(f"compact CIN net {B}x{H}x{W}", run)
+
+    # the same batch with every conv on an NCHW copy of its input, in turns
+    import torch.nn.functional as F
+
+    from neuralstyletransferv1_torch.experiments._bench import in_turns
+
+    conv_nhwc = tm._conv_nhwc
+
+    def run_nchw():
+        tm._conv_nhwc = lambda x_, w, b, s_: F.conv2d(
+            x_.permute(0, 3, 1, 2).contiguous(), w, b, stride=s_).permute(0, 2, 3, 1)
+        try:
+            return run()
+        finally:
+            tm._conv_nhwc = conv_nhwc
+
+    t = in_turns({"channels-last": (run, 1), "NCHW copies": (run_nchw, 1)}, 3)
+    log("compact CIN net by conv input layout: " + ", ".join(
+        f"{k} {v['ms']:.2f} ms (spread {v['spread']:.1%})" for k, v in t.items()))
 
 
 def profile_report(label: str, fn, group=kernel_group) -> None:
@@ -3188,6 +3760,8 @@ def main() -> int:
     if card is None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(card, flush=True)
+    global CARD
+    CARD = card
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from neuralstyletransferv1_torch.device import resolve_device
@@ -3217,7 +3791,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     t7_ckpts = {norm: t7_checkpoint(tmp / f"eccv16_{norm}.t7", norm) for norm in ("in", "bn")}
     if sys.argv[1:] in (["--profile"], ["--phases"]):
         if sys.argv[1] == "--profile":
-            profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts)
+            profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts, tmp)
         else:
             phases_phase(dev)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3272,6 +3846,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for k, v in region_phase(dev, tmp).items():
         launches[k] += v
     for k, v in deeplab_phase(dev, tmp).items():
+        launches[k] += v
+    for k, v in backends_phase(dev, tmp).items():
         launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -1,4 +1,4 @@
-"""The engine: decode → stylize → DIS flow → temporal chain → encode, for
+"""The engine: decode → stylize → flow → temporal chain → encode, for
 videos and images.
 
 Counterpart of ``neuralstyletransferv1_tpu/engine/pipeline.py``, with the
@@ -40,7 +40,6 @@ from .config import build_arg_parser
 _LETTERS = "abcdefgh"
 
 # ROADMAP.md "Queue 1 — port slices" items that port each unsupported mode.
-_BACKENDS = "ROADMAP.md Queue 1, item 6 (other stylizer backends, Farneback flow)"
 _MULTI = "ROADMAP.md Queue 1, item 8 (multi-GPU)"
 _BENCH = "ROADMAP.md Queue 1, item 9 (bench and tracing)"
 
@@ -54,18 +53,21 @@ def effective_flow_downscale(flow_downscale: int, h: int, w: int) -> int:
 
 
 def flows_at_downscale(args, prevs: torch.Tensor, grays: torch.Tensor) -> torch.Tensor:
-    """DIS flow prevs[i] → grays[i] ([N,H,W] gray) at the auto/explicit
-    --flow_downscale, scaled back to the frame size: [N,H,W,2]."""
+    """Flow prevs[i] → grays[i] ([N,H,W] gray) by --flow_method (DIS or
+    Farneback) at the auto/explicit --flow_downscale, scaled back to the
+    frame size: [N,H,W,2]."""
     from ..ops.dis_flow import dis_flow
+    from ..ops.flow import farneback_flow
     from ..ops.resize import resize_bilinear
 
+    flow = dis_flow if args.flow_method == "dis" else farneback_flow
     H, W = grays.shape[1], grays.shape[2]
     ds = effective_flow_downscale(int(args.flow_downscale), H, W)
     if ds <= 1:
-        return dis_flow(prevs, grays)
+        return flow(prevs, grays)
     hs, ws = H // ds, W // ds
-    f_small = dis_flow(resize_bilinear(prevs[..., None], (hs, ws))[..., 0],
-                       resize_bilinear(grays[..., None], (hs, ws))[..., 0])
+    f_small = flow(resize_bilinear(prevs[..., None], (hs, ws))[..., 0],
+                   resize_bilinear(grays[..., None], (hs, ws))[..., 0])
     return resize_bilinear(f_small, (H, W)) * float(ds)
 
 
@@ -415,14 +417,8 @@ def check_supported(args) -> None:
     """Raise NotImplementedError for every flag this port does not run yet."""
     unsupported = [
         (int(args.mesh_devices or 0) > 1, "--mesh_devices > 1", _MULTI),
-        (args.flow_method != "dis", f"--flow_method {args.flow_method}", _BACKENDS),
         (bool(args.profile_dir), "--profile_dir", _BENCH),
     ]
-    for path, model_type, _preset, magenta_style in _slot_args(args):
-        t7 = path and model_type != "magenta" and Path(path).suffix.lower() == ".t7"
-        other = path and model_type not in ("transformer", "reconet", "torch7") and not t7
-        unsupported.append((bool(other or (model_type == "magenta" and magenta_style)),
-                            f"{model_type} slot {path or magenta_style}", _BACKENDS))
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to PyTorch yet: {item}")
@@ -437,13 +433,23 @@ def _slot_args(args):
 
 
 def load_slot_bank(args, device) -> list:
-    """The Johnson, NST_Train, ReCoNet and Torch7 checkpoints of slots A..H,
-    on ``device`` (a ``.t7`` file loads as a Torch7 slot whatever its
-    ``--model*_type``, as the JAX engine's ``_load_slot`` does)."""
+    """Slots A..H on ``device``, as the JAX engine's ``_load_slot`` loads
+    them: a Johnson, NST_Train, ReCoNet or Torch7 checkpoint (a ``.t7`` file
+    loads as a Torch7 slot whatever its ``--model*_type``), or a magenta
+    slot from its ``--magenta_style*`` image and the ``--magenta_*`` flags;
+    a slot with neither is empty."""
     from . import stylizer as st
 
-    return [st.load_model(path, model_type=model_type, io_preset=io_preset, device=device)
-            for path, model_type, io_preset, _style in _slot_args(args) if path]
+    slots = []
+    for path, model_type, io_preset, style in _slot_args(args):
+        if model_type == "magenta":
+            if style:
+                slots.append(st.load_model(style, model_type="magenta", device=device,
+                                           magenta_args=args))
+        elif path:
+            slots.append(st.load_model(path, model_type=model_type, io_preset=io_preset,
+                                       device=device))
+    return slots
 
 
 def list_frame_files(args, frames_dir: Path) -> list[Path]:
@@ -488,12 +494,13 @@ def _save(img_u8: np.ndarray, out_path: Path, jpg: bool, quality: int) -> None:
 def make_batched_core(args, device: torch.device, *, fused_sites=None,
                       frames_dir: Path | None = None):
     """The per-batch pipeline: slot-bank stylize → slot blend (RGB weights,
-    ``--blend_models_lab``, or the ``--region_*`` composite per frame) → DIS
-    flow → temporal chain (with the ``--mask`` / ``--mask_dir`` composite),
-    uint8 in and out. ``fused_sites``: the fused-site set (``jit_stylizer``):
-    None is the adopted one in the int8 modes and no fused site otherwise;
-    ``head``, ``tail`` and ``d3`` name the bf16 sites. ``frames_dir``: where
-    the mask debug dumps go (its parent's ``debug``).
+    ``--blend_models_lab``, or the ``--region_*`` composite per frame) →
+    ``--flow_method`` flow → temporal chain (with the ``--mask`` /
+    ``--mask_dir`` composite), uint8 in and out. ``fused_sites``: the
+    fused-site set (``jit_stylizer``): None is the adopted one in the int8
+    modes and no fused site otherwise; ``head``, ``tail`` and ``d3`` name
+    the bf16 sites. ``frames_dir``: where the mask debug dumps go (its
+    parent's ``debug``).
 
     Returns (B, process_batch) where ``process_batch(imgs: list[np.uint8
     HWC], names: list[Path] | None, b0: int) -> device uint8 [B,H,W,3]``:
@@ -705,8 +712,8 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
     per frame, optional ``--inference_res`` downscale, every slot's stylize
     locked back to the frame size, the slot blend (the ``--region_*``
     composite, ``--blend_models_lab``, or RGB weights; ``--region_optimize``
-    styles only the regions' crops instead), flow EMA (DIS at the
-    auto/explicit flow downscale, exact warp), LAB EMA, the ``--mask`` /
+    styles only the regions' crops instead), flow EMA (DIS or Farneback at
+    the auto/explicit flow downscale, exact warp), LAB EMA, the ``--mask`` /
     ``--mask_dir`` composite, then the motion blend (not on a masked frame)
     or the uniform one. A change of frame size resets the temporal caches;
     the first two frames of a video dump slot A's output and the input under
@@ -931,6 +938,9 @@ def main(argv=None) -> int:
         return 2
     if args.model_type != "magenta" and not args.model:
         print("[error] --model is required unless --model_type magenta")
+        return 2
+    if args.model_type == "magenta" and not args.magenta_style:
+        print("[magenta][ERROR] --magenta_style is required when --model_type magenta")
         return 2
     if image_mode:
         if args.motion_blend:

@@ -1,7 +1,7 @@
-"""The stylizer bank: Johnson, NST_Train, ReCoNet and Torch7 slots resident
-on the device, one call per frame batch.
+"""The stylizer bank: Johnson, NST_Train, ReCoNet, Torch7 and magenta slots
+resident on the device, one call per frame batch.
 
-Counterpart of the Johnson, NST, ReCoNet and ``.t7`` parts of
+Counterpart of the Johnson, NST, ReCoNet, ``.t7`` and magenta parts of
 ``neuralstyletransferv1_tpu/engine/stylizer.py``. The JAX engine runs a space-to-depth form with the IO-preset
 affine baked into the first and last convs; this port computes the same
 function directly: preprocess → TransformerNet → postprocess.
@@ -38,6 +38,9 @@ choose the K5 form of the ``res_i8`` chain). Torch7 slots (``.t7`` files, or
 and the exact executor ``io/t7.t7_apply`` where it does not; their int8
 modes route by the adopted ``t7`` set (instance-norm graphs) or ``t7_bn``
 (BN-folded graphs, and instance-norm graphs folded by the static modes).
+Magenta slots (``model_type="magenta"``: a style image, preset ``raw_01``)
+run the tiled transfer of ``models/magenta.py`` in f32 whatever the dtype
+and quantize mode, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -67,21 +70,29 @@ QUANTIZE_MODES = ("none", "bf16_static", "int8_static", "int8")
 class StyleModel:
     """One loaded slot of the model bank."""
 
-    arch: str  # johnson | nst | reconet | t7
-    net: TransformerNet | tnn.TransformerNetNST | rn.ReCoNet | list  # t7: the layer list
+    arch: str  # johnson | nst | reconet | t7 | magenta
+    # t7: the layer list; magenta: a models/magenta_stub.MagentaSlot
+    net: TransformerNet | tnn.TransformerNetNST | rn.ReCoNet | list | object
     io_preset: str
     name: str = ""
 
 
 def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: str = "auto",
-               name: str | None = None, device: torch.device | str = "cpu") -> StyleModel:
+               name: str | None = None, device: torch.device | str = "cpu",
+               magenta_args=None) -> StyleModel:
     """Load a reference-format Johnson, NST_Train or ReCoNet checkpoint
     (``io/checkpoints``, the port's copy of the JAX engine's importer; a
     ``transformer``'s arch by key prefix, a ``reconet``'s norm family by its
     ``.tau`` keys), or a Torch7 ``.t7`` net (by its suffix, or
     ``model_type="torch7"``: ``io/t7.load_torch7_model``, its layers on
     ``device``). NST checkpoints force ``raw_01`` over ``raw_255`` and
-    ``imagenet_255``, as the reference does."""
+    ``imagenet_255``, as the reference does. A ``magenta`` slot's ``path``
+    is its style image (``models/magenta_stub.load_magenta_slot``, with the
+    CLI's ``--magenta_*`` values in ``magenta_args``, defaults where None)."""
+    if model_type == "magenta":
+        from ..models.magenta_stub import load_magenta_slot
+
+        return load_magenta_slot(str(path), magenta_args, device)
     path = Path(path)
     if model_type == "torch7" or path.suffix.lower() == ".t7":
         from ..io.t7 import load_torch7_model
@@ -89,10 +100,8 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
         m = load_torch7_model(str(path), io_preset, device=device)
         return StyleModel(m.arch, m.net, m.io_preset, name or m.name)
     if model_type not in ("transformer", "reconet"):
-        raise NotImplementedError(
-            f"model type {model_type!r}: only 'transformer' (Johnson, NST_Train), 'reconet' "
-            "and 'torch7' slots are ported (ROADMAP.md Queue 1, item 6: other stylizer "
-            "backends)")
+        raise ValueError(f"model type {model_type!r} is not one of transformer, torch7, "
+                         "magenta, reconet")
     sd = ckpt.load_state_dict(str(path))
     arch = "reconet" if model_type == "reconet" else ckpt.detect_transformer_arch(sd)
     if arch == "reconet":
@@ -223,6 +232,8 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
     mode calibrates lazily on the first frame of the first batch."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_MODES}")
+    if model.arch == "magenta":
+        return _magenta_stylizer(model)
     if model.arch == "nst":
         return _nst_stylizer(model, dtype, quantize, fused_sites)
     if model.arch == "reconet":
@@ -441,5 +452,32 @@ def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sit
             return stylize(exact, model.io_preset, x).float()
         mh, mw = (8, 32) if big_pad and H >= 32 and W >= 64 else (4, 4)
         return _pad_call(stylize, state["forward"], model.io_preset, x, mh, mw).float()
+
+    return fn
+
+
+def _magenta_stylizer(model: StyleModel):
+    """``jit_stylizer`` for a magenta slot (JAX ``_jit_magenta_stylizer``):
+    the optional ``--magenta_target_res`` downscale (long side, ``int(H·r)``),
+    the tiled transfer of the whole frame batch (``models/magenta.
+    stylize_tiled_batch``), the resize back, f32 out. It takes neither the
+    compute dtype nor a quantize mode: the JAX engine dispatches a magenta
+    slot before either applies."""
+    from ..models.magenta import stylize_tiled_batch
+
+    p = model.net
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        H, W = x01.shape[1], x01.shape[2]
+        work = x01.float()
+        if p.target_res and max(H, W) > p.target_res:
+            r = p.target_res / max(H, W)
+            work = resize_bilinear(work, (int(H * r), int(W * r)))
+        y = stylize_tiled_batch(None, work, p.style01, tile_size=p.tile, overlap=p.overlap,
+                                transfer_fn=p.transfer_fn)
+        if y.shape[1:3] != (H, W):
+            y = resize_bilinear(y, (H, W))
+        return y.float()
 
     return fn

@@ -133,19 +133,22 @@ def test_cli_main_matches_jax(tmp_path):
 
 
 def test_unported_flags_raise():
-    for extra in (["--mesh_devices", "2"], ["--flow_method", "farneback"],
-                  ["--profile_dir", "p"], ["--model_b", "b.pth", "--model_b_type", "magenta"],
-                  ["--model_type", "magenta"]):
+    for extra in (["--mesh_devices", "2"], ["--profile_dir", "p"]):
         args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra)
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
             tpipe.check_supported(args)
     # the regions, masks, the LAB blend and --quantize on the default float32
-    # run now (tests/test_torch_region.py, tests/test_torch_quant_f32.py)
+    # run now (tests/test_torch_region.py, tests/test_torch_quant_f32.py), and
+    # so do Farneback and magenta slots (tests/test_torch_flow.py,
+    # tests/test_torch_magenta.py)
     for extra in (["--region_mode", "grid"], ["--mask", "m.png"], ["--blend_models_lab"],
-                  ["--quantize", "int8"], ["--quantize", "bf16_static"]):
+                  ["--quantize", "int8"], ["--quantize", "bf16_static"],
+                  ["--flow_method", "farneback"],
+                  ["--model_b", "b.pth", "--model_b_type", "magenta"],
+                  ["--model_type", "magenta", "--magenta_style", "s.png"]):
         tpipe.check_supported(tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra))
     # the image modes run (tests/test_torch_per_frame.py); their unported
     # flags raise before any work
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tpipe.main(["--input_image", "a.png", "--output_image", "b.png", "--model", str(CKPT),
-                    "--flow_method", "farneback", "--device", "cpu"])
+                    "--profile_dir", "p", "--device", "cpu"])
