@@ -192,10 +192,27 @@ order, and any failed phase exits non-zero:
    (f32 forms included), Farneback's ms a pair at 540×960, card vs CPU on
    one pair and the clip's pan recovered; the SSD detector on a graph and
    seeded caffemodel this script writes (``SSD_PROTOTXT``, ``write_ssd``),
-   heads, detections and ``detect_faces`` card vs CPU.
+   heads, detections and ``detect_faces`` card vs CPU;
+13. the weight ladder and the Gram NST (BASELINE configs #2 and #3, as
+   ``bench.py``'s ``_ladder`` and ``_gram_nst`` set them up): a bank of 8
+   random full-width Johnson slots (``make_random_model("johnson",
+   seed=s)``) through ``jit_ladder_stylizer`` in bf16 on 1080×1920 B=2,
+   steady calls timed by CUDA events over rounds with their spread, peak
+   memory, the device's busy share (torch.profiler); an NST_Train bank of 4
+   rungs likewise; the f32 bank against its models one by one (1e-5), bf16
+   against f32 (1e-2 under the bench's ``imagenet_255``, 5e-2 under
+   ``raw_01``), card against CPU on a small f32 bank (1e-4); the Gram NST
+   (VGG16 from seed 0, content and style uniform at 512², 500 steps, f32):
+   a first and a second whole call timed, steps/s, peak memory, the history
+   finite and falling, 10 steps profiled (busy share, launches a step),
+   card vs CPU over 10 steps at 64²; then ``slow_nst.main`` (20 steps at
+   256²) and ``style_all_weights.main`` (two rungs, 4 frames) on the card;
+   no kernel of K1–K13 is on this path, and none may launch.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the kernels' record holds the bench's ladder and Gram NST
+keys (``ladder_passes_per_sec``, ``ladder_sec_per_pass``,
+``gram_nst_500steps_512_sec``); the line before the last is the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -2312,6 +2329,18 @@ FB_SHARE = 0.999              # of the pixels within 0.5 px, card vs CPU
 FB_PAN_TOL = 0.3              # px, the interior's mean flow vs the clip's pan
 SSD_REL_TOL = 1e-4            # relative MAE of the SSD heads, card vs CPU
 SSD_ROW_TOL = 1e-4            # detections after NMS (score, box), card vs CPU
+LADDER_M, LADDER_B = 8, 2      # the bench's Johnson bank and batch (bench.py::_ladder)
+LADDER_NST_M = 4              # rungs of the NST_Train bank
+LADDER_ROUNDS = 5             # timed rounds of a ladder call
+LADDER_CMP = (2, 64, 96)      # the small f32 bank's input, card vs CPU
+LADDER_F32_TOL = 1e-5         # [0,1], the f32 bank against its models one by one (MAE)
+LADDER_CARD_TOL = 1e-4        # [0,1], the f32 bank card vs CPU (MAE)
+GRAM_HW, GRAM_STEPS = 512, 500  # the bench's Gram NST (bench.py::_gram_nst)
+GRAM_CMP_HW, GRAM_CMP_STEPS = 64, 10  # its card vs CPU run
+GRAM_HIST_TOL = 1e-4          # relative, each step's loss card vs CPU
+GRAM_IMG_TOL = 1e-4           # the image's mean |Δ| card vs CPU (≥ GRAM_IMG_SHARE within 1e-3)
+GRAM_IMG_SHARE = 0.999
+SAW_FRAMES, SAW_HW = 4, (540, 960)  # style_all_weights on the card: frames, their size
 # a res10-style SSD at narrow widths: BN + Scale on the input, a 7×7 stride-2
 # conv, ceil-mode pool, one residual block, a stride-2 conv; heads on two
 # maps (the first L2-normalized), PriorBox, the Reshape/Softmax/Flatten conf
@@ -2470,34 +2499,11 @@ def write_ssd(d: Path, seed: int) -> tuple:
 
 
 def cin_tree(seed: int) -> dict:
-    """A compact CIN net's weights as ``magenta.init``'s tree (numpy, HWIO),
-    drawn from the numpy ``seed`` with init's distributions: convs uniform
-    within ±√3/√fan_in (bias ±1/√fan_in), the projection and the CIN maps
-    N(0, 0.05²), γ biases 1, β biases 0."""
-    import numpy as np
-
+    """A compact CIN net's weights as ``magenta.init``'s tree, drawn from
+    the numpy ``seed`` (``models/magenta.init_tree``)."""
     from neuralstyletransferv1_torch.models import magenta as tm
 
-    rng = np.random.default_rng(seed)
-
-    def conv(ci, co, k):
-        b = (1.0 / (ci * k * k)) ** 0.5
-        return {"w": rng.uniform(-b * 3 ** 0.5, b * 3 ** 0.5, (k, k, ci, co)).astype(np.float32),
-                "b": rng.uniform(-b, b, co).astype(np.float32)}
-
-    cins = (3,) + tm._PRED[:-1]
-    pred = {"convs": [conv(ci, co, 3) for ci, co in zip(cins, tm._PRED)],
-            "proj": {"w": (rng.normal(0, 1, (tm._PRED[-1], tm.BOTTLENECK)) * 0.05)
-                     .astype(np.float32), "b": np.zeros(tm.BOTTLENECK, np.float32)}}
-    net = {name: conv(ci, co, k) for name, ci, co, k, _s in tm._ENC}
-    net.update({f"res{i}_{j}": conv(128, 128, 3) for i in range(1, 6) for j in (1, 2)})
-    net.update({name: conv(ci, co, k) for name, ci, co, k in tm._DEC})
-    net["out"] = conv(tm._OUT[1], tm._OUT[2], tm._OUT[3])
-    cin = {name: {"gw": (rng.normal(0, 1, (tm.BOTTLENECK, w)) * 0.05).astype(np.float32),
-                  "gb": np.ones(w, np.float32),
-                  "bw": (rng.normal(0, 1, (tm.BOTTLENECK, w)) * 0.05).astype(np.float32),
-                  "bb": np.zeros(w, np.float32)} for name, w in tm._CIN_SITES}
-    return {"predictor": pred, "net": net, "cin": cin}
+    return tm.init_tree(seed)
 
 
 def timed_main(argv) -> tuple:
@@ -2791,6 +2797,223 @@ def backends_phase(dev, workdir: Path) -> dict:
     log(f"phase 12 (magenta, compact CIN net, Farneback, SSD) took "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def ladder_bank(arch: str, m: int, preset: str | None, dev) -> list:
+    """``m`` random full-width slots of ``arch`` (seeds 0..m−1) on ``dev``."""
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    return [tst.make_random_model(arch, seed=s, io_preset=preset, device=dev) for s in range(m)]
+
+
+def _peak_gib(fn) -> float:
+    """GiB allocated at the peak of ``fn()`` beyond what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def ladder_phase(dev) -> dict:
+    """The bench's ladder (8 Johnson slots, bf16, 1080×1920 B=2) timed, its
+    memory and busy share; the NST bank; the f32 checks. Returns the
+    bench's two ladder keys."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+
+    x = torch.from_numpy(np.stack(moving_frames(LADDER_B, H, W, SEED + 40))).to(dev).float() \
+        / 255.0
+    bank = ladder_bank("johnson", LADDER_M, None, dev)
+    f = tst.jit_ladder_stylizer(bank, dtype=torch.bfloat16)
+    peak = _peak_gib(lambda: f(x))
+    out = f(x)
+    if tuple(out.shape) != (LADDER_M, LADDER_B, H, W, 3) or not bool(torch.isfinite(out).all()):
+        fail(f"the ladder's output {tuple(out.shape)} is not finite [M, B, H, W, 3]")
+    passes = LADDER_M * LADDER_B
+    ms = _timed(f"ladder bf16, {LADDER_M} Johnson slots x {LADDER_B}x{H}x{W}", lambda: f(x),
+                LADDER_ROUNDS)
+    gflop = 2 * sum(ho * wo * ci * co * k * k for ho, wo, ci, co, k in (
+        (H, W, 3, 32, 9), (H // 2, W // 2, 32, 64, 3), (H // 4, W // 4, 64, 128, 3),
+        *[(H // 4, W // 4, 128, 128, 3)] * 10, (H // 2, W // 2, 128, 64, 3),
+        (H, W, 64, 32, 3), (H, W, 32, 3, 9))) / 1e9
+    wall, busy, n = profile_report("ladder call (bf16, 8 slots, B=2)", lambda: f(x))
+    log(f"ladder ({CARD}): {ms:.2f} ms a call of {passes} passes, {passes / ms * 1e3:.2f} "
+        f"passes/s, {ms / passes:.2f} ms a pass; {gflop:.1f} GFLOP a pass, "
+        f"{gflop * passes / ms:.1f} TFLOP/s (bf16 bound {gflop * passes / PEAK_BF16_OPS * 1e12:.2f}"
+        f" ms); peak {peak:.2f} GiB; busy {busy / wall:.1%} of the profiled call, {n} kernels")
+    del out, f
+
+    nbank = ladder_bank("nst", LADDER_NST_M, None, dev)
+    fn = tst.jit_ladder_stylizer(nbank, dtype=torch.bfloat16)
+    npeak = _peak_gib(lambda: fn(x))
+    nms = _timed(f"NST ladder bf16, {LADDER_NST_M} rungs x {LADDER_B}x{H}x{W}", lambda: fn(x),
+                 3)
+    log(f"NST ladder ({CARD}): {nms:.2f} ms a call, "
+        f"{LADDER_NST_M * LADDER_B / nms * 1e3:.2f} passes/s, peak {npeak:.2f} GiB")
+    del fn
+
+    # f32: the bank against its models one by one; bf16 against f32
+    for preset, bf16_tol in (("imagenet_255", QUANT_MAE_TOL), ("raw_01", QUANT_BROKEN_TOL)):
+        models = [tst.StyleModel(m.arch, m.net, preset, m.name) for m in bank]
+        f32 = tst.jit_ladder_stylizer(models)(x)
+        one = max((f32[i] - tst.jit_stylizer(m)(x)).abs().mean().item()
+                  for i, m in enumerate(models))
+        b16 = (tst.jit_ladder_stylizer(models, dtype=torch.bfloat16)(x) - f32).abs().mean().item()
+        log(f"ladder {preset}: f32 bank vs its models one by one, worst MAE {one:.3g} (bound "
+            f"{LADDER_F32_TOL}); bf16 vs f32 MAE {b16:.3g} (bound {bf16_tol}); f32 output std "
+            f"{f32.std().item():.4f}")
+        if not (one <= LADDER_F32_TOL and b16 <= bf16_tol):
+            fail(f"the ladder bank ({preset}) disagrees with its models or with f32")
+        del f32
+    b, h, w = LADDER_CMP
+    xs = x[:b, :h, :w].contiguous()
+    outs = [tst.jit_ladder_stylizer(ladder_bank("johnson", 3, "raw_01", d))(xs.to(d)).cpu()
+            for d in (dev, torch.device("cpu"))]
+    mae = (outs[0] - outs[1]).abs().mean().item()
+    log(f"ladder f32 3 slots {b}x{h}x{w} raw_01, card vs CPU: MAE {mae:.3g} (bound "
+        f"{LADDER_CARD_TOL}), max {(outs[0] - outs[1]).abs().max().item():.3g}")
+    if not mae <= LADDER_CARD_TOL:
+        fail("the ladder bank on the card disagrees with the CPU")
+    return {"ladder_passes_per_sec": passes / ms * 1e3, "ladder_sec_per_pass": ms / passes / 1e3}
+
+
+def gram_check(dev) -> None:
+    """10 Gram NST steps at 64² card vs CPU, with the CPU test's bounds."""
+    import numpy as np
+    import torch
+
+    from neuralstyletransferv1_torch.engine import gram_nst
+    from neuralstyletransferv1_torch.models import vgg
+
+    rng = np.random.default_rng(SEED + 41)
+    c, s = (torch.from_numpy(rng.random((1, GRAM_CMP_HW, GRAM_CMP_HW, 3)).astype(np.float32))
+            for _ in range(2))
+    (card, hc), (cpu, hcpu) = [
+        tuple(t.cpu() for t in gram_nst.optimize(vgg.load(vgg.init(0), d), c.to(d), s.to(d),
+                                                 steps=GRAM_CMP_STEPS))
+        for d in (dev, torch.device("cpu"))]
+    rel = ((hc - hcpu).abs() / hcpu.abs()).max().item()
+    d = (card - cpu).abs()
+    share = (d <= 1e-3).float().mean().item()
+    log(f"Gram NST {GRAM_CMP_STEPS} steps at {GRAM_CMP_HW}², card vs CPU: history relative "
+        f"{rel:.3g} (bound {GRAM_HIST_TOL}), image mean |d| {d.mean().item():.3g} (bound "
+        f"{GRAM_IMG_TOL}), {share:.5f} within 1e-3 (bound {GRAM_IMG_SHARE}), max "
+        f"{d.max().item():.3g}")
+    if not (rel <= GRAM_HIST_TOL and d.mean().item() <= GRAM_IMG_TOL and share >= GRAM_IMG_SHARE):
+        fail("the Gram NST on the card disagrees with the CPU")
+
+
+def gram_phase(dev) -> dict:
+    """The bench's Gram NST: VGG16 from seed 0, content and style uniform at
+    512², 500 steps, f32 — two whole calls timed, peak memory, 10 steps
+    profiled; then the card vs CPU check. Returns the bench's key (the first
+    call, as ``bench.py`` times its first, compiling call)."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import gram_nst
+    from neuralstyletransferv1_torch.models import vgg
+
+    net = vgg.load(vgg.init(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    content, style = (torch.rand((1, GRAM_HW, GRAM_HW, 3), generator=gen, device=dev)
+                      for _ in range(2))
+    secs, res = [], {}
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["out"], res["hist"] = gram_nst.optimize(net, content, style, steps=GRAM_STEPS)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+
+    peak = _peak_gib(run)
+    run()
+    hist = res["hist"].cpu()
+    out = res["out"]
+    if not (bool(torch.isfinite(hist).all()) and hist[-1] < hist[0]
+            and tuple(out.shape) == (1, GRAM_HW, GRAM_HW, 3)
+            and 0.0 <= out.min().item() and out.max().item() <= 1.0):
+        fail(f"the Gram NST's history or image is wrong: loss {hist[0]:.4g} -> {hist[-1]:.4g}")
+    gflop = 2 * sum(hw * hw * ci * co * 9 for hw, ci, co in (
+        (512, 3, 64), (512, 64, 64), (256, 64, 128), (256, 128, 128), (128, 128, 256),
+        (128, 256, 256), (128, 256, 256), (64, 256, 512), (64, 512, 512), (64, 512, 512))) / 1e9
+    step_gflop = 2 * gflop  # the forward and the input-only backward
+    wall, busy, n = profile_report(f"Gram NST, {GRAM_CMP_STEPS} steps at {GRAM_HW}²",
+                                   lambda: gram_nst.optimize(net, content, style,
+                                                             steps=GRAM_CMP_STEPS))
+    log(f"Gram NST ({CARD}): {GRAM_STEPS} steps at {GRAM_HW}², first call {secs[0]:.3f} s, "
+        f"second {secs[1]:.3f} s ({GRAM_STEPS / secs[1]:.1f} steps/s, "
+        f"{step_gflop * GRAM_STEPS / secs[1] / 1e3:.1f} TFLOP/s at ~{step_gflop:.0f} GFLOP a "
+        f"step; f32 bound {step_gflop * GRAM_STEPS / PEAK_F32_OPS * 1e9:.2f} s); peak "
+        f"{peak:.2f} GiB; loss {hist[0]:.4g} -> {hist[-1]:.4g}; profiled: busy "
+        f"{busy / wall:.1%}, {n / GRAM_CMP_STEPS:.0f} device kernels a step")
+    gram_check(dev)
+    return {"gram_nst_500steps_512_sec": secs[0], "gram_nst_500steps_512_sec_second": secs[1]}
+
+
+def ladder_cli_phase(dev, workdir: Path) -> None:
+    """``slow_nst.main`` (20 steps at 256², synthesized PNGs) and
+    ``style_all_weights.main`` (two Johnson rungs, 4 frames) with their
+    default device (the card)."""
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.apps import slow_nst, style_all_weights
+    from neuralstyletransferv1_torch.models import transformer_net as ttn
+
+    c, s, o = workdir / "nst_c.png", workdir / "nst_s.png", workdir / "nst_out.png"
+    for path, seed in ((c, SEED + 43), (s, SEED + 44)):
+        Image.fromarray(moving_frames(1, 300, 400, seed)[0]).save(path)
+    t0 = time.perf_counter()
+    rc = slow_nst.main([str(a) for a in ("--content", c, "--style", s, "--output", o,
+                                         "--steps", 20, "--size", 256)])
+    secs = time.perf_counter() - t0
+    size = Image.open(o).size if o.exists() else None
+    log(f"slow_nst.main 20 steps at 256 (card): rc {rc}, {secs:.2f} s, wrote {size}")
+    if rc != 0 or size != (256, 192):
+        fail("slow_nst.main did not write its 256x192 PNG")
+
+    frames, wdir, out_root = workdir / "saw_frames", workdir / "saw_w", workdir / "saw_out"
+    for d in (frames, wdir):
+        d.mkdir(exist_ok=True)
+    for i, fr in enumerate(moving_frames(SAW_FRAMES, *SAW_HW, SEED + 45), 1):
+        Image.fromarray(fr).save(frames / f"frame_{i:04d}.png")
+    for seed in (0, 1):
+        torch.save(ttn.init(seed), wdir / f"candy_style{seed + 1}e9.pth")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = style_all_weights.main([str(a) for a in (
+        "--frames_dir", frames, "--weights_dir", wdir, "--out_root", out_root, "--io_preset",
+        "raw_01", "--frame_batch", SAW_FRAMES, "--work_dir", workdir / "_saw")])
+    secs = time.perf_counter() - t0
+    counts = [len(list((out_root / f"candy_style{k}e9").glob("*.png"))) for k in (1, 2)]
+    used = {k: v for k, v in read_counts().items() if v}
+    log(f"style_all_weights.main, 2 rungs x {SAW_FRAMES} frames of {SAW_HW[0]}x{SAW_HW[1]} "
+        f"(card): rc {rc}, {secs:.2f} s, outputs {counts}, launches {used}")
+    if rc != 0 or counts != [SAW_FRAMES] * 2 or used:
+        fail("style_all_weights.main did not style every frame with every rung")
+
+
+def ladder_gram_phase(dev, workdir: Path) -> dict:
+    """Phase 13: the weight ladder, the Gram NST and their CLIs. Returns
+    the bench's keys."""
+    t0 = time.perf_counter()
+    zero_counts()
+    keys = ladder_phase(dev)
+    keys.update(gram_phase(dev))
+    used = {k: v for k, v in read_counts().items() if v}
+    log(f"ladder and Gram NST: launches {used}, expected {{}} (no kernel on this path)")
+    if used:
+        fail(f"the ladder or the Gram NST launched {used}")
+    ladder_cli_phase(dev, workdir)
+    log(f"phase 13 (ladder, Gram NST, their CLIs) took {time.perf_counter() - t0:.1f} s")
+    return keys
 
 
 def nst_checkpoint(path: Path) -> Path:
@@ -3645,10 +3868,10 @@ def profile_backends(dev, workdir: Path, frames) -> None:
         f"{k} {v['ms']:.2f} ms (spread {v['spread']:.1%})" for k, v in t.items()))
 
 
-def profile_report(label: str, fn, group=kernel_group) -> None:
+def profile_report(label: str, fn, group=kernel_group) -> tuple:
     """torch.profiler over one call of ``fn`` (warmed up by the caller): the
     wall, the device busy time and its share, by kind of kernel and the top
-    kernels."""
+    kernels. Returns (wall ms, busy ms, device kernels and copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3666,12 +3889,14 @@ def profile_report(label: str, fn, group=kernel_group) -> None:
     groups: dict = {}
     for name, ms, _ in kernels:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
+    n = sum(c for _, _, c in kernels)
     log(f"profile {label}: batch wall {wall:.2f} ms, device busy {busy:.2f} ms "
-        f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device kernels and copies")
+        f"({busy / wall:.1%}), {n} device kernels and copies")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {g}: {ms:.2f} ms")
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
         log(f"    {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+    return wall, busy, n
 
 
 def masked_group(name: str) -> str:
@@ -3849,6 +4074,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
         launches[k] += v
     for k, v in backends_phase(dev, tmp).items():
         launches[k] += v
+    bench_keys = ladder_gram_phase(dev, tmp)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -3895,6 +4121,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for name in (*INT8_KERNELS, *F32_KERNELS, *BF16_KERNELS):
         if launches[name] == 0:
             fail(f"{name} was launched no time on the main path")
+    print(json.dumps({**bench_keys, "card": CARD}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -124,11 +124,19 @@ def load_model(path: str | Path, *, model_type: str = "transformer", io_preset: 
 
 def make_random_model(arch: str = "nst", *, seed: int = 0, io_preset: str | None = None,
                       device: torch.device | str = "cpu") -> StyleModel:
-    """A random-weight slot from a seed (tests and the chip smoke, where no
-    trained checkpoint is in the repo): ``nst`` (preset ``raw_01``) or an IN
-    ``reconet`` (``imagenet_01``; an FRN net: ``models/reconet.init(seed,
-    frn=True)`` saved and loaded)."""
-    if arch == "nst":
+    """A random-weight slot from a seed (tests, the chip smoke and the ladder
+    bank, where no trained checkpoint is in the repo): ``johnson`` (preset
+    ``imagenet_255``), ``nst`` (``raw_01``) or an IN ``reconet``
+    (``imagenet_01``; an FRN net: ``models/reconet.init(seed, frn=True)``
+    saved and loaded). Johnson and ReCoNet weights load through the
+    checkpoint importer, as a saved ``init(seed)`` would."""
+    if arch == "johnson":
+        from ..models import transformer_net as tn
+
+        net, preset = TransformerNet(), "imagenet_255"
+        net.load_state_dict(params_from_jax(ckpt.import_transformer(
+            {k: v.numpy() for k, v in tn.init(seed).items()})))
+    elif arch == "nst":
         net, preset = tnn.TransformerNetNST(), "raw_01"
         net.load_state_dict(tnn.init(seed))
     elif arch == "reconet":
@@ -137,8 +145,8 @@ def make_random_model(arch: str = "nst", *, seed: int = 0, io_preset: str | None
             {k: v.numpy() for k, v in rn.init(seed).items()})))
     else:
         raise NotImplementedError(
-            f"make_random_model({arch!r}): only 'nst' and 'reconet' are ported (a Johnson slot "
-            "loads _testdata/test_johnson.pth)")
+            f"make_random_model({arch!r}): the random slots are 'johnson', 'nst' and 'reconet' "
+            "(a .t7 net: chip_smoke.t7_net_layers + write_t7; a magenta slot takes a style image)")
     net = net.to(device).eval().requires_grad_(False)
     return StyleModel(arch, net, io_preset or preset, f"random_{arch}")
 
@@ -481,3 +489,63 @@ def _magenta_stylizer(model: StyleModel):
         return y.float()
 
     return fn
+
+
+def stack_models(models: list[StyleModel]) -> StyleModel:
+    """Same-arch, same-preset slots as one bank ``bank[M]`` (its ``net`` the
+    ``nn.ModuleList`` of the M nets, in order); mixed arch or preset raise
+    the JAX engine's ValueError."""
+    archs = {m.arch for m in models}
+    presets = {m.io_preset for m in models}
+    if len(archs) != 1 or len(presets) != 1:
+        raise ValueError(f"stack_models needs uniform arch/preset, got {archs}/{presets}")
+    return StyleModel(models[0].arch, torch.nn.ModuleList([m.net for m in models]),
+                      models[0].io_preset, f"bank[{len(models)}]")
+
+
+def jit_ladder_stylizer(models: list[StyleModel], *, dtype: torch.dtype = torch.float32,
+                        optimize: bool = True):
+    """One call styling a batch with every model of a same-arch bank (the
+    style_all_weights weight-ladder workload, BASELINE config #2):
+    f(x01 NHWC f32) → [M, N, H, W, C] f32.
+
+    The bank runs as a loop over its M nets inside the call, each net's
+    forward on the whole batch. A ``vmap`` over stacked weights, which
+    turns every conv into a grouped one, took 1.5% longer at 8.5× the
+    memory for the bench's 8-slot bf16 bank on an H100
+    (``chip_ladder_ab.py``). The two branches are the JAX engine's: a
+    Johnson bank with ``optimize`` at H, W ≥ 8 reflect-pads the bottom and
+    right to multiples of 4, runs preprocess → net → postprocess (the
+    function of JAX's IO-baked fast form; postprocess clips to [0, 1]) and
+    crops; otherwise each model runs the plain ``stylize`` in ``dtype``
+    (resized back to the input size where the net changed it), not
+    clipped again."""
+    bank = stack_models(models)
+    arch, preset = bank.arch, bank.io_preset
+    if arch not in ("johnson", "nst", "reconet"):
+        raise NotImplementedError(f"jit_ladder_stylizer: a {arch} bank (the ladder's banks are "
+                                  "Johnson, NST_Train or ReCoNet)")
+    nets = [n if dtype == torch.float32 else copy.deepcopy(n).to(dtype) for n in bank.net]
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        x = x01.to(dtype)
+        H, W = x.shape[1], x.shape[2]
+        if optimize and arch == "johnson" and H >= 8 and W >= 8:
+            xp = _reflect_pad(x, (-H) % 4, (-W) % 4)
+            outs = [stylize(net, preset, xp)[:, :H, :W] for net in nets]  # clipped
+        else:
+            outs = [stylize(net, preset, x) for net in nets]
+        return torch.stack(outs, 0).float()
+
+    return fn
+
+
+def blend_outputs(outputs: list[torch.Tensor], weights: list[float]) -> torch.Tensor:
+    """RGB weighted blend of stylized batches, the weights normalized to sum
+    to 1, clipped to [0, 1]."""
+    total = sum(weights)
+    acc = outputs[0] * (weights[0] / total)
+    for o, w in zip(outputs[1:], weights[1:]):
+        acc = acc + o * (w / total)
+    return acc.clamp(0.0, 1.0)

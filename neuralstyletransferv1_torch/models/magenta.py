@@ -159,6 +159,34 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return out
 
 
+def init_tree(seed: int) -> dict:
+    """A compact CIN net's weights as ``magenta.init``'s tree (numpy, HWIO),
+    drawn from the numpy ``seed`` with init's distributions: convs uniform
+    within ±√3/√fan_in (bias ±1/√fan_in), the projection and the CIN maps
+    N(0, 0.05²), γ biases 1, β biases 0. (JAX's ``jax.random`` draw cannot
+    be reproduced; tests carry a JAX tree across with ``compact_from_jax``.)"""
+    rng = np.random.default_rng(seed)
+
+    def conv(ci, co, k):
+        b = (1.0 / (ci * k * k)) ** 0.5
+        return {"w": rng.uniform(-b * 3 ** 0.5, b * 3 ** 0.5, (k, k, ci, co)).astype(np.float32),
+                "b": rng.uniform(-b, b, co).astype(np.float32)}
+
+    cins = (3,) + _PRED[:-1]
+    pred = {"convs": [conv(ci, co, 3) for ci, co in zip(cins, _PRED)],
+            "proj": {"w": (rng.normal(0, 1, (_PRED[-1], BOTTLENECK)) * 0.05).astype(np.float32),
+                     "b": np.zeros(BOTTLENECK, np.float32)}}
+    net = {name: conv(ci, co, k) for name, ci, co, k, _s in _ENC}
+    net.update({f"res{i}_{j}": conv(128, 128, 3) for i in range(1, 6) for j in (1, 2)})
+    net.update({name: conv(ci, co, k) for name, ci, co, k in _DEC})
+    net["out"] = conv(_OUT[1], _OUT[2], _OUT[3])
+    cin = {name: {"gw": (rng.normal(0, 1, (BOTTLENECK, w)) * 0.05).astype(np.float32),
+                  "gb": np.ones(w, np.float32),
+                  "bw": (rng.normal(0, 1, (BOTTLENECK, w)) * 0.05).astype(np.float32),
+                  "bb": np.zeros(w, np.float32)} for name, w in _CIN_SITES}
+    return {"predictor": pred, "net": net, "cin": cin}
+
+
 def compact_from_jax(tree, device="cpu") -> CompactCIN:
     """``CompactCIN`` holding a ``magenta.init`` tree's weights on ``device``."""
     net = CompactCIN()

@@ -236,3 +236,21 @@ def quant_from_jax(quant: dict | None = None, static_stats: dict | None = None):
         site: tuple(torch.from_numpy(np.asarray(t, np.float32).copy()) for t in mi)
         for site, mi in static_stats.items()}
     return q, st
+
+
+def init(seed: int = 0) -> dict[str, torch.Tensor]:
+    """Random weights from a seed, in the reference key layout
+    (``conv1.conv2d.weight`` …): convs uniform in ±sqrt(3/fan_in), biases
+    in ±sqrt(1/fan_in), instance norms at identity — the scheme of the JAX
+    ``transformer_net.init`` (PyTorch's Conv2d default), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    ref = TransformerNet().state_dict()
+    sd = {}
+    for k, v in ref.items():
+        if ".conv2d." not in k:  # an instance norm's weight (1) or bias (0)
+            sd[k] = v
+            continue
+        _co, ci, kh, kw = ref[k.rsplit(".", 1)[0] + ".weight"].shape
+        bound = (1.0 / (ci * kh * kw)) ** 0.5 * (3 ** 0.5 if k.endswith("weight") else 1.0)
+        sd[k] = torch.from_numpy(rng.uniform(-bound, bound, tuple(v.shape)).astype(np.float32))
+    return sd

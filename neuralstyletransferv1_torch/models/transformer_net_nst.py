@@ -122,7 +122,11 @@ class TransformerNetNST(nn.Module):
         for name, *_ in UP:
             layer = getattr(self, name)
             y = torch.relu(layer.norm(layer.conv(y)))
-        return self.final(y)[:, PAD:PAD + h, PAD:PAD + w]
+        # the JAX net's centred crop: the grid can grow past h + 2·PAD, and
+        # then the crop starts past PAD
+        y = self.final(y)
+        ch, cw = (y.shape[1] - h) // 2, (y.shape[2] - w) // 2
+        return y[:, ch:ch + h, cw:cw + w]
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
