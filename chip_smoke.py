@@ -207,7 +207,23 @@ order, and any failed phase exits non-zero:
    finite and falling, 10 steps profiled (busy share, launches a step),
    card vs CPU over 10 steps at 64²; then ``slow_nst.main`` (20 steps at
    256²) and ``style_all_weights.main`` (two rungs, 4 frames) on the card;
-   no kernel of K1–K13 is on this path, and none may launch.
+   no kernel of K1–K13 is on this path, and none may launch;
+14. ``--mesh_devices``, the job queue and the presets apps: the batched
+   core on an explicit 2-shard mesh with both shards on the one card
+   against the single-device core (the 1080p slice, 3 batches of 8, bf16,
+   ``int8_static`` and ``int8``; the sharded chain alone bit-identical to
+   its chunk semantics): smoothing off within 1/255 on ≥ 99.9%; flow EMA +
+   LAB EMA each frame's mean |d| within 0.05 of the range (the frames above
+   JAX's 4-level engine gate counted), the launches exact (K1 4 a batch; ``int8_static`` K2 10, K3 10, K4 4; ``int8`` K4
+   14, K5 10), both cores' s/batch by CUDA events (two shards on one card
+   measure the split's overhead, not scaling); ``main()`` with
+   ``--mesh_devices 2 --frame_batch 3`` on a 16-frame 1080p clip (JAX's
+   clamp line with one card); ``gram_nst.sharded_optimize_step`` on the
+   2-shard mesh (2 images at 128², VGG16 from seed 0) within 1e-5 relative
+   of the unsharded step; ``run_videos`` and ``drive_videos`` (queue mode,
+   one worker) on the clip with their default device, K1's launches exact;
+   ``generate_multimodel_presets``, then ``generate_preset_samples --limit
+   2``.
 
 The line before the kernels' record holds the bench's ladder and Gram NST
 keys (``ladder_passes_per_sec``, ``ladder_sec_per_pass``,
@@ -795,6 +811,20 @@ def library_conv(dev, t, name, shape):
     return lambda: F.conv2d(xc, wc, stride=stride, padding=1)
 
 
+def library_conv_f32(dev, shape):
+    """The cuDNN f32 conv (TF32 off) an f32-operand site stands for: a 3×3
+    conv of its shape on channels-last f32 input. No int8 conv takes an
+    f32 operand on the card, so this is a yardstick, not a library call of
+    the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, c, co, _ = SITE_SHAPES[shape]
+    xc = torch.randn((b, h, w, c), device=dev).permute(0, 3, 1, 2)
+    wc = torch.randn((co, c, 3, 3), device=dev).to(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xc, wc, padding=1)
+
+
 def int8_kernel_phase(dev):
     """K2-K8b against their plain versions at the slice's shapes, timed in
     turns (plain, kernel, kernel, plain; K2-K5: plain, kernel, previous
@@ -894,7 +924,8 @@ def f32_kernel_phase(dev):
     """The f32-operand forms of K2-K5 against their plain versions at the
     slice's shapes where the float32 chains run them, bit for bit, two
     launches bit-identical; timed in turns beside the bf16 form on the same
-    shape (bf16, f32, f32, bf16) and the plain version; then at ragged
+    shape (bf16, f32, f32, bf16) and the plain version, with the cuDNN f32
+    3×3 conv of the shape (TF32 off) as a yardstick; then at ragged
     shapes (widths off the 16-column tile, heights off the 8-row tile,
     B = 1 and 3, C = 64 under the zero halo, a ragged sw)."""
     import torch
@@ -903,7 +934,7 @@ def f32_kernel_phase(dev):
 
     results = {}
     for form_name, (base, cases) in F32_KERNELS.items():
-        rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0,
+        rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0, "cudnn_f32_ms": 0.0,
                "max_abs_err": 0.0, "bound_by": "bytes", "per_case": {}}
         for i, (shape, form) in enumerate(cases):
             b, h, w, c, co, halo = SITE_SHAPES[shape]
@@ -927,6 +958,7 @@ def f32_kernel_phase(dev):
             t_k = (t_k + dev_time(kernel)) / 2
             t_bf = (t_bf + dev_time(bf16_form)) / 2
             t_plain = dev_time(plain, reps=2)
+            t_lib = dev_time(library_conv_f32(dev, shape))
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
             bound = max(t_bytes, t_ops)
             case = f"{shape}{'/' + form if form else ''}"
@@ -934,16 +966,18 @@ def f32_kernel_phase(dev):
                 halo = f"{halo}, sw {SITE_SW[shape]}"
             by = "operations" if t_ops > t_bytes else "bytes"
             rec["per_case"][case] = {"ms": t_k, "bf16_ms": t_bf, "plain_ms": t_plain,
-                                     "bound_ms": bound, "bound_by": by,
+                                     "cudnn_f32_ms": t_lib, "bound_ms": bound, "bound_by": by,
                                      "bound_share": bound / t_k}
             log(f"{form_name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"f32 form {t_k:.4f} ms, bf16 form {t_bf:.4f} ms (same turns, "
-                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms; bound {bound:.4f} ms by {by} "
+                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms, cuDNN f32 3x3 conv (TF32 off, a "
+                f"yardstick) {t_lib:.4f} ms; bound {bound:.4f} ms by {by} "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops), f32 form at "
                 f"{bound / t_k:.1%} of it")
             rec["ms"] += t_k
             rec["bf16_ms"] += t_bf
             rec["plain_ms"] += t_plain
+            rec["cudnn_f32_ms"] += t_lib
             rec["bound_ms"] += bound
             if t_ops > t_bytes:
                 rec["bound_by"] = "operations"
@@ -3016,6 +3050,352 @@ def ladder_gram_phase(dev, workdir: Path) -> dict:
     return keys
 
 
+# phase 14: --mesh_devices (two shards on the one card), the sharded Gram
+# step, the job queue and the presets apps
+MESH_ROUNDS = 3               # timed steady batches of each core
+MESH_EQUAL_SHARE = 0.999      # of the pixels within 1/255, mesh vs single, smoothing off
+MESH_ENGINE_GATE = 4.0        # grey levels, JAX's engine gate for the mesh chain
+                              # (tests/test_batched_video.py:281), reported
+MESH_CHAIN_TOL = 0.05 * 255   # grey levels, each frame's mean |d| with the chain on: the
+                              # chunk seam's bound of tests/test_temporal_shard.py
+MESH_GRAM_HW = 128            # the sharded Gram step: 2 images at 128²
+MESH_GRAM_TOL = 1e-5          # relative, sharded vs unsharded step (images, loss)
+APP_FRAMES = 16               # the apps' clip
+APP_PIPELINE_ARGS = "--frame_batch 8"
+
+
+def _env(env: dict):
+    """Set ``env`` in os.environ; returns the restore function."""
+    import os
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+
+    def restore():
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def mesh_chain_check(dev, mesh) -> None:
+    """``temporal_postprocess_sharded`` on the card at the slice's shape (B
+    seeded frames, flows and masks, the flow EMA, the LAB EMA, the motion
+    blend; first batch and a carried one) against its chunk semantics run
+    shard by shard through ``temporal_postprocess_split``: bit-identical."""
+    import torch
+
+    from neuralstyletransferv1_torch.ops.color import rgb_to_lab_u8
+    from neuralstyletransferv1_torch.parallel.mesh import temporal_postprocess_sharded
+    from neuralstyletransferv1_torch.temporal.ema import TemporalState, temporal_postprocess_split
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 64)
+    styled, orig = (torch.rand((B, H, W, 3), generator=g, device=dev) for _ in range(2))
+    flows = torch.randn((B, H, W, 2), generator=g, device=dev) * 1.5
+    alphas = torch.rand((B, H, W, 1), generator=g, device=dev)
+    has = torch.rand((B,), generator=g, device=dev) > 0.5
+    state = TemporalState(torch.rand((H, W, 3), generator=g, device=dev),
+                          torch.rand((H, W, 3), generator=g, device=dev) * 255.0)
+    kw = dict(flow_ema=True, flow_alpha=0.6, motion_blend=True, blend=0.9)
+    n, tl = len(mesh), B // len(mesh)
+    for first in (True, False):
+        got, gst = temporal_postprocess_sharded(mesh, styled, orig, flows, state=state,
+                                                first=first, mask_alphas=alphas, mask_has=has,
+                                                **kw)
+        outs = []
+        for k in range(n):
+            sl = slice(k * tl, (k + 1) * tl)
+            init = state if k == 0 else TemporalState(styled[k * tl - 1],
+                                                      rgb_to_lab_u8(styled[k * tl - 1]))
+            o, st = temporal_postprocess_split(styled[sl], orig[sl], flows[sl], init=init,
+                                               warmup=first and k == 0, mask_alphas=alphas[sl],
+                                               mask_has=has[sl], **kw)
+            outs.append(o)
+        same = torch.equal(got, torch.cat(outs)) and torch.equal(gst.prev_lab, st.prev_lab)
+        log(f"sharded temporal chain on the card, {n} shards, {B}x{H}x{W}, first={first}: "
+            f"{'bit-identical to' if same else 'NOT equal to'} its chunk semantics")
+        if not same:
+            fail("the sharded temporal chain disagrees with its chunk semantics on the card")
+
+
+def mesh_core_phase(dev) -> dict:
+    """The batched core on an explicit 2-shard mesh with both shards on the
+    card against the single-device core: 3 batches of 8 1080p panning
+    frames, the Johnson checkpoint under ``raw_01`` (its ``imagenet_255``
+    output is ~0.001 everywhere, which would hide any difference), bf16,
+    under ``int8_static`` and ``int8``. First the sharded chain alone against its chunk semantics
+    (``mesh_chain_check``). Smoothing off: the outputs within 1/255 on ≥
+    99.9% (the calibration is shared). The chain on (flow EMA + LAB EMA):
+    each frame's mean |d| within the chunk seam's bound of
+    ``tests/test_temporal_shard.py`` (0.05 of the range), the frames above
+    JAX's 4-level engine gate counted; the launches exact (K1 as
+    single-device, K2–K5 twice a shard's forward); each core's s/batch by
+    CUDA events. Returns the mesh runs' launches."""
+    import statistics as stats_
+
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+    from neuralstyletransferv1_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[dev, dev])
+    mesh_chain_check(dev, mesh)
+    frames = moving_frames(B * N_BATCHES, H, W, SEED + 60)
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    levels = len(_level_sizes(H // ds, W // ds, 2))
+    launches = {k: 0 for k in read_counts()}
+
+    def run(argv, m, timed=False):
+        args = tpipe.build_parser().parse_args(
+            ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(CKPT),
+             "--io_preset", "raw_01", "--frame_batch", str(B), "--compute_dtype", "bfloat16"]
+            + argv)
+        b, process = tpipe.make_batched_core(args, dev, mesh=m)
+        if b != B:
+            fail(f"the mesh core's batch is {b}, expected {B}")
+        zero_counts()
+        outs, ms = [], []
+        for i in range(N_BATCHES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(process(frames[i * B:(i + 1) * B]))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        counts = read_counts()
+        if timed:  # steady batches, the state carried on
+            for r in range(MESH_ROUNDS):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                process(frames[(r % N_BATCHES) * B:(r % N_BATCHES + 1) * B])
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+        return torch.cat(outs).float(), counts, ms[1:]
+
+    for quantize in ("int8_static", "int8"):
+        per = PER_BATCH[(quantize, None)]
+        off = ["--quantize", quantize, "--no-smooth_lightness"]
+        a, _, _ = run(off, None)
+        b, _, _ = run(off, mesh)
+        d = (a - b).abs()
+        share = (d <= 1.0).float().mean().item()
+        log(f"mesh core (2 shards on {CARD}) vs single-device, --quantize {quantize}, smoothing "
+            f"off, 1080p B={B} x {N_BATCHES} batches: {share:.6f} of the pixels within 1/255 "
+            f"(bound {MESH_EQUAL_SHARE}), mean |d| {d.mean().item() / 255:.3g}, max "
+            f"{d.max().item():.0f} levels")
+        if share < MESH_EQUAL_SHARE:
+            fail(f"the mesh core disagrees with the single-device core under {quantize}")
+        on = ["--quantize", quantize, "--flow_ema"]
+        a, ca, ta = run(on, None, timed=True)
+        b, cb, tb = run(on, mesh, timed=True)
+        per_frame = (a - b).abs().mean(dim=(1, 2, 3))
+        want = {k: (levels * N_BATCHES if k == "dis_iter" else 2 * per.get(k, 0) * N_BATCHES)
+                for k in cb}
+        used = {k: v for k, v in cb.items() if v}
+        over = int((per_frame > MESH_ENGINE_GATE).sum())
+        log(f"mesh core, --quantize {quantize}, flow EMA + LAB EMA: per-frame mean |d| "
+            f"{[round(v, 3) for v in per_frame.tolist()]} levels, max "
+            f"{per_frame.max().item():.3f} (bound {MESH_CHAIN_TOL:.2f}; {over} of "
+            f"{len(per_frame)} frames above JAX's {MESH_ENGINE_GATE}-level engine gate: the "
+            f"chunk seam's seed is the raw boundary frame); launches {used} "
+            f"({'as' if cb == want else 'NOT as'} expected: K1 {levels} a batch, the sites "
+            f"twice a shard's {per}); single-device launches "
+            f"{ {k: v for k, v in ca.items() if v} }")
+        if per_frame.max().item() > MESH_CHAIN_TOL:
+            fail(f"the mesh chain drifts from the single-device chain under {quantize}")
+        if cb != want:
+            fail(f"the mesh core's launches {cb} are not the expected {want}")
+        for k, v in cb.items():
+            launches[k] += v
+        med_a, med_b = stats_.median(ta) / 1e3, stats_.median(tb) / 1e3
+        log(f"mesh core s/batch ({CARD}), --quantize {quantize}, 1080p B={B}, CUDA events over "
+            f"{len(ta)} steady batches: single-device {med_a:.4f} (spread "
+            f"{(max(ta) - min(ta)) / 1e3:.4f}), 2 shards on the one card {med_b:.4f} (spread "
+            f"{(max(tb) - min(tb)) / 1e3:.4f}), {med_b / med_a:.3f}x: two shards on one card "
+            f"measure the split's overhead, not scaling")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_main_phase(dev, workdir: Path, src: Path) -> None:
+    """``main(--mesh_devices 2 --frame_batch 3)`` on the 16-frame clip: with
+    one card visible it prints JAX's clamp line and runs on one device (with
+    two or more, the rounding to 4); exit 0, every frame written."""
+    import contextlib
+    import io
+
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    dst = workdir / "mesh_out.mp4"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tpipe.main(["--input_video", str(src), "--output_video", str(dst), "--model",
+                         str(CKPT), "--mesh_devices", "2", "--frame_batch", "3", "--flow_ema",
+                         "--compute_dtype", "bfloat16", "--work_dir", str(workdir / "_mesh")])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[mesh]")]
+    n = torch.cuda.device_count()
+    got = clip_frame_count(dst)
+    want = ("[mesh] only 1 device(s) visible; clamping --mesh_devices 2 -> 1" if n < 2
+            else "[mesh] rounding --frame_batch 3 -> 4 (multiple of 2)")
+    log(f"main(--mesh_devices 2 --frame_batch 3) with {n} card(s) visible: rc {rc}, {got} frames "
+        f"written, its mesh lines {lines}")
+    if rc != 0 or got != APP_FRAMES or want not in lines:
+        fail("main() with --mesh_devices 2 did not clamp or round as the JAX engine does")
+
+
+def mesh_gram_phase(dev) -> None:
+    """``gram_nst.sharded_optimize_step`` on the 2-shard mesh on the card (2
+    images at 128², VGG16 from seed 0) against the unsharded step on the
+    whole batch: images and loss within 1e-5 relative."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import gram_nst
+    from neuralstyletransferv1_torch.models import vgg
+    from neuralstyletransferv1_torch.parallel.mesh import make_mesh
+
+    net = vgg.load(vgg.init(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    imgs, targets = (torch.rand((2, MESH_GRAM_HW, MESH_GRAM_HW, 3), generator=gen, device=dev)
+                     for _ in range(2))
+    style = torch.rand((1, MESH_GRAM_HW, MESH_GRAM_HW, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        feats = vgg.extract_features(net, targets, (vgg.CONTENT_LAYER,))[vgg.CONTENT_LAYER]
+        grams = {k: vgg.gram_matrix(v) for k, v in
+                 vgg.extract_features(net, style, vgg.STYLE_LAYERS).items()}
+    got, _state, loss = gram_nst.sharded_optimize_step(
+        net, imgs, feats, grams, gram_nst.adam_init(imgs), mesh=make_mesh(devices=[dev, dev]))
+    with torch.inference_mode(False), torch.enable_grad():
+        img = imgs.clone().requires_grad_(True)
+        total, _ = gram_nst.nst_losses(net, img, feats, grams, content_weight=1.0,
+                                       style_weight=1e4, tv_weight=1e-4)
+        (g,) = torch.autograd.grad(total, img)
+    upd, _ = gram_nst.adam_update(g, gram_nst.adam_init(imgs), 0.02)
+    want = torch.clamp(imgs + upd, 0.0, 1.0)
+    rel_img = ((got - want).abs().mean() / want.abs().mean()).item()
+    rel_loss = abs(loss.item() - total.item()) / abs(total.item())
+    log(f"sharded Gram step, 2 shards on the card, 2 x {MESH_GRAM_HW}²: vs the unsharded step, "
+        f"images relative {rel_img:.3g}, loss relative {rel_loss:.3g} (bound {MESH_GRAM_TOL}); "
+        f"loss {loss.item():.6g}")
+    if not (rel_img <= MESH_GRAM_TOL and rel_loss <= MESH_GRAM_TOL):
+        fail("the sharded Gram step disagrees with the unsharded step")
+
+
+MAGENTA_POOL = "/app/models/magenta_styles"  # generate_multimodel_presets' style paths
+
+
+def apps_phase(dev, workdir: Path, src: Path) -> dict:
+    """On the card with their default device: ``run_videos`` (``DEVICE``
+    unset, the flow EMA) and ``drive_videos`` in queue mode with one worker
+    on the 16-frame clip, every frame written and K1's launches exact; then
+    ``generate_multimodel_presets`` and ``generate_preset_samples --limit
+    2`` (the populated DB's style paths pointed at style images this phase
+    writes: the DB names the gallery's, which the repo lacks). Returns the
+    video runs' launches."""
+    import sqlite3
+
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.apps import (drive_videos, generate_multimodel_presets,
+                                                  generate_preset_samples, run_videos)
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+    from neuralstyletransferv1_torch.parallel.jobqueue import JobQueue
+
+    ds = tpipe.effective_flow_downscale(1, H, W)  # run_videos' FLOW_DOWNSCALE default
+    want_k1 = len(_level_sizes(H // ds, W // ds, 2)) * -(-APP_FRAMES // B)
+    launches = {k: 0 for k in read_counts()}
+    common = {"SCALE": W, "FPS": 24, "FLOW_EMA": 1, "PIPELINE_ARGS": APP_PIPELINE_ARGS}
+    in_dir = workdir / "app_in"
+    in_dir.mkdir(exist_ok=True)
+    vid = in_dir / "clip.mp4"
+    vid.write_bytes(src.read_bytes())
+    runs = (
+        ("run_videos", lambda: run_videos.main([str(vid)]),
+         {"MODEL_A": CKPT, "MODEL_A_TYPE": "pytorch", "IO_PRESET": "raw_01",
+          "OUT_DIR": workdir / "rv_out"},
+         workdir / "rv_out" / "clip.mp4"),
+        ("drive_videos (queue, one worker)", lambda: drive_videos.main([]),
+         {"IN_DIR": in_dir, "OUT_DIR": workdir / "dv_out", "QUEUE_DIR": workdir / "queue",
+          "QUEUE_ROLE": "both", "WORKER_ID": "smoke", "MODELS": f"pytorch:{CKPT}"},
+         workdir / "dv_out" / "clip.mp4"),
+    )
+    for name, call, env, out in runs:
+        restore = _env({**common, **env})
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = call()
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        used = {k: v for k, v in counts.items() if v}
+        got = clip_frame_count(out) if out.exists() else 0
+        log(f"{name} on the card ({APP_FRAMES}-frame 1080p clip, '{APP_PIPELINE_ARGS}', flow "
+            f"EMA): rc {rc}, {got} frames written, {secs:.2f} s; launches {used}, K1 expected "
+            f"{want_k1}")
+        if rc != 0 or got != APP_FRAMES or used != {"dis_iter": want_k1}:
+            fail(f"{name} did not style the clip on the card with the expected launches")
+        for k, v in counts.items():
+            launches[k] += v
+    q = JobQueue(workdir / "queue").counts()
+    if q != {"pending": 0, "running": 0, "done": 1, "failed": 0}:
+        fail(f"drive_videos left the queue at {q}")
+
+    db = workdir / "presets.db"
+    if generate_multimodel_presets.main(["--db", str(db)]) != 0:
+        fail("generate_multimodel_presets failed")
+    styles = workdir / "styles"
+    styles.mkdir(exist_ok=True)
+    with sqlite3.connect(str(db)) as conn:
+        names = {Path(r[0]).name for r in conn.execute(
+            "SELECT magenta_style FROM presets WHERE magenta_style IS NOT NULL UNION "
+            "SELECT magenta_style_b FROM presets WHERE magenta_style_b IS NOT NULL UNION "
+            "SELECT magenta_style_c FROM presets WHERE magenta_style_c IS NOT NULL UNION "
+            "SELECT magenta_style_d FROM presets WHERE magenta_style_d IS NOT NULL")}
+        for col in ("magenta_style", "magenta_style_b", "magenta_style_c", "magenta_style_d"):
+            conn.execute(f"UPDATE presets SET {col} = replace({col}, ?, ?)",
+                         (MAGENTA_POOL, str(styles)))
+    for i, n in enumerate(sorted(names)):
+        Image.fromarray(moving_frames(1, 256, 256, SEED + 70 + i)[0]).save(styles / n)
+    img = workdir / "preset_in.png"
+    Image.fromarray(moving_frames(1, H, W, SEED + 62)[0]).save(img)
+    t0 = time.perf_counter()
+    rc = generate_preset_samples.main(["--db", str(db), "--input_image", str(img), "--limit",
+                                       "2", "--output_dir", str(workdir / "samples"),
+                                       "--work_dir", str(workdir / "_samples")])
+    secs = time.perf_counter() - t0
+    outs = sorted(p.name for p in (workdir / "samples").glob("*.jpg"))
+    log(f"generate_multimodel_presets, then generate_preset_samples --limit 2 on the card: rc "
+        f"{rc}, {secs:.2f} s, wrote {outs}")
+    if rc != 0 or len(outs) != 2:
+        fail("generate_preset_samples did not render two presets on the card")
+    return launches
+
+
+def mesh_apps_phase(dev, workdir: Path) -> dict:
+    """Phase 14: the mesh core, main() with --mesh_devices, the sharded Gram
+    step and the queue and presets apps. Returns the launches of its runs
+    on the main path."""
+    t0 = time.perf_counter()
+    launches = mesh_core_phase(dev)
+    src = workdir / "app_clip.mp4"
+    write_clip(src, moving_frames(APP_FRAMES, H, W, SEED + 63))
+    mesh_main_phase(dev, workdir, src)
+    mesh_gram_phase(dev)
+    for k, v in apps_phase(dev, workdir, src).items():
+        launches[k] += v
+    log(f"phase 14 (mesh, sharded Gram step, queue and presets apps) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def nst_checkpoint(path: Path) -> Path:
     """A full-width NST_Train net from the seed, saved in the reference key
     layout (``down1.conv.weight`` …)."""
@@ -4075,6 +4455,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for k, v in backends_phase(dev, tmp).items():
         launches[k] += v
     bench_keys = ladder_gram_phase(dev, tmp)
+    for k, v in mesh_apps_phase(dev, tmp).items():
+        launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -4105,6 +4487,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None, "bf16_form_ms": rec["bf16_ms"],
+            "cudnn_f32_ms": rec["cudnn_f32_ms"],
             "bound_share": rec["bound_share"], "per_case": rec["per_case"],
         })
     for name, (_shape, replaces) in BF16_KERNELS.items():

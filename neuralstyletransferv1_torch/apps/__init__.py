@@ -2,4 +2,8 @@
 video workflow; Gram-matrix NST (``slow_nst``); the weight-ladder apps
 (``style_all_weights``, ``style_video_pipeline``, ``multi_model_video``,
 ``style_morph``); the magenta self-style apps (``selfstyle_blob``,
-``batch_selfstyle``, ``generate_magenta_self_style``)."""
+``batch_selfstyle``, ``generate_magenta_self_style``); the video apps
+(``run_videos``, ``run_styles``, ``drive_videos``: env contracts, the job
+queue across hosts); the presets apps (``generate_multimodel_presets``,
+``generate_preset_samples``, ``generate_video_samples``,
+``generate_morph_samples``)."""

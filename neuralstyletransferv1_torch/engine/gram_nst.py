@@ -9,6 +9,8 @@ no host round trip per step: each step's loss stays a device scalar until
 the loop ends. Autograd differentiates with respect to the image only
 (the VGG weights are frozen). Adam is optax's, written as tensor ops in
 optax's order, so the two agree to an f32 ulp per update.
+``sharded_optimize_step`` is one step over a batch of images split across
+a device mesh (JAX's, for its multi-device dry run).
 """
 
 from __future__ import annotations
@@ -22,15 +24,23 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def nst_losses(net, img01: torch.Tensor, content_feats: torch.Tensor, style_grams: dict, *,
-               content_weight: float, style_weight: float, tv_weight: float):
-    """(total, {"content", "style", "tv"}) of an NHWC [0, 1] image."""
+               content_weight: float, style_weight: float, tv_weight: float,
+               share: float = 1.0):
+    """(total, {"content", "style", "tv"}) of an NHWC [0, 1] image batch.
+    ``share``: the batch's part of a larger batch (its images over the
+    whole's): each mean is then this batch's part of the whole batch's
+    mean, so the parts of all shards add up to it."""
+    def mean(t):
+        m = torch.mean(t)
+        return m if share == 1.0 else m * share
+
     feats = vgg.extract_features(net, img01, vgg.STYLE_LAYERS + (vgg.CONTENT_LAYER,))
-    c_loss = torch.mean((feats[vgg.CONTENT_LAYER] - content_feats) ** 2)
+    c_loss = mean((feats[vgg.CONTENT_LAYER] - content_feats) ** 2)
     s_loss = 0.0
     for name in vgg.STYLE_LAYERS:
-        s_loss = s_loss + torch.mean((vgg.gram_matrix(feats[name]) - style_grams[name]) ** 2)
-    tv = (torch.mean(torch.abs(img01[:, 1:] - img01[:, :-1]))
-          + torch.mean(torch.abs(img01[:, :, 1:] - img01[:, :, :-1])))
+        s_loss = s_loss + mean((vgg.gram_matrix(feats[name]) - style_grams[name]) ** 2)
+    tv = (mean(torch.abs(img01[:, 1:] - img01[:, :-1]))
+          + mean(torch.abs(img01[:, :, 1:] - img01[:, :, :-1])))
     total = content_weight * c_loss + style_weight * s_loss + tv_weight * tv
     return total, {"content": c_loss, "style": s_loss, "tv": tv}
 
@@ -105,3 +115,46 @@ def optimize(net, content01: torch.Tensor, style01: torch.Tensor, *, steps: int 
                 updates, state = adam_update(grads, state, lr)
                 img = torch.clamp(img + updates, 0.0, 1.0)
     return img.detach(), torch.stack(history) if history else torch.zeros(0)
+
+
+def sharded_optimize_step(net, imgs01: torch.Tensor, content_feats: torch.Tensor,
+                          style_grams: dict, opt_state: dict, *, mesh, lr: float = 0.02,
+                          content_weight: float = 1.0, style_weight: float = 1e4,
+                          tv_weight: float = 1e-4):
+    """One optimization step over a batch of images split across ``mesh``
+    (``parallel/mesh.Mesh``; JAX ``sharded_optimize_step``): the images, the
+    content features and the Adam moments split on dim 0 (optax's Adam is
+    elementwise); the style Grams split with them where they carry the
+    batch, else every shard takes them whole; the VGG weights are copied
+    once to each distinct device (the primary keeps ``net``, which lives
+    there). The losses are means over the WHOLE batch, as JAX's
+    ``jnp.mean`` over the global array: each shard's terms are its share of
+    them (``nst_losses(share=)``), so its gradient is the global loss's. Returns (images on the primary device, the Adam state,
+    the total loss: the shards' parts summed)."""
+    from ..parallel.mesh import gather, on_device, split
+
+    B = imgs01.shape[0]
+    nets = mesh.replicate(net)
+    grams = {k: split(mesh, g) if g.shape[0] == B and B > 1
+             else [g.to(d) for d in mesh.devices] for k, g in style_grams.items()}
+    parts = zip(split(mesh, imgs01), split(mesh, content_feats), split(mesh, opt_state["mu"]),
+                split(mesh, opt_state["nu"]))
+    imgs, mus, nus, totals = [], [], [], []
+    with torch.inference_mode(False), torch.enable_grad():
+        for k, (d, (img, feats, mu, nu)) in enumerate(zip(mesh.devices, parts)):
+            with on_device(d):
+                img = img.detach().clone().requires_grad_(True)
+                total, _ = nst_losses(nets[d], img, feats, {kk: g[k] for kk, g in grams.items()},
+                                      content_weight=content_weight, style_weight=style_weight,
+                                      tv_weight=tv_weight, share=img.shape[0] / B)
+                (grads,) = torch.autograd.grad(total, img)
+                with torch.no_grad():
+                    upd, st = adam_update(grads, {"mu": mu, "nu": nu,
+                                                  "count": opt_state["count"]}, lr)
+                    imgs.append(torch.clamp(img + upd, 0.0, 1.0))
+                mus.append(st["mu"])
+                nus.append(st["nu"])
+                totals.append(total.detach())
+    loss = sum(t.to(mesh.primary) for t in totals)
+    state = {"mu": gather(mesh, mus), "nu": gather(mesh, nus), "count": opt_state["count"] + 1}
+    return gather(mesh, imgs), state, loss

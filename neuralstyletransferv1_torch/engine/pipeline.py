@@ -16,7 +16,9 @@ engine's) and the same three runners:
 The batched runners share ``make_batched_core``: frames cross to the device
 as uint8 and convert there, the temporal state stays on the device between
 batches, and the previous batch's frames are copied back and written while
-the device works on the next one.
+the device works on the next one. ``--mesh_devices`` > 1 splits each batch
+across a device mesh (``parallel/mesh.py``), as the JAX engine's batched
+core shards it.
 
 Flags outside these paths raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them; none is silently ignored.
@@ -39,8 +41,7 @@ from .config import build_arg_parser
 
 _LETTERS = "abcdefgh"
 
-# ROADMAP.md "Queue 1 — port slices" items that port each unsupported mode.
-_MULTI = "ROADMAP.md Queue 1, item 8 (multi-GPU)"
+# ROADMAP.md "Queue 1 — port slices" item that ports the unsupported mode.
 _BENCH = "ROADMAP.md Queue 1, item 9 (bench and tracing)"
 
 
@@ -416,7 +417,6 @@ def build_parser():
 def check_supported(args) -> None:
     """Raise NotImplementedError for every flag this port does not run yet."""
     unsupported = [
-        (int(args.mesh_devices or 0) > 1, "--mesh_devices > 1", _MULTI),
         (bool(args.profile_dir), "--profile_dir", _BENCH),
     ]
     for bad, what, item in unsupported:
@@ -491,8 +491,36 @@ def _save(img_u8: np.ndarray, out_path: Path, jpg: bool, quality: int) -> None:
         img.save(out_path)
 
 
+def engine_mesh(args, device: torch.device, mesh=None):
+    """The ``--mesh_devices`` mesh of a batched run, or None for one device:
+    JAX's clamp to the visible devices and its rounding of
+    ``--frame_batch`` up to a multiple of the mesh size (``args`` is
+    updated), with the JAX engine's printed lines. ``mesh``: an explicit
+    ``parallel.mesh.Mesh`` instead of the flag (two shards on one card)."""
+    from ..parallel import mesh as pm
+
+    if mesh is None:
+        n = int(args.mesh_devices or 0)
+        if n <= 1:
+            return None
+        avail = pm.visible_devices(device, n)
+        if n > avail:
+            print(f"[mesh] only {avail} device(s) visible; clamping --mesh_devices {n} -> {avail}")
+            n = pm.clamp_mesh(n, avail)
+        if n <= 1:
+            return None
+        mesh = pm.make_mesh(n, device.type)
+    n = len(mesh)
+    if int(args.frame_batch) % n:
+        new_b = pm.round_batch(int(args.frame_batch), n)
+        print(f"[mesh] rounding --frame_batch {args.frame_batch} -> {new_b} (multiple of {n})")
+        args.frame_batch = new_b
+    print(f"[mesh] data-parallel stylize over {n} device(s)")
+    return mesh
+
+
 def make_batched_core(args, device: torch.device, *, fused_sites=None,
-                      frames_dir: Path | None = None):
+                      frames_dir: Path | None = None, mesh=None):
     """The per-batch pipeline: slot-bank stylize → slot blend (RGB weights,
     ``--blend_models_lab``, or the ``--region_*`` composite per frame) →
     ``--flow_method`` flow → temporal chain (with the ``--mask`` /
@@ -514,17 +542,21 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None,
     """
     from ..ops.color import rgb_to_gray
     from ..ops.resize import resize_bilinear
-    from ..temporal.ema import temporal_postprocess_split
+    from ..parallel.mesh import temporal_postprocess_sharded
+    from ..temporal.ema import TemporalState, temporal_postprocess_split
     from . import stylizer as st
 
     check_supported(args)
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    if mesh is not None:
+        device = mesh.primary
     models = load_slot_bank(args, device)
     num_models = len(models)
     print(f"[bank] {num_models} slot(s): "
           + ", ".join(f"{m.name}({m.arch}/{m.io_preset})" for m in models))
-    stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize, fused_sites=fused_sites)
-                   for m in models]
+    mesh = engine_mesh(args, device, mesh)
+    stylize_fns = [st.jit_stylizer(m, dtype=dtype, quantize=args.quantize, fused_sites=fused_sites,
+                                   mesh=mesh) for m in models]
     use_lab_blend = args.blend_models_lab and num_models > 1
     weights = parse_blend_weights(args.blend_models_weights, num_models) \
         if num_models > 1 and not use_lab_blend else [1.0]
@@ -605,14 +637,25 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None,
             masks = dict(mask_alphas=torch.from_numpy(alphas).to(device),
                          mask_has=torch.from_numpy(has).to(device))
 
-        if carry["state"] is None:  # first batch: frame 0 is its own predecessor
+        first = carry["state"] is None
+        if first:  # first batch: frame 0 is its own predecessor
             carry["prev_gray"] = grays[0]
         flows = None
         if args.flow_ema:
+            # the whole batch's flows, the previous batch's boundary pair
+            # included, so that the mesh's chunk seams warp with the true flow
             prevs = torch.cat([carry["prev_gray"][None], grays[:-1]], 0)
             flows = flows_at_downscale(args, prevs, grays)
-        out, carry["state"] = temporal_postprocess_split(
-            styled, orig, flows, init=carry["state"], **chain_kwargs, **masks)
+        if mesh is not None:
+            if first:  # JAX's zero carry; shard 0 warms up from it
+                zero = torch.zeros((H0, W0, 3), dtype=torch.float32, device=device)
+                carry["state"] = TemporalState(zero, zero)
+            out, carry["state"] = temporal_postprocess_sharded(
+                mesh, styled, orig, flows, state=carry["state"], first=first, **chain_kwargs,
+                **masks)
+        else:
+            out, carry["state"] = temporal_postprocess_split(
+                styled, orig, flows, init=carry["state"], **chain_kwargs, **masks)
         carry["prev_gray"] = grays[-1]
         return (out.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 

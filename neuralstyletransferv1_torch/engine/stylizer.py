@@ -194,12 +194,24 @@ def _calibration_input(model: StyleModel, x01: torch.Tensor) -> torch.Tensor:
     return iop.preprocess(model.io_preset, xc)
 
 
-def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
-                        x01: torch.Tensor, fused_sites=None, sw=None):
-    """Calibrate on the first frame of ``x01`` (f32, the f32 weights, padded
-    to a multiple of 4 only) and return the forward of ``quantize`` and
-    whether its output carries the post affine. ``sw``: the bf16 sites'
-    weights, where the set names one."""
+def _to(obj, device):
+    """A calibration's products (dicts, lists and tuples of tensors, numpy
+    arrays and numbers) with every tensor moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(v, device) for v in obj)
+    return obj
+
+
+def _measure(model: StyleModel, quantize: str, x01: torch.Tensor, fused_sites=None) -> dict:
+    """A Johnson slot's calibration on the first frame of ``x01`` (f32, the
+    f32 weights, padded to a multiple of 4 only): the frozen norms of the
+    static modes, and in the int8 modes the fused-site set and the
+    quantized sites (``quant``, with deconv3's baked weights where the set
+    makes it an int8 site)."""
     xin = _calibration_input(model, x01)
     stats = None
     if quantize in ("bf16_static", "int8_static"):
@@ -207,8 +219,7 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
     if quantize == "bf16_static":
         print(f"[stylizer] static-norm bf16 path calibrated for {model.name} "
               f"({len(stats)} frozen norms)")
-        return (lambda t: net(t, static_stats=stats, fused_sites=fused_sites or (),
-                              site_weights=sw)), False
+        return {"stats": stats}
     fused = tq.check_fused_sites(tq.default_sites(stats is not None) if fused_sites is None
                                  else fused_sites)
     scales = tq.calibrate_act_scales(model.net, xin, sites=tq.QUANT_SITES_PALLAS,
@@ -216,15 +227,48 @@ def _calibrated_forward(model: StyleModel, net: TransformerNet, quantize: str,
     scales = tq.site_filter(scales, xin.shape[1], xin.shape[2], fused)
     quant = tq.quantize_net(model.net, scales, io_preset=model.io_preset)
     d3 = tq.baked_d3(model.net, model.io_preset) if "d3" in quant else None
-    sites = sites_i8.prepare_sites(net, quant, x01.device, d3=d3)
-    print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(sites)} int8 sites, "
+    print(f"[stylizer] {quantize} path calibrated for {model.name} ({len(quant)} int8 sites, "
           f"fused {fused}" + (f", {len(stats)} frozen norms)" if stats else ")"))
+    return {"stats": stats, "fused": fused, "quant": quant, "d3": d3}
+
+
+def _bind(net: TransformerNet, quantize: str, cal: dict, device, fused_sites=None, sw=None):
+    """The forward of ``quantize`` from a calibration (``_measure``) on the
+    net ``net`` (the slot's weights in the compute dtype on ``device``),
+    its int8 sites prepared there, and whether its output carries the post
+    affine. ``sw``: the bf16 sites' weights, where the set names one."""
+    stats = cal["stats"]
+    if quantize == "bf16_static":
+        return (lambda t: net(t, static_stats=stats, fused_sites=fused_sites or (),
+                              site_weights=sw)), False
+    sites = sites_i8.prepare_sites(net, cal["quant"], device, d3=cal["d3"])
+    fused = cal["fused"]
     return (lambda t: tq.forward_int8(net, t, sites, stats, fused_sites=fused,
-                                      site_weights=sw)), d3 is not None
+                                      site_weights=sw)), cal["d3"] is not None
+
+
+def _net_device(model: StyleModel) -> torch.device:
+    """Where a slot's weights live."""
+    if model.arch == "t7":
+        from ..io.t7 import layers_device
+
+        return layers_device(model.net)
+    return next(model.net.parameters()).device
+
+
+def _replica(model: StyleModel, device: torch.device) -> StyleModel:
+    """The slot with its f32 weights copied to ``device``."""
+    if model.arch == "t7":
+        from ..io.t7 import layers_to
+
+        return StyleModel("t7", layers_to(model.net, device, torch.float32), model.io_preset,
+                          model.name)
+    return StyleModel(model.arch, copy.deepcopy(model.net).to(device), model.io_preset,
+                      model.name)
 
 
 def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
-                 quantize: str = "none", fused_sites=None):
+                 quantize: str = "none", fused_sites=None, mesh=None):
     """A stylize function for one slot: f(batch01 NHWC f32) → NHWC f32.
     ``fused_sites``: the fused-site set; None is the adopted one in the int8
     modes (``adopt_overrides.sites``) and no fused site otherwise. Under
@@ -237,17 +281,56 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
     to multiples of 8 × 32 once H ≥ 32 and W ≥ 64, as the JAX engine does so
     that its fused sites keep their geometry (the padding changes the
     instance-norm statistics, so it is part of the function). A quantize
-    mode calibrates lazily on the first frame of the first batch."""
+    mode calibrates lazily on the first frame of the first batch.
+
+    ``mesh`` (``parallel/mesh.Mesh``): the batch splits across its shards
+    (``shard_stylizer``); the slot's weights live on the mesh's primary
+    device and are copied once to each other distinct device.
+    A quantize mode calibrates once, on the global batch's first frame on
+    the primary device, and every replica binds those same scales and
+    statistics, its int8 sites prepared on its own device (JAX calibrates
+    once on the global batch too). A magenta slot stays unsharded on the
+    primary device, as in JAX: its batch axis is tiles, not frames."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_MODES}")
+    if mesh is None or model.arch == "magenta":
+        return _stylizer(model, dtype, quantize, fused_sites)
+    from ..parallel.mesh import on_device, shard_stylizer
+
+    cal: dict = {}
+    fns = {d: _stylizer(model if d == mesh.primary else _replica(model, d), dtype, quantize,
+                        fused_sites, calib=lambda d=d: _to(cal["products"], d))
+           for d in mesh.distinct()}
+    run = shard_stylizer(fns, mesh)
+    measure = fns[mesh.primary].measure
+
+    @torch.no_grad()
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        if measure is not None and "products" not in cal:
+            with on_device(mesh.primary):
+                cal["products"] = measure(x01.to(mesh.primary))
+        return run(x01)
+
+    return fn
+
+
+def _stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
+              calib=None):
+    """``jit_stylizer`` on one device: the slot's stylize function, with
+    ``fn.measure(x01)`` its calibration (None where the mode has none).
+    ``calib``: where a replica takes its calibration from instead of
+    measuring its own first frame (``calib()`` → the products on its
+    device)."""
     if model.arch == "magenta":
-        return _magenta_stylizer(model)
+        fn = _magenta_stylizer(model)
+        fn.measure = None
+        return fn
     if model.arch == "nst":
-        return _nst_stylizer(model, dtype, quantize, fused_sites)
+        return _nst_stylizer(model, dtype, quantize, fused_sites, calib)
     if model.arch == "reconet":
-        return _reco_stylizer(model, dtype, quantize, fused_sites)
+        return _reco_stylizer(model, dtype, quantize, fused_sites, calib)
     if model.arch == "t7":
-        return _t7_stylizer(model, dtype, quantize, fused_sites)
+        return _t7_stylizer(model, dtype, quantize, fused_sites, calib)
     if fused_sites is not None:
         unknown = sorted(set(fused_sites) - set(tq.FUSED_SITE_NAMES))
         if unknown:
@@ -258,9 +341,10 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
             f"fused sites {sorted(bf16_sites)} run under bfloat16 only: ROADMAP.md Queue 1, "
             "item 10 (--quantize and fused sites under float32)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
+    dev = _net_device(model)
     sw = None
     if bf16_sites:
-        sw = sites_bf16.prepare(model.net, next(model.net.parameters()).device)
+        sw = sites_bf16.prepare(model.net, dev)
 
     def plain(t):
         return net(t, fused_sites=fused_sites or (), site_weights=sw)
@@ -268,11 +352,14 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
     state = {"forward": plain if quantize == "none" else None, "baked": False}
     int8 = quantize in ("int8_static", "int8")
 
+    def measure(x01):
+        return _measure(model, quantize, x01, fused_sites)
+
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
-            state["forward"], state["baked"] = _calibrated_forward(model, net, quantize, x01,
-                                                                   fused_sites, sw)
+            cal = calib() if calib is not None else measure(x01)
+            state["forward"], state["baked"] = _bind(net, quantize, cal, dev, fused_sites, sw)
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         run = stylize_baked if state["baked"] else stylize
@@ -281,24 +368,28 @@ def jit_stylizer(model: StyleModel, *, dtype: torch.dtype = torch.float32,
         mh, mw = (8, 32) if int8 and H >= 32 and W >= 64 else (4, 4)
         return _pad_call(run, state["forward"], model.io_preset, x, mh, mw).float()
 
+    fn.measure = None if quantize == "none" else measure
     return fn
 
 
-def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
+                  calib=None):
     """``jit_stylizer`` for an NST slot (JAX ``jit_stylizer`` with
     ``nst_fast_params``): the fast form at sizes padded to multiples of 4
     (8 × 32 under int8 once H ≥ 32 and W ≥ 64), the exact net below 8
     pixels. A quantize mode calibrates on the first frame (f32 net, padded
     to multiples of 4): frozen norms (``calibrate_in_stats``) for the static
     modes, activation scales and int8 res weights for the int8 ones, routed
-    by the adopted ``nst_static`` / ``nst`` set or ``fused_sites``."""
+    by the adopted ``nst_static`` / ``nst`` set or ``fused_sites``.
+    ``calib``: as ``_stylizer``'s."""
+    from .. import adopt_overrides
+
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
+    dev = _net_device(model)
     fused = None if fused_sites is None else tuple(fused_sites)
     state = {"forward": (lambda t: nstf.apply(net, t)) if quantize == "none" else None}
 
-    def calibrate(x01):
-        from .. import adopt_overrides
-
+    def measure(x01):
         xin = _calibration_input(model, x01)
         stats = None
         if quantize in ("bf16_static", "int8_static"):
@@ -306,18 +397,25 @@ def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_si
         if quantize == "bf16_static":
             print(f"[stylizer] static-norm bf16 nst path calibrated for {model.name} "
                   f"({len(stats)} frozen norms)")
-            return lambda t: nstf.apply(net, t, static_stats=stats)
-        scales = nstf.calibrate_act_scales(model.net, xin, static_stats=stats)
-        sites = nstf.prepare_sites(net, nstf.quantize_net(model.net, scales), x01.device)
+            return {"stats": stats}
+        quant = nstf.quantize_net(model.net, nstf.calibrate_act_scales(model.net, xin,
+                                                                        static_stats=stats))
         sset = adopt_overrides.sites("nst_static" if stats else "nst") if fused is None else fused
-        print(f"[stylizer] {quantize} nst path calibrated for {model.name} ({len(sites)} int8 "
+        print(f"[stylizer] {quantize} nst path calibrated for {model.name} ({len(quant)} int8 "
               f"sites, fused {sset})")
+        return {"stats": stats, "quant": quant, "sset": sset}
+
+    def bind(cal):
+        stats = cal["stats"]
+        if quantize == "bf16_static":
+            return lambda t: nstf.apply(net, t, static_stats=stats)
+        sites, sset = nstf.prepare_sites(net, cal["quant"], dev), cal["sset"]
         return lambda t: nstf.apply(net, t, sites=sites, fused_sites=sset, static_stats=stats)
 
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
-            state["forward"] = calibrate(x01)
+            state["forward"] = bind(calib() if calib is not None else measure(x01))
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         if H < 8 or W < 8:
@@ -326,10 +424,12 @@ def _nst_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_si
         return _pad_call(stylize, state["forward"], model.io_preset, x,
                          *((8, 32) if big else (4, 4))).float()
 
+    fn.measure = None if quantize == "none" else measure
     return fn
 
 
-def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
+                   calib=None):
     """``jit_stylizer`` for a ReCoNet slot (JAX ``jit_stylizer`` with
     ``reco_fast_params``): the fast form (``reconet_fast.FastReCoNet`` of the
     f32 net, cast to ``dtype`` after the f32 phase sums) at sizes padded to
@@ -338,15 +438,17 @@ def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_s
     fast form, padded to multiples of 4): frozen norms
     (``calibrate_in_stats``) for the static modes, activation scales and int8
     res and decoder weights for the int8 ones, routed by the adopted
-    ``reco_static`` / ``reco`` set or ``fused_sites``."""
+    ``reco_static`` / ``reco`` set or ``fused_sites``. ``calib``: as
+    ``_stylizer``'s."""
+    from .. import adopt_overrides
+
     fp32 = rf.FastReCoNet(model.net)
     fp = fp32 if dtype == torch.float32 else copy.deepcopy(fp32).to(dtype)
+    dev = _net_device(model)
     fused = None if fused_sites is None else tuple(fused_sites)
     state = {"forward": (lambda t: rf.apply(fp, t)) if quantize == "none" else None}
 
-    def calibrate(x01):
-        from .. import adopt_overrides
-
+    def measure(x01):
         xin = _calibration_input(model, x01)
         stats = None
         if quantize in ("bf16_static", "int8_static"):
@@ -354,18 +456,24 @@ def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_s
         if quantize == "bf16_static":
             print(f"[stylizer] static-norm bf16 reconet path calibrated for {model.name} "
                   f"({len(stats)} frozen norms)")
-            return lambda t: rf.apply(fp, t, static_stats=stats)
-        scales = rf.calibrate_act_scales(fp32, xin, static_stats=stats)
-        sites = rf.prepare_sites(fp, rf.quantize_net(fp32, scales), x01.device)
+            return {"stats": stats}
+        quant = rf.quantize_net(fp32, rf.calibrate_act_scales(fp32, xin, static_stats=stats))
         sset = adopt_overrides.sites("reco_static" if stats else "reco") if fused is None else fused
-        print(f"[stylizer] {quantize} reconet path calibrated for {model.name} ({len(sites)} "
+        print(f"[stylizer] {quantize} reconet path calibrated for {model.name} ({len(quant)} "
               f"int8 sites, fused {sset})")
+        return {"stats": stats, "quant": quant, "sset": sset}
+
+    def bind(cal):
+        stats = cal["stats"]
+        if quantize == "bf16_static":
+            return lambda t: rf.apply(fp, t, static_stats=stats)
+        sites, sset = rf.prepare_sites(fp, cal["quant"], dev), cal["sset"]
         return lambda t: rf.apply(fp, t, sites=sites, fused_sites=sset, static_stats=stats)
 
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
-            state["forward"] = calibrate(x01)
+            state["forward"] = bind(calib() if calib is not None else measure(x01))
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         if H < 8 or W < 8:
@@ -374,10 +482,12 @@ def _reco_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_s
         return _pad_call(stylize, state["forward"], model.io_preset, x,
                          *((8, 32) if big else (4, 4))).float()
 
+    fn.measure = None if quantize == "none" else measure
     return fn
 
 
-def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites):
+def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
+                 calib=None):
     """``jit_stylizer`` for a Torch7 slot (JAX ``jit_stylizer`` with
     ``t7_fast_params``): the fast form (``t7_fast.try_fast_johnson`` of the
     f32 layers, cast to ``dtype``) at sizes padded to multiples of 4 (8 × 32
@@ -390,7 +500,8 @@ def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sit
     graph has no norm to freeze: int8_static runs as int8 and bf16_static as
     no quantize, with the JAX engine's warning. int8 quantizes the graph
     (``calibrate_t7_scales``, ``quantize_t7``), routed by the adopted ``t7``
-    (instance norms) or ``t7_bn`` (BN-folded) set, or ``fused_sites``."""
+    (instance norms) or ``t7_bn`` (BN-folded) set, or ``fused_sites``.
+    ``calib``: as ``_stylizer``'s."""
     from .. import adopt_overrides
     from ..io import t7_fast as t7f
     from ..io.t7 import layers_device, layers_to, t7_apply
@@ -423,27 +534,34 @@ def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sit
     def fast(params, sites=None, sset=()):
         return lambda t: t7f.t7_fast_apply(params, t, sites=sites, fused_sites=sset)
 
-    def calibrate(x01):
+    def measure(x01):
         xin = _calibration_input(model, x01)
         if quantize in ("bf16_static", "int8_static"):
             stats = t7f.calibrate_t7_in_stats(p32, xin)
-            folded32 = t7f.fold_static_in(p32, stats)
-            folded = folded32 if dtype == torch.float32 else t7f.params_to(folded32, dev, dtype)
-            sites, sset = None, ()
+            quant, sset = None, ()
             if quantize == "int8_static":
+                folded32 = t7f.fold_static_in(p32, stats)
                 quant = t7f.quantize_t7(folded32, t7f.calibrate_t7_scales(folded32, xin))
-                sites = t7f.prepare_sites(folded, quant, dev)
                 sset = adopt_overrides.sites("t7_bn") if fused is None else fused
-            print(f"[stylizer] static-norm {'int8' if sites else 'bf16'} .t7 path folded for "
-                  f"{model.name} ({len(stats)} frozen norms" + (f", fused {sset})" if sites
+            print(f"[stylizer] static-norm {'int8' if quant else 'bf16'} .t7 path folded for "
+                  f"{model.name} ({len(stats)} frozen norms" + (f", fused {sset})" if quant
                                                                else ")"))
-            return fast(folded, sites, sset)
+            return {"stats": stats, "quant": quant, "sset": sset}
         quant = t7f.quantize_t7(p32, t7f.calibrate_t7_scales(p32, xin))
-        sites = t7f.prepare_sites(p, quant, dev)
         sset = adopt_overrides.sites("t7" if deferred else "t7_bn") if fused is None else fused
         print(f"[stylizer] int8 t7 path calibrated for {model.name} ({len(quant)} sites, "
               f"fused {sset})")
-        return fast(p, sites, sset)
+        return {"stats": None, "quant": quant, "sset": sset}
+
+    def bind(cal):
+        """The static modes fold the frozen norms into this slot's own f32
+        weights, then cast; the quantized sites go to its device."""
+        params = p
+        if cal["stats"] is not None:
+            folded32 = t7f.fold_static_in(p32, cal["stats"])
+            params = folded32 if dtype == torch.float32 else t7f.params_to(folded32, dev, dtype)
+        sites = None if cal["quant"] is None else t7f.prepare_sites(params, cal["quant"], dev)
+        return fast(params, sites, cal["sset"])
 
     state = {"forward": None}
     if quantize == "none":
@@ -453,7 +571,7 @@ def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sit
     @torch.no_grad()
     def fn(x01: torch.Tensor) -> torch.Tensor:
         if state["forward"] is None:
-            state["forward"] = calibrate(x01)
+            state["forward"] = bind(calib() if calib is not None else measure(x01))
         x = x01.to(dtype)
         H, W = x.shape[1], x.shape[2]
         if p is None or H < 8 or W < 8:
@@ -461,6 +579,7 @@ def _t7_stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sit
         mh, mw = (8, 32) if big_pad and H >= 32 and W >= 64 else (4, 4)
         return _pad_call(stylize, state["forward"], model.io_preset, x, mh, mw).float()
 
+    fn.measure = measure if state["forward"] is None else None
     return fn
 
 

@@ -101,12 +101,16 @@ def temporal_postprocess_split(
     mask_alphas: torch.Tensor | None = None,
     mask_has: torch.Tensor | None = None,
     composite_keep: bool = True,
+    warmup: bool | None = None,
 ) -> tuple[torch.Tensor, TemporalState]:
     """The temporal chain over a THWC batch; returns (output THWC, state).
 
-    flows[t] is the flow from frame t-1 → t. With ``init`` None the batch
-    starts a video: frame 0 skips the flow fusion and seeds the LAB EMA from
-    itself. ``fast_warp`` picks the u8-corner packed warp (default) over the
+    flows[t] is the flow from frame t-1 → t. A warm-up batch starts a
+    video: frame 0 skips the flow fusion and seeds the LAB EMA from itself.
+    ``warmup`` None (the default) infers it from ``init`` None; the sharded
+    chain passes it with an ``init`` (JAX ``temporal_postprocess_scan``'s
+    ``warmup``: the first batch's shard 0 warms up from the zero carry, the
+    other shards never do). ``fast_warp`` picks the u8-corner packed warp (default) over the
     exact one (``--exact_warp``).
 
     ``mask_alphas`` [T,H,W,1] and ``mask_has`` [T] (bool) composite each
@@ -120,7 +124,7 @@ def temporal_postprocess_split(
     if flows is None:
         flows = torch.zeros(styled01.shape[:3] + (2,), dtype=torch.float32,
                             device=styled01.device)
-    first_is_warmup = init is None
+    first_is_warmup = init is None if warmup is None else bool(warmup)
     if init is None:
         init = TemporalState(styled01[0], rgb_to_lab_u8(styled01[0]))
 

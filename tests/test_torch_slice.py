@@ -133,10 +133,15 @@ def test_cli_main_matches_jax(tmp_path):
 
 
 def test_unported_flags_raise():
-    for extra in (["--mesh_devices", "2"], ["--profile_dir", "p"]):
-        args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
-            tpipe.check_supported(args)
+    args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + ["--profile_dir", "p"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
+        tpipe.check_supported(args)
+    # --mesh_devices runs (tests/test_torch_mesh.py): on the CPU the mesh
+    # takes as many shards as asked and rounds the batch up to a multiple
+    args = tpipe.build_parser().parse_args(
+        _argv(["--device", "cpu"]) + ["--mesh_devices", "2", "--frame_batch", "3"])
+    tpipe.check_supported(args)
+    assert len(tpipe.engine_mesh(args, torch.device("cpu"))) == 2 and args.frame_batch == 4
     # the regions, masks, the LAB blend and --quantize on the default float32
     # run now (tests/test_torch_region.py, tests/test_torch_quant_f32.py), and
     # so do Farneback and magenta slots (tests/test_torch_flow.py,
