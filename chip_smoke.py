@@ -223,7 +223,26 @@ order, and any failed phase exits non-zero:
    of the unsharded step; ``run_videos`` and ``drive_videos`` (queue mode,
    one worker) on the clip with their default device, K1's launches exact;
    ``generate_multimodel_presets``, then ``generate_preset_samples --limit
-   2``.
+   2``;
+15. the threaded frame loader, ``--profile_dir`` and the last ten apps:
+   g++, jpeglib.h and png.h looked up on the card's host (a missing one
+   printed, and the engine's PIL fallback held instead); the loader built
+   with g++ into ``_build/`` (the compiler's last lines printed), 64
+   synthesized 1080p PNG frames decoded equal to PIL's and 64 JPEG frames
+   within 1 level, native (4 threads) vs serial PIL frames/s; ``main()``
+   with ``--stream off --frame_batch 8 --quantize int8_static`` (bf16, flow
+   EMA) on 24 JPEG frames: the loader's line printed (not its fallback's),
+   K1 4 a batch, K2 5, K3 5, K4 2 exact, the wall split (extract, decode,
+   stylize, flow, temporal, encode); the same on 24 PNG frames with the
+   loader and without it (no compiler): the styled frames bit-identical;
+   ``--profile_dir`` on 16 frames writes a trace; ``optical_flow_morph`` of
+   two 1080p images, 72 frames, timed, and card vs CPU at 270×480 (mean
+   |Δ| ≤ 1 level, ≥ 99% within 1); each of the ten apps' CLI once on the
+   card (``morph``, ``morph_faces``, ``morph_v2 --face`` on the seeded SSD,
+   ``morph_slideshow``, ``gen_pytorch_only_videos``,
+   ``generate_style_selfstyle``, ``style_mask``, ``generate_mask_samples``,
+   ``style_showcase``, ``cryptic_text``) writing its outputs, none
+   launching a kernel; ``native/_frameloader.so`` left as it was.
 
 The line before the kernels' record holds the bench's ladder and Gram NST
 keys (``ladder_passes_per_sec``, ``ladder_sec_per_pass``,
@@ -3396,6 +3415,492 @@ def mesh_apps_phase(dev, workdir: Path) -> dict:
     return launches
 
 
+# phase 15: the threaded frame loader on the batched video path,
+# --profile_dir and the last ten apps
+LOADER_FRAMES = 64            # 1080p frames a format, decoded native vs PIL
+LOADER_THREADS = 4
+LOADER_CLI_FRAMES = 24        # the batched path's clip
+LOADER_ARGS = ["--stream", "off", "--frame_batch", str(B), "--quantize", "int8_static",
+               "--compute_dtype", "bfloat16", "--flow_ema"]
+PROFILE_FRAMES = 16
+MORPH_FRAMES = 72             # optical_flow_morph at 1080p on the card
+MORPH_CMP = (270, 480, 12)    # card vs CPU: h, w, frames
+MORPH_MEAN_TOL = 1.0          # grey levels, mean |Δ| card vs CPU
+MORPH_SHARE = 0.99            # of the values within 1 level, card vs CPU
+LOADER_ACTIVE = "[batch] native frame loader active"
+LOADER_FALLBACK = "[batch] native frame loader unavailable"
+
+
+class _Tee:
+    """stdout that is also kept, so a run's printed lines can be checked."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _printed(fn):
+    """(fn(), what it printed)."""
+    tee = _Tee(sys.stdout)
+    old, sys.stdout = sys.stdout, tee
+    try:
+        out = fn()
+    finally:
+        sys.stdout = old
+    return out, tee.text()
+
+
+def loader_toolchain() -> dict:
+    """g++, jpeglib.h and png.h on this machine: each one's path, None where
+    it is missing (the headers looked up in the compiler's include dirs)."""
+    import shutil
+
+    from neuralstyletransferv1_torch.io import native_loader as nl
+
+    found = {"g++": shutil.which(nl.CXX)}
+    dirs = [Path("/usr/include"), Path("/usr/local/include"),
+            *sorted(Path("/usr/include").glob("*-linux-gnu"))]
+    if found["g++"]:
+        res = subprocess.run([found["g++"], "-xc++", "-E", "-v", "-"], input="",
+                             capture_output=True, text=True, timeout=60)
+        lines = res.stderr.splitlines()
+        if "#include <...> search starts here:" in lines:
+            i = lines.index("#include <...> search starts here:") + 1
+            while i < len(lines) and lines[i].startswith(" "):
+                dirs.insert(0, Path(lines[i].strip()))
+                i += 1
+    for h in ("jpeglib.h", "png.h"):
+        found[h] = next((str(d / h) for d in dirs if (d / h).exists()), None)
+    return found
+
+
+def _shared_libs(*names) -> list:
+    """The system's shared libraries whose names start with ``names``
+    (``ldconfig -p``), for the record."""
+    try:
+        out = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except OSError:
+        return []
+    return sorted({line.split()[0] for line in out.splitlines()[1:]
+                   if line.split() and line.split()[0].startswith(names)})
+
+
+def _decode_frames(workdir: Path) -> dict:
+    """64 synthesized 1080p frames written as PNG (compress level 1) and as
+    JPEG (quality 90): {format: files}."""
+    from PIL import Image
+
+    frames = moving_frames(LOADER_FRAMES, H, W, SEED + 80)
+    out = {}
+    for fmt, save in (("png", dict(compress_level=1)), ("jpg", dict(quality=90))):
+        d = workdir / f"loader_{fmt}"
+        d.mkdir(exist_ok=True)
+        out[fmt] = []
+        for i, f in enumerate(frames):
+            out[fmt].append(d / f"frame_{i + 1:04d}.{fmt}")
+            Image.fromarray(f).save(out[fmt][-1], **save)
+    return out
+
+
+def loader_decode_phase(workdir: Path) -> bool:
+    """The loader's build and decode on the card's host: with g++,
+    jpeglib.h and png.h present the build must succeed (the compiler's last
+    lines printed), 64 1080p PNG frames must decode equal to PIL's and 64
+    JPEG frames within 1 level, and native (4 threads) vs serial PIL frames
+    a second are printed. Returns whether the loader is available; a
+    missing tool is printed and the engine's fallback is then held."""
+    import numpy as np
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.io import native_loader as nl
+
+    from neuralstyletransferv1_torch.io import frames as tframes
+
+    tools = loader_toolchain()
+    log(f"loader toolchain on this host: {tools}; shared libraries "
+        f"{_shared_libs('libjpeg', 'libpng')}")
+    missing = [k for k, v in tools.items() if v is None]
+    if missing:
+        log(f"LOADER UNVERIFIED: {', '.join(missing)} missing on this host; the engine's PIL "
+            f"fallback is held instead")
+        try:
+            nl.build()
+        except nl.LoaderUnavailable as e:
+            log(f"the loader's build, as expected, failed: {e}")
+        else:
+            fail("the loader built although the toolchain check found parts missing")
+        for fmt, files in _decode_frames(workdir).items():
+            t0 = time.perf_counter()
+            got = [np.asarray(tframes.load_image_exif_rgb(str(p)), np.uint8) for p in files]
+            secs = time.perf_counter() - t0
+            same = all(np.array_equal(g, np.asarray(Image.open(p).convert("RGB")))
+                       for g, p in zip(got, files))
+            log(f"the fallback's reads, {fmt.upper()} {LOADER_FRAMES} × 1080p: serial PIL "
+                f"{LOADER_FRAMES / secs:.1f} frames/s, equal to PIL's decode {same} [{CARD}]")
+            if not same:
+                fail(f"the engine's fallback decodes {fmt} frames unlike PIL")
+        return False
+    t0 = time.perf_counter()
+    try:
+        path, cxx_log = nl.build()
+    except nl.LoaderUnavailable as e:
+        fail(f"the frame loader did not build with g++: {e}")
+    tail = "\n".join(cxx_log.splitlines()[-5:]) or "(g++ printed nothing)"
+    log(f"built the frame loader with g++ in {time.perf_counter() - t0:.2f} s -> "
+        f"{path.relative_to(ROOT)}; compiler output: {tail}")
+    if not nl.available():
+        fail("the frame loader built but does not load")
+    for fmt, files in _decode_frames(workdir).items():
+        t0 = time.perf_counter()
+        with nl.NativeFrameLoader(files, threads=LOADER_THREADS, capacity=2 * B) as ld:
+            native = list(ld)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pil = [np.asarray(Image.open(p).convert("RGB")) for p in files]
+        t_pil = time.perf_counter() - t0
+        diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                   for a, b in zip(native, pil))
+        log(f"loader {fmt.upper()} {LOADER_FRAMES} × 1080p: native ({LOADER_THREADS} threads) "
+            f"{LOADER_FRAMES / t_native:.1f} frames/s vs serial PIL {LOADER_FRAMES / t_pil:.1f} "
+            f"frames/s, max |Δ| vs PIL {diff} [{CARD}]")
+        if len(native) != LOADER_FRAMES or any(a.shape != (H, W, 3) for a in native):
+            fail(f"the loader returned {len(native)} {fmt} frames of the wrong shape")
+        if diff > (1 if fmt == "jpg" else 0):
+            fail(f"the loader's {fmt} frames differ from PIL's by {diff} levels")
+    return True
+
+
+def timed_batched_main(argv) -> tuple:
+    """``pipeline.main(argv)`` on the ``--stream off`` batched path with its
+    wall split by part: extract (video → frame files), decode (the loader's
+    ``next``, or PIL's reads on the fallback), stylize, flow and temporal
+    (each call between two synchronizes), encode (the styled frames'
+    writes and the assembly). Counts zeroed before. Returns (rc, seconds,
+    split, printed)."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.engine import stylizer as tst
+    from neuralstyletransferv1_torch.io import frames as tframes
+    from neuralstyletransferv1_torch.io import native_loader as nl
+    from neuralstyletransferv1_torch.temporal import ema as tema
+
+    split = dict.fromkeys(("extract", "decode", "stylize", "flow", "temporal", "encode"), 0.0)
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+
+    jit_stylizer = tst.jit_stylizer
+    patches = [
+        (tframes, "extract_frames", timed("extract", tframes.extract_frames)),
+        (nl.NativeFrameLoader, "__next__", timed("decode", nl.NativeFrameLoader.__next__)),
+        (tframes, "load_image_exif_rgb", timed("decode", tframes.load_image_exif_rgb)),
+        (tst, "jit_stylizer", lambda *a, **k: timed("stylize", jit_stylizer(*a, **k), True)),
+        (tpipe, "flows_at_downscale", timed("flow", tpipe.flows_at_downscale, True)),
+        (tema, "temporal_postprocess_split",
+         timed("temporal", tema.temporal_postprocess_split, True)),
+        (tpipe, "_save", timed("encode", tpipe._save)),
+        (tframes, "assemble_video", timed("encode", tframes.assemble_video)),
+    ]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, fn in patches:
+        setattr(obj, attr, fn)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc, printed = _printed(lambda: tpipe.main([str(a) for a in argv]))
+    finally:
+        secs = time.perf_counter() - t0
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return rc, secs, split, printed
+
+
+def _without_loader(fn):
+    """fn() with the loader made unavailable (an empty build directory and
+    no compiler), then the loader as it was."""
+    import tempfile as tf
+
+    from neuralstyletransferv1_torch.io import native_loader as nl
+
+    saved = {k: getattr(nl, k) for k in ("BUILD_DIR", "CXX", "_lib", "_error")}
+    with tf.TemporaryDirectory() as empty:
+        nl.BUILD_DIR, nl.CXX, nl._lib, nl._error = Path(empty), "no-such-g++", None, None
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                setattr(nl, k, v)
+
+
+def loader_main_phase(dev, workdir: Path, have_loader: bool) -> dict:
+    """``main()`` at 1080p on the batched frame-file path (``--stream off
+    --frame_batch 8 --quantize int8_static``, bf16, flow EMA) over 24 JPEG
+    frames: the loader's line (its fallback's where it is unavailable), the
+    launches of K1–K4 exact and the wall split; then over 24 PNG frames with
+    the loader and without it: the styled frames bit-identical. Returns the
+    launches of the JPEG run."""
+    import numpy as np
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+    from neuralstyletransferv1_torch.ops.dis_flow import _level_sizes
+
+    src = workdir / "loader_clip.mp4"
+    write_clip(src, moving_frames(LOADER_CLI_FRAMES, H, W, SEED + 81))
+    ds = tpipe.effective_flow_downscale(0, H, W)
+    batches = -(-LOADER_CLI_FRAMES // B)
+    want = {"dis_iter": len(_level_sizes(H // ds, W // ds, 2)) * batches,
+            **{k: v * batches for k, v in PER_BATCH[("int8_static", None)].items()}}
+
+    def run(tag, ext, check_line=True):
+        wd = workdir / f"_loader_{tag}"
+        argv = ["--input_video", src, "--output_video", workdir / f"loader_{tag}.mp4",
+                "--model", CKPT, "--image_ext", ext, "--work_dir", wd, *LOADER_ARGS]
+        rc, secs, split, printed = timed_batched_main(argv)
+        used = {k: v for k, v in read_counts().items() if v}
+        styled = sorted((wd / "frames").glob(f"styled_frame_*.{ext}"))
+        got = clip_frame_count(workdir / f"loader_{tag}.mp4")
+        line = LOADER_ACTIVE if have_loader and check_line else LOADER_FALLBACK
+        log(f"main() --stream off on {LOADER_CLI_FRAMES} {ext.upper()} 1080p frames "
+            f"({' '.join(LOADER_ARGS)}) [{tag}]: rc {rc}, {len(styled)} styled, {got} encoded, "
+            f"{_split_text(secs, split)}; launches {used}, expected {want}; '{line}' printed: "
+            f"{line in printed} [{CARD}]")
+        if rc != 0 or len(styled) != LOADER_CLI_FRAMES or got != LOADER_CLI_FRAMES:
+            fail(f"the batched path [{tag}] did not style and encode every frame")
+        if used != want:
+            fail(f"the batched path's launches {used} are not the expected {want}")
+        if line not in printed or (line == LOADER_ACTIVE and LOADER_FALLBACK in printed):
+            fail(f"the batched path [{tag}] did not print '{line}' (alone)")
+        return used, styled
+
+    used, _ = run("jpeg", "jpg")
+    _, with_loader = run("png", "png")
+    _, without = _without_loader(lambda: run("png_pil", "png", check_line=False))
+    same = all(np.array_equal(np.asarray(Image.open(a)), np.asarray(Image.open(b)))
+               for a, b in zip(with_loader, without))
+    log(f"PNG frames with the loader vs without it (PIL on the engine's thread): styled frames "
+        f"bit-identical {same}")
+    if not same:
+        fail("the styled PNG frames differ with and without the loader")
+    return used
+
+
+def profile_dir_phase(workdir: Path) -> None:
+    """``main(--profile_dir)`` on a 16-frame 1080p clip: the trace file and
+    the JAX engine's printed line."""
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    src, prof = workdir / "profile_clip.mp4", workdir / "profile_dir"
+    write_clip(src, moving_frames(PROFILE_FRAMES, H, W, SEED + 82))
+    t0 = time.perf_counter()
+    rc, printed = _printed(lambda: tpipe.main([
+        "--input_video", str(src), "--output_video", str(workdir / "profile_out.mp4"),
+        "--model", str(CKPT), "--frame_batch", str(B), "--compute_dtype", "bfloat16",
+        "--profile_dir", str(prof), "--work_dir", str(workdir / "_profile")]))
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    size = sum(t.stat().st_size for t in traces)
+    log(f"main() --profile_dir on a {PROFILE_FRAMES}-frame 1080p clip: rc {rc}, "
+        f"{time.perf_counter() - t0:.2f} s, {len(traces)} trace file(s), {size / 2**20:.1f} MiB")
+    if rc != 0 or not traces or f"[profile] trace written to {prof}" not in printed:
+        fail("--profile_dir wrote no trace")
+
+
+def morph_phase(dev) -> float:
+    """``optical_flow_morph`` of two 1080p images, 72 frames, on the card
+    (a first call, then one timed), and card vs CPU at 270×480 over 12
+    frames. Returns the timed call's ms."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.apps.morph import optical_flow_morph
+
+    a, b = moving_frames(12, H, W, SEED + 83)[::11]
+    optical_flow_morph(a, b, MORPH_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = optical_flow_morph(a, b, MORPH_FRAMES, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"optical_flow_morph 1080p, {MORPH_FRAMES} frames on the card: {ms:.1f} ms "
+        f"(flows, render and the copy back) [{CARD}]")
+    if len(frames) != MORPH_FRAMES or frames[0].shape != (H, W, 3):
+        fail("optical_flow_morph returned the wrong frames")
+    h, w, n = MORPH_CMP
+    sa, sb = (np.asarray(Image.fromarray(x).resize((w, h), Image.BILINEAR)) for x in (a, b))
+    got = np.stack(optical_flow_morph(sa, sb, n, device=dev)).astype(np.int16)
+    want = np.stack(optical_flow_morph(sa, sb, n, device="cpu")).astype(np.int16)
+    d = np.abs(got - want)
+    log(f"optical_flow_morph card vs CPU at {h}×{w}, {n} frames: mean |Δ| {d.mean():.4f} "
+        f"levels, within 1 level {(d <= 1).mean():.5f}, max {d.max()}")
+    if d.mean() > MORPH_MEAN_TOL or (d <= 1).mean() < MORPH_SHARE:
+        fail("optical_flow_morph on the card disagrees with the CPU")
+    return ms
+
+
+def morph_apps_phase(dev, workdir: Path) -> None:
+    """Each of the ten apps' CLI once on the card with its default device,
+    on small inputs: each must exit 0 and write its outputs. The DeepLab
+    apps take a seeded full-width MobileNetV2, ``morph_faces`` and
+    ``gen_pytorch_only_videos --face_mode`` manual faces, ``morph_v2
+    --face`` the seeded SSD (``write_ssd``; without a detection it takes
+    DeepLab's region)."""
+    import json as js
+
+    import cv2
+    from PIL import Image
+
+    from neuralstyletransferv1_torch.apps import (cryptic_text, gen_pytorch_only_videos,
+                                                  generate_mask_samples,
+                                                  generate_style_selfstyle, morph, morph_faces,
+                                                  morph_slideshow, morph_v2, style_mask,
+                                                  style_showcase)
+
+    d = workdir / "apps15"
+    d.mkdir(exist_ok=True)
+    stills = moving_frames(3, 256, 384, SEED + 84)
+    imgs = []
+    for i, f in enumerate(stills):
+        imgs.append(d / f"img{i}.png")
+        Image.fromarray(f).save(imgs[-1])
+    dl = deeplab_checkpoint(d / "deeplab-mobilenet.pth.tar", "mobilenet")
+    proto, caffemodel, _ = write_ssd(d / "ssd", SEED + 85)
+    for sub in ("in_dir", "pytorch"):
+        (d / sub).mkdir(exist_ok=True)
+    (d / "in_dir" / "bike-dog-person.png").write_bytes(imgs[0].read_bytes())
+    (d / "pytorch" / "alpha.pth").write_bytes(CKPT.read_bytes())
+    (d / "pytorch" / "beta.pth").write_bytes(CKPT.read_bytes())
+    write_clip(d / "text_in.mp4", moving_frames(12, 240, 320, SEED + 86))
+    samples = d / "samples.json"
+    samples.write_text(js.dumps([{"input_prefix": "bike-dog-person", "target_ids": "15,0",
+                                  "invert": False, "name": "styled"}]))
+    runs = (
+        ("morph", lambda: morph.main(["--images", *map(str, imgs[:2]), "--output",
+                                      str(d / "morph.mp4"), "--morph_frames", "8",
+                                      "--hold_frames", "2", "--size", "384"]),
+         [d / "morph.mp4"]),
+        ("morph_faces", lambda: morph_faces.main([
+            "--image", str(imgs[1]), "--output_dir", str(d / "faces"), "--manual_faces",
+            "40,40,100,100;200,60,90,90", "--tiles", "64", "--fps", "6", "--morph_time", "0.5",
+            "--transition", "0.5", "--scale", "256"]),
+         [d / "faces" / "img1" / "img1_faces_zoom.mp4", d / "faces" / "img1" /
+          "img1_faces_zoom_run.json"]),
+        ("morph_v2", lambda: morph_v2.main([
+            "--image", str(imgs[2]), "--output", str(d / "v2.mp4"), "--deeplab_weights",
+            str(dl), "--face", "--detector_prototxt", str(proto), "--detector_model",
+            str(caffemodel), "--crop_size", "256", "--morph_frames", "6", "--pytorch_model",
+            str(CKPT), "--pytorch_blends", "0,60", "--io_preset", "raw_01", "--pan_zoom",
+            "1.5"]),
+         [d / "v2.mp4"]),
+        ("morph_slideshow", lambda: morph_slideshow.main([
+            "--in_dir", str(d / "in_dir"), "--out_dir", str(d / "slides"), "--work_root",
+            str(d / "_slides"), "--models", f"a:{CKPT}", f"b:{CKPT}", "--io_preset", "raw_01",
+            "--scale", "384", "--fps", "6", "--hold_model", "0.5", "--trans", "0.5"]),
+         [d / "slides" / "bike-dog-person_morph.mp4"]),
+        ("gen_pytorch_only_videos", lambda: gen_pytorch_only_videos.main([
+            "--image", str(imgs[0]), "--models", str(CKPT), str(CKPT), "--output",
+            str(d / "gpov.mp4"), "--io_preset", "raw_01", "--size", "384",
+            "--transition_frames", "6", "--hold_frames", "2"]),
+         [d / "gpov.mp4"]),
+        ("generate_style_selfstyle", lambda: generate_style_selfstyle.main([
+            "--input_dir", str(d / "in_dir"), "--output_dir", str(d / "selfstyle"), "--tile",
+            "128", "--overlap", "16", "--db", str(d / "selfstyle.db")]),
+         [d / "selfstyle" / "bike-dog-person_selfstyle.jpg"]),
+        ("style_mask", lambda: style_mask.main([
+            "--images", str(imgs[0]), "--output", str(d / "mask.mp4"), "--deeplab_weights",
+            str(dl), "--target_labels", "person,background", "--fg_model", str(CKPT),
+            "--io_preset", "raw_01", "--size", "384", "--hold_secs", "0.5", "--fade_secs",
+            "0.25", "--fps", "6"]),
+         [d / "mask.mp4"]),
+        ("generate_mask_samples", lambda: generate_mask_samples.main([
+            "--input_dir", str(d / "in_dir"), "--output_dir", str(d / "mask_samples"),
+            "--work_dir", str(d / "_mask_samples"), "--deeplab_weights", str(dl),
+            "--model", str(CKPT), "--io_preset", "raw_01", "--samples_json", str(samples),
+            "--scale", "384"]),
+         [d / "mask_samples" / "styled_comparison.jpg"]),
+        ("style_showcase", lambda: _env_call(style_showcase.main, {
+            "IN_DIR": d / "in_dir", "OUT_DIR": d / "showcase", "PYTORCH_DIR": d / "pytorch",
+            "TORCH_DIR": d / "none", "SCALE": 384, "FPS": 6, "MOTION": "ken_burns",
+            "HOLD_MODEL": 0.5, "HOLD_ORIG_START": 0.5, "HOLD_ORIG_END": 0.5, "TRANS": 0.25,
+            "IO_PRESET": "raw_01"}),
+         [d / "showcase" / "bike-dog-person_showcase.mp4"]),
+        ("cryptic_text", lambda: cryptic_text.main([
+            "--input", str(d / "text_in.mp4"), "--output", str(d / "text.mp4"), "--phrases",
+            "HELLO,WORLD", "--seed", "7", "--distortion", "ripple",
+            "--texture_dir", str(d / "none")]),
+         [d / "text.mp4"]),
+    )
+    for name, call, outs in runs:
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = call()
+        secs = time.perf_counter() - t0
+        used = {k: v for k, v in read_counts().items() if v}
+        frames = [clip_frame_count(o) for o in outs if o.suffix == ".mp4" and o.exists()]
+        log(f"{name} on the card: rc {rc}, {secs:.2f} s, outputs "
+            f"{[o.name for o in outs if o.exists()]}, video frames {frames}")
+        if rc != 0 or not all(o.exists() for o in outs) or not all(frames):
+            fail(f"{name} did not write its outputs on the card")
+        if used:
+            fail(f"{name} launched {used}: no kernel of K1–K13 is on its path")
+    del cv2
+
+
+def _env_call(fn, env: dict):
+    """fn([]) with ``env`` set (``DEVICE`` unset: the app's default)."""
+    import os
+
+    restore = _env(env)
+    device = os.environ.pop("DEVICE", None)
+    try:
+        return fn([])
+    finally:
+        restore()
+        if device is not None:
+            os.environ["DEVICE"] = device
+
+
+def loader_apps_phase(dev, workdir: Path) -> dict:
+    """Phase 15: the frame loader (build, decode, the batched path on it),
+    ``--profile_dir``, ``optical_flow_morph`` and the ten apps. Returns the
+    launches of its run on the main path."""
+    t0 = time.perf_counter()
+    native_so = ROOT / "native" / "_frameloader.so"
+    before = native_so.stat().st_mtime_ns if native_so.exists() else None
+    have_loader = loader_decode_phase(workdir)
+    launches = loader_main_phase(dev, workdir, have_loader)
+    profile_dir_phase(workdir)
+    morph_phase(dev)
+    morph_apps_phase(dev, workdir)
+    after = native_so.stat().st_mtime_ns if native_so.exists() else None
+    if after != before:
+        fail("native/_frameloader.so was written: the port builds its own loader in _build/")
+    log(f"phase 15 (frame loader, --profile_dir, morph and the ten apps) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def nst_checkpoint(path: Path) -> Path:
     """A full-width NST_Train net from the seed, saved in the reference key
     layout (``down1.conv.weight`` …)."""
@@ -4456,6 +4961,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
         launches[k] += v
     bench_keys = ladder_gram_phase(dev, tmp)
     for k, v in mesh_apps_phase(dev, tmp).items():
+        launches[k] += v
+    for k, v in loader_apps_phase(dev, tmp).items():
         launches[k] += v
     if "jax" in sys.modules:
         fail("jax was imported")

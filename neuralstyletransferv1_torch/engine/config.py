@@ -1,8 +1,7 @@
 """CLI flag surface of the PyTorch port: the same flags, choices and
 defaults as the JAX engine's ``engine/config.py``, of which this is a copy
 (the port imports nothing of the JAX package). ``pipeline.build_parser``
-sets ``--device`` to default to cuda; ``pipeline.check_supported`` raises
-for the flags whose paths are not ported yet.
+sets ``--device`` to default to cuda. The port runs every flag.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ engine's) and the same three runners:
   decode → device batches → encode, no frame files;
 - ``style_frames_batched`` (``--frame_batch`` > 1 on frame files: ``--stream
   off`` after extraction, and the batch image mode): device batches over
-  ``frame_*`` files, read ahead by a thread pool;
+  ``frame_*`` files, decoded ahead by the C++ frame loader
+  (``io/native_loader.py``);
 - ``style_frames`` (the default ``--frame_batch 1``, and the single-image
   mode): the per-frame loop.
 
@@ -18,10 +19,9 @@ as uint8 and convert there, the temporal state stays on the device between
 batches, and the previous batch's frames are copied back and written while
 the device works on the next one. ``--mesh_devices`` > 1 splits each batch
 across a device mesh (``parallel/mesh.py``), as the JAX engine's batched
-core shards it.
-
-Flags outside these paths raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them; none is silently ignored.
+core shards it. ``--profile_dir`` wraps the runner in ``torch.profiler``
+and writes the trace into that directory, around the region the JAX
+engine traces.
 """
 
 from __future__ import annotations
@@ -40,9 +40,6 @@ from ..io import frames as fio
 from .config import build_arg_parser
 
 _LETTERS = "abcdefgh"
-
-# ROADMAP.md "Queue 1 — port slices" item that ports the unsupported mode.
-_BENCH = "ROADMAP.md Queue 1, item 9 (bench and tracing)"
 
 
 def effective_flow_downscale(flow_downscale: int, h: int, w: int) -> int:
@@ -414,16 +411,6 @@ def build_parser():
     return ap
 
 
-def check_supported(args) -> None:
-    """Raise NotImplementedError for every flag this port does not run yet."""
-    unsupported = [
-        (bool(args.profile_dir), "--profile_dir", _BENCH),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to PyTorch yet: {item}")
-
-
 def _slot_args(args):
     """(checkpoint, model type, IO preset, magenta style) of slots A..H."""
     yield args.model, args.model_type, args.io_preset, args.magenta_style
@@ -546,7 +533,6 @@ def make_batched_core(args, device: torch.device, *, fused_sites=None,
     from ..temporal.ema import TemporalState, temporal_postprocess_split
     from . import stylizer as st
 
-    check_supported(args)
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     if mesh is not None:
         device = mesh.primary
@@ -890,47 +876,27 @@ def style_frames(args, frames_dir: Path, image_mode: bool, save_map: dict[int, s
     return written, len(frame_files)
 
 
-class _Prefetch:
-    """Frames decoded ahead on a thread pool, in order (the port's stand-in
-    for the JAX engine's C++ ``NativeFrameLoader``): ``next()`` returns the
-    next file's RGB uint8 array, as ``io.frames.load_image_exif_rgb`` loads
-    it; ``capacity`` loads are in flight."""
-
-    def __init__(self, files: list[Path], threads: int = 4, capacity: int = 16):
-        from collections import deque
-        from concurrent.futures import ThreadPoolExecutor
-
-        self._files = iter(files)
-        self._pool = ThreadPoolExecutor(max_workers=threads)
-        self._q: deque = deque()
-        for _ in range(capacity):
-            self._submit()
-
-    def _submit(self):
-        f = next(self._files, None)
-        if f is not None:
-            self._q.append(self._pool.submit(
-                lambda p: np.asarray(fio.load_image_exif_rgb(str(p)), np.uint8), f))
-
-    def __next__(self) -> np.ndarray:
-        img = self._q.popleft().result()
-        self._submit()
-        return img
-
-    def close(self):
-        self._pool.shutdown(wait=True, cancel_futures=True)
-
-
 def style_frames_batched(args, frames_dir: Path, image_mode: bool, save_map: dict[int, str],
                          device: torch.device):
     """Device batches over the ``frame_*`` files (JAX ``style_frames_batched``):
-    ``make_batched_core`` per batch, the files read ahead by ``_Prefetch``,
-    and the previous batch's frames written while the device runs the next.
-    Returns (written, planned)."""
+    ``make_batched_core`` per batch, the files decoded ahead on the C++
+    loader's threads (``io/native_loader.py``), and the previous batch's
+    frames written while the device runs the next. The staged and extracted
+    frames carry no EXIF, so the loader's decode is the engine's; where the
+    loader cannot be built (no g++, libjpeg or libpng) the frames are read
+    with PIL on this thread, as the printed line says. Returns (written,
+    planned)."""
+    from ..io.native_loader import LoaderUnavailable, NativeFrameLoader
+
     B, process_batch = make_batched_core(args, device, frames_dir=frames_dir)
     frame_files = list_frame_files(args, frames_dir)
     preflight_mask_dir(args, frame_files)
-    loader = _Prefetch(frame_files, threads=4, capacity=max(8, 2 * B))
+    loader = None
+    try:
+        loader = NativeFrameLoader(frame_files, threads=4, capacity=max(8, 2 * B))
+        print(f"[batch] native frame loader active ({len(frame_files)} frames)")
+    except LoaderUnavailable as e:
+        print(f"[batch] native frame loader unavailable ({e}); using PIL")
     written = 0
     t_start = time.perf_counter()
 
@@ -950,14 +916,19 @@ def style_frames_batched(args, frames_dir: Path, image_mode: bool, save_map: dic
     try:
         for b0 in range(0, len(frame_files), B):
             chunk = frame_files[b0:b0 + B]
-            out_dev = process_batch([next(loader) for _ in chunk], chunk, b0)
+            if loader is not None:
+                imgs = [next(loader) for _ in chunk]
+            else:
+                imgs = [np.asarray(fio.load_image_exif_rgb(str(p)), np.uint8) for p in chunk]
+            out_dev = process_batch(imgs, chunk, b0)
             if pending is not None:
                 flush(*pending)
             pending = (_HostCopy(out_dev, len(chunk)), chunk, b0)
         if pending is not None:
             flush(*pending)
     finally:
-        loader.close()
+        if loader is not None:
+            loader.close()
     return written, len(frame_files)
 
 
@@ -992,7 +963,6 @@ def main(argv=None) -> int:
         if args.flow_ema:
             print("[warn] --flow_ema ignored in image mode.")
             args.flow_ema = False
-    check_supported(args)
 
     # per-job work dirs isolate image jobs; a video job works in --work_dir
     base_work_dir = Path(args.work_dir).resolve()
@@ -1061,11 +1031,17 @@ def main(argv=None) -> int:
                     else f"{src.stem}{args.output_suffix or ''}")
             save_map[i] = str((Path(args.output_dir) / f"{stem}{ext}").resolve())
 
-    if use_stream:
-        written, planned, _ = style_video_stream(args, device, frames_dir)
-    else:
-        runner = style_frames_batched if use_batched else style_frames
-        written, planned = runner(args, frames_dir, image_mode, save_map, device)
+    prof = _start_profile(args.profile_dir, device) if args.profile_dir else None
+    try:
+        if use_stream:
+            written, planned, _ = style_video_stream(args, device, frames_dir)
+        else:
+            runner = style_frames_batched if use_batched else style_frames
+            written, planned = runner(args, frames_dir, image_mode, save_map, device)
+    finally:
+        if prof is not None:
+            prof.stop()
+            print(f"[profile] trace written to {args.profile_dir}")
     print(f"[done] wrote {written}/{planned} styled frames")
 
     if video_mode and not use_stream:
@@ -1087,6 +1063,22 @@ def main(argv=None) -> int:
         shutil.rmtree(work_dir, ignore_errors=True)
         print(f"[clean] removed {work_dir}")
     return 0
+
+
+def _start_profile(profile_dir: str, device: torch.device):
+    """A started ``torch.profiler`` (host activity, and the card's
+    where ``device`` is CUDA) that writes its Chrome trace,
+    ``<host>_<pid>.<ms>.pt.trace.json``, into ``profile_dir`` when it
+    stops."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+    prof.start()
+    return prof
 
 
 def _stage(src: Path, dst_stem: Path, args) -> None:

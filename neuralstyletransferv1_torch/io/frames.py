@@ -242,6 +242,21 @@ def assemble_video(frames_dir: Path, output_video: Path, framerate_in: float,
     return n_out
 
 
+def write_mp4(path, frames, fps, *, rgb: bool = True) -> None:
+    """uint8 frames (RGB, or BGR with ``rgb=False``) → an mp4 through
+    OpenCV, avc1 where the build has it, else mp4v: the apps' writer."""
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    for fourcc in ("avc1", "mp4v"):
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+        if writer.isOpened():
+            break
+    for f in frames:
+        writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR) if rgb else f)
+    writer.release()
+
+
 class VideoFrameStream:
     """Background-thread decoder → bounded queue of RGB uint8 frames."""
 

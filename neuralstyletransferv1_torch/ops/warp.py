@@ -20,10 +20,14 @@ def _grid(h: int, w: int, device):
     return gx, gy
 
 
-def bilinear_sample(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
-    """Sample HWC (or HW) ``img`` at float coords. The border is replicate:
-    the coordinates clamp (cv2.BORDER_REPLICATE), the border of the flow
-    warps and of the region masks' rotation and organic warp."""
+def bilinear_sample(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor, *,
+                    border: str = "replicate", border_value: float = 0.0) -> torch.Tensor:
+    """Sample HWC (or HW) ``img`` at float coords ``map_x``/``map_y`` (any
+    shape, e.g. [T, H, W] for a batch of frames of one image). ``border``
+    "replicate" clamps the coordinates (cv2.BORDER_REPLICATE: the flow
+    warps, the region masks' rotation and organic warp); "constant" gives
+    ``border_value`` wherever a coordinate falls outside [0, size - 1]
+    (cv2.BORDER_CONSTANT, as the JAX function)."""
     squeeze = img.ndim == 2
     if squeeze:
         img = img[..., None]
@@ -42,7 +46,14 @@ def bilinear_sample(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor)
     v10, v11 = gather(yi + 1, xi), gather(yi + 1, xi + 1)
     top = v00 * (1 - fx) + v01 * fx
     bot = v10 * (1 - fx) + v11 * fx
-    out = (top * (1 - fy) + bot * fy).to(img.dtype)
+    out = top * (1 - fy) + bot * fy
+    if border == "constant":
+        inside = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1))[..., None]
+        out = torch.where(inside, out, torch.as_tensor(border_value, dtype=out.dtype,
+                                                       device=out.device))
+    elif border != "replicate":
+        raise ValueError(f"border={border!r}: 'replicate' or 'constant'")
+    out = out.to(img.dtype)
     return out[..., 0] if squeeze else out
 
 

@@ -171,7 +171,6 @@ def test_per_frame_cli_matches_jax(tmp_path, _isolated):
             Image.fromarray(f).save(d / f"frame_{i:04d}.png")
         dirs[side] = d
     targs = _video_args(tpipe.build_parser(), extra + ["--device", "cpu"])
-    tpipe.check_supported(targs)
     assert tpipe.style_frames(targs, dirs["t"], False, {}, CPU) == (4, 4)
     assert jpipe.style_frames(_video_args(jpipe.build_arg_parser(), extra), dirs["j"], False,
                               {}) == (4, 4)

@@ -243,12 +243,12 @@ def test_video_cli_matches_jax(tmp_path):
 
 
 def test_cli_admits_magenta_and_checks_its_style(tmp_path, capsys):
-    """check_supported admits magenta slots A–H; main() keeps the JAX
-    engine's two argument checks."""
+    """The CLI admits magenta slots A–H; main() keeps the JAX engine's two
+    argument checks."""
     base = ["--input_image", "a.png", "--output_image", "b.png", "--device", "cpu"]
     for extra in (["--model_type", "magenta", "--magenta_style", "s.png"],
                   ["--model", "m.pth", "--model_c_type", "magenta", "--magenta_style_c", "s.png"]):
-        tpipe.check_supported(tpipe.build_parser().parse_args(base + extra))
+        assert tpipe.build_parser().parse_args(base + extra).device == "cpu"
     assert tpipe.main(base + ["--model_type", "magenta"]) == 2
     assert "--magenta_style is required" in capsys.readouterr().out
     assert tpipe.main(base) == 2

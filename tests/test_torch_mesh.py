@@ -194,9 +194,6 @@ def test_engine_mesh_clamps_rounds_and_prints(capsys, monkeypatch):
     assert tpipe.engine_mesh(args, CPU) is None and args.frame_batch == 3
     assert "[mesh] only 1 device(s) visible; clamping --mesh_devices 2 -> 1" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.check_supported(tpipe.build_parser().parse_args(
-            ["--model", str(CKPT), "--profile_dir", "p", "--device", "cpu"]))
 
 
 def _frames(n, h, w, seed):

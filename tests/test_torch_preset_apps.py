@@ -224,9 +224,27 @@ def test_run_styles_matches_jax(tmp_path, monkeypatch):
         generate_blend_weights(2, "0.9,0.9", False, rng)
 
 
+_ARGV = {
+    "run_videos": ["in.mp4"], "run_styles": [], "drive_videos": [], "style_showcase": [],
+    "morph": ["--images", "a.png", "b.png", "--output", "o.mp4"],
+    "morph_faces": ["--image", "in.png", "--manual_faces", "1,1,8,8"],
+    "morph_v2": ["--image", "in.png", "--output", "o.mp4", "--deeplab_weights", "dl.pth"],
+    "morph_slideshow": ["--models", "a:m.pth"],
+    "gen_pytorch_only_videos": ["--image", "in.png", "--models", "m.pth", "--output", "o.mp4"],
+    "generate_style_selfstyle": ["--input_dir", "in"],
+    "style_mask": ["--images", "in.png", "--output", "o.mp4", "--deeplab_weights", "dl.pth",
+                   "--fg_model", "m.pth"],
+    "generate_mask_samples": ["--deeplab_weights", "dl.pth", "--model", "m.pth"],
+    "cryptic_text": ["--input", "in.mp4", "--output", "o.mp4", "--phrases", "HI"],
+}
+
+
 @pytest.mark.parametrize("app", ["run_videos", "run_styles", "drive_videos",
                                  "generate_preset_samples", "generate_video_samples",
-                                 "generate_morph_samples"])
+                                 "generate_morph_samples", "morph", "morph_faces", "morph_v2",
+                                 "morph_slideshow", "gen_pytorch_only_videos",
+                                 "generate_style_selfstyle", "style_mask",
+                                 "generate_mask_samples", "style_showcase", "cryptic_text"])
 def test_apps_without_device_need_cuda(app, tmp_path, monkeypatch):
     """Without ``--device`` / ``DEVICE`` an app asks for the card, and with
     none visible it raises before any work."""
@@ -238,8 +256,7 @@ def test_apps_without_device_need_cuda(app, tmp_path, monkeypatch):
     monkeypatch.setenv("IN_DIR", str(tmp_path))
     monkeypatch.setenv("OUT_DIR", str(tmp_path / "out"))
     mod = importlib.import_module(f"neuralstyletransferv1_torch.apps.{app}")
-    argv = {"run_videos": ["in.mp4"], "run_styles": [], "drive_videos": []}.get(
-        app, ["--db", str(tmp_path / "none.db"), "--input_image", "in.png"])
+    argv = _ARGV.get(app, ["--db", str(tmp_path / "none.db"), "--input_image", "in.png"])
     with pytest.raises(RuntimeError, match="no CUDA GPU is visible"):
         mod.main(argv)
     assert not (tmp_path / "out").exists() or app != "drive_videos"

@@ -556,8 +556,3 @@ def test_reconet_slot_through_the_cli(tmp_path, frn):
     ub = np.asarray(Image.open(b), np.int32)
     d = np.abs(ua - ub)
     assert ua.shape == (64, 96, 3) and (d <= 1).mean() >= 0.99 and ua.std() > 1.0
-    args = tpipe.build_parser().parse_args(argv + ["--output_image", str(a)])
-    tpipe.check_supported(args)  # admitted, as torch7 and magenta are
-    for model_type in ("torch7", "magenta"):
-        tpipe.check_supported(tpipe.build_parser().parse_args(argv[:4] + ["--model_type",
-                                                                          model_type]))

@@ -404,8 +404,6 @@ def test_image_cli_matches_jax(isolated, tmp_path, slots, extra):
     Image.fromarray(_frames(1, seed=5)[0]).save(src)
     extra = [str(_mask(tmp_path / "m.png")) if a == "MASK" else a for a in extra]
     argv = slots + extra + ["--input_image", str(src), "--no-smooth_lightness"]
-    args = tpipe.build_parser().parse_args(argv + ["--device", "cpu"])
-    tpipe.check_supported(args)  # the flags run on this port now
     a, b = tmp_path / "t.png", tmp_path / "j.png"
     assert tpipe.main(argv + ["--output_image", str(a), "--device", "cpu",
                               "--work_dir", str(tmp_path / "_wt")]) == 0

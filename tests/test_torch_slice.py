@@ -132,28 +132,22 @@ def test_cli_main_matches_jax(tmp_path):
         assert np.abs(x - y).mean() < 1.5
 
 
-def test_unported_flags_raise():
-    args = tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + ["--profile_dir", "p"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item"):
-        tpipe.check_supported(args)
-    # --mesh_devices runs (tests/test_torch_mesh.py): on the CPU the mesh
-    # takes as many shards as asked and rounds the batch up to a multiple
+def test_unported_flags_raise(tmp_path, capsys):
+    """No flag of the JAX engine is refused any more. The last one,
+    ``--profile_dir``, runs: the single-image mode writes a
+    ``torch.profiler`` trace into the directory and prints the JAX
+    engine's line; --mesh_devices runs (tests/test_torch_mesh.py): on the
+    CPU the mesh takes as many shards as asked and rounds the batch up."""
+    from PIL import Image
+
     args = tpipe.build_parser().parse_args(
         _argv(["--device", "cpu"]) + ["--mesh_devices", "2", "--frame_batch", "3"])
-    tpipe.check_supported(args)
     assert len(tpipe.engine_mesh(args, torch.device("cpu"))) == 2 and args.frame_batch == 4
-    # the regions, masks, the LAB blend and --quantize on the default float32
-    # run now (tests/test_torch_region.py, tests/test_torch_quant_f32.py), and
-    # so do Farneback and magenta slots (tests/test_torch_flow.py,
-    # tests/test_torch_magenta.py)
-    for extra in (["--region_mode", "grid"], ["--mask", "m.png"], ["--blend_models_lab"],
-                  ["--quantize", "int8"], ["--quantize", "bf16_static"],
-                  ["--flow_method", "farneback"],
-                  ["--model_b", "b.pth", "--model_b_type", "magenta"],
-                  ["--model_type", "magenta", "--magenta_style", "s.png"]):
-        tpipe.check_supported(tpipe.build_parser().parse_args(_argv(["--device", "cpu"]) + extra))
-    # the image modes run (tests/test_torch_per_frame.py); their unported
-    # flags raise before any work
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tpipe.main(["--input_image", "a.png", "--output_image", "b.png", "--model", str(CKPT),
-                    "--profile_dir", "p", "--device", "cpu"])
+    src, out, prof = tmp_path / "a.png", tmp_path / "b.png", tmp_path / "prof"
+    Image.fromarray((np.random.default_rng(0).random((24, 32, 3)) * 255).astype(np.uint8)
+                    ).save(src)
+    assert tpipe.main(["--input_image", str(src), "--output_image", str(out), "--model",
+                       str(CKPT), "--profile_dir", str(prof), "--device", "cpu",
+                       "--work_dir", str(tmp_path / "_w")]) == 0
+    assert out.exists() and list(prof.glob("*.pt.trace.json"))
+    assert f"[profile] trace written to {prof}" in capsys.readouterr().out
