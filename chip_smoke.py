@@ -295,7 +295,14 @@ K1_RES_TOL = 1e-3      # grey levels (0..255), on those patches
 SLICE_MAE_TOL = 1e-3   # [0,1] frames, CUDA slice vs CPU slice, f32 + exact warp
 QUANT_MAE_TOL = 1e-2   # [0,1] frames: the repo's gate (quantized vs bf16, CUDA vs CPU)
 QUANT_BROKEN_TOL = 5e-2  # [0,1] raw-scale stylize: beyond this the path is broken
+# the NST_Train sets that quantize the decoder (and conv2 or deconv3) besides
+# the res chain: each int8 site adds its noise (1.08-1.33e-2 against bf16 on
+# uniform-noise frames at 1080p on the card, against 8.9e-3 for the res chain
+# alone; this script's own check, PERF.md), so they are held to
+# QUANT_BROKEN_TOL on both inputs
 
+NST_HP = (H + 31) // 32 * 32 + 80         # NST_Train's padded frame height
+NST_W8 = ((W + 80) // 4 + 7) // 8 * 8      # and its res grid's width padded to %8
 # the int8 sites of the 1080p B=8 slice: (B, H, W, C, CO, halo); the c2/c3
 # sites are stride 2 (H, W are their input's), d3 is deconv3's rows conv
 SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
@@ -315,8 +322,19 @@ SITE_SHAPES = {"res": (B, H // 4, W // 4, 128, 128, "reflect"),
                "reco_d2": (B, H // 2, W // 2, 96, 192, "edge"),
                # the Torch7 res grid (zero padding; 1080 % 8 = 0, 1920 % 32 = 0:
                # the int8 modes do not pad the frame)
-               "t7": (B, H // 4, W // 4, 128, 128, "zero")}
-SITE_SW = {"nst": (W + 80) // 4}
+               "t7": (B, H // 4, W // 4, 128, 128, "zero"),
+               # NST_Train's sites as its int8 path runs them: the frame padded
+               # to the int8 8 × 32 multiple (1088 × 1920) and reflect-padded
+               # by 40; conv2 on conv1's space-to-depth grid (584 × 1000, 4 ·
+               # 32 → 64), the res grid 292 × 504 (sw 500), deconv1 on it
+               # (128 → 4 · 64), deconv2 at twice it, 584 × 1008 (sw 1000, 64
+               # → 4 · 32)
+               "nst_c2": (B, NST_HP // 2, (W + 80) // 2, 128, 64, "zero"),
+               "nst_res": (B, NST_HP // 4, NST_W8, 128, 128, "zero"),
+               "nst_d1": (B, NST_HP // 4, NST_W8, 128, 256, "zero"),
+               "nst_d2": (B, NST_HP // 2, 2 * NST_W8, 64, 128, "zero")}
+SITE_SW = {"nst": (W + 80) // 4, "nst_res": (W + 80) // 4, "nst_d1": (W + 80) // 4,
+           "nst_d2": (W + 80) // 2}
 _SITES_I8 = "neuralstyletransferv1_tpu/models/s2d2_sites_i8.py"
 # K2-K8b: the (shape, form) cases each runs on the main path, and the TPU
 # kernel it replaces. K3's forms: "aff_add" (frozen affine + residual),
@@ -341,7 +359,21 @@ INT8_KERNELS = {
     "c3_site": ((("c3", ""),), f"{_SITES_I8}:1271"),
     "d3_rows_site": ((("d3", ""),), f"{_SITES_I8}:858"),
     "d3_s8_site": ((("d3", ""),), f"{_SITES_I8}:939"),
+    # the NST_Train int8 path's forms: K4 and K5 with sw (the res chain's a-
+    # and b-sites), K4's 2×2 taps at pad 1 (conv2) and pad 0 (the deconvs,
+    # floor -127 / 0), K3's at pad 0 (dec_s8's d1 emit, d2's zero2 emit)
+    "res_site_sw": ((("nst_res", ""), ("nst_res", "b")), f"{_SITES_I8}:139"),
+    "res_site_skip_sw": ((("nst_res", "a"),), f"{_SITES_I8}:299"),
+    "res_site_k2p1": ((("nst_c2", ""),), f"{_SITES_I8}:139"),
+    "res_site_k2p0": ((("nst_d1", ""), ("nst_d2", "b")), f"{_SITES_I8}:139"),
+    "site_s8_k2p0": ((("nst_d1", "s8out"), ("nst_d2", "zero2")), f"{_SITES_I8}:670"),
 }
+# those forms' wrappers and tap geometries (kh, kw, pt, pl); a form counts
+# its launches under its own name in k8.FORM_LAUNCHES
+FORM_OF = {"res_site_sw": ("res_site", None), "res_site_skip_sw": ("res_site_skip", None),
+           "res_site_k2p1": ("res_site", (2, 2, 1, 1)),
+           "res_site_k2p0": ("res_site", (2, 2, 0, 0)),
+           "site_s8_k2p0": ("site_s8", (2, 2, 0, 0))}
 # the f32-operand forms of K2-K5: (the wrapper, its (shape, form) cases where
 # the float32 chains run it: Johnson's res grid (block 1's a-site K4 or K2,
 # block 2's K5 or block 1's K3), NST_Train's (K2, K3 under the zero halo with
@@ -428,11 +460,26 @@ PER_BATCH = {("int8_static", None): {"res_site_s8o": 5, "site_s8": 5, "res_site"
              ("none", HEAD_TAIL): {"c2_site_bf16": 1, "c3_site_bf16": 1, "d2_site": 1,
                                    "d3_sum_site": 1},
              ("none", D3): {"d3_rows": 1}}
-SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3"}
-# the NST_Train slices (adopted sets: nst = [] runs the XLA-form int8 chain,
-# nst_static = res_i8, res_s8 the s8 chain) and their site launches a batch
-NST_SLICES = ("none", "bf16_static", "int8", "int8_static")
-NST_PER_BATCH = {"int8_static": {"res_site_s8o": 5, "site_s8": 5}}
+# the NST_Train slices, (--quantize, fused set or None for the adopted one,
+# whether the adoption file is absent: the built-in defaults), and their
+# site launches a batch: the adopted sets (nst = [] runs the XLA-form int8
+# chain, nst_static = res_i8, res_s8 the s8 chain); the defaults (res_i8 in
+# both modes: K4/K5 with sw); every other name the JAX NST forward routes on,
+# in three sets (the K4 chain with c2_i8 and dec_i8; the s8 chain with c2_i8,
+# dec_s8 and tail_s8; the XLA-form references)
+NST_I8 = ("c2_i8", "res_i8", "dec_i8")
+NST_S8 = ("c2_i8", "res_i8", "res_s8", "dec_s8", "tail_s8")
+NST_XLA = ("dec_xla_i8", "tail_xla_i8")
+NST_SLICES = (("none", None, False), ("bf16_static", None, False), ("int8", None, False),
+              ("int8_static", None, False), ("int8", None, True), ("int8_static", None, True),
+              ("int8", NST_I8, False), ("int8_static", NST_S8, False), ("int8", NST_XLA, False))
+NST_RES_I8 = {"res_site_sw": 6, "res_site_skip_sw": 4}
+NST_PER_BATCH = {("int8_static", None, False): {"res_site_s8o": 5, "site_s8": 5},
+                 ("int8", None, True): NST_RES_I8, ("int8_static", None, True): NST_RES_I8,
+                 ("int8", NST_I8, False): {"res_site_k2p1": 1, **NST_RES_I8, "res_site_k2p0": 2},
+                 ("int8_static", NST_S8, False): {"res_site_k2p1": 1, "res_site_s8o": 5,
+                                                  "site_s8": 5, "site_s8_k2p0": 2,
+                                                  "d3_s8_site": 1}}
 # the stylize each NST or ReCoNet slice's quality is held against (as the JAX
 # tests do)
 NST_BASE = {"int8": "none", "int8_static": "bf16_static", "bf16_static": "none"}
@@ -447,9 +494,22 @@ RECO_CROP = (256, 480)        # the int8_static chains card vs CPU: a 64 × 120 
 # the Torch7 slices, (graph, --quantize), and their site launches a batch
 # (adopted sets: t7 = res_i8 on instance-norm graphs: 6 × K4 + 4 × K5; t7_bn
 # = [] on BN-folded graphs and on the static modes' folded graphs: none)
-T7_SLICES = (("in", "none"), ("in", "bf16_static"), ("in", "int8"), ("in", "int8_static"),
-             ("bn", "none"), ("bn", "int8"))
-T7_PER_BATCH = {("in", "int8"): {"res_site": 6, "res_site_skip": 4}}
+# and, in sets of their own, every other name the JAX t7 forward routes on that
+# the port runs: c2_i8 and dec_i8 with res_i8 on the IN graph (k3 deconvs)
+# and on a BN graph with k4 deconvs (no res name: the PyTorch-int8 chain; its
+# deconvs on K4's 3×3 zero-halo form), and the XLA-form references
+T7_I8 = ("c2_i8", "res_i8", "dec_i8")
+T7_DEC = ("c2_i8", "dec_i8")
+T7_XLA = ("dec_xla_i8", "tail_xla_i8")
+T7_SLICES = (("in", "none", None), ("in", "bf16_static", None), ("in", "int8", None),
+             ("in", "int8_static", None), ("bn", "none", None), ("bn", "int8", None),
+             ("in", "int8", T7_I8), ("bn k4", "int8", T7_DEC), ("in", "int8", T7_XLA))
+T7_PER_BATCH = {("in", "int8", None): {"res_site": 6, "res_site_skip": 4},
+                ("in", "int8", T7_I8): {"res_site_k2p1": 1, "res_site": 6, "res_site_skip": 4,
+                                        "res_site_k2p0": 2},
+                ("bn k4", "int8", T7_DEC): {"res_site_k2p1": 1, "res_site": 2}}
+SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3",
+             **{names: "+".join(names) for names in (NST_I8, NST_S8, NST_XLA, T7_DEC)}}
 # the Johnson slices under --compute_dtype float32 (the adopted sets): the res
 # chain's first sites read the f32 res input, through the f32 forms
 F32_SLICES = ("int8", "int8_static")
@@ -650,7 +710,7 @@ def site_inputs(dev, b, h, w, c, co, seed):
     on their operands' scales (``tau`` on x·a + c, ``tau_act`` on v,
     ``tauo`` on f·qa + qc), biting on a share of them. Also deconv3's
     tap-packed 1×5 weights (60 lanes padded to 64), dequant row and 12-lane
-    bias."""
+    bias, and 2×2 weights (``wk4``) for the block forms."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
@@ -673,7 +733,7 @@ def site_inputs(dev, b, h, w, c, co, seed):
         "y": rnd(b, h, w, c).to(torch.bfloat16),
         "a": rnd(b, c, scale=35.0, lo=5.0), "c": rnd(b, c, scale=8.0),
         "a2": rnd(b, c, scale=1.0, lo=0.5), "c2": rnd(b, c, scale=0.3),
-        "wk": k8.pack_weights(codes(3, 3, c, co)),
+        "wk": k8.pack_weights(codes(3, 3, c, co)), "wk4": k8.pack_weights(codes(2, 2, c, co)),
         "ws": rnd(co, scale=1.5e-5, lo=0.5e-5) * (1.0 if c <= 128 else (128 / c) ** 0.5),
         "bias": rnd(co, scale=0.2), "qa": rnd(co, scale=50.0, lo=10.0), "qc": rnd(co, scale=10.0),
         "codes": codes(b, h, w, c, lo=0),
@@ -687,9 +747,13 @@ def site_inputs(dev, b, h, w, c, co, seed):
 def site_calls(name, t, shape, form, prev=False, halo=None):
     """(kernel call, plain call, bytes moved, int8 ops) of one int8 site;
     with ``prev`` the kernel call is K3's or K4's previous ``__dp4a`` core;
-    ``halo`` replaces the shape's halo."""
+    ``halo`` replaces the shape's halo. ``name`` is a wrapper or one of its
+    forms (``FORM_OF``)."""
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
+    name, geo = FORM_OF.get(name, (name, None))
+    if geo is not None:
+        t = dict(t, wk=t["wk4"])
     b, h, w, c = t["x"].shape
     co = t["wk"].shape[2]
     kw, outs, pix = {}, 2, b * h * w
@@ -701,9 +765,11 @@ def site_calls(name, t, shape, form, prev=False, halo=None):
             ins += (t["tauo"],)
     elif name == "site_s8":
         aff = (t["qa"] / 40, t["qc"] / 40)
-        if form == "s8out":
+        if form in ("s8out", "zero2"):
             args, kw = (t["codes"], t["wk"], t["ws"], t["bias"]), dict(qa=t["qa"], qc=t["qc"])
             ins, outs = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
+            if form == "zero2":
+                kw["halo_out"] = "zero2"
         else:
             args = (t["codes"], t["wk"], t["ws"], t["bias"], *aff, t["y"])
             ins = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"], t["y"])
@@ -722,7 +788,7 @@ def site_calls(name, t, shape, form, prev=False, halo=None):
         args = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], -127.0 if form == "a" else 0.0,
                 t["wk"], t["ws"], t["bias"])
         ins = (t["x"], t["y"], t["a"], t["c"], t["a2"], t["c2"], t["wk"], t["ws"], t["bias"])
-        kw = dict(yout=shape in ("res", "reco_res", "t7"))
+        kw = dict(yout=shape in ("res", "reco_res", "t7", "nst_res"))
         if form in ("relu", "tau"):
             kw.update(act=form, tau_act=t["tau_act"] if form == "tau" else None)
             ins += (t["tau_act"],) if form == "tau" else ()
@@ -743,6 +809,8 @@ def site_calls(name, t, shape, form, prev=False, halo=None):
     if shape in SITE_SW:
         kw["sw"] = SITE_SW[shape]
         pix_ops = pix // w * kw["sw"]
+    if geo is not None:
+        kw.update(kh=geo[0], kw=geo[1], pt=geo[2], pl_=geo[3])
     kernel = getattr(k8, f"{name}_prev" if prev else name)
     plain = getattr(k8, f"{name}_plain")
     moved = nbytes(*ins) + pix * co * outs
@@ -750,7 +818,7 @@ def site_calls(name, t, shape, form, prev=False, halo=None):
         moved += b * 2 * co * 4  # the sums
     if name == "res_site_skip" and kw["yout"]:
         moved += b * h * w * c * 2  # v
-    taps = 5 if name.startswith("d3") else 9
+    taps = 5 if name.startswith("d3") else 9 if geo is None else geo[0] * geo[1]
     lanes = k8.D3_LANES if name.startswith("d3") else co
     ops = 2 * pix_ops * c * lanes * taps
     return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw)), moved, ops
@@ -810,8 +878,10 @@ def kernel_names(fn, top: int = 3) -> list:
 
 def library_conv(dev, t, name, shape):
     """The cuDNN bf16 conv a site stands for, on tensors of its shape: a 3×3
-    conv (stride 2 for c2/c3) or, for deconv3's sites, the pixel 9×9 32→3
-    conv at the 1080p output size."""
+    conv (stride 2 for c2/c3), for deconv3's sites the pixel 9×9 32→3 conv
+    at the 1080p output size, for the 2×2 pad-1 block form the pixel 3×3
+    stride-2 conv (conv2), for the pad-0 one the k3 stride-2 transposed
+    conv."""
     import torch
     import torch.nn.functional as F
 
@@ -824,6 +894,16 @@ def library_conv(dev, t, name, shape):
         return lambda: F.conv2d(xc, wc, padding=4)
     b, h, w, c, co, _ = SITE_SHAPES[shape]
     xc = t["x"].permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
+    geo = FORM_OF.get(name, (name, None))[1]
+    if geo == (2, 2, 1, 1):  # conv2 on the pixel grid: 3×3, stride 2
+        xp = torch.randn((b, 2 * h, 2 * w, c // 4), device=dev).to(torch.bfloat16)
+        wc = torch.randn((co, c // 4, 3, 3), device=dev).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        return lambda: F.conv2d(xp.permute(0, 3, 1, 2), wc, stride=2, padding=1)
+    if geo == (2, 2, 0, 0):  # the k3 stride-2 transposed conv it scatters
+        wc = torch.randn((c, co // 4, 3, 3), device=dev).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        return lambda: F.conv_transpose2d(xc, wc, stride=2, padding=1, output_padding=1)
     wc = torch.randn((co, c, 3, 3), device=dev).to(torch.bfloat16).to(
         memory_format=torch.channels_last)
     stride = 2 if name in ("c2_site", "c3_site") else 1
@@ -1714,7 +1794,8 @@ def zero_counts():
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     k1.LAUNCHES = 0
-    for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k8.F32_LAUNCHES, k9.LAUNCHES, k12.LAUNCHES):
+    for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k8.F32_LAUNCHES, k8.FORM_LAUNCHES, k9.LAUNCHES,
+                   k12.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1726,11 +1807,12 @@ def read_counts() -> dict:
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k8.PROBE_LAUNCHES, **k8.F32_LAUNCHES,
-            **k9.LAUNCHES, **k12.LAUNCHES}
+            **k8.FORM_LAUNCHES, **k9.LAUNCHES, **k12.LAUNCHES}
 
 
 def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
-                reco: tuple | None = None, t7: tuple | None = None, dtype: str = "bfloat16"):
+                reco: tuple | None = None, t7: tuple | None = None, dtype: str = "bfloat16",
+                defaults: bool = False):
     """The 1080p bf16 flow-EMA slice through make_batched_core, plain, with
     a --quantize mode and fused-site set, or with a set of bf16 fused sites;
     with ``nst_ckpt``, of that NST_Train checkpoint under the adopted sets;
@@ -1738,8 +1820,12 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     (``--model_type reconet``) under the adopted sets; with ``t7`` = (.t7
     file, "in" or "bn"), of that Torch7 slot under the adopted sets; with
     ``dtype`` "float32", the Johnson slice under --compute_dtype float32
-    (the f32 forms of K2-K5 take the res chain's first sites); returns the
-    run's launch counts."""
+    (the f32 forms of K2-K5 take the res chain's first sites); with
+    ``defaults``, the adopted sets are the built-in defaults (the adoption
+    file absent); returns the run's launch counts."""
+    if defaults:
+        with _without_adoption_file():
+            return slice_phase(dev, quantize, fused, nst_ckpt, reco, t7, dtype)
     import numpy as np
     import torch
 
@@ -1777,13 +1863,15 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
 
     name = slice_name(quantize, fused)
     per_batch = PER_BATCH.get((quantize, fused), {})
+    defaults = adopt_file_absent()
     if nst_ckpt is not None:
-        name, per_batch = f"nst {name}", NST_PER_BATCH.get(quantize, {})
+        name = f"nst {name}{' (defaults)' if defaults else ''}"
+        per_batch = NST_PER_BATCH.get((quantize, fused, defaults), {})
     if reco is not None:
         name = f"reco {'frn' if reco[1] else 'in'} {name}"
         per_batch = RECO_PER_BATCH.get(quantize, {})
     if t7 is not None:
-        name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize), {})
+        name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize, fused), {})
     if dtype == "float32":
         name, per_batch = f"f32 {name}", F32_PER_BATCH.get(quantize, {})
     expected = {"dis_iter": levels * N_BATCHES}
@@ -1811,6 +1899,31 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
         quant_quality(dev, args, frames[:B], quantize, fused, name,
                       torch.float32 if dtype == "float32" else torch.bfloat16)
     return counts
+
+
+class _without_adoption_file:
+    """The adoption file out of the engine's sight (``adopt_overrides.PATH``
+    pointed at a name that does not exist) for the ``with`` block: every set
+    is then the built-in default."""
+
+    def __enter__(self):
+        from neuralstyletransferv1_torch import adopt_overrides
+
+        self.saved = adopt_overrides.PATH
+        adopt_overrides.PATH = self.saved.with_name("absent_i8_adopt.json")
+        if adopt_overrides.PATH.exists():
+            fail(f"{adopt_overrides.PATH} exists")
+
+    def __exit__(self, *exc):
+        from neuralstyletransferv1_torch import adopt_overrides
+
+        adopt_overrides.PATH = self.saved
+
+
+def adopt_file_absent() -> bool:
+    from neuralstyletransferv1_torch import adopt_overrides
+
+    return not adopt_overrides.PATH.exists()
 
 
 def quant_quality(dev, args, frames, quantize, fused, name, dtype=None):
@@ -1846,6 +1959,8 @@ def quant_quality(dev, args, frames, quantize, fused, name, dtype=None):
                    QUANT_MAE_TOL), (model.io_preset, x, "the slice's frames", QUANT_BROKEN_TOL)]
     elif model.io_preset != "raw_01":
         checks.append(("raw_01", x, "the slice's frames", QUANT_BROKEN_TOL))
+    if model.arch == "nst" and fused in (NST_I8, NST_S8, NST_XLA):
+        checks[0] = checks[0][:3] + (QUANT_BROKEN_TOL,)
     for preset, xin, what, bound in checks:
         m = st.StyleModel(model.arch, model.net, preset, model.name)
         ref = st.jit_stylizer(m, dtype=dtype, quantize=base)(xin)
@@ -3953,6 +4068,148 @@ def nst_chain_phase(dev, ckpt: Path):
         fail(f"the NST chain output is {tuple(outs[0].shape)} or not finite")
 
 
+NST_CROP = (256, 480)  # the new forms' chains card vs CPU: the res grid 84 × 140 (sw 140)
+
+
+CHAIN_REL_TOL = 0.05  # measured-norm chains card vs CPU: mean |Δ| / mean |CPU| (JAX's bound)
+
+
+def _chains_card_vs_cpu(dev, label: str, chains: dict, inputs) -> None:
+    """Each chain of ``chains`` (name → (fn(d), the launches it must make on
+    the card, whether every norm is static)) on the card and on the CPU,
+    finite, with exact launch counts: bit-identical where every quantize
+    affine is a constant (frozen or no norms); with measured norms the
+    statistics come from the sites' sums, which the card adds in another
+    order (f32 tiles, then double) than the plain versions (double), so a
+    code can flip at a rounding boundary: there within CHAIN_REL_TOL of the
+    output's mean magnitude (tests/test_int8.py's bound between the Pallas
+    res chain and its XLA reference, whose sums also differ in order).
+    ``inputs(d)`` builds a device's operands once."""
+    import torch
+
+    ops = {d.type: inputs(d) for d in (dev, torch.device("cpu"))}
+    for name, (fn, want, static) in chains.items():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            zero_counts()
+            with torch.no_grad():
+                out = fn(ops[d.type])
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                used = {k: v for k, v in read_counts().items() if v}
+                if used != want:
+                    fail(f"{label} {name} launched {used}, not {want}")
+            outs.append(out.cpu())
+        same = torch.equal(*outs)
+        rel = float((outs[0].float() - outs[1].float()).abs().mean()
+                    / outs[1].float().abs().mean().clamp(min=1e-12))
+        log(f"{label} {name} (launches {want}), card vs CPU: "
+            f"{'bit-identical' if same else f'mean |d| / mean |CPU| {rel:.3e}'}, output "
+            f"{tuple(outs[0].shape)}")
+        if not (same if static else rel <= CHAIN_REL_TOL):
+            fail(f"{label} {name} differs between the card and the CPU")
+        if not bool(torch.isfinite(outs[0].float()).all()):
+            fail(f"{label} {name}: the output is not finite")
+
+
+def nst_forms_phase(dev, ckpt: Path) -> None:
+    """The NST_Train chains of the new kernel forms on the card and on the
+    CPU from one calibration and one forward's inputs on a 256×480 crop of
+    a 1080p frame (conv2's block grid 168 × 280, the res grid 84 × 140, sw
+    140 on the padded 144): ``c2_i8`` (one K4 2×2 pad 1), ``res_i8`` (6 × K4
+    + 4 × K5 with sw), ``dec_i8`` (2 × K4 2×2 pad 0), each with frozen norms
+    (bit-identical) and measured ones, and ``dec_s8`` through the fused tail
+    after the s8 chain's emit (5 × K2 + 5 × K3, 2 × K3 2×2 pad 0, K6;
+    bit-identical); exact launches (``_chains_card_vs_cpu``)."""
+    import copy
+
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.models import transformer_net_nst_fast as nstf
+
+    ch, cw = NST_CROP
+    model = st.load_model(ckpt, device=dev)
+    x = torch.from_numpy(moving_frames(1, H, W, SEED + 13)[0][None, :ch, :cw]).to(dev)
+    x = x.float() / 255.0
+    stats = nstf.calibrate_in_stats(model.net, x)
+    quant = nstf.quantize_net(model.net, nstf.calibrate_act_scales(model.net, x,
+                                                                    static_stats=stats))
+    nb = copy.deepcopy(model.net).to(torch.bfloat16)
+    grab = {}
+    with torch.no_grad():
+        nstf.apply(nb, x.to(torch.bfloat16), tap=lambda k, t: grab.setdefault(k, t.contiguous()))
+
+    def inputs(d):
+        net = copy.deepcopy(nb).to(d)
+        return {"net": net, "sites": nstf.prepare_sites(net, quant, d),
+                "st": {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()},
+                **{k: grab[k].to(d) for k in ("c2", "r1a", "d1")}}
+
+    def s8_tail(o):
+        xq = nstf.res_chain_s8_static(o["r1a"], o["net"], o["sites"], o["st"],
+                                      emit_qo=o["sites"]["d1"].qin)
+        return nstf.dec_s8_static(xq, o["net"], o["sites"], o["st"], o["r1a"].shape[2],
+                                  torch.bfloat16, tail=True)
+
+    chains = {"dec_s8 + tail_s8": (s8_tail, {"res_site_s8o": 5, "site_s8": 5,
+                                             "site_s8_k2p0": 2, "d3_s8_site": 1}, True)}
+    for static in (True, False):
+        norms = "frozen" if static else "measured"
+
+        def st(o, static=static):
+            return o["st"] if static else None
+
+        chains.update({
+            f"c2_i8 ({norms} norms)": (lambda o, st=st: nstf.c2_i8(o["c2"], o["net"],
+                                                                   o["sites"]["c2"], st(o)),
+                                       {"res_site_k2p1": 1}, static),
+            f"res_i8 ({norms} norms)": (lambda o, st=st: nstf.res_chain_i8(
+                o["r1a"], o["net"], o["sites"], st(o)), NST_RES_I8, static),
+            f"dec_i8 ({norms} norms)": (lambda o, st=st: nstf.dec_i8(o["d1"], o["net"],
+                                                                     o["sites"], st(o)),
+                                        {"res_site_k2p0": 2}, static)})
+    _chains_card_vs_cpu(dev, "NST", chains, inputs)
+
+
+def t7_forms_phase(dev, ckpts: dict) -> None:
+    """The Torch7 ``c2_i8`` and ``dec_i8`` branches on the card and on the
+    CPU, on the IN graph (k3 deconvs: 2 × K4 2×2 pad 0; its norms measured)
+    and the BN graph with k4 deconvs (2 × K4 3×3, CO 256 and 128, zero halo;
+    bit-identical), from one forward's inputs on a 256×480 crop of a 1080p
+    frame and one calibration, exact launches (``_chains_card_vs_cpu``)."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.io import t7_fast as tf
+    from neuralstyletransferv1_torch.models import io_presets as iop
+
+    ch, cw = NST_CROP
+    for norm in ("in", "bn k4"):
+        model = st.load_model(ckpts[norm], device=dev)
+        p32 = tf.params_to(tf.try_fast_johnson(model.net), dev)
+        x = torch.from_numpy(moving_frames(1, H, W, SEED + 14)[0][None, :ch, :cw]).to(dev)
+        xin = iop.preprocess(model.io_preset, x.float() / 255.0)
+        quant = tf.quantize_t7(p32, tf.calibrate_t7_scales(p32, xin))
+        grab = {}
+        with torch.no_grad():
+            tf.t7_fast_apply(tf.params_to(p32, dev, torch.bfloat16), xin.to(torch.bfloat16),
+                             tap=lambda k, t: grab.setdefault(k, t.contiguous()))
+
+        def inputs(d):
+            p = tf.params_to(p32, d, torch.bfloat16)
+            return {"p": p, "sites": tf.prepare_sites(p, quant, d),
+                    **{k: grab[k].to(d) for k in ("c2", "d1")}}
+
+        dec = {"res_site_k2p0": 2} if norm == "in" else {"res_site": 2}
+        static = norm != "in"
+        _chains_card_vs_cpu(dev, f"t7 {norm}", {
+            "c2_i8": (lambda o: tf._t7_c2_i8(o["c2"], o["p"], o["sites"]["c2"]),
+                      {"res_site_k2p1": 1}, static),
+            "dec_i8": (lambda o: tf._t7_dec_i8(o["d1"], o["p"], o["sites"], o["p"]["c0"]), dec,
+                       static)}, inputs)
+
+
 def reco_checkpoint(path: Path, frn: bool) -> Path:
     """A full-width ReCoNet net (3→48→96→192, 4 res blocks at 192,
     192→96→48→3; IN or FRN/TLU) from the seed, saved in the reference key
@@ -4071,8 +4328,9 @@ def reco_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
 
 def t7_checkpoint(path: Path, norm: str) -> Path:
     """A full-width eccv16 Torch7 net (``t7_net_layers``, seed SEED) written
-    to a ``.t7`` file."""
-    return write_t7(path, t7_net_layers(SEED, norm))
+    to a ``.t7`` file; ``norm`` "bn k4": the BN graph with k4 deconvs."""
+    return write_t7(path, t7_net_layers(SEED, norm.split()[0],
+                                        deconv_k=4 if norm.endswith("k4") else 3))
 
 
 def t7_kernel_phase(dev, int8: dict):
@@ -4167,7 +4425,7 @@ def t7_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
     secs = time.perf_counter() - t0
     used = {k: v for k, v in read_counts().items() if v}
     batches = -(-n // B)
-    want = {k: v * batches for k, v in T7_PER_BATCH[("in", "int8")].items()}
+    want = {k: v * batches for k, v in T7_PER_BATCH[("in", "int8", None)].items()}
     got = clip_frame_count(dst)
     log(f"main() on a .t7 slot (IN) --quantize int8 on a {n}-frame 1080p mp4: rc {rc}, {got} "
         f"frames written, {secs:.2f} s, launches {used}")
@@ -4177,11 +4435,12 @@ def t7_cli_phase(dev, workdir: Path, ckpt: Path) -> dict:
     return used
 
 
-def t7_net_layers(seed: int, norm: str, c0: int = 32, nres: int = 5) -> list:
+def t7_net_layers(seed: int, norm: str, c0: int = 32, nres: int = 5, deconv_k: int = 3) -> list:
     """The eccv16 Johnson topology as a layer list (the dicts of
     ``io/t7.build_t7_layers``): conv 9×9 3→c0, 3×3 s2 c0→2c0, 3×3 s2
     2c0→4c0, ``nres`` residual blocks at 4c0 (zero pad 1), transposed convs
-    k3 s2 pad 1 adj 1 4c0→2c0→c0, conv 9×9 c0→3, Tanh, MulConstant(150);
+    4c0→2c0→c0 (``deconv_k`` 3: s2 pad 1 adj 1; 4: s2 pad 1 adj 0), conv
+    9×9 c0→3, Tanh, MulConstant(150);
     every conv followed by ``norm`` ("bn": SpatialBatchNormalization with
     running statistics, "in": InstanceNormalization). Random weights from
     the numpy ``seed``, scaled so that the activations stay O(1) and the
@@ -4196,9 +4455,10 @@ def t7_net_layers(seed: int, norm: str, c0: int = 32, nres: int = 5) -> list:
                 "stride": (s, s), "pad": (p, p)}
 
     def convT(ci, co):
-        return {"op": "conv_transpose", "w": rng.normal(0, 2.0 / np.sqrt(9 * ci), (3, 3, co, ci))
+        k = deconv_k
+        return {"op": "conv_transpose", "w": rng.normal(0, 2.0 / np.sqrt(9 * ci), (k, k, co, ci))
                 .astype(np.float32), "b": rng.normal(0, 0.05, co).astype(np.float32),
-                "stride": 2, "pad": 1, "adj": 1}
+                "stride": 2, "pad": 1, "adj": 1 if k == 3 else 0}
 
     def nrm(c):
         d = {"op": "batchnorm" if norm == "bn" else "instancenorm",
@@ -4343,16 +4603,18 @@ def write_t7(path: Path, layers: list) -> Path:
 MMA_FORMS = {("0", "0"): "K4", ("2", "2"): "K3", ("0", "1"): "K2", ("0", "3"): "K2 floored emit",
              ("1", "0"): "K5", ("3", "0"): "K5 act", ("4", "0"): "K4 cast",
              ("0", "4"): "K4 no stats"}
+MMA_GEOS = {"0": "", "1": ", 2x2 taps pad 1", "2": ", 2x2 taps pad 0"}  # mma_kernel's GEO
 
 
 def ptxas_report(text: str, k1, k8, k9, k12) -> None:
     """ptxas' registers and spills of every kernel entry of one build log,
     and the dynamic shared memory of the tensor-core cores' instantiations
-    (mma_kernel<C, prologue, epilogue, tau, zero, f32>: <C, 0, 0> is K4,
+    (mma_kernel<C, prologue, epilogue, tau, zero, f32, geo>: <C, 0, 0> is K4,
     <C, 2, 2> K3, <C, 0, 1> K2, <192, 0, 3> K2's floored emit, <C, 1, 0> K5,
     <192, 3, 0> K5 with the post-add activation, <128, 4, 0> K4's cast form,
     <128, 0, 4> its no-statistics form; tau 1: K4 with the TLU floor; zero 1:
     K2, K4 or K5 under the zero halo; f32 1: the f32-operand form of K2-K5;
+    geo 1, 2: K4's 2×2 taps at pad 1, K4's and K3's at pad 0;
     mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
     d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
     their previous cores); d3sum_mma_kernel K9b and d3rows_wgmma_kernel K9e
@@ -4389,7 +4651,7 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
             short = f"{base}<{', '.join(targs)}>" if targs else base
             smem = None
             if base == "mma_kernel":
-                short += f" ({MMA_FORMS[targs[1], targs[2]]}"
+                short += f" ({MMA_FORMS[targs[1], targs[2]]}{MMA_GEOS[targs[6]]}"
                 short += ", f32 operand)" if targs[5:6] == ["1"] else ")"
                 smem = k8._lib().mma_kernel_smem_bytes(int(targs[0]))
             elif base == "mma_s2_kernel":
@@ -4671,29 +4933,43 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
     runs = ([(mode, fused, CKPT, "") for mode, fused in (("none", None), ("bf16_static", None))
-             + SLICES] + [(mode, None, nst_ckpt, "nst") for mode in NST_SLICES]
+             + SLICES]
+            + [(mode, fused, nst_ckpt, "nst (defaults)" if dflt else "nst")
+               for mode, fused, dflt in NST_SLICES]
             + [(mode, None, reco_ckpts[frn], f"reco {'frn' if frn else 'in'}")
                for mode, frn in RECO_SLICES]
-            + [(mode, None, t7_ckpts[norm], f"t7 {norm}") for norm, mode in T7_SLICES]
+            + [(mode, fused, t7_ckpts[norm], f"t7 {norm}") for norm, mode, fused in T7_SLICES]
             + [(mode, None, CKPT, "f32") for mode in ("none",) + F32_SLICES]
             + [("none", None, CKPT, "regions")])
     for mode, fused, ckpt, label in runs:
-        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
-                "--frame_batch", str(B), "--flow_ema", "--compute_dtype",
-                "float32" if label == "f32" else "bfloat16", "--quantize", mode]
-        if label.startswith("reco"):
-            argv += ["--model_type", "reconet"]
-        if label == "regions":
-            argv += REGION_FLAGS
-        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
-                                          fused_sites=fused)
-        proc(frames[:B])
-        proc(frames[B:2 * B])
-        name = f"{label} {mode}" if label else slice_name(mode, fused)
-        profile_report(f"--quantize {name}", lambda: proc(frames[2 * B:]))
+        if label.endswith("(defaults)"):
+            with _without_adoption_file():
+                _profile_slice(dev, mode, fused, ckpt, label, frames)
+        else:
+            _profile_slice(dev, mode, fused, ckpt, label, frames)
     profile_masked_step(dev, frames)
     profile_deeplab(dev)
     profile_backends(dev, workdir, frames)
+
+
+def _profile_slice(dev, mode, fused, ckpt, label, frames) -> None:
+    """``profile_phase``'s report of one slice."""
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
+            "--frame_batch", str(B), "--flow_ema", "--compute_dtype",
+            "float32" if label == "f32" else "bfloat16", "--quantize", mode]
+    if label.startswith("reco"):
+        argv += ["--model_type", "reconet"]
+    if label == "regions":
+        argv += REGION_FLAGS
+    _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev,
+                                      fused_sites=fused)
+    proc(frames[:B])
+    proc(frames[B:2 * B])
+    name = slice_name(mode, fused)
+    name = f"{label} {name}" if label else name
+    profile_report(f"--quantize {name}", lambda: proc(frames[2 * B:]))
 
 
 def profile_backends(dev, workdir: Path, frames) -> None:
@@ -4898,7 +5174,8 @@ def run_phases(dev, tmp: Path, k8) -> int:
     nst_ckpt = nst_checkpoint(tmp / "nst_random.pth")
     reco_ckpts = {frn: reco_checkpoint(tmp / f"reco_{'frn' if frn else 'in'}.pth", frn)
                   for frn in (False, True)}
-    t7_ckpts = {norm: t7_checkpoint(tmp / f"eccv16_{norm}.t7", norm) for norm in ("in", "bn")}
+    t7_ckpts = {norm: t7_checkpoint(tmp / f"eccv16_{norm.replace(' ', '_')}.t7", norm)
+                for norm in ("in", "bn", "bn k4")}
     if sys.argv[1:] in (["--profile"], ["--phases"]):
         if sys.argv[1] == "--profile":
             profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts, tmp)
@@ -4934,14 +5211,18 @@ def run_phases(dev, tmp: Path, k8) -> int:
     reference_phase(dev)
     quant_reference_phase(dev)
     nst_chain_phase(dev, nst_ckpt)
+    nst_forms_phase(dev, nst_ckpt)
     reco_chain_phase(dev, reco_ckpts)
     t7_kernel_phase(dev, int8)
     t7_chain_phase(dev, t7_ckpts["bn"])
+    t7_forms_phase(dev, t7_ckpts)
     launches = {k: 0 for k in read_counts()}
     runs = ([dict(quantize=mode, fused=fused) for mode, fused in (("none", None),) + SLICES]
-            + [dict(quantize=mode, nst_ckpt=nst_ckpt) for mode in NST_SLICES]
+            + [dict(quantize=mode, fused=fused, nst_ckpt=nst_ckpt, defaults=dflt)
+               for mode, fused, dflt in NST_SLICES]
             + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES]
-            + [dict(quantize=mode, t7=(t7_ckpts[norm], norm)) for norm, mode in T7_SLICES]
+            + [dict(quantize=mode, fused=fused, t7=(t7_ckpts[norm], norm))
+               for norm, mode, fused in T7_SLICES]
             + [dict(quantize=mode, dtype="float32") for mode in F32_SLICES])
     for run in runs:
         for k, v in slice_phase(dev, **run).items():

@@ -24,6 +24,9 @@ frozen norms, K2/K3), ``dec_i8`` / ``dec_s8`` (deconv1/deconv2, K4 / K2–K3),
 (deconv3's rows conv, K7). The NST sets route
 ``models/transformer_net_nst_fast.apply``, the ReCoNet sets
 ``models/reconet_fast.apply``, the Torch7 sets ``io/t7_fast.t7_fast_apply``.
+Without the file every key takes ``DEFAULTS``: NST_Train's ``res_i8`` runs
+K4/K5 with ``sw`` (``transformer_net_nst_fast.res_chain_i8``), and every
+NST and Torch7 name has its kernels.
 """
 
 from __future__ import annotations
@@ -49,8 +52,11 @@ DEFAULTS: dict[str, tuple] = {
 FLAGS: dict[str, bool] = {"reco_skip": False}
 
 
-def _load(path: Path = PATH) -> dict:
+def _load(path: Path | None = None) -> dict:
+    """The adoption file's dict: ``path``, or ``PATH`` as it stands at the
+    call (a missing or unreadable file reads as empty: the defaults)."""
     try:
+        path = PATH if path is None else path
         with open(path, encoding="utf-8") as f:
             d = json.load(f)
         return d if isinstance(d, dict) else {}
@@ -58,7 +64,7 @@ def _load(path: Path = PATH) -> dict:
         return {}
 
 
-def sites(key: str, path: Path = PATH) -> tuple:
+def sites(key: str, path: Path | None = None) -> tuple:
     """Adopted fused-site tuple for ``key`` (``"sites"``, ``"sites_static"``,
     ``"nst"``, ``"nst_static"``, ``"reco"``, ``"reco_static"``, ``"t7"`` or
     ``"t7_bn"``)."""
@@ -70,7 +76,7 @@ def sites(key: str, path: Path = PATH) -> tuple:
     return DEFAULTS[key]
 
 
-def flag(key: str, env: str | None = None, path: Path = PATH) -> bool:
+def flag(key: str, env: str | None = None, path: Path | None = None) -> bool:
     """Adopted boolean for ``key``; an explicit ``env`` variable wins
     (``"1"`` is on), then the JSON, then ``FLAGS``."""
     if key not in FLAGS:

@@ -116,6 +116,17 @@
 // residual y. Those are the F32IN instances (res_site_f32_launch and its
 // three siblings), built only at the channel counts and halos the f32
 // chains reach (launch_mma_f32_k2..k5); the bf16 instances compile as before.
+// The NST_Train and Torch7 int8 paths add two things to mma_kernel. The tap
+// geometry (GEO, the Pallas sites' KH, KW, PT, PL): besides the 3x3 taps,
+// K4's 2x2 taps at pad 1 (conv2, a 3x3 stride-2 pixel conv written as a
+// block conv on its input's space-to-depth grid) and K4's and K3's 2x2 taps
+// at pad 0 (a k3 stride-2 transposed conv scattered to its four output
+// phases), each its own instance under the zero halo; a 2x2 tap (dy, dx)
+// reads the 10x18 haloed tile at (r + dy + 1 - pt, c + dx + 1 - pt), so the
+// tile, the staging and the epilogue are the 3x3 form's, with 4 taps of
+// weights and 4 x C/32 k32 steps. And the content width sw for K4 and K5
+// under the zero halo (K2 and K3 had it): codes in columns >= sw are 0 (K5
+// still writes v there) and the sums leave those columns out.
 // K5 reads two inputs, r2 and yp: holding both of the next tile in
 // registers through the MMAs would double the in-flight registers (72 more
 // at C = 192, where a block already holds 18 16-byte chunks of r2), and a
@@ -248,7 +259,10 @@ struct Args {
   float qlo;                     // kSiteS8, kEmitS8F: floor of the s8 emit
   int flags;                     // kSiteS8: SiteFlags
   int halo;                      // 0 pixel reflect, 1 edge copy, 2 zero codes
-  int sw;                        // content width: K2 zeroes its codes in columns >= sw
+  int sw;                        // content width: K2 zeroes its codes in columns >= sw (K4
+                                 // and K5 their input codes, and leave those columns out of
+                                 // the sums; K3 its s8 output codes)
+  int geo;                       // mma_kernel's tap geometry (Geo): 3x3, or 2x2 with pad 1 or 0
 };
 
 // Source index of halo position i in [-1, n] (and, for the padding rows of
@@ -662,6 +676,22 @@ struct MmaSmem {
   static constexpr size_t bytes = W + X + sizeof(float) * (kMEpRows + 2 * RW) * CO;
 };
 
+// The tap geometry of mma_kernel (the Pallas sites' KH, KW, PT, PL): output
+// (r, c) sums taps (dy, dx) < (K, K) at input (r + dy - pt, c + dx - pt).
+// kGeo33: 3x3, pt = 1 (every res and decoder site). kGeo22p1: 2x2, pt = 1
+// (a 3x3 stride-2 pixel conv as a block conv on its input's space-to-depth
+// grid: conv2 of the NST and Torch7 nets). kGeo22p0: 2x2, pt = 0 (a k3
+// stride-2 transposed conv scattered to its four output phases: their
+// deconvs). The 2x2 taps read inside the 10x18 haloed tile at the offset
+// OFF = 1 - pt; the weights are [K*K][C/4][CO].
+enum Geo { kGeo33 = 0, kGeo22p1 = 1, kGeo22p0 = 2 };
+template <int GEO>
+struct Taps {
+  static constexpr int K = GEO == kGeo33 ? 3 : 2;  // taps a side
+  static constexpr int N = K * K;
+  static constexpr int OFF = GEO == kGeo22p0 ? 1 : 0;  // haloed-tile offset of tap (0, 0)
+};
+
 // the haloed tile's input, one 16-byte global chunk per thread and pass;
 // where the chunks of a pixel do not divide the block (C = 96, 192), the
 // threads past PPI pixels idle
@@ -757,7 +787,13 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 // does not fit in shared memory beside the weights), K5's residual yp, read
 // in combine, and K3's residual y, read in the store pass; each 8-channel
 // chunk is two 16-byte loads. The bf16 instances compile without them.
-template <int C, int PRO, int EPI, bool TAU, bool ZERO, bool F32IN>
+// GEO (Geo): the tap geometry; the 2x2 forms are K4's and K3's under the
+// zero halo (ZERO for K4; K3 carries it in its codes).
+// K4 and K5 under the zero halo also take the content width sw: their
+// input codes in columns >= sw are 0 (K5 still writes v there) and the sums
+// leave those columns out, as _quant_zero and the SW masks of the Pallas
+// sites do.
+template <int C, int PRO, int EPI, bool TAU, bool ZERO, bool F32IN, int GEO>
 __global__ void __launch_bounds__(kMThreads, 1)
     mma_kernel(Args p, int tiles_x, int tiles, int per_half) {
   static_assert(((PRO == kQuant || PRO == kCast) && (EPI == kRawStats || EPI == kRaw) &&
@@ -773,6 +809,10 @@ __global__ void __launch_bounds__(kMThreads, 1)
   static_assert(!F32IN || (!TAU && (PRO == kQuant || PRO == kCodes || is_skip(PRO)) &&
                            EPI != kRaw),
                 "the f32 operand is K2's or K4's x, K5's yp or K3's y");
+  static_assert(GEO == kGeo33 || (!F32IN && ((PRO == kQuant && EPI == kRawStats && ZERO) ||
+                                             (PRO == kCodes && EPI == kSiteS8))),
+                "the 2x2 taps are K4's (zero halo) and K3's");
+  using TP = Taps<GEO>;
   constexpr bool F32Q = F32IN && PRO == kQuant;  // K2, K4: x is f32, quantized in stage
   using S = MmaSmem<C>;
   using In = MmaIn<C, PRO>;
@@ -780,9 +820,9 @@ __global__ void __launch_bounds__(kMThreads, 1)
   constexpr int MCO = S::CO, RW = S::RW, MI = S::MI, OUT = S::OUT;
   constexpr int CW = C / 4;   // int32 words per pixel
   constexpr int KC = C / 32;  // k32 steps per tap
-  constexpr int KS = 9 * KC;  // k32 steps
+  constexpr int KS = TP::N * KC;  // k32 steps
   extern __shared__ __align__(16) uint8_t smem8[];
-  uint8_t* s_w = smem8;                                   // [9][MCO][PX] weights
+  uint8_t* s_w = smem8;                                   // [taps][MCO][PX] weights
   uint8_t* s_x = smem8 + S::W;                            // [kMPix][PX] codes, then outputs
   float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // [kMEpRows][MCO]
   float* s_sum = s_rows + kMEpRows * MCO;                 // [RW][2][MCO]
@@ -797,9 +837,9 @@ __global__ void __launch_bounds__(kMThreads, 1)
     for (int i = tid; i < p.B * 2 * p.CO; i += kMThreads) p.part[i] = 0.0f;
 
   // the block's weights, once: word (tap, k, co0 + n) → bytes 4k.. of row (tap, n)
-  static_assert(9 * CW * MCO % kMThreads == 0, "weight words split evenly");
+  static_assert(TP::N * CW * MCO % kMThreads == 0, "weight words split evenly");
 #pragma unroll 8
-  for (int j = 0; j < 9 * CW * MCO / kMThreads; ++j) {
+  for (int j = 0; j < TP::N * CW * MCO / kMThreads; ++j) {
     const int i = tid + j * kMThreads;
     const int n = i % MCO, k = (i / MCO) % CW, t = i / (MCO * CW);
     *reinterpret_cast<int32_t*>(s_w + (t * MCO + n) * PX + 4 * k) =
@@ -847,7 +887,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
             ? reinterpret_cast<const uint4*>(static_cast<const int8_t*>(p.x) + off)
             : reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.x) + off);
         if (ZERO) {
-          const bool z = zero_code(gy, gx, p.Hi, is_emit(EPI) ? p.sw : p.Wi, p.halo);
+          const bool z = zero_code(gy, gx, p.Hi, PRO == kQuant ? p.sw : p.Wi, p.halo);
           zf |= (uint32_t)z << k;
           raw[k] = z ? make_uint4(0, 0, 0, 0) : __ldg(src);
         } else {
@@ -949,7 +989,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
         // the f32 x, 8 channels as two 16-byte loads, quantized unrounded
         const int gy = vy0 + px / kMHC - 1, gx = vx0 + px % kMHC - 1;
         uint32_t q[2] = {0u, 0u};
-        if (!(ZERO && zero_code(gy, gx, p.Hi, is_emit(EPI) ? p.sw : p.Wi, p.halo))) {
+        if (!(ZERO && zero_code(gy, gx, p.Hi, PRO == kQuant ? p.sw : p.Wi, p.halo))) {
           const int sy = src_index(gy, p.Hi, p.halo), sx = src_index(gx, p.Wi, p.halo);
           const float4* src = reinterpret_cast<const float4*>(
               static_cast<const float*>(p.x) + (((size_t)b * p.Hi + sy) * p.Wi + sx) * C +
@@ -982,6 +1022,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
           }
           q[j >> 1] |= (q0 | (q1 << 8)) << (16 * (j & 1));
         }
+        if (ZERO && is_skip(PRO) && vx0 + px % kMHC - 1 >= p.sw) q[0] = q[1] = 0u;
         *reinterpret_cast<uint2*>(dst) = make_uint2(q[0], q[1]);
         if (is_skip(PRO)) {
           const int hr = px / kMHC, hc = px % kMHC;
@@ -1036,7 +1077,8 @@ __global__ void __launch_bounds__(kMThreads, 1)
     if (active) {
       uint32_t af[2][MI][4], bfr[2][8][2];
       auto load = [&](int s, uint32_t (&a)[MI][4], uint32_t (&bq)[8][2]) {
-        const int tap = s / KC, kc = s % KC, dy = tap / 3, dx = tap % 3;
+        const int tap = s / KC, kc = s % KC;
+        const int dy = tap / TP::K + TP::OFF, dx = tap % TP::K + TP::OFF;
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)
           ldsm_x4(a[mi], a_lane + ((mi + dy) * kMHC + dx) * PX + kc * 32);
@@ -1098,7 +1140,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
                 bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc[mi][nj][2 * h + 1]), ws.y),
                                      bi.y))};
             if (EPI == kRawStats) {
-              if (y0 + r < p.H && x0 + col < p.W) {
+              if (y0 + r < p.H && x0 + col < p.sw) {
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
                   s1[e] = __fadd_rn(s1[e], f[e]);
@@ -1277,10 +1319,11 @@ __global__ void stats_reduce_mma(const float* __restrict__ part, float* __restri
   }
 }
 
-template <int C, int PRO, int EPI, bool TAU, bool ZERO = false, bool F32IN = false>
+template <int C, int PRO, int EPI, bool TAU, bool ZERO = false, bool F32IN = false,
+          int GEO = kGeo33>
 int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   const size_t smem = MmaSmem<C>::bytes;
-  auto kern = mma_kernel<C, PRO, EPI, TAU, ZERO, F32IN>;
+  auto kern = mma_kernel<C, PRO, EPI, TAU, ZERO, F32IN, GEO>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1302,24 +1345,42 @@ int launch_mma_c(const Args& p, float* sums, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// an instance at the tap geometry p.geo: the 2x2 forms are built for K4
+// under the zero halo (both pads) and K3 (pad 0)
+template <int C, int PRO, int EPI, bool ZERO>
+int launch_mma_geo(const Args& p, float* sums, cudaStream_t s) {
+  if (p.geo == kGeo33) return launch_mma_c<C, PRO, EPI, false, ZERO>(p, sums, s);
+  if constexpr (PRO == kQuant && EPI == kRawStats && ZERO) {
+    if (p.geo == kGeo22p1) return launch_mma_c<C, PRO, EPI, false, true, false, kGeo22p1>(p, sums, s);
+    if (p.geo == kGeo22p0) return launch_mma_c<C, PRO, EPI, false, true, false, kGeo22p0>(p, sums, s);
+  }
+  if constexpr (PRO == kCodes && EPI == kSiteS8) {
+    if (p.geo == kGeo22p0) return launch_mma_c<C, PRO, EPI, false, false, false, kGeo22p0>(p, sums, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // the tensor-core core: C in {64, 128} (Johnson, NST; K4 also under the
-// zero halo, Torch7); ReCoNet's K4 at C in {96, 192}, with or without the
-// TLU floor, and its K3 at C = 192
+// zero halo, Torch7, with sw and the 2x2 taps; K3 with the 2x2 taps at pad
+// 0 under the zero halo); ReCoNet's K4 at C in {96, 192}, with or without
+// the TLU floor, and its K3 at C = 192
 template <int PRO, int EPI>
 int launch_mma(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tau = p.tau != nullptr;
+  if (p.geo != kGeo33 && (p.halo != kHaloZero || tau || (C != 64 && C != 128)))
+    return (int)cudaErrorInvalidValue;
   if constexpr (PRO == kQuant) {
     if (p.halo == kHaloZero) {
       if (tau) return (int)cudaErrorInvalidValue;
-      if (C == 128) return launch_mma_c<128, PRO, EPI, false, true>(p, sums, s);
-      if (C == 64) return launch_mma_c<64, PRO, EPI, false, true>(p, sums, s);
+      if (C == 128) return launch_mma_geo<128, PRO, EPI, true>(p, sums, s);
+      if (C == 64) return launch_mma_geo<64, PRO, EPI, true>(p, sums, s);
       return (int)cudaErrorInvalidValue;
     }
   }
-  if (!tau && C == 128) return launch_mma_c<128, PRO, EPI, false>(p, sums, s);
-  if (!tau && C == 64) return launch_mma_c<64, PRO, EPI, false>(p, sums, s);
+  if (!tau && C == 128) return launch_mma_geo<128, PRO, EPI, false>(p, sums, s);
+  if (!tau && C == 64) return launch_mma_geo<64, PRO, EPI, false>(p, sums, s);
   if constexpr (PRO == kQuant) {
     if (C == 192) return tau ? launch_mma_c<192, PRO, EPI, true>(p, sums, s)
                              : launch_mma_c<192, PRO, EPI, false>(p, sums, s);
@@ -1385,7 +1446,7 @@ int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
 // the zero halo with sw, NST_Train) and 192 (ReCoNet, with the floored emit
 // too); K3 at 128 and 192. No floor (tau) on K4's.
 int launch_mma_f32_k4(const Args& p, int C, float* sums, cudaStream_t s) {
-  if (!valid(p) || p.tau != nullptr) return (int)cudaErrorInvalidValue;
+  if (!valid(p) || p.tau != nullptr || p.geo != kGeo33) return (int)cudaErrorInvalidValue;
   if (p.halo == kHaloZero) {
     if (C == 128) return launch_mma_c<128, kQuant, kRawStats, false, true, true>(p, sums, s);
     if (C == 64) return launch_mma_c<64, kQuant, kRawStats, false, true, true>(p, sums, s);
@@ -2447,9 +2508,11 @@ int site_s8_args(bool prev, const int8_t* xq, const int32_t* wk, const float* ws
                  const float* bias, const float* aa, const float* ac, const __nv_bfloat16* y,
                  const float* ya, const float* yc, const float* qa, const float* qc, void* out,
                  int B, int H, int W, int C, int CO, int flags, float qlo, int halo, int sw,
-                 void* stream) {
+                 int geo, void* stream) {
   Args p = make_args(B, H, W, CO, 0.0f, halo);
   p.sw = sw;
+  p.geo = geo;
+  if (prev && geo != kGeo33) return (int)cudaErrorInvalidValue;
   p.x = xq; p.wk = wk; p.ws = ws; p.bias = bias; p.yadd = y; p.out = out;
   p.ep[0] = aa; p.ep[1] = ac; p.ep[2] = qa; p.ep[3] = qc; p.ep[4] = ya; p.ep[5] = yc;
   p.flags = flags;
@@ -2463,15 +2526,16 @@ int site_s8_args(bool prev, const int8_t* xq, const int32_t* wk, const float* ws
 // f = bf16(f*aa + ac) (kFAff); f = bf16(f + y) with y first replaced by
 // bf16(max(y*ya + yc, 0)) (kFYadd, kFYaff); out = bf16 f, or s8 codes
 // clamp(rint(f*qa + qc), qlo, 127) (kFS8Out), zero in columns >= sw (sw = W:
-// no such column). Unused rows may be null.
+// no such column). Unused rows may be null. geo (Geo): the taps; 2x2 at pad
+// 0 under the zero halo, C in {64, 128}.
 extern "C" int site_s8_launch(const int8_t* xq, const int32_t* wk, const float* ws,
                               const float* bias, const float* aa, const float* ac,
                               const __nv_bfloat16* y, const float* ya, const float* yc,
                               const float* qa, const float* qc, void* out, int B, int H,
                               int W, int C, int CO, int flags, float qlo, int halo, int sw,
-                              void* stream) {
+                              int geo, void* stream) {
   return site_s8_args(false, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
-                      flags, qlo, halo, sw, stream);
+                      flags, qlo, halo, sw, geo, stream);
 }
 
 // K3 on the previous __dp4a core (site_kernel), for timing only.
@@ -2482,7 +2546,7 @@ extern "C" int site_s8_prev_launch(const int8_t* xq, const int32_t* wk, const fl
                                    int W, int C, int CO, int flags, float qlo, int halo,
                                    int sw, void* stream) {
   return site_s8_args(true, xq, wk, ws, bias, aa, ac, y, ya, yc, qa, qc, out, B, H, W, C, CO,
-                      flags, qlo, halo, sw, stream);
+                      flags, qlo, halo, sw, kGeo33, stream);
 }
 
 #ifdef MMA_PHASE_CLOCKS
@@ -2503,8 +2567,11 @@ extern "C" int res_site_f32_launch(const float* x, const float* a, const float* 
                                    const float* tau, const int32_t* wk, const float* ws,
                                    const float* bias, __nv_bfloat16* out, float* part,
                                    float* sums, int B, int H, int W, int C, int CO, float lo,
-                                   int halo, void* stream) {
+                                   int halo, int geo, int sw, void* stream) {
+  if (sw != W && halo != kHaloZero) return (int)cudaErrorInvalidValue;
   Args p = make_args(B, H, W, CO, lo, halo);
+  p.geo = geo;
+  p.sw = sw;
   p.x = x; p.a = a; p.c = c; p.tau = tau; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;
   return launch_mma_f32_k4(p, C, sums, static_cast<cudaStream_t>(stream));
@@ -2515,9 +2582,11 @@ extern "C" int res_site_skip_f32_launch(const void* r2, const float* yp, const f
                                         const float* floor, const int32_t* wk,
                                         const float* ws, const float* bias, __nv_bfloat16* out,
                                         __nv_bfloat16* vout, float* part, float* sums, int B,
-                                        int H, int W, int C, int CO, float lo, int halo,
+                                        int H, int W, int C, int CO, float lo, int halo, int sw,
                                         void* stream) {
+  if (sw != W && halo != kHaloZero) return (int)cudaErrorInvalidValue;
   Args p = make_args(B, H, W, CO, lo, halo);
+  p.sw = sw;
   p.x = r2; p.yp32 = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
   p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
   return launch_mma_f32_k5(p, C, sums, static_cast<cudaStream_t>(stream));
@@ -2565,13 +2634,18 @@ extern "C" int mma_kernel_smem_bytes(int C) {
 // K4: bf16 raw out and sums[b, 0|1, o] = [Σ, Σ²] of it; part is scratch.
 // tau (C in {96, 192}; null: none): [B,C] floor of x*a + c before the round.
 // Under the zero halo (halo 2; C in {64, 128}) every position outside the
-// image is code 0, not the quantized zero.
+// image is code 0, not the quantized zero; so are the codes of the columns
+// >= sw, which the sums leave out (sw = W: no such column); geo (Geo) picks
+// the taps, 3x3 or 2x2 at pad 1 or 0.
 extern "C" int res_site_launch(const void* x, const float* a, const float* c,
                                const float* tau, const int32_t* wk, const float* ws,
                                const float* bias, __nv_bfloat16* out, float* part, float* sums,
-                               int B, int H, int W, int C, int CO, float lo, int halo,
-                               void* stream) {
+                               int B, int H, int W, int C, int CO, float lo, int halo, int geo,
+                               int sw, void* stream) {
+  if (sw != W && halo != kHaloZero) return (int)cudaErrorInvalidValue;
   Args p = make_args(B, H, W, CO, lo, halo);
+  p.geo = geo;
+  p.sw = sw;
   p.x = x; p.a = a; p.c = c; p.tau = tau; p.wk = wk; p.ws = ws; p.bias = bias;
   p.out = out; p.part = part;
   return launch_mma<kQuant, kRawStats>(p, C, sums, stream);
@@ -2615,8 +2689,10 @@ int res_site_skip_args(bool prev, const void* r2, const __nv_bfloat16* yp, const
                        const float* c, const float* a2, const float* c2, const float* floor,
                        const int32_t* wk, const float* ws, const float* bias,
                        __nv_bfloat16* out, __nv_bfloat16* vout, float* part, float* sums, int B,
-                       int H, int W, int C, int CO, float lo, int halo, void* stream) {
+                       int H, int W, int C, int CO, float lo, int halo, int sw, void* stream) {
+  if (sw != W && (prev || halo != kHaloZero)) return (int)cudaErrorInvalidValue;
   Args p = make_args(B, H, W, CO, lo, halo);
+  p.sw = sw;
   p.x = r2; p.yp = yp; p.a = a; p.c = c; p.a2 = a2; p.c2 = c2; p.tau = floor; p.wk = wk;
   p.ws = ws; p.bias = bias; p.out = out; p.vout = vout; p.part = part;
   if (prev)
@@ -2630,16 +2706,18 @@ int res_site_skip_args(bool prev, const void* r2, const __nv_bfloat16* yp, const
 // K5: K4 on v = bf16(bf16(r2*a2 + c2) + yp), then, with a floor row [B,C]
 // (C = 192), v = max(v, floor) (ReCoNet's post-add ReLU or TLU); v is
 // written to vout unless null. Under the zero halo (C in {64, 128}) every
-// position outside the image is code 0. part: [B, tiles, 2, CO] scratch.
+// position outside the image is code 0, and so are the codes of v in the
+// columns >= sw (v itself is written there), which the sums leave out.
+// part: [B, tiles, 2, CO] scratch.
 extern "C" int res_site_skip_launch(const void* r2, const __nv_bfloat16* yp,
                                     const float* a, const float* c, const float* a2,
                                     const float* c2, const float* floor, const int32_t* wk,
                                     const float* ws, const float* bias, __nv_bfloat16* out,
                                     __nv_bfloat16* vout, float* part, float* sums, int B,
-                                    int H, int W, int C, int CO, float lo, int halo,
+                                    int H, int W, int C, int CO, float lo, int halo, int sw,
                                     void* stream) {
   return res_site_skip_args(false, r2, yp, a, c, a2, c2, floor, wk, ws, bias, out, vout, part,
-                            sums, B, H, W, C, CO, lo, halo, stream);
+                            sums, B, H, W, C, CO, lo, halo, sw, stream);
 }
 
 // K5 on the previous __dp4a core (site_kernel), for timing only.
@@ -2651,7 +2729,7 @@ extern "C" int res_site_skip_prev_launch(const void* r2, const __nv_bfloat16* yp
                                          int H, int W, int C, int CO, float lo, int halo,
                                          void* stream) {
   return res_site_skip_args(true, r2, yp, a, c, a2, c2, floor, wk, ws, bias, out, vout, part,
-                            sums, B, H, W, C, CO, lo, halo, stream);
+                            sums, B, H, W, C, CO, lo, halo, W, stream);
 }
 
 namespace {

@@ -6,10 +6,15 @@ folds (``try_fast_johnson``: every static SpatialBatchNormalization folded
 into its conv, instance norms deferred), the f=2 block-space forward
 (``t7_fast_apply``), its calibration (``calibrate_t7_scales``,
 ``calibrate_t7_in_stats``), the static-norm fold (``fold_static_in``), the
-int8 weights (``quantize_t7``) and two res chains: ``_t7_res_chain_i8``
+int8 weights (``quantize_t7``), two res chains: ``_t7_res_chain_i8``
 (``res_i8``: K4/K5 with the zero halo, each block's residual add folded into
 the next a-site's prologue) and ``_t7_res_quant_xla`` (no res name in the
-set: PyTorch int8 ops, the adopted route of BN-folded graphs).
+set: PyTorch int8 ops, the adopted route of BN-folded graphs), the ``c2_i8``
+site (K4's 2×2 pad-1 form on conv2's block grid), ``_t7_dec_i8``
+(``dec_i8``: the transposed convs on K4's zero-halo forms, 2×2 pad 0 for a
+k3 deconv and 3×3 pad 1 for a k4 one, ``_dec_kform``) and its PyTorch-int8
+references ``_t7_dec_quant_xla`` (``dec_xla_i8``) and
+``_t7_tail_quant_xla`` (``tail_xla_i8``).
 
 The eccv16 / jcjohnson Torch7 nets are zero-padded, so the block form is
 exact (the zero pads ride the convs) and the port runs it as the JAX package
@@ -19,12 +24,10 @@ transposed convs as phase-scattered block convs (``_scatter_convT_f2``) and
 the 9×9 output conv tap-packed into a 1×5 conv to 60 lanes with a 5-row sum.
 The parameters are a dict of tensors in the JAX package's layouts (HWIO).
 
-The JAX forward's other int8 branches wait for kernel forms the port does
-not have (ROADMAP.md Queue 2's variant table): ``res_s8``
-(``_t7_res_chain_i8_s8c``), ``dec_s8`` (``_t7_dec_i8_s8``), ``dec_i8``
-(``_t7_dec_i8``), ``tail_s8``, ``c2_i8`` and their XLA references
-``dec_xla_i8`` / ``tail_xla_i8``. No adopted set holds one; a set naming one
-raises.
+The JAX forward's s8-carry branches wait for a later slice (ROADMAP.md
+Queue 2): ``res_s8`` (``_t7_res_chain_i8_s8c``), and ``dec_s8`` /
+``tail_s8`` (``_t7_dec_i8_s8``), which run only on its carry. No adopted
+set holds one; a set naming one raises.
 """
 
 from __future__ import annotations
@@ -36,22 +39,21 @@ import torch.nn.functional as F
 from ..kernels import int8_sites as k8
 from ..models.s2d import (apply_in_relu, d2s, in_affine, quant_affine, s2d, scatter_k9_f2,
                           scatter_stride2_f2)
-from ..models.sites_i8 import Site, _plain_quant, _qc, _stats, combine_as, res_supported
+from ..ops.conv import conv2d_i8
+from ..models.sites_i8 import (Site, _plain_quant, _qc, _stats, _stats_phased, combine_as,
+                               qconv_xla, res_supported)
 from ..models.transformer_net_quant import quantize_site
 from .t7 import tree_map
 
 #: the names the JAX ``t7_fast_apply`` routes on
 T7_SITE_NAMES = ("res_i8", "res_s8", "dec_s8", "dec_i8", "tail_s8", "c2_i8", "dec_xla_i8",
                  "tail_xla_i8")
-_QUEUE2 = "ROADMAP.md Queue 2 (variants of the ported kernels)"
+_QUEUE2 = "ROADMAP.md Queue 2 (the Torch7 s8 carry)"
 _UNPORTED = {
-    "res_s8": "K2 with a static emit scale and K3 with the residual add (_t7_res_chain_i8_s8c)",
-    "dec_s8": "K3 with kh/kw = 2 or 3 and the zero halo (_t7_dec_i8_s8)",
-    "dec_i8": "K4 with kh/kw = 2 or 3 and the zero halo (_t7_dec_i8)",
-    "tail_s8": "K3 with halo_out='zero2', then K6",
-    "c2_i8": "K4 as a 2x2 zero-halo block site",
-    "dec_xla_i8": "the PyTorch-int8 decoder reference (with dec_i8)",
-    "tail_xla_i8": "the PyTorch-int8 tail reference (with tail_s8)",
+    "res_s8": "the s8-carry res chain _t7_res_chain_i8_s8c (K2's static scalar emit at the zero "
+              "halo, K3's residual add on the s8 carry)",
+    "dec_s8": "the s8 carry of res_s8 (_t7_dec_i8_s8)",
+    "tail_s8": "the s8 carry of res_s8 and dec_s8 (_t7_dec_i8_s8, tail)",
 }
 
 
@@ -403,6 +405,102 @@ def _t7_res_chain_i8(y: torch.Tensor, res: list, sites: dict) -> torch.Tensor:
     return combine_as(rb, y, a2, c2).to(dt)
 
 
+def _dec_kform(pad):
+    """(kh, pt) of a phase-scattered transposed conv's block kernel: a k3
+    deconv scatters to 2×2 with pads (0, 1), a k4 one to 3×3 with (1, 1);
+    None for another."""
+    if tuple(pad) == (0, 1):
+        return 2, 0
+    if tuple(pad) == (1, 1):
+        return 3, 1
+    return None
+
+
+def _t7_c2_i8(y: torch.Tensor, p: dict, s2: Site) -> torch.Tensor:
+    """The ``c2_i8`` branch: conv2's 2×2 block conv with (1, 0) zero pads as
+    K4's 2×2 pad-1 zero-halo site on y [B,H,W,4·c0] (conv1's activated
+    block output), its deferred IN (if any) from the site's sums; ReLU.
+    Returns [B,H,W,2·c0] in y's dtype."""
+    y = y.contiguous()
+    B, H, W, Cin = y.shape
+    aq, cq = _plain_quant(B, Cin, s2.qin, y.device)
+    r, sout = k8.res_site(y, aq, cq, -127.0, s2.wk, s2.ws, s2.bias, halo="zero", kh=2, kw=2,
+                          pt=1, pl_=1)
+    if p["n2"] is None:
+        return torch.relu(r.float()).to(y.dtype)
+    m, inv = _stats(sout, float(H * W), eps=p["n2"]["eps"])
+    return apply_in_relu(r.to(y.dtype), m, inv, p["n2"]["scale"], p["n2"]["bias"])
+
+
+def _dec_geo(pad) -> dict:
+    kh, pt = _dec_kform(pad)
+    return dict(kh=kh, kw=kh, pt=pt, pl_=pt)
+
+
+def _t7_dec_i8(y: torch.Tensor, p: dict, sites: dict, c0: int) -> torch.Tensor:
+    """deconv1 + deconv2 as K4 zero-halo sites on their four output phases
+    (2×2 pad 0 for a k3 deconv, 3×3 pad 1 for a k4), d2s between them, the
+    deferred norms (if any) from the sites' sums over the phases (n_d1
+    folded into deconv2's quantize, floor 0 the ReLU); returns the activated
+    d2 output [B,2H,2W,4·c0] in y's dtype."""
+    y = y.contiguous()
+    B, H, W0, C = y.shape
+    dt = y.dtype
+    s1, s2 = sites["d1"], sites["d2"]
+    aq, cq = _plain_quant(B, C, s1.qin, y.device)
+    r, sout = k8.res_site(y, aq, cq, -127.0, s1.wk, s1.ws, s1.bias, halo="zero",
+                          **_dec_geo(p["d1_pad"]))
+    if p["n_d1"] is None:
+        a_eff, c_eff = _plain_quant(B, 2 * c0, s2.qin, y.device)
+    else:
+        m, inv = _stats_phased(sout, float(H * W0), 4, eps=p["n_d1"]["eps"])
+        a_eff, c_eff = (t.contiguous() for t in quant_affine(m, inv, p["n_d1"]["scale"],
+                                                             p["n_d1"]["bias"], s2.qin))
+    r2, sout2 = k8.res_site(d2s(r, 2, 2 * c0).contiguous(), a_eff, c_eff, 0.0, s2.wk, s2.ws,
+                            s2.bias, halo="zero", **_dec_geo(p["d2_pad"]))
+    if p["n_d2"] is None:
+        return torch.relu(r2.float()).to(dt)
+    m2, inv2 = _stats_phased(sout2, float(4 * H * W0), 4, eps=p["n_d2"]["eps"])
+    return apply_in_relu(r2.to(dt), m2, inv2, p["n_d2"]["scale"], p["n_d2"]["bias"], 4)
+
+
+def _t7_dec_quant_xla(y: torch.Tensor, p: dict, sites: dict, c0: int) -> torch.Tensor:
+    """deconv1 + deconv2 in PyTorch int8 ops (the reference of
+    ``_t7_dec_i8``): quantize, an exact int8 conv of the block kernel over
+    the scatter's zero pads, bf16(acc·ws + bias); n_d1's affine (or qin
+    alone) and the ReLU folded into deconv2's quantize; n_d2 deferred."""
+    s1, s2 = sites["d1"], sites["d2"]
+    (lo1, hi1), (lo2, hi2) = p["d1_pad"], p["d2_pad"]
+    xq = torch.clamp(torch.round(y.float() * s1.qin), -127.0, 127.0)
+    r = qconv_xla(xq, s1, lo1 + hi1 + 1, lo1 + hi1 + 1, (lo1, hi1, lo1, hi1), y.dtype)
+    yd = d2s(r, 2, 2 * c0)
+    if p["n_d1"] is None:
+        a1, c1 = _plain_quant(1, 2 * c0, s2.qin, y.device)
+    else:
+        av, cv = _res_stats(yd, p["n_d1"])
+        a1, c1 = av * s2.qin, cv * s2.qin
+    rq = torch.clamp(torch.round(yd.float() * a1[:, None, None, :] + c1[:, None, None, :]),
+                     0.0, 127.0)
+    r2 = qconv_xla(rq, s2, lo2 + hi2 + 1, lo2 + hi2 + 1, (lo2, hi2, lo2, hi2), y.dtype)
+    if p["n_d2"] is None:
+        return torch.relu(r2)
+    return _defer_norm(r2, p["n_d2"], 4, c0)
+
+
+def _t7_tail_quant_xla(y: torch.Tensor, p: dict, sites: dict) -> torch.Tensor:
+    """The tap-packed 9×9 output conv in PyTorch int8 ops (the reference of
+    the fused tail): codes of the activated d2 output (floor 0), the 1×5
+    int8 rows conv over zero pads, K = bf16(acc·ws), the f32 dy-sum and the
+    bias → the [B,H2,W2,12] block output in bf16."""
+    s3 = sites["d3"]
+    h2 = y.shape[1]
+    qd3 = torch.clamp(torch.round(y.float() * s3.qin), 0.0, 127.0)
+    K = conv2d_i8(F.pad(qd3, (0, 0, 2, 2, 2, 2)), s3.w8)
+    K = (K.float() * s3.ws[:k8.D3_LANES]).to(torch.bfloat16)
+    y12 = sum(K[:, dy:dy + h2, :, dy * 12:(dy + 1) * 12].float() for dy in range(5))
+    return (y12 + s3.bias).to(torch.bfloat16)
+
+
 def _no_tap(site, t):
     return None
 
@@ -415,12 +513,16 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
     reassociation.
 
     ``sites``: ``prepare_sites`` of ``quantize_t7`` (the int8 modes), routed
-    by ``fused_sites`` as the JAX forward routes ``quant``: ``res_i8`` →
+    by ``fused_sites`` as the JAX forward routes ``quant``: ``c2_i8`` → K4's
+    2×2 conv2 where ``res_supported`` takes its grid; ``res_i8`` →
     ``_t7_res_chain_i8`` (K4/K5) where ``res_supported`` passes; no res name
     → ``_t7_res_quant_xla``; a named chain the geometry refuses → the bf16
-    blocks (never the int8-ops chain). ``tap(site, t)`` sees the tensor each
-    calibrated conv consumes; ``stats_out`` records each deferred norm's
-    (mean, inv)."""
+    blocks (never the int8-ops chain); ``dec_i8`` → ``_t7_dec_i8`` (K4)
+    where the res grid and its double pass ``res_supported`` and both
+    deconvs scatter to a known block kernel, else ``dec_xla_i8`` →
+    ``_t7_dec_quant_xla``; ``tail_xla_i8`` → ``_t7_tail_quant_xla``.
+    ``tap(site, t)`` sees the tensor each calibrated conv consumes;
+    ``stats_out`` records each deferred norm's (mean, inv)."""
     tap = tap or _no_tap
     fused = set(fused_sites)
     unknown = sorted(fused - set(T7_SITE_NAMES))
@@ -440,8 +542,12 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
 
     y = s2d(x, 2)
     y = na("n1", _conv(y, p["c1_w"], p["c1_b"], pad=2), p["n1"], 4, c0)
-    tap("c2", y)
-    y = na("n2", _conv(y, p["c2_w"], p["c2_b"], pad=((1, 0), (1, 0))), p["n2"], 1, 2 * c0)
+    if (sites is not None and "c2" in sites and "c2_i8" in fused
+            and res_supported(y.shape[1], y.shape[2])):
+        y = _t7_c2_i8(y, p, sites["c2"])
+    else:
+        tap("c2", y)
+        y = na("n2", _conv(y, p["c2_w"], p["c2_b"], pad=((1, 0), (1, 0))), p["n2"], 1, 2 * c0)
     y = na("n3", _conv(y, p["c3_w"], p["c3_b"], stride=2, pad=1), p["n3"], 1, 4 * c0)
 
     nres = len(p["res"])
@@ -459,17 +565,28 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
             r = na(f"r{i}n2", _conv(r, rp["w2"], rp["b2"], pad=1), rp["rn2"], 1, 4 * c0,
                    act=False)
             y = y + r
-    tap("d1", y)
-    pd = p["d1_pad"]
-    y = _conv(y, p["d1_w"], p["d1_b"], pad=(pd, pd))
-    y = na("n_d1", d2s(y, 2, 2 * c0), p["n_d1"], 1, 2 * c0)
-    tap("d2", y)
-    pd = p["d2_pad"]
-    y = na("n_d2", _conv(y, p["d2_w"], p["d2_b"], pad=(pd, pd)), p["n_d2"], 4, c0)
-    tap("d3", y)
-    rows = _conv(y, p["d3_w"], None, pad=2)  # 1×5 taps: (B, H/2+4, W/2, 60)
-    y = sum(rows[:, dy:dy + hb, :, dy * 12:(dy + 1) * 12] for dy in range(5))
-    y = y + p["d3_b"].to(y.dtype)
+    dec_q = sites is not None and "d1" in sites and "d2" in sites
+    if (dec_q and "dec_i8" in fused and res_supported(y.shape[1], y.shape[2])
+            and res_supported(2 * y.shape[1], 2 * y.shape[2])
+            and _dec_kform(p["d1_pad"]) is not None and _dec_kform(p["d2_pad"]) is not None):
+        y = _t7_dec_i8(y, p, sites, c0)
+    elif dec_q and "dec_xla_i8" in fused:
+        y = _t7_dec_quant_xla(y, p, sites, c0)
+    else:
+        tap("d1", y)
+        pd = p["d1_pad"]
+        y = _conv(y, p["d1_w"], p["d1_b"], pad=(pd, pd))
+        y = na("n_d1", d2s(y, 2, 2 * c0), p["n_d1"], 1, 2 * c0)
+        tap("d2", y)
+        pd = p["d2_pad"]
+        y = na("n_d2", _conv(y, p["d2_w"], p["d2_b"], pad=(pd, pd)), p["n_d2"], 4, c0)
+    if sites is not None and "d3" in sites and "tail_xla_i8" in fused:
+        y = _t7_tail_quant_xla(y, p, sites)
+    else:
+        tap("d3", y)
+        rows = _conv(y, p["d3_w"], None, pad=2)  # 1×5 taps: (B, H/2+4, W/2, 60)
+        y = sum(rows[:, dy:dy + hb, :, dy * 12:(dy + 1) * 12] for dy in range(5))
+        y = y + p["d3_b"].to(y.dtype)
     out = d2s(y, 2, 3)
     if p["tanh"]:
         out = torch.tanh(out)
@@ -479,15 +596,24 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
 
 
 def prepare_sites(p: dict, quant: dict, device) -> dict[str, Site]:
-    """``quantize_t7`` output → the device-resident res sites the ported
-    chains read; the conv biases come from ``p`` (the params in the compute
-    dtype: the JAX engine reads them from its cast params)."""
+    """``quantize_t7`` output → the device-resident sites the int8 branches
+    read; the conv biases come from ``p`` (the params in the compute dtype:
+    the JAX engine reads them from its cast params). d3 holds its int8 rows
+    weights ``w8`` (the PyTorch-int8 tail) beside K6's packing."""
     sites = {}
     for name, q in quant.items():
-        if not name.startswith("r"):
-            continue  # c2 / d1 / d2 / d3: only the unported branches read them
-        i, ab = int(name[1:-1]), name[-1]
-        bias = p["res"][i]["b1" if ab == "a" else "b2"]
+        if name == "d3":
+            sites[name] = Site(
+                wk=k8.pack_weights(q["w"], co_pad=k8.CO_TILE).to(device),
+                ws=F.pad(q["ws"].to(torch.float32), (0, k8.CO_TILE - k8.D3_LANES)).to(device),
+                bias=p["d3_b"].float().to(device).contiguous(), qin=float(q["qin"]),
+                w8=q["w"].to(device))
+            continue
+        if name in ("c2", "d1", "d2"):
+            bias = p[f"{name}_b"]
+        else:
+            i, ab = int(name[1:-1]), name[-1]
+            bias = p["res"][i]["b1" if ab == "a" else "b2"]
         sites[name] = Site(wk=k8.pack_weights(q["w"]).to(device),
                            ws=q["ws"].to(device, torch.float32),
                            bias=bias.float().to(device).contiguous(), qin=float(q["qin"]))

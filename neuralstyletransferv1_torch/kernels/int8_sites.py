@@ -10,10 +10,20 @@ NST and Torch7 nets' zero-padded convs (``halo="zero"``: code 0 at every
 position outside the image, whatever the quantize affine, as
 ``_quant_zero`` writes it; K2, K4 and K5 at C = 64 and 128, without a
 floor);
-K2 and K3 with ``sw``: the content width of a grid padded up to an aligned
-width, beyond which K2 zeroes its input codes and its output codes and K3
-its output codes (``_quant_zero`` and the S8OUT mask of the TPU kernels), so
-no padding column enters a dot:
+K2–K5 with ``sw``: the content width of a grid padded up to an aligned
+width, beyond which K2 zeroes its input codes and its output codes, K4 and
+K5 their input codes (K5 still returns v there) and leave those columns out
+of their sums, and K3 zeroes its output codes (``_quant_zero`` and the SW
+masks of the TPU kernels), so no padding column enters a dot. Under the
+zero halo K4 and K3 also take the Pallas sites' 2×2 tap geometries
+(``kh = kw = 2``; output (r, c) sums taps (dy, dx) at (r + dy − pt,
+c + dx − pl)): K4 with ``pt = pl = 1``, conv2 of the NST and Torch7 nets as
+a block conv on its input's space-to-depth grid, and K4 and K3 with
+``pt = pl = 0``, a k3 stride-2 transposed conv scattered to its four output
+phases (their deconvs); each is its own kernel instance, counted in
+``FORM_LAUNCHES`` under ``GEO_FORMS``' name. K3's ``halo_out="zero2"`` names the deconv3 tail's
+input, which here is K3's s8 emit as it is: the port's carries hold no
+halo columns, K6 pads its own:
 
   K2  ``res_site_s8o``  quantize bf16 x → conv → bf16 → emit s8 codes ≥ 0
                         (``res_site_s8o`` / ``_site_kernel_s8o``)
@@ -109,6 +119,18 @@ from .int8_probes import saturate_s8
 _SOURCE = "int8_sites.cu"
 LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
             "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
+#: the tap geometries (kh, kw, pt, pl) and the ``Geo`` index of each in
+#: ``csrc/int8_sites.cu``
+GEOS = {(3, 3, 1, 1): 0, (2, 2, 1, 1): 1, (2, 2, 0, 0): 2}
+#: the 2×2 forms (wrapper, ``Geo`` index) built, under the zero halo at
+#: ``KERNEL_C``, and the name each counts its launches under in
+#: ``FORM_LAUNCHES`` (``LAUNCHES``' keys name the wrapper functions); a K4
+#: or K5 launch with ``sw`` < W counts there as ``res_site_sw`` /
+#: ``res_site_skip_sw``
+GEO_FORMS = {("res_site", 1): "res_site_k2p1", ("res_site", 2): "res_site_k2p0",
+             ("site_s8", 2): "site_s8_k2p0"}
+FORM_LAUNCHES = dict.fromkeys((*GEO_FORMS.values(), "res_site_sw", "res_site_skip_sw"), 0)
+_QUEUE2 = "ROADMAP.md Queue 2"
 #: K4's forms of the int8 probes (``res_site(prologue=, stats=)``; C = 128,
 #: reflect halo, no floor): the saturating cast (mk31's v1) and no
 #: statistics (mk31's v2, mk28's mini site), each counted under its own name
@@ -197,30 +219,61 @@ def _emit(f: torch.Tensor, qa: torch.Tensor, qc: torch.Tensor, qlo: float,
     return torch.clamp(torch.round(v), qlo, 127.0).to(torch.int8)
 
 
-def _halo(q: torch.Tensor, halo: str) -> torch.Tensor:
-    """1-pixel halo around NHWC codes (float64, exact): pixel reflect, edge
-    copy or zero codes. Quantize is pointwise, so haloing the codes equals
-    quantizing the haloed input."""
+def _halo(q: torch.Tensor, halo: str, pads=(1, 1, 1, 1)) -> torch.Tensor:
+    """Halo of ``pads`` = (top, bottom, left, right) pixels around NHWC codes
+    (float64, exact): pixel reflect, edge copy or zero codes. Quantize is
+    pointwise, so haloing the codes equals quantizing the haloed input."""
     mode = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}[halo]
-    return F.pad(q.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode).permute(0, 2, 3, 1)
+    t, b, l, r = pads
+    return F.pad(q.double().permute(0, 3, 1, 2), (l, r, t, b), mode=mode).permute(0, 2, 3, 1)
 
 
 def _conv_dequant(q: torch.Tensor, wk: torch.Tensor, ws: torch.Tensor, bias: torch.Tensor,
-                  halo: str, stride: int = 1) -> torch.Tensor:
-    """bf16(acc·ws + bias) of the 3×3 int8 conv of codes q [B,H,W,C]."""
-    acc = conv2d_i8(_halo(q, halo), unpack_weights(wk).to(q.device), stride=stride)
+                  halo: str, stride: int = 1, geo=(3, 3, 1, 1)) -> torch.Tensor:
+    """bf16(acc·ws + bias) of the int8 conv of codes q [B,H,W,C] with the
+    taps ``geo`` = (kh, kw, pt, pl): output (r, c) sums taps (dy, dx) at
+    (r + dy − pt, c + dx − pl)."""
+    kh, kw, pt, pl = geo
+    acc = conv2d_i8(_halo(q, halo, (pt, kh - 1 - pt, pl, kw - 1 - pl)),
+                    unpack_weights(wk, kh, kw).to(q.device), stride=stride)
     return (acc.float() * ws + bias).to(torch.bfloat16)
 
 
-def _sums(fv: torch.Tensor) -> torch.Tensor:
-    """[B,2,CO] f32 [Σ, Σ²] over H, W of the bf16-rounded values."""
-    f = fv.double()
+def _sums(fv: torch.Tensor, sw: int | None = None) -> torch.Tensor:
+    """[B,2,CO] f32 [Σ, Σ²] over H, W (the columns < ``sw``) of the
+    bf16-rounded values."""
+    f = fv.double() if sw is None else fv[:, :, :sw].double()
     return torch.stack([f.sum(dim=(1, 2)), f.square().sum(dim=(1, 2))], dim=1).float()
 
 
 def _check_sw(kernel, halo, sw, w):
     if sw is not None and (halo != "zero" or not 0 < sw <= w):
         raise ValueError(f"{kernel}: sw={sw} needs the zero halo and 0 < sw <= W={w}")
+
+
+def _geo(kernel: str, halo: str, kh: int, kw: int, pt: int, pl: int) -> int:
+    """The ``Geo`` index of ``kernel``'s taps; a geometry it is not built
+    for raises, on every device: the 3×3 taps at pad 1, and the 2×2 forms of
+    ``GEO_FORMS`` under the zero halo."""
+    g = GEOS.get((kh, kw, pt, pl))
+    if g == 0 or (g is not None and (kernel, g) in GEO_FORMS and halo == "zero"):
+        return g
+    raise NotImplementedError(f"{kernel}: no form with {kh}x{kw} taps at pads ({pt}, {pl}) "
+                              f"and the {halo} halo: {_QUEUE2}")
+
+
+def _sw_form(kernel: str, sw, w: int) -> str | None:
+    """``FORM_LAUNCHES``' key of K4's or K5's masked form, where ``sw``
+    masks."""
+    return f"{kernel}_sw" if sw is not None and sw < w else None
+
+
+def _check_halo_out(halo, halo_out, qa):
+    """K3's emitted layout: as the input's, or ``"zero2"`` (the deconv3
+    tail's input: the s8 emit under the zero halo)."""
+    if halo_out is not None and (halo_out != "zero2" or halo != "zero" or qa is None):
+        raise ValueError(f"site_s8: halo_out={halo_out!r} needs 'zero2', the zero halo and "
+                         "the s8 emit")
 
 
 def _mask_sw(q: torch.Tensor, sw: int | None) -> torch.Tensor:
@@ -241,11 +294,13 @@ def res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None,
 
 
 def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
-                  qlo=0.0, halo="reflect", sw=None):
+                  qlo=0.0, halo="reflect", sw=None, kh=3, kw=3, pt=1, pl_=1, halo_out=None):
     """K3's plain version → bf16 [B,H,W,CO], or s8 codes when ``qa``/``qc``
     are given (zero in the columns >= ``sw``)."""
     _check_sw("site_s8", halo, sw, xq.shape[2])
-    fv = _conv_dequant(xq, wk, ws, bias, halo)
+    _check_halo_out(halo, halo_out, qa)
+    _geo("site_s8", halo, kh, kw, pt, pl_)
+    fv = _conv_dequant(xq, wk, ws, bias, halo, geo=(kh, kw, pt, pl_))
     if aa is not None:
         fv = (fv.float() * aa + ac).to(torch.bfloat16)
     if y is not None:
@@ -257,16 +312,18 @@ def site_s8_plain(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=N
 
 
 def res_site_plain(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="quant",
-                   stats=True):
-    """K4's plain version → (bf16 raw [B,H,W,CO], f32 [B,2,CO] sums; zero
-    without ``stats``). ``prologue="cast"``: the codes are the saturating
-    cast of x (a, c, lo unused)."""
+                   stats=True, kh=3, kw=3, pt=1, pl_=1, sw=None):
+    """K4's plain version → (bf16 raw [B,H,W,CO], f32 [B,2,CO] sums of the
+    columns < ``sw``; zero without ``stats``). ``prologue="cast"``: the codes
+    are the saturating cast of x (a, c, lo unused)."""
+    _check_sw("res_site", halo, sw, x.shape[2])
+    _geo("res_site", halo, kh, kw, pt, pl_)
     q = saturate_s8(x) if prologue == "cast" else _quantize(x.float(), a, c, lo, tau)
-    fv = _conv_dequant(q, wk, ws, bias, halo)
+    fv = _conv_dequant(_mask_sw(q, sw), wk, ws, bias, halo, geo=(kh, kw, pt, pl_))
     if not stats:
         return fv, torch.zeros((x.shape[0], 2, fv.shape[-1]), dtype=torch.float32,
                                device=x.device)
-    return fv, _sums(fv)
+    return fv, _sums(fv, sw)
 
 
 def _combine(r2, yp, a2, c2):
@@ -291,13 +348,16 @@ def act_floor(act, tau_act, like: torch.Tensor) -> torch.Tensor:
 
 
 def res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect",
-                        yout=True, act=None, tau_act=None):
-    """K5's plain version → (bf16 raw, f32 sums, v or None)."""
+                        yout=True, act=None, tau_act=None, sw=None, kh=3, kw=3, pt=1, pl_=1):
+    """K5's plain version → (bf16 raw, f32 sums of the columns < ``sw``, v
+    or None)."""
+    _check_sw("res_site_skip", halo, sw, r2.shape[2])
+    _geo("res_site_skip", halo, kh, kw, pt, pl_)
     v = _combine(r2, yp, a2, c2)
     if act is not None:
         v = torch.maximum(v.float(), _rows(act_floor(act, tau_act, r2))).to(torch.bfloat16)
-    fv = _conv_dequant(_quantize(v.float(), a, c, lo), wk, ws, bias, halo)
-    return fv, _sums(fv), (v if yout else None)
+    fv = _conv_dequant(_mask_sw(_quantize(v.float(), a, c, lo), sw), wk, ws, bias, halo)
+    return fv, _sums(fv, sw), (v if yout else None)
 
 
 def site_s2_plain(x, a, c, lo, wk, ws, bias):
@@ -378,17 +438,17 @@ def _lib():
     sigs = {
         "res_site_s8o_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
         "res_site_s8o_prev_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
-        "site_s8_launch": [P] * 12 + dims + [I, Fl, I, I, P],
+        "site_s8_launch": [P] * 12 + dims + [I, Fl, I, I, I, P],
         "site_s8_prev_launch": [P] * 12 + dims + [I, Fl, I, I, P],
-        "res_site_launch": [P] * 10 + dims + [Fl, I, P],
+        "res_site_launch": [P] * 10 + dims + [Fl, I, I, I, P],
         "res_site_prev_launch": [P] * 10 + dims + [Fl, I, P],
         "res_site_form_launch": [P] * 9 + dims + [Fl, I, I, P],
-        "res_site_skip_launch": [P] * 14 + dims + [Fl, I, P],
+        "res_site_skip_launch": [P] * 14 + dims + [Fl, I, I, P],
         "res_site_skip_prev_launch": [P] * 14 + dims + [Fl, I, P],
         "res_site_s8o_f32_launch": [P] * 10 + dims + [Fl, Fl, I, I, P],
         "site_s8_f32_launch": [P] * 12 + dims + [I, Fl, I, I, P],
-        "res_site_f32_launch": [P] * 10 + dims + [Fl, I, P],
-        "res_site_skip_f32_launch": [P] * 14 + dims + [Fl, I, P],
+        "res_site_f32_launch": [P] * 10 + dims + [Fl, I, I, I, P],
+        "res_site_skip_f32_launch": [P] * 14 + dims + [Fl, I, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
         "site_s2_prev_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
@@ -418,10 +478,10 @@ def _check(kernel, name, t, dtype, shape, dev):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=None, halos=HALOS_RE):
+def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=None, halos=HALOS_RE, taps=9):
     """Validate the shared operands; returns (dev, B, H, W, C, CO).
     ``kernel_c``: the input channel counts the kernel's form is built for
-    (default: ``SITE_C[kernel]``)."""
+    (default: ``SITE_C[kernel]``); ``taps``: kh·kw."""
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{kernel}: no kernel for device {dev}")
@@ -429,7 +489,7 @@ def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=None, halos=HALOS_RE):
     kernel_c = SITE_C[kernel] if kernel_c is None else kernel_c
     if C not in kernel_c:
         raise ValueError(f"{kernel}: C={C}, the kernel is built for C in {kernel_c}")
-    if wk.dim() != 3 or wk.shape[0] != 9 or wk.shape[1] * 4 != C:
+    if wk.dim() != 3 or wk.shape[0] != taps or wk.shape[1] * 4 != C:
         raise ValueError(f"{kernel}: weights {tuple(wk.shape)} do not match C={C}")
     CO = wk.shape[2]
     if CO % CO_TILE:
@@ -438,7 +498,7 @@ def _check_site(kernel, x, wk, ws, bias, halo, kernel_c=None, halos=HALOS_RE):
         raise ValueError(f"{kernel}: H={H}, W={W}: the halo needs at least 2 pixels")
     if halo not in halos:
         raise ValueError(f"{kernel}: halo {halo!r} not in {tuple(halos)}")
-    _check(kernel, "weights", wk, torch.int32, (9, C // 4, CO), dev)
+    _check(kernel, "weights", wk, torch.int32, (taps, C // 4, CO), dev)
     _check(kernel, "ws", ws, torch.float32, (CO,), dev)
     _check(kernel, "bias", bias, torch.float32, (CO,), dev)
     return dev, B, H, W, C, CO
@@ -543,22 +603,28 @@ def _counter(kernel, f32):
 
 
 def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
-            qlo=0.0, halo="reflect", sw=None):
-    """K3: 3×3 int8 conv of s8 codes → f = bf16(acc·ws + bias); then
+            qlo=0.0, halo="reflect", sw=None, kh=3, kw=3, pt=1, pl_=1, halo_out=None):
+    """K3: int8 conv of s8 codes (3×3, or under the zero halo 2×2 at pads
+    ``pt = pl_ = 0``) → f = bf16(acc·ws + bias); then
     f = bf16(f·aa + ac) with the frozen affine (aa, ac); f = bf16(f + y) with
     the residual y [B,H,W,CO] (CO == C), itself first replaced by
     bf16(max(y·ya + yc, 0)) when ``yaff`` = (ya, yc); returns bf16 f, or the
     s8 codes clamp(round(f·qa + qc), qlo, 127) when ``qa``/``qc`` are given,
-    zero in the columns >= ``sw`` (zero halo only). Rows are [CO] f32. On
-    the card: the int8 tensor-core core."""
+    zero in the columns >= ``sw`` (zero halo only; ``halo_out="zero2"``
+    names that emit as deconv3's input). Rows are [CO] f32. On the card:
+    the int8 tensor-core core."""
     if xq.device.type == "cpu":
         return site_s8_plain(xq, wk, ws, bias, aa, ac, y, yaff=yaff, qa=qa, qc=qc, qlo=qlo,
-                             halo=halo, sw=sw)
+                             halo=halo, sw=sw, kh=kh, kw=kw, pt=pt, pl_=pl_, halo_out=halo_out)
+    _check_halo_out(halo, halo_out, qa)
+    geo = _geo("site_s8", halo, kh, kw, pt, pl_)
     if y is not None and _f32_form("site_s8", y, halo):
+        if geo:
+            raise NotImplementedError(f"site_s8: no f32 form with 2x2 taps: {_QUEUE2}")
         return _site_s8("site_s8_f32_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
                         qlo, halo, sw, f32=True)
     return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo,
-                    sw)
+                    sw, geo=geo)
 
 
 def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
@@ -570,10 +636,12 @@ def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=No
                     qlo, halo, sw)
 
 
-def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=False):
+def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=False,
+             geo=0):
     k = "site_s8"
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS),
-                                      kernel_c=SITE_C[k] if count else KERNEL_C)
+                                      kernel_c=SITE_C[k] if count and not geo else KERNEL_C,
+                                      taps=4 if geo else 9)
     _check_sw(k, halo, sw, W)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
     _check_aligned(k, "xq", xq)
@@ -602,11 +670,14 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
             _check(k, name, t, torch.float32, (CO,), dev)
     dtype = torch.int8 if qa is not None else torch.bfloat16
     out = torch.empty((B, H, W, CO), dtype=dtype, device=dev)
+    extra = (geo,) if fn == "site_s8_launch" else ()
+    counter = {"name": GEO_FORMS[(k, geo)], "counts": FORM_LAUNCHES} if geo else \
+        _counter(k, f32)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
              _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo], sw or W,
-             _stream(dev), count=count, **_counter(k, f32))
+             *extra, _stream(dev), count=count, **counter)
     return out
 
 
@@ -621,11 +692,13 @@ def _stats_buffers(B, H, W, CO, dev, tile):
 
 
 def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="quant",
-             stats=True):
+             stats=True, kh=3, kw=3, pt=1, pl_=1, sw=None):
     """K4: quantize x → 3×3 int8 conv → bf16 raw [B,H,W,CO] and the f32
     [Σ, Σ²] [B,2,CO] of the bf16-rounded raw. ``tau`` (B, C): a floor on
     x·a + c before the round (FRN's TLU; C = 96 or 192). ``halo="zero"``
-    (C = 64, 128, no ``tau``): code 0 outside the image. The int8 probes'
+    (C = 64, 128, no ``tau``): code 0 outside the image and, with ``sw``, in
+    the columns >= sw, which the sums leave out; the 2×2 taps at pads
+    ``pt = pl_ = 1`` or 0 (``GEO_FORMS``). The int8 probes'
     forms (``K4_PROBE_FORMS``; C = 128, reflect halo, no ``tau``):
     ``prologue="cast"``, the codes are XLA's saturating cast of x (a, c, lo
     unused); ``stats=False``, the sums are zero. On the card: the int8
@@ -634,15 +707,20 @@ def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="q
         raise ValueError(f"res_site: prologue {prologue!r} not in ('quant', 'cast')")
     if x.device.type == "cpu":
         return res_site_plain(x, a, c, lo, wk, ws, bias, halo=halo, tau=tau, prologue=prologue,
-                              stats=stats)
+                              stats=stats, kh=kh, kw=kw, pt=pt, pl_=pl_, sw=sw)
+    geo = _geo("res_site", halo, kh, kw, pt, pl_)
+    _check_sw("res_site", halo, sw, x.shape[2])
     if (prologue, stats) != ("quant", True):
         return _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats)
     if _f32_form("res_site", x, halo):
         if tau is not None:
             raise ValueError("res_site: the f32 form takes no tau")
+        if geo:
+            raise NotImplementedError(f"res_site: no f32 form with 2x2 taps: {_QUEUE2}")
         return _res_site("res_site_f32_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo,
-                         None, f32=True)
-    return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau)
+                         None, f32=True, sw=sw)
+    return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau,
+                     geo=geo, sw=sw)
 
 
 def _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats):
@@ -687,12 +765,15 @@ def _zero_halos(C: int, floored: bool) -> tuple:
 
 
 def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None,
-              f32=False):
+              f32=False, geo=0, sw=None):
     k = "res_site"
     if tau is not None:
         kernel_c = TAU_C
+    if geo:
+        kernel_c = KERNEL_C
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo, kernel_c=kernel_c,
-                                      halos=_zero_halos(x.shape[-1], tau is not None))
+                                      halos=_zero_halos(x.shape[-1], tau is not None),
+                                      taps=4 if geo else 9)
     _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c), ("tau", tau)):
@@ -700,30 +781,38 @@ def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=No
             _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
+    extra = (geo, sw or W) if count else ()
+    name = GEO_FORMS.get((k, geo)) or _sw_form(k, sw, W)
+    counter = {"name": name, "counts": FORM_LAUNCHES} if name and not f32 else _counter(k, f32)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), _ptr(tau),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], _stream(dev),
-             count=count, **_counter(k, f32))
+             sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], *extra, _stream(dev),
+             count=count, **counter)
     return out, sums
 
 
 def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", yout=True,
-                  act=None, tau_act=None):
+                  act=None, tau_act=None, sw=None, kh=3, kw=3, pt=1, pl_=1):
     """K5: v = bf16(bf16(r2·a2 + c2) + yp) in the prologue, then K4 on v.
     ``act`` (ReCoNet, C = 192): the post-add activation on v before it is
     written and quantized, "relu" (max(v, 0)) or "tau" (max(v,
     bf16(tau_act)), tau_act (B, C) f32). ``halo="zero"`` (C = 64, 128, no
-    ``act``): code 0 outside the image. Returns (bf16 raw, f32 sums, v) — v
-    is None when ``yout`` is False. On the card: the int8 tensor-core core."""
+    ``act``): code 0 outside the image and, with ``sw``, in the columns >= sw
+    (v is written there), which the sums leave out. 3×3 taps only. Returns
+    (bf16 raw, f32 sums, v) — v is None when ``yout`` is False. On the card:
+    the int8 tensor-core core."""
     if r2.device.type == "cpu":
         return res_site_skip_plain(r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo=halo,
-                                   yout=yout, act=act, tau_act=tau_act)
+                                   yout=yout, act=act, tau_act=tau_act, sw=sw, kh=kh, kw=kw,
+                                   pt=pt, pl_=pl_)
+    _geo("res_site_skip", halo, kh, kw, pt, pl_)
+    _check_sw("res_site_skip", halo, sw, r2.shape[2])
     if _f32_form("res_site_skip", yp, halo, act is not None):
         return _res_site_skip("res_site_skip_f32_launch", TILE_MMA, True, r2, yp, a, c, a2, c2,
-                              lo, wk, ws, bias, halo, yout, act, tau_act, f32=True)
+                              lo, wk, ws, bias, halo, yout, act, tau_act, f32=True, sw=sw)
     return _res_site_skip("res_site_skip_launch", TILE_MMA, True, r2, yp, a, c, a2, c2, lo, wk,
-                          ws, bias, halo, yout, act, tau_act)
+                          ws, bias, halo, yout, act, tau_act, sw=sw)
 
 
 def res_site_skip_prev(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", yout=True,
@@ -736,7 +825,7 @@ def res_site_skip_prev(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect"
 
 
 def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo, yout, act,
-                   tau_act, f32=False):
+                   tau_act, f32=False, sw=None):
     k = "res_site_skip"
     dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
                                       kernel_c=KERNEL_C if act is None else (RECO_C,),
@@ -753,11 +842,14 @@ def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     v = torch.empty((B, H, W, C), dtype=torch.bfloat16, device=dev) if yout else None
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
+    extra = (sw or W,) if count else ()
+    name = _sw_form(k, sw, W)
+    counter = {"name": name, "counts": FORM_LAUNCHES} if name and not f32 else _counter(k, f32)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), r2.data_ptr(), yp.data_ptr(), a.data_ptr(), c.data_ptr(),
              a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), out.data_ptr(), _ptr(v), part.data_ptr(), sums.data_ptr(), B, H,
-             W, C, CO, float(lo), HALOS[halo], _stream(dev), count=count, **_counter(k, f32))
+             W, C, CO, float(lo), HALOS[halo], *extra, _stream(dev), count=count, **counter)
     return out, sums, v
 
 

@@ -360,6 +360,16 @@ def _qc(x: torch.Tensor, a: torch.Tensor, c: torch.Tensor, lo: float, site: Site
     return (acc.float() * site.ws + site.bias).to(x.dtype)
 
 
+def qconv_xla(q: torch.Tensor, site: Site, kh: int, kw: int, pads, dtype) -> torch.Tensor:
+    """The XLA form of an int8 conv: codes q (f32 or int8) zero-padded by
+    ``pads`` = (top, bottom, left, right) → exact int32 conv → acc·ws + bias
+    in ``dtype`` (``conv2d_i8(...).astype(f32) * ws + b`` then ``.astype``)."""
+    t, b, l, r = pads
+    qp = F.pad(q.double().permute(0, 3, 1, 2), (l, r, t, b)).permute(0, 2, 3, 1)
+    acc = conv2d_i8(qp, k8.unpack_weights(site.wk, kh, kw).to(q.device))
+    return (acc.float() * site.ws + site.bias).to(dtype)
+
+
 def _st(static_stats: dict | None, site: str, t: torch.Tensor, B: int):
     """A norm's (mean, inv) [B,C]: frozen, else measured on the pixels of t."""
     if static_stats is not None and site in static_stats:

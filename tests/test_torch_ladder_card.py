@@ -128,8 +128,19 @@ def test_ladder_bank_card_matches_cpu(cuda_device):
         assert (card16 - cpu).abs().mean() <= 1e-2
 
 
+@pytest.fixture
+def pinned_cudnn():
+    """cuDNN's deterministic algorithms for the test, its autotuner off: its
+    f32 algorithm choice varied between runs of the same code (ROADMAP
+    Queue 3); restored afterwards."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 @pytest.mark.cuda
-def test_gram_nst_card_matches_cpu(cuda_device):
+def test_gram_nst_card_matches_cpu(cuda_device, pinned_cudnn):
     """10 steps from the content at 64², VGG from seed 0."""
     c, s = _x((1, 64, 64, 3), 4), _x((1, 64, 64, 3), 5)
     outs = [tg.optimize(tv.load(tv.init(0), d), c.to(d), s.to(d), steps=10)
@@ -137,4 +148,6 @@ def test_gram_nst_card_matches_cpu(cuda_device):
     (card, hc), (cpu, hcpu) = [(o.cpu(), h.cpu()) for o, h in outs]
     assert torch.all((hc - hcpu).abs() <= 1e-4 * hcpu.abs())
     d = (card - cpu).abs()
-    assert d.mean() <= 1e-4 and (d <= 1e-3).float().mean() >= 0.999
+    share = float((d <= 1e-3).float().mean())
+    assert d.mean() <= 1e-4 and share >= 0.999, \
+        f"mean |d| {float(d.mean()):.4g}, {share:.6f} within 1e-3"

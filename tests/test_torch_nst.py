@@ -136,7 +136,7 @@ def test_calibration_matches_jax(nst):
         assert all(abs(tsc[k] - jsc[k]) <= 1e-5 * jsc[k] for k in jsc)
     q = tf.quantize_net(nst["net"], tsc)
     jq = jf.quantize_net(nst["fp"], tsc)
-    assert sorted(q) == sorted(tf.RES_SITES)
+    assert sorted(q) == sorted(tf.RES_SITES + tf.BLOCK_SITES) == sorted(jq)
     for k in q:
         assert np.array_equal(q[k]["w"].numpy(), np.asarray(jq[k]["w"]))
         assert np.array_equal(q[k]["ws"].numpy(), np.asarray(jq[k]["ws"]))
@@ -358,15 +358,25 @@ def test_quantized_stylize_quality_vs_bf16(nst, tmp_path, quantize, base):
 
 
 def test_unported_nst_sites_raise(nst, calib):
+    """Every name the JAX NST forward routes on runs; what still raises is
+    an unknown name, and a site form outside the ported kernel forms (the
+    2×2 taps under another halo or pad, K5's 2×2 taps)."""
     xb = torch.from_numpy(_x((1, 48, 64, 3), 3)).to(torch.bfloat16)
-    for name in ("c2_i8", "dec_i8", "dec_s8", "tail_s8"):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            tf.apply(nst["nb"], xb, sites=calib["sites"], fused_sites=("res_s8", name),
-                     static_stats=calib["tstats"])
-    with pytest.raises(NotImplementedError, match="K4/K5"):  # res_i8, measured norms
-        tf.apply(nst["nb"], xb, sites=calib["sites"], fused_sites=("res_i8",))
     with pytest.raises(ValueError, match="unknown"):
         tf.apply(nst["nb"], xb, fused_sites=("head",))
+    with pytest.raises(ValueError, match="unknown"):
+        tf.apply(nst["nb"], xb, sites=calib["sites"], fused_sites=("res_i8", "d3_i8"))
+    s = calib["sites"]["r1a"]
+    x = torch.zeros((1, 8, 16, 128), dtype=torch.bfloat16)
+    rows = (torch.ones((1, 128)), torch.zeros((1, 128)))
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        k8.res_site(x, *rows, -127.0, s.wk, s.ws, s.bias, halo="reflect", kh=2, kw=2, pt=1,
+                    pl_=1)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        k8.res_site_skip(x, x, *rows, *rows, -127.0, s.wk, s.ws, s.bias, halo="zero", kh=2,
+                         kw=2, pt=0, pl_=0)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        k8.site_s8(x.to(torch.int8), s.wk, s.ws, s.bias, halo="zero", kh=3, kw=3, pt=0, pl_=0)
 
 
 def test_nst_slot_through_the_cli(nst, tmp_path):

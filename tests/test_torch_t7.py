@@ -494,12 +494,27 @@ def test_launch_routing(tmp_path, monkeypatch, norm, quantize, launches):
 
 
 def test_unported_and_unknown_sites_raise(t7net, calib):
+    """What still raises: the s8-carry names (``res_s8``, and ``dec_s8`` /
+    ``tail_s8``, which run only on its carry), an unknown name, and a K4
+    form outside the ported ones (the 2×2 taps under the edge halo, or at
+    pads (1, 0))."""
     x = torch.from_numpy(calib["x"]).to(torch.bfloat16)
-    for name in ("res_s8", "dec_s8", "dec_i8", "tail_s8", "c2_i8", "dec_xla_i8", "tail_xla_i8"):
+    for name in ("res_s8", "dec_s8", "tail_s8"):
         with pytest.raises(NotImplementedError, match="Queue 2"):
             tf.t7_fast_apply(t7net["tpb"], x, sites=calib["sites"], fused_sites=("res_i8", name))
     with pytest.raises(ValueError, match="unknown"):
         tf.t7_fast_apply(t7net["tpb"], x, fused_sites=("head_i8",))
+    s = calib["sites"]["c2"]
+    yb = torch.zeros((1, 8, 16, s.wk.shape[1] * 4), dtype=torch.bfloat16)
+    rows = _plain_rows(1, yb.shape[-1])
+    for halo, pt, pl in (("edge", 1, 1), ("zero", 1, 0)):
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            k8.res_site(yb, *rows, -127.0, s.wk, s.ws, s.bias, halo=halo, kh=2, kw=2, pt=pt,
+                        pl_=pl)
+
+
+def _plain_rows(b, c):
+    return torch.full((b, c), 1.0), torch.zeros((b, c))
 
 
 def test_fused_chain_below_the_gate_runs_bf16(t7net, calib, monkeypatch):
