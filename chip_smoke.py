@@ -289,6 +289,7 @@ CKPT = ROOT / "_testdata" / "test_johnson.pth"
 SEED = 0
 B, H, W = 8, 1080, 1920
 N_BATCHES = 3
+STEADY_BATCHES = 5  # the s8 bench sets' timed batches
 K1_OFFSET_TOL = 1e-3   # px, on at least K1_SHARE of the patches
 K1_SHARE = 0.99
 K1_RES_TOL = 1e-3      # grey levels (0..255), on those patches
@@ -367,13 +368,19 @@ INT8_KERNELS = {
     "res_site_k2p1": ((("nst_c2", ""),), f"{_SITES_I8}:139"),
     "res_site_k2p0": ((("nst_d1", ""), ("nst_d2", "b")), f"{_SITES_I8}:139"),
     "site_s8_k2p0": ((("nst_d1", "s8out"), ("nst_d2", "zero2")), f"{_SITES_I8}:670"),
+    # ReCoNet's static-norm decoder (dec_s8): K2 at d1, 192 -> 384 under the
+    # edge halo, emitting d2's codes (IN: floor 0; FRN: the tau floor row,
+    # qlo -127), and K3 at d2, 96 -> 192, its bare bf16 raw ("raw")
+    "res_site_s8o_co384": ((("reco_d1", "in"), ("reco_d1", "frn")), f"{_SITES_I8}:507"),
+    "site_s8_c96": ((("reco_d2", "raw"),), f"{_SITES_I8}:670"),
 }
 # those forms' wrappers and tap geometries (kh, kw, pt, pl); a form counts
 # its launches under its own name in k8.FORM_LAUNCHES
 FORM_OF = {"res_site_sw": ("res_site", None), "res_site_skip_sw": ("res_site_skip", None),
            "res_site_k2p1": ("res_site", (2, 2, 1, 1)),
            "res_site_k2p0": ("res_site", (2, 2, 0, 0)),
-           "site_s8_k2p0": ("site_s8", (2, 2, 0, 0))}
+           "site_s8_k2p0": ("site_s8", (2, 2, 0, 0)),
+           "res_site_s8o_co384": ("res_site_s8o", None), "site_s8_c96": ("site_s8", None)}
 # the f32-operand forms of K2-K5: (the wrapper, its (shape, form) cases where
 # the float32 chains run it: Johnson's res grid (block 1's a-site K4 or K2,
 # block 2's K5 or block 1's K3), NST_Train's (K2, K3 under the zero halo with
@@ -501,15 +508,33 @@ RECO_CROP = (256, 480)        # the int8_static chains card vs CPU: a 64 × 120 
 T7_I8 = ("c2_i8", "res_i8", "dec_i8")
 T7_DEC = ("c2_i8", "dec_i8")
 T7_XLA = ("dec_xla_i8", "tail_xla_i8")
+# the s8 carries of BN-folded graphs, the three sets bench.py times
+# (t7_int8_s8carry / decs8 / tails8_fps_1080) on the BN graph (k3 deconvs)
+T7_RES_S8 = ("res_s8",)
+T7_DEC_S8 = ("res_s8", "dec_s8")
+T7_TAIL_S8 = ("res_s8", "dec_s8", "tail_s8")
 T7_SLICES = (("in", "none", None), ("in", "bf16_static", None), ("in", "int8", None),
              ("in", "int8_static", None), ("bn", "none", None), ("bn", "int8", None),
-             ("in", "int8", T7_I8), ("bn k4", "int8", T7_DEC), ("in", "int8", T7_XLA))
+             ("in", "int8", T7_I8), ("bn k4", "int8", T7_DEC), ("in", "int8", T7_XLA),
+             ("bn", "int8", T7_RES_S8), ("bn", "int8", T7_DEC_S8), ("bn", "int8", T7_TAIL_S8))
+T7_S8_RES = {"res_site_s8o": 5, "site_s8": 5}
 T7_PER_BATCH = {("in", "int8", None): {"res_site": 6, "res_site_skip": 4},
                 ("in", "int8", T7_I8): {"res_site_k2p1": 1, "res_site": 6, "res_site_skip": 4,
                                         "res_site_k2p0": 2},
-                ("bn k4", "int8", T7_DEC): {"res_site_k2p1": 1, "res_site": 2}}
+                ("bn k4", "int8", T7_DEC): {"res_site_k2p1": 1, "res_site": 2},
+                ("bn", "int8", T7_RES_S8): T7_S8_RES,
+                ("bn", "int8", T7_DEC_S8): {**T7_S8_RES, "site_s8_k2p0": 2},
+                ("bn", "int8", T7_TAIL_S8): {**T7_S8_RES, "site_s8_k2p0": 2, "d3_s8_site": 1}}
+# ReCoNet's s8 set, bench.py's s8_sites (reconet_int8_static_s8_fps_1080; an IN
+# net, frozen norms): 4 × K2 + 4 × K3 on the res chain, then dec_s8's K2 at
+# CO = 384 and K3 at C = 96
+RECO_S8 = ("res_s8", "res_i8", "dec_s8", "dec_i8")
+RECO_S8_PER_BATCH = {"res_site_s8o": 4, "site_s8": 4, "res_site_s8o_co384": 1,
+                     "site_s8_c96": 1}
 SET_NAMES = {SET_A: "setA", SET_B: "setB", HEAD_TAIL: "head,tail", D3: "d3",
-             **{names: "+".join(names) for names in (NST_I8, NST_S8, NST_XLA, T7_DEC)}}
+             **{names: "+".join(names) for names in (NST_I8, NST_S8, NST_XLA, T7_DEC,
+                                                     T7_RES_S8, T7_DEC_S8, T7_TAIL_S8,
+                                                     RECO_S8)}}
 # the Johnson slices under --compute_dtype float32 (the adopted sets): the res
 # chain's first sites read the f32 res input, through the f32 forms
 F32_SLICES = ("int8", "int8_static")
@@ -765,7 +790,9 @@ def site_calls(name, t, shape, form, prev=False, halo=None):
             ins += (t["tauo"],)
     elif name == "site_s8":
         aff = (t["qa"] / 40, t["qc"] / 40)
-        if form in ("s8out", "zero2"):
+        if form == "raw":
+            args = ins = (t["codes"], t["wk"], t["ws"], t["bias"])
+        elif form in ("s8out", "zero2"):
             args, kw = (t["codes"], t["wk"], t["ws"], t["bias"]), dict(qa=t["qa"], qc=t["qc"])
             ins, outs = (t["codes"], t["wk"], t["ws"], t["bias"], t["qa"], t["qc"]), 1
             if form == "zero2":
@@ -1869,7 +1896,7 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
         per_batch = NST_PER_BATCH.get((quantize, fused, defaults), {})
     if reco is not None:
         name = f"reco {'frn' if reco[1] else 'in'} {name}"
-        per_batch = RECO_PER_BATCH.get(quantize, {})
+        per_batch = RECO_S8_PER_BATCH if fused == RECO_S8 else RECO_PER_BATCH.get(quantize, {})
     if t7 is not None:
         name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize, fused), {})
     if dtype == "float32":
@@ -1968,12 +1995,102 @@ def quant_quality(dev, args, frames, quantize, fused, name, dtype=None):
         mae = float((got - ref).abs().mean())
         first = float((got[0] - ref[0]).abs().mean())
         plain = "f32" if dtype == torch.float32 else "bf16"
+        bound = deep_bound(fused, mae, bound, base)
         log(f"stylize --quantize {name} vs {plain if base == 'none' else base}, preset "
             f"{preset}, {what}: MAE {mae:.6f} (first frame {first:.6f}; bound {bound})")
         if not (torch.isfinite(got).all() and mae <= bound):
             fail(f"the {name} stylize is not within {bound} of the {base} stylize ({preset}, "
                  f"{what})")
         del ref, got
+
+
+def deep_bound(fused, mae: float, bound: float, base: str = "none") -> float:
+    """The bound a quality check holds: ``bound``, except where a random net
+    may land above the 1e-2 gate: Torch7's deep s8 sets (the decoder
+    quantized too: ``T7_DEC_S8``, ``T7_TAIL_S8``; ROADMAP Queue 3, "deep int8
+    sets"), and ReCoNet's ``RECO_S8`` against the plain bf16 stylize (its
+    norms frozen from one frame, the plain ones measured per frame; against
+    ``bf16_static`` it keeps the gate). There, said on the log,
+    QUANT_BROKEN_TOL, as the deep NST sets are held."""
+    deep = fused in (T7_DEC_S8, T7_TAIL_S8) or (fused == RECO_S8 and base == "none")
+    if deep and bound == QUANT_MAE_TOL and mae > bound:
+        log(f"  {SET_NAMES[fused]}: MAE {mae:.6f} vs {base} is above the {QUANT_MAE_TOL} gate "
+            f"on a random net ({'frozen norms' if fused == RECO_S8 else 'a deep int8 set'}), "
+            f"held to {QUANT_BROKEN_TOL}")
+        return QUANT_BROKEN_TOL
+    return bound
+
+
+def s8_bench_phase(dev, t7_ckpts: dict, reco_ckpts: dict) -> dict:
+    """The four s8 sets bench.py times (``t7_int8_s8carry_fps_1080``,
+    ``t7_int8_decs8_fps_1080``, ``t7_int8_tails8_fps_1080`` on the BN graph at
+    ``--quantize int8``, ``reconet_int8_static_s8_fps_1080`` on the IN net at
+    ``int8_static``), as bench.py runs them: ``jit_stylizer`` on 1080p B=8
+    batches of uniform random frames, calibrated on the first. For each:
+    exact launches of one batch, frames/s over STEADY_BATCHES timed batches
+    (host clock, synchronized), the device busy share of one batch
+    (torch.profiler) beside the CUDA-event span of a batch (first to last
+    kernel, gaps included) and the MAE against the plain bf16 stylize of the
+    same batch, held to the 1e-2 gate (``deep_bound`` for the deep sets); the
+    int8_static set also against the bf16_static stylize (the same frozen
+    norms), at the gate. Returns the four keys' frames/s."""
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    xs = [torch.rand((B, H, W, 3), generator=g, device=dev) for _ in range(2)]
+    # (key, checkpoint, model_type: a .t7 file loads as Torch7 by its suffix)
+    runs = (("t7_int8_s8carry_fps_1080", t7_ckpts["bn"], "transformer", "int8", T7_RES_S8,
+             T7_PER_BATCH[("bn", "int8", T7_RES_S8)]),
+            ("t7_int8_decs8_fps_1080", t7_ckpts["bn"], "transformer", "int8", T7_DEC_S8,
+             T7_PER_BATCH[("bn", "int8", T7_DEC_S8)]),
+            ("t7_int8_tails8_fps_1080", t7_ckpts["bn"], "transformer", "int8", T7_TAIL_S8,
+             T7_PER_BATCH[("bn", "int8", T7_TAIL_S8)]),
+            ("reconet_int8_static_s8_fps_1080", reco_ckpts[False], "reconet", "int8_static",
+             RECO_S8, RECO_S8_PER_BATCH))
+    keys = {}
+    for key, ckpt, mtype, mode, fused, want in runs:
+        model = st.load_model(ckpt, model_type=mtype, device=dev)
+        plain = st.jit_stylizer(model, dtype=torch.bfloat16, quantize="none")
+        fn = st.jit_stylizer(model, dtype=torch.bfloat16, quantize=mode, fused_sites=fused)
+        with torch.no_grad():
+            fn(xs[0])  # calibrates on the first frame
+            fn(xs[1])
+            zero_counts()
+            fn(xs[0])
+            torch.cuda.synchronize()
+            used = {k: v for k, v in read_counts().items() if v}
+            if used != want:
+                fail(f"{key}: one batch launched {used}, not {want}")
+            t0 = time.perf_counter()
+            for i in range(STEADY_BATCHES):
+                fn(xs[i % 2])
+            torch.cuda.synchronize()
+            fps = STEADY_BATCHES * B / (time.perf_counter() - t0)
+            wall, busy, _ = profile_report(f"{key} ({SET_NAMES[fused]}, --quantize {mode})",
+                                           lambda: fn(xs[1]))
+            span = cuda_ms(lambda: fn(xs[1]), reps=3)
+            got = fn(xs[0])
+            mae = float((got - plain(xs[0])).abs().mean())
+            mae_static = None
+            if mode == "int8_static":
+                static = st.jit_stylizer(model, dtype=torch.bfloat16, quantize="bf16_static")
+                mae_static = float((got - static(xs[0])).abs().mean())
+                del static
+        bound = deep_bound(fused, mae, QUANT_MAE_TOL)
+        log(f"{key}: {fps:.2f} frames/s (1080p B={B}, {STEADY_BATCHES} batches, host clock), "
+            f"device busy {busy:.2f} of {wall:.2f} ms a batch ({busy / wall:.1%}; CUDA-event span "
+            f"of a batch {span:.2f} ms), MAE vs plain "
+            f"bf16 {mae:.6f} (bound {bound})"
+            + ("" if mae_static is None else f", vs bf16_static {mae_static:.6f} (bound "
+               f"{QUANT_MAE_TOL})") + f", launches {used}")
+        if mae > bound or (mae_static is not None and mae_static > QUANT_MAE_TOL):
+            fail(f"{key}: the stylize is not within its bound of plain bf16 or bf16_static")
+        keys[key] = fps
+        del model, plain, fn, got
+        torch.cuda.empty_cache()
+    return keys
 
 
 def write_clip(path: Path, frames, fps: int = 24) -> None:
@@ -4176,8 +4293,12 @@ def t7_forms_phase(dev, ckpts: dict) -> None:
     """The Torch7 ``c2_i8`` and ``dec_i8`` branches on the card and on the
     CPU, on the IN graph (k3 deconvs: 2 × K4 2×2 pad 0; its norms measured)
     and the BN graph with k4 deconvs (2 × K4 3×3, CO 256 and 128, zero halo;
-    bit-identical), from one forward's inputs on a 256×480 crop of a 1080p
-    frame and one calibration, exact launches (``_chains_card_vs_cpu``)."""
+    bit-identical); and the s8 carries on the BN graphs with k3 and with k4
+    deconvs (bit-identical: every scale is static): ``res_s8`` (5 × K2 + 5 ×
+    K3), with ``dec_s8`` (its last K3 emitting deconv1's codes, then 2 × K3:
+    2×2 pad 0 for k3, 3×3 for k4) and with ``tail_s8`` (d2's ``zero2`` emit
+    into K6); from one forward's inputs on a 256×480 crop of a 1080p frame
+    and one calibration, exact launches (``_chains_card_vs_cpu``)."""
     import torch
 
     from neuralstyletransferv1_torch.engine import stylizer as st
@@ -4185,7 +4306,7 @@ def t7_forms_phase(dev, ckpts: dict) -> None:
     from neuralstyletransferv1_torch.models import io_presets as iop
 
     ch, cw = NST_CROP
-    for norm in ("in", "bn k4"):
+    for norm in (n for n in ("in", "bn", "bn k4") if n in ckpts):
         model = st.load_model(ckpts[norm], device=dev)
         p32 = tf.params_to(tf.try_fast_johnson(model.net), dev)
         x = torch.from_numpy(moving_frames(1, H, W, SEED + 14)[0][None, :ch, :cw]).to(dev)
@@ -4199,15 +4320,42 @@ def t7_forms_phase(dev, ckpts: dict) -> None:
         def inputs(d):
             p = tf.params_to(p32, d, torch.bfloat16)
             return {"p": p, "sites": tf.prepare_sites(p, quant, d),
-                    **{k: grab[k].to(d) for k in ("c2", "d1")}}
+                    **{k: grab[k].to(d) for k in ("c2", "d1", "r0a")}}
 
-        dec = {"res_site_k2p0": 2} if norm == "in" else {"res_site": 2}
         static = norm != "in"
-        _chains_card_vs_cpu(dev, f"t7 {norm}", {
-            "c2_i8": (lambda o: tf._t7_c2_i8(o["c2"], o["p"], o["sites"]["c2"]),
-                      {"res_site_k2p1": 1}, static),
-            "dec_i8": (lambda o: tf._t7_dec_i8(o["d1"], o["p"], o["sites"], o["p"]["c0"]), dec,
-                       static)}, inputs)
+        chains = {}
+        if norm != "bn":
+            dec = {"res_site_k2p0": 2} if norm == "in" else {"res_site": 2}
+            chains = {
+                "c2_i8": (lambda o: tf._t7_c2_i8(o["c2"], o["p"], o["sites"]["c2"]),
+                          {"res_site_k2p1": 1}, static),
+                "dec_i8": (lambda o: tf._t7_dec_i8(o["d1"], o["p"], o["sites"], o["p"]["c0"]),
+                           dec, static)}
+        if norm != "in":
+            chains.update(t7_s8_chains(tf, deconv_k=4 if norm.endswith("k4") else 3))
+        _chains_card_vs_cpu(dev, f"t7 {norm}", chains, inputs)
+
+
+def t7_s8_chains(tf, deconv_k: int) -> dict:
+    """``t7_forms_phase``'s s8-carry chains of a BN graph: name → (fn, the
+    launches, static). The chain's input is the res blocks' (``r0a``)."""
+    import torch
+
+    dec = {"site_s8_k2p0": 2} if deconv_k == 3 else {"site_s8": 2}
+    res = dict(T7_S8_RES)
+    dec_want = {k: res.get(k, 0) + dec.get(k, 0) for k in (*res, *dec)}
+
+    def run(o, dec_s8=False, tail=False):
+        if not dec_s8:
+            return tf._t7_res_chain_i8_s8c(o["r0a"], o["p"]["res"], o["sites"])
+        xq = tf._t7_res_chain_i8_s8c(o["r0a"], o["p"]["res"], o["sites"],
+                                     emit_qo=o["sites"]["d1"].qin)
+        return tf._t7_dec_i8_s8(xq, o["p"], o["sites"], torch.bfloat16, tail=tail)
+
+    return {"res_s8": (run, res, True),
+            "res_s8 + dec_s8": (lambda o: run(o, True), dec_want, True),
+            "res_s8 + dec_s8 + tail_s8": (lambda o: run(o, True, True),
+                                          {**dec_want, "d3_s8_site": 1}, True)}
 
 
 def reco_checkpoint(path: Path, frn: bool) -> Path:
@@ -4227,7 +4375,9 @@ def reco_chain_phase(dev, ckpts: dict):
     4 × K2 + 4 × K3, then dec_i8's 2 × K4, frozen norms) on the card and on
     the CPU (their plain versions) from one res-chain input of a 256×480
     crop of a 1080p frame (a 64 × 120 res grid) and one calibration:
-    bit-identical; then ``--quantize int8`` on one 1080p batch through
+    bit-identical; the same for bench.py's ``s8_sites`` set (the s8 res chain,
+    then ``dec_s8``: K2 at CO = 384 and K3 at C = 96), with exact launches;
+    then ``--quantize int8`` on one 1080p batch through
     ``jit_stylizer`` with ``RECO_SKIP`` 1 and 0: 7 × K4 + 3 × K5 and 10 × K4,
     the two stylizes bit-identical (the skip fold is exact)."""
     import copy
@@ -4276,6 +4426,18 @@ def reco_chain_phase(dev, ckpts: dict):
             fail(f"the ReCoNet {label} int8_static chains differ between the card and the CPU")
         if not all(bool(torch.isfinite(t.float()).all()) for t in outs[0]):
             fail(f"the ReCoNet {label} chain output is not finite")
+
+        def inputs(d, fpb=fpb, stats=stats, quant=quant, y=grab["y"]):
+            fpd = copy.deepcopy(fpb).to(d)
+            st_d = {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()}
+            return {"fp": fpd, "st": st_d, "sites": rf.prepare_sites(fpd, quant, d), "y": y.to(d)}
+
+        def s8_sites(o):
+            yr = rf.res_chain_s8_static(o["y"], o["fp"], o["sites"], o["st"])
+            return rf.dec_s8_static(yr, o["fp"], o["sites"], o["st"])
+
+        _chains_card_vs_cpu(dev, f"ReCoNet {label}", {
+            "s8_sites (s8 res chain + dec_s8)": (s8_sites, RECO_S8_PER_BATCH, True)}, inputs)
 
         got = {}
         fn = st.jit_stylizer(model, dtype=torch.bfloat16, quantize="int8")
@@ -4938,6 +5100,7 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir
                for mode, fused, dflt in NST_SLICES]
             + [(mode, None, reco_ckpts[frn], f"reco {'frn' if frn else 'in'}")
                for mode, frn in RECO_SLICES]
+            + [("int8_static", RECO_S8, reco_ckpts[False], "reco in")]
             + [(mode, fused, t7_ckpts[norm], f"t7 {norm}") for norm, mode, fused in T7_SLICES]
             + [(mode, None, CKPT, "f32") for mode in ("none",) + F32_SLICES]
             + [("none", None, CKPT, "regions")])
@@ -5221,6 +5384,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
             + [dict(quantize=mode, fused=fused, nst_ckpt=nst_ckpt, defaults=dflt)
                for mode, fused, dflt in NST_SLICES]
             + [dict(quantize=mode, reco=(reco_ckpts[frn], frn)) for mode, frn in RECO_SLICES]
+            + [dict(quantize="int8_static", fused=RECO_S8, reco=(reco_ckpts[False], False))]
             + [dict(quantize=mode, fused=fused, t7=(t7_ckpts[norm], norm))
                for norm, mode, fused in T7_SLICES]
             + [dict(quantize=mode, dtype="float32") for mode in F32_SLICES])
@@ -5241,6 +5405,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     for k, v in backends_phase(dev, tmp).items():
         launches[k] += v
     bench_keys = ladder_gram_phase(dev, tmp)
+    bench_keys.update(s8_bench_phase(dev, t7_ckpts, reco_ckpts))
     for k, v in mesh_apps_phase(dev, tmp).items():
         launches[k] += v
     for k, v in loader_apps_phase(dev, tmp).items():

@@ -1363,7 +1363,8 @@ int launch_mma_geo(const Args& p, float* sums, cudaStream_t s) {
 // the tensor-core core: C in {64, 128} (Johnson, NST; K4 also under the
 // zero halo, Torch7, with sw and the 2x2 taps; K3 with the 2x2 taps at pad
 // 0 under the zero halo); ReCoNet's K4 at C in {96, 192}, with or without
-// the TLU floor, and its K3 at C = 192
+// the TLU floor, and its K3 at C = 192 and, for the static-norm decoder's
+// d2 (96 -> 192), at C = 96 with the edge halo and a bare bf16 raw out
 template <int PRO, int EPI>
 int launch_mma(const Args& p, int C, float* sums, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
@@ -1388,15 +1389,21 @@ int launch_mma(const Args& p, int C, float* sums, void* stream) {
                             : launch_mma_c<96, PRO, EPI, false>(p, sums, s);
   } else {
     if (!tau && C == 192) return launch_mma_c<192, PRO, EPI, false>(p, sums, s);
+    if (!tau && C == 96 && p.halo == 1 && p.flags == 0)
+      return launch_mma_c<96, PRO, EPI, false>(p, sums, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // K2 on the tensor-core core: the floor-0 emit at C in {64, 128} (also
-// under the zero halo, with sw) and 192; the floored emit (kEmitS8F) at 192
+// under the zero halo, with sw) and 192; the floored emit (kEmitS8F) at 192.
+// At C = 192, CO = 192 (ReCoNet's res sites) or, under the edge halo, 384
+// (its static-norm d1, either emit): the same instances, whose blocks walk
+// the CO / 64 channel groups
 template <int EPI>
 int launch_mma_s8o(const Args& p, int C, void* stream) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
+  if (C == 192 && p.CO != 192 && !(p.CO == 384 && p.halo == 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (EPI == kEmitS8F) {
     if (C == 192 && p.halo != kHaloZero)

@@ -338,8 +338,8 @@ def _stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
     bf16_sites = set(fused_sites or ()) & set(sites_bf16.BF16_SITE_NAMES)
     if bf16_sites and dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"fused sites {sorted(bf16_sites)} run under bfloat16 only: ROADMAP.md Queue 1, "
-            "item 10 (--quantize and fused sites under float32)")
+            f"fused sites {sorted(bf16_sites)} run under bfloat16 only: ROADMAP.md Queue 2, "
+            "row 3 (the float32 forms)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
     dev = _net_device(model)
     sw = None

@@ -14,7 +14,11 @@ site (K4's 2×2 pad-1 form on conv2's block grid), ``_t7_dec_i8``
 (``dec_i8``: the transposed convs on K4's zero-halo forms, 2×2 pad 0 for a
 k3 deconv and 3×3 pad 1 for a k4 one, ``_dec_kform``) and its PyTorch-int8
 references ``_t7_dec_quant_xla`` (``dec_xla_i8``) and
-``_t7_tail_quant_xla`` (``tail_xla_i8``).
+``_t7_tail_quant_xla`` (``tail_xla_i8``), and the s8 carries of BN-folded
+graphs (every scale static): ``_t7_res_chain_i8_s8c`` (``res_s8``: K2 → K3
+per block, the residual add in K3's epilogue), ``_t7_dec_i8_s8``
+(``dec_s8``: K3 → K3 on the transposed convs' block kernels; with
+``tail_s8`` deconv2 emits the output conv's codes into K6).
 
 The eccv16 / jcjohnson Torch7 nets are zero-padded, so the block form is
 exact (the zero pads ride the convs) and the port runs it as the JAX package
@@ -23,11 +27,6 @@ block conv, conv3 at stride 2, the residual blocks on the quarter grid, the
 transposed convs as phase-scattered block convs (``_scatter_convT_f2``) and
 the 9×9 output conv tap-packed into a 1×5 conv to 60 lanes with a 5-row sum.
 The parameters are a dict of tensors in the JAX package's layouts (HWIO).
-
-The JAX forward's s8-carry branches wait for a later slice (ROADMAP.md
-Queue 2): ``res_s8`` (``_t7_res_chain_i8_s8c``), and ``dec_s8`` /
-``tail_s8`` (``_t7_dec_i8_s8``), which run only on its carry. No adopted
-set holds one; a set naming one raises.
 """
 
 from __future__ import annotations
@@ -41,20 +40,14 @@ from ..models.s2d import (apply_in_relu, d2s, in_affine, quant_affine, s2d, scat
                           scatter_stride2_f2)
 from ..ops.conv import conv2d_i8
 from ..models.sites_i8 import (Site, _plain_quant, _qc, _stats, _stats_phased, combine_as,
-                               qconv_xla, res_supported)
+                               d3s8_supported, dec_s8_zero, qconv_xla, res_chain_s8_zero,
+                               res_supported)
 from ..models.transformer_net_quant import quantize_site
 from .t7 import tree_map
 
 #: the names the JAX ``t7_fast_apply`` routes on
 T7_SITE_NAMES = ("res_i8", "res_s8", "dec_s8", "dec_i8", "tail_s8", "c2_i8", "dec_xla_i8",
                  "tail_xla_i8")
-_QUEUE2 = "ROADMAP.md Queue 2 (the Torch7 s8 carry)"
-_UNPORTED = {
-    "res_s8": "the s8-carry res chain _t7_res_chain_i8_s8c (K2's static scalar emit at the zero "
-              "halo, K3's residual add on the s8 carry)",
-    "dec_s8": "the s8 carry of res_s8 (_t7_dec_i8_s8)",
-    "tail_s8": "the s8 carry of res_s8 and dec_s8 (_t7_dec_i8_s8, tail)",
-}
 
 
 def _np(a) -> np.ndarray | None:
@@ -405,6 +398,52 @@ def _t7_res_chain_i8(y: torch.Tensor, res: list, sites: dict) -> torch.Tensor:
     return combine_as(rb, y, a2, c2).to(dt)
 
 
+def _static_rows(co: int, qin: float, device):
+    """A static scalar quantize scale as (CO,) emit rows: qa = qin, qc = 0
+    (the JAX sites' scalar ``qo``)."""
+    return (torch.full((co,), qin, dtype=torch.float32, device=device),
+            torch.zeros((co,), dtype=torch.float32, device=device))
+
+
+def _t7_res_chain_i8_s8c(y: torch.Tensor, res: list, sites: dict,
+                         emit_qo: float | None = None) -> torch.Tensor:
+    """The res chain of a BN-folded graph on s8 carries (``res_s8``;
+    ``sites_i8.res_chain_s8_zero``): with every norm folded into the conv
+    weights the inter-conv scale is a calibration constant, so per block K2
+    quantizes y (qin, floor −127), convolves and emits the b-site's codes at
+    its qin (floor 0: the ReLU), and K3 convolves them and adds y. 5 × K2 +
+    5 × K3 for 5 blocks. ``emit_qo`` (``dec_s8``): the last K3 quantizes its
+    sum at that scale (floor −127) and the chain returns deconv1's s8 codes.
+    Otherwise the output is in y's dtype (an f32 y: the first block's K2 and
+    K3 in their f32 forms)."""
+    y = y.contiguous()
+    C = y.shape[-1]
+    blocks = [(sites[f"r{i}a"], sites[f"r{i}b"],
+               _static_rows(C, sites[f"r{i}b"].qin, y.device), None) for i in range(len(res))]
+    out = res_chain_s8_zero(y, blocks, emit_qo=emit_qo)
+    return out if emit_qo is not None else out.to(y.dtype)
+
+
+def _t7_dec_i8_s8(xq: torch.Tensor, p: dict, sites: dict, dt: torch.dtype,
+                  tail: bool = False) -> torch.Tensor:
+    """deconv1 + deconv2 on the s8 carry of ``res_s8`` (``dec_s8``;
+    ``sites_i8.dec_s8_zero``): d1 (K3, 2×2 pad 0 for a k3 deconv, 3×3 pad 1
+    for a k4) takes the chain's codes and emits d2's codes at its qin
+    (floor 0: the ReLU), ``d2s`` runs on the codes, d2 (K3) returns its bf16
+    raw, activated: [B,2H,2W,4·c0] in ``dt``. With ``tail`` (``tail_s8``)
+    d2 emits the output conv's codes at its qin (``halo_out="zero2"``,
+    floor 0) and K6 runs the tap-packed 9×9 conv with its dy-sum and bias:
+    the [B,2H,2W,12] block output in bf16 (the zero pads of the net are
+    K6's zero-SAME border)."""
+    s1, s2 = sites["d1"], sites["d2"]
+    rows1 = _static_rows(s1.wk.shape[-1], s2.qin, xq.device)
+    tail3 = (sites["d3"], *_static_rows(s2.wk.shape[-1], sites["d3"].qin, xq.device)) \
+        if tail else None
+    out = dec_s8_zero(xq, s1, s2, rows1, _dec_geo(p["d1_pad"]), _dec_geo(p["d2_pad"]),
+                      tail=tail3)
+    return out if tail else torch.relu(out.float()).to(dt)
+
+
 def _dec_kform(pad):
     """(kh, pt) of a phase-scattered transposed conv's block kernel: a k3
     deconv scatters to 2×2 with pads (0, 1), a k4 one to 3×3 with (1, 1);
@@ -521,6 +560,13 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
     where the res grid and its double pass ``res_supported`` and both
     deconvs scatter to a known block kernel, else ``dec_xla_i8`` →
     ``_t7_dec_quant_xla``; ``tail_xla_i8`` → ``_t7_tail_quant_xla``.
+    ``res_s8`` → ``_t7_res_chain_i8_s8c`` (K2/K3) where ``res_supported``
+    passes and no res block has a deferred norm (a BN-folded graph, or an
+    IN graph after ``fold_static_in``; else ``res_i8`` or the bf16 blocks);
+    on it, ``dec_s8`` → ``_t7_dec_i8_s8`` (K3) where the deconvs have no
+    deferred norm, scatter to known block kernels and the doubled grid
+    passes ``res_supported``, and on that, ``tail_s8`` its tail (K6) where
+    ``d3s8_supported`` takes the doubled grid.
     ``tap(site, t)`` sees the tensor each calibrated conv consumes;
     ``stats_out`` records each deferred norm's (mean, inv)."""
     tap = tap or _no_tap
@@ -528,10 +574,6 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
     unknown = sorted(fused - set(T7_SITE_NAMES))
     if unknown:
         raise ValueError(f"unknown t7 fused sites {unknown}; known: {T7_SITE_NAMES}")
-    unported = sorted(fused & set(_UNPORTED)) if sites is not None else []
-    if unported:
-        raise NotImplementedError(
-            f"t7 fused site {unported[0]!r} needs {_UNPORTED[unported[0]]}: {_QUEUE2}")
     hb = x.shape[1] // 2
     c0 = p["c0"]
 
@@ -552,8 +594,21 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
 
     nres = len(p["res"])
     use_q = sites is not None and all(f"r{i}{ab}" in sites for i in range(nres) for ab in "ab")
-    use_res_i8 = use_q and "res_i8" in fused and res_supported(y.shape[1], y.shape[2])
-    if use_res_i8:
+    ok = use_q and res_supported(y.shape[1], y.shape[2])
+    use_res_s8 = (ok and "res_s8" in fused
+                  and all(rp["rn1"] is None and rp["rn2"] is None for rp in p["res"]))
+    use_res_i8 = ok and not use_res_s8 and "res_i8" in fused
+    use_dec_s8 = (use_res_s8 and "dec_s8" in fused and bool(p["res"]) and "d1" in sites
+                  and "d2" in sites and p["n_d1"] is None and p["n_d2"] is None
+                  and _dec_kform(p["d1_pad"]) is not None and _dec_kform(p["d2_pad"]) is not None
+                  and res_supported(2 * y.shape[1], 2 * y.shape[2]))
+    use_tail_s8 = (use_dec_s8 and "tail_s8" in fused and "d3" in sites
+                   and d3s8_supported(2 * y.shape[1], 2 * y.shape[2]))
+    dt = y.dtype
+    if use_res_s8:
+        y = _t7_res_chain_i8_s8c(y, p["res"], sites,
+                                 emit_qo=sites["d1"].qin if use_dec_s8 else None)
+    elif use_res_i8:
         y = _t7_res_chain_i8(y, p["res"], sites)
     elif use_q and not {"res_i8", "res_s8"} & fused:
         y = _t7_res_quant_xla(y, p["res"], sites)
@@ -566,7 +621,9 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
                    act=False)
             y = y + r
     dec_q = sites is not None and "d1" in sites and "d2" in sites
-    if (dec_q and "dec_i8" in fused and res_supported(y.shape[1], y.shape[2])
+    if use_dec_s8:
+        y = _t7_dec_i8_s8(y, p, sites, dt, tail=use_tail_s8)
+    elif (dec_q and "dec_i8" in fused and res_supported(y.shape[1], y.shape[2])
             and res_supported(2 * y.shape[1], 2 * y.shape[2])
             and _dec_kform(p["d1_pad"]) is not None and _dec_kform(p["d2_pad"]) is not None):
         y = _t7_dec_i8(y, p, sites, c0)
@@ -580,7 +637,9 @@ def t7_fast_apply(p: dict, x: torch.Tensor, *, tap=None, sites: dict | None = No
         tap("d2", y)
         pd = p["d2_pad"]
         y = na("n_d2", _conv(y, p["d2_w"], p["d2_b"], pad=(pd, pd)), p["n_d2"], 4, c0)
-    if sites is not None and "d3" in sites and "tail_xla_i8" in fused:
+    if use_tail_s8:
+        pass  # y is the output conv's [B,H2,W2,12] block output
+    elif sites is not None and "d3" in sites and "tail_xla_i8" in fused:
         y = _t7_tail_quant_xla(y, p, sites)
     else:
         tap("d3", y)

@@ -52,7 +52,12 @@ optional ``tau`` floor, a (B, C) row applied to x·a + c before the round
 "tau", the post-add activation max(v, 0) or max(v, bf16(tau_act)) applied to
 v before it is written and quantized; K2 at C = 192, also with the emit
 floor ``qlo`` and a (CO,) pre-round ``tau`` floor on bf16(f)·qa + qc; K3 at
-C = 192. A channel count or form a kernel is not built for raises.
+C = 192. ReCoNet's static-norm decoder (``dec_s8``) adds two forms under
+the edge halo, counted in ``FORM_LAUNCHES`` under ``RECO_DEC_FORMS``' names:
+K2 at C = 192 → CO = 384 (d1 emitting d2's codes, its rows tiled over the
+four phases; either emit) and K3 at C = 96 → CO = 192 (d2's bare bf16 raw:
+no affine, residual or emit). A channel count or form a kernel is not built
+for raises.
 
 On the card K2–K5 run on the int8 tensor cores (``mma_kernel``: 8×16
 output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``), K8a and K8b on
@@ -129,7 +134,14 @@ GEOS = {(3, 3, 1, 1): 0, (2, 2, 1, 1): 1, (2, 2, 0, 0): 2}
 #: ``res_site_skip_sw``
 GEO_FORMS = {("res_site", 1): "res_site_k2p1", ("res_site", 2): "res_site_k2p0",
              ("site_s8", 2): "site_s8_k2p0"}
-FORM_LAUNCHES = dict.fromkeys((*GEO_FORMS.values(), "res_site_sw", "res_site_skip_sw"), 0)
+#: ReCoNet's static-norm decoder forms (edge halo): wrapper → (C, CO, the
+#: name each counts its launches under in ``FORM_LAUNCHES``); K2 at C = 192 is
+#: otherwise built for CO = 192, and K3's C = 96 form takes no affine,
+#: residual or emit
+RECO_DEC_FORMS = {"res_site_s8o": (192, 384, "res_site_s8o_co384"),
+                  "site_s8": (96, 192, "site_s8_c96")}
+FORM_LAUNCHES = dict.fromkeys((*GEO_FORMS.values(), "res_site_sw", "res_site_skip_sw",
+                               *(f[2] for f in RECO_DEC_FORMS.values())), 0)
 _QUEUE2 = "ROADMAP.md Queue 2"
 #: K4's forms of the int8 probes (``res_site(prologue=, stats=)``; C = 128,
 #: reflect halo, no floor): the saturating cast (mk31's v1) and no
@@ -581,6 +593,12 @@ def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, 
                                       halos=_zero_halos(x.shape[-1], floored),
                                       kernel_c=(RECO_C,) if floored else None)
     _check_sw(k, halo, sw, W)
+    counter = _counter(k, f32)
+    if C == RECO_C and CO != C:
+        form = _reco_dec_form(k, C, CO, halo)
+        if f32:
+            raise NotImplementedError(f"{k}: no f32 form at C={C} -> CO={CO}: {_QUEUE2} row 3")
+        counter = {"name": form, "counts": FORM_LAUNCHES}
     _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c)):
@@ -593,8 +611,21 @@ def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, 
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
              ws.data_ptr(), bias.data_ptr(), qa.data_ptr(), qc.data_ptr(), _ptr(tau),
              out.data_ptr(), B, H, W, C, CO, float(lo), float(qlo), HALOS[halo], sw or W,
-             _stream(dev), count=count, **_counter(k, f32))
+             _stream(dev), count=count, **counter)
     return out
+
+
+def _reco_dec_form(kernel, C, CO, halo, bare=True) -> str:
+    """``FORM_LAUNCHES``' name of ``kernel``'s ReCoNet decoder form at
+    C → CO under ``halo``; any other such form raises. ``bare``: K3's form
+    has no affine, residual or emit."""
+    c, co, name = RECO_DEC_FORMS[kernel]
+    if (C, CO, halo) != (c, co, "edge") or not bare:
+        raise ValueError(f"{kernel}: no form at C={C} -> CO={CO} with the {halo} halo"
+                         + ("" if bare else " and an epilogue step")
+                         + f" (built: CO == {c}, and the edge-halo {c} -> {co}"
+                         + (" bare bf16 raw)" if kernel == "site_s8" else ")"))
+    return name
 
 
 def _counter(kernel, f32):
@@ -639,9 +670,10 @@ def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=No
 def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=False,
              geo=0):
     k = "site_s8"
+    c96 = RECO_DEC_FORMS[k][0]
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS),
-                                      kernel_c=SITE_C[k] if count and not geo else KERNEL_C,
-                                      taps=4 if geo else 9)
+                                      kernel_c=(*SITE_C[k], c96) if count and not geo
+                                      else KERNEL_C, taps=4 if geo else 9)
     _check_sw(k, halo, sw, W)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
     _check_aligned(k, "xq", xq)
@@ -673,6 +705,9 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
     extra = (geo,) if fn == "site_s8_launch" else ()
     counter = {"name": GEO_FORMS[(k, geo)], "counts": FORM_LAUNCHES} if geo else \
         _counter(k, f32)
+    if C == c96:
+        counter = {"name": _reco_dec_form(k, C, CO, halo, bare=flags == 0 and sw is None),
+                   "counts": FORM_LAUNCHES}
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),

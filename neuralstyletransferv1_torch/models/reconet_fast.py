@@ -8,8 +8,10 @@ int8 references ``_res_quant_xla`` (``res_quant_xla``: no res name in the
 set) and ``_dec_quant_xla`` (``dec_quant_xla``: ``dec_xla_i8``), and the
 Pallas chains ``_res_chain_i8`` / ``_res_chain_i8_skip`` (``res_chain_i8``:
 K4, and with ``RECO_SKIP`` K5 carrying the residual add and the post-add
-activation), ``_res_chain_s8_static`` (K2 → K3) and ``_dec_i8`` (``dec_i8``:
-K4 at d1 and d2).
+activation), ``_res_chain_s8_static`` (K2 → K3), ``_dec_i8`` (``dec_i8``:
+K4 at d1 and d2) and ``_dec_s8_static`` (``dec_s8`` with frozen norms: K2
+at d1 emitting d2's codes at the edge halo, 192 → 384, then K3 at d2,
+96 → 192).
 
 The JAX module's f=2 block layout is a TPU lane answer; this port computes
 the same function on pixels where the block form is only layout (conv1,
@@ -23,10 +25,6 @@ rsqrt(E[x²] − mean² + 1e-5); FRN: 0 and rsqrt(E[x²] + 1e-5)), frozen or
 measured, the affine and activation (ReLU, or the TLU max(y, tau)) in f32,
 rounded back to the working dtype. The residual blocks activate after the
 skip add.
-
-``dec_s8`` (``_dec_s8_static``: K2 emitting at the edge halo with CO = 384
-and a tiled ``tau``, K3 at C = 96) is in no adopted set and waits for those
-kernel forms; a set naming it raises.
 """
 
 from __future__ import annotations
@@ -47,8 +45,6 @@ EPS = 1e-5
 RES_SITES = tuple(f"r{i}{ab}" for i in range(NUM_RES) for ab in "ab")
 #: the names the JAX ReCoNet forward routes on
 RECO_SITE_NAMES = ("res_i8", "res_s8", "dec_i8", "dec_s8", "dec_xla_i8")
-_QUEUE2 = ("needs K2 at the edge halo with CO = 384 and a tiled tau, and K3 at C = 96: "
-           "ROADMAP.md Queue 2 (ReCoNet dec_s8)")
 
 
 class FastReCoNet(nn.Module):
@@ -130,14 +126,6 @@ class _Norms:
         return apply_norm(x, *self.stats(site, x), norm, self.frn, act=act)
 
 
-def _check_sets(fused: set, sites):
-    unknown = sorted(fused - set(RECO_SITE_NAMES))
-    if unknown:
-        raise ValueError(f"unknown ReCoNet fused sites {unknown}; known: {RECO_SITE_NAMES}")
-    if sites is not None and "dec_s8" in fused:
-        raise NotImplementedError(f"ReCoNet fused site 'dec_s8' {_QUEUE2}")
-
-
 def apply(fp: FastReCoNet, x: torch.Tensor, *, tap=None, sites: dict | None = None,
           fused_sites=(), static_stats: dict | None = None,
           stats_out: dict | None = None) -> torch.Tensor:
@@ -151,12 +139,16 @@ def apply(fp: FastReCoNet, x: torch.Tensor, *, tap=None, sites: dict | None = No
     int8 modes), routed by ``fused_sites`` as the JAX forward routes
     ``quant``: ``res_s8`` with frozen norms → ``res_chain_s8_static`` (K2/K3);
     ``res_i8`` → ``res_chain_i8`` (K4/K5); no res name → ``res_quant_xla``;
-    a named chain the geometry refuses → the bf16 blocks; ``dec_i8`` →
-    ``dec_i8`` (K4), ``dec_xla_i8`` → ``dec_quant_xla``, else the bf16
+    a named chain the geometry refuses → the bf16 blocks; ``dec_s8`` with
+    in4 and in5 frozen → ``dec_s8_static`` (K2/K3), else ``dec_i8`` →
+    ``dec_i8`` (K4), both where the res grid and its double pass
+    ``res_supported``; ``dec_xla_i8`` → ``dec_quant_xla``, else the bf16
     decoder."""
     tap = tap or _no_tap
     fused = set(fused_sites)
-    _check_sets(fused, sites)
+    unknown = sorted(fused - set(RECO_SITE_NAMES))
+    if unknown:
+        raise ValueError(f"unknown ReCoNet fused sites {unknown}; known: {RECO_SITE_NAMES}")
     net, frn = fp.net, fp.frn
     nh = _Norms(frn, stats_out, static_stats)
     y = nh("in1", net.enc1.norm, net.enc1.conv(x))
@@ -185,11 +177,16 @@ def apply(fp: FastReCoNet, x: torch.Tensor, *, tap=None, sites: dict | None = No
             tap(f"r{i}b", r)
             y = post_act(y + nh(f"r{i}in2", blk.norm2, blk.conv2(r), act=False), blk, frn)
 
-    use_dec_i8 = use_dec_xla = False
+    use_dec_s8 = use_dec_i8 = use_dec_xla = False
     if sites is not None and "d1" in sites and "d2" in sites:
-        use_dec_i8 = "dec_i8" in fused and dec_supported(y.shape[1], y.shape[2])
-        use_dec_xla = not use_dec_i8 and "dec_xla_i8" in fused
-    if use_dec_i8:
+        ok_dec = dec_supported(y.shape[1], y.shape[2])
+        use_dec_s8 = ("dec_s8" in fused and static_stats is not None and "in4" in static_stats
+                      and "in5" in static_stats and ok_dec)
+        use_dec_i8 = "dec_i8" in fused and not use_dec_s8 and ok_dec
+        use_dec_xla = not use_dec_s8 and not use_dec_i8 and "dec_xla_i8" in fused
+    if use_dec_s8:
+        y = dec_s8_static(y, fp, sites, static_stats)
+    elif use_dec_i8:
         y = dec_i8(y, fp, sites, static_stats)
     elif use_dec_xla:
         y = dec_quant_xla(y, fp, sites, static_stats)
@@ -362,6 +359,34 @@ def dec_i8(y: torch.Tensor, fp: FastReCoNet, sites: dict,
                             halo="edge", tau=_tau_row(nd1, s2.qin, B) if frn else None)
     m2, inv2 = _site_stats(nh, "in5", sums2, float(4 * H * W), B, phases=4)
     return apply_norm(d2s(r2, 2, r2.shape[-1] // 4).to(dt), m2, inv2, net.dec2.norm, frn)
+
+
+def dec_s8_static(y: torch.Tensor, fp: FastReCoNet, sites: dict,
+                  static_stats: dict) -> torch.Tensor:
+    """``_dec_s8_static`` (``dec_s8``): deconv1 and deconv2 on an s8 carry
+    with frozen norms, edge halos. d1 (K2, 192 → 4·96) quantizes y at its
+    qin (floor −127), convolves and emits d2's codes with the frozen in4
+    affine folded in, its (CO,) rows tiled ×4 over the phases (ReLU: floor 0;
+    TLU: the pre-round floor row tau·qin, floor −127); ``d2s`` and the edge
+    halo run on the codes (quantize is pointwise: it commutes with both); d2
+    (K3, 96 → 4·48) returns its bf16 raw, and the frozen in5 apply and
+    activation run in PyTorch ops. Returns the activated d2 output in pixels
+    [B,4H,4W,48], in y's dtype."""
+    y = y.contiguous()
+    B, _, _, C = y.shape
+    net, frn = fp.net, fp.frn
+    s1, s2 = sites["d1"], sites["d2"]
+    nd1 = net.dec1.norm
+    m4, inv4 = (t.float() for t in static_stats["in4"])
+    qa, qc = (t[0].repeat(4).contiguous() for t in quant_affine(
+        m4, inv4, nd1.weight.float(), nd1.bias.float(), s2.qin))
+    tau = (nd1.tau.float() * s2.qin).repeat(4).contiguous() if frn else None
+    codes = k8.res_site_s8o(y, *_plain_quant(B, C, s1.qin, y.device), -127.0, s1.wk, s1.ws,
+                            s1.bias, qa, qc, qlo=-127.0 if frn else 0.0, tau=tau, halo="edge")
+    r2 = k8.site_s8(d2s(codes, 2, codes.shape[-1] // 4).contiguous(), s2.wk, s2.ws, s2.bias,
+                    halo="edge")
+    m5, inv5 = (t.float() for t in static_stats["in5"])
+    return apply_norm(d2s(r2, 2, r2.shape[-1] // 4).to(y.dtype), m5, inv5, net.dec2.norm, frn)
 
 
 def dec_quant_xla(y: torch.Tensor, fp: FastReCoNet, sites: dict,

@@ -4,7 +4,9 @@ Johnson path, over the K2–K8b site kernels (``kernels/int8_sites.py``).
 Port of ``neuralstyletransferv1_tpu/models/s2d2_sites_i8.py``: ``head_chain``
 (conv2 + conv3 on K8a/K8b), ``res_chain`` (``--quantize int8``; K4/K5),
 ``res_chain_s8_static`` (frozen norms, s8 carries; K2/K3, with the fused
-head's deferred in3 apply and the bridge into the s8 decoder),
+head's deferred in3 apply and the bridge into the s8 decoder), the
+zero-halo s8 chains the NST_Train and Torch7 nets share
+(``res_chain_s8_zero``, ``dec_s8_zero``),
 ``dec_chain`` (K4/K5; the pair-packed d2 form is off in the JAX engine and
 has the same numerics), ``dec_chain_s8_static`` with the ``tail_s8`` tail
 (K3 emits deconv3's codes, K6 + the reflect border strips), and the
@@ -293,6 +295,59 @@ def res_chain_s8_static(y: torch.Tensor, net, sites: dict, static_stats: dict, *
                               qc=torch.zeros_like(qo), qlo=-127.0)
         y = k8.site_s8(codes, sb.wk, sb.ws, sb.bias, aa, ac, y, yaff=yaff)
     return y
+
+
+def res_chain_s8_zero(y: torch.Tensor, blocks, *, sw: int | None = None,
+                      emit_qo: float | None = None) -> torch.Tensor:
+    """Residual blocks on s8 carries under the zero halo: the ``res_s8``
+    chain of the zero-padded nets (NST_Train with frozen norms, Torch7's
+    BN-folded graphs). ``blocks``: per block (a-site, b-site, (qa, qc), aff).
+    K2 quantizes y at the a-site's qin (floor −127), convolves and emits the
+    b-site's codes at the (CO,) rows (qa, qc), floor 0 (the ReLU; a frozen
+    norm folded in, or qa = qin, qc = 0); K3 convolves them, applies the
+    (CO,) affine ``aff`` = (aa, ac) where given, and adds y. ``sw``: the
+    content width of a grid padded to %8 (the codes beyond it are zero).
+    ``emit_qo``: the last K3 emits deconv1's codes at that scale (floor
+    −127) instead of bf16 (the bridge into ``dec_s8_zero``). Returns the last
+    K3's output: bf16 (y's dtype for a bf16 y; an f32 y goes to the first
+    block's K2 and K3 in their f32 forms), or the codes."""
+    B, _, _, C = y.shape
+    zeros = torch.zeros((B, C), dtype=torch.float32, device=y.device)
+    for i, (sa, sb, (qa, qc), aff) in enumerate(blocks):
+        aq = torch.full((B, C), sa.qin, dtype=torch.float32, device=y.device)
+        codes = k8.res_site_s8o(y, aq, zeros, -127.0, sa.wk, sa.ws, sa.bias, qa, qc,
+                                halo="zero", sw=sw)
+        emit = {}
+        if emit_qo is not None and i == len(blocks) - 1:
+            emit = dict(qa=torch.full((C,), emit_qo, dtype=torch.float32, device=y.device),
+                        qc=zeros[0], qlo=-127.0)
+        y = k8.site_s8(codes, sb.wk, sb.ws, sb.bias, *(aff or (None, None)), y, halo="zero",
+                       sw=sw, **emit)
+    return y
+
+
+def dec_s8_zero(xq: torch.Tensor, s1: Site, s2: Site, rows1, geo1: dict, geo2: dict, *,
+                sw: int | None = None, tail=None) -> torch.Tensor:
+    """deconv1 + deconv2 on the s8 carry under the zero halo (the ``dec_s8``
+    of the zero-padded nets), on the phase-scattered block kernels ``geo1``,
+    ``geo2`` (K3's ``kh``, ``kw``, ``pt``, ``pl_``): d1 (K3) takes the res
+    chain's codes xq [B,H,W,C] and emits d2's codes at ``rows1`` = (qa, qc),
+    rows over d1's 4 phases × c channels, floor 0 (the ReLU; zero beyond
+    ``sw``); ``d2s`` on the codes (quantize is pointwise: it commutes with
+    the shuffle); d2 (K3) returns its bf16 raw [B,2H,2W,4·c'], or with
+    ``tail`` = (d3 site, qa, qc) emits deconv3's codes (``halo_out="zero2"``,
+    floor 0, zero beyond 2·sw) into K6: the [B,2H,2W,12] bf16 tail output,
+    its border the zero-SAME one. Both uncropped."""
+    qa, qc = rows1
+    r8 = k8.site_s8(xq, s1.wk, s1.ws, s1.bias, qa=qa, qc=qc, qlo=0.0, halo="zero", sw=sw,
+                    **geo1)
+    yd = d2s(r8, 2, r8.shape[-1] // 4).contiguous()
+    if tail is None:
+        return k8.site_s8(yd, s2.wk, s2.ws, s2.bias, halo="zero", **geo2)
+    s3, qa3, qc3 = tail
+    qd3 = k8.site_s8(yd, s2.wk, s2.ws, s2.bias, qa=qa3, qc=qc3, qlo=0.0, halo="zero",
+                     halo_out="zero2", sw=None if sw is None else 2 * sw, **geo2)
+    return k8.d3_s8_site(qd3, s3.wk, s3.ws, s3.bias)
 
 
 def dec_d1(y: torch.Tensor, net, sites: dict, *, carry=None,

@@ -34,8 +34,8 @@ from ..ops.conv import conv2d_i8
 from .s2d import apply_in_relu, d2s, d3_tap_packed, in_affine, quant_affine, s2d, \
     scatter_stride2_f2
 from .sites_i8 import (Site, _batch, _frozen, _norm_params, _pick_ts, _plain_quant, _qc, _st,
-                       _stats, _stats_phased, combine_as, d3s8_supported, qconv_xla,
-                       res_supported)
+                       _stats, _stats_phased, combine_as, d3s8_supported, dec_s8_zero,
+                       qconv_xla, res_chain_s8_zero, res_supported)
 from .transformer_net import NormHooks
 from .transformer_net_nst import NUM_RES, PAD, TransformerNetNST, pad_reflect
 from .transformer_net_quant import quantize_site
@@ -371,80 +371,70 @@ def res_quant_xla(y: torch.Tensor, net: TransformerNetNST, sites: dict,
 def res_chain_s8_static(y: torch.Tensor, net: TransformerNetNST, sites: dict,
                         static_stats: dict, *, emit_qo: float | None = None) -> torch.Tensor:
     """``_res_chain_s8_static``: the five res blocks on s8 carries with frozen
-    norms, zero halos. A width that is not a multiple of 8 (500 on the 1080p
-    pad-40 grid) is zero-padded up once and ``sw`` = the content width masks
-    the padding columns' codes in K2's input and output, so they never enter
-    a dot; the bf16 carry's padding columns hold junk that the next K2
-    masks, and the crop drops. Per block, K2 quantizes y (qin, floor −127),
-    convolves and emits the b-site's codes with the frozen norm1 affine and
-    ReLU folded in; K3 convolves them, applies the frozen norm2 affine and
-    adds y. An f32 y (the float32 chains) goes to block 1's K2 and K3 in
-    their f32 forms; the chain's bf16 output is cast back to y's dtype, as
-    the JAX chain's ``y.astype(dt)``. ``emit_qo`` (``dec_s8``): the last K3
-    also quantizes its sum at that scale (floor −127), and the chain returns
-    deconv1's s8 codes [B,H,W8,C] at the padded width instead."""
+    norms, zero halos (``sites_i8.res_chain_s8_zero``). A width that is not a
+    multiple of 8 (500 on the 1080p pad-40 grid) is zero-padded up once and
+    ``sw`` = the content width masks the padding columns' codes in K2's input
+    and output, so they never enter a dot; the bf16 carry's padding columns
+    hold junk that the next K2 masks, and the crop drops. Per block, K2's
+    emit folds the frozen norm1 affine and ReLU, K3 applies the frozen norm2
+    affine and adds y. An f32 y (the float32 chains) goes to block 1's K2 and
+    K3 in their f32 forms; the chain's bf16 output is cast back to y's dtype,
+    as the JAX chain's ``y.astype(dt)``. ``emit_qo`` (``dec_s8``): the last
+    K3 also quantizes its sum at that scale (floor −127), and the chain
+    returns deconv1's s8 codes [B,H,W8,C] at the padded width instead."""
     B, H, W0c, C = y.shape
     dt = y.dtype
     sw = None
     if W0c % 8:
         y = F.pad(y, (0, 0, 0, (-W0c) % 8))
         sw = W0c
-    zeros = torch.zeros((B, C), dtype=torch.float32, device=y.device)
+    blocks = []
     for i in range(1, NUM_RES + 1):
         blk = getattr(net, f"res{i}")
-        sa, sb = sites[f"r{i}a"], sites[f"r{i}b"]
         m1, inv1 = (t.float() for t in static_stats[f"r{i}in1"])
         m2, inv2 = (t.float() for t in static_stats[f"r{i}in2"])
-        qa, qc = (t[0].contiguous() for t in quant_affine(m1, inv1, *_norm_params(blk.norm1),
-                                                          sb.qin))
-        aq = torch.full((B, C), sa.qin, dtype=torch.float32, device=y.device)
-        codes = k8.res_site_s8o(y, aq, zeros, -127.0, sa.wk, sa.ws, sa.bias, qa, qc,
-                                halo="zero", sw=sw)
-        aa, ac = (t[0].contiguous() for t in in_affine(m2, inv2, *_norm_params(blk.norm2)))
-        emit = {}
-        if emit_qo is not None and i == NUM_RES:
-            emit = dict(qa=torch.full((C,), emit_qo, dtype=torch.float32, device=y.device),
-                        qc=zeros[0], qlo=-127.0)
-        y = k8.site_s8(codes, sb.wk, sb.ws, sb.bias, aa, ac, y, halo="zero", sw=sw, **emit)
+        emit = tuple(t[0].contiguous() for t in quant_affine(
+            m1, inv1, *_norm_params(blk.norm1), sites[f"r{i}b"].qin))
+        aff = tuple(t[0].contiguous() for t in in_affine(m2, inv2, *_norm_params(blk.norm2)))
+        blocks.append((sites[f"r{i}a"], sites[f"r{i}b"], emit, aff))
+    y = res_chain_s8_zero(y, blocks, sw=sw, emit_qo=emit_qo)
     if emit_qo is not None:
         return y
     return (y if sw is None else y[:, :, :sw].contiguous()).to(dt)
 
 
+def _in_rows(norm, stats, qin: float):
+    """A frozen norm's affine folded with the next site's qin, as (CO,) rows
+    tiled ×4 over the transposed conv's phases."""
+    m, inv = (t.float() for t in stats)
+    return tuple(t[0].repeat(4).contiguous()
+                 for t in quant_affine(m, inv, *_norm_params(norm), qin))
+
+
 def dec_s8_static(xq: torch.Tensor, net: TransformerNetNST, sites: dict, static_stats: dict,
                   w0c: int, dt: torch.dtype, *, tail: bool = False) -> torch.Tensor:
-    """``_dec_s8_static`` (``dec_s8``): deconv1 on K3's 2×2 pad-0 form takes
-    the res chain's s8 codes xq [B,H,W8,128] and emits deconv2's codes with
-    the frozen in4 affine and ReLU folded in (rows tiled ×4 over the phases;
-    zero beyond sw), d2s on the codes, then deconv2 on the same form: the
+    """``_dec_s8_static`` (``dec_s8``; ``sites_i8.dec_s8_zero``): deconv1 on
+    K3's 2×2 pad-0 form takes the res chain's s8 codes xq [B,H,W8,128] and
+    emits deconv2's codes with the frozen in4 affine and ReLU folded in
+    (zero beyond sw), d2s on the codes, then deconv2 on the same form: the
     bf16 raw, cropped to 2·w0c and activated with the frozen in5 (block form
-    [B,hp/2,2·w0c,128] in ``dt``); or, with ``tail`` (``tail_s8``), deconv3's
-    codes with the frozen in5 affine and ReLU folded in (``halo_out=
-    "zero2"``, zero beyond 2·sw) and deconv3 on K6: [B,hp/2,2·w0c,12] bf16,
-    its border the zero-SAME one of the zero-padded net. w0c: the res
-    grid's content width."""
-    s1, s2 = sites["d1"], sites["d2"]
+    [B,hp/2,2·w0c,128] in ``dt``); or, with ``tail`` (``tail_s8``),
+    deconv3's codes with the frozen in5 affine and ReLU folded in
+    (``halo_out="zero2"``, zero beyond 2·sw) and deconv3 on K6:
+    [B,hp/2,2·w0c,12] bf16, its border the zero-SAME one of the
+    zero-padded net. w0c: the res grid's content width."""
     sw = w0c if w0c % 8 else None
-    m4, inv4 = (t.float() for t in static_stats["in4"])
-    qa, qc = (t[0].repeat(4).contiguous()
-              for t in quant_affine(m4, inv4, *_norm_params(net.up1.norm), s2.qin))
-    r8 = k8.site_s8(xq, s1.wk, s1.ws, s1.bias, qa=qa, qc=qc, qlo=0.0, halo="zero", sw=sw,
-                    **_DEC_GEO)
-    yd = d2s(r8, 2, 64).contiguous()
-    m5, inv5 = (t.float() for t in static_stats["in5"])
-    sw2 = None if sw is None else 2 * sw
-    if tail:
-        s3 = sites["d3"]
-        qa5, qc5 = (t[0].repeat(4).contiguous()
-                    for t in quant_affine(m5, inv5, *_norm_params(net.up2.norm), s3.qin))
-        qd3 = k8.site_s8(yd, s2.wk, s2.ws, s2.bias, qa=qa5, qc=qc5, qlo=0.0, halo="zero",
-                         halo_out="zero2", sw=sw2, **_DEC_GEO)
-        y12 = k8.d3_s8_site(qd3, s3.wk, s3.ws, s3.bias)
-        return y12 if sw is None else y12[:, :, :sw2].contiguous()
-    r2 = k8.site_s8(yd, s2.wk, s2.ws, s2.bias, halo="zero", **_DEC_GEO)
+    rows4 = _in_rows(net.up1.norm, static_stats["in4"], sites["d2"].qin)
+    rows5 = (sites["d3"], *_in_rows(net.up2.norm, static_stats["in5"], sites["d3"].qin)) \
+        if tail else None
+    out = dec_s8_zero(xq, sites["d1"], sites["d2"], rows4, _DEC_GEO, _DEC_GEO, sw=sw,
+                      tail=rows5)
     if sw is not None:
-        r2 = r2[:, :, :sw2]
-    return apply_in_relu(r2.to(dt), m5, inv5, *_norm_params(net.up2.norm), 4)
+        out = out[:, :, :2 * sw].contiguous()
+    if tail:
+        return out
+    m5, inv5 = (t.float() for t in static_stats["in5"])
+    return apply_in_relu(out.to(dt), m5, inv5, *_norm_params(net.up2.norm), 4)
 
 
 @torch.no_grad()

@@ -41,6 +41,17 @@ from neuralstyletransferv1_torch.models.transformer_net import quant_from_jax
 B, H2, W2 = 2, 28, 32   # passes the head, tail and d3 gates
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _interpret_bf16_sites():
     sj._INTERPRET = True
@@ -383,7 +394,8 @@ def test_fused_sites_through_the_stylizer(params, monkeypatch):
     the head and the tail run fused (the tail returns before ``d3`` is
     reached) and the result stays within the 1e-2 gate of the plain bf16
     stylize; a size whose gates fail (36×80 → padded to 36×80, h2 = 18) runs
-    unfused, bit for bit the plain path; float32 raises, naming its item."""
+    unfused, bit for bit the plain path; float32 raises, naming the queue row
+    of the float32 forms (ROADMAP Queue 2, row 3)."""
     from neuralstyletransferv1_torch.engine import stylizer as tst
 
     _, _, net, _, _ = params
@@ -398,7 +410,7 @@ def test_fused_sites_through_the_stylizer(params, monkeypatch):
     calls.update(dict.fromkeys(calls, 0))
     got = tst.jit_stylizer(model, dtype=torch.bfloat16, fused_sites=("head", "tail"))(small)
     assert _used(calls) == {} and torch.equal(got, plain(small))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 2, row 3"):
         tst.jit_stylizer(model, fused_sites=("tail",))
     with pytest.raises(ValueError, match="unknown fused sites"):
         tst.jit_stylizer(model, dtype=torch.bfloat16, fused_sites=("tale",))

@@ -37,6 +37,17 @@ from neuralstyletransferv1_torch.models.transformer_net import quant_from_jax
 B = 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rng_inputs(seed, h, w, c, co):
     rng = np.random.default_rng(seed)
     bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731

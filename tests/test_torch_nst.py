@@ -37,6 +37,17 @@ from neuralstyletransferv1_torch.models import transformer_net_nst_fast as tf
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(tree):
     return jax.tree.map(lambda a: a.astype(jnp.bfloat16)
                         if hasattr(a, "astype") and a.dtype == jnp.float32 else a, tree)

@@ -23,6 +23,17 @@ CKPT = Path(__file__).resolve().parent.parent / "_testdata" / "test_johnson.pth"
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _isolated(monkeypatch):
     if not CKPT.exists():

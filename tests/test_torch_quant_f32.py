@@ -42,6 +42,17 @@ B, H, W, C = 1, 8, 16, 32
 _JITTED: dict = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _static(v) -> bool:
     return v is None or isinstance(v, (bool, int, float, str))
 

@@ -45,6 +45,17 @@ CPU = torch.device("cpu")
 FRNS = [False, True]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(tree):
     return jax.tree.map(lambda a: a.astype(jnp.bfloat16)
                         if hasattr(a, "astype") and a.dtype == jnp.float32 else a, tree)
@@ -489,10 +500,13 @@ def test_adopted_sets_and_flag(monkeypatch, tmp_path):
 
 
 def test_unported_and_unknown_sites_raise(reco, calib):
+    """Every name the JAX forward routes on runs (``dec_s8`` too: K2 at
+    CO = 384 and K3 at C = 96, tests/test_torch_reco_dec_s8.py); an unknown
+    name raises."""
     x = torch.from_numpy(_x((1, 32, 64, 3), 3)).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tf.apply(reco["fpb"], x, sites=calib["s_st"], fused_sites=("res_s8", "dec_s8"),
-                 static_stats=calib["tstats"])
+    out = tf.apply(reco["fpb"], x, sites=calib["s_st"], fused_sites=("res_s8", "dec_s8"),
+                   static_stats=calib["tstats"])
+    assert out.shape == (1, 32, 64, 3) and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="unknown"):
         tf.apply(reco["fpb"], x, fused_sites=("head_i8",))
 

@@ -48,6 +48,17 @@ H, W = 40, 56
 CKPT = Path(__file__).resolve().parent.parent / "_testdata" / "test_johnson.pth"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread for this file: in the six-worker tier-1 run
+    the workers share the cores, and a multi-threaded pool then waits at
+    each op's barrier for threads other workers preempt."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(ours, ref, tol=1e-5):
     ours = ours.numpy() if isinstance(ours, torch.Tensor) else np.asarray(ours)
     d = np.abs(ours.astype(np.float64) - np.asarray(ref, np.float64))
