@@ -51,7 +51,12 @@ order, and any failed phase exits non-zero:
    two launches bit-identical, timed in turns beside the bf16 form on the
    same shape and beside the plain version; then at ragged shapes (W off
    the 16-column tile, H off the 8-row tile, B = 1 and 3, C = 64 under the
-   zero halo, a ragged sw), bit for bit;
+   zero halo, a ragged sw), bit for bit; likewise the float32 forms of
+   conv2's and deconv1's sites (K4's 2×2 pad-1 form at NST's conv2 grid
+   584×1000 128→64 and its pad-0 form at NST's d1 292×504 128→256 with
+   sw 500, K2 at ReCoNet's d1 192→384 with both emits, K8a at
+   1080×1920 32→64 on an f32 conv1 output), beside the cuDNN f32 conv of
+   the shape (TF32 off; a yardstick);
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -63,7 +68,10 @@ order, and any failed phase exits non-zero:
    ``d3_sum_site_prev``, ``c2_site_bf16_prev``, ``c3_site_bf16_prev`` and
    ``d3_rows_prev``,
    each held to the same bounds against the plain version and against each
-   other); then K7 and K9a at ragged shapes (W off the 32-column strip and
+   other); K9a and K9e with an f32 raw (float32) at the same shapes and at
+   ragged ones, held to the K9 bounds, timed beside their bf16 forms; the
+   float32 chains of the new f32 forms card vs CPU on a 256×480 crop
+   (``f32_chains_phase``); then K7 and K9a at ragged shapes (W off the 32-column strip and
    tile, H below the 8-row tile, B = 1 and 3) against their plain versions
    and previous cores (K7 bit for bit, K9a within the K9 bounds, two
    launches bit-identical), and K9c and K9d likewise (outputs off the
@@ -126,7 +134,11 @@ order, and any failed phase exits non-zero:
    once for each of the bf16 fused-site sets ``("head", "tail")`` (K9c, K9d,
    K9a, K9b) and ``("d3",)`` (K9e), and under ``--compute_dtype float32``
    for each of ``int8`` and ``int8_static`` (the f32 forms take block 1's
-   sites); check every kernel's launch count of each
+   sites) and for the sets the JAX forwards run under f32 params that reach
+   the other float32 forms (``F32_SETS``: Johnson's ``head_i8`` s8 set
+   ending in ``tail_s8``, its ``tail,d3`` and ``d3``; NST_Train's and an IN
+   Torch7 net's ``c2_i8`` + ``res_i8`` + ``dec_i8``; ReCoNet's s8 set);
+   check every kernel's launch count of each
    run exactly, and that each quantized or fused stylize stays within the
    1e-2 MAE gate of the plain stylize in its dtype;
 8. the NST_Train slot: a full-width net (3→32→64→128, 5 res blocks,
@@ -394,6 +406,15 @@ F32_KERNELS = {
     "res_site_f32": ("res_site", (("res", ""), ("reco_res", ""), ("reco_d1", ""), ("t7", "a"))),
     "res_site_skip_f32": ("res_site_skip", (("res", ""), ("reco_res", "relu"),
                                             ("reco_res", "tau"), ("t7", "a"))),
+    # the float32 forms of conv2's and deconv1's sites: K4's 2×2 pad-1 form
+    # (NST_Train's and Torch7's conv2 on conv1's f32 output, at NST's grid),
+    # its pad-0 form (their k3 deconv1 on the f32 res output, NST's with
+    # sw), K2 at CO = 384 (ReCoNet's static-norm d1, IN and FRN emits) and
+    # K8a (Johnson's conv2 under head_i8, on conv1's f32 output)
+    "res_site_k2p1_f32": ("res_site_k2p1", (("nst_c2", ""),)),
+    "res_site_k2p0_f32": ("res_site_k2p0", (("nst_d1", ""),)),
+    "res_site_s8o_co384_f32": ("res_site_s8o_co384", (("reco_d1", "in"), ("reco_d1", "frn"))),
+    "c2_site_f32": ("c2_site", (("c2", ""),)),
 }
 # their ragged cases: (B, H, W, C, CO, halo, form, sw)
 F32_RAGGED = {
@@ -409,7 +430,19 @@ F32_RAGGED = {
     "res_site_skip": ((1, 9, 21, 128, 128, "reflect", "", None),
                       (3, 13, 37, 192, 192, "reflect", "tau", None),
                       (2, 11, 37, 64, 64, "zero", "", None)),
+    "res_site_k2p1": ((1, 9, 21, 128, 64, "zero", "", None),
+                      (3, 17, 40, 128, 64, "zero", "", None)),
+    "res_site_k2p0": ((2, 11, 40, 128, 256, "zero", "b", 36),
+                      (1, 9, 21, 128, 256, "zero", "", None)),
+    "res_site_s8o_co384": ((1, 9, 24, 192, 384, "edge", "in", None),
+                           (3, 17, 40, 192, 384, "edge", "frn", None)),
+    "c2_site": ((1, 18, 42, 32, 64, None, "", None), (3, 34, 66, 32, 64, None, "", None)),
 }
+# K9a and K9e with an f32 raw (float32: deconv1's raw on the 2× grid, the d2
+# raw): each form's name and the bf16 site it is a form of (its shape there
+# is BF16_KERNELS'); and their ragged shapes (B, H, W)
+BF16_F32_KERNELS = {"d2_site_f32": "d2_site", "d3_rows_f32": "d3_rows"}
+BF16_F32_RAGGED = ((1, 13, 37), (3, 9, 66), (2, 24, 130))
 _SITES_BF16 = "neuralstyletransferv1_tpu/models/s2d2_sites.py"
 # K9a-K9e: the input shape (B, H, W, C) each runs at on the main path, and the
 # TPU kernel it replaces
@@ -542,6 +575,33 @@ F32_PER_BATCH = {"int8": {"res_site": 6, "res_site_f32": 1, "res_site_skip": 4,
                           "res_site_skip_f32": 1},
                  "int8_static": {"res_site_s8o": 4, "res_site_s8o_f32": 1, "site_s8": 4,
                                  "site_s8_f32": 1, "res_site": 2}}
+# the sets the JAX forwards run under f32 params that reach the float32 forms
+# of conv2's and deconv1's sites and of K9a/K9e: Johnson's all-int8 static
+# set (K8a on conv1's f32 output; the rest reads K8a's bf16 chain and ends
+# in K6, bf16 out), its bf16 tail (K9a on deconv1's f32 raw; the tail
+# returns before d3) and d3 (K9e on the f32 d2 raw), NST_Train's and an IN
+# Torch7 net's c2_i8 + res_i8 + dec_i8 (K4 2×2 pad 1 and pad 0 on f32
+# inputs; the res chain's first K4/K5 f32), ReCoNet's s8 set (every block's
+# K2 and K3 read the f32 carry, which its chain keeps in y's dtype; then K2
+# at CO = 384 on the chain's f32 output):
+# (slot, --quantize, set) → launches a batch
+J_S8_TAIL = ("head_i8", "res_s8", "dec_s8", "tail_s8")
+TAIL_D3 = ("tail", "d3")
+F32_SETS = {
+    ("johnson", "int8_static", J_S8_TAIL): {"c2_site_f32": 1, "c3_site": 1, "res_site_s8o": 5,
+                                            "site_s8": 7, "d3_s8_site": 1},
+    ("johnson", "none", TAIL_D3): {"d2_site_f32": 1, "d3_sum_site": 1},
+    ("johnson", "none", D3): {"d3_rows_f32": 1},
+    ("nst", "int8", NST_I8): {"res_site_k2p1_f32": 1, "res_site_f32": 1, "res_site_sw": 5,
+                              "res_site_skip_f32": 1, "res_site_skip_sw": 3,
+                              "res_site_k2p0_f32": 1, "res_site_k2p0": 1},
+    ("t7 in", "int8", T7_I8): {"res_site_k2p1_f32": 1, "res_site_f32": 1, "res_site": 5,
+                               "res_site_skip_f32": 1, "res_site_skip": 3,
+                               "res_site_k2p0_f32": 1, "res_site_k2p0": 1},
+    ("reco in", "int8_static", RECO_S8): {"res_site_s8o_f32": 4, "site_s8_f32": 4,
+                                          "res_site_s8o_co384_f32": 1, "site_s8_c96": 1},
+}
+SET_NAMES.update({J_S8_TAIL: "+".join(J_S8_TAIL), TAIL_D3: "tail,d3"})
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
@@ -937,18 +997,18 @@ def library_conv(dev, t, name, shape):
     return lambda: F.conv2d(xc, wc, stride=stride, padding=1)
 
 
-def library_conv_f32(dev, shape):
+def library_conv_f32(dev, shape, stride: int = 1):
     """The cuDNN f32 conv (TF32 off) an f32-operand site stands for: a 3×3
-    conv of its shape on channels-last f32 input. No int8 conv takes an
-    f32 operand on the card, so this is a yardstick, not a library call of
-    the same function."""
+    conv of its shape (at ``stride``: K8a's conv2) on channels-last f32
+    input. No int8 conv takes an f32 operand on the card, so this is a
+    yardstick, not a library call of the same function."""
     import torch
     import torch.nn.functional as F
 
     b, h, w, c, co, _ = SITE_SHAPES[shape]
     xc = torch.randn((b, h, w, c), device=dev).permute(0, 3, 1, 2)
     wc = torch.randn((co, c, 3, 3), device=dev).to(memory_format=torch.channels_last)
-    return lambda: F.conv2d(xc, wc, padding=1)
+    return lambda: F.conv2d(xc, wc, stride=stride, padding=1)
 
 
 def int8_kernel_phase(dev):
@@ -1037,7 +1097,8 @@ def f32_operand(t: dict, name: str, seed: int) -> dict:
     residual y."""
     import torch
 
-    key = "x" if name in ("res_site_s8o", "res_site") else "y"
+    name = FORM_OF.get(name, (name, None))[0]
+    key = "x" if name in ("res_site_s8o", "res_site", "c2_site") else "y"
     g = torch.Generator(device=t[key].device).manual_seed(seed)
     scale = 2.0 if key == "x" else 1.0
     out = dict(t)
@@ -1084,7 +1145,7 @@ def f32_kernel_phase(dev):
             t_k = (t_k + dev_time(kernel)) / 2
             t_bf = (t_bf + dev_time(bf16_form)) / 2
             t_plain = dev_time(plain, reps=2)
-            t_lib = dev_time(library_conv_f32(dev, shape))
+            t_lib = dev_time(library_conv_f32(dev, shape, 2 if base == "c2_site" else 1))
             t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS * 1e3
             bound = max(t_bytes, t_ops)
             case = f"{shape}{'/' + form if form else ''}"
@@ -1124,14 +1185,22 @@ def ragged_f32_phase(dev):
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     n = 0
-    for form_name, (base, _cases) in F32_KERNELS.items():
-        for (b, h, w, c, co, halo, form, sw) in F32_RAGGED[base]:
+    for form_name, (form_of, _cases) in F32_KERNELS.items():
+        base, geo = FORM_OF.get(form_of, (form_of, None))
+        for (b, h, w, c, co, halo, form, sw) in F32_RAGGED[form_of]:
             t = f32_operand(site_inputs(dev, b, h, w, c, co, seed=700 + n), base, 700 + n)
-            kw = {"halo": halo}
+            if geo is not None:
+                t["wk"] = t["wk4"]
+            kw = {} if halo is None else {"halo": halo}
             if sw is not None:
                 kw["sw"] = sw
-            if base == "res_site":
-                args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"])
+            if geo is not None:
+                kw.update(kh=geo[0], kw=geo[1], pt=geo[2], pl_=geo[3])
+            if base == "c2_site":
+                args = (t["x"], t["a"], t["c"], 0.0, t["wk"], t["ws"], t["bias"])
+            elif base == "res_site":
+                args = (t["x"], t["a"], t["c"], 0.0 if form == "b" else -127.0, t["wk"], t["ws"],
+                        t["bias"])
             elif base == "res_site_s8o":
                 args = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"],
                         t["qc"])
@@ -1162,8 +1231,98 @@ def ragged_f32_phase(dev):
                 fail(f"{form_name} ragged: a masked column's code is not 0")
             n += 1
     log(f"f32 forms at {n} ragged shapes (W off the 16-column tile, H off the 8-row tile, "
-        f"B = 1 and 3, C = 64 and 128 under the zero halo, ragged sw): bit-identical to "
-        f"their plain versions, two launches bit-identical")
+        f"B = 1 and 3, C = 64 and 128 under the zero halo, ragged sw; the 2×2 forms, K2 at "
+        f"CO = 384 and K8a): bit-identical to their plain versions, two launches "
+        f"bit-identical")
+
+
+def f32_raw(x, seed: int):
+    """bf16 raw activations ``x`` as f32 values that are not
+    bf16-representable (each moved by up to a bf16 half ulp): the raw a
+    float32 chain hands K9a or K9e."""
+    import torch
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    xf = x.float()
+    ulp = xf.abs().clamp(min=2.0 ** -100) * 2.0 ** -8
+    return (xf + (torch.rand(tuple(x.shape), generator=g, device=x.device) - 0.5) * ulp) \
+        .contiguous()
+
+
+def bf16_f32_phase(dev):
+    """K9a and K9e with an f32 raw at their 1080p B=8 shapes against their
+    plain versions (the K9 bounds: within 1 bf16 ulp, two launches
+    bit-identical), timed in turns beside their bf16 forms on the same
+    shape (bf16, f32, f32, bf16), the plain version and the cuDNN f32 conv
+    of the shape (TF32 off; a yardstick); then at ragged shapes (K9a off
+    its 4 × 32 tile, K9e off its 64-column segment, an odd W)."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuralstyletransferv1_torch.kernels import bf16_sites as k9
+
+    results = {}
+    for i, (form_name, base) in enumerate(BF16_F32_KERNELS.items()):
+        shape = BF16_KERNELS[base][0]
+        args16 = bf16_site_inputs(dev, base, shape, seed=300 + i)
+        args = [f32_raw(args16[0], 300 + i), *args16[1:]]
+        kernel, plain = getattr(k9, base), getattr(k9, f"{base}_plain")
+        before = k9.F32_LAUNCHES[form_name]
+        out, again, ref = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if k9.F32_LAUNCHES[form_name] != before + 2:
+            fail(f"{form_name}: the f32 raw did not launch the f32 form")
+        err, worst, equal = check_bf16_site(form_name, out, again, ref, args)
+        outs = out if isinstance(out, tuple) else (out,)
+        b, h, w, c = shape
+        pix = outs[0].shape[0] * outs[0].shape[1] * outs[0].shape[2]
+        lanes = k9.D3_LANES if base.startswith("d3") else outs[0].shape[3]
+        taps = 5 if base.startswith("d3") else 9
+        flops = 2 * pix * c * lanes * taps
+        moved = nbytes(*args, *outs)
+        del out, again, ref, outs
+        torch.cuda.empty_cache()
+        t_bf = dev_time(lambda: kernel(*args16))
+        t_k = dev_time(lambda: kernel(*args))
+        t_k = (t_k + dev_time(lambda: kernel(*args))) / 2
+        t_bf = (t_bf + dev_time(lambda: kernel(*args16))) / 2
+        t_plain = dev_time(lambda: plain(*args), reps=2)
+        x32 = torch.randn(shape, device=dev).permute(0, 3, 1, 2)
+        co = k9.D3_LANES if base.startswith("d3") else k9.SITES[base][1]
+        ks = (1, 5) if base.startswith("d3") else (3, 3)
+        wc = torch.randn((co, c, *ks), device=dev).contiguous(memory_format=torch.channels_last)
+        pad = (0, 2) if base.startswith("d3") else 1
+        t_lib = dev_time(lambda: F.conv2d(x32, wc, padding=pad))
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_OPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "operations" if t_ops > t_bytes else "bytes"
+        log(f"{form_name} @ {b}x{h}x{w}x{c} f32 raw: two launches bit-identical; vs plain max "
+            f"|err| {err:.4g}, worst {worst:.3g} ulp, equal on {equal:.4%}; f32 form "
+            f"{t_k:.4f} ms, bf16 form {t_bf:.4f} ms (same turns, {t_k / t_bf:.3f}x), plain "
+            f"{t_plain:.4f} ms, cuDNN f32 conv (TF32 off, a yardstick) {t_lib:.4f} ms; bound "
+            f"{bound:.4f} ms by {by} ({moved / 1e6:.1f} MB, {flops:.3e} bf16 FLOP), f32 form "
+            f"at {bound / t_k:.1%} of it")
+        results[form_name] = {"ms": t_k, "bf16_form_ms": t_bf, "plain_ms": t_plain,
+                              "cudnn_f32_ms": t_lib, "bound_ms": bound, "max_abs_err": err,
+                              "bound_by": by, "bound_share": bound / t_k}
+        del args, args16, x32, wc
+        torch.cuda.empty_cache()
+    n = 0
+    for form_name, base in BF16_F32_KERNELS.items():
+        c = BF16_KERNELS[base][0][3]
+        for (b, h, w) in BF16_F32_RAGGED:
+            args = bf16_site_inputs(dev, base, (b, h, w, c), seed=320 + n)
+            args[0] = f32_raw(args[0], 320 + n)
+            kernel = getattr(k9, base)
+            out, again = kernel(*args), kernel(*args)
+            ref = getattr(k9, f"{base}_plain")(*args)
+            torch.cuda.synchronize()
+            check_bf16_site(f"{form_name} ragged {b}x{h}x{w}", out, again, ref, args)
+            n += 1
+    log(f"K9a and K9e with an f32 raw at {n} ragged shapes: within the K9 bounds of their "
+        f"plain versions, two launches bit-identical")
+    return results
+
 
 
 def bf16_site_inputs(dev, name, shape, seed):
@@ -1822,7 +1981,7 @@ def zero_counts():
 
     k1.LAUNCHES = 0
     for counts in (k8.LAUNCHES, k8.PROBE_LAUNCHES, k8.F32_LAUNCHES, k8.FORM_LAUNCHES, k9.LAUNCHES,
-                   k12.LAUNCHES):
+                   k9.F32_LAUNCHES, k12.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1834,7 +1993,7 @@ def read_counts() -> dict:
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     return {"dis_iter": k1.LAUNCHES, **k8.LAUNCHES, **k8.PROBE_LAUNCHES, **k8.F32_LAUNCHES,
-            **k8.FORM_LAUNCHES, **k9.LAUNCHES, **k12.LAUNCHES}
+            **k8.FORM_LAUNCHES, **k9.LAUNCHES, **k9.F32_LAUNCHES, **k12.LAUNCHES}
 
 
 def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None = None,
@@ -1846,8 +2005,9 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     with ``reco`` = (checkpoint, frn), of that ReCoNet slot
     (``--model_type reconet``) under the adopted sets; with ``t7`` = (.t7
     file, "in" or "bn"), of that Torch7 slot under the adopted sets; with
-    ``dtype`` "float32", the Johnson slice under --compute_dtype float32
-    (the f32 forms of K2-K5 take the res chain's first sites); with
+    ``dtype`` "float32", the slice under --compute_dtype float32 (the f32
+    forms take the sites that read an f32 tensor: the Johnson adopted sets'
+    res chains, or a set of ``F32_SETS``); with
     ``defaults``, the adopted sets are the built-in defaults (the adoption
     file absent); returns the run's launch counts."""
     if defaults:
@@ -1900,7 +2060,11 @@ def slice_phase(dev, quantize: str = "none", fused=None, nst_ckpt: Path | None =
     if t7 is not None:
         name, per_batch = f"t7 {t7[1]} {name}", T7_PER_BATCH.get((t7[1], quantize, fused), {})
     if dtype == "float32":
-        name, per_batch = f"f32 {name}", F32_PER_BATCH.get(quantize, {})
+        slot = ("nst" if nst_ckpt is not None else f"t7 {t7[1]}" if t7 is not None
+                else f"reco {'frn' if reco[1] else 'in'}" if reco is not None else "johnson")
+        per_batch = F32_PER_BATCH.get(quantize, {}) if fused is None \
+            else F32_SETS[(slot, quantize, fused)]
+        name = f"f32 {name}"
     expected = {"dis_iter": levels * N_BATCHES}
     for k in counts:
         if k != "dis_iter":
@@ -4358,6 +4522,147 @@ def t7_s8_chains(tf, deconv_k: int) -> dict:
                                           {**dec_want, "d3_s8_site": 1}, True)}
 
 
+def f32_chains_phase(dev, workdir: Path) -> None:
+    """The float32 chains of the new f32 forms on the card and on the CPU,
+    from one f32 forward's inputs on a 256×480 crop of a 1080p frame and one
+    calibration, with exact launches (``_chains_card_vs_cpu``): NST_Train's
+    ``c2_i8`` (K4 2×2 pad 1 on conv1's f32 output) and ``dec_i8`` (K4 2×2
+    pad 0 on the f32 res output, then its bf16 d2), frozen norms
+    (bit-identical) and measured; an IN Torch7 net's ``c2_i8`` and
+    ``dec_i8`` (measured norms); ReCoNet's ``dec_s8`` on the f32 res output
+    (K2 at CO = 384, then K3 at C = 96; IN and FRN, frozen norms,
+    bit-identical); Johnson's ``head_i8`` chain under frozen norms (K8a on
+    conv1's f32 output, K8b; bit-identical), its ``tail`` (K9a on an f32
+    deconv1 raw, K9b) and ``d3`` (K9e on an f32 d2 raw), whose K9 sums and
+    bf16 outputs the card forms in another order (within the chains'
+    bound)."""
+    import copy
+
+    import torch
+
+    from neuralstyletransferv1_torch.engine import stylizer as st
+    from neuralstyletransferv1_torch.io import t7_fast as tf
+    from neuralstyletransferv1_torch.models import io_presets as iop
+    from neuralstyletransferv1_torch.models import reconet_fast as rf
+    from neuralstyletransferv1_torch.models import sites_bf16, sites_i8
+    from neuralstyletransferv1_torch.models import transformer_net_nst_fast as nstf
+    from neuralstyletransferv1_torch.models import transformer_net_quant as tq
+    from neuralstyletransferv1_torch.models.s2d import d2s, in_stats
+
+    ch, cw = NST_CROP
+    frame = torch.from_numpy(moving_frames(1, H, W, SEED + 17)[0][None, :ch, :cw]).to(dev)
+    x01 = frame.float() / 255.0
+    grab = {}
+
+    def tap(k, t):
+        grab.setdefault(k, t.contiguous())
+
+    # NST_Train: f32 net, frozen and measured norms
+    model = st.load_model(nst_checkpoint(workdir / "nst_f32.pth"), device=dev)
+    stats = nstf.calibrate_in_stats(model.net, x01)
+    quant = nstf.quantize_net(model.net, nstf.calibrate_act_scales(model.net, x01,
+                                                                    static_stats=stats))
+    with torch.no_grad():
+        nstf.apply(model.net, x01, tap=tap)
+    nst_in = {k: grab.pop(k) for k in ("c2", "d1")}
+
+    def nst_inputs(d):
+        net = copy.deepcopy(model.net).to(d)
+        return {"net": net, "sites": nstf.prepare_sites(net, quant, d),
+                "st": {k: (m.to(d), inv.to(d)) for k, (m, inv) in stats.items()},
+                **{k: v.to(d) for k, v in nst_in.items()}}
+
+    chains = {}
+    for static in (True, False):
+        norms = "frozen" if static else "measured"
+
+        def sts(o, static=static):
+            return o["st"] if static else None
+
+        chains.update({
+            f"c2_i8 f32 ({norms} norms)": (
+                lambda o, sts=sts: nstf.c2_i8(o["c2"], o["net"], o["sites"]["c2"], sts(o)),
+                {"res_site_k2p1_f32": 1}, static),
+            f"dec_i8 f32 ({norms} norms)": (
+                lambda o, sts=sts: nstf.dec_i8(o["d1"], o["net"], o["sites"], sts(o)),
+                {"res_site_k2p0_f32": 1, "res_site_k2p0": 1}, static)})
+    _chains_card_vs_cpu(dev, "NST", chains, nst_inputs)
+
+    # Torch7: an IN net (k3 deconvs), f32 params, measured norms
+    model = st.load_model(t7_checkpoint(workdir / "eccv16_in_f32.t7", "in"), device=dev)
+    p32 = tf.params_to(tf.try_fast_johnson(model.net), dev)
+    xin = iop.preprocess(model.io_preset, x01)
+    tquant = tf.quantize_t7(p32, tf.calibrate_t7_scales(p32, xin))
+    with torch.no_grad():
+        tf.t7_fast_apply(p32, xin, tap=tap)
+    t7_in = {k: grab.pop(k) for k in ("c2", "d1")}
+    grab.clear()
+
+    def t7_inputs(d):
+        p = tf.params_to(p32, d)
+        return {"p": p, "sites": tf.prepare_sites(p, tquant, d),
+                **{k: v.to(d) for k, v in t7_in.items()}}
+
+    _chains_card_vs_cpu(dev, "t7 in", {
+        "c2_i8 f32": (lambda o: tf._t7_c2_i8(o["c2"], o["p"], o["sites"]["c2"]),
+                      {"res_site_k2p1_f32": 1}, False),
+        "dec_i8 f32": (lambda o: tf._t7_dec_i8(o["d1"], o["p"], o["sites"], o["p"]["c0"]),
+                       {"res_site_k2p0_f32": 1, "res_site_k2p0": 1}, False)}, t7_inputs)
+
+    # ReCoNet: IN and FRN, frozen norms, dec_s8 on the f32 res output
+    rh, rw = RECO_CROP
+    for frn in (False, True):
+        model = st.load_model(reco_checkpoint(workdir / f"reco_f32_{frn}.pth", frn),
+                              model_type="reconet", device=dev)
+        x = iop.preprocess(model.io_preset, frame[:, :rh, :rw].float() / 255.0)
+        fp32 = rf.FastReCoNet(model.net)
+        rstats = rf.calibrate_in_stats(fp32, x)
+        rquant = rf.quantize_net(fp32, rf.calibrate_act_scales(fp32, x, static_stats=rstats))
+        with torch.no_grad():
+            rf.apply(fp32, x, tap=tap, static_stats=rstats)
+        yd1 = grab.pop("d1")
+        grab.clear()
+
+        def reco_inputs(d, fp32=fp32, rstats=rstats, rquant=rquant, yd1=yd1):
+            fpd = copy.deepcopy(fp32).to(d)
+            return {"fp": fpd, "sites": rf.prepare_sites(fpd, rquant, d), "y": yd1.to(d),
+                    "st": {k: (m.to(d), inv.to(d)) for k, (m, inv) in rstats.items()}}
+
+        _chains_card_vs_cpu(dev, f"ReCoNet {'FRN' if frn else 'IN'}", {
+            "dec_s8 f32": (lambda o: rf.dec_s8_static(o["y"], o["fp"], o["sites"], o["st"]),
+                           {"res_site_s8o_co384_f32": 1, "site_s8_c96": 1}, True)}, reco_inputs)
+
+    # Johnson: the head_i8 chain (frozen norms), the tail and d3 sites
+    model = st.load_model(CKPT, io_preset="raw_01", device=dev)
+    net = model.net
+    jstats = tq.calibrate_in_stats(net, x01)
+    jquant = tq.quantize_net(net, tq.calibrate_act_scales(net, x01, static_stats=jstats))
+    with torch.no_grad():
+        y1 = net.conv1(x01).contiguous()
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    raw_d1 = torch.randn((1, ch // 2, cw // 2, 64), generator=g, device=dev) * 1.5
+    raw_d2 = torch.randn((1, ch // 2, cw // 2, 128), generator=g, device=dev) * 1.5
+
+    def j_inputs(d):
+        netd = copy.deepcopy(net).to(d)
+        return {"net": netd, "sites": sites_i8.prepare_sites(netd, jquant, d),
+                "sw": sites_bf16.prepare(netd, d, torch.float32), "y1": y1.to(d),
+                "st": {k: (m.to(d), inv.to(d)) for k, (m, inv) in jstats.items()},
+                "d1": raw_d1.to(d), "d2": raw_d2.to(d)}
+
+    def head(o):
+        m1, inv1 = o["st"]["in1"]
+        return sites_i8.head_chain(o["y1"], m1, inv1, o["net"], o["sites"], o["st"])[0]
+
+    _chains_card_vs_cpu(dev, "Johnson", {
+        "head_i8 f32 (frozen norms)": (head, {"c2_site_f32": 1, "c3_site": 1}, True),
+        "tail f32": (lambda o: sites_bf16.tail(o["d1"], *in_stats(o["d1"]), o["net"], o["sw"]),
+                     {"d2_site_f32": 1, "d3_sum_site": 1}, False),
+        "d3 f32": (lambda o: sites_bf16.d3_branch(o["d2"], *in_stats(d2s(o["d2"], 2, 32)),
+                                                  o["net"], o["sw"]), {"d3_rows_f32": 1}, False)},
+        j_inputs)
+
+
 def reco_checkpoint(path: Path, frn: bool) -> Path:
     """A full-width ReCoNet net (3→48→96→192, 4 res blocks at 192,
     192→96→48→3; IN or FRN/TLU) from the seed, saved in the reference key
@@ -4818,7 +5123,10 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
                 smem = k8._lib().mma_kernel_smem_bytes(int(targs[0]))
             elif base == "mma_s2_kernel":
                 short += " (K8a)" if targs[0] == "32" else " (K8b)"
-                smem = k8._lib().mma_s2_smem_bytes(int(targs[0]))
+                if targs[2:3] == ["1"]:  # K8a's f32 form: its staging slot is twice the size
+                    short += ", f32 operand"
+                else:
+                    smem = k8._lib().mma_s2_smem_bytes(int(targs[0]))
             elif base == "d3s8_mma_kernel":
                 short += " (K6)"
                 smem = k8._lib().d3s8_mma_smem_bytes()
@@ -5087,7 +5395,8 @@ def kernel_group(name: str) -> str:
 
 def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir: Path):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
-    NST_Train, ReCoNet, Torch7; the Johnson slices under float32; two slots
+    NST_Train, ReCoNet, Torch7; the Johnson slices and the sets of
+    ``F32_SETS`` under float32; two slots
     with rotating voronoi regions) and of the masked-stylize step, by kind
     of kernel and by kernel (torch.profiler after two warm-up batches; the
     regions' frames are numbered from 1 each batch)."""
@@ -5103,6 +5412,10 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir
             + [("int8_static", RECO_S8, reco_ckpts[False], "reco in")]
             + [(mode, fused, t7_ckpts[norm], f"t7 {norm}") for norm, mode, fused in T7_SLICES]
             + [(mode, None, CKPT, "f32") for mode in ("none",) + F32_SLICES]
+            + [(mode, fused, {"johnson": CKPT, "nst": nst_ckpt, "t7 in": t7_ckpts["in"],
+                              "reco in": reco_ckpts[False]}[slot],
+                "f32" if slot == "johnson" else f"f32 {slot}")
+               for slot, mode, fused in F32_SETS]
             + [("none", None, CKPT, "regions")])
     for mode, fused, ckpt, label in runs:
         if label.endswith("(defaults)"):
@@ -5119,10 +5432,11 @@ def _profile_slice(dev, mode, fused, ckpt, label, frames) -> None:
     """``profile_phase``'s report of one slice."""
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
+    f32 = label == "f32" or label.startswith("f32 ")
     argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
             "--frame_batch", str(B), "--flow_ema", "--compute_dtype",
-            "float32" if label == "f32" else "bfloat16", "--quantize", mode]
-    if label.startswith("reco"):
+            "float32" if f32 else "bfloat16", "--quantize", mode]
+    if label.removeprefix("f32 ").startswith("reco"):
         argv += ["--model_type", "reconet"]
     if label == "regions":
         argv += REGION_FLAGS
@@ -5364,6 +5678,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     int8 = int8_kernel_phase(dev)
     f32 = f32_kernel_phase(dev)
     bf16 = bf16_kernel_phase(dev)
+    bf16_f32 = bf16_f32_phase(dev)
     exp_launches, exp = experiments_phase(dev)
     ragged_sw_phase(dev)
     ragged_reco_phase(dev)
@@ -5379,6 +5694,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
     t7_kernel_phase(dev, int8)
     t7_chain_phase(dev, t7_ckpts["bn"])
     t7_forms_phase(dev, t7_ckpts)
+    f32_chains_phase(dev, tmp)
     launches = {k: 0 for k in read_counts()}
     runs = ([dict(quantize=mode, fused=fused) for mode, fused in (("none", None),) + SLICES]
             + [dict(quantize=mode, fused=fused, nst_ckpt=nst_ckpt, defaults=dflt)
@@ -5387,7 +5703,14 @@ def run_phases(dev, tmp: Path, k8) -> int:
             + [dict(quantize="int8_static", fused=RECO_S8, reco=(reco_ckpts[False], False))]
             + [dict(quantize=mode, fused=fused, t7=(t7_ckpts[norm], norm))
                for norm, mode, fused in T7_SLICES]
-            + [dict(quantize=mode, dtype="float32") for mode in F32_SLICES])
+            + [dict(quantize=mode, dtype="float32") for mode in F32_SLICES]
+            + [dict(quantize="int8_static", fused=J_S8_TAIL, dtype="float32"),
+               dict(quantize="none", fused=TAIL_D3, dtype="float32"),
+               dict(quantize="none", fused=D3, dtype="float32"),
+               dict(quantize="int8", fused=NST_I8, nst_ckpt=nst_ckpt, dtype="float32"),
+               dict(quantize="int8", fused=T7_I8, t7=(t7_ckpts["in"], "in"), dtype="float32"),
+               dict(quantize="int8_static", fused=RECO_S8, reco=(reco_ckpts[False], False),
+                    dtype="float32")])
     for run in runs:
         for k, v in slice_phase(dev, **run).items():
             launches[k] += v
@@ -5449,12 +5772,19 @@ def run_phases(dev, tmp: Path, k8) -> int:
             "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu", "replaces": replaces,
             "launches": launches[name], "library_ms": None, **bf16[name],
         })
+    for name, base in BF16_F32_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neuralstyletransferv1_torch/csrc/bf16_sites.cu",
+            "replaces": BF16_KERNELS[base][1], "launches": launches[name], "library_ms": None,
+            **bf16_f32[name],
+        })
     for name, (source, replaces) in EXP_KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": exp_launches[name], **exp[name],
         })
-    for name in (*INT8_KERNELS, *F32_KERNELS, *BF16_KERNELS):
+    for name in (*INT8_KERNELS, *F32_KERNELS, *BF16_KERNELS, *BF16_F32_KERNELS):
         if launches[name] == 0:
             fail(f"{name} was launched no time on the main path")
     print(json.dumps({**bench_keys, "card": CARD}), flush=True)

@@ -961,8 +961,38 @@ struct alignas(64) D2Args {
   const float *a, *c;   // [B][64] the in4 affine
   const float* bias;    // [128]
   float* part;          // [B][tiles an image][2][128]
+  const float* x32;     // F32IN: x [B][H][W][64] f32 (no map_x)
   int H, W, tx, tpi, tiles;  // column tiles, tiles an image, tiles in all
 };
+
+// F32IN (d2_wgmma_kernel's f32 form): piece i of tile (b, ty0, tx0)'s
+// haloed input, activated, from the f32 raw x in device memory: the 8
+// channels of the piece's swizzled position at the pixel that the edge
+// halo maps it to (clamped into the image: the frame's edge copy, and any
+// position beyond it feeds only outputs that are not stored), each rounded
+// once, bf16(max(x·a + c, 0)), as the Pallas prologue does.
+__device__ __forceinline__ void d2_activate_f32(uint8_t* tile, const D2Args& p, int b, int ty0,
+                                                int tx0, const float* aff, int i) {
+  const int pix = i >> 3, q = i & 7;
+  const int ch = 8 * (q ^ (pix & 7));
+  const int sy = min(max(ty0 - 1 + pix / kFHC, 0), p.H - 1);
+  const int sx = min(max(tx0 - 1 + pix % kFHC, 0), p.W - 1);
+  const float4* src = reinterpret_cast<const float4*>(
+      p.x32 + (((size_t)b * p.H + sy) * p.W + sx) * kDC + ch);
+  const float4 u = __ldg(src), w = __ldg(src + 1);
+  const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float lo = fmaxf(__fadd_rn(__fmul_rn(v[2 * k], aff[ch + 2 * k]), aff[kDC + ch + 2 * k]),
+                           0.0f);
+    const float hi = fmaxf(__fadd_rn(__fmul_rn(v[2 * k + 1], aff[ch + 2 * k + 1]),
+                                     aff[kDC + ch + 2 * k + 1]), 0.0f);
+    const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+    o[k] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  *reinterpret_cast<uint4*>(tile + pix * kSpan + 16 * q) = make_uint4(o[0], o[1], o[2], o[3]);
+}
 
 // The edge halo of a tile whose haloed input crosses the image's border:
 // TMA filled the positions outside the image with zeros; each position of
@@ -1004,6 +1034,15 @@ __device__ __forceinline__ void d2_patch(uint8_t* tile, int ty0, int tx0, int H,
 // (once), 3 the fragments loaded and the MMAs issued (the next tile's patch
 // and activation between them), 4 the epilogue and the statistics (the last
 // MMAs' drain included).
+// F32IN (K9a under float32: deconv1's f32 raw, which the Pallas prologue
+// reads unrounded): an f32 tile (52 KB) does not fit twice beside the
+// resident weights, so no TMA brings x: the consumers' activation reads
+// each piece's 8 f32 channels from device memory (d2_activate_f32; the
+// edge halo as clamped source pixels, no patch) and writes the bf16 piece
+// into the tile's buffer, at the same point of the tap loop as the bf16
+// form's in-place activation. The buffer's store two tiles back has been
+// read (thread 0's wait at tap 0, before the barrier at kDActFrom).
+template <bool F32IN>
 __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_constant__ D2Args p) {
   constexpr int PIECES = kDPix * 8;  // 16-byte pieces of an input tile
   static_assert((PIECES + kFCons - 1) / kFCons <= kDActPer * (9 - kDActFrom),
@@ -1044,7 +1083,7 @@ __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_con
       mbar_expect_tx(w_full, 9u * kDSlab);
       for (int tap = 0; tap < 9; ++tap) tma_load_3d(s_w + tap * kDSlab, &p.map_w, w_full, 0, 0, tap);
       Ring ri = {0, 0u};
-      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      for (int t = blockIdx.x; t < (F32IN ? 0 : p.tiles); t += gridDim.x) {
         int b, ty0, tx0;
         tile_of(t, b, ty0, tx0);
         mbar_wait(&in_empty[ri.i], ri.ph ^ 1u);
@@ -1085,11 +1124,18 @@ __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_con
     int b, ty0, tx0;
     tile_of(blockIdx.x, b, ty0, tx0);
     stage_aff(0, b);
-    mbar_wait(&in_full[0], 0u);
-    MMA_PHASE(0)
-    d2_patch(s_in, ty0, tx0, p.H, p.W, tid);
+    if (!F32IN) {
+      mbar_wait(&in_full[0], 0u);
+      MMA_PHASE(0)
+      d2_patch(s_in, ty0, tx0, p.H, p.W, tid);
+    }
     bar_sync(1, kFCons);  // the affine is staged, the halo patched
-    for (int i = tid; i < PIECES; i += kFCons) activate(s_in, s_aff, i);
+    for (int i = tid; i < PIECES; i += kFCons) {
+      if (F32IN)
+        d2_activate_f32(s_in, p, b, ty0, tx0, s_aff, i);
+      else
+        activate(s_in, s_aff, i);
+    }
     bar_sync(1, kFCons);  // the first tile is activated
     MMA_PHASE(1)
     mbar_wait(w_full, 0u);
@@ -1111,7 +1157,7 @@ __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_con
     uint8_t* nbuf = s_in + rn.i * kDBuf;
     const float* naff = s_aff + ((n + 1) & 1) * 2 * kDC;
     if (next) stage_aff((n + 1) & 1, nb);
-    mbar_wait(&in_full[ri.i], ri.ph);
+    if (!F32IN) mbar_wait(&in_full[ri.i], ri.ph);
     MMA_PHASE(0)
 
     // 9 taps x 4 k16 steps, a group a tap; A by ldmatrix at the tap's (dy,
@@ -1133,20 +1179,27 @@ __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_con
       wgmma_commit();
       if (tap == 0 && n > 0 && tid == 0) {
         bulk_wait_read<0>();  // the tile before's output has left its buffer
-        mbar_arrive(&in_empty[rn.i]);
+        if (!F32IN) mbar_arrive(&in_empty[rn.i]);
       }
       if (next && tap >= kDActFrom) {
         if (tap == kDActFrom) {
           MMA_PHASE(3)
-          mbar_wait(&in_full[rn.i], rn.ph);
-          MMA_PHASE(0)
-          d2_patch(nbuf, nty0, ntx0, p.H, p.W, tid);
-          bar_sync(1, kFCons);  // its affine is staged, its halo patched
+          if (!F32IN) {
+            mbar_wait(&in_full[rn.i], rn.ph);
+            MMA_PHASE(0)
+            d2_patch(nbuf, nty0, ntx0, p.H, p.W, tid);
+          }
+          bar_sync(1, kFCons);  // its affine is staged, its halo patched (F32IN: its buffer free)
         }
 #pragma unroll
         for (int h = 0; h < kDActPer; ++h) {
           const int i = tid + kFCons * (kDActPer * (tap - kDActFrom) + h);
-          if (i < PIECES) activate(nbuf, naff, i);
+          if (i < PIECES) {
+            if (F32IN)
+              d2_activate_f32(nbuf, p, nb, nty0, ntx0, naff, i);
+            else
+              activate(nbuf, naff, i);
+          }
         }
       }
       wgmma_wait<1>();
@@ -1218,8 +1271,9 @@ __global__ void __launch_bounds__(kFThreads, 1) d2_wgmma_kernel(const __grid_con
   MMA_PHASE_END
 }
 
-// K9a on d2_wgmma_kernel and the reduce.
-int launch_d2_wgmma(const __nv_bfloat16* x, const float* a, const float* c,
+// K9a on d2_wgmma_kernel and the reduce; F32IN: x is f32.
+template <bool F32IN>
+int launch_d2_wgmma(const void* x, const float* a, const float* c,
                     const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out, float* part,
                     float* sums, int B, int H, int W, void* stream) {
   if (B <= 0 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
@@ -1228,21 +1282,23 @@ int launch_d2_wgmma(const __nv_bfloat16* x, const float* a, const float* c,
   const int dw[3] = {kDC, kDCO, 9}, bw[3] = {kDC, kDCO, 1};
   const int dout[4] = {kDCO, W, H, B}, bout[4] = {64, kFTW, kFTH, 1};
   const CUtensorMapDataType b16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!make_map(&p.map_x, b16, 2, x, 4, dx, bx) || !make_map(&p.map_w, b16, 2, w, 3, dw, bw) ||
+  if ((!F32IN && !make_map(&p.map_x, b16, 2, x, 4, dx, bx)) ||
+      !make_map(&p.map_w, b16, 2, w, 3, dw, bw) ||
       !make_map(&p.map_out, b16, 2, out, 4, dout, bout))
     return (int)cudaErrorInvalidValue;
+  if (F32IN) p.x32 = static_cast<const float*>(x);
   p.a = a; p.c = c; p.bias = bias; p.part = part;
   p.H = H; p.W = W;
   p.tx = (W + kFTW - 1) / kFTW;
   p.tpi = p.tx * ((H + kFTH - 1) / kFTH);
   p.tiles = B * p.tpi;
-  cudaError_t err = cudaFuncSetAttribute(d2_wgmma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(d2_wgmma_kernel<F32IN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDSmem);
   if (err != cudaSuccess) return (int)err;
   const int sms = sm_count();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  d2_wgmma_kernel<<<p.tiles < sms ? p.tiles : sms, kFThreads, kDSmem, s>>>(p);
+  d2_wgmma_kernel<F32IN><<<p.tiles < sms ? p.tiles : sms, kFThreads, kDSmem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = B * 2 * kDCO;
@@ -1394,6 +1450,7 @@ struct RowsArgs {
   const float* bias;        // K9b: [12]
   __nv_bfloat16* out;       // K9e: [B,H+4,W,60]; K9b: [B,H,W,12]
   int B, H, W;
+  const float* x32;         // K9e's f32 form: the raw [B,H,W,128] in f32 (x unused)
 };
 
 // SUM false: K9e, one conv row per warp, 32 columns; SUM true: K9b, two conv
@@ -1579,11 +1636,15 @@ __device__ __forceinline__ int d3_slot_row(int n) {
 }
 
 // two bf16 (the low half first) → bf16(max(f32(x)·a + c, 0)) each, as activate4
-__device__ __forceinline__ uint32_t activate2(uint32_t w, float a0, float c0, float a1, float c1) {
-  const float lo = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w << 16), a0), c0), 0.0f);
-  const float hi = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w & 0xffff0000u), a1), c1), 0.0f);
+__device__ __forceinline__ uint32_t activate2f(float x0, float x1, float a0, float c0, float a1,
+                                               float c1) {
+  const float lo = fmaxf(__fadd_rn(__fmul_rn(x0, a0), c0), 0.0f);
+  const float hi = fmaxf(__fadd_rn(__fmul_rn(x1, a1), c1), 0.0f);
   const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t activate2(uint32_t w, float a0, float c0, float a1, float c1) {
+  return activate2f(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u), a0, c0, a1, c1);
 }
 
 // Each warp walks a contiguous share of the B·strips·H (image, STRIP-column
@@ -2246,16 +2307,19 @@ int launch_s2_bf16(const __nv_bfloat16* x, const float* a, const float* c,
 // pixels of one chunk, 128 contiguous bytes), so a tap's one-pixel shift is
 // 16 bytes of the descriptor's start address. Shared memory: alignment
 // slack, NB input buffers, two output buffers of an item's 64 x 60 bf16
-// lanes (the 7,680 contiguous bytes of the output it writes):
-//   128 + 4 x 17,408 + 2 x 7,680 = 85,120
+// lanes (the 7,680 contiguous bytes of the output it writes), and for the
+// f32 form (F32IN) NB staging slots of an item's f32 raw row:
+//   128 + 4 x 17,408 + 2 x 7,680 = 85,120; F32IN + 4 x 34,816 = 224,384
 struct D3RowsW {
   static constexpr int SEG = 64, PIX = SEG + 4, NB = 4, NOUT = 2;
   static constexpr int CTHREADS = 128, PTHREADS = 128, THREADS = CTHREADS + PTHREADS;
   static constexpr int CK = PIX * 16;          // one chunk column: 1,088 bytes
   static constexpr int X = 16 * CK;            // an item's staged row: 17,408
   static constexpr int OUT = SEG * kLanes * 2;
+  static constexpr int XF = PIX * kRC * 4;     // an item's f32 raw row: 34,816
   static constexpr size_t bytes = 128 + NB * X + NOUT * OUT;
-  static_assert(bytes <= 232448 && 1 + 2 * NB < 16, "shared memory; named barriers");
+  static constexpr size_t bytes_f32 = bytes + NB * XF;
+  static_assert(bytes_f32 <= 232448 && 1 + 2 * NB < 16, "shared memory; named barriers");
 };
 
 // wgmma descriptor of a K-major operand in the no-swizzle layout: core
@@ -2286,6 +2350,14 @@ __device__ __forceinline__ uint64_t desc_noswz(uint32_t addr, uint32_t lbo, uint
 // activated input, 1 the wgmma group and the item before's store issued, 2
 // the MMAs' drain, 3 the staging of the bf16 lanes, 4 the last item's store
 // (once).
+// F32IN (K9e under float32: the d2 raw in f32, which the Pallas prologue
+// reads unrounded): the f32 raw cannot land in the bf16 row as it is, so
+// each producer thread copies its 16 f32 channels of a pixel (four 16-byte
+// cp.async) into the item's f32 staging slot, at its own place (thread kp's
+// pixels in a 64-byte column), and the activation reads them from there,
+// rounds once, bf16(max(x·a + c, 0)), and writes the bf16 row the MMAs
+// read; the rest is the bf16 form's.
+template <bool F32IN>
 __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
     d3rows_wgmma_kernel(RowsArgs p, int segs, int items) {
   using S = D3RowsW;
@@ -2295,6 +2367,7 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
   uint8_t* smem8 = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   uint8_t* s_x0 = smem8;
   uint8_t* s_o0 = s_x0 + NB * S::X;
+  uint8_t* s_f0 = s_o0 + S::NOUT * S::OUT;  // F32IN: [NB][8 kp][PIX][16] f32
   const int tid = threadIdx.x, first = blockIdx.x, rows = p.H + 4;
   const int n = (items - first + (int)gridDim.x - 1) / (int)gridDim.x;
   if (n <= 0) return;
@@ -2314,9 +2387,9 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
       const int x0 = (id % segs) * S::SEG, rr = id / segs, b = rr / rows;
       int uu;
       const int sy = reflect_phase(rr % rows - 2, u, p.H, &uu);
-      const __nv_bfloat16* src =
-          p.x + ((size_t)b * p.H + sy) * p.W * kRC + uu * 64 + 16 * (kp & 1);
+      const size_t src = ((size_t)b * p.H + sy) * p.W * kRC + uu * 64 + 16 * (kp & 1);
       const uint32_t base = smem_addr(s_x0 + (j % NB) * S::X) + 2 * kp * CK;
+      const uint32_t fbase = smem_addr(s_f0 + (j % NB) * S::XF) + kp * S::PIX * 64;
       const bool inner = x0 >= 2 && x0 + S::PIX - 2 <= p.W;
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
@@ -2324,9 +2397,14 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
         if (px < S::PIX) {
           int sx = x0 - 2 + px, vv = v;
           if (!inner) sx = reflect_phase(sx, v, p.W, &vv);
-          const __nv_bfloat16* s0 = src + (size_t)sx * kRC + vv * 32;
-          cp_async16(base + px * 16, s0);
-          cp_async16(base + CK + px * 16, s0 + 8);
+          const size_t s0 = src + (size_t)sx * kRC + vv * 32;
+          if (F32IN) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cp_async16(fbase + px * 64 + 16 * e, p.x32 + s0 + 4 * e);
+          } else {
+            cp_async16(base + px * 16, p.x + s0);
+            cp_async16(base + CK + px * 16, p.x + s0 + 8);
+          }
         }
       }
       cp_async_commit();
@@ -2338,6 +2416,8 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
     for (int j = 0; j < n; ++j) {
       const int id = first + j * (int)gridDim.x;
       uint8_t* buf = s_x0 + (j % NB) * S::X + 2 * kp * CK;
+      const float* fbuf = reinterpret_cast<const float*>(s_f0 + (j % NB) * S::XF +
+                                                         kp * S::PIX * 64);
       const int b = id / segs / rows;
       if (b != cur_b) {
         cur_b = b;
@@ -2354,6 +2434,20 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
         if (px < S::PIX) {
           uint4* q0 = reinterpret_cast<uint4*>(buf + px * 16);
           uint4* q1 = reinterpret_cast<uint4*>(buf + CK + px * 16);
+          if (F32IN) {
+            const float4* f4 = reinterpret_cast<const float4*>(fbuf + 16 * px);
+            uint32_t o[8];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float4 f = f4[e];
+              o[2 * e] = activate2f(f.x, f.y, qa[4 * e], qc[4 * e], qa[4 * e + 1], qc[4 * e + 1]);
+              o[2 * e + 1] =
+                  activate2f(f.z, f.w, qa[4 * e + 2], qc[4 * e + 2], qa[4 * e + 3], qc[4 * e + 3]);
+            }
+            *q0 = make_uint4(o[0], o[1], o[2], o[3]);
+            *q1 = make_uint4(o[4], o[5], o[6], o[7]);
+            continue;
+          }
           uint4 w0 = *q0, w1 = *q1;
           w0.x = activate2(w0.x, qa[0], qc[0], qa[1], qc[1]);
           w0.y = activate2(w0.y, qa[2], qc[2], qa[3], qc[3]);
@@ -2460,20 +2554,22 @@ __global__ void __launch_bounds__(D3RowsW::THREADS, 1)
   MMA_PHASE_END
 }
 
+template <bool F32IN = false>
 int launch_d3rows_wgmma(const RowsArgs& p, void* stream) {
   using S = D3RowsW;
   if (p.B <= 0 || p.H < 3 || p.W < 3) return (int)cudaErrorInvalidValue;
   const int segs = (p.W + S::SEG - 1) / S::SEG;
   const long long items = (long long)p.B * (p.H + 4) * segs;
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kern = d3rows_wgmma_kernel;
+  auto kern = d3rows_wgmma_kernel<F32IN>;
+  const size_t smem = F32IN ? S::bytes_f32 : S::bytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)S::bytes);
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int sms = sm_count();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   const int blocks = (int)(items < sms ? items : sms);
-  kern<<<blocks, S::THREADS, S::bytes, static_cast<cudaStream_t>(stream)>>>(p, segs, (int)items);
+  kern<<<blocks, S::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p, segs, (int)items);
   return (int)cudaGetLastError();
 }
 
@@ -2828,7 +2924,15 @@ int launch_c1_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float*
 extern "C" int d2_site_launch(const __nv_bfloat16* x, const float* a, const float* c,
                               const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out,
                               float* part, float* sums, int B, int H, int W, void* stream) {
-  return launch_d2_wgmma(x, a, c, w, bias, out, part, sums, B, H, W, stream);
+  return launch_d2_wgmma<false>(x, a, c, w, bias, out, part, sums, B, H, W, stream);
+}
+
+// K9a with an f32 x (float32: deconv1's f32 raw, read unrounded; 16-byte
+// aligned), its other arguments as d2_site_launch's.
+extern "C" int d2_site_f32_launch(const float* x, const float* a, const float* c,
+                                  const __nv_bfloat16* w, const float* bias, __nv_bfloat16* out,
+                                  float* part, float* sums, int B, int H, int W, void* stream) {
+  return launch_d2_wgmma<true>(x, a, c, w, bias, out, part, sums, B, H, W, stream);
 }
 
 // K9a on its previous core (site_kernel_bf16<64, 1>: 8 x 32 tiles on 64
@@ -2898,7 +3002,18 @@ extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const floa
   RowsArgs p = {};
   p.x = x; p.a = a; p.c = c; p.w = w; p.out = out;
   p.B = B; p.H = H; p.W = W;
-  return launch_d3rows_wgmma(p, stream);
+  return launch_d3rows_wgmma<false>(p, stream);
+}
+
+// K9e with the raw x in f32 (float32: the d2 raw, read unrounded; 16-byte
+// aligned), its other arguments as d3_rows_launch's.
+extern "C" int d3_rows_f32_launch(const float* x, const float* a, const float* c,
+                                  const __nv_bfloat16* w, __nv_bfloat16* out, int B, int H, int W,
+                                  void* stream) {
+  RowsArgs p = {};
+  p.x32 = x; p.a = a; p.c = c; p.w = w; p.out = out;
+  p.B = B; p.H = H; p.W = W;
+  return launch_d3rows_wgmma<true>(p, stream);
 }
 
 // K9e on its previous core (rows_kernel_bf16<false>), for timing only.
@@ -2913,6 +3028,8 @@ extern "C" int d3_rows_prev_launch(const __nv_bfloat16* x, const float* a, const
 
 // Dynamic shared memory of K9e's block (d3rows_wgmma_kernel).
 extern "C" int d3_rows_smem_bytes() { return (int)D3RowsW::bytes; }
+// ... and of its f32 form's.
+extern "C" int d3_rows_f32_smem_bytes() { return (int)D3RowsW::bytes_f32; }
 
 // K9b: out[b,y,x,o] = bf16(Σ_dy rows[y+dy][12*dy+o] + bias[o]) over the same
 // rows (x 16-byte aligned); on the bf16 tensor cores (d3sum_mma_kernel).

@@ -788,7 +788,10 @@ __device__ unsigned long long mma_phase_clocks[kPhaseBlocks][kPhases];
 // in combine, and K3's residual y, read in the store pass; each 8-channel
 // chunk is two 16-byte loads. The bf16 instances compile without them.
 // GEO (Geo): the tap geometry; the 2x2 forms are K4's and K3's under the
-// zero halo (ZERO for K4; K3 carries it in its codes).
+// zero halo (ZERO for K4; K3 carries it in its codes). K4's 2x2 forms also
+// take the f32 x (F32IN): the NST and Torch7 float32 chains hand conv2's
+// and deconv1's sites the f32 tensor; the stage reads it as for the 3x3
+// taps, the haloed tile being the same.
 // K4 and K5 under the zero halo also take the content width sw: their
 // input codes in columns >= sw are 0 (K5 still writes v there) and the sums
 // leave those columns out, as _quant_zero and the SW masks of the Pallas
@@ -809,9 +812,9 @@ __global__ void __launch_bounds__(kMThreads, 1)
   static_assert(!F32IN || (!TAU && (PRO == kQuant || PRO == kCodes || is_skip(PRO)) &&
                            EPI != kRaw),
                 "the f32 operand is K2's or K4's x, K5's yp or K3's y");
-  static_assert(GEO == kGeo33 || (!F32IN && ((PRO == kQuant && EPI == kRawStats && ZERO) ||
-                                             (PRO == kCodes && EPI == kSiteS8))),
-                "the 2x2 taps are K4's (zero halo) and K3's");
+  static_assert(GEO == kGeo33 || (PRO == kQuant && EPI == kRawStats && ZERO) ||
+                    (!F32IN && PRO == kCodes && EPI == kSiteS8),
+                "the 2x2 taps are K4's (zero halo; also with the f32 x) and K3's");
   using TP = Taps<GEO>;
   constexpr bool F32Q = F32IN && PRO == kQuant;  // K2, K4: x is f32, quantized in stage
   using S = MmaSmem<C>;
@@ -1451,9 +1454,20 @@ int launch_mma_probe(const Args& p, int C, float* sums, void* stream) {
 // at 64 and 128 (Torch7); K5 at 128 (Johnson), kSkipAct at 192 (ReCoNet),
 // and under the zero halo at 64 and 128 (Torch7); K2 at 128 (Johnson; under
 // the zero halo with sw, NST_Train) and 192 (ReCoNet, with the floored emit
-// too); K3 at 128 and 192. No floor (tau) on K4's.
+// too; under the edge halo also at CO = 384, its static-norm d1); K3 at 128
+// and 192. No floor (tau) on K4's. K4's 2x2 taps at pads 1 and 0 under the
+// zero halo at C = 128 (conv2 and deconv1 of the NST and Torch7 nets); K3's
+// 2x2 form reads no f32 operand on any path (its residual is never added).
 int launch_mma_f32_k4(const Args& p, int C, float* sums, cudaStream_t s) {
-  if (!valid(p) || p.tau != nullptr || p.geo != kGeo33) return (int)cudaErrorInvalidValue;
+  if (!valid(p) || p.tau != nullptr) return (int)cudaErrorInvalidValue;
+  if (p.geo != kGeo33) {  // the 2x2 forms: zero halo, C = 128
+    if (p.halo != kHaloZero || C != 128) return (int)cudaErrorInvalidValue;
+    if (p.geo == kGeo22p1)
+      return launch_mma_c<128, kQuant, kRawStats, false, true, true, kGeo22p1>(p, sums, s);
+    if (p.geo == kGeo22p0)
+      return launch_mma_c<128, kQuant, kRawStats, false, true, true, kGeo22p0>(p, sums, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (p.halo == kHaloZero) {
     if (C == 128) return launch_mma_c<128, kQuant, kRawStats, false, true, true>(p, sums, s);
     if (C == 64) return launch_mma_c<64, kQuant, kRawStats, false, true, true>(p, sums, s);
@@ -1482,6 +1496,7 @@ int launch_mma_f32_k5(const Args& p, int C, float* sums, cudaStream_t s) {
 
 int launch_mma_f32_k2(const Args& p, int C, bool floored, cudaStream_t s) {
   if (!valid(p)) return (int)cudaErrorInvalidValue;
+  if (C == 192 && p.CO != 192 && !(p.CO == 384 && p.halo == 1)) return (int)cudaErrorInvalidValue;
   if (floored) {
     if (C == 192 && p.halo != kHaloZero)
       return launch_mma_c<192, kQuant, kEmitS8F, false, false, true>(p, nullptr, s);
@@ -1534,11 +1549,12 @@ static_assert(s2_plane_off(1, 1) + s2_plane_rows(1) * s2_plane_cols(1) == kSPix,
 // at C <= 128. Shared memory: the weights; the planes of codes (pixel stride
 // C + 16 bytes: the eight pixels an ldmatrix reads, consecutive in a plane,
 // sit in 32 distinct banks), the staged bf16 outputs over them after the
-// MMAs; ws, bias and the sums of each row warp; the raw bf16 input tile. In
-// bytes (weights + planes + rows + raw tile):
+// MMAs; ws, bias and the sums of each row warp; the raw input tile (bf16, or
+// f32 under F32IN). In bytes (weights + planes + rows + raw tile):
 //   K8a <32, 64>:   27,648 + 26,928 + 4,608 + 35,904 =  95,088, two blocks an SM
+//   K8a f32 input:  27,648 + 26,928 + 4,608 + 71,808 = 130,992, one block an SM
 //   K8b <64, 128>:  92,160 + 44,880 + 5,120 + 71,808 = 213,968, one block an SM
-template <int C, int MCO>
+template <int C, int MCO, bool F32IN = false>
 struct MmaS2Smem {
   static constexpr int RW = kMThreads / 32 / (MCO / 64);  // row warps
   static constexpr int MI = kMRows / RW;                  // tile rows a warp
@@ -1547,9 +1563,9 @@ struct MmaS2Smem {
   static constexpr int W = 9 * MCO * PX;
   static constexpr int X = kSPix * PX > kMRows * kMCols * OUT ? kSPix * PX : kMRows * kMCols * OUT;
   static constexpr int ROWS = sizeof(float) * (2 + 2 * RW) * MCO;
-  static constexpr int RAW = kSPix * 2 * C;
+  static constexpr int RAW = kSPix * (F32IN ? 4 : 2) * C;
   static constexpr size_t bytes = W + X + ROWS + RAW;
-  static constexpr int BLOCKS = MCO == 64 ? 2 : 1;  // blocks an SM
+  static constexpr int BLOCKS = MCO == 64 && !F32IN ? 2 : 1;  // blocks an SM
   static_assert(bytes <= 232448 && BLOCKS * (bytes + 1024) <= 233472,
                 "the blocks fit in an SM's shared memory");
 };
@@ -1587,11 +1603,15 @@ struct MmaS2In {
 // MMAs a row. The raw bf16 input of the next tile is brought into shared
 // memory by cp.async, issued as soon as the current one is quantized, so
 // those loads run through the MMAs, the epilogue and the stores of the tile
-// before it (see the top of the file for the choices).
-template <int C, int MCO>
-__global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
+// before it (see the top of the file for the choices). F32IN (K8a under
+// float32: conv1's f32 output, which the Pallas prologue reads unrounded):
+// the raw tile is f32, two 16-byte copies a chunk into a staging slot of
+// twice the size, quantized from there; the block then no longer fits
+// twice in an SM and runs one an SM.
+template <int C, int MCO, bool F32IN>
+__global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO, F32IN>::BLOCKS)
     mma_s2_kernel(Args p, int tiles_x, int tiles, int per_half) {
-  using S = MmaS2Smem<C, MCO>;
+  using S = MmaS2Smem<C, MCO, F32IN>;
   using In = MmaS2In<C>;
   constexpr int PX = S::PX, OUT = S::OUT, RW = S::RW, MI = S::MI;
   constexpr int CW = C / 4, KC = C / 32, KS = 9 * KC;
@@ -1604,7 +1624,8 @@ __global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
   uint8_t* s_x = smem8 + S::W;                            // parity planes of codes, then outputs
   float* s_rows = reinterpret_cast<float*>(s_x + S::X);   // ws, bias [MCO]
   float* s_sum = s_rows + 2 * MCO;                        // [RW][2][MCO]
-  uint8_t* s_raw = reinterpret_cast<uint8_t*>(s_rows) + S::ROWS;  // [kSPix][C] bf16
+  uint8_t* s_raw = reinterpret_cast<uint8_t*>(s_rows) + S::ROWS;  // [kSPix][C] bf16 or f32
+  constexpr int RB = F32IN ? 4 : 2;  // bytes a raw channel
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rw = warp % RW, cw = warp / RW;  // row warp, 64-channel warp
@@ -1622,9 +1643,8 @@ __global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
     if (id < total) {
       const int b = id / tiles, t = id % tiles;
       const int iy0 = 2 * (t / tiles_x) * kMRows - 1, ix0 = 2 * (t % tiles_x) * kMCols - 1;
-      const __nv_bfloat16* img = static_cast<const __nv_bfloat16*>(p.x) +
-                                 (size_t)b * p.Hi * p.Wi * C + chunk * 8;
-      const uint32_t dst = smem_addr(s_raw) + chunk * 16;
+      const size_t img = (size_t)b * p.Hi * p.Wi * C + chunk * 8;
+      const uint32_t dst = smem_addr(s_raw) + chunk * 8 * RB;
       const bool inner = iy0 >= 0 && ix0 >= 0 && iy0 + kSHR <= p.Hi && ix0 + kSHC <= p.Wi;
 #pragma unroll UN
       for (int k = 0; k < In::NI; ++k) {
@@ -1635,21 +1655,41 @@ __global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
             sy = src_index(sy, p.Hi, 0);
             sx = src_index(sx, p.Wi, 0);
           }
-          cp_async16(dst + px * 2 * C, img + (sy * p.Wi + sx) * C, true);
+          const size_t off = img + (size_t)(sy * p.Wi + sx) * C;
+          if (F32IN) {
+            const float* src = static_cast<const float*>(p.x) + off;
+            cp_async16(dst + px * RB * C, src, true);
+            cp_async16(dst + px * RB * C + 16, src + 4, true);
+          } else {
+            cp_async16(dst + px * RB * C, static_cast<const __nv_bfloat16*>(p.x) + off, true);
+          }
         }
       }
     }
     cp_async_commit();
   };
-  // 8 bf16 channels (a 16-byte chunk) quantized into staged pixel px
-  auto put = [&](int px, uint4 raw, const float (&qa)[8], const float (&qc)[8], float lo) {
-    const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+  // 8 channels (a 16-byte bf16 chunk, or two of f32) quantized into staged
+  // pixel px
+  auto put = [&](int px, const uint8_t* raw, const float (&qa)[8], const float (&qc)[8],
+                 float lo) {
+    float v[8];
+    if (F32IN) {
+      const float4 u = *reinterpret_cast<const float4*>(raw);
+      const float4 w = *reinterpret_cast<const float4*>(raw + 16);
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+    } else {
+      const uint4 r = *reinterpret_cast<const uint4*>(raw);
+      const uint32_t w4[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] = bf16_lo(w4[j]);
+        v[2 * j + 1] = bf16_hi(w4[j]);
+      }
+    }
     int q[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], lo);
-      q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], lo);
-    }
+    for (int j = 0; j < 8; ++j) q[j] = quantize_i(v[j], qa[j], qc[j], lo);
     *reinterpret_cast<uint2*>(s_x + s2_pixel(px / kSHC, px % kSHC) * PX + chunk * 8) =
         make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
   };
@@ -1663,11 +1703,11 @@ __global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
       qc[j] = __ldg(p.c + b * C + chunk * 8 + j);
     }
     const float lo = p.lo;
-    const uint8_t* src = s_raw + chunk * 16;
+    const uint8_t* src = s_raw + chunk * 8 * RB;
 #pragma unroll UN
     for (int k = 0; k < In::NI; ++k) {
       const int px = p0 + k * In::PPI;
-      if (px < kSPix) put(px, *reinterpret_cast<const uint4*>(src + px * 2 * C), qa, qc, lo);
+      if (px < kSPix) put(px, src + px * RB * C, qa, qc, lo);
     }
   };
 
@@ -1821,11 +1861,11 @@ __global__ void __launch_bounds__(kMThreads, MmaS2Smem<C, MCO>::BLOCKS)
   MMA_PHASE_END
 }
 
-template <int C, int MCO>
+template <int C, int MCO, bool F32IN = false>
 int launch_mma_s2(const Args& p, float* sums, cudaStream_t stream) {
-  using S = MmaS2Smem<C, MCO>;
+  using S = MmaS2Smem<C, MCO, F32IN>;
   if (p.CO % MCO) return (int)cudaErrorInvalidValue;
-  auto kern = mma_s2_kernel<C, MCO>;
+  auto kern = mma_s2_kernel<C, MCO, F32IN>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::bytes);
   if (err != cudaSuccess) return (int)err;
@@ -2769,6 +2809,21 @@ extern "C" int site_s2_launch(const void* x, const float* a, const float* c,
                               __nv_bfloat16* out, float* part, float* sums, int B, int H,
                               int W, int C, int CO, float lo, void* stream) {
   return site_s2_args(false, x, a, c, wk, ws, bias, out, part, sums, B, H, W, C, CO, lo, stream);
+}
+
+// K8a with an f32 x (float32: conv1's f32 output; C = 32, CO % 64 == 0, x
+// 16-byte aligned), its other arguments as site_s2_launch's.
+extern "C" int site_s2_f32_launch(const float* x, const float* a, const float* c,
+                                  const int32_t* wk, const float* ws, const float* bias,
+                                  __nv_bfloat16* out, float* part, float* sums, int B, int H,
+                                  int W, int C, int CO, float lo, void* stream) {
+  Args p = make_args(B, H / 2, W / 2, CO, lo, 0);
+  p.Hi = H;
+  p.Wi = W;
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.bias = bias;
+  p.out = out; p.part = part;
+  if (!valid(p) || H % 2 || W % 2 || C != 32) return (int)cudaErrorInvalidValue;
+  return launch_mma_s2<32, 64, true>(p, sums, static_cast<cudaStream_t>(stream));
 }
 
 // K8a / K8b on the previous __dp4a core (site_kernel<C, 2>), for timing only.

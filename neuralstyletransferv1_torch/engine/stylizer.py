@@ -336,15 +336,11 @@ def _stylizer(model: StyleModel, dtype: torch.dtype, quantize: str, fused_sites,
         if unknown:
             raise ValueError(f"unknown fused sites {unknown}; known: {tq.FUSED_SITE_NAMES}")
     bf16_sites = set(fused_sites or ()) & set(sites_bf16.BF16_SITE_NAMES)
-    if bf16_sites and dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"fused sites {sorted(bf16_sites)} run under bfloat16 only: ROADMAP.md Queue 2, "
-            "row 3 (the float32 forms)")
     net = model.net if dtype == torch.float32 else copy.deepcopy(model.net).to(dtype)
     dev = _net_device(model)
     sw = None
     if bf16_sites:
-        sw = sites_bf16.prepare(model.net, dev)
+        sw = sites_bf16.prepare(model.net, dev, dtype)
 
     def plain(t):
         return net(t, fused_sites=fused_sites or (), site_weights=sw)

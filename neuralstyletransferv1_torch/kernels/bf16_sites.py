@@ -93,9 +93,20 @@ those block weights, so here they are pixel convs. Products of two bf16
 values are exact in f32: implementations differ only in the order of the f32
 accumulation, i.e. by isolated bf16 ulps after the round.
 
-Shapes: x [B,H,W,C] bf16, a/c [B,C] f32, site weights ``pack_site_weights``
-[9,CO,C] bf16, rows weights ``pack_rows_weights`` [5,64,128] bf16 (lanes
-60..63 zero), bias [CO] / [12] f32; K10 takes the experiments' operands as
+Under float32 K9a and K9e read an f32 raw x (deconv1's raw on the 2× grid,
+the d2 raw), which the Pallas prologue reads unrounded, x' =
+bf16(max(x·a + c, 0)): each wrapper takes x as bf16 or f32 and, on the
+card, launches the matching form (``F32_FORMS``, counted in
+``F32_LAUNCHES``). K9a's f32 tile does not fit twice beside its resident
+weights, so its f32 form has no TMA for x: the consumers' activation reads
+each piece's eight f32 channels from device memory into the bf16 tile
+(the edge halo as clamped source pixels). K9e's producer copies the f32
+raw row by cp.async into an f32 staging slot beside each bf16 row buffer
+and activates from there. K9b reads K9a's bf16 output and has no such form.
+
+Shapes: x [B,H,W,C] bf16 (K9a, K9e: or f32), a/c [B,C] f32, site weights
+``pack_site_weights`` [9,CO,C] bf16, rows weights ``pack_rows_weights``
+[5,64,128] bf16 (lanes 60..63 zero), bias [CO] / [12] f32; K10 takes the experiments' operands as
 they are: stat [B,2,C] f32 (a, c), w9 [9,C,CO] bf16; K11 w [5,5,12,128]
 bf16 (HWIO). Each wrapper dispatches on the tensors'
 device: CPU → the ``*_plain`` version, CUDA → the kernel or an error; no
@@ -117,6 +128,10 @@ from .int8_sites import _check, _check_aligned, _ptr, _stream
 _SOURCE = "bf16_sites.cu"
 LAUNCHES = {"d2_site": 0, "d3_sum_site": 0, "c2_site_bf16": 0, "c3_site_bf16": 0, "d3_rows": 0,
             "fused_conv": 0, "c1_site": 0}
+#: the f32-raw forms of K9a and K9e (float32), each counted under its own
+#: name in ``F32_LAUNCHES``
+F32_FORMS = {"d2_site": "d2_site_f32", "d3_rows": "d3_rows_f32"}
+F32_LAUNCHES = dict.fromkeys(F32_FORMS.values(), 0)
 D3_C, D3_LANES, D3_PAD, D3_OUT = 128, 60, 64, 12
 #: K10's prologue forms, as the kernel numbers them
 PROLOGUES = {"f32": 0, "none": 1, "bf16": 2}
@@ -541,6 +556,8 @@ def _lib():
     P, I = ctypes.c_void_p, ctypes.c_int
     site = [P] * 8 + [I] * 3 + [P]
     sigs = {"d2_site_launch": site, "d2_site_prev_launch": site, "d2_wgmma_smem_bytes": [],
+            "d2_site_f32_launch": site, "d3_rows_f32_launch": [P] * 5 + [I] * 3 + [P],
+            "d3_rows_f32_smem_bytes": [],
             "c2_site_bf16_launch": site, "c3_site_bf16_launch": site,
             "c2_site_bf16_prev_launch": site, "c3_site_bf16_prev_launch": site,
             "s2_bf16_smem_bytes": [I],
@@ -561,12 +578,28 @@ def _lib():
     return lib
 
 
-def _run(kernel, fn, *args, count=True):
+def _run(kernel, fn, *args, count=True, f32=None):
+    """Launch; count it in ``LAUNCHES[kernel]``, or in ``F32_LAUNCHES[f32]``
+    for an f32 form."""
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     if count:
-        LAUNCHES[kernel] += 1
+        (F32_LAUNCHES if f32 else LAUNCHES)[f32 or kernel] += 1
+
+
+def _f32_form(kernel: str, x: torch.Tensor, prev: bool = False) -> str | None:
+    """The name ``kernel``'s f32 form counts under where x is float32, None
+    where it is bf16; other dtypes, and an f32 x for a kernel or core
+    without that form, raise."""
+    if x.dtype == torch.bfloat16:
+        return None
+    if x.dtype != torch.float32:
+        raise TypeError(f"{kernel}: x must be bf16 or f32, got {x.dtype}")
+    if kernel not in F32_FORMS or prev:
+        raise TypeError(f"{kernel}{'_prev' if prev else ''}: no form with an f32 x "
+                        f"(built: {sorted(F32_FORMS)}, on the current cores)")
+    return F32_FORMS[kernel]
 
 
 def _site(k, x, a, c, w, bias, prev=False):
@@ -584,7 +617,8 @@ def _site(k, x, a, c, w, bias, prev=False):
     if H < 2 or W < 2 or (stride == 2 and (H % 2 or W % 2)):
         raise ValueError(f"{k}: H={H}, W={W}: needs at least 2 pixels"
                          + (" and an even size" if stride == 2 else ""))
-    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    f32 = _f32_form(k, x, prev)
+    _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, C), dev)
     _check(k, "weights", w, torch.bfloat16, (9, co, C), dev)
@@ -600,17 +634,18 @@ def _site(k, x, a, c, w, bias, prev=False):
     part = torch.empty((B, slots, 2, co), dtype=torch.float32, device=dev)
     sums = torch.empty((B, 2, co), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _run(k, getattr(_lib(), f"{k}_prev_launch" if prev else f"{k}_launch"), x.data_ptr(),
+        fn = f"{k}_prev_launch" if prev else f"{k}_f32_launch" if f32 else f"{k}_launch"
+        _run(k, getattr(_lib(), fn), x.data_ptr(),
              a.data_ptr(), c.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             part.data_ptr(), sums.data_ptr(), B, H, W, _stream(dev), count=not prev)
+             part.data_ptr(), sums.data_ptr(), B, H, W, _stream(dev), count=not prev, f32=f32)
     return out, sums
 
 
 def d2_site(x, a, c, w, bias):
     """K9a: deconv2 in its phase form. x: deconv1's raw output on the 2×
-    grid [B,H,W,64]; a, c: the in4 affine; w: ``pack_site_weights`` of the
-    phase weights [3,3,64,128]; bias [128] (the conv bias tiled over the 4
-    phases). Returns (bf16 raw [B,H,W,128], f32 [B,2,128] sums of the f32
+    grid [B,H,W,64] (bf16, or f32 under float32); a, c: the in4 affine; w:
+    ``pack_site_weights`` of the phase weights [3,3,64,128]; bias [128] (the
+    conv bias tiled over the 4 phases). Returns (bf16 raw [B,H,W,128], f32 [B,2,128] sums of the f32
     results over H, W; the caller folds the 4 phases). On the card:
     ``d2_wgmma_kernel`` (x and w 16-byte aligned)."""
     return _site("d2_site", x, a, c, w, bias)
@@ -650,7 +685,7 @@ def c3_site_bf16_prev(x, a, c, w, bias):
     return _site("c3_site_bf16", x, a, c, w, bias, prev=True)
 
 
-def _check_rows(k, x, a, c, w):
+def _check_rows(k, x, a, c, w, f32=False):
     dev = x.device
     if dev.type != "cuda":
         raise NotImplementedError(f"{k}: no kernel for device {dev}")
@@ -659,7 +694,7 @@ def _check_rows(k, x, a, c, w):
         raise ValueError(f"{k}: C={C}, the kernel is built for C={D3_C}")
     if H < 3 or W < 3:
         raise ValueError(f"{k}: H={H}, W={W}: the 4-pixel reflect halo needs at least 3 blocks")
-    _check(k, "x", x, torch.bfloat16, (B, H, W, D3_C), dev)
+    _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, D3_C), dev)
     for name, t in (("a", a), ("c", c)):
         _check(k, name, t, torch.float32, (B, D3_C), dev)
     _check(k, "weights", w, torch.bfloat16, (5, D3_PAD, D3_C), dev)
@@ -667,7 +702,8 @@ def _check_rows(k, x, a, c, w):
 
 
 def d3_rows(x, a, c, w):
-    """K9e: the d2 raw x [B,H,W,128] (4 phases × 32) with the in5 affine
+    """K9e: the d2 raw x [B,H,W,128] (4 phases × 32; bf16, or f32 under
+    float32) with the in5 affine
     (a, c [B,128], tiled over the phases) → the tap-packed 1×5 conv's bf16
     rows [B,H+4,W,60] on the reflect-padded grid (no bias; row R+2 is block
     row R of the unpadded grid). On the card: ``d3rows_wgmma_kernel`` (x and
@@ -686,15 +722,17 @@ def d3_rows_prev(x, a, c, w):
 
 def _d3_rows(x, a, c, w, prev):
     k = "d3_rows"
-    dev, B, H, W = _check_rows(k, x, a, c, w)
+    f32 = _f32_form(k, x, prev) if x.device.type == "cuda" else None
+    dev, B, H, W = _check_rows(k, x, a, c, w, f32)
     if not prev:  # read 16 bytes at a time by cp.async
         for name, t in (("x", x), ("weights", w)):
             _check_aligned(k, name, t)
     out = torch.empty((B, H + 4, W, D3_LANES), dtype=torch.bfloat16, device=dev)
-    fn = _lib().d3_rows_prev_launch if prev else _lib().d3_rows_launch
+    fn = (_lib().d3_rows_prev_launch if prev else
+          _lib().d3_rows_f32_launch if f32 else _lib().d3_rows_launch)
     with torch.cuda.device(dev):
         _run(k, fn, x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), B,
-             H, W, _stream(dev), count=not prev)
+             H, W, _stream(dev), count=not prev, f32=f32)
     return out
 
 

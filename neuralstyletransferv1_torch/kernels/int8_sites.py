@@ -93,12 +93,15 @@ with zero column pads; the weights, ``ws`` and lanes are zero-padded to 64
                         (``d3_s8_site`` / ``_d3s8_kernel``)
 
 The float32 chains hand an f32 tensor to the first sites of the res chain
-(K2's and K4's x, K5's residual yp, K3's residual y); the Pallas bodies read
-it with ``astype(float32)``, so it enters the arithmetic unrounded. Each
-wrapper takes that operand as bf16 or f32 and, on the card, launches the
-matching form (``F32_FORMS``: the f32 forms are their own instances of the
-tensor-core core, counted in ``F32_LAUNCHES``); the plain versions compute
-both.
+(K2's and K4's x, K5's residual yp, K3's residual y), to conv2's site
+(K8a's x: conv1's f32 output; K4's 2×2 pad-1 form on the NST and Torch7
+nets) and to deconv1's (K4's 2×2 pad-0 form, ReCoNet's K2 at CO = 384);
+the Pallas bodies read it with ``astype(float32)``, so it enters the
+arithmetic unrounded. Each wrapper takes that operand as bf16 or f32 and,
+on the card, launches the matching form (``F32_FORMS``: the f32 forms are
+their own instances of the tensor-core cores, counted in ``F32_LAUNCHES``); the plain versions compute both. K3's
+2×2 form has no f32 form: its one f32 operand would be the residual, which
+no 2×2 site adds.
 
 Rounding contract, every step a separate IEEE f32 operation:
 quantize q = clamp(round_half_even(x·a + c), lo, 127); dequant
@@ -149,17 +152,27 @@ _QUEUE2 = "ROADMAP.md Queue 2"
 #: in ``PROBE_LAUNCHES`` (``LAUNCHES``' keys name the wrapper functions)
 K4_PROBE_FORMS = {("cast", True): "res_site_cast", ("quant", False): "res_site_nostats"}
 PROBE_LAUNCHES = dict.fromkeys(K4_PROBE_FORMS.values(), 0)
-#: the f32-operand forms of K2-K5, which the float32 chains' first sites run
-#: (K2's and K4's x, K5's yp, K3's y f32; each wrapper takes them by the
-#: operand's dtype), each counted under its own name in ``F32_LAUNCHES``
-F32_FORMS = {"res_site_s8o": "res_site_s8o_f32", "site_s8": "site_s8_f32",
-             "res_site": "res_site_f32", "res_site_skip": "res_site_skip_f32"}
-F32_LAUNCHES = dict.fromkeys(F32_FORMS.values(), 0)
-#: the input channel counts each f32 form is built for: (reflect or edge
-#: halo, zero halo); K2's floored emit and K5's ``act`` at RECO_C only, K4's
-#: without ``tau``, K3's with the residual
-F32_C = {"res_site_s8o": ((128, 192), (128,)), "site_s8": ((128, 192), (128, 192)),
-         "res_site": ((128, 192), (64, 128)), "res_site_skip": ((128,), (64, 128))}
+#: the f32-operand forms, which the float32 chains' first sites run (K2's,
+#: K4's and K8a's x, K5's yp, K3's y f32; each wrapper takes them by the
+#: operand's dtype): (wrapper, form) → (the name each counts its launches
+#: under in ``F32_LAUNCHES``, the input channel counts built under the
+#: reflect or edge halo, and under the zero halo). Forms: "3x3" (K8a: its
+#: stride-2 conv), "floor" (K2's floored emit, K5's ``act``), K4's 2×2
+#: "k2p1" (conv2 of the NST and Torch7 nets) and "k2p0" (their deconv1, with
+#: or without ``sw``), "co384" (ReCoNet's static-norm d1: K2 at C = 192 →
+#: CO = 384, either emit). K3's 2×2 form has none: its one f32 operand
+#: would be the residual, which no chain adds to a 2×2 site
+F32_FORMS = {("res_site_s8o", "3x3"): ("res_site_s8o_f32", (128, 192), (128,)),
+             ("res_site_s8o", "floor"): ("res_site_s8o_f32", (192,), ()),
+             ("res_site_s8o", "co384"): ("res_site_s8o_co384_f32", (192,), ()),
+             ("site_s8", "3x3"): ("site_s8_f32", (128, 192), (128, 192)),
+             ("res_site", "3x3"): ("res_site_f32", (128, 192), (64, 128)),
+             ("res_site", "k2p1"): ("res_site_k2p1_f32", (), (128,)),
+             ("res_site", "k2p0"): ("res_site_k2p0_f32", (), (128,)),
+             ("res_site_skip", "3x3"): ("res_site_skip_f32", (128,), (64, 128)),
+             ("res_site_skip", "floor"): ("res_site_skip_f32", (192,), ()),
+             ("c2_site", "3x3"): ("c2_site_f32", (32,), ())}
+F32_LAUNCHES = dict.fromkeys((name for name, *_ in F32_FORMS.values()), 0)
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
 #: the halos of K8 and of K4's and K5's floored forms (``tau``, ``act``)
 HALOS_RE = ("reflect", "edge")
@@ -462,6 +475,7 @@ def _lib():
         "res_site_f32_launch": [P] * 10 + dims + [Fl, I, I, I, P],
         "res_site_skip_f32_launch": [P] * 14 + dims + [Fl, I, I, P],
         "site_s2_launch": [P] * 9 + dims + [Fl, P],
+        "site_s2_f32_launch": [P] * 9 + dims + [Fl, P],
         "site_s2_prev_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
         "d3_rows_prev_launch": [P] * 6 + [I] * 3 + [P],
@@ -539,22 +553,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _f32_form(kernel, t, halo, floored=False):
-    """Whether operand ``t`` selects ``kernel``'s f32 form (float32) or its
-    bf16 form (bfloat16); the f32 forms' channel counts and halos are
-    checked here, as ``F32_C`` lists them."""
+def _f32_form(kernel, t, halo, floored=False, form="3x3"):
+    """``_run``'s counter of ``kernel``'s f32 form ``form`` (its "floor" form
+    where ``floored``) where operand ``t`` is float32, None where it is
+    bf16; a channel count or halo that ``F32_FORMS`` does not list for the
+    form raises."""
     if t.dtype == torch.bfloat16:
-        return False
+        return None
     if t.dtype != torch.float32:
         raise TypeError(f"{kernel}: the operand must be bf16 or f32, got {t.dtype}")
+    if floored and form == "3x3":
+        form = "floor"
+    name, *built = F32_FORMS.get((kernel, form), (None, (), ()))
+    built = built[halo == "zero"]
     C = t.shape[-1]
-    built = F32_C[kernel][halo == "zero"]
-    if floored and kernel in ("res_site_s8o", "res_site_skip"):
-        built = (RECO_C,) if halo != "zero" else ()
     if C not in built:
         raise ValueError(f"{kernel}: no f32 form at C={C} with the {halo} halo"
-                         + (" and a floor" if floored else "") + f" (built: {built})")
-    return True
+                         + (" and a floor" if floored else "")
+                         + ("" if form in ("3x3", "floor") else f" ({form})")
+                         + f" (built: {built})")
+    return {"name": name, "counts": F32_LAUNCHES}
 
 
 def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="reflect",
@@ -569,9 +587,12 @@ def res_site_s8o(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, halo="
     if x.device.type == "cpu":
         return res_site_s8o_plain(x, a, c, lo, wk, ws, bias, qa, qc, qlo=qlo, tau=tau,
                                   halo=halo, sw=sw)
-    if _f32_form("res_site_s8o", x, halo, tau is not None or qlo != 0.0):
+    co384 = x.shape[-1] == RECO_C and ws.shape[0] != RECO_C
+    f32 = _f32_form("res_site_s8o", x, halo, tau is not None or qlo != 0.0,
+                    "co384" if co384 else "3x3")
+    if f32:
         return _res_site_s8o("res_site_s8o_f32_launch", True, x, a, c, lo, wk, ws, bias, qa,
-                             qc, qlo, tau, halo, sw, f32=True)
+                             qc, qlo, tau, halo, sw, f32=f32)
     return _res_site_s8o("res_site_s8o_launch", True, x, a, c, lo, wk, ws, bias, qa, qc, qlo,
                          tau, halo, sw)
 
@@ -586,19 +607,17 @@ def res_site_s8o_prev(x, a, c, lo, wk, ws, bias, qa, qc, *, qlo=0.0, tau=None, h
 
 
 def _res_site_s8o(fn, count, x, a, c, lo, wk, ws, bias, qa, qc, qlo, tau, halo, sw,
-                  f32=False):
+                  f32=None):
     k = "res_site_s8o"
     floored = tau is not None or qlo != 0.0
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo,
                                       halos=_zero_halos(x.shape[-1], floored),
                                       kernel_c=(RECO_C,) if floored else None)
     _check_sw(k, halo, sw, W)
-    counter = _counter(k, f32)
+    counter = f32 or {}
     if C == RECO_C and CO != C:
         form = _reco_dec_form(k, C, CO, halo)
-        if f32:
-            raise NotImplementedError(f"{k}: no f32 form at C={C} -> CO={CO}: {_QUEUE2} row 3")
-        counter = {"name": form, "counts": FORM_LAUNCHES}
+        counter = f32 or {"name": form, "counts": FORM_LAUNCHES}
     _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     _check_aligned(k, "x", x)
     for name, t in (("a", a), ("c", c)):
@@ -628,11 +647,6 @@ def _reco_dec_form(kernel, C, CO, halo, bare=True) -> str:
     return name
 
 
-def _counter(kernel, f32):
-    """``_run``'s counter of ``kernel``'s f32 form, or of its bf16 form."""
-    return {"name": F32_FORMS[kernel], "counts": F32_LAUNCHES} if f32 else {}
-
-
 def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
             qlo=0.0, halo="reflect", sw=None, kh=3, kw=3, pt=1, pl_=1, halo_out=None):
     """K3: int8 conv of s8 codes (3×3, or under the zero halo 2×2 at pads
@@ -649,11 +663,13 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
                              halo=halo, sw=sw, kh=kh, kw=kw, pt=pt, pl_=pl_, halo_out=halo_out)
     _check_halo_out(halo, halo_out, qa)
     geo = _geo("site_s8", halo, kh, kw, pt, pl_)
-    if y is not None and _f32_form("site_s8", y, halo):
-        if geo:
-            raise NotImplementedError(f"site_s8: no f32 form with 2x2 taps: {_QUEUE2}")
+    if y is not None and geo and y.dtype == torch.float32:
+        raise NotImplementedError("site_s8: no f32 form with 2x2 taps: the residual is its "
+                                  "one f32 operand, and no chain adds one to a 2x2 site")
+    f32 = None if y is None else _f32_form("site_s8", y, halo)
+    if f32:
         return _site_s8("site_s8_f32_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
-                        qlo, halo, sw, f32=True)
+                        qlo, halo, sw, f32=f32)
     return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo,
                     sw, geo=geo)
 
@@ -667,7 +683,7 @@ def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=No
                     qlo, halo, sw)
 
 
-def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=False,
+def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=None,
              geo=0):
     k = "site_s8"
     c96 = RECO_DEC_FORMS[k][0]
@@ -703,8 +719,7 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
     dtype = torch.int8 if qa is not None else torch.bfloat16
     out = torch.empty((B, H, W, CO), dtype=dtype, device=dev)
     extra = (geo,) if fn == "site_s8_launch" else ()
-    counter = {"name": GEO_FORMS[(k, geo)], "counts": FORM_LAUNCHES} if geo else \
-        _counter(k, f32)
+    counter = {"name": GEO_FORMS[(k, geo)], "counts": FORM_LAUNCHES} if geo else f32 or {}
     if C == c96:
         counter = {"name": _reco_dec_form(k, C, CO, halo, bare=flags == 0 and sw is None),
                    "counts": FORM_LAUNCHES}
@@ -747,13 +762,10 @@ def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="q
     _check_sw("res_site", halo, sw, x.shape[2])
     if (prologue, stats) != ("quant", True):
         return _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats)
-    if _f32_form("res_site", x, halo):
-        if tau is not None:
-            raise ValueError("res_site: the f32 form takes no tau")
-        if geo:
-            raise NotImplementedError(f"res_site: no f32 form with 2x2 taps: {_QUEUE2}")
+    f32 = _f32_form("res_site", x, halo, tau is not None, ("3x3", "k2p1", "k2p0")[geo])
+    if f32:
         return _res_site("res_site_f32_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo,
-                         None, f32=True, sw=sw)
+                         None, f32=f32, geo=geo, sw=sw)
     return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau,
                      geo=geo, sw=sw)
 
@@ -800,7 +812,7 @@ def _zero_halos(C: int, floored: bool) -> tuple:
 
 
 def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=None,
-              f32=False, geo=0, sw=None):
+              f32=None, geo=0, sw=None):
     k = "res_site"
     if tau is not None:
         kernel_c = TAU_C
@@ -818,7 +830,7 @@ def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=No
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
     extra = (geo, sw or W) if count else ()
     name = GEO_FORMS.get((k, geo)) or _sw_form(k, sw, W)
-    counter = {"name": name, "counts": FORM_LAUNCHES} if name and not f32 else _counter(k, f32)
+    counter = f32 or ({"name": name, "counts": FORM_LAUNCHES} if name else {})
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(), _ptr(tau),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
@@ -843,9 +855,10 @@ def res_site_skip(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect", you
                                    pt=pt, pl_=pl_)
     _geo("res_site_skip", halo, kh, kw, pt, pl_)
     _check_sw("res_site_skip", halo, sw, r2.shape[2])
-    if _f32_form("res_site_skip", yp, halo, act is not None):
+    f32 = _f32_form("res_site_skip", yp, halo, act is not None)
+    if f32:
         return _res_site_skip("res_site_skip_f32_launch", TILE_MMA, True, r2, yp, a, c, a2, c2,
-                              lo, wk, ws, bias, halo, yout, act, tau_act, f32=True, sw=sw)
+                              lo, wk, ws, bias, halo, yout, act, tau_act, f32=f32, sw=sw)
     return _res_site_skip("res_site_skip_launch", TILE_MMA, True, r2, yp, a, c, a2, c2, lo, wk,
                           ws, bias, halo, yout, act, tau_act, sw=sw)
 
@@ -860,7 +873,7 @@ def res_site_skip_prev(r2, yp, a, c, a2, c2, lo, wk, ws, bias, *, halo="reflect"
 
 
 def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo, yout, act,
-                   tau_act, f32=False, sw=None):
+                   tau_act, f32=None, sw=None):
     k = "res_site_skip"
     dev, B, H, W, C, CO = _check_site(k, r2, wk, ws, bias, halo,
                                       kernel_c=KERNEL_C if act is None else (RECO_C,),
@@ -879,7 +892,7 @@ def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
     extra = (sw or W,) if count else ()
     name = _sw_form(k, sw, W)
-    counter = {"name": name, "counts": FORM_LAUNCHES} if name and not f32 else _counter(k, f32)
+    counter = f32 or ({"name": name, "counts": FORM_LAUNCHES} if name else {})
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), r2.data_ptr(), yp.data_ptr(), a.data_ptr(), c.data_ptr(),
              a2.data_ptr(), c2.data_ptr(), _ptr(floor), wk.data_ptr(), ws.data_ptr(),
@@ -888,14 +901,15 @@ def _res_site_skip(fn, tile, count, r2, yp, a, c, a2, c2, lo, wk, ws, bias, halo
     return out, sums, v
 
 
-def _site_s2(k, fn, count, x, a, c, lo, wk, ws, bias):
+def _site_s2(k, fn, count, x, a, c, lo, wk, ws, bias, f32=None):
     """K8a (C = 32) and K8b (C = 64) on the int8 tensor cores
-    (``site_s2_launch``; x 16-byte aligned), or with ``count`` False on
-    their previous ``__dp4a`` core (``site_s2_prev_launch``)."""
+    (``site_s2_launch``; x 16-byte aligned), K8a with an f32 x
+    (``site_s2_f32_launch``; ``f32``, its counter), or with ``count`` False on their
+    previous ``__dp4a`` core (``site_s2_prev_launch``)."""
     dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, "reflect", kernel_c=HEAD_C)
     if H % 2 or W % 2:
         raise ValueError(f"{k}: H={H}, W={W}: the stride-2 site needs an even size")
-    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check(k, "x", x, torch.float32 if f32 else torch.bfloat16, (B, H, W, C), dev)
     if count:
         _check_aligned(k, "x", x)
         if H * W * C >= 2 ** 31:
@@ -907,17 +921,23 @@ def _site_s2(k, fn, count, x, a, c, lo, wk, ws, bias):
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), x.data_ptr(), a.data_ptr(), c.data_ptr(),
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-             sums.data_ptr(), B, H, W, C, CO, float(lo), _stream(dev), count=count)
+             sums.data_ptr(), B, H, W, C, CO, float(lo), _stream(dev), count=count,
+             **(f32 or {}))
     return out, sums
 
 
 def c2_site(x, a, c, lo, wk, ws, bias):
-    """K8a: conv2, quantize the conv1 raw x [B,H,W,32] with the folded in1
-    affine (a, c; floor ``lo``) → 3×3 stride-2 int8 conv over the pixel
-    reflect halo → bf16 raw [B,H/2,W/2,64] and its f32 [Σ, Σ²] [B,2,64].
-    On the card: the int8 tensor cores (x 16-byte aligned)."""
+    """K8a: conv2, quantize the conv1 raw x [B,H,W,32] (bf16, or f32 under
+    float32, read unrounded) with the folded in1 affine (a, c; floor ``lo``)
+    → 3×3 stride-2 int8 conv over the pixel reflect halo → bf16 raw
+    [B,H/2,W/2,64] and its f32 [Σ, Σ²] [B,2,64]. On the card: the int8
+    tensor cores (x 16-byte aligned)."""
     if x.device.type == "cpu":
         return c2_site_plain(x, a, c, lo, wk, ws, bias)
+    f32 = _f32_form("c2_site", x, "reflect")
+    if f32:
+        return _site_s2("c2_site", "site_s2_f32_launch", True, x, a, c, lo, wk, ws, bias,
+                        f32=f32)
     return _site_s2("c2_site", "site_s2_launch", True, x, a, c, lo, wk, ws, bias)
 
 

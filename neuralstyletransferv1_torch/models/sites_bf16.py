@@ -14,8 +14,14 @@ pixel weights (the TPU's block forms hold each pixel tap once), deconv2 the
 phase form (``s2d.scatter_upconv`` sums pixel taps in f32 before the cast,
 so an "upsample then conv" in bf16 is a different function at the ulp
 level), deconv3 the tap-packed 1×5 rows. ``prepare`` forms them from the f32
-net; the conv biases and norm parameters come from the bf16 net, as the JAX
-engine reads them from its bf16-cast params.
+net; the conv biases and norm parameters come from the net in the compute
+dtype, as the JAX engine reads them from its cast params.
+
+Under float32 (``tail``, ``d3``; JAX runs both with f32 params) the sites
+read the f32 raw (K9a deconv1's, K9e the d2 raw) unrounded in their
+prologues, the weights are cast to bf16 as the JAX sites cast them, and the
+biases and norm rows stay f32. ``tail`` returns deconv3's block output in
+its input's dtype (the JAX tail casts back to the d1 raw's), ``d3`` in bf16.
 """
 
 from __future__ import annotations
@@ -95,15 +101,17 @@ def _hwio(conv) -> np.ndarray:
     return conv.conv2d.weight.detach().float().permute(2, 3, 1, 0).cpu().numpy()
 
 
-def _bias(conv, phases: int = 1) -> torch.Tensor:
-    """The conv bias as the bf16 net holds it, in f32, tiled over phases."""
-    return conv.conv2d.bias.detach().to(torch.bfloat16).float().repeat(phases)
+def _bias(conv, phases: int = 1, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The conv bias as the net in ``dtype`` holds it, in f32, tiled over
+    phases."""
+    return conv.conv2d.bias.detach().to(dtype).float().repeat(phases)
 
 
-def prepare(net, device) -> SiteWeights:
+def prepare(net, device, dtype: torch.dtype = torch.bfloat16) -> SiteWeights:
     """The sites' weights of the f32 ``net``: formed in f32 (scattered to
     the phase and tap-packed forms), then cast to bf16, as the JAX engine
-    casts its block-space params."""
+    casts its block-space params; the biases as the net in the compute
+    ``dtype`` holds them (bf16-rounded, or f32 under float32)."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     w_row, _ = d3_tap_packed(_hwio(net.deconv3), np.zeros(3, np.float32))
     sw = SiteWeights(
@@ -111,8 +119,8 @@ def prepare(net, device) -> SiteWeights:
         c3_w=k9.pack_site_weights(t(_hwio(net.conv3))),
         d2_w=k9.pack_site_weights(t(scatter_upconv(_hwio(net.deconv2)))),
         d3_w=k9.pack_rows_weights(t(w_row)),
-        c2_b=_bias(net.conv2), c3_b=_bias(net.conv3), d2_b=_bias(net.deconv2, 4),
-        d3_b=_bias(net.deconv3, 4))
+        c2_b=_bias(net.conv2, 1, dtype), c3_b=_bias(net.conv3, 1, dtype),
+        d2_b=_bias(net.deconv2, 4, dtype), d3_b=_bias(net.deconv3, 4, dtype))
     return SiteWeights(**{k: v.to(device).contiguous() for k, v in vars(sw).items()})
 
 
@@ -151,26 +159,29 @@ def head(raw1: torch.Tensor, m1, inv1, net, sw: SiteWeights, *, tap=_no_tap):
 def tail(x_raw: torch.Tensor, m4, inv4, net, sw: SiteWeights, *, d3=None, tap=_no_tap):
     """deconv2 + deconv3 as fused sites (K9a, K9b), the ``tail`` name.
 
-    x_raw: deconv1's raw output on the 2× grid [B,H2,W2,64] bf16 (``d2s`` of
-    the JAX phase form [B,H4,W4,256]); m4, inv4: its in4 statistics. The in4
-    apply + ReLU run in K9a's prologue; in5 comes from K9a's sums with the 4
-    phases folded (n = 4·H2·W2); the in5 apply, the tap-packed rows conv, the
-    5-row sum and the bias run in K9b. ``d3``: (weights, bias) of deconv3
-    when they are not the net's own (the IO-baked ones of an int8 set).
-    Returns deconv3's block output y12 [B,H2,W2,12] bf16."""
+    x_raw: deconv1's raw output on the 2× grid [B,H2,W2,64] bf16, or f32
+    under float32 (``d2s`` of the JAX phase form [B,H4,W4,256]); m4, inv4:
+    its in4 statistics. The in4 apply + ReLU run in K9a's prologue; in5
+    comes from K9a's sums with the 4 phases folded (n = 4·H2·W2); the in5
+    apply, the tap-packed rows conv, the 5-row sum and the bias run in K9b.
+    ``d3``: (weights, bias) of deconv3 when they are not the net's own (the
+    IO-baked ones of an int8 set). Returns deconv3's block output y12
+    [B,H2,W2,12] in x_raw's dtype (K9b's bf16, cast as the JAX tail casts
+    it)."""
     B = x_raw.shape[0]
     d3_w, d3_b = (sw.d3_w, sw.d3_b) if d3 is None else d3
     tap("d2", x_raw)
     y5, sums = k9.d2_site(x_raw.contiguous(), *_affine(m4, inv4, net.in4, B), sw.d2_w, sw.d2_b)
     tap("d3", y5)
     m5, inv5 = _stats_phased(sums, float(y5.shape[1] * y5.shape[2]), 4)
-    return k9.d3_sum_site(y5, *_affine(m5, inv5, net.in5, B, 4), d3_w, d3_b)
+    return k9.d3_sum_site(y5, *_affine(m5, inv5, net.in5, B, 4), d3_w, d3_b).to(x_raw.dtype)
 
 
 def d3_branch(y: torch.Tensor, m5, inv5, net, sw: SiteWeights, *, d3=None, tap=_no_tap):
     """deconv3 with its rows conv fused (K9e), the ``d3`` name.
 
-    y: the d2 raw in the phase form [B,H2,W2,128] bf16; m5, inv5 its in5
+    y: the d2 raw in the phase form [B,H2,W2,128] bf16 (or f32 under
+    float32, read unrounded by K9e); m5, inv5 its in5
     statistics. K9e applies in5 + ReLU and writes the 60-lane rows of the
     reflect-padded grid; the 5-row sum and the bias add then round in bf16
     at every add, as the JAX code's sum over bf16 slices does (the ``tail``

@@ -130,18 +130,28 @@ class TransformerNet(nn.Module):
         whose geometry gate fails runs unfused; under ``static_stats``
         ``head`` and ``tail`` are dropped (they measure their norms) and
         ``d3`` stays. They need ``site_weights`` (``sites_bf16.prepare`` of
-        the f32 net), a bf16 net and H, W divisible by 4; a fused site's
-        ``tap`` sees the raw tensor."""
+        the f32 net) and H, W divisible by 4; a fused site's ``tap`` sees
+        the raw tensor. Under float32 ``tail`` and ``d3`` run as the JAX
+        forward runs them with f32 params (K9a and K9e read the f32 raw;
+        ``tail`` returns f32, ``d3`` bf16); ``head`` has no float32 form
+        (the JAX forward takes it only from params with ``c3_wb``, which
+        the JAX engine never builds) and raises where it would run."""
         tap = tap or _no_tap
         nh = NormHooks(stats_out, static_stats)
         fused = set(fused_sites) & set(sites_bf16.BF16_SITE_NAMES)
         if static_stats is not None:
             fused -= {"head", "tail"}
         h, w = x.shape[1], x.shape[2]
-        if fused and (site_weights is None or x.dtype != torch.bfloat16 or h % 4 or w % 4):
-            raise ValueError("the bf16 fused sites need site_weights, a bfloat16 input and "
-                             f"H, W divisible by 4 (got {x.dtype}, {h}x{w})")
+        if fused and (site_weights is None or x.dtype not in (torch.bfloat16, torch.float32)
+                      or h % 4 or w % 4):
+            raise ValueError("the bf16 fused sites need site_weights, a bfloat16 or float32 "
+                             f"input and H, W divisible by 4 (got {x.dtype}, {h}x{w})")
         if "head" in fused and sites_bf16.head_supported(h // 2, w // 2):
+            if x.dtype != torch.bfloat16:
+                raise NotImplementedError(
+                    "the fused site 'head' has no float32 form: the JAX forward takes it only "
+                    "from params with conv3's block weights (c3_wb), which its engine never "
+                    "builds")
             tap("c1", x)
             y1 = self.conv1(x).contiguous()
             raw3, m3, inv3 = sites_bf16.head(y1, *nh.stats("in1", y1), self, site_weights,

@@ -50,11 +50,15 @@ INT8_SITES = tuple(f"r{i}{ab}" for i in range(1, NUM_RES + 1) for ab in "ab") + 
 #: the names a fused-site set may hold: the int8 sites' and the bf16 sites'
 FUSED_SITE_NAMES = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8",
                     "d3_i8") + sites_bf16.BF16_SITE_NAMES
-#: the int8 sites of a set that have no float32 form: no adopted set holds
-#: them, so no CLI path reaches them
-F32_UNPORTED = {"head_i8": "K8a with an f32 input (the f32 conv1 output)",
-                "tail_s8": "deconv3's f32 border strips beside K6",
-                "d3_i8": "deconv3's f32 border strips beside K7"}
+#: why a set's int8 site raises under float32 where it would run: the JAX
+#: forward with f32 params raises there too (a bf16 site output meets an f32
+#: XLA conv), or, for ``d3_i8`` on an f32 d2 raw, the port has no K7 form
+#: for it
+JAX_F32_RAISES = ("the JAX forward with f32 params raises here too (lax.conv_general_dilated: "
+                  "a bf16 site output meets an f32 conv)")
+F32_RAISES = {"head_i8": "conv2/conv3's bf16 output reaches an f32 conv: the forward must end "
+                         "in tail_s8 or the fused d3 or tail site",
+              "d3_i8": "the rows conv's border strips are f32 convs of the bf16 d2 raw"}
 
 
 def check_fused_sites(fused) -> tuple:
@@ -169,6 +173,18 @@ def default_sites(static: bool) -> tuple:
     return adopt_overrides.sites("sites_static" if static else "sites")
 
 
+def _raise_f32(name: str, r2: torch.Tensor | None = None):
+    """The float32 forward's raise where ``name``'s site would run: where the
+    JAX forward raises too, or (``d3_i8`` on an f32 d2 raw, where the JAX
+    forward's K7 reads it unrounded) where the port has no such K7 form."""
+    if r2 is not None and r2.dtype == torch.float32:
+        raise NotImplementedError(
+            "the fused site 'd3_i8' under float32 on an f32 d2 raw needs K7 with an f32 input, "
+            "which the port does not build (ROADMAP.md Queue 2)")
+    raise NotImplementedError(f"the fused site {name!r} under float32: {F32_RAISES[name]}; "
+                              f"{JAX_F32_RAISES}")
+
+
 def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
                  static_stats: dict | None = None, *, fused_sites=None,
                  site_weights: "sites_bf16.SiteWeights | None" = None) -> torch.Tensor:
@@ -185,10 +201,12 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     routes the sites (the ``apply`` of ``transformer_net_s2d2.py``), the
     adopted one when None:
 
-    - ``head_i8`` (with c2/c3 quantized, head gate): conv2/conv3 on K8a/K8b;
-      under frozen norms the in3 apply waits for the s8 res chain; without
-      ``head_i8``, c2/c3 quantized (the empty set) run in the XLA form
-      (``sites_i8.head_qc``);
+    - ``head_i8`` (with c2/c3 quantized, head gate): conv2/conv3 on K8a/K8b
+      (under float32 K8a reads conv1's f32 output; the forward must then end
+      in ``tail_s8`` or the fused ``d3`` or ``tail`` site, else it raises
+      where the JAX forward raises); under frozen norms the in3 apply waits
+      for the s8 res chain; without ``head_i8``, c2/c3 quantized (the empty
+      set) run in the XLA form (``sites_i8.head_qc``);
     - ``res_s8`` (frozen norms, res gate): the s8-carry res chain (K2/K3);
       else ``res_i8`` (res gate): ``res_chain`` (K4/K5); else the same int8
       sites in the XLA form (``sites_i8.res_chain_qc``), as the JAX engine
@@ -201,9 +219,10 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     - ``tail`` (measured norms, neither ``dec_*`` took the decoder, tail
       gate): after d1, deconv2 + deconv3 as the bf16 sites K9a/K9b;
     - ``tail_s8`` (with ``dec_s8`` and d3 quantized, tail gate): d2 emits
-      deconv3's codes and K6 runs deconv3;
-    - ``d3`` (rows gate of the bf16 site): deconv3's rows conv on K9e; it
-      wins over ``d3_i8`` (d3 quantized, rows gate), the rows conv on K7;
+      deconv3's codes and K6 runs deconv3; bf16 out, also under float32;
+    - ``d3`` (rows gate of the bf16 site): deconv3's rows conv on K9e (bf16
+      out); it wins over ``d3_i8`` (d3 quantized, rows gate), the rows conv
+      on K7, which under float32 raises;
     - ``head`` does nothing here: the JAX forward takes it only from params
       that carry conv3's block weights (``c3_wb``), which the engine's
       never do (``_BUILD_HEAD_SITE`` is off), so its int8 sets run the bf16
@@ -217,11 +236,7 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     fused = set(check_fused_sites(default_sites(static) if fused_sites is None else fused_sites))
     if fused & {"tail", "d3"} and site_weights is None:
         raise ValueError("the fused sites 'tail' and 'd3' need site_weights")
-    f32_unported = sorted(fused & set(F32_UNPORTED)) if x.dtype == torch.float32 else []
-    if f32_unported:
-        raise NotImplementedError(
-            f"the fused site {f32_unported[0]!r} under float32 needs "
-            f"{F32_UNPORTED[f32_unported[0]]}: ROADMAP.md Queue 2 (no CLI path reaches it)")
+    f32 = x.dtype == torch.float32
     h, w = x.shape[1], x.shape[2]
 
     use_head_i8 = ("head_i8" in fused and "c2" in sites and "c3" in sites
@@ -258,6 +273,11 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
     use_dec_i8 = "dec_i8" in fused and not use_dec_s8 and have_d
     use_tail_s8 = (use_dec_s8 and "tail_s8" in fused and "d3" in sites
                    and sites_i8.d3s8_supported(2 * h4, 2 * w4))
+    use_tail = ("tail" in fused and not (use_dec_s8 or use_dec_i8) and not static
+                and sites_bf16.tail_supported(h // 2, w // 2))
+    use_d3 = "d3" in fused and sites_bf16.d3_supported(2 * h4, 2 * w4)
+    if f32 and use_head_i8 and not (use_tail_s8 or use_tail or use_d3):
+        _raise_f32("head_i8")
 
     in_aff = None
     if pend3 is not None:
@@ -287,14 +307,16 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
         r2, m5, inv5 = sites_i8.dec_chain(y, net, sites, carry=carry, static_stats=static_stats)
     else:
         r, m4, inv4 = sites_i8.dec_d1_qc(y, net, sites, static_stats=static_stats)
-        if "tail" in fused and not static and sites_bf16.tail_supported(h // 2, w // 2):
+        if use_tail:
             y12 = sites_bf16.tail(d2s(r, 2, r.shape[-1] // 4), m4, inv4, net, site_weights, d3=d3)
             return d2s(y12, 2, 3)
         r2, m5, inv5 = sites_i8.dec_d2_qc(r, m4, inv4, net, sites, static_stats=static_stats)
-    if "d3" in fused and sites_bf16.d3_supported(r2.shape[1], r2.shape[2]):
+    if use_d3:
         return sites_bf16.d3_branch(r2, m5, inv5, net, site_weights, d3=d3)
     if s3 is not None:
         use_d3_i8 = "d3_i8" in fused and sites_i8.d3_supported(r2.shape[1], r2.shape[2])
+        if f32 and use_d3_i8:
+            _raise_f32("d3_i8", r2)
         return sites_i8.d3_forward(r2, m5, inv5, net, s3, use_d3_i8=use_d3_i8)
     # under float32 the tail runs in f32 on the (bf16) d2 raw of the int8 sites
     y = apply_in_relu(d2s(r2, 2, r2.shape[-1] // 4).to(x.dtype), m5, inv5, net.in5.weight,

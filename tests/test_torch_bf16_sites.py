@@ -394,8 +394,10 @@ def test_fused_sites_through_the_stylizer(params, monkeypatch):
     the head and the tail run fused (the tail returns before ``d3`` is
     reached) and the result stays within the 1e-2 gate of the plain bf16
     stylize; a size whose gates fail (36×80 → padded to 36×80, h2 = 18) runs
-    unfused, bit for bit the plain path; float32 raises, naming the queue row
-    of the float32 forms (ROADMAP Queue 2, row 3)."""
+    unfused, bit for bit the plain path; under float32 ``head`` raises (it has
+    no float32 form: the JAX forward takes it only from params with
+    ``c3_wb``); ``tail`` and ``d3`` under float32 are
+    tests/test_torch_f32_sets_johnson.py's."""
     from neuralstyletransferv1_torch.engine import stylizer as tst
 
     _, _, net, _, _ = params
@@ -410,8 +412,8 @@ def test_fused_sites_through_the_stylizer(params, monkeypatch):
     calls.update(dict.fromkeys(calls, 0))
     got = tst.jit_stylizer(model, dtype=torch.bfloat16, fused_sites=("head", "tail"))(small)
     assert _used(calls) == {} and torch.equal(got, plain(small))
-    with pytest.raises(NotImplementedError, match="Queue 2, row 3"):
-        tst.jit_stylizer(model, fused_sites=("tail",))
+    with pytest.raises(NotImplementedError, match="no float32 form"):
+        tst.jit_stylizer(model, fused_sites=("head",))(x)
     with pytest.raises(ValueError, match="unknown fused sites"):
         tst.jit_stylizer(model, dtype=torch.bfloat16, fused_sites=("tale",))
 

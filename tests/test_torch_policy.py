@@ -459,7 +459,7 @@ def test_f32_forms_match_plain_on_card(cuda_device, name, b, h, w, c, co, halo, 
         args = (_batch(t["codes"], b), t["w"], t["ws"], t["bias"], t["qa"] / 40, t["qc"] / 40, f32)
         if form == "yaff":
             kw["yaff"] = (t["a2"][0], t["c2"][0])
-    key = k8.F32_FORMS[name]
+    key = k8.F32_FORMS[(name, "3x3")][0]
     before, bf16_before = k8.F32_LAUNCHES[key], k8.LAUNCHES[name]
     fn = getattr(k8, name)
     out, again = fn(*args, **kw), fn(*args, **kw)
@@ -739,8 +739,8 @@ def test_bf16_wrappers_reject_bad_inputs(cuda_device):
     x, a, c, w, bias = _bf16_site_args(cuda_device, "d2_site", (2, 19, 37, 64))
     with pytest.raises(ValueError, match="contiguous"):
         k9.d2_site(x.transpose(1, 2), a, c, w, bias)
-    with pytest.raises(TypeError, match="bfloat16"):
-        k9.d2_site(x.float(), a, c, w, bias)
+    with pytest.raises(TypeError, match="bf16 or f32"):  # an f32 x takes K9a's f32 form
+        k9.d2_site(x.half(), a, c, w, bias)
     with pytest.raises(ValueError, match="expected cuda"):
         k9.d2_site(x, a.cpu(), c, w, bias)
     with pytest.raises(ValueError, match="C=64"):

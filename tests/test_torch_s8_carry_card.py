@@ -103,14 +103,14 @@ def test_k3_c96_matches_plain_on_card(cuda_device, b, h, w):
 @pytest.mark.cuda
 def test_forms_outside_the_built_ones_raise(cuda_device):
     """The two forms exist under the edge halo only, K3's without an
-    epilogue step, K2's for a bf16 x (its f32 form is ROADMAP Queue 2's
-    row 3)."""
+    epilogue step, K2's also for an f32 x (its f32 form, under the edge
+    halo only too)."""
     t = _ops(cuda_device, 1, 8, 16, 192, 384, 1)
     k2 = (t["x"], t["a"], t["c"], -127.0, t["wk"], t["ws"], t["bias"], t["qa"], t["qc"])
     with pytest.raises(ValueError, match="no form"):
         k8.res_site_s8o(*k2, halo="reflect")
-    with pytest.raises(NotImplementedError, match="Queue 2 row 3"):
-        k8.res_site_s8o(t["x"].float(), *k2[1:], halo="edge")
+    with pytest.raises(ValueError, match="no form"):
+        k8.res_site_s8o(t["x"].float(), *k2[1:], halo="reflect")
     t3 = _ops(cuda_device, 1, 8, 16, 96, 192, 2)
     k3 = (t3["codes"], t3["wk"], t3["ws"], t3["bias"])
     with pytest.raises(ValueError, match="no form"):
