@@ -8,6 +8,8 @@ card in turns.
     python3 chip_ab.py ROOT k1
     python3 chip_ab.py ROOT experiments
     python3 chip_ab.py ROOT profile
+    python3 chip_ab.py ROOT reco
+    python3 chip_ab.py ROOT convs
 
 ROOT is the root of a checkout (for example the parent commit unpacked with
 ``git archive`` into a gitignored directory); its own ``chip_smoke.py`` and
@@ -26,7 +28,14 @@ K4's P5) at their full shapes, each printing its JSON line. ``profile``
 runs ``chip_smoke.py --profile``'s torch.profiler pass over the 1080p
 Johnson slices only (plain bf16,
 ``bf16_static`` and the quantized or fused-site slices): device time by
-kind of kernel. Run parent, change, change, parent in one call:
+kind of kernel; ``reco`` the same over the ReCoNet slices (``chip_smoke.py
+--profile reco``'s: IN and FRN under bf16, ``bf16_static``, ``int8`` and
+``int8_static``, and the IN net's ``s8_sites`` set). ``convs`` replays each
+conv (``F.conv2d`` call) of one steady 1080p B=8 batch of the ReCoNet IN and
+the Johnson bf16 slices alone under torch.profiler and prints its dtype,
+shapes and device kernels, flagging kernels named TF32, and its largest
+error relative to a float64 conv of the same operands. Run parent, change,
+change, parent in one call:
 
     for r in PARENT . . PARENT; do python3 chip_ab.py $r kernels; done
 """
@@ -40,7 +49,7 @@ from pathlib import Path
 
 def main() -> int:
     if len(sys.argv) < 3 or sys.argv[2] not in ("slices", "kernels", "bf16", "k1",
-                                                 "experiments", "profile"):
+                                                 "experiments", "profile", "reco", "convs"):
         print(__doc__)
         return 2
     root = Path(sys.argv[1]).resolve()
@@ -78,9 +87,23 @@ def main() -> int:
     if sys.argv[2] == "k1":
         cs.k1_phase(dev)
         return 0
-    if sys.argv[2] == "profile":
-        cs.NST_SLICES, cs.RECO_SLICES, cs.T7_SLICES = (), (), ()
-        cs.profile_phase(dev, None, {}, {})
+    if sys.argv[2] == "convs":
+        with tempfile.TemporaryDirectory() as tmp:
+            conv_kernels(cs, dev, Path(tmp))
+        return 0
+    if sys.argv[2] in ("profile", "reco"):
+        frames = cs.moving_frames(3 * cs.B, cs.H, cs.W, cs.SEED + 6)
+        if sys.argv[2] == "profile":
+            for mode, fused in (("none", None), ("bf16_static", None)) + cs.SLICES:
+                cs._profile_slice(dev, mode, fused, cs.CKPT, "", frames)
+            return 0
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpts = {frn: cs.reco_checkpoint(Path(tmp) / f"reco_{frn}.pth", frn)
+                     for frn in (False, True)}
+            for mode, frn in cs.RECO_SLICES:
+                cs._profile_slice(dev, mode, None, ckpts[frn], f"reco {'frn' if frn else 'in'}",
+                                  frames)
+            cs._profile_slice(dev, "int8_static", cs.RECO_S8, ckpts[False], "reco in", frames)
         return 0
     for mode, fused in (("none", None),) + cs.SLICES:
         cs.slice_phase(dev, mode, fused)
@@ -91,6 +114,62 @@ def main() -> int:
         for mode, fused in (("none", None),) + cs.SLICES:
             cs.slice_phase(dev, mode, fused)
     return 0
+
+
+def conv_kernels(cs, dev, tmp: Path) -> None:
+    """``convs``: the slices' convs one by one, their kernels and errors."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralstyletransferv1_torch.engine import pipeline as tpipe
+
+    print(f"cuDNN allow_tf32 {torch.backends.cudnn.allow_tf32}, matmul allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    frames = cs.moving_frames(3 * cs.B, cs.H, cs.W, cs.SEED + 6)
+    conv2d = F.conv2d
+    for label, ckpt, extra in (("reco in", cs.reco_checkpoint(tmp / "reco.pth", False),
+                                ["--model_type", "reconet"]), ("johnson", cs.CKPT, [])):
+        argv = ["--input_video", "in.mp4", "--output_video", "out.mp4", "--model", str(ckpt),
+                "--frame_batch", str(cs.B), "--flow_ema", "--compute_dtype", "bfloat16"] + extra
+        _, proc = tpipe.make_batched_core(tpipe.build_parser().parse_args(argv), dev)
+        proc(frames[:cs.B])
+        proc(frames[cs.B:2 * cs.B])
+        calls = {}
+
+        def spy(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+            key = (str(x.dtype), tuple(x.shape), tuple(w.shape), stride, padding, dilation,
+                   groups)
+            calls.setdefault(key, (x.clone(), w.clone(), None if b is None else b.clone()))
+            return conv2d(x, w, b, stride, padding, dilation, groups)
+
+        F.conv2d = spy
+        try:
+            proc(frames[2 * cs.B:])
+        finally:
+            F.conv2d = conv2d
+        print(f"== {label} bf16 slice: {len(calls)} distinct convs", flush=True)
+        for key, (x, w, b) in calls.items():
+            dt, xs, ws, stride, padding, dilation, groups = key
+
+            def run():
+                return conv2d(x, w, b, stride, padding, dilation, groups)
+
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            names = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            ref = conv2d(x.double(), w.double(), None if b is None else b.double(), stride,
+                         padding, dilation, groups)
+            err = float((run().double() - ref).abs().max() / ref.abs().max())
+            tf32 = any("tf32" in n.lower() for n, _ in names)
+            print(f"{'TF32-named ' if tf32 else ''}{dt} x{xs} w{ws}: max error {err:.3g} of "
+                  f"the largest |f64| of the same operands; " +
+                  "; ".join(f"{n[:110]} {ms:.3f} ms" for n, ms in names), flush=True)
 
 
 if __name__ == "__main__":

@@ -39,10 +39,11 @@ order, and any failed phase exits non-zero:
    bit-identical, sums within 1e-5; time each beside its plain version and
    the cuDNN bf16 conv it stands for (3×3 of the same shape; the stride-2
    c2/c3; the 9×9 32→3 deconv3 at 1080p, whose cuDNN kernels are named);
-   K2–K8b also beside their previous ``__dp4a`` design (``*_prev``,
-   held to the same outputs; K3 and K4 at the Johnson and NST widths, the
-   others at every case), in turns: plain, kernel, previous, kernel,
-   previous, plain, and two launches of each bit-identical;
+   K2–K8b also beside their previous design (``*_prev``, held to the same
+   outputs: the ``__dp4a`` core, and for K4 and K3 at ReCoNet's widths,
+   which run on the wgmma core ``csrc/int8_wgmma.cu``, the ``mma_kernel``
+   core), in turns: plain, kernel, previous, kernel, previous, plain, and
+   two launches of each bit-identical;
    then the f32-operand forms of K2–K5 (the float32 chains' first sites:
    K2 and K3 at Johnson's and NST_Train's res grids and ReCoNet's, K4 at
    Johnson's, ReCoNet's res grid and d1 and the Torch7 grid, K5 at Johnson's,
@@ -55,8 +56,9 @@ order, and any failed phase exits non-zero:
    conv2's and deconv1's sites (K4's 2×2 pad-1 form at NST's conv2 grid
    584×1000 128→64 and its pad-0 form at NST's d1 292×504 128→256 with
    sw 500, K2 at ReCoNet's d1 192→384 with both emits, K8a at
-   1080×1920 32→64 on an f32 conv1 output), beside the cuDNN f32 conv of
-   the shape (TF32 off; a yardstick);
+   1080×1920 32→64 on an f32 conv1 output, K7 at deconv3's rows 540×960
+   128→60 on an f32 d2 raw), beside the cuDNN f32 conv of the shape (TF32
+   off; a yardstick);
    then K9a–K9e, the bf16 fused sites, at their 1080p B=8 shapes (d2 540×960
    64→128; c2 1080×1920 32→64 and c3 540×960 64→128 at stride 2; deconv3's
    rows 540×960 128→60 on the reflect-padded grid and their 5-row sum →12):
@@ -73,8 +75,8 @@ order, and any failed phase exits non-zero:
    float32 chains of the new f32 forms card vs CPU on a 256×480 crop
    (``f32_chains_phase``); then K7 and K9a at ragged shapes (W off the 32-column strip and
    tile, H below the 8-row tile, B = 1 and 3) against their plain versions
-   and previous cores (K7 bit for bit, K9a within the K9 bounds, two
-   launches bit-identical), and K9c and K9d likewise (outputs off the
+   and previous cores (K7 bit for bit, also its f32 form, K9a within the K9
+   bounds, two launches bit-identical), and K9c and K9d likewise (outputs off the
    16-column tile and the 8- and 4-row tiles, a 1 × 1 output), and K9e
    (an odd W, widths off the 64-column segment) and K1 (tails of 1–3
    patches in the last warp, a partial block) likewise, and K11 (widths off
@@ -136,7 +138,8 @@ order, and any failed phase exits non-zero:
    for each of ``int8`` and ``int8_static`` (the f32 forms take block 1's
    sites) and for the sets the JAX forwards run under f32 params that reach
    the other float32 forms (``F32_SETS``: Johnson's ``head_i8`` s8 set
-   ending in ``tail_s8``, its ``tail,d3`` and ``d3``; NST_Train's and an IN
+   ending in ``tail_s8``, its ``tail,d3`` and ``d3``, its ``tail_s8`` +
+   ``d3_i8`` on the XLA-form decoder (K7 on the f32 d2 raw); NST_Train's and an IN
    Torch7 net's ``c2_i8`` + ``res_i8`` + ``dec_i8``; ReCoNet's s8 set);
    check every kernel's launch count of each
    run exactly, and that each quantized or fused stylize stays within the
@@ -274,12 +277,18 @@ channels-last and on NCHW input; then one batch each of the magenta slot,
 the Farneback int8_static slice and the compact CIN net, whose convs it also
 times on NCHW copies of their inputs.
 
+    python3 chip_smoke.py --profile reco
+
+profiles the ReCoNet slices alone.
+
     python3 chip_smoke.py --phases
 
-instead builds the tensor-core cores (K2–K8b; K9a–K9e; K10, K11, K12) with
-``-DMMA_PHASE_CLOCKS`` and prints, for each of their 1080p B=8 cases (K12:
-the probes' shapes; K11: mk13's), the share of each phase of the tile loop
-(K6, K7, K9b: of the row loop) in the clock of every block's thread 0.
+instead builds the tensor-core cores (K2–K8b and K3/K4's wgmma core;
+K9a–K9e; K10, K11, K12) with ``-DMMA_PHASE_CLOCKS`` and prints, for each of
+their 1080p B=8 cases (K12: the probes' shapes; K11: mk13's), the share of
+each phase of the tile loop (K6, K7, K9b: of the row loop) in the clock of
+every block's thread 0; K4's and K3's ReCoNet cases on the wgmma core and
+on their previous core.
 """
 
 from __future__ import annotations
@@ -415,6 +424,9 @@ F32_KERNELS = {
     "res_site_k2p0_f32": ("res_site_k2p0", (("nst_d1", ""),)),
     "res_site_s8o_co384_f32": ("res_site_s8o_co384", (("reco_d1", "in"), ("reco_d1", "frn"))),
     "c2_site_f32": ("c2_site", (("c2", ""),)),
+    # K7 with the f32 d2 raw (Johnson's d3_i8 on the XLA-form decoder under
+    # float32)
+    "d3_rows_site_f32": ("d3_rows_site", (("d3", ""),)),
 }
 # their ragged cases: (B, H, W, C, CO, halo, form, sw)
 F32_RAGGED = {
@@ -586,6 +598,7 @@ F32_PER_BATCH = {"int8": {"res_site": 6, "res_site_f32": 1, "res_site_skip": 4,
 # at CO = 384 on the chain's f32 output):
 # (slot, --quantize, set) → launches a batch
 J_S8_TAIL = ("head_i8", "res_s8", "dec_s8", "tail_s8")
+J_D3_XLA = ("tail_s8", "d3_i8")
 TAIL_D3 = ("tail", "d3")
 F32_SETS = {
     ("johnson", "int8_static", J_S8_TAIL): {"c2_site_f32": 1, "c3_site": 1, "res_site_s8o": 5,
@@ -600,8 +613,12 @@ F32_SETS = {
                                "res_site_k2p0_f32": 1, "res_site_k2p0": 1},
     ("reco in", "int8_static", RECO_S8): {"res_site_s8o_f32": 4, "site_s8_f32": 4,
                                           "res_site_s8o_co384_f32": 1, "site_s8_c96": 1},
+    # d3_i8 on the XLA-form decoder (no site chain; tail_s8 keeps the d3
+    # site in the engine's filter): K7 on the f32 d2 raw
+    ("johnson", "int8", J_D3_XLA): {"d3_rows_site_f32": 1},
 }
-SET_NAMES.update({J_S8_TAIL: "+".join(J_S8_TAIL), TAIL_D3: "tail,d3"})
+SET_NAMES.update({J_S8_TAIL: "+".join(J_S8_TAIL), TAIL_D3: "tail,d3",
+                  J_D3_XLA: "+".join(J_D3_XLA)})
 PF_FRAMES = 6                 # frames of the per-frame CLI clip
 PF_CROP = (256, 448)          # its crop for the card vs CPU comparison
 PF_MAE_TOL = 1e-3             # [0,1] frames, per-frame f32 CLI card vs CPU
@@ -609,14 +626,22 @@ REGION_MAE_TOL = 1e-3         # [0,1] frames, f32 region / mask / LAB core card 
 # K2-K5 run on the int8 tensor cores (mma_kernel), K8a and K8b on its
 # stride-2 form (mma_s2_kernel), K6 on d3s8_mma_kernel and K7 on
 # d3rows_mma_kernel; their previous __dp4a design (site_kernel, rows_kernel)
-# stays callable for the comparison, K2's and K5's also at ReCoNet's C = 192
-# (K3's and K4's previous design was built without it); K9b runs on
-# d3sum_mma_kernel, K9a on d2_wgmma_kernel, K9c and K9d on
-# s2_mma_bf16_kernel, K9e on d3rows_wgmma_kernel, their previous designs
-# (rows_kernel_bf16, site_kernel_bf16) likewise
+# stays callable for the comparison, K2's and K5's also at ReCoNet's C = 192.
+# K4 and K3 at ReCoNet's widths (C = 192, 96; K3's C = 96 form is
+# site_s8_c96) run on the wgmma core (csrc/int8_wgmma.cu), their previous
+# core there mma_kernel (WG_PREV). K9b runs on d3sum_mma_kernel, K9a on d2_wgmma_kernel, K9c and
+# K9d on s2_mma_bf16_kernel, K9e on d3rows_wgmma_kernel, their previous
+# designs (rows_kernel_bf16, site_kernel_bf16) likewise
 REDESIGNED = ("res_site_s8o", "site_s8", "res_site", "res_site_skip", "c2_site", "c3_site",
-              "d3_s8_site", "d3_rows_site")
-PREV_C192 = ("res_site_s8o", "res_site_skip")
+              "d3_s8_site", "d3_rows_site", "site_s8_c96")
+WG_PREV = ("res_site", "site_s8", "site_s8_c96")
+_WG_SRC = "neuralstyletransferv1_torch/csrc/int8_wgmma.cu"
+
+
+def on_wgmma(name: str, c: int) -> bool:
+    """Whether the int8 site ``name`` (a wrapper or one of its forms) at C
+    input channels runs on the wgmma core."""
+    return name in WG_PREV and c in (96, 192)
 
 
 def slice_name(quantize: str, fused) -> str:
@@ -999,16 +1024,19 @@ def library_conv(dev, t, name, shape):
 
 def library_conv_f32(dev, shape, stride: int = 1):
     """The cuDNN f32 conv (TF32 off) an f32-operand site stands for: a 3×3
-    conv of its shape (at ``stride``: K8a's conv2) on channels-last f32
-    input. No int8 conv takes an f32 operand on the card, so this is a
-    yardstick, not a library call of the same function."""
+    conv of its shape (at ``stride``: K8a's conv2; deconv3's rows, K7: the
+    1×5 128 → 60 conv with zero column pads) on channels-last f32 input. No
+    int8 conv takes an f32 operand on the card, so this is a yardstick, not
+    a library call of the same function."""
     import torch
     import torch.nn.functional as F
 
     b, h, w, c, co, _ = SITE_SHAPES[shape]
     xc = torch.randn((b, h, w, c), device=dev).permute(0, 3, 1, 2)
-    wc = torch.randn((co, c, 3, 3), device=dev).to(memory_format=torch.channels_last)
-    return lambda: F.conv2d(xc, wc, stride=stride, padding=1)
+    ks, pad = ((1, 5), (0, 2)) if shape == "d3" else ((3, 3), 1)
+    co = 60 if shape == "d3" else co
+    wc = torch.randn((co, c, *ks), device=dev).to(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xc, wc, stride=stride, padding=pad)
 
 
 def int8_kernel_phase(dev):
@@ -1038,9 +1066,11 @@ def int8_kernel_phase(dev):
                     and not _same(kernel(), out):
                 fail(f"{name} @ {shape}/{form}: two launches on the same inputs differ")
             del out, first
-            # K3's and K4's previous __dp4a core takes the Johnson / NST widths
-            # only
-            prev_case = redesigned and (name in PREV_C192 or not shape.startswith("reco"))
+            # every case of a redesigned kernel has its previous core: __dp4a
+            # (K2, K5 also at C = 192), mma_kernel for K3 and K4 at ReCoNet's
+            # widths
+            prev_case = redesigned
+            prev_core = "mma_kernel" if on_wgmma(name, c) else "__dp4a"
             if prev_case:
                 prev = site_calls(name, t, shape, form, prev=True)[0]
                 check_site(f"{name} (previous core)", prev(), ref, n)
@@ -1064,15 +1094,19 @@ def int8_kernel_phase(dev):
                    "bound_share": bound / t_k}
             if prev_case:
                 per["prev_ms"] = t_prev
+                per["prev_core"] = prev_core
                 rec["prev_ms"] += t_prev
+            if on_wgmma(name, c):
+                per["source"] = _WG_SRC
             if shape in SITE_SW:
                 halo = f"{halo}, sw {SITE_SW[shape]}"
             log(f"{name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"kernel {t_k:.4f} ms, plain {t_plain:.4f} ms, cuDNN bf16 conv "
                 f"{t_lib:.4f} ms; bound {bound:.4f} ms "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops)" +
-                (f"; previous __dp4a core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel)"
-                 if prev_case else "") + f"; kernel at {bound / t_k:.1%} of the bound")
+                (f"; previous {prev_core} core {t_prev:.4f} ms ({t_prev / t_k:.2f}x the kernel)"
+                 if prev_case else "") + f"; kernel at {bound / t_k:.1%} of the bound" +
+                (" (the wgmma core)" if on_wgmma(name, c) else ""))
             rec["ms"] += t_k
             rec["plain_ms"] += t_plain
             rec["cudnn_bf16_ms"] += t_lib
@@ -1093,12 +1127,12 @@ def int8_kernel_phase(dev):
 
 def f32_operand(t: dict, name: str, seed: int) -> dict:
     """``t`` with the operand the f32 form reads as f32 replaced by f32
-    values that are not bf16-representable: K2's and K4's x, K3's and K5's
-    residual y."""
+    values that are not bf16-representable: K2's, K4's, K8a's and K7's x,
+    K3's and K5's residual y."""
     import torch
 
     name = FORM_OF.get(name, (name, None))[0]
-    key = "x" if name in ("res_site_s8o", "res_site", "c2_site") else "y"
+    key = "x" if name in ("res_site_s8o", "res_site", "c2_site", "d3_rows_site") else "y"
     g = torch.Generator(device=t[key].device).manual_seed(seed)
     scale = 2.0 if key == "x" else 1.0
     out = dict(t)
@@ -1157,7 +1191,7 @@ def f32_kernel_phase(dev):
                                      "bound_share": bound / t_k}
             log(f"{form_name} @ {case} {b}x{h}x{w}x{c}->{co} {halo}: bit-identical to plain; "
                 f"f32 form {t_k:.4f} ms, bf16 form {t_bf:.4f} ms (same turns, "
-                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms, cuDNN f32 3x3 conv (TF32 off, a "
+                f"{t_k / t_bf:.3f}x), plain {t_plain:.4f} ms, cuDNN f32 conv (TF32 off, a "
                 f"yardstick) {t_lib:.4f} ms; bound {bound:.4f} ms by {by} "
                 f"({moved / 1e6:.1f} MB, {ops:.3e} int8 ops), f32 form at "
                 f"{bound / t_k:.1%} of it")
@@ -1187,7 +1221,7 @@ def ragged_f32_phase(dev):
     n = 0
     for form_name, (form_of, _cases) in F32_KERNELS.items():
         base, geo = FORM_OF.get(form_of, (form_of, None))
-        for (b, h, w, c, co, halo, form, sw) in F32_RAGGED[form_of]:
+        for (b, h, w, c, co, halo, form, sw) in F32_RAGGED.get(form_of, ()):
             t = f32_operand(site_inputs(dev, b, h, w, c, co, seed=700 + n), base, 700 + n)
             if geo is not None:
                 t["wk"] = t["wk4"]
@@ -1597,9 +1631,11 @@ RAGGED_RECO = ((3, 13, 21, 192), (1, 11, 30, 96))
 def ragged_reco_phase(dev):
     """ReCoNet's kernel forms at ragged shapes: K4 (with and without the TLU
     floor; 192 -> 192 reflect and -> 384 edge, 96 -> 192 edge), K5 (relu,
-    tau), K2 (the IN and FRN emit) and K3 on K2's codes: outputs
-    bit-identical to the plain versions (sums within 1e-5) and two launches
-    bit-identical, sums included."""
+    tau), K2 (the IN and FRN emit), K3 on K2's codes and K3's C = 96 bare
+    form: outputs bit-identical to the plain versions (sums within 1e-5) and
+    two launches bit-identical, sums included; K4's and K3's (the wgmma
+    core) also bit-identical to their previous core (mma_kernel), K4's sums
+    included at C = 192 (at 96 the previous core sums in another order)."""
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
     for i, (b, h, w, c) in enumerate(RAGGED_RECO):
@@ -1612,6 +1648,9 @@ def ragged_reco_phase(dev):
             cases.append((f"res_site {c}->{co} {halo}{' tau' if tau is not None else ''}",
                           "res_site", x3 + (-127.0 if tau is not None else 0.0, t["wk"], t["ws"],
                                             t["bias"]), dict(halo=halo, tau=tau)))
+        if c == 96:
+            cases.append(("site_s8 96->192 edge raw", "site_s8",
+                          (t["codes"], t["wk"], t["ws"], t["bias"]), dict(halo="edge")))
         if c == 192:
             t4 = site_inputs(dev, b, h, w, c, 2 * co, seed=310)
             cases.append(("res_site 192->384 edge", "res_site",
@@ -1631,15 +1670,21 @@ def ragged_reco_phase(dev):
             check_site(f"{name} ragged {b}x{h}x{w}", out, ref, h * w)
             if not _same(out, again):
                 fail(f"{label} at {b}x{h}x{w}: two launches on the same inputs differ")
+            if name in WG_PREV:  # K4's sums at C = 96 in another order (checked above)
+                prev = getattr(k8, f"{name}_prev")(*args, **kw)
+                if not _same(out[0] if name == "res_site" and c == 96 else out,
+                             prev[0] if name == "res_site" and c == 96 else prev):
+                    fail(f"{label} at {b}x{h}x{w}: the wgmma core differs from its previous core")
             if name == "res_site_s8o":
                 aff = (t["qa"] / 40, t["qc"] / 40, t["y"])
                 o = k8.site_s8(out, t["wk"], t["ws"], t["bias"], *aff)
                 if not (_same(o, k8.site_s8(out, t["wk"], t["ws"], t["bias"], *aff)) and
-                        _same(o, k8.site_s8_plain(out, t["wk"], t["ws"], t["bias"], *aff))):
+                        _same(o, k8.site_s8_plain(out, t["wk"], t["ws"], t["bias"], *aff)) and
+                        _same(o, k8.site_s8_prev(out, t["wk"], t["ws"], t["bias"], *aff))):
                     fail(f"site_s8 192 on the {label} codes at {b}x{h}x{w}: not bit-identical")
         log(f"ReCoNet forms at {b}x{h}x{w}x{c}: {', '.join(c_[0] for c_ in cases)}"
             f"{' (+ site_s8 on each emit)' if c == 192 else ''}: bit-identical to their plain "
-            "versions and across two launches")
+            "versions and across two launches, K4's and K3's also to their previous core")
 
 
 # K7's and K9a's tensor-core cores at ragged shapes (B, H, W): widths off
@@ -1652,7 +1697,9 @@ def ragged_k7_k9a_phase(dev):
     """K7 (``d3_rows_site``) and K9a (``d2_site``) at ragged shapes against
     their plain versions and their previous cores: K7 bit-identical to both,
     K9a within the K9 bounds of ``check_bf16_site`` (1 ulp, 99% equal, sums
-    within 1e-5) of both; two launches bit-identical."""
+    within 1e-5) of both; two launches bit-identical. K7's f32 form (an f32
+    raw, not bf16-representable) bit-identical to its plain version and
+    across two launches, each counted as ``d3_rows_site_f32``."""
     import torch
 
     from neuralstyletransferv1_torch.kernels import bf16_sites as k9
@@ -1667,6 +1714,16 @@ def ragged_k7_k9a_phase(dev):
         if not (torch.equal(rows, again) and torch.equal(rows, ref) and torch.equal(prev, ref)):
             fail(f"d3_rows_site at {b}x{h}x{w}: not bit-identical to its plain version, its "
                  "previous core or itself")
+        args = (f32_operand(t, "d3_rows_site", 420 + i)["x"], *args[1:])
+        before = k8.F32_LAUNCHES["d3_rows_site_f32"]
+        rows, again, ref = k8.d3_rows_site(*args), k8.d3_rows_site(*args), \
+            k8.d3_rows_site_plain(*args)
+        torch.cuda.synchronize()
+        if k8.F32_LAUNCHES["d3_rows_site_f32"] != before + 2:
+            fail(f"d3_rows_site at {b}x{h}x{w} on an f32 raw: the f32 form was not launched")
+        if not (torch.equal(rows, again) and torch.equal(rows, ref)):
+            fail(f"d3_rows_site f32 at {b}x{h}x{w}: not bit-identical to its plain version or "
+                 "itself")
         del t, args, rows, again, prev, ref
         args = bf16_site_inputs(dev, "d2_site", (b, h, w, 64), seed=410 + i)
         out, again, ref = k9.d2_site(*args), k9.d2_site(*args), k9.d2_site_plain(*args)
@@ -1677,7 +1734,7 @@ def ragged_k7_k9a_phase(dev):
         check_bf16_site(f"d2_site against its previous core ragged {b}x{h}x{w}", out, again, p1,
                         args)
         log(f"K7 and K9a at {b}x{h}x{w}: K7 bit-identical to its plain version and previous "
-            f"core; K9a {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 bounds "
+            f"core, its f32 form to its plain version; K9a {worst:.3g} ulp at worst, equal on {equal:.4%}, within the K9 bounds "
             "of its plain version and previous core; two launches bit-identical")
         del args, out, again, ref, p1, p2
 
@@ -5083,8 +5140,10 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
     K2, K4 or K5 under the zero halo; f32 1: the f32-operand form of K2-K5;
     geo 1, 2: K4's 2×2 taps at pad 1, K4's and K3's at pad 0;
     mma_s2_kernel<C, MCO> is K8a at C = 32, K8b at 64;
-    d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (rows_kernel<2, 2>, <0, 1>
-    their previous cores); d3sum_mma_kernel K9b and d3rows_wgmma_kernel K9e
+    site_wgmma_kernel<C, prologue, epilogue, tau> K4 (<C, 0, 0>) and K3
+    (<C, 2, 2>) at C = 192 and 96 (the wgmma core);
+    d3s8_mma_kernel K6 and d3rows_mma_kernel K7 (<1>: its f32-input form;
+    rows_kernel<2, 2>, <0, 1> their previous cores); d3sum_mma_kernel K9b and d3rows_wgmma_kernel K9e
     (rows_kernel_bf16<1>, <0> their previous cores); dis_iter_kernel K1 (at
     R = 6; dis_iter_prev_kernel its previous core); d2_wgmma_kernel K9a
     (site_kernel_bf16<64, 1, ...> its previous core); s2_mma_bf16_kernel<C,
@@ -5131,8 +5190,13 @@ def ptxas_report(text: str, k1, k8, k9, k12) -> None:
                 short += " (K6)"
                 smem = k8._lib().d3s8_mma_smem_bytes()
             elif base == "d3rows_mma_kernel":
-                short += " (K7)"
-                smem = k8._lib().d3rows_mma_smem_bytes()
+                f32 = targs[:1] == ["1"]
+                short += " (K7, f32 input)" if f32 else " (K7)"
+                smem = k8._lib().d3rows_mma_f32_smem_bytes() if f32 else \
+                    k8._lib().d3rows_mma_smem_bytes()
+            elif base == "site_wgmma_kernel":
+                short += " (K4, wgmma core)" if targs[1:2] == ["0"] else " (K3, wgmma core)"
+                smem = k8._lib_wg().site_wgmma_smem_bytes(int(targs[0]))
             elif base == "rows_kernel":
                 short += " (K7, previous core)" if targs == ["0", "1"] else \
                     " (K6, previous core)"
@@ -5194,6 +5258,12 @@ PHASES_D3 = ("next rows' loads issued", "wait for the row's codes", "MMAs issued
              "K lanes and dy-sum (MMA drain incl.)", "the row's stores")
 PHASES_D3_BF16 = ("next row's loads issued", "wait for the row's raw input", "activation",
                   "MMAs issued", "K lanes, dy-sum and stores (MMA drain incl.)")
+# the wgmma core's tile loop (site_wgmma_kernel: consumer warp 0)
+PHASES_WG = ("wait for the tile's codes (the producer's fetch and quantize)",
+             "waits for weight units (the ring's bulk copies)",
+             "fragments, MMAs and the pass before's store steps issued",
+             "MMA drain, the fragment epilogue (K4 at C = 192: the sums)",
+             "the last pass's stores")
 # K7's item loop (warp 0 of each block)
 PHASES_D3_ROWS = ("wait for the next item's raw input", "its quantize, the loads after issued",
                   "MMAs issued", "fragment epilogue (MMA drain incl.)", "the item's stores")
@@ -5223,29 +5293,30 @@ PHASES_K9A = ("wait for the tile's input", "the first tile's halo patch and acti
               "epilogue and statistics (MMA drain incl.)")
 
 
-def _phase_build(module):
-    """nvcc of ``module``'s source with MMA_PHASE_CLOCKS, started: (the
-    library's path, the process)."""
+def _phase_build(module, source=None):
+    """nvcc of ``module``'s source (or ``source``) with MMA_PHASE_CLOCKS,
+    started: (the library's path, the process)."""
     from neuralstyletransferv1_torch.kernels import _build
 
-    src = _build.CSRC / module._SOURCE
+    src = _build.CSRC / (source or module._SOURCE)
     so = _build.BUILD_DIR / f"lib{src.stem}_phases.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DMMA_PHASE_CLOCKS", "-o", str(so), str(src)]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _phase_lib(module, so, proc, names):
+def _phase_lib(module, so, proc, names, own=None):
     """The instrumented build, once nvcc is done, its launch functions
-    ``names`` given the argtypes of the module's own build."""
+    ``names`` given the argtypes of the module's own build (``own``: the
+    module's loader of that source, ``module._lib`` by default)."""
     import ctypes
 
     out = proc.communicate(timeout=600)[0]
     if proc.returncode != 0:
-        fail(f"nvcc -DMMA_PHASE_CLOCKS failed for {module._SOURCE}:\n{out}")
+        fail(f"nvcc -DMMA_PHASE_CLOCKS failed for {so.name}:\n{out}")
     lib = ctypes.CDLL(str(so))
     for name in names:
-        getattr(lib, name).argtypes = getattr(module._lib(), name).argtypes
+        getattr(lib, name).argtypes = getattr((own or module._lib)(), name).argtypes
         getattr(lib, name).restype = ctypes.c_int
     lib.mma_phase_clocks_read.argtypes = [ctypes.c_void_p]
     return lib
@@ -5282,18 +5353,22 @@ def phases_phase(dev):
     from neuralstyletransferv1_torch.kernels import int8_probes as k12
     from neuralstyletransferv1_torch.kernels import int8_sites as k8
 
-    builds = [_phase_build(k8), _phase_build(k9), _phase_build(k12)]  # all nvcc at once
+    builds = [_phase_build(k8), _phase_build(k9), _phase_build(k12),
+              _phase_build(k8, k8._SOURCE_WG)]  # all nvcc at once
     lib8 = _phase_lib(k8, *builds[0], ("res_site_s8o_launch", "site_s8_launch",
                                        "res_site_launch", "res_site_skip_launch",
                                        "site_s2_launch", "d3_s8_launch", "d3_rows_launch"))
+    libwg = _phase_lib(k8, *builds[3], ("res_site_wg_launch", "site_s8_wg_launch"),
+                       own=k8._lib_wg)
     lib9 = _phase_lib(k9, *builds[1], ("d3_sum_site_launch", "fused_conv_launch",
                                        "d2_site_launch", "c2_site_bf16_launch",
                                        "c3_site_bf16_launch", "d3_rows_launch",
                                        "c1_site_launch"))
     lib12 = _phase_lib(k12, *builds[2], ("shift_dot_launch", "shift_dot_smem_bytes"))
-    base8, base9, base12 = k8._lib, k9._lib, k12._lib
+    base8, base8wg, base9, base12 = k8._lib, k8._lib_wg, k9._lib, k12._lib
     # the wrappers launch the instrumented builds
-    k8._lib, k9._lib, k12._lib = (lambda: lib8), (lambda: lib9), (lambda: lib12)
+    k8._lib, k8._lib_wg, k9._lib, k12._lib = (lambda: lib8), (lambda: libwg), (lambda: lib9), \
+        (lambda: lib12)
     try:
         for name in REDESIGNED:
             for shape, form in INT8_KERNELS[name][0]:
@@ -5301,8 +5376,13 @@ def phases_phase(dev):
                 kernel = site_calls(name, t, shape, form)[0]
                 labels = {"d3_s8_site": PHASES_D3, "d3_rows_site": PHASES_D3_ROWS,
                           "c2_site": PHASES_S2, "c3_site": PHASES_S2}.get(name, PHASES)
-                _phase_shares(lib8, kernel, f"{name} @ {shape}{'/' + form if form else ''}",
-                              labels)
+                case = f"{name} @ {shape}{'/' + form if form else ''}"
+                if on_wgmma(name, SITE_SHAPES[shape][3]):
+                    _phase_shares(libwg, kernel, f"{case} (wgmma core)", PHASES_WG)
+                    _phase_shares(lib8, site_calls(name, t, shape, form, prev=True)[0],
+                                  f"{case} (previous core, mma_kernel)", labels)
+                else:
+                    _phase_shares(lib8, kernel, case, labels)
                 del t, kernel
                 torch.cuda.empty_cache()
         for name in BF16_KERNELS:
@@ -5341,7 +5421,7 @@ def phases_phase(dev):
         del y12, x01
         torch.cuda.empty_cache()
     finally:
-        k8._lib, k9._lib, k12._lib = base8, base9, base12
+        k8._lib, k8._lib_wg, k9._lib, k12._lib = base8, base8wg, base9, base12
 
 
 def k12_phase_cases(dev, k12):
@@ -5393,13 +5473,15 @@ def kernel_group(name: str) -> str:
     return "elementwise"
 
 
-def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir: Path):
+def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir: Path,
+                  reco_only: bool = False):
     """Device time of one steady 1080p B=8 batch of each slice (Johnson,
     NST_Train, ReCoNet, Torch7; the Johnson slices and the sets of
     ``F32_SETS`` under float32; two slots
     with rotating voronoi regions) and of the masked-stylize step, by kind
     of kernel and by kernel (torch.profiler after two warm-up batches; the
-    regions' frames are numbered from 1 each batch)."""
+    regions' frames are numbered from 1 each batch); with ``reco_only`` the
+    ReCoNet slices alone."""
     from neuralstyletransferv1_torch.engine import pipeline as tpipe
 
     frames = moving_frames(3 * B, H, W, SEED + 6)
@@ -5417,12 +5499,16 @@ def profile_phase(dev, nst_ckpt: Path, reco_ckpts: dict, t7_ckpts: dict, workdir
                 "f32" if slot == "johnson" else f"f32 {slot}")
                for slot, mode, fused in F32_SETS]
             + [("none", None, CKPT, "regions")])
+    if reco_only:
+        runs = [r for r in runs if r[3].removeprefix("f32 ").startswith("reco")]
     for mode, fused, ckpt, label in runs:
         if label.endswith("(defaults)"):
             with _without_adoption_file():
                 _profile_slice(dev, mode, fused, ckpt, label, frames)
         else:
             _profile_slice(dev, mode, fused, ckpt, label, frames)
+    if reco_only:
+        return
     profile_masked_step(dev, frames)
     profile_deeplab(dev)
     profile_backends(dev, workdir, frames)
@@ -5636,10 +5722,11 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off for the f32 paths
     t0 = time.perf_counter()
-    _build.build([k1._SOURCE, k8._SOURCE, k9._SOURCE, k12._SOURCE])
+    _build.build([k1._SOURCE, k8._SOURCE, k8._SOURCE_WG, k9._SOURCE, k12._SOURCE])
     for mod in (k1, k8, k9, k12):
         mod._lib()
-    log(f"built K1, K2-K8b, K9a-K11 and K12-K13 with nvcc (in parallel) in "
+    k8._lib_wg()
+    log(f"built K1, K2-K8b (and K3/K4's wgmma core), K9a-K11 and K12-K13 with nvcc (in parallel) in "
         f"{time.perf_counter() - t0:.2f} s")
     with tempfile.TemporaryDirectory() as tmp:
         return run_phases(dev, Path(tmp), k8)
@@ -5653,8 +5740,10 @@ def run_phases(dev, tmp: Path, k8) -> int:
                   for frn in (False, True)}
     t7_ckpts = {norm: t7_checkpoint(tmp / f"eccv16_{norm.replace(' ', '_')}.t7", norm)
                 for norm in ("in", "bn", "bn k4")}
-    if sys.argv[1:] in (["--profile"], ["--phases"]):
-        if sys.argv[1] == "--profile":
+    if sys.argv[1:] in (["--profile"], ["--profile", "reco"], ["--phases"]):
+        if sys.argv[1:] == ["--profile", "reco"]:
+            profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts, tmp, reco_only=True)
+        elif sys.argv[1] == "--profile":
             profile_phase(dev, nst_ckpt, reco_ckpts, t7_ckpts, tmp)
         else:
             phases_phase(dev)
@@ -5707,6 +5796,7 @@ def run_phases(dev, tmp: Path, k8) -> int:
             + [dict(quantize="int8_static", fused=J_S8_TAIL, dtype="float32"),
                dict(quantize="none", fused=TAIL_D3, dtype="float32"),
                dict(quantize="none", fused=D3, dtype="float32"),
+               dict(quantize="int8", fused=J_D3_XLA, dtype="float32"),
                dict(quantize="int8", fused=NST_I8, nst_ckpt=nst_ckpt, dtype="float32"),
                dict(quantize="int8", fused=T7_I8, t7=(t7_ckpts["in"], "in"), dtype="float32"),
                dict(quantize="int8_static", fused=RECO_S8, reco=(reco_ckpts[False], False),
@@ -5744,9 +5834,11 @@ def run_phases(dev, tmp: Path, k8) -> int:
     }]
     for name, (_cases, replaces) in INT8_KERNELS.items():
         rec = int8[name]
+        srcs = sorted({per.get("source", "neuralstyletransferv1_torch/csrc/int8_sites.cu")
+                       for per in rec["per_case"].values()})
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "neuralstyletransferv1_torch/csrc/int8_sites.cu", "replaces": replaces,
+            "name": name, "route": "cuda", "source": srcs[0],
+            "sources": srcs, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,

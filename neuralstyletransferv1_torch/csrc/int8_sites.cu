@@ -22,7 +22,9 @@
 // res_site_s8o_prev_launch, site_s8_prev_launch, res_site_prev_launch,
 // res_site_skip_prev_launch and site_s2_prev_launch (K8a's and K8b's), for
 // timing the two designs side by side. ReCoNet's forms (C = 192 res
-// grid, 96 at its d2): K4 at C in {96, 192} with an optional pre-round floor
+// grid, 96 at its d2; K4's and K3's with bf16 operands run on the wgmma
+// core of int8_wgmma.cu, their instances here are its previous core and the
+// f32 forms): K4 at C in {96, 192} with an optional pre-round floor
 // (FRN's TLU folded into the quantize, the Pallas res_site's tau); K5 at
 // C = 192 with the post-add ReLU or TLU on v (act / tau_act); K2 at C = 192,
 // also with a floored emit (qlo, tau); K3 at C = 192. K8a/K8b are the TPU's
@@ -206,11 +208,23 @@
 // item's 32 x 60 bf16 outputs (3,840 contiguous bytes in the output) for
 // coalesced stores. Weights 46,080 bytes + 8 warps x (landing 9,216 + two
 // code slots 10,368) = 202,752 bytes: a third code slot, or a separate
-// output buffer beside a second landing row, would not fit.
+// output buffer beside a second landing row, would not fit. Its f32 form
+// (the float32 chains' XLA-form decoder hands K7 its f32 d2 raw, which the
+// reference quantizes unrounded) lands each row as f32, 18,432 bytes: at 8
+// warps that is 276,480 bytes, so it runs 6 warps a block, 46,080 + 6 x
+// (18,432 + 10,368) = 218,880. Of the ways that fit (each f32 row in two
+// 64-channel halves through the bf16 landing row; 6 warps; the quantize
+// reading f32 from device memory, as mma_kernel's F32IN stage does), 6 warps
+// keeps the data path: the item after next in flight by cp.async during
+// this item's MMAs and the quantize reading shared memory, where the halves
+// would split the quantize around the MMAs and device-memory reads would put
+// their latency into the quantize, half of the loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -2274,15 +2288,23 @@ int launch_d3s8_mma(const RowsArgs& p, void* stream) {
 // d3rows_mma_kernel: K7 on the int8 tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kRLand = kDHC * 2 * kRC;  // one conv row's raw bf16 input: 36 pixels x 256 bytes
-constexpr int kRPass = kDHC * 16 / 32;  // 16-byte chunks of it a lane: 18
-
+// K7's warps a block and per-warp buffers: the bf16 form lands a conv row's
+// raw input (36 pixels x 128 channels) as bf16 at 8 warps a block; the f32
+// form (the float32 chains' f32 d2 raw, quantized unrounded) lands it as f32,
+// twice the bytes, at 6 warps a block.
+template <bool F32>
 struct D3RowsSmem {
+  static constexpr int WARPS = F32 ? 6 : kWarps;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ES = F32 ? 4 : 2;             // bytes of a raw element
+  static constexpr int LAND = kDHC * ES * kRC;       // one conv row's raw input
+  static constexpr int CPP = ES * kRC / 16;          // its 16-byte chunks a pixel
+  static constexpr int PASS = kDHC * CPP / 32;       // and a lane: 18, f32 36
   static constexpr int W = 5 * kCOT * kDPX;          // [dx][lane][kDPX] weights
   static constexpr int ROW = kDHC * kDPX;            // one conv row of codes, then its outputs
   static constexpr int OUT = kDStrip * kLanes * 2;   // one item's outputs: 32 x 60 bf16
-  static constexpr int WARP = kRLand + 2 * ROW;      // landing buffer, two code slots
-  static constexpr size_t bytes = W + kWarps * WARP;
+  static constexpr int WARP = LAND + 2 * ROW;        // landing buffer, two code slots
+  static constexpr size_t bytes = W + WARPS * WARP;
   static_assert(OUT <= ROW, "an item's outputs are staged in its code slot");
   static_assert(bytes <= 232448, "the block fits in an SM's shared memory");
 };
@@ -2303,18 +2325,23 @@ struct D3Item {
 // item's raw input, 1 its quantize and the loads of the one after issued,
 // 2 this item's MMAs issued, 3 the fragment epilogue (the MMAs' drain
 // included), 4 the item's stores.
+// F32: the raw input is f32 (the float32 chains' d2 raw), landed as f32 in a
+// landing row twice the size at 6 warps a block, and quantized unrounded;
+// the rest is the bf16 form's.
+template <bool F32>
 __global__ void __launch_bounds__(kThreads, 1)
     d3rows_mma_kernel(RowsArgs p, int strips_x, long long rows_total) {
-  using S = D3RowsSmem;
+  using S = D3RowsSmem<F32>;
+  using T = typename std::conditional<F32, float, __nv_bfloat16>::type;
   extern __shared__ __align__(16) uint8_t smem8[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   uint8_t* s_w = smem8;
-  uint8_t* s_land = smem8 + S::W + warp * S::WARP;  // [36][256] raw bf16
-  uint8_t* s_code = s_land + kRLand;                 // [2][36][kDPX] codes
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  uint8_t* s_land = smem8 + S::W + warp * S::WARP;  // [36][128] raw bf16 or f32
+  uint8_t* s_code = s_land + S::LAND;               // [2][36][kDPX] codes
+  const T* x = static_cast<const T*>(p.x);
 
   // weights once: word (dx, k, lane n) → bytes 4k.. of row (dx, n)
-  for (int i = tid; i < 5 * kRCW * kCOT; i += kThreads) {
+  for (int i = tid; i < 5 * kRCW * kCOT; i += S::THREADS) {
     const int n = i % kCOT, k = (i / kCOT) % kRCW, t = i / (kCOT * kRCW);
     *reinterpret_cast<int32_t*>(s_w + (t * kCOT + n) * kDPX + 4 * k) = p.wk[i];
   }
@@ -2334,20 +2361,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   int qb = -1;
   MMA_PHASE_START
 
-  const long long nw = (long long)gridDim.x * kWarps, gw = (long long)blockIdx.x * kWarps + warp;
+  const long long nw = (long long)gridDim.x * S::WARPS;
+  const long long gw = (long long)blockIdx.x * S::WARPS + warp;
   const long long pos = rows_total * gw / nw, end = rows_total * (gw + 1) / nw;
 
-  // item r's raw input into the landing buffer, 36 pixels x 16 chunks, 18 a
-  // lane (the columns outside the image are not read; their codes are 0)
+  // item r's raw input into the landing buffer, 36 pixels x CPP chunks, PASS
+  // a lane (the columns outside the image are not read; their codes are 0)
   auto load = [&](long long r) {
     const D3Item it(r, p.H, strips_x);
-    const __nv_bfloat16* row = x + ((size_t)it.b * p.H + it.y) * p.W * kRC;
+    const T* row = x + ((size_t)it.b * p.H + it.y) * p.W * kRC;
     const uint32_t dst = smem_addr(s_land);
 #pragma unroll
-    for (int k = 0; k < kRPass; ++k) {
-      const int c = lane + 32 * k, xx = it.x0 - 2 + (c >> 4);
+    for (int k = 0; k < S::PASS; ++k) {
+      const int c = lane + 32 * k, xx = it.x0 - 2 + c / S::CPP;
       const bool ok = xx >= 0 && xx < p.W;
-      cp_async16(dst + 16 * c, ok ? row + (size_t)xx * kRC + 8 * (c & 15) : x, ok);
+      cp_async16(dst + 16 * c, ok ? row + (size_t)xx * kRC + (16 / S::ES) * (c % S::CPP) : x, ok);
     }
     cp_async_commit();
   };
@@ -2364,24 +2392,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 #pragma unroll 6  // unrolled by 3 or whole (18) it is no faster (PERF.md section 6)
-    for (int k = 0; k < kRPass; ++k) {
+    for (int k = 0; k < kDHC / 2; ++k) {
       const int px = (lane >> 4) + 2 * k, xx = it.x0 - 2 + px;
       uint2 w = make_uint2(0u, 0u);
       if (xx >= 0 && xx < p.W) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(s_land + px * 2 * kRC + 16 * ch);
-        const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+        float v[8];
+        if (F32) {
+          const float4 lo = *reinterpret_cast<const float4*>(s_land + px * 4 * kRC + 32 * ch);
+          const float4 hi = *reinterpret_cast<const float4*>(s_land + px * 4 * kRC + 32 * ch + 16);
+          v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+          v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+        } else {
+          const uint4 raw = *reinterpret_cast<const uint4*>(s_land + px * 2 * kRC + 16 * ch);
+          const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[2 * j] = bf16_lo(w4[j]);
+            v[2 * j + 1] = bf16_hi(w4[j]);
+          }
+        }
         int q[8];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          q[2 * j] = quantize_i(bf16_lo(w4[j]), qa[2 * j], qc[2 * j], 0.0f);
-          q[2 * j + 1] = quantize_i(bf16_hi(w4[j]), qa[2 * j + 1], qc[2 * j + 1], 0.0f);
-        }
+        for (int j = 0; j < 8; ++j) q[j] = quantize_i(v[j], qa[j], qc[j], 0.0f);
         w = make_uint2(pack4_s8(q[0], q[1], q[2], q[3]), pack4_s8(q[4], q[5], q[6], q[7]));
       }
       *reinterpret_cast<uint2*>(dst + px * kDPX + 8 * ch) = w;
     }
   };
-
   if (pos < end) {
     load(pos);
     cp_async_wait<0>();
@@ -2482,11 +2519,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   MMA_PHASE_END
 }
 
+template <bool F32>
 int launch_d3rows_mma(const RowsArgs& p, void* stream) {
+  using S = D3RowsSmem<F32>;
   if (p.B <= 0 || p.H <= 0 || p.W <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(d3rows_mma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(d3rows_mma_kernel<F32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)D3RowsSmem::bytes);
+                                         (int)S::bytes);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -2495,9 +2534,9 @@ int launch_d3rows_mma(const RowsArgs& p, void* stream) {
   const int strips_x = (p.W + kDStrip - 1) / kDStrip;
   const long long rows_total = (long long)p.B * strips_x * p.H;
   // one block an SM, or fewer where the items do not give each warp one
-  const long long want = (rows_total + kWarps - 1) / kWarps;
+  const long long want = (rows_total + S::WARPS - 1) / S::WARPS;
   const int blocks = (int)(want < sms ? want : sms);
-  d3rows_mma_kernel<<<blocks, kThreads, D3RowsSmem::bytes, static_cast<cudaStream_t>(stream)>>>(
+  d3rows_mma_kernel<F32><<<blocks, S::THREADS, S::bytes, static_cast<cudaStream_t>(stream)>>>(
       p, strips_x, rows_total);
   return (int)cudaGetLastError();
 }
@@ -2843,7 +2882,18 @@ extern "C" int d3_rows_launch(const __nv_bfloat16* x, const float* a, const floa
   RowsArgs p = {};
   p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.out = out;
   p.B = B; p.H = H; p.W = W;
-  return launch_d3rows_mma(p, stream);
+  return launch_d3rows_mma<false>(p, stream);
+}
+
+// K7 with an f32 x (the float32 chains' d2 raw, quantized unrounded; 16-byte
+// aligned), its other arguments as d3_rows_launch's.
+extern "C" int d3_rows_f32_launch(const float* x, const float* a, const float* c,
+                                  const int32_t* wk, const float* ws, __nv_bfloat16* out, int B,
+                                  int H, int W, void* stream) {
+  RowsArgs p = {};
+  p.x = x; p.a = a; p.c = c; p.wk = wk; p.ws = ws; p.out = out;
+  p.B = B; p.H = H; p.W = W;
+  return launch_d3rows_mma<true>(p, stream);
 }
 
 // K7 on the previous __dp4a core (rows_kernel<kQuant, 1>), for timing only.
@@ -2888,4 +2938,5 @@ extern "C" int mma_s2_smem_bytes(int C) {
   }
 }
 extern "C" int d3s8_mma_smem_bytes() { return (int)D3Smem::bytes; }
-extern "C" int d3rows_mma_smem_bytes() { return (int)D3RowsSmem::bytes; }
+extern "C" int d3rows_mma_smem_bytes() { return (int)D3RowsSmem<false>::bytes; }
+extern "C" int d3rows_mma_f32_smem_bytes() { return (int)D3RowsSmem<true>::bytes; }

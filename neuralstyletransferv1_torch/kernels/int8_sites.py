@@ -60,7 +60,11 @@ no affine, residual or emit). A channel count or form a kernel is not built
 for raises.
 
 On the card K2–K5 run on the int8 tensor cores (``mma_kernel``: 8×16
-output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``), K8a and K8b on
+output tiles, [Σ, Σ²] partials per such tile, ``TILE_MMA``); K4 and K3 at
+ReCoNet's widths (``WG_C``) with bf16 operands on their Hopper core
+(``csrc/int8_wgmma.cu``: the same tiles and partials, all output channels
+of a tile in one block, ``wgmma`` on weights streamed by tap in the layout
+``wgmma_weights`` makes, ``wgmma_smem_bytes`` its shared memory), K8a and K8b on
 their stride-2 form (``mma_s2_kernel``, the same tiles; K8b one block on all
 128 output channels), K6 on its own (``d3s8_mma_kernel``: warps walk
 32-column strips down the image) and K7 on its sibling
@@ -69,10 +73,11 @@ quantizing each one item ahead; ``d3_rows_schedule`` mirrors the walk,
 ``d3_rows_smem_bytes`` its shared memory). ``res_site_s8o_prev``,
 ``site_s8_prev``, ``res_site_prev``, ``res_site_skip_prev``,
 ``c2_site_prev``, ``c3_site_prev``, ``d3_s8_site_prev`` and
-``d3_rows_site_prev`` launch K2–K8b on their previous ``__dp4a`` cores
-(``site_kernel``, ``TILE_DP4A``; ``rows_kernel``), for timing the two
-designs side by side; nothing on the main path calls them, they take CUDA
-tensors only, and they count no launch.
+``d3_rows_site_prev`` launch K2–K8b on their previous cores (the ``__dp4a``
+``site_kernel``, ``TILE_DP4A``, and ``rows_kernel``; for K4 and K3 at
+``WG_C``, ``mma_kernel``), for timing the two designs side by side; nothing
+on the main path calls them, they take CUDA tensors only, and they count no
+launch.
 
 The TPU's K8a/K8b run on a column-pair packing with phase-permutation dots;
 that is layout only: the pair weights hold each pixel tap once, and the
@@ -85,7 +90,7 @@ space-to-depth tensor (4 phases × 32) to 60 lanes (5 kernel rows × 12),
 with zero column pads; the weights, ``ws`` and lanes are zero-padded to 64
 (exact: the padded lanes are never read):
 
-  K7  ``d3_rows_site``  quantize bf16 y (floor 0) → 1×5 conv → bf16(acc·ws)
+  K7  ``d3_rows_site``  quantize bf16 or f32 y (floor 0) → 1×5 conv → bf16(acc·ws)
                         rows [B,H,W,60] (``d3_rows_site`` / ``_d3_kernel``)
   K6  ``d3_s8_site``    s8 codes → the same rows, K[r] = bf16(acc·ws), then
                         out[r] = bf16(Σ_dy K[r+dy−2][12·dy + o] + bias), f32
@@ -95,7 +100,8 @@ with zero column pads; the weights, ``ws`` and lanes are zero-padded to 64
 The float32 chains hand an f32 tensor to the first sites of the res chain
 (K2's and K4's x, K5's residual yp, K3's residual y), to conv2's site
 (K8a's x: conv1's f32 output; K4's 2×2 pad-1 form on the NST and Torch7
-nets) and to deconv1's (K4's 2×2 pad-0 form, ReCoNet's K2 at CO = 384);
+nets), to deconv1's (K4's 2×2 pad-0 form, ReCoNet's K2 at CO = 384) and,
+on the XLA-form decoder, to deconv3's rows site (K7's y: the d2 raw);
 the Pallas bodies read it with ``astype(float32)``, so it enters the
 arithmetic unrounded. Each wrapper takes that operand as bf16 or f32 and,
 on the card, launches the matching form (``F32_FORMS``: the f32 forms are
@@ -125,6 +131,7 @@ from ..ops.conv import conv2d_i8
 from .int8_probes import saturate_s8
 
 _SOURCE = "int8_sites.cu"
+_SOURCE_WG = "int8_wgmma.cu"
 LAUNCHES = {"res_site_s8o": 0, "site_s8": 0, "res_site": 0, "res_site_skip": 0,
             "c2_site": 0, "c3_site": 0, "d3_rows_site": 0, "d3_s8_site": 0}
 #: the tap geometries (kh, kw, pt, pl) and the ``Geo`` index of each in
@@ -160,8 +167,10 @@ PROBE_LAUNCHES = dict.fromkeys(K4_PROBE_FORMS.values(), 0)
 #: stride-2 conv), "floor" (K2's floored emit, K5's ``act``), K4's 2×2
 #: "k2p1" (conv2 of the NST and Torch7 nets) and "k2p0" (their deconv1, with
 #: or without ``sw``), "co384" (ReCoNet's static-norm d1: K2 at C = 192 →
-#: CO = 384, either emit). K3's 2×2 form has none: its one f32 operand
-#: would be the residual, which no chain adds to a 2×2 site
+#: CO = 384, either emit), "rows" (K7: the 1×5 rows conv on the XLA-form
+#: decoder's f32 d2 raw; its halo argument is None). K3's 2×2 form has none:
+#: its one f32 operand would be the residual, which no chain adds to a 2×2
+#: site
 F32_FORMS = {("res_site_s8o", "3x3"): ("res_site_s8o_f32", (128, 192), (128,)),
              ("res_site_s8o", "floor"): ("res_site_s8o_f32", (192,), ()),
              ("res_site_s8o", "co384"): ("res_site_s8o_co384_f32", (192,), ()),
@@ -171,7 +180,8 @@ F32_FORMS = {("res_site_s8o", "3x3"): ("res_site_s8o_f32", (128, 192), (128,)),
              ("res_site", "k2p0"): ("res_site_k2p0_f32", (), (128,)),
              ("res_site_skip", "3x3"): ("res_site_skip_f32", (128,), (64, 128)),
              ("res_site_skip", "floor"): ("res_site_skip_f32", (192,), ()),
-             ("c2_site", "3x3"): ("c2_site_f32", (32,), ())}
+             ("c2_site", "3x3"): ("c2_site_f32", (32,), ()),
+             ("d3_rows_site", "rows"): ("d3_rows_site_f32", (128,), ())}
 F32_LAUNCHES = dict.fromkeys((name for name, *_ in F32_FORMS.values()), 0)
 HALOS = {"reflect": 0, "edge": 1, "zero": 2}
 #: the halos of K8 and of K4's and K5's floored forms (``tau``, ``act``)
@@ -183,6 +193,10 @@ RECO_C = 192          # ReCoNet's res width: K2's floored emit, K5's activation
 SITE_C = {"res_site": (64, 96, 128, 192), "site_s8": (64, 128, 192),
           "res_site_s8o": (64, 128, 192)}
 TAU_C = (96, 192)
+#: the input channel counts at which K4 and K3 with bf16 operands (ReCoNet's
+#: widths) run on the wgmma core (``csrc/int8_wgmma.cu``), in passes of
+#: WG_NP output channels over weight units of WG_KU input channels
+WG_C, WG_NP, WG_KU = (96, 192), 192, 96
 HEAD_C = (32, 64)     # and of the stride-2 head kernels (K8a, K8b)
 CO_TILE = 64          # output channels per thread block of the __dp4a core
 #: output tile (rows, columns) of each core: the [Σ, Σ²] partials are per tile
@@ -190,6 +204,7 @@ TILE_DP4A = (8, 16)   # site_kernel: the _prev forms
 TILE_MMA = (8, 16)    # mma_kernel, mma_s2_kernel (int8 tensor cores): K2-K5, K8a, K8b
 D3_C, D3_LANES, D3_OUT = 128, 60, 12  # deconv3's tap-packed rows conv
 D3_STRIP, D3_WARPS = 32, 8            # K6's and K7's strips, warps a block
+D3_WARPS_F32 = 6                      # K7's f32 form's warps a block
 _S8_FLAGS = {"aff": 1, "yadd": 2, "yaff": 4, "s8out": 8}  # K3 epilogue steps
 
 
@@ -205,6 +220,31 @@ def pack_weights(w: torch.Tensor, co_pad: int | None = None) -> torch.Tensor:
         co = co_pad
     words = w.reshape(kh * kw, c // 4, 4, co).permute(0, 1, 3, 2).contiguous()
     return words.view(torch.int32).reshape(kh * kw, c // 4, co)
+
+
+def wgmma_weights(wk: torch.Tensor) -> torch.Tensor:
+    """``pack_weights``' 3×3 words [9, C/4, CO] → the wgmma core's weight
+    units int8 [CO/192, 9, C/96, 6, 192, 16]: unit (pass, tap, k) is input
+    channels 96k.. of the tap for output channels 192·pass.., K-major in
+    core-matrix columns: byte i of row n of column j is the weight of input
+    channel 96k + 16j + i for output channel 192·pass + n."""
+    taps, cw, co = wk.shape
+    c = 4 * cw
+    w = wk.contiguous().view(torch.int8).reshape(taps, cw, co, 4).permute(0, 1, 3, 2)
+    w = w.reshape(taps, c // WG_KU, WG_KU // 16, 16, co // WG_NP, WG_NP)
+    return w.permute(4, 0, 1, 2, 5, 3).contiguous()
+
+
+def wgmma_smem_bytes(C: int) -> int:
+    """The wgmma core's dynamic shared memory at C input channels
+    (``WgSmem``): the weight ring (4 slots of a 96 × 192-byte unit), two
+    code buffers of the 10 × 18 haloed tile at C + 16 bytes a pixel, the 128
+    staged output pixels of 2 × 192 + 16 bytes, 8 epilogue rows of 384 f32,
+    [Σ, Σ²] of 192 channels for the 8 row warps (C = 192) or the 10 storing
+    pixel groups (C = 96), 256 bytes of mbarriers."""
+    groups = 8 if C == 192 else 10
+    return (4 * WG_KU * WG_NP + 2 * 180 * (C + 16) + 128 * (2 * WG_NP + 16)
+            + 8 * 2 * WG_NP * 4 + groups * 2 * WG_NP * 4 + 256)
 
 
 def unpack_weights(wk: torch.Tensor, kh: int = 3, kw: int = 3) -> torch.Tensor:
@@ -417,21 +457,28 @@ def quantize_i(v: torch.Tensor, a: float, c: float, lo: float = 0.0) -> torch.Te
     return (t + torch.tensor(12582912.0, dtype=f)).view(torch.int32) - 0x4B400000
 
 
-def d3_rows_smem_bytes() -> int:
+def d3_rows_warps(f32: bool = False) -> int:
+    """K7's warps a block: 8, or 6 for the f32 form, whose landing rows are
+    twice the size."""
+    return D3_WARPS_F32 if f32 else D3_WARPS
+
+
+def d3_rows_smem_bytes(f32: bool = False) -> int:
     """K7's dynamic shared memory (``D3RowsSmem``): the weights [5][64] rows
-    of 144 bytes, then per warp a landing row of 36 raw bf16 pixels and two
-    code slots of 36 pixels × 144 bytes."""
-    px, cols = D3_C + 16, D3_STRIP + 4
-    return 5 * CO_TILE * px + D3_WARPS * (cols * 2 * D3_C + 2 * cols * px)
+    of 144 bytes, then per warp a landing row of 36 raw pixels (bf16, or f32
+    for the f32 form) and two code slots of 36 pixels × 144 bytes."""
+    px, cols, es = D3_C + 16, D3_STRIP + 4, 4 if f32 else 2
+    return 5 * CO_TILE * px + d3_rows_warps(f32) * (cols * es * D3_C + 2 * cols * px)
 
 
-def d3_rows_schedule(B: int, H: int, W: int, sms: int = 132) -> list:
+def d3_rows_schedule(B: int, H: int, W: int, sms: int = 132, f32: bool = False) -> list:
     """K7's walk, as ``launch_d3rows_mma`` and the kernel take it: per warp
     of the grid, its list of (image, strip, row) items: a contiguous share
     of the B·strips·H items, rows down a strip."""
     strips = -(-W // D3_STRIP)
     total = B * strips * H
-    nw = min(-(-total // D3_WARPS), sms) * D3_WARPS
+    warps = d3_rows_warps(f32)
+    nw = min(-(-total // warps), sms) * warps
     out = []
     for gw in range(nw):
         items = range(total * gw // nw, total * (gw + 1) // nw)
@@ -479,13 +526,32 @@ def _lib():
         "site_s2_prev_launch": [P] * 9 + dims + [Fl, P],
         "d3_rows_launch": [P] * 6 + [I] * 3 + [P],
         "d3_rows_prev_launch": [P] * 6 + [I] * 3 + [P],
+        "d3_rows_f32_launch": [P] * 6 + [I] * 3 + [P],
         "d3_s8_launch": [P] * 5 + [I] * 3 + [P],
         "d3_s8_prev_launch": [P] * 5 + [I] * 3 + [P],
         "mma_kernel_smem_bytes": [I],
         "mma_s2_smem_bytes": [I],
         "d3s8_mma_smem_bytes": [],
         "d3rows_mma_smem_bytes": [],
+        "d3rows_mma_f32_smem_bytes": [],
     }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_wg():
+    """The wgmma core of K4 and K3 at ``WG_C`` (``csrc/int8_wgmma.cu``)."""
+    from ._build import load_library
+
+    lib = load_library(_SOURCE_WG)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {"res_site_wg_launch": [P] * 10 + [I] * 5 + [Fl, I, P],
+            "site_s8_wg_launch": [P] * 12 + [I] * 6 + [Fl, I, I, P],
+            "site_wgmma_smem_bytes": [I]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -670,17 +736,21 @@ def site_s8(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, q
     if f32:
         return _site_s8("site_s8_f32_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
                         qlo, halo, sw, f32=f32)
+    if xq.shape[-1] in WG_C and not geo and halo != "zero":
+        return _site_s8("site_s8_wg_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
+                        qlo, halo, sw)
     return _site_s8("site_s8_launch", True, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo,
                     sw, geo=geo)
 
 
 def site_s8_prev(xq, wk, ws, bias, aa=None, ac=None, y=None, *, yaff=None, qa=None, qc=None,
                  qlo=0.0, halo="reflect", sw=None):
-    """K3 on the previous ``__dp4a`` core, CUDA tensors only: ``chip_smoke.py``
-    times it beside ``site_s8``. Nothing on the main path calls it, and it
-    counts no launch."""
-    return _site_s8("site_s8_prev_launch", False, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc,
-                    qlo, halo, sw)
+    """K3 on its previous core, CUDA tensors only: at C = 64, 128 the
+    ``__dp4a`` core, at ``WG_C`` the ``mma_kernel`` core the wgmma core
+    replaces. ``chip_smoke.py`` times it beside ``site_s8``. Nothing on the
+    main path calls it, and it counts no launch."""
+    fn = "site_s8_launch" if xq.shape[-1] in WG_C and halo != "zero" else "site_s8_prev_launch"
+    return _site_s8(fn, False, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw)
 
 
 def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw, f32=None,
@@ -688,8 +758,10 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
     k = "site_s8"
     c96 = RECO_DEC_FORMS[k][0]
     dev, B, H, W, C, CO = _check_site(k, xq, wk, ws, bias, halo, halos=tuple(HALOS),
-                                      kernel_c=(*SITE_C[k], c96) if count and not geo
-                                      else KERNEL_C, taps=4 if geo else 9)
+                                      kernel_c=KERNEL_C if geo or fn == "site_s8_prev_launch"
+                                      else (*SITE_C[k], c96), taps=4 if geo else 9)
+    if fn == "site_s8_wg_launch":
+        _check_wg_co(k, CO)
     _check_sw(k, halo, sw, W)
     _check(k, "xq", xq, torch.int8, (B, H, W, C), dev)
     _check_aligned(k, "xq", xq)
@@ -723,8 +795,10 @@ def _site_s8(fn, count, xq, wk, ws, bias, aa, ac, y, yaff, qa, qc, qlo, halo, sw
     if C == c96:
         counter = {"name": _reco_dec_form(k, C, CO, halo, bare=flags == 0 and sw is None),
                    "counts": FORM_LAUNCHES}
+    wg = fn == "site_s8_wg_launch"
+    lib, w = (_lib_wg(), wgmma_weights(wk)) if wg else (_lib(), wk)
     with torch.cuda.device(dev):
-        _run(k, getattr(_lib(), fn), xq.data_ptr(), wk.data_ptr(), ws.data_ptr(),
+        _run(k, getattr(lib, fn), xq.data_ptr(), w.data_ptr(), ws.data_ptr(),
              bias.data_ptr(), _ptr(aa), _ptr(ac), _ptr(y), _ptr(ya), _ptr(yc), _ptr(qa),
              _ptr(qc), out.data_ptr(), B, H, W, C, CO, flags, float(qlo), HALOS[halo], sw or W,
              *extra, _stream(dev), count=count, **counter)
@@ -766,6 +840,8 @@ def res_site(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None, prologue="q
     if f32:
         return _res_site("res_site_f32_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo,
                          None, f32=f32, geo=geo, sw=sw)
+    if x.shape[-1] in WG_C:
+        return _res_site_wg(x, a, c, lo, wk, ws, bias, halo, tau)
     return _res_site("res_site_launch", TILE_MMA, True, x, a, c, lo, wk, ws, bias, halo, tau,
                      geo=geo, sw=sw)
 
@@ -797,12 +873,17 @@ def _res_site_probe(x, a, c, lo, wk, ws, bias, halo, tau, prologue, stats):
     return out, sums
 
 
-def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect"):
-    """K4 on the previous ``__dp4a`` core (C = 64, 128; no floor), CUDA
-    tensors only: ``chip_smoke.py`` times it beside ``res_site``. Nothing on
-    the main path calls it, and it counts no launch."""
+def res_site_prev(x, a, c, lo, wk, ws, bias, *, halo="reflect", tau=None):
+    """K4 on its previous core, CUDA tensors only: at C = 64, 128 the
+    ``__dp4a`` core (no floor), at ``WG_C`` the ``mma_kernel`` core the
+    wgmma core replaces (``tau`` there as ``res_site``'s). ``chip_smoke.py``
+    times it beside ``res_site``. Nothing on the main path calls it, and it
+    counts no launch."""
+    if x.shape[-1] in WG_C:
+        return _res_site("res_site_launch", TILE_MMA, False, x, a, c, lo, wk, ws, bias, halo,
+                         tau)
     return _res_site("res_site_prev_launch", TILE_DP4A, False, x, a, c, lo, wk, ws, bias, halo,
-                     None, kernel_c=KERNEL_C)
+                     tau, kernel_c=KERNEL_C)
 
 
 def _zero_halos(C: int, floored: bool) -> tuple:
@@ -828,7 +909,7 @@ def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=No
             _check(k, name, t, torch.float32, (B, C), dev)
     out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
     part, sums = _stats_buffers(B, H, W, CO, dev, tile)
-    extra = (geo, sw or W) if count else ()
+    extra = () if fn == "res_site_prev_launch" else (geo, sw or W)
     name = GEO_FORMS.get((k, geo)) or _sw_form(k, sw, W)
     counter = f32 or ({"name": name, "counts": FORM_LAUNCHES} if name else {})
     with torch.cuda.device(dev):
@@ -836,6 +917,34 @@ def _res_site(fn, tile, count, x, a, c, lo, wk, ws, bias, halo, tau, kernel_c=No
              wk.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(), part.data_ptr(),
              sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo], *extra, _stream(dev),
              count=count, **counter)
+    return out, sums
+
+
+def _check_wg_co(kernel, CO):
+    if CO % WG_NP or CO > 2 * WG_NP:
+        raise ValueError(f"{kernel}: CO={CO}; at C in {WG_C} the kernel is built for CO = "
+                         f"{WG_NP} and {2 * WG_NP}")
+
+
+def _res_site_wg(x, a, c, lo, wk, ws, bias, halo, tau):
+    """K4 at ``WG_C`` on the wgmma core (reflect or edge halo, optional
+    ``tau``; CO = 192 or 384)."""
+    k = "res_site"
+    dev, B, H, W, C, CO = _check_site(k, x, wk, ws, bias, halo)
+    _check_wg_co(k, CO)
+    _check(k, "x", x, torch.bfloat16, (B, H, W, C), dev)
+    _check_aligned(k, "x", x)
+    for name, t in (("a", a), ("c", c), ("tau", tau)):
+        if t is not None:
+            _check(k, name, t, torch.float32, (B, C), dev)
+    out = torch.empty((B, H, W, CO), dtype=torch.bfloat16, device=dev)
+    part, sums = _stats_buffers(B, H, W, CO, dev, TILE_MMA)
+    wg = wgmma_weights(wk)
+    with torch.cuda.device(dev):
+        _run(k, _lib_wg().res_site_wg_launch, x.data_ptr(), a.data_ptr(), c.data_ptr(),
+             _ptr(tau), wg.data_ptr(), ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             part.data_ptr(), sums.data_ptr(), B, H, W, C, CO, float(lo), HALOS[halo],
+             _stream(dev))
     return out, sums
 
 
@@ -980,10 +1089,15 @@ def d3_rows_site(y, a, c, wk, ws):
     """K7: quantize the d2 raw y [B,H,W,128] (a, c [B,128]: the in5 affine
     folded with d3's qin; floor 0 folds the ReLU) → 1×5 int8 conv with zero
     column pads → bf16(acc·ws) rows [B,H,W,60]. ``wk``/``ws``: the
-    tap-packed deconv3 weights and dequant row, padded to 64 lanes. On the
-    card: the int8 tensor cores (y 16-byte aligned)."""
+    tap-packed deconv3 weights and dequant row, padded to 64 lanes. y is
+    bf16, or f32 (the float32 chains' d2 raw, read unrounded: the f32 form,
+    counted in ``F32_LAUNCHES``). On the card: the int8 tensor cores (y
+    16-byte aligned)."""
     if y.device.type == "cpu":
         return d3_rows_site_plain(y, a, c, wk, ws)
+    f32 = _f32_form("d3_rows_site", y, None, form="rows")
+    if f32:
+        return _d3_rows_site("d3_rows_f32_launch", True, y, a, c, wk, ws, f32=f32)
     return _d3_rows_site("d3_rows_launch", True, y, a, c, wk, ws)
 
 
@@ -994,10 +1108,10 @@ def d3_rows_site_prev(y, a, c, wk, ws):
     return _d3_rows_site("d3_rows_prev_launch", False, y, a, c, wk, ws)
 
 
-def _d3_rows_site(fn, count, y, a, c, wk, ws):
+def _d3_rows_site(fn, count, y, a, c, wk, ws, f32=None):
     k = "d3_rows_site"
     dev, B, H, W = _check_rows(k, y, wk, ws)
-    _check(k, "y", y, torch.bfloat16, (B, H, W, D3_C), dev)
+    _check(k, "y", y, torch.float32 if f32 else torch.bfloat16, (B, H, W, D3_C), dev)
     if count:
         _check_aligned(k, "y", y)
     for name, t in (("a", a), ("c", c)):
@@ -1005,7 +1119,7 @@ def _d3_rows_site(fn, count, y, a, c, wk, ws):
     out = torch.empty((B, H, W, D3_LANES), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         _run(k, getattr(_lib(), fn), y.data_ptr(), a.data_ptr(), c.data_ptr(), wk.data_ptr(),
-             ws.data_ptr(), out.data_ptr(), B, H, W, _stream(dev), count=count)
+             ws.data_ptr(), out.data_ptr(), B, H, W, _stream(dev), count=count, **(f32 or {}))
     return out
 
 

@@ -97,7 +97,9 @@ class Site:
     bias: torch.Tensor  # f32 [CO] conv bias (phase-tiled for d1/d2; d3: the baked [12])
     qin: float          # input quantizer 127 / act scale (an f32 value)
     w8: torch.Tensor | None = None  # d3: int8 [1,5,128,60] (the border strips)
-    wb: torch.Tensor | None = None  # d3: bf16 OIHW [60,128,1,5] baked weights
+    wb: torch.Tensor | None = None  # d3: f32 OIHW [60,128,1,5] baked weights (conv2d casts
+                                    # them to the activation's dtype: bf16, or f32 under
+                                    # float32)
     wr: torch.Tensor | None = None  # d3: the same packed for K9b/K9e, bf16 [5,64,128]
 
 
@@ -118,7 +120,7 @@ def prepare_sites(net, quant: dict, device, *, d3=None) -> dict[str, Site]:
                 .to(device),
                 qin=float(q["qin"]), w8=q["w"].to(device),
                 wb=torch.from_numpy(np.asarray(w_row, np.float32)).permute(3, 2, 0, 1)
-                .contiguous().to(device, torch.bfloat16),
+                .contiguous().to(device),
                 wr=k9.pack_rows_weights(torch.from_numpy(np.asarray(w_row, np.float32)))
                 .to(device))
             continue
@@ -563,9 +565,10 @@ def _tail_s8(X: torch.Tensor, net, sites: dict, static_stats: dict) -> torch.Ten
 
 
 def _d3_strip(sl: torch.Tensor, m, inv, net, s3: Site) -> torch.Tensor:
-    """The bf16 deconv3 of a border strip of the d2 raw: reflect halos, the
-    in5 apply + ReLU, the 1×5 conv with the baked bf16 weights, and the
-    dy-sum in bf16 (each add rounds)."""
+    """The deconv3 of a border strip of the d2 raw in its dtype (bf16, or f32
+    on the float32 chains' f32 raw, as the JAX forward with f32 params runs
+    it): reflect halos, the in5 apply + ReLU, the 1×5 conv with the baked
+    weights in that dtype, and the dy-sum (each add rounds)."""
     ps = apply_in_relu(pad_reflect_f2_4px(sl, 32), m, inv, net.in5.weight, net.in5.bias, 4)
     rs = conv2d(ps, s3.wb)                                       # VALID 1×5
     n = rs.shape[1] - 4
@@ -575,13 +578,16 @@ def _d3_strip(sl: torch.Tensor, m, inv, net, s3: Site) -> torch.Tensor:
 def d3_forward(y: torch.Tensor, m, inv, net, s3: Site, *, use_d3_i8: bool) -> torch.Tensor:
     """deconv3 in the JAX engine's tap-packed form with the IO post affine
     baked in (the d3 branch of ``transformer_net_s2d2.apply`` when d3 is an
-    int8 site): y is the d2 raw [B,hb,wb,128] (4 phases × 32), m/inv its in5
-    statistics. With ``use_d3_i8`` the rows conv is K7 (the in5 affine and
-    ReLU folded into its quantize), else the bf16 conv with zero-SAME pads;
-    either way the 2-block border frame comes from the bf16 strips, the
-    dy-sum and the bias add round in bf16 at every add, as the JAX code
-    does. Below 8 blocks the whole conv runs on the reflect-padded tensor.
-    Returns [B,2hb,2wb,3] bf16 on the [0,1] scale (clamp only)."""
+    int8 site): y is the d2 raw [B,hb,wb,128] (4 phases × 32; bf16, or f32
+    from the float32 chains' XLA-form decoder), m/inv its in5 statistics.
+    With ``use_d3_i8`` the rows conv is K7 (the in5 affine and ReLU folded
+    into its quantize; its f32 form on an f32 y, read unrounded) and its
+    rows are bf16, else the conv in y's dtype with zero-SAME pads; either
+    way the 2-block border frame comes from the strips in y's dtype (stored
+    into the rows' dtype), the dy-sum and the bias add round at every add,
+    as the JAX code does. Below 8 blocks the whole conv runs on the
+    reflect-padded tensor. Returns [B,2hb,2wb,3] on the [0,1] scale (clamp
+    only): bf16 from K7's rows or a bf16 y."""
     hb, wb = y.shape[1], y.shape[2]
 
     def dysum(rows):
@@ -594,7 +600,7 @@ def d3_forward(y: torch.Tensor, m, inv, net, s3: Site, *, use_d3_i8: bool) -> to
         rig = _d3_strip(y[:, :, -4:], m, inv, net, s3)[:, :, -2:]
         if use_d3_i8:
             a, c = in_affine(m, inv, *_norm_params(net.in5))
-            K = k8.d3_rows_site(y, (a.repeat(1, 4) * s3.qin).contiguous(),
+            K = k8.d3_rows_site(y.contiguous(), (a.repeat(1, 4) * s3.qin).contiguous(),
                                 (c.repeat(1, 4) * s3.qin).contiguous(), s3.wk, s3.ws)
             rows = F.pad(K, (0, 0, 0, 0, 2, 2))
         else:

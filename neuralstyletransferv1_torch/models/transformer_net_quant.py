@@ -52,8 +52,8 @@ FUSED_SITE_NAMES = ("head_i8", "res_i8", "res_s8", "dec_i8", "dec_s8", "tail_s8"
                     "d3_i8") + sites_bf16.BF16_SITE_NAMES
 #: why a set's int8 site raises under float32 where it would run: the JAX
 #: forward with f32 params raises there too (a bf16 site output meets an f32
-#: XLA conv), or, for ``d3_i8`` on an f32 d2 raw, the port has no K7 form
-#: for it
+#: XLA conv); ``d3_i8`` on the XLA-form decoder's f32 d2 raw runs (K7's f32
+#: form, as the JAX K7 reads that raw unrounded)
 JAX_F32_RAISES = ("the JAX forward with f32 params raises here too (lax.conv_general_dilated: "
                   "a bf16 site output meets an f32 conv)")
 F32_RAISES = {"head_i8": "conv2/conv3's bf16 output reaches an f32 conv: the forward must end "
@@ -173,14 +173,9 @@ def default_sites(static: bool) -> tuple:
     return adopt_overrides.sites("sites_static" if static else "sites")
 
 
-def _raise_f32(name: str, r2: torch.Tensor | None = None):
-    """The float32 forward's raise where ``name``'s site would run: where the
-    JAX forward raises too, or (``d3_i8`` on an f32 d2 raw, where the JAX
-    forward's K7 reads it unrounded) where the port has no such K7 form."""
-    if r2 is not None and r2.dtype == torch.float32:
-        raise NotImplementedError(
-            "the fused site 'd3_i8' under float32 on an f32 d2 raw needs K7 with an f32 input, "
-            "which the port does not build (ROADMAP.md Queue 2)")
+def _raise_f32(name: str):
+    """The float32 forward's raise where ``name``'s site would run and the
+    JAX forward raises too."""
     raise NotImplementedError(f"the fused site {name!r} under float32: {F32_RAISES[name]}; "
                               f"{JAX_F32_RAISES}")
 
@@ -315,8 +310,8 @@ def forward_int8(net: TransformerNet, x: torch.Tensor, sites: dict,
         return sites_bf16.d3_branch(r2, m5, inv5, net, site_weights, d3=d3)
     if s3 is not None:
         use_d3_i8 = "d3_i8" in fused and sites_i8.d3_supported(r2.shape[1], r2.shape[2])
-        if f32 and use_d3_i8:
-            _raise_f32("d3_i8", r2)
+        if f32 and use_d3_i8 and r2.dtype != torch.float32:
+            _raise_f32("d3_i8")  # a site chain's bf16 d2 raw
         return sites_i8.d3_forward(r2, m5, inv5, net, s3, use_d3_i8=use_d3_i8)
     # under float32 the tail runs in f32 on the (bf16) d2 raw of the int8 sites
     y = apply_in_relu(d2s(r2, 2, r2.shape[-1] // 4).to(x.dtype), m5, inv5, net.in5.weight,

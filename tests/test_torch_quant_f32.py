@@ -213,10 +213,10 @@ def test_f32_forms_route_by_dtype_and_check_their_forms():
     """On the CPU the wrappers take either dtype (the plain versions compute
     both and count nothing); the f32 forms' channel counts are checked only
     where a kernel runs, so their table is what the card's instances are
-    (K2-K5 and K8a, K4's 2×2 forms and K2 at CO = 384 under their own
+    (K2-K5, K8a and K7, K4's 2×2 forms and K2 at CO = 384 under their own
     names)."""
     assert {k for k, _ in k8.F32_FORMS} == {"res_site_s8o", "site_s8", "res_site",
-                                            "res_site_skip", "c2_site"}
+                                            "res_site_skip", "c2_site", "d3_rows_site"}
     assert k8.F32_LAUNCHES == dict.fromkeys((name for name, *_ in k8.F32_FORMS.values()), 0)
     with pytest.raises(ValueError, match=r"no f32 form at C=64 with the zero halo \(k2p1\)"):
         k8._f32_form("res_site", torch.zeros((1, 4, 4, 64)), "zero", form="k2p1")
@@ -229,6 +229,10 @@ def test_f32_forms_route_by_dtype_and_check_their_forms():
     assert not k8._f32_form("site_s8", x.to(torch.bfloat16), "reflect")
     with pytest.raises(TypeError):
         k8._f32_form("res_site", x.half(), "reflect")
+    assert k8._f32_form("d3_rows_site", torch.zeros((1, 4, 4, 128)), None, form="rows") == \
+        {"name": "d3_rows_site_f32", "counts": k8.F32_LAUNCHES}
+    with pytest.raises(ValueError, match=r"no f32 form at C=64 .*\(rows\)"):
+        k8._f32_form("d3_rows_site", torch.zeros((1, 4, 4, 64)), None, form="rows")
 
 
 # ---------------------------------------------------------------------------
@@ -382,27 +386,26 @@ def test_f32_int8_forward_matches_jax_apply(johnson, static):
     assert mae <= 1e-2, mae
 
 
-# the sets under float32 whose int8 site still raises where it would run:
-# head_i8 whose forward ends in no bf16 site (tail_s8, d3, tail), and d3_i8
-# (on a site chain's bf16 d2 raw, and on the XLA-form decoder's f32 one);
-# the sets that run are tests/test_torch_f32_sets_johnson.py's
+# the sets under float32 whose int8 site raises where it would run, as the
+# JAX forward raises there: head_i8 whose forward ends in no bf16 site
+# (tail_s8, d3, tail), and d3_i8 on a site chain's bf16 d2 raw; the sets that
+# run (d3_i8 on the XLA-form decoder's f32 raw among them, through K7's f32
+# form) are tests/test_torch_f32_sets_johnson.py's
 F32_RAISING = {"head_i8 alone": (("head_i8",), False, "JAX forward"),
                "head_i8 + int8 chains": (("head_i8", "res_i8", "dec_i8"), False, "JAX forward"),
                "head_i8 + s8 chains, no tail": (("head_i8", "res_i8", "res_s8", "dec_i8",
                                                  "dec_s8"), True, "JAX forward"),
                "d3_i8 on the int8 decoder": (("res_i8", "dec_i8", "d3_i8"), False,
-                                             "JAX forward"),
-               "d3_i8 on the XLA-form decoder": (("d3_i8",), False, "K7 with an f32 input")}
+                                             "JAX forward")}
 
 
 @pytest.mark.parametrize("case", list(F32_RAISING))
 def test_f32_sets_naming_head_or_tail_sites_raise(johnson, case):
     """Under float32 ``head_i8`` raises where its forward ends in no bf16
     site (the JAX forward raises there: a bf16 site output meets an f32
-    conv), and ``d3_i8`` raises where it would run: on a site chain's bf16
-    d2 raw the JAX forward raises too; on the XLA-form decoder's f32 raw the
-    JAX K7 reads it unrounded, a form the port does not build. (``tail_s8``
-    runs under float32, as the JAX forward runs it:
+    conv), and ``d3_i8`` raises on a site chain's bf16 d2 raw, where the JAX
+    forward raises too. (``tail_s8`` and ``d3_i8`` on the XLA-form
+    decoder's f32 raw run under float32, as the JAX forward runs them:
     tests/test_torch_f32_sets_johnson.py.)"""
     names, static, match = F32_RAISING[case]
     bp32, net, x = johnson

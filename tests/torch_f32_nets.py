@@ -241,6 +241,9 @@ F32_MAP = {
     "johnson head_i8+res_i8+dec_i8+d3": (J40I, ("head_i8", "res_i8", "dec_i8", "d3"),
                                          "bfloat16", GATE),
     "johnson head_i8 raises": (J40I, ("head_i8",), "raises", None),
+    # d3_i8 on the XLA-form decoder: K7 reads the f32 d2 raw unrounded, the
+    # border strips run in f32
+    "johnson d3_i8 on the XLA-form decoder": (J40I, ("d3_i8",), "bfloat16", GATE),
     "johnson d3": (J40B, ("d3",), "bfloat16", GATE),
     "johnson tail": (J40B, ("tail",), "float32", GATE),
     "johnson tail+d3": (J40B, ("tail", "d3"), "float32", GATE),
@@ -262,6 +265,29 @@ F32_MAP = {
     "reco frn res_i8+dec_s8": ((reco, True), ("res_i8", "dec_s8"), "float32", GATE),
     "reco frn res_s8+dec_s8": ((reco, True), ("res_s8", "dec_s8"), "float32", GATE),
     "reco frn dec_s8": ((reco, True), ("dec_s8",), "float32", GATE),
+}
+
+
+#: the map's sets by the test file that runs them (the key is the file's
+#: stem after ``test_torch_f32_sets_``): each file's share keeps its worker
+#: near 30 s in the six-worker tier-1 run (every set lowers its own
+#: interpret-mode Pallas sites, 1-2 s each, whatever the other sets lower)
+F32_PARTS = {
+    "johnson": ("johnson head_i8+res_s8+dec_s8+tail_s8", "johnson head_i8+res_s8+dec_s8 raises",
+                "johnson head_i8 raises"),
+    "johnson_2": ("johnson head_i8+res_i8+dec_s8+tail_s8", "johnson dec_s8+tail_s8",
+                  "johnson d3_i8 on the XLA-form decoder"),
+    "johnson_3": ("johnson set A", "johnson res_s8+dec_s8+tail_s8"),
+    "johnson_4": ("johnson head_i8+res_i8+dec_i8+d3", "johnson head_i8+res_s8+dec_s8+d3"),
+    "johnson_5": ("johnson d3", "johnson tail", "johnson tail+d3",
+                  "johnson tail+d3 below the tail gate"),
+    "nets": ("nst res_i8+dec_i8", "nst c2_i8"),
+    "nets_2": ("nst c2_i8+res_i8+dec_i8", "nst c2_i8+dec_i8"),
+    "nets_3": ("nst c2_i8+res_s8+dec_s8+tail_s8", "t7 bn c2_i8+res_s8+dec_s8+tail_s8"),
+    "nets_4": ("nst res_s8+dec_s8+tail_s8", "t7 bn c2_i8", "t7 in c2_i8+res_i8+dec_i8"),
+    "nets_5": ("nst res_s8+dec_s8", "t7 bn res_s8+dec_s8", "t7 bn res_s8+dec_s8+tail_s8"),
+    "nets_6": ("reco in res_s8+dec_s8", "reco frn res_i8+dec_s8", "reco frn res_s8+dec_s8",
+               "reco frn dec_s8"),
 }
 
 
